@@ -3,27 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at the size the project names: RS 10+4
-encode of a seeded 1 GiB volume and the rebuild of two lost shards,
-through the entry points a user calls (`ec_encode_volume`,
-`rebuild_ec_files`, `TorchBackend`). Phases:
+Drives the port's main paths at the size the project names, a seeded
+1 GiB RS 10+4 volume of real needles, through the entry points a user
+calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
+`ec_decode_volume`, `TorchBackend`). Phases:
 
 1. print the card (`nvidia-smi` name and power limit) and build the
    kernels from csrc/ (nvcc for the CUDA kernel, g++ for CRC32C, both at
    once);
-2. hold the kernel against its plain torch version on the card at the
-   main path's shapes, (10, 1 MiB) and (10, 16 MiB) with the 4-row
-   encode matrix and a 2-row decode matrix, and both against the numpy
-   oracle on a sampled 64 KiB window (tolerance 0: exact integer GF
-   arithmetic); time the kernel, the plain version and torch._int_mm on
-   the same bit-plane product (a yardstick the port never calls);
-3. write a seeded 1 GiB .dat (8-byte superblock, ~1 MiB records) and
-   its .idx;
+2. hold `gf2_apply` (the bit-major entry point) against its plain torch
+   version on the card at the encode and rebuild shapes, (10, 1 MiB) and
+   (10, 16 MiB) with the 4-row encode matrix and a 2-row decode matrix,
+   and both against the numpy oracle on a sampled 64 KiB window
+   (tolerance 0: exact integer GF arithmetic); time the kernel, the plain
+   version and torch._int_mm on the same bit-plane product (a yardstick
+   the port never calls);
+2b. the same for `gf2_apply_planes` (the plane-stack entry point) with
+   m = 1, 2 and 4 at m_pad 32 (pack_width 1) and 16 (pack_width 2), timed
+   at the read path's shapes (10, 1 MiB) and (10, 16 MiB), m = 1;
+3. write a seeded 1 GiB .dat of real version-3 needles (about 1 MiB
+   random bodies, real CRC32C and append time) and its .idx;
 4. encode; every shard must verify against the new .ecsum, sampled
    parity windows must equal the oracle's, and the kernel's launch count
    must equal the batch count;
 5. delete shards 3 and 11 and rebuild; the rebuilt files must be
-   sha256-identical to the deleted ones.
+   sha256-identical to the deleted ones;
+6. degraded needle reads with `EcVolume(..., TorchBackend(ctx,
+   impl="cuda_planes"))` and data shard 3 unmounted: every needle that
+   touches shard 3 must read back bit-exact, cached re-reads must launch
+   nothing and read no shard-3 sibling bytes, reads that avoid shard 3
+   must launch nothing, a needle over a flipped byte of shard 5 must heal
+   through verified reconstruction, and the planes kernel's launch count
+   must equal the reconstructions that missed the cache;
+7. `ec.decode` after 5 deletions, with shard 3 removed: the regenerated
+   shard, the .dat (the original cut to the live extent) and the .idx
+   must be identical to what they should be, and the planes kernel must
+   have launched once per rebuild batch.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -49,6 +64,9 @@ SEED = 20261016
 VOLUME_BYTES = 1 << 30
 K, M = 10, 4
 LOST = (3, 11)
+DEGRADED = 3  # data shard unmounted for the read phase
+ROTTEN = 5  # shard whose byte is flipped under one needle
+N_DELETED = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same sheet
 
@@ -82,41 +100,54 @@ def median_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return float(np.median(times))
 
 
-def check_kernel(rs_kernels, rs_torch, gf256, coeffs, n, rng, flush, timed=True):
+def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1):
     """Kernel vs plain version vs numpy oracle at (K, n); returns the
-    shape's row of measurements."""
+    shape's row of measurements. `kind` is "gf2_apply" (bit-major
+    operand) or "gf2_apply_planes" (plane stack of `pack_width`)."""
+    from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
+
     m, k = coeffs.shape
     data_np = rng.integers(0, 256, size=(k, n), dtype=np.uint8)
     data = torch.from_numpy(data_np).cuda()
-    b = rs_torch.bits_from_numpy(rs_torch.bit_matrix_bitmajor(coeffs), "cuda")
-    out = rs_kernels.gf2_apply(b, data, m=m)
-    plain = rs_kernels.gf2_apply_plain(b, data, m)
+    if kind == "gf2_apply":
+        b = rs_torch.bits_from_numpy(rs_torch.bit_matrix_bitmajor(coeffs), "cuda")
+        kernel = lambda: rs_kernels.gf2_apply(b, data, m=m)  # noqa: E731
+        plain = lambda: rs_kernels.gf2_apply_plain(b, data, m)  # noqa: E731
+        operand_bytes = 64 * m * k
+    else:
+        b = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, pack_width), "cuda")
+        kernel = lambda: rs_kernels.gf2_apply_planes(b, data, m=m, pack_width=pack_width)  # noqa: E731
+        plain = lambda: rs_kernels.gf2_apply_planes_plain(b, data, m)  # noqa: E731
+        operand_bytes = b.numel()
+    out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err = int((out.to(torch.int16) - plain.to(torch.int16)).abs().max().item())
-    if err != 0 or not torch.equal(out, plain):
-        raise AssertionError(f"kernel != plain at m={m}, n={n}: max_abs_err {err}")
+    err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max().item())
+    if err != 0 or not torch.equal(out, ref):
+        raise AssertionError(f"{kind} != plain at m={m}, n={n}: max_abs_err {err}")
     w = min(n, 1 << 16)
     off = int(rng.integers(0, n - w + 1))
     want = gf256.matrix_apply(coeffs, data_np[:, off : off + w])
     if not np.array_equal(out[:, off : off + w].cpu().numpy(), want):
-        raise AssertionError(f"kernel != numpy oracle at m={m}, n={n}, offset {off}")
+        raise AssertionError(f"{kind} != numpy oracle at m={m}, n={n}, offset {off}")
     row = {"m": m, "k": k, "n": n, "max_abs_err": err}
+    if kind == "gf2_apply_planes":
+        row["m_pad"] = b.shape[2] // 8
     if not timed:
         return row
-    row["ms"] = median_ms(lambda: rs_kernels.gf2_apply(b, data, m=m), 21, flush)
-    row["plain_ms"] = median_ms(lambda: rs_kernels.gf2_apply_plain(b, data, m), 5, flush)
-    # Yardstick: the same GF(2) product as one int8 GEMM with int32
-    # accumulation (torch._int_mm, cuBLASLt), on bit-planes made
-    # beforehand. It needs more than 16 rows, so a 2-row decode matrix
-    # (16 bit rows) is padded with zero rows to 32.
-    bits8 = b.to(torch.int8)
+    row["ms"] = median_ms(kernel, 21, flush)
+    row["plain_ms"] = median_ms(plain, 5, flush)
+    # Yardstick: the same GF(2) product (the m real rows) as one int8
+    # GEMM with int32 accumulation (torch._int_mm, cuBLASLt), on
+    # bit-planes made beforehand. It needs more than 16 rows, so a
+    # matrix of 8m <= 16 bit rows is padded with zero rows to 32.
+    bits8 = torch.from_numpy(rs_torch.bit_matrix_bitmajor(coeffs)).cuda().to(torch.int8)
     if bits8.shape[0] <= 16:
-        bits8 = torch.cat([bits8, torch.zeros_like(bits8)], dim=0)
+        bits8 = torch.cat([bits8, torch.zeros((32 - bits8.shape[0], 8 * k), dtype=torch.int8, device="cuda")])
     shifts = torch.arange(8, dtype=torch.uint8, device="cuda").view(8, 1, 1)
     planes = ((data.unsqueeze(0) >> shifts) & 1).reshape(8 * k, n).to(torch.int8)
     row["library_ms"] = median_ms(lambda: torch._int_mm(bits8, planes), 11, flush)
     del planes
-    nbytes = (k + m) * n + 64 * m * k
+    nbytes = (k + m) * n + operand_bytes
     ops = 2 * (8 * m) * (8 * k) * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
     row["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -124,41 +155,228 @@ def check_kernel(rs_kernels, rs_torch, gf256, coeffs, n, rng, flush, timed=True)
     return row
 
 
-def write_volume(base: str, rng) -> int:
-    """Seeded .dat of VOLUME_BYTES: an 8-byte superblock (version 3),
-    then needle-sized records (16-byte big-endian header, random body,
-    8-byte aligned), ~1 MiB on average; one 16-byte .idx entry each.
-    The encoder reads the .dat as opaque bytes and parses only .idx."""
-    dat = np.frombuffer(bytearray(rng.bytes(VOLUME_BYTES)), dtype=np.uint8)
-    dat[:8] = np.frombuffer(b"\x03" + bytes(7), np.uint8)
+def write_volume(base: str, rng) -> list[tuple[int, int, int, int]]:
+    """Seeded .dat of at most VOLUME_BYTES: the 8-byte superblock, then
+    real version-3 needles (random body of 512 KiB to 1.5 MiB, about
+    1 MiB on average, CRC32C, append time), and one .idx entry each.
+    Returns (needle id, cookie, .dat offset, body length) per needle."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.super_block import SuperBlock
+    from seaweedfs_tpu_torch.storage.types import NeedleValue, to_stored_offset
+
     ids = np.unique(rng.integers(1, 1 << 40, size=8192))
     rng.shuffle(ids)
+    records = []
     entries = []
-    off = 8
-    while True:
-        size = int(rng.integers(512 << 10, 1536 << 10)) & ~7
-        rec = 16 + size + 4 + 8  # header, body, checksum, timestamp
-        rec += (-rec) % 8
-        if off + rec > VOLUME_BYTES:
-            break
-        nid = int(ids[len(entries)])
-        dat[off : off + 16] = np.frombuffer(
-            struct.pack(">IQI", 0x5EAD0000 + len(entries), nid, size), np.uint8
-        )
-        entries.append(struct.pack(">QIi", nid, off // 8, size))
-        off += rec
-    dat.tofile(base + ".dat")
+    with open(base + ".dat", "wb") as dat:
+        dat.write(SuperBlock(version=3).to_bytes())
+        off = dat.tell()
+        while True:
+            n = Needle(
+                cookie=int(rng.integers(0, 1 << 32)),
+                needle_id=int(ids[len(records)]),
+                data=rng.bytes(int(rng.integers(512 << 10, 1536 << 10))),
+                append_at_ns=time.time_ns(),
+            )
+            raw = n.to_bytes(3)
+            if off + len(raw) > VOLUME_BYTES:
+                break
+            dat.write(raw)
+            size = struct.unpack(">I", raw[12:16])[0]  # the header's body size
+            entries.append(NeedleValue(n.needle_id, to_stored_offset(off), size).to_bytes())
+            records.append((n.needle_id, n.cookie, off, len(n.data)))
+            off += len(raw)
     with open(base + ".idx", "wb") as f:
         f.write(b"".join(entries))
-    return len(entries)
+    return records
 
 
-def sha256(path: str) -> str:
+def sha256(path: str, limit: int | None = None) -> str:
+    """sha256 of the file, or of its first `limit` bytes."""
     h = hashlib.sha256()
+    left = os.path.getsize(path) if limit is None else limit
     with open(path, "rb") as f:
-        while chunk := f.read(16 << 20):
+        while left > 0 and (chunk := f.read(min(16 << 20, left))):
             h.update(chunk)
+            left -= len(chunk)
     return h.hexdigest()
+
+
+def percentile_ms(seconds: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def read_phase(work, base, ctx, records, dat_size, rng):
+    """Phase 6: degraded needle reads with shard DEGRADED unmounted."""
+    from seaweedfs_tpu_torch.ec import EcVolume, TorchBackend
+    from seaweedfs_tpu_torch.ec.decoder import record_actual_size
+    from seaweedfs_tpu_torch.ec.locate import locate_data
+    from seaweedfs_tpu_torch.ops import rs_kernels
+
+    def intervals(rec):
+        _, _, off, body = rec
+        # record size from the body length: data size(4) + data + flags(1)
+        size = record_actual_size(4 + body + 1, 3)
+        return [
+            (*iv.to_shard_and_offset(K), iv.size)
+            for iv in locate_data(off, size, dat_size // K, K)
+        ]
+
+    degraded = [r for r in records if any(sid == DEGRADED for sid, _, _ in intervals(r))]
+    healthy = [
+        r for r in records if all(sid not in (DEGRADED, ROTTEN) for sid, _, _ in intervals(r))
+    ]
+    dat_fd = os.open(base + ".dat", os.O_RDONLY)
+
+    def original(rec) -> bytes:
+        return os.pread(dat_fd, rec[3], rec[2] + 20)  # header(16) + data size(4)
+
+    backend = TorchBackend(ctx, impl="cuda_planes")
+    ev = EcVolume(work, 1, backend=backend)
+    cache = ev.interval_cache
+    try:
+        ev.unmount_shards([DEGRADED])
+        rs_kernels.reset_launches()
+        lat, returned = [], 0
+        b0, t_all = ev.bytes_read, time.perf_counter()
+        for rec in degraded:
+            t0 = time.perf_counter()
+            n = ev.read_needle(rec[0], cookie=rec[1])
+            lat.append(time.perf_counter() - t0)
+            if n.data != original(rec):
+                raise AssertionError(f"degraded read of needle {rec[0]:x} differs")
+            returned += sum(s for _, _, s in intervals(rec))
+        cold_s = time.perf_counter() - t_all
+        cold_read = ev.bytes_read - b0
+        cold_launches = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if cold_launches != cache.loads or cache.hits:
+            raise AssertionError(
+                f"{cold_launches} launches for {cache.loads} cache misses, {cache.hits} hits"
+            )
+
+        # cached re-reads: no launch, and only the needles' healthy
+        # intervals are read from disk
+        lat_cached = []
+        for rec in degraded[-8:]:
+            b1 = ev.bytes_read
+            t0 = time.perf_counter()
+            n = ev.read_needle(rec[0], cookie=rec[1])
+            lat_cached.append(time.perf_counter() - t0)
+            healthy_bytes = sum(s for sid, _, s in intervals(rec) if sid != DEGRADED)
+            if n.data != original(rec) or ev.bytes_read - b1 != healthy_bytes:
+                raise AssertionError(f"cached re-read of needle {rec[0]:x} went wrong")
+        if rs_kernels.LAUNCHES["gf2_apply_planes"] != cold_launches or cache.hits < 8:
+            raise AssertionError("cached re-reads launched the kernel or missed the cache")
+
+        # reads that avoid the lost shard launch nothing
+        lat_healthy = []
+        for i in rng.choice(len(healthy), size=min(100, len(healthy)), replace=False):
+            rec = healthy[int(i)]
+            t0 = time.perf_counter()
+            n = ev.read_needle(rec[0], cookie=rec[1])
+            lat_healthy.append(time.perf_counter() - t0)
+            if n.data != original(rec):
+                raise AssertionError(f"healthy read of needle {rec[0]:x} differs")
+        if rs_kernels.LAUNCHES["gf2_apply_planes"] != cold_launches:
+            raise AssertionError("a healthy read launched the kernel")
+
+        # a flipped byte of shard ROTTEN under one needle: the CRC check
+        # fails and the read heals through verified reconstruction
+        rec = next(
+            r for r in records
+            if any(sid == ROTTEN for sid, _, _ in intervals(r))
+            and all(sid != DEGRADED for sid, _, _ in intervals(r))
+        )
+        sid, shard_off, size = next(iv for iv in intervals(rec) if iv[0] == ROTTEN)
+        at = shard_off + size // 2
+        with open(base + ctx.to_ext(ROTTEN), "r+b") as f:
+            f.seek(at)
+            byte = f.read(1)
+            f.seek(at)
+            f.write(bytes([byte[0] ^ 0x5A]))
+        loads0 = cache.loads
+        n = ev.read_needle(rec[0], cookie=rec[1])
+        if n.data != original(rec):
+            raise AssertionError("self-heal read is not bit-exact")
+        heal_launches = rs_kernels.LAUNCHES["gf2_apply_planes"] - cold_launches
+        if heal_launches < 1 or heal_launches != cache.loads - loads0:
+            raise AssertionError(f"self-heal: {heal_launches} launches, {cache.loads - loads0} misses")
+        launches = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if launches != cache.loads or rs_kernels.LAUNCHES["gf2_apply"]:
+            raise AssertionError("read path launches do not match its cache misses")
+        result = {
+            "degraded_reads": len(degraded),
+            "cold_p50_ms": percentile_ms(lat, 50),
+            "cold_p99_ms": percentile_ms(lat, 99),
+            "cached_p50_ms": percentile_ms(lat_cached, 50),
+            "cached_p99_ms": percentile_ms(lat_cached, 99),
+            "healthy_reads": len(lat_healthy),
+            "healthy_p50_ms": percentile_ms(lat_healthy, 50),
+            "degraded_reads_per_s": len(degraded) / cold_s,
+            "bytes_read_per_byte_returned": cold_read / returned,
+            "reconstructions": launches,
+            "self_heal_launches": heal_launches,
+            "read_stage_seconds": dict(ev.stage_seconds),
+            "backend_stage_seconds": {
+                k: v for k, v in backend.stage_seconds.items() if k in ("pin", "h2d", "kernel", "d2h")
+            },
+        }
+        first = len(records) // 3
+        deleted = [r[0] for r in records[first :: (len(records) - first) // N_DELETED]][:N_DELETED]
+        if len(deleted) != N_DELETED or any(ev.delete_needle(nid) <= 0 for nid in deleted):
+            raise AssertionError(f"deleting needles {deleted} failed")
+    finally:
+        ev.close()
+        os.close(dat_fd)
+    return result, launches, deleted
+
+
+def decode_phase(base, ctx, digest3, deleted):
+    """Phase 7: ec.decode with shard DEGRADED removed (5 needles deleted)."""
+    from seaweedfs_tpu_torch.ec import TorchBackend, ec_decode_volume
+    from seaweedfs_tpu_torch.ec.decoder import find_dat_file_size
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.storage.types import NEEDLE_MAP_ENTRY_SIZE
+
+    with open(base + ".ecx", "rb") as f:
+        ecx = bytearray(f.read())
+    for o in range(0, len(ecx), NEEDLE_MAP_ENTRY_SIZE):  # .ecj folded in place
+        if int.from_bytes(ecx[o : o + 8], "big") in deleted:
+            ecx[o + 12 : o + 16] = b"\xff\xff\xff\xff"
+    shard_size = os.path.getsize(base + ctx.to_ext(DEGRADED))
+    os.unlink(base + ctx.to_ext(DEGRADED))
+    os.replace(base + ".dat", base + ".dat.orig")
+    os.unlink(base + ".idx")
+    stages: dict = {}
+    backend = TorchBackend(ctx, impl="cuda_planes")
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    if not ec_decode_volume(base, ctx, backend=backend, stages=stages):
+        raise AssertionError("decode found no live needle")
+    dt = time.perf_counter() - t0
+    launches = rs_kernels.LAUNCHES["gf2_apply_planes"]
+    batches = -(-shard_size // DEFAULT_BATCH)
+    if launches != batches or rs_kernels.LAUNCHES["gf2_apply"]:
+        raise AssertionError(f"decode launched {launches} planes kernels for {batches} batches")
+    if sha256(base + ctx.to_ext(DEGRADED)) != digest3:
+        raise AssertionError(f"regenerated shard {DEGRADED} differs from the original")
+    live = find_dat_file_size(base, 3)
+    if os.path.getsize(base + ".dat") != live or sha256(base + ".dat") != sha256(base + ".dat.orig", live):
+        raise AssertionError("decoded .dat differs from the original cut to its live extent")
+    with open(base + ".idx", "rb") as f:
+        if f.read() != bytes(ecx):
+            raise AssertionError(".idx differs from .ecx with the deletions as tombstones")
+    stages.update({k: v for k, v in backend.stage_seconds.items() if k in ("pin", "h2d", "kernel", "d2h")})
+    return {
+        "deleted_needles": len(deleted),
+        "dat_bytes": live,
+        "seconds": dt,
+        "gb_per_s": live / dt / 1e9,
+        "launches": launches,
+        "rebuild_batches": batches,
+        "stage_seconds": stages,
+    }, launches
 
 
 def main() -> int:
@@ -175,7 +393,7 @@ def main() -> int:
     from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
     from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
-    from seaweedfs_tpu_torch.ops import _build, gf256, rs_kernels, rs_torch
+    from seaweedfs_tpu_torch.ops import _build, gf256, rs_kernels
 
     # -- 1. the card and the build ------------------------------------------
     card = card_line()
@@ -189,16 +407,20 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # -- 2. kernel vs plain version vs oracle, and timings -----------------------
+    # -- 2. both entry points vs plain version vs oracle, and timings -----------
     rng = np.random.default_rng(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     ctx = ECContext(K, M)
+    matrix = gf256.build_matrix(K, K + M)
     encode_coeffs = gf256.parity_rows(K, M)
     src = tuple(i for i in range(K + M) if i not in LOST)[:K]
-    decode_coeffs = _decode_coeffs(gf256.build_matrix(K, K + M), LOST, src)
-    for n in (1, 7, 127, 1000, 4099, (1 << 20) + 3):
+    decode_coeffs = _decode_coeffs(matrix, LOST, src)
+    read_src = tuple(i for i in range(K + M) if i != DEGRADED)[:K]
+    read_coeffs = _decode_coeffs(matrix, (DEGRADED,), read_src)
+    widths = (1, 7, 127, 1000, 4099, (1 << 20) + 3)
+    for n in widths:
         for coeffs in (encode_coeffs, decode_coeffs):
-            check_kernel(rs_kernels, rs_torch, gf256, coeffs, n, rng, flush, timed=False)
+            check_kernel("gf2_apply", coeffs, n, rng, flush, timed=False)
     rows = {}
     for label, coeffs, n in (
         ("encode 10x1MiB m=4", encode_coeffs, 1 << 20),
@@ -206,19 +428,31 @@ def main() -> int:
         ("encode 10x16MiB m=4", encode_coeffs, 16 << 20),
         ("decode 10x16MiB m=2", decode_coeffs, 16 << 20),
     ):
-        rows[label] = check_kernel(rs_kernels, rs_torch, gf256, coeffs, n, rng, flush)
-        print(f"kernel {label} (tolerance 0, exact): " + json.dumps(rows[label]))
+        rows[label] = check_kernel("gf2_apply", coeffs, n, rng, flush)
+        print(f"gf2_apply {label} (tolerance 0, exact): " + json.dumps(rows[label]))
+
+    # -- 2b. the plane-stack entry point ---------------------------------------
+    for pack_width in (1, 2):  # m_pad 32 and 16
+        for m in (1, 2, 4):
+            coeffs = rng.integers(0, 256, (m, K), dtype=np.uint8)
+            for n in widths:
+                check_kernel("gf2_apply_planes", coeffs, n, rng, flush, timed=False,
+                             pack_width=pack_width)
+    prows = {}
+    for label, n in (("degraded read 10x1MiB m=1", 1 << 20), ("decode 10x16MiB m=1", 16 << 20)):
+        prows[label] = check_kernel("gf2_apply_planes", read_coeffs, n, rng, flush)
+        print(f"gf2_apply_planes {label} (tolerance 0, exact): " + json.dumps(prows[label]))
     del flush
     torch.cuda.empty_cache()
 
-    # -- 3-5. the main path: encode, then rebuild, of a 1 GiB volume ------------
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
+        # -- 3-5. encode, then rebuild, of a 1 GiB volume ------------------------
         base = os.path.join(work, "1")
         t0 = time.perf_counter()
-        n_records = write_volume(base, rng)
+        records = write_volume(base, rng)
         dat_size = os.path.getsize(base + ".dat")
-        print(f"volume: {dat_size} bytes, {n_records} records, "
+        print(f"volume: {dat_size} bytes, {len(records)} needles, "
               f"written in {time.perf_counter() - t0:.3f} s")
 
         backend = TorchBackend(ctx)
@@ -281,29 +515,46 @@ def main() -> int:
         print(f"rebuild: shards {list(LOST)} from {src_bytes} source bytes in {reb_s:.3f} s = "
               f"{src_bytes / reb_s / 1e9:.3f} GB/s; {reb_launches} launches; sha256 identical; "
               f"stage seconds {json.dumps(dict(backend.stage_seconds))}")
+
+        # -- 6. degraded needle reads ----------------------------------------------
+        shutil.copy(base + ctx.to_ext(ROTTEN), base + ctx.to_ext(ROTTEN) + ".orig")
+        read, read_launches, deleted = read_phase(work, base, ctx, records, dat_size, rng)
+        print(f"degraded reads (shard {DEGRADED} unmounted, all bit-exact): {json.dumps(read)}")
+
+        # -- 7. ec.decode ---------------------------------------------------------------
+        os.replace(base + ctx.to_ext(ROTTEN) + ".orig", base + ctx.to_ext(ROTTEN))
+        decode, dec_launches = decode_phase(base, ctx, digests[DEGRADED], deleted)
+        print(f"decode ({N_DELETED} deleted, shard {DEGRADED} regenerated; .dat, .idx and "
+              f"shard identical): {json.dumps(decode)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     main_row = rows["encode 10x1MiB m=4"]
-    kernels = [{
-        "name": "gf2_apply",
-        "route": "cuda",
-        "source": "seaweedfs_tpu_torch/csrc/gf2_apply.cu",
-        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:55",
-        "launches": enc_launches + reb_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]
+    read_row = prows["degraded read 10x1MiB m=1"]
+    kernels = []
+    for name, replaces, launches, row, all_rows in (
+        ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55", enc_launches + reb_launches,
+         main_row, rows),
+        ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257", read_launches + dec_launches,
+         read_row, prows),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/csrc/gf2_apply.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in all_rows.values()),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
-    }))
+    # one card driven, whatever else the host shows
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

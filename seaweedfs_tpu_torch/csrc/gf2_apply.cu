@@ -31,6 +31,26 @@
 // the accumulators stay in registers); rebuild of 2 shards is one launch,
 // 10+4 encode is one launch.
 //
+// Second entry point, gf2_apply_planes: replaces `_rs_kernel_aligned` in
+// seaweedfs_tpu/ops/rs_pallas.py (reached through apply_planes_pallas ->
+// _pallas_apply -> pl.pallas_call). Same function, but the coefficients
+// arrive as the plane stack of rs_torch.bit_matrix_planes, (8, k, 8*m_pad):
+// P[j, c, i*m_pad + r] is bit i of gf_mul(coeff[r, c], 1 << j), rows r >= m
+// zero. m_pad (32 for pack_width 1, 16 for 2) exists only for Mosaic's
+// (sublane, 128) tiling; Hopper has no such rule, so only the fold differs:
+//   col[c][j][r] = sum_i P[j][c][i*m_pad + r0 + r] << i
+// and the streaming loop below is shared (the fold is a template parameter
+// of gf2_apply_kernel). Only the m real rows are computed and written: the
+// TPU kernel's (m_pad, TN) output block, sliced afterwards, never reaches
+// HBM here.
+//   - Bound: (k+m)*n bytes plus the 8*k*8*m_pad operand over 3.35 TB/s.
+//   - Degraded-read shape (m = 1, n from 64 KiB to about 1.1 MiB, one
+//     needle's leaf-aligned extent of one lost shard): about 11 MiB per
+//     launch at n = 1 MiB, so about 3.4 us. The per-block fold is a fixed
+//     cost (8*k*8 bytes of operand per block); at small n it weighs as it
+//     does for gf2_apply, which reached 23 % of its bound at (10, 1 MiB).
+//   - Decode-rebuild shape: (10, 16 MiB), m = 1, 176 MiB, about 55 us.
+//
 // Bounds on an H100 SXM (3.35 TB/s HBM3):
 //   - Memory: the kernel must move (k+m)*n bytes. At n = 1 MiB (10+4 encode
 //     of a volume under 10 GiB, one small-block row per batch) that is
@@ -52,9 +72,24 @@ constexpr int kMaxK = 32;           // ECContext caps the total shard count at 3
 constexpr int kRowsPerLaunch = 8;   // output rows per launch (register accumulators)
 constexpr int kThreads = 256;
 
-template <int M>
+// Operand layouts: the bit-major (8m, 8k) matrix of gf2_apply, or the
+// (8, k, 8*m_pad) plane stack of gf2_apply_planes.
+enum class Layout { kBitMajor, kPlanes };
+
+// Bit i of gf_mul(coeff[row, c], 1 << j); `m_stride` is m for the bit-major
+// matrix and m_pad for the plane stack.
+template <Layout L>
+__device__ __forceinline__ uint32_t operand_bit(const uint8_t* __restrict__ b, int k,
+                                                int m_stride, int row, int c, int j,
+                                                int i) {
+    if (L == Layout::kBitMajor)
+        return b[(int64_t)(i * m_stride + row) * (8 * k) + j * k + c] & 1u;
+    return b[(int64_t)(j * k + c) * (8 * m_stride) + i * m_stride + row] & 1u;
+}
+
+template <int M, Layout L>
 __global__ void __launch_bounds__(kThreads)
-gf2_apply_kernel(const uint8_t* __restrict__ bits, int k, int m_total, int r0,
+gf2_apply_kernel(const uint8_t* __restrict__ bits, int k, int m_stride, int r0,
                  const uint8_t* __restrict__ data, int64_t n,
                  uint8_t* __restrict__ out, bool vec_ok) {
     __shared__ uint32_t s_col[kMaxK * 8 * M];
@@ -65,10 +100,8 @@ gf2_apply_kernel(const uint8_t* __restrict__ bits, int k, int m_total, int r0,
         const int c = cj >> 3;
         const int j = cj & 7;
         uint32_t v = 0;
-        for (int i = 0; i < 8; ++i) {
-            const int64_t row = (int64_t)(i * m_total + r0 + r);
-            v |= (uint32_t)(bits[row * (8 * k) + j * k + c] & 1u) << i;
-        }
+        for (int i = 0; i < 8; ++i)
+            v |= operand_bit<L>(bits, k, m_stride, r0 + r, c, j, i) << i;
         s_col[e] = v * 0x01010101u;
     }
     __syncthreads();
@@ -140,10 +173,46 @@ gf2_apply_kernel(const uint8_t* __restrict__ bits, int k, int m_total, int r0,
     }
 }
 
-template <int M>
-void launch(const uint8_t* bits, int k, int m, int r0, const uint8_t* data, int64_t n,
-            uint8_t* out, bool vec_ok, int blocks, cudaStream_t stream) {
-    gf2_apply_kernel<M><<<blocks, kThreads, 0, stream>>>(bits, k, m, r0, data, n, out, vec_ok);
+template <int M, Layout L>
+void launch(const uint8_t* bits, int k, int m_stride, int r0, const uint8_t* data,
+            int64_t n, uint8_t* out, bool vec_ok, int blocks, cudaStream_t stream) {
+    gf2_apply_kernel<M, L><<<blocks, kThreads, 0, stream>>>(bits, k, m_stride, r0, data, n,
+                                                            out, vec_ok);
+}
+
+// Launches the m output rows in groups of at most kRowsPerLaunch.
+template <Layout L>
+int run(const uint8_t* bits, int k, int m, int m_stride, const uint8_t* data, int64_t n,
+        uint8_t* out, int device, void* stream) {
+    if (n == 0) return 0;
+    int sms = 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const bool vec_ok = n % 16 == 0 && (uintptr_t)data % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const int64_t n_chunks = (n + 15) / 16;
+    int64_t blocks = (n_chunks + kThreads - 1) / kThreads;
+    const int64_t max_blocks = (int64_t)sms * 8;
+    if (blocks > max_blocks) blocks = max_blocks;
+    const int g = (int)blocks;
+    cudaStream_t s = (cudaStream_t)stream;
+    for (int r0 = 0; r0 < m; r0 += kRowsPerLaunch) {
+        const int rows = m - r0 < kRowsPerLaunch ? m - r0 : kRowsPerLaunch;
+        switch (rows) {
+            case 1: launch<1, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            case 2: launch<2, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            case 3: launch<3, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            case 4: launch<4, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            case 5: launch<5, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            case 6: launch<6, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            case 7: launch<7, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+            default: launch<8, L>(bits, k, m_stride, r0, data, n, out, vec_ok, g, s); break;
+        }
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }
 
 }  // namespace
@@ -156,32 +225,14 @@ void launch(const uint8_t* bits, int k, int m, int r0, const uint8_t* data, int6
 extern "C" int gf2_apply(const uint8_t* bits, int k, int m, const uint8_t* data,
                          int64_t n, uint8_t* out, int device, void* stream) {
     if (k < 1 || k > kMaxK || m < 1 || n < 0) return (int)cudaErrorInvalidValue;
-    if (n == 0) return 0;
-    int sms = 0;
-    cudaError_t err = cudaSetDevice(device);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    const bool vec_ok = n % 16 == 0 && (uintptr_t)data % 16 == 0 && (uintptr_t)out % 16 == 0;
-    const int64_t n_chunks = (n + 15) / 16;
-    int64_t blocks = (n_chunks + kThreads - 1) / kThreads;
-    const int64_t max_blocks = (int64_t)sms * 8;
-    if (blocks > max_blocks) blocks = max_blocks;
-    cudaStream_t s = (cudaStream_t)stream;
-    for (int r0 = 0; r0 < m; r0 += kRowsPerLaunch) {
-        const int rows = m - r0 < kRowsPerLaunch ? m - r0 : kRowsPerLaunch;
-        switch (rows) {
-            case 1: launch<1>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            case 2: launch<2>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            case 3: launch<3>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            case 4: launch<4>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            case 5: launch<5>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            case 6: launch<6>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            case 7: launch<7>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-            default: launch<8>(bits, k, m, r0, data, n, out, vec_ok, (int)blocks, s); break;
-        }
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
+    return run<Layout::kBitMajor>(bits, k, m, m, data, n, out, device, stream);
+}
+
+// planes: (8, k, 8*m_pad) u8 0/1 plane stack; data: (k, n) u8; out: (m, n)
+// u8, m <= m_pad: only the m real rows are written. Otherwise as gf2_apply.
+extern "C" int gf2_apply_planes(const uint8_t* planes, int k, int m_pad, int m,
+                                const uint8_t* data, int64_t n, uint8_t* out, int device,
+                                void* stream) {
+    if (k < 1 || k > kMaxK || m < 1 || m > m_pad || n < 0) return (int)cudaErrorInvalidValue;
+    return run<Layout::kPlanes>(planes, k, m, m_pad, data, n, out, device, stream);
 }

@@ -22,6 +22,10 @@ calls); "pin" is the host copy into pinned memory; "disk_read" and
 "write" are wall time of the reader and writer stages, recorded by the
 encoder and rebuild through `add_stage`.
 
+`impl` picks the kernel (RSTorch's impl): "cuda" applies the bit-major
+matrix through `gf2_apply` (JaxBackend impl="pallas"), "cuda_planes" the
+plane stack through `gf2_apply_planes` (JaxBackend impl="pallas_aligned").
+
 Entry points run on "cuda" unless the caller passes device="cpu"; with
 no card, a default-constructed backend raises.
 """
@@ -41,6 +45,7 @@ from ..ops.rs_torch import RSTorch
 from .context import ECContext, ECError
 
 STAGES = ("disk_read", "pin", "h2d", "kernel", "d2h", "write")
+IMPLS = ("cuda", "cuda_planes")
 
 
 def _decode_coeffs(
@@ -72,8 +77,11 @@ class _Pending:
 class TorchBackend:
     """RS encode/apply on one torch device through the GF(2) kernel."""
 
-    def __init__(self, ctx: ECContext, device="cuda"):
+    def __init__(self, ctx: ECContext, device="cuda", impl: str = "cuda"):
+        if impl not in IMPLS:
+            raise ECError(f"unknown TorchBackend impl {impl!r} (want cuda|cuda_planes)")
         self.ctx = ctx
+        self.impl = impl
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -90,7 +98,7 @@ class TorchBackend:
         else:
             raise ECError(f"TorchBackend runs on cuda or cpu, not {self.device}")
         self._rs = RSTorch(
-            ctx.data_shards, ctx.parity_shards, impl="cuda", device=self.device
+            ctx.data_shards, ctx.parity_shards, impl=impl, device=self.device
         )
         self.matrix = self._rs.matrix
         self._stats_lock = threading.Lock()
@@ -201,9 +209,12 @@ class TorchBackend:
 
 
 @functools.lru_cache(maxsize=16)
-def get_backend(name: str, data_shards: int, parity_shards: int) -> TorchBackend:
-    """name: cuda | cpu. There is no "auto": a missing card raises rather
-    than falling back to the CPU."""
+def get_backend(
+    name: str, data_shards: int, parity_shards: int, impl: str = "cuda"
+) -> TorchBackend:
+    """name: cuda | cpu (the device); impl: cuda | cuda_planes (the
+    kernel). There is no "auto": a missing card raises rather than
+    falling back to the CPU."""
     if name not in ("cuda", "cpu"):
         raise ECError(f"unknown EC backend {name!r} (want cuda|cpu)")
-    return TorchBackend(ECContext(data_shards, parity_shards), device=name)
+    return TorchBackend(ECContext(data_shards, parity_shards), device=name, impl=impl)

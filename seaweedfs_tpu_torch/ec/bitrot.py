@@ -171,6 +171,30 @@ class BitrotProtection:
     def has_leaves(self) -> bool:
         return self.leaf_size > 0 and bool(self.shard_leaf_crcs)
 
+    def verify_granularity(self, shard_id: int) -> tuple[int, list[int]]:
+        """(granule_bytes, crc_row) for extent verification: the finest
+        level this sidecar records for `shard_id`. An out-of-range id
+        gets an empty row (verification of it can only fail), never an
+        IndexError."""
+        if self.has_leaves and shard_id < len(self.shard_leaf_crcs):
+            return self.leaf_size, self.shard_leaf_crcs[shard_id]
+        if shard_id < len(self.shard_crcs):
+            return self.block_size, self.shard_crcs[shard_id]
+        return self.block_size, []
+
+    def verify_range(self, shard_id: int, lo: int, data) -> bool:
+        """Verify `data` as the bytes of shard `shard_id` at [lo,
+        lo+len(data)) against the finest granule CRCs the sidecar
+        records. `lo` must be granule-aligned; the final granule may be
+        the shard's partial tail."""
+        gsize, crcs = self.verify_granularity(shard_id)
+        hi = lo + len(data)
+        for gi in range(lo // gsize, -(-hi // gsize)):
+            blk = data[gi * gsize - lo : min((gi + 1) * gsize, hi) - lo]
+            if gi >= len(crcs) or crc32c(blk) != crcs[gi]:
+                return False
+        return True
+
     @classmethod
     def from_builders(
         cls,

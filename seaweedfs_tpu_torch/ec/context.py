@@ -25,6 +25,9 @@ BITROT_BLOCK_SIZE = 16 * 1024 * 1024  # 16 MiB
 # disables leaves (writes a v1 sidecar).
 BITROT_LEAF_SIZE = 64 * 1024  # 64 KiB
 
+# Scrub quarantines a corrupt shard by renaming it to <shard>.bad.
+QUARANTINE_SUFFIX = ".bad"
+
 
 class ECError(Exception):
     pass

@@ -1,4 +1,5 @@
-"""Bounded-queue pipeline shared by encode and rebuild, and the shard sink.
+"""Bounded-queue pipeline shared by encode, rebuild, wide degraded reads
+and decode's de-stripe, and the shard sink.
 
 Port of seaweedfs_tpu/ec/pipeline.py: `run_pipeline` (disk reads in a
 reader thread / H2D + kernel launch in the calling thread / D2H + shard

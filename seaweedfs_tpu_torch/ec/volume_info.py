@@ -11,6 +11,7 @@ JSON — human-debuggable, schema-stable.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -68,3 +69,9 @@ class VolumeInfo:
     def load(cls, path: str) -> "VolumeInfo":
         with open(path) as f:
             return cls.from_json(f.read())
+
+    @classmethod
+    def maybe_load(cls, path: str) -> Optional["VolumeInfo"]:
+        if not os.path.exists(path):
+            return None
+        return cls.load(path)

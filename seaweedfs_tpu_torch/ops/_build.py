@@ -2,9 +2,9 @@
 
 Two sources live in seaweedfs_tpu_torch/csrc/:
 
-- gf2_apply.cu: the CUDA kernel (nvcc, `-gencode arch=compute_90a,
-  code=sm_90a`), a plain C interface with no PyTorch headers, so it
-  builds in seconds;
+- gf2_apply.cu: the CUDA kernel with its two entry points (nvcc,
+  `-gencode arch=compute_90a,code=sm_90a`), a plain C interface with no
+  PyTorch headers, so it builds in seconds;
 - crc32c.cpp: host CRC32C (g++), used by the shard sidecars.
 
 Each library is built into seaweedfs_tpu_torch/build/ (listed in
@@ -111,6 +111,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.gf2_apply_planes
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     else:

@@ -3,15 +3,18 @@
 Port of seaweedfs_tpu/ops/rs_jax.py. GF(256) multiplication by a constant
 is a linear map over GF(2)^8, so an (m x k) coefficient matrix expands to
 an (8m x 8k) 0/1 matrix B and parity is (B @ data_bits) mod 2. The device
-sees only B, in the bit-major layout (`bit_matrix_bitmajor`), and the
-kernel in ops/rs_kernels.py applies it; all GF(256) matrix work (inverse,
-products, expansion) stays on the host in numpy (ops/gf256.py).
+sees only B, in the bit-major layout (`bit_matrix_bitmajor`) or the
+plane-stack layout (`bit_matrix_planes`), and a kernel in
+ops/rs_kernels.py applies it; all GF(256) matrix work (inverse, products,
+expansion) stays on the host in numpy (ops/gf256.py).
 
 `RSTorch` has RSJax's surface: encode, reconstruct(want=, data_only=),
 apply, coeff_bits, _rows_bits, verify, and two locked 64-entry LRU caches
-of expanded matrices. `impl="cuda"` applies through the kernel wrapper
-(which runs the plain version for a CPU tensor); `impl="torch"` always
-runs the plain torch version.
+of expanded matrices, each in the layout its impl applies. `impl="cuda"`
+applies the bit-major matrix through `gf2_apply` (RSJax impl="pallas");
+`impl="cuda_planes"` applies the plane stack through `gf2_apply_planes`
+(RSJax impl="pallas_aligned"); both wrappers run their plain version for
+a CPU tensor. `impl="torch"` always runs the plain bit-major version.
 """
 
 from __future__ import annotations
@@ -42,6 +45,38 @@ def bit_matrix_bitmajor(coeffs: np.ndarray) -> np.ndarray:
     )
 
 
+def bit_matrix_planes(coeffs: np.ndarray, pack_width: int = 1) -> np.ndarray:
+    """(m x k) GF(256) coeffs -> the (8, k, 8*m_pad) uint8 plane stack
+    (rs_pallas.bit_matrix_planes, as uint8 instead of float32).
+
+    p[j, c, i*m_pad + r] is bit i of gf_mul(coeffs[r, c], 1 << j); rows
+    r >= m are zero. m_pad = rs_kernels.aligned_m_pad(m, pack_width)."""
+    coeffs = np.asarray(coeffs, dtype=np.uint8)
+    m, k = coeffs.shape
+    m_pad = rs_kernels.aligned_m_pad(m, pack_width)
+    b = gf256.expand_bit_matrix(coeffs).reshape(m, 8, k, 8)  # [r, i, c, j]
+    out = np.zeros((8, k, 8, m_pad), dtype=np.uint8)
+    out[:, :, :, :m] = b.transpose(3, 2, 1, 0)  # [j, c, i, r]
+    return out.reshape(8, k, 8 * m_pad)
+
+
+def _zero_one_uint8(a: np.ndarray) -> np.ndarray:
+    u = a.astype(np.uint8)
+    if not np.array_equal(u, a) or u.max(initial=0) > 1:
+        raise ValueError("bit matrix entries must be 0 or 1")
+    return np.ascontiguousarray(u)
+
+
+def planes_from_numpy(p: np.ndarray, device) -> torch.Tensor:
+    """An (8, k, 8*m_pad) 0/1 plane stack as numpy (any numeric dtype,
+    e.g. the float32 `rs_pallas.bit_matrix_planes`) -> the
+    `gf2_apply_planes` operand: a contiguous uint8 tensor on `device`."""
+    p = np.asarray(p)
+    if p.ndim != 3 or p.shape[0] != 8 or p.shape[2] % 8:
+        raise ValueError(f"plane stack must be (8, k, 8*m_pad), got {p.shape}")
+    return torch.from_numpy(_zero_one_uint8(p)).to(device)
+
+
 def bits_from_numpy(b: np.ndarray, device) -> torch.Tensor:
     """A bit-major (8m, 8k) 0/1 matrix as numpy (any numeric dtype, e.g.
     the float32 `RSJax(..., impl="pallas")._parity_bits`) -> the kernel
@@ -49,10 +84,15 @@ def bits_from_numpy(b: np.ndarray, device) -> torch.Tensor:
     b = np.asarray(b)
     if b.ndim != 2 or b.shape[0] % 8 or b.shape[1] % 8:
         raise ValueError(f"bit matrix must be (8m, 8k), got {b.shape}")
-    u = b.astype(np.uint8)
-    if not np.array_equal(u, b) or u.max(initial=0) > 1:
-        raise ValueError("bit matrix entries must be 0 or 1")
-    return torch.from_numpy(np.ascontiguousarray(u)).to(device)
+    return torch.from_numpy(_zero_one_uint8(b)).to(device)
+
+
+# impl -> (expansion of an (m x k) coefficient matrix, its device operand)
+_IMPLS = {
+    "cuda": (bit_matrix_bitmajor, bits_from_numpy),
+    "torch": (bit_matrix_bitmajor, bits_from_numpy),
+    "cuda_planes": (bit_matrix_planes, planes_from_numpy),
+}
 
 
 class RSTorch:
@@ -68,13 +108,15 @@ class RSTorch:
         impl: str = "cuda",
         device="cuda",
     ):
-        if impl not in ("cuda", "torch"):
+        if impl not in _IMPLS:
             raise ValueError(f"unknown impl {impl!r}")
         self.k = data_shards
         self.m = parity_shards
         self.n = data_shards + parity_shards
         self.impl = impl
         self.device = torch.device(device)
+        # The expansion this impl's kernel takes; both LRU caches hold it.
+        self._expand, self._from_numpy = _IMPLS[impl]
         self._ref = gf256.ReedSolomon(data_shards, parity_shards)
         self.matrix = self._ref.matrix
         self._parity_bits = self._to_bits(self._ref.parity)
@@ -93,7 +135,7 @@ class RSTorch:
         self._cache_lock = threading.Lock()
 
     def _to_bits(self, coeffs: np.ndarray) -> torch.Tensor:
-        return bits_from_numpy(bit_matrix_bitmajor(coeffs), self.device)
+        return self._from_numpy(self._expand(coeffs), self.device)
 
     def _cached(self, cache, key, make) -> torch.Tensor:
         with self._cache_lock:
@@ -117,6 +159,8 @@ class RSTorch:
     def _apply(self, bits: torch.Tensor, data: torch.Tensor, m_out: int) -> torch.Tensor:
         if self.impl == "cuda":
             return rs_kernels.gf2_apply(bits, data, m=m_out)
+        if self.impl == "cuda_planes":
+            return rs_kernels.gf2_apply_planes(bits, data, m=m_out)
         return rs_kernels.gf2_apply_plain(bits, data, m_out)
 
     # -- encode ------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the CUDA kernel against its plain version
-and the numpy oracle, and the backend's staged path.
+"""PyTorch port on the card: the CUDA kernel's two entry points against
+their plain versions and the numpy oracle, the backend's staged path, and
+degraded reads through EcVolume.
 
 Every test here needs an NVIDIA card and skips without one. This file
 imports no JAX, so it runs where JAX is not installed; on the card run it
@@ -10,13 +11,20 @@ without the JAX-based conftest:
 All comparisons are exact (tolerance 0: integer GF arithmetic).
 """
 
+import os
+import threading
+
 import numpy as np
 import pytest
 import torch
 
-from seaweedfs_tpu_torch.ec import ECContext, TorchBackend, ec_encode_volume
+import seaweedfs_tpu_torch.ec.ec_volume as ecv
+from seaweedfs_tpu_torch.ec import ECContext, EcVolume, TorchBackend, ec_encode_volume
 from seaweedfs_tpu_torch.ec.encoder import write_ec_files
 from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
+from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.super_block import SuperBlock
+from seaweedfs_tpu_torch.storage.types import NeedleValue, to_stored_offset
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +115,99 @@ def test_volume_encode_on_card_matches_cpu(cuda, tmp_path):
     for i in range(14):
         ext = f"1.ec{i:02d}"
         assert (tmp_path / "gpu" / ext).read_bytes() == (tmp_path / "cpu" / ext).read_bytes()
+
+
+@pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20])
+@pytest.mark.parametrize("k,m", [(10, 4), (10, 2), (10, 1), (6, 3), (20, 12)])
+@pytest.mark.parametrize("pack_width", [1, 2])  # m_pad 32 and 16
+def test_planes_kernel_matches_plain_and_oracle(cuda, width, k, m, pack_width):
+    rng = np.random.default_rng(width * 37 + k * 7 + m + pack_width)
+    coeffs = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    data_np = rng.integers(0, 256, (k, width), dtype=np.uint8)
+    p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, pack_width), cuda)
+    data = torch.from_numpy(data_np).to(cuda)
+    before = rs_kernels.LAUNCHES["gf2_apply_planes"]
+    got = rs_kernels.gf2_apply_planes(p, data, m=m, pack_width=pack_width)
+    assert rs_kernels.LAUNCHES["gf2_apply_planes"] == before + 1
+    assert torch.equal(got, rs_kernels.gf2_apply_planes_plain(p, data, m))
+    w = min(width, 4096)
+    assert np.array_equal(
+        got[:, :w].cpu().numpy(), gf256.matrix_apply(coeffs, data_np[:, :w])
+    )
+
+
+@pytest.mark.parametrize("m_pad,pack_width", [(32, 1), (16, 2)])
+def test_planes_kernel_every_m_up_to_m_pad(cuda, m_pad, pack_width):
+    rng = np.random.default_rng(m_pad)
+    data_np = rng.integers(0, 256, (10, 4099), dtype=np.uint8)
+    data = torch.from_numpy(data_np).to(cuda)
+    for m in range(1, m_pad + 1):
+        coeffs = rng.integers(0, 256, (m, 10), dtype=np.uint8)
+        p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, pack_width), cuda)
+        got = rs_kernels.gf2_apply_planes(p, data, m=m, pack_width=pack_width)
+        assert np.array_equal(got.cpu().numpy(), gf256.matrix_apply(coeffs, data_np)), m
+
+
+def _needle_volume(d, n_needles=60, body=200_000, seed=5):
+    """A sealed volume of real needles, EC-encoded on the card with the
+    plane-stack kernel; returns the payloads."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(str(d), "1")
+    bodies = {}
+    with open(base + ".dat", "wb") as dat, open(base + ".idx", "wb") as idx:
+        dat.write(SuperBlock().to_bytes())
+        for nid in range(1, n_needles + 1):
+            bodies[nid] = rng.integers(0, 256, body, dtype=np.uint8).tobytes()
+            n = Needle(cookie=nid, needle_id=nid, data=bodies[nid])
+            off = dat.tell()
+            dat.write(n.to_bytes())
+            idx.write(NeedleValue(nid, to_stored_offset(off), len(n._body())).to_bytes())
+    ctx = ECContext(10, 4)
+    ec_encode_volume(base, ctx, backend=TorchBackend(ctx, impl="cuda_planes"))
+    return bodies
+
+
+def test_concurrent_degraded_readers_on_one_backend(cuda, tmp_path):
+    bodies = _needle_volume(tmp_path)
+    be = TorchBackend(ECContext(10, 4), impl="cuda_planes")
+    ev = EcVolume(str(tmp_path), 1, backend=be)
+    try:
+        ev.unmount_shards([0])
+        ids = list(bodies)
+        errors = []
+        before = rs_kernels.LAUNCHES["gf2_apply_planes"]
+
+        def reader(t):
+            try:
+                for nid in ids[t::12] + ids[:4]:
+                    assert ev.read_needle(nid, cookie=nid).data == bodies[nid]
+            except BaseException as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=reader, args=(t,)) for t in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not errors
+        assert rs_kernels.LAUNCHES["gf2_apply_planes"] - before == ev.interval_cache.loads > 0
+        assert be.stage_seconds["kernel"] > 0
+    finally:
+        ev.close()
+
+
+def test_staged_degraded_reads_on_card(cuda, tmp_path, monkeypatch):
+    bodies = _needle_volume(tmp_path, n_needles=30)
+    monkeypatch.setattr(ecv, "STAGED_RECOVERY_BATCH", 16384)
+    be = TorchBackend(ECContext(10, 4), impl="cuda_planes")
+    calls = []
+    real = be.apply_staged
+    be.apply_staged = lambda c, s: calls.append(1) or real(c, s)
+    ev = EcVolume(str(tmp_path), 1, backend=be, interval_cache_bytes=0)
+    try:
+        ev.unmount_shards([0, 12])
+        for nid, body in bodies.items():
+            assert ev.read_needle(nid, cookie=nid).data == body
+        assert len(calls) > 10
+    finally:
+        ev.close()

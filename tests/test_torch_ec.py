@@ -253,6 +253,26 @@ def test_backend_surface_matches_cpu_backend():
     assert np.array_equal(port.to_host(staged), ref.apply(coeffs, data))
 
 
+@pytest.mark.parametrize("impl", ["cuda", "cuda_planes"])
+def test_backend_impls_match_cpu_backend(impl):
+    rng = np.random.default_rng(22)
+    data = rng.integers(0, 256, (10, 999), dtype=np.uint8)
+    port, ref = TorchBackend(CTX, device="cpu", impl=impl), CpuBackend(JCTX)
+    assert port.impl == impl
+    parity = port.encode(data)
+    assert np.array_equal(parity, ref.encode(data))
+    full = np.concatenate([data, parity])
+    present = {i: full[i] for i in range(14) if i not in (0, 5, 12)}
+    got = port.reconstruct(present)
+    assert sorted(got) == [0, 5, 12]
+    for i in got:
+        assert np.array_equal(got[i], full[i])
+    assert get_backend("cpu", 10, 4, impl=impl).impl == impl
+    assert get_backend("cpu", 10, 4, impl=impl) is get_backend("cpu", 10, 4, impl=impl)
+    with pytest.raises(ECError):
+        TorchBackend(CTX, device="cpu", impl="pallas")
+
+
 # -------------------------------------------------------- CRC32C and build
 
 
@@ -327,19 +347,38 @@ _SUBPROCESS_ENCODE = r"""
 import os, shutil, sys, tempfile
 import numpy as np
 import seaweedfs_tpu_torch
-from seaweedfs_tpu_torch.ec import ECContext, TorchBackend, ec_encode_volume
-from seaweedfs_tpu_torch.storage.types import NeedleValue
+from seaweedfs_tpu_torch.ec import (
+    ECContext, EcVolume, TorchBackend, ec_decode_volume, ec_encode_volume,
+)
+from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.super_block import SuperBlock
+from seaweedfs_tpu_torch.storage.types import NeedleValue, to_stored_offset
 
 d = tempfile.mkdtemp()
 base = os.path.join(d, "7")
 rng = np.random.default_rng(3)
-body = rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes()
-with open(base + ".dat", "wb") as f:
-    f.write(b"\x03" + bytes(7) + body)
-with open(base + ".idx", "wb") as f:
-    for i in range(5):
-        f.write(NeedleValue(10 - i, 1 + i * 1000, 900).to_bytes())
-ec_encode_volume(base, ECContext(10, 4), backend=TorchBackend(ECContext(10, 4), device="cpu"))
+ctx = ECContext(10, 4)
+bodies = {}
+with open(base + ".dat", "wb") as dat, open(base + ".idx", "wb") as idx:
+    dat.write(SuperBlock().to_bytes())
+    for nid in range(1, 40):
+        bodies[nid] = rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes()
+        n = Needle(cookie=nid, needle_id=nid, data=bodies[nid])
+        off = dat.tell()
+        dat.write(n.to_bytes())
+        idx.write(NeedleValue(nid, to_stored_offset(off), len(n._body())).to_bytes())
+ec_encode_volume(base, ctx, backend=TorchBackend(ctx, device="cpu"))
+ev = EcVolume(d, 7, backend="cpu", impl="cuda_planes")
+ev.unmount_shards([0])
+for nid in bodies:
+    assert ev.read_needle(nid, cookie=nid).data == bodies[nid]
+assert ev.bytes_reconstructed > 0
+ev.close()
+original = open(base + ".dat", "rb").read()
+os.unlink(base + ".dat")
+os.unlink(base + ".ec00")
+assert ec_decode_volume(base, backend=TorchBackend(ctx, device="cpu", impl="cuda_planes"))
+assert open(base + ".dat", "rb").read() == original
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
