@@ -17,10 +17,16 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    and both against the numpy oracle on a sampled 64 KiB window
    (tolerance 0: exact integer GF arithmetic); time the kernel, the plain
    version and torch._int_mm on the same bit-plane product (a yardstick
-   the port never calls);
+   the port never calls), and the host time of one wrapper call;
 2b. the same for `gf2_apply_planes` (the plane-stack entry point) with
-   m = 1, 2 and 4 at m_pad 32 (pack_width 1) and 16 (pack_width 2), timed
-   at the read path's shapes (10, 1 MiB) and (10, 16 MiB), m = 1;
+   m = 1, 2 and 4 at m_pad 32 (pack_width 1) and 16 (pack_width 2), also
+   at the widths on its tiles' edges and on data 1 byte off alignment
+   (the masked byte path); timed at m = 1 at the read path's widths,
+   (10, 64 KiB), (10, 256 KiB), (10, 1 MiB) and the decode's (10, 16 MiB),
+   beside `gf2_apply` on the bit-major expansion of the same coefficients
+   at (10, 1 MiB) and (10, 16 MiB), m = 1: the streaming loop that both
+   entry points ran before the planes body was redesigned, as a yardstick
+   timed in the same run;
 3. write a seeded 1 GiB .dat of real version-3 needles (about 1 MiB
    random bodies, real CRC32C and append time) and its .idx;
 4. encode; every shard must verify against the new .ecsum, sampled
@@ -50,6 +56,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -83,9 +90,11 @@ def median_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Median device time of `fn()` over `reps` launches, each after
     overwriting a buffer larger than L2, so every launch reads its
     inputs cold from HBM, as a batch that was just copied in would at
-    best find them. A device-side spin queued before the start event
-    keeps the stream busy while the host enqueues `fn`, so the span
-    holds the device work and not the host's launch latency."""
+    best find them. The overwrite leaves L2 full of dirty lines, which
+    the launch's own traffic evicts and writes back. A device-side spin
+    queued before the start event keeps the stream busy while the host
+    enqueues `fn`, so the span holds the device work and not the host's
+    launch latency."""
     times = []
     for _ in range(reps):
         flush.zero_()
@@ -100,15 +109,37 @@ def median_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return float(np.median(times))
 
 
-def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1):
+def host_us(fn, reps: int) -> float:
+    """Median host time, in microseconds, of one call of `fn`: the
+    wrapper's checks, its output's allocation and the library's launch
+    set-up. A device-side spin keeps the stream busy, so no call waits
+    on the device. On an idle stream this time falls inside the read
+    path's `kernel` span."""
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(1_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
+def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misaligned=False):
     """Kernel vs plain version vs numpy oracle at (K, n); returns the
     shape's row of measurements. `kind` is "gf2_apply" (bit-major
-    operand) or "gf2_apply_planes" (plane stack of `pack_width`)."""
+    operand) or "gf2_apply_planes" (plane stack of `pack_width`).
+    `misaligned` puts the data 1 byte past a 16-byte boundary (a
+    contiguous view of a larger buffer)."""
     from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
 
     m, k = coeffs.shape
     data_np = rng.integers(0, 256, size=(k, n), dtype=np.uint8)
-    data = torch.from_numpy(data_np).cuda()
+    if misaligned:
+        data = torch.empty(k * n + 1, dtype=torch.uint8, device="cuda")[1:].view(k, n)
+        data.copy_(torch.from_numpy(data_np))
+    else:
+        data = torch.from_numpy(data_np).cuda()
     if kind == "gf2_apply":
         b = rs_torch.bits_from_numpy(rs_torch.bit_matrix_bitmajor(coeffs), "cuda")
         kernel = lambda: rs_kernels.gf2_apply(b, data, m=m)  # noqa: E731
@@ -130,11 +161,14 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1):
     if not np.array_equal(out[:, off : off + w].cpu().numpy(), want):
         raise AssertionError(f"{kind} != numpy oracle at m={m}, n={n}, offset {off}")
     row = {"m": m, "k": k, "n": n, "max_abs_err": err}
+    if misaligned:
+        row["data_offset"] = data.data_ptr() % 16
     if kind == "gf2_apply_planes":
         row["m_pad"] = b.shape[2] // 8
     if not timed:
         return row
     row["ms"] = median_ms(kernel, 21, flush)
+    row["host_us"] = host_us(kernel, 101)
     row["plain_ms"] = median_ms(plain, 5, flush)
     # Yardstick: the same GF(2) product (the m real rows) as one int8
     # GEMM with int32 accumulation (torch._int_mm, cuBLASLt), on
@@ -153,6 +187,110 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1):
     row["bound_ms"] = max(t_bytes, t_ops) * 1e3
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
+
+
+# Widths on the edges of the planes body's tiles (4096 columns) and of its
+# grid (132 x 4096: one wave of one-tile blocks on an H100's 132 SMs), one
+# width that is not a multiple of 16 (the masked byte path), and one whose
+# blocks walk several tiles, the last of them partial.
+TILE_EDGES = (4080, 4096, 4112, 132 * 4096 - 16, 132 * 4096, 132 * 4096 + 16,
+              132 * 4096 + 3, (16 << 20) + 48)
+
+
+def kernel_name(mangled: str) -> str:
+    """`gf2_planes_kernel<1>` or `gf2_apply_kernel<4, bit-major>` from a
+    mangled kernel name."""
+    kern = re.search(r"(gf2_[a-z]+_kernel)", mangled)
+    name = f"{kern.group(1) if kern else mangled}<{', '.join(re.findall(r'Li(\d+)E', mangled))}"
+    if layout := re.search(r"LayoutE(\d)E", mangled):
+        name += ", " + ("planes" if layout.group(1) == "1" else "bit-major")
+    return name + ">"
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """`kernel<M, layout>: <registers line>; <spill line>` for each
+    kernel instantiation in the output of ptxas -v."""
+    lines, name, spill = [], "", ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return lines
+
+
+def build() -> None:
+    """Phase 1: print the card, build the kernels from csrc/ (nvcc and
+    g++ at once) and print ptxas's registers and spills per kernel."""
+    from seaweedfs_tpu_torch.ops import _build
+
+    print(f"card: {card_line()}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc and g++ in parallel)")
+    for line in ptxas_lines(logs["gf2_apply"]):
+        print(f"  ptxas: {line}")
+
+
+def rebuild_coeffs(lost: tuple[int, ...]) -> np.ndarray:
+    """The (len(lost), K) rows that rebuild shards `lost` from the first
+    K others, as the backend builds them."""
+    from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
+    from seaweedfs_tpu_torch.ops import gf256
+
+    src = tuple(i for i in range(K + M) if i not in lost)[:K]
+    return _decode_coeffs(gf256.build_matrix(K, K + M), lost, src)
+
+
+def kernel_phases(rng, flush):
+    """Phases 2 and 2b; returns the timed rows of each entry point."""
+    from seaweedfs_tpu_torch.ops import gf256
+
+    encode_coeffs = gf256.parity_rows(K, M)
+    decode_coeffs = rebuild_coeffs(LOST)
+    read_coeffs = rebuild_coeffs((DEGRADED,))
+    widths = (1, 7, 127, 1000, 4099, (1 << 20) + 3)
+    for n in widths:
+        for coeffs in (encode_coeffs, decode_coeffs):
+            check_kernel("gf2_apply", coeffs, n, rng, flush, timed=False)
+    rows = {}
+    for label, coeffs, n in (
+        ("encode 10x1MiB m=4", encode_coeffs, 1 << 20),
+        ("decode 10x1MiB m=2", decode_coeffs, 1 << 20),
+        ("encode 10x16MiB m=4", encode_coeffs, 16 << 20),
+        ("decode 10x16MiB m=2", decode_coeffs, 16 << 20),
+    ):
+        rows[label] = check_kernel("gf2_apply", coeffs, n, rng, flush)
+        print(f"gf2_apply {label} (tolerance 0, exact): " + json.dumps(rows[label]))
+
+    # -- 2b. the plane-stack entry point -------------------------------------
+    for pack_width in (1, 2):  # m_pad 32 and 16
+        for m in (1, 2, 4):
+            coeffs = rng.integers(0, 256, (m, K), dtype=np.uint8)
+            for n in widths + TILE_EDGES:
+                check_kernel("gf2_apply_planes", coeffs, n, rng, flush, timed=False,
+                             pack_width=pack_width)
+            row = check_kernel("gf2_apply_planes", coeffs, 1 << 20, rng, flush, timed=False,
+                               pack_width=pack_width, misaligned=True)
+    print(f"gf2_apply_planes exact at widths {list(widths + TILE_EDGES)} and on misaligned "
+          f"data (offset {row['data_offset']}), m 1, 2, 4, m_pad 32 and 16")
+    prows = {}
+    for label, n in (
+        ("degraded read 10x64KiB m=1", 64 << 10),
+        ("degraded read 10x256KiB m=1", 256 << 10),
+        ("degraded read 10x1MiB m=1", 1 << 20),
+        ("decode 10x16MiB m=1", 16 << 20),
+    ):
+        prows[label] = check_kernel("gf2_apply_planes", read_coeffs, n, rng, flush)
+        print(f"gf2_apply_planes {label} (tolerance 0, exact): " + json.dumps(prows[label]))
+    for label, n in (("10x1MiB m=1", 1 << 20), ("10x16MiB m=1", 16 << 20)):
+        row = check_kernel("gf2_apply", read_coeffs, n, rng, flush)
+        print(f"yardstick: gf2_apply (the old streaming loop) on the same coefficients "
+              f"{label}: " + json.dumps(row))
+    return rows, prows
 
 
 def write_volume(base: str, rng) -> list[tuple[int, int, int, int]]:
@@ -390,60 +528,21 @@ def main() -> int:
         ec_encode_volume,
         rebuild_ec_files,
     )
-    from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
     from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
     from seaweedfs_tpu_torch.ops import _build, gf256, rs_kernels
 
-    # -- 1. the card and the build ------------------------------------------
-    card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc and g++ in parallel)")
-    for line in logs["gf2_apply"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build()
 
-    # -- 2. both entry points vs plain version vs oracle, and timings -----------
+    # -- 2, 2b. both entry points vs plain version vs oracle, and timings ------
     rng = np.random.default_rng(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    ctx = ECContext(K, M)
-    matrix = gf256.build_matrix(K, K + M)
-    encode_coeffs = gf256.parity_rows(K, M)
-    src = tuple(i for i in range(K + M) if i not in LOST)[:K]
-    decode_coeffs = _decode_coeffs(matrix, LOST, src)
-    read_src = tuple(i for i in range(K + M) if i != DEGRADED)[:K]
-    read_coeffs = _decode_coeffs(matrix, (DEGRADED,), read_src)
-    widths = (1, 7, 127, 1000, 4099, (1 << 20) + 3)
-    for n in widths:
-        for coeffs in (encode_coeffs, decode_coeffs):
-            check_kernel("gf2_apply", coeffs, n, rng, flush, timed=False)
-    rows = {}
-    for label, coeffs, n in (
-        ("encode 10x1MiB m=4", encode_coeffs, 1 << 20),
-        ("decode 10x1MiB m=2", decode_coeffs, 1 << 20),
-        ("encode 10x16MiB m=4", encode_coeffs, 16 << 20),
-        ("decode 10x16MiB m=2", decode_coeffs, 16 << 20),
-    ):
-        rows[label] = check_kernel("gf2_apply", coeffs, n, rng, flush)
-        print(f"gf2_apply {label} (tolerance 0, exact): " + json.dumps(rows[label]))
-
-    # -- 2b. the plane-stack entry point ---------------------------------------
-    for pack_width in (1, 2):  # m_pad 32 and 16
-        for m in (1, 2, 4):
-            coeffs = rng.integers(0, 256, (m, K), dtype=np.uint8)
-            for n in widths:
-                check_kernel("gf2_apply_planes", coeffs, n, rng, flush, timed=False,
-                             pack_width=pack_width)
-    prows = {}
-    for label, n in (("degraded read 10x1MiB m=1", 1 << 20), ("decode 10x16MiB m=1", 16 << 20)):
-        prows[label] = check_kernel("gf2_apply_planes", read_coeffs, n, rng, flush)
-        print(f"gf2_apply_planes {label} (tolerance 0, exact): " + json.dumps(prows[label]))
+    rows, prows = kernel_phases(rng, flush)
     del flush
     torch.cuda.empty_cache()
+    ctx = ECContext(K, M)
+    encode_coeffs = gf256.parity_rows(K, M)
 
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:

@@ -2,7 +2,7 @@
 
 Two sources live in seaweedfs_tpu_torch/csrc/:
 
-- gf2_apply.cu: the CUDA kernel with its two entry points (nvcc,
+- gf2_apply.cu: the CUDA kernels behind its two entry points (nvcc,
   `-gencode arch=compute_90a,code=sm_90a`), a plain C interface with no
   PyTorch headers, so it builds in seconds;
 - crc32c.cpp: host CRC32C (g++), used by the shard sidecars.

@@ -1,10 +1,18 @@
-"""The GF(2) bit-matrix apply kernel: wrappers, launch counts, plain versions.
+"""The GF(2) bit-matrix apply kernels: wrappers, launch counts, plain versions.
 
 Port of seaweedfs_tpu/ops/rs_pallas.py:55-339: `_rs_kernel` through
 `apply_bitmajor_pallas`, and `_rs_kernel_aligned` through
-`apply_planes_pallas`. Both are entry points of one CUDA kernel,
-csrc/gf2_apply.cu (CUDA C++ for sm_90a); its source says how it is
-built, what bounds it and how its design differs from the TPU kernels'.
+`apply_planes_pallas`. Both are entry points of one CUDA library,
+csrc/gf2_apply.cu (CUDA C++ for sm_90a), each with a body of its own.
+`gf2_apply` (encode, rebuild) folds its operand before the first load
+of every block and streams each thread's k source rows one 16-byte load
+after another through a byte-mask loop: about a quarter of the byte
+bound at (10, 1 MiB). `gf2_apply_planes` (degraded reads, decode) keeps
+4 source rows per thread in flight through shared memory, folds its
+operand while the first ones land, and makes each bit's byte mask with
+one PRMT; at 1 MiB widths it is held by its ALU work and by the wait
+for each thread's first row, not by the bytes. The source says how each
+is built, what bounds it and what was measured.
 
 `gf2_apply(b, data, m=...)` computes out[r] = XOR_c gf_mul(coeff[r, c],
 data[c]) from the bit-major (8m, 8k) GF(2) expansion `b` of the

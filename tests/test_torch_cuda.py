@@ -117,8 +117,13 @@ def test_volume_encode_on_card_matches_cpu(cuda, tmp_path):
         assert (tmp_path / "gpu" / ext).read_bytes() == (tmp_path / "cpu" / ext).read_bytes()
 
 
-@pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20])
-@pytest.mark.parametrize("k,m", [(10, 4), (10, 2), (10, 1), (6, 3), (20, 12)])
+# The planes body's tile is 4096 columns; 132 x 4096 is one wave of
+# one-tile blocks on an H100. 132 * 4096 + 3 is not a multiple of 16.
+PLANES_EDGES = [4080, 4096, 4112, 132 * 4096 - 16, 132 * 4096, 132 * 4096 + 16, 132 * 4096 + 3]
+
+
+@pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20] + PLANES_EDGES)
+@pytest.mark.parametrize("k,m", [(10, 4), (10, 2), (10, 1), (6, 3), (20, 12), (28, 4)])
 @pytest.mark.parametrize("pack_width", [1, 2])  # m_pad 32 and 16
 def test_planes_kernel_matches_plain_and_oracle(cuda, width, k, m, pack_width):
     rng = np.random.default_rng(width * 37 + k * 7 + m + pack_width)
@@ -146,6 +151,51 @@ def test_planes_kernel_every_m_up_to_m_pad(cuda, m_pad, pack_width):
         p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, pack_width), cuda)
         got = rs_kernels.gf2_apply_planes(p, data, m=m, pack_width=pack_width)
         assert np.array_equal(got.cpu().numpy(), gf256.matrix_apply(coeffs, data_np)), m
+
+
+@pytest.mark.parametrize("width", [4096, 1 << 20, 4099])
+def test_planes_kernel_on_misaligned_data(cuda, width):
+    rng = np.random.default_rng(width)
+    coeffs = rng.integers(0, 256, (2, 10), dtype=np.uint8)
+    data_np = rng.integers(0, 256, (10, width), dtype=np.uint8)
+    p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
+    # a contiguous view 1 byte into a larger buffer
+    data = torch.empty(10 * width + 1, dtype=torch.uint8, device=cuda)[1:].view(10, width)
+    data.copy_(torch.from_numpy(data_np))
+    assert data.data_ptr() % 16 != 0
+    got = rs_kernels.gf2_apply_planes(p, data, m=2)
+    assert torch.equal(got, rs_kernels.gf2_apply_planes_plain(p, data, 2))
+    w = min(width, 4096)
+    assert np.array_equal(got[:, -w:].cpu().numpy(), gf256.matrix_apply(coeffs, data_np[:, -w:]))
+
+
+@pytest.mark.parametrize("m", [1, 2, 9, 32])  # 9: two row groups; 32: all of m_pad
+def test_planes_and_bitmajor_kernels_give_identical_bytes(cuda, m):
+    rng = np.random.default_rng(100 + m)
+    coeffs = rng.integers(0, 256, (m, 10), dtype=np.uint8)
+    data = torch.from_numpy(rng.integers(0, 256, (10, 70000 * 16), dtype=np.uint8)).to(cuda)
+    b = rs_torch.bits_from_numpy(rs_torch.bit_matrix_bitmajor(coeffs), cuda)
+    p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
+    assert torch.equal(rs_kernels.gf2_apply(b, data, m=m), rs_kernels.gf2_apply_planes(p, data, m=m))
+
+
+def test_planes_kernel_back_to_back_on_two_streams(cuda):
+    rng = np.random.default_rng(31)
+    ops = []
+    for m, width in ((1, 1 << 20), (3, 3 << 16)):
+        coeffs = rng.integers(0, 256, (m, 10), dtype=np.uint8)
+        p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
+        data = torch.from_numpy(rng.integers(0, 256, (10, width), dtype=np.uint8)).to(cuda)
+        ops.append((p, data, m))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for stream, (p, data, m) in zip(streams, ops):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(rs_kernels.gf2_apply_planes(p, data, m=m))
+    torch.cuda.synchronize()
+    for out, (p, data, m) in zip(outs, ops):
+        assert torch.equal(out, rs_kernels.gf2_apply_planes_plain(p, data, m))
 
 
 def _needle_volume(d, n_needles=60, body=200_000, seed=5):
