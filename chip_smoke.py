@@ -12,21 +12,23 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    kernels from csrc/ (nvcc for the CUDA kernel, g++ for CRC32C, both at
    once);
 2. hold `gf2_apply` (the bit-major entry point) against its plain torch
-   version on the card at the encode and rebuild shapes, (10, 1 MiB) and
-   (10, 16 MiB) with the 4-row encode matrix and a 2-row decode matrix,
-   and both against the numpy oracle on a sampled 64 KiB window
-   (tolerance 0: exact integer GF arithmetic); time the kernel, the plain
-   version and torch._int_mm on the same bit-plane product (a yardstick
-   the port never calls), and the host time of one wrapper call;
+   version on the card with the 4-row encode matrix and a 2-row decode
+   matrix, at ragged widths, at the widths on its tiles' edges and on
+   data 1 byte off alignment (the masked byte path), and against the
+   numpy oracle on a sampled 64 KiB window (tolerance 0: exact integer GF
+   arithmetic); time it at the encode and rebuild shapes, (10, 1 MiB) and
+   (10, 16 MiB) with each matrix, beside the plain version,
+   torch._int_mm on the same bit-plane product (a yardstick the port
+   never calls), a device copy that moves the same bytes (the memory
+   stream's time under the same method), and the host time of one
+   wrapper call;
 2b. the same for `gf2_apply_planes` (the plane-stack entry point) with
    m = 1, 2 and 4 at m_pad 32 (pack_width 1) and 16 (pack_width 2), also
-   at the widths on its tiles' edges and on data 1 byte off alignment
-   (the masked byte path); timed at m = 1 at the read path's widths,
-   (10, 64 KiB), (10, 256 KiB), (10, 1 MiB) and the decode's (10, 16 MiB),
-   beside `gf2_apply` on the bit-major expansion of the same coefficients
-   at (10, 1 MiB) and (10, 16 MiB), m = 1: the streaming loop that both
-   entry points ran before the planes body was redesigned, as a yardstick
-   timed in the same run;
+   at the widths on its tiles' edges and on misaligned data; timed at
+   m = 1 at the read path's widths, (10, 64 KiB), (10, 256 KiB),
+   (10, 1 MiB) and the decode's (10, 16 MiB), beside `gf2_apply` (the
+   table body) on the bit-major expansion of the same coefficients at
+   (10, 1 MiB) and (10, 16 MiB), m = 1, timed in the same run;
 3. write a seeded 1 GiB .dat of real version-3 needles (about 1 MiB
    random bodies, real CRC32C and append time) and its .idx;
 4. encode; every shard must verify against the new .ecsum, sampled
@@ -181,6 +183,12 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misalign
     planes = ((data.unsqueeze(0) >> shifts) & 1).reshape(8 * k, n).to(torch.int8)
     row["library_ms"] = median_ms(lambda: torch._int_mm(bits8, planes), 11, flush)
     del planes
+    # The memory stream alone: one device copy that reads and writes as
+    # many bytes, (k + m) * n in all, timed the same way.
+    src = torch.empty((k + m) * n // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    row["copy_ms"] = median_ms(lambda: dst.copy_(src), 21, flush)
+    del src, dst
     nbytes = (k + m) * n + operand_bytes
     ops = 2 * (8 * m) * (8 * k) * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
@@ -189,7 +197,7 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misalign
     return row
 
 
-# Widths on the edges of the planes body's tiles (4096 columns) and of its
+# Widths on the edges of the ring bodies' tiles (4096 columns) and of their
 # grid (132 x 4096: one wave of one-tile blocks on an H100's 132 SMs), one
 # width that is not a multiple of 16 (the masked byte path), and one whose
 # blocks walk several tiles, the last of them partial.
@@ -198,7 +206,7 @@ TILE_EDGES = (4080, 4096, 4112, 132 * 4096 - 16, 132 * 4096, 132 * 4096 + 16,
 
 
 def kernel_name(mangled: str) -> str:
-    """`gf2_planes_kernel<1>` or `gf2_apply_kernel<4, bit-major>` from a
+    """`gf2_table_kernel<4>` or `gf2_apply_kernel<4, bit-major>` from a
     mangled kernel name."""
     kern = re.search(r"(gf2_[a-z]+_kernel)", mangled)
     name = f"{kern.group(1) if kern else mangled}<{', '.join(re.findall(r'Li(\d+)E', mangled))}"
@@ -253,9 +261,12 @@ def kernel_phases(rng, flush):
     decode_coeffs = rebuild_coeffs(LOST)
     read_coeffs = rebuild_coeffs((DEGRADED,))
     widths = (1, 7, 127, 1000, 4099, (1 << 20) + 3)
-    for n in widths:
-        for coeffs in (encode_coeffs, decode_coeffs):
+    for coeffs in (encode_coeffs, decode_coeffs):
+        for n in widths + TILE_EDGES:
             check_kernel("gf2_apply", coeffs, n, rng, flush, timed=False)
+        row = check_kernel("gf2_apply", coeffs, 1 << 20, rng, flush, timed=False, misaligned=True)
+    print(f"gf2_apply exact at widths {list(widths + TILE_EDGES)} and on misaligned data "
+          f"(offset {row['data_offset']}), encode m=4 and rebuild m=2 coefficients")
     rows = {}
     for label, coeffs, n in (
         ("encode 10x1MiB m=4", encode_coeffs, 1 << 20),
@@ -288,7 +299,7 @@ def kernel_phases(rng, flush):
         print(f"gf2_apply_planes {label} (tolerance 0, exact): " + json.dumps(prows[label]))
     for label, n in (("10x1MiB m=1", 1 << 20), ("10x16MiB m=1", 16 << 20)):
         row = check_kernel("gf2_apply", read_coeffs, n, rng, flush)
-        print(f"yardstick: gf2_apply (the old streaming loop) on the same coefficients "
+        print(f"yardstick: gf2_apply (the table body) on the same coefficients "
               f"{label}: " + json.dumps(row))
     return rows, prows
 

@@ -3,16 +3,19 @@
 Port of seaweedfs_tpu/ops/rs_pallas.py:55-339: `_rs_kernel` through
 `apply_bitmajor_pallas`, and `_rs_kernel_aligned` through
 `apply_planes_pallas`. Both are entry points of one CUDA library,
-csrc/gf2_apply.cu (CUDA C++ for sm_90a), each with a body of its own.
-`gf2_apply` (encode, rebuild) folds its operand before the first load
-of every block and streams each thread's k source rows one 16-byte load
-after another through a byte-mask loop: about a quarter of the byte
-bound at (10, 1 MiB). `gf2_apply_planes` (degraded reads, decode) keeps
-4 source rows per thread in flight through shared memory, folds its
-operand while the first ones land, and makes each bit's byte mask with
-one PRMT; at 1 MiB widths it is held by its ALU work and by the wait
-for each thread's first row, not by the bytes. The source says how each
-is built, what bounds it and what was measured.
+csrc/gf2_apply.cu (CUDA C++ for sm_90a), with three bodies. Both ring
+bodies keep 4 source rows per thread in flight through shared memory
+and fold their operand while the first ones land. `gf2_apply` (encode,
+rebuild) runs the table body on 16-byte aligned rows: two 16-entry
+tables per source row hold the packed products of the m output rows,
+so a column costs two conflict-free shared loads per source byte
+whatever m is; its work per byte no longer grows with m, and at
+(10, 16 MiB) the memory stream sets its pace. `gf2_apply_planes`
+(degraded reads, decode) runs the planes body: a PRMT byte mask per bit
+and one LOP3 per bit and output row, held by its ALU work past m = 1.
+Rows that are not 16-byte aligned go through the masked byte path. The
+source says what bounds each body at m = 1, 2 and 4 and what was
+measured.
 
 `gf2_apply(b, data, m=...)` computes out[r] = XOR_c gf_mul(coeff[r, c],
 data[c]) from the bit-major (8m, 8k) GF(2) expansion `b` of the

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: the CUDA kernel's two entry points against
-their plain versions and the numpy oracle, the backend's staged path, and
-degraded reads through EcVolume.
+"""PyTorch port on the card: the CUDA kernel's two entry points (and the
+three bodies behind them) against their plain versions and the numpy
+oracle, the backend's staged path, and degraded reads through EcVolume.
 
 Every test here needs an NVIDIA card and skips without one. This file
 imports no JAX, so it runs where JAX is not installed; on the card run it
@@ -20,6 +20,7 @@ import torch
 
 import seaweedfs_tpu_torch.ec.ec_volume as ecv
 from seaweedfs_tpu_torch.ec import ECContext, EcVolume, TorchBackend, ec_encode_volume
+from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
 from seaweedfs_tpu_torch.ec.encoder import write_ec_files
 from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
 from seaweedfs_tpu_torch.storage.needle import Needle
@@ -42,11 +43,36 @@ def _apply(coeffs, data_np, device):
     return b, data, rs_kernels.gf2_apply(b, data, m=coeffs.shape[0])
 
 
-@pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20])
-@pytest.mark.parametrize("k,m", [(10, 4), (10, 2), (10, 1), (6, 3), (20, 12)])
-def test_kernel_matches_plain_and_oracle(cuda, width, k, m):
+def _coeffs(kind, k, m, rng):
+    """Random (m, k) coefficients, the encode rows of RS(k, m), or the two
+    rows that rebuild data shard 3 and parity shard 1 of RS(k, 4) from the
+    first k shards that remain (the smoke's rebuild)."""
+    if kind == "random":
+        return rng.integers(0, 256, (m, k), dtype=np.uint8)
+    if kind == "encode":
+        return gf256.parity_rows(k, m)
+    assert m == 2
+    lost = (3, k + 1)
+    src = tuple(i for i in range(k + 4) if i not in lost)[:k]
+    return _decode_coeffs(gf256.build_matrix(k, k + 4), lost, src)
+
+
+# The ring bodies' tile is 4096 columns; 132 x 4096 is one wave of
+# one-tile blocks on an H100. 132 * 4096 + 3 is not a multiple of 16.
+PLANES_EDGES = [4080, 4096, 4112, 132 * 4096 - 16, 132 * 4096, 132 * 4096 + 16, 132 * 4096 + 3]
+
+
+# (24, 8): two-word table entries at k = 24; m = 9 and 12 take two row
+# groups; "encode" and "rebuild" are the main paths' coefficient sets.
+@pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20] + PLANES_EDGES)
+@pytest.mark.parametrize("k,m,kind", [
+    (10, 4, "random"), (10, 2, "random"), (10, 1, "random"), (6, 3, "random"),
+    (20, 12, "random"), (28, 4, "random"), (24, 8, "random"), (10, 9, "random"),
+    (10, 12, "random"), (10, 4, "encode"), (10, 2, "rebuild"),
+])
+def test_kernel_matches_plain_and_oracle(cuda, width, k, m, kind):
     rng = np.random.default_rng(width * 31 + k * 7 + m)
-    coeffs = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    coeffs = _coeffs(kind, k, m, rng)
     data_np = rng.integers(0, 256, (k, width), dtype=np.uint8)
     b, data, got = _apply(coeffs, data_np, cuda)
     assert torch.equal(got, rs_kernels.gf2_apply_plain(b, data, m))
@@ -117,11 +143,6 @@ def test_volume_encode_on_card_matches_cpu(cuda, tmp_path):
         assert (tmp_path / "gpu" / ext).read_bytes() == (tmp_path / "cpu" / ext).read_bytes()
 
 
-# The planes body's tile is 4096 columns; 132 x 4096 is one wave of
-# one-tile blocks on an H100. 132 * 4096 + 3 is not a multiple of 16.
-PLANES_EDGES = [4080, 4096, 4112, 132 * 4096 - 16, 132 * 4096, 132 * 4096 + 16, 132 * 4096 + 3]
-
-
 @pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20] + PLANES_EDGES)
 @pytest.mark.parametrize("k,m", [(10, 4), (10, 2), (10, 1), (6, 3), (20, 12), (28, 4)])
 @pytest.mark.parametrize("pack_width", [1, 2])  # m_pad 32 and 16
@@ -154,26 +175,35 @@ def test_planes_kernel_every_m_up_to_m_pad(cuda, m_pad, pack_width):
 
 
 @pytest.mark.parametrize("width", [4096, 1 << 20, 4099])
-def test_planes_kernel_on_misaligned_data(cuda, width):
+@pytest.mark.parametrize("entry,m,kind", [
+    ("gf2_apply_planes", 2, "random"), ("gf2_apply", 4, "encode"), ("gf2_apply", 2, "rebuild"),
+])
+def test_planes_kernel_on_misaligned_data(cuda, width, entry, m, kind):
     rng = np.random.default_rng(width)
-    coeffs = rng.integers(0, 256, (2, 10), dtype=np.uint8)
+    coeffs = _coeffs(kind, 10, m, rng)
     data_np = rng.integers(0, 256, (10, width), dtype=np.uint8)
-    p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
     # a contiguous view 1 byte into a larger buffer
     data = torch.empty(10 * width + 1, dtype=torch.uint8, device=cuda)[1:].view(10, width)
     data.copy_(torch.from_numpy(data_np))
     assert data.data_ptr() % 16 != 0
-    got = rs_kernels.gf2_apply_planes(p, data, m=2)
-    assert torch.equal(got, rs_kernels.gf2_apply_planes_plain(p, data, 2))
+    if entry == "gf2_apply_planes":
+        p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
+        got = rs_kernels.gf2_apply_planes(p, data, m=m)
+        assert torch.equal(got, rs_kernels.gf2_apply_planes_plain(p, data, m))
+    else:
+        b = rs_torch.bits_from_numpy(rs_torch.bit_matrix_bitmajor(coeffs), cuda)
+        got = rs_kernels.gf2_apply(b, data, m=m)
+        assert torch.equal(got, rs_kernels.gf2_apply_plain(b, data, m))
     w = min(width, 4096)
     assert np.array_equal(got[:, -w:].cpu().numpy(), gf256.matrix_apply(coeffs, data_np[:, -w:]))
 
 
+@pytest.mark.parametrize("width", [70000 * 16] + PLANES_EDGES)
 @pytest.mark.parametrize("m", [1, 2, 9, 32])  # 9: two row groups; 32: all of m_pad
-def test_planes_and_bitmajor_kernels_give_identical_bytes(cuda, m):
+def test_planes_and_bitmajor_kernels_give_identical_bytes(cuda, m, width):
     rng = np.random.default_rng(100 + m)
     coeffs = rng.integers(0, 256, (m, 10), dtype=np.uint8)
-    data = torch.from_numpy(rng.integers(0, 256, (10, 70000 * 16), dtype=np.uint8)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, (10, width), dtype=np.uint8)).to(cuda)
     b = rs_torch.bits_from_numpy(rs_torch.bit_matrix_bitmajor(coeffs), cuda)
     p = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
     assert torch.equal(rs_kernels.gf2_apply(b, data, m=m), rs_kernels.gf2_apply_planes(p, data, m=m))
