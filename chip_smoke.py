@@ -43,6 +43,21 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    must launch nothing, a needle over a flipped byte of shard 5 must heal
    through verified reconstruction, and the planes kernel's launch count
    must equal the reconstructions that missed the cache;
+6b. scrub with crash-safe leaf repair, on the same volume with every
+   shard back in place: a clean `scrub_ec_volume` pass (wall s, GB/s of
+   shard bytes verified, no launch); then bytes flipped in three leaves
+   of data shard 3 (two of them adjacent) and one of parity shard 12 are
+   found, rebuilt from k verified siblings through `gf2_apply` (one
+   launch per leaf range) and patched in place under the repair journal,
+   with nothing quarantined; then each journal window (and a crash of
+   recovery itself) is hit in a child process that reconstructs on the
+   card and dies with exit code 137, and the next `EcVolume` mount must
+   replay or roll back its journal to a shard that is fully new (or
+   fully old where the window allows it), with the needles over the
+   patched leaves read back bit-exact; a closing scrub leaves shard 3
+   bit-exact; last, shard 5 cut by 4 KiB is quarantined to `.bad` and
+   rebuilt through `gf2_apply`, sha256-identical. Every shard ends
+   sha256-identical to its encode-time bytes;
 7. `ec.decode` after 5 deletions, with shard 3 removed: the regenerated
    shard, the .dat (the original cut to the live extent) and the .idx
    must be identical to what they should be, and the planes kernel must
@@ -75,6 +90,8 @@ K, M = 10, 4
 LOST = (3, 11)
 DEGRADED = 3  # data shard unmounted for the read phase
 ROTTEN = 5  # shard whose byte is flipped under one needle
+LEAF_DATA, LEAF_PARITY = 3, 12  # shards whose leaves rot in phase 6b
+SIZE_ROT = 5  # shard cut short in phase 6b: quarantined and rebuilt
 N_DELETED = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same sheet
@@ -273,6 +290,7 @@ def kernel_phases(rng, flush):
         ("decode 10x1MiB m=2", decode_coeffs, 1 << 20),
         ("encode 10x16MiB m=4", encode_coeffs, 16 << 20),
         ("decode 10x16MiB m=2", decode_coeffs, 16 << 20),
+        ("leaf repair 10x64KiB m=1", read_coeffs, 64 << 10),
     ):
         rows[label] = check_kernel("gf2_apply", coeffs, n, rng, flush)
         print(f"gf2_apply {label} (tolerance 0, exact): " + json.dumps(rows[label]))
@@ -480,6 +498,246 @@ def read_phase(work, base, ctx, records, dat_size, rng):
     return result, launches, deleted
 
 
+# Each window of the repair journal: (point the child dies at, mutate
+# point torn at the same seam, whether recovery must roll forward), and
+# last a crash of recovery itself, mid-replay.
+WINDOWS = [
+    ("ec.repair.journal_write", "ec.repair.journal_bytes", False),
+    ("ec.repair.journal_write", None, False),
+    ("ec.repair.after_journal", None, True),
+    ("ec.repair.patch_write", "ec.repair.patch_bytes", True),
+    ("ec.repair.patch_write", None, True),
+    ("ec.repair.after_patch", None, True),
+    ("ec.repair.after_sidecar", None, True),
+    ("ec.repair.patch_write", None, True),  # recovery killed mid-replay
+]
+
+# The child of one crash window: arms the port's fault registry, then
+# either repairs the rotten leaves of a shard (reconstructing on the
+# card) or recovers a pending journal, and dies at the armed point.
+CRASH_CHILD = r"""
+import sys
+from seaweedfs_tpu_torch import faults
+from seaweedfs_tpu_torch.ec import ECContext, TorchBackend, reconstruct_leaves
+from seaweedfs_tpu_torch.ec.bitrot import BitrotProtection
+from seaweedfs_tpu_torch.ec.repair_journal import (
+    apply_leaf_repair, leaf_verdict, recover_volume_journals,
+)
+from seaweedfs_tpu_torch.ops import rs_kernels
+
+base, sid, point, mutate_point, mode = sys.argv[1:6]
+sid, ctx = int(sid), ECContext(10, 4)
+faults.inject(point, faults.hard_exit(137))
+if mutate_point != "-":
+    faults.inject(mutate_point, faults.truncate(0.5))
+if mode == "recover":
+    recover_volume_journals(base, ctx)
+else:
+    prot = BitrotProtection.load(base + ".ecsum")
+    path = base + ctx.to_ext(sid)
+
+    def read_range(s, lo, size):
+        with open(base + ctx.to_ext(s), "rb") as f:
+            f.seek(lo)
+            return f.read(size)
+
+    patches = reconstruct_leaves(
+        prot, ctx, sid, leaf_verdict(path, sid, prot), read_range,
+        [i for i in range(ctx.total) if i != sid], backend=TorchBackend(ctx),
+    )
+    print("leaves", [p.leaf for p in patches], "launches",
+          rs_kernels.LAUNCHES["gf2_apply"], flush=True)
+    apply_leaf_repair(path, sid, prot, patches)
+sys.exit(3)  # the armed point never fired
+"""
+
+
+def flip(path: str, at: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 0xA5]))
+
+
+def scrub_phase(work, base, ctx, records, dat_size, digests):
+    """Phase 6b: scrub, leaf repair, crash windows healed at mount,
+    quarantine and rebuild. Returns (result, gf2_apply launches)."""
+    from seaweedfs_tpu_torch.ec import (
+        BitrotProtection, EcVolume, LeafPatch, RepairJournal, TorchBackend, scrub_ec_volume,
+    )
+    from seaweedfs_tpu_torch.ec.decoder import record_actual_size
+    from seaweedfs_tpu_torch.ec.locate import locate_data
+    from seaweedfs_tpu_torch.ec.repair_journal import journal_path, leaf_ranges
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.utils.crc import crc32c
+    from seaweedfs_tpu_torch.utils.fs import atomic_write
+
+    shard = {i: base + ctx.to_ext(i) for i in range(ctx.total)}
+    for i in range(ctx.total):
+        if sha256(shard[i]) != digests[i]:
+            raise AssertionError(f"phase 6b starts with shard {i} not as encoded")
+    prot = BitrotProtection.load(base + ".ecsum")
+    lsize, n_leaves = prot.leaf_size, len(prot.shard_leaf_crcs[LEAF_DATA])
+    shard_bytes = sum(prot.shard_sizes)
+    backend = TorchBackend(ctx)
+    launches = 0
+    result: dict = {}
+
+    def kernel_stages() -> dict:
+        return {k: v for k, v in backend.stage_seconds.items() if k in ("pin", "h2d", "kernel", "d2h")}
+
+    # -- a clean pass: every leaf of every shard read and CRC'd -----------
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    r = scrub_ec_volume(base, ctx, backend=backend, repair=True)
+    clean_s = time.perf_counter() - t0
+    if not r.healthy or r.checked_bytes != shard_bytes or r.leaf_repaired or any(rs_kernels.LAUNCHES.values()):
+        raise AssertionError(f"clean scrub pass is not clean: {r}")
+    result["clean_pass"] = {"seconds": clean_s, "shard_bytes": shard_bytes,
+                            "gb_per_s": shard_bytes / clean_s / 1e9, "leaves": r.checked_leaves}
+
+    # -- leaf repair: three leaves of shard 3 (two adjacent), one of 12 ---
+    a, b, c = n_leaves // 3, 2 * n_leaves // 3, n_leaves // 2
+    rotten = {LEAF_DATA: [a, a + 1, b], LEAF_PARITY: [c]}
+    for sid, leaves in rotten.items():
+        for li in leaves:
+            flip(shard[sid], li * lsize + 1000)
+    n_ranges = sum(len(leaf_ranges(ls, lsize, prot.shard_sizes[s])) for s, ls in rotten.items())
+    backend.reset_stages()
+    rs_kernels.reset_launches()
+    stages: dict = {}
+    t0 = time.perf_counter()
+    r = scrub_ec_volume(base, ctx, backend=backend, repair=True, stages=stages)
+    repair_s = time.perf_counter() - t0
+    repair_launches = rs_kernels.LAUNCHES["gf2_apply"]
+    if r.leaf_repaired != rotten or r.quarantined or r.rebuilt or r.refused or r.corrupt_shards:
+        raise AssertionError(f"leaf repair: {r}")
+    if repair_launches != n_ranges or rs_kernels.LAUNCHES["gf2_apply_planes"]:
+        raise AssertionError(f"leaf repair launched {rs_kernels.LAUNCHES} for {n_ranges} leaf ranges")
+    for sid in rotten:
+        if sha256(shard[sid]) != digests[sid]:
+            raise AssertionError(f"leaf-repaired shard {sid} differs from its encode-time bytes")
+    for i in range(ctx.total):
+        if prot.verify_shard_file(shard[i], i):
+            raise AssertionError(f"shard {i} fails .ecsum after leaf repair")
+    launches += repair_launches
+    per_range = sum(stages.values()) / n_ranges
+    result["leaf_repair"] = {
+        "leaves": rotten, "ranges": n_ranges, "launches": repair_launches,
+        "scrub_seconds": repair_s, "ms_per_range": per_range * 1e3,
+        "stage_seconds": stages, "backend_stage_seconds": kernel_stages(),
+    }
+
+    # -- crash windows, each healed by the next mount ----------------------
+    def intervals(rec):
+        _, _, off, body = rec
+        size = record_actual_size(4 + body + 1, 3)
+        return [(*iv.to_shard_and_offset(K), iv.size) for iv in locate_data(off, size, dat_size // K, K)]
+
+    dat_fd = os.open(base + ".dat", os.O_RDONLY)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    jpath = journal_path(shard[LEAF_DATA])
+    windows = []
+    try:
+        for w, (point, mutate_point, expect_new) in enumerate(WINDOWS):
+            recovery_crash = w == len(WINDOWS) - 1
+            leaf = n_leaves // 8 + 3 * w
+            lo = leaf * lsize
+            with open(shard[LEAF_DATA], "rb") as f:
+                f.seek(lo)
+                good = f.read(lsize)
+            flip(shard[LEAF_DATA], lo + 77)
+            pre = sha256(shard[LEAF_DATA])
+            if recovery_crash:  # a pending journal that carries the right bytes
+                atomic_write(jpath, RepairJournal(
+                    LEAF_DATA, prot.generation, prot.uuid, lsize, prot.shard_sizes[LEAF_DATA],
+                    [LeafPatch(leaf, lo, good, crc32c(good))],
+                ).to_bytes())
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", CRASH_CHILD, base, str(LEAF_DATA), point,
+                 mutate_point or "-", "recover" if recovery_crash else "repair"],
+                cwd=repo, env=env, capture_output=True, text=True, timeout=60,
+            )
+            child_s = time.perf_counter() - t0
+            if proc.returncode != 137 or not os.path.exists(jpath):
+                raise AssertionError(
+                    f"window {w} ({point}): child exit {proc.returncode}, journal "
+                    f"{'present' if os.path.exists(jpath) else 'absent'}\n{proc.stdout}{proc.stderr}"
+                )
+            rs_kernels.reset_launches()
+            t0 = time.perf_counter()
+            ev = EcVolume(work, 1, backend=backend)
+            mount_s = time.perf_counter() - t0
+            try:
+                rec = ev.journal_recovery
+                after = sha256(shard[LEAF_DATA])
+                fully_new, fully_old = after == digests[LEAF_DATA], after == pre
+                if os.path.exists(jpath) or rec is None or not (fully_new or fully_old):
+                    raise AssertionError(f"window {w} ({point}): mount left {rec}, "
+                                         f"fully new {fully_new}, fully old {fully_old}")
+                if expect_new and not (fully_new and rec["replayed"].get(LEAF_DATA)):
+                    raise AssertionError(f"window {w} ({point}) did not roll forward: {rec}")
+                if fully_old and rec["rolled_back"] != [jpath]:
+                    raise AssertionError(f"window {w} ({point}) is fully old but {rec}")
+                patched = rec["replayed"].get(LEAF_DATA, [leaf])
+                over = [
+                    needle for needle in records
+                    if any(sid == LEAF_DATA and any(off < (p + 1) * lsize and p * lsize < off + n
+                                                   for p in patched)
+                           for sid, off, n in intervals(needle))
+                ]
+                for nid, cookie, off, body in over:
+                    if ev.read_needle(nid, cookie=cookie).data != os.pread(dat_fd, body, off + 20):
+                        raise AssertionError(f"window {w}: needle {nid:x} over the patched leaves differs")
+            finally:
+                ev.close()
+            launches += rs_kernels.LAUNCHES["gf2_apply"]
+            windows.append({
+                "point": point + (f"+{mutate_point}" if mutate_point else "")
+                + (" (recovery)" if recovery_crash else ""),
+                "child": proc.stdout.strip(), "child_s": child_s, "mount_s": mount_s,
+                "replayed": rec["replayed"].get(LEAF_DATA, []), "rolled_back": len(rec["rolled_back"]),
+                "state": "new" if fully_new else "old", "needles_read": len(over),
+            })
+    finally:
+        os.close(dat_fd)
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    r = scrub_ec_volume(base, ctx, backend=backend, repair=True)
+    closing_s = time.perf_counter() - t0
+    launches += rs_kernels.LAUNCHES["gf2_apply"]
+    if not r.complete or r.refused or r.quarantined or sha256(shard[LEAF_DATA]) != digests[LEAF_DATA]:
+        raise AssertionError(f"closing scrub did not restore shard {LEAF_DATA}: {r}")
+    result["crash_windows"] = windows
+    result["closing_scrub"] = {"seconds": closing_s, "leaf_repaired": r.leaf_repaired}
+
+    # -- size rot: quarantine to .bad and rebuild through gf2_apply --------
+    os.truncate(shard[SIZE_ROT], prot.shard_sizes[SIZE_ROT] - 4096)
+    backend.reset_stages()
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    r = scrub_ec_volume(base, ctx, backend=backend, repair=True)
+    quarantine_s = time.perf_counter() - t0
+    q_launches = rs_kernels.LAUNCHES["gf2_apply"]
+    bad = shard[SIZE_ROT] + ".bad"
+    if r.quarantined != [bad] or r.rebuilt != [SIZE_ROT] or r.refused or q_launches < 1:
+        raise AssertionError(f"quarantine and rebuild: {r}, {q_launches} launches")
+    if sha256(shard[SIZE_ROT]) != digests[SIZE_ROT]:
+        raise AssertionError(f"rebuilt shard {SIZE_ROT} differs from its encode-time bytes")
+    os.unlink(bad)
+    launches += q_launches
+    result["quarantine_rebuild"] = {"seconds": quarantine_s, "launches": q_launches,
+                                    "backend_stage_seconds": kernel_stages()}
+    for i in range(ctx.total):
+        if sha256(shard[i]) != digests[i]:
+            raise AssertionError(f"phase 6b leaves shard {i} not as encoded")
+    result["gf2_apply_launches"] = launches
+    return result, launches
+
+
 def decode_phase(base, ctx, digest3, deleted):
     """Phase 7: ec.decode with shard DEGRADED removed (5 needles deleted)."""
     from seaweedfs_tpu_torch.ec import TorchBackend, ec_decode_volume
@@ -605,7 +863,7 @@ def main() -> int:
               f"{n_batches} batches, {enc_launches} launches; all 14 shards verify; "
               f"stage seconds {json.dumps(enc_stages)}")
 
-        digests = {i: sha256(base + ctx.to_ext(i)) for i in LOST}
+        digests = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
         for i in LOST:
             os.unlink(base + ctx.to_ext(i))
         backend = TorchBackend(ctx)
@@ -631,8 +889,12 @@ def main() -> int:
         read, read_launches, deleted = read_phase(work, base, ctx, records, dat_size, rng)
         print(f"degraded reads (shard {DEGRADED} unmounted, all bit-exact): {json.dumps(read)}")
 
-        # -- 7. ec.decode ---------------------------------------------------------------
+        # -- 6b. scrub, leaf repair, crash windows, quarantine -------------------------
         os.replace(base + ctx.to_ext(ROTTEN) + ".orig", base + ctx.to_ext(ROTTEN))
+        scrub, scrub_launches = scrub_phase(work, base, ctx, records, dat_size, digests)
+        print(f"scrub and leaf repair (every check exact): {json.dumps(scrub)}")
+
+        # -- 7. ec.decode ---------------------------------------------------------------
         decode, dec_launches = decode_phase(base, ctx, digests[DEGRADED], deleted)
         print(f"decode ({N_DELETED} deleted, shard {DEGRADED} regenerated; .dat, .idx and "
               f"shard identical): {json.dumps(decode)}")
@@ -643,7 +905,8 @@ def main() -> int:
     read_row = prows["degraded read 10x1MiB m=1"]
     kernels = []
     for name, replaces, launches, row, all_rows in (
-        ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55", enc_launches + reb_launches,
+        ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55",
+         enc_launches + reb_launches + scrub_launches,
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257", read_launches + dec_launches,
          read_row, prows),

@@ -9,9 +9,11 @@ reconstruction; sibling sources and the reconstructed output verified
 against the .ecsum leaves (fail closed); the generation-keyed interval
 cache with singleflight; single-shot and staged reconstruction on the
 backend; the .ecj tombstones; shard unmount, reopen and refresh; the
-`bytes_read` and `bytes_reconstructed` counters. Not ported yet (ROADMAP):
-device-queue admission, trace spans, fault points, the native sibling
-read plane, repair-journal recovery at mount, the `.heat` sidecar.
+`bytes_read` and `bytes_reconstructed` counters; repair-journal recovery
+before any shard fd opens (ec/repair_journal.py); the
+`ec.volume.shard_read` fault point around the shard pread. Not ported
+yet (ROADMAP): device-queue admission, trace spans, the native sibling
+read plane, the `.heat` sidecar.
 
 `stage_seconds` accumulates the wall time of every degraded read's
 stages: "sibling_read" (preads of the sources), "crc_verify" (sidecar
@@ -21,6 +23,7 @@ own `stage_seconds` splits it into pin, h2d, kernel and d2h).
 
 from __future__ import annotations
 
+import logging
 import os
 import struct
 import threading
@@ -29,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import faults
 from ..storage.needle import CrcError, Needle
 from ..storage.needle_map import SortedFileNeedleMap
 from ..storage.types import actual_offset
@@ -39,7 +43,10 @@ from .context import DEFAULT_EC_CONTEXT, QUARANTINE_SUFFIX, ECContext, ECError
 from .decoder import record_actual_size
 from .locate import locate_data
 from .pipeline import run_staged_apply
+from .repair_journal import recover_volume_journals
 from .volume_info import VolumeInfo
+
+log = logging.getLogger(__name__)
 
 # Column-batch width for staged reconstruction: extents at least two
 # batches wide go through the backend's staged apply (H2D, kernel and
@@ -108,6 +115,17 @@ class EcVolume:
         self._ecj.seek(0)
         while len(b := self._ecj.read(8)) == 8:
             self._deleted.add(struct.unpack(">Q", b)[0])
+
+        # Crash recovery BEFORE serving: a pending <shard>.repair journal
+        # means a leaf repair was interrupted mid-protocol; replay (or
+        # roll back) it now, so no fd ever opens over a half-applied
+        # patch. What it did stays in `journal_recovery` (None when it
+        # failed: a failed recovery is logged and never blocks a mount).
+        self.journal_recovery: dict | None = None
+        try:
+            self.journal_recovery = recover_volume_journals(self.base, self.ctx)
+        except Exception as e:
+            log.error("repair-journal recovery for %s failed: %s", self.base, e)
 
         self.shard_fds: dict[int, int] = {}
         self._shard_size = 0
@@ -216,9 +234,15 @@ class EcVolume:
         fd = self.shard_fds.get(shard_id)
         if fd is not None:
             try:
+                faults.fire(
+                    "ec.volume.shard_read", shard=shard_id, offset=offset, size=size
+                )
                 got = os.pread(fd, size, offset)
-            except OSError:  # a racing unmount closed the fd
+            except OSError:  # a racing unmount closed the fd (or injected)
                 got = b""
+            got = faults.mutate(
+                "ec.volume.shard_read", got, shard=shard_id, offset=offset, size=size
+            )
             if len(got) == size:
                 self._count_read(size)
                 return got

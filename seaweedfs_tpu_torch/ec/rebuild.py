@@ -1,8 +1,12 @@
 """Rebuild missing EC shards from surviving ones.
 
-Port of the production (non-fault-injection) path of
-seaweedfs_tpu/ec/rebuild.py (reference ec_encoder.go
-generateMissingEcFiles). The correctness envelope it keeps:
+Port of seaweedfs_tpu/ec/rebuild.py (reference ec_encoder.go
+generateMissingEcFiles), with the three publish-seam fault points
+(`ec.rebuild.before_fsync`, `ec.rebuild.before_rename`,
+`ec.rebuild.after_rename`). Not ported yet (ROADMAP): the armed-registry
+byte path (the `ec.rebuild.read_shard` and `ec.rebuild.shard_bytes`
+mutate points) and the `priority` and `scheduler` arguments. The
+correctness envelope it keeps:
 
 - bitrot sidecar verify-and-exclude: present-but-corrupt shards are
   reclassified as missing and regenerated, never fed to Reed-Solomon;
@@ -26,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .. import faults
 from ..utils.crc import crc32c
 from ..utils.fs import fsync_dir
 from .backend import TorchBackend, _decode_coeffs, get_backend
@@ -342,6 +347,8 @@ def _attempt_rebuild(
             return _confirm_from_disk(suspects)
 
     try:
+        # crash window: temp .rebuilding files written, not yet durable
+        faults.fire("ec.rebuild.before_fsync", base=base)
         for f in outs.values():
             f.flush()
             os.fsync(f.fileno())
@@ -368,7 +375,12 @@ def _attempt_rebuild(
                     f"verification; refusing to publish"
                 )
 
+    # crash window: temps durable + sidecar-verified, renames pending; a
+    # crash here (or between renames) leaves a mix of published shards
+    # and .rebuilding temps, and a restarted rebuild regenerates the rest
+    faults.fire("ec.rebuild.before_rename", base=base)
     for i in targets:
         os.replace(tmp_paths[i], base + ctx.to_ext(i))
+        faults.fire("ec.rebuild.after_rename", base=base, shard=i)
     fsync_dir(base + ".dat")
     return []

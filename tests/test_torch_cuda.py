@@ -1,6 +1,8 @@
 """PyTorch port on the card: the CUDA kernel's two entry points (and the
 three bodies behind them) against their plain versions and the numpy
-oracle, the backend's staged path, and degraded reads through EcVolume.
+oracle, the backend's staged path, degraded reads through EcVolume, and
+leaf repair (reconstruction on the card, a repair killed in a child
+process and healed at mount).
 
 Every test here needs an NVIDIA card and skips without one. This file
 imports no JAX, so it runs where JAX is not installed; on the card run it
@@ -12,6 +14,8 @@ All comparisons are exact (tolerance 0: integer GF arithmetic).
 """
 
 import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -19,8 +23,16 @@ import pytest
 import torch
 
 import seaweedfs_tpu_torch.ec.ec_volume as ecv
-from seaweedfs_tpu_torch.ec import ECContext, EcVolume, TorchBackend, ec_encode_volume
+from seaweedfs_tpu_torch.ec import (
+    ECContext,
+    EcVolume,
+    TorchBackend,
+    VolumeInfo,
+    ec_encode_volume,
+    reconstruct_leaves,
+)
 from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
+from seaweedfs_tpu_torch.ec.bitrot import BitrotProtection, ShardChecksumBuilder
 from seaweedfs_tpu_torch.ec.encoder import write_ec_files
 from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
 from seaweedfs_tpu_torch.storage.needle import Needle
@@ -289,5 +301,135 @@ def test_staged_degraded_reads_on_card(cuda, tmp_path, monkeypatch):
         for nid, body in bodies.items():
             assert ev.read_needle(nid, cookie=nid).data == body
         assert len(calls) > 10
+    finally:
+        ev.close()
+
+
+# ------------------------------------------------------------ leaf repair
+
+LEAF = 64 << 10
+LEAF_SHARD = 2 * (1 << 20) + 57  # 32 leaves and a 57-byte tail leaf
+
+
+def _leaf_volume(d, seed=40):
+    """RS 10+4 shard files of LEAF_SHARD bytes with a v2 sidecar (1 MiB
+    blocks, 64 KiB leaves), a .vif and an empty .ecx; returns the shard
+    bytes."""
+    ctx = ECContext(10, 4)
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (10, LEAF_SHARD), dtype=np.uint8)
+    shards = np.concatenate([data, gf256.matrix_apply(gf256.parity_rows(10, 4), data)])
+    base = os.path.join(str(d), "1")
+    builders = [ShardChecksumBuilder(1 << 20, leaf_size=LEAF) for _ in range(14)]
+    for i in range(14):
+        builders[i].write(shards[i].tobytes())
+        with open(base + ctx.to_ext(i), "wb") as f:
+            f.write(shards[i].tobytes())
+    BitrotProtection.from_builders(ctx, builders, generation=9).save(base + ".ecsum")
+    VolumeInfo(ec_ctx=ctx).save(base + ".vif")
+    open(base + ".ecx", "wb").close()
+    return {i: shards[i].tobytes() for i in range(14)}
+
+
+def _rot_leaves(base, sid, leaves):
+    with open(base + f".ec{sid:02d}", "r+b") as f:
+        for li in leaves:
+            f.seek(li * LEAF + 5)
+            b = f.read(1)
+            f.seek(li * LEAF + 5)
+            f.write(bytes([b[0] ^ 0x3C]))
+
+
+def _local_reader(base):
+    def read_range(sid, lo, size):
+        with open(base + f".ec{sid:02d}", "rb") as f:
+            f.seek(lo)
+            return f.read(size)
+
+    return read_range
+
+
+# runs of 1, 2 and 16 leaves, and the partial tail leaf (57 bytes: the
+# masked byte path)
+@pytest.mark.parametrize("sid", [3, 12])
+def test_reconstruct_leaves_on_card_matches_plain_and_oracle(cuda, tmp_path, sid):
+    blobs = _leaf_volume(tmp_path)
+    base = str(tmp_path / "1")
+    leaves = [0, 3, 4] + list(range(8, 24)) + [32]
+    _rot_leaves(base, sid, leaves)
+    ctx = ECContext(10, 4)
+    prot = BitrotProtection.load(base + ".ecsum")
+    candidates = [i for i in range(14) if i != sid]
+    before = rs_kernels.LAUNCHES["gf2_apply"]
+    stages = {}
+    got = reconstruct_leaves(
+        prot, ctx, sid, leaves, _local_reader(base), candidates,
+        backend=TorchBackend(ctx), stages=stages,
+    )
+    assert rs_kernels.LAUNCHES["gf2_apply"] - before == 4  # one per leaf range
+    plain = reconstruct_leaves(
+        prot, ctx, sid, leaves, _local_reader(base), candidates,
+        backend=TorchBackend(ctx, device="cpu"),
+    )
+    assert got == plain
+    assert [p.leaf for p in got] == leaves
+    for p in got:  # the oracle: the shard as encoded by numpy
+        assert p.data == blobs[sid][p.offset : p.offset + len(p.data)]
+    assert len(got[-1].data) == 57
+    assert stages["reconstruct"] > 0 and stages["crc_verify"] > 0
+
+
+_CRASH_CHILD = r"""
+import sys
+from seaweedfs_tpu_torch import faults
+from seaweedfs_tpu_torch.ec import ECContext, TorchBackend, reconstruct_leaves
+from seaweedfs_tpu_torch.ec.bitrot import BitrotProtection
+from seaweedfs_tpu_torch.ec.repair_journal import apply_leaf_repair, leaf_verdict
+from seaweedfs_tpu_torch.ops import rs_kernels
+
+base, sid = sys.argv[1], int(sys.argv[2])
+ctx = ECContext(10, 4)
+faults.inject("ec.repair.patch_write", faults.hard_exit(137))
+faults.inject("ec.repair.patch_bytes", faults.truncate(0.5))
+prot = BitrotProtection.load(base + ".ecsum")
+path = base + ctx.to_ext(sid)
+
+
+def read_range(s, lo, size):
+    with open(base + ctx.to_ext(s), "rb") as f:
+        f.seek(lo)
+        return f.read(size)
+
+
+patches = reconstruct_leaves(
+    prot, ctx, sid, leaf_verdict(path, sid, prot), read_range,
+    [i for i in range(ctx.total) if i != sid], backend=TorchBackend(ctx),
+)
+print("launches", rs_kernels.LAUNCHES["gf2_apply"], flush=True)
+apply_leaf_repair(path, sid, prot, patches)
+sys.exit(3)  # the armed point never fired
+"""
+
+
+def test_repair_killed_on_card_heals_at_mount(cuda, tmp_path):
+    """A child reconstructs two leaves on the card, tears their patch and
+    dies; the next mount replays the journal before any fd opens."""
+    blobs = _leaf_volume(tmp_path, seed=41)
+    base = str(tmp_path / "1")
+    _rot_leaves(base, 5, [7, 30])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CRASH_CHILD, base, "5"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=60,
+    )
+    assert proc.returncode == 137, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["launches", "2"]
+    assert os.path.exists(base + ".ec05.repair")
+    ev = EcVolume(str(tmp_path), 1)
+    try:
+        assert ev.journal_recovery == {"replayed": {5: [7, 30]}, "rolled_back": [], "kept": []}
+        assert not os.path.exists(base + ".ec05.repair")
+        assert os.pread(ev.shard_fds[5], LEAF_SHARD, 0) == blobs[5]
     finally:
         ev.close()
