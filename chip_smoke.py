@@ -8,9 +8,9 @@ Drives the port's main paths at the size the project names, a seeded
 calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
 `ec_decode_volume`, `TorchBackend`). Phases:
 
-1. print the card (`nvidia-smi` name and power limit) and build the
-   kernels from csrc/ (nvcc for the CUDA kernel, g++ for CRC32C, both at
-   once);
+1. print the card (`nvidia-smi` name and power limit) and the host's
+   CPU count, and build from csrc/ the CUDA kernel (nvcc) and the host
+   byte plane (g++: CRC32C, batched reads, the shard sink), both at once;
 2. hold `gf2_apply` (the bit-major entry point) against its plain torch
    version on the card with the 4-row encode matrix and a 2-row decode
    matrix, at ragged widths, at the widths on its tiles' edges and on
@@ -31,18 +31,27 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    (10, 1 MiB) and (10, 16 MiB), m = 1, timed in the same run;
 3. write a seeded 1 GiB .dat of real version-3 needles (about 1 MiB
    random bodies, real CRC32C and append time) and its .idx;
-4. encode; every shard must verify against the new .ecsum, sampled
-   parity windows must equal the oracle's, and the kernel's launch count
-   must equal the batch count;
+4. encode through the native byte plane; every shard must verify
+   against the new .ecsum, sampled parity windows must equal the
+   oracle's, the kernel's launch count must equal the batch count, and
+   so must the native batched reads, the fused sink's appends and the
+   batches that `to_device` sent from their page-locked landing matrix
+   without a copy; the landing pool may hold no more matrices than the
+   pipeline has batches in flight. The same .dat is encoded once more
+   with SEAWEED_EC_NATIVE=0 (the Python plane): its 14 shards must be
+   sha256-identical and its block and leaf CRC lists equal;
 5. delete shards 3 and 11 and rebuild; the rebuilt files must be
-   sha256-identical to the deleted ones;
+   sha256-identical to the deleted ones, and every batch must have come
+   through one native read (CRCs rolled inline), the fused sink and a
+   page-locked landing matrix;
 6. degraded needle reads with `EcVolume(..., TorchBackend(ctx,
    impl="cuda_planes"))` and data shard 3 unmounted: every needle that
    touches shard 3 must read back bit-exact, cached re-reads must launch
    nothing and read no shard-3 sibling bytes, reads that avoid shard 3
    must launch nothing, a needle over a flipped byte of shard 5 must heal
-   through verified reconstruction, and the planes kernel's launch count
-   must equal the reconstructions that missed the cache;
+   through verified reconstruction, the planes kernel's launch count
+   must equal the reconstructions that missed the cache, and each of
+   those must have read k siblings through the native plane;
 6b. scrub with crash-safe leaf repair, on the same volume with every
    shard back in place: a clean `scrub_ec_volume` pass (wall s, GB/s of
    shard bytes verified, no launch); then bytes flipped in three leaves
@@ -56,12 +65,13 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    fully old where the window allows it), with the needles over the
    patched leaves read back bit-exact; a closing scrub leaves shard 3
    bit-exact; last, shard 5 cut by 4 KiB is quarantined to `.bad` and
-   rebuilt through `gf2_apply`, sha256-identical. Every shard ends
-   sha256-identical to its encode-time bytes;
+   rebuilt through `gf2_apply` and the native plane, sha256-identical.
+   Every shard ends sha256-identical to its encode-time bytes;
 7. `ec.decode` after 5 deletions, with shard 3 removed: the regenerated
    shard, the .dat (the original cut to the live extent) and the .idx
-   must be identical to what they should be, and the planes kernel must
-   have launched once per rebuild batch.
+   must be identical to what they should be, the planes kernel must
+   have launched once per rebuild batch, and the rebuild's and the
+   de-stripe's reads must have gone through the native plane.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -93,6 +103,8 @@ ROTTEN = 5  # shard whose byte is flipped under one needle
 LEAF_DATA, LEAF_PARITY = 3, 12  # shards whose leaves rot in phase 6b
 SIZE_ROT = 5  # shard cut short in phase 6b: quarantined and rebuilt
 N_DELETED = 5
+# batches alive at once in run_pipeline: two queues of 2, one per stage
+IN_FLIGHT = 2 * 2 + 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same sheet
 
@@ -252,7 +264,8 @@ def build() -> None:
     from seaweedfs_tpu_torch.ops import _build
 
     print(f"card: {card_line()}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
+          f"host cpus {os.cpu_count()} (the host library's worker pool: one thread per CPU)")
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc and g++ in parallel)")
@@ -373,9 +386,48 @@ def percentile_ms(seconds: list[float], q: float) -> float:
     return float(np.percentile(np.asarray(seconds) * 1e3, q))
 
 
+def python_plane_encode(work, base, ctx, digests, prot) -> dict:
+    """Phase 4, second half: the same .dat (hard-linked) encoded with
+    SEAWEED_EC_NATIVE=0, the Python byte plane. Its 14 shards must be
+    sha256-identical to the native plane's and its sidecar's block and
+    leaf CRC lists equal (not the files: each carries a fresh uuid).
+    Returns its wall and stage table."""
+    from seaweedfs_tpu_torch.ec import BitrotProtection, TorchBackend, ec_encode_volume, native_io
+
+    d = os.path.join(work, "python-plane")
+    os.makedirs(d)
+    pbase = os.path.join(d, "1")
+    for ext in (".dat", ".idx"):
+        os.link(base + ext, pbase + ext)
+    backend = TorchBackend(ctx)
+    native_io.reset_counts()
+    before = os.environ.get("SEAWEED_EC_NATIVE")
+    os.environ["SEAWEED_EC_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        ec_encode_volume(pbase, ctx, backend=backend)
+        dt = time.perf_counter() - t0
+    finally:
+        if before is None:
+            del os.environ["SEAWEED_EC_NATIVE"]
+        else:
+            os.environ["SEAWEED_EC_NATIVE"] = before
+    if any(native_io.COUNTS.values()) or backend.pin_skips:
+        raise AssertionError(f"the Python plane used the native one: {native_io.COUNTS}")
+    pprot = BitrotProtection.load(pbase + ".ecsum")
+    lists = lambda pr: (pr.shard_sizes, pr.shard_crcs, pr.leaf_size, pr.shard_leaf_crcs)  # noqa: E731
+    if lists(pprot) != lists(prot):
+        raise AssertionError("the Python plane's block or leaf CRC lists differ from the native plane's")
+    for i in range(ctx.total):
+        if sha256(pbase + ctx.to_ext(i)) != digests[i]:
+            raise AssertionError(f"shard {i} of the Python plane differs from the native plane's")
+    shutil.rmtree(d)
+    return {"seconds": dt, "stage_seconds": dict(backend.stage_seconds)}
+
+
 def read_phase(work, base, ctx, records, dat_size, rng):
     """Phase 6: degraded needle reads with shard DEGRADED unmounted."""
-    from seaweedfs_tpu_torch.ec import EcVolume, TorchBackend
+    from seaweedfs_tpu_torch.ec import EcVolume, TorchBackend, native_io
     from seaweedfs_tpu_torch.ec.decoder import record_actual_size
     from seaweedfs_tpu_torch.ec.locate import locate_data
     from seaweedfs_tpu_torch.ops import rs_kernels
@@ -404,6 +456,7 @@ def read_phase(work, base, ctx, records, dat_size, rng):
     try:
         ev.unmount_shards([DEGRADED])
         rs_kernels.reset_launches()
+        native_io.reset_counts()
         lat, returned = [], 0
         b0, t_all = ev.bytes_read, time.perf_counter()
         for rec in degraded:
@@ -471,6 +524,9 @@ def read_phase(work, base, ctx, records, dat_size, rng):
         launches = rs_kernels.LAUNCHES["gf2_apply_planes"]
         if launches != cache.loads or rs_kernels.LAUNCHES["gf2_apply"]:
             raise AssertionError("read path launches do not match its cache misses")
+        sibling_reads = native_io.COUNTS["read_exact"]
+        if sibling_reads < K * cache.loads:
+            raise AssertionError(f"{sibling_reads} native sibling reads for {cache.loads} reconstructions")
         result = {
             "degraded_reads": len(degraded),
             "cold_p50_ms": percentile_ms(lat, 50),
@@ -482,6 +538,7 @@ def read_phase(work, base, ctx, records, dat_size, rng):
             "degraded_reads_per_s": len(degraded) / cold_s,
             "bytes_read_per_byte_returned": cold_read / returned,
             "reconstructions": launches,
+            "native_sibling_reads": sibling_reads,
             "self_heal_launches": heal_launches,
             "read_stage_seconds": dict(ev.stage_seconds),
             "backend_stage_seconds": {
@@ -564,7 +621,7 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
     """Phase 6b: scrub, leaf repair, crash windows healed at mount,
     quarantine and rebuild. Returns (result, gf2_apply launches)."""
     from seaweedfs_tpu_torch.ec import (
-        BitrotProtection, EcVolume, LeafPatch, RepairJournal, TorchBackend, scrub_ec_volume,
+        BitrotProtection, EcVolume, LeafPatch, RepairJournal, TorchBackend, native_io, scrub_ec_volume,
     )
     from seaweedfs_tpu_torch.ec.decoder import record_actual_size
     from seaweedfs_tpu_torch.ec.locate import locate_data
@@ -718,6 +775,7 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
     os.truncate(shard[SIZE_ROT], prot.shard_sizes[SIZE_ROT] - 4096)
     backend.reset_stages()
     rs_kernels.reset_launches()
+    native_io.reset_counts()
     t0 = time.perf_counter()
     r = scrub_ec_volume(base, ctx, backend=backend, repair=True)
     quarantine_s = time.perf_counter() - t0
@@ -727,9 +785,13 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
         raise AssertionError(f"quarantine and rebuild: {r}, {q_launches} launches")
     if sha256(shard[SIZE_ROT]) != digests[SIZE_ROT]:
         raise AssertionError(f"rebuilt shard {SIZE_ROT} differs from its encode-time bytes")
+    q_plane = dict(native_io.COUNTS)
+    if not q_plane["read_batch"] or q_plane["sink_append"] != q_plane["read_batch"]:
+        raise AssertionError(f"the quarantine's rebuild did not run on the native plane: {q_plane}")
     os.unlink(bad)
     launches += q_launches
     result["quarantine_rebuild"] = {"seconds": quarantine_s, "launches": q_launches,
+                                    "native_plane": q_plane,
                                     "backend_stage_seconds": kernel_stages()}
     for i in range(ctx.total):
         if sha256(shard[i]) != digests[i]:
@@ -740,7 +802,7 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
 
 def decode_phase(base, ctx, digest3, deleted):
     """Phase 7: ec.decode with shard DEGRADED removed (5 needles deleted)."""
-    from seaweedfs_tpu_torch.ec import TorchBackend, ec_decode_volume
+    from seaweedfs_tpu_torch.ec import TorchBackend, ec_decode_volume, native_io
     from seaweedfs_tpu_torch.ec.decoder import find_dat_file_size
     from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH
     from seaweedfs_tpu_torch.ops import rs_kernels
@@ -758,6 +820,7 @@ def decode_phase(base, ctx, digest3, deleted):
     stages: dict = {}
     backend = TorchBackend(ctx, impl="cuda_planes")
     rs_kernels.reset_launches()
+    native_io.reset_counts()
     t0 = time.perf_counter()
     if not ec_decode_volume(base, ctx, backend=backend, stages=stages):
         raise AssertionError("decode found no live needle")
@@ -766,6 +829,9 @@ def decode_phase(base, ctx, digest3, deleted):
     batches = -(-shard_size // DEFAULT_BATCH)
     if launches != batches or rs_kernels.LAUNCHES["gf2_apply"]:
         raise AssertionError(f"decode launched {launches} planes kernels for {batches} batches")
+    plane = dict(native_io.COUNTS)
+    if plane["read_batch"] != batches or plane["sink_append"] != batches or not plane["read_exact"]:
+        raise AssertionError(f"decode's reads did not run on the native plane: {plane}")
     if sha256(base + ctx.to_ext(DEGRADED)) != digest3:
         raise AssertionError(f"regenerated shard {DEGRADED} differs from the original")
     live = find_dat_file_size(base, 3)
@@ -782,6 +848,7 @@ def decode_phase(base, ctx, digest3, deleted):
         "gb_per_s": live / dt / 1e9,
         "launches": launches,
         "rebuild_batches": batches,
+        "native_plane": plane,
         "stage_seconds": stages,
     }, launches
 
@@ -795,6 +862,7 @@ def main() -> int:
         ECContext,
         TorchBackend,
         ec_encode_volume,
+        native_io,
         rebuild_ec_files,
     )
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
@@ -824,16 +892,25 @@ def main() -> int:
               f"written in {time.perf_counter() - t0:.3f} s")
 
         backend = TorchBackend(ctx)
-        n_batches = len(list(batch_plan(
-            dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
-        )))
+        plan = list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE))
+        n_batches = len(plan)
         rs_kernels.reset_launches()
+        native_io.reset_counts()
         t0 = time.perf_counter()
         ec_encode_volume(base, ctx, backend=backend)
         enc_s = time.perf_counter() - t0
         enc_launches = rs_kernels.LAUNCHES["gf2_apply"]
+        enc_plane = dict(native_io.COUNTS, pin_skips=backend.pin_skips)
         if enc_launches != n_batches:
             raise AssertionError(f"encode launched {enc_launches} kernels for {n_batches} batches")
+        # only the native reader counts read_batch and only FusedShardSink
+        # counts sink_append: equal to the batches, they carried them all
+        if not (enc_plane["read_batch"] == enc_plane["sink_append"] == enc_plane["pin_skips"] == n_batches):
+            raise AssertionError(f"encode's {n_batches} batches did not all take the native plane "
+                                 f"and a page-locked landing matrix: {enc_plane}")
+        widths = len({w for *_, w in plan})
+        if enc_plane["pool_alloc"] > IN_FLIGHT * widths:
+            raise AssertionError(f"the landing pool grew past {IN_FLIGHT} matrices per width: {enc_plane}")
         prot = BitrotProtection.load(base + ".ecsum")
         for i in range(ctx.total):
             bad = prot.verify_shard_file(base + ctx.to_ext(i), i)
@@ -861,17 +938,30 @@ def main() -> int:
         enc_stages = dict(backend.stage_seconds)
         print(f"encode: {dat_size} bytes in {enc_s:.3f} s = {dat_size / enc_s / 1e9:.3f} GB/s; "
               f"{n_batches} batches, {enc_launches} launches; all 14 shards verify; "
-              f"stage seconds {json.dumps(enc_stages)}")
+              f"stage seconds {json.dumps(enc_stages)}; native plane {json.dumps(enc_plane)}")
 
         digests = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
+        py_plane = python_plane_encode(work, base, ctx, digests, prot)
+        print("encode, native plane against Python plane (SEAWEED_EC_NATIVE=0) on the same .dat: "
+              "14 shards sha256-identical, block and leaf CRC lists equal: " + json.dumps({
+                  "native": {"seconds": enc_s, "stage_seconds": enc_stages},
+                  "python": py_plane,
+              }))
         for i in LOST:
             os.unlink(base + ctx.to_ext(i))
         backend = TorchBackend(ctx)
         rs_kernels.reset_launches()
+        native_io.reset_counts()
         t0 = time.perf_counter()
         rebuilt = rebuild_ec_files(base, backend=backend)
         reb_s = time.perf_counter() - t0
         reb_launches = rs_kernels.LAUNCHES["gf2_apply"]
+        reb_plane = dict(native_io.COUNTS, pin_skips=backend.pin_skips)
+        reb_batches = -(-shard_size // DEFAULT_BATCH)
+        if not (reb_plane["read_batch"] == reb_plane["sink_append"] == reb_plane["pin_skips"]
+                == reb_batches) or reb_plane["pool_alloc"] > 2 * IN_FLIGHT:
+            raise AssertionError(f"rebuild's {reb_batches} batches did not all take the native "
+                                 f"plane and a page-locked landing matrix: {reb_plane}")
         if rebuilt != list(LOST):
             raise AssertionError(f"rebuild regenerated {rebuilt}, expected {list(LOST)}")
         for i in LOST:
@@ -882,7 +972,8 @@ def main() -> int:
         src_bytes = K * shard_size
         print(f"rebuild: shards {list(LOST)} from {src_bytes} source bytes in {reb_s:.3f} s = "
               f"{src_bytes / reb_s / 1e9:.3f} GB/s; {reb_launches} launches; sha256 identical; "
-              f"stage seconds {json.dumps(dict(backend.stage_seconds))}")
+              f"stage seconds {json.dumps(dict(backend.stage_seconds))}; "
+              f"native plane {json.dumps(reb_plane)}")
 
         # -- 6. degraded needle reads ----------------------------------------------
         shutil.copy(base + ctx.to_ext(ROTTEN), base + ctx.to_ext(ROTTEN) + ".orig")

@@ -8,8 +8,10 @@ All of them take and return numpy uint8 arrays of shape (rows, n).
 
 On CUDA the staged hooks overlap copy and compute:
 
-- `to_device` copies the batch into a pinned host buffer and issues a
-  non-blocking H2D copy on the backend's own CUDA stream;
+- `to_device` issues a non-blocking H2D copy on the backend's own CUDA
+  stream, from the batch itself when it already lies in page-locked
+  memory (a matrix of native_io.BufferPool on cuda; `pin_skips` counts
+  these), else from a pinned host buffer it copies the batch into;
 - `encode_staged` / `apply_staged` launch the kernel (ops/rs_kernels.py)
   on that stream and record an event;
 - `to_host` is the only place that waits: a second stream waits for the
@@ -18,7 +20,8 @@ On CUDA the staged hooks overlap copy and compute:
 
 `stage_seconds` accumulates where a run's time went: "h2d", "kernel"
 and "d2h" are device time from CUDA events (on the CPU, wall time of the
-calls); "pin" is the host copy into pinned memory; "disk_read" and
+calls); "pin" is the host copy into pinned memory, where one was made;
+"disk_read" and
 "write" are wall time of the reader and writer stages, recorded by the
 encoder and rebuild through `add_stage`.
 
@@ -103,6 +106,7 @@ class TorchBackend:
         self.matrix = self._rs.matrix
         self._stats_lock = threading.Lock()
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.pin_skips = 0
 
     # -- stage accounting ----------------------------------------------------
 
@@ -113,6 +117,7 @@ class TorchBackend:
     def reset_stages(self) -> None:
         with self._stats_lock:
             self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            self.pin_skips = 0
 
     def _event(self) -> torch.cuda.Event:
         ev = torch.cuda.Event(enable_timing=True)
@@ -122,15 +127,25 @@ class TorchBackend:
     # -- staged pipeline hooks -------------------------------------------------
 
     def to_device(self, data: np.ndarray) -> _Staged:
+        """Start the batch's copy to the device. A batch in page-locked
+        memory is copied from where it lies, so its caller must not
+        reuse it before `to_host` of this batch's result has returned
+        (the D2H event that `to_host` waits on is ordered after the
+        kernel, and the kernel after this copy, on one stream)."""
         data = np.ascontiguousarray(data, dtype=np.uint8)
         if self._stream is None:
             return _Staged(torch.from_numpy(data), None)
-        t0 = time.perf_counter()
-        # torch's caching host allocator recycles pinned blocks, and keeps
-        # one from reuse until the copy recorded on it has finished.
-        host = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
-        np.copyto(host.numpy(), data)
-        self.add_stage("pin", time.perf_counter() - t0)
+        host = torch.from_numpy(data)
+        if host.is_pinned():
+            with self._stats_lock:
+                self.pin_skips += 1
+        else:
+            t0 = time.perf_counter()
+            # torch's caching host allocator recycles pinned blocks, and
+            # keeps one from reuse until the copy recorded on it has finished.
+            host = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
+            np.copyto(host.numpy(), data)
+            self.add_stage("pin", time.perf_counter() - t0)
         with torch.cuda.stream(self._stream):
             dev = torch.empty(data.shape, dtype=torch.uint8, device=self.device)
             start = self._event()

@@ -30,6 +30,7 @@ from ..storage.types import (
     padded_record_size,
 )
 from ..utils.fs import fsync_dir
+from . import native_io
 from .context import DEFAULT_EC_CONTEXT, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, ECError
 from .pipeline import run_pipeline
 from .volume_info import VolumeInfo
@@ -142,16 +143,6 @@ def find_dat_file_size(base: str, version: int) -> int:
     return dat_size
 
 
-def _pread_exact(fd: int, buf: np.ndarray, offset: int) -> None:
-    mv = memoryview(buf)
-    filled = 0
-    while filled < len(buf):
-        got = os.preadv(fd, [mv[filled:]], offset + filled)
-        if got == 0:
-            raise ECError(f"short shard read at {offset + filled}")
-        filled += got
-
-
 def write_dat_file(
     base: str,
     dat_file_size: int,
@@ -220,9 +211,15 @@ def write_dat_file(
                 row += 1
 
         def produce():
+            # each piece lands in a numpy buffer (one native read, or a
+            # preadv loop with SEAWEED_EC_NATIVE=0) and goes to the
+            # writer as it is
             for fd, off, want in read_plan():
                 buf = np.empty(want, dtype=np.uint8)
-                _pread_exact(fd, buf, off)
+                try:
+                    native_io.read_exact_into(fd, buf, off)
+                except OSError as e:
+                    raise ECError(f"short shard read at {off}: {e}") from e
                 yield buf
 
         with open(tmp, "wb", buffering=0) as out:

@@ -11,9 +11,10 @@ cache with singleflight; single-shot and staged reconstruction on the
 backend; the .ecj tombstones; shard unmount, reopen and refresh; the
 `bytes_read` and `bytes_reconstructed` counters; repair-journal recovery
 before any shard fd opens (ec/repair_journal.py); the
-`ec.volume.shard_read` fault point around the shard pread. Not ported
-yet (ROADMAP): device-queue admission, trace spans, the native sibling
-read plane, the `.heat` sidecar.
+`ec.volume.shard_read` fault point around the shard pread; sibling reads
+through the native plane (ec/native_io.py) and the parallel remote
+sibling fetch. Not ported yet (ROADMAP): device-queue admission, trace
+spans, the `.heat` sidecar.
 
 `stage_seconds` accumulates the wall time of every degraded read's
 stages: "sibling_read" (preads of the sources), "crc_verify" (sidecar
@@ -28,6 +29,7 @@ import os
 import struct
 import threading
 import time
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Optional
 
 import numpy as np
@@ -37,6 +39,7 @@ from ..storage.needle import CrcError, Needle
 from ..storage.needle_map import SortedFileNeedleMap
 from ..storage.types import actual_offset
 from ..utils.chunk_cache import ChunkCache
+from . import native_io
 from .backend import TorchBackend, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import DEFAULT_EC_CONTEXT, QUARANTINE_SUFFIX, ECContext, ECError
@@ -313,42 +316,42 @@ class EcVolume:
         self, shard_id: int, offset: int, size: int, source_ok=None
     ) -> bytes:
         """On-the-fly RS decode of one interval from >= k sibling shards
-        (reference store_ec.go:656-747)."""
+        (reference store_ec.go:656-747). Local siblings land in numpy
+        buffers through the native plane (one positioned read each),
+        unless SEAWEED_EC_NATIVE=0 or an armed fault registry (its
+        `ec.volume.shard_read` seams want bytes) keeps os.pread. Remote
+        siblings, when the local ones are too few, are fetched in
+        parallel, as the reference does: remote fetches set the latency."""
         k = self.ctx.data_shards
         sources: dict[int, np.ndarray] = {}
+        use_native = native_io.enabled() and not faults.active()
         local = [(i, fd) for i, fd in self.shard_fds.items() if i != shard_id]
         for i, fd in local:
             t0 = time.perf_counter()
             try:
-                got = os.pread(fd, size, offset)
-            except OSError:
+                if use_native:
+                    got = np.empty(size, dtype=np.uint8)
+                    native_io.read_exact_into(fd, got, offset)
+                else:
+                    got = os.pread(fd, size, offset)
+            except OSError:  # short read (a truncated shard) or a closed fd
                 continue
             finally:
                 self._add_stage("sibling_read", time.perf_counter() - t0)
             self._count_read(len(got))
             if len(got) == size and (source_ok is None or source_ok(i, got)):
-                sources[i] = np.frombuffer(got, dtype=np.uint8)
+                sources[i] = got if use_native else np.frombuffer(got, dtype=np.uint8)
                 if len(sources) == k:
                     break
         if len(sources) < k and self.remote_reader is not None:
-            for i in range(self.ctx.total):
-                if len(sources) == k:
-                    break
-                if i == shard_id or i in sources:
-                    continue
-                t0 = time.perf_counter()
-                got = self.remote_reader(i, offset, size, self.encode_ts_ns)
-                self._add_stage("sibling_read", time.perf_counter() - t0)
-                if got is None:
-                    continue
-                self._count_read(len(got))
-                if len(got) == size and (source_ok is None or source_ok(i, got)):
-                    sources[i] = np.frombuffer(got, dtype=np.uint8)
+            self._fetch_remote(shard_id, offset, size, sources, source_ok)
         if len(sources) < k:
             raise ECError(
                 f"shard {shard_id} unavailable and only {len(sources)} "
                 f"sibling shards readable (need {k})"
             )
+        if len(sources) > k:
+            sources = {i: sources[i] for i in sorted(sources)[:k]}
         t0 = time.perf_counter()
         if size >= 2 * STAGED_RECOVERY_BATCH:
             out = self._reconstruct_staged(shard_id, sources, size)
@@ -359,6 +362,39 @@ class EcVolume:
         with self._stats_lock:
             self.bytes_reconstructed += size
         return out
+
+    def _fetch_remote(
+        self, shard_id: int, offset: int, size: int, sources: dict, source_ok
+    ) -> None:
+        """Fetch the siblings that are not local from `remote_reader`, at
+        most 8 at once, into `sources` until k of them are there. A hung
+        peer does not hold the read: it returns as soon as k sources
+        exist. "sibling_read" times only the blocked waits; `source_ok`
+        times its own CRC checks as "crc_verify"."""
+        k = self.ctx.data_shards
+        missing = [i for i in range(self.ctx.total) if i != shard_id and i not in sources]
+        if not missing:
+            return
+
+        def fetch(i):
+            return i, self.remote_reader(i, offset, size, self.encode_ts_ns)
+
+        ex = ThreadPoolExecutor(max_workers=min(len(missing), 8))
+        try:
+            futures = {ex.submit(fetch, i) for i in missing}
+            while futures and len(sources) < k:
+                t0 = time.perf_counter()
+                done, futures = wait(futures, return_when=FIRST_COMPLETED)
+                self._add_stage("sibling_read", time.perf_counter() - t0)
+                for f in done:
+                    i, got = f.result()
+                    if got is None:
+                        continue
+                    self._count_read(len(got))
+                    if len(got) == size and (source_ok is None or source_ok(i, got)):
+                        sources[i] = np.frombuffer(got, dtype=np.uint8)
+        finally:
+            ex.shutdown(wait=False, cancel_futures=True)
 
     def _reconstruct_staged(self, shard_id: int, sources: dict, size: int) -> bytes:
         """Wide extents: the decode-coefficient apply runs per column

@@ -10,6 +10,14 @@ shard while at least one whole large row remains, then rows of
 to the device in batches of at most `batch_size` columns and the shard
 files and CRC builders are appended in offset order; any batch split
 gives bit-identical shards.
+
+The byte path is the native plane (ec/native_io.py): each batch lands
+through one batched native read in a pooled aligned matrix (page-locked
+when the backend is on cuda, so the device copy starts from it), with
+the next batch's extents hinted for readahead first, and the fused
+native sink writes the 14 shard streams and rolls their CRCs. With
+SEAWEED_EC_NATIVE=0, or an armed fault registry, a preadv loop and
+`PyShardSink` give the same bytes.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .. import faults
 from ..storage.needle_map import MemDb
 from ..utils.fs import fsync_dir
+from . import native_io
 from .backend import TorchBackend, get_backend
 from .bitrot import BitrotProtection
 from .context import (
@@ -32,7 +42,7 @@ from .context import (
     ECContext,
     ECError,
 )
-from .pipeline import PyShardSink, run_pipeline
+from .pipeline import make_shard_sink, run_pipeline
 from .volume_info import VolumeInfo
 
 DEFAULT_BATCH = 16 * 1024 * 1024
@@ -106,19 +116,29 @@ def write_ec_files(
             # buffering=0: whole >= 1 MiB batches, where a userspace
             # buffer adds a copy and saves nothing
             outputs.append(open(base + ctx.to_ext(i), "wb", buffering=0))
-        sink = PyShardSink(outputs, leaf_size=leaf_size)
+        sink = make_shard_sink(outputs, leaf_size=leaf_size)
         plan = list(batch_plan(
             os.fstat(dat_fd).st_size, k, batch_size,
             large_block_size, small_block_size,
         ))
+        pool = None
+        if native_io.enabled() and not faults.active():
+            pool = native_io.BufferPool(k, device=getattr(backend, "device", None))
 
         def produce():
-            for row_offset, block_size, chunk_off, width in plan:
-                data = np.empty((k, width), dtype=np.uint8)
-                for i in range(k):
-                    _pread_padded(
-                        dat_fd, data[i], row_offset + i * block_size + chunk_off
-                    )
+            for n, (row_offset, block_size, chunk_off, width) in enumerate(plan):
+                offsets = [row_offset + i * block_size + chunk_off for i in range(k)]
+                if pool is None:
+                    data = np.empty((k, width), dtype=np.uint8)
+                    for i in range(k):
+                        _pread_padded(dat_fd, data[i], offsets[i])
+                else:
+                    if n + 1 < len(plan):
+                        nro, nbs, nco, nw = plan[n + 1]
+                        for i in range(k):
+                            native_io.prefetch(dat_fd, nro + i * nbs + nco, nw)
+                    data = pool.get(width)
+                    native_io.read_batch([dat_fd] * k, offsets, data, pad_eof=True)
                 yield data
 
         def transform(data):
@@ -129,10 +149,14 @@ def write_ec_files(
             data, handle = item
             # Blocks until this batch's parity is on the host; meanwhile
             # the calling thread dispatches the batches queued behind it.
-            parity = backend.to_host(handle)
+            parity = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
             t0 = time.perf_counter()
             sink.append_rows([*data, *parity])
             backend.add_stage("write", time.perf_counter() - t0)
+            if pool is not None:
+                # the batch is written and its H2D copy long done: its
+                # matrix may carry a later batch
+                pool.put(data)
 
         run_pipeline(
             produce,

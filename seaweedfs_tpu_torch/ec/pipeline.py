@@ -1,11 +1,11 @@
 """Bounded-queue pipeline shared by encode, rebuild, wide degraded reads
-and decode's de-stripe, and the shard sink.
+and decode's de-stripe, and the shard sinks.
 
 Port of seaweedfs_tpu/ec/pipeline.py: `run_pipeline` (disk reads in a
 reader thread / H2D + kernel launch in the calling thread / D2H + shard
 writes with CRCs rolled in a writer thread), `run_staged_apply` without
-the per-chip scheduler, and `PyShardSink`. The flight recorder and the
-native fused sink are not part of this slice.
+the per-chip scheduler, `FusedShardSink` (the native sink), `PyShardSink`
+and `make_shard_sink`. The flight recorder is not part of the port yet.
 
 Shutdown discipline: both worker threads are JOINED before any
 caller-owned fd may be closed; on error the abort event stops the
@@ -16,13 +16,18 @@ output with self-consistent CRCs must never be reported as success.
 
 from __future__ import annotations
 
+import os
 import queue as _queue
 import threading as _threading
 import time as _time
+import uuid
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
 
+from .. import faults
+from ..utils import native
+from . import native_io
 from .bitrot import BitrotProtection, ShardChecksumBuilder
 from .context import BITROT_BLOCK_SIZE, ECContext, ECError
 
@@ -206,9 +211,145 @@ def run_staged_apply(
     )
 
 
+# --------------------------------------------------------------------------
+# Shard sinks: the write stage shared by encode and rebuild. Both write N
+# parallel byte streams (one per shard file) and roll the bitrot CRCs in
+# the same pass, while the bytes are cache-hot.
+# --------------------------------------------------------------------------
+
+
+class FusedShardSink:
+    """Write stage backed by the stateful native sink (sn_sink_*): one
+    GIL-releasing C++ call per batch, one task per shard on the host
+    library's worker pool that rolls the shard's CRCs and then pwrites
+    at offsets the sink tracks, straight from the source rows: no
+    tobytes() or slice copies, and the Python file objects' positions
+    never move.
+
+    With `leaf_size` set, both sidecar CRC levels come out of one byte
+    pass on the C++ side: leaves are rolled, and the block level is
+    folded from completed leaf CRCs with the CRC shift operator.
+
+    `early_writeback` starts background writeback of each written extent
+    (sync_file_range), so the publish-time fsync drains a range already
+    in flight; it defaults to SEAWEED_EC_EARLY_WB (off unless "1").
+    `direct` writes the shard fds O_DIRECT while every append stays
+    4096-aligned (pooled matrices are), and drops a shard back to
+    buffered writes at the ragged tail or where the filesystem refuses,
+    with the same bytes; it defaults to SEAWEED_EC_ODIRECT (off unless
+    "1").
+    """
+
+    def __init__(
+        self,
+        files: list,
+        block_size: int = BITROT_BLOCK_SIZE,
+        leaf_size: int = 0,
+        early_writeback: bool | None = None,
+        direct: bool | None = None,
+    ):
+        if early_writeback is None:
+            early_writeback = os.environ.get("SEAWEED_EC_EARLY_WB", "0") == "1"
+        if direct is None:
+            direct = os.environ.get("SEAWEED_EC_ODIRECT", "0") == "1"
+        if leaf_size and block_size % leaf_size != 0:
+            raise ECError(f"leaf size {leaf_size} does not divide block size {block_size}")
+        self.fds = [f.fileno() for f in files]
+        n = len(files)
+        self.block_size = block_size
+        self.leaf_size = leaf_size
+        self._sink = native.NativeSink(
+            self.fds, block_size, leaf_size, early_writeback=early_writeback, direct=direct,
+        )
+        self.crcs: list[list[int]] = [[] for _ in range(n)]
+        self._leaf_crcs: list[list[int]] = [[] for _ in range(n)]
+        self.sizes = [0] * n
+        self._out: tuple | None = None
+        self._finished = False
+        self._direct_flags = None
+
+    def direct_flags(self) -> np.ndarray:
+        """Per-shard O_DIRECT state (u8[n], 1: still direct), taken at
+        finish once the native handle is gone."""
+        if self._direct_flags is not None:
+            return self._direct_flags
+        return self._sink.direct_flags()
+
+    def append_rows(self, rows: Sequence[np.ndarray]) -> None:
+        """Append one equal-width batch to every shard stream; rows[i]
+        goes to shard i. Rows must be 1-D C-contiguous uint8 (row views
+        of a contiguous matrix are; nothing is copied) and stay alive
+        until this returns. A failed write raises OSError."""
+        n = len(self.fds)
+        if len(rows) != n:
+            raise ECError(f"expected {n} rows, got {len(rows)}")
+        if self._finished:
+            raise ECError("shard sink already finished")
+        width = len(rows[0])
+        if any(len(r) != width for r in rows):
+            raise ECError("shard sink rows have unequal widths")
+        ptrs = []
+        for r in rows:
+            if not (isinstance(r, np.ndarray) and r.flags.c_contiguous and r.dtype == np.uint8):
+                raise ECError("shard sink rows must be contiguous uint8 arrays")
+            ptrs.append(r.ctypes.data)
+        max_out = width // (self.leaf_size or self.block_size) + 2
+        if self._out is None or self._out[0].shape[1] < max_out:
+            self._out = (
+                np.empty((n, max_out), np.uint32),  # block CRCs
+                np.empty(n, np.int32),
+                np.empty((n, max_out), np.uint32),  # leaf CRCs
+                np.empty(n, np.int32),
+            )
+        obc, obn, olc, oln = self._out
+        # an overflow (count -1) cannot get here: the C side fails the
+        # shard and append raises first
+        self._sink.append(ptrs, width, obc, obn, olc, oln)
+        native_io.count("sink_append")
+        for i in range(n):
+            self.crcs[i].extend(int(x) for x in obc[i, : int(obn[i])])
+            if self.leaf_size:
+                self._leaf_crcs[i].extend(int(x) for x in olc[i, : int(oln[i])])
+            self.sizes[i] += width
+
+    def _finish(self) -> None:
+        if self._finished:
+            return
+        self._finished = True
+        self._direct_flags = self._sink.direct_flags()
+        tb, tbv, tl, tlv, _sizes = self._sink.finish()
+        for i in range(len(self.fds)):
+            if tbv[i]:
+                self.crcs[i].append(int(tb[i]))
+            if self.leaf_size and tlv[i]:
+                self._leaf_crcs[i].append(int(tl[i]))
+        self._sink.destroy()
+
+    def block_crcs(self) -> list[list[int]]:
+        self._finish()
+        return [list(c) for c in self.crcs]
+
+    def leaf_crcs(self) -> list[list[int]]:
+        self._finish()
+        return [list(c) for c in self._leaf_crcs] if self.leaf_size else []
+
+    def to_protection(self, ctx: ECContext) -> BitrotProtection:
+        return BitrotProtection(
+            ctx=ctx,
+            block_size=self.block_size,
+            uuid=uuid.uuid4().bytes,
+            shard_sizes=list(self.sizes),
+            shard_crcs=self.block_crcs(),
+            leaf_size=self.leaf_size,
+            shard_leaf_crcs=self.leaf_crcs(),
+        )
+
+
 class PyShardSink:
-    """Write stage: N parallel shard streams, each rolling its sidecar
-    CRCs over the same bytes it writes."""
+    """Python write stage: N shard streams, each rolling its sidecar CRCs
+    over the same bytes it writes. Taken where SEAWEED_EC_NATIVE=0 or an
+    armed fault registry (byte-mutating fault points need materialized
+    bytes) asks for the Python plane."""
 
     def __init__(
         self,
@@ -248,3 +389,18 @@ class PyShardSink:
 
     def to_protection(self, ctx: ECContext) -> BitrotProtection:
         return BitrotProtection.from_builders(ctx, self.builders)
+
+
+def make_shard_sink(
+    files: list,
+    block_size: int = BITROT_BLOCK_SIZE,
+    leaf_size: int = 0,
+    prefer_fused: bool = True,
+) -> FusedShardSink | PyShardSink:
+    """The fused native sink, or `PyShardSink` when the caller asks for
+    it (`prefer_fused=False`), SEAWEED_EC_NATIVE=0 is set, or the fault
+    registry is armed. A native sink that fails to build or load raises:
+    there is no quiet fallback."""
+    if prefer_fused and native_io.enabled() and not faults.active():
+        return FusedShardSink(files, block_size, leaf_size)
+    return PyShardSink(files, block_size, leaf_size)

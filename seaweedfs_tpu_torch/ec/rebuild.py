@@ -21,6 +21,14 @@ sidecar CRCs rolled inline while the bytes are hot, and one precomputed
 decode-coefficient apply per batch runs through `run_staged_apply`, so
 batch N computes on the device while N+1 uploads and N-1 drains to disk.
 Non-source present shards get a dedicated parallel verify.
+
+The byte path is the native plane (ec/native_io.py): one batched native
+read per batch lands the k sources in a pooled matrix (page-locked on
+cuda) and rolls their CRCs on the C++ side, and the fused native sink
+writes the rebuilt shards. With SEAWEED_EC_NATIVE=0, or an armed fault
+registry, k preadv loops, Python CRC rollers and `PyShardSink` give the
+same bytes, and the publish-seam fault points fire on that path as on
+the native one.
 """
 
 from __future__ import annotations
@@ -33,11 +41,12 @@ import numpy as np
 from .. import faults
 from ..utils.crc import crc32c
 from ..utils.fs import fsync_dir
+from . import native_io
 from .backend import TorchBackend, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import BITROT_BLOCK_SIZE, DEFAULT_EC_CONTEXT, ECContext, ECError
 from .encoder import DEFAULT_BATCH
-from .pipeline import PyShardSink, run_staged_apply
+from .pipeline import make_shard_sink, run_staged_apply
 from .volume_info import VolumeInfo
 
 
@@ -75,6 +84,36 @@ class _BlockCrcRoller:
             self.crcs.append(self._crc)
             self._crc = 0
             self._filled = 0
+        return self.crcs
+
+
+class _ReadCrcs:
+    """The same rolling per-block CRC32C over the k sources, advanced by
+    the native batched read itself (its `granule` arguments) while the
+    bytes are hot."""
+
+    def __init__(self, k: int, block_size: int, batch_size: int):
+        self.block_size = block_size
+        self.state = np.zeros(k, np.uint32)
+        self.filled = np.zeros(k, np.uint64)
+        self.out = np.empty((k, batch_size // block_size + 2), np.uint32)
+        self.counts = np.empty(k, np.int32)
+        self.crcs: list[list[int]] = [[] for _ in range(k)]
+
+    def read_args(self) -> dict:
+        return dict(
+            granule=self.block_size, crc_state=self.state, filled_state=self.filled,
+            out_crcs=self.out, out_counts=self.counts,
+        )
+
+    def collect(self) -> None:
+        for row, crcs in enumerate(self.crcs):
+            crcs.extend(int(x) for x in self.out[row, : int(self.counts[row])])
+
+    def finish(self) -> list[list[int]]:
+        for row, crcs in enumerate(self.crcs):
+            if self.filled[row]:  # the partial tail block
+                crcs.append(int(self.state[row]))
         return self.crcs
 
 
@@ -262,27 +301,57 @@ def _attempt_rebuild(
     tmp_paths = {i: base + ctx.to_ext(i) + ".rebuilding" for i in targets}
     outs = {i: open(p, "wb", buffering=0) for i, p in tmp_paths.items()}
     crc_block = prot.block_size if prot is not None else BITROT_BLOCK_SIZE
-    sink = PyShardSink(list(outs.values()), block_size=crc_block)
-    rollers = (
-        {i: _BlockCrcRoller(crc_block) for i in src} if inline_verify else None
-    )
+    sink = make_shard_sink(list(outs.values()), block_size=crc_block)
     coeffs = _decode_coeffs(backend.matrix, tuple(targets), tuple(src))
+    pool = None
+    if native_io.enabled() and not faults.active():
+        pool = native_io.BufferPool(k, device=getattr(backend, "device", None))
+    rollers = read_crcs = None
+    if inline_verify and pool is None:
+        rollers = {i: _BlockCrcRoller(crc_block) for i in src}
+    elif inline_verify:
+        read_crcs = _ReadCrcs(k, crc_block, batch_size)
+
+    def read_native(off: int, width: int) -> np.ndarray:
+        src_fds = [fds[i] for i in src]
+        nxt = off + width
+        if nxt < shard_size:
+            for fd in src_fds:
+                native_io.prefetch(fd, nxt, min(batch_size, shard_size - nxt))
+        buf = pool.get(width)
+        try:
+            native_io.read_batch(
+                src_fds, [off] * k, buf, pad_eof=False,
+                **(read_crcs.read_args() if read_crcs is not None else {}),
+            )
+        except OSError as e:
+            if not hasattr(e, "sn_row"):
+                raise
+            raise _SourceReadError([src[e.sn_row]]) from e
+        if read_crcs is not None:
+            read_crcs.collect()
+        return buf
 
     def produce():
         for off in range(0, shard_size, batch_size):
             width = min(batch_size, shard_size - off)
-            buf = np.empty((k, width), dtype=np.uint8)
-            for row, i in enumerate(src):
-                try:
-                    _pread_exact(fds[i], buf[row], off)
-                except OSError as e:
-                    raise _SourceReadError([i]) from e
-                if rollers is not None:
-                    rollers[i].update(buf[row])
-            yield off, buf
+            if pool is not None:
+                buf = read_native(off, width)
+            else:
+                buf = np.empty((k, width), dtype=np.uint8)
+                for row, i in enumerate(src):
+                    try:
+                        _pread_exact(fds[i], buf[row], off)
+                    except OSError as e:
+                        raise _SourceReadError([i]) from e
+                    if rollers is not None:
+                        rollers[i].update(buf[row])
+            yield buf, buf
 
-    def consume(_off, out):
+    def consume(buf, out):
         sink.append_rows([out[p] for p in range(len(targets))])
+        if pool is not None:
+            pool.put(buf)  # written, and its H2D copy long done
 
     def _cleanup_temps() -> None:
         for f in outs.values():
@@ -336,8 +405,11 @@ def _attempt_rebuild(
             os.close(fd)
 
     # --- inline source verification verdict --------------------------------
-    if rollers is not None:
-        got = {i: rollers[i].finish() for i in src}
+    if rollers is not None or read_crcs is not None:
+        if read_crcs is not None:
+            got = dict(zip(src, read_crcs.finish()))
+        else:
+            got = {i: rollers[i].finish() for i in src}
         suspects = [i for i in src if got[i] != prot.shard_crcs[i]]
         # the inline roller IS the block-CRC check _verify_full performs:
         # a retry after an exclusion must not re-read clean sources

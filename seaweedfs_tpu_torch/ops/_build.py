@@ -5,7 +5,9 @@ Two sources live in seaweedfs_tpu_torch/csrc/:
 - gf2_apply.cu: the CUDA kernels behind its two entry points (nvcc,
   `-gencode arch=compute_90a,code=sm_90a`), a plain C interface with no
   PyTorch headers, so it builds in seconds;
-- crc32c.cpp: host CRC32C (g++), used by the shard sidecars.
+- seaweed_native.cpp: the host byte plane (g++, `-pthread`): CRC32C,
+  batched positioned reads with an inline CRC, and the stateful shard
+  sink (utils/native.py binds it).
 
 Each library is built into seaweedfs_tpu_torch/build/ (listed in
 .gitignore) under a name that carries a hash of its source and flags,
@@ -35,9 +37,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
+GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread"]
 
-_SOURCES = {"gf2_apply": "gf2_apply.cu", "crc32c": "crc32c.cpp"}
+_SOURCES = {"gf2_apply": "gf2_apply.cu", "seaweed_native": "seaweed_native.cpp"}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -105,30 +107,53 @@ def build_all(names=tuple(_SOURCES)) -> dict[str, str]:
     return logs
 
 
+_c = ctypes
+_P = ctypes.c_void_p
+# restype and argtypes of every exported function, per library.
+_SIGNATURES = {
+    "gf2_apply": {
+        "gf2_apply": (_c.c_int, [_P, _c.c_int, _c.c_int, _P, _c.c_int64, _P, _c.c_int, _P]),
+        "gf2_apply_planes": (
+            _c.c_int, [_P, _c.c_int, _c.c_int, _c.c_int, _P, _c.c_int64, _P, _c.c_int, _P],
+        ),
+    },
+    "seaweed_native": {
+        "sn_crc32c": (_c.c_uint32, [_c.c_uint32, _P, _c.c_size_t]),
+        "sn_crc32c_combine": (_c.c_uint32, [_c.c_uint32, _c.c_uint32, _c.c_uint64]),
+        # fds, offsets, nrows, dst, width, stride, pad_eof, granule,
+        # crc_state, filled_state, out_crcs, out_counts, max_out
+        "sn_batch_pread": (_c.c_int, [
+            _c.POINTER(_c.c_int), _c.POINTER(_c.c_uint64), _c.c_int, _P, _c.c_size_t,
+            _c.c_size_t, _c.c_int, _c.c_uint32, _P, _P, _P, _P, _c.c_int32,
+        ]),
+        "sn_fadvise_willneed": (_c.c_int, [_c.c_int, _c.c_uint64, _c.c_uint64]),
+        # fds, n, block_size, leaf_size, flags
+        "sn_sink_create": (_P, [
+            _c.POINTER(_c.c_int), _c.c_int, _c.c_uint32, _c.c_uint32, _c.c_uint32,
+        ]),
+        # handle, rows, width, out block crcs and counts, out leaf crcs
+        # and counts, max_out
+        "sn_sink_append": (_c.c_int, [
+            _P, _c.POINTER(_P), _c.c_size_t, _P, _P, _P, _P, _c.c_int32,
+        ]),
+        # handle, tail block crc and valid, tail leaf crc and valid, sizes
+        "sn_sink_finish": (_c.c_int, [_P, _P, _P, _P, _P, _P]),
+        "sn_sink_direct_flags": (_c.c_int, [_P, _P]),
+        "sn_sink_destroy": (None, [_P]),
+    },
+}
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    if name == "gf2_apply":
-        fn = lib.gf2_apply
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.gf2_apply_planes
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    else:
-        fn = lib.crc32c
-        fn.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t]
-        fn.restype = ctypes.c_uint32
+    for fn, (restype, argtypes) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library `name` ("gf2_apply" or "crc32c"), building it
-    on first use."""
+    """The built library `name` ("gf2_apply" or "seaweed_native"),
+    building it on first use. A failed build or load raises."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib

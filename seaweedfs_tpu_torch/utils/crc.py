@@ -1,32 +1,21 @@
 """CRC32C (Castagnoli): the .ecsum bitrot sidecar and inline source checks.
 
-Port of seaweedfs_tpu/utils/crc.py. `crc32c` runs the port's own C++
-(csrc/crc32c.cpp: SSE4.2 crc32 instructions, slice-by-8 tables on other
-CPUs), built with g++ at first use; a shard stream of a 1 GiB volume is
-1.4 GiB, far too much for a Python loop. `crc32c_combine` is plain
-Python: it touches no bytes.
+Port of seaweedfs_tpu/utils/crc.py. `crc32c` is the port's host library's
+(`sn_crc32c` in csrc/seaweed_native.cpp, bound in utils/native.py: SSE4.2
+crc32 instructions, slice-by-8 tables on other CPUs), built with g++ at
+first use; a shard stream of a 1 GiB volume is 1.4 GiB, far too much for
+a Python loop. `crc32c_combine` is plain Python: it touches no bytes.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
+from .native import crc32c
 
-from ..ops import _build
+__all__ = ["CASTAGNOLI_POLY", "crc32c", "crc32c_combine"]
 
 CASTAGNOLI_POLY = 0x82F63B78  # reflected
-
-
-def crc32c(data, crc: int = 0) -> int:
-    """CRC32C of `data` (bytes, bytearray, memoryview or a numpy array,
-    read as its raw bytes), optionally continuing from a previous value."""
-    if isinstance(data, np.ndarray):
-        buf = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
-    else:
-        buf = np.frombuffer(data, dtype=np.uint8)
-    fn = _build.load("crc32c").crc32c
-    return int(fn(crc & 0xFFFFFFFF, buf.ctypes.data, buf.nbytes))
 
 
 # ---------------------------------------------------------------- combine

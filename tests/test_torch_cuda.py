@@ -1,8 +1,10 @@
 """PyTorch port on the card: the CUDA kernel's two entry points (and the
 three bodies behind them) against their plain versions and the numpy
-oracle, the backend's staged path, degraded reads through EcVolume, and
-leaf repair (reconstruction on the card, a repair killed in a child
-process and healed at mount).
+oracle, the backend's staged path, degraded reads through EcVolume, leaf
+repair (reconstruction on the card, a repair killed in a child process
+and healed at mount), and the native byte plane's page-locked landing
+matrices (copied to the card as they lie, recycled as soon as a batch's
+result is back).
 
 Every test here needs an NVIDIA card and skips without one. This file
 imports no JAX, so it runs where JAX is not installed; on the card run it
@@ -13,6 +15,7 @@ without the JAX-based conftest:
 All comparisons are exact (tolerance 0: integer GF arithmetic).
 """
 
+import collections
 import os
 import subprocess
 import sys
@@ -29,6 +32,7 @@ from seaweedfs_tpu_torch.ec import (
     TorchBackend,
     VolumeInfo,
     ec_encode_volume,
+    native_io,
     reconstruct_leaves,
 )
 from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
@@ -153,6 +157,87 @@ def test_volume_encode_on_card_matches_cpu(cuda, tmp_path):
     for i in range(14):
         ext = f"1.ec{i:02d}"
         assert (tmp_path / "gpu" / ext).read_bytes() == (tmp_path / "cpu" / ext).read_bytes()
+
+
+@pytest.mark.parametrize("width", [1, 4096, 1 << 20, (1 << 20) + 3, 16 << 20])
+def test_pinned_pool_matrices_are_page_locked_and_aligned(cuda, width):
+    pool = native_io.BufferPool(10, device=cuda)
+    assert pool.pinned
+    native_io.reset_counts()
+    mats = [pool.get(width) for _ in range(3)]
+    for m in mats:
+        assert m.shape == (10, width) and m.dtype == np.uint8 and m.flags.c_contiguous
+        assert m.ctypes.data % 4096 == 0
+        assert torch.from_numpy(m).is_pinned() and torch.from_numpy(m[7]).is_pinned()
+    assert len({m.ctypes.data for m in mats}) == 3 and native_io.COUNTS["pool_alloc"] == 3
+    pool.put(mats[1])
+    assert pool.get(width) is mats[1] and native_io.COUNTS["pool_alloc"] == 3
+
+
+def test_to_device_skips_the_pin_copy_for_pooled_batches(cuda):
+    ctx = ECContext(10, 4)
+    be = TorchBackend(ctx)
+    pool = native_io.BufferPool(10, device=cuda)
+    landed = pool.get(1 << 20)
+    landed[:] = np.random.default_rng(21).integers(0, 256, landed.shape, dtype=np.uint8)
+    plain = np.array(landed)  # pageable memory
+    from_pool = be.to_host(be.encode_staged(be.to_device(landed))).copy()
+    assert be.pin_skips == 1 and be.stage_seconds["pin"] == 0
+    from_copy = be.to_host(be.encode_staged(be.to_device(plain))).copy()
+    assert be.pin_skips == 1 and be.stage_seconds["pin"] > 0
+    assert np.array_equal(from_pool, from_copy)
+    want = gf256.matrix_apply(gf256.parity_rows(10, 4), plain[:, :65536])
+    assert np.array_equal(from_pool[:, :65536], want)
+    be.reset_stages()
+    assert be.pin_skips == 0
+
+
+def test_pooled_matrix_recycled_right_after_to_host(cuda):
+    """100 batches through two in flight, each pooled matrix put back and
+    refilled as soon as its batch's parity is on the host: every parity
+    equals that of a private copy of the batch, so no refill reached a
+    matrix whose copy to the card was still running."""
+    ctx = ECContext(10, 4)
+    be, ref = TorchBackend(ctx), TorchBackend(ctx)
+    pool = native_io.BufferPool(10, device=cuda)
+    native_io.reset_counts()
+    rng = np.random.default_rng(22)
+    width = 1 << 20
+    pending = collections.deque()
+    for i in range(100 + 2):
+        if i < 100:
+            m = pool.get(width)
+            m[:] = rng.integers(0, 256, m.shape, dtype=np.uint8)
+            pending.append((np.array(m), m, be.encode_staged(be.to_device(m))))
+        if len(pending) == 2 or (i >= 100 and pending):
+            copy, m, handle = pending.popleft()
+            got = be.to_host(handle).copy()
+            pool.put(m)  # refilled by the next get, at once
+            assert np.array_equal(got, ref.encode(copy)), i
+    assert be.pin_skips == 100 and native_io.COUNTS["pool_alloc"] <= 3
+
+
+def test_encode_on_card_native_plane_matches_python_plane(cuda, tmp_path, monkeypatch):
+    rng = np.random.default_rng(23)
+    dat = rng.integers(0, 256, 3 * 655360 + 40960 * 2 + 999, dtype=np.uint8)
+    sizes = dict(large_block_size=65536, small_block_size=4096, batch_size=20000)
+    ctx = ECContext(10, 4)
+    out = {}
+    for plane in ("1", "0"):
+        monkeypatch.setenv("SEAWEED_EC_NATIVE", plane)
+        (tmp_path / plane).mkdir()
+        dat.tofile(tmp_path / plane / "1.dat")
+        be = TorchBackend(ctx)
+        native_io.reset_counts()
+        prot = write_ec_files(str(tmp_path / plane / "1"), ctx, backend=be, leaf_size=4096, **sizes)
+        shards = [(tmp_path / plane / f"1.ec{i:02d}").read_bytes() for i in range(14)]
+        out[plane] = (shards, prot.shard_sizes, prot.shard_crcs, prot.shard_leaf_crcs)
+        if plane == "1":
+            batches = native_io.COUNTS["read_batch"]
+            assert batches == native_io.COUNTS["sink_append"] == be.pin_skips > 0
+        else:
+            assert not any(native_io.COUNTS.values()) and be.pin_skips == 0
+    assert out["1"] == out["0"]
 
 
 @pytest.mark.parametrize("width", [1, 7, 16, 127, 1000, 4099, 1 << 20] + PLANES_EDGES)

@@ -321,7 +321,7 @@ def _python_files():
     built = PORT / "build"  # build outputs, not sources
     return sorted(
         p for p in PORT.rglob("*.py") if built not in p.parents
-    ) + [REPO / "chip_smoke.py", REPO / "chip_kernels.py"]
+    ) + [REPO / "chip_smoke.py", REPO / "chip_kernels.py", REPO / "chip_host_io.py"]
 
 
 @pytest.mark.parametrize(
