@@ -16,8 +16,11 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    matrix, at ragged widths, at the widths on its tiles' edges and on
    data 1 byte off alignment (the masked byte path), and against the
    numpy oracle on a sampled 64 KiB window (tolerance 0: exact integer GF
-   arithmetic); time it at the encode and rebuild shapes, (10, 1 MiB) and
-   (10, 16 MiB) with each matrix, beside the plain version,
+   arithmetic), and at k = 1 with one generator column of 10+4 (m = 4)
+   and of 4+2 (m = 2), the streaming encoder's parity delta, at widths
+   under, on and past one 16-byte word; time it at the encode and rebuild
+   shapes, (10, 1 MiB) and (10, 16 MiB) with each matrix, and at the
+   stream's (1, 256 KiB) and ragged (1, 8 KiB + 5), beside the plain version,
    torch._int_mm on the same bit-plane product (a yardstick the port
    never calls), a device copy that moves the same bytes (the memory
    stream's time under the same method), and the host time of one
@@ -71,7 +74,29 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    shard, the .dat (the original cut to the live extent) and the .idx
    must be identical to what they should be, the planes kernel must
    have launched once per rebuild batch, and the rebuild's and the
-   de-stripe's reads must have gone through the native plane.
+   de-stripe's reads must have gone through the native plane;
+7a. streaming EC: the first 256 MiB of the same .dat appended in 8 KiB
+   pieces to an `EcStreamEncoder` (10+4, 1 MiB blocks, 64 KiB small
+   blocks), flushed whenever 256 KiB is pending, closed with finalize:
+   the 14 shards must be sha256-identical to one `write_ec_files` over
+   the same bytes, with equal CRC lists, and `gf2_apply` must have
+   launched once per chunk processed plus once per finalize tail stripe;
+   it prints time-to-durable-parity p50/p99 per append, appends/s, the
+   batch encode's wall, the stage tables, the device's busy share and
+   the launches on each body;
+7b. the MQ durable-parity partition: `PartitionParity` at the broker's
+   defaults (4+2, 1 MiB blocks, flush at 256 KiB or 200 ms, rotation at
+   64 MiB) takes 144 MiB of 1 KB records (16-byte keys) at 50,000
+   records/s while a flusher thread applies the policy every 100 ms;
+   closed and recovered by a fresh partition, every record must come
+   back byte-exact, no parity may be rewritten, and recovery must launch
+   once per stripe it re-derives. Then, for `ec.stream.seal`,
+   `ec.stream.before_fsync` and `ec.stream.before_journal`, a child
+   partition appending 8 MiB of the same records dies at the point
+   (exit code 137; a fresh interpreter, as `fork` does not mix with
+   CUDA), and the parent must recover a dense, byte-exact prefix reaching
+   the child's last completed flush, verify every generation clean on a
+   second pass, and append densely after it.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -210,6 +235,8 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misalign
         bits8 = torch.cat([bits8, torch.zeros((32 - bits8.shape[0], 8 * k), dtype=torch.int8, device="cuda")])
     shifts = torch.arange(8, dtype=torch.uint8, device="cuda").view(8, 1, 1)
     planes = ((data.unsqueeze(0) >> shifts) & 1).reshape(8 * k, n).to(torch.int8)
+    if n % 8:  # _int_mm takes a multiple of 8 columns: zero columns pad a ragged width
+        planes = torch.cat([planes, torch.zeros((8 * k, 8 - n % 8), dtype=torch.int8, device="cuda")], 1)
     row["library_ms"] = median_ms(lambda: torch._int_mm(bits8, planes), 11, flush)
     del planes
     # The memory stream alone: one device copy that reads and writes as
@@ -232,6 +259,11 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misalign
 # blocks walk several tiles, the last of them partial.
 TILE_EDGES = (4080, 4096, 4112, 132 * 4096 - 16, 132 * 4096, 132 * 4096 + 16,
               132 * 4096 + 3, (16 << 20) + 48)
+
+
+# Chunk widths of the stream's k = 1 deltas: below one 16-byte word, on
+# and off its edges, a ragged MQ flush, and 256 KiB (the flush threshold).
+STREAM_WIDTHS = (1, 5, 15, 16, 17, 1062, 4099, (8 << 10) + 5, 256 << 10, (1 << 20) - 3, 1 << 20)
 
 
 def kernel_name(mangled: str) -> str:
@@ -297,6 +329,15 @@ def kernel_phases(rng, flush):
         row = check_kernel("gf2_apply", coeffs, 1 << 20, rng, flush, timed=False, misaligned=True)
     print(f"gf2_apply exact at widths {list(widths + TILE_EDGES)} and on misaligned data "
           f"(offset {row['data_offset']}), encode m=4 and rebuild m=2 coefficients")
+    # the stream's parity deltas: one generator column (k = 1) over a
+    # chunk of any width, m = 4 (10+4 volumes) and m = 2 (4+2 MQ streams)
+    column_coeffs = (gf256.parity_rows(K, M)[:, 3:4], gf256.parity_rows(4, 2)[:, 1:2])
+    for coeffs in column_coeffs:
+        for n in STREAM_WIDTHS:
+            check_kernel("gf2_apply", coeffs, n, rng, flush, timed=False)
+        check_kernel("gf2_apply", coeffs, (1 << 20) + 3, rng, flush, timed=False, misaligned=True)
+    print(f"gf2_apply exact at k=1 (the stream's parity deltas), m=4 and m=2, at widths "
+          f"{list(STREAM_WIDTHS)} and on misaligned data")
     rows = {}
     for label, coeffs, n in (
         ("encode 10x1MiB m=4", encode_coeffs, 1 << 20),
@@ -304,6 +345,10 @@ def kernel_phases(rng, flush):
         ("encode 10x16MiB m=4", encode_coeffs, 16 << 20),
         ("decode 10x16MiB m=2", decode_coeffs, 16 << 20),
         ("leaf repair 10x64KiB m=1", read_coeffs, 64 << 10),
+        ("stream delta 1x256KiB m=4", column_coeffs[0], 256 << 10),
+        ("stream delta 1x(8KiB+5) m=4", column_coeffs[0], (8 << 10) + 5),
+        ("stream delta 1x256KiB m=2", column_coeffs[1], 256 << 10),
+        ("stream delta 1x(8KiB+5) m=2", column_coeffs[1], (8 << 10) + 5),
     ):
         rows[label] = check_kernel("gf2_apply", coeffs, n, rng, flush)
         print(f"gf2_apply {label} (tolerance 0, exact): " + json.dumps(rows[label]))
@@ -853,6 +898,404 @@ def decode_phase(base, ctx, digest3, deleted):
     }, launches
 
 
+# -- 7a, 7b. streaming EC and the MQ durable-parity partition -------------------
+
+DEVICE = "cuda"
+STREAM_BYTES = 256 << 20  # phase 7a: the first 256 MiB of the volume's .dat
+APPEND_BYTES = 8 << 10  # one append
+FLUSH_BYTES = 256 << 10  # the broker's flush threshold (SEAWEED_EC_STREAM_FLUSH_KB)
+MQ_BYTES = 144 << 20  # phase 7b: records appended to one partition
+MQ_KEY, MQ_VALUE = 16, 1024  # the OpenMessaging Benchmark's 1 KB message, 16-byte keys
+MQ_RATE = 50_000  # records/s: the OpenMessaging Benchmark's 1 KB workload rate
+MQ_FLUSH_EVERY_S = 0.1  # the flusher's cadence: half the 200 ms lag deadline
+MQ_CRASH_BYTES = 8 << 20  # records a crash-window child appends
+MQ_SEED = SEED + 7
+# point -> the arrival the child dies at: the first seal (one 4 MiB stripe
+# in), the twentieth flush's fsync or journal
+MQ_CRASH_POINTS = {"ec.stream.seal": 1, "ec.stream.before_fsync": 20, "ec.stream.before_journal": 20}
+
+
+def row_chunks(lo: int, hi: int, block: int) -> int:
+    """Chunks (one k = 1 delta each) that processing the linear bytes
+    [lo, hi) takes: one per block-sized row segment it touches."""
+    return (hi - 1) // block - lo // block + 1 if hi > lo else 0
+
+
+def stream_phase(work, src, ctx) -> tuple[dict, int]:
+    """Phase 7a: the first STREAM_BYTES of `src` appended in 8 KiB pieces
+    to an `EcStreamEncoder` at its defaults (1 MiB blocks, 64 KiB small
+    blocks), flushed at 256 KiB pending, closed with finalize; against
+    one `write_ec_files` over the same bytes. Returns (result, launches)."""
+    from seaweedfs_tpu_torch.ec import BitrotProtection, EcStreamEncoder, TorchBackend, write_ec_files
+    from seaweedfs_tpu_torch.ops import gf256, rs_kernels
+
+    d = os.path.join(work, "stream")
+    os.makedirs(d)
+    with open(src, "rb") as f:
+        payload = f.read(STREAM_BYTES)
+    if len(payload) != STREAM_BYTES:
+        raise AssertionError(f"the .dat holds {len(payload)} bytes, fewer than {STREAM_BYTES}")
+    sbase, bbase = os.path.join(d, "s"), os.path.join(d, "b")
+    backend = TorchBackend(ctx, device=DEVICE)
+    rs_kernels.reset_launches()
+    enc = EcStreamEncoder(sbase, ctx, backend=backend)
+    block, small, k = enc.block_size, enc.small_block_size, ctx.data_shards
+    if (block, small) != (1 << 20, 64 << 10) or backend.device.type != DEVICE:
+        raise AssertionError(f"stream at block {block}, small {small}, on {backend.device}")
+    n_app = len(payload) // APPEND_BYTES
+    view = memoryview(payload)
+    t_append = np.zeros(n_app)
+    lags: list[float] = []
+    covered = processed = chunks = flushes = 0
+
+    def flushed(durable: int) -> None:
+        nonlocal covered, processed, chunks, flushes
+        now = time.perf_counter()
+        chunks += row_chunks(processed, durable, block)
+        processed = durable
+        flushes += 1
+        while covered < n_app and (covered + 1) * APPEND_BYTES <= durable:
+            lags.append(now - t_append[covered])
+            covered += 1
+
+    t0 = time.perf_counter()
+    for i in range(n_app):
+        t_append[i] = time.perf_counter()
+        enc.append(view[i * APPEND_BYTES : (i + 1) * APPEND_BYTES])
+        if enc.pending_bytes >= FLUSH_BYTES:
+            flushed(enc.flush())
+    flushed(enc.flush())
+    stream_s = time.perf_counter() - t0
+    if covered != n_app or processed != len(payload):
+        raise AssertionError(f"{covered} of {n_app} appends durable, {processed} bytes processed")
+    flush_launches = rs_kernels.LAUNCHES["gf2_apply"]
+    t0 = time.perf_counter()
+    prot = enc.close()
+    close_s = time.perf_counter() - t0
+    stripe = block * k
+    tail_stripes = -(-(len(payload) % stripe) // (small * k))
+    launches = rs_kernels.LAUNCHES["gf2_apply"]
+    masked = rs_kernels.MASKED["gf2_apply"]
+    if flush_launches != chunks or launches != chunks + tail_stripes:
+        raise AssertionError(f"stream launched {flush_launches} + {launches - flush_launches} kernels "
+                             f"for {chunks} chunks + {tail_stripes} tail stripes")
+
+    with open(bbase + ".dat", "wb") as f:
+        f.write(payload)
+    del payload, view
+    bbackend = TorchBackend(ctx, device=DEVICE)
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    bprot = write_ec_files(bbase, ctx, bbackend, large_block_size=block, small_block_size=small)
+    batch_s = time.perf_counter() - t0
+    batch_launches = rs_kernels.LAUNCHES["gf2_apply"]
+    lists = lambda pr: (pr.shard_sizes, pr.shard_crcs, pr.leaf_size, pr.shard_leaf_crcs)  # noqa: E731
+    if lists(prot) != lists(bprot) or lists(BitrotProtection.load(sbase + ".ecsum")) != lists(bprot):
+        raise AssertionError("the stream's block or leaf CRC lists differ from the batch encode's")
+    for i in range(ctx.total):
+        if sha256(sbase + ctx.to_ext(i)) != sha256(bbase + ctx.to_ext(i)):
+            raise AssertionError(f"stream shard {i} differs from the batch encode's")
+    if os.path.exists(sbase + ".stream"):
+        raise AssertionError("finalize left the stream's journal behind")
+    shutil.rmtree(d)
+    st = backend.stage_seconds
+    device_s = st["h2d"] + st["kernel"] + st["d2h"]
+    split = round_trip_split(backend, gf256.parity_rows(K, M)[:, :1])
+    return {
+        "bytes": STREAM_BYTES, "appends": n_app, "append_bytes": APPEND_BYTES,
+        "flush_bytes": FLUSH_BYTES, "flushes": flushes, "block": block, "small_block": small,
+        "time_to_durable_parity_p50_ms": percentile_ms(lags, 50),
+        "time_to_durable_parity_p99_ms": percentile_ms(lags, 99),
+        "time_to_durable_parity_max_ms": percentile_ms(lags, 100),
+        "appends_per_s": n_app / stream_s, "stream_seconds": stream_s,
+        "close_finalize_seconds": close_s, "stream_mb_per_s": STREAM_BYTES / (stream_s + close_s) / 1e6,
+        "batch_encode_seconds": batch_s, "batch_launches": batch_launches,
+        "launches": launches, "chunks": chunks, "tail_stripes": tail_stripes,
+        "launches_table_body": launches - masked, "launches_masked_path": masked,
+        "host_us_per_launch": (enc.stage_seconds["h2d_dispatch"] + enc.stage_seconds["device_drain"])
+        / launches * 1e6,
+        "device_busy_share": st["kernel"] / (stream_s + close_s),
+        "device_h2d_kernel_d2h_share": device_s / (stream_s + close_s),
+        "encoder_stage_seconds": dict(enc.stage_seconds), "backend_stage_seconds": dict(st),
+        "round_trip_host_us": split,
+    }, launches + batch_launches
+
+
+def round_trip_split(backend, coeffs, reps: int = 200) -> dict:
+    """Median host time, in microseconds, of each hook of one stream
+    delta's round trip (a (1, 256 KiB) chunk, m = 4) on an idle stream:
+    `to_device` (the pin copy and queueing the H2D copy), `apply_staged`
+    (the launch) and `to_host` (the wait, the D2H copy and the wait for
+    it). Not counted as main-path launches."""
+    from seaweedfs_tpu_torch.ops import rs_kernels
+
+    chunk = np.random.default_rng(SEED).integers(0, 256, (1, FLUSH_BYTES), dtype=np.uint8)
+    launches, masked = dict(rs_kernels.LAUNCHES), dict(rs_kernels.MASKED)
+    times = {"to_device": [], "apply_staged": [], "to_host": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        staged = backend.to_device(chunk)
+        t1 = time.perf_counter()
+        handle = backend.apply_staged(coeffs, staged)
+        t2 = time.perf_counter()
+        backend.to_host(handle)
+        t3 = time.perf_counter()
+        for key, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[key].append(dt)
+    rs_kernels.LAUNCHES.update(launches)
+    rs_kernels.MASKED.update(masked)
+    return {key: float(np.median(v) * 1e6) for key, v in times.items()}
+
+
+def mq_source(n: int) -> tuple[bytes, bytes]:
+    """The phase 7b records' keys and values, seeded: record i has key
+    keys[16i:16i+16] and value values[1024i:1024i+1024]."""
+    rng = np.random.default_rng(MQ_SEED)
+    return rng.bytes(MQ_KEY * n), rng.bytes(MQ_VALUE * n)
+
+
+def mq_record_bytes() -> int:
+    from seaweedfs_tpu_torch.mq.stream_parity import encode_record
+
+    return len(encode_record(0, 0, bytes(MQ_KEY), bytes(MQ_VALUE)))
+
+
+def check_records(recs, keys, values, ts0: int) -> None:
+    """Raise unless `recs` is the dense prefix of the records appended."""
+    for i, (off, ts, key, value) in enumerate(recs):
+        if (off, ts) != (i, ts0 + i) or key != keys[i * MQ_KEY : (i + 1) * MQ_KEY] \
+                or value != values[i * MQ_VALUE : (i + 1) * MQ_VALUE]:
+            raise AssertionError(f"recovered record {i} (offset {off}) differs from the one appended")
+
+
+def gens_of(d: str) -> list[int]:
+    return sorted({int(n[4:].split(".", 1)[0]) for n in os.listdir(d) if n.startswith("gen-")})
+
+
+def verify_gens(d: str, ctx, backend) -> int:
+    """A second recovery pass over every generation of partition dir
+    `d`: raises if any parity is rewritten. Returns the stripes checked."""
+    from seaweedfs_tpu_torch.ec import load_stream_journal, recover_stream
+    from seaweedfs_tpu_torch.mq.stream_parity import dense_frame_scan
+
+    stripes = 0
+    for g in gens_of(d):
+        base = os.path.join(d, f"gen-{g:08d}")
+        j = load_stream_journal(base)
+        rec = recover_stream(base, ctx, backend, frame_scan=dense_frame_scan(j.meta))
+        if rec.parity_rewritten:
+            raise AssertionError(f"{base}: a second recovery pass rewrote {rec.parity_rewritten} stripes")
+        stripes += -(-rec.head // (ctx.data_shards * j.block_size))
+    return stripes
+
+
+# A partition that appends the phase 7b records and flushes by the
+# broker's policy, printing the records durable after each flush, until
+# the armed point kills it.
+MQ_CRASH_CHILD = r"""
+import sys
+from chip_smoke import MQ_KEY, MQ_VALUE, mq_source
+from seaweedfs_tpu_torch import faults
+from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+
+root, point, nth, n, n_source, ts0 = sys.argv[1:7]
+n, ts0 = int(n), int(ts0)
+keys, values = mq_source(int(n_source))  # the parent's records, the first n of them appended
+faults.inject(point, faults.hard_exit(137), when=faults.nth_call(int(nth)))
+pp = PartitionParity(root, "bench", "crash", 0)
+for i in range(n):
+    pp.append_record(i, ts0 + i, keys[i * MQ_KEY:(i + 1) * MQ_KEY], values[i * MQ_VALUE:(i + 1) * MQ_VALUE])
+    if pp.needs_flush():
+        pp.flush()
+        print("flushed", i + 1, flush=True)
+pp.flush()
+print("flushed", n, flush=True)
+sys.exit(3)  # the armed point never fired
+"""
+
+
+def mq_phase(work) -> tuple[dict, int]:
+    """Phase 7b: one partition at the broker's defaults (4+2, 1 MiB
+    blocks, flush at 256 KiB or 200 ms, rotation at 64 MiB) takes
+    MQ_BYTES of 1 KB records at MQ_RATE from the main thread while a
+    flusher thread applies the policy every 100 ms; closed, then
+    recovered by a fresh partition; then each crash window, in a child.
+    Returns (result, launches)."""
+    import threading
+
+    from seaweedfs_tpu_torch.ec import load_stream_journal, stream_summary
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+    from seaweedfs_tpu_torch.ops import rs_kernels
+
+    root = os.path.join(work, "mq")
+    rec_bytes = mq_record_bytes()
+    n = MQ_BYTES // rec_bytes
+    keys, values = mq_source(n)
+    ts0 = time.time_ns()
+    pp = PartitionParity(root, "bench", "omb", 0)
+    ctx, backend = pp.ctx, pp.backend
+    if ((ctx.data_shards, ctx.parity_shards), pp.block_size, pp.flush_bytes, pp.max_lag_s,
+            pp.rotate_bytes, backend.device.type) != ((4, 2), 1 << 20, 256 << 10, 0.2, 64 << 20, DEVICE):
+        raise AssertionError("the partition is not at the broker's defaults on the card")
+    backend.reset_stages()
+    rs_kernels.reset_launches()
+    stop = threading.Event()
+    calls: list[tuple[float, float]] = []
+    errors: list[BaseException] = []
+    encoders = {}  # each generation's encoder, for its stage table
+
+    def flusher() -> None:
+        try:
+            while not stop.wait(MQ_FLUSH_EVERY_S):
+                if pp.needs_flush():
+                    if pp._enc is not None:
+                        encoders[id(pp._enc)] = pp._enc
+                    t = time.perf_counter()
+                    pp.flush()
+                    calls.append((t, time.perf_counter()))
+        except BaseException as e:  # noqa: BLE001 - raised on the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=flusher, name="mq-parity-flusher")
+    thread.start()
+    t_append = np.zeros(n)
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            ahead = t0 + i / MQ_RATE - time.perf_counter()
+            if ahead > 0.001:
+                time.sleep(ahead)
+            t_append[i] = time.perf_counter()
+            pp.append_record(i, ts0 + i, keys[i * MQ_KEY : (i + 1) * MQ_KEY],
+                             values[i * MQ_VALUE : (i + 1) * MQ_VALUE])
+    finally:
+        stop.set()
+        thread.join()
+    if errors:
+        raise errors[0]
+    append_s = time.perf_counter() - t0
+    if pp._enc is not None:
+        encoders[id(pp._enc)] = pp._enc
+    t_close = time.perf_counter()
+    pp.close()
+    t_end = time.perf_counter()
+    launches = rs_kernels.LAUNCHES["gf2_apply"]
+    masked = rs_kernels.MASKED["gf2_apply"]
+    st = dict(backend.stage_seconds)
+    # an append's parity is durable once a flush called after it returns
+    # (or the close): an upper bound on its time-to-durable-parity
+    starts = np.array([c[0] for c in calls])
+    ends = np.array([c[1] for c in calls] + [t_end])
+    lags = ends[np.searchsorted(starts, t_append, side="left")] - t_append
+    part = os.path.join(root, "bench", "omb", "0000")
+    gens = gens_of(part)
+
+    rs_kernels.reset_launches()
+    rewritten0 = stream_summary()["recovered"].get("parity_rewritten", 0)
+    t0 = time.perf_counter()
+    recs = PartitionParity(root, "bench", "omb", 0).recover()
+    recover_s = time.perf_counter() - t0
+    rec_launches = rs_kernels.LAUNCHES["gf2_apply"]
+    if len(recs) != n:
+        raise AssertionError(f"recovered {len(recs)} of {n} records")
+    check_records(recs, keys, values, ts0)
+    del recs
+    if stream_summary()["recovered"].get("parity_rewritten", 0) != rewritten0:
+        raise AssertionError("recovery of a cleanly closed partition rewrote parity")
+    stripes = 0
+    for g in gens:
+        j = load_stream_journal(os.path.join(part, f"gen-{g:08d}"))
+        stripes += -(-j.durable // (ctx.data_shards * j.block_size))
+    if rec_launches != stripes:
+        raise AssertionError(f"recovery launched {rec_launches} kernels for {stripes} stripes")
+    total_launches = launches + rec_launches
+
+    # -- one flush as large as the mean flush above, with no publisher
+    # running beside it: what the flush costs on its own
+    per_flush = n // max(len(calls), 1)
+    solo_root = os.path.join(work, "mq-solo")
+    sp = PartitionParity(solo_root, "bench", "solo", 0)
+    for i in range(per_flush):
+        sp.append_record(i, ts0 + i, keys[i * MQ_KEY : (i + 1) * MQ_KEY],
+                         values[i * MQ_VALUE : (i + 1) * MQ_VALUE])
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    sp.flush()
+    solo = {"records": per_flush, "flush_ms": (time.perf_counter() - t0) * 1e3,
+            "encoder_stage_seconds": dict(sp._enc.stage_seconds)}
+    total_launches += rs_kernels.LAUNCHES["gf2_apply"]
+    sp.close()
+    shutil.rmtree(solo_root)
+
+    # -- crash windows: a child dies at each point, the parent recovers --
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    n_crash = -(-MQ_CRASH_BYTES // rec_bytes)
+    windows = []
+    for point, nth in MQ_CRASH_POINTS.items():
+        croot = os.path.join(work, "mq-crash-" + point.rsplit(".", 1)[1])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", MQ_CRASH_CHILD, croot, point, str(nth), str(n_crash), str(n),
+             str(ts0)],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=60,
+        )
+        child_s = time.perf_counter() - t0
+        done = [int(line.split()[1]) for line in proc.stdout.splitlines() if line.startswith("flushed")]
+        if proc.returncode != 137 or not done:
+            raise AssertionError(f"{point}: child exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+        rs_kernels.reset_launches()
+        rewritten0 = stream_summary()["recovered"].get("parity_rewritten", 0)
+        t0 = time.perf_counter()
+        cp = PartitionParity(croot, "bench", "crash", 0)
+        got = cp.recover()
+        rec_s = time.perf_counter() - t0
+        if len(got) < done[-1]:
+            raise AssertionError(f"{point}: recovered {len(got)} records, the child flushed {done[-1]}")
+        check_records(got, keys, values, ts0)
+        rewritten = stream_summary()["recovered"].get("parity_rewritten", 0) - rewritten0
+        cdir = os.path.join(croot, "bench", "crash", "0000")
+        checked = verify_gens(cdir, ctx, backend)
+        nxt = len(got)
+        for i in range(nxt, nxt + 3):  # appends continue dense after the tail
+            cp.append_record(i, ts0 + i, keys[i * MQ_KEY : (i + 1) * MQ_KEY],
+                             values[i * MQ_VALUE : (i + 1) * MQ_VALUE])
+        cp.flush()
+        cp.close()
+        again = PartitionParity(croot, "bench", "crash", 0).recover()
+        if len(again) != nxt + 3:
+            raise AssertionError(f"{point}: {len(again)} records after 3 more appends to {nxt}")
+        check_records(again, keys, values, ts0)
+        total_launches += rs_kernels.LAUNCHES["gf2_apply"]
+        windows.append({
+            "point": point, "child_s": child_s, "child_flushed_records": done[-1],
+            "recovered_records": nxt, "recovery_s": rec_s, "parity_rewritten_first_pass": rewritten,
+            "second_pass_stripes_clean": checked, "appended_after": 3,
+        })
+        shutil.rmtree(croot)
+    shutil.rmtree(root)
+    return {
+        "records": n, "record_bytes": rec_bytes, "bytes": n * rec_bytes, "rate_per_s": MQ_RATE,
+        "appends_per_s": n / append_s, "append_seconds": append_s, "close_seconds": t_end - t_close,
+        "flushes": len(calls), "generations": len(gens),
+        "flush_ms_p50": float(np.median([e - b for b, e in calls]) * 1e3),
+        "flush_ms_max": float(max(e - b for b, e in calls) * 1e3),
+        "flush_interval_ms_p50": float(np.median(np.diff(starts)) * 1e3) if len(calls) > 1 else None,
+        "solo_flush": solo,
+        "time_to_durable_parity_p50_ms": float(np.percentile(lags, 50) * 1e3),
+        "time_to_durable_parity_p99_ms": float(np.percentile(lags, 99) * 1e3),
+        "time_to_durable_parity_max_ms": float(lags.max() * 1e3),
+        "launches": launches, "launches_table_body": launches - masked,
+        "launches_masked_path": masked, "masked_share": masked / max(launches, 1),
+        "recovery_seconds": recover_s, "recovery_launches": rec_launches, "recovery_stripes": stripes,
+        "crash_windows": windows, "backend_stage_seconds": st,
+        "encoder_stage_seconds": {
+            k: sum(e.stage_seconds[k] for e in encoders.values()) for k in next(iter(encoders.values())).stage_seconds
+        },
+        "device_busy_share": st["kernel"] / (append_s + t_end - t_close),
+    }, total_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -989,6 +1432,17 @@ def main() -> int:
         decode, dec_launches = decode_phase(base, ctx, digests[DEGRADED], deleted)
         print(f"decode ({N_DELETED} deleted, shard {DEGRADED} regenerated; .dat, .idx and "
               f"shard identical): {json.dumps(decode)}")
+
+        # -- 7a, 7b. streaming EC and the MQ durable-parity partition -----------------
+        t0 = time.perf_counter()
+        stream, stream_launches = stream_phase(work, base + ".dat.orig", ctx)
+        print("stream encode (14 shards sha256-identical to the batch encode, CRC lists equal, "
+              f"launches == chunks + tail stripes): {json.dumps(stream)}")
+        mq, mq_launches = mq_phase(work)
+        print("MQ durable-parity partition (every record recovered byte-exact, no parity "
+              "rewritten, recovery launches == stripes; each crash window recovered dense "
+              f"past the child's last flush): {json.dumps(mq)}")
+        print(f"phase 7 (7a and 7b): {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -997,7 +1451,7 @@ def main() -> int:
     kernels = []
     for name, replaces, launches, row, all_rows in (
         ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55",
-         enc_launches + reb_launches + scrub_launches,
+         enc_launches + reb_launches + scrub_launches + stream_launches + mq_launches,
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257", read_launches + dec_launches,
          read_row, prows),

@@ -2,14 +2,16 @@
 serve needle reads from the shards (degraded reads reconstruct on the
 fly), decode the shards back into a volume, and scrub a volume (patch
 rotten leaves in place under a crash-safe journal, quarantine and
-rebuild what that cannot fix). The byte path under all of it is the
-native host plane: `native_io` (batched reads into pooled, page-locked
-landing matrices) and `FusedShardSink` (`make_shard_sink`).
+rebuild what that cannot fix), and encode a stream while it is written
+(`EcStreamEncoder`: incremental parity, the stripe-cursor journal,
+`recover_stream`). The byte path of the volume paths is the native host
+plane: `native_io` (batched reads into pooled, page-locked landing
+matrices) and `FusedShardSink` (`make_shard_sink`).
 
-Port of the encode, rebuild, read, decode and scrub slices of
+Port of the encode, rebuild, read, decode, scrub and streaming slices of
 seaweedfs_tpu/ec; the files it reads and writes (.ec00.., .ecx, .ecj,
-.ecsum, .vif, .repair, .scrubpos, and the decoded .dat and .idx) are the
-JAX package's formats, byte for byte.
+.ecsum, .vif, .repair, .scrubpos, .stream, and the decoded .dat and
+.idx) are the JAX package's formats, byte for byte.
 """
 
 from . import native_io
@@ -31,6 +33,15 @@ from .repair_journal import (
     sweep_stale_journals,
 )
 from .scrub import RateLimiter, ScrubCursor, ScrubReport, scrub_ec_volume
+from .stream_encode import (
+    EcStreamEncoder,
+    StreamJournal,
+    StreamRecovery,
+    load_stream_journal,
+    read_stream_data,
+    recover_stream,
+    stream_summary,
+)
 from .volume_info import VolumeInfo
 
 __all__ = [
@@ -41,6 +52,7 @@ __all__ = [
     "ECError",
     "EcCookieMismatch",
     "EcNotFoundError",
+    "EcStreamEncoder",
     "EcVolume",
     "FusedShardSink",
     "JournalError",
@@ -50,18 +62,24 @@ __all__ = [
     "RepairJournal",
     "ScrubCursor",
     "ScrubReport",
+    "StreamJournal",
+    "StreamRecovery",
     "TorchBackend",
     "VolumeInfo",
     "apply_leaf_repair",
     "ec_decode_volume",
     "ec_encode_volume",
     "get_backend",
+    "load_stream_journal",
     "make_shard_sink",
     "native_io",
     "rebuild_ec_files",
+    "read_stream_data",
     "reconstruct_leaves",
+    "recover_stream",
     "recover_volume_journals",
     "scrub_ec_volume",
+    "stream_summary",
     "sweep_stale_journals",
     "write_ec_files",
     "write_sorted_file_from_idx",

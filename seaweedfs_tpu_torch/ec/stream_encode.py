@@ -1,0 +1,753 @@
+"""Streaming EC: encode-on-write with incremental parity (online RS).
+
+Port of seaweedfs_tpu/ec/stream_encode.py. An :class:`EcStreamEncoder`
+accepts appends of unknown total length and keeps parity trailing the
+append head by a bounded lag, so redundancy exists while the object is
+still being written (the MQ broker's durable-parity log segments,
+`mq/stream_parity.py`).
+
+RS over GF(2^8) is linear. With generator rows ``G = matrix[k:]``
+(m x k), parity of a stripe is ``P = G @ D``; when a row-batch lands in
+data row ``i`` columns ``[c0,c1)``, the parity of the zero-extended
+stripe updates in place::
+
+    P[:, c0:c1] ^= G[:, i:i+1] @ new_bytes      (GF add == XOR)
+
+so a partial stripe always carries valid parity for its zero-extension,
+and every flush point is a crash-consistent redundancy point. Each delta
+is one `gf2_apply` launch at (m, 1) over the chunk's width, through the
+backend's staged hooks (`to_device` -> `apply_staged` -> `to_host`), one
+synchronous round trip per chunk.
+
+Layout: the stream uses `write_ec_files`'s striping (greedy large
+stripes of ``k x block_size``; at :meth:`close` with ``finalize=True``
+the ragged tail is re-striped with ``small_block_size`` rows,
+zero-padded), so N appends give shard files and sidecar CRCs
+byte-identical to one `write_ec_files` over the concatenation with the
+same block parameters, and to the JAX package's stream.
+
+Durability (the stripe-cursor journal, `<base>.stream`, the JAX
+package's format byte for byte): :meth:`flush` processes the buffer
+(parity deltas, data rows pwritten at their final offsets, full
+stripes sealed), fsyncs every touched shard, then advances the journal.
+:func:`recover_stream` reads the journal, bounds the head by on-disk row
+extents, lets the embedder frame-scan the linear bytes, and rewrites any
+parity that disagrees with the data.
+
+What the port leaves out: placement and device-queue admission (there
+is no `place_stream`, `batch_cost` or `DeviceQueue`; every delta takes
+the backend directly, as `run_staged_apply` does), trace spans (the
+encoder's `stage_seconds` dict holds the same stage names) and the
+metrics registry (module-local counters read by :func:`stream_summary`).
+With no backend, the encoder and :func:`recover_stream` take the card
+(`get_backend("cuda", k, m)`) and raise where there is none.
+
+Env knobs: ``SEAWEED_EC_STREAM_BLOCK_KB`` (large-stripe row block,
+default 1024) and ``SEAWEED_EC_STREAM_SMALL_KB`` (tail re-stripe block,
+default 64).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import struct
+import threading
+import time
+import uuid as _uuid
+import weakref
+from contextlib import contextmanager
+from dataclasses import dataclass
+
+import numpy as np
+
+from .. import faults
+from ..utils.crc import crc32c
+from ..utils.fs import atomic_write, fsync_dir
+from .backend import get_backend
+from .bitrot import BitrotProtection, ShardChecksumBuilder
+from .context import (
+    BITROT_BLOCK_SIZE,
+    BITROT_LEAF_SIZE,
+    DEFAULT_EC_CONTEXT,
+    ECContext,
+    ECError,
+)
+
+log = logging.getLogger(__name__)
+
+JOURNAL_SUFFIX = ".stream"
+
+MAGIC = 0x53575354  # "SWST"
+FORMAT_VERSION = 1
+# magic u32 BE | version u16 | k u8 | m u8 | block u32 | small u32 |
+# uuid 16s | meta u64 | durable u64 | sealed u64 | head u64 | crc u32
+_JOURNAL = struct.Struct(">I")
+_JOURNAL_BODY = struct.Struct("<HBBII16sQQQQ")
+
+STAGES = ("write_sink", "parity_update", "h2d_dispatch", "device_drain", "fsync_publish")
+
+
+def _env_kib(name: str, default_kib: int) -> int:
+    try:
+        v = int(os.environ.get(name, str(default_kib)))
+    except ValueError:
+        v = default_kib
+    return max(v, 1) << 10
+
+
+def stream_block_size() -> int:
+    """Large-stripe row block (bytes): SEAWEED_EC_STREAM_BLOCK_KB."""
+    return _env_kib("SEAWEED_EC_STREAM_BLOCK_KB", 1024)
+
+
+def stream_small_block_size() -> int:
+    """Tail re-stripe block (bytes): SEAWEED_EC_STREAM_SMALL_KB."""
+    return _env_kib("SEAWEED_EC_STREAM_SMALL_KB", 64)
+
+
+# -- module-local counters (the JAX package's sw_ec_stream_* metrics) ---------
+
+LAG_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+
+class _LagHistogram:
+    """Per-append wall time from append() to durable parity
+    (time-to-durable-parity), in the JAX package's buckets; the last
+    count is the +Inf bucket."""
+
+    def __init__(self, buckets: tuple[float, ...]):
+        self.buckets = buckets
+        self._lock = threading.Lock()
+        self._counts = [0] * (len(buckets) + 1)
+        self._sum = 0.0
+
+    def observe(self, v: float) -> None:
+        i = next((i for i, b in enumerate(self.buckets) if v <= b), len(self.buckets))
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"counts": list(self._counts), "count": sum(self._counts), "sum": self._sum}
+
+
+parity_lag = _LagHistogram(LAG_BUCKETS)
+_counter_lock = threading.Lock()
+_totals = {"appended_bytes": 0, "stripes_sealed": 0}
+_recovered: dict[str, int] = {}
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _counter_lock:
+        _totals[name] += n
+
+
+def _recovered_inc(outcome: str, n: int = 1) -> None:
+    with _counter_lock:
+        _recovered[outcome] = _recovered.get(outcome, 0) + n
+
+
+# Live encoders for stream_summary(): weak, so a dropped encoder is not
+# kept alive by the roll-up.
+_live_streams: "weakref.WeakSet[EcStreamEncoder]" = weakref.WeakSet()
+
+
+def stream_summary() -> dict:
+    """Process-local streaming-EC roll-up (the JAX package's keys): open
+    streams with their live parity lag, plus the lifetime counters."""
+    streams = []
+    for enc in list(_live_streams):
+        if enc.closed:
+            continue
+        streams.append(
+            {
+                "base": os.path.basename(enc.base),
+                "head_bytes": enc.head,
+                "durable_bytes": enc.durable,
+                "sealed_stripes": enc.sealed_stripes,
+                "parity_lag_ms": round(enc.parity_lag_s() * 1000.0, 3),
+                "chip": enc.chip_label,
+            }
+        )
+    with _counter_lock:
+        return {
+            "open": len(streams),
+            "streams": sorted(streams, key=lambda s: s["base"]),
+            "appended_bytes": _totals["appended_bytes"],
+            "stripes_sealed": _totals["stripes_sealed"],
+            "recovered": dict(_recovered),
+        }
+
+
+# --------------------------------------------------------------------------
+# Stripe-cursor journal
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class StreamJournal:
+    """Decoded `<base>.stream` cursor: everything recovery needs to
+    trust the on-disk stream prefix."""
+
+    uuid: bytes
+    meta: int  # embedder cookie (MQ: base record offset of this stream)
+    durable: int  # linear bytes with durable data AND parity
+    sealed: int  # stripes whose final parity is published
+    head: int  # advisory: bytes appended at journal time (>= durable)
+    block_size: int = 0
+    small_block_size: int = 0
+    data_shards: int = 0
+    parity_shards: int = 0
+
+    def to_bytes(self) -> bytes:
+        body = _JOURNAL_BODY.pack(
+            FORMAT_VERSION,
+            self.data_shards,
+            self.parity_shards,
+            self.block_size,
+            self.small_block_size,
+            self.uuid,
+            self.meta,
+            self.durable,
+            self.sealed,
+            self.head,
+        )
+        raw = _JOURNAL.pack(MAGIC) + body
+        return raw + struct.pack("<I", crc32c(raw))
+
+
+def load_stream_journal(base: str) -> StreamJournal | None:
+    """The stream's cursor, or None when absent or torn: the journal is
+    written after the fsync it describes, so a torn cursor means nothing
+    past the previous one was durable."""
+    path = base + JOURNAL_SUFFIX
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except OSError:
+        return None
+    if len(raw) != _JOURNAL.size + _JOURNAL_BODY.size + 4:
+        return None
+    if crc32c(raw[:-4]) != struct.unpack("<I", raw[-4:])[0]:
+        return None
+    if _JOURNAL.unpack_from(raw)[0] != MAGIC:
+        return None
+    (
+        version, k, m, block, small, uid, meta, durable, sealed, head,
+    ) = _JOURNAL_BODY.unpack_from(raw, _JOURNAL.size)
+    if version != FORMAT_VERSION:
+        return None
+    return StreamJournal(
+        uuid=uid, meta=meta, durable=durable, sealed=sealed, head=head,
+        block_size=block, small_block_size=small,
+        data_shards=k, parity_shards=m,
+    )
+
+
+# --------------------------------------------------------------------------
+# The encoder
+# --------------------------------------------------------------------------
+
+
+class EcStreamEncoder:
+    """Online EC encoder for one append stream of unknown length.
+
+    append, flush and close serialize on internal locks, so a broker's
+    append path and its background parity flusher may race freely.
+    `meta` is an opaque embedder cookie persisted in the journal (the MQ
+    glue stores the partition's base record offset)."""
+
+    def __init__(
+        self,
+        base: str,
+        ctx: ECContext = DEFAULT_EC_CONTEXT,
+        backend=None,
+        block_size: int | None = None,
+        small_block_size: int | None = None,
+        leaf_size: int = BITROT_LEAF_SIZE,
+        meta: int = 0,
+        fsync: bool = True,
+    ):
+        if backend is None:
+            backend = get_backend("cuda", ctx.data_shards, ctx.parity_shards)
+        self.base = base
+        self.ctx = ctx
+        self.block_size = int(block_size or stream_block_size())
+        self.small_block_size = int(small_block_size or stream_small_block_size())
+        if self.small_block_size > self.block_size:
+            raise ECError(
+                f"small block {self.small_block_size} exceeds block {self.block_size}"
+            )
+        self.leaf_size = leaf_size
+        self.meta = int(meta)
+        self.uuid = _uuid.uuid4().bytes
+        self._fsync = fsync
+        k, m, total = ctx.data_shards, ctx.parity_shards, ctx.total
+        self._k, self._m = k, m
+        self._stripe_row = self.block_size * k
+        # parity generator rows of the RS matrix (m x k): the linearity
+        # identity needs exactly these coefficients
+        self._gen = np.ascontiguousarray(
+            np.asarray(backend.matrix, dtype=np.uint8)[k : k + m, :]
+        )
+        # Two locks so the append path never waits on parity math or
+        # fsync: `_buf_lock` guards only the pending buffer, head and lag
+        # queue; `_lock` serializes process/flush/close (stripe state,
+        # fds, journal). Lock order where both are held: _lock outer,
+        # _buf_lock inner.
+        self._lock = threading.RLock()
+        self._buf_lock = threading.Lock()
+        self._fds: list[int] = []
+        try:
+            for i in range(total):
+                self._fds.append(
+                    os.open(base + ctx.to_ext(i), os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o644)
+                )
+        except BaseException:
+            for fd in self._fds:
+                os.close(fd)
+            raise
+        self._builders = [ShardChecksumBuilder(BITROT_BLOCK_SIZE, leaf_size) for _ in range(total)]
+        # open-stripe state: data rows and incremental parity in memory;
+        # `filled` is the linear byte count within the stripe
+        self._data = np.zeros((k, self.block_size), dtype=np.uint8)
+        self._parity = np.zeros((m, self.block_size), dtype=np.uint8)
+        self._filled = 0
+        self.sealed_stripes = 0
+        # appended-but-unprocessed bytes (parity not yet computed)
+        self._pending: list[bytes] = []
+        self._pending_bytes = 0
+        # (linear end offset, append wall time) for lag attribution
+        self._lag_q: list[tuple[int, float]] = []
+        self.head = 0  # bytes appended
+        self._processed = 0  # bytes run through the parity math
+        self.durable = 0  # bytes with durable data+parity (journaled)
+        self._touched: set[int] = set()
+        self.closed = False
+        self._backend = backend
+        self.chip_label = str(getattr(backend, "device", ""))
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self._write_journal()
+        _live_streams.add(self)
+
+    @contextmanager
+    def _stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stage_seconds[name] += time.perf_counter() - t0
+
+    # ------------------------------------------------------------ append
+
+    def append(self, data: bytes) -> int:
+        """Buffer `data` at the stream head; returns the linear byte
+        offset it starts at. Takes only the buffer lock (one copy).
+        Parity is computed at the next :meth:`process`/:meth:`flush`;
+        durability comes from flush."""
+        if not data:
+            return self.head
+        with self._buf_lock:
+            if self.closed:
+                raise ECError(f"stream encoder {self.base} is closed")
+            off = self.head
+            self._pending.append(bytes(data))
+            self._pending_bytes += len(data)
+            self.head += len(data)
+            self._lag_q.append((self.head, time.monotonic()))
+            _count("appended_bytes", len(data))
+            return off
+
+    @property
+    def pending_bytes(self) -> int:
+        with self._buf_lock:
+            return self.head - self.durable
+
+    def parity_lag_s(self) -> float:
+        """Age of the oldest append whose parity is not yet durable
+        (0.0 when fully flushed)."""
+        with self._buf_lock:
+            if not self._lag_q:
+                return 0.0
+            return max(time.monotonic() - self._lag_q[0][1], 0.0)
+
+    # ----------------------------------------------------------- process
+
+    def _dispatch_apply(self, coeffs: np.ndarray, batch: np.ndarray) -> np.ndarray:
+        """One parity-delta batch through the backend's staged hooks;
+        returns the m x width host delta."""
+        be = self._backend
+        with self._stage("h2d_dispatch"):
+            handle = be.apply_staged(coeffs, be.to_device(batch))
+        with self._stage("device_drain"):
+            return np.ascontiguousarray(be.to_host(handle), np.uint8)
+
+    def _seal_stripe(self) -> None:
+        """The open stripe is full: publish its final parity rows, roll
+        every shard's CRCs, reset the stripe buffers."""
+        faults.fire("ec.stream.seal", base=self.base, stripe=self.sealed_stripes)
+        base_off = self.sealed_stripes * self.block_size
+        k, m = self._k, self._m
+        with self._stage("write_sink"):
+            for j in range(m):
+                os.pwrite(self._fds[k + j], self._parity[j], base_off)
+                self._touched.add(k + j)
+        for i in range(k):
+            self._builders[i].write(self._data[i])
+        for j in range(m):
+            self._builders[k + j].write(self._parity[j])
+        self._data[:] = 0
+        self._parity[:] = 0
+        self._filled = 0
+        self.sealed_stripes += 1
+        _count("stripes_sealed")
+
+    def process(self) -> None:
+        """Drain the append buffer through the parity math: data rows
+        pwritten at their final offsets, parity updated in place (RS
+        linearity), full stripes sealed. Does not fsync or journal."""
+        with self._lock:
+            self._process_locked()
+
+    def _process_locked(self) -> None:
+        with self._buf_lock:
+            if not self._pending:
+                return
+            buf = b"".join(self._pending)
+            self._pending = []
+            self._pending_bytes = 0
+        self._processed += len(buf)
+        block, row_bytes = self.block_size, self._stripe_row
+        pos = 0
+        while pos < len(buf):
+            row, col = divmod(self._filled, block)
+            take = min(len(buf) - pos, block - col)
+            # the open-stripe row takes the chunk; its slice (writable,
+            # contiguous, the same bytes) is what goes to the backend
+            chunk = self._data[row, col : col + take]
+            chunk[:] = np.frombuffer(buf, dtype=np.uint8, count=take, offset=pos)
+            with self._stage("write_sink"):
+                os.pwrite(self._fds[row], chunk, self.sealed_stripes * block + col)
+            self._touched.add(row)
+            # incremental parity: P[:, col:col+take] ^= G[:, row] @ chunk
+            with self._stage("parity_update"):
+                delta = self._dispatch_apply(self._gen[:, row : row + 1], chunk.reshape(1, take))
+                self._parity[:, col : col + take] ^= delta
+            pos += take
+            self._filled += take
+            if self._filled == row_bytes:
+                self._seal_stripe()
+
+    # ------------------------------------------------------------- flush
+
+    def flush(self) -> int:
+        """Make every appended byte durable with its parity: process the
+        buffer, fsync touched shards, advance the journal, observe each
+        covered append's time-to-durable-parity. Returns the durable
+        head."""
+        with self._lock:
+            if self.closed:
+                return self.durable
+            self._process_locked()
+            # partial-flush parity for the open stripe: its whole
+            # covered column range
+            if self._filled and self._processed > self.durable:
+                block, k = self.block_size, self._k
+                hi = block if self._filled >= block else self._filled
+                base_off = self.sealed_stripes * block
+                with self._stage("write_sink"):
+                    for j in range(self._m):
+                        os.pwrite(self._fds[k + j], self._parity[j, :hi], base_off)
+                        self._touched.add(k + j)
+            faults.fire("ec.stream.before_fsync", base=self.base)
+            if self._fsync and self._touched:
+                with self._stage("fsync_publish"):
+                    for i in sorted(self._touched):
+                        os.fsync(self._fds[i])
+                self._touched.clear()
+            faults.fire("ec.stream.before_journal", base=self.base)
+            # durable = bytes processed and fsynced this cycle; appends
+            # racing this flush stay pending for the next one
+            self.durable = self._processed
+            self._write_journal()
+            now = time.monotonic()
+            with self._buf_lock:
+                while self._lag_q and self._lag_q[0][0] <= self.durable:
+                    _, t0 = self._lag_q.pop(0)
+                    parity_lag.observe(max(now - t0, 0.0))
+            return self.durable
+
+    def _write_journal(self) -> None:
+        j = StreamJournal(
+            uuid=self.uuid,
+            meta=self.meta,
+            durable=self.durable,
+            sealed=self.sealed_stripes,
+            head=self.head,
+            block_size=self.block_size,
+            small_block_size=self.small_block_size,
+            data_shards=self._k,
+            parity_shards=self._m,
+        )
+        atomic_write(self.base + JOURNAL_SUFFIX, j.to_bytes())
+
+    # ------------------------------------------------------------- close
+
+    def close(self, finalize: bool = True) -> BitrotProtection | None:
+        """End the stream. ``finalize=True`` re-stripes the ragged tail
+        with small blocks (bit-identical to `write_ec_files` over the
+        concatenation), publishes the `.ecsum` sidecar and retires the
+        journal. ``finalize=False`` (broker stream rotation) flushes and
+        closes: the large layout and journal stay recoverable."""
+        with self._lock:
+            if self.closed:
+                return None
+            prot: BitrotProtection | None = None
+            try:
+                self.flush()
+                if finalize:
+                    prot = self._finalize_locked()
+            finally:
+                # refuse further appends before the fds go away
+                with self._buf_lock:
+                    self.closed = True
+                for fd in self._fds:
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass
+                self._fds = []
+            return prot
+
+    def _finalize_locked(self) -> BitrotProtection:
+        ctx = self.ctx
+        k, m, block = self._k, self._m, self.block_size
+        small = self.small_block_size
+        tail_len = self._filled
+        if tail_len:
+            # the open stripe was written in the large layout for crash
+            # recovery; the batch encoder stripes a sub-stripe tail with
+            # small rows: rewrite it identically
+            base_off = self.sealed_stripes * block
+            for fd in self._fds:
+                os.ftruncate(fd, base_off)
+            tail = self._data.reshape(-1)[:tail_len]  # the rows in linear order
+            off = 0
+            t = 0
+            small_row = small * k
+            while off < tail_len:
+                seg = tail[off : off + small_row]
+                mat = np.zeros((k, small), dtype=np.uint8)
+                mat.reshape(-1)[: len(seg)] = seg
+                parity = self._dispatch_apply(self._gen, mat)
+                woff = base_off + t * small
+                rows = [mat[i] for i in range(k)] + [parity[j] for j in range(m)]
+                with self._stage("write_sink"):
+                    for i, row in enumerate(rows):
+                        os.pwrite(self._fds[i], row, woff)
+                        self._builders[i].write(row)
+                        self._touched.add(i)
+                off += small_row
+                t += 1
+            self._data[:] = 0
+            self._parity[:] = 0
+            self._filled = 0
+        faults.fire("ec.stream.before_seal_publish", base=self.base)
+        if self._fsync:
+            with self._stage("fsync_publish"):
+                for fd in self._fds:
+                    os.fsync(fd)
+            fsync_dir(self.base + ctx.to_ext(0))
+        prot = BitrotProtection.from_builders(ctx, self._builders)
+        prot.save(self.base + ".ecsum")
+        try:
+            os.unlink(self.base + JOURNAL_SUFFIX)
+            fsync_dir(self.base + JOURNAL_SUFFIX)
+        except OSError:
+            pass
+        return prot
+
+    def __enter__(self) -> "EcStreamEncoder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close(finalize=not any(exc))
+
+
+# --------------------------------------------------------------------------
+# Recovery (non-finalized streams: the broker's rotating generations)
+# --------------------------------------------------------------------------
+
+
+def _data_extent_head(base: str, ctx: ECContext, block_size: int) -> int:
+    """Largest contiguous linear head the on-disk data-row extents can
+    support (large-stripe layout): an upper bound on what a frame scan
+    may trust."""
+    k = ctx.data_shards
+    sizes = []
+    for i in range(k):
+        try:
+            sizes.append(os.path.getsize(base + ctx.to_ext(i)))
+        except OSError:
+            sizes.append(0)
+    head = 0
+    s = 0
+    while True:
+        stripe_head = 0
+        for sz in sizes:
+            e = min(max(sz - s * block_size, 0), block_size)
+            stripe_head += e
+            if e < block_size:
+                break
+        head += stripe_head
+        if stripe_head < block_size * k:
+            return head
+        s += 1
+
+
+def read_stream_data(base: str, ctx: ECContext, block_size: int, lo: int, hi: int) -> bytes:
+    """Linear bytes [lo, hi) of a non-finalized stream from its on-disk
+    data rows (large-stripe layout; absent extents read as zeros)."""
+    if hi <= lo:
+        return b""
+    row_bytes = block_size * ctx.data_shards
+    out = bytearray(hi - lo)
+    fds: dict[int, int] = {}
+    try:
+        pos = lo
+        while pos < hi:
+            s, rem = divmod(pos, row_bytes)
+            row, col = divmod(rem, block_size)
+            take = min(hi - pos, block_size - col)
+            fd = fds.get(row)
+            if fd is None:
+                try:
+                    fd = os.open(base + ctx.to_ext(row), os.O_RDONLY)
+                except OSError:
+                    fd = -1
+                fds[row] = fd
+            if fd >= 0:
+                got = os.pread(fd, take, s * block_size + col)
+                out[pos - lo : pos - lo + len(got)] = got
+            pos += take
+    finally:
+        for fd in fds.values():
+            if fd >= 0:
+                os.close(fd)
+    return bytes(out)
+
+
+@dataclass
+class StreamRecovery:
+    """What :func:`recover_stream` established about one stream."""
+
+    journal: StreamJournal
+    head: int  # verified linear head (embedder-framed, parity-repaired)
+    data: bytes  # linear bytes [0, head)
+    parity_rewritten: int  # stripes whose parity was re-derived
+    rolled_back: int  # bytes past `head` discarded
+
+
+def recover_stream(
+    base: str,
+    ctx: ECContext | None = None,
+    backend=None,
+    frame_scan=None,
+) -> StreamRecovery | None:
+    """Crash-recover a non-finalized stream.
+
+    Reads the journal (absent or torn: None), bounds the head by the
+    on-disk data extents, lets `frame_scan(data) -> head_bytes` trim to
+    the embedder's record framing (None accepts the full extent), then
+    re-derives parity for every covered stripe (one (m, k) apply per
+    stripe) and rewrites any that disagrees with the data. Bytes past
+    the verified head are rolled back (truncated). With no backend it
+    takes the card, `get_backend("cuda", k, m)`."""
+    j = load_stream_journal(base)
+    if j is None:
+        _recovered_inc("no_journal")
+        return None
+    if ctx is None:
+        ctx = ECContext(j.data_shards, j.parity_shards)
+    if (j.data_shards, j.parity_shards) != (ctx.data_shards, ctx.parity_shards):
+        _recovered_inc("config_mismatch")
+        return None
+    block = j.block_size
+    k, m = ctx.data_shards, ctx.parity_shards
+    row_bytes = block * k
+    hmax = _data_extent_head(base, ctx, block)
+    data = read_stream_data(base, ctx, block, 0, hmax)
+    head = hmax
+    if frame_scan is not None:
+        head = min(int(frame_scan(data)), hmax)
+        data = data[:head]
+    if head < j.durable:
+        # fsync promised these bytes and the frames do not reach them
+        log.warning("stream %s: durable cursor %d but only %d bytes recovered",
+                    base, j.durable, head)
+        _recovered_inc("data_lost")
+    if backend is None:
+        backend = get_backend("cuda", k, m)
+    gen = np.ascontiguousarray(np.asarray(backend.matrix, dtype=np.uint8)[k : k + m, :])
+    rewritten = 0
+    n_stripes = -(-head // row_bytes) if head else 0
+    pfds = [
+        os.open(base + ctx.to_ext(k + jx), os.O_RDWR | os.O_CREAT, 0o644)
+        for jx in range(m)
+    ]
+    try:
+        for s in range(n_stripes):
+            seg = data[s * row_bytes : (s + 1) * row_bytes]
+            mat = np.zeros((k, block), dtype=np.uint8)
+            mat.reshape(-1)[: len(seg)] = np.frombuffer(seg, dtype=np.uint8)
+            want = np.ascontiguousarray(backend.apply(gen, mat), dtype=np.uint8)
+            ok = True
+            for jx in range(m):
+                have = os.pread(pfds[jx], block, s * block)
+                have = have + b"\0" * (block - len(have))
+                if have != want[jx].tobytes():
+                    ok = False
+                    break
+            if not ok:
+                for jx in range(m):
+                    os.pwrite(pfds[jx], want[jx], s * block)
+                rewritten += 1
+        for fd in pfds:
+            os.fsync(fd)
+        # roll back data extents past the verified head, so a partial
+        # row beyond it never resurfaces on the next extent scan
+        if hmax > head:
+            s, rem = divmod(head, row_bytes)
+            row, col = divmod(rem, block)
+            for i in range(k):
+                path = base + ctx.to_ext(i)
+                try:
+                    cur = os.path.getsize(path)
+                except OSError:
+                    continue
+                keep = s * block + (block if i < row else (col if i == row else 0))
+                if cur > keep:
+                    with open(path, "rb+") as f:
+                        f.truncate(keep)
+    finally:
+        for fd in pfds:
+            os.close(fd)
+    # the journal reflects the verified state going forward
+    j2 = StreamJournal(
+        uuid=j.uuid, meta=j.meta, durable=head,
+        sealed=head // row_bytes, head=head,
+        block_size=block, small_block_size=j.small_block_size,
+        data_shards=k, parity_shards=m,
+    )
+    atomic_write(base + JOURNAL_SUFFIX, j2.to_bytes())
+    if rewritten:
+        _recovered_inc("parity_rewritten", rewritten)
+    _recovered_inc("replayed" if head else "rolled_back")
+    return StreamRecovery(
+        journal=j, head=head, data=data,
+        parity_rewritten=rewritten, rolled_back=max(hmax - head, 0),
+    )

@@ -37,6 +37,9 @@ from . import _build
 # (never by the plain version). chip_smoke.py zeroes and reads these
 # around the main path to show that the path went through the kernel.
 LAUNCHES = {"gf2_apply": 0, "gf2_apply_planes": 0}
+# Of those, the launches that took the masked byte path (a row not
+# 16-byte aligned, or n not a multiple of 16), counted the same way.
+MASKED = {"gf2_apply": 0, "gf2_apply_planes": 0}
 
 _PACK_WIDTHS = (1, 2, 4)
 
@@ -55,6 +58,13 @@ def aligned_m_pad(m: int, pack_width: int) -> int:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        MASKED[name] = 0
+
+
+def _masked(data: torch.Tensor, n: int, out: torch.Tensor) -> bool:
+    """Whether the library takes the masked byte path (csrc/gf2_apply.cu
+    `aligned16`)."""
+    return bool(n % 16 or data.data_ptr() % 16 or out.data_ptr() % 16)
 
 
 def _check_pw4(pack_width: int) -> None:
@@ -138,6 +148,7 @@ def gf2_apply(
     if err != 0:
         raise RuntimeError(f"gf2_apply kernel launch failed: CUDA error {err}")
     LAUNCHES["gf2_apply"] += 1
+    MASKED["gf2_apply"] += _masked(data, n, out)
     return out
 
 
@@ -214,4 +225,5 @@ def gf2_apply_planes(
     if err != 0:
         raise RuntimeError(f"gf2_apply_planes kernel launch failed: CUDA error {err}")
     LAUNCHES["gf2_apply_planes"] += 1
+    MASKED["gf2_apply_planes"] += _masked(data, n, out)
     return out

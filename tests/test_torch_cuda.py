@@ -518,3 +518,122 @@ def test_repair_killed_on_card_heals_at_mount(cuda, tmp_path):
         assert os.pread(ev.shard_fds[5], LEAF_SHARD, 0) == blobs[5]
     finally:
         ev.close()
+
+
+# -- streaming EC and the MQ durable-parity partition on the card ----------------
+
+STREAM_COLUMN_WIDTHS = [1, 5, 15, 16, 17, 1062, 4099, (8 << 10) + 5, 256 << 10, (1 << 20) - 3]
+
+
+@pytest.mark.parametrize("width", STREAM_COLUMN_WIDTHS)
+@pytest.mark.parametrize("k,m", [(10, 4), (4, 2)])
+def test_stream_delta_column_matches_plain_and_oracle(cuda, width, k, m):
+    """The stream's parity delta: one generator column (k = 1) over a
+    chunk of any width, on the table body or the masked byte path."""
+    coeffs = gf256.parity_rows(k, m)[:, 1:2]
+    data_np = np.random.default_rng(width).integers(0, 256, (1, width), dtype=np.uint8)
+    rs_kernels.reset_launches()
+    b, data, out = _apply(coeffs, data_np, cuda)
+    assert rs_kernels.LAUNCHES["gf2_apply"] == 1
+    assert rs_kernels.MASKED["gf2_apply"] == (1 if width % 16 else 0)
+    assert torch.equal(out, rs_kernels.gf2_apply_plain(b, data, m))
+    assert np.array_equal(out.cpu().numpy(), gf256.matrix_apply(coeffs, data_np))
+
+
+def _stream_run(base, ctx, backend, payload, block=1 << 20, small=64 << 10, flush_at=256 << 10):
+    from seaweedfs_tpu_torch.ec import EcStreamEncoder
+
+    enc = EcStreamEncoder(base, ctx, backend=backend, block_size=block, small_block_size=small)
+    for pos in range(0, len(payload), 8192):
+        enc.append(payload[pos : pos + 8192])
+        if enc.pending_bytes >= flush_at:
+            enc.flush()
+    return enc.close()
+
+
+def test_stream_on_card_matches_cpu(cuda, tmp_path):
+    """16 MiB (and a ragged tail) appended in 8 KiB pieces, flushed at
+    256 KiB: the card's shards are sha256-identical to the plain CPU
+    run's, and it launched once per chunk and once per tail stripe."""
+    ctx = ECContext(10, 4)
+    payload = np.random.default_rng(77).bytes((16 << 20) + 12345)
+    rs_kernels.reset_launches()
+    on_card = _stream_run(str(tmp_path / "card"), ctx, TorchBackend(ctx), payload)
+    launches = rs_kernels.LAUNCHES["gf2_apply"]
+    on_cpu = _stream_run(str(tmp_path / "cpu"), ctx, TorchBackend(ctx, device="cpu"), payload)
+    for i in range(ctx.total):
+        ext = ctx.to_ext(i)
+        assert (tmp_path / f"card{ext}").read_bytes() == (tmp_path / f"cpu{ext}").read_bytes(), i
+    assert (on_card.shard_crcs, on_card.shard_leaf_crcs) == (on_cpu.shard_crcs, on_cpu.shard_leaf_crcs)
+    chunks = (16 << 20) // (256 << 10) + 1  # every flush one chunk, then the tail flush's
+    tail = len(payload) % (10 << 20)
+    assert launches == chunks + -(-tail // (10 * (64 << 10)))
+
+
+def test_recover_stream_on_card_matches_cpu(cuda, tmp_path):
+    """A stream whose last appends were processed but never flushed,
+    recovered on the card and on the CPU (a copy): the same recovery,
+    the same files."""
+    import shutil
+
+    from seaweedfs_tpu_torch.ec import EcStreamEncoder, recover_stream
+
+    ctx = ECContext(4, 2)
+    payload = np.random.default_rng(5).bytes(700_000)
+    d = tmp_path / "card"
+    d.mkdir()
+    enc = EcStreamEncoder(str(d / "s"), ctx, backend=TorchBackend(ctx, device="cpu"),
+                          block_size=64 << 10, small_block_size=4096)
+    enc.append(payload[:400_000])
+    enc.flush()
+    enc.append(payload[400_000:])
+    enc.process()
+    for fd in enc._fds:
+        os.close(fd)
+    enc._fds, enc.closed = [], True
+    shutil.copytree(d, tmp_path / "cpu")
+    rs_kernels.reset_launches()
+    a = recover_stream(str(d / "s"), ctx, TorchBackend(ctx))
+    assert rs_kernels.LAUNCHES["gf2_apply"] == -(-a.head // (4 * (64 << 10)))
+    b = recover_stream(str(tmp_path / "cpu" / "s"), ctx, TorchBackend(ctx, device="cpu"))
+    assert (a.head, a.data, a.parity_rewritten, a.rolled_back) == (b.head, b.data, b.parity_rewritten, b.rolled_back)
+    assert a.data == payload[: a.head] and a.parity_rewritten >= 1
+    for p in sorted(d.iterdir()):
+        assert p.read_bytes() == (tmp_path / "cpu" / p.name).read_bytes(), p.name
+
+
+def test_partition_on_card_takes_masked_path_and_recovers(cuda, tmp_path, monkeypatch):
+    """1 KB records (ragged flush widths) through a partition on the
+    card, a flusher thread beside the publisher: the masked byte path
+    carries most deltas, and recovery on the card equals the CPU's."""
+    import shutil
+
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+
+    monkeypatch.delenv("SEAWEED_EC_STREAM_BACKEND", raising=False)
+    rng = np.random.default_rng(9)
+    recs = [(i, 1000 + i, rng.bytes(16), rng.bytes(1024)) for i in range(3000)]
+    pp = PartitionParity(str(tmp_path / "card"), "ns", "t", 0, block_size=256 << 10,
+                         small_block_size=16 << 10, flush_bytes=16 << 10)
+    assert pp.backend.device.type == "cuda"
+    rs_kernels.reset_launches()
+    stop = threading.Event()
+
+    def flusher():
+        while not stop.wait(0.002):
+            if pp.needs_flush():
+                pp.flush()
+
+    t = threading.Thread(target=flusher)
+    t.start()
+    for r in recs:
+        pp.append_record(*r)
+    stop.set()
+    t.join()
+    pp.close()
+    assert rs_kernels.MASKED["gf2_apply"] > 0
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    got = PartitionParity(str(tmp_path / "card"), "ns", "t", 0).recover()
+    cpu = PartitionParity(str(tmp_path / "cpu"), "ns", "t", 0,
+                          backend=TorchBackend(ECContext(4, 2), device="cpu")).recover()
+    assert got == cpu == recs

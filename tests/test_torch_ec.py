@@ -379,6 +379,14 @@ os.unlink(base + ".dat")
 os.unlink(base + ".ec00")
 assert ec_decode_volume(base, backend=TorchBackend(ctx, device="cpu", impl="cuda_planes"))
 assert open(base + ".dat", "rb").read() == original
+from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+pp = PartitionParity(d, "ns", "t", 0, backend=TorchBackend(ECContext(4, 2), device="cpu"),
+                     block_size=8192, small_block_size=1024)
+for off in range(20):
+    pp.append_record(off, off, b"k", bytes(900))
+pp.flush()
+pp.close()
+assert len(PartitionParity(d, "ns", "t", 0, backend=pp.backend).recover()) == 20
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
