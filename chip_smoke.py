@@ -6,11 +6,13 @@
 Drives the port's main paths at the size the project names, a seeded
 1 GiB RS 10+4 volume of real needles, through the entry points a user
 calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
-`ec_decode_volume`, `TorchBackend`). Phases:
+`ec_decode_volume`, `TorchBackend`, `CpuBackend`). Phases:
 
-1. print the card (`nvidia-smi` name and power limit) and the host's
-   CPU count, and build from csrc/ the CUDA kernel (nvcc) and the host
-   byte plane (g++: CRC32C, batched reads, the shard sink), both at once;
+1. print the card (`nvidia-smi` name and power limit), and build from
+   csrc/ the CUDA kernel (nvcc) and the host library (g++: CRC32C,
+   batched reads, the shard sink, the GF(2^8) apply of the native CPU
+   backend), both at once; then print the host's CPU model and count,
+   whether it has AVX2 and the host library's pool threads;
 2. hold `gf2_apply` (the bit-major entry point) against its plain torch
    version on the card with the 4-row encode matrix and a 2-row decode
    matrix, at ragged widths, at the widths on its tiles' edges and on
@@ -24,7 +26,9 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    torch._int_mm on the same bit-plane product (a yardstick the port
    never calls), a device copy that moves the same bytes (the memory
    stream's time under the same method), and the host time of one
-   wrapper call;
+   wrapper call, and the native CPU backend's apply of the same bytes on
+   the host (`cpu_ms`, a median of host-timer runs after a warm-up; its
+   output must equal the kernel's);
 2b. the same for `gf2_apply_planes` (the plane-stack entry point) with
    m = 1, 2 and 4 at m_pad 32 (pack_width 1) and 16 (pack_width 2), also
    at the widths on its tiles' edges and on misaligned data; timed at
@@ -97,6 +101,19 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    CUDA), and the parent must recover a dense, byte-exact prefix reaching
    the child's last completed flush, verify every generation clean on a
    second pass, and append densely after it.
+8. the native CPU backend (`CpuBackend`, the host library's AVX2 GF(2^8)
+   apply) on the card's host, each run beside its card counterpart and
+   on the same inputs (hard links to what it only reads, copies of what
+   it writes): encode of the same .dat through the native byte plane
+   (14 shards sha256-identical to the card's, CRC lists equal), rebuild
+   of the same lost shards (sha256-identical), every degraded needle of
+   phase 6 read cold through `EcVolume(..., backend=CpuBackend(ctx))`
+   (bit-exact), and decode of the same state (.dat, .idx and the
+   regenerated shard identical to the card's). No kernel may launch
+   during a CpuBackend run. One line gives each operation's card and CPU
+   walls, their ratio and both stage tables (the CPU's are host wall
+   time: its "kernel" is the wall of its applies, and it has no pin,
+   h2d or d2h), beside the card and the host's CPU.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -181,12 +198,31 @@ def host_us(fn, reps: int) -> float:
     return float(np.median(times)) * 1e6
 
 
+def cpu_ms(coeffs: np.ndarray, data: np.ndarray, want: np.ndarray) -> float:
+    """Median host wall, in ms, of the native CPU backend's apply of
+    `coeffs` to `data` (numpy, on the host) after one warm-up call, whose
+    output must equal `want`, the kernel's."""
+    from seaweedfs_tpu_torch.ec import CpuBackend, ECContext
+
+    cpu = CpuBackend(ECContext(K, M))
+    if not np.array_equal(cpu.apply(coeffs, data), want):
+        raise AssertionError(f"CpuBackend != kernel at m={coeffs.shape[0]}, {data.shape}")
+    times = []
+    for _ in range(11 if data.nbytes >= (64 << 20) else 21):
+        t0 = time.perf_counter()
+        cpu.apply(coeffs, data)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
 def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misaligned=False):
     """Kernel vs plain version vs numpy oracle at (K, n); returns the
     shape's row of measurements. `kind` is "gf2_apply" (bit-major
     operand) or "gf2_apply_planes" (plane stack of `pack_width`).
     `misaligned` puts the data 1 byte past a 16-byte boundary (a
-    contiguous view of a larger buffer)."""
+    contiguous view of a larger buffer). A timed row also holds
+    `cpu_ms`, the native CPU backend's apply of the same bytes on the
+    host (checked equal to the kernel's output)."""
     from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
 
     m, k = coeffs.shape
@@ -224,6 +260,7 @@ def check_kernel(kind, coeffs, n, rng, flush, timed=True, pack_width=1, misalign
     if not timed:
         return row
     row["ms"] = median_ms(kernel, 21, flush)
+    row["cpu_ms"] = cpu_ms(coeffs, data_np, out.cpu().numpy())
     row["host_us"] = host_us(kernel, 101)
     row["plain_ms"] = median_ms(plain, 5, flush)
     # Yardstick: the same GF(2) product (the m real rows) as one int8
@@ -290,17 +327,37 @@ def ptxas_lines(log: str) -> list[str]:
     return lines
 
 
+def host_info() -> dict:
+    """The card's host as the native CPU backend sees it."""
+    from seaweedfs_tpu_torch.utils import native
+
+    fields: dict = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    # some hosts' /proc/cpuinfo says "unknown" for the model name: name the
+    # part by its vendor, family and model numbers then
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        model = " ".join(
+            f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model") if k in fields
+        ) or "not reported"
+    return {"cpu_model": model, "cpus": os.cpu_count(), "has_avx2": native.has_avx2(),
+            "pool_threads": native.pool_threads()}
+
+
 def build() -> None:
     """Phase 1: print the card, build the kernels from csrc/ (nvcc and
     g++ at once) and print ptxas's registers and spills per kernel."""
     from seaweedfs_tpu_torch.ops import _build
 
     print(f"card: {card_line()}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
-          f"host cpus {os.cpu_count()} (the host library's worker pool: one thread per CPU)")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc and g++ in parallel)")
+    print("host: " + json.dumps(host_info()))
     for line in ptxas_lines(logs["gf2_apply"]):
         print(f"  ptxas: {line}")
 
@@ -470,23 +527,31 @@ def python_plane_encode(work, base, ctx, digests, prot) -> dict:
     return {"seconds": dt, "stage_seconds": dict(backend.stage_seconds)}
 
 
+def needle_intervals(rec, dat_size: int) -> list[tuple[int, int, int]]:
+    """(shard id, shard offset, size) of each piece of a needle record."""
+    from seaweedfs_tpu_torch.ec.decoder import record_actual_size
+    from seaweedfs_tpu_torch.ec.locate import locate_data
+
+    _, _, off, body = rec
+    # record size from the body length: data size(4) + data + flags(1)
+    size = record_actual_size(4 + body + 1, 3)
+    return [(*iv.to_shard_and_offset(K), iv.size) for iv in locate_data(off, size, dat_size // K, K)]
+
+
+def degraded_records(records, dat_size: int) -> list:
+    """The needles with a piece on shard DEGRADED."""
+    return [r for r in records if any(sid == DEGRADED for sid, _, _ in needle_intervals(r, dat_size))]
+
+
 def read_phase(work, base, ctx, records, dat_size, rng):
     """Phase 6: degraded needle reads with shard DEGRADED unmounted."""
     from seaweedfs_tpu_torch.ec import EcVolume, TorchBackend, native_io
-    from seaweedfs_tpu_torch.ec.decoder import record_actual_size
-    from seaweedfs_tpu_torch.ec.locate import locate_data
     from seaweedfs_tpu_torch.ops import rs_kernels
 
     def intervals(rec):
-        _, _, off, body = rec
-        # record size from the body length: data size(4) + data + flags(1)
-        size = record_actual_size(4 + body + 1, 3)
-        return [
-            (*iv.to_shard_and_offset(K), iv.size)
-            for iv in locate_data(off, size, dat_size // K, K)
-        ]
+        return needle_intervals(rec, dat_size)
 
-    degraded = [r for r in records if any(sid == DEGRADED for sid, _, _ in intervals(r))]
+    degraded = degraded_records(records, dat_size)
     healthy = [
         r for r in records if all(sid not in (DEGRADED, ROTTEN) for sid, _, _ in intervals(r))
     ]
@@ -574,6 +639,7 @@ def read_phase(work, base, ctx, records, dat_size, rng):
             raise AssertionError(f"{sibling_reads} native sibling reads for {cache.loads} reconstructions")
         result = {
             "degraded_reads": len(degraded),
+            "cold_seconds": cold_s,
             "cold_p50_ms": percentile_ms(lat, 50),
             "cold_p99_ms": percentile_ms(lat, 99),
             "cached_p50_ms": percentile_ms(lat_cached, 50),
@@ -668,8 +734,6 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
     from seaweedfs_tpu_torch.ec import (
         BitrotProtection, EcVolume, LeafPatch, RepairJournal, TorchBackend, native_io, scrub_ec_volume,
     )
-    from seaweedfs_tpu_torch.ec.decoder import record_actual_size
-    from seaweedfs_tpu_torch.ec.locate import locate_data
     from seaweedfs_tpu_torch.ec.repair_journal import journal_path, leaf_ranges
     from seaweedfs_tpu_torch.ops import rs_kernels
     from seaweedfs_tpu_torch.utils.crc import crc32c
@@ -733,9 +797,7 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
 
     # -- crash windows, each healed by the next mount ----------------------
     def intervals(rec):
-        _, _, off, body = rec
-        size = record_actual_size(4 + body + 1, 3)
-        return [(*iv.to_shard_and_offset(K), iv.size) for iv in locate_data(off, size, dat_size // K, K)]
+        return needle_intervals(rec, dat_size)
 
     dat_fd = os.open(base + ".dat", os.O_RDONLY)
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -896,6 +958,167 @@ def decode_phase(base, ctx, digest3, deleted):
         "native_plane": plane,
         "stage_seconds": stages,
     }, launches
+
+
+# -- 8. the native CPU backend on the card's host --------------------------------
+#
+# Each run below sits next to its card counterpart in main() and works on
+# the same inputs: a directory of hard links to the files the operation
+# only reads, and copies of those it writes. CpuBackend has no CUDA
+# events: its stage table is host wall time ("kernel" is the wall of its
+# applies), and its pin, h2d and d2h stay 0.
+
+
+def same_inputs(base: str, d: str, shards, copy=(".ecx", ".ecj", ".vif", ".ecsum")) -> str:
+    """A directory `d` holding hard links to `shards` of volume `base`
+    and copies of its small files `copy` (where they exist); returns the
+    new base."""
+    os.makedirs(d)
+    nbase = os.path.join(d, os.path.basename(base))
+    for i in shards:
+        os.link(base + f".ec{i:02d}", nbase + f".ec{i:02d}")
+    for ext in copy:
+        if os.path.exists(base + ext):
+            shutil.copy(base + ext, nbase + ext)
+    return nbase
+
+
+class NoLaunch:
+    """Fails unless the kernels' launch counts stay where they were
+    across the block: a CpuBackend run never reaches the card."""
+
+    def __enter__(self):
+        from seaweedfs_tpu_torch.ops import rs_kernels
+
+        self.before = (dict(rs_kernels.LAUNCHES), dict(rs_kernels.MASKED))
+        return self
+
+    def __exit__(self, *exc):
+        from seaweedfs_tpu_torch.ops import rs_kernels
+
+        if exc[0] is None and (dict(rs_kernels.LAUNCHES), dict(rs_kernels.MASKED)) != self.before:
+            raise AssertionError(f"a CpuBackend run launched a kernel: {self.before} -> "
+                                 f"{rs_kernels.LAUNCHES}, {rs_kernels.MASKED}")
+
+
+def cpu_encode(work, base, ctx, digests, prot, n_batches) -> dict:
+    """Phase 8, encode: the same .dat (hard-linked) encoded on CpuBackend
+    through the native byte plane; its 14 shards must be sha256-identical
+    to the card's and its block and leaf CRC lists equal."""
+    from seaweedfs_tpu_torch.ec import BitrotProtection, CpuBackend, ec_encode_volume, native_io
+
+    d = os.path.join(work, "cpu-encode")
+    os.makedirs(d)
+    cbase = os.path.join(d, "1")
+    for ext in (".dat", ".idx"):
+        os.link(base + ext, cbase + ext)
+    backend = CpuBackend(ctx)
+    native_io.reset_counts()
+    with NoLaunch():
+        t0 = time.perf_counter()
+        ec_encode_volume(cbase, ctx, backend=backend)
+        dt = time.perf_counter() - t0
+    plane = dict(native_io.COUNTS, pin_skips=backend.pin_skips)
+    if not (plane["read_batch"] == plane["sink_append"] == n_batches) or plane["pin_skips"]:
+        raise AssertionError(f"the CPU encode's {n_batches} batches did not all take the native plane: {plane}")
+    lists = lambda pr: (pr.shard_sizes, pr.shard_crcs, pr.leaf_size, pr.shard_leaf_crcs)  # noqa: E731
+    if lists(BitrotProtection.load(cbase + ".ecsum")) != lists(prot):
+        raise AssertionError("the CPU encode's block or leaf CRC lists differ from the card's")
+    for i in range(ctx.total):
+        if sha256(cbase + ctx.to_ext(i)) != digests[i]:
+            raise AssertionError(f"shard {i} of the CPU encode differs from the card's")
+    shutil.rmtree(d)
+    return {"seconds": dt, "stage_seconds": dict(backend.stage_seconds), "native_plane": plane}
+
+
+def cpu_rebuild(work, base, ctx, digests) -> dict:
+    """Phase 8, rebuild: shards LOST regenerated on CpuBackend from the
+    same 12 shards; sha256-identical to the originals."""
+    from seaweedfs_tpu_torch.ec import CpuBackend, rebuild_ec_files
+
+    cbase = same_inputs(base, os.path.join(work, "cpu-rebuild"),
+                        [i for i in range(ctx.total) if i not in LOST])
+    backend = CpuBackend(ctx)
+    with NoLaunch():
+        t0 = time.perf_counter()
+        rebuilt = rebuild_ec_files(cbase, backend=backend)
+        dt = time.perf_counter() - t0
+    if rebuilt != list(LOST):
+        raise AssertionError(f"the CPU rebuild regenerated {rebuilt}, expected {list(LOST)}")
+    for i in LOST:
+        if sha256(cbase + ctx.to_ext(i)) != digests[i]:
+            raise AssertionError(f"shard {i} rebuilt on the CPU differs from the original")
+    shutil.rmtree(os.path.dirname(cbase))
+    return {"seconds": dt, "stage_seconds": dict(backend.stage_seconds)}
+
+
+def cpu_reads(work, base, ctx, records, dat_size) -> dict:
+    """Phase 8, degraded reads: every needle on shard DEGRADED, cache
+    cold, through EcVolume on CpuBackend with that shard unmounted, over
+    the shards as encoded (before any needle is deleted); bit-exact."""
+    from seaweedfs_tpu_torch.ec import CpuBackend, EcVolume
+
+    cbase = same_inputs(base, os.path.join(work, "cpu-read"), range(ctx.total),
+                        copy=(".ecx", ".vif", ".ecsum"))
+    degraded = degraded_records(records, dat_size)
+    backend = CpuBackend(ctx)
+    lat = []
+    dat_fd = os.open(base + ".dat", os.O_RDONLY)
+    ev = EcVolume(os.path.dirname(cbase), 1, backend=backend)
+    try:
+        ev.unmount_shards([DEGRADED])
+        with NoLaunch():
+            t_all = time.perf_counter()
+            for rec in degraded:
+                t0 = time.perf_counter()
+                n = ev.read_needle(rec[0], cookie=rec[1])
+                lat.append(time.perf_counter() - t0)
+                if n.data != os.pread(dat_fd, rec[3], rec[2] + 20):
+                    raise AssertionError(f"degraded read of needle {rec[0]:x} on the CPU differs")
+            cold_s = time.perf_counter() - t_all
+        cache = ev.interval_cache
+        if cache.hits or not cache.loads or backend.stage_seconds["kernel"] <= 0:
+            raise AssertionError(f"CPU reads: {cache.loads} loads, {cache.hits} hits")
+        result = {
+            "degraded_reads": len(degraded), "cold_seconds": cold_s,
+            "cold_p50_ms": percentile_ms(lat, 50), "cold_p99_ms": percentile_ms(lat, 99),
+            "reconstructions": cache.loads,
+            "read_stage_seconds": dict(ev.stage_seconds),
+            "backend_stage_seconds": dict(backend.stage_seconds),
+        }
+    finally:
+        ev.close()
+        os.close(dat_fd)
+    shutil.rmtree(os.path.dirname(cbase))
+    return result
+
+
+def cpu_decode(cbase, base, ctx) -> dict:
+    """Phase 8, decode: the state the card decoded (the same deletions,
+    shard DEGRADED removed), prepared in `cbase`'s directory before the
+    card ran, decoded on CpuBackend; the .dat, the .idx and the
+    regenerated shard must be identical to the card's."""
+    from seaweedfs_tpu_torch.ec import CpuBackend, ec_decode_volume
+
+    backend = CpuBackend(ctx)
+    stages: dict = {}
+    with NoLaunch():
+        t0 = time.perf_counter()
+        if not ec_decode_volume(cbase, ctx, backend=backend, stages=stages):
+            raise AssertionError("the CPU decode found no live needle")
+        dt = time.perf_counter() - t0
+    for ext in (".dat", ".idx", ctx.to_ext(DEGRADED)):
+        if sha256(cbase + ext) != sha256(base + ext):
+            raise AssertionError(f"the CPU decode's {ext} differs from the card's")
+    stages.update({k: v for k, v in backend.stage_seconds.items() if k in ("pin", "h2d", "kernel", "d2h")})
+    shutil.rmtree(os.path.dirname(cbase))
+    return {"seconds": dt, "stage_seconds": stages}
+
+
+def versus(card_s: float, card_stages: dict, cpu: dict) -> dict:
+    return {"card_seconds": card_s, "cpu_seconds": cpu["seconds"],
+            "cpu_over_card": cpu["seconds"] / card_s,
+            "card_stage_seconds": card_stages, "cpu_stage_seconds": cpu["stage_seconds"]}
 
 
 # -- 7a, 7b. streaming EC and the MQ durable-parity partition -------------------
@@ -1123,7 +1346,7 @@ def mq_phase(work) -> tuple[dict, int]:
     Returns (result, launches)."""
     import threading
 
-    from seaweedfs_tpu_torch.ec import load_stream_journal, stream_summary
+    from seaweedfs_tpu_torch.ec import get_backend, load_stream_journal, stream_summary
     from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
     from seaweedfs_tpu_torch.ops import rs_kernels
 
@@ -1133,7 +1356,9 @@ def mq_phase(work) -> tuple[dict, int]:
     keys, values = mq_source(n)
     ts0 = time.time_ns()
     pp = PartitionParity(root, "bench", "omb", 0)
-    ctx, backend = pp.ctx, pp.backend
+    ctx = pp.ctx
+    # the cached backend the partition builds at its first generation
+    backend = get_backend(DEVICE, ctx.data_shards, ctx.parity_shards)
     if ((ctx.data_shards, ctx.parity_shards), pp.block_size, pp.flush_bytes, pp.max_lag_s,
             pp.rotate_bytes, backend.device.type) != ((4, 2), 1 << 20, 256 << 10, 0.2, 64 << 20, DEVICE):
         raise AssertionError("the partition is not at the broker's defaults on the card")
@@ -1173,6 +1398,8 @@ def mq_phase(work) -> tuple[dict, int]:
         thread.join()
     if errors:
         raise errors[0]
+    if pp.backend is not backend:
+        raise AssertionError(f"the partition runs on {pp.backend}, not on the card's backend")
     append_s = time.perf_counter() - t0
     if pp._enc is not None:
         encoders[id(pp._enc)] = pp._enc
@@ -1390,6 +1617,7 @@ def main() -> int:
                   "native": {"seconds": enc_s, "stage_seconds": enc_stages},
                   "python": py_plane,
               }))
+        cpu_enc = cpu_encode(work, base, ctx, digests, prot, n_batches)
         for i in LOST:
             os.unlink(base + ctx.to_ext(i))
         backend = TorchBackend(ctx)
@@ -1412,6 +1640,8 @@ def main() -> int:
                 raise AssertionError(f"rebuilt shard {i} differs from the original")
         if reb_launches < 1:
             raise AssertionError("rebuild never launched the kernel")
+        reb_stages = dict(backend.stage_seconds)
+        cpu_reb = cpu_rebuild(work, base, ctx, digests)
         src_bytes = K * shard_size
         print(f"rebuild: shards {list(LOST)} from {src_bytes} source bytes in {reb_s:.3f} s = "
               f"{src_bytes / reb_s / 1e9:.3f} GB/s; {reb_launches} launches; sha256 identical; "
@@ -1422,16 +1652,41 @@ def main() -> int:
         shutil.copy(base + ctx.to_ext(ROTTEN), base + ctx.to_ext(ROTTEN) + ".orig")
         read, read_launches, deleted = read_phase(work, base, ctx, records, dat_size, rng)
         print(f"degraded reads (shard {DEGRADED} unmounted, all bit-exact): {json.dumps(read)}")
+        os.replace(base + ctx.to_ext(ROTTEN) + ".orig", base + ctx.to_ext(ROTTEN))
+        cpu_read = cpu_reads(work, base, ctx, records, dat_size)
 
         # -- 6b. scrub, leaf repair, crash windows, quarantine -------------------------
-        os.replace(base + ctx.to_ext(ROTTEN) + ".orig", base + ctx.to_ext(ROTTEN))
         scrub, scrub_launches = scrub_phase(work, base, ctx, records, dat_size, digests)
         print(f"scrub and leaf repair (every check exact): {json.dumps(scrub)}")
 
         # -- 7. ec.decode ---------------------------------------------------------------
+        cpu_dec_base = same_inputs(base, os.path.join(work, "cpu-decode"),
+                                   [i for i in range(ctx.total) if i != DEGRADED])
         decode, dec_launches = decode_phase(base, ctx, digests[DEGRADED], deleted)
         print(f"decode ({N_DELETED} deleted, shard {DEGRADED} regenerated; .dat, .idx and "
               f"shard identical): {json.dumps(decode)}")
+        cpu_dec = cpu_decode(cpu_dec_base, base, ctx)
+
+        # -- 8. the native CPU backend against the card, same host, same bytes ---------
+        print("native CPU backend against the card on the same host and bytes (every output "
+              "identical; no launch during a CpuBackend run; CPU stage tables are host wall "
+              "time, the card's h2d/kernel/d2h CUDA events): " + json.dumps({
+                  "host": host_info(),
+                  "encode": versus(enc_s, enc_stages, cpu_enc),
+                  "rebuild": versus(reb_s, reb_stages, cpu_reb),
+                  "degraded_reads": {
+                      **versus(read["cold_seconds"], {**read["read_stage_seconds"],
+                                                      **read["backend_stage_seconds"]},
+                               {"seconds": cpu_read["cold_seconds"],
+                                "stage_seconds": {**cpu_read["read_stage_seconds"],
+                                                  **cpu_read["backend_stage_seconds"]}}),
+                      "reads": cpu_read["degraded_reads"],
+                      "card_p50_ms": read["cold_p50_ms"], "card_p99_ms": read["cold_p99_ms"],
+                      "cpu_p50_ms": cpu_read["cold_p50_ms"], "cpu_p99_ms": cpu_read["cold_p99_ms"],
+                  },
+                  "decode": versus(decode["seconds"], decode["stage_seconds"], cpu_dec),
+              }))
+        print(f"card: {card_line()}")
 
         # -- 7a, 7b. streaming EC and the MQ durable-parity partition -----------------
         t0 = time.perf_counter()
@@ -1468,6 +1723,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "cpu_ms": row["cpu_ms"],
+            "shapes": {label: {k: r[k] for k in ("ms", "cpu_ms", "bound_ms", "plain_ms", "library_ms")}
+                       for label, r in all_rows.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

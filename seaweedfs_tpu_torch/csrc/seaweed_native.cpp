@@ -1,22 +1,30 @@
-// The PyTorch port's host byte plane: CRC32C, batched positioned reads
-// with an inline rolling CRC, a readahead hint, and the stateful shard
-// sink that writes N shard streams and rolls their sidecar CRCs in the
-// same cache-hot pass. Host code, built with g++ (-pthread) at first use
-// and loaded with ctypes (seaweedfs_tpu_torch/ops/_build.py,
-// seaweedfs_tpu_torch/utils/native.py).
+// The PyTorch port's host library: the host byte plane (CRC32C, batched
+// positioned reads with an inline rolling CRC, a readahead hint, and the
+// stateful shard sink that writes N shard streams and rolls their
+// sidecar CRCs in the same cache-hot pass) and the GF(2^8) Reed-Solomon
+// matrix apply of the native CPU backend (ec/backend.py CpuBackend:
+// PSHUFB nibble tables, AVX2 or SSSE3 where the CPU has them). Host
+// code, built with g++ (-pthread) at first use and loaded with ctypes
+// (seaweedfs_tpu_torch/ops/_build.py, seaweedfs_tpu_torch/utils/native.py).
 //
 // The port's own copy of the parts of the JAX package's C++ core that
-// encode, rebuild, decode and degraded reads call; same functions, same
-// output bit for bit. The network plane, the .dat scanner, the one-shot
-// shard append and the GF(2^8) apply are not here: no path of the port
-// calls them.
+// encode, rebuild, decode, degraded reads and the CPU backend call; same
+// functions, same output bit for bit. The network plane, the .dat
+// scanner and the one-shot shard append are not here: no path of the
+// port calls them.
 //
-// One departure from that core: the reader's and the sink's per-row work
-// runs on a persistent pool of worker threads, where the core starts and
-// joins fresh threads on every call. Where starting a thread costs about
-// as much as reading or CRC-ing a 1 MiB row (chip_host_io.py times both
-// on the card's host), per-call threads made the native plane slower
-// than the Python loops it replaces.
+// Departures from that core:
+// - the reader's and the sink's per-row work, and the column windows of
+//   sn_rs_apply_mt, run on a persistent pool of worker threads, where
+//   the core starts and joins fresh threads on every call. Where starting
+//   a thread costs about as much as reading or CRC-ing a 1 MiB row
+//   (chip_host_io.py times both on the card's host), per-call threads
+//   made the native plane slower than the Python loops it replaces;
+// - the GF(2^8) tables are built once under std::call_once, where the
+//   core sets a plain flag: the pool's threads and several Python threads
+//   may reach the first apply at once;
+// - sn_rs_apply_body runs one named multiply body (scalar, SSSE3 or
+//   AVX2) so that tests reach all three on any host; no path calls it.
 
 #include <algorithm>
 #include <cerrno>
@@ -63,6 +71,9 @@ class Pool {
         static Pool* pool = new Pool();  // never destroyed: its threads outlive main
         return *pool;
     }
+
+    // Threads that run a job's indices: the workers and the caller.
+    int threads() const { return forked_ ? 1 : (int)threads_ + 1; }
 
     void parallel_for(int n, const std::function<void(int)>& fn) {
         if (n <= 1 || threads_ == 0 || forked_) {
@@ -566,5 +577,188 @@ int sn_sink_direct_flags(void* handle, uint8_t* out) {
 }
 
 void sn_sink_destroy(void* handle) { delete (SnSink*)handle; }
+
+// ---------------------------------------------------------------------------
+// GF(2^8) Reed-Solomon matrix apply (polynomial 0x11D, klauspost's field):
+// out[r] = XOR_j coeffs[r*in_rows+j] * data[j] over rows of n bytes.
+// ---------------------------------------------------------------------------
+
+static uint8_t gf_mul_table[256][256];
+static uint8_t gf_nib_lo[256][16];  // low-nibble products per constant
+static uint8_t gf_nib_hi[256][16];  // high-nibble products per constant
+static std::once_flag gf_once;
+
+static uint8_t gf_mul_slow(uint8_t a, uint8_t b) {
+    uint16_t r = 0;
+    uint16_t aa = a;
+    for (int i = 0; i < 8; i++) {
+        if (b & (1 << i)) r ^= (uint16_t)(aa << i);
+    }
+    // reduce mod x^8+x^4+x^3+x^2+1 (0x11D)
+    for (int i = 15; i >= 8; i--) {
+        if (r & (1 << i)) r ^= (0x11D << (i - 8));
+    }
+    return (uint8_t)r;
+}
+
+static void gf_build() {
+    for (int a = 0; a < 256; a++)
+        for (int b = 0; b < 256; b++)
+            gf_mul_table[a][b] = gf_mul_slow((uint8_t)a, (uint8_t)b);
+    for (int c = 0; c < 256; c++) {
+        for (int n = 0; n < 16; n++) {
+            gf_nib_lo[c][n] = gf_mul_table[c][n];
+            gf_nib_hi[c][n] = gf_mul_table[c][n << 4];
+        }
+    }
+}
+
+static void gf_init() { std::call_once(gf_once, gf_build); }
+
+typedef void (*gf_mul_xor_fn)(uint8_t c, const uint8_t* in, uint8_t* out, size_t n);
+
+// Portable scalar multiply-accumulate: out ^= c * in
+static void gf_mul_xor_scalar(uint8_t c, const uint8_t* in, uint8_t* out, size_t n) {
+    const uint8_t* t = gf_mul_table[c];
+    for (size_t i = 0; i < n; i++) out[i] ^= t[in[i]];
+}
+
+#if defined(__x86_64__)
+__attribute__((target("avx2")))
+static void gf_mul_xor_avx2(uint8_t c, const uint8_t* in, uint8_t* out, size_t n) {
+    __m256i lo = _mm256_broadcastsi128_si256(_mm_loadu_si128((const __m128i*)gf_nib_lo[c]));
+    __m256i hi = _mm256_broadcastsi128_si256(_mm_loadu_si128((const __m128i*)gf_nib_hi[c]));
+    __m256i mask = _mm256_set1_epi8(0x0F);
+    size_t i = 0;
+    for (; i + 32 <= n; i += 32) {
+        __m256i v = _mm256_loadu_si256((const __m256i*)(in + i));
+        __m256i vlo = _mm256_and_si256(v, mask);
+        __m256i vhi = _mm256_and_si256(_mm256_srli_epi64(v, 4), mask);
+        __m256i p = _mm256_xor_si256(_mm256_shuffle_epi8(lo, vlo), _mm256_shuffle_epi8(hi, vhi));
+        __m256i o = _mm256_loadu_si256((const __m256i*)(out + i));
+        _mm256_storeu_si256((__m256i*)(out + i), _mm256_xor_si256(o, p));
+    }
+    if (i < n) gf_mul_xor_scalar(c, in + i, out + i, n - i);
+}
+
+__attribute__((target("ssse3")))
+static void gf_mul_xor_ssse3(uint8_t c, const uint8_t* in, uint8_t* out, size_t n) {
+    __m128i lo = _mm_loadu_si128((const __m128i*)gf_nib_lo[c]);
+    __m128i hi = _mm_loadu_si128((const __m128i*)gf_nib_hi[c]);
+    __m128i mask = _mm_set1_epi8(0x0F);
+    size_t i = 0;
+    for (; i + 16 <= n; i += 16) {
+        __m128i v = _mm_loadu_si128((const __m128i*)(in + i));
+        __m128i vlo = _mm_and_si128(v, mask);
+        __m128i vhi = _mm_and_si128(_mm_srli_epi64(v, 4), mask);
+        __m128i p = _mm_xor_si128(_mm_shuffle_epi8(lo, vlo), _mm_shuffle_epi8(hi, vhi));
+        __m128i o = _mm_loadu_si128((const __m128i*)(out + i));
+        _mm_storeu_si128((__m128i*)(out + i), _mm_xor_si128(o, p));
+    }
+    if (i < n) gf_mul_xor_scalar(c, in + i, out + i, n - i);
+}
+#endif
+
+static void gf_mul_xor(uint8_t c, const uint8_t* in, uint8_t* out, size_t n) {
+#if defined(__x86_64__)
+    if (__builtin_cpu_supports("avx2")) { gf_mul_xor_avx2(c, in, out, n); return; }
+    if (__builtin_cpu_supports("ssse3")) { gf_mul_xor_ssse3(c, in, out, n); return; }
+#endif
+    gf_mul_xor_scalar(c, in, out, n);
+}
+
+static void xor_into(const uint8_t* in, uint8_t* out, size_t n) {
+    size_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint64_t a, b;
+        memcpy(&a, out + i, 8);
+        memcpy(&b, in + i, 8);
+        a ^= b;
+        memcpy(out + i, &a, 8);
+    }
+    for (; i < n; i++) out[i] ^= in[i];
+}
+
+// Columns [lo, lo + w) of the apply over rows of n bytes: coefficient 0
+// is skipped, 1 is a plain XOR, any other goes through `mul`.
+static void rs_apply_window(gf_mul_xor_fn mul, const uint8_t* coeffs, int out_rows, int in_rows,
+                            const uint8_t* data, uint8_t* out, size_t n, size_t lo, size_t w) {
+    for (int r = 0; r < out_rows; r++) {
+        uint8_t* dst = out + (size_t)r * n + lo;
+        memset(dst, 0, w);
+        for (int j = 0; j < in_rows; j++) {
+            uint8_t c = coeffs[r * in_rows + j];
+            if (c == 0) continue;
+            const uint8_t* src = data + (size_t)j * n + lo;
+            if (c == 1) {
+                xor_into(src, dst, w);
+            } else {
+                mul(c, src, dst, w);
+            }
+        }
+    }
+}
+
+// data: in_rows contiguous rows of n bytes; out: out_rows rows of n bytes.
+void sn_rs_apply(const uint8_t* coeffs, int out_rows, int in_rows,
+                 const uint8_t* data, uint8_t* out, size_t n) {
+    gf_init();
+    rs_apply_window(gf_mul_xor, coeffs, out_rows, in_rows, data, out, n, 0, n);
+}
+
+uint8_t sn_gf_mul(uint8_t a, uint8_t b) {
+    gf_init();
+    return gf_mul_table[a][b];
+}
+
+// Column-parallel sn_rs_apply: the n columns split into `nthreads`
+// 64-byte-aligned windows that run on the worker pool (parity is
+// columnwise-independent, so any column split is bit-exact). One thread
+// below 64 KiB of width. Callers via ctypes release the GIL for the
+// whole call.
+void sn_rs_apply_mt(const uint8_t* coeffs, int out_rows, int in_rows,
+                    const uint8_t* data, uint8_t* out, size_t n,
+                    int nthreads) {
+    gf_init();
+    if (nthreads <= 1 || n < (1u << 16)) {
+        sn_rs_apply(coeffs, out_rows, in_rows, data, out, n);
+        return;
+    }
+    size_t chunk = (n + (size_t)nthreads - 1) / (size_t)nthreads;
+    chunk = (chunk + 63) & ~(size_t)63;  // cache-line align column splits
+    int windows = (int)((n + chunk - 1) / chunk);
+    parallel_for(windows, [&](int i) {
+        size_t lo = (size_t)i * chunk;
+        size_t w = lo + chunk <= n ? chunk : n - lo;
+        rs_apply_window(gf_mul_xor, coeffs, out_rows, in_rows, data, out, n, lo, w);
+    });
+}
+
+// Test-only: sn_rs_apply through one named body, 0 scalar, 1 SSSE3,
+// 2 AVX2. Returns -1, writing nothing, when the CPU lacks that body.
+int sn_rs_apply_body(int body, const uint8_t* coeffs, int out_rows, int in_rows,
+                     const uint8_t* data, uint8_t* out, size_t n) {
+    gf_mul_xor_fn mul = nullptr;
+    if (body == 0) mul = gf_mul_xor_scalar;
+#if defined(__x86_64__)
+    if (body == 1 && __builtin_cpu_supports("ssse3")) mul = gf_mul_xor_ssse3;
+    if (body == 2 && __builtin_cpu_supports("avx2")) mul = gf_mul_xor_avx2;
+#endif
+    if (mul == nullptr) return -1;
+    gf_init();
+    rs_apply_window(mul, coeffs, out_rows, in_rows, data, out, n, 0, n);
+    return 0;
+}
+
+int sn_has_avx2() {
+#if defined(__x86_64__)
+    return __builtin_cpu_supports("avx2") ? 1 : 0;
+#else
+    return 0;
+#endif
+}
+
+// Threads that run the pool's jobs (its workers and the calling thread).
+int sn_pool_threads() { return Pool::get().threads(); }
 
 }  // extern "C"

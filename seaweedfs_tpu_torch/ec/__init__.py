@@ -15,7 +15,7 @@ seaweedfs_tpu/ec; the files it reads and writes (.ec00.., .ecx, .ecj,
 """
 
 from . import native_io
-from .backend import TorchBackend, get_backend
+from .backend import CpuBackend, TorchBackend, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import DEFAULT_EC_CONTEXT, ECContext, ECError
 from .decoder import ec_decode_volume
@@ -47,6 +47,7 @@ from .volume_info import VolumeInfo
 __all__ = [
     "BitrotError",
     "BitrotProtection",
+    "CpuBackend",
     "DEFAULT_EC_CONTEXT",
     "ECContext",
     "ECError",

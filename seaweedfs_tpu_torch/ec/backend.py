@@ -1,10 +1,18 @@
-"""Reed-Solomon compute backend on a torch device: `TorchBackend`.
+"""Reed-Solomon compute backends: `TorchBackend` and `CpuBackend`.
 
-Port of seaweedfs_tpu/ec/backend.py (`_BackendBase` + `JaxBackend`,
-ec/backend.py:85-132 and 169-277), with the whole RSBackend surface the
+Port of seaweedfs_tpu/ec/backend.py (`_BackendBase`, `CpuBackend` and
+`JaxBackend`, ec/backend.py:85-277), with the whole RSBackend surface the
 EC pipeline is written against: encode, apply, reconstruct, verify and
 the staged hooks to_device -> encode_staged | apply_staged -> to_host.
 All of them take and return numpy uint8 arrays of shape (rows, n).
+
+- `CpuBackend`: the native C++ GF(2^8) apply of the port's host library
+  (csrc/seaweed_native.cpp: PSHUFB nibble tables, AVX2 or SSSE3), the
+  klauspost-equivalent CPU path. Reached only by name
+  (`get_backend("cpu", k, m)`) or by passing one in.
+- `TorchBackend`: the GF(2) bit-matrix kernels on a torch device
+  (ops/rs_kernels.py), on "cuda" unless the caller passes device="cpu"
+  (then the kernels' plain versions run).
 
 On CUDA the staged hooks overlap copy and compute:
 
@@ -20,17 +28,18 @@ On CUDA the staged hooks overlap copy and compute:
 
 `stage_seconds` accumulates where a run's time went: "h2d", "kernel"
 and "d2h" are device time from CUDA events (on the CPU, wall time of the
-calls); "pin" is the host copy into pinned memory, where one was made;
-"disk_read" and
-"write" are wall time of the reader and writer stages, recorded by the
-encoder and rebuild through `add_stage`.
+calls: `CpuBackend`'s "kernel" is the wall of its applies, and its "pin",
+"h2d" and "d2h" stay 0); "pin" is the host copy into pinned memory, where
+one was made; "disk_read" and "write" are wall time of the reader and
+writer stages, recorded by the encoder and rebuild through `add_stage`.
 
 `impl` picks the kernel (RSTorch's impl): "cuda" applies the bit-major
 matrix through `gf2_apply` (JaxBackend impl="pallas"), "cuda_planes" the
 plane stack through `gf2_apply_planes` (JaxBackend impl="pallas_aligned").
 
-Entry points run on "cuda" unless the caller passes device="cpu"; with
-no card, a default-constructed backend raises.
+Entry points run on "cuda" unless the caller names the CPU; with no
+card, a default-constructed `TorchBackend` raises. There is no "auto":
+no default and no error path resolves to `CpuBackend`.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch
 
 from ..ops import gf256
 from ..ops.rs_torch import RSTorch
+from ..utils import native
 from .context import ECContext, ECError
 
 STAGES = ("disk_read", "pin", "h2d", "kernel", "d2h", "write")
@@ -77,13 +87,113 @@ class _Pending:
     kernel: tuple | None
 
 
-class TorchBackend:
+class _BackendBase:
+    """What every backend shares: the generator matrix, reconstruct and
+    verify over `apply` and `encode`, the synchronous staged hooks (a
+    device backend overrides them) and the stage accounting."""
+
+    def __init__(self, ctx: ECContext):
+        self.ctx = ctx
+        self.matrix = gf256.build_matrix(ctx.data_shards, ctx.total)
+        self._stats_lock = threading.Lock()
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.pin_skips = 0
+
+    # -- stage accounting ----------------------------------------------------
+
+    def add_stage(self, stage: str, seconds: float) -> None:
+        with self._stats_lock:
+            self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + seconds
+
+    def reset_stages(self) -> None:
+        with self._stats_lock:
+            self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+            self.pin_skips = 0
+
+    # -- synchronous staged hooks: the work runs in encode_staged and
+    # apply_staged, so staged output is apply()'s by construction --------------
+
+    def to_device(self, data: np.ndarray):
+        return data
+
+    def encode_staged(self, staged):
+        return self.encode(staged)
+
+    def apply_staged(self, coeffs: np.ndarray, staged):
+        return self.apply(coeffs, staged)
+
+    def to_host(self, result) -> np.ndarray:
+        return np.asarray(result, dtype=np.uint8)
+
+    # -- reconstruct and verify ------------------------------------------------
+
+    def reconstruct(
+        self, shards: dict[int, np.ndarray], want: list[int] | None = None
+    ) -> dict[int, np.ndarray]:
+        """Any >= k present shards -> the missing shards (all of them, or
+        just `want`)."""
+        k, total = self.ctx.data_shards, self.ctx.total
+        present = tuple(sorted(i for i in shards if 0 <= i < total))
+        if len(present) < k:
+            raise ECError(f"need {k} shards to reconstruct, have {len(present)}")
+        targets = range(total) if want is None else want
+        missing = tuple(i for i in targets if i not in shards)
+        if not missing:
+            return {}
+        src = present[:k]
+        coeffs = _decode_coeffs(self.matrix, missing, src)
+        data = np.stack([np.asarray(shards[i], dtype=np.uint8) for i in src])
+        out = self.apply(coeffs, data)
+        return {idx: out[i] for i, idx in enumerate(missing)}
+
+    def verify(self, shards: np.ndarray) -> bool:
+        shards = np.asarray(shards, dtype=np.uint8)
+        k = self.ctx.data_shards
+        return bool(np.array_equal(self.encode(shards[:k]), shards[k:]))
+
+
+class CpuBackend(_BackendBase):
+    """RS encode/apply on the host through the native GF(2^8) apply of
+    the port's host library (utils/native.rs_apply; rs_apply_mt, columns
+    split over the library's worker pool, at widths of 1 MiB and more).
+
+    Departure from the JAX CpuBackend, which computes with the numpy
+    tables (gf256.matrix_apply) when its library is unavailable: this one
+    raises. Building and loading the library happens at construction, so
+    a failed build raises here; nothing computes the bytes another way."""
+
+    # Below this width, splitting the columns costs more than it wins;
+    # single-interval read recovery stays on the calling thread.
+    _MT_MIN_WIDTH = 1 << 20
+
+    def __init__(self, ctx: ECContext):
+        super().__init__(ctx)
+        self.avx2 = native.has_avx2()  # builds and loads the library
+        self._parity = np.ascontiguousarray(self.matrix[ctx.data_shards :])
+
+    def apply(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
+        """out[r] = sum_j coeffs[r,j] * data[j] over GF(256)."""
+        coeffs = np.asarray(coeffs, np.uint8)
+        data = np.asarray(data, np.uint8)
+        t0 = time.perf_counter()
+        if data.ndim == 2 and data.shape[1] >= self._MT_MIN_WIDTH:
+            out = native.rs_apply_mt(coeffs, data)
+        else:
+            out = native.rs_apply(coeffs, data)
+        self.add_stage("kernel", time.perf_counter() - t0)
+        return out
+
+    def encode(self, data: np.ndarray) -> np.ndarray:
+        """(k, n) data -> (m, n) parity."""
+        return self.apply(self._parity, data)
+
+
+class TorchBackend(_BackendBase):
     """RS encode/apply on one torch device through the GF(2) kernel."""
 
     def __init__(self, ctx: ECContext, device="cuda", impl: str = "cuda"):
         if impl not in IMPLS:
             raise ECError(f"unknown TorchBackend impl {impl!r} (want cuda|cuda_planes)")
-        self.ctx = ctx
         self.impl = impl
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -100,24 +210,10 @@ class TorchBackend:
             self._stream = self._d2h_stream = None
         else:
             raise ECError(f"TorchBackend runs on cuda or cpu, not {self.device}")
+        super().__init__(ctx)
         self._rs = RSTorch(
             ctx.data_shards, ctx.parity_shards, impl=impl, device=self.device
         )
-        self.matrix = self._rs.matrix
-        self._stats_lock = threading.Lock()
-        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
-        self.pin_skips = 0
-
-    # -- stage accounting ----------------------------------------------------
-
-    def add_stage(self, stage: str, seconds: float) -> None:
-        with self._stats_lock:
-            self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + seconds
-
-    def reset_stages(self) -> None:
-        with self._stats_lock:
-            self.stage_seconds = dict.fromkeys(STAGES, 0.0)
-            self.pin_skips = 0
 
     def _event(self) -> torch.cuda.Event:
         ev = torch.cuda.Event(enable_timing=True)
@@ -198,38 +294,22 @@ class TorchBackend:
         """out[r] = sum_j coeffs[r,j] * data[j] over GF(256)."""
         return self.to_host(self.apply_staged(coeffs, self.to_device(data)))
 
-    def reconstruct(
-        self, shards: dict[int, np.ndarray], want: list[int] | None = None
-    ) -> dict[int, np.ndarray]:
-        """Any >= k present shards -> the missing shards (all of them, or
-        just `want`)."""
-        k, total = self.ctx.data_shards, self.ctx.total
-        present = tuple(sorted(i for i in shards if 0 <= i < total))
-        if len(present) < k:
-            raise ECError(f"need {k} shards to reconstruct, have {len(present)}")
-        targets = range(total) if want is None else want
-        missing = tuple(i for i in targets if i not in shards)
-        if not missing:
-            return {}
-        src = present[:k]
-        coeffs = _decode_coeffs(self.matrix, missing, src)
-        data = np.stack([np.asarray(shards[i], dtype=np.uint8) for i in src])
-        out = self.apply(coeffs, data)
-        return {idx: out[i] for i, idx in enumerate(missing)}
-
-    def verify(self, shards: np.ndarray) -> bool:
-        shards = np.asarray(shards, dtype=np.uint8)
-        k = self.ctx.data_shards
-        return bool(np.array_equal(self.encode(shards[:k]), shards[k:]))
-
 
 @functools.lru_cache(maxsize=16)
 def get_backend(
     name: str, data_shards: int, parity_shards: int, impl: str = "cuda"
-) -> TorchBackend:
-    """name: cuda | cpu (the device); impl: cuda | cuda_planes (the
-    kernel). There is no "auto": a missing card raises rather than
-    falling back to the CPU."""
-    if name not in ("cuda", "cpu"):
-        raise ECError(f"unknown EC backend {name!r} (want cuda|cpu)")
-    return TorchBackend(ECContext(data_shards, parity_shards), device=name, impl=impl)
+) -> _BackendBase:
+    """name: cuda (`TorchBackend` on the card; impl: cuda | cuda_planes,
+    the kernel) or cpu (the native `CpuBackend`, which has one apply, so
+    an impl other than the default raises). There is no "auto": a
+    missing card raises rather than falling back to the CPU. The plain
+    torch versions on the CPU are `TorchBackend(ctx, device="cpu",
+    impl=...)`."""
+    ctx = ECContext(data_shards, parity_shards)
+    if name == "cpu":
+        if impl != "cuda":
+            raise ECError(f"the cpu backend takes no kernel impl (got {impl!r})")
+        return CpuBackend(ctx)
+    if name == "cuda":
+        return TorchBackend(ctx, impl=impl)
+    raise ECError(f"unknown EC backend {name!r} (want cuda|cpu)")

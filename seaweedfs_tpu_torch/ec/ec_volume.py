@@ -40,7 +40,7 @@ from ..storage.needle_map import SortedFileNeedleMap
 from ..storage.types import actual_offset
 from ..utils.chunk_cache import ChunkCache
 from . import native_io
-from .backend import TorchBackend, _decode_coeffs, get_backend
+from .backend import _BackendBase, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import DEFAULT_EC_CONTEXT, QUARANTINE_SUFFIX, ECContext, ECError
 from .decoder import record_actual_size
@@ -84,14 +84,16 @@ class EcVolume:
         directory: str,
         volume_id: int,
         collection: str = "",
-        backend: TorchBackend | str = "cuda",
+        backend: _BackendBase | str = "cuda",
         impl: str = "cuda",
         remote_reader=None,
         interval_cache_bytes: int = DEFAULT_INTERVAL_CACHE_BYTES,
         interval_cache: ChunkCache | None = None,
     ):
-        """`backend` is a TorchBackend, or a device name that the port's
-        `get_backend(name, k, m, impl=impl)` resolves ("cuda" or "cpu").
+        """`backend` is a backend object (`TorchBackend`, `CpuBackend`), or
+        a name that the port's `get_backend(name, k, m, impl=impl)`
+        resolves: "cuda" (the card, through kernel `impl`) or "cpu" (the
+        native `CpuBackend`, which takes no impl).
 
         remote_reader(shard_id, offset, size, generation) -> bytes|None
         lets a cluster layer serve shards held by peers (the generation

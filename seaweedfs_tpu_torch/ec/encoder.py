@@ -32,7 +32,7 @@ from .. import faults
 from ..storage.needle_map import MemDb
 from ..utils.fs import fsync_dir
 from . import native_io
-from .backend import TorchBackend, get_backend
+from .backend import _BackendBase, get_backend
 from .bitrot import BitrotProtection
 from .context import (
     BITROT_LEAF_SIZE,
@@ -96,7 +96,7 @@ def batch_plan(
 def write_ec_files(
     base: str,
     ctx: ECContext = DEFAULT_EC_CONTEXT,
-    backend: TorchBackend | None = None,
+    backend: _BackendBase | None = None,
     batch_size: int = DEFAULT_BATCH,
     large_block_size: int = LARGE_BLOCK_SIZE,
     small_block_size: int = SMALL_BLOCK_SIZE,
@@ -183,7 +183,7 @@ def write_ec_files(
 def ec_encode_volume(
     base: str,
     ctx: ECContext = DEFAULT_EC_CONTEXT,
-    backend: TorchBackend | None = None,
+    backend: _BackendBase | None = None,
     batch_size: int = DEFAULT_BATCH,
     version: int = 3,
     leaf_size: int = BITROT_LEAF_SIZE,

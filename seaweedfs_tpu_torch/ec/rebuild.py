@@ -42,7 +42,7 @@ from .. import faults
 from ..utils.crc import crc32c
 from ..utils.fs import fsync_dir
 from . import native_io
-from .backend import TorchBackend, _decode_coeffs, get_backend
+from .backend import _BackendBase, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import BITROT_BLOCK_SIZE, DEFAULT_EC_CONTEXT, ECContext, ECError
 from .encoder import DEFAULT_BATCH
@@ -132,7 +132,7 @@ def _pread_exact(fd: int, buf: np.ndarray, offset: int) -> None:
 def rebuild_ec_files(
     base: str,
     ctx: ECContext | None = None,
-    backend: TorchBackend | None = None,
+    backend: _BackendBase | None = None,
     unsafe_ignore_sidecar: bool = False,
     batch_size: int = DEFAULT_BATCH,
     only_shards: list[int] | None = None,
@@ -284,7 +284,7 @@ def rebuild_ec_files(
 def _attempt_rebuild(
     base: str,
     ctx: ECContext,
-    backend: TorchBackend,
+    backend: _BackendBase,
     prot: BitrotProtection | None,
     src: list[int],
     targets: list[int],

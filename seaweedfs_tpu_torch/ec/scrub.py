@@ -57,7 +57,6 @@ from ..utils.retry import (
     RetryPolicy,
     retry_call,
 )
-from .backend import get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import QUARANTINE_SUFFIX, ECContext, ECError
 from .rebuild import rebuild_ec_files
@@ -251,10 +250,11 @@ def scrub_ec_volume(
     `on_quarantine(shard_id, new_path)` and `on_rebuilt(shard_ids)` let
     a serving layer unmount/remount shards around the repair.
 
-    `backend` runs leaf reconstruction and the rebuild. With `repair`
-    and no backend, the card's (`get_backend("cuda", k, m)`) is taken
-    up front, which raises where there is none: no repair quietly runs
-    on the CPU.
+    `backend` runs leaf reconstruction and the rebuild. With none, each
+    resolves the card's (`get_backend("cuda", k, m)`) when it runs, as
+    the JAX package resolves its default there: a pass that repairs
+    nothing needs no card, and a repair without one raises (no repair
+    quietly runs on the CPU).
 
     `expected_shards` bounds which ABSENT shards count as missing (and
     so get rebuilt): on a balanced cluster a server legitimately holds a
@@ -295,8 +295,6 @@ def scrub_ec_volume(
         report.refused = f"sidecar ratio {prot.ctx} != expected {ctx}"
         return report
     ctx = prot.ctx
-    if repair and backend is None:
-        backend = get_backend("cuda", ctx.data_shards, ctx.parity_shards)
 
     # Crash recovery BEFORE any verification: a pending repair journal
     # is replayed (or a torn one rolled back) so the walk below sees

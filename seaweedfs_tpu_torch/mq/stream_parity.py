@@ -19,9 +19,12 @@ record's offset. Generations wholly below the prune floor are deleted.
 What the port leaves out: the broker and its `ParityFlusher`, and remote
 shard placement. A non-empty ``SEAWEED_EC_STREAM_REMOTE_ROOTS`` raises
 `ECError` at construction instead of being ignored.
-``SEAWEED_EC_STREAM_BACKEND`` names the device, ``cuda`` (the default)
-or ``cpu``; the JAX package's ``auto`` raises `ECError`. The partition
-resolves its backend at construction, so without a card it raises there.
+``SEAWEED_EC_STREAM_BACKEND`` names the backend, ``cuda`` (the default)
+or ``cpu`` (the native `CpuBackend`); the JAX package's ``auto`` raises
+`ECError` at construction. As in the JAX package, the partition builds
+its backend when it first needs one, at its first generation or
+recovery: without a card, a partition that never takes a record runs,
+and the first append or recovery raises.
 """
 
 from __future__ import annotations
@@ -93,16 +96,20 @@ def parity_context() -> ECContext:
         return ECContext(4, 2)
 
 
-def _stream_backend(ctx: ECContext):
+def _stream_backend_name() -> str:
     """The backend named by SEAWEED_EC_STREAM_BACKEND: cuda (default) or
-    cpu. There is no `auto` (no fallback from the card to the CPU)."""
+    cpu (the native CpuBackend). There is no `auto` (no fallback from the
+    card to the CPU); a name get_backend does not know raises here, before
+    any backend is built."""
     name = os.environ.get("SEAWEED_EC_STREAM_BACKEND", "cuda")
     if name == "auto":
         raise ECError(
             "SEAWEED_EC_STREAM_BACKEND=auto: the port has no auto backend "
             "(no fallback); name cuda or cpu"
         )
-    return get_backend(name, ctx.data_shards, ctx.parity_shards)
+    if name not in ("cuda", "cpu"):
+        raise ECError(f"unknown EC backend {name!r} (want cuda|cpu)")
+    return name
 
 
 def _iter_dense(raw: bytes, base_offset: int):
@@ -170,7 +177,9 @@ class PartitionParity:
             )
         self.ns, self.topic_name, self.partition = ns, name, partition
         self.ctx = ctx or parity_context()
-        self.backend = backend if backend is not None else _stream_backend(self.ctx)
+        # None: the named one, built at the first generation or recovery
+        self.backend = backend
+        self._backend_name = _stream_backend_name() if backend is None else None
         self.dir = os.path.join(root, ns, name, f"{partition:04d}")
         os.makedirs(self.dir, exist_ok=True)
         self.block_size = int(block_size or stream_block_size())
@@ -211,6 +220,13 @@ class PartitionParity:
         gens = self._gens()
         return gens[-1] if gens else -1
 
+    def _backend_resolved(self):
+        if self.backend is None:
+            self.backend = get_backend(
+                self._backend_name, self.ctx.data_shards, self.ctx.parity_shards
+            )
+        return self.backend
+
     # ------------------------------------------------------------ append
 
     def append_record(self, offset: int, ts_ns: int, key: bytes, value: bytes) -> None:
@@ -236,7 +252,7 @@ class PartitionParity:
         self._enc = EcStreamEncoder(
             self._gen_base_path(self._gen),
             self.ctx,
-            backend=self.backend,
+            backend=self._backend_resolved(),
             block_size=self.block_size,
             small_block_size=self.small_block_size,
             meta=base_offset,
@@ -319,6 +335,7 @@ class PartitionParity:
         Leaves the partition on a fresh generation; old generations stay
         until pruned."""
         records: list[tuple[int, int, bytes, bytes]] = []
+        backend = self._backend_resolved()
         with self._lock:
             for g in self._gens():
                 base = self._gen_base_path(g)
@@ -326,7 +343,7 @@ class PartitionParity:
                 if j is None:
                     continue
                 rec = recover_stream(
-                    base, self.ctx, self.backend, frame_scan=dense_frame_scan(j.meta)
+                    base, self.ctx, backend, frame_scan=dense_frame_scan(j.meta)
                 )
                 if rec is None:
                     continue

@@ -5,9 +5,10 @@ Two sources live in seaweedfs_tpu_torch/csrc/:
 - gf2_apply.cu: the CUDA kernels behind its two entry points (nvcc,
   `-gencode arch=compute_90a,code=sm_90a`), a plain C interface with no
   PyTorch headers, so it builds in seconds;
-- seaweed_native.cpp: the host byte plane (g++, `-pthread`): CRC32C,
-  batched positioned reads with an inline CRC, and the stateful shard
-  sink (utils/native.py binds it).
+- seaweed_native.cpp: the host library (g++, `-pthread`): the byte
+  plane (CRC32C, batched positioned reads with an inline CRC, the
+  stateful shard sink) and the GF(2^8) apply of the native CPU backend
+  (utils/native.py binds it).
 
 Each library is built into seaweedfs_tpu_torch/build/ (listed in
 .gitignore) under a name that carries a hash of its source and flags,
@@ -140,6 +141,17 @@ _SIGNATURES = {
         "sn_sink_finish": (_c.c_int, [_P, _P, _P, _P, _P, _P]),
         "sn_sink_direct_flags": (_c.c_int, [_P, _P]),
         "sn_sink_destroy": (None, [_P]),
+        # coeffs, out_rows, in_rows, data, out, n
+        "sn_rs_apply": (None, [_c.c_char_p, _c.c_int, _c.c_int, _P, _P, _c.c_size_t]),
+        # ... and threads
+        "sn_rs_apply_mt": (None, [_c.c_char_p, _c.c_int, _c.c_int, _P, _P, _c.c_size_t, _c.c_int]),
+        # body, then sn_rs_apply's arguments
+        "sn_rs_apply_body": (
+            _c.c_int, [_c.c_int, _c.c_char_p, _c.c_int, _c.c_int, _P, _P, _c.c_size_t],
+        ),
+        "sn_gf_mul": (_c.c_uint8, [_c.c_uint8, _c.c_uint8]),
+        "sn_has_avx2": (_c.c_int, []),
+        "sn_pool_threads": (_c.c_int, []),
     },
 }
 

@@ -1,13 +1,15 @@
-"""ctypes bindings of the port's host byte plane (csrc/seaweed_native.cpp).
+"""ctypes bindings of the port's host library (csrc/seaweed_native.cpp).
 
 Port of seaweedfs_tpu/utils/native.py, trimmed to what encode, rebuild,
-decode and degraded reads call: CRC32C and its combine, the batched
-positioned read with an inline rolling CRC, the readahead hint, and the
-stateful shard sink. ops/_build.py builds the library with g++ at first
-use into seaweedfs_tpu_torch/build/ and loads it. A failed build or load
-raises at the first call that needs the library; nothing here turns it
-into a quiet fallback (SEAWEED_EC_NATIVE=0, read by ec/native_io.py, is
-the one way to the Python plane).
+decode, degraded reads and the native CPU backend call: CRC32C and its
+combine, the batched positioned read with an inline rolling CRC, the
+readahead hint, the stateful shard sink, and the GF(2^8) matrix apply
+(`rs_apply`, `rs_apply_mt`, `gf_mul`, `has_avx2`). ops/_build.py builds
+the library with g++ at first use into seaweedfs_tpu_torch/build/ and
+loads it. A failed build or load raises at the first call that needs the
+library; nothing here turns it into a quiet fallback (SEAWEED_EC_NATIVE=0,
+read by ec/native_io.py, is the one way to the Python plane, and the CPU
+backend has none).
 
 Every call releases the GIL for its whole length (ctypes.CDLL), so the
 sink's and the reader's worker threads run beside the interpreter.
@@ -16,6 +18,7 @@ sink's and the reader's worker threads run beside the interpreter.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 
@@ -124,6 +127,68 @@ def batch_pread(
         err = OSError(f"sn_batch_pread failed on row {row} (fd {fds[row]} offset {offsets[row]})")
         err.sn_row = row  # callers map the row back to a shard id
         raise err
+
+
+def _apply_operands(coeffs: np.ndarray, data: np.ndarray):
+    """Contiguous uint8 operands (the library reads row j at data + j*n
+    and writes row r at out + r*n) and the output they fill. The caller
+    holds `data` while the library reads it: a strided input's
+    contiguous copy lives only as long as this reference."""
+    coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    out_rows, in_rows = coeffs.shape
+    if data.shape[0] != in_rows:
+        raise ValueError(f"coeffs expect {in_rows} rows, got {data.shape[0]}")
+    return coeffs, data, np.empty((out_rows, data.shape[1]), dtype=np.uint8)
+
+
+def _apply_args(coeffs, data, out) -> tuple:
+    return coeffs.tobytes(), out.shape[0], coeffs.shape[1], _ptr(data), _ptr(out), data.shape[1]
+
+
+def rs_apply(coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """out[r] = XOR_j gf_mul(coeffs[r,j], data[j]) over contiguous rows."""
+    coeffs, data, out = _apply_operands(coeffs, data)
+    _lib().sn_rs_apply(*_apply_args(coeffs, data, out))
+    return out
+
+
+def rs_apply_mt(coeffs: np.ndarray, data: np.ndarray, threads: int = 0) -> np.ndarray:
+    """rs_apply with the columns split into `threads` windows (0 = one per
+    CPU) that run on the library's worker pool. Bit-exact vs rs_apply:
+    parity is columnwise-independent."""
+    if threads <= 0:
+        threads = os.cpu_count() or 1
+    coeffs, data, out = _apply_operands(coeffs, data)
+    _lib().sn_rs_apply_mt(*_apply_args(coeffs, data, out), threads)
+    return out
+
+
+BODIES = ("scalar", "ssse3", "avx2")
+
+
+def rs_apply_body(body: str, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray | None:
+    """rs_apply through one named multiply body (a name in BODIES), or
+    None where the CPU lacks it. For tests: the apply itself picks the
+    widest body the CPU has."""
+    coeffs, data, out = _apply_operands(coeffs, data)
+    if _lib().sn_rs_apply_body(BODIES.index(body), *_apply_args(coeffs, data, out)) != 0:
+        return None
+    return out
+
+
+def gf_mul(a: int, b: int) -> int:
+    return _lib().sn_gf_mul(a, b)
+
+
+def has_avx2() -> bool:
+    return bool(_lib().sn_has_avx2())
+
+
+def pool_threads() -> int:
+    """Threads that run the library's pooled work: its workers and the
+    calling thread (one per CPU)."""
+    return int(_lib().sn_pool_threads())
 
 
 def fadvise_willneed(fd: int, offset: int, length: int) -> None:

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernel's two entry points (and the
-three bodies behind them) against their plain versions and the numpy
-oracle, the backend's staged path, degraded reads through EcVolume, leaf
+three bodies behind them) against their plain versions, the numpy
+oracle and the native CPU backend, the backend's staged path, degraded reads through EcVolume, leaf
 repair (reconstruction on the card, a repair killed in a child process
 and healed at mount), and the native byte plane's page-locked landing
 matrices (copied to the card as they lie, recycled as soon as a batch's
@@ -27,11 +27,13 @@ import torch
 
 import seaweedfs_tpu_torch.ec.ec_volume as ecv
 from seaweedfs_tpu_torch.ec import (
+    CpuBackend,
     ECContext,
     EcVolume,
     TorchBackend,
     VolumeInfo,
     ec_encode_volume,
+    get_backend,
     native_io,
     reconstruct_leaves,
 )
@@ -615,7 +617,12 @@ def test_partition_on_card_takes_masked_path_and_recovers(cuda, tmp_path, monkey
     recs = [(i, 1000 + i, rng.bytes(16), rng.bytes(1024)) for i in range(3000)]
     pp = PartitionParity(str(tmp_path / "card"), "ns", "t", 0, block_size=256 << 10,
                          small_block_size=16 << 10, flush_bytes=16 << 10)
-    assert pp.backend.device.type == "cuda"
+    assert pp.backend is None  # resolved at the first generation
+    # Build the card's backend before the publisher and the flusher race;
+    # the partition takes it from get_backend's cache at its first
+    # generation. Built inside the publisher's loop, its construction
+    # left the flusher no flush in the loop (every width row-aligned).
+    card = get_backend("cuda", 4, 2)
     rs_kernels.reset_launches()
     stop = threading.Event()
 
@@ -631,9 +638,72 @@ def test_partition_on_card_takes_masked_path_and_recovers(cuda, tmp_path, monkey
     stop.set()
     t.join()
     pp.close()
+    assert pp.backend is card and card.device.type == "cuda"
     assert rs_kernels.MASKED["gf2_apply"] > 0
     shutil.copytree(tmp_path / "card", tmp_path / "cpu")
     got = PartitionParity(str(tmp_path / "card"), "ns", "t", 0).recover()
     cpu = PartitionParity(str(tmp_path / "cpu"), "ns", "t", 0,
                           backend=TorchBackend(ECContext(4, 2), device="cpu")).recover()
     assert got == cpu == recs
+
+
+# -- the native CPU backend beside the card -----------------------------------
+
+# phases 2 and 2b of chip_smoke.py: (k, width) and the coefficient kind
+SMOKE_SHAPES = [
+    (10, 1 << 20, "encode", 4), (10, 1 << 20, "decode", 2), (10, 16 << 20, "encode", 4),
+    (10, 16 << 20, "decode", 2), (10, 64 << 10, "random", 1), (1, 256 << 10, "random", 4),
+    (1, (8 << 10) + 5, "random", 4), (1, 256 << 10, "random", 2), (1, (8 << 10) + 5, "random", 2),
+    (10, 256 << 10, "random", 1), (10, 16 << 20, "random", 1),
+]
+
+
+@pytest.mark.parametrize("k,width,kind,m", SMOKE_SHAPES)
+def test_cpu_backend_matches_both_entry_points(cuda, k, width, kind, m):
+    rng = np.random.default_rng(width % 1000 + m)
+    coeffs = _coeffs(kind, k, m, rng)
+    data_np = rng.integers(0, 256, (k, width), dtype=np.uint8)
+    cpu = CpuBackend(ECContext(10, 4)).apply(coeffs, data_np)
+    _, _, out = _apply(coeffs, data_np, cuda)
+    assert np.array_equal(out.cpu().numpy(), cpu)
+    planes = rs_torch.planes_from_numpy(rs_torch.bit_matrix_planes(coeffs, 1), cuda)
+    data = torch.from_numpy(data_np).to(cuda)
+    got = rs_kernels.gf2_apply_planes(planes, data, m=m, pack_width=1)
+    assert np.array_equal(got.cpu().numpy(), cpu)
+
+
+def test_cpu_encode_beside_card_encode_on_another_thread(cuda, tmp_path):
+    """A CpuBackend encode (its column windows on the host library's
+    pool) runs while a TorchBackend encode of the same bytes runs on
+    another thread (its reads and shard sink on the same pool): both
+    exact, and only the card's launched the kernel."""
+    rng = np.random.default_rng(31)
+    dat = rng.integers(0, 256, 40 << 20, dtype=np.uint8)
+    ctx = ECContext(10, 4)
+    for d in ("card", "cpu", "plain"):
+        (tmp_path / d).mkdir()
+        dat.tofile(tmp_path / d / "1.dat")
+        (tmp_path / d / "1.idx").write_bytes(b"")
+    write_ec_files(str(tmp_path / "plain" / "1"), ctx, backend=TorchBackend(ctx, device="cpu"))
+    rs_kernels.reset_launches()
+    errors = []
+
+    def card():
+        try:
+            ec_encode_volume(str(tmp_path / "card" / "1"), ctx, backend=TorchBackend(ctx))
+        except Exception as e:  # reported below, on the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=card)
+    t.start()
+    cpu = CpuBackend(ctx)
+    ec_encode_volume(str(tmp_path / "cpu" / "1"), ctx, backend=cpu)
+    t.join()
+    assert not errors
+    batches = rs_kernels.LAUNCHES["gf2_apply"]
+    assert batches >= 1 and cpu.stage_seconds["kernel"] > 0
+    for i in range(14):
+        ext = f"1.ec{i:02d}"
+        want = (tmp_path / "plain" / ext).read_bytes()
+        assert (tmp_path / "card" / ext).read_bytes() == want
+        assert (tmp_path / "cpu" / ext).read_bytes() == want

@@ -32,6 +32,7 @@ from seaweedfs_tpu.ec.volume_info import VolumeInfo as JaxVolumeInfo
 from seaweedfs_tpu.storage.needle import Needle
 from seaweedfs_tpu.storage.volume import Volume
 from seaweedfs_tpu.utils.crc import crc32c as jax_crc32c
+from seaweedfs_tpu_torch.ec import CpuBackend as PortCpuBackend
 from seaweedfs_tpu_torch.ec import (
     BitrotProtection,
     ECContext,
@@ -267,8 +268,10 @@ def test_backend_impls_match_cpu_backend(impl):
     assert sorted(got) == [0, 5, 12]
     for i in got:
         assert np.array_equal(got[i], full[i])
-    assert get_backend("cpu", 10, 4, impl=impl).impl == impl
-    assert get_backend("cpu", 10, 4, impl=impl) is get_backend("cpu", 10, 4, impl=impl)
+    assert isinstance(get_backend("cpu", 10, 4), PortCpuBackend)
+    assert get_backend("cpu", 10, 4) is get_backend("cpu", 10, 4)
+    with pytest.raises(ECError, match="no kernel impl"):
+        get_backend("cpu", 10, 4, impl="cuda_planes")  # any but the default
     with pytest.raises(ECError):
         TorchBackend(CTX, device="cpu", impl="pallas")
 
@@ -348,7 +351,7 @@ import os, shutil, sys, tempfile
 import numpy as np
 import seaweedfs_tpu_torch
 from seaweedfs_tpu_torch.ec import (
-    ECContext, EcVolume, TorchBackend, ec_decode_volume, ec_encode_volume,
+    CpuBackend, ECContext, EcVolume, TorchBackend, ec_decode_volume, ec_encode_volume,
 )
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.super_block import SuperBlock
@@ -368,12 +371,18 @@ with open(base + ".dat", "wb") as dat, open(base + ".idx", "wb") as idx:
         dat.write(n.to_bytes())
         idx.write(NeedleValue(nid, to_stored_offset(off), len(n._body())).to_bytes())
 ec_encode_volume(base, ctx, backend=TorchBackend(ctx, device="cpu"))
-ev = EcVolume(d, 7, backend="cpu", impl="cuda_planes")
-ev.unmount_shards([0])
-for nid in bodies:
-    assert ev.read_needle(nid, cookie=nid).data == bodies[nid]
-assert ev.bytes_reconstructed > 0
-ev.close()
+plain = {i: open(base + ctx.to_ext(i), "rb").read() for i in range(14)}
+cpu = CpuBackend(ctx)  # builds the host library's GF(2^8) apply
+ec_encode_volume(base, ctx, backend=cpu)
+assert cpu.stage_seconds["kernel"] > 0
+assert all(open(base + ctx.to_ext(i), "rb").read() == plain[i] for i in range(14))
+for backend in (TorchBackend(ctx, device="cpu", impl="cuda_planes"), "cpu"):
+    ev = EcVolume(d, 7, backend=backend)
+    ev.unmount_shards([0])
+    for nid in bodies:
+        assert ev.read_needle(nid, cookie=nid).data == bodies[nid]
+    assert ev.bytes_reconstructed > 0
+    ev.close()
 original = open(base + ".dat", "rb").read()
 os.unlink(base + ".dat")
 os.unlink(base + ".ec00")
@@ -410,7 +419,14 @@ def test_default_backend_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBackend(CTX)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_backend("cuda", 7, 3)  # a geometry no other test caches
     with pytest.raises(ECError):
         get_backend("auto", 10, 4)
+    # the native CPU backend needs no card, and only its name reaches it
+    be = get_backend("cpu", 7, 3)
+    assert isinstance(be, PortCpuBackend) and not hasattr(be, "device")
+    data = np.random.default_rng(5).integers(0, 256, (7, 333), dtype=np.uint8)
+    assert np.array_equal(be.encode(data), CpuBackend(JaxECContext(7, 3)).encode(data))
     with pytest.raises(ECError):
         TorchBackend(CTX, device="meta")

@@ -3,8 +3,8 @@ held against the JAX package on the CPU.
 
 Small stripes and a tight lag deadline, as the JAX package's own tests
 set them (16 KiB blocks, 4 KiB small blocks, 40 ms), and
-SEAWEED_EC_STREAM_BACKEND=cpu: the port's partitions run
-`TorchBackend(device="cpu")`, the JAX package's its `CpuBackend`.
+SEAWEED_EC_STREAM_BACKEND=cpu: the port's partitions run its native
+`CpuBackend`, the JAX package's its own `CpuBackend`.
 Checked exactly:
 
 - the record framing and the dense frame scan against the JAX parser;
@@ -15,7 +15,8 @@ Checked exactly:
 - a partition killed in a child process at each `ec.stream.*` crash
   window, recovered by both packages to the same dense prefix;
 - the knobs the port refuses: remote roots, the `auto` backend, and no
-  card with no backend.
+  card with no backend (resolved at the first generation or recovery, as
+  the JAX package resolves it).
 """
 
 import pathlib
@@ -330,8 +331,16 @@ def test_refused_knobs_raise(tmp_path, monkeypatch, env, value):
 def test_no_backend_and_no_card_raises(tmp_path, monkeypatch):
     monkeypatch.delenv("SEAWEED_EC_STREAM_BACKEND")  # the default: cuda
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the backend is resolved at the first generation or recovery, as in
+    # the JAX package: a partition that never takes a record runs
+    idle = port_sp.PartitionParity(str(tmp_path), "ns", "t", 0)
+    idle.flush()
+    assert idle.pending_bytes() == 0 and idle.backend is None
+    idle.close()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_sp.PartitionParity(str(tmp_path), "ns", "t", 0).flush()
+        port_sp.PartitionParity(str(tmp_path), "ns", "t", 0).append_record(0, 0, b"k", b"v")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_sp.PartitionParity(str(tmp_path), "ns", "t", 0).recover()
     # an explicit CPU backend is the caller's choice, and works
     be = TorchBackend(ECContext(4, 2), device="cpu")
     pp = port_sp.PartitionParity(str(tmp_path), "ns", "t", 0, backend=be)

@@ -711,7 +711,7 @@ def test_degraded_reads_match_jax_ecvolume(sealed, tmp_path, monkeypatch, native
     src, payloads = sealed
     d = os.path.dirname(_copy_dir(src, tmp_path / "v"))
     monkeypatch.setenv("SEAWEED_EC_NATIVE", native)
-    port = EcVolume(d, 1, backend="cpu", impl="cuda_planes")
+    port = EcVolume(d, 1, backend=TorchBackend(CTX, device="cpu", impl="cuda_planes"))
     jax = JaxEcVolume(d, 1, backend_name="cpu")
     try:
         port.unmount_shards([0, 2])
@@ -778,7 +778,9 @@ def test_remote_siblings_fetched_in_parallel_past_a_hung_peer(sealed, tmp_path):
             f.seek(off)
             return f.read(size)
 
-    port = EcVolume(d, 1, backend="cpu", impl="cuda_planes", remote_reader=remote)
+    port = EcVolume(
+        d, 1, backend=TorchBackend(CTX, device="cpu", impl="cuda_planes"), remote_reader=remote
+    )
     jax = JaxEcVolume(d, 1, backend_name="cpu", remote_reader=remote)
     try:
         port.unmount_shards([0])

@@ -7,8 +7,9 @@ engine and EC-encoded at the default layout (the layout EcVolume and the
 decoder read; a volume under 10 GiB is all 1 MiB small-block rows),
 under both sidecar versions: v1 (16 MiB block CRCs) and v2 (64 KiB leaf
 CRCs). The port's `EcVolume` on the CPU, under both kernel impls
-("cuda" and "cuda_planes", which run their plain versions for CPU
-tensors), must return the same needle bytes and raise the same errors as
+("cuda" and "cuda_planes", `TorchBackend(device="cpu")`, which run their
+plain versions for CPU tensors) and on the native `CpuBackend` (the name
+"cpu"), must return the same needle bytes and raise the same errors as
 the JAX `EcVolume(..., backend_name="cpu")`; the port's
 `ec_decode_volume` must write the same .dat and .idx as the JAX one on
 the Pallas plane-stack kernel in interpret mode. Tolerance 0.
@@ -122,7 +123,7 @@ def _flip(path: str, at: int, mask: int = 0x40) -> None:
 
 
 def _volumes(d: str, impl: str, **kw):
-    port = EcVolume(d, 1, backend="cpu", impl=impl, **kw)
+    port = EcVolume(d, 1, backend=TorchBackend(CTX, device="cpu", impl=impl), **kw)
     jax = JaxEcVolume(d, 1, backend_name="cpu", **kw)
     return port, jax
 
@@ -335,7 +336,9 @@ def test_remote_reader_serves_shards_held_elsewhere(encoded, sealed, tmp_path):
             f.seek(off)
             return f.read(size)
 
-    ev = EcVolume(d, 1, backend="cpu", impl="cuda_planes", remote_reader=remote)
+    ev = EcVolume(
+        d, 1, backend=TorchBackend(CTX, device="cpu", impl="cuda_planes"), remote_reader=remote
+    )
     try:
         ev.unmount_shards([0, 1, 2, 3, 4])
         for nid, data in payloads.items():
@@ -367,7 +370,7 @@ def test_quarantined_shards_and_collection_names(encoded, tmp_path):
 
 def test_interval_cache_hit_on_repeat_reads(encoded, sealed):
     _, payloads = sealed
-    ev = EcVolume(encoded[65536], 1, backend="cpu", impl="cuda_planes")
+    ev = EcVolume(encoded[65536], 1, backend=TorchBackend(CTX, device="cpu", impl="cuda_planes"))
     try:
         ev.unmount_shards([0])
         for nid, data in payloads.items():
@@ -583,7 +586,7 @@ def test_port_reads_and_decodes_a_jax_encoded_volume(sealed, tmp_path):
     for ext in (".dat", ".idx"):
         shutil.copy(base0 + ext, base + ext)
     jax_ec_encode_volume(base, JCTX, backend=CpuBackend(JCTX))
-    ev = EcVolume(str(tmp_path), 1, backend="cpu", impl="cuda_planes")
+    ev = EcVolume(str(tmp_path), 1, backend=TorchBackend(CTX, device="cpu", impl="cuda_planes"))
     try:
         ev.unmount_shards([0, 7])
         for nid, data in payloads.items():

@@ -4,7 +4,8 @@ JAX package on the CPU.
 
 Sizes are the JAX leaf-repair tests' (RS 4+2, 4 KiB blocks, 1 KiB
 leaves, shards of 3 blocks + 57 bytes, so the tail leaf is partial).
-The port runs its backend on the CPU (`TorchBackend(device="cpu")`),
+The port runs its backend on the CPU (`TorchBackend(device="cpu")`, and
+the native `CpuBackend` where an `EcVolume` mounts by the name "cpu"),
 the JAX package its `CpuBackend`. Every comparison is exact:
 
 - journal format: each package loads the journal the other wrote, to
@@ -47,6 +48,7 @@ from seaweedfs_tpu_torch.ec import (
     EcVolume,
     TorchBackend,
     VolumeInfo,
+    get_backend,
     reconstruct_leaves,
     scrub_ec_volume,
 )
@@ -513,6 +515,24 @@ def test_no_backend_means_the_card(tmp_path, monkeypatch):
     # a verify-only pass needs no backend
     r = scrub_ec_volume(str(tmp_path / "1"), CTX, repair=False)
     assert r.corrupt_leaves == {2: [1]} and not r.leaf_repaired
+
+
+def test_clean_repairing_scrub_needs_no_card(tmp_path, monkeypatch):
+    """A repairing scrub resolves its default backend only where it
+    repairs, as the JAX package's does: a clean pass runs without a
+    card, and a missing shard's rebuild raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    blobs = synth(tmp_path, seed=14)
+    r = scrub_ec_volume(str(tmp_path / "1"), CTX, repair=True)
+    assert r.healthy and not r.leaf_repaired and not r.rebuilt and not r.refused
+    os.unlink(str(tmp_path / "1") + CTX.to_ext(5))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scrub_ec_volume(str(tmp_path / "1"), CTX, repair=True)
+    assert not os.path.exists(str(tmp_path / "1") + CTX.to_ext(5))
+    # the native CPU backend, named, repairs it
+    r = scrub_ec_volume(str(tmp_path / "1"), CTX, backend=get_backend("cpu", 4, 2), repair=True)
+    assert r.rebuilt == [5]
+    assert (tmp_path / "1.ec05").read_bytes() == blobs[5]
 
 
 def test_reconstruct_leaves_refuses_rotten_sources(tmp_path):
