@@ -114,6 +114,26 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    walls, their ratio and both stage tables (the CPU's are host wall
    time: its "kernel" is the wall of its applies, and it has no pin,
    h2d or d2h), beside the card and the host's CPU.
+9. the flight recorder (seaweedfs_tpu_torch/utils/trace.py) armed, the
+   only phase that arms it, in a directory of hard links to the same .dat
+   and .idx: encode (two armed runs between two disarmed ones, for the
+   tracer's cost), rebuild of shards 3 and 11, 20 cold degraded reads of
+   shard 3 (the `.heat` sidecar written at close must hold the reads'
+   counters, and a fresh mount must read them back), one rotten leaf of
+   shard 3 leaf-repaired, decode with shard 3 removed, a 32 MiB phase 7a
+   stream and phase 7b's partition at its own traffic for at least 4
+   flushes; every output sha256-identical to its disarmed counterpart
+   (stream records replayed byte-exact). Then `trace.traces()` must hold
+   one root per op, as `sw_ec_traces_total{op}` counts, every span tree
+   the JAX package's invariants (one trace id, children inside their
+   root, no stage but queue_wait longer than its span), the device
+   stages (`h2d_dispatch`, `device_drain`) one per launch on cuda:0,
+   every overlap efficiency in [0, 1], the registry's text parse line by
+   line with the leaf repair counted, and the Chrome trace load. One line
+   gives each op's wall, stage totals and counts and overlap efficiency,
+   the armed over the disarmed encode wall, the partition's stage ms per
+   flush beside phase 7b's solo flush and the share of flush wall no
+   stage names, and the Chrome trace's event count.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -1144,20 +1164,21 @@ def row_chunks(lo: int, hi: int, block: int) -> int:
     return (hi - 1) // block - lo // block + 1 if hi > lo else 0
 
 
-def stream_phase(work, src, ctx) -> tuple[dict, int]:
-    """Phase 7a: the first STREAM_BYTES of `src` appended in 8 KiB pieces
+def stream_phase(work, src, ctx, nbytes: int = STREAM_BYTES) -> tuple[dict, int]:
+    """Phase 7a: the first `nbytes` of `src` appended in 8 KiB pieces
     to an `EcStreamEncoder` at its defaults (1 MiB blocks, 64 KiB small
     blocks), flushed at 256 KiB pending, closed with finalize; against
-    one `write_ec_files` over the same bytes. Returns (result, launches)."""
+    one `write_ec_files` over the same bytes. Returns (result, launches):
+    the stream's and the batch encode's, apart in the result."""
     from seaweedfs_tpu_torch.ec import BitrotProtection, EcStreamEncoder, TorchBackend, write_ec_files
     from seaweedfs_tpu_torch.ops import gf256, rs_kernels
 
     d = os.path.join(work, "stream")
     os.makedirs(d)
     with open(src, "rb") as f:
-        payload = f.read(STREAM_BYTES)
-    if len(payload) != STREAM_BYTES:
-        raise AssertionError(f"the .dat holds {len(payload)} bytes, fewer than {STREAM_BYTES}")
+        payload = f.read(nbytes)
+    if len(payload) != nbytes:
+        raise AssertionError(f"the .dat holds {len(payload)} bytes, fewer than {nbytes}")
     sbase, bbase = os.path.join(d, "s"), os.path.join(d, "b")
     backend = TorchBackend(ctx, device=DEVICE)
     rs_kernels.reset_launches()
@@ -1225,13 +1246,13 @@ def stream_phase(work, src, ctx) -> tuple[dict, int]:
     device_s = st["h2d"] + st["kernel"] + st["d2h"]
     split = round_trip_split(backend, gf256.parity_rows(K, M)[:, :1])
     return {
-        "bytes": STREAM_BYTES, "appends": n_app, "append_bytes": APPEND_BYTES,
+        "bytes": nbytes, "appends": n_app, "append_bytes": APPEND_BYTES,
         "flush_bytes": FLUSH_BYTES, "flushes": flushes, "block": block, "small_block": small,
         "time_to_durable_parity_p50_ms": percentile_ms(lags, 50),
         "time_to_durable_parity_p99_ms": percentile_ms(lags, 99),
         "time_to_durable_parity_max_ms": percentile_ms(lags, 100),
         "appends_per_s": n_app / stream_s, "stream_seconds": stream_s,
-        "close_finalize_seconds": close_s, "stream_mb_per_s": STREAM_BYTES / (stream_s + close_s) / 1e6,
+        "close_finalize_seconds": close_s, "stream_mb_per_s": nbytes / (stream_s + close_s) / 1e6,
         "batch_encode_seconds": batch_s, "batch_launches": batch_launches,
         "launches": launches, "chunks": chunks, "tail_stripes": tail_stripes,
         "launches_table_body": launches - masked, "launches_masked_path": masked,
@@ -1337,25 +1358,20 @@ sys.exit(3)  # the armed point never fired
 """
 
 
-def mq_phase(work) -> tuple[dict, int]:
-    """Phase 7b: one partition at the broker's defaults (4+2, 1 MiB
-    blocks, flush at 256 KiB or 200 ms, rotation at 64 MiB) takes
-    MQ_BYTES of 1 KB records at MQ_RATE from the main thread while a
-    flusher thread applies the policy every 100 ms; closed, then
-    recovered by a fresh partition; then each crash window, in a child.
-    Returns (result, launches)."""
+def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: int) -> dict:
+    """One partition at the broker's defaults takes the first `n` records
+    at MQ_RATE from the calling thread while a flusher thread applies the
+    policy every MQ_FLUSH_EVERY_S; then it closes. The kernel counters
+    are reset first. Returns the partition's context and backend, each
+    flush call's (start, end), each append's time, the append and close
+    times and each generation's encoder."""
     import threading
 
-    from seaweedfs_tpu_torch.ec import get_backend, load_stream_journal, stream_summary
+    from seaweedfs_tpu_torch.ec import get_backend
     from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
     from seaweedfs_tpu_torch.ops import rs_kernels
 
-    root = os.path.join(work, "mq")
-    rec_bytes = mq_record_bytes()
-    n = MQ_BYTES // rec_bytes
-    keys, values = mq_source(n)
-    ts0 = time.time_ns()
-    pp = PartitionParity(root, "bench", "omb", 0)
+    pp = PartitionParity(root, "bench", topic, 0)
     ctx = pp.ctx
     # the cached backend the partition builds at its first generation
     backend = get_backend(DEVICE, ctx.data_shards, ctx.parity_shards)
@@ -1406,6 +1422,29 @@ def mq_phase(work) -> tuple[dict, int]:
     t_close = time.perf_counter()
     pp.close()
     t_end = time.perf_counter()
+    return {"ctx": ctx, "backend": backend, "calls": calls, "t_append": t_append,
+            "append_s": append_s, "t_close": t_close, "t_end": t_end, "encoders": encoders}
+
+
+def mq_phase(work) -> tuple[dict, int]:
+    """Phase 7b: one partition at the broker's defaults (4+2, 1 MiB
+    blocks, flush at 256 KiB or 200 ms, rotation at 64 MiB) takes
+    MQ_BYTES of 1 KB records at MQ_RATE from the main thread while a
+    flusher thread applies the policy every 100 ms; closed, then
+    recovered by a fresh partition; then each crash window, in a child.
+    Returns (result, launches)."""
+    from seaweedfs_tpu_torch.ec import load_stream_journal, stream_summary
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+    from seaweedfs_tpu_torch.ops import rs_kernels
+
+    root = os.path.join(work, "mq")
+    rec_bytes = mq_record_bytes()
+    n = MQ_BYTES // rec_bytes
+    keys, values = mq_source(n)
+    ts0 = time.time_ns()
+    pub = mq_publish(root, "omb", n, keys, values, ts0)
+    ctx, backend, calls, t_append = pub["ctx"], pub["backend"], pub["calls"], pub["t_append"]
+    append_s, t_close, t_end, encoders = pub["append_s"], pub["t_close"], pub["t_end"], pub["encoders"]
     launches = rs_kernels.LAUNCHES["gf2_apply"]
     masked = rs_kernels.MASKED["gf2_apply"]
     st = dict(backend.stage_seconds)
@@ -1523,6 +1562,332 @@ def mq_phase(work) -> tuple[dict, int]:
     }, total_launches
 
 
+# -- 9. the flight recorder, armed, over every path ---------------------------------
+
+TRACE_READS = 20  # cold degraded reads of shard DEGRADED
+TRACE_STREAM_BYTES = 32 << 20  # a phase 7a stream of this size
+TRACE_MQ_FLUSHES = 4  # the phase 7b partition runs for at least this many flushes
+TRACE_MQ_SECONDS = 2.0  # of 7b's traffic: 7b's flushes start 207-266 ms apart
+TRACE_TOL_S = 0.05  # clock-read ordering slack of the span invariants
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_exposition(text: str) -> dict:
+    """Every sample of a Prometheus text exposition: {(name, sorted
+    (label, value) pairs): value}. Raises on a line that does not lex."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        m = _SAMPLE.match(ln)
+        if m is None:
+            raise AssertionError(f"the registry rendered an unparseable line: {ln!r}")
+        labels = tuple(sorted(
+            (k, v.replace("\\n", "\n").replace('\\"', '"').replace("\\\\", "\\"))
+            for k, v in _LABEL.findall(m.group(2) or "")
+        ))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def series(parsed: dict, name: str, label: str) -> dict:
+    """{label value: sample value} of one single-label metric."""
+    return {dict(lab)[label]: v for (n, lab), v in parsed.items() if n == name}
+
+
+def walk(doc):
+    yield doc
+    for child in doc["children"]:
+        yield from walk(child)
+
+
+def check_tree(root: dict) -> None:
+    """The span invariants of the JAX package's tests/test_trace.py, on
+    every node: one trace id, every node inside its root's wall, every
+    stage but queue_wait (summed over two threads) no longer than its
+    node, every stage counted."""
+    lo = root["start_ts"] - TRACE_TOL_S
+    hi = root["start_ts"] + root["duration_s"] + TRACE_TOL_S
+    for node in walk(root):
+        if node["trace_id"] != root["trace_id"] or node["duration_s"] < 0.0 \
+                or node["start_ts"] < lo or node["start_ts"] + node["duration_s"] > hi:
+            raise AssertionError(f"span {node['op']} lies outside its root {root['op']}")
+        for name, acc in node["stages"].items():
+            if acc["count"] < 1 or (name != "queue_wait"
+                                    and acc["seconds"] > node["duration_s"] + TRACE_TOL_S):
+                raise AssertionError(f"stage {name} of {node['op']} exceeds its span: {acc}")
+
+
+def device_stages(node: dict, launches: int, what: str) -> None:
+    """The node's h2d_dispatch and device_drain each counted once per
+    launch, on the card."""
+    for s in ("h2d_dispatch", "device_drain"):
+        acc = node["stages"].get(s, {"count": 0, "chip": ""})
+        if acc["count"] != launches or acc["chip"] != "cuda:0":
+            raise AssertionError(f"{what}: {s} counted {acc['count']} on {acc['chip']!r} "
+                                 f"for {launches} launches on cuda:0")
+
+
+def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq_solo) -> tuple[dict, dict]:
+    """Phase 9: the EC paths once more with the flight recorder armed
+    (utils/trace.py), in `work`/trace (hard links to the volume's .dat
+    and .idx), each output checked sha256-identical to its disarmed
+    counterpart: encode (in turns with disarmed encodes: the tracer's
+    cost), rebuild of LOST, TRACE_READS cold degraded reads of DEGRADED
+    (then the .heat sidecar checked and read back by a fresh mount), a
+    leaf repair of one rotten leaf, decode, a TRACE_STREAM_BYTES stream
+    and phase 7b's partition for at least TRACE_MQ_FLUSHES flushes. Then
+    every tree's invariants, one root per op (`sw_ec_traces_total`
+    alike), device stages counted per launch on cuda:0, overlap
+    efficiency in [0, 1], the registry's rendering and the leaf-repair
+    counter, and the Chrome trace. Returns (result, launches by kernel)."""
+    import collections
+
+    from seaweedfs_tpu_torch.ec import (
+        BitrotProtection, EcVolume, TorchBackend, VolumeInfo, ec_decode_volume, ec_encode_volume,
+        rebuild_ec_files, scrub_ec_volume,
+    )
+    from seaweedfs_tpu_torch.ec.decoder import find_dat_file_size
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.utils import metrics, trace
+
+    tdir = os.path.join(work, "trace")
+    tbase = os.path.join(tdir, "1")
+    shard = {i: tbase + ctx.to_ext(i) for i in range(ctx.total)}
+    launches = dict.fromkeys(("gf2_apply", "gf2_apply_planes"), 0)
+    expected = collections.Counter()  # root op -> roots this phase must record
+    lists = lambda pr: (pr.shard_sizes, pr.shard_crcs, pr.leaf_size, pr.shard_leaf_crcs)  # noqa: E731
+
+    def counted() -> dict:
+        got = {k: rs_kernels.LAUNCHES[k] for k in launches}
+        for k, v in got.items():
+            launches[k] += v
+        return got
+
+    reb_batches = -(-prot.shard_sizes[0] // DEFAULT_BATCH)
+    before = parse_exposition(metrics.REGISTRY.render().decode())
+    trace.configure(enabled=False, ring_size=1024, slow_op_s=0.0)
+    trace.reset()
+    try:
+        # -- encode, disarmed and armed in turns ---------------------------
+        walls: dict = {"disarmed": [], "armed": []}
+        for armed in (False, True, True, False):
+            trace.configure(enabled=armed)
+            rs_kernels.reset_launches()
+            t0 = time.perf_counter()
+            ec_encode_volume(tbase, ctx, backend=TorchBackend(ctx))
+            walls["armed" if armed else "disarmed"].append(time.perf_counter() - t0)
+            if counted()["gf2_apply"] != n_batches:
+                raise AssertionError(f"encode launched {rs_kernels.LAUNCHES} for {n_batches} batches")
+            if lists(BitrotProtection.load(tbase + ".ecsum")) != lists(prot):
+                raise AssertionError("phase 9's encode gives other CRC lists than phase 4's")
+            if armed:
+                expected["ec.encode_volume"] += 1
+                for i in range(ctx.total):
+                    if sha256(shard[i]) != digests[i]:
+                        raise AssertionError(f"armed encode: shard {i} differs from phase 4's")
+        trace.configure(enabled=True)
+
+        # -- rebuild -------------------------------------------------------
+        for i in LOST:
+            os.unlink(shard[i])
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        if rebuild_ec_files(tbase, backend=TorchBackend(ctx)) != list(LOST):
+            raise AssertionError("armed rebuild regenerated other shards")
+        reb_s = time.perf_counter() - t0
+        if counted()["gf2_apply"] != reb_batches or any(sha256(shard[i]) != digests[i] for i in LOST):
+            raise AssertionError(f"armed rebuild: {rs_kernels.LAUNCHES}, or a shard differs")
+        expected["ec.rebuild"] += 1
+
+        # -- cold degraded reads, and the .heat sidecar ------------------------
+        reads = degraded_records(records, dat_size)[:TRACE_READS]
+        backend = TorchBackend(ctx, impl="cuda_planes")
+        src_fd = os.open(base + ".dat.orig", os.O_RDONLY)
+        ev = EcVolume(tdir, 1, backend=backend)
+        try:
+            if (ev.bytes_read, ev.bytes_reconstructed) != (0, 0):
+                raise AssertionError("a fresh mount started with heat")
+            ev.unmount_shards([DEGRADED])
+            rs_kernels.reset_launches()
+            t0 = time.perf_counter()
+            for rec in reads:
+                if ev.read_needle(rec[0], cookie=rec[1]).data != os.pread(src_fd, rec[3], rec[2] + 20):
+                    raise AssertionError(f"armed degraded read of needle {rec[0]:x} differs")
+            reads_s = time.perf_counter() - t0
+            heat = (ev.bytes_read, ev.bytes_reconstructed)
+            loads = ev.interval_cache.loads
+        finally:
+            ev.close()
+            os.close(src_fd)
+        if counted()["gf2_apply_planes"] != loads or not heat[1]:
+            raise AssertionError(f"armed reads: {rs_kernels.LAUNCHES} for {loads} cache misses")
+        expected["ec.degraded_read"] += sum(
+            1 for rec in reads for sid, _, _ in needle_intervals(rec, dat_size) if sid == DEGRADED)
+        with open(tbase + ".heat") as f:
+            blob = json.load(f)
+        gen = VolumeInfo.load(tbase + ".vif").encode_ts_ns
+        if blob != {"gen": gen, "read_bytes": heat[0], "reconstructed_bytes": heat[1]}:
+            raise AssertionError(f".heat holds {blob}, the reads counted {heat} at generation {gen}")
+        ev = EcVolume(tdir, 1, backend=backend)
+        remount = (ev.bytes_read, ev.bytes_reconstructed)
+        ev.close()
+        if remount != heat:
+            raise AssertionError(f"a fresh mount read {remount} back from .heat, not {heat}")
+
+        # -- one rotten leaf of shard LEAF_DATA, repaired in place ----------------
+        tprot = BitrotProtection.load(tbase + ".ecsum")
+        leaf = len(tprot.shard_leaf_crcs[LEAF_DATA]) // 5
+        flip(shard[LEAF_DATA], leaf * tprot.leaf_size + 500)
+        repaired0 = series(before, "sw_ec_leaf_repairs_total", "outcome").get("repaired", 0.0)
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = scrub_ec_volume(tbase, ctx, backend=TorchBackend(ctx), repair=True)
+        scrub_s = time.perf_counter() - t0
+        if r.leaf_repaired != {LEAF_DATA: [leaf]} or r.quarantined or r.rebuilt or r.refused \
+                or counted()["gf2_apply"] != 1 or sha256(shard[LEAF_DATA]) != digests[LEAF_DATA]:
+            raise AssertionError(f"armed leaf repair: {r}, {rs_kernels.LAUNCHES}")
+        expected["ec.leaf_repair"] += 1
+
+        # -- decode, shard DEGRADED removed -------------------------------------
+        os.unlink(shard[DEGRADED])
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        if not ec_decode_volume(tbase, ctx, backend=TorchBackend(ctx, impl="cuda_planes")):
+            raise AssertionError("armed decode found no live needle")
+        dec_s = time.perf_counter() - t0
+        if counted()["gf2_apply_planes"] != reb_batches or sha256(shard[DEGRADED]) != digests[DEGRADED]:
+            raise AssertionError(f"armed decode: {rs_kernels.LAUNCHES}, or shard {DEGRADED} differs")
+        live = find_dat_file_size(tbase, 3)
+        if os.path.getsize(tbase + ".dat") != live or sha256(tbase + ".dat") != sha256(base + ".dat.orig", live):
+            raise AssertionError("armed decode: the .dat differs from the original")
+        expected["ec.decode"] += 1
+
+        # -- a phase 7a stream, and its batch encode ------------------------------
+        stream, _ = stream_phase(work, base + ".dat.orig", ctx, TRACE_STREAM_BYTES)
+        launches["gf2_apply"] += stream["launches"] + stream["batch_launches"]
+        expected["ec.stream_encode"] += 1
+        expected["ec.encode"] += 1  # write_ec_files alone is its own root
+
+        # -- phase 7b's partition at its own traffic ----------------------------
+        n = int(MQ_RATE * TRACE_MQ_SECONDS)
+        keys, values = mq_source(n)
+        ts0 = time.time_ns()
+        mq_root = os.path.join(work, "mq-trace")
+        pub = mq_publish(mq_root, "traced", n, keys, values, ts0)
+        mq_launches = counted()["gf2_apply"]
+        if len(pub["calls"]) < TRACE_MQ_FLUSHES:
+            raise AssertionError(f"the traced partition flushed {len(pub['calls'])} times")
+        gens = gens_of(os.path.join(mq_root, "bench", "traced", "0000"))
+        expected["ec.stream_encode"] += len(gens)
+        rs_kernels.reset_launches()
+        recs = PartitionParity(mq_root, "bench", "traced", 0).recover()
+        counted()
+        if len(recs) != n:
+            raise AssertionError(f"the traced partition replayed {len(recs)} of {n} records")
+        check_records(recs, keys, values, ts0)
+        del recs
+        shutil.rmtree(mq_root)
+    finally:
+        trace.configure(enabled=False)
+    docs = trace.traces()
+    trace.reset()
+
+    # -- the recorder's own checks ---------------------------------------------
+    got = collections.Counter(d["op"] for d in docs)
+    after = parse_exposition(metrics.REGISTRY.render().decode())
+    counted_roots = {op: v - series(before, "sw_ec_traces_total", "op").get(op, 0.0)
+                     for op, v in series(after, "sw_ec_traces_total", "op").items()}
+    if got != expected or {op: v for op, v in counted_roots.items() if v} != dict(expected):
+        raise AssertionError(f"roots {dict(got)}, sw_ec_traces_total moved {counted_roots}, "
+                             f"expected {dict(expected)}")
+    if series(after, "sw_ec_leaf_repairs_total", "outcome").get("repaired", 0.0) - repaired0 != 1:
+        raise AssertionError("sw_ec_leaf_repairs_total{outcome=repaired} did not count the one range")
+    by_op = collections.defaultdict(list)
+    for d in docs:
+        check_tree(d)
+        by_op[d["op"]].append(d)
+    for d in by_op["ec.encode_volume"]:
+        (child,) = d["children"]
+        device_stages(child, n_batches, "encode")
+    device_stages(by_op["ec.rebuild"][0], reb_batches, "rebuild")
+    device_stages(by_op["ec.decode"][0]["children"][0], reb_batches, "decode's rebuild")
+    device_stages(by_op["ec.encode"][0], stream["batch_launches"], "the stream's batch encode")
+    streams = sorted(by_op["ec.stream_encode"], key=lambda d: d["start_ts"])
+    device_stages(streams[0], stream["launches"], "stream")
+    mq_docs = streams[1:]
+    mq_stages = collections.defaultdict(lambda: [0.0, 0])
+    for d in mq_docs:
+        for s, acc in d["stages"].items():
+            mq_stages[s][0] += acc["seconds"]
+            mq_stages[s][1] += acc["count"]
+    for s in ("h2d_dispatch", "device_drain"):
+        chips = {d["stages"][s]["chip"] for d in mq_docs if s in d["stages"]}
+        if mq_stages[s][1] != mq_launches or chips != {"cuda:0"}:
+            raise AssertionError(f"partition: {s} counted {mq_stages[s][1]} on {chips} "
+                                 f"for {mq_launches} launches on cuda:0")
+    effs = {}
+    for d in docs:
+        for node in walk(d):
+            e = trace.overlap_efficiency(node)
+            if e is not None:
+                if not 0.0 <= e <= 1.0:
+                    raise AssertionError(f"overlap efficiency {e} of {node['op']}")
+                effs.setdefault(node["op"], []).append(e)
+
+    def summary(nodes: list) -> dict:
+        stages: dict = {}
+        for node in nodes:
+            for s, acc in node["stages"].items():
+                t = stages.setdefault(s, {"seconds": 0.0, "count": 0})
+                t["seconds"] += acc["seconds"]
+                t["count"] += acc["count"]
+        e = [x for x in (trace.overlap_efficiency(nd) for nd in nodes) if x is not None]
+        return {"spans": len(nodes), "wall_s": sum(nd["duration_s"] for nd in nodes), "stages": stages,
+                "overlap_efficiency": float(np.mean(e)) if e else None}
+
+    ops = {}
+    for d in docs:
+        for node in walk(d):
+            key = d["op"] if node is d else f"{d['op']}/{node['op']}"
+            ops.setdefault(key, []).append(node)
+    # the stream's own span apart from the partition's generations
+    ops["ec.stream_encode"] = streams[:1]
+    ops["ec.stream_encode (7b partition)"] = mq_docs
+    flushes = len(pub["calls"]) + 1  # and the close's
+    flush_wall = sum(e - b for b, e in pub["calls"]) + pub["t_end"] - pub["t_close"]
+    named = sum(mq_stages[s][0] for s in ("write_sink", "parity_update", "fsync_publish"))
+    chrome = trace.chrome_trace(docs=docs)
+    path = os.path.join(work, "phase9_trace.json")
+    with open(path, "w") as f:
+        json.dump(chrome, f)
+    with open(path) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    return {
+        "ops": {k: summary(v) for k, v in sorted(ops.items())},
+        "encode": {"armed_s": walls["armed"], "disarmed_s": walls["disarmed"],
+                   "armed_over_disarmed": sum(walls["armed"]) / sum(walls["disarmed"])},
+        "rebuild_s": reb_s, "reads": len(reads), "reads_s": reads_s, "read_cache_misses": loads,
+        "heat": {"read_bytes": heat[0], "reconstructed_bytes": heat[1], "remount": list(remount)},
+        "leaf_repair_scrub_s": scrub_s, "decode_s": dec_s,
+        "stream": {k: stream[k] for k in ("bytes", "flushes", "launches", "stream_seconds",
+                                          "time_to_durable_parity_p50_ms")},
+        "partition": {
+            "records": n, "flushes": flushes, "generations": len(gens), "launches": mq_launches,
+            "flush_ms_mean": flush_wall / flushes * 1e3,
+            "stage_ms_per_flush": {s: v[0] / flushes * 1e3 for s, v in sorted(mq_stages.items())},
+            "unnamed_share_of_flush_wall": 1.0 - named / flush_wall,
+            "phase_7b_solo_flush": mq_solo,
+        },
+        "overlap_efficiency": {op: [min(v), max(v)] for op, v in sorted(effs.items())},
+        "roots": dict(got), "registry_samples": len(after),
+        "chrome_trace": {"path": path, "events": n_events},
+    }, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1611,6 +1976,9 @@ def main() -> int:
               f"stage seconds {json.dumps(enc_stages)}; native plane {json.dumps(enc_plane)}")
 
         digests = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
+        os.makedirs(os.path.join(work, "trace"))  # phase 9's inputs: the same .dat and .idx
+        for ext in (".dat", ".idx"):
+            os.link(base + ext, os.path.join(work, "trace", "1" + ext))
         py_plane = python_plane_encode(work, base, ctx, digests, prot)
         print("encode, native plane against Python plane (SEAWEED_EC_NATIVE=0) on the same .dat: "
               "14 shards sha256-identical, block and leaf CRC lists equal: " + json.dumps({
@@ -1698,17 +2066,30 @@ def main() -> int:
               "rewritten, recovery launches == stripes; each crash window recovered dense "
               f"past the child's last flush): {json.dumps(mq)}")
         print(f"phase 7 (7a and 7b): {time.perf_counter() - t0:.3f} s")
+
+        # -- 9. the flight recorder, armed ---------------------------------------------
+        t0 = time.perf_counter()
+        traced, trace_launches = trace_phase(work, base, ctx, records, dat_size, digests, prot,
+                                             n_batches, mq["solo_flush"])
+        print("flight recorder armed (every output sha256-identical to its disarmed counterpart, "
+              "one root per op, span invariants hold, device stages == launches on cuda:0, "
+              f"overlap efficiency in [0, 1], registry renders, .heat read back): {json.dumps(traced)}")
+        print(f"phase 9: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     main_row = rows["encode 10x1MiB m=4"]
     read_row = prows["degraded read 10x1MiB m=1"]
     kernels = []
-    for name, replaces, launches, row, all_rows in (
+    for name, replaces, by_phase, row, all_rows in (
         ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55",
-         enc_launches + reb_launches + scrub_launches + stream_launches + mq_launches,
+         {"4 encode": enc_launches, "5 rebuild": reb_launches, "6b scrub": scrub_launches,
+          "7a stream": stream_launches, "7b partition": mq_launches,
+          "9 flight recorder": trace_launches["gf2_apply"]},
          main_row, rows),
-        ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257", read_launches + dec_launches,
+        ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
+         {"6 reads": read_launches, "7 decode": dec_launches,
+          "9 flight recorder": trace_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({
@@ -1716,7 +2097,8 @@ def main() -> int:
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/gf2_apply.cu",
             "replaces": replaces,
-            "launches": launches,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": max(r["max_abs_err"] for r in all_rows.values()),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

@@ -90,7 +90,13 @@ class _Pending:
 class _BackendBase:
     """What every backend shares: the generator matrix, reconstruct and
     verify over `apply` and `encode`, the synchronous staged hooks (a
-    device backend overrides them) and the stage accounting."""
+    device backend overrides them) and the stage accounting.
+
+    `chip_label` is the `chip` label of the flight recorder's device
+    stages (utils/trace.py): the torch device string of a
+    `TorchBackend`, "" for a backend on no device."""
+
+    chip_label = ""
 
     def __init__(self, ctx: ECContext):
         self.ctx = ctx
@@ -211,6 +217,7 @@ class TorchBackend(_BackendBase):
         else:
             raise ECError(f"TorchBackend runs on cuda or cpu, not {self.device}")
         super().__init__(ctx)
+        self.chip_label = str(self.device)
         self._rs = RSTorch(
             ctx.data_shards, ctx.parity_shards, impl=impl, device=self.device
         )

@@ -6,8 +6,10 @@ weed/storage/erasure_coding/ec_decoder.go): .ecj tombstones folded into
 entry, de-striping that honours the encode-time layout, and
 temp+fsync+rename+dir-fsync publication throughout. A missing or rotten
 data shard is regenerated first by the port's `rebuild_ec_files`, on the
-backend the caller passes. The fault points and the flight recorder of
-the JAX package are not part of the port yet.
+backend the caller passes. The fault points of the JAX package are not
+part of the port yet. Flight recorder (utils/trace.py): the root span
+`ec.decode` holds the rebuild's `ec.rebuild` span and the de-stripe's
+stages (`disk_read`, `write_sink`, `queue_wait`, `fsync_publish`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..storage.types import (
     actual_offset,
     padded_record_size,
 )
+from ..utils import trace
 from ..utils.fs import fsync_dir
 from . import native_io
 from .context import DEFAULT_EC_CONTEXT, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, ECError
@@ -231,14 +234,18 @@ def write_dat_file(
                     mv = mv[out.write(mv) :]
                 record("write", time.perf_counter() - t0)
 
+            sp = trace.current()  # the ec.decode root, when armed
             run_pipeline(
                 produce, lambda chunk: chunk, consume,
                 describe="ec decode pipeline", record=record,
+                span=sp, stage_names=("disk_read", None, "write_sink"),
             )
             t0 = time.perf_counter()
-            os.fsync(out.fileno())
-        os.replace(tmp, dat_path)
-        fsync_dir(dat_path)
+            with trace.stage(sp, "fsync_publish"):
+                os.fsync(out.fileno())
+        with trace.stage(sp, "fsync_publish"):
+            os.replace(tmp, dat_path)
+            fsync_dir(dat_path)
         record("fsync_publish", time.perf_counter() - t0)
     except BaseException:
         if os.path.exists(tmp):
@@ -272,15 +279,20 @@ def ec_decode_volume(base: str, ctx=None, backend=None, stages: dict | None = No
     vi = VolumeInfo.maybe_load(base + ".vif") or VolumeInfo()
     if ctx is None:
         ctx = vi.ec_ctx or DEFAULT_EC_CONTEXT
-    rebuild_ecx_file(base)
-    if not has_live_needles(base):
-        return False
-    write_idx_from_ecx(base)
-    dat_size = find_dat_file_size(base, vi.version)
-    shard_paths = [base + ctx.to_ext(i) for i in range(ctx.data_shards)]
-    missing_ids = [i for i, p in enumerate(shard_paths) if not os.path.exists(p)]
-    t0 = time.perf_counter()
-    rebuild_ec_files(base, ctx, backend=backend, only_shards=missing_ids)
-    _recorder(stages)("rebuild", time.perf_counter() - t0)
-    write_dat_file(base, dat_size, vi.dat_file_size, shard_paths, stages=stages)
-    return True
+    sp = trace.start("ec.decode", name=os.path.basename(base), base=base)
+    try:
+        with trace.activate(sp):
+            rebuild_ecx_file(base)
+            if not has_live_needles(base):
+                return False
+            write_idx_from_ecx(base)
+            dat_size = find_dat_file_size(base, vi.version)
+            shard_paths = [base + ctx.to_ext(i) for i in range(ctx.data_shards)]
+            missing_ids = [i for i, p in enumerate(shard_paths) if not os.path.exists(p)]
+            t0 = time.perf_counter()
+            rebuild_ec_files(base, ctx, backend=backend, only_shards=missing_ids)
+            _recorder(stages)("rebuild", time.perf_counter() - t0)
+            write_dat_file(base, dat_size, vi.dat_file_size, shard_paths, stages=stages)
+            return True
+    finally:
+        trace.finish(sp)

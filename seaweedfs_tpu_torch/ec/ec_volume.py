@@ -13,8 +13,13 @@ backend; the .ecj tombstones; shard unmount, reopen and refresh; the
 before any shard fd opens (ec/repair_journal.py); the
 `ec.volume.shard_read` fault point around the shard pread; sibling reads
 through the native plane (ec/native_io.py) and the parallel remote
-sibling fetch. Not ported yet (ROADMAP): device-queue admission, trace
-spans, the `.heat` sidecar.
+sibling fetch; the `.heat` sidecar, which carries `bytes_read` and
+`bytes_reconstructed` across a close and a remount (JSON keys `gen`,
+`read_bytes`, `reconstructed_bytes`, fenced by the encode generation,
+the JAX package's file); the flight recorder's `ec.degraded_read` span
+per reconstructed interval (stages `sibling_read`, `crc_verify`,
+`reconstruct`, or the staged pipeline's; events `cache_hit` and
+`singleflight_wait`). Not ported yet (ROADMAP): device-queue admission.
 
 `stage_seconds` accumulates the wall time of every degraded read's
 stages: "sibling_read" (preads of the sources), "crc_verify" (sidecar
@@ -24,6 +29,8 @@ own `stage_seconds` splits it into pin, h2d, kernel and d2h).
 
 from __future__ import annotations
 
+import contextvars
+import json
 import logging
 import os
 import struct
@@ -38,6 +45,7 @@ from .. import faults
 from ..storage.needle import CrcError, Needle
 from ..storage.needle_map import SortedFileNeedleMap
 from ..storage.types import actual_offset
+from ..utils import trace
 from ..utils.chunk_cache import ChunkCache
 from . import native_io
 from .backend import _BackendBase, _decode_coeffs, get_backend
@@ -167,7 +175,9 @@ class EcVolume:
             self.interval_cache: ChunkCache | None = interval_cache
         else:
             self.interval_cache = (
-                ChunkCache(interval_cache_bytes) if interval_cache_bytes > 0 else None
+                ChunkCache(interval_cache_bytes, tier="ec_interval")
+                if interval_cache_bytes > 0
+                else None
             )
         self._shard_gen: dict[int, int] = {}
         self._coeff_cache: dict[tuple, np.ndarray] = {}
@@ -175,6 +185,19 @@ class EcVolume:
         # reconstruction
         self.bytes_read = 0
         self.bytes_reconstructed = 0
+        # The heat counters survive a clean close: the sidecar is fenced
+        # by the encode generation, so counters of a volume re-encoded
+        # under the same id are never resurrected; absent or corrupt, the
+        # volume starts cold.
+        self._heat_path = self.base + ".heat"
+        try:
+            with open(self._heat_path, encoding="utf-8") as f:
+                blob = json.load(f)
+            if blob.get("gen") == self.encode_ts_ns:
+                self.bytes_read = int(blob.get("read_bytes", 0))
+                self.bytes_reconstructed = int(blob.get("reconstructed_bytes", 0))
+        except (OSError, ValueError):
+            pass
         self._stats_lock = threading.Lock()
         self.stage_seconds = dict.fromkeys(READ_STAGES, 0.0)
 
@@ -279,6 +302,19 @@ class EcVolume:
         With a v2 sidecar a needle read reconstructs only the 64 KiB
         leaves covering its extent. Verified output lands in the
         interval cache."""
+        # one flight-recorder root per degraded-read op
+        sp = trace.start(
+            "ec.degraded_read",
+            name=f"v{self.volume_id}.{shard_id:02d}",
+            volume=self.volume_id, shard=shard_id, offset=offset, size=size,
+        )
+        try:
+            with trace.activate(sp):
+                return self._recover_interval_traced(shard_id, offset, size, sp)
+        finally:
+            trace.finish(sp)
+
+    def _recover_interval_traced(self, shard_id: int, offset: int, size: int, sp) -> bytes:
         prot = self._bitrot()
         if prot is None or not (0 <= shard_id < len(prot.shard_crcs)):
             return self._reconstruct_range(shard_id, offset, size)
@@ -294,7 +330,8 @@ class EcVolume:
 
         def range_ok(sid: int, data) -> bool:
             t0 = time.perf_counter()
-            ok = prot.verify_range(sid, lo, data)
+            with trace.stage(sp, "crc_verify"):
+                ok = prot.verify_range(sid, lo, data)
             self._add_stage("crc_verify", time.perf_counter() - t0)
             return ok
 
@@ -311,7 +348,11 @@ class EcVolume:
             return build()[offset - lo : offset - lo + size]
         # N concurrent misses on one extent run build() once; a leader's
         # refusal reaches every waiter. Only verified bytes are cached.
-        data, _ = self.interval_cache.get_or_load(key, build)
+        data, src = self.interval_cache.get_or_load(key, build)
+        if src == "hit":
+            trace.event(sp, "cache_hit", lo=lo, hi=hi)
+        elif src == "wait":
+            trace.event(sp, "singleflight_wait", lo=lo, hi=hi)
         return data[offset - lo : offset - lo + size]
 
     def _reconstruct_range(
@@ -325,17 +366,19 @@ class EcVolume:
         siblings, when the local ones are too few, are fetched in
         parallel, as the reference does: remote fetches set the latency."""
         k = self.ctx.data_shards
+        sp = trace.current()  # the ec.degraded_read root, when armed
         sources: dict[int, np.ndarray] = {}
         use_native = native_io.enabled() and not faults.active()
         local = [(i, fd) for i, fd in self.shard_fds.items() if i != shard_id]
         for i, fd in local:
             t0 = time.perf_counter()
             try:
-                if use_native:
-                    got = np.empty(size, dtype=np.uint8)
-                    native_io.read_exact_into(fd, got, offset)
-                else:
-                    got = os.pread(fd, size, offset)
+                with trace.stage(sp, "sibling_read"):
+                    if use_native:
+                        got = np.empty(size, dtype=np.uint8)
+                        native_io.read_exact_into(fd, got, offset)
+                    else:
+                        got = os.pread(fd, size, offset)
             except OSError:  # short read (a truncated shard) or a closed fd
                 continue
             finally:
@@ -346,7 +389,7 @@ class EcVolume:
                 if len(sources) == k:
                     break
         if len(sources) < k and self.remote_reader is not None:
-            self._fetch_remote(shard_id, offset, size, sources, source_ok)
+            self._fetch_remote(shard_id, offset, size, sources, source_ok, sp)
         if len(sources) < k:
             raise ECError(
                 f"shard {shard_id} unavailable and only {len(sources)} "
@@ -356,9 +399,10 @@ class EcVolume:
             sources = {i: sources[i] for i in sorted(sources)[:k]}
         t0 = time.perf_counter()
         if size >= 2 * STAGED_RECOVERY_BATCH:
-            out = self._reconstruct_staged(shard_id, sources, size)
+            out = self._reconstruct_staged(shard_id, sources, size, sp)
         else:
-            rec = self.backend.reconstruct(sources, want=[shard_id])
+            with trace.stage(sp, "reconstruct"):
+                rec = self.backend.reconstruct(sources, want=[shard_id])
             out = np.asarray(rec[shard_id], dtype=np.uint8).tobytes()
         self._add_stage("reconstruct", time.perf_counter() - t0)
         with self._stats_lock:
@@ -366,13 +410,15 @@ class EcVolume:
         return out
 
     def _fetch_remote(
-        self, shard_id: int, offset: int, size: int, sources: dict, source_ok
+        self, shard_id: int, offset: int, size: int, sources: dict, source_ok, sp
     ) -> None:
         """Fetch the siblings that are not local from `remote_reader`, at
         most 8 at once, into `sources` until k of them are there. A hung
         peer does not hold the read: it returns as soon as k sources
-        exist. "sibling_read" times only the blocked waits; `source_ok`
-        times its own CRC checks as "crc_verify"."""
+        exist. "sibling_read" times only the submits and the blocked
+        waits; `source_ok` times its own CRC checks as "crc_verify".
+        Each fetch runs in a copy of the caller's context, so it sees the
+        active span and request id."""
         k = self.ctx.data_shards
         missing = [i for i in range(self.ctx.total) if i != shard_id and i not in sources]
         if not missing:
@@ -383,10 +429,14 @@ class EcVolume:
 
         ex = ThreadPoolExecutor(max_workers=min(len(missing), 8))
         try:
-            futures = {ex.submit(fetch, i) for i in missing}
+            with trace.stage(sp, "sibling_read"):
+                futures = {
+                    ex.submit(contextvars.copy_context().run, fetch, i) for i in missing
+                }
             while futures and len(sources) < k:
                 t0 = time.perf_counter()
-                done, futures = wait(futures, return_when=FIRST_COMPLETED)
+                with trace.stage(sp, "sibling_read"):
+                    done, futures = wait(futures, return_when=FIRST_COMPLETED)
                 self._add_stage("sibling_read", time.perf_counter() - t0)
                 for f in done:
                     i, got = f.result()
@@ -398,7 +448,7 @@ class EcVolume:
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
 
-    def _reconstruct_staged(self, shard_id: int, sources: dict, size: int) -> bytes:
+    def _reconstruct_staged(self, shard_id: int, sources: dict, size: int, sp) -> bytes:
         """Wide extents: the decode-coefficient apply runs per column
         batch through run_staged_apply, so H2D, kernel and D2H overlap
         (the rebuild's shape). Batches are stacked one at a time, never
@@ -423,6 +473,7 @@ class EcVolume:
         run_staged_apply(
             self.backend, coeffs, produce, consume,
             describe="ec degraded reconstruction",
+            span=sp, read_stage="stage_batch",
         )
         return out.tobytes()
 
@@ -525,8 +576,27 @@ class EcVolume:
                     os.close(fd)
             return len(self.shard_fds)
 
+    def _save_heat(self) -> None:
+        """Persist the heat counters beside the volume (tmp + atomic
+        rename); advisory, so a failure never fails the close."""
+        try:
+            tmp = self._heat_path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(
+                    {
+                        "gen": self.encode_ts_ns,
+                        "read_bytes": int(self.bytes_read),
+                        "reconstructed_bytes": int(self.bytes_reconstructed),
+                    },
+                    f,
+                )
+            os.replace(tmp, self._heat_path)
+        except OSError:
+            pass
+
     def close(self) -> None:
         with self._lock:
+            self._save_heat()
             for fd in self.shard_fds.values():
                 os.close(fd)
             self.shard_fds.clear()

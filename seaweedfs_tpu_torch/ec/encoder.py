@@ -18,6 +18,11 @@ the next batch's extents hinted for readahead first, and the fused
 native sink writes the 14 shard streams and rolls their CRCs. With
 SEAWEED_EC_NATIVE=0, or an armed fault registry, a preadv loop and
 `PyShardSink` give the same bytes.
+
+Flight recorder (utils/trace.py): `ec_encode_volume` is the root span
+`ec.encode_volume` (stages `index_sort`, `fsync_publish`) over the
+pipeline's `ec.encode` span (`disk_read`, `h2d_dispatch`,
+`device_drain`, `write_sink`, `queue_wait`, `fsync_publish`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 
 from .. import faults
 from ..storage.needle_map import MemDb
+from ..utils import trace
 from ..utils.fs import fsync_dir
 from . import native_io
 from .backend import _BackendBase, get_backend
@@ -111,6 +117,12 @@ def write_ec_files(
 
     dat_fd = os.open(base + ".dat", os.O_RDONLY)
     outputs: list = []
+    # a child of ec_encode_volume's root; its own root for direct callers
+    sp = trace.start(
+        "ec.encode", name=os.path.basename(base), base=base,
+        batch_size=batch_size,
+    )
+    chip = getattr(backend, "chip_label", "")
     try:
         for i in range(total):
             # buffering=0: whole >= 1 MiB batches, where a userspace
@@ -143,15 +155,18 @@ def write_ec_files(
 
         def transform(data):
             # H2D + kernel launch, both asynchronous on a device
-            return data, backend.encode_staged(backend.to_device(data))
+            with trace.stage(sp, "h2d_dispatch", chip):
+                return data, backend.encode_staged(backend.to_device(data))
 
         def consume(item):
             data, handle = item
             # Blocks until this batch's parity is on the host; meanwhile
             # the calling thread dispatches the batches queued behind it.
-            parity = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
+            with trace.stage(sp, "device_drain", chip):
+                parity = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
             t0 = time.perf_counter()
-            sink.append_rows([*data, *parity])
+            with trace.stage(sp, "write_sink"):
+                sink.append_rows([*data, *parity])
             backend.add_stage("write", time.perf_counter() - t0)
             if pool is not None:
                 # the batch is written and its H2D copy long done: its
@@ -167,15 +182,19 @@ def write_ec_files(
             join_timeout=60.0 + 4.0 * batch_size / (16 << 20),
             describe="ec encode pipeline",
             record=backend.add_stage,
+            span=sp,
+            stage_names=("disk_read", None, None),
         )
         # Durability barrier before the sidecar may name these shards,
         # issued in parallel so the shard files drain concurrently.
-        with ThreadPoolExecutor(max_workers=len(outputs)) as ex:
-            list(ex.map(lambda f: os.fsync(f.fileno()), outputs))
+        with trace.stage(sp, "fsync_publish"):
+            with ThreadPoolExecutor(max_workers=len(outputs)) as ex:
+                list(ex.map(lambda f: os.fsync(f.fileno()), outputs))
     finally:
         os.close(dat_fd)
         for f in outputs:
             f.close()
+        trace.finish(sp)
     fsync_dir(base + ".dat")
     return sink.to_protection(ctx)
 
@@ -196,15 +215,24 @@ def ec_encode_volume(
     if not os.path.exists(base + ".idx"):
         raise ECError(f"{base}.idx not found")
     encode_ts_ns = time.time_ns()
-    write_sorted_file_from_idx(base)
-    prot = write_ec_files(base, ctx, backend, batch_size, leaf_size=leaf_size)
-    prot.generation = encode_ts_ns
-    prot.save(base + ".ecsum")
-    vi = VolumeInfo(
-        version=version,
-        ec_ctx=ctx,
-        dat_file_size=os.path.getsize(base + ".dat"),
-        encode_ts_ns=encode_ts_ns,
-    )
-    vi.save(base + ".vif")
-    return vi
+    # root span of the whole volume encode: the pipeline's ec.encode
+    # nests under it with the index sort and the sidecar publication
+    sp = trace.start("ec.encode_volume", name=os.path.basename(base), base=base)
+    try:
+        with trace.activate(sp):
+            with trace.stage(sp, "index_sort"):
+                write_sorted_file_from_idx(base)
+            prot = write_ec_files(base, ctx, backend, batch_size, leaf_size=leaf_size)
+            prot.generation = encode_ts_ns
+            with trace.stage(sp, "fsync_publish"):
+                prot.save(base + ".ecsum")
+                vi = VolumeInfo(
+                    version=version,
+                    ec_ctx=ctx,
+                    dat_file_size=os.path.getsize(base + ".dat"),
+                    encode_ts_ns=encode_ts_ns,
+                )
+                vi.save(base + ".vif")
+            return vi
+    finally:
+        trace.finish(sp)

@@ -5,7 +5,8 @@ Port of seaweedfs_tpu/ec/pipeline.py: `run_pipeline` (disk reads in a
 reader thread / H2D + kernel launch in the calling thread / D2H + shard
 writes with CRCs rolled in a writer thread), `run_staged_apply` without
 the per-chip scheduler, `FusedShardSink` (the native sink), `PyShardSink`
-and `make_shard_sink`. The flight recorder is not part of the port yet.
+and `make_shard_sink`. The flight recorder (utils/trace.py) tags each
+stage of a traced op's span, as in the JAX package.
 
 Shutdown discipline: both worker threads are JOINED before any
 caller-owned fd may be closed; on error the abort event stops the
@@ -26,16 +27,16 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 
 from .. import faults
-from ..utils import native
+from ..utils import native, trace
 from . import native_io
 from .bitrot import BitrotProtection, ShardChecksumBuilder
 from .context import BITROT_BLOCK_SIZE, ECContext, ECError
 
 
-def _timed_produce(record, produce):
+def _timed_produce(recorders, produce):
     """Wrap a producer generator so the time spent INSIDE it (disk reads)
-    is recorded per batch as "disk_read"; time blocked handing batches
-    downstream is not."""
+    goes to each `recorders` callable per batch; time blocked handing
+    batches downstream is not."""
 
     def wrapped():
         it = produce()
@@ -45,8 +46,21 @@ def _timed_produce(record, produce):
                 item = next(it)
             except StopIteration:
                 return
-            record("disk_read", _time.perf_counter() - t0)
+            dt = _time.perf_counter() - t0
+            for rec in recorders:
+                rec(dt)
             yield item
+
+    return wrapped
+
+
+def _traced_call(span, stage: str, fn):
+    def wrapped(item):
+        t0 = _time.perf_counter()
+        try:
+            return fn(item)
+        finally:
+            span.add_stage(stage, _time.perf_counter() - t0)
 
     return wrapped
 
@@ -60,6 +74,8 @@ def run_pipeline(
     join_timeout: float = 120.0,
     describe: str = "ec pipeline",
     record: Callable[[str, float], None] | None = None,
+    span=None,
+    stage_names: tuple = (None, None, None),
 ) -> None:
     """Run `produce()` items through `transform` then `consume` as three
     overlapped stages.
@@ -78,9 +94,26 @@ def run_pipeline(
     `record(stage, seconds)`, when given, receives the producer's time
     per batch as "disk_read"; the caller times the other stages inside
     its own closures.
+
+    `span` + `stage_names` attribute wall time to the flight recorder
+    (utils/trace.py): stage_names is (produce, transform, consume), and
+    a None name leaves that stage to the caller's own tags. Time blocked
+    on a FULL bounded queue is tagged "queue_wait", measured only when
+    the put actually blocks. span=None (the disarmed tracer) leaves
+    every closure untouched.
     """
+    recorders = []
     if record is not None:
-        produce = _timed_produce(record, produce)
+        recorders.append(lambda dt: record("disk_read", dt))
+    if span is not None:
+        if stage_names[0]:
+            recorders.append(lambda dt: span.add_stage(stage_names[0], dt))
+        if stage_names[1]:
+            transform = _traced_call(span, stage_names[1], transform)
+        if stage_names[2]:
+            consume = _traced_call(span, stage_names[2], consume)
+    if recorders:
+        produce = _timed_produce(recorders, produce)
     read_q: "_queue.Queue" = _queue.Queue(maxsize=queue_size)
     write_q: "_queue.Queue" = _queue.Queue(maxsize=queue_size)
     abort = _threading.Event()
@@ -89,13 +122,23 @@ def run_pipeline(
     def _put(q, item) -> bool:
         """Abort-aware put: never blocks forever on a full queue whose
         consumer has stopped."""
-        while True:
-            try:
-                q.put(item, timeout=0.2)
-                return True
-            except _queue.Full:
-                if abort.is_set():
-                    return False
+        try:
+            q.put_nowait(item)
+            return True
+        except _queue.Full:
+            pass
+        t0 = _time.perf_counter() if span is not None else 0.0
+        try:
+            while True:
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except _queue.Full:
+                    if abort.is_set():
+                        return False
+        finally:
+            if span is not None:
+                span.add_stage("queue_wait", _time.perf_counter() - t0)
 
     def reader():
         try:
@@ -173,6 +216,8 @@ def run_staged_apply(
     queue_size: int = 2,
     join_timeout: float = 120.0,
     describe: str = "ec staged apply",
+    span=None,
+    read_stage: str = "disk_read",
 ) -> None:
     """The staged device `apply` driver of rebuild: run_pipeline where
     the transform stage is `backend.apply_staged(coeffs,
@@ -184,20 +229,30 @@ def run_staged_apply(
     `produce()` yields `(tag, batch)` pairs; `consume(tag, out)` gets the
     tag back untouched. The backend's `add_stage` receives the wall time
     of the produce ("disk_read") and consume ("write") stages.
+
+    `span` is the op's flight-recorder span (utils/trace.py; None =
+    disarmed): the produce stage is tagged `read_stage` per batch, the
+    H2D upload + kernel launch "h2d_dispatch", the blocking to_host
+    "device_drain" (both labeled with the backend's chip), the consume
+    callback "write_sink" and bounded-queue backpressure "queue_wait".
     """
     coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
+    chip = getattr(backend, "chip_label", "")
 
     def transform(item):
         tag, batch = item
-        return tag, backend.apply_staged(coeffs, backend.to_device(batch))
+        with trace.stage(span, "h2d_dispatch", chip):
+            return tag, backend.apply_staged(coeffs, backend.to_device(batch))
 
     def drain(item):
         tag, handle = item
         # Blocks until the device result is ready; meanwhile the calling
         # thread keeps dispatching the batches queued behind it.
-        out = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
+        with trace.stage(span, "device_drain", chip):
+            out = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
         t0 = _time.perf_counter()
-        consume(tag, out)
+        with trace.stage(span, "write_sink"):
+            consume(tag, out)
         backend.add_stage("write", _time.perf_counter() - t0)
 
     run_pipeline(
@@ -208,6 +263,8 @@ def run_staged_apply(
         join_timeout=join_timeout,
         describe=describe,
         record=backend.add_stage,
+        span=span,
+        stage_names=(read_stage, None, None),
     )
 
 

@@ -3,9 +3,8 @@
 Port of seaweedfs_tpu/ec/rebuild.py (reference ec_encoder.go
 generateMissingEcFiles), with the three publish-seam fault points
 (`ec.rebuild.before_fsync`, `ec.rebuild.before_rename`,
-`ec.rebuild.after_rename`). Not ported yet (ROADMAP): the armed-registry
-byte path (the `ec.rebuild.read_shard` and `ec.rebuild.shard_bytes`
-mutate points) and the `priority` and `scheduler` arguments. The
+`ec.rebuild.after_rename`) and the armed-registry byte path below. Not
+ported yet (ROADMAP): the `priority` and `scheduler` arguments. The
 correctness envelope it keeps:
 
 - bitrot sidecar verify-and-exclude: present-but-corrupt shards are
@@ -25,10 +24,21 @@ Non-source present shards get a dedicated parallel verify.
 The byte path is the native plane (ec/native_io.py): one batched native
 read per batch lands the k sources in a pooled matrix (page-locked on
 cuda) and rolls their CRCs on the C++ side, and the fused native sink
-writes the rebuilt shards. With SEAWEED_EC_NATIVE=0, or an armed fault
-registry, k preadv loops, Python CRC rollers and `PyShardSink` give the
-same bytes, and the publish-seam fault points fire on that path as on
-the native one.
+writes the rebuilt shards. With SEAWEED_EC_NATIVE=0, k preadv loops,
+Python CRC rollers and `PyShardSink` give the same bytes.
+
+An armed fault registry takes the JAX package's chaos byte path: every
+present shard is verified up front, each source read goes through the
+`ec.rebuild.read_shard` mutate point and each rebuilt row through
+`ec.rebuild.shard_bytes`, one `backend.reconstruct` per batch, into
+`PyShardSink`. A mutated read is caught by the output verification
+against the sidecar, which raises and publishes nothing.
+
+Flight recorder (utils/trace.py): the root span `ec.rebuild` (a child
+under a decode) with stages `verify`, the pipeline's `disk_read`,
+`h2d_dispatch`, `device_drain`, `write_sink`, `queue_wait` (on the chaos
+path `reconstruct` in place of the two device stages) and
+`fsync_publish`.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import faults
+from ..utils import trace
 from ..utils.crc import crc32c
 from ..utils.fs import fsync_dir
 from . import native_io
@@ -46,7 +57,7 @@ from .backend import _BackendBase, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import BITROT_BLOCK_SIZE, DEFAULT_EC_CONTEXT, ECContext, ECError
 from .encoder import DEFAULT_BATCH
-from .pipeline import make_shard_sink, run_staged_apply
+from .pipeline import make_shard_sink, run_pipeline, run_staged_apply
 from .volume_info import VolumeInfo
 
 
@@ -177,12 +188,37 @@ def rebuild_ec_files(
             )
         prot = None
 
-    total, k = ctx.total, ctx.data_shards
+    total = ctx.total
     present = [i for i in range(total) if os.path.exists(base + ctx.to_ext(i))]
     missing = [i for i in range(total) if i not in present]
     if only_shards is not None:
         missing = [i for i in missing if i in only_shards]
-    checked = prot is not None and not unsafe_ignore_sidecar
+
+    # root span of the rebuild (a child when a decode span is active)
+    sp = trace.start(
+        "ec.rebuild", name=os.path.basename(base), base=base,
+        present=len(present), missing=sorted(missing),
+    )
+    try:
+        return _rebuild_ec_files_traced(
+            base, ctx, backend, unsafe_ignore_sidecar, batch_size,
+            prot, present, missing, sp,
+        )
+    finally:
+        trace.finish(sp)
+
+
+def _rebuild_ec_files_traced(
+    base, ctx, backend, unsafe_ignore_sidecar, batch_size,
+    prot, present, missing, sp,
+) -> list[int]:
+    k = ctx.data_shards
+    # An armed fault registry takes the chaos byte path: mutating faults
+    # need materialized bytes at the read and write seams, and the chaos
+    # contract (every present shard verified up front, fail closed on
+    # read corruption mid-rebuild) is held against that shape.
+    chaos = faults.active()
+    checked = prot is not None and not unsafe_ignore_sidecar and not chaos
 
     present0 = len(present)
     all_corrupt: list[int] = []
@@ -201,8 +237,9 @@ def rebuild_ec_files(
             except OSError:
                 return True  # unreadable = untrustworthy RS input
 
-        with ThreadPoolExecutor(max_workers=min(len(ids), 8)) as ex:
-            flags = list(ex.map(check, ids))
+        with trace.stage(sp, "verify"):
+            with ThreadPoolExecutor(max_workers=min(len(ids), 8)) as ex:
+                flags = list(ex.map(check, ids))
         bad = [i for i, f in zip(ids, flags) if f]
         verified_ok.update(i for i in ids if i not in bad)
         return bad
@@ -229,6 +266,11 @@ def rebuild_ec_files(
             if i in present:
                 present.remove(i)
                 missing.append(i)
+
+    if prot is not None and chaos:
+        # verify-and-exclude every present shard before any
+        # reconstruction input is chosen
+        _reclassify(_verify_full(list(present)))
 
     while True:
         if len(present) < k:
@@ -272,7 +314,7 @@ def rebuild_ec_files(
             backend = get_backend("cuda", ctx.data_shards, ctx.parity_shards)
         bad_src = _attempt_rebuild(
             base, ctx, backend, prot, src, targets, shard_size, batch_size,
-            inline_verify=checked, verified_ok=verified_ok,
+            chaos, inline_verify=checked, verified_ok=verified_ok, span=sp,
         )
         if bad_src:
             # Confirmed on-disk rot in a source: exclude it and retry.
@@ -290,8 +332,10 @@ def _attempt_rebuild(
     targets: list[int],
     shard_size: int,
     batch_size: int,
+    chaos: bool,
     inline_verify: bool,
     verified_ok: set[int],
+    span=None,
 ) -> list[int]:
     """One pipelined reconstruction attempt. Publishes and returns [] on
     success; returns confirmed-corrupt source ids for the caller to
@@ -304,7 +348,7 @@ def _attempt_rebuild(
     sink = make_shard_sink(list(outs.values()), block_size=crc_block)
     coeffs = _decode_coeffs(backend.matrix, tuple(targets), tuple(src))
     pool = None
-    if native_io.enabled() and not faults.active():
+    if native_io.enabled() and not chaos:
         pool = native_io.BufferPool(k, device=getattr(backend, "device", None))
     rollers = read_crcs = None
     if inline_verify and pool is None:
@@ -353,6 +397,38 @@ def _attempt_rebuild(
         if pool is not None:
             pool.put(buf)  # written, and its H2D copy long done
 
+    def chaos_produce():
+        for off in range(0, shard_size, batch_size):
+            width = min(batch_size, shard_size - off)
+            block = {
+                i: np.frombuffer(
+                    faults.mutate(
+                        "ec.rebuild.read_shard", os.pread(fds[i], width, off),
+                        base=base, shard=i, offset=off,
+                    ),
+                    dtype=np.uint8,
+                )
+                for i in src
+            }
+            if any(len(b) != width for b in block.values()):
+                raise ECError(f"short shard read at offset {off}")
+            yield off, block
+
+    def chaos_reconstruct(item):
+        off, block = item
+        return off, backend.reconstruct(block, want=targets)
+
+    def chaos_consume(item):
+        off, rec = item
+        sink.append_rows([
+            faults.mutate(
+                "ec.rebuild.shard_bytes",
+                np.ascontiguousarray(rec[i], dtype=np.uint8).tobytes(),
+                base=base, shard=i, offset=off,
+            )
+            for i in targets
+        ])
+
     def _cleanup_temps() -> None:
         for f in outs.values():
             f.close()
@@ -365,14 +441,15 @@ def _attempt_rebuild(
         excludable; a clean disk copy means the pipeline's read was
         transiently corrupted and publishing anything would launder it."""
         confirmed, transient = [], []
-        for i in suspects:
-            try:
-                still_bad = bool(
-                    prot.verify_shard_file(base + ctx.to_ext(i), i, stop_early=True)
-                )
-            except OSError:
-                still_bad = True
-            (confirmed if still_bad else transient).append(i)
+        with trace.stage(span, "verify"):
+            for i in suspects:
+                try:
+                    still_bad = bool(
+                        prot.verify_shard_file(base + ctx.to_ext(i), i, stop_early=True)
+                    )
+                except OSError:
+                    still_bad = True
+                (confirmed if still_bad else transient).append(i)
         if transient:
             raise ECError(
                 f"source shards {transient} for {base} failed read-time "
@@ -381,15 +458,20 @@ def _attempt_rebuild(
             )
         return confirmed
 
+    join_timeout = 60.0 + 4.0 * batch_size / (16 << 20)
     try:
-        run_staged_apply(
-            backend,
-            coeffs,
-            produce,
-            consume,
-            join_timeout=60.0 + 4.0 * batch_size / (16 << 20),
-            describe="ec rebuild pipeline",
-        )
+        if chaos:
+            run_pipeline(
+                chaos_produce, chaos_reconstruct, chaos_consume,
+                join_timeout=join_timeout, describe="ec rebuild pipeline",
+                span=span, stage_names=("disk_read", "reconstruct", "write_sink"),
+            )
+        else:
+            run_staged_apply(
+                backend, coeffs, produce, consume,
+                join_timeout=join_timeout, describe="ec rebuild pipeline",
+                span=span,
+            )
     except _SourceReadError as e:
         _cleanup_temps()
         if inline_verify:
@@ -421,9 +503,10 @@ def _attempt_rebuild(
     try:
         # crash window: temp .rebuilding files written, not yet durable
         faults.fire("ec.rebuild.before_fsync", base=base)
-        for f in outs.values():
-            f.flush()
-            os.fsync(f.fileno())
+        with trace.stage(span, "fsync_publish"):
+            for f in outs.values():
+                f.flush()
+                os.fsync(f.fileno())
     except BaseException:
         _cleanup_temps()
         raise
@@ -451,8 +534,9 @@ def _attempt_rebuild(
     # crash here (or between renames) leaves a mix of published shards
     # and .rebuilding temps, and a restarted rebuild regenerates the rest
     faults.fire("ec.rebuild.before_rename", base=base)
-    for i in targets:
-        os.replace(tmp_paths[i], base + ctx.to_ext(i))
-        faults.fire("ec.rebuild.after_rename", base=base, shard=i)
-    fsync_dir(base + ".dat")
+    with trace.stage(span, "fsync_publish"):
+        for i in targets:
+            os.replace(tmp_paths[i], base + ctx.to_ext(i))
+            faults.fire("ec.rebuild.after_rename", base=base, shard=i)
+        fsync_dir(base + ".dat")
     return []

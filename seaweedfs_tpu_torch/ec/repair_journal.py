@@ -58,8 +58,10 @@ against the target's own leaf CRCs, and hand back patches ready for
 `stages`, where a function takes it, is a dict that gains wall seconds
 under the JAX package's stage names: "crc_verify" (sibling and output
 CRC checks), "reconstruct" (the backend call) and "repair_patch" (the
-journal protocol). The flight recorder's spans and the metrics counters
-of the JAX module are not ported yet.
+journal protocol). `span` is the flight recorder's span of the repair
+(utils/trace.py), which gets "crc_verify" and "repair_patch" as in the
+JAX module; recovery and the sweep count their actions in
+`sw_ec_repair_journal_total{action}` (utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .. import faults
+from ..utils import metrics as M
+from ..utils import trace
 from ..utils.crc import crc32c
 from ..utils.fs import fsync_dir
 from .bitrot import BitrotError, BitrotProtection, fold_leaf_crcs
@@ -94,16 +98,20 @@ class JournalError(ECError):
 
 
 @contextmanager
-def _stage(stages: dict | None, name: str):
-    """Add the block's wall seconds to stages[name] (no-op for None)."""
-    if stages is None:
+def _stage(stages: dict | None, name: str, span=None):
+    """Add the block's wall seconds to stages[name] and to the span's
+    stage (no-op for None)."""
+    if stages is None and span is None:
         yield
         return
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if stages is not None:
+            stages[name] = stages.get(name, 0.0) + dt
+        trace.add_stage(span, name, dt)
 
 
 @dataclass(frozen=True)
@@ -274,6 +282,7 @@ def apply_leaf_repair(
     *,
     ecsum_path: str | None = None,
     stages: dict | None = None,
+    span=None,
 ) -> None:
     """Run the full journal protocol for one shard's leaf patch set:
     intent -> in-place patch -> sidecar flip (when the CRCs change) ->
@@ -296,7 +305,7 @@ def apply_leaf_repair(
         shard_size=prot.shard_sizes[shard_id],
         patches=list(patches),
     )
-    with _stage(stages, "repair_patch"):
+    with _stage(stages, "repair_patch", span):
         _write_journal(jpath, journal)
         # crash window: intent durable, shard untouched
         faults.fire("ec.repair.after_journal", path=shard_path, shard=shard_id)
@@ -374,6 +383,7 @@ def recover_volume_journals(
             except OSError:
                 continue
             out["rolled_back"].append(jpath)
+            M.ec_repair_journal_total.inc(action="rolled_back")
             continue
         shard_path = base + ctx.to_ext(sid)
         if not _journal_live(journal, sid, shard_path, prot):
@@ -382,6 +392,7 @@ def recover_volume_journals(
                 "shard no longer matches the recorded intent)", jpath,
             )
             out["kept"].append(jpath)
+            M.ec_repair_journal_total.inc(action="kept")
             continue
         try:
             _patch_shard(shard_path, journal.patches)
@@ -392,8 +403,10 @@ def recover_volume_journals(
         except OSError as e:
             log.error("repair-journal replay of %s failed: %s", jpath, e)
             out["kept"].append(jpath)
+            M.ec_repair_journal_total.inc(action="kept")
             continue
         out["replayed"][sid] = sorted(p.leaf for p in journal.patches)
+        M.ec_repair_journal_total.inc(action="replayed")
         log.warning("replayed repair journal %s (leaves %s)", jpath, out["replayed"][sid])
     return out
 
@@ -433,6 +446,7 @@ def sweep_stale_journals(
             continue
         fsync_dir(jpath)
         swept.append(jpath)
+        M.ec_repair_journal_total.inc(action="swept")
         log.info("swept stale repair journal %s", jpath)
     return swept
 
@@ -508,6 +522,7 @@ def reconstruct_leaves(
     backend=None,
     on_bytes=None,
     stages: dict | None = None,
+    span=None,
 ) -> list[LeafPatch]:
     """Rebuild ONLY the rotten leaves of `shard_id` from k verified
     sibling sources and return them as journal-ready patches.
@@ -549,7 +564,7 @@ def reconstruct_leaves(
                 continue
             if on_bytes is not None:
                 on_bytes(len(got))
-            with _stage(stages, "crc_verify"):
+            with _stage(stages, "crc_verify", span):
                 if not prot.verify_range(sid, lo, got):
                     continue
             sources[sid] = np.frombuffer(got, dtype=np.uint8)
@@ -562,7 +577,7 @@ def reconstruct_leaves(
         with _stage(stages, "reconstruct"):
             rec = backend.reconstruct(sources, want=[shard_id])
             out = np.asarray(rec[shard_id], dtype=np.uint8).tobytes()
-        with _stage(stages, "crc_verify"):
+        with _stage(stages, "crc_verify", span):
             for li in range_leaves:
                 blk = out[li * lsize - lo : min((li + 1) * lsize, ssize) - lo]
                 crc = crc32c(blk)

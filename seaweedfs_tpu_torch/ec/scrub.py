@@ -9,7 +9,10 @@ Port of seaweedfs_tpu/ec/scrub.py (`RateLimiter`, `ScrubCursor`,
 `scheduler` argument. Leaf reconstruction and the quarantine rebuild
 run on the backend given, by default the card: on CUDA each contiguous
 range of rotten leaves is one `gf2_apply` launch, and the rebuild runs
-its batches through the same kernel.
+its batches through the same kernel. Each leaf repair is one
+`ec.leaf_repair` root span of the flight recorder (utils/trace.py) and
+one count of `sw_ec_leaf_repairs_total{outcome}` (utils/metrics.py:
+repaired, refused or failed).
 
 Design points:
 
@@ -48,6 +51,8 @@ import time
 from dataclasses import dataclass, field
 
 from .. import faults
+from ..utils import metrics as M
+from ..utils import trace
 from ..utils.crc import crc32c
 from ..utils.fs import atomic_write, fsync_dir
 from ..utils.retry import (
@@ -474,6 +479,7 @@ def scrub_ec_volume(
         for sid in [s for s in report.corrupt_shards if s in report.corrupt_leaves]:
             path = base + ctx.to_ext(sid)
             if len(good_sids) < ctx.data_shards:
+                M.ec_leaf_repairs_total.inc(outcome="refused")
                 break  # below the floor for every remaining shard
             # The walk's leaf set may be a stale slice verdict; pin the
             # repair to a FRESH full-leaf verdict.
@@ -485,21 +491,33 @@ def scrub_ec_volume(
                 report.corrupt_shards.remove(sid)
                 report.corrupt_leaves.pop(sid, None)
                 continue
+            # one flight-recorder root per repair op
+            sp = trace.start(
+                "ec.leaf_repair", name=f"{os.path.basename(base)}.{sid:02d}",
+                shard=sid, leaves=sorted(fresh),
+            )
             try:
-                patches = reconstruct_leaves(
-                    prot, ctx, sid, fresh, read_range, good_sids,
-                    backend=backend, on_bytes=consume, stages=stages,
-                )
-                apply_leaf_repair(path, sid, prot, patches, ecsum_path=ecsum, stages=stages)
+                with trace.activate(sp):
+                    patches = reconstruct_leaves(
+                        prot, ctx, sid, fresh, read_range, good_sids,
+                        backend=backend, on_bytes=consume, stages=stages, span=sp,
+                    )
+                    apply_leaf_repair(
+                        path, sid, prot, patches, ecsum_path=ecsum, stages=stages, span=sp,
+                    )
             except (ECError, OSError) as e:
+                M.ec_leaf_repairs_total.inc(outcome="failed")
                 log.warning(
                     "leaf repair of shard %d failed (%s); falling back to quarantine",
                     sid, e,
                 )
                 continue
+            finally:
+                trace.finish(sp)
             report.corrupt_shards.remove(sid)
             report.corrupt_leaves.pop(sid, None)
             report.leaf_repaired[sid] = sorted(fresh)
+            M.ec_leaf_repairs_total.inc(outcome="repaired")
             log.warning(
                 "leaf-repaired shard %d in place (leaves %s); quarantine avoided",
                 sid, sorted(fresh),

@@ -36,9 +36,16 @@ parity that disagrees with the data.
 
 What the port leaves out: placement and device-queue admission (there
 is no `place_stream`, `batch_cost` or `DeviceQueue`; every delta takes
-the backend directly, as `run_staged_apply` does), trace spans (the
-encoder's `stage_seconds` dict holds the same stage names) and the
-metrics registry (module-local counters read by :func:`stream_summary`).
+the backend directly, as `run_staged_apply` does).
+
+Observability: each encoder is one `ec.stream_encode` span of the flight
+recorder (utils/trace.py) from construction to close, with the stages
+of its `stage_seconds` dict (`write_sink`, `parity_update`,
+`h2d_dispatch`, `device_drain`, `fsync_publish`); appends, sealed
+stripes, recovery outcomes, time-to-durable-parity and open streams are
+the registry's `sw_ec_stream_*` metrics (utils/metrics.py), read by
+:func:`stream_summary`.
+
 With no backend, the encoder and :func:`recover_stream` take the card
 (`get_backend("cuda", k, m)`) and raise where there is none.
 
@@ -62,6 +69,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import faults
+from ..utils import metrics as M
+from ..utils import trace
 from ..utils.crc import crc32c
 from ..utils.fs import atomic_write, fsync_dir
 from .backend import get_backend
@@ -106,54 +115,45 @@ def stream_small_block_size() -> int:
     return _env_kib("SEAWEED_EC_STREAM_SMALL_KB", 64)
 
 
-# -- module-local counters (the JAX package's sw_ec_stream_* metrics) ---------
+# -- the sw_ec_stream_* metrics (utils/metrics.py), the JAX package's -----------
 
-LAG_BUCKETS = (
-    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+parity_lag = M.REGISTRY.histogram(
+    "sw_ec_stream_parity_lag_seconds",
+    "per-append wall time from append() to durable parity "
+    "(time-to-durable-parity, the streaming-EC first-class metric)",
+    buckets=(
+        0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+        10.0, 30.0,
+    ),
+)
+_appended_bytes = M.REGISTRY.counter(
+    "sw_ec_stream_appended_bytes_total",
+    "bytes appended to EC stream encoders",
+)
+_stripes_sealed = M.REGISTRY.counter(
+    "sw_ec_stream_stripes_sealed_total",
+    "EC stream stripes sealed (final parity published)",
+)
+_recovered = M.REGISTRY.counter(
+    "sw_ec_stream_recovered_total",
+    "EC stream recovery events by outcome",
+    ("outcome",),
 )
 
-
-class _LagHistogram:
-    """Per-append wall time from append() to durable parity
-    (time-to-durable-parity), in the JAX package's buckets; the last
-    count is the +Inf bucket."""
-
-    def __init__(self, buckets: tuple[float, ...]):
-        self.buckets = buckets
-        self._lock = threading.Lock()
-        self._counts = [0] * (len(buckets) + 1)
-        self._sum = 0.0
-
-    def observe(self, v: float) -> None:
-        i = next((i for i, b in enumerate(self.buckets) if v <= b), len(self.buckets))
-        with self._lock:
-            self._counts[i] += 1
-            self._sum += v
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return {"counts": list(self._counts), "count": sum(self._counts), "sum": self._sum}
-
-
-parity_lag = _LagHistogram(LAG_BUCKETS)
-_counter_lock = threading.Lock()
-_totals = {"appended_bytes": 0, "stripes_sealed": 0}
-_recovered: dict[str, int] = {}
-
-
-def _count(name: str, n: int = 1) -> None:
-    with _counter_lock:
-        _totals[name] += n
-
-
-def _recovered_inc(outcome: str, n: int = 1) -> None:
-    with _counter_lock:
-        _recovered[outcome] = _recovered.get(outcome, 0) + n
-
-
-# Live encoders for stream_summary(): weak, so a dropped encoder is not
-# kept alive by the roll-up.
+# Live encoders for the open-streams gauge and stream_summary(): weak, so
+# a dropped encoder is not kept alive by the roll-up.
 _live_streams: "weakref.WeakSet[EcStreamEncoder]" = weakref.WeakSet()
+
+
+def _open_stream_samples():
+    yield {}, float(sum(1 for e in list(_live_streams) if not e.closed))
+
+
+M.REGISTRY.gauge(
+    "sw_ec_stream_open",
+    "EC stream encoders currently open",
+    fn=_open_stream_samples,
+)
 
 
 def stream_summary() -> dict:
@@ -173,14 +173,14 @@ def stream_summary() -> dict:
                 "chip": enc.chip_label,
             }
         )
-    with _counter_lock:
-        return {
-            "open": len(streams),
-            "streams": sorted(streams, key=lambda s: s["base"]),
-            "appended_bytes": _totals["appended_bytes"],
-            "stripes_sealed": _totals["stripes_sealed"],
-            "recovered": dict(_recovered),
-        }
+    return {
+        "open": len(streams),
+        "streams": sorted(streams, key=lambda s: s["base"]),
+        "appended_bytes": sum(_appended_bytes.snapshot().values()),
+        "stripes_sealed": sum(_stripes_sealed.snapshot().values()),
+        # label tuples -> plain strings: this dict rides JSON surfaces
+        "recovered": {(k[0] if k else ""): v for k, v in _recovered.snapshot().items()},
+    }
 
 
 # --------------------------------------------------------------------------
@@ -329,18 +329,29 @@ class EcStreamEncoder:
         self._touched: set[int] = set()
         self.closed = False
         self._backend = backend
-        self.chip_label = str(getattr(backend, "device", ""))
+        self.chip_label = getattr(backend, "chip_label", "")
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        # the flight recorder's span: one long-lived op, closed at close()
+        self._span = trace.start(
+            "ec.stream_encode", name=os.path.basename(base), base=base,
+            block_size=self.block_size,
+        )
         self._write_journal()
         _live_streams.add(self)
 
     @contextmanager
     def _stage(self, name: str):
+        """Time the block into stage_seconds[name] and the span's stage
+        (device stages labeled with the chip)."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.stage_seconds[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stage_seconds[name] += dt
+            if self._span is not None:
+                chip = self.chip_label if name in trace.DEVICE_STAGES else ""
+                self._span.add_stage(name, dt, chip)
 
     # ------------------------------------------------------------ append
 
@@ -359,7 +370,7 @@ class EcStreamEncoder:
             self._pending_bytes += len(data)
             self.head += len(data)
             self._lag_q.append((self.head, time.monotonic()))
-            _count("appended_bytes", len(data))
+            _appended_bytes.inc(len(data))
             return off
 
     @property
@@ -404,7 +415,7 @@ class EcStreamEncoder:
         self._parity[:] = 0
         self._filled = 0
         self.sealed_stripes += 1
-        _count("stripes_sealed")
+        _stripes_sealed.inc()
 
     def process(self) -> None:
         """Drain the append buffer through the parity math: data rows
@@ -521,6 +532,7 @@ class EcStreamEncoder:
                     except OSError:
                         pass
                 self._fds = []
+                trace.finish(self._span)
             return prot
 
     def _finalize_locked(self) -> BitrotProtection:
@@ -669,12 +681,12 @@ def recover_stream(
     takes the card, `get_backend("cuda", k, m)`."""
     j = load_stream_journal(base)
     if j is None:
-        _recovered_inc("no_journal")
+        _recovered.inc(outcome="no_journal")
         return None
     if ctx is None:
         ctx = ECContext(j.data_shards, j.parity_shards)
     if (j.data_shards, j.parity_shards) != (ctx.data_shards, ctx.parity_shards):
-        _recovered_inc("config_mismatch")
+        _recovered.inc(outcome="config_mismatch")
         return None
     block = j.block_size
     k, m = ctx.data_shards, ctx.parity_shards
@@ -689,7 +701,7 @@ def recover_stream(
         # fsync promised these bytes and the frames do not reach them
         log.warning("stream %s: durable cursor %d but only %d bytes recovered",
                     base, j.durable, head)
-        _recovered_inc("data_lost")
+        _recovered.inc(outcome="data_lost")
     if backend is None:
         backend = get_backend("cuda", k, m)
     gen = np.ascontiguousarray(np.asarray(backend.matrix, dtype=np.uint8)[k : k + m, :])
@@ -745,8 +757,8 @@ def recover_stream(
     )
     atomic_write(base + JOURNAL_SUFFIX, j2.to_bytes())
     if rewritten:
-        _recovered_inc("parity_rewritten", rewritten)
-    _recovered_inc("replayed" if head else "rolled_back")
+        _recovered.inc(rewritten, outcome="parity_rewritten")
+    _recovered.inc(outcome="replayed" if head else "rolled_back")
     return StreamRecovery(
         journal=j, head=head, data=data,
         parity_rewritten=rewritten, rolled_back=max(hmax - head, 0),

@@ -1,19 +1,26 @@
 """Byte-bounded LRU cache with read-through singleflight collapse.
 
 Port of seaweedfs_tpu/utils/chunk_cache.py (reference
-weed/util/chunk_cache, the memory tier) without the metrics export: N
+weed/util/chunk_cache, the memory tier): N
 concurrent misses on one key collapse to ONE loader call, so under
 concurrent degraded reads an extent is reconstructed exactly once and
 everyone else waits for the leader's bytes. The EC reconstructed-interval
 cache keys entries ``<vol>:<shard>:<gen>:<lo>:<hi>``: remount and
 unmount invalidate by bumping the generation (a stale in-flight load
 parks its result under the old key where no new reader looks).
+
+A cache built with a `tier` ("ec_interval" for the EC volume's own
+cache) counts its hits, misses and singleflight waits in
+``sw_gateway_hot_cache_{hits,misses,singleflight_waits}_total{tier}``
+(utils/metrics.py).
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+
+from . import metrics
 
 
 class _Flight:
@@ -97,8 +104,11 @@ class SingleFlight:
 
 
 class ChunkCache:
-    def __init__(self, capacity_bytes: int = 64 * 1024 * 1024):
+    def __init__(self, capacity_bytes: int = 64 * 1024 * 1024, tier: str = ""):
+        """`tier` labels this cache's counters in the
+        ``sw_gateway_hot_cache_*`` metrics ("" = not exported)."""
         self.capacity = capacity_bytes
+        self.tier = tier
         self._lock = threading.Lock()
         self._data: "OrderedDict[str, bytes]" = OrderedDict()
         self._bytes = 0
@@ -116,7 +126,19 @@ class ChunkCache:
             else:
                 self._data.move_to_end(key)
                 self.hits += 1
+        # the metric outside the cache lock: every cache of a tier shares
+        # one counter, whose lock must not serialize their hits
+        self._count("misses" if val is None else "hits")
         return val
+
+    def _count(self, kind: str) -> None:
+        if self.tier:
+            counter = {
+                "hits": metrics.gateway_hot_cache_hits_total,
+                "misses": metrics.gateway_hot_cache_misses_total,
+                "singleflight_waits": metrics.gateway_hot_cache_singleflight_waits_total,
+            }[kind]
+            counter.inc(tier=self.tier)
 
     def get_or_load(self, key: str, loader):
         """Read-through with singleflight collapse: a hit returns the
@@ -136,6 +158,7 @@ class ChunkCache:
             with self._lock:
                 self.misses += 1
                 self.loads += 1
+            self._count("misses")
             return loader(), "load"
         val = self.get(key)
         if val is not None:
@@ -159,6 +182,7 @@ class ChunkCache:
         if waited:
             with self._lock:
                 self.singleflight_waits += 1
+            self._count("singleflight_waits")
             return data, "wait"
         return data, "load"
 

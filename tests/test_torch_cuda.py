@@ -346,6 +346,37 @@ def _needle_volume(d, n_needles=60, body=200_000, seed=5):
     return bodies
 
 
+def test_armed_encode_on_card_counts_device_stages_per_batch(cuda, tmp_path):
+    """With the flight recorder armed, an encode on the card records one
+    h2d_dispatch and one device_drain per batch, labeled cuda:<index>,
+    and writes the shards the disarmed encode wrote."""
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.utils import trace
+
+    _needle_volume(tmp_path, n_needles=80)
+    base = os.path.join(str(tmp_path), "1")
+    ctx = ECContext(10, 4)
+    disarmed = [open(base + ctx.to_ext(i), "rb").read() for i in range(14)]
+    batches = len(list(batch_plan(os.path.getsize(base + ".dat"), 10, DEFAULT_BATCH,
+                                  LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+    be = TorchBackend(ctx)
+    trace.configure(enabled=True)
+    trace.reset()
+    try:
+        ec_encode_volume(base, ctx, backend=be)
+        (root,) = trace.traces()
+    finally:
+        trace.configure(enabled=False)
+        trace.reset()
+    (enc,) = root["children"]
+    assert enc["op"] == "ec.encode"
+    for s in ("h2d_dispatch", "device_drain"):
+        assert (enc["stages"][s]["count"], enc["stages"][s]["chip"]) == (batches, str(be.device))
+    assert str(be.device).startswith("cuda:")
+    assert [open(base + ctx.to_ext(i), "rb").read() for i in range(14)] == disarmed
+
+
 def test_concurrent_degraded_readers_on_one_backend(cuda, tmp_path):
     bodies = _needle_volume(tmp_path)
     be = TorchBackend(ECContext(10, 4), impl="cuda_planes")

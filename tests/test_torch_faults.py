@@ -6,16 +6,31 @@ both packages and drives the same arrivals through the same point:
 the firing sequence, what each arrival raised or slept, and the bytes
 each mutation returned must be identical (exact). The two registries
 are separate: a point armed in one package never fires in the other.
+
+The rebuild chaos cases of tests/test_ec_chaos.py (a sibling read and a
+rebuilt row bit-flipped mid-rebuild) run through each package's rebuild
+under its own registry with the same seeds: both must fail closed the
+same way, publish nothing and leak no temp, and a clean retry must give
+the same bytes.
 """
 
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
 import pytest
 
 from seaweedfs_tpu import faults as jax_faults
+from seaweedfs_tpu.ec import CpuBackend as JaxCpuBackend
+from seaweedfs_tpu.ec import ECContext as JaxECContext
+from seaweedfs_tpu.ec import ECError as JaxECError
+from seaweedfs_tpu.ec import ec_encode_volume as jax_ec_encode_volume
+from seaweedfs_tpu.ec import rebuild_ec_files as jax_rebuild_ec_files
 from seaweedfs_tpu_torch import faults as port_faults
+from seaweedfs_tpu_torch.ec import CpuBackend, ECContext, ECError, TorchBackend, rebuild_ec_files
+from test_ec_chaos import make_volume
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 POINT = "ec.volume.shard_read"
@@ -116,3 +131,51 @@ def test_hard_exit_kills_at_the_same_arrival(pkg):
     )
     assert proc.returncode == 137, proc.stderr
     assert proc.stdout.split() == ["0", "1", "2"]
+
+
+# --------------------------------------------------- rebuild chaos cases
+
+# (lost shard, mutate point, action, trigger, volume seed): the two cases
+# of tests/test_ec_chaos.py, with its seeds
+REBUILD_CHAOS = {
+    "corrupt_sibling_read": (1, "ec.rebuild.read_shard", lambda F: F.bit_flip(seed=5),
+                             lambda F: F.nth_call(3), 11),
+    "corrupt_output": (13, "ec.rebuild.shard_bytes", lambda F: F.bit_flip(seed=6), None, 12),
+}
+
+
+def _chaos_rebuild(F, rebuild, error, base, ctx, backend, case):
+    sid, point, action, when, _ = REBUILD_CHAOS[case]
+    with F.injected(point, action(F), when=when(F) if when else None) as h:
+        with pytest.raises(error, match="sidecar verification") as ei:
+            rebuild(base, ctx, backend=backend)
+        fired = (h.fired, h.hits)
+    published = os.path.exists(base + ctx.to_ext(sid))
+    temp = os.path.exists(base + ctx.to_ext(sid) + ".rebuilding")
+    return str(ei.value).replace(base, "<base>"), fired, published, temp
+
+
+@pytest.mark.parametrize("port_backend", ["cpu", "torch_cpu"])
+@pytest.mark.parametrize("case", sorted(REBUILD_CHAOS))
+def test_rebuild_chaos_fails_closed_like_jax(tmp_path, case, port_backend):
+    """A bit flip injected mid-rebuild: verified up front, caught by the
+    output verification, nothing published, no temp leaked, in both
+    packages alike; the clean retry rebuilds the same bytes."""
+    sid, *_, seed = REBUILD_CHAOS[case]
+    (tmp_path / "seed").mkdir()
+    src, _ = make_volume(tmp_path / "seed", needles=15, seed=seed)
+    jax_ec_encode_volume(src, JaxECContext(10, 4))
+    want = pathlib.Path(src + f".ec{sid:02d}").read_bytes()
+    os.unlink(src + f".ec{sid:02d}")
+    jdir = shutil.copytree(tmp_path / "seed", tmp_path / "jax")
+    pdir = shutil.copytree(tmp_path / "seed", tmp_path / "port")
+    jctx, ctx = JaxECContext(10, 4), ECContext(10, 4)
+    be = CpuBackend(ctx) if port_backend == "cpu" else TorchBackend(ctx, device="cpu")
+    theirs = _chaos_rebuild(jax_faults, jax_rebuild_ec_files, JaxECError, str(jdir / "1"), jctx,
+                            JaxCpuBackend(jctx), case)
+    ours = _chaos_rebuild(port_faults, rebuild_ec_files, ECError, str(pdir / "1"), ctx, be, case)
+    assert ours == theirs
+    assert ours[1][0] == 1 and not ours[2] and not ours[3]  # one flip; nothing left behind
+    assert rebuild_ec_files(str(pdir / "1"), ctx, backend=be) == [sid]
+    assert jax_rebuild_ec_files(str(jdir / "1"), jctx, backend=JaxCpuBackend(jctx)) == [sid]
+    assert (pdir / f"1.ec{sid:02d}").read_bytes() == (jdir / f"1.ec{sid:02d}").read_bytes() == want

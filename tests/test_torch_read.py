@@ -15,6 +15,7 @@ the JAX `EcVolume(..., backend_name="cpu")`; the port's
 the Pallas plane-stack kernel in interpret mode. Tolerance 0.
 """
 
+import json
 import os
 import shutil
 import threading
@@ -40,6 +41,7 @@ from seaweedfs_tpu_torch.ec import (
     ECError,
     EcVolume,
     TorchBackend,
+    VolumeInfo,
     ec_decode_volume,
     ec_encode_volume,
 )
@@ -159,7 +161,9 @@ SCENARIOS = {"healthy": [], "one_lost": [0], "two_lost": [1, 3]}
 def test_reads_match_jax(encoded, sealed, scenario, leaf, impl):
     _, payloads = sealed
     port, jax = _volumes(encoded[leaf], impl)
-    jax_read0 = jax.bytes_read  # the JAX volume restores it from its .heat sidecar
+    # both volumes restore their counters from the same .heat sidecar
+    port_read0, port_rec0, jax_read0 = port.bytes_read, port.bytes_reconstructed, jax.bytes_read
+    assert (port_read0, port_rec0) == (jax_read0, jax.bytes_reconstructed)
     try:
         for ev in (port, jax):
             ev.unmount_shards(SCENARIOS[scenario])
@@ -171,13 +175,13 @@ def test_reads_match_jax(encoded, sealed, scenario, leaf, impl):
             else:
                 assert got == "EcNotFoundError"
         if SCENARIOS[scenario]:
-            assert port.bytes_reconstructed > 0
+            assert port.bytes_reconstructed > port_rec0
             assert port.stage_seconds["reconstruct"] > 0
             assert port.stage_seconds["sibling_read"] > 0
             assert port.stage_seconds["crc_verify"] > 0
         else:
-            assert port.bytes_reconstructed == 0
-        assert port.bytes_read == jax.bytes_read - jax_read0
+            assert port.bytes_reconstructed == port_rec0
+        assert port.bytes_read - port_read0 == jax.bytes_read - jax_read0
     finally:
         port.close()
         jax.close()
@@ -663,3 +667,86 @@ def test_sorted_file_needle_map(encoded, sealed):
         assert m.get(9).needle_id == 9
     finally:
         m.close()
+
+
+# ------------------------------------------------------- the .heat sidecar
+
+
+def _mount(side: str, d: str):
+    if side == "port":
+        return EcVolume(d, 1, backend=TorchBackend(CTX, device="cpu"))
+    return JaxEcVolume(d, 1, backend_name="cpu")
+
+
+def _generation(base: str) -> int:
+    return VolumeInfo.load(base + ".vif").encode_ts_ns
+
+
+def _degraded_reads(ev, payloads) -> None:
+    ev.unmount_shards([1])
+    for nid in (1, 2, 3, 40, 41, 90):
+        assert ev.read_needle(nid, cookie=0x1000 + nid).data == payloads[nid]
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
+def test_heat_written_by_one_package_read_by_the_other(encoded, sealed, tmp_path, writer, reader):
+    _, payloads = sealed
+    base = _copy(encoded[65536], tmp_path)
+    ev = _mount(writer, str(tmp_path))
+    _degraded_reads(ev, payloads)
+    counters = (ev.bytes_read, ev.bytes_reconstructed)
+    ev.close()
+    assert counters[0] > 0 and counters[1] > 0
+    heat = json.loads(_read(base + ".heat"))
+    assert (heat["read_bytes"], heat["reconstructed_bytes"]) == counters
+    assert heat["gen"] == _generation(base) > 0
+    other = _mount(reader, str(tmp_path))
+    try:
+        assert (other.bytes_read, other.bytes_reconstructed) == counters
+    finally:
+        other.close()
+
+
+def test_heat_files_equal_after_the_same_reads(encoded, sealed, tmp_path):
+    """The same reads on two copies of one volume, one per package: the
+    counters agree, and so do the .heat files, byte for byte."""
+    _, payloads = sealed
+    files = {}
+    for side in ("port", "jax"):
+        base = _copy(encoded[65536], tmp_path / side)
+        ev = _mount(side, str(tmp_path / side))
+        _degraded_reads(ev, payloads)
+        ev.close()
+        files[side] = _read(base + ".heat")
+    assert files["port"] == files["jax"]
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_heat_fenced_by_generation(encoded, sealed, tmp_path, side):
+    """Counters of a volume re-encoded under the same id are dropped."""
+    base, payloads = sealed
+    vbase = _copy(encoded[65536], tmp_path)
+    ev = _mount("port", str(tmp_path))
+    _degraded_reads(ev, payloads)
+    ev.close()
+    assert json.loads(_read(vbase + ".heat"))["read_bytes"] > 0
+    ec_encode_volume(vbase, CTX, backend=TorchBackend(CTX, device="cpu"))  # a new generation
+    ev = _mount(side, str(tmp_path))
+    try:
+        assert (ev.bytes_read, ev.bytes_reconstructed) == (0, 0)
+    finally:
+        ev.close()
+
+
+@pytest.mark.parametrize("junk", [b"", b"{not json", b"[1,", b'{"gen": "x", "read_bytes": "y"}'])
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_corrupt_heat_starts_cold(encoded, tmp_path, side, junk):
+    base = _copy(encoded[65536], tmp_path)
+    with open(base + ".heat", "wb") as f:
+        f.write(junk)
+    ev = _mount(side, str(tmp_path))
+    try:
+        assert (ev.bytes_read, ev.bytes_reconstructed) == (0, 0)
+    finally:
+        ev.close()
+    assert json.loads(_read(base + ".heat"))["read_bytes"] == 0  # close rewrote it

@@ -495,14 +495,17 @@ def test_parity_lag_and_counters(tmp_path):
     enc = EcStreamEncoder(str(tmp_path / "s"), ECContext(4, 2), backend=port_be,
                           block_size=8192, small_block_size=1024)
     assert enc.parity_lag_s() == 0.0
-    before = port_stream.parity_lag.snapshot()["count"]
+    def lag_count():  # observations in the registry's sw_ec_stream_parity_lag_seconds
+        return sum(t for _c, t, _s in port_stream.parity_lag.snapshot().values())
+
+    before = lag_count()
     summary0 = stream_summary()
     enc.append(b"z" * 1000)
     enc.append(b"z" * 40_000)
     assert enc.parity_lag_s() > 0.0  # the oldest un-durable append ages
     enc.flush()
     assert enc.parity_lag_s() == 0.0
-    assert port_stream.parity_lag.snapshot()["count"] == before + 2  # two appends
+    assert lag_count() == before + 2  # two appends
     summary1 = stream_summary()
     assert summary1["appended_bytes"] - summary0["appended_bytes"] == 41_000
     assert summary1["stripes_sealed"] - summary0["stripes_sealed"] == 1  # 32 KiB stripes
