@@ -127,13 +127,52 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    one root per op, as `sw_ec_traces_total{op}` counts, every span tree
    the JAX package's invariants (one trace id, children inside their
    root, no stage but queue_wait longer than its span), the device
-   stages (`h2d_dispatch`, `device_drain`) one per launch on cuda:0,
-   every overlap efficiency in [0, 1], the registry's text parse line by
+   stages (`admission_wait`, `h2d_dispatch`, `device_drain`) one per
+   launch, labeled as the JAX package's call sites label them (a
+   `TorchBackend` has no chip label, so its scheduled dispatch carries
+   its device queue's label), every overlap efficiency in [0, 1], the
+   registry's text parse line by
    line with the leaf repair counted, and the Chrome trace load. One line
    gives each op's wall, stage totals and counts and overlap efficiency,
    the armed over the disarmed encode wall, the partition's stage ms per
    flush beside phase 7b's solo flush and the share of flush wall no
    stage names, and the Chrome trace's event count.
+10. the device scheduler and the CPU failover, on the same .dat (hard
+   links) with every path a client of the per-chip `DeviceQueue`:
+   10a the bounded device probe (`utils/devices.py`, a subprocess) and
+   its wall, and `get_backend("auto", 10, 4)`, which must be a
+   `FallbackBackend` over a `TorchBackend` on cuda:0 with no CPU
+   resolution counted; 10b an encode through it: 14 shards
+   sha256-identical to phase 4's, no batch on the CPU, the breaker and
+   its gauge closed, one launch and one foreground admission
+   (`sw_ec_queue_admitted_total`) per batch; 10b' the scheduler's cost:
+   the same encode and 30 cold degraded reads of shard 3 with the scope
+   disabled and enabled, in turns (off, on, on, off) in one process,
+   outputs identical, admissions only when enabled; 10c failover armed by the
+   smoke itself: an encode with every `to_host` failing
+   (`ec.backend.device.to_host`, threshold 3, a short reset timeout) is
+   sha256-identical with every batch recomputed on the CPU, the launches
+   equal the batches that reached the card, the gauge reads 1 while the
+   breaker is open; after the timeout an unarmed encode closes the
+   breaker through its half-open probe; a rebuild of shards 3 and 11
+   through the staged-apply driver on a card that loses three batches
+   (two at `apply_staged`, before they launch, one at `to_host`, after;
+   an OSError each, raised by a `TorchBackend` subclass of the smoke,
+   since an armed fault registry sends rebuild down the chaos byte path)
+   is sha256-identical, with those three batches on the CPU, the
+   breaker closed and the launches equal to the batches that reached the
+   card; 10d a foreground encode alone, then again
+   beside a concurrent `priority="recovery"` rebuild of shards 3 and 11
+   on the same `auto` backend under one `QueueScope`: both outputs
+   sha256-identical, per-class admitted batches, cost and admission
+   wait, both foreground walls and the ratio the JAX package's bar reads
+   (an observation); 10e a 32 MiB phase 7a stream through
+   `place_stream` (its and its batch encode's foreground admissions
+   equal their launches) and phase 7b's partition with
+   `SEAWEED_EC_STREAM_BACKEND=auto` for at least 4 flushes, replayed
+   byte-exact. Any batch served on the CPU, or any CPU resolution of
+   `auto`, outside 10c fails the run; in 10c the count must equal what
+   the smoke injected.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -1164,12 +1203,13 @@ def row_chunks(lo: int, hi: int, block: int) -> int:
     return (hi - 1) // block - lo // block + 1 if hi > lo else 0
 
 
-def stream_phase(work, src, ctx, nbytes: int = STREAM_BYTES) -> tuple[dict, int]:
+def stream_phase(work, src, ctx, nbytes: int = STREAM_BYTES, cards=None) -> tuple[dict, int]:
     """Phase 7a: the first `nbytes` of `src` appended in 8 KiB pieces
     to an `EcStreamEncoder` at its defaults (1 MiB blocks, 64 KiB small
     blocks), flushed at 256 KiB pending, closed with finalize; against
     one `write_ec_files` over the same bytes. Returns (result, launches):
-    the stream's and the batch encode's, apart in the result."""
+    the stream's and the batch encode's, apart in the result. Both
+    backends are appended to `cards` where it is given."""
     from seaweedfs_tpu_torch.ec import BitrotProtection, EcStreamEncoder, TorchBackend, write_ec_files
     from seaweedfs_tpu_torch.ops import gf256, rs_kernels
 
@@ -1228,6 +1268,8 @@ def stream_phase(work, src, ctx, nbytes: int = STREAM_BYTES) -> tuple[dict, int]
         f.write(payload)
     del payload, view
     bbackend = TorchBackend(ctx, device=DEVICE)
+    if cards is not None:
+        cards += [backend, bbackend]
     rs_kernels.reset_launches()
     t0 = time.perf_counter()
     bprot = write_ec_files(bbase, ctx, bbackend, large_block_size=block, small_block_size=small)
@@ -1358,13 +1400,16 @@ sys.exit(3)  # the armed point never fired
 """
 
 
-def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: int) -> dict:
+def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: int,
+               backend_name: str = DEVICE) -> dict:
     """One partition at the broker's defaults takes the first `n` records
     at MQ_RATE from the calling thread while a flusher thread applies the
     policy every MQ_FLUSH_EVERY_S; then it closes. The kernel counters
     are reset first. Returns the partition's context and backend, each
     flush call's (start, end), each append's time, the append and close
-    times and each generation's encoder."""
+    times and each generation's encoder. `backend_name` is the backend
+    that SEAWEED_EC_STREAM_BACKEND names (the cached one the partition
+    takes at its first generation)."""
     import threading
 
     from seaweedfs_tpu_torch.ec import get_backend
@@ -1374,7 +1419,7 @@ def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: i
     pp = PartitionParity(root, "bench", topic, 0)
     ctx = pp.ctx
     # the cached backend the partition builds at its first generation
-    backend = get_backend(DEVICE, ctx.data_shards, ctx.parity_shards)
+    backend = get_backend(backend_name, ctx.data_shards, ctx.parity_shards)
     if ((ctx.data_shards, ctx.parity_shards), pp.block_size, pp.flush_bytes, pp.max_lag_s,
             pp.rotate_bytes, backend.device.type) != ((4, 2), 1 << 20, 256 << 10, 0.2, 64 << 20, DEVICE):
         raise AssertionError("the partition is not at the broker's defaults on the card")
@@ -1619,14 +1664,26 @@ def check_tree(root: dict) -> None:
                 raise AssertionError(f"stage {name} of {node['op']} exceeds its span: {acc}")
 
 
-def device_stages(node: dict, launches: int, what: str) -> None:
-    """The node's h2d_dispatch and device_drain each counted once per
-    launch, on the card."""
-    for s in ("h2d_dispatch", "device_drain"):
+def device_stages(node: dict, launches: int, what: str, drain: str, card_of: dict) -> None:
+    """The node's admission_wait, h2d_dispatch and device_drain each
+    counted once per launch. A `TorchBackend` has no chip label (as a
+    single-device JaxBackend has none), so the scheduled dispatch stages
+    carry its device queue's label, "TorchBackend:<k>+<m>@<n>", and the
+    drain carries what the JAX call site gives it: that label in the
+    staged-apply driver (`drain="queue"`), "" in the encoder and the
+    stream (`drain=""`). `card_of` maps each queue label of the phase to
+    its backend's device: the label must name a backend on the card."""
+    label = node["stages"].get("h2d_dispatch", {"chip": ""})["chip"]
+    card0 = "cuda:0" if DEVICE == "cuda" else DEVICE
+    want = {"admission_wait": label, "h2d_dispatch": label,
+            "device_drain": label if drain == "queue" else ""}
+    for s, chip in want.items():
         acc = node["stages"].get(s, {"count": 0, "chip": ""})
-        if acc["count"] != launches or acc["chip"] != "cuda:0":
+        if acc["count"] != launches or acc["chip"] != chip or not label.startswith("TorchBackend:") \
+                or card_of.get(label) != card0:
             raise AssertionError(f"{what}: {s} counted {acc['count']} on {acc['chip']!r} "
-                                 f"for {launches} launches on cuda:0")
+                                 f"for {launches} launches on {chip!r}, a queue of the backend "
+                                 f"on {card_of.get(label)!r}")
 
 
 def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq_solo) -> tuple[dict, dict]:
@@ -1646,7 +1703,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
 
     from seaweedfs_tpu_torch.ec import (
         BitrotProtection, EcVolume, TorchBackend, VolumeInfo, ec_decode_volume, ec_encode_volume,
-        rebuild_ec_files, scrub_ec_volume,
+        device_queue, rebuild_ec_files, scrub_ec_volume,
     )
     from seaweedfs_tpu_torch.ec.decoder import find_dat_file_size
     from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH
@@ -1668,6 +1725,14 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
         return got
 
     reb_batches = -(-prot.shard_sizes[0] // DEFAULT_BATCH)
+    # every backend of the phase, alive until its device stages are
+    # checked, so each queue label still names its backend
+    cards: list = []
+
+    def card(**kw):
+        cards.append(TorchBackend(ctx, **kw))
+        return cards[-1]
+
     before = parse_exposition(metrics.REGISTRY.render().decode())
     trace.configure(enabled=False, ring_size=1024, slow_op_s=0.0)
     trace.reset()
@@ -1678,7 +1743,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
             trace.configure(enabled=armed)
             rs_kernels.reset_launches()
             t0 = time.perf_counter()
-            ec_encode_volume(tbase, ctx, backend=TorchBackend(ctx))
+            ec_encode_volume(tbase, ctx, backend=card())
             walls["armed" if armed else "disarmed"].append(time.perf_counter() - t0)
             if counted()["gf2_apply"] != n_batches:
                 raise AssertionError(f"encode launched {rs_kernels.LAUNCHES} for {n_batches} batches")
@@ -1696,7 +1761,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
             os.unlink(shard[i])
         rs_kernels.reset_launches()
         t0 = time.perf_counter()
-        if rebuild_ec_files(tbase, backend=TorchBackend(ctx)) != list(LOST):
+        if rebuild_ec_files(tbase, backend=card()) != list(LOST):
             raise AssertionError("armed rebuild regenerated other shards")
         reb_s = time.perf_counter() - t0
         if counted()["gf2_apply"] != reb_batches or any(sha256(shard[i]) != digests[i] for i in LOST):
@@ -1705,7 +1770,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
 
         # -- cold degraded reads, and the .heat sidecar ------------------------
         reads = degraded_records(records, dat_size)[:TRACE_READS]
-        backend = TorchBackend(ctx, impl="cuda_planes")
+        backend = card(impl="cuda_planes")
         src_fd = os.open(base + ".dat.orig", os.O_RDONLY)
         ev = EcVolume(tdir, 1, backend=backend)
         try:
@@ -1745,7 +1810,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
         repaired0 = series(before, "sw_ec_leaf_repairs_total", "outcome").get("repaired", 0.0)
         rs_kernels.reset_launches()
         t0 = time.perf_counter()
-        r = scrub_ec_volume(tbase, ctx, backend=TorchBackend(ctx), repair=True)
+        r = scrub_ec_volume(tbase, ctx, backend=card(), repair=True)
         scrub_s = time.perf_counter() - t0
         if r.leaf_repaired != {LEAF_DATA: [leaf]} or r.quarantined or r.rebuilt or r.refused \
                 or counted()["gf2_apply"] != 1 or sha256(shard[LEAF_DATA]) != digests[LEAF_DATA]:
@@ -1756,7 +1821,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
         os.unlink(shard[DEGRADED])
         rs_kernels.reset_launches()
         t0 = time.perf_counter()
-        if not ec_decode_volume(tbase, ctx, backend=TorchBackend(ctx, impl="cuda_planes")):
+        if not ec_decode_volume(tbase, ctx, backend=card(impl="cuda_planes")):
             raise AssertionError("armed decode found no live needle")
         dec_s = time.perf_counter() - t0
         if counted()["gf2_apply_planes"] != reb_batches or sha256(shard[DEGRADED]) != digests[DEGRADED]:
@@ -1767,7 +1832,7 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
         expected["ec.decode"] += 1
 
         # -- a phase 7a stream, and its batch encode ------------------------------
-        stream, _ = stream_phase(work, base + ".dat.orig", ctx, TRACE_STREAM_BYTES)
+        stream, _ = stream_phase(work, base + ".dat.orig", ctx, TRACE_STREAM_BYTES, cards)
         launches["gf2_apply"] += stream["launches"] + stream["batch_launches"]
         expected["ec.stream_encode"] += 1
         expected["ec.encode"] += 1  # write_ec_files alone is its own root
@@ -1810,25 +1875,29 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
     for d in docs:
         check_tree(d)
         by_op[d["op"]].append(d)
+    card_of = {device_queue._queue_label(be): str(be.device) for be in cards}
     for d in by_op["ec.encode_volume"]:
         (child,) = d["children"]
-        device_stages(child, n_batches, "encode")
-    device_stages(by_op["ec.rebuild"][0], reb_batches, "rebuild")
-    device_stages(by_op["ec.decode"][0]["children"][0], reb_batches, "decode's rebuild")
-    device_stages(by_op["ec.encode"][0], stream["batch_launches"], "the stream's batch encode")
+        device_stages(child, n_batches, "encode", "", card_of)
+    device_stages(by_op["ec.rebuild"][0], reb_batches, "rebuild", "queue", card_of)
+    device_stages(by_op["ec.decode"][0]["children"][0], reb_batches, "decode's rebuild", "queue", card_of)
+    device_stages(by_op["ec.encode"][0], stream["batch_launches"], "the stream's batch encode", "",
+                  card_of)
     streams = sorted(by_op["ec.stream_encode"], key=lambda d: d["start_ts"])
-    device_stages(streams[0], stream["launches"], "stream")
+    device_stages(streams[0], stream["launches"], "stream", "", card_of)
     mq_docs = streams[1:]
     mq_stages = collections.defaultdict(lambda: [0.0, 0])
     for d in mq_docs:
         for s, acc in d["stages"].items():
             mq_stages[s][0] += acc["seconds"]
             mq_stages[s][1] += acc["count"]
-    for s in ("h2d_dispatch", "device_drain"):
+    for s in ("admission_wait", "h2d_dispatch", "device_drain"):
         chips = {d["stages"][s]["chip"] for d in mq_docs if s in d["stages"]}
-        if mq_stages[s][1] != mq_launches or chips != {"cuda:0"}:
+        ok = all(c.startswith("TorchBackend:4+2@") for c in chips) if s != "device_drain" \
+            else chips == {""}
+        if mq_stages[s][1] != mq_launches or not ok or len(chips) != 1:
             raise AssertionError(f"partition: {s} counted {mq_stages[s][1]} on {chips} "
-                                 f"for {mq_launches} launches on cuda:0")
+                                 f"for {mq_launches} launches of one backend")
     effs = {}
     for d in docs:
         for node in walk(d):
@@ -1886,6 +1955,399 @@ def trace_phase(work, base, ctx, records, dat_size, digests, prot, n_batches, mq
         "roots": dict(got), "registry_samples": len(after),
         "chrome_trace": {"path": path, "events": n_events},
     }, launches
+
+
+SCHED_RESET_S = 1.0  # 10c's breaker reset timeout: shorter than an encode, so probes fail mid-run
+SCHED_THRESHOLD = 3  # 10c's breaker threshold: consecutive device failures before it opens
+JAX_FOREGROUND_BAR = 0.85  # the JAX package's acceptance bar (ec/device_queue.py DEFAULT_SHARES)
+
+
+def admitted(cls: str) -> tuple[float, float]:
+    """`sw_ec_queue_admitted_total` and `..._cost_total` of one class,
+    summed over every chip label, from the registry's text."""
+    from seaweedfs_tpu_torch.utils import metrics
+
+    parsed = parse_exposition(metrics.REGISTRY.render().decode())
+    out = []
+    for name in ("sw_ec_queue_admitted_total", "sw_ec_queue_admitted_cost_total"):
+        out.append(sum(v for (n, lab), v in parsed.items() if n == name and dict(lab)["cls"] == cls))
+    return out[0], out[1]
+
+
+def gauge_of(be) -> float:
+    """The breaker gauge's sample for one FallbackBackend."""
+    from seaweedfs_tpu_torch.ec import backend as backend_mod
+
+    label = be.chip_label or f"{type(be.primary).__name__}@{be._seq}"
+    return dict((lab["chip"], v) for lab, v in backend_mod._breaker_samples())[label]
+
+
+SCHED_TURN_READS = 30  # cold degraded reads per turn of 10b's scheduler on / off comparison
+
+
+def losing_card():
+    """`TorchBackend` subclass for 10c: a card that loses chosen batches
+    of a staged stream as a reset card would, with an OSError (the class
+    `FallbackBackend` fails over on). The `apply_staged` calls numbered
+    in `at_dispatch` raise before they launch; the `to_host` calls
+    numbered in `at_drain` raise after the batch ran. Made inside a
+    function: the smoke imports the package only once it has a card."""
+    from seaweedfs_tpu_torch.ec import TorchBackend
+
+    class LosingCard(TorchBackend):
+        def __init__(self, ctx, at_dispatch=(), at_drain=(), **kw):
+            super().__init__(ctx, **kw)
+            self.at_dispatch, self.at_drain = frozenset(at_dispatch), frozenset(at_drain)
+            self.dispatched = self.drained = 0
+
+        def apply_staged(self, coeffs, staged):
+            self.dispatched += 1
+            if self.dispatched in self.at_dispatch:
+                raise OSError(f"the card was lost at dispatch {self.dispatched}")
+            return super().apply_staged(coeffs, staged)
+
+        def to_host(self, result):
+            self.drained += 1
+            if self.drained in self.at_drain:
+                raise OSError(f"the card was lost at drain {self.drained}")
+            return super().to_host(result)
+
+    return LosingCard
+
+
+def sched_phase(work, base, ctx, records, dat_size, digests, n_batches, enc_s) -> tuple[dict, dict]:
+    """Phase 10: the device scheduler and the CPU failover, in
+    `work`/sched (hard links to the volume's .dat and .idx, made right
+    after phase 4). Returns (result, launches by kernel)."""
+    import threading
+
+    from seaweedfs_tpu_torch import faults
+    from seaweedfs_tpu_torch.ec import (
+        CpuBackend, EcVolume, FallbackBackend, QueueScope, TorchBackend, backend as backend_mod,
+        ec_encode_volume, get_backend, rebuild_ec_files,
+    )
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.utils import devices
+    from seaweedfs_tpu_torch.utils.retry import CircuitBreaker
+
+    src = os.path.join(work, "sched")
+    launches = dict.fromkeys(("gf2_apply", "gf2_apply_planes"), 0)
+    out: dict = {}
+    LosingCard = losing_card()
+
+    def volume_dir(name: str, shards_from: str | None = None) -> str:
+        """A directory holding links to the .dat and .idx, or (for a
+        rebuild) to a finished encode's sidecars and shards but LOST."""
+        d = os.path.join(work, "sched-" + name)
+        os.makedirs(d)
+        if shards_from is None:
+            for ext in (".dat", ".idx"):
+                os.link(os.path.join(src, "1" + ext), os.path.join(d, "1" + ext))
+        else:
+            keep = [".ecx", ".ecj", ".vif", ".ecsum"] + [
+                ctx.to_ext(i) for i in range(ctx.total) if i not in LOST]
+            for ext in keep:
+                if os.path.exists(shards_from + ext):
+                    os.link(shards_from + ext, os.path.join(d, "1" + ext))
+        return os.path.join(d, "1")
+
+    def same_shards(b: str, what: str, ids=None) -> None:
+        for i in (range(ctx.total) if ids is None else ids):
+            if sha256(b + ctx.to_ext(i)) != digests[i]:
+                raise AssertionError(f"{what}: shard {i} differs from phase 4's")
+
+    def counted() -> int:
+        for k in launches:
+            launches[k] += rs_kernels.LAUNCHES[k]
+        return rs_kernels.LAUNCHES["gf2_apply"]
+
+    # -- 10a. the probe and auto --------------------------------------------------
+    t0 = time.perf_counter()
+    found = devices.probe_accelerators(refresh=True)
+    probe_s = time.perf_counter() - t0
+    auto = get_backend("auto", K, M)
+    card0 = "cuda:0" if DEVICE == "cuda" else DEVICE
+    if found < 1 or not isinstance(auto, FallbackBackend) or type(auto.primary) is not TorchBackend \
+            or str(auto.primary.device) != card0 or any(backend_mod.AUTO_CPU.values()):
+        raise AssertionError(f"auto resolved to {auto!r} with {found} cards probed, "
+                             f"CPU resolutions {backend_mod.AUTO_CPU}")
+    out["10a"] = {"probe_accelerators": found, "probe_s": probe_s, "auto": type(auto).__name__,
+                  "primary": f"{type(auto.primary).__name__} on {auto.primary.device}",
+                  "cpu_resolutions": dict(backend_mod.AUTO_CPU)}
+    print("10a probe and auto: " + json.dumps(out["10a"]))
+
+    # -- 10b. an unarmed encode through auto --------------------------------------
+    b = volume_dir("b")
+    fg0 = admitted("foreground")
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    ec_encode_volume(b, ctx, backend=auto)
+    wall_b = time.perf_counter() - t0
+    fg1 = admitted("foreground")
+    n = counted()
+    same_shards(b, "10b encode through auto")
+    if (n, auto.fallback_batches, auto.breaker.state, gauge_of(auto), fg1[0] - fg0[0]) \
+            != (n_batches, 0, "closed", 0.0, n_batches):
+        raise AssertionError(f"10b: {n} launches, {auto.fallback_batches} batches on the CPU, "
+                             f"breaker {auto.breaker.state}, gauge {gauge_of(auto)}, "
+                             f"{fg1[0] - fg0[0]} foreground admissions for {n_batches} batches")
+    out["10b"] = {"seconds": wall_b, "phase4_seconds": enc_s, "launches": n,
+                  "foreground_admitted": fg1[0] - fg0[0], "foreground_cost": fg1[1] - fg0[1],
+                  "fallback_batches": auto.fallback_batches, "breaker": auto.breaker.state,
+                  "stage_seconds": dict(auto.stage_seconds)}
+    print("10b encode through auto (14 shards sha256-identical, no batch on the CPU, one launch "
+          "and one foreground admission per batch): " + json.dumps(out["10b"]))
+
+    # -- 10b'. the scheduler's cost: the same encode and cold degraded reads
+    # with the scope disabled and enabled, in turns, in one process ----------
+    reads = degraded_records(records, dat_size)[:SCHED_TURN_READS]
+    src_fd = os.open(base + ".dat.orig", os.O_RDONLY)
+    off_scope = QueueScope(enabled=False)
+    turns: dict = {"off": {"encode_s": [], "read_p50_ms": [], "read_p99_ms": []},
+                   "on": {"encode_s": [], "read_p50_ms": [], "read_p99_ms": []}}
+    try:
+        for on in (False, True, True, False):
+            scope = None if on else off_scope  # None: the default scope, enabled
+            fg0 = admitted("foreground")
+            rs_kernels.reset_launches()
+            t0 = time.perf_counter()
+            ec_encode_volume(b, ctx, backend=TorchBackend(ctx), scheduler=scope)
+            wall = time.perf_counter() - t0
+            if counted() != n_batches:
+                raise AssertionError(f"10b': encode launched {rs_kernels.LAUNCHES}")
+            same_shards(b, f"10b' encode with the scheduler {'on' if on else 'off'}")
+            ev = EcVolume(os.path.dirname(b), 1, backend=TorchBackend(ctx, impl="cuda_planes"),
+                          scheduler=scope)
+            lat = []
+            try:
+                ev.unmount_shards([DEGRADED])
+                rs_kernels.reset_launches()
+                for rec in reads:
+                    t0 = time.perf_counter()
+                    got = ev.read_needle(rec[0], cookie=rec[1]).data
+                    lat.append(time.perf_counter() - t0)
+                    if got != os.pread(src_fd, rec[3], rec[2] + 20):
+                        raise AssertionError(f"10b': degraded read of needle {rec[0]:x} differs")
+                misses = ev.interval_cache.loads
+            finally:
+                ev.close()
+            counted()
+            moved = admitted("foreground")[0] - fg0[0]
+            if rs_kernels.LAUNCHES["gf2_apply_planes"] != misses \
+                    or moved != ((n_batches + misses) if on else 0):
+                raise AssertionError(f"10b': {rs_kernels.LAUNCHES} for {misses} cache misses, "
+                                     f"{moved} admissions with the scheduler {'on' if on else 'off'}")
+            t = turns["on" if on else "off"]
+            t["encode_s"].append(wall)
+            t["read_p50_ms"].append(percentile_ms(lat, 50))
+            t["read_p99_ms"].append(percentile_ms(lat, 99))
+    finally:
+        os.close(src_fd)
+    out["10b_turns"] = {**turns, "reads_per_turn": len(reads),
+                        "encode_on_over_off": sum(turns["on"]["encode_s"]) / sum(turns["off"]["encode_s"]),
+                        "read_p50_on_over_off": sum(turns["on"]["read_p50_ms"])
+                        / sum(turns["off"]["read_p50_ms"])}
+    print("10b' the scheduler's cost, off and on in turns (outputs identical; admissions only when "
+          "on): " + json.dumps(out["10b_turns"]))
+
+    # -- 10c. failover on the card, armed by the smoke ----------------------------
+    fc = FallbackBackend(TorchBackend(ctx), CpuBackend(ctx), breaker=CircuitBreaker(
+        failure_threshold=SCHED_THRESHOLD, reset_timeout=SCHED_RESET_S))
+    c = volume_dir("c")
+    seen_open = []
+    stop = threading.Event()
+
+    def watch() -> None:  # the gauge, sampled while the armed encode runs
+        while not stop.wait(0.005):
+            seen_open.append(gauge_of(fc))
+
+    watcher = threading.Thread(target=watch)
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    watcher.start()
+    try:
+        with faults.injected("ec.backend.device.to_host", faults.io_error()) as h:
+            ec_encode_volume(c, ctx, backend=fc)
+    finally:
+        stop.set()
+        watcher.join()
+    wall_c1 = time.perf_counter() - t0
+    state_after, gauge_after = fc.breaker.state, gauge_of(fc)
+    n = counted()
+    same_shards(c, "10c armed encode")
+    to_card = h.hits  # batches that reached the card and failed in to_host
+    served = n - to_card  # launched batches whose result came back from the card
+    if served + fc.fallback_batches != n_batches or fc.fallback_batches != n_batches \
+            or to_card < SCHED_THRESHOLD or max(seen_open, default=0.0) != 1.0 \
+            or gauge_after != (1.0 if state_after == "open" else 0.0):
+        raise AssertionError(f"10c armed: {fc.fallback_batches} on the CPU of {n_batches}, {n} launches "
+                             f"for {to_card} batches on the card, gauge {max(seen_open, default=0.0)}"
+                             f" while armed, {gauge_after} at the end ({state_after})")
+    armed = {"seconds": wall_c1, "fallback_batches": fc.fallback_batches,
+             "device_served": served, "batches_to_card_failed_in_to_host": to_card,
+             "launches": n, "breaker_after": state_after, "gauge_max_while_armed": max(seen_open),
+             "gauge_samples": len(seen_open)}
+    while fc.breaker.state == "open":
+        time.sleep(0.05)
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    ec_encode_volume(c, ctx, backend=fc)
+    wall_c2 = time.perf_counter() - t0
+    n = counted()
+    same_shards(c, "10c encode after the reset timeout")
+    # The first batch is the half-open probe; the batches the pipeline
+    # dispatches while the probe is in flight find the breaker still
+    # half-open with its one probe taken, and go to the CPU (the JAX
+    # package's semantics); once the probe drains, the breaker is
+    # closed and the rest run on the card.
+    during_probe = fc.fallback_batches - n_batches
+    if n + during_probe != n_batches or not 0 <= during_probe < n_batches \
+            or fc.breaker.state != "closed" or gauge_of(fc) != 0.0:
+        raise AssertionError(f"10c probe: {n} launches, {during_probe} on the CPU, "
+                             f"breaker {fc.breaker.state}")
+    probe = {"seconds": wall_c2, "launches": n, "batches_on_cpu_while_probing": during_probe,
+             "fallback_batches": fc.fallback_batches, "breaker": fc.breaker.state}
+    # The rebuild through the staged-apply driver (run_staged_apply: the
+    # path of rebuild, decode's self-heal and wide reads) on a card that
+    # loses batches mid-stream. Two in a row fail at dispatch and one
+    # after a success fails at drain, so the breaker (threshold 3) never
+    # opens and every other batch runs on the card.
+    for i in LOST:
+        os.unlink(c + ctx.to_ext(i))
+    lossy = LosingCard(ctx, at_dispatch=(1, 2), at_drain=(2,))
+    fr = FallbackBackend(lossy, CpuBackend(ctx), breaker=CircuitBreaker(
+        failure_threshold=SCHED_THRESHOLD, reset_timeout=SCHED_RESET_S))
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    rebuilt = rebuild_ec_files(c, backend=fr)
+    wall_c3 = time.perf_counter() - t0
+    n = counted()
+    same_shards(c, "10c rebuild on a card that loses batches", LOST)
+    want_batches = -(-os.path.getsize(c + ctx.to_ext(0)) // (16 << 20))
+    lost = len(lossy.at_dispatch) + len(lossy.at_drain)
+    if rebuilt != list(LOST) or lossy.dispatched != want_batches or fr.fallback_batches != lost \
+            or n != want_batches - len(lossy.at_dispatch) or fr.breaker.state != "closed" \
+            or gauge_of(fr) != 0.0:
+        raise AssertionError(f"10c rebuild: {rebuilt}, {n} launches and {lossy.dispatched} dispatches "
+                             f"for {want_batches} batches, {fr.fallback_batches} on the CPU for {lost} "
+                             f"lost, breaker {fr.breaker.state}")
+    out["10c"] = {"armed_encode": armed, "probe_encode": probe,
+                  "rebuild": {"seconds": wall_c3, "batches": want_batches,
+                              "lost_at_dispatch": len(lossy.at_dispatch),
+                              "lost_at_drain": len(lossy.at_drain),
+                              "fallback_batches": fr.fallback_batches, "launches": n,
+                              "breaker": fr.breaker.state},
+                  "reset_timeout_s": SCHED_RESET_S, "threshold": SCHED_THRESHOLD}
+    print("10c failover on the card (every output sha256-identical; CPU batches == what the smoke "
+          "injected; launches == batches that reached the card): " + json.dumps(out["10c"]))
+
+    # -- 10d. contention on one backend under one QueueScope ----------------------
+    scope = QueueScope()
+    d = volume_dir("d")
+    r = volume_dir("r", shards_from=b)
+    rs_kernels.reset_launches()
+    t0 = time.perf_counter()
+    ec_encode_volume(d, ctx, backend=auto, scheduler=scope)
+    alone_s = time.perf_counter() - t0
+    same_shards(d, "10d encode alone")
+    errors: list = []
+    reb_wall = []
+
+    def rebuild() -> None:
+        try:
+            t = time.perf_counter()
+            if rebuild_ec_files(r, backend=auto, priority="recovery", scheduler=scope) != list(LOST):
+                raise AssertionError("10d rebuild regenerated other shards")
+            reb_wall.append(time.perf_counter() - t)
+        except BaseException as e:  # noqa: BLE001 - raised on the main thread
+            errors.append(e)
+
+    alone = {c: dict(v) for c, v in scope.stats_snapshot()[0]["classes"].items()}
+    t = threading.Thread(target=rebuild)
+    t0 = time.perf_counter()
+    t.start()
+    ec_encode_volume(d, ctx, backend=auto, scheduler=scope)
+    contended_s = time.perf_counter() - t0
+    t.join()
+    if errors:
+        raise errors[0]
+    n = counted()
+    same_shards(d, "10d encode beside the rebuild")
+    same_shards(r, "10d rebuild beside the encode", LOST)
+    (q,) = scope.stats_snapshot()
+    classes = q["classes"]
+    reb_n = -(-os.path.getsize(b + ctx.to_ext(0)) // (16 << 20))
+    if classes["foreground"]["admitted"] != 2 * n_batches or classes["recovery"]["admitted"] != reb_n \
+            or n != 2 * n_batches + reb_n or auto.fallback_batches != 0 or q["load"] != 0:
+        raise AssertionError(f"10d: {classes}, {n} launches, {auto.fallback_batches} on the CPU")
+    ratio = alone_s / contended_s
+    out["10d"] = {
+        "foreground_alone_s": alone_s, "foreground_beside_rebuild_s": contended_s,
+        "rebuild_s": reb_wall[0], "foreground_rate_ratio": ratio,
+        "jax_bar_foreground_at_least": JAX_FOREGROUND_BAR, "bar_met": ratio >= JAX_FOREGROUND_BAR,
+        "classes": {cls: {"admitted": st["admitted"] - alone[cls]["admitted"],
+                          "admitted_cost": st["admitted_cost"] - alone[cls]["admitted_cost"],
+                          "wait_s_total": st["wait_s_total"] - alone[cls]["wait_s_total"],
+                          "wait_s_max": st["wait_s_max"]}
+                    for cls, st in classes.items() if cls != "scrub"},
+        "window": q["window"], "queue": q["chip"],
+    }
+    print("10d foreground encode beside a recovery rebuild on one auto backend (both outputs "
+          "sha256-identical; per class for the contended run; the bar is an observation): "
+          + json.dumps(out["10d"]))
+
+    # -- 10e. streams -----------------------------------------------------------------
+    fg0 = admitted("foreground")
+    stream, stream_launches = stream_phase(work, base + ".dat.orig", ctx, TRACE_STREAM_BYTES)
+    fg1 = admitted("foreground")
+    launches["gf2_apply"] += stream_launches
+    if fg1[0] - fg0[0] != stream_launches:
+        raise AssertionError(f"10e stream: {fg1[0] - fg0[0]} foreground admissions for "
+                             f"{stream_launches} launches")
+    os.environ["SEAWEED_EC_STREAM_BACKEND"] = "auto"
+    try:
+        n_rec = int(MQ_RATE * TRACE_MQ_SECONDS)
+        keys, values = mq_source(n_rec)
+        ts0 = time.time_ns()
+        mq_root = os.path.join(work, "mq-sched")
+        fg0 = admitted("foreground")
+        pub = mq_publish(mq_root, "auto", n_rec, keys, values, ts0, backend_name="auto")
+        fg1 = admitted("foreground")
+        mq_launches = counted()
+        mq_be = pub["backend"]
+        rs_kernels.reset_launches()
+        recs = PartitionParity(mq_root, "bench", "auto", 0).recover()
+        counted()
+    finally:
+        os.environ.pop("SEAWEED_EC_STREAM_BACKEND", None)
+    if len(pub["calls"]) < TRACE_MQ_FLUSHES or len(recs) != n_rec or not isinstance(mq_be, FallbackBackend) \
+            or mq_be.fallback_batches != 0 or fg1[0] - fg0[0] != mq_launches:
+        raise AssertionError(f"10e partition: {len(pub['calls'])} flushes, {len(recs)} of {n_rec} "
+                             f"records, {type(mq_be).__name__} with {getattr(mq_be, 'fallback_batches', None)}"
+                             f" on the CPU, {fg1[0] - fg0[0]} admissions for {mq_launches} launches")
+    check_records(recs, keys, values, ts0)
+    del recs
+    shutil.rmtree(mq_root)
+    out["10e"] = {
+        "stream": {k: stream[k] for k in ("bytes", "flushes", "launches", "batch_launches",
+                                          "stream_seconds", "time_to_durable_parity_p50_ms")},
+        "stream_foreground_admitted": stream_launches,
+        "partition": {"records": n_rec, "flushes": len(pub["calls"]) + 1, "launches": mq_launches,
+                      "foreground_admitted": fg1[0] - fg0[0], "backend": type(mq_be).__name__,
+                      "fallback_batches": mq_be.fallback_batches},
+    }
+    print("10e stream through place_stream and an auto partition (sha256-identical, admissions "
+          "== launches, records replayed byte-exact, no batch on the CPU): " + json.dumps(out["10e"]))
+
+    # -- no fallback and no CPU resolution outside 10c ---------------------------
+    stray = [be for be in list(backend_mod._FALLBACKS) if be not in (fc, fr) and be.fallback_batches]
+    if stray or any(backend_mod.AUTO_CPU.values()):
+        raise AssertionError(f"batches on the CPU outside 10c: {[be.fallback_batches for be in stray]}, "
+                             f"CPU resolutions {backend_mod.AUTO_CPU}")
+    for name in ("b", "c", "d", "r"):
+        shutil.rmtree(os.path.join(work, "sched-" + name))
+    return out, launches
 
 
 def main() -> int:
@@ -1976,9 +2438,10 @@ def main() -> int:
               f"stage seconds {json.dumps(enc_stages)}; native plane {json.dumps(enc_plane)}")
 
         digests = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
-        os.makedirs(os.path.join(work, "trace"))  # phase 9's inputs: the same .dat and .idx
-        for ext in (".dat", ".idx"):
-            os.link(base + ext, os.path.join(work, "trace", "1" + ext))
+        for d in ("trace", "sched"):  # phases 9 and 10's inputs: the same .dat and .idx
+            os.makedirs(os.path.join(work, d))
+            for ext in (".dat", ".idx"):
+                os.link(base + ext, os.path.join(work, d, "1" + ext))
         py_plane = python_plane_encode(work, base, ctx, digests, prot)
         print("encode, native plane against Python plane (SEAWEED_EC_NATIVE=0) on the same .dat: "
               "14 shards sha256-identical, block and leaf CRC lists equal: " + json.dumps({
@@ -2072,9 +2535,15 @@ def main() -> int:
         traced, trace_launches = trace_phase(work, base, ctx, records, dat_size, digests, prot,
                                              n_batches, mq["solo_flush"])
         print("flight recorder armed (every output sha256-identical to its disarmed counterpart, "
-              "one root per op, span invariants hold, device stages == launches on cuda:0, "
+              "one root per op, span invariants hold, device stages == launches, labeled as the "
+              "JAX call sites label them, "
               f"overlap efficiency in [0, 1], registry renders, .heat read back): {json.dumps(traced)}")
         print(f"phase 9: {time.perf_counter() - t0:.3f} s")
+
+        # -- 10. the device scheduler and the CPU failover -------------------------------
+        t0 = time.perf_counter()
+        _, sched_launches = sched_phase(work, base, ctx, records, dat_size, digests, n_batches, enc_s)
+        print(f"phase 10: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2085,11 +2554,12 @@ def main() -> int:
         ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55",
          {"4 encode": enc_launches, "5 rebuild": reb_launches, "6b scrub": scrub_launches,
           "7a stream": stream_launches, "7b partition": mq_launches,
-          "9 flight recorder": trace_launches["gf2_apply"]},
+          "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
-          "9 flight recorder": trace_launches["gf2_apply_planes"]},
+          "9 flight recorder": trace_launches["gf2_apply_planes"],
+          "10 scheduler": sched_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

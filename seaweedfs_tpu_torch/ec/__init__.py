@@ -4,8 +4,12 @@ fly), decode the shards back into a volume, and scrub a volume (patch
 rotten leaves in place under a crash-safe journal, quarantine and
 rebuild what that cannot fix), and encode a stream while it is written
 (`EcStreamEncoder`: incremental parity, the stripe-cursor journal,
-`recover_stream`). The byte path of the volume paths is the native host
-plane: `native_io` (batched reads into pooled, page-locked landing
+`recover_stream`). Every staged path is a client of the per-chip device
+scheduler (`DeviceQueue`, `QueueScope`, the residency ledger) and of
+stream placement (`place_stream`); `FallbackBackend` fails over to the
+native `CpuBackend` on a lost device, and `get_backend("auto")` resolves
+to it where there is no card, both counted. The byte path of the volume
+paths is the native host plane: `native_io` (batched reads into pooled, page-locked landing
 matrices) and `FusedShardSink` (`make_shard_sink`).
 
 Port of the encode, rebuild, read, decode, scrub and streaming slices of
@@ -15,10 +19,20 @@ seaweedfs_tpu/ec; the files it reads and writes (.ec00.., .ecx, .ecj,
 """
 
 from . import native_io
-from .backend import CpuBackend, TorchBackend, get_backend
+from .backend import CpuBackend, FallbackBackend, TorchBackend, get_backend
 from .bitrot import BitrotError, BitrotProtection
+from .chip_pool import ChipBackend, ChipPool, Placement, place_stream, pool_for
 from .context import DEFAULT_EC_CONTEXT, ECContext, ECError
 from .decoder import ec_decode_volume
+from .device_queue import (
+    DeviceQueue,
+    DeviceStream,
+    QueueScope,
+    batch_cost,
+)
+from .device_queue import configure as configure_device_queue
+from .device_queue import default_scope as default_device_queue_scope
+from .device_queue import for_backend as device_queue_for_backend
 from .ec_volume import EcCookieMismatch, EcNotFoundError, EcVolume
 from .encoder import ec_encode_volume, write_ec_files, write_sorted_file_from_idx
 from .pipeline import FusedShardSink, PyShardSink, make_shard_sink
@@ -47,18 +61,25 @@ from .volume_info import VolumeInfo
 __all__ = [
     "BitrotError",
     "BitrotProtection",
+    "ChipBackend",
+    "ChipPool",
     "CpuBackend",
     "DEFAULT_EC_CONTEXT",
+    "DeviceQueue",
+    "DeviceStream",
     "ECContext",
     "ECError",
     "EcCookieMismatch",
     "EcNotFoundError",
     "EcStreamEncoder",
     "EcVolume",
+    "FallbackBackend",
     "FusedShardSink",
     "JournalError",
     "LeafPatch",
+    "Placement",
     "PyShardSink",
+    "QueueScope",
     "RateLimiter",
     "RepairJournal",
     "ScrubCursor",
@@ -68,12 +89,18 @@ __all__ = [
     "TorchBackend",
     "VolumeInfo",
     "apply_leaf_repair",
+    "batch_cost",
+    "configure_device_queue",
+    "default_device_queue_scope",
+    "device_queue_for_backend",
     "ec_decode_volume",
     "ec_encode_volume",
     "get_backend",
     "load_stream_journal",
     "make_shard_sink",
     "native_io",
+    "place_stream",
+    "pool_for",
     "rebuild_ec_files",
     "read_stream_data",
     "reconstruct_leaves",

@@ -1,18 +1,30 @@
-"""Reed-Solomon compute backends: `TorchBackend` and `CpuBackend`.
+"""Reed-Solomon compute backends: `TorchBackend`, `CpuBackend` and
+`FallbackBackend`.
 
-Port of seaweedfs_tpu/ec/backend.py (`_BackendBase`, `CpuBackend` and
-`JaxBackend`, ec/backend.py:85-277), with the whole RSBackend surface the
-EC pipeline is written against: encode, apply, reconstruct, verify and
-the staged hooks to_device -> encode_staged | apply_staged -> to_host.
-All of them take and return numpy uint8 arrays of shape (rows, n).
+Port of seaweedfs_tpu/ec/backend.py (`_BackendBase`, `CpuBackend`,
+`JaxBackend`, `FallbackBackend` and `get_backend`, ec/backend.py:85-494),
+with the whole RSBackend surface the EC pipeline is written against:
+encode, apply, reconstruct, verify and the staged hooks to_device ->
+encode_staged | apply_staged -> to_host. All of them take and return
+numpy uint8 arrays of shape (rows, n).
 
 - `CpuBackend`: the native C++ GF(2^8) apply of the port's host library
   (csrc/seaweed_native.cpp: PSHUFB nibble tables, AVX2 or SSSE3), the
   klauspost-equivalent CPU path. Reached only by name
-  (`get_backend("cpu", k, m)`) or by passing one in.
+  (`get_backend("cpu", k, m)`), by passing one in, or as the fallback
+  of a `FallbackBackend`.
 - `TorchBackend`: the GF(2) bit-matrix kernels on a torch device
   (ops/rs_kernels.py), on "cuda" unless the caller passes device="cpu"
-  (then the kernels' plain versions run).
+  (then the kernels' plain versions run). Like a single-device
+  `JaxBackend` it carries no `chip_label`: its device-queue label and
+  residency key are its own (ec/device_queue.py `_queue_label`), so two
+  backends on one card are two queues, as in the JAX package. A chip of
+  a pool (ec/chip_pool.py `ChipBackend`) carries "cuda:i".
+- `FallbackBackend`: a primary device backend and the native
+  `CpuBackend` behind a circuit breaker, failing over mid-batch (the
+  host copy of a dispatched batch is replayed on the CPU). Every batch
+  it serves on the CPU is counted (`fallback_batches`), and the seven
+  `ec.backend.device.*` fault points sit in front of the primary.
 
 On CUDA the staged hooks overlap copy and compute:
 
@@ -38,23 +50,34 @@ matrix through `gf2_apply` (JaxBackend impl="pallas"), "cuda_planes" the
 plane stack through `gf2_apply_planes` (JaxBackend impl="pallas_aligned").
 
 Entry points run on "cuda" unless the caller names the CPU; with no
-card, a default-constructed `TorchBackend` raises. There is no "auto":
-no default and no error path resolves to `CpuBackend`.
+card, a default-constructed `TorchBackend` raises. `get_backend("auto")`
+is reached only by name: it takes the card when the bounded probe
+(utils/devices.py) finds one, wrapped in a `FallbackBackend`, else the
+native `CpuBackend`; every CPU resolution is counted in `AUTO_CPU` and
+logged. A card the probe finds and the backend cannot use raises;
+`FallbackBackend` fails over only on a lost device (an OSError), never
+on a kernel or CUDA error.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..ops import gf256
 from ..ops.rs_torch import RSTorch
+from ..utils import metrics as _M
 from ..utils import native
+from ..utils.glog import logger
+from ..utils.retry import CircuitBreaker
 from .context import ECContext, ECError
 
 STAGES = ("disk_read", "pin", "h2d", "kernel", "d2h", "write")
@@ -92,9 +115,10 @@ class _BackendBase:
     verify over `apply` and `encode`, the synchronous staged hooks (a
     device backend overrides them) and the stage accounting.
 
-    `chip_label` is the `chip` label of the flight recorder's device
-    stages (utils/trace.py): the torch device string of a
-    `TorchBackend`, "" for a backend on no device."""
+    `chip_label` is the chip identity of a pool's chip ("cuda:i",
+    ec/chip_pool.py `ChipBackend`): the `chip` label of the flight
+    recorder's device stages (utils/trace.py) and the device queue's
+    label. A backend that is not a pool's chip has none ("")."""
 
     chip_label = ""
 
@@ -217,7 +241,6 @@ class TorchBackend(_BackendBase):
         else:
             raise ECError(f"TorchBackend runs on cuda or cpu, not {self.device}")
         super().__init__(ctx)
-        self.chip_label = str(self.device)
         self._rs = RSTorch(
             ctx.data_shards, ctx.parity_shards, impl=impl, device=self.device
         )
@@ -302,16 +325,244 @@ class TorchBackend(_BackendBase):
         return self.to_host(self.apply_staged(coeffs, self.to_device(data)))
 
 
+# Live FallbackBackend registry for the breaker gauge: sampled at
+# /metrics render time (a callback gauge), so an open breaker shows
+# without any code path publishing it. Weak refs: the gauge must never
+# keep a dead backend (and its device state) alive.
+_FALLBACKS: "weakref.WeakSet" = weakref.WeakSet()
+_fallback_seq = itertools.count()
+_log = logger("ec.backend")
+
+
+def _breaker_samples():
+    # One sample per chip label: several live FallbackBackends can wrap
+    # the same chip, and duplicate series in one exposition are invalid
+    # Prometheus. Any open breaker marks the chip degraded.
+    by_chip: dict[str, float] = {}
+    for be in list(_FALLBACKS):
+        label = be.chip_label or f"{type(be.primary).__name__}@{be._seq}"
+        is_open = 1.0 if be.breaker.state == "open" else 0.0
+        by_chip[label] = max(by_chip.get(label, 0.0), is_open)
+    for label, val in sorted(by_chip.items()):
+        yield {"chip": label}, val
+
+
+_M.REGISTRY.gauge(
+    "sw_ec_chip_breaker_open",
+    "EC device fallback breaker open per chip (1 = streams on CPU)",
+    ("chip",),
+    fn=_breaker_samples,
+)
+
+
+class FallbackBackend(_BackendBase):
+    """Device backend with a CPU escape hatch, mid-batch.
+
+    Wraps a primary (`TorchBackend`, or a pool's `ChipBackend`) and the
+    native `CpuBackend`, whose outputs are bit-identical by
+    construction. Every staged handle carries the host copy of its batch
+    beside the device handle, so when the device fails between dispatch
+    and drain (`to_host` is where a reset or hung card surfaces), the
+    batch is recomputed on the CPU and the stream goes on without loss.
+
+    A circuit breaker (utils/retry.py) stops feeding a failing device:
+    after `failure_threshold` consecutive device errors every batch goes
+    to the CPU until the reset timeout admits a probe. Each batch the
+    CPU serves is counted in `fallback_batches`.
+
+    Only a device that stopped answering fails over: an OSError, the
+    class the `ec.backend.device.*` fault points raise (and a hung
+    card's TimeoutError). Everything else re-raises untouched and does
+    not charge the breaker: caller errors (TypeError, ValueError,
+    ECError), which the CPU would raise alike; a kernel that does not
+    build or launch, and any CUDA error (RuntimeErrors), which must show
+    rather than hide behind the CPU; and InjectedCrash (a
+    BaseException), a simulated process death. The JAX package fails
+    over on any Exception but its caller errors; the port is narrower
+    so that a broken kernel cannot pass for a working one.
+
+    The stage table is the two backends' together: `add_stage` (the
+    pipeline's "disk_read" and "write") goes to the primary, and
+    `stage_seconds` sums the primary's device stages and the CPU's
+    "kernel" wall. `device` and `pin_skips` are the primary's, so the
+    native plane lands batches page-locked for it."""
+
+    def __init__(self, primary, fallback: CpuBackend, breaker=None):
+        self.ctx = primary.ctx
+        self.primary = primary
+        self.fallback = fallback
+        # both backends derive from one ctx, so they share the matrix
+        self.matrix = fallback.matrix
+        self.breaker = breaker or CircuitBreaker(failure_threshold=3, reset_timeout=60.0)
+        self.fallback_batches = 0  # batches served by the CPU
+        # a pool chip's identity ("cuda:i"): fault-point context, queue
+        # and gauge label
+        self.chip_label = getattr(primary, "chip_label", "")
+        self._seq = next(_fallback_seq)
+        self._count_lock = threading.Lock()
+        _FALLBACKS.add(self)
+
+    # -- the two stage tables as one ------------------------------------------
+
+    @property
+    def device(self):
+        return getattr(self.primary, "device", None)
+
+    @property
+    def stage_seconds(self) -> dict:
+        out = dict(self.primary.stage_seconds)
+        for k, v in self.fallback.stage_seconds.items():
+            out[k] = out.get(k, 0.0) + v
+        return out
+
+    @property
+    def pin_skips(self) -> int:
+        return self.primary.pin_skips
+
+    def add_stage(self, stage: str, seconds: float) -> None:
+        self.primary.add_stage(stage, seconds)
+
+    def reset_stages(self) -> None:
+        self.primary.reset_stages()
+        self.fallback.reset_stages()
+
+    # What fails over: a lost device. Caller errors, kernel build and
+    # launch errors and CUDA errors are none of it (see the class
+    # docstring), so they re-raise untouched.
+    _DEVICE_LOST = (OSError,)
+
+    def _device_failed(self, stage: str, e: Exception) -> None:
+        if not isinstance(e, self._DEVICE_LOST):
+            raise e
+        self.breaker.record_failure()
+        _log.warning(
+            "device backend failed in %s (%s); falling back to CPU (breaker %s)",
+            stage, e, self.breaker.state,
+        )
+
+    def _served_on_cpu(self) -> None:
+        with self._count_lock:
+            self.fallback_batches += 1
+
+    # -- synchronous surface -----------------------------------------------------
+
+    def encode(self, data: np.ndarray) -> np.ndarray:
+        if self.breaker.allows():
+            try:
+                faults.fire("ec.backend.device.encode", width=data.shape[1])
+                out = self.primary.encode(data)
+                self.breaker.record_success()
+                return out
+            except Exception as e:
+                self._device_failed("encode", e)
+        self._served_on_cpu()
+        return self.fallback.encode(data)
+
+    def apply(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
+        if self.breaker.allows():
+            try:
+                faults.fire("ec.backend.device.apply")
+                out = self.primary.apply(coeffs, data)
+                self.breaker.record_success()
+                return out
+            except Exception as e:
+                self._device_failed("apply", e)
+        self._served_on_cpu()
+        return self.fallback.apply(coeffs, data)
+
+    def reconstruct(
+        self, shards: dict[int, np.ndarray], want: list[int] | None = None
+    ) -> dict[int, np.ndarray]:
+        if self.breaker.allows():
+            try:
+                faults.fire("ec.backend.device.reconstruct")
+                out = self.primary.reconstruct(shards, want=want)
+                self.breaker.record_success()
+                return out
+            except Exception as e:
+                self._device_failed("reconstruct", e)
+        self._served_on_cpu()
+        return self.fallback.reconstruct(shards, want=want)
+
+    # -- staged pipeline ---------------------------------------------------------
+    #
+    # to_device handles are (host_batch, device_handle | None); dispatched
+    # handles are (kind, host_batch, device_result | None, coeffs | None),
+    # so to_host knows which computation to replay on the CPU when the
+    # device fails between dispatch and drain.
+
+    def to_device(self, data: np.ndarray):
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if self.breaker.allows():
+            try:
+                faults.fire(
+                    "ec.backend.device.to_device",
+                    width=data.shape[1], chip=self.chip_label,
+                )
+                return (data, self.primary.to_device(data))
+            except Exception as e:
+                self._device_failed("to_device", e)
+        return (data, None)
+
+    def encode_staged(self, staged):
+        host, dev = staged
+        if dev is not None:
+            try:
+                faults.fire("ec.backend.device.encode_staged", chip=self.chip_label)
+                return ("encode", host, self.primary.encode_staged(dev), None)
+            except Exception as e:
+                self._device_failed("encode_staged", e)
+        return ("encode", host, None, None)
+
+    def apply_staged(self, coeffs: np.ndarray, staged):
+        host, dev = staged
+        coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
+        if dev is not None:
+            try:
+                faults.fire("ec.backend.device.apply_staged", chip=self.chip_label)
+                return ("apply", host, self.primary.apply_staged(coeffs, dev), coeffs)
+            except Exception as e:
+                self._device_failed("apply_staged", e)
+        return ("apply", host, None, coeffs)
+
+    def to_host(self, result) -> np.ndarray:
+        kind, host, dev, coeffs = result
+        if dev is not None:
+            try:
+                faults.fire("ec.backend.device.to_host", chip=self.chip_label)
+                out = np.asarray(self.primary.to_host(dev), dtype=np.uint8)
+                self.breaker.record_success()
+                return out
+            except Exception as e:
+                self._device_failed("to_host", e)
+        # mid-batch failover: the host copy is recomputed on the CPU,
+        # bit-identical to what the device would have produced
+        self._served_on_cpu()
+        if kind == "apply":
+            return self.fallback.apply(coeffs, host)
+        return self.fallback.encode(host)
+
+
+# CPU resolutions of get_backend("auto"), counted where they happen, as
+# rs_kernels.MASKED counts the masked path: "no_card" when the probe
+# finds no card. A probe that finds a card never resolves to the CPU.
+AUTO_CPU = {"no_card": 0}
+
+
 @functools.lru_cache(maxsize=16)
 def get_backend(
     name: str, data_shards: int, parity_shards: int, impl: str = "cuda"
 ) -> _BackendBase:
     """name: cuda (`TorchBackend` on the card; impl: cuda | cuda_planes,
-    the kernel) or cpu (the native `CpuBackend`, which has one apply, so
-    an impl other than the default raises). There is no "auto": a
-    missing card raises rather than falling back to the CPU. The plain
-    torch versions on the CPU are `TorchBackend(ctx, device="cpu",
-    impl=...)`."""
+    the kernel), cpu (the native `CpuBackend`, which has one apply, so an
+    impl other than the default raises) or auto (the card wrapped in a
+    `FallbackBackend` when the bounded probe finds one, else
+    `CpuBackend`, counted in `AUTO_CPU` and logged). Where the probe
+    finds a card and the device backend does not build, auto raises, as
+    cuda does: the CPU never stands in for a card that is there. "cuda"
+    stays the default of every entry point; "auto" is reached only by
+    name. The plain torch versions on the CPU are
+    `TorchBackend(ctx, device="cpu", impl=...)`."""
     ctx = ECContext(data_shards, parity_shards)
     if name == "cpu":
         if impl != "cuda":
@@ -319,4 +570,14 @@ def get_backend(
         return CpuBackend(ctx)
     if name == "cuda":
         return TorchBackend(ctx, impl=impl)
-    raise ECError(f"unknown EC backend {name!r} (want cuda|cpu)")
+    if name == "auto":
+        # never ask the device in-process here: a wedged driver would
+        # hang the caller; the probe is a bounded subprocess
+        from ..utils.devices import accelerator_available
+
+        if accelerator_available():
+            return FallbackBackend(TorchBackend(ctx, impl=impl), CpuBackend(ctx))
+        AUTO_CPU["no_card"] += 1
+        _log.warning("auto EC backend: no CUDA device found by the probe; using the CPU")
+        return CpuBackend(ctx)
+    raise ECError(f"unknown EC backend {name!r} (want cuda|cpu|auto)")

@@ -264,7 +264,9 @@ def _recorder(stages: dict | None):
     return record
 
 
-def ec_decode_volume(base: str, ctx=None, backend=None, stages: dict | None = None) -> bool:
+def ec_decode_volume(
+    base: str, ctx=None, backend=None, stages: dict | None = None, scheduler=None
+) -> bool:
     """Shards -> normal volume. Returns False (a no-op) when no live
     needle remains. Layout and needle version come from the .vif.
 
@@ -273,7 +275,9 @@ def ec_decode_volume(base: str, ctx=None, backend=None, stages: dict | None = No
     present ones that fail the .ecsum sidecar, so the de-stripe reads k
     verified data shards; fewer than k good shards fails closed there.
     `stages`, when given, receives wall seconds per stage: "rebuild",
-    "disk_read", "write" and "fsync_publish"."""
+    "disk_read", "write" and "fsync_publish". `scheduler` is the
+    QueueScope the self-heal stream runs under, as a "recovery" client
+    of the per-chip scheduler (None = the process-wide default)."""
     from .rebuild import rebuild_ec_files
 
     vi = VolumeInfo.maybe_load(base + ".vif") or VolumeInfo()
@@ -290,7 +294,10 @@ def ec_decode_volume(base: str, ctx=None, backend=None, stages: dict | None = No
             shard_paths = [base + ctx.to_ext(i) for i in range(ctx.data_shards)]
             missing_ids = [i for i, p in enumerate(shard_paths) if not os.path.exists(p)]
             t0 = time.perf_counter()
-            rebuild_ec_files(base, ctx, backend=backend, only_shards=missing_ids)
+            rebuild_ec_files(
+                base, ctx, backend=backend, only_shards=missing_ids,
+                priority="recovery", scheduler=scheduler,
+            )
             _recorder(stages)("rebuild", time.perf_counter() - t0)
             write_dat_file(base, dat_size, vi.dat_file_size, shard_paths, stages=stages)
             return True

@@ -18,8 +18,12 @@ sibling fetch; the `.heat` sidecar, which carries `bytes_read` and
 `read_bytes`, `reconstructed_bytes`, fenced by the encode generation,
 the JAX package's file); the flight recorder's `ec.degraded_read` span
 per reconstructed interval (stages `sibling_read`, `crc_verify`,
-`reconstruct`, or the staged pipeline's; events `cache_hit` and
-`singleflight_wait`). Not ported yet (ROADMAP): device-queue admission.
+`reconstruct`, `admission_wait`, or the staged pipeline's; events
+`cache_hit` and `singleflight_wait`); both reconstruction paths as
+foreground clients of the per-chip scheduler (ec/device_queue.py): the
+single-shot one under one-shot `admission`, the staged one as a placed
+foreground stream, under the volume's `scheduler` (a QueueScope; None =
+the process-wide default).
 
 `stage_seconds` accumulates the wall time of every degraded read's
 stages: "sibling_read" (preads of the sources), "crc_verify" (sidecar
@@ -52,6 +56,7 @@ from .backend import _BackendBase, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import DEFAULT_EC_CONTEXT, QUARANTINE_SUFFIX, ECContext, ECError
 from .decoder import record_actual_size
+from .device_queue import admission, batch_cost, resolve_scope
 from .locate import locate_data
 from .pipeline import run_staged_apply
 from .repair_journal import recover_volume_journals
@@ -97,6 +102,7 @@ class EcVolume:
         remote_reader=None,
         interval_cache_bytes: int = DEFAULT_INTERVAL_CACHE_BYTES,
         interval_cache: ChunkCache | None = None,
+        scheduler=None,
     ):
         """`backend` is a backend object (`TorchBackend`, `CpuBackend`), or
         a name that the port's `get_backend(name, k, m, impl=impl)`
@@ -111,7 +117,11 @@ class EcVolume:
         `interval_cache_bytes` bounds the LRU of verified reconstructed
         extents (0 disables); `interval_cache` hands in a cache shared
         by several volumes (keys are volume-namespaced, and close() drops
-        only this volume's extents)."""
+        only this volume's extents).
+
+        `scheduler` is the QueueScope whose admission and placement the
+        degraded reconstructions run under (None = the process-wide
+        default scope)."""
         self.volume_id = volume_id
         self.collection = collection
         self.base = base_file_name(directory, collection, volume_id)
@@ -160,6 +170,7 @@ class EcVolume:
                 backend, self.ctx.data_shards, self.ctx.parity_shards, impl=impl
             )
         self.backend = backend
+        self.scheduler = scheduler
         self.remote_reader = remote_reader
         # .ecsum, loaded at the first degraded read; False = not loaded
         # yet (absence is probed again on every degraded read, so a
@@ -401,8 +412,13 @@ class EcVolume:
         if size >= 2 * STAGED_RECOVERY_BATCH:
             out = self._reconstruct_staged(shard_id, sources, size, sp)
         else:
-            with trace.stage(sp, "reconstruct"):
-                rec = self.backend.reconstruct(sources, want=[shard_id])
+            # the needle-read shape: still a client of the shared per-chip
+            # scheduler, a foreground window slot for the call, so a
+            # serving read goes ahead of colocated recovery and scrub
+            queue = resolve_scope(self.scheduler).for_backend(self.backend)
+            with admission(queue, "foreground", batch_cost(1, size), span=sp):
+                with trace.stage(sp, "reconstruct"):
+                    rec = self.backend.reconstruct(sources, want=[shard_id])
             out = np.asarray(rec[shard_id], dtype=np.uint8).tobytes()
         self._add_stage("reconstruct", time.perf_counter() - t0)
         with self._stats_lock:
@@ -473,6 +489,11 @@ class EcVolume:
         run_staged_apply(
             self.backend, coeffs, produce, consume,
             describe="ec degraded reconstruction",
+            # degraded reads are serving traffic: they go ahead of any
+            # colocated recovery or scrub stream at batch granularity
+            priority="foreground",
+            scheduler=self.scheduler,
+            cost_hint=size,
             span=sp, read_stage="stage_batch",
         )
         return out.tobytes()

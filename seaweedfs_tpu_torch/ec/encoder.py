@@ -19,10 +19,17 @@ native sink writes the 14 shard streams and rolls their CRCs. With
 SEAWEED_EC_NATIVE=0, or an armed fault registry, a preadv loop and
 `PyShardSink` give the same bytes.
 
+The encode is serving traffic: it is placed once (ec/chip_pool.py
+`place_stream`, under `scheduler`, the QueueScope; None = the
+process-wide default) and dispatches every batch as a foreground
+`DeviceStream` of the chip's `DeviceQueue` (ec/device_queue.py), at
+cost `batch_cost(m, width)`. A disabled scope dispatches directly.
+
 Flight recorder (utils/trace.py): `ec_encode_volume` is the root span
 `ec.encode_volume` (stages `index_sort`, `fsync_publish`) over the
-pipeline's `ec.encode` span (`disk_read`, `h2d_dispatch`,
-`device_drain`, `write_sink`, `queue_wait`, `fsync_publish`).
+pipeline's `ec.encode` span (`disk_read`, `admission_wait`,
+`h2d_dispatch`, `device_drain`, `write_sink`, `queue_wait`,
+`fsync_publish`).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..utils.fs import fsync_dir
 from . import native_io
 from .backend import _BackendBase, get_backend
 from .bitrot import BitrotProtection
+from .chip_pool import place_stream
 from .context import (
     BITROT_LEAF_SIZE,
     DEFAULT_EC_CONTEXT,
@@ -48,10 +56,14 @@ from .context import (
     ECContext,
     ECError,
 )
+from .device_queue import batch_cost, open_stream
 from .pipeline import make_shard_sink, run_pipeline
 from .volume_info import VolumeInfo
 
 DEFAULT_BATCH = 16 * 1024 * 1024
+# A stream whose source bytes reach this is "wide": on an idle pod it
+# may keep a column mesh (ec/chip_pool.py).
+WIDE_STREAM_BYTES = 1 << 30
 
 
 def _pread_padded(fd: int, buf: np.ndarray, offset: int) -> None:
@@ -107,10 +119,13 @@ def write_ec_files(
     large_block_size: int = LARGE_BLOCK_SIZE,
     small_block_size: int = SMALL_BLOCK_SIZE,
     leaf_size: int = BITROT_LEAF_SIZE,
+    scheduler=None,
 ) -> BitrotProtection:
     """Stripe and encode base.dat into base.ec00..; returns the bitrot
     CRCs rolled in the same pass. `leaf_size` > 0 also rolls the v2
-    sidecar's per-leaf CRCs; 0 gives a v1 (block-level) sidecar."""
+    sidecar's per-leaf CRCs; 0 gives a v1 (block-level) sidecar.
+    `scheduler` is the QueueScope this encode stream runs under (None =
+    the process-wide default)."""
     if backend is None:
         backend = get_backend("cuda", ctx.data_shards, ctx.parity_shards)
     k, total = ctx.data_shards, ctx.total
@@ -122,17 +137,14 @@ def write_ec_files(
         "ec.encode", name=os.path.basename(base), base=base,
         batch_size=batch_size,
     )
-    chip = getattr(backend, "chip_label", "")
     try:
         for i in range(total):
             # buffering=0: whole >= 1 MiB batches, where a userspace
             # buffer adds a copy and saves nothing
             outputs.append(open(base + ctx.to_ext(i), "wb", buffering=0))
         sink = make_shard_sink(outputs, leaf_size=leaf_size)
-        plan = list(batch_plan(
-            os.fstat(dat_fd).st_size, k, batch_size,
-            large_block_size, small_block_size,
-        ))
+        dat_size = os.fstat(dat_fd).st_size
+        plan = list(batch_plan(dat_size, k, batch_size, large_block_size, small_block_size))
         pool = None
         if native_io.enabled() and not faults.active():
             pool = native_io.BufferPool(k, device=getattr(backend, "device", None))
@@ -153,17 +165,40 @@ def write_ec_files(
                     native_io.read_batch([dat_fd] * k, offsets, data, pad_eof=True)
                 yield data
 
+        # Encode is serving traffic: a foreground stream of the shared
+        # per-chip scheduler, placed whole on one chip of a pool.
+        m = ctx.parity_shards
+        placement = place_stream(
+            backend, "foreground",
+            scope=scheduler,
+            # total admission cost: m output rows per column of the
+            # per-shard extent
+            cost_hint=batch_cost(m, -(-dat_size // k)),
+            wide=dat_size >= WIDE_STREAM_BYTES,
+            span=sp,
+        )
+        enc_backend = placement.backend
+        chip = getattr(enc_backend, "chip_label", "")
+        stream = open_stream(placement.queue, "foreground", label="ec encode", span=sp, chip=chip)
+
         def transform(data):
-            # H2D + kernel launch, both asynchronous on a device
-            with trace.stage(sp, "h2d_dispatch", chip):
-                return data, backend.encode_staged(backend.to_device(data))
+            # H2D + kernel launch, both asynchronous on a device; with the
+            # scheduler the chip-wide in-flight bound is the queue's window
+            ticket, handle = stream.dispatch(
+                lambda: enc_backend.encode_staged(enc_backend.to_device(data)),
+                batch_cost(m, data.shape[1]),
+            )
+            return data, ticket, handle
 
         def consume(item):
-            data, handle = item
+            data, ticket, handle = item
             # Blocks until this batch's parity is on the host; meanwhile
             # the calling thread dispatches the batches queued behind it.
-            with trace.stage(sp, "device_drain", chip):
-                parity = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
+            try:
+                with trace.stage(sp, "device_drain", chip):
+                    parity = np.ascontiguousarray(enc_backend.to_host(handle), dtype=np.uint8)
+            finally:
+                stream.release(ticket)
             t0 = time.perf_counter()
             with trace.stage(sp, "write_sink"):
                 sink.append_rows([*data, *parity])
@@ -173,18 +208,22 @@ def write_ec_files(
                 # matrix may carry a later batch
                 pool.put(data)
 
-        run_pipeline(
-            produce,
-            transform,
-            consume,
-            # up to ~4 batches can still be draining: allow each 16 MiB/s
-            # of slow-disk write plus a fixed device-fetch allowance
-            join_timeout=60.0 + 4.0 * batch_size / (16 << 20),
-            describe="ec encode pipeline",
-            record=backend.add_stage,
-            span=sp,
-            stage_names=("disk_read", None, None),
-        )
+        try:
+            run_pipeline(
+                produce,
+                transform,
+                consume,
+                # up to ~4 batches can still be draining: allow each 16
+                # MiB/s of slow-disk write plus a fixed device-fetch allowance
+                join_timeout=60.0 + 4.0 * batch_size / (16 << 20),
+                describe="ec encode pipeline",
+                record=backend.add_stage,
+                span=sp,
+                stage_names=("disk_read", None, None),
+            )
+        finally:
+            stream.close()
+            placement.close()
         # Durability barrier before the sidecar may name these shards,
         # issued in parallel so the shard files drain concurrently.
         with trace.stage(sp, "fsync_publish"):
@@ -206,10 +245,12 @@ def ec_encode_volume(
     batch_size: int = DEFAULT_BATCH,
     version: int = 3,
     leaf_size: int = BITROT_LEAF_SIZE,
+    scheduler=None,
 ) -> VolumeInfo:
     """Full encode of one volume's files. Order matters: .ecx first
     (write-race close, volume_grpc_erasure_coding.go:107-116), then the
-    shards, fsync'd, then .ecsum and .vif."""
+    shards, fsync'd, then .ecsum and .vif. `scheduler` is the QueueScope
+    the encode stream runs under (None = the process-wide default)."""
     if not os.path.exists(base + ".dat"):
         raise ECError(f"{base}.dat not found")
     if not os.path.exists(base + ".idx"):
@@ -222,7 +263,9 @@ def ec_encode_volume(
         with trace.activate(sp):
             with trace.stage(sp, "index_sort"):
                 write_sorted_file_from_idx(base)
-            prot = write_ec_files(base, ctx, backend, batch_size, leaf_size=leaf_size)
+            prot = write_ec_files(
+                base, ctx, backend, batch_size, leaf_size=leaf_size, scheduler=scheduler,
+            )
             prot.generation = encode_ts_ns
             with trace.stage(sp, "fsync_publish"):
                 prot.save(base + ".ecsum")

@@ -3,8 +3,9 @@ and decode's de-stripe, and the shard sinks.
 
 Port of seaweedfs_tpu/ec/pipeline.py: `run_pipeline` (disk reads in a
 reader thread / H2D + kernel launch in the calling thread / D2H + shard
-writes with CRCs rolled in a writer thread), `run_staged_apply` without
-the per-chip scheduler, `FusedShardSink` (the native sink), `PyShardSink`
+writes with CRCs rolled in a writer thread), `run_staged_apply` as a
+client of the per-chip scheduler (ec/device_queue.py, placement by
+ec/chip_pool.py), `FusedShardSink` (the native sink), `PyShardSink`
 and `make_shard_sink`. The flight recorder (utils/trace.py) tags each
 stage of a traced op's span, as in the JAX package.
 
@@ -216,56 +217,116 @@ def run_staged_apply(
     queue_size: int = 2,
     join_timeout: float = 120.0,
     describe: str = "ec staged apply",
+    priority: str = "recovery",
+    device_queue="auto",
+    scheduler=None,
+    cost_hint: int = 0,
+    wide: bool = False,
     span=None,
     read_stage: str = "disk_read",
 ) -> None:
-    """The staged device `apply` driver of rebuild: run_pipeline where
-    the transform stage is `backend.apply_staged(coeffs,
-    backend.to_device(batch))` (non-blocking H2D + kernel launch) and the
-    writer stage forces the result with `backend.to_host` before handing
-    the host uint8 matrix to `consume`. Batch N computes on the device
-    while batch N+1 uploads and batch N-1 drains.
+    """The staged device `apply` driver of rebuild, decode's self-heal
+    and wide degraded reads: run_pipeline where the transform stage is
+    `backend.apply_staged(coeffs, backend.to_device(batch))`
+    (non-blocking H2D + kernel launch) and the writer stage forces the
+    result with `backend.to_host` before handing the host uint8 matrix
+    to `consume`. Batch N computes on the device while batch N+1 uploads
+    and batch N-1 drains.
 
     `produce()` yields `(tag, batch)` pairs; `consume(tag, out)` gets the
     tag back untouched. The backend's `add_stage` receives the wall time
     of the produce ("disk_read") and consume ("write") stages.
 
+    The dispatch is a client of the shared per-chip scheduler
+    (ec/device_queue.py): `priority` tags the stream's class
+    (foreground | recovery | scrub) and `device_queue` selects the queue:
+    "auto" resolves the stream's placement (ec/chip_pool.py
+    `place_stream` under `scheduler`, the QueueScope; None = the
+    process-wide default scope, which is enabled), an explicit
+    DeviceQueue pins one, None dispatches without admission. `cost_hint`
+    is the stream's estimated total cost for least-loaded routing and
+    `wide` lets a lone stream keep a mesh; per-batch admission costs
+    `batch_cost(out_rows, width)`.
+
     `span` is the op's flight-recorder span (utils/trace.py; None =
     disarmed): the produce stage is tagged `read_stage` per batch, the
     H2D upload + kernel launch "h2d_dispatch", the blocking to_host
-    "device_drain" (both labeled with the backend's chip), the consume
-    callback "write_sink" and bounded-queue backpressure "queue_wait".
+    "device_drain", the consume callback "write_sink", bounded-queue
+    backpressure "queue_wait" and, on the scheduled path, the admission
+    wait "admission_wait", labeled as in the JAX package (the chip, or
+    on the scheduled path the queue's label).
     """
     coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
-    chip = getattr(backend, "chip_label", "")
+    placement = None
+    if device_queue == "auto":
+        from .chip_pool import place_stream
 
-    def transform(item):
-        tag, batch = item
-        with trace.stage(span, "h2d_dispatch", chip):
-            return tag, backend.apply_staged(coeffs, backend.to_device(batch))
+        placement = place_stream(
+            backend, priority, scope=scheduler, cost_hint=cost_hint, wide=wide, span=span,
+        )
+        backend = placement.backend
+        device_queue = placement.queue
 
-    def drain(item):
-        tag, handle = item
-        # Blocks until the device result is ready; meanwhile the calling
-        # thread keeps dispatching the batches queued behind it.
-        with trace.stage(span, "device_drain", chip):
-            out = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
+    def write(tag, out):
         t0 = _time.perf_counter()
         with trace.stage(span, "write_sink"):
             consume(tag, out)
         backend.add_stage("write", _time.perf_counter() - t0)
 
-    run_pipeline(
-        produce,
-        transform,
-        drain,
-        queue_size=queue_size,
-        join_timeout=join_timeout,
-        describe=describe,
-        record=backend.add_stage,
-        span=span,
-        stage_names=(read_stage, None, None),
-    )
+    from .device_queue import batch_cost, open_stream
+
+    out_rows = int(coeffs.shape[0])
+    # with no queue (the scheduler disabled) a DirectStream dispatches at
+    # once, and the device stages carry the chip as the JAX package's
+    # unscheduled path labels them
+    chip = getattr(backend, "chip_label", "") if device_queue is None else device_queue.label
+    stream = open_stream(device_queue, priority, label=describe, span=span, chip=chip)
+
+    def transform(item):
+        tag, batch = item
+        width = (
+            int(batch.shape[-1])
+            if getattr(batch, "ndim", 1) > 1
+            else int(getattr(batch, "nbytes", len(batch)))
+        )
+        ticket, handle = stream.dispatch(
+            lambda: backend.apply_staged(coeffs, backend.to_device(batch)),
+            batch_cost(out_rows, width),
+        )
+        return tag, ticket, handle
+
+    def drain(item):
+        tag, ticket, handle = item
+        # Blocks until the device result is ready; meanwhile the calling
+        # thread keeps dispatching the batches queued behind it.
+        try:
+            with trace.stage(span, "device_drain", chip):
+                out = np.ascontiguousarray(backend.to_host(handle), dtype=np.uint8)
+        finally:
+            # success or failure, the window slot frees: a dying stream
+            # must not wedge the chip for the other streams
+            stream.release(ticket)
+        write(tag, out)
+
+    try:
+        run_pipeline(
+            produce,
+            transform,
+            drain,
+            queue_size=queue_size,
+            join_timeout=join_timeout,
+            describe=describe,
+            record=backend.add_stage,
+            span=span,
+            stage_names=(read_stage, None, None),
+        )
+    finally:
+        # batches parked in an aborted pipeline's write queue never reach
+        # drain: their slots are released here, and the placement's
+        # charge drains with the stream
+        stream.close()
+        if placement is not None:
+            placement.close()
 
 
 # --------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Port of seaweedfs_tpu/ec/rebuild.py (reference ec_encoder.go
 generateMissingEcFiles), with the three publish-seam fault points
 (`ec.rebuild.before_fsync`, `ec.rebuild.before_rename`,
-`ec.rebuild.after_rename`) and the armed-registry byte path below. Not
-ported yet (ROADMAP): the `priority` and `scheduler` arguments. The
+`ec.rebuild.after_rename`), the armed-registry byte path below, and the
+`priority` and `scheduler` of the staged stream (a "recovery" client of
+the per-chip scheduler, ec/device_queue.py, by default). The
 correctness envelope it keeps:
 
 - bitrot sidecar verify-and-exclude: present-but-corrupt shards are
@@ -36,7 +37,7 @@ against the sidecar, which raises and publishes nothing.
 
 Flight recorder (utils/trace.py): the root span `ec.rebuild` (a child
 under a decode) with stages `verify`, the pipeline's `disk_read`,
-`h2d_dispatch`, `device_drain`, `write_sink`, `queue_wait` (on the chaos
+`admission_wait`, `h2d_dispatch`, `device_drain`, `write_sink`, `queue_wait` (on the chaos
 path `reconstruct` in place of the two device stages) and
 `fsync_publish`.
 """
@@ -56,7 +57,7 @@ from . import native_io
 from .backend import _BackendBase, _decode_coeffs, get_backend
 from .bitrot import BitrotError, BitrotProtection
 from .context import BITROT_BLOCK_SIZE, DEFAULT_EC_CONTEXT, ECContext, ECError
-from .encoder import DEFAULT_BATCH
+from .encoder import DEFAULT_BATCH, WIDE_STREAM_BYTES
 from .pipeline import make_shard_sink, run_pipeline, run_staged_apply
 from .volume_info import VolumeInfo
 
@@ -147,12 +148,20 @@ def rebuild_ec_files(
     unsafe_ignore_sidecar: bool = False,
     batch_size: int = DEFAULT_BATCH,
     only_shards: list[int] | None = None,
+    priority: str = "recovery",
+    scheduler=None,
 ) -> list[int]:
     """Regenerate missing/corrupt shard files; returns regenerated ids.
 
     `only_shards` restricts which ABSENT shards are regenerated (a
     subset-holding server must not mint local copies of shards placed on
     peers); present-but-corrupt shards are always replaced.
+
+    `priority` tags the staged stream's class on the shared per-chip
+    scheduler (ec/device_queue.py): "recovery" by default (rebuild and
+    decode self-heal restore redundancy behind serving traffic); a
+    scrub passes "scrub". `scheduler` is the QueueScope the stream runs
+    under (None = the process-wide default scope).
     """
     # Sidecar first: it records the shard ratio too, which backs up the
     # .vif for config resolution and cross-checks it.
@@ -197,12 +206,12 @@ def rebuild_ec_files(
     # root span of the rebuild (a child when a decode span is active)
     sp = trace.start(
         "ec.rebuild", name=os.path.basename(base), base=base,
-        present=len(present), missing=sorted(missing),
+        present=len(present), missing=sorted(missing), priority=priority,
     )
     try:
         return _rebuild_ec_files_traced(
             base, ctx, backend, unsafe_ignore_sidecar, batch_size,
-            prot, present, missing, sp,
+            prot, present, missing, priority, scheduler, sp,
         )
     finally:
         trace.finish(sp)
@@ -210,7 +219,7 @@ def rebuild_ec_files(
 
 def _rebuild_ec_files_traced(
     base, ctx, backend, unsafe_ignore_sidecar, batch_size,
-    prot, present, missing, sp,
+    prot, present, missing, priority, scheduler, sp,
 ) -> list[int]:
     k = ctx.data_shards
     # An armed fault registry takes the chaos byte path: mutating faults
@@ -314,7 +323,8 @@ def _rebuild_ec_files_traced(
             backend = get_backend("cuda", ctx.data_shards, ctx.parity_shards)
         bad_src = _attempt_rebuild(
             base, ctx, backend, prot, src, targets, shard_size, batch_size,
-            chaos, inline_verify=checked, verified_ok=verified_ok, span=sp,
+            chaos, inline_verify=checked, verified_ok=verified_ok,
+            priority=priority, scheduler=scheduler, span=sp,
         )
         if bad_src:
             # Confirmed on-disk rot in a source: exclude it and retry.
@@ -335,6 +345,8 @@ def _attempt_rebuild(
     chaos: bool,
     inline_verify: bool,
     verified_ok: set[int],
+    priority: str = "recovery",
+    scheduler=None,
     span=None,
 ) -> list[int]:
     """One pipelined reconstruction attempt. Publishes and returns [] on
@@ -470,7 +482,13 @@ def _attempt_rebuild(
             run_staged_apply(
                 backend, coeffs, produce, consume,
                 join_timeout=join_timeout, describe="ec rebuild pipeline",
-                span=span,
+                priority=priority, scheduler=scheduler, span=span,
+                # total stream cost for least-loaded routing: every
+                # target row spans the whole shard extent
+                cost_hint=len(targets) * shard_size,
+                # a lone huge rebuild on an idle pod keeps a mesh, as a
+                # wide encode does
+                wide=k * shard_size >= WIDE_STREAM_BYTES,
             )
     except _SourceReadError as e:
         _cleanup_temps()

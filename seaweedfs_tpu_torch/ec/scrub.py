@@ -4,9 +4,9 @@ cannot fix and rebuild it — the self-healing pass the reference runs as
 ec_volume scrubbing plus shell-driven ec.rebuild.
 
 Port of seaweedfs_tpu/ec/scrub.py (`RateLimiter`, `ScrubCursor`,
-`ScrubReport`, `_quarantine`, `scrub_ec_volume`). Not ported yet
-(ROADMAP): `ScrubDaemon`, which walks a `Store`'s volumes, and the
-`scheduler` argument. Leaf reconstruction and the quarantine rebuild
+`ScrubReport`, `_quarantine`, `scrub_ec_volume` with its `scheduler`).
+Not ported yet (ROADMAP): `ScrubDaemon`, which walks a `Store`'s
+volumes. Leaf reconstruction and the quarantine rebuild
 run on the backend given, by default the card: on CUDA each contiguous
 range of rotten leaves is one `gf2_apply` launch, and the rebuild runs
 its batches through the same kernel. Each leaf repair is one
@@ -245,6 +245,7 @@ def scrub_ec_volume(
     bad_retention_s: float | None = None,
     journal_ttl_s: float | None = 86400.0,
     stages: dict | None = None,
+    scheduler=None,
 ) -> ScrubReport:
     """One scrub pass (possibly budget-sliced) over one EC volume.
 
@@ -283,6 +284,10 @@ def scrub_ec_volume(
 
     `stages` gains the leaf repairs' wall seconds: "crc_verify",
     "reconstruct" and "repair_patch" (ec/repair_journal.py).
+
+    `scheduler` is the QueueScope the repair rebuild's stream runs under
+    (None = the process-wide default scope); scrub-initiated repair is
+    the lowest class ("scrub") on the shared device queue.
     """
     report = ScrubReport(base=base)
     ecsum = base + ".ecsum"
@@ -560,7 +565,13 @@ def scrub_ec_volume(
     want_rebuild = sorted(set(report.corrupt_shards) | set(report.missing_shards))
     if repair and want_rebuild:
         def attempt() -> list[int]:
-            return rebuild_ec_files(base, ctx, backend=backend, only_shards=want_rebuild)
+            # the lowest class on the shared device queue: it yields the
+            # chip to serving and to recovery rebuilds, keeping only its
+            # minimum share under contention
+            return rebuild_ec_files(
+                base, ctx, backend=backend, only_shards=want_rebuild,
+                priority="scrub", scheduler=scheduler,
+            )
 
         def run() -> list[int]:
             return retry_call(attempt, rebuild_policy, describe=f"rebuild {base}")

@@ -34,14 +34,17 @@ stripes sealed), fsyncs every touched shard, then advances the journal.
 extents, lets the embedder frame-scan the linear bytes, and rewrites any
 parity that disagrees with the data.
 
-What the port leaves out: placement and device-queue admission (there
-is no `place_stream`, `batch_cost` or `DeviceQueue`; every delta takes
-the backend directly, as `run_staged_apply` does).
+Placement and admission: the stream is placed once at construction
+(ec/chip_pool.py `place_stream` under `scheduler`, the QueueScope; None =
+the process-wide default) and every parity delta is admitted to the
+chip's `DeviceQueue` as a foreground batch at `batch_cost(m, width)`
+(ec/device_queue.py); a disabled scope dispatches directly.
 
 Observability: each encoder is one `ec.stream_encode` span of the flight
 recorder (utils/trace.py) from construction to close, with the stages
 of its `stage_seconds` dict (`write_sink`, `parity_update`,
-`h2d_dispatch`, `device_drain`, `fsync_publish`); appends, sealed
+`h2d_dispatch`, `device_drain`, `fsync_publish`) and, on the scheduled
+path, the queue's `admission_wait`; appends, sealed
 stripes, recovery outcomes, time-to-durable-parity and open streams are
 the registry's `sw_ec_stream_*` metrics (utils/metrics.py), read by
 :func:`stream_summary`.
@@ -74,6 +77,8 @@ from ..utils import trace
 from ..utils.crc import crc32c
 from ..utils.fs import atomic_write, fsync_dir
 from .backend import get_backend
+from .chip_pool import place_stream
+from .device_queue import batch_cost, open_stream
 from .bitrot import BitrotProtection, ShardChecksumBuilder
 from .context import (
     BITROT_BLOCK_SIZE,
@@ -258,8 +263,10 @@ class EcStreamEncoder:
 
     append, flush and close serialize on internal locks, so a broker's
     append path and its background parity flusher may race freely.
-    `meta` is an opaque embedder cookie persisted in the journal (the MQ
-    glue stores the partition's base record offset)."""
+    `scheduler` is the QueueScope whose placement and admission the
+    stream runs under (None = the process-wide default). `meta` is an
+    opaque embedder cookie persisted in the journal (the MQ glue stores
+    the partition's base record offset)."""
 
     def __init__(
         self,
@@ -269,6 +276,7 @@ class EcStreamEncoder:
         block_size: int | None = None,
         small_block_size: int | None = None,
         leaf_size: int = BITROT_LEAF_SIZE,
+        scheduler=None,
         meta: int = 0,
         fsync: bool = True,
     ):
@@ -328,13 +336,24 @@ class EcStreamEncoder:
         self.durable = 0  # bytes with durable data+parity (journaled)
         self._touched: set[int] = set()
         self.closed = False
-        self._backend = backend
-        self.chip_label = getattr(backend, "chip_label", "")
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
-        # the flight recorder's span: one long-lived op, closed at close()
+        # the flight recorder's span: one long-lived op, closed at close();
+        # one long-lived foreground stream, placed once
         self._span = trace.start(
             "ec.stream_encode", name=os.path.basename(base), base=base,
             block_size=self.block_size,
+        )
+        self._placement = place_stream(
+            backend, "foreground",
+            scope=scheduler,
+            cost_hint=batch_cost(m, self.block_size),
+            span=self._span,
+        )
+        self._backend = self._placement.backend
+        self.chip_label = getattr(self._backend, "chip_label", "")
+        self._stream = open_stream(
+            self._placement.queue, "foreground", label="ec stream encode", span=self._span,
+            chip=self.chip_label,
         )
         self._write_journal()
         _live_streams.add(self)
@@ -389,13 +408,24 @@ class EcStreamEncoder:
     # ----------------------------------------------------------- process
 
     def _dispatch_apply(self, coeffs: np.ndarray, batch: np.ndarray) -> np.ndarray:
-        """One parity-delta batch through the backend's staged hooks;
-        returns the m x width host delta."""
+        """One parity-delta batch through the placed device stream
+        (DeviceQueue admission at `batch_cost(m, width)`, or a
+        DirectStream when the scheduler is disabled); returns the
+        m x width host delta."""
         be = self._backend
-        with self._stage("h2d_dispatch"):
-            handle = be.apply_staged(coeffs, be.to_device(batch))
-        with self._stage("device_drain"):
-            return np.ascontiguousarray(be.to_host(handle), np.uint8)
+        # the stream records "admission_wait" and "h2d_dispatch" on the
+        # span itself; the stage table gets the dispatch's wall here
+        t0 = time.perf_counter()
+        ticket, handle = self._stream.dispatch(
+            lambda: be.apply_staged(coeffs, be.to_device(batch)),
+            batch_cost(coeffs.shape[0], batch.shape[-1]),
+        )
+        self.stage_seconds["h2d_dispatch"] += max(time.perf_counter() - t0 - ticket.wait_s, 0.0)
+        try:
+            with self._stage("device_drain"):
+                return np.ascontiguousarray(be.to_host(handle), np.uint8)
+        finally:
+            self._stream.release(ticket)
 
     def _seal_stripe(self) -> None:
         """The open stripe is full: publish its final parity rows, roll
@@ -532,6 +562,8 @@ class EcStreamEncoder:
                     except OSError:
                         pass
                 self._fds = []
+                self._stream.close()
+                self._placement.close()
                 trace.finish(self._span)
             return prot
 

@@ -19,9 +19,10 @@ record's offset. Generations wholly below the prune floor are deleted.
 What the port leaves out: the broker and its `ParityFlusher`, and remote
 shard placement. A non-empty ``SEAWEED_EC_STREAM_REMOTE_ROOTS`` raises
 `ECError` at construction instead of being ignored.
-``SEAWEED_EC_STREAM_BACKEND`` names the backend, ``cuda`` (the default)
-or ``cpu`` (the native `CpuBackend`); the JAX package's ``auto`` raises
-`ECError` at construction. As in the JAX package, the partition builds
+``SEAWEED_EC_STREAM_BACKEND`` names the backend, ``cuda`` (the default),
+``cpu`` (the native `CpuBackend`) or ``auto`` (`get_backend("auto")`:
+the card behind a `FallbackBackend` when the probe finds one, else the
+native `CpuBackend`, counted). As in the JAX package, the partition builds
 its backend when it first needs one, at its first generation or
 recovery: without a card, a partition that never takes a record runs,
 and the first append or recovery raises.
@@ -97,18 +98,12 @@ def parity_context() -> ECContext:
 
 
 def _stream_backend_name() -> str:
-    """The backend named by SEAWEED_EC_STREAM_BACKEND: cuda (default) or
-    cpu (the native CpuBackend). There is no `auto` (no fallback from the
-    card to the CPU); a name get_backend does not know raises here, before
-    any backend is built."""
+    """The backend named by SEAWEED_EC_STREAM_BACKEND: cuda (default), cpu
+    (the native CpuBackend) or auto (get_backend("auto")). A name
+    get_backend does not know raises here, before any backend is built."""
     name = os.environ.get("SEAWEED_EC_STREAM_BACKEND", "cuda")
-    if name == "auto":
-        raise ECError(
-            "SEAWEED_EC_STREAM_BACKEND=auto: the port has no auto backend "
-            "(no fallback); name cuda or cpu"
-        )
-    if name not in ("cuda", "cpu"):
-        raise ECError(f"unknown EC backend {name!r} (want cuda|cpu)")
+    if name not in ("cuda", "cpu", "auto"):
+        raise ECError(f"unknown EC backend {name!r} (want cuda|cpu|auto)")
     return name
 
 

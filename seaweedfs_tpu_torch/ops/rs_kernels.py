@@ -125,6 +125,17 @@ def _plain_product(b: torch.Tensor, data: torch.Tensor, m: int) -> torch.Tensor:
     return out.to(torch.uint8)
 
 
+def _kernel_lib():
+    """The kernel library, built on first use. A failed build or load
+    raises a RuntimeError, never an OSError (a missing compiler, an
+    unloadable library): the EC backend's CPU failover takes OSErrors
+    for a lost device, and a kernel that does not build must show."""
+    try:
+        return _build.load("gf2_apply")
+    except OSError as e:
+        raise RuntimeError(f"the gf2_apply kernels did not build or load: {e}") from e
+
+
 def gf2_apply(
     b: torch.Tensor, data: torch.Tensor, *, m: int, pack_width: int = 1
 ) -> torch.Tensor:
@@ -137,7 +148,7 @@ def gf2_apply(
         return gf2_apply_plain(b, data, m)
     if data.device.type != "cuda":
         raise ValueError(f"gf2_apply runs on cuda or cpu, not {data.device}")
-    lib = _build.load("gf2_apply")
+    lib = _kernel_lib()
     k, n = data.shape
     out = torch.empty((m, n), dtype=torch.uint8, device=data.device)
     stream = torch.cuda.current_stream(data.device)
@@ -214,7 +225,7 @@ def gf2_apply_planes(
         return gf2_apply_planes_plain(p, data, m)
     if data.device.type != "cuda":
         raise ValueError(f"gf2_apply_planes runs on cuda or cpu, not {data.device}")
-    lib = _build.load("gf2_apply")
+    lib = _kernel_lib()
     k, n = data.shape
     out = torch.empty((m, n), dtype=torch.uint8, device=data.device)
     stream = torch.cuda.current_stream(data.device)

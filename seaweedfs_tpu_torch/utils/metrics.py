@@ -289,9 +289,9 @@ def slo_summary() -> dict:
 
 def gateway_summary() -> dict:
     """Serving-path pressure snapshot in the shape of ``/debug/gateway``:
-    per-tier hot-cache counters. ``inflight``, ``rejected`` and
-    ``residency`` stay empty: the HTTP front ends and the chip residency
-    ledger are not ported yet."""
+    per-tier hot-cache counters and the chip residency ledger
+    (ec/device_queue.py `residency_snapshot`). ``inflight`` and
+    ``rejected`` stay empty: the HTTP front ends are not ported yet."""
     hot: dict[str, dict] = {}
     for counter, kind in (
         (gateway_hot_cache_hits_total, "hits"),
@@ -300,7 +300,15 @@ def gateway_summary() -> dict:
     ):
         for (tier,), v in counter.snapshot().items():
             hot.setdefault(tier, {})[kind] = int(v)
-    return {"hot_cache": hot, "inflight": {}, "rejected": {}, "residency": {}}
+    try:
+        # chip residency ledger (budget, inflight, shed per tenant); a
+        # lazy import: metrics must not pull the EC package at startup
+        from ..ec.device_queue import residency_snapshot
+
+        residency = residency_snapshot()
+    except Exception:  # advisory; the debug page must never fail
+        residency = {}
+    return {"hot_cache": hot, "inflight": {}, "rejected": {}, "residency": residency}
 
 
 def _num(v: float) -> str:

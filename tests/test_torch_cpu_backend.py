@@ -289,7 +289,7 @@ def test_get_backend_cpu_is_the_native_backend(tmp_path, monkeypatch):
     for impl in ("cuda_planes", "pallas"):
         with pytest.raises(ECError, match="no kernel impl"):
             get_backend("cpu", 10, 4, impl=impl)
-    for name in ("auto", "tpu", "CPU"):
+    for name in ("tpu", "CPU", "gpu"):
         with pytest.raises(ECError, match="unknown EC backend"):
             get_backend(name, 10, 4)
     # the names that reach it: EcVolume's backend and the stream knob

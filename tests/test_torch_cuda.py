@@ -348,8 +348,13 @@ def _needle_volume(d, n_needles=60, body=200_000, seed=5):
 
 def test_armed_encode_on_card_counts_device_stages_per_batch(cuda, tmp_path):
     """With the flight recorder armed, an encode on the card records one
-    h2d_dispatch and one device_drain per batch, labeled cuda:<index>,
-    and writes the shards the disarmed encode wrote."""
+    admission_wait, h2d_dispatch and device_drain per batch, and writes
+    the shards the disarmed encode wrote. A pool's chip labels its device
+    stages cuda:<index>; a `TorchBackend` (no chip label, as a
+    single-device JaxBackend) labels the scheduled dispatch with its
+    queue's label and the drain with ""."""
+    from seaweedfs_tpu_torch.ec import device_queue
+    from seaweedfs_tpu_torch.ec.chip_pool import ChipBackend
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
     from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
     from seaweedfs_tpu_torch.utils import trace
@@ -360,21 +365,23 @@ def test_armed_encode_on_card_counts_device_stages_per_batch(cuda, tmp_path):
     disarmed = [open(base + ctx.to_ext(i), "rb").read() for i in range(14)]
     batches = len(list(batch_plan(os.path.getsize(base + ".dat"), 10, DEFAULT_BATCH,
                                   LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
-    be = TorchBackend(ctx)
-    trace.configure(enabled=True)
-    trace.reset()
-    try:
-        ec_encode_volume(base, ctx, backend=be)
-        (root,) = trace.traces()
-    finally:
-        trace.configure(enabled=False)
+    for be in (ChipBackend(ctx, "cuda:0"), TorchBackend(ctx)):
+        trace.configure(enabled=True)
         trace.reset()
-    (enc,) = root["children"]
-    assert enc["op"] == "ec.encode"
-    for s in ("h2d_dispatch", "device_drain"):
-        assert (enc["stages"][s]["count"], enc["stages"][s]["chip"]) == (batches, str(be.device))
-    assert str(be.device).startswith("cuda:")
-    assert [open(base + ctx.to_ext(i), "rb").read() for i in range(14)] == disarmed
+        try:
+            ec_encode_volume(base, ctx, backend=be)
+            (root,) = trace.traces()
+        finally:
+            trace.configure(enabled=False)
+            trace.reset()
+        (enc,) = root["children"]
+        assert enc["op"] == "ec.encode" and str(be.device).startswith("cuda:")
+        label = device_queue.for_backend(be).label
+        want = {"admission_wait": label, "h2d_dispatch": label, "device_drain": be.chip_label}
+        assert label == (be.chip_label or label) and (be.chip_label in ("", "cuda:0"))
+        for s, chip in want.items():
+            assert (enc["stages"][s]["count"], enc["stages"][s]["chip"]) == (batches, chip)
+        assert [open(base + ctx.to_ext(i), "rb").read() for i in range(14)] == disarmed
 
 
 def test_concurrent_degraded_readers_on_one_backend(cuda, tmp_path):
@@ -636,9 +643,12 @@ def test_recover_stream_on_card_matches_cpu(cuda, tmp_path):
 
 
 def test_partition_on_card_takes_masked_path_and_recovers(cuda, tmp_path, monkeypatch):
-    """1 KB records (ragged flush widths) through a partition on the
-    card, a flusher thread beside the publisher: the masked byte path
-    carries most deltas, and recovery on the card equals the CPU's."""
+    """1 KB records through a partition on the card, flushed by the test
+    itself every 37 records (37 x 1,062 bytes, not a multiple of 16, so
+    the flush widths are ragged and take the masked byte path), and
+    recovery on the card equals the CPU's. The flushes are called at
+    fixed record counts, not raced by a flusher thread, so the ragged
+    widths do not depend on thread timing."""
     import shutil
 
     from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
@@ -649,26 +659,16 @@ def test_partition_on_card_takes_masked_path_and_recovers(cuda, tmp_path, monkey
     pp = PartitionParity(str(tmp_path / "card"), "ns", "t", 0, block_size=256 << 10,
                          small_block_size=16 << 10, flush_bytes=16 << 10)
     assert pp.backend is None  # resolved at the first generation
-    # Build the card's backend before the publisher and the flusher race;
-    # the partition takes it from get_backend's cache at its first
-    # generation. Built inside the publisher's loop, its construction
-    # left the flusher no flush in the loop (every width row-aligned).
-    card = get_backend("cuda", 4, 2)
+    card = get_backend("cuda", 4, 2)  # the partition takes it from the cache
     rs_kernels.reset_launches()
-    stop = threading.Event()
-
-    def flusher():
-        while not stop.wait(0.002):
-            if pp.needs_flush():
-                pp.flush()
-
-    t = threading.Thread(target=flusher)
-    t.start()
-    for r in recs:
+    flushes = 0
+    for n, r in enumerate(recs, 1):
         pp.append_record(*r)
-    stop.set()
-    t.join()
+        if n % 37 == 0:
+            pp.flush()
+            flushes += 1
     pp.close()
+    assert flushes == len(recs) // 37
     assert pp.backend is card and card.device.type == "cuda"
     assert rs_kernels.MASKED["gf2_apply"] > 0
     shutil.copytree(tmp_path / "card", tmp_path / "cpu")
@@ -738,3 +738,228 @@ def test_cpu_encode_beside_card_encode_on_another_thread(cuda, tmp_path):
         want = (tmp_path / "plain" / ext).read_bytes()
         assert (tmp_path / "card" / ext).read_bytes() == want
         assert (tmp_path / "cpu" / ext).read_bytes() == want
+
+
+# -- the scheduler and the CPU failover on the card (chip_smoke.py phase 10) ---
+
+
+def _batches(base: str) -> int:
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+
+    return len(list(batch_plan(os.path.getsize(base + ".dat"), 10, DEFAULT_BATCH,
+                               LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+
+
+def _shards(base: str) -> list:
+    return [open(base + f".ec{i:02d}", "rb").read() for i in range(14)]
+
+
+def test_auto_backend_is_the_card_behind_a_fallback(cuda, monkeypatch):
+    """10a: the bounded probe sees the card, and `auto` is a
+    FallbackBackend whose primary is a TorchBackend on cuda:0; no CPU
+    resolution is counted."""
+    from seaweedfs_tpu_torch.ec import FallbackBackend, backend
+    from seaweedfs_tpu_torch.utils import devices
+
+    monkeypatch.setattr(devices, "_cached", None)
+    before = dict(backend.AUTO_CPU)
+    be = get_backend("auto", 5, 3)
+    assert devices.probe_accelerators() == torch.cuda.device_count() >= 1
+    assert isinstance(be, FallbackBackend) and type(be.primary) is TorchBackend
+    assert str(be.primary.device) == "cuda:0" and be.device == be.primary.device
+    assert backend.AUTO_CPU == before and be.fallback_batches == 0
+
+
+def test_fallback_encode_on_card_serves_every_batch_on_the_card(cuda, tmp_path):
+    """10b: unarmed, the FallbackBackend's encode is the card's: the same
+    shards, no batch on the CPU, one launch and one foreground admission
+    per batch, the breaker gauge at 0."""
+    from seaweedfs_tpu_torch.ec import FallbackBackend, QueueScope, backend
+
+    _needle_volume(tmp_path, n_needles=60)
+    base = os.path.join(str(tmp_path), "1")
+    ctx = ECContext(10, 4)
+    want, n = _shards(base), _batches(base)
+    fb = FallbackBackend(TorchBackend(ctx), CpuBackend(ctx))
+    scope = QueueScope()
+    rs_kernels.reset_launches()
+    ec_encode_volume(base, ctx, backend=fb, scheduler=scope)
+    assert _shards(base) == want and fb.fallback_batches == 0 and fb.breaker.state == "closed"
+    assert rs_kernels.LAUNCHES["gf2_apply"] == n
+    (q,) = scope.stats_snapshot()
+    assert q["classes"]["foreground"]["admitted"] == n and q["breaker"] == "closed"
+    label = f"TorchBackend@{fb._seq}"
+    assert dict((lab["chip"], v) for lab, v in backend._breaker_samples())[label] == 0.0
+
+
+def test_fallback_fails_over_on_card_and_closes_by_probe(cuda, tmp_path):
+    """10c: every to_host fails: each batch is recomputed on the CPU from
+    its host copy (the same shards), launches equal the batches that
+    reached the card (the to_host point's hits), the gauge reads 1; after
+    the reset timeout an unarmed encode closes the breaker through its
+    half-open probe, with no further fallback; a rebuild through the
+    staged-apply driver on a card that loses two batches at dispatch and
+    one at drain (OSErrors, the class the fallback takes for a lost
+    device) is exact, with those three on the CPU, the breaker closed
+    and the launches equal to the batches that reached the card."""
+    import time
+
+    from seaweedfs_tpu_torch import faults
+    from seaweedfs_tpu_torch.ec import FallbackBackend, backend, rebuild_ec_files
+    from seaweedfs_tpu_torch.utils.retry import CircuitBreaker
+
+    _needle_volume(tmp_path, n_needles=150)  # 3 batches of 1 MiB rows
+    base = os.path.join(str(tmp_path), "1")
+    ctx = ECContext(10, 4)
+    want, n = _shards(base), _batches(base)
+    assert n >= 2
+    fb = FallbackBackend(TorchBackend(ctx), CpuBackend(ctx),
+                         breaker=CircuitBreaker(failure_threshold=2, reset_timeout=2.0))
+    label = f"TorchBackend@{fb._seq}"
+    rs_kernels.reset_launches()
+    try:
+        with faults.injected("ec.backend.device.to_host", faults.io_error()) as h:
+            ec_encode_volume(base, ctx, backend=fb)
+        assert _shards(base) == want and fb.fallback_batches == n
+        assert rs_kernels.LAUNCHES["gf2_apply"] == h.hits >= 2
+        assert fb.breaker.state == "open"
+        assert dict((lab["chip"], v) for lab, v in backend._breaker_samples())[label] == 1.0
+        time.sleep(2.1)
+        rs_kernels.reset_launches()
+        ec_encode_volume(base, ctx, backend=fb)
+        # the first batch is the half-open probe; batches dispatched while
+        # it is in flight go to the CPU; the rest run on the card
+        during_probe = fb.fallback_batches - n
+        assert _shards(base) == want and fb.breaker.state == "closed"
+        assert rs_kernels.LAUNCHES["gf2_apply"] + during_probe == n and during_probe < n
+        for i in (3, 11):
+            os.unlink(base + ctx.to_ext(i))
+
+        class LosingCard(TorchBackend):
+            dispatched = drained = 0
+
+            def apply_staged(self, coeffs, staged):
+                self.dispatched += 1
+                if self.dispatched in (1, 2):
+                    raise OSError("the card was lost at dispatch")
+                return super().apply_staged(coeffs, staged)
+
+            def to_host(self, result):
+                self.drained += 1
+                if self.drained == 2:
+                    raise OSError("the card was lost at drain")
+                return super().to_host(result)
+
+        lossy = LosingCard(ctx)
+        fr = FallbackBackend(lossy, CpuBackend(ctx),
+                             breaker=CircuitBreaker(failure_threshold=3, reset_timeout=2.0))
+        rs_kernels.reset_launches()
+        assert rebuild_ec_files(base, ctx, backend=fr, batch_size=64 << 10) == [3, 11]
+        assert _shards(base) == want and lossy.dispatched >= 4
+        assert (fr.fallback_batches, fr.breaker.state) == (3, "closed")
+        assert rs_kernels.LAUNCHES["gf2_apply"] == lossy.dispatched - 2
+    finally:
+        faults.clear()
+
+
+def test_fallback_does_not_hide_a_failed_launch_on_card(cuda, monkeypatch):
+    """A kernel launch that fails on the card re-raises from the
+    FallbackBackend, synchronous and staged, with no batch on the CPU
+    and the breaker untouched: the CPU never stands in for the kernel."""
+    from seaweedfs_tpu_torch.ec import FallbackBackend
+
+    class FailingLaunch:
+        def gf2_apply(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+        gf2_apply_planes = gf2_apply
+
+    monkeypatch.setattr(rs_kernels, "_kernel_lib", FailingLaunch)
+    ctx = ECContext(10, 4)
+    fb = FallbackBackend(TorchBackend(ctx), CpuBackend(ctx))
+    data = np.zeros((10, 4096), dtype=np.uint8)
+    rs_kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        fb.encode(data)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        fb.to_host(fb.encode_staged(fb.to_device(data)))
+    assert (fb.fallback_batches, fb.breaker.state, fb.breaker._failures) == (0, "closed", 0)
+    assert rs_kernels.LAUNCHES["gf2_apply"] == 0
+
+
+def test_recovery_rebuild_beside_foreground_encode_on_one_backend(cuda, tmp_path):
+    """10d: a foreground encode and a recovery rebuild on one backend
+    under one QueueScope, concurrently: both outputs exact, each class
+    admitted once per batch."""
+    import shutil
+
+    from seaweedfs_tpu_torch.ec import FallbackBackend, QueueScope, rebuild_ec_files
+
+    (tmp_path / "enc").mkdir()
+    _needle_volume(tmp_path / "enc", n_needles=60)
+    enc = os.path.join(str(tmp_path / "enc"), "1")
+    shutil.copytree(tmp_path / "enc", tmp_path / "reb")
+    reb = os.path.join(str(tmp_path / "reb"), "1")
+    ctx = ECContext(10, 4)
+    want = _shards(enc)
+    for i in (3, 11):
+        os.unlink(reb + ctx.to_ext(i))
+    fb = FallbackBackend(TorchBackend(ctx), CpuBackend(ctx))
+    scope = QueueScope()
+    errors = []
+
+    def rebuild():
+        try:
+            assert rebuild_ec_files(reb, ctx, backend=fb, batch_size=1 << 18,
+                                    priority="recovery", scheduler=scope) == [3, 11]
+        except BaseException as e:  # reported on the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=rebuild)
+    t.start()
+    ec_encode_volume(enc, ctx, backend=fb, scheduler=scope)
+    t.join()
+    assert not errors and _shards(enc) == want and _shards(reb) == want
+    (q,) = scope.stats_snapshot()
+    shard = os.path.getsize(enc + ".ec00")
+    assert q["classes"]["foreground"]["admitted"] == _batches(enc)
+    assert q["classes"]["recovery"]["admitted"] == -(-shard // (1 << 18))
+    assert fb.fallback_batches == 0 and q["load"] == 0
+
+
+def test_stream_and_auto_partition_on_card(cuda, tmp_path, monkeypatch):
+    """10e: a stream on the card admits one foreground batch per launch;
+    an MQ partition with SEAWEED_EC_STREAM_BACKEND=auto runs on the card
+    behind a FallbackBackend and replays byte-exact with no fallback."""
+    from seaweedfs_tpu_torch.ec import EcStreamEncoder, FallbackBackend, QueueScope
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+
+    ctx = ECContext(4, 2)
+    scope = QueueScope()
+    payload = np.random.default_rng(21).bytes(1_000_003)
+    rs_kernels.reset_launches()
+    enc = EcStreamEncoder(str(tmp_path / "s"), ctx, backend=TorchBackend(ctx), block_size=64 << 10,
+                          small_block_size=4096, scheduler=scope)
+    for off in range(0, len(payload), 8192):
+        enc.append(payload[off : off + 8192])
+        if off % (64 << 10) == 0:
+            enc.flush()
+    enc.close()
+    (q,) = scope.stats_snapshot()
+    assert q["classes"]["foreground"]["admitted"] == rs_kernels.LAUNCHES["gf2_apply"] > 10
+    monkeypatch.setenv("SEAWEED_EC_STREAM_BACKEND", "auto")
+    monkeypatch.delenv("SEAWEED_EC_STREAM_REMOTE_ROOTS", raising=False)
+    rng = np.random.default_rng(22)
+    recs = [(i, 5 + i, rng.bytes(16), rng.bytes(1024)) for i in range(1500)]
+    pp = PartitionParity(str(tmp_path / "mq"), "ns", "t", 0, block_size=256 << 10,
+                         small_block_size=16 << 10, flush_bytes=16 << 10)
+    for n, r in enumerate(recs, 1):
+        pp.append_record(*r)
+        if n % 200 == 0:
+            pp.flush()
+    pp.close()
+    assert isinstance(pp.backend, FallbackBackend) and pp.backend.device.type == "cuda"
+    assert pp.backend.fallback_batches == 0
+    assert PartitionParity(str(tmp_path / "mq"), "ns", "t", 0).recover() == recs
+

@@ -324,7 +324,8 @@ def _python_files():
     built = PORT / "build"  # build outputs, not sources
     return sorted(
         p for p in PORT.rglob("*.py") if built not in p.parents
-    ) + [REPO / "chip_smoke.py", REPO / "chip_kernels.py", REPO / "chip_host_io.py"]
+    ) + [REPO / "chip_smoke.py", REPO / "chip_kernels.py", REPO / "chip_host_io.py",
+         REPO / "chip_sched_ab.py"]
 
 
 @pytest.mark.parametrize(
@@ -396,6 +397,21 @@ for off in range(20):
 pp.flush()
 pp.close()
 assert len(PartitionParity(d, "ns", "t", 0, backend=pp.backend).recover()) == 20
+# the scheduler, placement, the fallback and the probe
+from seaweedfs_tpu_torch.ec import FallbackBackend, QueueScope, get_backend, rebuild_ec_files
+from seaweedfs_tpu_torch.ec import backend as port_backend, chip_pool, device_queue
+from seaweedfs_tpu_torch.utils import devices, metrics
+assert isinstance(get_backend("auto", 10, 4), CpuBackend) and port_backend.AUTO_CPU["no_card"] == 1
+assert devices.probe_accelerators() == 0
+shard5 = open(base + ".ec05", "rb").read()
+os.unlink(base + ".ec05")
+fb = FallbackBackend(TorchBackend(ctx, device="cpu"), CpuBackend(ctx))
+scope = QueueScope(window=2)
+assert rebuild_ec_files(base, ctx, backend=fb, scheduler=scope) == [5]
+assert open(base + ".ec05", "rb").read() == shard5 and fb.fallback_batches == 0
+assert scope.stats_snapshot()[0]["classes"]["recovery"]["admitted"] >= 1
+assert chip_pool.pool_for(fb) is None and "residency" in metrics.gateway_summary()
+assert device_queue.residency_snapshot()["budget"] == device_queue.DEFAULT_RESIDENCY_BUDGET
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
@@ -421,8 +437,13 @@ def test_default_backend_raises_without_a_card(monkeypatch):
         TorchBackend(CTX)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_backend("cuda", 7, 3)  # a geometry no other test caches
-    with pytest.raises(ECError):
-        get_backend("auto", 10, 4)
+    # "auto" is reached only by name, and without a card it is the
+    # native CPU backend, counted (tests/test_torch_fallback.py)
+    from seaweedfs_tpu_torch.ec import backend as port_backend
+
+    before = port_backend.AUTO_CPU["no_card"]
+    assert isinstance(get_backend("auto", 6, 3), PortCpuBackend)
+    assert port_backend.AUTO_CPU["no_card"] == before + 1
     # the native CPU backend needs no card, and only its name reaches it
     be = get_backend("cpu", 7, 3)
     assert isinstance(be, PortCpuBackend) and not hasattr(be, "device")
@@ -430,3 +451,40 @@ def test_default_backend_raises_without_a_card(monkeypatch):
     assert np.array_equal(be.encode(data), CpuBackend(JaxECContext(7, 3)).encode(data))
     with pytest.raises(ECError):
         TorchBackend(CTX, device="meta")
+
+
+def test_the_two_packages_schedulers_share_no_state():
+    """Both packages' schedulers in one process: pools, ledgers, the
+    default scope, the fallback registry and the metric families are
+    each package's own, and driving one moves nothing of the other."""
+    from seaweedfs_tpu.ec import backend as jax_backend
+    from seaweedfs_tpu.ec import chip_pool as jax_pool
+    from seaweedfs_tpu.ec import device_queue as jax_dq
+    from seaweedfs_tpu.utils import metrics as jax_metrics
+    from seaweedfs_tpu_torch.ec import backend, chip_pool, device_queue
+    from seaweedfs_tpu_torch.utils import metrics
+
+    assert device_queue.default_scope() is not jax_dq.default_scope()
+    assert device_queue.default_residency() is not jax_dq.default_residency()
+    assert chip_pool._pools is not jax_pool._pools and chip_pool._ledgers is not jax_pool._ledgers
+    assert backend._FALLBACKS is not jax_backend._FALLBACKS
+    assert metrics.REGISTRY is not jax_metrics.REGISTRY
+    assert device_queue._queue_admitted is not jax_dq._queue_admitted
+    assert not isinstance(device_queue.default_scope(), jax_dq.QueueScope)
+    jax_before = {s["chip"] for s in jax_dq.default_scope().stats_snapshot()}
+    jax_res = set(jax_dq.residency_snapshot().get("chips", {}))
+    be = PortCpuBackend(CTX)
+    q = device_queue.for_backend(be)
+    t = q._admit("foreground", 123)
+    assert any(s["chip"] == q.label for s in device_queue.stats_snapshot())
+    # (a JAX queue may drop out of its weak registry meanwhile; none is added)
+    assert {s["chip"] for s in jax_dq.default_scope().stats_snapshot()} <= jax_before
+    assert q.label not in jax_before and q.label not in jax_res
+    assert set(jax_dq.residency_snapshot().get("chips", {})) <= jax_res
+    q._release(t)
+    # a scope of one package refuses to serve the other's backend as a chip
+    # of its own pool: neither package builds a pool from the other's backend
+    assert chip_pool.pool_for(CpuBackend(JCTX)) is None
+    assert jax_pool.pool_for(be) is None
+    # the gateway summary reads each package's own ledger
+    assert metrics.gateway_summary()["residency"] == device_queue.residency_snapshot()

@@ -14,8 +14,8 @@ Checked exactly:
   same records and the same files;
 - a partition killed in a child process at each `ec.stream.*` crash
   window, recovered by both packages to the same dense prefix;
-- the knobs the port refuses: remote roots, the `auto` backend, and no
-  card with no backend (resolved at the first generation or recovery, as
+- the knobs the port refuses: remote roots, backend names it does not
+  know, and no card with no backend (resolved at the first generation or recovery, as
   the JAX package resolves it).
 """
 
@@ -318,12 +318,12 @@ def test_partition_killed_at_each_window_recovers_dense(tmp_path, point):
 @pytest.mark.parametrize("env,value", [
     ("SEAWEED_EC_STREAM_REMOTE_ROOTS", "far=/mnt/far"),
     ("SEAWEED_EC_STREAM_REMOTE_ROOTS", "peer=net:host:18080"),
-    ("SEAWEED_EC_STREAM_BACKEND", "auto"),
+    ("SEAWEED_EC_STREAM_BACKEND", "gpu"),
     ("SEAWEED_EC_STREAM_BACKEND", "tpu"),
 ])
 def test_refused_knobs_raise(tmp_path, monkeypatch, env, value):
     monkeypatch.setenv(env, value)
-    with pytest.raises(ECError, match="REMOTE_ROOTS|auto|unknown EC backend"):
+    with pytest.raises(ECError, match="REMOTE_ROOTS|unknown EC backend"):
         port_sp.PartitionParity(str(tmp_path), "ns", "t", 0)
     assert not (tmp_path / "ns").exists()
 

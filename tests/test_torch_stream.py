@@ -484,9 +484,17 @@ def test_stream_summary_has_the_jax_keys(tmp_path):
     other = next(s for s in theirs["streams"] if s["base"] == "j")
     assert set(mine) == set(other)
     assert (mine["head_bytes"], mine["durable_bytes"], mine["sealed_stripes"]) == (20_000, 20_000, 0)
-    assert mine["chip"] == "cpu"
+    # a backend that is no pool chip has no chip label in either package;
+    # a pool's chip names itself
+    assert mine["chip"] == other["chip"] == ""
     a.close()
     b.close()
+    from seaweedfs_tpu_torch.ec.chip_pool import ChipBackend
+
+    c = EcStreamEncoder(str(tmp_path / "c"), ECContext(4, 2), backend=ChipBackend(ECContext(4, 2), "cpu"),
+                        block_size=8192, small_block_size=1024)
+    assert next(s for s in stream_summary()["streams"] if s["base"] == "c")["chip"] == "cpu"
+    c.close()
     assert all(s["base"] != "p" for s in stream_summary()["streams"])
 
 

@@ -500,9 +500,6 @@ def test_quantiles_and_summaries_match_jax():
 
 # Stages the JAX package records that the port does not, each with why.
 NOT_IN_PORT = {
-    # the port has no DeviceQueue yet (ROADMAP Queue 1 item 6): its
-    # streams dispatch without admission
-    "admission_wait": "device-queue admission, ROADMAP Queue 1 item 6",
     # recorded only when a bounded queue's put actually blocks, so its
     # presence follows timing in either package, not the code path
     "queue_wait": "timing-dependent backpressure",
@@ -594,21 +591,37 @@ def test_span_trees_match_jax(trees, op):
 
 
 def test_device_stages_carry_the_backend_chip(recorder, tmp_path):
-    """The port's device stages are labeled with the torch device string
-    (cuda:0 on the card, cpu here); the native CPU backend's with ""."""
+    """The port's device stages carry the labels the JAX package's call
+    sites give them: a pool's chip ("cuda:i" on the card; `ChipBackend`
+    on "cpu" here) on every device stage; a backend that is no pool chip
+    (`TorchBackend`, `CpuBackend`, as a single-device `JaxBackend`) has
+    no chip label, so the scheduled dispatch stages carry its device
+    queue's label and the encoder's drain carries ""."""
+    from seaweedfs_tpu_torch.ec import device_queue
+    from seaweedfs_tpu_torch.ec.chip_pool import ChipBackend
+
     base, _ = make_volume(tmp_path, needles=10)
-    ec_encode_volume(base, CTX, backend=TorchBackend(CTX, device="cpu"))
-    enc = next(n for d in trace.traces() for n in walk(d) if n["op"] == "ec.encode")
-    batches = enc["stages"]["disk_read"]["count"]
-    for s in ("h2d_dispatch", "device_drain"):
-        assert (enc["stages"][s]["count"], enc["stages"][s]["chip"]) == (batches, "cpu")
-    assert 0.0 <= trace.overlap_efficiency(enc) <= 1.0
+    for be, want in ((ChipBackend(CTX, "cpu"), ("cpu", "cpu")),
+                     (TorchBackend(CTX, device="cpu"), (None, ""))):
+        trace.reset()
+        ec_encode_volume(base, CTX, backend=be)
+        label = device_queue.for_backend(be).label
+        assert label == (want[0] or f"TorchBackend:10+4@{label.rsplit('@', 1)[1]}")
+        enc = next(n for d in trace.traces() for n in walk(d) if n["op"] == "ec.encode")
+        batches = enc["stages"]["disk_read"]["count"]
+        for s, chip in zip(("h2d_dispatch", "device_drain"), (label, want[1])):
+            assert (enc["stages"][s]["count"], enc["stages"][s]["chip"]) == (batches, chip)
+        assert enc["stages"]["admission_wait"]["count"] == batches
+        assert 0.0 <= trace.overlap_efficiency(enc) <= 1.0
     trace.reset()
     for i in (1, 12):
         os.unlink(base + CTX.to_ext(i))
-    rebuild_ec_files(base, CTX, backend=CpuBackend(CTX))
+    cpu = CpuBackend(CTX)
+    rebuild_ec_files(base, CTX, backend=cpu)
     (rb,) = trace.traces()
-    assert rb["stages"]["h2d_dispatch"]["chip"] == ""
+    label = device_queue.for_backend(cpu).label
+    assert label.startswith("CpuBackend:10+4@")
+    assert rb["stages"]["h2d_dispatch"]["chip"] == rb["stages"]["device_drain"]["chip"] == label
 
 
 def test_outputs_identical_armed_and_disarmed(tmp_path):
