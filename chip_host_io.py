@@ -17,6 +17,15 @@ times, twice each and in turns:
   /dev/shm (memory, no disk behind it), to tell the filesystem's cost
   from the plane's.
 
+- the shard net plane's read path over loopback, from a file of one
+  shard's size (108,003,328 bytes, the smoke's) in each directory:
+  the floor (one `send_file` in a thread, one `recv_into` of the whole
+  file, no granule CRC), the same with the 64 KiB granule CRC fused
+  (overlapped core forced off and on), and a `ShardNetPlane` read
+  through `NetPlaneClient` as peer-fetch rebuild reads it: `read_into`
+  in 4 MiB requests (native plane) and `read_bytes` in 1 MiB requests
+  (Python plane).
+
 It also times the start and join of one Python thread, the unit the
 host library's worker pool saves on every call. Prints the filesystem
 type of each directory and the card's name and power limit; the last
@@ -113,6 +122,74 @@ def write_seconds(directory: str, fused: bool, rows: np.ndarray) -> dict:
     return {"append_s": t1 - t0, "fsync_s": t2 - t1}
 
 
+SHARD = 108_003_328  # one shard of the smoke's 1 GiB 10+4 volume
+
+
+def net_seconds(path: str, how: str) -> float:
+    """The whole file over loopback: "floor" / "crc0" / "crc1" (one
+    send_file in a thread into one recv_into; crc0/crc1 with the 64 KiB
+    granule CRC fused, overlap forced off / on), or "plane_native" /
+    "plane_python" (a ShardNetPlane read by a NetPlaneClient in 4 MiB
+    read_into / 1 MiB read_bytes requests)."""
+    import socket
+
+    from seaweedfs_tpu_torch.ec import native_io, net_plane
+    from seaweedfs_tpu_torch.utils import native
+
+    size = os.path.getsize(path)
+    fd = os.open(path, os.O_RDONLY)
+    dst = native_io.aligned_matrix(1, size)[0]
+    try:
+        if how.startswith("plane"):
+            srv = net_plane.ShardNetPlane("127.0.0.1", 0, lambda vid, sid, gen: (fd, size))
+            srv.start()
+            client = net_plane.NetPlaneClient(timeout=60.0)
+            addr = ("127.0.0.1", srv.port)
+            chunk = 4 << 20 if how == "plane_native" else 1 << 20
+            try:
+                t0 = time.perf_counter()
+                for off in range(0, size, chunk):
+                    n = min(chunk, size - off)
+                    if how == "plane_native":
+                        client.read_into(addr, 1, 0, 0, off, n, dst[off : off + n], granule=LEAF)
+                    else:
+                        client.read_bytes(addr, 1, 0, 0, off, n)
+                return time.perf_counter() - t0
+            finally:
+                client.close()
+                srv.stop()
+        listener = socket.create_server(("127.0.0.1", 0))
+        a = socket.create_connection(listener.getsockname())
+        b, _ = listener.accept()
+        prev = os.environ.get("SEAWEED_EC_NET_OVERLAP")
+        try:
+            granule = 0 if how == "floor" else LEAF
+            if granule:
+                os.environ["SEAWEED_EC_NET_OVERLAP"] = how[-1]
+            sender = threading.Thread(target=native.send_file, args=(a.fileno(), fd, 0, size, 60000))
+            t0 = time.perf_counter()
+            sender.start()
+            got = native.recv_into(
+                b.fileno(), dst, size, timeout_ms=60000, granule=granule,
+                crc_state=np.zeros(1, np.uint32), filled_state=np.zeros(1, np.uint64),
+                out_crcs=np.zeros(size // LEAF + 2, np.uint32), out_counts=np.zeros(1, np.int32),
+            )
+            sender.join()
+            dt = time.perf_counter() - t0
+            if got != size:
+                raise OSError(f"loopback landed {got} of {size} bytes")
+            return dt
+        finally:
+            if prev is None:
+                os.environ.pop("SEAWEED_EC_NET_OVERLAP", None)
+            else:
+                os.environ["SEAWEED_EC_NET_OVERLAP"] = prev
+            for s_ in (a, b, listener):
+                s_.close()
+    finally:
+        os.close(fd)
+
+
 def thread_start_us(n: int = 200) -> float:
     t0 = time.perf_counter()
     for _ in range(n):
@@ -152,6 +229,18 @@ def main() -> int:
                 for label, fused in (("python", False), ("native", True)):
                     writes.setdefault(f"{name} {label}", []).append(write_seconds(d, fused, rows))
         result["write"] = writes
+        nets: dict = {}
+        for name, d in dirs.items():
+            path = os.path.join(d, "1.ec05")
+            with open(path, "wb") as f:
+                for off in range(0, SHARD, ROW):
+                    f.write(rng.bytes(min(ROW, SHARD - off)))
+            for _ in range(2):
+                for how in ("floor", "crc0", "crc1", "plane_native", "plane_python"):
+                    dt = net_seconds(path, how)
+                    nets.setdefault(f"{name} {how}", []).append({"s": dt, "gb_per_s": SHARD / dt / 1e9})
+            os.unlink(path)
+        result["net"] = nets
     finally:
         for d in dirs.values():
             shutil.rmtree(d, ignore_errors=True)

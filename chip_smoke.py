@@ -6,7 +6,8 @@
 Drives the port's main paths at the size the project names, a seeded
 1 GiB RS 10+4 volume of real needles, through the entry points a user
 calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
-`ec_decode_volume`, `TorchBackend`, `CpuBackend`). Phases:
+`ec_decode_volume`, `TorchBackend`, `CpuBackend`, `rebuild_from_peers`).
+Phases:
 
 1. print the card (`nvidia-smi` name and power limit), and build from
    csrc/ the CUDA kernel (nvcc) and the host library (g++: CRC32C,
@@ -173,6 +174,27 @@ calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
    byte-exact. Any batch served on the CPU, or any CPU resolution of
    `auto`, outside 10c fails the run; in 10c the count must equal what
    the smoke injected.
+11. peer-fetch rebuild (`rebuild_from_peers`) over the shard net plane,
+   from copies made right after phase 5: a local holder of shards 0, 1,
+   2 and 4 (fewer than k; two non-adjacent 64 KiB leaves of shard 4
+   rotten) and three peers in one child process (a fresh interpreter
+   that touches no CUDA), a `ShardNetPlane` each with its own generation
+   fence, one holder per shard of 5-10, 12 and 13, plus a fourth holder
+   of shard 5, first in its list, serving one flipped byte outside shard
+   4's rotten leaves. 11a, native plane (`fetch_into` =
+   `make_fetch_into`, `fetch` = `NetPlaneClient.read_bytes`): shard 4
+   leaf-repaired from 7 peers and 3 local sources per range with no
+   re-read, the rotten holder excluded after one granule re-read, shards
+   5-10 fetched, 3 and 11 rebuilt on `TorchBackend`, all sha256-identical;
+   `gf2_apply` launches == the rebuild's batches + the 2 leaf ranges; the
+   `sw_net_bytes_received_total` deltas exact per plane; no staging and
+   no no-plane memo left. 11b: the same over the Python plane, outputs
+   identical. 11c: two peers stopped, fewer than k sources reachable:
+   `ECError`, every local file sha256-unchanged. One line gives per run
+   the wall, the nested rebuild's wall, the fetched bytes and GB/s over
+   loopback, each transport's calls, bytes and seconds, the backend's
+   stages and the `sw_net_*` deltas, the peers' status and whether a 4
+   MiB fused recv takes the overlapped core.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -2350,6 +2372,330 @@ def sched_phase(work, base, ctx, records, dat_size, digests, n_batches, enc_s) -
     return out, launches
 
 
+PEER_LOCAL = (0, 1, 2, 4)  # the local holder's shards: fewer than k
+PEER_ROT = 4  # its shard with two rotten leaves, leaf-repaired from peers
+# one holder per shard, as on a balanced cluster; shards LOST are held by no one
+PEER_SHARDS = {"peer-a": (5, 8, 12), "peer-b": (6, 9, 13), "peer-c": (7, 10)}
+ROT_PEER = "peer-rot"  # an extra holder of shard 5, first in its list, serving one flipped byte
+ROT_SHARD = 5
+
+# The peers of phase 11 in one child (a fresh interpreter that touches no
+# CUDA, so the sendfile egress and the rebuilding interpreter share no
+# GIL): a ShardNetPlane per holder, each with its own resolve and
+# generation fence. It prints its ports, then answers "status" and
+# "stop <name>..." lines on stdin with one JSON line each, and "exit".
+PEER_CHILD = r"""
+import json, os, sys
+from seaweedfs_tpu_torch.ec import native_io, net_plane
+
+src, rot, gen, spec = sys.argv[1], sys.argv[2], int(sys.argv[3]), json.loads(sys.argv[4])
+planes = {}
+for name, sids in spec.items():
+    root = rot if name == "peer-rot" else src
+    fds = {}
+
+    def resolve(vid, sid, g, sids=frozenset(sids), root=root, fds=fds):
+        if g != gen:
+            raise net_plane.NetPlaneError("stale generation")
+        if vid != 1 or sid not in sids:
+            raise net_plane.NetPlaneError("shard not local")
+        if sid not in fds:
+            fds[sid] = os.open(os.path.join(root, "1.ec%02d" % sid), os.O_RDONLY)
+        return fds[sid], os.fstat(fds[sid]).st_size
+
+    planes[name] = net_plane.ShardNetPlane("127.0.0.1", 0, resolve, server_label=name)
+    planes[name].start()
+print(json.dumps({"ports": {n: p.port for n, p in planes.items()},
+                  "egress_native": net_plane.egress_native()}), flush=True)
+for line in sys.stdin:
+    cmd = line.split()
+    if cmd[0] == "stop":
+        for n in cmd[1:]:
+            planes.pop(n).stop()
+    elif cmd[0] == "exit":
+        break
+    print(json.dumps({n: p.status() for n, p in planes.items()}), flush=True)
+for p in planes.values():
+    p.stop()
+"""
+
+
+def peer_copies(work: str, base: str, ctx, digests: dict) -> None:
+    """Phase 11's inputs, made right after phase 5 while every shard is
+    as encoded (checked here): copies, not links, of the shards some
+    holder serves or the local holder keeps (later phases patch,
+    truncate and replace shards in place), the small files, and the
+    rotten holder's copy of shard ROT_SHARD."""
+    src = os.path.join(work, "peer", "src")
+    os.makedirs(src)
+    held = sorted(set(PEER_LOCAL).union(*PEER_SHARDS.values()))
+    for i in held:
+        if sha256(base + ctx.to_ext(i)) != digests[i]:
+            raise AssertionError(f"phase 11's copy of shard {i} is not as encoded")
+        shutil.copyfile(base + ctx.to_ext(i), os.path.join(src, "1" + ctx.to_ext(i)))
+    for ext in (".ecx", ".ecj", ".vif", ".ecsum"):
+        if os.path.exists(base + ext):
+            shutil.copyfile(base + ext, os.path.join(src, "1" + ext))
+    os.makedirs(os.path.join(work, "peer", "rot"))
+    shutil.copyfile(base + ctx.to_ext(ROT_SHARD), os.path.join(work, "peer", "rot", "1" + ctx.to_ext(ROT_SHARD)))
+
+
+class Timed:
+    """A transport wrapped to count its calls, bytes and seconds."""
+
+    def __init__(self, fn, nbytes):
+        self.fn, self.nbytes = fn, nbytes
+        self.calls = self.bytes = 0
+        self.seconds = 0.0
+        self.sizes: list[int] = []
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += self.nbytes(args)
+            self.sizes.append(self.nbytes(args))
+
+    def summary(self) -> dict:
+        return {"calls": self.calls, "bytes": self.bytes, "seconds": self.seconds,
+                "gb_per_s": self.bytes / self.seconds / 1e9 if self.seconds else None}
+
+
+def net_snapshot() -> dict:
+    """The `sw_net_*` counters, keyed "name{plane=..,direction=..}"."""
+    from seaweedfs_tpu_torch.utils import metrics as M
+
+    return {f"{name}{{plane={plane},direction={direction}}}": v
+            for name, fam in (("sent", M.net_bytes_sent_total), ("received", M.net_bytes_received_total),
+                              ("copied", M.net_bytes_copied_total))
+            for (plane, direction), v in fam.snapshot().items()}
+
+
+def net_delta(before: dict) -> dict:
+    """What the `sw_net_*` counters moved by since `before` (process-wide
+    counters: compared by delta)."""
+    return {k: int(v - before.get(k, 0)) for k, v in net_snapshot().items() if v != before.get(k, 0)}
+
+
+def peer_phase(work, ctx, digests, reb_batches) -> tuple[dict, int]:
+    """Phase 11: peer-fetch rebuild of shards LOST from a local holder of
+    shards PEER_LOCAL (fewer than k, shard PEER_ROT with two rotten
+    leaves) and three peers in a child process serving the rest over the
+    shard net plane. 11a native plane, 11b Python plane, 11c two peers
+    stopped: a clean refusal. Returns (result, gf2_apply launches)."""
+    from seaweedfs_tpu_torch.ec import BitrotProtection, ECError, TorchBackend, native_io, net_plane
+    from seaweedfs_tpu_torch.ec import backend as port_backend
+    from seaweedfs_tpu_torch.ec import peer_rebuild as pr
+    from seaweedfs_tpu_torch.ec.repair_journal import leaf_ranges
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.utils import native
+
+    if not native_io.enabled():
+        raise AssertionError("phase 11 needs the native plane (SEAWEED_EC_NATIVE is 0)")
+    root = os.path.join(work, "peer")
+    src = os.path.join(root, "src")
+    src_base = os.path.join(src, "1")
+    prot = BitrotProtection.load(src_base + ".ecsum")
+    lsize = prot.leaf_size
+    size = prot.shard_sizes[0]
+    n_leaves = len(prot.shard_leaf_crcs[PEER_ROT])
+    rot_leaves = [n_leaves // 4, 3 * n_leaves // 4]  # not adjacent: two ranges
+    n_ranges = len(leaf_ranges(rot_leaves, lsize, prot.shard_sizes[PEER_ROT]))
+    rot_at = (n_leaves // 2) * lsize + 333  # outside shard PEER_ROT's rotten leaves
+    flip(os.path.join(root, "rot", "1" + ctx.to_ext(ROT_SHARD)), rot_at)
+    holders = {sid: [name] for name, sids in PEER_SHARDS.items() for sid in sids}
+    holders[ROT_SHARD] = [ROT_PEER] + holders[ROT_SHARD]
+    spec = {**{n: list(s) for n, s in PEER_SHARDS.items()}, ROT_PEER: [ROT_SHARD]}
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(root, "peers.log")
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c", PEER_CHILD, src, os.path.join(root, "rot"),
+             str(prot.generation), json.dumps(spec)],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=log, text=True,
+        )
+    client = net_plane.NetPlaneClient(timeout=60.0)
+
+    def ask(line: str) -> dict:
+        child.stdin.write(line + "\n")
+        child.stdin.flush()
+        got = child.stdout.readline()
+        if not got:
+            with open(log_path) as f:
+                raise AssertionError(f"the peer child died: {f.read()[-3000:]}")
+        return json.loads(got)
+
+    result: dict = {"holders": {str(k): v for k, v in sorted(holders.items())},
+                    "rot_leaves": rot_leaves, "rotten_byte": rot_at,
+                    "recv_overlap_active_4MiB": native.recv_overlap_active(4 << 20)}
+    launches = 0
+    try:
+        hello = child.stdout.readline()
+        if not hello:
+            with open(log_path) as f:
+                raise AssertionError(f"the peer child did not start: {f.read()[-3000:]}")
+        hello = json.loads(hello)
+        if not hello["egress_native"]:
+            raise AssertionError("the peers would egress through Python")
+        addr = {n: ("127.0.0.1", p) for n, p in hello["ports"].items()}
+        try:
+            client.read_bytes(addr["peer-a"], 1, 5, prot.generation + 1, 0, 16)
+            raise AssertionError("a stale generation was served")
+        except net_plane.NetPlaneError as e:
+            if "stale generation" not in str(e):
+                raise
+
+        def transports():
+            def fetch(peer, sid, off, n):
+                try:
+                    return client.read_bytes(addr[peer], 1, sid, prot.generation, off, n)
+                except (net_plane.NetPlaneUnavailable, net_plane.NetPlaneError) as e:
+                    raise pr.PeerFetchTransient(str(e)) from e
+
+            return (Timed(fetch, lambda a: a[3]),
+                    Timed(net_plane.make_fetch_into(client, 1, prot.generation, addr_of=addr.__getitem__),
+                          lambda a: a[3]))
+
+        def local(tag: str) -> str:
+            from_src = same_inputs(src_base, os.path.join(root, tag), [i for i in PEER_LOCAL if i != PEER_ROT])
+            shutil.copyfile(src_base + ctx.to_ext(PEER_ROT), from_src + ctx.to_ext(PEER_ROT))
+            for li in rot_leaves:
+                flip(from_src + ctx.to_ext(PEER_ROT), li * lsize + 1000)
+            return from_src
+
+        def run(tag: str, native_plane: bool) -> dict:
+            base = local(tag)
+            fetch, fetch_into = transports()
+            backend = TorchBackend(ctx)
+            rebuild_wall = []
+            inner = pr.rebuild_ec_files
+
+            def timed_rebuild(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return inner(*a, **kw)
+                finally:
+                    rebuild_wall.append(time.perf_counter() - t0)
+
+            cpu_before = dict(port_backend.AUTO_CPU)
+            net_before = net_snapshot()
+            rs_kernels.reset_launches()
+            pr.rebuild_ec_files = timed_rebuild
+            t0 = time.perf_counter()
+            try:
+                rep = pr.rebuild_from_peers(base, holders, fetch, ctx=ctx, targets=list(LOST),
+                                            backend=backend,
+                                            fetch_into=fetch_into if native_plane else None)
+            finally:
+                pr.rebuild_ec_files = inner
+            wall = time.perf_counter() - t0
+            n_launch = rs_kernels.LAUNCHES["gf2_apply"]
+            plane = "native" if native_plane else "python"
+            if rep.leaf_repaired != {PEER_ROT: rot_leaves} or rep.rebuilt != list(LOST):
+                raise AssertionError(f"11{tag}: {rep}")
+            for sid in (*LOST, PEER_ROT):
+                if sha256(base + ctx.to_ext(sid)) != digests[sid]:
+                    raise AssertionError(f"11{tag}: shard {sid} differs from its encode-time bytes")
+            k = ctx.data_shards
+            local_good = len(PEER_LOCAL) - 1
+            if rep.repair_wire_bytes != (k - local_good) * lsize * n_ranges:
+                raise AssertionError(f"11{tag}: repair_wire_bytes {rep.repair_wire_bytes}")
+            want_fetched = {sid: holders[sid][-1] for sid in range(5, 11)}
+            if rep.excluded_peers != [ROT_PEER] or rep.fetched != want_fetched:
+                raise AssertionError(f"11{tag}: excluded {rep.excluded_peers}, fetched {rep.fetched}")
+            # `fetch` carried the leaf ranges and ONE re-read of the rotten
+            # holder's bad granule (the granule, not the chunk)
+            n_fetch = (k - local_good) * n_ranges + 1
+            if native_plane and fetch.sizes != [lsize] * n_fetch:
+                raise AssertionError(f"11{tag}: fetch asked for {fetch.sizes}, expected {n_fetch} "
+                                     f"ranges of {lsize}")
+            if set(rep.fetched_plane.values()) != {plane}:
+                raise AssertionError(f"11{tag}: planes {rep.fetched_plane}")
+            if os.path.exists(pr.staging_dir(base)):
+                raise AssertionError(f"11{tag}: staging left behind")
+            if n_launch != reb_batches + n_ranges or rs_kernels.LAUNCHES["gf2_apply_planes"]:
+                raise AssertionError(f"11{tag}: {rs_kernels.LAUNCHES} launches for {reb_batches} "
+                                     f"batches and {n_ranges} leaf ranges")
+            if dict(port_backend.AUTO_CPU) != cpu_before:
+                raise AssertionError(f"11{tag}: a CPU resolution {port_backend.AUTO_CPU}")
+            if client._no_plane:
+                raise AssertionError(f"11{tag}: no-plane memo for live peers {client._no_plane}")
+            # the wire: whole streams on `plane`, the rotten holder's up to
+            # and including its bad chunk, one granule re-read and the
+            # leaf ranges through `fetch` (the Python plane)
+            delta = net_delta(net_before)
+            chunk = pr.NATIVE_FETCH_CHUNK if native_plane else pr.FETCH_CHUNK
+            streamed = len(want_fetched) * size + min(size, (rot_at // chunk + 1) * chunk)
+            want = {"native": streamed if native_plane else 0,
+                    "python": rep.repair_wire_bytes + lsize + (0 if native_plane else streamed)}
+            got = {p: delta.get(f"received{{plane={p},direction=read}}", 0) for p in ("native", "python")}
+            if got != want:
+                raise AssertionError(f"11{tag}: sw_net_bytes_received_total moved {got}, expected {want}")
+            return {
+                "wall_s": wall, "rebuild_wall_s": sum(rebuild_wall),
+                "fetched_bytes": streamed, "fetched_gb_per_s_over_loopback":
+                    streamed / (fetch_into if native_plane else fetch).seconds / 1e9,
+                "fetch_into": fetch_into.summary(), "fetch": fetch.summary(),
+                "launches": n_launch, "leaf_ranges": n_ranges, "rebuild_batches": reb_batches,
+                "repair_wire_bytes": rep.repair_wire_bytes, "excluded": rep.excluded_peers,
+                "fetched": {str(s): p for s, p in rep.fetched.items()}, "plane": plane,
+                "backend_stage_seconds": dict(backend.stage_seconds), "sw_net_delta": delta,
+                "outputs": {str(s): sha256(base + ctx.to_ext(s)) for s in (*LOST, PEER_ROT)},
+            }
+
+        t0 = time.perf_counter()
+        a = run("a", True)
+        launches += a["launches"]
+        b = run("b", False)
+        launches += b["launches"]
+        if a["outputs"] != b["outputs"]:
+            raise AssertionError("11b's outputs differ from 11a's")
+        result["11a_native"], result["11b_python"] = a, b
+        result["peers_status"] = ask("status")
+
+        # -- 11c. two of the three peers stopped: fewer than k reachable ------
+        ask("stop peer-a peer-b")
+        base = local("c")
+        before = {name: sha256(os.path.join(root, "c", name)) for name in sorted(os.listdir(os.path.join(root, "c")))}
+        fetch, fetch_into = transports()
+        rs_kernels.reset_launches()
+        t1 = time.perf_counter()
+        try:
+            pr.rebuild_from_peers(base, holders, fetch, ctx=ctx, targets=list(LOST),
+                                  backend=TorchBackend(ctx), fetch_into=fetch_into)
+            raise AssertionError("11c: the rebuild did not refuse")
+        except ECError as e:
+            refusal = str(e)
+        after = {name: sha256(os.path.join(root, "c", name)) for name in sorted(os.listdir(os.path.join(root, "c")))}
+        if after != before or os.path.exists(pr.staging_dir(base)):
+            raise AssertionError(f"11c: the local directory changed: {sorted(before)} -> {sorted(after)}")
+        launches += rs_kernels.LAUNCHES["gf2_apply"]
+        result["11c_refusal"] = {"wall_s": time.perf_counter() - t1, "message": refusal,
+                                 "launches": rs_kernels.LAUNCHES["gf2_apply"],
+                                 "memoized_unreachable": sorted(f"{h}:{p}" for h, p in client._no_plane)}
+        result["phase_s"] = time.perf_counter() - t0
+        child.stdin.write("exit\n")
+        child.stdin.flush()
+    finally:
+        client.close()
+        if child.poll() is None:
+            try:
+                child.stdin.close()
+            except OSError:
+                pass
+            try:
+                child.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2469,6 +2815,9 @@ def main() -> int:
         for i in LOST:
             if sha256(base + ctx.to_ext(i)) != digests[i]:
                 raise AssertionError(f"rebuilt shard {i} differs from the original")
+        t0 = time.perf_counter()
+        peer_copies(work, base, ctx, digests)  # phase 11's inputs, every shard as encoded
+        print(f"phase 11's inputs copied: {time.perf_counter() - t0:.3f} s")
         if reb_launches < 1:
             raise AssertionError("rebuild never launched the kernel")
         reb_stages = dict(backend.stage_seconds)
@@ -2544,6 +2893,15 @@ def main() -> int:
         t0 = time.perf_counter()
         _, sched_launches = sched_phase(work, base, ctx, records, dat_size, digests, n_batches, enc_s)
         print(f"phase 10: {time.perf_counter() - t0:.3f} s")
+
+        # -- 11. peer-fetch rebuild over the shard net plane -------------------------------
+        t0 = time.perf_counter()
+        peer, peer_launches = peer_phase(work, ctx, digests, reb_batches)
+        print("peer-fetch rebuild (11a native plane, 11b Python plane: shards 3 and 11 rebuilt "
+              "and shard 4's two rotten leaves repaired from peers, sha256-identical, the rotten "
+              "holder excluded, launches == rebuild batches + leaf ranges; 11c two peers stopped: "
+              f"refused, local files unchanged): {json.dumps(peer)}")
+        print(f"phase 11: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2554,7 +2912,8 @@ def main() -> int:
         ("gf2_apply", "seaweedfs_tpu/ops/rs_pallas.py:55",
          {"4 encode": enc_launches, "5 rebuild": reb_launches, "6b scrub": scrub_launches,
           "7a stream": stream_launches, "7b partition": mq_launches,
-          "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"]},
+          "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"],
+          "11 peer rebuild": peer_launches},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,

@@ -8,10 +8,12 @@
 // (seaweedfs_tpu_torch/ops/_build.py, seaweedfs_tpu_torch/utils/native.py).
 //
 // The port's own copy of the parts of the JAX package's C++ core that
-// encode, rebuild, decode, degraded reads and the CPU backend call; same
-// functions, same output bit for bit. The network plane, the .dat
-// scanner and the one-shot shard append are not here: no path of the
-// port calls them.
+// encode, rebuild, decode, degraded reads, the CPU backend and the shard
+// net plane's read opcode (sn_send_file, sn_sendv, sn_recv_into,
+// sn_recv_overlap_active; socket helpers in sn_net.h) call; same
+// functions, same output bit for bit. The .dat scanner, the one-shot
+// shard append and the blob-write landing (sn_recv_file) are not here:
+// no path of the port calls them.
 //
 // Departures from that core:
 // - the reader's and the sink's per-row work, and the column windows of
@@ -31,6 +33,7 @@
 #include <condition_variable>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
 #include <functional>
@@ -40,7 +43,10 @@
 
 #include <fcntl.h>
 #include <pthread.h>
+#include <sys/uio.h>
 #include <unistd.h>
+
+#include "sn_net.h"
 
 #if defined(__x86_64__)
 #include <immintrin.h>
@@ -577,6 +583,224 @@ int sn_sink_direct_flags(void* handle, uint8_t* out) {
 }
 
 void sn_sink_destroy(void* handle) { delete (SnSink*)handle; }
+
+// ---------------------------------------------------------------------------
+// Network byte plane (ec/net_plane.py):
+//
+//   sn_send_file  - sendfile(2) a shard fd range straight into a socket
+//                   (kernel to kernel; a pread+write fallback where the
+//                   kernel path is unsupported);
+//   sn_sendv      - scatter-gather writev from caller buffers without a
+//                   Python-side join or per-chunk GIL round trips;
+//   sn_recv_into  - land a socket stream DIRECTLY in a caller-owned
+//                   buffer (a pooled landing row), rolling the fused
+//                   granule CRC32C during the copy-in so the sidecar
+//                   verify costs no extra byte pass.
+//
+// ctypes releases the GIL for each whole call; timeouts follow the
+// sn_net.h convention (Python settimeout sockets are O_NONBLOCK, so
+// EAGAIN polls instead of failing).
+// ---------------------------------------------------------------------------
+
+int64_t sn_send_file(int out_fd, int in_fd, uint64_t offset, uint64_t len, int timeout_ms) {
+    return sn_net::send_file(out_fd, in_fd, offset, len, timeout_ms);
+}
+
+// Scatter-gather send of n buffers. Returns total bytes sent (== sum of
+// lens on success) or -errno; a peer that dies mid-stream surfaces as
+// -EPIPE/-ECONNRESET, a stalled peer as -ETIMEDOUT.
+int64_t sn_sendv(int fd, const uint8_t* const* bufs, const uint64_t* lens, int n,
+                 int timeout_ms) {
+    int64_t total = 0;
+    int i = 0;
+    uint64_t off = 0;  // progress within bufs[i]
+    for (;;) {
+        while (i < n && off >= lens[i]) {
+            i++;
+            off = 0;
+        }
+        if (i >= n) return total;
+        struct iovec iov[64];
+        int cnt = 0;
+        for (int j = i; j < n && cnt < 64; j++) {
+            uint64_t skip = (j == i) ? off : 0;
+            if (lens[j] <= skip) continue;
+            iov[cnt].iov_base = const_cast<uint8_t*>(bufs[j]) + skip;
+            iov[cnt].iov_len = (size_t)(lens[j] - skip);
+            cnt++;
+        }
+        ssize_t w = writev(fd, iov, cnt);
+        if (w < 0) {
+            if (errno == EINTR) continue;
+            if (errno == EAGAIN || errno == EWOULDBLOCK) {
+                int rc = sn_net::wait_fd(fd, POLLOUT, timeout_ms);
+                if (rc != 0) return (int64_t)rc;
+                continue;
+            }
+            return -(int64_t)errno;
+        }
+        total += w;
+        uint64_t adv = (uint64_t)w;
+        while (i < n && adv) {
+            uint64_t rem = lens[i] - off;
+            if (adv >= rem) {
+                adv -= rem;
+                off = 0;
+                i++;
+            } else {
+                off += adv;
+                adv = 0;
+            }
+        }
+    }
+}
+
+// Receive up to `len` bytes from fd; `progress` (when given) publishes
+// the bytes landed so far. Short = the peer closed.
+static int64_t recv_plain(int fd, uint8_t* dst, uint64_t len, int timeout_ms,
+                          uint64_t* progress) {
+    uint64_t got = 0;
+    while (got < len) {
+        ssize_t r = read(fd, dst + got, (size_t)(len - got));
+        if (r < 0) {
+            if (errno == EINTR) continue;
+            if (errno == EAGAIN || errno == EWOULDBLOCK) {
+                int rc = sn_net::wait_fd(fd, POLLIN, timeout_ms);
+                if (rc != 0) return (int64_t)rc;
+                continue;
+            }
+            return -(int64_t)errno;
+        }
+        if (r == 0) break;  // peer closed
+        got += (uint64_t)r;
+        if (progress) __atomic_store_n(progress, got, __ATOMIC_RELEASE);
+    }
+    return (int64_t)got;
+}
+
+// Transfers below this run the serial recv+CRC loop: a thread start
+// costs more than it buys on small ranges (leaf repairs, tails). The
+// overlap also needs spare cores: with fewer than 4 hardware threads the
+// CRC helper only steals CPU from the socket copy (and, on loopback,
+// from the peer's sendfile). SEAWEED_EC_NET_OVERLAP overrides the core
+// gate ("1" on, "0" serial, anything else the auto rule); the size floor
+// always applies. The hot path takes the mode as a PARAMETER, read
+// Python-side under the GIL: a getenv here would race a concurrent
+// setenv from Python's os.environ, which is undefined behavior in glibc.
+#define SN_RECV_OVERLAP_MIN (256u * 1024u)
+#define SN_RECV_OVERLAP_MIN_CORES 4u
+
+// mode: 0 = force serial, 1 = force overlapped, anything else = auto.
+static bool recv_overlap_wanted(uint64_t len, int32_t mode) {
+    if (len < SN_RECV_OVERLAP_MIN) return false;
+    if (mode == 0) return false;
+    if (mode == 1) return true;
+    return std::thread::hardware_concurrency() >= SN_RECV_OVERLAP_MIN_CORES;
+}
+
+// Whether a fused recv of `len` bytes would take the overlapped core
+// under the current env and host. Cold path only: callers probe it
+// sequentially, so the getenv here does not race.
+int sn_recv_overlap_active(uint64_t len) {
+    const char* env = getenv("SEAWEED_EC_NET_OVERLAP");
+    int32_t mode = -1;
+    // env[0] before env[1]: an empty value is a 1-byte string
+    if (env && (env[0] == '0' || env[0] == '1') && env[1] == 0) mode = env[0] - '0';
+    return recv_overlap_wanted(len, mode) ? 1 : 0;
+}
+
+// Receive up to `len` bytes from fd straight into dst. With granule > 0
+// the rolling granule CRC32C (crc_state/filled_state, persisting across
+// calls if the caller keeps them) advances over the bytes while they are
+// cache-hot from the copy-in; completed granule CRCs append to out_crcs
+// (*out_count in all, -1 on overflow of max_out). For large fused
+// transfers the socket reads run on a helper thread with the CRC chasing
+// the landed bytes from the calling thread, so the verify overlaps the
+// wire instead of serializing behind it. Returns bytes received (short
+// means the peer closed mid-stream: the caller's torn-stream contract)
+// or -errno.
+int64_t sn_recv_into(int fd, uint8_t* dst, uint64_t len, int timeout_ms, uint32_t granule,
+                     uint32_t* crc_state, uint64_t* filled_state, uint32_t* out_crcs,
+                     int32_t* out_count, int32_t max_out, int32_t overlap_mode) {
+    crc32c_table_init();
+    if (out_count) *out_count = 0;
+    if (granule == 0) return recv_plain(fd, dst, len, timeout_ms, nullptr);
+    if (!recv_overlap_wanted(len, overlap_mode)) {
+        // serial: recv then CRC the fresh bytes, chunk by chunk
+        uint64_t got = 0;
+        while (got < len) {
+            uint64_t before = got;
+            ssize_t r = read(fd, dst + got, (size_t)(len - got));
+            if (r < 0) {
+                if (errno == EINTR) continue;
+                if (errno == EAGAIN || errno == EWOULDBLOCK) {
+                    int rc = sn_net::wait_fd(fd, POLLIN, timeout_ms);
+                    if (rc != 0) return (int64_t)rc;
+                    continue;
+                }
+                return -(int64_t)errno;
+            }
+            if (r == 0) break;
+            got += (uint64_t)r;
+            int added = roll_crc_blocks(crc_state, filled_state, granule, dst + before,
+                                        (size_t)r, out_crcs + *out_count, max_out - *out_count);
+            if (added < 0) {
+                *out_count = -1;
+                return -EOVERFLOW;
+            }
+            *out_count += added;
+        }
+        return (int64_t)got;
+    }
+    // Overlapped: a helper thread fills dst, this thread CRCs behind it.
+    uint64_t progress = 0;
+    int64_t recv_rc = 0;
+    bool done = false;
+    std::thread reader([&]() {
+        recv_rc = recv_plain(fd, dst, len, timeout_ms, &progress);
+        __atomic_store_n(&done, true, __ATOMIC_RELEASE);
+    });
+    uint64_t crc_done = 0;
+    bool overflow = false;
+    for (;;) {
+        uint64_t avail = __atomic_load_n(&progress, __ATOMIC_ACQUIRE);
+        bool finished = __atomic_load_n(&done, __ATOMIC_ACQUIRE);
+        if (avail > crc_done) {
+            int added = roll_crc_blocks(crc_state, filled_state, granule, dst + crc_done,
+                                        (size_t)(avail - crc_done), out_crcs + *out_count,
+                                        max_out - *out_count);
+            if (added < 0) {
+                overflow = true;
+                break;
+            }
+            *out_count += added;
+            crc_done = avail;
+        } else if (finished) {
+            break;
+        } else {
+            std::this_thread::yield();
+        }
+    }
+    reader.join();
+    if (overflow) {
+        *out_count = -1;
+        return -EOVERFLOW;
+    }
+    if (recv_rc < 0) return recv_rc;
+    // CRC whatever landed after the last loop pass
+    uint64_t got = (uint64_t)recv_rc;
+    if (got > crc_done) {
+        int added = roll_crc_blocks(crc_state, filled_state, granule, dst + crc_done,
+                                    (size_t)(got - crc_done), out_crcs + *out_count,
+                                    max_out - *out_count);
+        if (added < 0) {
+            *out_count = -1;
+            return -EOVERFLOW;
+        }
+        *out_count += added;
+    }
+    return recv_rc;
+}
 
 // ---------------------------------------------------------------------------
 // GF(2^8) Reed-Solomon matrix apply (polynomial 0x11D, klauspost's field):

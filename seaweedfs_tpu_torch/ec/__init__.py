@@ -2,7 +2,9 @@
 serve needle reads from the shards (degraded reads reconstruct on the
 fly), decode the shards back into a volume, and scrub a volume (patch
 rotten leaves in place under a crash-safe journal, quarantine and
-rebuild what that cannot fix), and encode a stream while it is written
+rebuild what that cannot fix), rebuild from shards fetched from peer
+holders (`rebuild_from_peers`, over the shard net plane of `net_plane`),
+and encode a stream while it is written
 (`EcStreamEncoder`: incremental parity, the stripe-cursor journal,
 `recover_stream`). Every staged path is a client of the per-chip device
 scheduler (`DeviceQueue`, `QueueScope`, the residency ledger) and of
@@ -12,10 +14,10 @@ to it where there is no card, both counted. The byte path of the volume
 paths is the native host plane: `native_io` (batched reads into pooled, page-locked landing
 matrices) and `FusedShardSink` (`make_shard_sink`).
 
-Port of the encode, rebuild, read, decode, scrub and streaming slices of
-seaweedfs_tpu/ec; the files it reads and writes (.ec00.., .ecx, .ecj,
-.ecsum, .vif, .repair, .scrubpos, .stream, and the decoded .dat and
-.idx) are the JAX package's formats, byte for byte.
+Port of the encode, rebuild, read, decode, scrub, streaming and
+peer-fetch slices of seaweedfs_tpu/ec; the files it reads and writes
+(.ec00.., .ecx, .ecj, .ecsum, .vif, .repair, .scrubpos, .stream, and the
+decoded .dat and .idx) are the JAX package's formats, byte for byte.
 """
 
 from . import native_io
@@ -35,6 +37,12 @@ from .device_queue import default_scope as default_device_queue_scope
 from .device_queue import for_backend as device_queue_for_backend
 from .ec_volume import EcCookieMismatch, EcNotFoundError, EcVolume
 from .encoder import ec_encode_volume, write_ec_files, write_sorted_file_from_idx
+from .peer_rebuild import (
+    PeerCorruptError,
+    PeerFetchTransient,
+    PeerRebuildReport,
+    rebuild_from_peers,
+)
 from .pipeline import FusedShardSink, PyShardSink, make_shard_sink
 from .rebuild import rebuild_ec_files
 from .repair_journal import (
@@ -77,6 +85,9 @@ __all__ = [
     "FusedShardSink",
     "JournalError",
     "LeafPatch",
+    "PeerCorruptError",
+    "PeerFetchTransient",
+    "PeerRebuildReport",
     "Placement",
     "PyShardSink",
     "QueueScope",
@@ -103,6 +114,7 @@ __all__ = [
     "pool_for",
     "rebuild_ec_files",
     "read_stream_data",
+    "rebuild_from_peers",
     "reconstruct_leaves",
     "recover_stream",
     "recover_volume_journals",

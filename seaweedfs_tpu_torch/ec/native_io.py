@@ -1,8 +1,9 @@
 """Native read plane of the EC byte path: pooled landing matrices,
 batched positioned reads, readahead.
 
-Port of seaweedfs_tpu/ec/native_io.py (its network half, `landing_pool`,
-waits for the port's network plane). Batches land through one
+Port of seaweedfs_tpu/ec/native_io.py, network half included:
+`landing_pool` holds the 1-row landing buffers of the shard net plane's
+ingress (ec/net_plane.py, ec/peer_rebuild.py). Batches land through one
 GIL-releasing `sn_batch_pread` call per batch in caller-owned aligned
 matrices that flow produce -> transform -> consume untouched and then
 go back to a small pool. The write half is the stateful native sink
@@ -127,6 +128,24 @@ class BufferPool:
     def put(self, buf: np.ndarray) -> None:
         with self._lock:
             self._free.setdefault(buf.shape[1], []).append(buf)
+
+
+_landing_pool: "BufferPool | None" = None
+_landing_pool_lock = threading.Lock()
+
+
+def landing_pool() -> BufferPool:
+    """Process-wide width-keyed pool of 1-row aligned landing buffers,
+    shared by every single-stream ingress (the peer-fetch net-plane
+    landings), so steady state allocates once per width and reuses
+    forever. Plain 4096-aligned host memory, not page-locked: these
+    buffers feed the disk (the fetched stream goes to staging), not the
+    card."""
+    global _landing_pool
+    with _landing_pool_lock:
+        if _landing_pool is None:
+            _landing_pool = BufferPool(rows=1)
+        return _landing_pool
 
 
 def read_batch(

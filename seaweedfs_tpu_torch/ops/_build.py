@@ -7,12 +7,14 @@ Two sources live in seaweedfs_tpu_torch/csrc/:
   PyTorch headers, so it builds in seconds;
 - seaweed_native.cpp: the host library (g++, `-pthread`): the byte
   plane (CRC32C, batched positioned reads with an inline CRC, the
-  stateful shard sink) and the GF(2^8) apply of the native CPU backend
-  (utils/native.py binds it).
+  stateful shard sink), the network byte plane's socket calls (with
+  the helpers of csrc/sn_net.h) and the GF(2^8) apply of the native CPU
+  backend (utils/native.py binds it).
 
 Each library is built into seaweedfs_tpu_torch/build/ (listed in
-.gitignore) under a name that carries a hash of its source and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+.gitignore) under a name that carries a hash of its source, the headers
+of csrc/ and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 The compiler writes to a private temporary name that is renamed into
 place, so concurrent builders (test workers, threads) never load a
 half-written file. Nothing is built when the package is imported:
@@ -67,8 +69,9 @@ def _command(name: str) -> tuple[list[str], Path]:
         compiler, flags = nvcc_path(), NVCC_FLAGS
     else:
         compiler, flags = shutil.which("g++") or "g++", GXX_FLAGS
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.h")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()
+        src.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     return [compiler, *flags, str(src)], out
@@ -151,6 +154,19 @@ _SIGNATURES = {
         ),
         "sn_gf_mul": (_c.c_uint8, [_c.c_uint8, _c.c_uint8]),
         "sn_has_avx2": (_c.c_int, []),
+        # out_fd (socket), in_fd (file), offset, len, timeout_ms
+        "sn_send_file": (_c.c_int64, [_c.c_int, _c.c_int, _c.c_uint64, _c.c_uint64, _c.c_int]),
+        # fd, bufs, lens, n, timeout_ms
+        "sn_sendv": (_c.c_int64, [
+            _c.c_int, _c.POINTER(_P), _c.POINTER(_c.c_uint64), _c.c_int, _c.c_int,
+        ]),
+        # fd, dst, len, timeout_ms, granule, crc_state, filled_state,
+        # out_crcs, out_count, max_out, overlap_mode
+        "sn_recv_into": (_c.c_int64, [
+            _c.c_int, _P, _c.c_uint64, _c.c_int, _c.c_uint32, _P, _P, _P, _P, _c.c_int32,
+            _c.c_int32,
+        ]),
+        "sn_recv_overlap_active": (_c.c_int, [_c.c_uint64]),
         "sn_pool_threads": (_c.c_int, []),
     },
 }

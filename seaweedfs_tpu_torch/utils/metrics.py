@@ -344,6 +344,32 @@ ec_repair_journal_total = REGISTRY.counter(
     ("action",),
 )
 
+# Network byte plane: payload bytes over the wire per plane (native =
+# sendfile/recv-into with the GIL released; python = the bit-identical
+# fallback through Python buffers). The copied counter counts payload
+# bytes materialized into Python-level buffers at the instrumented seams.
+# `direction` splits the read-serving path from the write path (the
+# port's plane serves reads only). Help texts are the JAX package's, so
+# the exposition text is byte-identical.
+net_bytes_sent_total = REGISTRY.counter(
+    "sw_net_bytes_sent_total",
+    "payload bytes sent on the network byte path (shard net plane, "
+    "EC shard-read RPC, gateway HTTP body egress, write-opcode egress)",
+    ("plane", "direction"),
+)
+net_bytes_received_total = REGISTRY.counter(
+    "sw_net_bytes_received_total",
+    "payload bytes landed from the network byte path (peer-fetch "
+    "ingress, write-opcode landing)",
+    ("plane", "direction"),
+)
+net_bytes_copied_total = REGISTRY.counter(
+    "sw_net_bytes_copied_total",
+    "payload bytes materialized into Python-level buffers on the "
+    "network byte path (the bytes-copied-per-byte-served numerator)",
+    ("plane", "direction"),
+)
+
 # The hot-object/chunk read-through cache tiers (tier = filer_chunk |
 # ec_interval; the port has the EC interval cache).
 gateway_hot_cache_hits_total = REGISTRY.counter(

@@ -1,10 +1,12 @@
 """ctypes bindings of the port's host library (csrc/seaweed_native.cpp).
 
 Port of seaweedfs_tpu/utils/native.py, trimmed to what encode, rebuild,
-decode, degraded reads and the native CPU backend call: CRC32C and its
-combine, the batched positioned read with an inline rolling CRC, the
-readahead hint, the stateful shard sink, and the GF(2^8) matrix apply
-(`rs_apply`, `rs_apply_mt`, `gf_mul`, `has_avx2`). ops/_build.py builds
+decode, degraded reads, the native CPU backend and the shard net plane
+call: CRC32C and its combine, the batched positioned read with an inline
+rolling CRC, the readahead hint, the stateful shard sink, the GF(2^8)
+matrix apply (`rs_apply`, `rs_apply_mt`, `gf_mul`, `has_avx2`), and the
+socket egress and ingress of the network byte plane (`send_file`,
+`sendv`, `recv_into`, `recv_overlap_active`). ops/_build.py builds
 the library with g++ at first use into seaweedfs_tpu_torch/build/ and
 loads it. A failed build or load raises at the first call that needs the
 library; nothing here turns it into a quiet fallback (SEAWEED_EC_NATIVE=0,
@@ -280,3 +282,137 @@ class NativeSink:
             self.destroy()
         except Exception:
             pass
+
+
+# ---------------------------------------------------------------- network
+# Socket egress and ingress of the shard net plane (ec/net_plane.py). All
+# release the GIL for the whole transfer; `timeout_ms` bounds each poll()
+# wait on a Python-timeout (O_NONBLOCK) socket, -1 blocks forever.
+
+
+def send_file(out_fd: int, in_fd: int, offset: int, length: int, timeout_ms: int = -1) -> int:
+    """sendfile(2) `length` bytes of in_fd@offset into out_fd: kernel to
+    kernel, no userspace copy (one, through the C side's buffer, where
+    the kernel path is unsupported). Returns bytes sent; SHORT only when
+    in_fd hits EOF. Raises OSError on socket errors or timeout."""
+    sent = _lib().sn_send_file(out_fd, in_fd, offset, length, timeout_ms)
+    if sent < 0:
+        raise OSError(-sent, f"sn_send_file: {os.strerror(-sent)}")
+    return int(sent)
+
+
+def _part_ptr_len(part, keepalive: list):
+    """(address, nbytes) of a bytes-like without copying it; appends what
+    must outlive the call to `keepalive`."""
+    if isinstance(part, np.ndarray):
+        _require(part.dtype == np.uint8 and part.flags.c_contiguous,
+                 "ndarray parts must be C-contiguous uint8")
+        keepalive.append(part)
+        return part.ctypes.data, part.nbytes
+    if isinstance(part, bytes):
+        p = ctypes.cast(ctypes.c_char_p(part), ctypes.c_void_p)
+        keepalive.append((part, p))
+        return p.value or 0, len(part)
+    a = np.frombuffer(part, dtype=np.uint8)  # zero-copy view
+    keepalive.append((part, a))
+    return a.ctypes.data, a.nbytes
+
+
+def sendv(out_fd: int, parts, timeout_ms: int = -1) -> int:
+    """Scatter-gather write of `parts` (bytes, memoryview or uint8
+    ndarray) to out_fd through writev: no Python-side join, no per-chunk
+    GIL round trips. Returns the bytes sent (the sum of the lengths);
+    raises OSError on failure, ETIMEDOUT included, since a partial body
+    is a broken connection, not a result."""
+    n = len(parts)
+    keep: list = []
+    ptrs = (ctypes.c_void_p * n)()
+    lens = (ctypes.c_uint64 * n)()
+    total = 0
+    for i, part in enumerate(parts):
+        addr, ln = _part_ptr_len(part, keep)
+        ptrs[i] = addr
+        lens[i] = ln
+        total += ln
+    sent = _lib().sn_sendv(out_fd, ptrs, lens, n, timeout_ms)
+    if sent < 0:
+        raise OSError(-sent, f"sn_sendv: {os.strerror(-sent)}")
+    if sent != total:  # the C side shorts only on error
+        raise OSError(f"sn_sendv short write: {sent}/{total}")
+    return int(sent)
+
+
+def recv_overlap_active(length: int) -> bool:
+    """Whether a fused recv+CRC of `length` bytes would run the
+    overlapped core (socket reads on a helper thread, the CRC chasing
+    the landed bytes) under the current host and env. Auto: at least 4
+    hardware threads and 256 KiB; SEAWEED_EC_NET_OVERLAP=1 or 0 forces
+    the core gate on or off (the size floor always applies). Read live."""
+    return bool(_lib().sn_recv_overlap_active(length))
+
+
+def _overlap_mode() -> int:
+    """SEAWEED_EC_NET_OVERLAP as sn_recv_into's overlap_mode, read here
+    under the GIL (where os.environ changes too) and passed down: a
+    getenv on the C hot path would race a concurrent setenv."""
+    env = os.environ.get("SEAWEED_EC_NET_OVERLAP", "")
+    if env == "1":
+        return 1
+    if env == "0":
+        return 0
+    return -1
+
+
+def recv_into(
+    fd: int,
+    dst: np.ndarray,
+    length: int | None = None,
+    *,
+    timeout_ms: int = -1,
+    granule: int = 0,
+    crc_state: np.ndarray | None = None,
+    filled_state: np.ndarray | None = None,
+    out_crcs: np.ndarray | None = None,
+    out_counts: np.ndarray | None = None,
+) -> int:
+    """Land up to `length` bytes from fd DIRECTLY in `dst` (1-D
+    C-contiguous uint8, e.g. a pooled landing row): the ingress half of
+    the network plane. Returns bytes received; SHORT means the peer
+    closed mid-stream (the caller's torn-stream contract). With
+    granule > 0 the rolling granule CRC32C (crc_state u32[1],
+    filled_state u64[1]) advances over the bytes during the copy-in;
+    completed granule CRCs land in out_crcs, their count in
+    out_counts[0]: the fused sidecar verify, no extra byte pass."""
+    _require(dst.dtype == np.uint8 and dst.ndim == 1 and dst.flags.c_contiguous,
+             "dst must be a 1-D C-contiguous uint8 array")
+    if length is None:
+        length = dst.nbytes
+    _require(0 <= length <= dst.nbytes, f"length {length} outside [0, {dst.nbytes}]")
+    max_out = 0
+    if granule:
+        _require(
+            crc_state is not None and crc_state.dtype == np.uint32
+            and filled_state is not None and filled_state.dtype == np.uint64
+            and out_crcs is not None and out_crcs.dtype == np.uint32
+            and out_crcs.flags.c_contiguous
+            and out_counts is not None and out_counts.dtype == np.int32,
+            "granule needs crc_state u32[1], filled_state u64[1], out_crcs u32[max_out] "
+            "and out_counts i32[1]",
+        )
+        max_out = out_crcs.shape[-1]
+    got = _lib().sn_recv_into(
+        fd,
+        _ptr(dst),
+        length,
+        timeout_ms,
+        granule,
+        _ptr(crc_state) if granule else None,
+        _ptr(filled_state) if granule else None,
+        _ptr(out_crcs) if granule else None,
+        _ptr(out_counts) if granule else None,
+        max_out,
+        _overlap_mode(),
+    )
+    if got < 0:
+        raise OSError(-got, f"sn_recv_into: {os.strerror(-got)}")
+    return int(got)

@@ -17,6 +17,7 @@ All comparisons are exact (tolerance 0: integer GF arithmetic).
 
 import collections
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -963,3 +964,133 @@ def test_stream_and_auto_partition_on_card(cuda, tmp_path, monkeypatch):
     assert pp.backend.fallback_batches == 0
     assert PartitionParity(str(tmp_path / "mq"), "ns", "t", 0).recover() == recs
 
+
+
+# -------------------------------------------- peer-fetch rebuild on the card
+
+
+def _peer_local(tmp_path, name, blobs, rotten):
+    """A local holder of shards 0, 1, 2 and 4 of the _leaf_volume in
+    tmp_path/peer, shard 4 with `rotten` leaves."""
+    d = tmp_path / name
+    d.mkdir()
+    base = str(d / "1")
+    for ext in (".ecsum", ".vif"):
+        with open(str(tmp_path / "peer" / "1") + ext, "rb") as f, open(base + ext, "wb") as g:
+            g.write(f.read())
+    for i in (0, 1, 2, 4):
+        with open(base + f".ec{i:02d}", "wb") as f:
+            f.write(blobs[i])
+    _rot_leaves(base, 4, rotten)
+    return base
+
+
+def test_peer_rebuild_on_card_matches_cpu(cuda, tmp_path):
+    """Shards 3 and 11 rebuilt on the card from shards fetched over the
+    shard net plane (native landing), with shard 4's two rotten leaves
+    repaired from ranged fetches first: one gf2_apply launch per rebuild
+    batch and per leaf range, and every output bit-identical to the same
+    rebuild on TorchBackend(device="cpu") and to the shards as encoded."""
+    from seaweedfs_tpu_torch.ec import net_plane, rebuild_from_peers
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH
+    from seaweedfs_tpu_torch.ec.peer_rebuild import PeerFetchTransient
+
+    (tmp_path / "peer").mkdir()
+    blobs = _leaf_volume(tmp_path / "peer")
+    ctx = ECContext(10, 4)
+    fds = {}
+
+    def resolve(vid, sid, gen):
+        if sid not in fds:
+            fds[sid] = os.open(str(tmp_path / "peer" / "1") + f".ec{sid:02d}", os.O_RDONLY)
+        return fds[sid], os.fstat(fds[sid]).st_size
+
+    plane = net_plane.ShardNetPlane("127.0.0.1", 0, resolve)
+    plane.start()
+    client = net_plane.NetPlaneClient(timeout=10.0)
+    addr = ("127.0.0.1", plane.port)
+
+    def fetch(peer, sid, off, size):
+        try:
+            return client.read_bytes(addr, 1, sid, 9, off, size)
+        except net_plane.NetPlaneError as e:
+            raise PeerFetchTransient(str(e)) from e
+
+    holders = {i: ["p"] for i in range(5, 14) if i != 11}
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            base = _peer_local(tmp_path, device, blobs, [2, 6])
+            rs_kernels.reset_launches()
+            rep = rebuild_from_peers(
+                base, holders, fetch, ctx=ctx, targets=[3, 11],
+                backend=TorchBackend(ctx, device=device),
+                fetch_into=net_plane.make_fetch_into(client, 1, 9, addr_of=lambda p: addr),
+            )
+            assert rep.leaf_repaired == {4: [2, 6]} and rep.rebuilt == [3, 11]
+            assert set(rep.fetched_plane.values()) == {"native"} and sorted(rep.fetched) == list(range(5, 11))
+            if device == "cuda":
+                batches = -(-len(blobs[0]) // DEFAULT_BATCH)
+                assert rs_kernels.LAUNCHES["gf2_apply"] == batches + 2
+            out[device] = {i: open(base + f".ec{i:02d}", "rb").read() for i in (3, 4, 11)}
+    finally:
+        client.close()
+        plane.stop()
+        for fd in fds.values():
+            os.close(fd)
+    assert out["cuda"] == out["cpu"] == {i: blobs[i] for i in (3, 4, 11)}
+
+
+def test_ranged_peer_repair_launches_gf2_apply_per_range(cuda, tmp_path):
+    """Leaf repair through rebuild_from_peers alone (nothing to rebuild):
+    each rotten leaf range is reconstructed by one gf2_apply launch on
+    the card from k range-verified sources, 3 local and 7 fetched."""
+    from seaweedfs_tpu_torch.ec import rebuild_from_peers
+
+    (tmp_path / "peer").mkdir()
+    blobs = _leaf_volume(tmp_path / "peer")
+    ctx = ECContext(10, 4)
+    base = _peer_local(tmp_path, "local", blobs, [1, 2, 9])  # two ranges
+
+    def fetch(peer, sid, off, size):
+        return blobs[sid][off : off + size]
+
+    rs_kernels.reset_launches()
+    rep = rebuild_from_peers(base, {i: ["p"] for i in range(5, 14)}, fetch, ctx=ctx, targets=[],
+                             backend=TorchBackend(ctx))
+    assert rep.leaf_repaired == {4: [1, 2, 9]} and rep.rebuilt == []
+    assert rs_kernels.LAUNCHES["gf2_apply"] == 2 and not rs_kernels.LAUNCHES["gf2_apply_planes"]
+    assert rep.repair_wire_bytes == 7 * (2 * LEAF + LEAF)
+    assert open(base + ".ec04", "rb").read() == blobs[4]
+
+
+def test_recv_into_overlap_modes_agree_over_loopback(cuda, monkeypatch):
+    """4 MiB over loopback TCP with the fused 64 KiB granule CRC: the
+    overlapped core forced on and forced off land the same bytes and the
+    same CRCs (the card's host takes the overlapped core by default)."""
+    from seaweedfs_tpu_torch.utils import native
+    from seaweedfs_tpu_torch.utils.crc import crc32c
+
+    payload = np.random.default_rng(23).integers(0, 256, 4 << 20, dtype=np.uint8).tobytes()
+    got = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("SEAWEED_EC_NET_OVERLAP", mode)
+        assert native.recv_overlap_active(len(payload)) is (mode == "1")
+        srv = socket.create_server(("127.0.0.1", 0))
+        a = socket.create_connection(srv.getsockname())
+        b, _ = srv.accept()
+        try:
+            t = threading.Thread(target=a.sendall, args=(payload,))
+            t.start()
+            dst = np.zeros(len(payload), np.uint8)
+            crcs, counts = np.zeros(len(payload) // 65536 + 2, np.uint32), np.zeros(1, np.int32)
+            n = native.recv_into(b.fileno(), dst, len(payload), timeout_ms=20000, granule=65536,
+                                 crc_state=np.zeros(1, np.uint32), filled_state=np.zeros(1, np.uint64),
+                                 out_crcs=crcs, out_counts=counts)
+            t.join()
+        finally:
+            for s in (a, b, srv):
+                s.close()
+        assert n == len(payload) and dst.tobytes() == payload
+        got[mode] = crcs[: int(counts[0])].tolist()
+    assert got["0"] == got["1"] == [crc32c(payload[i : i + 65536]) for i in range(0, len(payload), 65536)]

@@ -412,6 +412,35 @@ assert open(base + ".ec05", "rb").read() == shard5 and fb.fallback_batches == 0
 assert scope.stats_snapshot()[0]["classes"]["recovery"]["admitted"] >= 1
 assert chip_pool.pool_for(fb) is None and "residency" in metrics.gateway_summary()
 assert device_queue.residency_snapshot()["budget"] == device_queue.DEFAULT_RESIDENCY_BUDGET
+# peer-fetch rebuild over the shard net plane
+from seaweedfs_tpu_torch.ec import net_plane, rebuild_from_peers
+peer = os.path.join(d, "peer")
+os.makedirs(peer)
+for i in range(14):
+    shutil.copy(base + ctx.to_ext(i), os.path.join(peer, "7" + ctx.to_ext(i)))
+for i in range(4, 14):
+    os.unlink(base + ctx.to_ext(i))
+fds = {}
+
+def resolve(vid, sid, gen):
+    if sid not in fds:
+        fds[sid] = os.open(os.path.join(peer, "7" + ctx.to_ext(sid)), os.O_RDONLY)
+    return fds[sid], os.fstat(fds[sid]).st_size
+
+plane = net_plane.ShardNetPlane("127.0.0.1", 0, resolve)
+plane.start()
+client = net_plane.NetPlaneClient(timeout=5.0)
+addr = ("127.0.0.1", plane.port)
+rep = rebuild_from_peers(
+    base, {i: ["p"] for i in range(4, 14)},
+    lambda p, sid, off, size: client.read_bytes(addr, 7, sid, 0, off, size),
+    targets=[4], backend=TorchBackend(ctx, device="cpu"),
+    fetch_into=net_plane.make_fetch_into(client, 7, 0, addr_of=lambda p: addr),
+)
+assert rep.rebuilt == [4] and set(rep.fetched_plane.values()) == {"native"}
+assert open(base + ".ec04", "rb").read() == open(os.path.join(peer, "7.ec04"), "rb").read()
+client.close()
+plane.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))

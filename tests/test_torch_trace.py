@@ -9,13 +9,15 @@ call sites, held against the JAX package on the CPU.
   adversarial label escaping, and the two lints (stage literals and
   metric names) over the port's package.
 - Cross-package: one seeded sequence of counter, gauge and histogram
-  operations renders byte-identical exposition text from both
-  registries; the span trees of encode, rebuild, a degraded read,
+  operations (the `sw_net_*` families included) renders byte-identical
+  exposition text from both registries; the span trees of encode, rebuild, a degraded read,
   decode, a leaf repair and a stream have the same ops and stage names
   in both packages (JAX `CpuBackend` against the port's `CpuBackend`,
   the JAX Pallas kernel in interpret mode against
   `TorchBackend(device="cpu")`), every difference named in
-  `NOT_IN_PORT`; each scrub case of tests/test_torch_repair.py moves
+  `NOT_IN_PORT`; so do a peer-fetch rebuild's `ec.peer_rebuild` tree
+  and the `rpc.ec_shard_read` roots its shard net plane's server adopts
+  from the client's trace across the wire, on either plane; each scrub case of tests/test_torch_repair.py moves
   the leaf-repair and journal counters by the same amounts in both.
 """
 
@@ -34,6 +36,13 @@ import pytest
 from test_ec_pipeline import make_volume
 from test_torch_repair import CTX as RCTX
 from test_torch_repair import JCTX as RJCTX
+from test_torch_net_plane import FilePlane, wire_transports
+from test_torch_net_plane import _peer_dir as peer_dir
+from test_torch_peer_rebuild import CTX as PCTX
+from test_torch_peer_rebuild import JCTX as PJCTX
+from test_torch_peer_rebuild import LEAF as PLEAF
+from test_torch_peer_rebuild import rot_leaf
+from test_torch_peer_rebuild import synth as peer_synth
 from test_torch_repair import SCRUB_CASES, synth
 
 from seaweedfs_tpu.ec import CpuBackend as JaxCpuBackend
@@ -43,6 +52,7 @@ from seaweedfs_tpu.ec import EcVolume as JaxEcVolume
 from seaweedfs_tpu.ec import JaxBackend
 from seaweedfs_tpu.ec import ec_decode_volume as jax_decode
 from seaweedfs_tpu.ec import ec_encode_volume as jax_encode
+from seaweedfs_tpu.ec import net_plane as jax_np
 from seaweedfs_tpu.ec import rebuild_ec_files as jax_rebuild
 from seaweedfs_tpu.ec.scrub import scrub_ec_volume as jax_scrub
 from seaweedfs_tpu.utils import metrics as JM
@@ -59,6 +69,7 @@ from seaweedfs_tpu_torch.ec import (
     rebuild_ec_files,
     scrub_ec_volume,
 )
+from seaweedfs_tpu_torch.ec import net_plane
 from seaweedfs_tpu_torch.utils import metrics as M
 from seaweedfs_tpu_torch.utils import request_id as rid
 from seaweedfs_tpu_torch.utils import trace
@@ -449,10 +460,13 @@ def _script(pkg, seed: int) -> bytes:
     g = reg.gauge("sw_x_level", "a level", ("chip",))
     h = reg.histogram("sw_x_seconds", "latency", ("op",))
     hb = reg.histogram("sw_x_lag_seconds", "lag", buckets=(0.001, 0.01, 0.1, 1.0))
+    # the network byte plane's families, as the package registers them
+    net = [reg.counter(f.name, f.help, f.label_names) for f in (
+        pkg.net_bytes_sent_total, pkg.net_bytes_received_total, pkg.net_bytes_copied_total)]
     samples = [({"chip": lab}, float(i) * 0.5) for i, lab in enumerate(labels)]
     reg.gauge("sw_x_open", "callback gauge", ("chip",), fn=lambda: iter(samples))
     for _ in range(200):
-        kind = int(rng.integers(0, 6))
+        kind = int(rng.integers(0, 7))
         lab = labels[int(rng.integers(0, len(labels)))]
         v = float(rng.exponential(0.05))
         if kind == 0:
@@ -465,8 +479,12 @@ def _script(pkg, seed: int) -> bytes:
             (g.inc if rng.integers(0, 2) else g.dec)(float(rng.integers(1, 5)), chip=lab)
         elif kind == 4:
             h.observe(v, op=lab)
-        else:
+        elif kind == 5:
             hb.observe(v * 10)
+        else:
+            net[int(rng.integers(0, 3))].inc(
+                float(rng.integers(1, 1 << 22)), plane=("native", "python")[int(rng.integers(0, 2))],
+                direction=("read", "write", lab)[int(rng.integers(0, 3))])
     return reg.render()
 
 
@@ -506,8 +524,6 @@ NOT_IN_PORT = {
 }
 OPS = ("ec.encode_volume", "ec.rebuild", "ec.degraded_read", "ec.decode",
        "ec.leaf_repair", "ec.stream_encode")
-# Stages JAX records under peer fetches (ROADMAP Queue 1 item 7) never
-# appear here: no op of this lifecycle fetches from peers.
 
 
 def _shape(doc) -> tuple:
@@ -588,6 +604,90 @@ def test_span_trees_match_jax(trees, op):
     assert op in t["port"], sorted(t["port"])
     assert t["port"][op] == t["jax"][op]
     assert set(t["port"]) == set(t["jax"]) == set(OPS)
+
+
+PEER_STAGES = {"verify", "peer_fetch", "crc_verify", "write_sink", "fsync_publish",
+               "repair_fetch"}
+
+
+def _peer_rebuild_trees(side: str, pair: str, plane: str, d) -> tuple[dict, list]:
+    """One peer-fetch rebuild over one package's own shard net plane
+    under its armed recorder: shard 2 of a 4+2 volume (v2 sidecar) held
+    locally with one rotten leaf (ranged repair), shard 5 rebuilt from
+    shards fetched from the peer on `plane`. Returns each root op's set
+    of tree shapes and the completed roots."""
+    jax_side = side == "jax"
+    T = jax_trace if jax_side else trace
+    mod = jax_np if jax_side else net_plane
+    if jax_side:
+        from seaweedfs_tpu.ec.peer_rebuild import PeerFetchTransient as transient
+        from seaweedfs_tpu.ec.peer_rebuild import rebuild_from_peers as rebuild
+
+        ctx, policy = PJCTX, JaxRetryPolicy(max_attempts=3, base_delay=0.0, jitter=0.0)
+        be = JaxCpuBackend(ctx) if pair == "cpu" else JaxBackend(
+            ctx, impl="pallas", interpret=True, n_devices=1)
+    else:
+        from seaweedfs_tpu_torch.ec.peer_rebuild import PeerFetchTransient as transient
+        from seaweedfs_tpu_torch.ec.peer_rebuild import rebuild_from_peers as rebuild
+
+        ctx, policy = PCTX, RetryPolicy(max_attempts=3, base_delay=0.0, jitter=0.0)
+        be = CpuBackend(ctx) if pair == "cpu" else TorchBackend(ctx, device="cpu")
+    base, blobs = peer_synth(d / "local", local=(0, 1, 2), leaf=PLEAF, seed=21)
+    rot_leaf(base, 2, 1)
+    peer = FilePlane(mod, peer_dir(d, blobs))
+    client = mod.NetPlaneClient(timeout=5.0, connect_timeout=1.0)
+    T.configure(enabled=True, ring_size=256, slow_op_s=0.0)
+    T.reset()
+    try:
+        fetch, fetch_into = wire_transports(client, {"p": peer.addr}, mod, transient)
+        rep = rebuild(base, {s: ["p"] for s in range(ctx.total)}, fetch, ctx=ctx, targets=[5],
+                      backend=be, policy=policy,
+                      fetch_into=fetch_into if plane == "native" else None)
+        assert rep.leaf_repaired == {2: [1]} and rep.rebuilt == [5]
+        assert set(rep.fetched_plane.values()) == {plane}
+        assert open(base + ctx.to_ext(5), "rb").read() == blobs[5]
+        # the server's spans finish after their last byte is out
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline:
+            docs = T.traces()
+            if sum(doc["op"] == "rpc.ec_shard_read" for doc in docs) == peer.server.requests:
+                break
+            time.sleep(0.01)
+        out: dict[str, set] = {}
+        for doc in docs:
+            out.setdefault(doc["op"], set()).add(_shape(doc))
+        return out, docs
+    finally:
+        T.configure(enabled=False)
+        T.reset()
+        client.close()
+        peer.close()
+
+
+@pytest.mark.parametrize("plane", ["native", "python"])
+@pytest.mark.parametrize("pair", ["cpu", "kernel"])
+def test_peer_rebuild_span_trees_match_jax(tmp_path, pair, plane):
+    """`ec.peer_rebuild` (its `ec.peer_fetch` children, the ranged
+    repair's stages and the nested `ec.rebuild`) and the server's
+    adopted `rpc.ec_shard_read` roots have the same shapes in both
+    packages, and every server root carries the client's trace id
+    across the wire, its parent a span of the client's tree."""
+    got = {}
+    for side in ("jax", "port"):
+        got[side] = _peer_rebuild_trees(side, pair, plane, tmp_path / side)
+    trees, docs = got["port"]
+    assert trees == got["jax"][0]
+    assert set(trees) == {"ec.peer_rebuild", "rpc.ec_shard_read"}
+    (root,) = [doc for doc in docs if doc["op"] == "ec.peer_rebuild"]
+    seen = set()
+    for node in walk(root):
+        seen |= set(node["stages"])
+    assert PEER_STAGES <= seen, sorted(seen)
+    assert {c["op"] for c in root["children"]} >= {"ec.peer_fetch", "ec.rebuild"}
+    served = [doc for doc in docs if doc["op"] == "rpc.ec_shard_read"]
+    assert served and all(doc["trace_id"] == root["trace_id"] for doc in served)
+    ids = {node["span_id"] for node in walk(root)}
+    assert all(doc["parent_span_id"] in ids for doc in served)
 
 
 def test_device_stages_carry_the_backend_chip(recorder, tmp_path):
