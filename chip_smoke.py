@@ -518,29 +518,34 @@ def kernel_phases(rng, flush):
     return rows, prows
 
 
+def needle_stream(rng):
+    """The smoke's seeded needles, in write order: (needle id, cookie,
+    random body of 512 KiB to 1.5 MiB, about 1 MiB on average)."""
+    ids = np.unique(rng.integers(1, 1 << 40, size=8192))
+    rng.shuffle(ids)
+    for nid in ids:
+        cookie = int(rng.integers(0, 1 << 32))
+        yield int(nid), cookie, rng.bytes(int(rng.integers(512 << 10, 1536 << 10)))
+
+
 def write_volume(base: str, rng) -> list[tuple[int, int, int, int]]:
     """Seeded .dat of at most VOLUME_BYTES: the 8-byte superblock, then
-    real version-3 needles (random body of 512 KiB to 1.5 MiB, about
-    1 MiB on average, CRC32C, append time), and one .idx entry each.
-    Returns (needle id, cookie, .dat offset, body length) per needle."""
+    real version-3 needles (`needle_stream`: CRC32C, append time), and one
+    .idx entry each. Returns (needle id, cookie, .dat offset, body
+    length) per needle."""
     from seaweedfs_tpu_torch.storage.needle import Needle
     from seaweedfs_tpu_torch.storage.super_block import SuperBlock
     from seaweedfs_tpu_torch.storage.types import NeedleValue, to_stored_offset
 
-    ids = np.unique(rng.integers(1, 1 << 40, size=8192))
-    rng.shuffle(ids)
+    stream = needle_stream(rng)
     records = []
     entries = []
     with open(base + ".dat", "wb") as dat:
         dat.write(SuperBlock(version=3).to_bytes())
         off = dat.tell()
         while True:
-            n = Needle(
-                cookie=int(rng.integers(0, 1 << 32)),
-                needle_id=int(ids[len(records)]),
-                data=rng.bytes(int(rng.integers(512 << 10, 1536 << 10))),
-                append_at_ns=time.time_ns(),
-            )
+            nid, cookie, body = next(stream)
+            n = Needle(cookie=cookie, needle_id=nid, data=body, append_at_ns=time.time_ns())
             raw = n.to_bytes(3)
             if off + len(raw) > VOLUME_BYTES:
                 break
@@ -869,7 +874,8 @@ def scrub_phase(work, base, ctx, records, dat_size, digests):
         if prot.verify_shard_file(shard[i], i):
             raise AssertionError(f"shard {i} fails .ecsum after leaf repair")
     launches += repair_launches
-    per_range = sum(stages.values()) / n_ranges
+    # the JAX stage names: repair_patch's split keys ("repair_patch.*") are in it
+    per_range = sum(v for k, v in stages.items() if "." not in k) / n_ranges
     result["leaf_repair"] = {
         "leaves": rotten, "ranges": n_ranges, "launches": repair_launches,
         "scrub_seconds": repair_s, "ms_per_range": per_range * 1e3,
@@ -1209,6 +1215,7 @@ STREAM_BYTES = 256 << 20  # phase 7a: the first 256 MiB of the volume's .dat
 APPEND_BYTES = 8 << 10  # one append
 FLUSH_BYTES = 256 << 10  # the broker's flush threshold (SEAWEED_EC_STREAM_FLUSH_KB)
 MQ_BYTES = 144 << 20  # phase 7b: records appended to one partition
+MQ_ROTATE_BYTES = 64 << 20  # the broker's generation size (SEAWEED_EC_STREAM_ROTATE_MB)
 MQ_KEY, MQ_VALUE = 16, 1024  # the OpenMessaging Benchmark's 1 KB message, 16-byte keys
 MQ_RATE = 50_000  # records/s: the OpenMessaging Benchmark's 1 KB workload rate
 MQ_FLUSH_EVERY_S = 0.1  # the flusher's cadence: half the 200 ms lag deadline
@@ -1368,9 +1375,10 @@ def mq_record_bytes() -> int:
     return len(encode_record(0, 0, bytes(MQ_KEY), bytes(MQ_VALUE)))
 
 
-def check_records(recs, keys, values, ts0: int) -> None:
-    """Raise unless `recs` is the dense prefix of the records appended."""
-    for i, (off, ts, key, value) in enumerate(recs):
+def check_records(recs, keys, values, ts0: int, first: int = 0) -> None:
+    """Raise unless `recs` are the records appended, dense from offset
+    `first`."""
+    for i, (off, ts, key, value) in enumerate(recs, first):
         if (off, ts) != (i, ts0 + i) or key != keys[i * MQ_KEY : (i + 1) * MQ_KEY] \
                 or value != values[i * MQ_VALUE : (i + 1) * MQ_VALUE]:
             raise AssertionError(f"recovered record {i} (offset {off}) differs from the one appended")
@@ -1423,7 +1431,7 @@ sys.exit(3)  # the armed point never fired
 
 
 def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: int,
-               backend_name: str = DEVICE) -> dict:
+               backend_name: str = DEVICE, after_flush=None) -> dict:
     """One partition at the broker's defaults takes the first `n` records
     at MQ_RATE from the calling thread while a flusher thread applies the
     policy every MQ_FLUSH_EVERY_S; then it closes. The kernel counters
@@ -1431,7 +1439,8 @@ def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: i
     flush call's (start, end), each append's time, the append and close
     times and each generation's encoder. `backend_name` is the backend
     that SEAWEED_EC_STREAM_BACKEND names (the cached one the partition
-    takes at its first generation)."""
+    takes at its first generation). `after_flush(pp)`, where given, runs
+    on the flusher thread after each of its flushes."""
     import threading
 
     from seaweedfs_tpu_torch.ec import get_backend
@@ -1443,7 +1452,8 @@ def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: i
     # the cached backend the partition builds at its first generation
     backend = get_backend(backend_name, ctx.data_shards, ctx.parity_shards)
     if ((ctx.data_shards, ctx.parity_shards), pp.block_size, pp.flush_bytes, pp.max_lag_s,
-            pp.rotate_bytes, backend.device.type) != ((4, 2), 1 << 20, 256 << 10, 0.2, 64 << 20, DEVICE):
+            pp.rotate_bytes, backend.device.type) != ((4, 2), 1 << 20, 256 << 10, 0.2, MQ_ROTATE_BYTES,
+                                                      DEVICE):
         raise AssertionError("the partition is not at the broker's defaults on the card")
     backend.reset_stages()
     rs_kernels.reset_launches()
@@ -1461,6 +1471,8 @@ def mq_publish(root: str, topic: str, n: int, keys: bytes, values: bytes, ts0: i
                     t = time.perf_counter()
                     pp.flush()
                     calls.append((t, time.perf_counter()))
+                    if after_flush is not None:
+                        after_flush(pp)
         except BaseException as e:  # noqa: BLE001 - raised on the main thread
             errors.append(e)
 
@@ -2379,16 +2391,23 @@ PEER_SHARDS = {"peer-a": (5, 8, 12), "peer-b": (6, 9, 13), "peer-c": (7, 10)}
 ROT_PEER = "peer-rot"  # an extra holder of shard 5, first in its list, serving one flipped byte
 ROT_SHARD = 5
 
-# The peers of phase 11 in one child (a fresh interpreter that touches no
-# CUDA, so the sendfile egress and the rebuilding interpreter share no
-# GIL): a ShardNetPlane per holder, each with its own resolve and
-# generation fence. It prints its ports, then answers "status" and
-# "stop <name>..." lines on stdin with one JSON line each, and "exit".
+# The peers of phases 11 and 12 in one child (a fresh interpreter that
+# touches no CUDA, so the sendfile egress and the rebuilding interpreter
+# share no GIL): a ShardNetPlane per holder, each with its own resolve and
+# generation fence, and, given a fifth argument, "peer-blob": a plane
+# with a `resolve_blob` confined to that directory (a volume server's
+# stream-blob root), counting the ops it serves. It prints its ports,
+# then answers "status" and "stop <name>..." lines on stdin with one JSON
+# line each (with "blob": the blob ops, the unlinked paths and this
+# process's `sw_net_bytes_received_total`), and "exit".
 PEER_CHILD = r"""
 import json, os, sys
 from seaweedfs_tpu_torch.ec import native_io, net_plane
+from seaweedfs_tpu_torch.utils import metrics as M
 
 src, rot, gen, spec = sys.argv[1], sys.argv[2], int(sys.argv[3]), json.loads(sys.argv[4])
+blob_root = os.path.realpath(sys.argv[5]) if len(sys.argv) > 5 else None
+blob = {"ops": {}, "unlinked": []}
 planes = {}
 for name, sids in spec.items():
     root = rot if name == "peer-rot" else src
@@ -2405,6 +2424,32 @@ for name, sids in spec.items():
 
     planes[name] = net_plane.ShardNetPlane("127.0.0.1", 0, resolve, server_label=name)
     planes[name].start()
+
+
+def resolve_blob(path, op, md):
+    full = os.path.realpath(os.path.join(blob_root, path))
+    if not full.startswith(blob_root + os.sep):
+        raise net_plane.NetPlaneError("blob path escapes stream root")
+    blob["ops"][op] = blob["ops"].get(op, 0) + 1
+    if op == "unlink":
+        blob["unlinked"].append(path)
+        try:
+            os.unlink(full)
+        except FileNotFoundError:
+            pass
+        return None
+    os.makedirs(os.path.dirname(full), exist_ok=True)
+    return os.open(full, os.O_CREAT | os.O_RDWR, 0o644)
+
+
+def no_shards(vid, sid, g):
+    raise net_plane.NetPlaneError("shard not local")
+
+
+if blob_root:
+    planes["peer-blob"] = net_plane.ShardNetPlane("127.0.0.1", 0, no_shards, server_label="peer-blob",
+                                                  resolve_blob=resolve_blob)
+    planes["peer-blob"].start()
 print(json.dumps({"ports": {n: p.port for n, p in planes.items()},
                   "egress_native": net_plane.egress_native()}), flush=True)
 for line in sys.stdin:
@@ -2414,10 +2459,58 @@ for line in sys.stdin:
             planes.pop(n).stop()
     elif cmd[0] == "exit":
         break
-    print(json.dumps({n: p.status() for n, p in planes.items()}), flush=True)
+    status = {n: p.status() for n, p in planes.items()}
+    if blob_root:
+        status["blob"] = dict(blob, received={"%s,%s" % k: v for k, v in
+                                              M.net_bytes_received_total.snapshot().items()})
+    print(json.dumps(status), flush=True)
 for p in planes.values():
     p.stop()
 """
+
+
+class PeerChild:
+    """PEER_CHILD in a fresh interpreter, its stderr in `log_path`: the
+    JSON line it prints when its planes are up (`hello`), `ask` for a
+    command's answer, `close` to end it."""
+
+    def __init__(self, args: list[str], log_path: str):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.log_path = log_path
+        with open(log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", PEER_CHILD, *args],
+                cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=log, text=True,
+            )
+
+    def _line(self, what: str) -> dict:
+        got = self.proc.stdout.readline()
+        if not got:
+            with open(self.log_path) as f:
+                raise AssertionError(f"the peer child {what}: {f.read()[-3000:]}")
+        return json.loads(got)
+
+    def hello(self) -> dict:
+        return self._line("did not start")
+
+    def ask(self, line: str) -> dict:
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+        return self._line("died")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write("exit\n")
+                self.proc.stdin.close()
+            except OSError:
+                pass
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
 
 
 def peer_copies(work: str, base: str, ctx, digests: dict) -> None:
@@ -2510,36 +2603,16 @@ def peer_phase(work, ctx, digests, reb_batches) -> tuple[dict, int]:
     holders[ROT_SHARD] = [ROT_PEER] + holders[ROT_SHARD]
     spec = {**{n: list(s) for n, s in PEER_SHARDS.items()}, ROT_PEER: [ROT_SHARD]}
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    log_path = os.path.join(root, "peers.log")
-    with open(log_path, "w") as log:
-        child = subprocess.Popen(
-            [sys.executable, "-c", PEER_CHILD, src, os.path.join(root, "rot"),
-             str(prot.generation), json.dumps(spec)],
-            cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, stderr=log, text=True,
-        )
+    child = PeerChild([src, os.path.join(root, "rot"), str(prot.generation), json.dumps(spec)],
+                      os.path.join(root, "peers.log"))
     client = net_plane.NetPlaneClient(timeout=60.0)
-
-    def ask(line: str) -> dict:
-        child.stdin.write(line + "\n")
-        child.stdin.flush()
-        got = child.stdout.readline()
-        if not got:
-            with open(log_path) as f:
-                raise AssertionError(f"the peer child died: {f.read()[-3000:]}")
-        return json.loads(got)
 
     result: dict = {"holders": {str(k): v for k, v in sorted(holders.items())},
                     "rot_leaves": rot_leaves, "rotten_byte": rot_at,
                     "recv_overlap_active_4MiB": native.recv_overlap_active(4 << 20)}
     launches = 0
     try:
-        hello = child.stdout.readline()
-        if not hello:
-            with open(log_path) as f:
-                raise AssertionError(f"the peer child did not start: {f.read()[-3000:]}")
-        hello = json.loads(hello)
+        hello = child.hello()
         if not hello["egress_native"]:
             raise AssertionError("the peers would egress through Python")
         addr = {n: ("127.0.0.1", p) for n, p in hello["ports"].items()}
@@ -2656,10 +2729,10 @@ def peer_phase(work, ctx, digests, reb_batches) -> tuple[dict, int]:
         if a["outputs"] != b["outputs"]:
             raise AssertionError("11b's outputs differ from 11a's")
         result["11a_native"], result["11b_python"] = a, b
-        result["peers_status"] = ask("status")
+        result["peers_status"] = child.ask("status")
 
         # -- 11c. two of the three peers stopped: fewer than k reachable ------
-        ask("stop peer-a peer-b")
+        child.ask("stop peer-a peer-b")
         base = local("c")
         before = {name: sha256(os.path.join(root, "c", name)) for name in sorted(os.listdir(os.path.join(root, "c")))}
         fetch, fetch_into = transports()
@@ -2679,20 +2752,426 @@ def peer_phase(work, ctx, digests, reb_batches) -> tuple[dict, int]:
                                  "launches": rs_kernels.LAUNCHES["gf2_apply"],
                                  "memoized_unreachable": sorted(f"{h}:{p}" for h, p in client._no_plane)}
         result["phase_s"] = time.perf_counter() - t0
-        child.stdin.write("exit\n")
-        child.stdin.flush()
     finally:
         client.close()
-        if child.poll() is None:
+        child.close()
+    return result, launches
+
+
+# -- 12. a durable-parity partition with remote stream shards --------------------------
+
+REMOTE_ROOTS_ENV = "SEAWEED_EC_STREAM_REMOTE_ROOTS"
+# generation 0 is pruned, live, by the first flush that finds this
+# generation open: at phase 7b's traffic the partition rotates once or
+# twice (flush timing decides), so generation 1 is the one every run opens
+PRUNE_WHEN_OPEN = 1
+
+
+def remote_stream_phase(work: str, mq_local: dict) -> tuple[dict, int]:
+    """Phase 12: phase 7b's partition and traffic with two remote roots,
+    a mounted path (`hostA`, a local directory standing in for the
+    mount) and a net plane (`peer`, the blob plane of PEER_CHILD); the
+    flusher prunes generation 0, live, once generation PRUNE_WHEN_OPEN is
+    open (the phase fails if the traffic ends before it opens).
+    Checked: placements on both roots in every generation, remote data
+    shards sha256-identical at close (a parity shard on the peer only of
+    its local length: both packages push each extent once, so its rows of
+    a stripe open at a flush stay stale), the prune's remote unlinks, a byte-exact
+    recovery of every unpruned record, `delete()` leaving both roots
+    empty, one `gf2_apply` launch per parity delta, every pushed byte on
+    the native plane. Returns (result, gf2_apply launches)."""
+    import logging
+
+    from seaweedfs_tpu_torch.ec import backend as port_backend
+    from seaweedfs_tpu_torch.ec import load_stream_journal, native_io, net_plane
+    from seaweedfs_tpu_torch.ec.stream_encode import EcStreamEncoder
+    from seaweedfs_tpu_torch.mq import stream_parity as sp
+    from seaweedfs_tpu_torch.ops import rs_kernels
+
+    if not native_io.enabled():
+        raise AssertionError("phase 12 needs the native plane (SEAWEED_EC_NATIVE is 0)")
+    root = os.path.join(work, "remote-stream")
+    host_a, blobs, local = (os.path.join(root, d) for d in ("hostA", "peer-blobs", "local"))
+    os.makedirs(host_a)
+    os.makedirs(blobs)
+    child = PeerChild([root, root, "0", "{}", blobs], os.path.join(root, "peer.log"))
+    rec_bytes = mq_record_bytes()
+    n = MQ_BYTES // rec_bytes
+    keys, values = mq_source(n)
+    ts0 = time.time_ns()
+    part = os.path.join(local, "bench", "remote", "0000")
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.lines: list[str] = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    warned = Warnings()
+    deltas = [0]
+    pushes: list[float] = []
+    placement: dict[int, dict] = {}
+    pruned: dict = {}
+    live: list = []  # the partition, as the flusher hook sees it
+    enc_apply, push = EcStreamEncoder._dispatch_apply, sp.PartitionParity._push_net_shards
+
+    def counted_apply(self, coeffs, data):
+        deltas[0] += 1
+        return enc_apply(self, coeffs, data)
+
+    def timed_push(self):
+        t = time.perf_counter()
+        try:
+            return push(self)
+        finally:
+            pushes.append(time.perf_counter() - t)
+
+    def place(pp) -> None:
+        """Each generation's placement, read once its files exist."""
+        with pp._lock:
+            plans = {g: dict(p) for g, p in pp._net_shards.items()}
+        for g in gens_of(pp.dir):
+            if g in placement:
+                continue
+            gbase = os.path.join(pp.dir, f"gen-{g:08d}")
+            links = {sid: os.readlink(gbase + pp.ctx.to_ext(sid)) for sid in range(pp.ctx.total)
+                     if os.path.islink(gbase + pp.ctx.to_ext(sid))}
+            net = {sid: rpath for sid in range(pp.ctx.total)
+                   for path, (_addr, rpath) in plans.get(g, {}).items() if path == gbase + pp.ctx.to_ext(sid)}
+            if not links or not net:
+                raise AssertionError(f"12: generation {g} placed on hostA {sorted(links)}, "
+                                     f"on the peer {sorted(net)}: both roots must hold shards")
+            placement[g] = {"hostA": links, "peer": net,
+                            "local": sorted(set(range(pp.ctx.total)) - set(links) - set(net))}
+
+    def prune_gen0(pp, when: str) -> None:
+        keep = load_stream_journal(os.path.join(pp.dir, "gen-00000001")).meta
+        pruned.update(removed=pp.prune(keep), keep_from=keep, when=when)
+
+    def after_flush(pp) -> None:
+        live[:] = [pp]
+        place(pp)
+        opened = os.path.join(pp.dir, f"gen-{PRUNE_WHEN_OPEN:08d}")
+        if not pruned and load_stream_journal(opened) is not None:
+            prune_gen0(pp, f"flush, generation {PRUNE_WHEN_OPEN} open")
+
+    logger = logging.getLogger(sp.__name__)
+    prev_env = os.environ.get(REMOTE_ROOTS_ENV)
+    result: dict = {}
+    try:
+        port = child.hello()["ports"]["peer-blob"]
+        gport = port - net_plane.NET_PLANE_PORT_OFFSET
+        if gport < 1 or net_plane.derive_port(gport) != port:
+            raise AssertionError(f"12: no gRPC port derives the blob plane's port {port}")
+        os.environ[REMOTE_ROOTS_ENV] = f"hostA={host_a},peer=net:127.0.0.1:{gport}/sub"
+        logger.addHandler(warned)
+        net_before = net_snapshot()
+        cpu_before = dict(port_backend.AUTO_CPU)
+        EcStreamEncoder._dispatch_apply = counted_apply
+        sp.PartitionParity._push_net_shards = timed_push
+        try:
+            pub = mq_publish(local, "remote", n, keys, values, ts0, after_flush=after_flush)
+        finally:
+            EcStreamEncoder._dispatch_apply = enc_apply
+            sp.PartitionParity._push_net_shards = push
+        launches = rs_kernels.LAUNCHES["gf2_apply"]
+        masked = rs_kernels.MASKED["gf2_apply"]
+        if launches != deltas[0]:
+            raise AssertionError(f"12: {launches} gf2_apply launches for {deltas[0]} parity deltas")
+        ctx, calls, t_append = pub["ctx"], pub["calls"], pub["t_append"]
+        place(live[0])
+        if not pruned:
+            raise AssertionError(f"12: generation {PRUNE_WHEN_OPEN} never opened under traffic")
+        gens = gens_of(part)
+        if pruned["removed"] != 1 or gens[0] != 1:
+            raise AssertionError(f"12: the prune ({pruned}) left generations {gens}")
+        status = child.ask("status")
+        # every unpruned net-planned data shard's remote copy is its local
+        # file; a parity shard's has its length (stale rows: ROADMAP Queue 3)
+        stale_parity = []
+        for g in gens:
+            gbase = os.path.join(part, f"gen-{g:08d}")
+            for sid, rpath in placement[g]["peer"].items():
+                # an empty shard (a row the generation never reached) pushes nothing
+                rp, lp = os.path.join(blobs, rpath), gbase + ctx.to_ext(sid)
+                remote = sha256(rp) if os.path.exists(rp) else hashlib.sha256(b"").hexdigest()
+                if sha256(lp) == remote:
+                    continue
+                if sid < ctx.data_shards or os.path.getsize(rp) != os.path.getsize(lp):
+                    raise AssertionError(f"12: the peer's {rpath} differs from its local shard")
+                stale_parity.append(rpath)
+            for sid, target in placement[g]["hostA"].items():
+                if not (os.path.realpath(gbase + ctx.to_ext(sid)).startswith(os.path.realpath(host_a))
+                        and os.path.isfile(target) and not os.path.islink(target)):
+                    raise AssertionError(f"12: generation {g} shard {sid}'s link target {target}")
+        # the prune: generation 0's remote blobs unlinked, its link targets gone
+        gen0 = placement[0]
+        unlinked = set(status["blob"]["unlinked"])
+        if not set(gen0["peer"].values()) <= unlinked or any(
+                os.path.exists(os.path.join(blobs, r)) for r in gen0["peer"].values()):
+            raise AssertionError(f"12: generation 0's blobs {gen0['peer']} not unlinked ({sorted(unlinked)})")
+        if any(os.path.lexists(t) for t in gen0["hostA"].values()):
+            raise AssertionError("12: the prune left generation 0's link targets on hostA")
+        # every pushed byte rode the native plane into the child
+        delta = net_delta(net_before)
+        pushed = delta.get("sent{plane=native,direction=write}", 0)
+        child_got = status["blob"]["received"]
+        if (pushed <= 0 or child_got.get("native,write", 0) != pushed
+                or child_got.get("python,write", 0) or delta.get("sent{plane=python,direction=write}", 0)):
+            raise AssertionError(f"12: pushed {delta}, the child received {child_got}")
+        if dict(port_backend.AUTO_CPU) != cpu_before:
+            raise AssertionError(f"12: a CPU resolution {port_backend.AUTO_CPU}")
+        if warned.lines:
+            raise AssertionError(f"12: the partition warned: {warned.lines[:5]}")
+
+        # a fresh partition over the same local dir: every unpruned record
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        recs = sp.PartitionParity(local, "bench", "remote", 0).recover()
+        recover_s = time.perf_counter() - t0
+        rec_launches = rs_kernels.LAUNCHES["gf2_apply"]
+        first = pruned["keep_from"]
+        if len(recs) != n - first:
+            raise AssertionError(f"12: recovered {len(recs)} records, {n - first} unpruned")
+        check_records(recs, keys, values, ts0, first)
+        del recs
+        # delete: no byte left on either root
+        rs_kernels.reset_launches()
+        sp.PartitionParity(local, "bench", "remote", 0).delete()
+        rec_launches += rs_kernels.LAUNCHES["gf2_apply"]
+        left = [os.path.join(d, f) for r in (host_a, blobs) for d, _s, fs in os.walk(r) for f in fs]
+        if left:
+            raise AssertionError(f"12: delete() left {left[:5]}")
+        if warned.lines:
+            raise AssertionError(f"12: the partition warned: {warned.lines[:5]}")
+        final = child.ask("status")
+
+        starts = np.array([c[0] for c in calls])
+        ends = np.array([c[1] for c in calls] + [pub["t_end"]])
+        lags = ends[np.searchsorted(starts, t_append, side="left")] - t_append
+        result = {
+            "records": n, "rate_per_s": MQ_RATE, "appends_per_s": n / pub["append_s"],
+            "time_to_durable_parity_p50_ms": float(np.percentile(lags, 50) * 1e3),
+            "time_to_durable_parity_p99_ms": float(np.percentile(lags, 99) * 1e3),
+            "phase_7b_local_only": {k: mq_local[k] for k in (
+                "appends_per_s", "time_to_durable_parity_p50_ms", "time_to_durable_parity_p99_ms")},
+            "flushes": len(calls), "generations": len(gens) + 1, "pruned": pruned,
+            "stale_parity_on_peer": stale_parity,
+            "pushed_bytes": pushed, "pushes": len(pushes), "push_seconds": sum(pushes),
+            "push_ms_per_flush_p50": float(np.median(pushes) * 1e3),
+            "push_ms_per_flush_max": float(max(pushes) * 1e3),
+            "placement": {str(g): {"hostA": sorted(p["hostA"]), "peer": sorted(p["peer"]),
+                                   "local": p["local"]} for g, p in sorted(placement.items())},
+            "blob_ops": final["blob"]["ops"], "blob_plane": final["peer-blob"],
+            "launches": launches, "launches_masked_path": masked, "parity_deltas": deltas[0],
+            "recovery_seconds": recover_s, "recovery_launches": rec_launches,
+        }
+    finally:
+        logger.removeHandler(warned)
+        if prev_env is None:
+            os.environ.pop(REMOTE_ROOTS_ENV, None)
+        else:
+            os.environ[REMOTE_ROOTS_ENV] = prev_env
+        sp._net_client().close()
+        child.close()
+    shutil.rmtree(root)
+    return result, launches + rec_launches
+
+
+# -- 13. the Store at the smoke's volume size -----------------------------------------
+
+STORE_VID = 7
+STORE_ROT_SHARD = 7  # a mounted shard with one rotten leaf, repaired by ScrubDaemon
+SCRUB_BYTES_PER_S = float(8 << 30)  # the daemon's read budget: above what 9p reads
+
+
+def store_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
+    """Phase 13: phase 3's needles (the same seeded sizes and bodies)
+    written through `Store.write_needle` into a volume the Store
+    allocated, read back, 5 deleted, the volume remounted (the .idx
+    replayed), sealed and encoded on the card; its EC volume mounted with
+    shard DEGRADED unmounted, every live needle over that shard read
+    through `Store.read_needle` (reconstructed by `gf2_apply_planes`);
+    one rotten leaf of shard STORE_ROT_SHARD repaired by a `ScrubDaemon`
+    pass through `gf2_apply`. Phase 11's copies are removed first, and
+    this phase's directory at its end. Returns (result, launches by
+    kernel)."""
+    from seaweedfs_tpu_torch.ec import (
+        BitrotProtection, ScrubDaemon, TorchBackend, ec_encode_volume, native_io,
+    )
+    from seaweedfs_tpu_torch.ec import backend as port_backend
+    from seaweedfs_tpu_torch.ec import scrub as scrub_mod
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.ec_volume import EcNotFoundError
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.ec.repair_journal import leaf_ranges
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.volume import NotFoundError
+
+    if not native_io.enabled():
+        raise AssertionError("phase 13 needs the native plane (SEAWEED_EC_NATIVE is 0)")
+    shutil.rmtree(os.path.join(work, "peer"), ignore_errors=True)  # phase 11's copies
+    root = os.path.join(work, "store")
+    os.makedirs(root)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = vol_rng_state  # phase 3's needles
+    cpu_before = dict(port_backend.AUTO_CPU)
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    result: dict = {}
+    store = Store([root], ec_backend="cuda")
+    try:
+        # -- write, read back, delete, remount ------------------------------
+        v = store.allocate_volume(STORE_VID)
+        want: dict[int, tuple[int, bytes, int]] = {}  # id -> (cookie, sha256, body length)
+        to_bytes, built = Needle.to_bytes, [0.0]  # the write's record build, timed apart
+
+        def timed_to_bytes(self, *a, **kw):
+            t = time.perf_counter()
             try:
-                child.stdin.close()
-            except OSError:
+                return to_bytes(self, *a, **kw)
+            finally:
+                built[0] += time.perf_counter() - t
+
+        Needle.to_bytes = timed_to_bytes
+        t0 = time.perf_counter()
+        try:
+            for nid, cookie, body in needle_stream(rng):
+                n = Needle(cookie=cookie, needle_id=nid, data=body)
+                if v.size + n.disk_size(3) > VOLUME_BYTES:
+                    break
+                store.write_needle(STORE_VID, n)
+                want[nid] = (cookie, hashlib.sha256(body).digest(), len(body))
+            write_s = time.perf_counter() - t0
+        finally:
+            Needle.to_bytes = to_bytes
+        written = v.size
+        t0 = time.perf_counter()
+        for nid, (cookie, digest, _) in want.items():
+            if hashlib.sha256(store.read_needle(STORE_VID, nid, cookie).data).digest() != digest:
+                raise AssertionError(f"13: needle {nid:x} read back differs")
+        read_s = time.perf_counter() - t0
+        ids = list(want)
+        first = len(ids) // 3
+        deleted = ids[first :: (len(ids) - first) // N_DELETED][:N_DELETED]
+        if any(store.delete_needle(STORE_VID, nid) <= 0 for nid in deleted):
+            raise AssertionError(f"13: deleting {deleted} failed")
+        records = [(nid, want[nid][0], v.needle_map.get(nid).offset * 8, want[nid][2])
+                   for nid in ids if nid not in deleted]
+        store.unmount_volume(STORE_VID)
+        t0 = time.perf_counter()
+        v = store.mount_volume(STORE_VID)
+        remount_s = time.perf_counter() - t0
+        st = store.status()["volumes"]
+        if len(st) != 1 or (st[0]["id"], st[0]["file_count"], st[0]["deleted_count"], st[0]["read_only"],
+                            st[0]["size"]) != (STORE_VID, len(ids), N_DELETED, False, v.size) \
+                or v.size <= written:
+            raise AssertionError(f"13: status after the remount {st}")
+
+        # -- seal, encode on the card ----------------------------------------
+        v.set_read_only(True)
+        base = v.dat_path[:-4]
+        dat_size = os.path.getsize(base + ".dat")
+        n_batches = len(list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        ec_encode_volume(base, ctx, backend=TorchBackend(ctx))
+        enc_s = time.perf_counter() - t0
+        if rs_kernels.LAUNCHES["gf2_apply"] != n_batches:
+            raise AssertionError(f"13: encode launched {rs_kernels.LAUNCHES} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        prot = BitrotProtection.load(base + ".ecsum")
+        for i in range(ctx.total):
+            if prot.verify_shard_file(base + ctx.to_ext(i), i):
+                raise AssertionError(f"13: shard {i} fails .ecsum")
+        shard_digest = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
+
+        # -- the EC volume, shard DEGRADED unmounted: degraded reads ---------
+        store.unmount_volume(STORE_VID)
+        ev = store.mount_ec_volume(STORE_VID)
+        be = ev.backend
+        if not (isinstance(be, TorchBackend) and be.device.type == DEVICE and be.impl == "cuda_planes"):
+            raise AssertionError(f"13: the Store's EC volume runs on {be}")
+        store.unmount_ec_shards(STORE_VID, [DEGRADED])
+        degraded = degraded_records(records, dat_size)
+        cache = ev.interval_cache
+        rs_kernels.reset_launches()
+        loads0, hits0 = cache.loads, cache.hits
+        lat = []
+        for nid, cookie, _, _ in degraded:
+            t0 = time.perf_counter()
+            got = store.read_needle(STORE_VID, nid, cookie).data
+            lat.append(time.perf_counter() - t0)
+            if hashlib.sha256(got).digest() != want[nid][1]:
+                raise AssertionError(f"13: degraded read of needle {nid:x} differs")
+        planes = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if planes != cache.loads - loads0 or planes < 1 or rs_kernels.LAUNCHES["gf2_apply"]:
+            raise AssertionError(f"13: reads launched {rs_kernels.LAUNCHES}, "
+                                 f"{cache.loads - loads0} reconstructions")
+        launches["gf2_apply_planes"] += planes
+        for nid in deleted:
+            try:
+                store.read_needle(STORE_VID, nid)
+                raise AssertionError(f"13: deleted needle {nid:x} was read")
+            except (NotFoundError, EcNotFoundError):
                 pass
-            try:
-                child.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                child.kill()
-                child.wait()
+
+        # -- ScrubDaemon: one rotten leaf repaired in place ------------------
+        leaf = len(prot.shard_leaf_crcs[STORE_ROT_SHARD]) // 3
+        flip(base + ctx.to_ext(STORE_ROT_SHARD), leaf * prot.leaf_size + 4321)
+        legit = ev.legitimate_shards()
+        if legit != [i for i in range(ctx.total) if i != DEGRADED]:  # served + quarantined
+            raise AssertionError(f"13: legitimate shards {legit}")
+        stages: dict = {}
+        scrub_once = scrub_mod.scrub_ec_volume
+
+        def staged(*a, **kw):
+            return scrub_once(*a, stages=stages, **kw)
+
+        daemon = ScrubDaemon(store, interval=3600.0, bytes_per_sec=SCRUB_BYTES_PER_S, repair=True)
+        rs_kernels.reset_launches()
+        scrub_mod.scrub_ec_volume = staged
+        t0 = time.perf_counter()
+        try:
+            report = daemon.scrub_once()[STORE_VID]
+        finally:
+            scrub_mod.scrub_ec_volume = scrub_once
+        scrub_s = time.perf_counter() - t0
+        n_ranges = len(leaf_ranges([leaf], prot.leaf_size, prot.shard_sizes[STORE_ROT_SHARD]))
+        if (report.leaf_repaired != {STORE_ROT_SHARD: [leaf]} or report.quarantined or report.rebuilt
+                or report.refused or rs_kernels.LAUNCHES["gf2_apply"] != n_ranges
+                or rs_kernels.LAUNCHES["gf2_apply_planes"]):
+            raise AssertionError(f"13: scrub {report}, launches {rs_kernels.LAUNCHES}")
+        if sha256(base + ctx.to_ext(STORE_ROT_SHARD)) != shard_digest[STORE_ROT_SHARD]:
+            raise AssertionError("13: the repaired shard differs from its encode-time bytes")
+        if daemon.breakers[STORE_VID].state != "closed" or ev.legitimate_shards() != legit:
+            raise AssertionError("13: the daemon's breaker opened or the shard set changed")
+        launches["gf2_apply"] += n_ranges
+        if dict(port_backend.AUTO_CPU) != cpu_before:
+            raise AssertionError(f"13: a CPU resolution {port_backend.AUTO_CPU}")
+        shard_bytes = sum(prot.shard_sizes)
+        result = {
+            "needles": len(ids), "deleted": N_DELETED, "volume_bytes": written,
+            "write_seconds": write_s, "write_mb_per_s": written / write_s / 1e6,
+            "write_record_build_seconds": built[0],
+            "read_back_seconds": read_s, "read_back_mb_per_s": written / read_s / 1e6,
+            "remount_seconds": remount_s, "status": st[0],
+            "encode_seconds": enc_s, "encode_gb_per_s": dat_size / enc_s / 1e9, "encode_batches": n_batches,
+            "degraded_reads": len(degraded), "degraded_p50_ms": percentile_ms(lat, 50),
+            "degraded_p99_ms": percentile_ms(lat, 99), "reconstructions": planes,
+            "cache_hits": cache.hits - hits0,
+            "scrub_pass_seconds": scrub_s, "scrub_gb_per_s": shard_bytes / scrub_s / 1e9,
+            "leaf_ranges": n_ranges,
+            "repair_ms_per_range": sum(sec for k, sec in stages.items() if "." not in k) / n_ranges * 1e3,
+            "repair_stage_seconds": stages, "legitimate_shards": legit,
+            "launches": launches,
+        }
+    finally:
+        store.close()
+    shutil.rmtree(root)
     return result, launches
 
 
@@ -2729,6 +3208,7 @@ def main() -> int:
         # -- 3-5. encode, then rebuild, of a 1 GiB volume ------------------------
         base = os.path.join(work, "1")
         t0 = time.perf_counter()
+        vol_rng_state = rng.bit_generator.state  # phase 13 writes the same needles
         records = write_volume(base, rng)
         dat_size = os.path.getsize(base + ".dat")
         print(f"volume: {dat_size} bytes, {len(records)} needles, "
@@ -2902,6 +3382,25 @@ def main() -> int:
               "holder excluded, launches == rebuild batches + leaf ranges; 11c two peers stopped: "
               f"refused, local files unchanged): {json.dumps(peer)}")
         print(f"phase 11: {time.perf_counter() - t0:.3f} s")
+
+        # -- 12. remote stream shards ---------------------------------------------------
+        t0 = time.perf_counter()
+        remote, remote_launches = remote_stream_phase(work, mq)
+        print("remote stream shards (phase 7b's partition and traffic with a mounted root and a "
+              "net-plane root: shards of every generation on both, remote copies sha256-identical "
+              "at close, generation 0 pruned from both roots, every unpruned record recovered "
+              "byte-exact, delete leaves both roots empty, launches == parity deltas, every pushed "
+              f"byte on the native plane): {json.dumps(remote)}")
+        print(f"phase 12: {time.perf_counter() - t0:.3f} s")
+
+        # -- 13. the Store ------------------------------------------------------------
+        t0 = time.perf_counter()
+        stored, store_launches = store_phase(work, ctx, vol_rng_state)
+        print("Store (phase 3's needles written through Store.write_needle, read back bit-exact, "
+              "5 deleted, remounted, encoded on the card, every shard verified; degraded reads with "
+              f"shard {DEGRADED} unmounted bit-exact through gf2_apply_planes; a ScrubDaemon pass "
+              f"leaf-repaired shard {STORE_ROT_SHARD} through gf2_apply): {json.dumps(stored)}")
+        print(f"phase 13: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2913,12 +3412,14 @@ def main() -> int:
          {"4 encode": enc_launches, "5 rebuild": reb_launches, "6b scrub": scrub_launches,
           "7a stream": stream_launches, "7b partition": mq_launches,
           "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"],
-          "11 peer rebuild": peer_launches},
+          "11 peer rebuild": peer_launches, "12 remote stream": remote_launches,
+          "13 store": store_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
           "9 flight recorder": trace_launches["gf2_apply_planes"],
-          "10 scheduler": sched_launches["gf2_apply_planes"]},
+          "10 scheduler": sched_launches["gf2_apply_planes"],
+          "13 store": store_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

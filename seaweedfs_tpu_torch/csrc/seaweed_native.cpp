@@ -595,7 +595,9 @@ void sn_sink_destroy(void* handle) { delete (SnSink*)handle; }
 //   sn_recv_into  - land a socket stream DIRECTLY in a caller-owned
 //                   buffer (a pooled landing row), rolling the fused
 //                   granule CRC32C during the copy-in so the sidecar
-//                   verify costs no extra byte pass.
+//                   verify costs no extra byte pass;
+//   sn_recv_file  - land a socket stream in a file at an offset with one
+//                   CRC32C rolled over it (the write opcode's blobs).
 //
 // ctypes releases the GIL for each whole call; timeouts follow the
 // sn_net.h convention (Python settimeout sockets are O_NONBLOCK, so
@@ -800,6 +802,56 @@ int64_t sn_recv_into(int fd, uint8_t* dst, uint64_t len, int timeout_ms, uint32_
         *out_count += added;
     }
     return recv_rc;
+}
+
+static int pwrite_full(int fd, const uint8_t* p, size_t len, uint64_t off) {
+    while (len) {
+        ssize_t w = pwrite(fd, p, len, (off_t)off);
+        if (w < 0) {
+            if (errno == EINTR) continue;
+            return -1;
+        }
+        p += w;
+        len -= (size_t)w;
+        off += (uint64_t)w;
+    }
+    return 0;
+}
+
+// Land `len` socket bytes straight into file out_fd at `offset`
+// (socket -> 256 KiB bounce buffer -> pwrite(2)), rolling one CRC32C
+// over the whole payload while each chunk is cache-hot: the blob-write
+// landing of the net plane's write opcode, the payload never crossing
+// into Python. Returns bytes landed (short means the peer closed
+// mid-stream: the partial extent is on disk, but the caller never ACKs
+// it) or -errno from the socket or the pwrite. *crc_out holds the CRC
+// of the landed prefix on any non-negative return.
+int64_t sn_recv_file(int fd, int out_fd, uint64_t offset, uint64_t len, int timeout_ms,
+                     uint32_t* crc_out) {
+    crc32c_table_init();
+    const size_t CHUNK = 256u * 1024u;
+    std::vector<uint8_t> buf((size_t)(len < CHUNK ? len : CHUNK));
+    uint32_t crc = 0;
+    uint64_t got = 0;
+    while (got < len) {
+        size_t want = (size_t)(len - got < (uint64_t)buf.size() ? len - got : (uint64_t)buf.size());
+        ssize_t r = read(fd, buf.data(), want);
+        if (r < 0) {
+            if (errno == EINTR) continue;
+            if (errno == EAGAIN || errno == EWOULDBLOCK) {
+                int rc = sn_net::wait_fd(fd, POLLIN, timeout_ms);
+                if (rc != 0) return (int64_t)rc;
+                continue;
+            }
+            return -(int64_t)errno;
+        }
+        if (r == 0) break;  // peer closed
+        crc = sn_crc32c(crc, buf.data(), (size_t)r);
+        if (pwrite_full(out_fd, buf.data(), (size_t)r, offset + got) != 0) return -(int64_t)errno;
+        got += (uint64_t)r;
+    }
+    if (crc_out) *crc_out = crc;
+    return (int64_t)got;
 }
 
 // ---------------------------------------------------------------------------

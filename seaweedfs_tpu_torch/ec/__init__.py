@@ -2,9 +2,10 @@
 serve needle reads from the shards (degraded reads reconstruct on the
 fly), decode the shards back into a volume, and scrub a volume (patch
 rotten leaves in place under a crash-safe journal, quarantine and
-rebuild what that cannot fix), rebuild from shards fetched from peer
-holders (`rebuild_from_peers`, over the shard net plane of `net_plane`),
-and encode a stream while it is written
+rebuild what that cannot fix; `ScrubDaemon` scrubs a `Store`'s EC
+volumes), rebuild from shards fetched from peer holders
+(`rebuild_from_peers`, over the shard net plane of `net_plane`), and
+encode a stream while it is written
 (`EcStreamEncoder`: incremental parity, the stripe-cursor journal,
 `recover_stream`). Every staged path is a client of the per-chip device
 scheduler (`DeviceQueue`, `QueueScope`, the residency ledger) and of
@@ -54,7 +55,7 @@ from .repair_journal import (
     recover_volume_journals,
     sweep_stale_journals,
 )
-from .scrub import RateLimiter, ScrubCursor, ScrubReport, scrub_ec_volume
+from .scrub import RateLimiter, ScrubCursor, ScrubDaemon, ScrubReport, scrub_ec_volume
 from .stream_encode import (
     EcStreamEncoder,
     StreamJournal,
@@ -94,6 +95,7 @@ __all__ = [
     "RateLimiter",
     "RepairJournal",
     "ScrubCursor",
+    "ScrubDaemon",
     "ScrubReport",
     "StreamJournal",
     "StreamRecovery",

@@ -561,6 +561,17 @@ class EcVolume:
             if os.path.exists(self.base + self.ctx.to_ext(i) + QUARANTINE_SUFFIX)
         ]
 
+    def legitimate_shards(self) -> list[int]:
+        """Shards this server legitimately owns: the ones served plus the
+        quarantined ones (a shard pulled from service for corruption is
+        still this server's to repair)."""
+        with self._lock:
+            held = set(self.shard_fds)
+        return sorted(held | set(self.quarantined_shards()))
+
+    def shard_size(self) -> int:
+        return self._shard_size
+
     def refresh_shards(self) -> list[int]:
         """Open shard files that appeared on disk since mount; returns the
         mounted ids."""

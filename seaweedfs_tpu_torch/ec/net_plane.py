@@ -1,8 +1,9 @@
 """Shard net plane: the network half of the zero-copy EC byte path.
 
 Port of seaweedfs_tpu/ec/net_plane.py, trimmed to the shard-read opcode
-(`SWNP`): a small TCP sidecar next to a volume server that serves EC
-shard byte ranges with
+(`SWNP`) and the blob half of the write opcode (`SWNW` with
+`x-sw-w-kind: blob`): a small TCP sidecar next to a volume server that
+serves EC shard byte ranges with
 
 - **native egress**: `sn_send_file` splices the shard fd straight into
   the socket (sendfile(2), kernel to kernel, GIL released); Python
@@ -10,7 +11,11 @@ shard byte ranges with
 - **native ingress**: the client lands streams DIRECTLY in caller-owned
   pooled 4096-aligned buffers (`sn_recv_into`) with the granule CRC32C
   rolled during the copy-in, so the sidecar verify in
-  ec/peer_rebuild.py costs no extra byte pass.
+  ec/peer_rebuild.py costs no extra byte pass;
+- **blob writes**: a server built with `resolve_blob` lands the durable
+  parity's remote stream-shard extents socket to disk (`sn_recv_file`,
+  CRC32C fused) and fsyncs before it ACKs; `write_blob` and
+  `unlink_blob` are the client side (mq/stream_parity.py's `net:` roots).
 
 Fallback routing, as in the JAX package:
 
@@ -24,11 +29,12 @@ Fallback routing, as in the JAX package:
   and raises :class:`NetPlaneUnavailable`, which peer_rebuild turns into
   a per-stream fallback to the Python fetch.
 
-A port server has no needle, write or blob resolver (those opcodes are
-the JAX package's gateway and stream-shard paths, not ported yet). It
-answers needle-read (`SWNR`) and write (`SWNW`) frames exactly as a JAX
-`ShardNetPlane` built without those resolvers does: a status-1 refusal,
-after draining a write's payload, so the connection stays in frame sync.
+A port server has no needle resolver (the gateway's needle reads and
+writes come with the volume server). It answers needle-read (`SWNR`)
+and needle-write frames exactly as a JAX `ShardNetPlane` built without
+those resolvers does: a status-1 refusal, after draining a write's
+payload, so the connection stays in frame sync; a blob write to a server
+without `resolve_blob` is refused the same way.
 
 Protocol (little-endian, persistent connection, one in-flight request
 per connection):
@@ -42,6 +48,10 @@ per connection):
               status 0 = ok (n = payload length, may be < size at EOF);
               status 1 = error (n = UTF-8 message length);
               status 2 = volume-level refusal (same frame shape as 1)
+    write:    b"SWNW" header (offset slot = the blob offset, size = the
+              payload length) | meta with x-sw-w-kind / -op / -path
+              (urlsafe base64) / -crc / -fsync / -jwt | payload;
+              the ACK is status 0, n = bytes stored, then u32 CRC32C
 
 The sidecar listens on ``grpc_port + NET_PLANE_PORT_OFFSET`` so peers
 derive its address from the holder map's gRPC address (`net_addr`).
@@ -49,6 +59,7 @@ derive its address from the holder map's gRPC address (`net_addr`).
 
 from __future__ import annotations
 
+import base64
 import os
 import socket
 import struct
@@ -62,16 +73,19 @@ from ..utils import metrics as M
 from ..utils import native
 from ..utils import request_id as _rid
 from ..utils import trace
+from ..utils.crc import crc32c as _crc
 from . import native_io
 
 MAGIC = b"SWNP"
 # Needle-read and write opcodes of the JAX package's sidecar: the same
-# 38-byte header; a port server refuses both in protocol.
+# 38-byte header. A port server refuses needle reads and needle writes
+# in protocol and serves blob writes when it has a resolver.
 MAGIC_NEEDLE = b"SWNR"
 MAGIC_WRITE = b"SWNW"
 # magic, volume, shard, gen, offset, size, meta_len
 _REQ = struct.Struct("<4sIIQQQH")
 _RESP = struct.Struct("<BQ")  # status, n
+_NEEDLE_CRC = struct.Struct("<I")  # appended to an OK write response
 NET_PLANE_PORT_OFFSET = 10000  # net plane port = grpc port + this
 
 _SEND_CHUNK = 1 << 20  # python-plane egress chunking
@@ -80,21 +94,52 @@ _MAX_META = 4096
 # error-response bodies are short refusal strings; a length beyond this
 # means the stream desynced (or a hostile peer)
 _MAX_ERROR = 1 << 16
-# the largest write payloads a JAX server would take (needle, blob): a
-# larger write frame is a desynced or hostile one and drops the
-# connection, as it does there
+# the largest write payloads a server takes (needle, blob): a larger
+# write frame is a desynced or hostile one and drops the connection
 _MAX_NEEDLE = 64 << 20
 _MAX_BLOB = 256 << 20
 
+# Write-opcode chaos routing: the write plane keeps serving while the only
+# armed fault points live on the write path's own seams (the net plane's
+# pwrite window and the volume's append/fsync window). Any other armed
+# point refuses write service, so the fallback transport stays the chaos
+# surface, as for the read opcodes.
+_WRITE_CHAOS_NS = ("ec.net.write.", "volume.write.")
 
-def _encode_meta() -> bytes:
-    """The active request-id / trace context as a metadata blob: what
-    trace.grpc_metadata() would put on the RPC."""
+
+def write_plane_admissible() -> bool:
+    """True when the write opcode may serve despite an armed registry:
+    every armed point lives in the write path's own chaos namespaces (or
+    nothing is armed at all)."""
+    return all(p.startswith(_WRITE_CHAOS_NS) for p in faults.armed_points())
+
+
+def _encode_meta(extra: dict | None = None) -> bytes:
+    """The active request-id / trace context as a metadata blob (what
+    trace.grpc_metadata() would put on the RPC), plus any opcode-specific
+    key/value pairs (the write opcode's kind / op / path / crc / fsync /
+    jwt lines). Values must not contain tab or newline; binary fields
+    ride urlsafe base64 (`_b64`)."""
     md = list(trace.grpc_metadata() or [])
+    if extra:
+        md.extend((k, str(v)) for k, v in extra.items() if v is not None and str(v) != "")
     if not md:
         return b""
     blob = "\n".join(f"{k}\t{v}" for k, v in md).encode()
     return blob[:_MAX_META]
+
+
+def _b64(value: bytes | str) -> str:
+    if isinstance(value, str):
+        value = value.encode()
+    return base64.urlsafe_b64encode(value).decode()
+
+
+def _unb64(value: str) -> bytes:
+    try:
+        return base64.urlsafe_b64decode(value.encode())
+    except (ValueError, TypeError):
+        return b""
 
 
 def _decode_meta(blob: bytes) -> dict:
@@ -112,7 +157,9 @@ class NetPlaneError(Exception):
 
 
 class NetPlaneVolumeRefusal(NetPlaneError):
-    """A refusal that applies to the WHOLE volume (status 2)."""
+    """A refusal that applies to the WHOLE volume or blob root: the
+    server answers status 2. Raised by resolvers server-side; surfaces
+    client-side as a NetPlaneError with ``volume_refusal=True``."""
 
 
 class NetPlaneUnavailable(Exception):
@@ -170,11 +217,18 @@ class ShardNetPlane:
     with the refusal message (not mounted / stale generation / shard not
     local). The server never closes resolved fds: they belong to the
     caller's mounted volume.
+
+    ``resolve_blob(path, op, md) -> fd | None`` (optional) serves
+    kind=blob writes: remote durable-parity stream-shard extents. It
+    validates `path` against the server's blob root and returns an fd
+    the server pwrites into and closes (``op == "write"``), or handles
+    the operation itself and returns None (``op == "unlink"``).
     """
 
     def __init__(self, ip: str, port: int, resolve, request_timeout: float = 60.0,
-                 server_label: str = ""):
+                 server_label: str = "", resolve_blob=None):
         self.resolve = resolve
+        self.resolve_blob = resolve_blob
         self.request_timeout = request_timeout
         self.server_label = server_label
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -190,6 +244,9 @@ class ShardNetPlane:
         self.requests = 0
         self.sendfile_bytes = 0
         self.python_bytes = 0
+        self.write_requests = 0
+        self.write_native_bytes = 0
+        self.write_python_bytes = 0
 
     def start(self) -> None:
         self._thread.start()
@@ -265,7 +322,7 @@ class ShardNetPlane:
                 t0 = time.perf_counter()
                 try:
                     if magic == MAGIC_WRITE:
-                        ok = self._refuse_write(conn, size, md)
+                        ok = self._serve_write(conn, off, size, md)
                     elif magic == MAGIC_NEEDLE:
                         ok = self._error(conn, "needle reads not served here")
                     else:
@@ -363,29 +420,172 @@ class ShardNetPlane:
             return False
         return True
 
-    def _refuse_write(self, conn, size: int, md: dict) -> bool:
-        """A write frame to a server with no write resolver: drop a
-        desynced frame (unknown kind, oversized payload), else drain the
-        payload and refuse in protocol."""
+    def _land_payload(self, conn, row: np.ndarray, size: int, native_on: bool) -> int:
+        """Land `size` payload bytes into the pooled row `row`, rolling the
+        CRC32C during the copy-in (fused in `sn_recv_into` on the native
+        plane). Returns the landed CRC; raises NetPlaneError / OSError on
+        a torn ingress (the connection is then dead). The needle write
+        lands through here; it comes with the volume server."""
+        if size == 0:
+            return 0
+        if native_on:
+            crc_state = np.zeros(1, np.uint32)
+            filled = np.zeros(1, np.uint64)
+            out_crcs = np.zeros(2, np.uint32)
+            out_counts = np.zeros(1, np.int32)
+            got = native.recv_into(
+                conn.fileno(), row, size, timeout_ms=int(self.request_timeout * 1000),
+                granule=size, crc_state=crc_state, filled_state=filled,
+                out_crcs=out_crcs, out_counts=out_counts,
+            )
+            if got != size:
+                raise NetPlaneError(f"torn write payload {got}/{size}")
+            self.write_native_bytes += got
+            M.net_bytes_received_total.inc(got, plane="native", direction="write")
+            return int(out_crcs[0]) if int(out_counts[0]) > 0 else int(crc_state[0])
+        view = memoryview(row)[:size]
+        got = 0
+        while got < size:
+            r = conn.recv_into(view[got:], size - got)
+            if r == 0:
+                raise NetPlaneError(f"torn write payload {got}/{size}")
+            got += r
+        self.write_python_bytes += size
+        M.net_bytes_received_total.inc(size, plane="python", direction="write")
+        return _crc(row[:size])
+
+    def _serve_write(self, conn, off: int, size: int, md: dict) -> bool:
+        """Serve one write request; False = the connection must close.
+        Drops a desynced frame (unknown kind, oversized payload); drains
+        and refuses a needle write, a blob write without a resolver, or
+        any write while the fault registry holds points outside the
+        write path's own chaos namespaces (`write_plane_admissible`)."""
         kind = md.get("x-sw-w-kind", "")
-        if kind not in ("needle", "blob") or size > (_MAX_NEEDLE if kind == "needle" else _MAX_BLOB):
-            return False
-        if not self._drain(conn, size):
-            return False
-        return self._error(conn, f"{kind} writes not served here")
+        op = md.get("x-sw-w-op", "write")
+        if kind == "needle":
+            if size > _MAX_NEEDLE:
+                return False
+            refusal = "needle writes not served here"
+        elif kind == "blob":
+            if size > _MAX_BLOB:
+                return False
+            refusal = None if self.resolve_blob is not None else "blob writes not served here"
+        else:
+            return False  # unknown kind: protocol desync
+        if refusal is None and not write_plane_admissible():
+            refusal = "fault registry armed: use the fallback transport"
+        if refusal is not None:
+            if not self._drain(conn, size):
+                return False
+            return self._error(conn, refusal)
+        self.write_requests += 1
+        return self._serve_blob_write(conn, op, md, off, size)
+
+    def _serve_blob_write(self, conn, op: str, md: dict, off: int, size: int) -> bool:
+        try:
+            path = _unb64(md.get("x-sw-w-path", "")).decode()
+        except (ValueError, UnicodeDecodeError):
+            path = ""
+        try:
+            want_crc = int(md.get("x-sw-w-crc", "0"))
+        except ValueError:
+            want_crc = 0
+        do_fsync = md.get("x-sw-w-fsync", "0") == "1"
+        try:
+            fd = self.resolve_blob(path, op, md)
+        except NetPlaneVolumeRefusal as e:
+            if not self._drain(conn, size):
+                return False
+            return self._error(conn, str(e), status=2)
+        except (NetPlaneError, OSError) as e:
+            if not self._drain(conn, size):
+                return False
+            return self._error(conn, str(e))
+        if fd is None:
+            # op handled entirely by the resolver (unlink)
+            if not self._drain(conn, size):
+                return False
+            try:
+                conn.sendall(_RESP.pack(0, 0) + _NEEDLE_CRC.pack(0))
+            except OSError:
+                return False
+            return True
+        try:
+            try:
+                faults.fire("ec.net.write.before_pwrite", path=path, size=size)
+            except IOError as e:
+                if not self._drain(conn, size):
+                    return False
+                return self._error(conn, str(e))
+            landed_crc = 0
+            if size and native_io.enabled():
+                # socket to disk with the CRC fused into the landing loop:
+                # Python never touches a payload byte
+                try:
+                    got, landed_crc = native.recv_file(
+                        conn.fileno(), fd, off, size,
+                        timeout_ms=int(self.request_timeout * 1000),
+                    )
+                except OSError:
+                    return False
+                if got != size:
+                    return False
+                self.write_native_bytes += got
+                M.net_bytes_received_total.inc(got, plane="native", direction="write")
+            elif size:
+                chunk = bytearray(min(size, _SEND_CHUNK))
+                view = memoryview(chunk)
+                remaining, o, crc = size, off, 0
+                try:
+                    while remaining > 0:
+                        want = min(len(chunk), remaining)
+                        got = conn.recv_into(view[:want], want)
+                        if got == 0:
+                            return False
+                        crc = _crc(view[:got], crc)
+                        os.pwrite(fd, view[:got], o)
+                        o += got
+                        remaining -= got
+                except OSError:
+                    return False
+                landed_crc = crc
+                self.write_python_bytes += size
+                M.net_bytes_received_total.inc(size, plane="python", direction="write")
+                M.net_bytes_copied_total.inc(size, plane="python", direction="write")
+            if want_crc and landed_crc != (want_crc & 0xFFFFFFFF):
+                # the corrupt extent is on disk, but the pushed watermark
+                # only advances on an ACK: the client retries the same
+                # extent at the same offset
+                return self._error(conn, "blob payload CRC mismatch")
+            try:
+                faults.fire("ec.net.write.after_pwrite", path=path)
+                if do_fsync:
+                    os.fsync(fd)
+            except OSError as e:
+                return self._error(conn, str(e))
+            try:
+                conn.sendall(_RESP.pack(0, size) + _NEEDLE_CRC.pack(landed_crc & 0xFFFFFFFF))
+            except OSError:
+                return False
+            return True
+        finally:
+            try:
+                os.close(fd)
+            except OSError:
+                pass
 
     def status(self) -> dict:
         """Sidecar state for status surfaces (the JAX package's keys; a
-        port server serves no needle or write request)."""
+        port server serves no needle request)."""
         return {
             "port": self.port,
             "requests": self.requests,
             "needle_requests": 0,
             "sendfile_bytes": self.sendfile_bytes,
             "python_bytes": self.python_bytes,
-            "write_requests": 0,
-            "write_native_bytes": 0,
-            "write_python_bytes": 0,
+            "write_requests": self.write_requests,
+            "write_native_bytes": self.write_native_bytes,
+            "write_python_bytes": self.write_python_bytes,
         }
 
 
@@ -593,6 +793,77 @@ class NetPlaneClient:
         M.net_bytes_received_total.inc(size, plane="python", direction="read")
         M.net_bytes_copied_total.inc(size, plane="python", direction="read")
         return data
+
+
+    # ------------------------------------------------------- blob writes
+
+    def _write_request(self, addr, vid, sid, gen, off, payload, extra_meta) -> tuple[int, int]:
+        """One write-opcode round trip on the cached connection: header,
+        meta and payload out; (status, n, stored CRC) back. Returns
+        (stored_size, stored_crc). A refusal leaves the stream in sync
+        (the server drains the payload first), so the connection is kept
+        even then; any other failure drops it."""
+        with self._addr_lock(addr):
+            s = self._conn(addr)
+            healthy = False
+            try:
+                meta = _encode_meta(extra_meta)
+                try:
+                    s.sendall(_REQ.pack(MAGIC_WRITE, vid, sid, gen, off, len(payload), len(meta))
+                              + meta)
+                    if payload:
+                        s.sendall(payload)
+                    head = _recv_exact(s, _RESP.size)
+                except (OSError, NetPlaneError) as e:
+                    raise NetPlaneError(f"{addr}: {e}") from e
+                status, n = _RESP.unpack(head)
+                if status != 0:
+                    msg = self._read_refusal(addr, s, n)
+                    healthy = True
+                    err = NetPlaneError(f"{addr}: {msg}")
+                    err.volume_refusal = status == 2
+                    raise err
+                try:
+                    (stored_crc,) = _NEEDLE_CRC.unpack(_recv_exact(s, _NEEDLE_CRC.size))
+                except (OSError, NetPlaneError) as e:
+                    raise NetPlaneError(f"{addr}: {e}") from e
+                healthy = True
+                M.net_bytes_sent_total.inc(
+                    len(payload), plane="native" if native_io.enabled() else "python",
+                    direction="write",
+                )
+                return int(n), int(stored_crc)
+            finally:
+                if not healthy:
+                    self._drop(addr)
+
+    def write_blob(self, addr: tuple[str, int], path: str, off: int, data, *,
+                   fsync: bool = True, jwt: str = "") -> int:
+        """Write one extent of a remote stream-shard blob at `off`
+        (kind=blob): the network transport behind `net:` remote roots.
+        The server lands socket to disk (`sn_recv_file`, CRC fused) and,
+        with `fsync`, fsyncs before it ACKs: the remote extent is durable
+        once this returns. Returns bytes stored."""
+        data = bytes(data)
+        extra = {
+            "x-sw-w-kind": "blob",
+            "x-sw-w-path": _b64(path),
+            "x-sw-w-crc": str(_crc(data) if data else 0),
+        }
+        if fsync:
+            extra["x-sw-w-fsync"] = "1"
+        if jwt:
+            extra["x-sw-w-jwt"] = jwt
+        stored, _crc_ack = self._write_request(addr, 0, 0, 0, off, data, extra)
+        return stored
+
+    def unlink_blob(self, addr: tuple[str, int], path: str, *, jwt: str = "") -> None:
+        """Remove a remote stream-shard blob (best-effort GC of superseded
+        generations)."""
+        extra = {"x-sw-w-kind": "blob", "x-sw-w-op": "unlink", "x-sw-w-path": _b64(path)}
+        if jwt:
+            extra["x-sw-w-jwt"] = jwt
+        self._write_request(addr, 0, 0, 0, 0, b"", extra)
 
 
 def make_fetch_into(client: NetPlaneClient, vid: int, generation: int, addr_of=net_addr):

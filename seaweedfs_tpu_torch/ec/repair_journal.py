@@ -58,7 +58,10 @@ against the target's own leaf CRCs, and hand back patches ready for
 `stages`, where a function takes it, is a dict that gains wall seconds
 under the JAX package's stage names: "crc_verify" (sibling and output
 CRC checks), "reconstruct" (the backend call) and "repair_patch" (the
-journal protocol). `span` is the flight recorder's span of the repair
+journal protocol), which `apply_leaf_repair` also splits into
+"repair_patch.fsync" (its fsyncs) and "repair_patch.work" (the rest).
+Those two keys are the stages dict's only: the span tree keeps the JAX
+package's stages. `span` is the flight recorder's span of the repair
 (utils/trace.py), which gets "crc_verify" and "repair_patch" as in the
 JAX module; recovery and the sweep count their actions in
 `sw_ec_repair_journal_total{action}` (utils/metrics.py).
@@ -79,7 +82,7 @@ from .. import faults
 from ..utils import metrics as M
 from ..utils import trace
 from ..utils.crc import crc32c
-from ..utils.fs import fsync_dir
+from ..utils.fs import fsync, fsync_dir, fsync_seconds
 from .bitrot import BitrotError, BitrotProtection, fold_leaf_crcs
 from .context import ECContext, ECError
 
@@ -236,7 +239,7 @@ def _write_journal(jpath: str, journal: RepairJournal) -> None:
         # crash window: journal bytes written, not yet durable
         faults.fire("ec.repair.journal_write", path=jpath)
         f.flush()
-        os.fsync(f.fileno())
+        fsync(f.fileno())
     fsync_dir(jpath)
 
 
@@ -251,7 +254,7 @@ def _patch_shard(shard_path: str, patches: list[LeafPatch]) -> None:
         # crash window: leaf bytes (possibly torn) written, not yet
         # durable — recovery replays the journal over them
         faults.fire("ec.repair.patch_write", path=shard_path)
-        os.fsync(fd)
+        fsync(fd)
     finally:
         os.close(fd)
 
@@ -305,7 +308,8 @@ def apply_leaf_repair(
         shard_size=prot.shard_sizes[shard_id],
         patches=list(patches),
     )
-    with _stage(stages, "repair_patch", span):
+    t0 = time.perf_counter()
+    with _stage(stages, "repair_patch", span), fsync_seconds() as fsynced:
         _write_journal(jpath, journal)
         # crash window: intent durable, shard untouched
         faults.fire("ec.repair.after_journal", path=shard_path, shard=shard_id)
@@ -317,6 +321,12 @@ def apply_leaf_repair(
         faults.fire("ec.repair.after_sidecar", path=shard_path, shard=shard_id)
         os.unlink(jpath)
         fsync_dir(jpath)
+    if stages is not None:
+        # repair_patch split: its fsyncs (journal, shard, sidecar, the
+        # directory after each publish) apart from the journal's own work
+        work = time.perf_counter() - t0 - fsynced[0]
+        stages["repair_patch.fsync"] = stages.get("repair_patch.fsync", 0.0) + fsynced[0]
+        stages["repair_patch.work"] = stages.get("repair_patch.work", 0.0) + work
 
 
 # --------------------------------------------------------------- recovery

@@ -4,9 +4,10 @@ cannot fix and rebuild it — the self-healing pass the reference runs as
 ec_volume scrubbing plus shell-driven ec.rebuild.
 
 Port of seaweedfs_tpu/ec/scrub.py (`RateLimiter`, `ScrubCursor`,
-`ScrubReport`, `_quarantine`, `scrub_ec_volume` with its `scheduler`).
-Not ported yet (ROADMAP): `ScrubDaemon`, which walks a `Store`'s
-volumes. Leaf reconstruction and the quarantine rebuild
+`ScrubReport`, `_quarantine`, `scrub_ec_volume` with its `scheduler`,
+and `ScrubDaemon`, which walks the EC volumes a `Store` has mounted
+(storage/store.py), one breaker per volume, and unmounts and remounts
+shards on the live `EcVolume`). Leaf reconstruction and the quarantine rebuild
 run on the backend given, by default the card: on CUDA each contiguous
 range of rotten leaves is one `gf2_apply` launch, and the rebuild runs
 its batches through the same kernel. Each leaf repair is one
@@ -283,7 +284,8 @@ def scrub_ec_volume(
     replayed at pass START, never swept); None disables the sweep.
 
     `stages` gains the leaf repairs' wall seconds: "crc_verify",
-    "reconstruct" and "repair_patch" (ec/repair_journal.py).
+    "reconstruct" and "repair_patch", and repair_patch split into
+    "repair_patch.fsync" and "repair_patch.work" (ec/repair_journal.py).
 
     `scheduler` is the QueueScope the repair rebuild's stream runs under
     (None = the process-wide default scope); scrub-initiated repair is
@@ -637,3 +639,149 @@ def scrub_ec_volume(
     if journal_ttl_s is not None:
         report.swept_journals = sweep_stale_journals(base, ctx, journal_ttl_s)
     return report
+
+
+class ScrubDaemon:
+    """Background scrub loop over a Store's mounted EC volumes.
+
+    Walks every EC volume each `interval`, slicing work by `max_blocks`
+    per volume per wakeup. Quarantine/rebuild events unmount and remount
+    the affected shard on the live EcVolume so reads degrade to
+    reconstruction (never a stale fd on a renamed file) and pick the
+    regenerated shard back up once it verifies.
+    """
+
+    def __init__(
+        self,
+        store,
+        interval: float = 3600.0,
+        bytes_per_sec: float = 64 << 20,
+        max_blocks_per_volume: float | None = None,
+        repair: bool = True,
+        breaker: CircuitBreaker | None = None,
+        backend=None,
+        bad_retention_s: float | None = None,
+        journal_ttl_s: float | None = 86400.0,
+    ):
+        self.store = store
+        self.interval = interval
+        self.repair = repair
+        self.backend = backend
+        self.bad_retention_s = bad_retention_s
+        self.journal_ttl_s = journal_ttl_s
+        self.limiter = RateLimiter(bytes_per_sec)
+        self.max_blocks = max_blocks_per_volume
+        # One breaker PER VOLUME: a permanently-unrebuildable volume
+        # (e.g. a subset holder below k local files) must not starve
+        # every other volume's repair on this server. `breaker`, when
+        # given, is the template whose thresholds new ones copy.
+        self._breaker_template = breaker or CircuitBreaker(
+            failure_threshold=3, reset_timeout=300.0
+        )
+        self.breakers: dict[int, CircuitBreaker] = {}
+        self.reports: dict[int, ScrubReport] = {}  # vid -> last report
+        self.passes = 0
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="ec-scrub", daemon=True
+        )
+
+    # ------------------------------------------------------------ control
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=5)
+
+    def kick(self) -> None:
+        """Request an immediate pass (ops hook / tests)."""
+        self._wake.set()
+
+    def breaker_for(self, vid: int) -> CircuitBreaker:
+        b = self.breakers.get(vid)
+        if b is None:
+            t = self._breaker_template
+            b = CircuitBreaker(
+                failure_threshold=t.failure_threshold,
+                reset_timeout=t.reset_timeout,
+            )
+            self.breakers[vid] = b
+        return b
+
+    # -------------------------------------------------------------- loop
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.scrub_once()
+            except Exception as e:  # pragma: no cover - daemon must survive
+                log.error("scrub pass failed: %s", e)
+            self.passes += 1
+            self._wake.wait(self.interval)
+            self._wake.clear()
+
+    def scrub_once(self) -> dict[int, ScrubReport]:
+        """One pass over every mounted EC volume; returns vid->report."""
+        out: dict[int, ScrubReport] = {}
+        for loc in self.store.locations:
+            for vid, ev in list(loc.ec_volumes.items()):
+                if self._stop.is_set():
+                    return out
+                # This server's legitimate shard set = served + on-disk
+                # quarantined (EcVolume.legitimate_shards): a shard
+                # quarantined+unmounted last pass whose rebuild then
+                # failed stays on the repair list instead of vanishing
+                # from the mounted set and being reported healthy. An
+                # absent shard outside this set lives on a peer; a local
+                # rebuild of it would mint a duplicate copy the master
+                # never placed (and below k local files, fail every
+                # pass and wedge the shared breaker).
+                mounted = set(ev.legitimate_shards())
+                report = scrub_ec_volume(
+                    ev.base,
+                    ev.ctx,
+                    backend=self.backend,
+                    repair=self.repair,
+                    rate_limiter=self.limiter,
+                    max_blocks=self.max_blocks,
+                    breaker=self.breaker_for(vid),
+                    expected_shards=sorted(mounted),
+                    bad_retention_s=self.bad_retention_s,
+                    journal_ttl_s=self.journal_ttl_s,
+                    # the Store's own scheduler scope (per-tenant
+                    # placement/shares); falls back to the process-wide
+                    # default for bare stores
+                    scheduler=getattr(self.store, "ec_scheduler", None),
+                    # Unmount BEFORE rebuild: the serving fd still points
+                    # at the renamed .bad inode and would happily serve
+                    # rot; degraded reads reconstruct meanwhile.
+                    on_quarantine=lambda sid, dest, ev=ev: ev.unmount_shards([sid]),
+                    # Remount only what this server served going in —
+                    # rebuild may have regenerated peers' shards too.
+                    on_rebuilt=lambda sids, ev=ev, m=mounted: ev.reopen_shards(
+                        [s for s in sids if s in m]
+                    ),
+                    # In-place patches (journal replay, leaf repair)
+                    # keep the inode — no fd swap, but any cached
+                    # reconstruction over the patched bytes is stale.
+                    on_leaf_patched=lambda sid, ranges, ev=ev: (
+                        ev.invalidate_shard_ranges(sid, ranges)
+                    ),
+                )
+                out[vid] = report
+                self.reports[vid] = report
+                if report.refused:
+                    log.warning("scrub vol %d refused: %s", vid, report.refused)
+                elif report.quarantined or report.rebuilt or report.leaf_repaired:
+                    log.warning(
+                        "scrub vol %d: quarantined=%s rebuilt=%s "
+                        "leaf_repaired=%s",
+                        vid, report.quarantined, report.rebuilt,
+                        report.leaf_repaired,
+                    )
+        return out

@@ -1,8 +1,8 @@
 """Durable-parity MQ log segments: the partition side of streaming EC.
 
-Port of seaweedfs_tpu/mq/stream_parity.py, local roots only. A
-durable-parity partition feeds every appended record (the segment
-files' `[len|offset|ts|key|value]` wire bytes) into an
+Port of seaweedfs_tpu/mq/stream_parity.py. A durable-parity partition
+feeds every appended record (the segment files'
+`[len|offset|ts|key|value]` wire bytes) into an
 :class:`~seaweedfs_tpu_torch.ec.stream_encode.EcStreamEncoder`, so
 parity trails the append head by a bounded lag (the flusher's
 bytes/deadline policy). After a crash, the unsealed tail is replayed
@@ -16,9 +16,13 @@ stripe layout (never finalized); when a generation reaches
 ``rotate_bytes`` it is flushed, closed, and the next opens at the next
 record's offset. Generations wholly below the prune floor are deleted.
 
-What the port leaves out: the broker and its `ParityFlusher`, and remote
-shard placement. A non-empty ``SEAWEED_EC_STREAM_REMOTE_ROOTS`` raises
-`ECError` at construction instead of being ignored.
+``SEAWEED_EC_STREAM_REMOTE_ROOTS`` places some of a generation's stream
+shards on other hosts (`remote_roots`): on a mounted path through a
+symlink, or on a volume server's net plane, pushed at every flush over
+the blob-write opcode. That is what lets an unsealed tail outlive the
+broker's host.
+
+What the port leaves out: the broker and its `ParityFlusher`.
 ``SEAWEED_EC_STREAM_BACKEND`` names the backend, ``cuda`` (the default),
 ``cpu`` (the native `CpuBackend`) or ``auto`` (`get_backend("auto")`:
 the card behind a `FallbackBackend` when the probe finds one, else the
@@ -38,6 +42,8 @@ import threading
 
 from ..ec.backend import get_backend
 from ..ec.context import ECContext, ECError
+from ..ec.net_plane import NetPlaneClient, NetPlaneError, NetPlaneUnavailable, derive_port
+from ..ec.placement import NodeView, plan_shard_placement
 from ..ec.stream_encode import (
     EcStreamEncoder,
     load_stream_journal,
@@ -45,6 +51,8 @@ from ..ec.stream_encode import (
     stream_block_size,
     stream_small_block_size,
 )
+
+from ..utils.security import sign_jwt
 
 log = logging.getLogger(__name__)
 
@@ -83,6 +91,75 @@ def rotate_bytes_default() -> int:
     """SEAWEED_EC_STREAM_ROTATE_MB: stream-generation rotation size
     (default 64 MiB)."""
     return max(_env_int("SEAWEED_EC_STREAM_ROTATE_MB", 64), 1) << 20
+
+
+def remote_roots() -> dict[str, str]:
+    """SEAWEED_EC_STREAM_REMOTE_ROOTS ("name=root[,name=root...]"):
+    remote-host roots that a durable-parity partition's stream shards may
+    be placed on, spread by `plan_shard_placement`. Two root forms:
+
+    - ``name=/path``: a mounted path (another host's disk): the planned
+      shard becomes a symlink the encoder's O_CREAT follows,
+      headroom-gated by statvfs;
+    - ``name=net:host:grpcport[/subdir]``: a volume server's net plane.
+      The shard stays a local file and every flush pushes its newly
+      durable extent over the blob-write opcode (`write_blob`, fsync
+      before the ACK), under the peer's stream-blob root. Pruned
+      generations unlink their remote blobs.
+
+    Unset (the default) keeps every shard in the local parity dir."""
+    spec = os.environ.get("SEAWEED_EC_STREAM_REMOTE_ROOTS", "")
+    roots: dict[str, str] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part or "=" not in part:
+            continue
+        name, _, path = part.partition("=")
+        if name.strip() and path.strip():
+            roots[name.strip()] = path.strip()
+    return roots
+
+
+def _statvfs_free(path: str) -> int:
+    try:
+        st = os.statvfs(path)
+        return int(st.f_bavail) * int(st.f_frsize)
+    except OSError:
+        return -1
+
+
+def _parse_net_root(spec: str):
+    """``net:host:grpcport[/subdir]`` -> ((host, plane_port), subdir).
+    Raises ValueError on a malformed spec."""
+    rest = spec[len("net:"):]
+    hostport, _, sub = rest.partition("/")
+    host, _, port = hostport.rpartition(":")
+    if not host or not port:
+        raise ValueError(f"malformed net root {spec!r}")
+    return (host, derive_port(int(port))), sub.strip("/")
+
+
+_NET_CLIENT = None
+_NET_CLIENT_LOCK = threading.Lock()
+
+
+def _net_client() -> NetPlaneClient:
+    """The shared NetPlaneClient of net: shard pushes, built lazily: one
+    cached connection per peer, shared by every partition."""
+    global _NET_CLIENT
+    with _NET_CLIENT_LOCK:
+        if _NET_CLIENT is None:
+            _NET_CLIENT = NetPlaneClient()
+        return _NET_CLIENT
+
+
+def _net_jwt() -> str:
+    """Blob-scoped token for keyed clusters (SEAWEED_JWT_KEY): the
+    receiving server's blob resolver verifies scope "blob"."""
+    key = os.environ.get("SEAWEED_JWT_KEY", "")
+    if not key:
+        return ""
+    return sign_jwt(key, "blob", ttl_seconds=60)
 
 
 def parity_context() -> ECContext:
@@ -164,13 +241,10 @@ class PartitionParity:
         max_lag_s: float | None = None,
         rotate_bytes: int | None = None,
     ):
-        if os.environ.get("SEAWEED_EC_STREAM_REMOTE_ROOTS", "").strip():
-            raise ECError(
-                "SEAWEED_EC_STREAM_REMOTE_ROOTS is set, but the port has no "
-                "remote shard placement (ec/placement.py, ec/net_plane.py): "
-                "every stream shard would stay local"
-            )
         self.ns, self.topic_name, self.partition = ns, name, partition
+        # remote shard placement (see remote_roots), snapshot at
+        # construction so one partition's generations place consistently
+        self.remote_roots = remote_roots()
         self.ctx = ctx or parity_context()
         # None: the named one, built at the first generation or recovery
         self.backend = backend
@@ -190,6 +264,11 @@ class PartitionParity:
         self._gen = self._max_gen() + 1
         self._gen_base = -1  # first record offset of the open gen
         self.closed = False
+        # net: roots: per-gen plan of local shard path -> ((host, port),
+        # remote path), and the per-path byte watermark already pushed
+        # and fsynced on the peer
+        self._net_shards: dict[int, dict[str, tuple]] = {}
+        self._net_pushed: dict[str, int] = {}
 
     # --------------------------------------------------------- gen layout
 
@@ -244,6 +323,7 @@ class PartitionParity:
     def _open_gen(self, base_offset: int) -> None:
         self._gen_base = base_offset
         self._gen_records = 0
+        self._place_gen_shards(self._gen_base_path(self._gen))
         self._enc = EcStreamEncoder(
             self._gen_base_path(self._gen),
             self.ctx,
@@ -252,6 +332,117 @@ class PartitionParity:
             small_block_size=self.small_block_size,
             meta=base_offset,
         )
+
+    def _remote_dir(self, sub: str) -> str:
+        """The partition's directory under a net: root's blob root."""
+        parts = (sub, self.ns, self.topic_name, f"{self.partition:04d}")
+        return "/".join(p for p in parts if p)
+
+    def _place_gen_shards(self, base: str) -> None:
+        """Plan this generation's shard files across the local parity dir
+        and the remote roots with `plan_shard_placement` (spread by
+        count, headroom-gated). A shard planned on a mounted root becomes
+        a symlink the encoder's O_CREAT follows, so the encoder's and
+        recovery's byte paths are untouched; one planned on a net: root
+        stays a local file whose durable extents flushes push. No roots
+        (the default) is a no-op; a root without headroom for its share
+        of `rotate_bytes` is never chosen. Idempotent: existing links and
+        files are left alone."""
+        if not self.remote_roots:
+            return
+        views = [NodeView(id="", free_slots=1 << 20, free_bytes=_statvfs_free(self.dir))]
+        targets: dict[str, str] = {}
+        net_targets: dict[str, tuple] = {}  # name -> (addr, remote dir)
+        for name, root in sorted(self.remote_roots.items()):
+            if root.startswith("net:"):
+                # no mount to probe: headroom is unknowable here, and the
+                # peer refuses when full
+                try:
+                    addr, sub = _parse_net_root(root)
+                except ValueError as e:
+                    log.warning("remote parity root %s unusable: %s", root, e)
+                    continue
+                net_targets[name] = (addr, self._remote_dir(sub))
+                views.append(NodeView(id=name, free_slots=1 << 20, free_bytes=1 << 50))
+                continue
+            # absolute: the symlink target must resolve the same from the
+            # parity dir and from the process cwd
+            tdir = os.path.abspath(
+                os.path.join(root, self.ns, self.topic_name, f"{self.partition:04d}")
+            )
+            try:
+                os.makedirs(tdir, exist_ok=True)
+            except OSError as e:
+                log.warning("remote parity root %s unusable: %s", root, e)
+                continue
+            targets[name] = tdir
+            views.append(NodeView(id=name, free_slots=1 << 20, free_bytes=_statvfs_free(tdir)))
+        if len(views) < 2:
+            return
+        shard_b = max(self.rotate_bytes // self.ctx.data_shards, 1)
+        plan = plan_shard_placement(views, self._gen, list(range(self.ctx.total)),
+                                    shard_bytes=shard_b)
+        net_plan: dict[str, tuple] = {}
+        for sid, node_id in sorted(plan.items()):
+            if not node_id:
+                continue  # planned local: a plain file
+            path = base + self.ctx.to_ext(sid)
+            if node_id in net_targets:
+                addr, rdir = net_targets[node_id]
+                net_plan[path] = (addr, "/".join((rdir, os.path.basename(path))))
+                continue
+            if os.path.lexists(path):
+                continue
+            target = os.path.join(targets[node_id], os.path.basename(path))
+            try:
+                os.symlink(target, path)
+            except OSError as e:
+                log.warning("remote shard link %s -> %s failed: %s (local file instead)",
+                            path, target, e)
+        if net_plan:
+            self._net_shards[self._gen] = net_plan
+
+    # one blob write per extent chunk: bounds the peer's landing and keeps
+    # a slow peer from stalling a flush forever
+    _NET_PUSH_CHUNK = 4 << 20
+
+    def _push_net_shards(self) -> None:
+        """Push every net-planned shard's newly durable extent
+        [watermark, size) over the blob-write opcode (fsync before the
+        ACK): once this returns, the pushed bytes are durable on the
+        peer. Best-effort: a failed push keeps the watermark, so the next
+        flush retries from the same offset; the local shard file stays
+        authoritative either way."""
+        with self._lock:
+            work = [
+                (path, addr, rpath)
+                for plan in self._net_shards.values()
+                for path, (addr, rpath) in sorted(plan.items())
+            ]
+        if not work:
+            return
+        jwt = _net_jwt()
+        client = _net_client()
+        for path, addr, rpath in work:
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                continue
+            off = self._net_pushed.get(path, 0)
+            if off >= size:
+                continue
+            try:
+                with open(path, "rb") as f:
+                    while off < size:
+                        f.seek(off)
+                        data = f.read(min(size - off, self._NET_PUSH_CHUNK))
+                        if not data:
+                            break
+                        client.write_blob(addr, rpath, off, data, fsync=True, jwt=jwt)
+                        off += len(data)
+            except (NetPlaneUnavailable, NetPlaneError, OSError) as e:
+                log.warning("net shard push %s -> %s stalled at %d: %s", path, rpath, off, e)
+            self._net_pushed[path] = off
 
     def _rotate_locked(self, next_base: int) -> None:
         if self._enc is not None:
@@ -287,6 +478,9 @@ class PartitionParity:
         if enc is None:
             return
         enc.flush()
+        # remote durability trails local: net-planned shards push their
+        # newly flushed extents before this flush returns
+        self._push_net_shards()
         with self._lock:
             if self._enc is enc and enc.head >= self.rotate_bytes:
                 # rotate at a flush boundary so the closed gen's journal
@@ -317,8 +511,41 @@ class PartitionParity:
 
     def _remove_gen(self, gen: int) -> None:
         base = self._gen_base_path(gen)
+        net_plan = self._net_shards.pop(gen, None) or {}
+        for path in net_plan:
+            self._net_pushed.pop(path, None)
+        targets = set(net_plan.values())
+        # a restarted partition has no in-memory plan for older gens:
+        # derive every possible remote blob path from the net: roots, so
+        # pruning never leaks peer bytes
+        for _name, root in sorted(self.remote_roots.items()):
+            if not root.startswith("net:"):
+                continue
+            try:
+                addr, sub = _parse_net_root(root)
+            except ValueError:
+                continue
+            rdir = self._remote_dir(sub)
+            for i in range(self.ctx.total):
+                targets.add((addr, rdir + "/" + os.path.basename(base + self.ctx.to_ext(i))))
+        if targets:
+            jwt = _net_jwt()
+            client = _net_client()
+            for addr, rpath in sorted(targets):
+                try:
+                    client.unlink_blob(addr, rpath, jwt=jwt)
+                except (NetPlaneUnavailable, NetPlaneError, OSError):
+                    pass  # orphaned remote blob: collected with the root
         for i in range(self.ctx.total):
-            _unlink_quiet(base + self.ctx.to_ext(i))
+            path = base + self.ctx.to_ext(i)
+            try:
+                # a remotely placed shard: drop the target bytes too, or
+                # pruning would orphan them on the remote root
+                if os.path.islink(path):
+                    _unlink_quiet(os.readlink(path))
+            except OSError:
+                pass
+            _unlink_quiet(path)
         _unlink_quiet(base + ".stream")
         _unlink_quiet(base + ".ecsum")
 
@@ -365,9 +592,13 @@ class PartitionParity:
             if self._enc is not None:
                 self._enc.close(finalize=False)
                 self._enc = None
+        # the final tail extents (bytes the closing flush landed locally)
+        self._push_net_shards()
 
     def delete(self) -> None:
         self.close()
+        # remotely placed shards die with their gens; rmtree alone would
+        # only remove the symlinks
         for g in self._gens():
             self._remove_gen(g)
         shutil.rmtree(self.dir, ignore_errors=True)

@@ -166,6 +166,8 @@ _SIGNATURES = {
             _c.c_int, _P, _c.c_uint64, _c.c_int, _c.c_uint32, _P, _P, _P, _P, _c.c_int32,
             _c.c_int32,
         ]),
+        # fd (socket), out_fd (file), offset, len, timeout_ms, crc_out
+        "sn_recv_file": (_c.c_int64, [_c.c_int, _c.c_int, _c.c_uint64, _c.c_uint64, _c.c_int, _P]),
         "sn_recv_overlap_active": (_c.c_int, [_c.c_uint64]),
         "sn_pool_threads": (_c.c_int, []),
     },

@@ -6,7 +6,7 @@ call: CRC32C and its combine, the batched positioned read with an inline
 rolling CRC, the readahead hint, the stateful shard sink, the GF(2^8)
 matrix apply (`rs_apply`, `rs_apply_mt`, `gf_mul`, `has_avx2`), and the
 socket egress and ingress of the network byte plane (`send_file`,
-`sendv`, `recv_into`, `recv_overlap_active`). ops/_build.py builds
+`sendv`, `recv_into`, `recv_overlap_active`, `recv_file`). ops/_build.py builds
 the library with g++ at first use into seaweedfs_tpu_torch/build/ and
 loads it. A failed build or load raises at the first call that needs the
 library; nothing here turns it into a quiet fallback (SEAWEED_EC_NATIVE=0,
@@ -416,3 +416,19 @@ def recv_into(
     if got < 0:
         raise OSError(-got, f"sn_recv_into: {os.strerror(-got)}")
     return int(got)
+
+
+def recv_file(fd: int, out_fd: int, offset: int, length: int, *,
+              timeout_ms: int = -1) -> tuple[int, int]:
+    """Land `length` bytes from socket `fd` straight into file `out_fd`
+    at `offset`: the write opcode's blob ingress (socket, bounce buffer,
+    pwrite(2)) with one CRC32C rolled over the payload while each chunk
+    is cache-hot, no byte handled in Python. Returns (bytes_landed,
+    crc32c); SHORT means the peer closed mid-stream (the partial extent
+    is on disk, but callers must not ACK it). Raises OSError on a socket
+    or pwrite failure."""
+    crc_out = np.zeros(1, np.uint32)
+    got = _lib().sn_recv_file(fd, out_fd, offset, length, timeout_ms, _ptr(crc_out))
+    if got < 0:
+        raise OSError(-got, f"sn_recv_file: {os.strerror(-got)}")
+    return int(got), int(crc_out[0])

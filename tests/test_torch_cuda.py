@@ -1094,3 +1094,147 @@ def test_recv_into_overlap_modes_agree_over_loopback(cuda, monkeypatch):
         assert n == len(payload) and dst.tobytes() == payload
         got[mode] = crcs[: int(counts[0])].tolist()
     assert got["0"] == got["1"] == [crc32c(payload[i : i + 65536]) for i in range(0, len(payload), 65536)]
+
+
+# ------------------------------------- the Store and remote stream shards
+
+
+def test_store_degraded_read_on_card_matches_cpu_store(cuda, tmp_path):
+    """A Store on the card (ec_backend="cuda", the default) and one on the
+    native CPU backend over copies of one encoded volume, shard 3
+    unmounted in both: every needle reads bit-identically, the card's
+    reconstructions each one gf2_apply_planes launch (one per interval
+    cache miss), nothing launched by the CPU store."""
+    import shutil
+
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    ctx = ECContext(10, 4)
+    rng = np.random.default_rng(31)
+    card_dir, cpu_dir = tmp_path / "card", tmp_path / "cpu"
+    store = Store([str(card_dir)])
+    v = store.allocate_volume(3)
+    bodies = {}
+    for nid in range(1, 60):
+        bodies[nid] = rng.bytes(int(rng.integers(1000, 200_000)))
+        store.write_needle(3, Needle(cookie=nid, needle_id=nid, data=bodies[nid]))
+    v.set_read_only(True)
+    ec_encode_volume(v.dat_path[:-4], ctx, backend=TorchBackend(ctx))
+    store.unmount_volume(3)
+    shutil.copytree(card_dir, cpu_dir)
+    got = {}
+    try:
+        for name, st in (("card", store), ("cpu", Store([str(cpu_dir)], ec_backend="cpu"))):
+            if st.find_volume(3) is not None:  # the fresh store mounted the sealed .dat too
+                st.unmount_volume(3)
+            ev = st.mount_ec_volume(3)
+            st.unmount_ec_shards(3, [3])
+            rs_kernels.reset_launches()
+            loads = ev.interval_cache.loads
+            got[name] = {nid: st.read_needle(3, nid, cookie=nid).data for nid in bodies}
+            if name == "card":
+                assert ev.backend.device.type == "cuda" and ev.backend.impl == "cuda_planes"
+                assert rs_kernels.LAUNCHES["gf2_apply_planes"] == ev.interval_cache.loads - loads > 0
+                assert rs_kernels.LAUNCHES["gf2_apply"] == 0
+            else:
+                assert isinstance(ev.backend, CpuBackend) and sum(rs_kernels.LAUNCHES.values()) == 0
+                st.close()
+    finally:
+        store.close()
+    assert got["card"] == got["cpu"] == bodies
+
+
+def test_remote_root_partition_flush_on_card(cuda, tmp_path, monkeypatch):
+    """A partition with a mounted and a net-plane remote root flushes its
+    parity deltas on the card (one gf2_apply launch per delta) and pushes
+    its net-planned shards over the native plane; at close every remote
+    data shard equals its local file (a parity shard has its length: each
+    extent is pushed once, as in the JAX package) and recovery gives back
+    every record."""
+    from seaweedfs_tpu_torch.ec import net_plane
+    from seaweedfs_tpu_torch.ec.stream_encode import EcStreamEncoder
+    from seaweedfs_tpu_torch.mq.stream_parity import PartitionParity
+
+    blobs = tmp_path / "blobs"
+
+    def resolve_blob(path, op, md):
+        full = blobs / path
+        if op == "unlink":
+            full.unlink(missing_ok=True)
+            return None
+        full.parent.mkdir(parents=True, exist_ok=True)
+        return os.open(str(full), os.O_CREAT | os.O_RDWR, 0o644)
+
+    def refuse(vid, sid, gen):
+        raise net_plane.NetPlaneError("no shards here")
+
+    srv = net_plane.ShardNetPlane("127.0.0.1", 0, refuse, resolve_blob=resolve_blob)
+    srv.start()
+    gport = srv.port - net_plane.NET_PLANE_PORT_OFFSET
+    monkeypatch.setenv("SEAWEED_EC_STREAM_BACKEND", "cuda")
+    monkeypatch.setenv("SEAWEED_EC_STREAM_REMOTE_ROOTS",
+                       f"far={tmp_path / 'far'},peer=net:127.0.0.1:{gport}/sub")
+    deltas = [0]
+    apply = EcStreamEncoder._dispatch_apply
+
+    def counted(self, coeffs, data):
+        deltas[0] += 1
+        return apply(self, coeffs, data)
+
+    monkeypatch.setattr(EcStreamEncoder, "_dispatch_apply", counted)
+    rng = np.random.default_rng(23)
+    recs = [(i, 9 + i, rng.bytes(16), rng.bytes(1024)) for i in range(1200)]
+    try:
+        rs_kernels.reset_launches()
+        pp = PartitionParity(str(tmp_path / "mq"), "ns", "t", 0, block_size=64 << 10,
+                             small_block_size=8 << 10, rotate_bytes=512 << 10)
+        for n, r in enumerate(recs, 1):
+            pp.append_record(*r)
+            if n % 150 == 0:
+                pp.flush()
+        plans = {p: rp for plan in pp._net_shards.values() for p, (_a, rp) in plan.items()}
+        pp.close()
+        assert pp.backend.device.type == "cuda" and rs_kernels.LAUNCHES["gf2_apply"] == deltas[0] > 0
+        assert plans and srv.status()["write_native_bytes"] > 0 and srv.status()["write_python_bytes"] == 0
+        parity = tuple(pp.ctx.to_ext(s) for s in range(pp.ctx.data_shards, pp.ctx.total))
+        for path, rpath in plans.items():
+            with open(path, "rb") as f:
+                local = f.read()
+            remote = (blobs / rpath).read_bytes() if (blobs / rpath).exists() else b""
+            if path.endswith(parity):
+                assert len(remote) == len(local), rpath
+            else:
+                assert remote == local, rpath
+        assert any(os.path.islink(os.path.join(pp.dir, n)) for n in os.listdir(pp.dir))
+        assert PartitionParity(str(tmp_path / "mq"), "ns", "t", 0).recover() == recs
+    finally:
+        srv.stop()
+
+
+def test_recv_file_over_loopback_at_4mib(cuda, tmp_path):
+    """sn_recv_file lands 4 MiB from a loopback TCP socket at an offset of
+    a file: the bytes and the CRC32C equal the written file's."""
+    from seaweedfs_tpu_torch.utils import native
+    from seaweedfs_tpu_torch.utils.crc import crc32c
+
+    payload = np.random.default_rng(24).bytes(4 << 20)
+    lst = socket.create_server(("127.0.0.1", 0))
+    try:
+        out = socket.create_connection(lst.getsockname())
+        conn, _ = lst.accept()
+    finally:
+        lst.close()
+    conn.settimeout(10.0)  # O_NONBLOCK: the landing polls
+    path = tmp_path / "blob"
+    fd = os.open(str(path), os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        t = threading.Thread(target=out.sendall, args=(payload,))
+        t.start()
+        got, crc = native.recv_file(conn.fileno(), fd, 4096, len(payload), timeout_ms=10000)
+        t.join()
+    finally:
+        os.close(fd)
+        out.close()
+        conn.close()
+    assert got == len(payload) and crc == crc32c(payload)
+    assert path.read_bytes() == bytes(4096) + payload

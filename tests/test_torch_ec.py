@@ -441,6 +441,52 @@ assert rep.rebuilt == [4] and set(rep.fetched_plane.values()) == {"native"}
 assert open(base + ".ec04", "rb").read() == open(os.path.join(peer, "7.ec04"), "rb").read()
 client.close()
 plane.stop()
+# the Store: write, encode, degraded read
+from seaweedfs_tpu_torch.storage.store import Store
+sdir = os.path.join(d, "store")
+store = Store([sdir], ec_backend="cpu")
+vol = store.allocate_volume(9)
+for nid, body in bodies.items():
+    store.write_needle(9, Needle(cookie=nid, needle_id=nid, data=body))
+vol.set_read_only(True)
+ec_encode_volume(vol.dat_path[:-4], ctx, backend=TorchBackend(ctx, device="cpu"))
+store.unmount_volume(9)
+store.mount_ec_volume(9)
+store.unmount_ec_shards(9, [0, 1])
+for nid, body in bodies.items():
+    assert store.read_needle(9, nid, cookie=nid).data == body
+assert store.find_ec_volume(9).bytes_reconstructed > 0
+store.close()
+# a partition with a mounted and a net-plane remote root
+blobs = os.path.join(d, "blobs")
+
+def resolve_blob(path, op, md):
+    full = os.path.join(blobs, path)
+    if op == "unlink":
+        if os.path.exists(full):
+            os.unlink(full)
+        return None
+    os.makedirs(os.path.dirname(full), exist_ok=True)
+    return os.open(full, os.O_CREAT | os.O_RDWR, 0o644)
+
+bplane = net_plane.ShardNetPlane("127.0.0.1", 0, resolve, resolve_blob=resolve_blob)
+bplane.start()
+gport = bplane.port - net_plane.NET_PLANE_PORT_OFFSET
+os.environ["SEAWEED_EC_STREAM_REMOTE_ROOTS"] = (
+    f"far={os.path.join(d, 'far')},peer=net:127.0.0.1:{gport}")
+rp = PartitionParity(d, "ns", "remote", 0, backend=TorchBackend(ECContext(4, 2), device="cpu"),
+                     block_size=8192, small_block_size=1024)
+for off in range(30):
+    rp.append_record(off, off, b"k", bytes(900))
+rp.flush()
+rp.close()
+assert any(os.path.islink(os.path.join(rp.dir, n)) for n in os.listdir(rp.dir))
+assert os.listdir(os.path.join(blobs, "ns", "remote", "0000"))
+assert len(PartitionParity(d, "ns", "remote", 0, backend=rp.backend).recover()) == 30
+PartitionParity(d, "ns", "remote", 0, backend=rp.backend).delete()
+assert not os.listdir(os.path.join(blobs, "ns", "remote", "0000"))
+del os.environ["SEAWEED_EC_STREAM_REMOTE_ROOTS"]
+bplane.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))

@@ -14,8 +14,9 @@ Checked exactly:
   same records and the same files;
 - a partition killed in a child process at each `ec.stream.*` crash
   window, recovered by both packages to the same dense prefix;
-- the knobs the port refuses: remote roots, backend names it does not
-  know, and no card with no backend (resolved at the first generation or recovery, as
+- the knobs the port refuses: backend names it does not know (remote
+  roots, once refused, are now parsed as the JAX package parses them),
+  and no card with no backend (resolved at the first generation or recovery, as
   the JAX package resolves it).
 """
 
@@ -322,8 +323,16 @@ def test_partition_killed_at_each_window_recovers_dense(tmp_path, point):
     ("SEAWEED_EC_STREAM_BACKEND", "tpu"),
 ])
 def test_refused_knobs_raise(tmp_path, monkeypatch, env, value):
+    """Backend names the port does not know raise before anything is
+    made. Remote roots, refused until the port had remote placement, are
+    now taken and parsed as the JAX package parses them."""
     monkeypatch.setenv(env, value)
-    with pytest.raises(ECError, match="REMOTE_ROOTS|unknown EC backend"):
+    if env == "SEAWEED_EC_STREAM_REMOTE_ROOTS":
+        pp = port_sp.PartitionParity(str(tmp_path), "ns", "t", 0)
+        assert pp.remote_roots == jax_sp.remote_roots() == dict([value.split("=", 1)])
+        pp.close()
+        return
+    with pytest.raises(ECError, match="unknown EC backend"):
         port_sp.PartitionParity(str(tmp_path), "ns", "t", 0)
     assert not (tmp_path / "ns").exists()
 

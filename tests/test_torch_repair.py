@@ -436,6 +436,10 @@ def test_scrub_matches_jax(tmp_path, case):
         assert snapshot(pdir) == snapshot(jdir)
         if preports[-1]["leaf_repaired"]:
             assert stages["reconstruct"] > 0 and stages["repair_patch"] > 0
+            # repair_patch split into its fsyncs and the journal's own work
+            assert stages["repair_patch.fsync"] > 0 and stages["repair_patch.work"] > 0
+            assert stages["repair_patch.fsync"] + stages["repair_patch.work"] == pytest.approx(
+                stages["repair_patch"], rel=1e-6, abs=1e-3)
     final = preports[-1]
     assert final["complete"]
     if case in ("data_leaf", "parity_leaf", "rotten_sibling_excluded", "bad_age_out",
