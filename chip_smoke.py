@@ -196,6 +196,26 @@ Phases:
    stages and the `sw_net_*` deltas, the peers' status and whether a 4
    MiB fused recv takes the overlapped core.
 
+12. remote stream shards: phase 7b's partition and traffic with a mounted
+   root and a net-plane root (blob writes to a peer in a child process).
+13. phase 3's needles through a `Store`, encoded on the card, read
+   degraded through it, one leaf repaired by `ScrubDaemon`.
+14. the volume server (`seaweedfs_tpu_torch.server.VolumeServer`,
+   ec_backend="cuda") in this process on loopback: 14a phase 3's needles
+   POSTed as multipart uploads into one volume and the first 256 MiB
+   written into another with `NetPlaneClient.write_needle`, each read
+   back bit-exact (GET, `read_needle`), the two volumes' records equal
+   with the append time normalised; 14b the first volume sealed and
+   encoded on the card through the server's scheduler (launches ==
+   batches, every shard verified), mounted as an EC volume with shard 3
+   unmounted; 14c every needle over shard 3 read with GET, cold from one
+   client (p50/p99) and then by 8 clients (requests/s, no 503), launches
+   == reconstructions, none on a read that avoids shard 3; HEAD, a Range
+   (206) and a range past the end (416); 14d deletes (202, then 404), the
+   fan-out refusals of a replicated write and an EC delete, /status,
+   /metrics, /debug/slo and /debug/gateway, and a needle-read frame built
+   by hand, as a JAX client sends it.
+
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
 the import fails. The last line is the device JSON.
@@ -209,10 +229,13 @@ import os
 import re
 import shutil
 import struct
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -615,13 +638,19 @@ def python_plane_encode(work, base, ctx, digests, prot) -> dict:
 
 def needle_intervals(rec, dat_size: int) -> list[tuple[int, int, int]]:
     """(shard id, shard offset, size) of each piece of a needle record."""
+    _, _, off, body = rec
+    # the record's size field from the body length: data size(4) + data + flags(1)
+    return record_intervals(off, 4 + body + 1, dat_size)
+
+
+def record_intervals(off: int, size: int, dat_size: int) -> list[tuple[int, int, int]]:
+    """(shard id, shard offset, size) of each piece of the record at .dat
+    offset `off` whose size field is `size`."""
     from seaweedfs_tpu_torch.ec.decoder import record_actual_size
     from seaweedfs_tpu_torch.ec.locate import locate_data
 
-    _, _, off, body = rec
-    # record size from the body length: data size(4) + data + flags(1)
-    size = record_actual_size(4 + body + 1, 3)
-    return [(*iv.to_shard_and_offset(K), iv.size) for iv in locate_data(off, size, dat_size // K, K)]
+    return [(*iv.to_shard_and_offset(K), iv.size)
+            for iv in locate_data(off, record_actual_size(size, 3), dat_size // K, K)]
 
 
 def degraded_records(records, dat_size: int) -> list:
@@ -3175,6 +3204,334 @@ def store_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
     return result, launches
 
 
+
+# -- 14. the volume server on the card ------------------------------------------------
+
+SERVER_VID, PLANE_VID, REPLICATED_VID = 21, 22, 23
+PLANE_BYTES = 256 << 20  # 14a's net-plane writes: phase 3's first 256 MiB of needles
+CLIENT_THREADS = 8  # 14c's second pass: concurrent clients of the pooled front end
+UPLOAD_MIME = "application/octet-stream"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url: str, method: str = "GET", body: bytes | None = None, headers=None):
+    """(status, headers, body) of one urllib request; an HTTP error status
+    is an answer, not a raise."""
+    req = urllib.request.Request(url, data=body, method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def multipart_upload(payload: bytes, name: str) -> tuple[bytes, dict]:
+    head = (f"--smoke-b0undary\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{name}\"\r\nContent-Type: {UPLOAD_MIME}\r\n\r\n").encode()
+    return (head + payload + b"\r\n--smoke-b0undary--\r\n",
+            {"Content-Type": "multipart/form-data; boundary=smoke-b0undary"})
+
+
+def email_parse(headers, body: bytes) -> tuple[str, str, bytes]:
+    """The first part of a multipart body through the email parser, as the
+    server parses a body of another shape than clients send."""
+    import email.parser
+    import email.policy
+
+    head = b"Content-Type: " + headers["Content-Type"].encode() + b"\r\n\r\n"
+    part = next(email.parser.BytesParser(policy=email.policy.HTTP).parsebytes(head + body).iter_parts())
+    return part.get_filename() or "", part.get_content_type(), part.get_payload(decode=True)
+
+
+def canon_record(raw: bytes) -> bytes:
+    """A needle record with its append time normalised: the one field two
+    transports may disagree on."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    n = Needle.from_bytes(bytes(raw))
+    n.append_at_ns = 1
+    return n.to_bytes()
+
+
+def server_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
+    """Phase 14: a port `VolumeServer` (ec_backend="cuda") in this process,
+    on loopback. 14a: phase 3's needles POSTed as multipart uploads into
+    volume SERVER_VID, the first PLANE_BYTES of them also written into
+    PLANE_VID with `NetPlaneClient.write_needle`; every needle read back
+    (HTTP GET, `read_needle`) and the two volumes' records equal. 14b:
+    SERVER_VID sealed, encoded on the card through the server's
+    scheduler, mounted as an EC volume with shard DEGRADED unmounted.
+    14c: every needle over that shard read with GET, cold from one
+    client, then by CLIENT_THREADS clients; HEAD, a Range and a range past
+    the end. 14d: deletes, the fan-out refusals, the status surfaces and
+    a needle-read frame built by hand. Returns (result, launches)."""
+    import threading
+
+    from seaweedfs_tpu_torch.ec import BitrotProtection, TorchBackend, ec_encode_volume, native_io
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.ec.net_plane import _REQ, _RESP, NetPlaneClient
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.server.volume_server import FAN_OUT_REFUSED, VolumeServer, _parse_upload
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.types import actual_offset
+    from seaweedfs_tpu_torch.utils import metrics
+
+    if not native_io.enabled():
+        raise AssertionError("phase 14 needs the native plane (SEAWEED_EC_NATIVE is 0)")
+    root = os.path.join(work, "server")
+    os.makedirs(root)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = vol_rng_state  # phase 3's needles
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    port = free_port()
+    server = VolumeServer([root], ip="127.0.0.1", port=port, grpc_port=free_port() - 10000,
+                          ec_backend="cuda")
+    if server.net_plane is None:
+        raise AssertionError("14: the server has no net plane")
+    server.start()
+    url = f"http://127.0.0.1:{port}"
+    addr = ("127.0.0.1", server.net_plane.port)
+    client = NetPlaneClient(timeout=60)
+    result: dict = {}
+    try:
+        # -- 14a. writes: multipart POSTs, and net-plane writes of the first 256 MiB
+        store = server.store
+        vol = store.allocate_volume(SERVER_VID, replica_placement="000")
+        store.allocate_volume(PLANE_VID)
+        want: dict[int, tuple[int, bytes, int]] = {}  # id -> (cookie, sha256, body length)
+        post_s = plane_s = 0.0
+        plane_ids, plane_bytes = [], 0
+        for nid, cookie, body in needle_stream(rng):
+            name = f"{nid:x}.bin"
+            if vol.size + len(body) + 2 * len(name) + 64 > VOLUME_BYTES:
+                break
+            fid = FileId(SERVER_VID, nid, cookie)
+            upload, hdrs = multipart_upload(body, name)
+            t0 = time.perf_counter()
+            status, _, answer = http(f"{url}/{fid}", "POST", upload, hdrs)
+            post_s += time.perf_counter() - t0
+            if status != 201 or json.loads(answer)["name"] != name:
+                raise AssertionError(f"14a: POST {fid}: {status} {answer[:200]!r}")
+            want[nid] = (cookie, hashlib.sha256(body).digest(), len(body))
+            last = (hdrs, upload, body)
+            if plane_bytes + len(body) <= PLANE_BYTES:
+                t0 = time.perf_counter()
+                client.write_needle(addr, PLANE_VID, nid, cookie, body, name=name, mime=UPLOAD_MIME)
+                plane_s += time.perf_counter() - t0
+                plane_ids.append(nid)
+                plane_bytes += len(body)
+        posted = sum(n for _, _, n in want.values())
+        # the multipart parse of the last upload: the server's path, and the
+        # email parser it takes for bodies of another shape
+        parse_ms = {}
+        hdrs, upload, body = last
+        for how, parse in (("server", _parse_upload), ("email", email_parse)):
+            t0 = time.perf_counter()
+            if parse(hdrs, upload)[2] != body:
+                raise AssertionError(f"14a: the {how} multipart parse differs")
+            parse_ms[how] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for nid, (cookie, digest, _) in want.items():
+            status, _, got = http(f"{url}/{FileId(SERVER_VID, nid, cookie)}")
+            if status != 200 or hashlib.sha256(got).digest() != digest:
+                raise AssertionError(f"14a: GET of needle {nid:x} differs ({status})")
+        get_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for nid in plane_ids:
+            if hashlib.sha256(client.read_needle(addr, PLANE_VID, nid, want[nid][0])).digest() \
+                    != want[nid][1]:
+                raise AssertionError(f"14a: read_needle of {nid:x} differs")
+        plane_read_s = time.perf_counter() - t0
+        plane_vol = store.find_volume(PLANE_VID)
+        for nid in plane_ids:
+            a, b = (v.needle_map.get(nid) for v in (vol, plane_vol))
+            if canon_record(vol._pread_record(actual_offset(a.offset), a.size)) != \
+                    canon_record(plane_vol._pread_record(actual_offset(b.offset), b.size)):
+                raise AssertionError(f"14a: the HTTP and plane records of needle {nid:x} differ")
+        plane_status = server.net_plane.status()
+        if plane_status["write_native_bytes"] != plane_bytes or plane_status["write_python_bytes"]:
+            raise AssertionError(f"14a: plane writes not all native: {plane_status}")
+        result["14a"] = {
+            "needles": len(want), "bytes": posted, "post_seconds": post_s,
+            "post_mb_per_s": posted / post_s / 1e6, "get_seconds": get_s,
+            "get_mb_per_s": posted / get_s / 1e6,
+            "plane_needles": len(plane_ids), "plane_bytes": plane_bytes, "plane_write_seconds": plane_s,
+            "plane_write_mb_per_s": plane_bytes / plane_s / 1e6, "plane_read_seconds": plane_read_s,
+            "plane_read_mb_per_s": plane_bytes / plane_read_s / 1e6,
+            "records_equal": len(plane_ids), "net_plane": plane_status,
+            "multipart_parse_ms": parse_ms,
+        }
+
+        # -- 14b. seal, encode on the card, mount the EC volume with shard DEGRADED out
+        records = [(nid, want[nid][0], actual_offset(vol.needle_map.get(nid).offset),
+                    vol.needle_map.get(nid).size) for nid in want]
+        vol.set_read_only(True)
+        base = vol.dat_path[:-4]
+        dat_size = os.path.getsize(base + ".dat")
+        n_batches = len(list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        ec_encode_volume(base, ctx, backend=TorchBackend(ctx), scheduler=store.ec_scheduler)
+        enc_s = time.perf_counter() - t0
+        if rs_kernels.LAUNCHES["gf2_apply"] != n_batches:
+            raise AssertionError(f"14b: encode launched {rs_kernels.LAUNCHES} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        prot = BitrotProtection.load(base + ".ecsum")
+        for i in range(ctx.total):
+            if prot.verify_shard_file(base + ctx.to_ext(i), i):
+                raise AssertionError(f"14b: shard {i} fails .ecsum")
+        store.unmount_volume(SERVER_VID)
+        ev = store.mount_ec_volume(SERVER_VID)
+        be = ev.backend
+        if not (isinstance(be, TorchBackend) and be.device.type == DEVICE and be.impl == "cuda_planes"):
+            raise AssertionError(f"14b: the server's EC volume runs on {be}")
+        store.unmount_ec_shards(SERVER_VID, [DEGRADED])
+        result["14b"] = {"dat_bytes": dat_size, "encode_seconds": enc_s,
+                         "encode_gb_per_s": dat_size / enc_s / 1e9, "encode_batches": n_batches}
+
+        # -- 14c. degraded reads over HTTP: cold from one client, then 8 at once
+        degraded = [r for r in records
+                    if any(sid == DEGRADED for sid, _, _ in record_intervals(r[2], r[3], dat_size))]
+        healthy = [r for r in records
+                   if all(sid != DEGRADED for sid, _, _ in record_intervals(r[2], r[3], dat_size))]
+        cache = ev.interval_cache
+
+        def get_checked(nid, cookie):
+            t = time.perf_counter()
+            status, _, got = http(f"{url}/{FileId(SERVER_VID, nid, cookie)}")
+            dt = time.perf_counter() - t
+            if status != 200 or hashlib.sha256(got).digest() != want[nid][1]:
+                raise AssertionError(f"14c: degraded GET of needle {nid:x} differs ({status})")
+            return dt
+
+        rs_kernels.reset_launches()
+        loads0, hits0 = cache.loads, cache.hits
+        cold = [get_checked(nid, cookie) for nid, cookie, _, _ in degraded]
+        cold_loads = cache.loads - loads0
+        planes = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if planes != cold_loads or planes < 1 or rs_kernels.LAUNCHES["gf2_apply"]:
+            raise AssertionError(f"14c: cold reads launched {rs_kernels.LAUNCHES} for {cold_loads} "
+                                 "reconstructions")
+        rejected0 = metrics.gateway_rejected_total.snapshot().get(("volume",), 0)
+        loads1 = cache.loads
+        errors: list = []
+        work_q = list(degraded)
+        lock = threading.Lock()
+
+        def reader():
+            while True:
+                with lock:
+                    if not work_q:
+                        return
+                    nid, cookie, _, _ = work_q.pop()
+                try:
+                    get_checked(nid, cookie)
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append(e)
+                    return
+
+        threads = [threading.Thread(target=reader) for _ in range(CLIENT_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        par_s = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        rejected = metrics.gateway_rejected_total.snapshot().get(("volume",), 0) - rejected0
+        if rejected:
+            raise AssertionError(f"14c: the pooled front end rejected {rejected} connections")
+        planes = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if planes != cache.loads - loads0:
+            raise AssertionError(f"14c: {planes} launches for {cache.loads - loads0} reconstructions")
+        launches["gf2_apply_planes"] += planes
+        before = dict(rs_kernels.LAUNCHES)
+        for nid, cookie, _, _ in healthy[:20]:
+            get_checked(nid, cookie)
+        if dict(rs_kernels.LAUNCHES) != before:
+            raise AssertionError("14c: a read that touches no missing shard launched a kernel")
+        nid, cookie, _, _ = degraded[0]
+        blen = want[nid][2]
+        fid_url = f"{url}/{FileId(SERVER_VID, nid, cookie)}"
+        status, hdrs, got = http(fid_url, "HEAD")
+        if (status, hdrs["Content-Length"], got, hdrs["Accept-Ranges"]) != (200, str(blen), b"", "bytes"):
+            raise AssertionError(f"14c: HEAD answered {status} {dict(hdrs)}")
+        status, hdrs, got = http(fid_url, headers={"Range": "bytes=100-4195"})
+        full = http(fid_url)[2]
+        if (status, hdrs["Content-Range"], got) != (206, f"bytes 100-4195/{blen}", full[100:4196]):
+            raise AssertionError(f"14c: Range answered {status} {dict(hdrs)}")
+        status, hdrs, got = http(fid_url, headers={"Range": f"bytes={blen}-"})
+        if (status, hdrs["Content-Range"]) != (416, f"bytes */{blen}"):
+            raise AssertionError(f"14c: a range past the end answered {status} {dict(hdrs)}")
+        result["14c"] = {
+            "degraded_reads": len(degraded), "cold_p50_ms": percentile_ms(cold, 50),
+            "cold_p99_ms": percentile_ms(cold, 99), "cold_seconds": sum(cold),
+            "reconstructions": cold_loads, "cold_cache_hits": cache.hits - hits0,
+            "threads": CLIENT_THREADS, "parallel_seconds": par_s,
+            "parallel_requests_per_s": len(degraded) / par_s,
+            "parallel_reconstructions": cache.loads - loads1, "rejected": rejected,
+            "launches": planes, "healthy_reads_without_launch": len(healthy[:20]),
+        }
+
+        # -- 14d. deletes, fan-out refusals, status surfaces, a hand-built frame --
+        codes = []
+        for nid in plane_ids[1 : 1 + N_DELETED]:
+            fid_b = f"{url}/{FileId(PLANE_VID, nid, want[nid][0])}"
+            codes.append((http(fid_b, "DELETE")[0], http(fid_b)[0]))
+        if codes != [(202, 404)] * N_DELETED:
+            raise AssertionError(f"14d: deletes answered {codes}")
+        store.allocate_volume(REPLICATED_VID, replica_placement="001")
+        rep = http(f"{url}/{FileId(REPLICATED_VID, 0x51, 0x52)}", "POST", b"r" * 4096)
+        ec_del = http(f"{url}/{FileId(SERVER_VID, nid, cookie)}", "DELETE")
+        for what, (status, _, answer) in (("replicated write", rep), ("ec delete", ec_del)):
+            if status != 500 or FAN_OUT_REFUSED not in json.loads(answer)["error"]:
+                raise AssertionError(f"14d: the {what} answered {status} {answer[:200]!r}")
+        st = json.loads(http(f"{url}/status")[2])
+        missing = {"ec_device_queue", "ec_net_plane", "ec_streams", "ec_residency"} - set(st)
+        if missing:
+            raise AssertionError(f"14d: /status lacks {missing}")
+        parsed = parse_exposition(http(f"{url}/metrics")[2].decode())
+        names = {n for n, _ in parsed}
+        served = {dict(lab).get("server") for n, lab in parsed if n == "sw_request_seconds_count"}
+        if "sw_volumes" not in names or "volume" not in served:
+            raise AssertionError("14d: /metrics lacks sw_volumes or sw_request_seconds{server=volume}")
+        slo = json.loads(http(f"{url}/debug/slo")[2])
+        gateway = json.loads(http(f"{url}/debug/gateway")[2])
+        if "volume.read" not in slo or gateway["front_end"]["kind"] != "pooled":
+            raise AssertionError(f"14d: /debug/slo {list(slo)}, /debug/gateway {gateway}")
+        # the JAX package's needle-read frame, built by hand from its layout:
+        # the shard slot carries the cookie and the generation slot the id
+        nid = plane_ids[0]
+        with socket.create_connection(addr, timeout=30) as s:
+            s.sendall(_REQ.pack(b"SWNR", PLANE_VID, want[nid][0], nid, 0, 0, 0))
+            head = b""
+            while len(head) < _RESP.size + 4:
+                head += s.recv(_RESP.size + 4 - len(head))
+            status, n = _RESP.unpack(head[: _RESP.size])
+            body = b""
+            while len(body) < n:
+                body += s.recv(min(1 << 20, n - len(body)))
+        if status != 0 or hashlib.sha256(body).digest() != want[nid][1]:
+            raise AssertionError(f"14d: the hand-built needle-read frame got status {status}")
+        result["14d"] = {
+            "deletes": codes, "replicated_write": rep[0], "ec_delete": ec_del[0],
+            "status_keys": sorted(st), "slo_ops": sorted(slo), "front_end": gateway["front_end"],
+            "frame_status": status, "frame_bytes": n,
+        }
+        result["launches"] = launches
+    finally:
+        client.close()
+        server.stop()
+    shutil.rmtree(root)
+    return result, launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3401,6 +3758,16 @@ def main() -> int:
               f"shard {DEGRADED} unmounted bit-exact through gf2_apply_planes; a ScrubDaemon pass "
               f"leaf-repaired shard {STORE_ROT_SHARD} through gf2_apply): {json.dumps(stored)}")
         print(f"phase 13: {time.perf_counter() - t0:.3f} s")
+
+        # -- 14. the volume server ------------------------------------------------------
+        t0 = time.perf_counter()
+        served, server_launches = server_phase(work, ctx, vol_rng_state)
+        print("volume server (14a phase 3's needles POSTed over HTTP and the first 256 MiB written "
+              "over the net plane, read back bit-exact, records equal; 14b encoded on the card, "
+              f"every shard verified; 14c degraded GETs with shard {DEGRADED} unmounted bit-exact, "
+              "launches == reconstructions, no 503 under 8 clients; 14d deletes, fan-out refusals, "
+              f"status surfaces, a hand-built needle-read frame): {json.dumps(served)}")
+        print(f"phase 14: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3413,13 +3780,14 @@ def main() -> int:
           "7a stream": stream_launches, "7b partition": mq_launches,
           "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"],
           "11 peer rebuild": peer_launches, "12 remote stream": remote_launches,
-          "13 store": store_launches["gf2_apply"]},
+          "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
           "9 flight recorder": trace_launches["gf2_apply_planes"],
           "10 scheduler": sched_launches["gf2_apply_planes"],
-          "13 store": store_launches["gf2_apply_planes"]},
+          "13 store": store_launches["gf2_apply_planes"],
+          "14 server": server_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

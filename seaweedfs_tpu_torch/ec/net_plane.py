@@ -1,9 +1,9 @@
 """Shard net plane: the network half of the zero-copy EC byte path.
 
-Port of seaweedfs_tpu/ec/net_plane.py, trimmed to the shard-read opcode
-(`SWNP`) and the blob half of the write opcode (`SWNW` with
-`x-sw-w-kind: blob`): a small TCP sidecar next to a volume server that
-serves EC shard byte ranges with
+Port of seaweedfs_tpu/ec/net_plane.py without the migration copy
+(`fetch_shard_to_file`): a small TCP sidecar next to a volume server that
+serves EC shard byte ranges (`SWNP`), whole needle payloads (`SWNR`) and
+needle and blob writes (`SWNW`) with
 
 - **native egress**: `sn_send_file` splices the shard fd straight into
   the socket (sendfile(2), kernel to kernel, GIL released); Python
@@ -12,6 +12,15 @@ serves EC shard byte ranges with
   pooled 4096-aligned buffers (`sn_recv_into`) with the granule CRC32C
   rolled during the copy-in, so the sidecar verify in
   ec/peer_rebuild.py costs no extra byte pass;
+- **needle reads**: a server built with `resolve_needle` splices a
+  needle's payload with sendfile; the client's `read_needle` lands it in
+  a pooled aligned buffer with the CRC32C fused into the copy-in and
+  checked against the needle's stored CRC, on a connection checked out
+  of a per-address pool, so concurrent readers fan out;
+- **needle writes**: a server built with `resolve_write` lands a
+  needle's payload in a pooled buffer (`_land_payload`, CRC fused),
+  checks it against the CRC the client sent, appends it through the
+  resolver and ACKs the stored CRC; `write_needle` is the client side;
 - **blob writes**: a server built with `resolve_blob` lands the durable
   parity's remote stream-shard extents socket to disk (`sn_recv_file`,
   CRC32C fused) and fsyncs before it ACKs; `write_blob` and
@@ -29,12 +38,11 @@ Fallback routing, as in the JAX package:
   and raises :class:`NetPlaneUnavailable`, which peer_rebuild turns into
   a per-stream fallback to the Python fetch.
 
-A port server has no needle resolver (the gateway's needle reads and
-writes come with the volume server). It answers needle-read (`SWNR`)
-and needle-write frames exactly as a JAX `ShardNetPlane` built without
-those resolvers does: a status-1 refusal, after draining a write's
-payload, so the connection stays in frame sync; a blob write to a server
-without `resolve_blob` is refused the same way.
+A server built without one of the resolvers answers its frames as a JAX
+`ShardNetPlane` built without it does: a status-1 refusal, after
+draining a write's payload, so the connection stays in frame sync. An
+armed fault registry refuses needle reads, and writes unless every armed
+point is on the write path (`write_plane_admissible`).
 
 Protocol (little-endian, persistent connection, one in-flight request
 per connection):
@@ -48,10 +56,17 @@ per connection):
               status 0 = ok (n = payload length, may be < size at EOF);
               status 1 = error (n = UTF-8 message length);
               status 2 = volume-level refusal (same frame shape as 1)
-    write:    b"SWNW" header (offset slot = the blob offset, size = the
-              payload length) | meta with x-sw-w-kind / -op / -path
-              (urlsafe base64) / -crc / -fsync / -jwt | payload;
-              the ACK is status 0, n = bytes stored, then u32 CRC32C
+    needle:   b"SWNR" header with shard slot = cookie, generation slot =
+              needle id; the OK response is u8 0 | u64 n | u32 stored
+              CRC32C | n payload bytes
+    write:    b"SWNW" header | meta | payload (size bytes). kind=needle:
+              shard slot = cookie, generation slot = needle id, offset
+              slot = the client's CRC32C of the payload, meta
+              x-sw-w-flags / -name / -mime (urlsafe base64) / -jwt /
+              -fsync / -replicate. kind=blob: offset slot = the blob
+              offset, meta x-sw-w-op / -path (urlsafe base64) / -crc /
+              -fsync / -jwt. The ACK is status 0, n = bytes stored, then
+              u32 CRC32C as stored
 
 The sidecar listens on ``grpc_port + NET_PLANE_PORT_OFFSET`` so peers
 derive its address from the holder map's gRPC address (`net_addr`).
@@ -77,9 +92,8 @@ from ..utils.crc import crc32c as _crc
 from . import native_io
 
 MAGIC = b"SWNP"
-# Needle-read and write opcodes of the JAX package's sidecar: the same
-# 38-byte header. A port server refuses needle reads and needle writes
-# in protocol and serves blob writes when it has a resolver.
+# The needle-read and write opcodes: the same 38-byte header with its
+# fields reinterpreted (see the module docstring).
 MAGIC_NEEDLE = b"SWNR"
 MAGIC_WRITE = b"SWNW"
 # magic, volume, shard, gen, offset, size, meta_len
@@ -98,6 +112,8 @@ _MAX_ERROR = 1 << 16
 # write frame is a desynced or hostile one and drops the connection
 _MAX_NEEDLE = 64 << 20
 _MAX_BLOB = 256 << 20
+# never park landing buffers wider than this in the process-wide pool
+_POOL_MAX_WIDTH = 8 << 20
 
 # Write-opcode chaos routing: the write plane keeps serving while the only
 # armed fault points live on the write path's own seams (the net plane's
@@ -112,6 +128,14 @@ def write_plane_admissible() -> bool:
     every armed point lives in the write path's own chaos namespaces (or
     nothing is armed at all)."""
     return all(p.startswith(_WRITE_CHAOS_NS) for p in faults.armed_points())
+
+
+def _pool_width(n: int) -> int:
+    """Landing-pool width class of an n-byte payload: the next power of
+    two, at least 64 KiB. The pool keeps a free list per exact width for
+    the life of the process, so pooling raw payload sizes would keep one
+    buffer per distinct size; the classes bound them to about a dozen."""
+    return max(64 * 1024, 1 << (max(1, n) - 1).bit_length())
 
 
 def _encode_meta(extra: dict | None = None) -> bytes:
@@ -218,6 +242,21 @@ class ShardNetPlane:
     local). The server never closes resolved fds: they belong to the
     caller's mounted volume.
 
+    ``resolve_needle(volume_id, needle_id, cookie) -> (fd, offset, size,
+    crc32c, close_after)`` (optional) locates a needle's payload for the
+    needle-read opcode; ``close_after`` marks an fd the server closes
+    once the response is sent (a per-request open). It raises
+    :class:`NetPlaneVolumeRefusal` where no needle of the volume is
+    served here (status 2: the client may negative-cache the volume) and
+    :class:`NetPlaneError` for this needle only (status 1).
+
+    ``resolve_write(volume_id, needle_id, cookie, data, md) ->
+    (stored_size, stored_crc)`` (optional) appends one needle for the
+    write opcode, building the record the volume server's other
+    transports build. :class:`NetPlaneVolumeRefusal` means the volume can
+    never take plane writes here; :class:`NetPlaneError`, ``OSError`` and
+    ``ValueError`` refuse this one write.
+
     ``resolve_blob(path, op, md) -> fd | None`` (optional) serves
     kind=blob writes: remote durable-parity stream-shard extents. It
     validates `path` against the server's blob root and returns an fd
@@ -226,8 +265,11 @@ class ShardNetPlane:
     """
 
     def __init__(self, ip: str, port: int, resolve, request_timeout: float = 60.0,
-                 server_label: str = "", resolve_blob=None):
+                 server_label: str = "", resolve_needle=None, resolve_write=None,
+                 resolve_blob=None):
         self.resolve = resolve
+        self.resolve_needle = resolve_needle
+        self.resolve_write = resolve_write
         self.resolve_blob = resolve_blob
         self.request_timeout = request_timeout
         self.server_label = server_label
@@ -242,6 +284,7 @@ class ShardNetPlane:
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
         self.requests = 0
+        self.needle_requests = 0
         self.sendfile_bytes = 0
         self.python_bytes = 0
         self.write_requests = 0
@@ -322,9 +365,9 @@ class ShardNetPlane:
                 t0 = time.perf_counter()
                 try:
                     if magic == MAGIC_WRITE:
-                        ok = self._serve_write(conn, off, size, md)
+                        ok = self._serve_write(conn, vid, sid, gen, off, size, md)
                     elif magic == MAGIC_NEEDLE:
-                        ok = self._error(conn, "needle reads not served here")
+                        ok = self._serve_needle(conn, vid, gen, sid)
                     else:
                         ok = self._serve_one(conn, vid, sid, gen, off, size)
                 finally:
@@ -401,6 +444,61 @@ class ShardNetPlane:
             remaining -= orig
         return remaining == 0
 
+    def _serve_needle(self, conn, vid, nid, cookie) -> bool:
+        """Serve one whole needle payload; False = the connection must
+        close. Refused outright while the fault registry is armed: the
+        storage fault points live on the HTTP path, which the client
+        falls back to."""
+        if self.resolve_needle is None:
+            return self._error(conn, "needle reads not served here")
+        if faults.active():
+            return self._error(conn, "fault registry armed: use HTTP")
+        try:
+            fd, off, size, crc, close_after = self.resolve_needle(vid, nid, cookie)
+        except NetPlaneVolumeRefusal as e:
+            return self._error(conn, str(e), status=2)
+        except NetPlaneError as e:
+            return self._error(conn, str(e))
+        self.needle_requests += 1
+        try:
+            try:
+                conn.sendall(_RESP.pack(0, size) + _NEEDLE_CRC.pack(crc & 0xFFFFFFFF))
+            except OSError:
+                return False
+            if size == 0:
+                return True
+            if native_io.enabled():
+                try:
+                    sent = native.send_file(conn.fileno(), fd, off, size,
+                                            timeout_ms=int(self.request_timeout * 1000))
+                except OSError:
+                    return False
+                self.sendfile_bytes += sent
+                M.net_bytes_sent_total.inc(sent, plane="native", direction="read")
+                return sent == size
+            # Python egress (SEAWEED_EC_NATIVE=0): pread, sendall
+            remaining, o = size, off
+            while remaining > 0:
+                chunk = os.pread(fd, min(_SEND_CHUNK, remaining), o)
+                if not chunk:
+                    return False  # a short file: torn stream
+                M.net_bytes_copied_total.inc(len(chunk), plane="python", direction="read")
+                try:
+                    conn.sendall(chunk)
+                except OSError:
+                    return False
+                self.python_bytes += len(chunk)
+                M.net_bytes_sent_total.inc(len(chunk), plane="python", direction="read")
+                o += len(chunk)
+                remaining -= len(chunk)
+            return True
+        finally:
+            if close_after:
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+
     @staticmethod
     def _drain(conn, n: int) -> bool:
         """Consume `n` unread payload bytes so a refusal sent after the
@@ -424,8 +522,7 @@ class ShardNetPlane:
         """Land `size` payload bytes into the pooled row `row`, rolling the
         CRC32C during the copy-in (fused in `sn_recv_into` on the native
         plane). Returns the landed CRC; raises NetPlaneError / OSError on
-        a torn ingress (the connection is then dead). The needle write
-        lands through here; it comes with the volume server."""
+        a torn ingress (the connection is then dead)."""
         if size == 0:
             return 0
         if native_on:
@@ -454,18 +551,18 @@ class ShardNetPlane:
         M.net_bytes_received_total.inc(size, plane="python", direction="write")
         return _crc(row[:size])
 
-    def _serve_write(self, conn, off: int, size: int, md: dict) -> bool:
+    def _serve_write(self, conn, vid, cookie, nid, off_or_crc, size, md: dict) -> bool:
         """Serve one write request; False = the connection must close.
         Drops a desynced frame (unknown kind, oversized payload); drains
-        and refuses a needle write, a blob write without a resolver, or
-        any write while the fault registry holds points outside the
-        write path's own chaos namespaces (`write_plane_admissible`)."""
+        and refuses a write without its resolver, or any write while the
+        fault registry holds points outside the write path's own chaos
+        namespaces (`write_plane_admissible`)."""
         kind = md.get("x-sw-w-kind", "")
         op = md.get("x-sw-w-op", "write")
         if kind == "needle":
             if size > _MAX_NEEDLE:
                 return False
-            refusal = "needle writes not served here"
+            refusal = None if self.resolve_write is not None else "needle writes not served here"
         elif kind == "blob":
             if size > _MAX_BLOB:
                 return False
@@ -479,7 +576,45 @@ class ShardNetPlane:
                 return False
             return self._error(conn, refusal)
         self.write_requests += 1
-        return self._serve_blob_write(conn, op, md, off, size)
+        if kind == "blob":
+            return self._serve_blob_write(conn, op, md, off_or_crc, size)
+        return self._serve_needle_write(conn, vid, cookie, nid, off_or_crc, size, md)
+
+    def _serve_needle_write(self, conn, vid, cookie, nid, want_crc, size, md) -> bool:
+        native_on = native_io.enabled()
+        pool = native_io.landing_pool()
+        buf = pool.get(_pool_width(size))
+        row = buf[0]
+        try:
+            try:
+                landed_crc = self._land_payload(conn, row, size, native_on)
+            except (OSError, NetPlaneError):
+                return False
+            if size and landed_crc != (want_crc & 0xFFFFFFFF):
+                # the payload was consumed whole, so the stream is in sync:
+                # a refusal (not a drop) lets the client retry or fall back
+                return self._error(conn, "write payload CRC mismatch")
+            # the one Python-level copy on this path: the needle record
+            # keeps bytes
+            data = row[:size].tobytes()
+            M.net_bytes_copied_total.inc(size, plane="native" if native_on else "python",
+                                         direction="write")
+        finally:
+            if buf.shape[1] <= _POOL_MAX_WIDTH:
+                pool.put(buf)
+        try:
+            faults.fire("ec.net.write.before_pwrite", volume=vid, needle=nid, size=size)
+            stored_size, stored_crc = self.resolve_write(vid, nid, cookie, data, md)
+            faults.fire("ec.net.write.after_pwrite", volume=vid, needle=nid)
+        except NetPlaneVolumeRefusal as e:
+            return self._error(conn, str(e), status=2)
+        except (NetPlaneError, OSError, ValueError) as e:
+            return self._error(conn, str(e))
+        try:
+            conn.sendall(_RESP.pack(0, stored_size) + _NEEDLE_CRC.pack(stored_crc & 0xFFFFFFFF))
+        except OSError:
+            return False
+        return True
 
     def _serve_blob_write(self, conn, op: str, md: dict, off: int, size: int) -> bool:
         try:
@@ -575,12 +710,11 @@ class ShardNetPlane:
                 pass
 
     def status(self) -> dict:
-        """Sidecar state for status surfaces (the JAX package's keys; a
-        port server serves no needle request)."""
+        """Sidecar state for the /status surface."""
         return {
             "port": self.port,
             "requests": self.requests,
-            "needle_requests": 0,
+            "needle_requests": self.needle_requests,
             "sendfile_bytes": self.sendfile_bytes,
             "python_bytes": self.python_bytes,
             "write_requests": self.write_requests,
@@ -599,9 +733,11 @@ class NetPlaneClient:
     payload bytes straight in caller buffers (``sn_recv_into``) with the
     granule CRC rolled during the copy-in.
 
-    One cached connection per peer address (requests on one address are
-    serialized: peer fetch streams one shard from a given holder at a
-    time). A peer whose plane port refuses the connect is memoized, and
+    One cached connection per peer address for the shard reads (requests
+    on one address are serialized: peer fetch streams one shard from a
+    given holder at a time); needle reads and writes check a connection
+    out of a per-address pool instead, one per request in flight. A peer
+    whose plane port refuses the connect is memoized, and
     later calls raise :class:`NetPlaneUnavailable` at once, for
     ``unavailable_ttl`` seconds (``SEAWEED_EC_NET_PLANE_RETRY_S``,
     default 30): a sidecar that comes up later is re-probed and
@@ -620,6 +756,15 @@ class NetPlaneClient:
         self.unavailable_ttl = unavailable_ttl
         self._conns: dict[tuple[str, int], socket.socket] = {}
         self._locks: dict[tuple[str, int], threading.Lock] = {}
+        # The needle connection pool: concurrent readers and writers check
+        # a connection out per request (dialing one when the pool is
+        # empty) instead of serializing on one socket. Entries are
+        # (socket, check-in time): the server reaps idle connections at its
+        # request timeout (60 s), so one parked longer than _npool_idle_s
+        # is discarded at checkout rather than spent on a request.
+        self._npool: dict[tuple[str, int], list[tuple[socket.socket, float]]] = {}
+        self._npool_max = 16
+        self._npool_idle_s = 30.0
         # addr -> monotonic time of the refused connect (TTL'd memo)
         self._no_plane: dict[tuple[str, int], float] = {}
         self._lock = threading.Lock()
@@ -628,6 +773,9 @@ class NetPlaneClient:
         with self._lock:
             conns = list(self._conns.values())
             self._conns.clear()
+            for lst in self._npool.values():
+                conns.extend(s for s, _t in lst)
+            self._npool.clear()
         for c in conns:
             try:
                 c.close()
@@ -679,6 +827,55 @@ class NetPlaneClient:
         with self._lock:
             self._conns[addr] = s
         return s
+
+    def _checkout(self, addr) -> socket.socket:
+        """A pooled needle connection, or a new one. Connections parked
+        longer than `_npool_idle_s` are discarded: the server reaps idle
+        peers, and a dead pooled socket would cost the next request."""
+        stale: list[socket.socket] = []
+        fresh = None
+        with self._lock:
+            self._check_memo(addr)
+            lst = self._npool.get(addr)
+            now = time.monotonic()
+            while lst:
+                s, t = lst.pop()
+                if now - t < self._npool_idle_s:
+                    fresh = s
+                    break
+                stale.append(s)
+        for s in stale:
+            try:
+                s.close()
+            except OSError:
+                pass
+        if fresh is not None:
+            return fresh
+        return self._connect(addr)
+
+    def _checkin(self, addr, s: socket.socket) -> None:
+        now = time.monotonic()
+        expired: list[socket.socket] = []
+        with self._lock:
+            lst = self._npool.setdefault(addr, [])
+            # reap expired entries from the front (the oldest): checkout
+            # pops from the back and stops at the first fresh socket, so
+            # the old ones below it would otherwise hold dead fds forever
+            while lst and now - lst[0][1] >= self._npool_idle_s:
+                expired.append(lst.pop(0)[0])
+            if len(lst) < self._npool_max:
+                lst.append((s, now))
+                s = None  # type: ignore[assignment]
+        for dead in expired:
+            try:
+                dead.close()
+            except OSError:
+                pass
+        if s is not None:
+            try:
+                s.close()
+            except OSError:
+                pass
 
     def _drop(self, addr) -> None:
         with self._lock:
@@ -794,48 +991,182 @@ class NetPlaneClient:
         M.net_bytes_copied_total.inc(size, plane="python", direction="read")
         return data
 
+    # ------------------------------------------------------- needle reads
 
-    # ------------------------------------------------------- blob writes
+    def read_needle(self, addr: tuple[str, int], vid: int, nid: int, cookie: int) -> bytes:
+        """A whole needle payload over the needle-read opcode: the server
+        resolves (fd, offset, size, crc) from its needle map and splices
+        the payload with sendfile; this side lands it in a pooled
+        4096-aligned buffer (``sn_recv_into``) with the CRC32C fused into
+        the copy-in and checked against the needle's stored CRC, so a
+        vacuum racing the read or a stale location raises rather than
+        returns wrong bytes. A refusal raises NetPlaneError, with
+        ``volume_refusal=True`` for status 2. Raises
+        :class:`NetPlaneUnavailable` for a peer without the sidecar
+        (memoized with its TTL)."""
+        s = self._checkout(addr)
+        healthy = False
+        try:
+            meta = _encode_meta()
+            try:
+                s.sendall(_REQ.pack(MAGIC_NEEDLE, vid, cookie & 0xFFFFFFFF, nid, 0, 0, len(meta))
+                          + meta)
+                head = _recv_exact(s, _RESP.size)
+            except (OSError, NetPlaneError) as e:
+                raise NetPlaneError(f"{addr}: {e}") from e
+            status, n = _RESP.unpack(head)
+            if status != 0:
+                msg = self._read_refusal(addr, s, n)
+                healthy = True  # a refusal leaves the stream in sync
+                err = NetPlaneError(f"{addr}: {msg}")
+                # status 2 = a volume-level refusal: callers may
+                # negative-cache the volume instead of asking per needle
+                err.volume_refusal = status == 2
+                raise err
+            if n > _MAX_NEEDLE:
+                raise NetPlaneError(f"{addr}: oversized needle {n}")
+            try:
+                (want_crc,) = _NEEDLE_CRC.unpack(_recv_exact(s, _NEEDLE_CRC.size))
+            except (OSError, NetPlaneError) as e:
+                raise NetPlaneError(f"{addr}: {e}") from e
+            if n == 0:
+                healthy = True
+                return b""
+            data = self._land_needle(addr, s, int(n), want_crc)
+            healthy = True
+            return data
+        finally:
+            if healthy:
+                self._checkin(addr, s)
+            else:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+
+    def _land_needle(self, addr, s, n: int, want_crc: int) -> bytes:
+        native_on = native_io.enabled()
+        pool = native_io.landing_pool()
+        buf = pool.get(_pool_width(n))
+        row = buf[0]
+        try:
+            try:
+                if native_on:
+                    crc_state = np.zeros(1, np.uint32)
+                    filled = np.zeros(1, np.uint64)
+                    out_crcs = np.zeros(2, np.uint32)
+                    out_counts = np.zeros(1, np.int32)
+                    got = native.recv_into(
+                        s.fileno(), row, n, timeout_ms=int(self.timeout * 1000),
+                        granule=n, crc_state=crc_state, filled_state=filled,
+                        out_crcs=out_crcs, out_counts=out_counts,
+                    )
+                    if got != n:
+                        raise NetPlaneError(f"{addr}: torn needle stream {got}/{n}")
+                    landed_crc = int(out_crcs[0]) if int(out_counts[0]) > 0 else int(crc_state[0])
+                    M.net_bytes_received_total.inc(got, plane="native", direction="read")
+                else:
+                    view = memoryview(row)[:n]
+                    got = 0
+                    while got < n:
+                        r = s.recv_into(view[got:], n - got)
+                        if r == 0:
+                            raise NetPlaneError(f"{addr}: torn needle stream {got}/{n}")
+                        got += r
+                    landed_crc = _crc(row[:n])
+                    M.net_bytes_received_total.inc(n, plane="python", direction="read")
+            except OSError as e:
+                raise NetPlaneError(f"{addr}: {e}") from e
+            if landed_crc != (want_crc & 0xFFFFFFFF):
+                raise NetPlaneError(f"{addr}: needle CRC mismatch")
+            # the one Python-level copy on this path: the caller keeps bytes
+            data = row[:n].tobytes()
+            M.net_bytes_copied_total.inc(n, plane="native" if native_on else "python",
+                                         direction="read")
+            return data
+        finally:
+            # a raise out of here (torn stream, CRC mismatch) leaves the
+            # caller to close the checked-out socket; an oversized landing
+            # never parks in the process-wide pool
+            if buf.shape[1] <= _POOL_MAX_WIDTH:
+                pool.put(buf)
+
+    # ------------------------------------------------------------ writes
 
     def _write_request(self, addr, vid, sid, gen, off, payload, extra_meta) -> tuple[int, int]:
-        """One write-opcode round trip on the cached connection: header,
+        """One write-opcode round trip on a pooled connection: header,
         meta and payload out; (status, n, stored CRC) back. Returns
         (stored_size, stored_crc). A refusal leaves the stream in sync
-        (the server drains the payload first), so the connection is kept
-        even then; any other failure drops it."""
-        with self._addr_lock(addr):
-            s = self._conn(addr)
-            healthy = False
+        (the server drains the payload first), so the connection goes
+        back to the pool even then; any other failure closes it."""
+        s = self._checkout(addr)
+        healthy = False
+        try:
+            meta = _encode_meta(extra_meta)
             try:
-                meta = _encode_meta(extra_meta)
-                try:
-                    s.sendall(_REQ.pack(MAGIC_WRITE, vid, sid, gen, off, len(payload), len(meta))
-                              + meta)
-                    if payload:
-                        s.sendall(payload)
-                    head = _recv_exact(s, _RESP.size)
-                except (OSError, NetPlaneError) as e:
-                    raise NetPlaneError(f"{addr}: {e}") from e
-                status, n = _RESP.unpack(head)
-                if status != 0:
-                    msg = self._read_refusal(addr, s, n)
-                    healthy = True
-                    err = NetPlaneError(f"{addr}: {msg}")
-                    err.volume_refusal = status == 2
-                    raise err
-                try:
-                    (stored_crc,) = _NEEDLE_CRC.unpack(_recv_exact(s, _NEEDLE_CRC.size))
-                except (OSError, NetPlaneError) as e:
-                    raise NetPlaneError(f"{addr}: {e}") from e
+                s.sendall(_REQ.pack(MAGIC_WRITE, vid, sid, gen, off, len(payload), len(meta))
+                          + meta)
+                if payload:
+                    s.sendall(payload)
+                head = _recv_exact(s, _RESP.size)
+            except (OSError, NetPlaneError) as e:
+                raise NetPlaneError(f"{addr}: {e}") from e
+            status, n = _RESP.unpack(head)
+            if status != 0:
+                msg = self._read_refusal(addr, s, n)
                 healthy = True
-                M.net_bytes_sent_total.inc(
-                    len(payload), plane="native" if native_io.enabled() else "python",
-                    direction="write",
-                )
-                return int(n), int(stored_crc)
-            finally:
-                if not healthy:
-                    self._drop(addr)
+                err = NetPlaneError(f"{addr}: {msg}")
+                err.volume_refusal = status == 2
+                raise err
+            try:
+                (stored_crc,) = _NEEDLE_CRC.unpack(_recv_exact(s, _NEEDLE_CRC.size))
+            except (OSError, NetPlaneError) as e:
+                raise NetPlaneError(f"{addr}: {e}") from e
+            healthy = True
+            M.net_bytes_sent_total.inc(
+                len(payload), plane="native" if native_io.enabled() else "python",
+                direction="write",
+            )
+            return int(n), int(stored_crc)
+        finally:
+            if healthy:
+                self._checkin(addr, s)
+            else:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+
+    def write_needle(self, addr: tuple[str, int], vid: int, nid: int, cookie: int, data: bytes, *,
+                     flags: int = 0, name: bytes | str = b"", mime: bytes | str = b"",
+                     jwt: str = "", fsync: bool = False, replicate: bool = True) -> tuple[int, int]:
+        """Append one needle over the write opcode. The payload's CRC32C
+        rides the header; the server's fused copy-in CRC checks transit,
+        and the ACK's stored CRC is checked here against what was sent,
+        so an accepted write certifies the bytes on disk. Returns
+        (stored_size, stored_crc). `replicate=False` marks the write as a
+        replication leg (``x-sw-w-replicate: 0``): the server fans it out
+        no further. Raises :class:`NetPlaneUnavailable` (memoized) for a
+        peer without the sidecar; a refusal with ``volume_refusal=True``
+        means the volume can never take plane writes there."""
+        crc = _crc(data) if data else 0
+        extra = {"x-sw-w-kind": "needle", "x-sw-w-flags": str(int(flags))}
+        if name:
+            extra["x-sw-w-name"] = _b64(name)
+        if mime:
+            extra["x-sw-w-mime"] = _b64(mime)
+        if jwt:
+            extra["x-sw-w-jwt"] = jwt
+        if fsync:
+            extra["x-sw-w-fsync"] = "1"
+        if not replicate:
+            extra["x-sw-w-replicate"] = "0"
+        stored_size, stored_crc = self._write_request(addr, vid, cookie & 0xFFFFFFFF, nid, crc,
+                                                      data, extra)
+        if data and stored_crc != crc:
+            raise NetPlaneError(f"{addr}: stored CRC mismatch "
+                                f"(ack {stored_crc:#010x} != sent {crc:#010x})")
+        return stored_size, stored_crc
 
     def write_blob(self, addr: tuple[str, int], path: str, off: int, data, *,
                    fsync: bool = True, jwt: str = "") -> int:

@@ -1,0 +1,694 @@
+"""Volume server: the HTTP data plane and the shard net plane over one Store.
+
+Port of seaweedfs_tpu/server/volume_server.py, trimmed to the data plane
+(reference weed/server/volume_server.go; volume_server_handlers_read.go:142
+GetOrHeadHandler, _write.go:20 PostHandler):
+
+- the HTTP needle front end on the pooled worker server
+  (utils/http_pool.py): GET and HEAD with ranges and ETags (a needle of
+  an EC volume whose shard is gone is reconstructed on the card through
+  the Store), POST (a raw body or a multipart upload), DELETE, and the
+  /status, /metrics, /debug/traces, /debug/slo and /debug/gateway
+  surfaces;
+- the shard net plane (ec/net_plane.py) with the server's four
+  resolvers: shard ranges, needle payloads, needle writes and
+  stream-shard blobs.
+
+Protobuf stays at the edge: the HTTP handler and the plane's write
+resolver call the plain methods `write_needle` and `delete_needle`, which
+return what the JAX servicer's WriteNeedle and DeleteNeedle return.
+
+Fan-out to other holders goes through the master client, which the port
+does not have yet. A write or delete that the JAX server would fan out (a
+volume whose replica placement asks for more than one copy, any delete on
+an EC volume) is done here and then answered with an error that names
+the missing fan-out, where the JAX server answers a failed fan-out: it is
+never acknowledged with fewer copies than its placement asks for.
+
+Left out: the gRPC service and its RPCs, heartbeats and the master
+client, ``?locate=true`` and the fastread sidecar, thumbnails,
+/debug/pprof, TLS, and remote shard reads of EC volumes (the Store is
+built with no ``ec_remote_reader_factory``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import threading
+from http.server import BaseHTTPRequestHandler
+from urllib.parse import parse_qs, urlparse
+
+from ..ec import device_queue
+from ..ec import net_plane as _netp
+from ..ec.context import ECError
+from ..ec.stream_encode import stream_summary
+from ..storage.file_id import FileId, FileIdError
+from ..storage.needle import CrcError, Needle
+from ..storage.store import Store
+from ..storage.volume import CookieMismatch, NotFoundError, ReadOnlyError, VolumeError
+from ..utils import metrics as M
+from ..utils import trace
+from ..utils.crc import crc32c
+from ..utils.glog import logger
+from ..utils.http_pool import build_http_server, send_body
+from ..utils.request_id import RequestTracingMixin
+from ..utils.security import JwtError, verify_jwt
+
+log = logger("volume")
+
+# The phrase every fan-out refusal carries.
+FAN_OUT_REFUSED = "fan-out not served here"
+
+
+class VolumeServer:
+    def __init__(
+        self,
+        directories: list[str],
+        ip: str = "localhost",
+        port: int = 8080,
+        grpc_port: int = 0,
+        max_volume_count: int = 8,
+        ec_backend: str = "cuda",
+        jwt_key: str = "",
+        needle_map_kind: str = "memory",
+        ec_scrub_interval: float = 0.0,
+        ec_scrub_bytes_per_sec: float = 64 << 20,
+        ec_scrub_bad_retention: float = 0.0,
+        ec_interval_cache_mb: int | None = None,
+        ec_device_queue: bool = True,
+        ec_queue_window: int | None = None,
+        ec_queue_recovery_share: float | None = None,
+        ec_queue_scrub_share: float | None = None,
+        ec_placement: str = "auto",
+        ec_trace: bool = False,
+        ec_trace_ring: int = 0,
+        ec_slow_op_s: float = 0.0,
+        http_workers: int = 32,
+        http_queue: int = 128,
+    ):
+        """`grpc_port` (default `port` + 10000) only places the net plane,
+        at `derive_port(grpc_port)` as peers derive it: the port serves no
+        gRPC. `ec_backend` names the backend of the mounted EC volumes:
+        cuda (the default), cpu or auto. The scheduler, placement and
+        trace arguments are the JAX server's: a per-store QueueScope, and
+        the process-wide flight recorder armed only when asked."""
+        shares = {}
+        if ec_queue_recovery_share is not None:
+            shares["recovery"] = ec_queue_recovery_share
+        if ec_queue_scrub_share is not None:
+            shares["scrub"] = ec_queue_scrub_share
+        # the tracer is process-wide: arming is opt-in, so a second server
+        # built with the defaults does not disarm the first's recorder
+        if ec_trace or ec_trace_ring > 0 or ec_slow_op_s > 0:
+            trace.configure(
+                enabled=True if (ec_trace or ec_slow_op_s > 0) else None,
+                ring_size=ec_trace_ring if ec_trace_ring > 0 else None,
+                slow_op_s=ec_slow_op_s if ec_slow_op_s > 0 else None,
+            )
+        self.jwt_key = jwt_key
+        self.ip = ip
+        self.port = port
+        self.grpc_port = grpc_port or (port + 10000)
+        self.max_volume_count = max_volume_count
+        self.store = Store(
+            directories,
+            ip=ip,
+            port=port,
+            ec_backend=ec_backend,
+            needle_map_kind=needle_map_kind,
+            # one reconstructed-interval cache for every EC volume of the
+            # server; None keeps the store default, 0 disables it
+            ec_interval_cache_bytes=(
+                None if ec_interval_cache_mb is None else int(ec_interval_cache_mb) << 20
+            ),
+            ec_device_queue=ec_device_queue,
+            ec_queue_window=ec_queue_window,
+            ec_queue_shares=shares,
+            ec_placement=ec_placement,
+        )
+        # The shard net plane on grpc_port + 10000: shard ranges, needle
+        # payloads and needle and blob writes. A port that cannot be bound
+        # leaves the server without it, as the JAX server does.
+        self.net_plane = None
+        try:
+            self.net_plane = _netp.ShardNetPlane(
+                ip, _netp.derive_port(self.grpc_port),
+                self._net_plane_resolve,
+                server_label=f"{ip}:{port}",
+                resolve_needle=self._net_plane_resolve_needle,
+                resolve_write=self._net_plane_resolve_write,
+                resolve_blob=self._net_plane_resolve_blob,
+            )
+        except OSError as e:
+            log.warning("shard net plane disabled: %s", e)
+        # Bounded worker-pool HTTP data plane: `http_workers` request
+        # workers and an `http_queue`-deep connection budget; saturation
+        # answers 503 and Retry-After. `http_workers=0` takes the stdlib
+        # ThreadingHTTPServer instead.
+        self._http = build_http_server(
+            (ip, port),
+            self._handler_class(),
+            server_kind="volume",
+            workers=http_workers,
+            accept_queue=http_queue,
+            reject_body=lambda: (
+                "application/json",
+                b'{"error": "volume server saturated: worker pool and '
+                b'accept queue are full"}',
+            ),
+        )
+        self._http_thread = threading.Thread(target=self._http.serve_forever, daemon=True)
+        # Background EC scrub (ec/scrub.py): off by default (interval 0)
+        self.scrub_daemon = None
+        if ec_scrub_interval > 0:
+            from ..ec.scrub import ScrubDaemon
+
+            self.scrub_daemon = ScrubDaemon(
+                self.store,
+                interval=ec_scrub_interval,
+                bytes_per_sec=ec_scrub_bytes_per_sec,
+                # 0 = keep quarantined .bad files forever (the default)
+                bad_retention_s=ec_scrub_bad_retention or None,
+            )
+
+    # ---------------------------------------------------------- needles
+
+    def write_needle(self, vid: int, nid: int, cookie: int, data: bytes,
+                     name: bytes | str = b"", mime: bytes | str = b"", flags: int = 0,
+                     is_replicate: bool = False, fsync: bool | None = None) -> tuple[int, str]:
+        """Append one needle to volume `vid`: the body of the JAX
+        servicer's WriteNeedle, the same record. Returns (size, error),
+        error "" on success, else the servicer's error string. A write
+        that is not itself a replica (`is_replicate`) goes to `replicate`
+        after the local append. `fsync` None is the
+        store's default (SEAWEED_VOLUME_FSYNC)."""
+        with M.request_seconds.time(server="volume", op="write"):
+            size, err = self._write_needle(vid, nid, cookie, data, name, mime, flags,
+                                           is_replicate, fsync)
+        M.request_total.inc(server="volume", op="write", code="err" if err else "ok")
+        return size, err
+
+    def _write_needle(self, vid, nid, cookie, data, name, mime, flags, is_replicate,
+                      fsync) -> tuple[int, str]:
+        n = Needle(cookie=cookie, needle_id=nid, data=data, flags=flags)
+        if name:
+            n.set_name(name.encode() if isinstance(name, str) else name)
+        if mime:
+            n.set_mime(mime.encode() if isinstance(mime, str) else mime)
+        try:
+            size = self.store.write_needle(vid, n, fsync=fsync)
+        except (NotFoundError, ReadOnlyError, VolumeError, ValueError, OSError) as e:
+            return 0, str(e)
+        if not is_replicate:
+            err = self.replicate(vid, "write")
+            if err:
+                return 0, err
+        return size, ""
+
+    def delete_needle(self, vid: int, nid: int, is_replicate: bool = False) -> tuple[int, str]:
+        """Tombstone one needle: the body of the JAX servicer's
+        DeleteNeedle. Returns (freed bytes, error), error "" on success;
+        (freed, error) where the local delete was done and the fan-out
+        was not."""
+        try:
+            freed = self.store.delete_needle(vid, nid)
+        except NotFoundError as e:
+            return 0, str(e)
+        except (ECError, VolumeError, ValueError, OSError) as e:
+            # a volume mid-conversion or closing answers an error, never
+            # an exception that aborts the connection
+            return 0, f"volume busy: {e}"
+        if not is_replicate:
+            ev = self.store.find_ec_volume(vid)
+            if ev is not None:
+                err = self.replicate_ec_delete(vid, ev.collection, nid)
+            else:
+                err = self.replicate(vid, "delete")
+            if err:
+                return freed, err
+        return freed, ""
+
+    def replicate(self, vid: int, op: str) -> str:
+        """The replica fan-out of a write or delete (JAX `replicate_write`,
+        `replicate_delete`): "" where the volume's placement asks for one
+        copy, else the refusal, since the other holders are found through
+        the master client."""
+        v = self.store.find_volume(vid)
+        copies = v.super_block.replica_placement.copy_count if v is not None else 1
+        if copies <= 1:
+            return ""
+        return (f"replica {op} {FAN_OUT_REFUSED}: volume {vid} asks for {copies} copies "
+                f"and this server has no master client to find the other holders")
+
+    def replicate_ec_delete(self, vid: int, collection: str, needle_id: int) -> str:
+        """The EC tombstone fan-out (JAX `replicate_ec_delete`): every
+        other shard holder must journal it, or a decode from another
+        holder brings the needle back. Always refused here: the holders
+        are found through the master client."""
+        return (f"ec tombstone {FAN_OUT_REFUSED}: needle {needle_id:x} of ec volume {vid} "
+                f"is deleted here only; this server has no master client to find the "
+                f"other shard holders")
+
+    def _refresh_volume_gauges(self) -> None:
+        """`sw_volumes` and `sw_volume_bytes` as the JAX server sets them at
+        each heartbeat; the port has no heartbeats, so /metrics and
+        /status set them."""
+        st = self.store.status()
+        addr = self.store.public_url
+        M.volume_count.set(len(st["volumes"]), kind="normal", addr=addr)
+        M.volume_count.set(len(st["ec_volumes"]), kind="ec", addr=addr)
+        M.volume_bytes.set(sum(v["size"] for v in st["volumes"]), kind="normal", addr=addr)
+        M.volume_bytes.set(sum(e["shard_size"] * len(e["shards"]) for e in st["ec_volumes"]),
+                           kind="ec", addr=addr)
+
+    # -------------------------------------------------------- net plane
+
+    def _net_plane_resolve(self, vid: int, sid: int, generation: int):
+        """Shard fd and size for the shard-read opcode: mounted, the
+        generation fence, the shard local."""
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            raise _netp.NetPlaneError("ec volume not mounted")
+        if generation and ev.encode_ts_ns != generation:
+            raise _netp.NetPlaneError("stale generation")
+        fd = ev.shard_fds.get(sid)
+        if fd is None:
+            raise _netp.NetPlaneError("shard not local")
+        return fd, os.fstat(fd).st_size
+
+    def _net_plane_resolve_needle(self, vid: int, nid: int, cookie: int):
+        """A needle payload's location for the needle-read opcode. EC,
+        TTL'd and cold-tiered volumes refuse as a whole (status 2): their
+        reads take the locked, checked HTTP path. The fd is opened per
+        request against the current .dat, so a vacuum mid-flight shows
+        as the client's CRC mismatch."""
+        vol = self.store.find_volume(vid)
+        if vol is None:
+            raise _netp.NetPlaneVolumeRefusal("volume not here (or EC)")
+        try:
+            path, off, size, crc = vol.locate_payload(nid, cookie)
+        except (NotFoundError, CookieMismatch) as e:
+            # this needle only: other needles of the volume may serve
+            raise _netp.NetPlaneError(str(e)) from None
+        except VolumeError as e:
+            raise _netp.NetPlaneVolumeRefusal(str(e)) from None
+        except Exception as e:  # noqa: BLE001 — any other fault is this needle's
+            raise _netp.NetPlaneError(str(e)) from None
+        try:
+            fd = os.open(path, os.O_RDONLY)
+        except OSError as e:
+            raise _netp.NetPlaneError(str(e)) from None
+        return fd, off, size, crc, True
+
+    def _net_plane_resolve_write(self, vid: int, nid: int, cookie: int, data: bytes,
+                                 md: dict) -> tuple[int, int]:
+        """Land one needle for the write opcode through `write_needle`, so
+        a plane write and an HTTP write give the same record. A keyed
+        cluster needs a token in ``x-sw-w-jwt``; ``x-sw-w-replicate: 0``
+        marks a replication leg, which is not fanned out further."""
+        if self.jwt_key:
+            try:
+                # the HTTP gate's scope rule: fid tokens and volume tokens
+                verify_jwt(self.jwt_key, md.get("x-sw-w-jwt", ""), str(FileId(vid, nid, cookie)))
+            except JwtError:
+                raise _netp.NetPlaneError("unauthorized") from None
+        if self.store.find_volume(vid) is None:
+            # not mounted here: no needle will ever land, and status 2 lets
+            # clients negative-cache the volume
+            raise _netp.NetPlaneVolumeRefusal(f"volume {vid} not found")
+        try:
+            flags = int(md.get("x-sw-w-flags", "0") or "0")
+        except ValueError:
+            flags = 0
+        size, err = self.write_needle(
+            vid, nid, cookie, data,
+            name=_netp._unb64(md.get("x-sw-w-name", "")),
+            mime=_netp._unb64(md.get("x-sw-w-mime", "")),
+            flags=flags,
+            is_replicate=md.get("x-sw-w-replicate") == "0",
+            fsync=True if md.get("x-sw-w-fsync") == "1" else None,
+        )
+        if err:
+            raise _netp.NetPlaneError(err)
+        return size, crc32c(data)
+
+    def _blob_root(self) -> str:
+        root = os.environ.get("SEAWEED_EC_STREAM_BLOB_ROOT", "")
+        if not root:
+            root = os.path.join(self.store.locations[0].directory, "stream_shards")
+        return root
+
+    def _net_plane_resolve_blob(self, path: str, op: str, md: dict):
+        """Remote stream-shard blobs for kind=blob writes (the `net:`
+        remote roots of durable parity). Paths stay inside the blob root
+        (SEAWEED_EC_STREAM_BLOB_ROOT, default ``<dir0>/stream_shards``);
+        one that escapes refuses. Returns an fd the plane pwrites and
+        closes, or None where the op was done here (unlink)."""
+        if self.jwt_key:
+            try:
+                verify_jwt(self.jwt_key, md.get("x-sw-w-jwt", ""), "blob")
+            except JwtError:
+                raise _netp.NetPlaneError("unauthorized") from None
+        root = os.path.realpath(self._blob_root())
+        full = os.path.realpath(os.path.join(root, path))
+        if full != root and not full.startswith(root + os.sep):
+            raise _netp.NetPlaneError("blob path escapes stream root")
+        if op == "unlink":
+            try:
+                os.unlink(full)
+            except FileNotFoundError:
+                pass
+            except OSError as e:
+                raise _netp.NetPlaneError(str(e)) from None
+            return None
+        try:
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            return os.open(full, os.O_CREAT | os.O_RDWR, 0o644)
+        except OSError as e:
+            raise _netp.NetPlaneError(str(e)) from None
+
+    # ------------------------------------------------------------- http
+
+    def _handler_class(self):
+        server = self
+
+        class Handler(RequestTracingMixin, BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            trace_server_kind = "volume"
+
+            def log_message(self, *a):
+                pass
+
+            def _json(self, code: int, obj) -> None:
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _error(self, code: int, msg: str) -> None:
+                self._json(code, {"error": msg})
+
+            def _fid(self):
+                path = urlparse(self.path).path.lstrip("/")
+                # "<vid>,<fid>" and "<vid>/<fid>" alike
+                return FileId.parse(path.replace("/", ","))
+
+            def _jwt_rejected(self, fid) -> bool:
+                """True (and 401 sent) where the cluster has a signing key
+                and the request lacks a valid token (reference
+                maybeCheckJwtAuthorization)."""
+                if not server.jwt_key:
+                    return False
+                auth = self.headers.get("Authorization", "")
+                token = auth[7:] if auth.startswith("Bearer ") else ""
+                try:
+                    verify_jwt(server.jwt_key, token, str(fid))
+                    return False
+                except JwtError as e:
+                    self._error(401, f"unauthorized: {e}")
+                    return True
+
+            def _loopback(self, what: str) -> bool:
+                """True where the caller is local; else 403 sent (the
+                operator gate of the /debug surfaces)."""
+                if self.client_address[0] in ("127.0.0.1", "::1", "localhost"):
+                    return True
+                body = f"{what} endpoints are loopback-only\n".encode()
+                self.send_response(403)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return False
+
+            def _traces(self, query: str) -> None:
+                """The flight recorder's ring as Chrome trace_event JSON;
+                ?trace_id= narrows to one trace, ?op= to one root op class,
+                ?min_ms= to slow ops; ?format=spans gives the span trees."""
+                if not self._loopback("trace"):
+                    return
+                q = parse_qs(query)
+                try:
+                    min_ms = float(q.get("min_ms", ["0"])[0] or 0.0)
+                except ValueError:
+                    min_ms = 0.0
+                docs = trace.traces(q.get("trace_id", [""])[0], op=q.get("op", [""])[0],
+                                    min_ms=min_ms)
+                self._json(200, docs if q.get("format", [""])[0] == "spans"
+                           else trace.chrome_trace(docs=docs))
+
+            def _status(self) -> None:
+                server._refresh_volume_gauges()
+                st = server.store.status()
+                # this server's scheduler scope, per chip and class, and
+                # the chips whose fallback breaker is open
+                snap = server.store.ec_scheduler.stats_snapshot()
+                open_b = sum(1 for e in snap if e.get("breaker") == "open")
+                st["ec_device_queue"] = {
+                    "queues": snap,
+                    "chips": len(snap),
+                    "breakers_open": open_b,
+                    "degraded": open_b > 0,
+                }
+                if server.net_plane is not None:
+                    st["ec_net_plane"] = server.net_plane.status()
+                st["ec_streams"] = stream_summary()
+                st["ec_residency"] = device_queue.residency_snapshot()
+                self._json(200, st)
+
+            def do_GET(self):
+                u = urlparse(self.path)
+                if self.serve_slo_endpoint(u.path):
+                    return
+                if u.path == "/debug/traces":
+                    return self._traces(u.query)
+                if u.path == "/metrics":
+                    server._refresh_volume_gauges()
+                    body = M.REGISTRY.render()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if u.path == "/status":
+                    return self._status()
+                # Per-tenant shedding: reads of a tenant over its fair share
+                # of the chip back off before any parse or lookup, while the
+                # residency ledger is at full shed.
+                ra = device_queue.shed_advice(server.store.ec_scheduler.tenant)
+                if ra is not None:
+                    body = json.dumps({"error": "tenant over fair device share"}).encode()
+                    self.send_response(503)
+                    self.send_header("Retry-After", str(max(1, int(ra))))
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                try:
+                    fid = self._fid()
+                except FileIdError as e:
+                    return self._error(400, str(e))
+                if parse_qs(u.query).get("locate", [""])[0] == "true":
+                    # no fastread sidecar here: the client reads over HTTP,
+                    # as it does where a volume cannot be located
+                    return self._error(404, "locate not served here")
+                self._sw_op = "read"
+                try:
+                    # an EC degraded read below opens its own span under
+                    # this request's root
+                    with trace.stage(trace.current(), "volume.read"):
+                        n = server.store.read_needle(fid.volume_id, fid.needle_id, fid.cookie)
+                except (NotFoundError, ECError) as e:
+                    return self._error(404, str(e))
+                except (CookieMismatch, CrcError) as e:
+                    return self._error(404, str(e))
+                except (VolumeError, ValueError, OSError) as e:
+                    # a volume closed or converted mid-read: an error
+                    # response, never a dropped connection
+                    return self._error(503, str(e))
+                ctype = n.mime.decode() if n.mime else "application/octet-stream"
+                data = n.data
+                total = len(data)
+                status = 200
+                content_range = None
+                rng = self.headers.get("Range", "")
+                if rng.startswith("bytes=") and self.command != "HEAD":
+                    try:
+                        lo_s, _, hi_s = rng[6:].split(",")[0].partition("-")
+                        lo = int(lo_s) if lo_s else max(total - int(hi_s), 0)
+                        hi = int(hi_s) if hi_s and lo_s else total - 1
+                        if lo > hi or lo >= total:  # any range of an empty body too
+                            self.send_response(416)
+                            self.send_header("Content-Range", f"bytes */{total}")
+                            self.send_header("Content-Length", "0")
+                            self.end_headers()
+                            return
+                        hi = min(hi, total - 1)
+                        data = data[lo : hi + 1]
+                        status = 206
+                        content_range = f"bytes {lo}-{hi}/{total}"
+                    except ValueError:
+                        pass  # a malformed Range: the whole body
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.send_header("Accept-Ranges", "bytes")
+                if content_range:
+                    self.send_header("Content-Range", content_range)
+                self.send_header("ETag", f'"{n.checksum:08x}"')
+                self.end_headers()
+                # needle payloads leave through the native scatter-gather
+                # sender on the pooled front end
+                send_body(self, data)
+
+            do_HEAD = do_GET
+
+            def do_POST(self):
+                u = urlparse(self.path)
+                q = parse_qs(u.query)
+                try:
+                    fid = self._fid()
+                except FileIdError as e:
+                    return self._error(400, str(e))
+                if self._jwt_rejected(fid):
+                    return
+                length = int(self.headers.get("Content-Length", "0"))
+                body = self.rfile.read(length)
+                name, mime, data = _parse_upload(self.headers, body)
+                size, err = server.write_needle(
+                    fid.volume_id, fid.needle_id, fid.cookie, data, name=name, mime=mime,
+                    is_replicate=q.get("type", [""])[0] == "replicate",
+                )
+                if err:
+                    return self._error(500, err)
+                self._json(201, {"name": name, "size": size})
+
+            def do_DELETE(self):
+                u = urlparse(self.path)
+                q = parse_qs(u.query)
+                try:
+                    fid = self._fid()
+                except FileIdError as e:
+                    return self._error(400, str(e))
+                if self._jwt_rejected(fid):
+                    return
+                freed, err = server.delete_needle(
+                    fid.volume_id, fid.needle_id,
+                    is_replicate=q.get("type", [""])[0] == "replicate",
+                )
+                if err:
+                    if freed:
+                        code = 500  # deleted here, the fan-out not done
+                    elif "not found" in err:
+                        code = 404
+                    else:
+                        # transient (volume mid-conversion, IO): 503, so
+                        # clients retry rather than take it as gone
+                        code = 503
+                    return self._error(code, err)
+                self._json(202, {"size": freed})
+
+        return Handler
+
+    # -------------------------------------------------------- lifecycle
+
+    def start(self) -> None:
+        self._http_thread.start()
+        if self.net_plane is not None:
+            self.net_plane.start()
+        if self.scrub_daemon is not None:
+            self.scrub_daemon.start()
+
+    def stop(self) -> None:
+        if self.net_plane is not None:
+            self.net_plane.stop()
+        if self.scrub_daemon is not None:
+            self.scrub_daemon.stop()
+        self._http.shutdown()
+        self._http.server_close()
+        self.store.close()
+
+
+def _parse_upload(headers, body: bytes) -> tuple[str, str, bytes]:
+    """multipart/form-data or a raw body -> (name, mime, data). A
+    multipart body in the common shape takes `_first_part`; any other
+    goes through the email parser, as in the JAX package. Both give the
+    same answer."""
+    ctype = headers.get("Content-Type", "")
+    if ctype.startswith("multipart/form-data"):
+        import email.parser
+        import email.policy
+
+        head = b"Content-Type: " + ctype.encode() + b"\r\n\r\n"
+        outer = email.parser.BytesHeaderParser(policy=email.policy.HTTP).parsebytes(head)
+        first = _first_part(outer.get_boundary(), body)
+        if first is not None:
+            return first
+        msg = email.parser.BytesParser(policy=email.policy.HTTP).parsebytes(head + body)
+        for part in msg.iter_parts():
+            data = part.get_payload(decode=True)
+            if data is None:
+                continue
+            return part.get_filename() or "", part.get_content_type(), data
+        return "", "", b""
+    return "", ctype if ctype != "application/octet-stream" else "", body
+
+
+# one unfolded header line of a part: a field name, a colon, CRLF
+_FIELD_LINE = re.compile(rb"[!-9;-~]+:[^\r\n]*\r\n")
+
+
+def _first_part(boundary, body: bytes) -> tuple[str, str, bytes] | None:
+    """(name, mime, data) of the first part of a multipart body in the
+    shape clients send: no preamble, a delimiter line, CRLF header lines,
+    a blank line, a payload in 7bit, 8bit or binary transfer encoding,
+    then the next delimiter line. The email parser gives the same answer,
+    at a cost that grows with the lines it splits a binary payload into
+    and joins back (chip_smoke.py phase 14 times both on one needle).
+    None where the body has another shape."""
+    import email.parser
+    import email.policy
+
+    if not boundary:
+        return None
+    try:
+        delim = b"--" + boundary.encode("ascii", "surrogateescape")
+    except UnicodeEncodeError:
+        return None
+    # the rest of a delimiter line, as the email parser matches it: an
+    # optional "--" (the close delimiter), blanks, the line's end
+    rest = re.compile(rb"(--)?[ \t]*(\r\n|\r|\n|\Z)")
+    m = rest.match(body, len(delim)) if body.startswith(delim) else None
+    if m is None or m.group(1) or not m.group(2):
+        return None  # a preamble, a close delimiter first, or no line end
+    pos = start = m.end()
+    while (field := _FIELD_LINE.match(body, pos)) is not None:
+        pos = field.end()
+    if pos == start or not body.startswith(b"\r\n", pos):
+        return None
+    part = email.parser.BytesHeaderParser(policy=email.policy.HTTP).parsebytes(body[start : pos + 2])
+    cte = part.get("content-transfer-encoding")
+    if part.get_content_maintype() in ("multipart", "message") or (
+            cte is not None and str(cte).strip().lower() not in ("7bit", "8bit", "binary")):
+        return None
+    lo = at = pos + 2
+    while True:
+        at = body.find(delim, at)
+        if at < 0:
+            return None
+        if rest.match(body, at + len(delim)):
+            if at == lo:
+                hi = lo  # an empty payload
+                break
+            if body[at - 1] in b"\r\n":
+                # the line end before the delimiter line belongs to it
+                hi = at - 2 if at - 2 >= lo and body[at - 2 : at] == b"\r\n" else at - 1
+                break
+        at += 1
+    return part.get_filename() or "", part.get_content_type(), body[lo:hi]

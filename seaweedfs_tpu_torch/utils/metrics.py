@@ -6,14 +6,13 @@ with labels, rendered in the text format Prometheus scrapes, byte for
 byte as the JAX package renders them.
 
 The registry holds the families the port's modules increment: requests
-(`sw_request_*`), EC operations and bytes, leaf repairs, repair-journal
-actions and the hot-cache tiers (`sw_gateway_hot_cache_*`); the flight
-recorder (utils/trace.py) and the stream encoder register their own.
-Families of modules the port does not have yet are left out: the volume
-gauges and the HTTP front end's inflight/rejected (the servers), the
-network byte plane, the MQ gateway and S3. `gateway_summary()` keeps the
-JAX keys, with those and the chip residency ledger (`residency`, from
-the device queue) empty until their modules are ported.
+(`sw_request_*`), the volume server's gauges (`sw_volumes`,
+`sw_volume_bytes`), EC operations and bytes, leaf repairs,
+repair-journal actions, the network byte plane (`sw_net_*`), the
+hot-cache tiers and the HTTP front end's inflight and rejected counts
+(`sw_gateway_*`); the flight recorder (utils/trace.py), the stream
+encoder and the device queue register their own. Families of modules
+the port does not have yet are left out: the MQ gateway and S3.
 """
 
 from __future__ import annotations
@@ -288,10 +287,10 @@ def slo_summary() -> dict:
 
 
 def gateway_summary() -> dict:
-    """Serving-path pressure snapshot in the shape of ``/debug/gateway``:
-    per-tier hot-cache counters and the chip residency ledger
-    (ec/device_queue.py `residency_snapshot`). ``inflight`` and
-    ``rejected`` stay empty: the HTTP front ends are not ported yet."""
+    """Serving-path pressure snapshot for ``/debug/gateway``: per-tier
+    hot-cache counters, per-server front-end inflight and rejected
+    counts, and the chip residency ledger (ec/device_queue.py
+    `residency_snapshot`)."""
     hot: dict[str, dict] = {}
     for counter, kind in (
         (gateway_hot_cache_hits_total, "hits"),
@@ -308,7 +307,12 @@ def gateway_summary() -> dict:
         residency = residency_snapshot()
     except Exception:  # advisory; the debug page must never fail
         residency = {}
-    return {"hot_cache": hot, "inflight": {}, "rejected": {}, "residency": residency}
+    return {
+        "hot_cache": hot,
+        "inflight": {srv: int(v) for (srv,), v in gateway_inflight.snapshot().items()},
+        "rejected": {srv: int(v) for (srv,), v in gateway_rejected_total.snapshot().items()},
+        "residency": residency,
+    }
 
 
 def _num(v: float) -> str:
@@ -325,6 +329,12 @@ request_total = REGISTRY.counter(
 )
 request_seconds = REGISTRY.histogram(
     "sw_request_seconds", "request latency", ("server", "op")
+)
+volume_count = REGISTRY.gauge(
+    "sw_volumes", "volumes on this server", ("kind", "addr")
+)
+volume_bytes = REGISTRY.gauge(
+    "sw_volume_bytes", "bytes stored", ("kind", "addr")
 )
 ec_ops_total = REGISTRY.counter(
     "sw_ec_ops_total", "EC operations", ("op", "backend")
@@ -348,9 +358,8 @@ ec_repair_journal_total = REGISTRY.counter(
 # sendfile/recv-into with the GIL released; python = the bit-identical
 # fallback through Python buffers). The copied counter counts payload
 # bytes materialized into Python-level buffers at the instrumented seams.
-# `direction` splits the read-serving path from the write path (the
-# port's plane serves reads only). Help texts are the JAX package's, so
-# the exposition text is byte-identical.
+# `direction` splits the read-serving path from the write path. Help
+# texts are the JAX package's, so the exposition text is byte-identical.
 net_bytes_sent_total = REGISTRY.counter(
     "sw_net_bytes_sent_total",
     "payload bytes sent on the network byte path (shard net plane, "
@@ -370,8 +379,9 @@ net_bytes_copied_total = REGISTRY.counter(
     ("plane", "direction"),
 )
 
-# The hot-object/chunk read-through cache tiers (tier = filer_chunk |
-# ec_interval; the port has the EC interval cache).
+# The serving path: the hot-object/chunk read-through cache tiers (tier =
+# filer_chunk | ec_interval; the port has the EC interval cache) and the
+# bounded worker-pool HTTP front ends (server = volume in the port).
 gateway_hot_cache_hits_total = REGISTRY.counter(
     "sw_gateway_hot_cache_hits_total",
     "hot-cache hits on the gateway read path", ("tier",)
@@ -385,4 +395,15 @@ gateway_hot_cache_singleflight_waits_total = REGISTRY.counter(
     "concurrent misses that joined another caller's in-flight load "
     "instead of re-running it",
     ("tier",),
+)
+gateway_inflight = REGISTRY.gauge(
+    "sw_gateway_inflight",
+    "HTTP requests currently being handled by the worker pool",
+    ("server",),
+)
+gateway_rejected_total = REGISTRY.counter(
+    "sw_gateway_rejected_total",
+    "connections refused with 503 because the worker pool + accept "
+    "queue were saturated",
+    ("server",),
 )

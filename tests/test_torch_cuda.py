@@ -2,9 +2,10 @@
 three bodies behind them) against their plain versions, the numpy
 oracle and the native CPU backend, the backend's staged path, degraded reads through EcVolume, leaf
 repair (reconstruction on the card, a repair killed in a child process
-and healed at mount), and the native byte plane's page-locked landing
+and healed at mount), the native byte plane's page-locked landing
 matrices (copied to the card as they lie, recycled as soon as a batch's
-result is back).
+result is back), and the volume server on the card (degraded GETs equal
+to a CPU server's, 4 MiB needles over the net plane).
 
 Every test here needs an NVIDIA card and skips without one. This file
 imports no JAX, so it runs where JAX is not installed; on the card run it
@@ -21,6 +22,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -1238,3 +1240,108 @@ def test_recv_file_over_loopback_at_4mib(cuda, tmp_path):
         conn.close()
     assert got == len(payload) and crc == crc32c(payload)
     assert path.read_bytes() == bytes(4096) + payload
+
+
+def _server(directory, backend):
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+    def free():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    vs = VolumeServer([str(directory)], ip="127.0.0.1", port=free(), grpc_port=free() - 10000,
+                      ec_backend=backend)
+    vs.start()
+    return vs
+
+
+def _get(vs, path, headers=None):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", vs.port, timeout=60)
+    try:
+        c.request("GET", path, headers=headers or {})
+        r = c.getresponse()
+        body = r.read()
+        keep = ("etag", "content-range", "content-type", "content-length")
+        return r.status, {k.lower(): v for k, v in r.getheaders() if k.lower() in keep}, body
+    finally:
+        c.close()
+
+
+def test_server_degraded_get_on_card_matches_cpu_server(cuda, tmp_path):
+    """A volume server on the card (ec_backend="cuda") and one on the native
+    CPU backend over copies of one encoded volume, shard 3 unmounted in
+    both: every GET (and a Range of each) answers the same, bit-exact, the
+    card's reconstructions one gf2_apply_planes launch each."""
+    import shutil
+
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    ctx = ECContext(10, 4)
+    rng = np.random.default_rng(41)
+    card = _server(tmp_path / "card", "cuda")
+    cpu = None
+    try:
+        vol = card.store.allocate_volume(3)
+        bodies = {}
+        for nid in range(1, 50):
+            bodies[nid] = rng.bytes(int(rng.integers(1000, 400_000)))
+            size, err = card.write_needle(3, nid, nid, bodies[nid], name=f"{nid}.bin")
+            assert not err and size > len(bodies[nid])
+        vol.set_read_only(True)
+        ec_encode_volume(vol.dat_path[:-4], ctx, backend=TorchBackend(ctx))
+        card.store.unmount_volume(3)
+        shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+        cpu = _server(tmp_path / "cpu", "cpu")
+        got = {}
+        for name, vs in (("card", card), ("cpu", cpu)):
+            if vs.store.find_volume(3) is not None:  # the copy holds the sealed .dat too
+                vs.store.unmount_volume(3)
+            ev = vs.store.mount_ec_volume(3)
+            vs.store.unmount_ec_shards(3, [3])
+            rs_kernels.reset_launches()
+            loads = ev.interval_cache.loads
+            got[name] = [_get(vs, f"/{FileId(3, nid, nid)}", h) for nid in bodies
+                         for h in ({}, {"Range": "bytes=11-7000"})]
+            if name == "card":
+                assert ev.backend.device.type == "cuda" and ev.backend.impl == "cuda_planes"
+                assert rs_kernels.LAUNCHES["gf2_apply_planes"] == ev.interval_cache.loads - loads > 0
+            else:
+                assert isinstance(ev.backend, CpuBackend) and sum(rs_kernels.LAUNCHES.values()) == 0
+        assert got["card"] == got["cpu"]
+        assert [g[2] for g in got["card"][::2]] == list(bodies.values())
+    finally:
+        card.stop()
+        if cpu is not None:
+            cpu.stop()
+
+
+def test_server_plane_needles_at_4mib_byte_exact(cuda, tmp_path):
+    """write_needle and read_needle of 4 MiB needles over loopback against a
+    volume server on the card: byte-exact, every byte on the native plane
+    both ways."""
+    from seaweedfs_tpu_torch.ec import net_plane
+
+    vs = _server(tmp_path / "vs", "cuda")
+    client = net_plane.NetPlaneClient(timeout=30)
+    try:
+        vs.store.allocate_volume(4)
+        addr = ("127.0.0.1", vs.net_plane.port)
+        rng = np.random.default_rng(42)
+        bodies = {nid: rng.bytes((4 << 20) + nid) for nid in range(1, 4)}
+        for nid, body in bodies.items():
+            assert client.write_needle(addr, 4, nid, 0x77, body)[0] > len(body)
+        for nid, body in bodies.items():
+            assert client.read_needle(addr, 4, nid, 0x77) == body
+        total = sum(map(len, bodies.values()))
+        st = vs.net_plane.status()
+        assert (st["write_native_bytes"], st["write_python_bytes"], st["python_bytes"]) == (total, 0, 0)
+        deadline = time.monotonic() + 5  # egress counters land after the last byte
+        while vs.net_plane.status()["sendfile_bytes"] < total and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert vs.net_plane.status()["sendfile_bytes"] == total
+    finally:
+        client.close()
+        vs.stop()

@@ -332,6 +332,9 @@ def _python_files():
     "path", _python_files(), ids=lambda p: str(p.relative_to(REPO))
 )
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
+    banned = {"jax", "jaxlib", "seaweedfs_tpu"}
+    if PORT / "server" in path.parents:
+        banned |= {"grpc", "google"}  # the data plane keeps gRPC and protobuf at the edge
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -342,9 +345,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "seaweedfs_tpu"), (path, name)
+            assert top not in banned, (path, name)
     text = path.read_text()
     assert "libseaweed" not in text and "native/" not in text
+
+
+def test_import_guard_scans_every_package_of_the_port():
+    scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
+    assert {"ec", "faults", "mq", "ops", "server", "storage", "utils"} <= scanned
+    assert PORT / "server" / "volume_server.py" in _python_files()
 
 
 _SUBPROCESS_ENCODE = r"""

@@ -10,6 +10,15 @@ csrc/seaweed_native.cpp), held against the JAX package on the CPU.
   and granule CRCs for the ranges (0, whole), (BLOCK, 2 * BLOCK) and
   (17, 301), the same stale-generation refusal, and the same answers
   to needle-read and write frames from a server with no resolvers.
+- The needle opcodes across the packages, each way: needle reads on both
+  landing planes, a CRC mismatch, refusals (status 1 and 2) with the
+  connection kept, an armed registry, concurrent readers on the pool,
+  idle pooled connections discarded, the JAX chunk reader
+  negative-caching a port plane's volume refusals only; needle writes on
+  both planes, a volume refusal, no resolver, a stored-CRC mismatch and
+  foreign chaos; the same `status()` after the same traffic; the same
+  fid written over the plane by either client and over HTTP landing the
+  same record on either package's volume server.
 - Peer-fetch rebuild over the wire (RS 4+2, shards of 3 x 4096 + 57
   bytes): native against Python plane with v1 and v2 sidecars,
   bit-identical; a rotten peer caught by the copy-in CRCs, re-read at
@@ -30,6 +39,7 @@ import numpy as np
 import pytest
 from test_torch_peer_rebuild import BLOCK, CTX, JCTX, SHARD_SIZE, synth
 
+from seaweedfs_tpu import faults as jax_faults
 from seaweedfs_tpu.ec import net_plane as jax_np
 from seaweedfs_tpu.ec.backend import CpuBackend as JaxCpuBackend
 from seaweedfs_tpu.ec.peer_rebuild import rebuild_from_peers as jax_rebuild_from_peers
@@ -573,3 +583,371 @@ def test_derive_port_and_net_addr_match_jax():
         assert net_plane.net_addr(f"10.0.0.7:{p}") == jax_np.net_addr(f"10.0.0.7:{p}")
     assert net_plane._REQ.size == jax_np._REQ.size == 38
     assert struct.calcsize("<BQ") == net_plane._RESP.size
+
+
+# --------------------------------------------------------- needle opcodes
+# The needle-read and needle-write opcodes across the two packages: a JAX
+# client against a port server and a port client against a JAX server.
+
+MODS = {"port": net_plane, "jax": jax_np}
+FAULTS = {"port": faults, "jax": jax_faults}
+PAIRS = [("jax", "port"), ("port", "jax")]  # (server, client)
+PAIR_IDS = ["jax_server-port_client", "port_server-jax_client"]
+
+
+def _settle(fn, timeout=5.0):
+    """Egress counters land after the last payload byte is on the wire:
+    poll briefly rather than race the serving thread."""
+    deadline = time.monotonic() + timeout
+    while not fn() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return fn()
+
+
+def _needle_server(mod, tmp_path, payload=b"", crc=None, resolve=None, resolve_write=None,
+                   with_needles=True):
+    """A plane of package `mod` serving needle (7, 0xABC, 0x55) from a file,
+    or the given resolvers."""
+    p = tmp_path / f"needle-{id(mod)}-{time.monotonic_ns()}.dat"
+    p.write_bytes(b"HDR!" + payload + b"TRAILER")
+    want = crc32c(payload) if crc is None else crc
+
+    def resolve_needle(vid, nid, cookie):
+        assert (vid, nid, cookie) == (7, 0xABC, 0x55)
+        return os.open(p, os.O_RDONLY), 4, len(payload), want, True
+
+    def refuse_shards(vid, sid, gen):
+        raise mod.NetPlaneError("no shards here")
+
+    srv = mod.ShardNetPlane("127.0.0.1", 0, refuse_shards, server_label="needle-test",
+                            resolve_needle=(resolve or resolve_needle) if with_needles else None,
+                            resolve_write=resolve_write)
+    srv.start()
+    return srv
+
+
+@pytest.fixture
+def needle_env():
+    made = []
+
+    def server(side, *a, **kw):
+        srv = _needle_server(MODS[side], *a, **kw)
+        made.append(srv)
+        return srv
+
+    def client(side, **kw):
+        c = MODS[side].NetPlaneClient(timeout=5.0, connect_timeout=1.0, **kw)
+        made.append(c)
+        return c
+
+    yield server, client
+    for x in made:
+        (x.close if hasattr(x, "close") else x.stop)()
+
+
+@pytest.mark.parametrize("plane", ["native", "python"])
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_read_roundtrip_across_packages(tmp_path, needle_env, monkeypatch, plane, server,
+                                               client_side):
+    """A whole needle over the needle-read opcode, byte-exact on both
+    landing planes; the server counts its egress on the right plane and
+    the second read reuses the pooled connection."""
+    if plane == "python":
+        monkeypatch.setenv("SEAWEED_EC_NATIVE", "0")
+    make, client = needle_env
+    payload = np.random.default_rng(3).integers(0, 256, 300_000, dtype=np.uint8).tobytes()
+    srv = make(server, tmp_path, payload)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    assert c.read_needle(addr, 7, 0xABC, 0x55) == payload
+    assert srv.needle_requests == 1
+    if plane == "native":
+        assert _settle(lambda: srv.sendfile_bytes == len(payload)) and srv.python_bytes == 0
+    else:
+        assert _settle(lambda: srv.python_bytes == len(payload)) and srv.sendfile_bytes == 0
+    assert c.read_needle(addr, 7, 0xABC, 0x55) == payload
+    assert len(c._npool[addr]) == 1 and srv.needle_requests == 2
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_read_crc_mismatch_refused_across_packages(tmp_path, needle_env, server, client_side):
+    make, client = needle_env
+    payload = b"q" * 70_000
+    srv = make(server, tmp_path, payload, crc=crc32c(payload) ^ 0xDEAD)
+    c = client(client_side)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="needle CRC mismatch"):
+        c.read_needle(("127.0.0.1", srv.port), 7, 0xABC, 0x55)
+
+
+@pytest.mark.parametrize("status", [1, 2])
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_read_refusals_across_packages(tmp_path, needle_env, server, client_side, status):
+    """A resolver's refusal reaches the other package's client with its
+    message, flagged as a volume refusal for status 2 only, and the
+    connection stays in sync: the shard opcode answers next."""
+    make, client = needle_env
+    smod = MODS[server]
+    exc = smod.NetPlaneVolumeRefusal if status == 2 else smod.NetPlaneError
+
+    def refuse(vid, nid, cookie):
+        raise exc("volume not here (or EC)")
+
+    srv = make(server, tmp_path, resolve=refuse)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="not here") as e:
+        c.read_needle(addr, 7, 0xABC, 0x55)
+    assert getattr(e.value, "volume_refusal", False) is (status == 2)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="no shards"):
+        c.read_bytes(addr, 1, 0, 0, 0, 10)
+    assert srv.needle_requests == 0
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_read_refused_while_faults_armed_across_packages(tmp_path, needle_env, server,
+                                                                client_side):
+    make, client = needle_env
+    payload = b"z" * 10_000
+    srv = make(server, tmp_path, payload)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    reg = FAULTS[server]
+    with reg.injected("unrelated.point", reg.latency(0.0), when=reg.always()):
+        with pytest.raises(MODS[client_side].NetPlaneError, match="registry armed"):
+            c.read_needle(addr, 7, 0xABC, 0x55)
+    assert c.read_needle(addr, 7, 0xABC, 0x55) == payload
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_reads_fan_out_concurrently_across_packages(tmp_path, needle_env, server,
+                                                           client_side):
+    """12 readers at once each check a connection out: every payload
+    exact, the pool bounded."""
+    make, client = needle_env
+    payload = np.random.default_rng(5).integers(0, 256, 120_000, dtype=np.uint8).tobytes()
+    srv = make(server, tmp_path, payload)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    errs = []
+
+    def rd():
+        try:
+            assert c.read_needle(addr, 7, 0xABC, 0x55) == payload
+        except Exception as e:  # noqa: BLE001 — fails the assert below
+            errs.append(e)
+
+    threads = [threading.Thread(target=rd) for _ in range(12)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errs and srv.needle_requests == 12
+    assert 1 <= sum(len(v) for v in c._npool.values()) <= c._npool_max
+
+
+@pytest.mark.parametrize("server", ["jax", "port"])
+def test_needle_pool_discards_idle_connections(tmp_path, needle_env, server):
+    """A pooled connection parked past the idle TTL is discarded at
+    checkout: the next read dials fresh instead of failing on it."""
+    make, client = needle_env
+    payload = b"idle" * 2000
+    srv = make(server, tmp_path, payload)
+    c = client("port")
+    c._npool_idle_s = 0.05
+    addr = ("127.0.0.1", srv.port)
+    assert c.read_needle(addr, 7, 0xABC, 0x55) == payload
+    for s, _t in c._npool[addr]:
+        s.close()  # the server reaping the parked connection
+    time.sleep(0.1)
+    assert c.read_needle(addr, 7, 0xABC, 0x55) == payload
+
+
+@pytest.mark.parametrize("level", ["volume", "needle"])
+def test_jax_operations_negative_caches_port_volume_refusals_only(tmp_path, needle_env, level):
+    """The JAX client's chunk reader against a port plane: a volume refusal
+    (status 2) is negative-cached per volume, so later reads skip the
+    plane; a needle-level refusal (status 1) is not."""
+    from seaweedfs_tpu.client.operations import Operations
+    from seaweedfs_tpu.storage.file_id import FileId as JaxFileId
+
+    make, _ = needle_env
+    exc = net_plane.NetPlaneVolumeRefusal if level == "volume" else net_plane.NetPlaneError
+
+    def refuse(vid, nid, cookie):
+        raise exc("volume not here (or EC)" if level == "volume" else f"needle {nid:x} not found")
+
+    srv = make("port", tmp_path, resolve=refuse)
+    assert srv.port > 11023  # derive_port(grpc) must not wrap
+    ops = Operations(master="localhost:1")
+    try:
+        loc = type("Loc", (), {"url": "127.0.0.1:80", "grpc_port": srv.port - 10000})()
+        assert ops._try_plane_read(loc, JaxFileId(9, 0xABC, 0x55)) is None
+        first = srv.requests
+        assert ops._try_plane_read(loc, JaxFileId(9, 0xDEF, 0x55)) is None
+        if level == "volume":
+            assert 9 in ops._plane_refused and srv.requests == first
+        else:
+            assert 9 not in ops._plane_refused and srv.requests == first + 1
+    finally:
+        ops.close()
+
+
+def _land_writes():
+    stored = {}
+
+    def resolve_write(vid, nid, cookie, data, md):
+        stored[(vid, nid)] = (cookie, data, dict(md))
+        return len(data), crc32c(data)
+
+    return stored, resolve_write
+
+
+@pytest.mark.parametrize("plane", ["native", "python"])
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_write_roundtrip_across_packages(tmp_path, needle_env, monkeypatch, plane, server,
+                                                client_side):
+    """One needle over the write opcode on both landing planes: the
+    resolver sees the payload and its meta, the ACK certifies the stored
+    CRC, the server counts the ingress on the right plane. A ragged size
+    takes the fused CRC's tail."""
+    if plane == "python":
+        monkeypatch.setenv("SEAWEED_EC_NATIVE", "0")
+    make, client = needle_env
+    stored, resolve_write = _land_writes()
+    payload = np.random.default_rng(7).integers(0, 256, 300_001, dtype=np.uint8).tobytes()
+    srv = make(server, tmp_path, resolve_write=resolve_write)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    size, crc = c.write_needle(addr, 7, 0xABC, 0x55, payload, name=b"f.bin",
+                               mime=b"application/x-test", fsync=True, replicate=False)
+    assert size == len(payload) and crc == crc32c(payload)
+    cookie, data, md = stored[(7, 0xABC)]
+    assert cookie == 0x55 and data == payload
+    assert (md["x-sw-w-fsync"], md["x-sw-w-replicate"]) == ("1", "0")
+    assert net_plane._unb64(md["x-sw-w-name"]) == b"f.bin"
+    assert net_plane._unb64(md["x-sw-w-mime"]) == b"application/x-test"
+    native_bytes, python_bytes = (len(payload), 0) if plane == "native" else (0, len(payload))
+    assert (srv.write_requests, srv.write_native_bytes, srv.write_python_bytes) == (
+        1, native_bytes, python_bytes)
+    c.write_needle(addr, 7, 0xDEF, 0x66, b"x")
+    assert srv.write_requests == 2 and len(c._npool[addr]) == 1
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_write_volume_refusal_across_packages(tmp_path, needle_env, server, client_side):
+    """A volume-level write refusal (status 2) is flagged as one, and the
+    pooled connection survives it: the server drained the payload."""
+    make, client = needle_env
+
+    def refuse(vid, nid, cookie, data, md):
+        raise MODS[server].NetPlaneVolumeRefusal("volume not here")
+
+    srv = make(server, tmp_path, resolve_write=refuse)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="not here") as e:
+        c.write_needle(addr, 1, 2, 3, b"zz" * 5000)
+    assert getattr(e.value, "volume_refusal", False)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="not here"):
+        c.write_needle(addr, 1, 9, 3, b"y")
+    assert srv.write_requests == 2, "the refusal killed the connection"
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_write_without_resolver_refused_across_packages(tmp_path, needle_env, server,
+                                                               client_side):
+    make, client = needle_env
+    srv = make(server, tmp_path)
+    c = client(client_side)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="needle writes not served here"):
+        c.write_needle(("127.0.0.1", srv.port), 1, 2, 3, b"data")
+    assert srv.write_requests == 0
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_write_stored_crc_mismatch_raises_across_packages(tmp_path, needle_env, server,
+                                                                 client_side):
+    make, client = needle_env
+
+    def liar(vid, nid, cookie, data, md):
+        return len(data), crc32c(data) ^ 0xBAD
+
+    srv = make(server, tmp_path, resolve_write=liar)
+    c = client(client_side)
+    with pytest.raises(MODS[client_side].NetPlaneError, match="stored CRC mismatch"):
+        c.write_needle(("127.0.0.1", srv.port), 1, 2, 3, b"abc")
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_write_refused_under_foreign_chaos_across_packages(tmp_path, needle_env, server,
+                                                                  client_side):
+    """An armed point outside the write path refuses write frames (drained,
+    in protocol); a point on the write path leaves them served."""
+    make, client = needle_env
+    stored, resolve_write = _land_writes()
+    srv = make(server, tmp_path, resolve_write=resolve_write)
+    c = client(client_side)
+    addr = ("127.0.0.1", srv.port)
+    reg = FAULTS[server]
+    with reg.injected("unrelated.point", reg.latency(0.0), when=reg.always()):
+        with pytest.raises(MODS[client_side].NetPlaneError, match="registry armed"):
+            c.write_needle(addr, 1, 2, 3, b"k" * 100)
+    with reg.injected("ec.net.write.before_pwrite", reg.latency(0.0), when=reg.always()):
+        c.write_needle(addr, 1, 2, 3, b"served")
+    assert stored[(1, 2)][1] == b"served"
+
+
+@pytest.mark.parametrize("server,client_side", PAIRS, ids=PAIR_IDS)
+def test_needle_status_matches_jax_after_reads_and_writes(tmp_path, needle_env, server, client_side):
+    make, client = needle_env
+    _stored, resolve_write = _land_writes()
+    st = []
+    for side in (server, client_side):
+        srv = make(side, tmp_path, b"s" * 5000, resolve_write=resolve_write)
+        c = client(client_side)
+        addr = ("127.0.0.1", srv.port)
+        c.read_needle(addr, 7, 0xABC, 0x55)
+        c.write_needle(addr, 1, 2, 3, b"w" * 9000)
+        assert _settle(lambda: srv.status()["sendfile_bytes"] == 5000)
+        s = srv.status()
+        s.pop("port")
+        st.append(s)
+    assert st[0] == st[1]
+    assert (st[1]["needle_requests"], st[1]["write_requests"], st[1]["write_native_bytes"]) == (
+        1, 1, 9000)
+
+
+# --------------------------------- the plane against HTTP on a volume server
+
+
+@pytest.mark.parametrize("server", ["jax", "port"])
+def test_write_bit_identity_plane_vs_http_on_volume_servers(tmp_path, server):
+    """The same fid written over the write opcode (by either package's
+    client) and by an HTTP multipart POST lands the same record (append
+    time normalised) on either package's volume server; the needle-read
+    opcode gives the payload back to both clients."""
+    from test_torch_volume_server import canon, multipart, record, request, start
+
+    vs = start(server, tmp_path / server)
+    clients = [net_plane.NetPlaneClient(timeout=10), jax_np.NetPlaneClient(timeout=10)]
+    try:
+        vs.store.allocate_volume(4)
+        addr = ("127.0.0.1", vs.net_plane.port)
+        payload = np.random.default_rng(11).integers(0, 256, 123_457, dtype=np.uint8).tobytes()
+        nid, cookie = 0x1F2E, 0x5A5A5A5A
+        raws = []
+        for c in clients:
+            assert c.write_needle(addr, 4, nid, cookie, payload, name=b"same.bin",
+                                  mime=b"application/x-test")[0] > len(payload)
+            raws.append(record(vs, 4, nid))
+        body, hdrs = multipart(payload, "same.bin", "application/x-test")
+        assert request(vs, "POST", f"/4,{nid:x}{cookie:08x}", body, hdrs)[0] == 201
+        raws.append(record(vs, 4, nid))
+        assert len({canon(r) for r in raws}) == 1 and len({len(r) for r in raws}) == 1
+        assert vs.net_plane.write_requests == 2
+        for c in clients:
+            assert c.read_needle(addr, 4, nid, cookie) == payload
+    finally:
+        for c in clients:
+            c.close()
+        vs.stop()
