@@ -212,9 +212,28 @@ Phases:
    client (p50/p99) and then by 8 clients (requests/s, no 503), launches
    == reconstructions, none on a read that avoids shard 3; HEAD, a Range
    (206) and a range past the end (416); 14d deletes (202, then 404), the
-   fan-out refusals of a replicated write and an EC delete, /status,
-   /metrics, /debug/slo and /debug/gateway, and a needle-read frame built
-   by hand, as a JAX client sends it.
+   answers of a server without a master to a replicated write (refused)
+   and an EC delete (the failed holder lookup), /status, /metrics,
+   /debug/slo and /debug/gateway, and a needle-read frame built by hand,
+   as a JAX client sends it.
+15. the cluster half (`VolumeServer(master=...)`: the gRPC service,
+   heartbeats, the replica fan-out, the remote shard reader, peer-fetch
+   rebuild with its hand-off) at full width: a stand-in master
+   (`StandInMaster`, answering only from the heartbeats it gets) and four
+   port servers on the card in this process, every EC step an RPC over
+   gRPC. The 1 GiB volume (hard links) is mounted and encoded on A (103
+   `gf2_apply` launches, shards sha256-identical to phase 4's), its shards
+   4-13 copied to B, C and D over the net plane (one again over CopyFile),
+   shard 3 unmounted and every needle over it read cold at A with its
+   siblings mostly remote (`gf2_apply_planes` launches ==
+   reconstructions), shards 3 and 11 lost and rebuilt from peers at A
+   (launches == rebuild batches) and handed to their planned holders
+   (sha256-identical to phase 5's, advertised once each), 256 MiB of phase
+   3's needles POSTed to a `001` volume on A with plane and then gRPC
+   replica legs (B's records equal), 5 EC deletes journaled on every
+   holder, every holder scrubbed, and the data shards gathered on B and
+   decoded there to the original .dat. One JSON line gives each step's
+   wall, GB/s and launches.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -3275,6 +3294,7 @@ def server_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
     from seaweedfs_tpu_torch.ec import BitrotProtection, TorchBackend, ec_encode_volume, native_io
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
     from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.ec import net_plane
     from seaweedfs_tpu_torch.ec.net_plane import _REQ, _RESP, NetPlaneClient
     from seaweedfs_tpu_torch.ops import rs_kernels
     from seaweedfs_tpu_torch.server.volume_server import FAN_OUT_REFUSED, VolumeServer, _parse_upload
@@ -3290,8 +3310,8 @@ def server_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
     rng.bit_generator.state = vol_rng_state  # phase 3's needles
     launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
     port = free_port()
-    server = VolumeServer([root], ip="127.0.0.1", port=port, grpc_port=free_port() - 10000,
-                          ec_backend="cuda")
+    server = VolumeServer([root], ip="127.0.0.1", port=port,
+                          grpc_port=net_plane.free_grpc_port(), ec_backend="cuda")
     if server.net_plane is None:
         raise AssertionError("14: the server has no net plane")
     server.start()
@@ -3490,8 +3510,12 @@ def server_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
         store.allocate_volume(REPLICATED_VID, replica_placement="001")
         rep = http(f"{url}/{FileId(REPLICATED_VID, 0x51, 0x52)}", "POST", b"r" * 4096)
         ec_del = http(f"{url}/{FileId(SERVER_VID, nid, cookie)}", "DELETE")
-        for what, (status, _, answer) in (("replicated write", rep), ("ec delete", ec_del)):
-            if status != 500 or FAN_OUT_REFUSED not in json.loads(answer)["error"]:
+        # a server without a master: the replicated write is refused, and the
+        # EC delete answers the JAX server's failed holder lookup
+        for what, (status, _, answer), phrase in (
+                ("replicated write", rep, FAN_OUT_REFUSED),
+                ("ec delete", ec_del, "ec tombstone fan-out: holder lookup failed")):
+            if status != 500 or phrase not in json.loads(answer)["error"]:
                 raise AssertionError(f"14d: the {what} answered {status} {answer[:200]!r}")
         st = json.loads(http(f"{url}/status")[2])
         missing = {"ec_device_queue", "ec_net_plane", "ec_streams", "ec_residency"} - set(st)
@@ -3531,6 +3555,541 @@ def server_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
         server.stop()
     shutil.rmtree(root)
     return result, launches
+
+# -- 15. the cluster half: four port servers under a stand-in master -------------
+
+
+class StandInMaster:
+    """The smoke's master (the smoke may not import the JAX package's):
+    answers SendHeartbeat, LookupVolume, LookupEcVolume, Topology,
+    KeepConnected and RaftStatus, and only from the heartbeats it receives,
+    as the JAX MasterServer (seaweedfs_tpu/server/master.py, topology.py)
+    answers them for a single master. Volume servers send full heartbeats
+    only, so it has no incremental path. Its gRPC port is `port` + 10000,
+    as a master's; it serves no HTTP."""
+
+    VOLUME_SIZE_LIMIT = 30 * 1024**3  # the JAX master's default
+
+    def __init__(self, ip: str, port: int):
+        import queue
+        import threading
+        from concurrent import futures
+
+        import grpc
+
+        from seaweedfs_tpu_torch.pb import cluster_pb2, rpc
+
+        self._pb, self._queue = cluster_pb2, queue
+        self.port = port
+        self.addr = f"{ip}:{port}"
+        self._lock = threading.Lock()
+        self.nodes: dict[str, dict] = {}  # node id -> location, volumes, ec_shards, ...
+        self.max_volume_id = 0
+        self._subscribers: list = []
+        self._grpc = grpc.server(futures.ThreadPoolExecutor(max_workers=16))
+        rpc.add_service(self._grpc, rpc.MASTER_SERVICE, self)
+        rpc.add_service(self._grpc, rpc.RAFT_SERVICE, self)
+        self._grpc.add_insecure_port(f"{ip}:{port + 10000}")
+
+    def start(self) -> None:
+        self._grpc.start()
+
+    def stop(self) -> None:
+        self._grpc.stop(grace=0.5).wait(5)
+
+    def _location(self, n: dict):
+        return self._pb.Location(url=n["id"], public_url=n["public_url"], grpc_port=n["grpc_port"],
+                                 data_center=n["data_center"])
+
+    def _publish(self, n: dict, new_vids=(), deleted_vids=(), new_ec=(), deleted_ec=(),
+                 gone: bool = False) -> None:
+        if not (new_vids or deleted_vids or new_ec or deleted_ec or gone):
+            return
+        u = self._pb.VolumeLocationUpdate(
+            url=n["id"], public_url=n["public_url"], grpc_port=n["grpc_port"],
+            new_vids=sorted(new_vids), deleted_vids=sorted(deleted_vids),
+            new_ec_vids=sorted(new_ec), deleted_ec_vids=sorted(deleted_ec), server_gone=gone)
+        for q in self._subscribers:
+            q.put(u)
+
+    def SendHeartbeat(self, request_iterator, context):
+        node, token = None, object()
+        try:
+            for hb in request_iterator:
+                with self._lock:
+                    if node is None:
+                        nid = f"{hb.ip}:{hb.port}"
+                        node = self.nodes.get(nid)
+                        if node is None:
+                            node = {"id": nid, "public_url": hb.public_url or nid,
+                                    "grpc_port": hb.grpc_port, "data_center": hb.data_center,
+                                    "rack": hb.rack, "max_volume_count": int(hb.max_volume_count) or 8,
+                                    "volumes": {}, "ec_shards": {}}
+                            self.nodes[nid] = node
+                        if hb.max_volume_count:
+                            node["max_volume_count"] = int(hb.max_volume_count)
+                        node["owner"] = token
+                    self.nodes.setdefault(node["id"], node)
+                    old_v, old_e = set(node["volumes"]), set(node["ec_shards"])
+                    if hb.volumes or hb.has_no_volumes:
+                        node["volumes"] = {v.id: v for v in hb.volumes}
+                    if hb.ec_shards or hb.has_no_ec_shards:
+                        node["ec_shards"] = {e.id: e for e in hb.ec_shards}
+                    for v in node["volumes"].values():
+                        self.max_volume_id = max(self.max_volume_id, v.id)
+                    self._publish(node, set(node["volumes"]) - old_v, old_v - set(node["volumes"]),
+                                  set(node["ec_shards"]) - old_e, old_e - set(node["ec_shards"]))
+                yield self._pb.HeartbeatResponse(volume_size_limit=self.VOLUME_SIZE_LIMIT)
+        finally:
+            # the stream closed: the node is gone, unless a newer stream owns it
+            if node is not None:
+                with self._lock:
+                    if self.nodes.get(node["id"]) is node and node.get("owner") is token:
+                        del self.nodes[node["id"]]
+                        self._publish(node, gone=True)
+
+    def KeepConnected(self, request, context):
+        q = self._queue.Queue()
+        with self._lock:
+            self._subscribers.append(q)
+            snapshot = [self._pb.VolumeLocationUpdate(
+                url=n["id"], public_url=n["public_url"], grpc_port=n["grpc_port"],
+                new_vids=sorted(n["volumes"]), new_ec_vids=sorted(n["ec_shards"]))
+                for n in self.nodes.values()]
+        try:
+            yield from snapshot
+            yield self._pb.VolumeLocationUpdate(leader=self.addr)  # snapshot complete
+            while context is None or context.is_active():
+                try:
+                    yield q.get(timeout=1.0)
+                except self._queue.Empty:
+                    continue
+        finally:
+            with self._lock:
+                self._subscribers.remove(q)
+
+    def _lookup_ec(self, vid: int) -> dict:
+        out: dict[int, list] = {}
+        for n in self.nodes.values():
+            e = n["ec_shards"].get(vid)
+            if e is not None:
+                for sid in range(32):
+                    if e.shard_bits & (1 << sid):
+                        out.setdefault(sid, []).append(self._location(n))
+        return out
+
+    def LookupVolume(self, request, context):
+        out = []
+        with self._lock:
+            for vid in request.volume_ids:
+                locs = [self._location(n) for n in self.nodes.values() if vid in n["volumes"]]
+                if not locs:
+                    # EC volumes answer plain lookups too: any shard holder
+                    seen = {}
+                    for ls in self._lookup_ec(vid).values():
+                        for loc in ls:
+                            seen[loc.url] = loc
+                    locs = list(seen.values())
+                out.append(self._pb.VolumeLocations(volume_id=vid, locations=locs,
+                                                    error="" if locs else f"volume {vid} not found"))
+        return self._pb.LookupVolumeResponse(volume_locations=out)
+
+    def LookupEcVolume(self, request, context):
+        with self._lock:
+            shard_locs = self._lookup_ec(request.volume_id)
+        return self._pb.LookupEcVolumeResponse(
+            volume_id=request.volume_id,
+            shard_locations=[self._pb.EcShardLocation(shard_id=sid, locations=locs)
+                             for sid, locs in sorted(shard_locs.items())],
+            error="" if shard_locs else f"ec volume {request.volume_id} not found")
+
+    def Topology(self, request, context):
+        with self._lock:
+            return self._pb.TopologyResponse(
+                max_volume_id=self.max_volume_id,
+                nodes=[self._pb.DataNodeInfo(
+                    id=n["id"], location=self._location(n), volumes=list(n["volumes"].values()),
+                    ec_shards=list(n["ec_shards"].values()), max_volume_count=n["max_volume_count"],
+                    rack=n["rack"], data_center=n["data_center"])
+                    for n in sorted(self.nodes.values(), key=lambda n: n["id"])])
+
+    def RaftStatus(self, request, context):
+        return self._pb.RaftStatusResponse(node_id=self.addr, leader=self.addr, role="leader")
+
+
+CLUSTER_VID, CLUSTER_REP_VID = 1, 2  # the 1 GiB volume (hard links), a `001` volume
+CLUSTER_SPLIT = {"b": (4, 5, 6, 7), "c": (8, 9, 10, 11), "d": (12, 13)}  # A keeps 0-3
+CLUSTER_LOST = {3: "a", 11: "c"}  # lost at these holders, rebuilt from peers at A
+CLUSTER_REP_BYTES = 256 << 20  # 15f: phase 3's first needles, POSTed to the `001` volume
+CLUSTER_DELETES = 5  # 15g: EC deletes fanned out to every holder
+
+
+def wait_until(cond, what: str, timeout: float = 30.0) -> float:
+    """Poll `cond` until true; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"15: {what} within {timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def cluster_phase(work: str, ctx, digests: dict, records, n_batches: int, reb_batches: int,
+                  vol_rng_state: dict) -> tuple[dict, dict]:
+    """Phase 15: the cluster half on the card. A `StandInMaster` and four
+    port `VolumeServer`s (ec_backend="cuda") in this process on loopback,
+    every EC step an RPC over gRPC: 15a VolumeMount of the 1 GiB volume
+    (hard links into A); 15b VolumeEcShardsGenerate on A (launches ==
+    batches, shards sha256-identical to phase 4's), VolumeEcShardsMount,
+    VolumeDelete of the plain volume; 15c VolumeEcShardsCopy of shards 4-13
+    to B, C and D over the net plane (shard 7 again over CopyFile under
+    SEAWEED_EC_NATIVE=0), mounts, unmounts and deletes at A, until the
+    master holds 14 shards on four holders; 15d shard 3 unmounted at A, and
+    cold degraded GETs at A of every needle over it, its siblings mostly
+    remote (bit-exact, planes launches == reconstructions); 15e shards 3
+    and 11 deleted at their holders and VolumeEcShardsRebuild(from_peers)
+    at A (launches == rebuild batches, rebuilt and handed-off shards
+    sha256-identical to phase 5's, mounted and advertised by their planned
+    holders); 15f a `001` volume on A and B, 256 MiB of phase 3's needles
+    POSTed to A, half with plane legs and half with gRPC legs, B's records
+    equal, then ReadNeedle on B, DeleteNeedle on A (fanned out to B), and
+    VolumeUnmount and VolumeMount on B as the master sees them; 15g EC deletes reaching every holder; 15h ScrubEcVolume and
+    VolumeServerStatus on every holder; 15i the data shards gathered on B
+    and VolumeEcShardsToVolume there: the original .dat. Returns (result,
+    launches)."""
+    import grpc
+
+    from seaweedfs_tpu_torch.ec import native_io, net_plane
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.types import actual_offset
+
+    if not native_io.enabled():
+        raise AssertionError("phase 15 needs the native plane (SEAWEED_EC_NATIVE is 0)")
+    root = os.path.join(work, "cluster")
+    dat = os.path.join(root, "a", f"{CLUSTER_VID}.dat")
+    dat_size = os.path.getsize(dat)
+    want_dat = sha256(dat)
+    dat_fd = os.open(dat, os.O_RDONLY)  # the original needles, after VolumeDelete too
+
+    def original(rec) -> bytes:
+        return os.pread(dat_fd, rec[3], rec[2] + 20)  # header(16) + data size(4)
+
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    result: dict = {}
+    steps: dict = {}
+    mport = net_plane.free_grpc_port()  # the stand-in's HTTP port; its gRPC port is +10000
+    master = StandInMaster("127.0.0.1", mport)
+    master.start()
+    servers: dict = {}
+    channels = []
+    lookup = None
+    try:
+        for name in "abcd":
+            d = os.path.join(root, name)
+            os.makedirs(d, exist_ok=True)
+            servers[name] = VolumeServer([d], master=f"127.0.0.1:{mport}", ip="127.0.0.1",
+                                         port=free_port(), grpc_port=net_plane.free_grpc_port(),
+                                         ec_backend="cuda")
+            if servers[name].net_plane is None:
+                raise AssertionError(f"15: server {name} has no net plane")
+            servers[name].start()
+        url = {n: f"127.0.0.1:{vs.port}" for n, vs in servers.items()}
+        name_of = {u: n for n, u in url.items()}
+        gaddr = {n: f"127.0.0.1:{vs.grpc_port}" for n, vs in servers.items()}
+        for n in "abcd":
+            channels.append(grpc.insecure_channel(gaddr[n]))
+        stub = {n: rpc.volume_stub(ch) for n, ch in zip("abcd", channels)}
+        mchan = grpc.insecure_channel(f"127.0.0.1:{mport + 10000}")
+        channels.append(mchan)
+        mstub = rpc.master_stub(mchan)
+
+        def ec_holders() -> dict:
+            resp = mstub.LookupEcVolume(pb.LookupEcVolumeRequest(volume_id=CLUSTER_VID), timeout=10)
+            return {sl.shard_id: sorted(name_of[loc.url] for loc in sl.locations)
+                    for sl in resp.shard_locations}
+
+        def step(label, fn, nbytes=0):
+            t0 = time.perf_counter()
+            out = fn()
+            dt = time.perf_counter() - t0
+            steps[label] = {"seconds": dt, **({"gb_per_s": nbytes / dt / 1e9, "bytes": nbytes}
+                                                if nbytes else {})}
+            return out
+
+        step("register", lambda: wait_until(lambda: len(master.nodes) == 4, "servers registered"))
+
+        # -- 15a, 15b. mount the volume, encode it on the card over gRPC -----------
+        step("15a VolumeMount", lambda: stub["a"].VolumeMount(
+            pb.AllocateVolumeRequest(volume_id=CLUSTER_VID), timeout=60))
+        rs_kernels.reset_launches()
+        gen = step("15b VolumeEcShardsGenerate", lambda: stub["a"].VolumeEcShardsGenerate(
+            pb.EcShardsGenerateRequest(volume_id=CLUSTER_VID), timeout=600), dat_size).generation
+        if rs_kernels.LAUNCHES["gf2_apply"] != n_batches or rs_kernels.LAUNCHES["gf2_apply_planes"]:
+            raise AssertionError(f"15b: generate launched {rs_kernels.LAUNCHES} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        steps["15b VolumeEcShardsGenerate"]["launches"] = n_batches
+        abase = os.path.join(root, "a", str(CLUSTER_VID))
+        for i in range(ctx.total):
+            if sha256(abase + ctx.to_ext(i)) != digests[i]:
+                raise AssertionError(f"15b: generated shard {i} differs from phase 4's")
+        step("15b VolumeEcShardsMount", lambda: stub["a"].VolumeEcShardsMount(
+            pb.EcShardsMountRequest(volume_id=CLUSTER_VID), timeout=60))
+        if stub["a"].VolumeDelete(pb.VolumeCommandRequest(volume_id=CLUSTER_VID), timeout=60).error:
+            raise AssertionError("15b: VolumeDelete of the plain volume failed")
+        shard_size = os.path.getsize(abase + ctx.to_ext(0))
+
+        # -- 15c. spread shards 4-13 over B, C and D -------------------------------
+        served0 = servers["a"].net_plane.status()["sendfile_bytes"]
+        for n, sids in CLUSTER_SPLIT.items():
+            step(f"15c VolumeEcShardsCopy to {n}", lambda n=n, sids=sids: stub[n].VolumeEcShardsCopy(
+                pb.EcShardsCopyRequest(volume_id=CLUSTER_VID, shard_ids=list(sids), source_url=gaddr["a"],
+                                       copy_ecx=True, copy_ecj=True, copy_vif=True, copy_ecsum=True),
+                timeout=600), len(sids) * shard_size)
+        native_bytes = servers["a"].net_plane.status()["sendfile_bytes"] - served0
+        if native_bytes != (ctx.total - 4) * shard_size:
+            raise AssertionError(f"15c: the net plane served {native_bytes} bytes for "
+                                 f"{ctx.total - 4} shards of {shard_size}")
+        # once more over CopyFile, with the native plane off
+        stub["b"].VolumeEcShardsDelete(pb.EcShardsDeleteRequest(volume_id=CLUSTER_VID, shard_ids=[7]),
+                                       timeout=60)
+        os.environ["SEAWEED_EC_NATIVE"] = "0"
+        try:
+            step("15c VolumeEcShardsCopy over CopyFile", lambda: stub["b"].VolumeEcShardsCopy(
+                pb.EcShardsCopyRequest(volume_id=CLUSTER_VID, shard_ids=[7], source_url=gaddr["a"]),
+                timeout=600), shard_size)
+        finally:
+            del os.environ["SEAWEED_EC_NATIVE"]
+        if servers["a"].net_plane.status()["sendfile_bytes"] - served0 != native_bytes:
+            raise AssertionError("15c: the CopyFile copy moved bytes on the net plane")
+        for n, sids in CLUSTER_SPLIT.items():
+            for i in sids:
+                if sha256(os.path.join(root, n, str(CLUSTER_VID)) + ctx.to_ext(i)) != digests[i]:
+                    raise AssertionError(f"15c: shard {i} copied to {n} differs")
+            stub[n].VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=CLUSTER_VID), timeout=60)
+        moved = [i for sids in CLUSTER_SPLIT.values() for i in sids]
+        stub["a"].VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=CLUSTER_VID, shard_ids=moved),
+                                        timeout=60)
+        stub["a"].VolumeEcShardsDelete(pb.EcShardsDeleteRequest(volume_id=CLUSTER_VID, shard_ids=moved),
+                                       timeout=60)
+        placed = {i: ["a"] for i in range(4)} | {i: [n] for n, sids in CLUSTER_SPLIT.items() for i in sids}
+        step("15c master holds 14 shards on four holders",
+             lambda: wait_until(lambda: ec_holders() == placed, "the split reached the master"))
+
+        # -- 15d. cold degraded GETs at A, shard 3 unmounted, siblings remote ------
+        stub["a"].VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=CLUSTER_VID, shard_ids=[3]),
+                                        timeout=60)
+        servers["a"].notify_deleted_ec_shards(CLUSTER_VID, "", [3])
+        wait_until(lambda: 3 not in ec_holders(), "shard 3's unmount reached the master")
+        degraded = degraded_records(records, dat_size)
+        cache = servers["a"].store.ec_interval_cache
+        net0 = net_snapshot()
+        loads0 = cache.loads
+        rs_kernels.reset_launches()
+        lat = []
+        for rec in degraded:
+            t0 = time.perf_counter()
+            status, _, got = http(f"http://{url['a']}/{FileId(CLUSTER_VID, rec[0], rec[1])}")
+            lat.append(time.perf_counter() - t0)
+            if status != 200 or got != original(rec):
+                raise AssertionError(f"15d: degraded GET of needle {rec[0]:x} differs ({status})")
+        recon = cache.loads - loads0
+        planes = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if planes != recon or planes < 1 or rs_kernels.LAUNCHES["gf2_apply"]:
+            raise AssertionError(f"15d: {rs_kernels.LAUNCHES} launches for {recon} reconstructions")
+        launches["gf2_apply_planes"] += planes
+        got_bytes = sum(r[3] for r in degraded)
+        steps["15d degraded GETs"] = {
+            "seconds": sum(lat), "needles": len(degraded), "bytes": got_bytes,
+            "gb_per_s": got_bytes / sum(lat) / 1e9, "p50_ms": percentile_ms(lat, 50),
+            "p99_ms": percentile_ms(lat, 99), "reconstructions": recon, "launches": planes,
+            "net": net_delta(net0),
+        }
+
+        # -- 15e. shards 3 and 11 lost, peer-fetch rebuild at A, hand-off ------------
+        for sid, holder in CLUSTER_LOST.items():
+            stub[holder].VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=CLUSTER_VID, shard_ids=[sid]), timeout=60)
+            stub[holder].VolumeEcShardsDelete(
+                pb.EcShardsDeleteRequest(volume_id=CLUSTER_VID, shard_ids=[sid]), timeout=60)
+        wait_until(lambda: not set(CLUSTER_LOST) & set(ec_holders()), "the losses reached the master")
+        rs_kernels.reset_launches()
+        net0 = net_snapshot()
+        resp = step("15e VolumeEcShardsRebuild from peers", lambda: stub["a"].VolumeEcShardsRebuild(
+            pb.EcShardsRebuildRequest(volume_id=CLUSTER_VID, from_peers=True), timeout=600),
+            (ctx.data_shards - 3) * shard_size)
+        reb = {"rebuilt": list(resp.rebuilt_shard_ids), "fetched": list(resp.fetched_shard_ids),
+               "distributed": list(resp.distributed_shard_ids), "repaired": list(resp.repaired_shard_ids)}
+        if (reb["rebuilt"] != sorted(CLUSTER_LOST) or reb["distributed"] != sorted(CLUSTER_LOST)
+                or len(reb["fetched"]) != ctx.data_shards - 3 or reb["repaired"]):
+            raise AssertionError(f"15e: peer-fetch rebuild answered {reb}")
+        if rs_kernels.LAUNCHES["gf2_apply"] != reb_batches or rs_kernels.LAUNCHES["gf2_apply_planes"]:
+            raise AssertionError(f"15e: rebuild launched {rs_kernels.LAUNCHES} for {reb_batches} batches")
+        launches["gf2_apply"] += reb_batches
+        steps["15e VolumeEcShardsRebuild from peers"]["launches"] = reb_batches
+        steps["15e VolumeEcShardsRebuild from peers"]["net"] = net_delta(net0)
+        steps["15e VolumeEcShardsRebuild from peers"]["answer"] = reb
+        wait_until(lambda: all(len(ec_holders().get(i, [])) == 1 for i in range(ctx.total)),
+                   "the rebuilt shards were not advertised once each")
+        planned = ec_holders()
+        for sid in CLUSTER_LOST:
+            (n,) = planned[sid]
+            path = os.path.join(root, n, str(CLUSTER_VID)) + ctx.to_ext(sid)
+            if sha256(path) != digests[sid]:
+                raise AssertionError(f"15e: shard {sid} at its planned holder {n} differs")
+            if sid not in servers[n].store.find_ec_volume(CLUSTER_VID).shard_fds:
+                raise AssertionError(f"15e: shard {sid} not mounted at {n}")
+        steps["15e VolumeEcShardsRebuild from peers"]["planned_holders"] = {
+            sid: planned[sid][0] for sid in CLUSTER_LOST}
+
+        # -- 15f. a replicated volume: POSTs to A, records equal on B ----------------
+        for n in "ab":
+            stub[n].AllocateVolume(pb.AllocateVolumeRequest(volume_id=CLUSTER_REP_VID, replication="001"),
+                                   timeout=60)
+        wait_until(lambda: len(mstub.LookupVolume(pb.LookupVolumeRequest(volume_ids=[CLUSTER_REP_VID]),
+                                                  timeout=10).volume_locations[0].locations) == 2,
+                   "the replicas registered")
+        rng = np.random.default_rng()
+        rng.bit_generator.state = vol_rng_state  # phase 3's needles
+        items, total = [], 0
+        for nid, cookie, body in needle_stream(rng):
+            if total + len(body) > CLUSTER_REP_BYTES:
+                break
+            items.append((nid, cookie, body))
+            total += len(body)
+        half = len(items) // 2
+        legs = {}
+        for leg, part in (("plane", items[:half]), ("grpc", items[half:])):
+            writes0 = servers["b"].net_plane.write_requests
+            if leg == "grpc":
+                os.environ["SEAWEED_EC_NATIVE"] = "0"
+            try:
+                t0 = time.perf_counter()
+                for nid, cookie, body in part:
+                    status, _, answer = http(f"http://{url['a']}/{FileId(CLUSTER_REP_VID, nid, cookie)}",
+                                             "POST", body, {"Content-Type": "application/octet-stream"})
+                    if status != 201:
+                        raise AssertionError(f"15f: replicated POST answered {status} {answer[:200]!r}")
+                dt = time.perf_counter() - t0
+            finally:
+                os.environ.pop("SEAWEED_EC_NATIVE", None)
+            nbytes = sum(len(b) for _, _, b in part)
+            plane_writes = servers["b"].net_plane.write_requests - writes0
+            if plane_writes != (len(part) if leg == "plane" else 0):
+                raise AssertionError(f"15f: {plane_writes} plane writes on B for {len(part)} {leg} legs")
+            legs[leg] = {"needles": len(part), "bytes": nbytes, "seconds": dt,
+                         "mb_per_s": nbytes / dt / 1e6, "plane_writes_on_b": plane_writes}
+        va, vb = (servers[n].store.find_volume(CLUSTER_REP_VID) for n in "ab")
+        for nid, _, _ in items:
+            a, b = va.needle_map.get(nid), vb.needle_map.get(nid)
+            if canon_record(va._pread_record(actual_offset(a.offset), a.size)) != \
+                    canon_record(vb._pread_record(actual_offset(b.offset), b.size)):
+                raise AssertionError(f"15f: the replica's record of needle {nid:x} differs")
+        steps["15f replicated POSTs"] = {**legs, "records_equal": len(items)}
+
+        # ReadNeedle, DeleteNeedle (fanned out to B), VolumeUnmount and
+        # VolumeMount of the `001` volume, each over gRPC
+        def rep_holders() -> int:
+            return len(mstub.LookupVolume(pb.LookupVolumeRequest(volume_ids=[CLUSTER_REP_VID]),
+                                          timeout=10).volume_locations[0].locations)
+
+        def read_b(nid, cookie):
+            return stub["b"].ReadNeedle(pb.ReadNeedleRequest(
+                volume_id=CLUSTER_REP_VID, needle_id=nid, cookie=cookie), timeout=60)
+
+        t0 = time.perf_counter()
+        (nid0, cookie0, body0), (nid1, cookie1, body1) = items[0], items[-1]
+        r = read_b(nid0, cookie0)
+        if r.error or r.data != body0:
+            raise AssertionError(f"15f: ReadNeedle on B answered {r.error!r}, {len(r.data)} bytes")
+        r = stub["a"].DeleteNeedle(pb.DeleteNeedleRequest(volume_id=CLUSTER_REP_VID, needle_id=nid0),
+                                   timeout=60)
+        if r.error:
+            raise AssertionError(f"15f: DeleteNeedle on A answered {r.error!r}")
+        if not read_b(nid0, cookie0).error.startswith("not found"):
+            raise AssertionError("15f: the deleted needle still reads on B")
+        r = stub["b"].VolumeUnmount(pb.VolumeCommandRequest(volume_id=CLUSTER_REP_VID), timeout=60)
+        if r.error:
+            raise AssertionError(f"15f: VolumeUnmount on B answered {r.error!r}")
+        wait_until(lambda: rep_holders() == 1, "the master dropping B's unmounted replica")
+        r = stub["b"].VolumeMount(pb.AllocateVolumeRequest(volume_id=CLUSTER_REP_VID), timeout=60)
+        if r.error:
+            raise AssertionError(f"15f: VolumeMount on B answered {r.error!r}")
+        wait_until(lambda: rep_holders() == 2, "the master listing B's remounted replica")
+        r = read_b(nid1, cookie1)
+        if r.error or r.data != body1:
+            raise AssertionError(f"15f: ReadNeedle on B after the remount answered {r.error!r}")
+        steps["15f needle RPCs and remount"] = {"seconds": time.perf_counter() - t0}
+
+        # -- 15g. EC deletes fanned out to every holder ------------------------------
+        gone = [r for r in records[1 : 1 + CLUSTER_DELETES]]
+        t0 = time.perf_counter()
+        for rec in gone:
+            status, _, answer = http(f"http://{url['a']}/{FileId(CLUSTER_VID, rec[0], rec[1])}", "DELETE")
+            if status != 202:
+                raise AssertionError(f"15g: EC delete answered {status} {answer[:200]!r}")
+        steps["15g EC deletes"] = {"seconds": time.perf_counter() - t0, "needles": len(gone)}
+        for n, vs in servers.items():
+            ev = vs.store.find_ec_volume(CLUSTER_VID)
+            for rec in gone:
+                if http(f"http://{url[n]}/{FileId(CLUSTER_VID, rec[0], rec[1])}")[0] != 404:
+                    raise AssertionError(f"15g: needle {rec[0]:x} still reads at {n}")
+            with open(ev.base + ".ecj", "rb") as f:
+                if len(f.read()) != 8 * len(gone):
+                    raise AssertionError(f"15g: {n}'s .ecj does not hold the {len(gone)} deletes")
+
+        # -- 15h. ScrubEcVolume and VolumeServerStatus on every holder ---------------
+        scrubs, bits = {}, 0
+        t0 = time.perf_counter()
+        for n in "abcd":
+            sr = stub[n].ScrubEcVolume(pb.ScrubRequest(volume_id=CLUSTER_VID), timeout=600)
+            if sr.error or sr.bad_shards or sr.quarantined_shards:
+                raise AssertionError(f"15h: scrub at {n}: {sr}")
+            scrubs[n] = list(sr.checked_shards)
+            st = stub[n].VolumeServerStatus(pb.VolumeServerStatusRequest(), timeout=60)
+            bits += sum(bin(e.shard_bits).count("1") for e in st.ec_shards if e.id == CLUSTER_VID)
+        if sorted(i for v in scrubs.values() for i in v) != list(range(ctx.total)) or bits != ctx.total:
+            raise AssertionError(f"15h: scrubs {scrubs}, {bits} shard bits in the status answers")
+        steps["15h scrub and status"] = {"seconds": time.perf_counter() - t0, "checked": scrubs}
+
+        # -- 15i. the data shards gathered on B, VolumeEcShardsToVolume there ---------
+        holders = ec_holders()
+        bbase = os.path.join(root, "b", str(CLUSTER_VID))
+        t0 = time.perf_counter()
+        for sid in range(ctx.data_shards):
+            if os.path.exists(bbase + ctx.to_ext(sid)):
+                continue
+            src = holders[sid][0]
+            stub["b"].VolumeEcShardsCopy(pb.EcShardsCopyRequest(
+                volume_id=CLUSTER_VID, shard_ids=[sid], source_url=gaddr[src]), timeout=600)
+        steps["15i gather data shards on b"] = {"seconds": time.perf_counter() - t0}
+        rs_kernels.reset_launches()
+        step("15i VolumeEcShardsToVolume", lambda: stub["b"].VolumeEcShardsToVolume(
+            pb.EcShardsToVolumeRequest(volume_id=CLUSTER_VID), timeout=600), dat_size)
+        if any(rs_kernels.LAUNCHES.values()):
+            raise AssertionError(f"15i: decode with every data shard launched {rs_kernels.LAUNCHES}")
+        if os.path.getsize(bbase + ".dat") != dat_size or sha256(bbase + ".dat") != want_dat:
+            raise AssertionError("15i: the decoded .dat differs from the original")
+        rec = records[-1]
+        status, _, got = http(f"http://{url['b']}/{FileId(CLUSTER_VID, rec[0], rec[1])}")
+        if status != 200 or got != original(rec):
+            raise AssertionError(f"15i: GET from the decoded volume answered {status}")
+        result["steps"] = steps
+        result["launches"] = launches
+        result["shard_bytes"] = shard_size
+    finally:
+        for ch in channels:
+            ch.close()
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+        os.close(dat_fd)
+    shutil.rmtree(root)
+    return result, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3621,7 +4180,8 @@ def main() -> int:
               f"stage seconds {json.dumps(enc_stages)}; native plane {json.dumps(enc_plane)}")
 
         digests = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
-        for d in ("trace", "sched"):  # phases 9 and 10's inputs: the same .dat and .idx
+        # phases 9, 10 and 15's inputs: the same .dat and .idx
+        for d in ("trace", "sched", os.path.join("cluster", "a")):
             os.makedirs(os.path.join(work, d))
             for ext in (".dat", ".idx"):
                 os.link(base + ext, os.path.join(work, d, "1" + ext))
@@ -3768,6 +4328,20 @@ def main() -> int:
               "launches == reconstructions, no 503 under 8 clients; 14d deletes, fan-out refusals, "
               f"status surfaces, a hand-built needle-read frame): {json.dumps(served)}")
         print(f"phase 14: {time.perf_counter() - t0:.3f} s")
+
+        # -- 15. the cluster half: four port servers under a stand-in master -----------
+        t0 = time.perf_counter()
+        cluster, cluster_launches = cluster_phase(work, ctx, digests, records, n_batches, reb_batches,
+                                                  vol_rng_state)
+        print("cluster half (four port servers under a stand-in master, every EC step over gRPC: "
+              "15b generate, launches == batches, shards sha256-identical to phase 4's; 15c shards "
+              "spread over the net plane and CopyFile, identical; 15d degraded GETs with siblings "
+              "remote bit-exact, launches == reconstructions; 15e peer-fetch rebuild of shards 3 "
+              "and 11, launches == batches, handed off sha256-identical and advertised; 15f "
+              "replicated POSTs, records equal, plane and gRPC legs; 15g EC deletes on every "
+              "holder; 15h scrub and status; 15i decode to the original .dat): "
+              f"{json.dumps(cluster)}")
+        print(f"phase 15: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3780,14 +4354,16 @@ def main() -> int:
           "7a stream": stream_launches, "7b partition": mq_launches,
           "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"],
           "11 peer rebuild": peer_launches, "12 remote stream": remote_launches,
-          "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"]},
+          "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"],
+          "15 cluster": cluster_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
           "9 flight recorder": trace_launches["gf2_apply_planes"],
           "10 scheduler": sched_launches["gf2_apply_planes"],
           "13 store": store_launches["gf2_apply_planes"],
-          "14 server": server_launches["gf2_apply_planes"]},
+          "14 server": server_launches["gf2_apply_planes"],
+          "15 cluster": cluster_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

@@ -1,9 +1,9 @@
 """Shard net plane: the network half of the zero-copy EC byte path.
 
-Port of seaweedfs_tpu/ec/net_plane.py without the migration copy
-(`fetch_shard_to_file`): a small TCP sidecar next to a volume server that
-serves EC shard byte ranges (`SWNP`), whole needle payloads (`SWNR`) and
-needle and blob writes (`SWNW`) with
+Port of seaweedfs_tpu/ec/net_plane.py, whole: a small TCP sidecar next to
+a volume server that serves EC shard byte ranges (`SWNP`, whole shards
+for `fetch_shard_to_file` too), whole needle payloads (`SWNR`) and needle
+and blob writes (`SWNW`) with
 
 - **native egress**: `sn_send_file` splices the shard fd straight into
   the socket (sendfile(2), kernel to kernel, GIL released); Python
@@ -103,6 +103,7 @@ _NEEDLE_CRC = struct.Struct("<I")  # appended to an OK write response
 NET_PLANE_PORT_OFFSET = 10000  # net plane port = grpc port + this
 
 _SEND_CHUNK = 1 << 20  # python-plane egress chunking
+_FETCH_CHUNK = 4 << 20  # fetch_shard_to_file's landing buffer
 _MAX_REQUEST = 1 << 32
 _MAX_META = 4096
 # error-response bodies are short refusal strings; a length beyond this
@@ -199,6 +200,25 @@ def derive_port(grpc_port: int) -> int:
     if p > 65535:
         p = 1024 + (p % 64512)
     return p
+
+
+def free_grpc_port(host: str = "127.0.0.1") -> int:
+    """A free port whose +10000 shadow is free too, so that `derive_port`
+    of it is that shadow: a gRPC port and its net plane, or a master's
+    HTTP port and its gRPC port. Free when asked; a later bind by another
+    process can still take either."""
+    while True:
+        with socket.socket() as s:
+            s.bind((host, 0))
+            p = s.getsockname()[1]
+        if p + NET_PLANE_PORT_OFFSET > 65535:
+            continue
+        try:
+            with socket.socket() as s:
+                s.bind((host, p + NET_PLANE_PORT_OFFSET))
+        except OSError:
+            continue
+        return p
 
 
 def net_addr(grpc_peer: str) -> tuple[str, int]:
@@ -898,10 +918,12 @@ class NetPlaneClient:
         except (OSError, NetPlaneError) as e:
             raise NetPlaneError(f"{addr}: error body lost ({e})") from e
 
-    def _request(self, addr, vid, sid, gen, off, size) -> socket.socket:
+    def _request(self, addr, vid, sid, gen, off, size, exact: bool = True):
         """Send one range request and parse the response header; returns
-        the connection positioned at the payload. A server-side EOF clamp
-        raises: range callers sized their landing buffer."""
+        (connection positioned at the payload, payload length). With
+        `exact` (the default) a server-side EOF clamp raises: range callers
+        sized their landing buffer; `exact=False` takes the clamp (a whole
+        shard asked for by its protocol maximum)."""
         s = self._conn(addr)
         meta = _encode_meta()
         try:
@@ -923,12 +945,12 @@ class NetPlaneClient:
             # desynced or hostile peer
             self._drop(addr)
             raise NetPlaneError(f"{addr}: oversized frame {n}/{size}")
-        if n != size:
+        if exact and n != size:
             # EOF clamp: the shard-read RPC's short read. The connection
             # still holds n payload bytes; cheaper to drop than to drain
             self._drop(addr)
             raise NetPlaneError(f"{addr}: short stream {n}/{size}")
-        return s
+        return s, n
 
     def read_into(
         self,
@@ -949,7 +971,7 @@ class NetPlaneClient:
         a u32 ndarray: the caller compares them against the .ecsum
         sidecar with no extra pass over the bytes."""
         with self._addr_lock(addr):
-            s = self._request(addr, vid, sid, gen, off, size)
+            s, _n = self._request(addr, vid, sid, gen, off, size)
             try:
                 crc_state = np.zeros(1, np.uint32)
                 filled = np.zeros(1, np.uint64)
@@ -981,7 +1003,7 @@ class NetPlaneClient:
         copied totals). Granule re-reads and the Python-plane stream use
         it."""
         with self._addr_lock(addr):
-            s = self._request(addr, vid, sid, gen, off, size)
+            s, _n = self._request(addr, vid, sid, gen, off, size)
             try:
                 data = _recv_exact(s, size)
             except (OSError, NetPlaneError) as e:
@@ -990,6 +1012,48 @@ class NetPlaneClient:
         M.net_bytes_received_total.inc(size, plane="python", direction="read")
         M.net_bytes_copied_total.inc(size, plane="python", direction="read")
         return data
+
+    def fetch_shard_to_file(self, addr, vid, sid, gen, fobj) -> int:
+        """Fetch one whole shard (its size from the server's EOF clamp)
+        into an open binary file: the native path of VolumeEcShardsCopy.
+        The source splices the shard file with sendfile(2) and this side
+        lands it through a pooled aligned buffer in `_FETCH_CHUNK` pieces
+        (`sn_recv_into`), counted in `sw_net_bytes_received_total`.
+        Returns the bytes written. Raises NetPlaneUnavailable (memoized)
+        for a peer without the plane and NetPlaneError for a refusal
+        (stale generation, shard not local): callers take the gRPC
+        CopyFile stream then, as they do with the native plane off."""
+        pool = native_io.landing_pool()
+        buf = pool.get(_FETCH_CHUNK)
+        row = buf[0]
+        total = 0
+        try:
+            with self._addr_lock(addr):
+                # one request for the whole file: the protocol maximum,
+                # which the server clamps to the shard's size
+                s, n = self._request(addr, vid, sid, gen, 0, _MAX_REQUEST, exact=False)
+                try:
+                    while total < n:
+                        want = min(_FETCH_CHUNK, n - total)
+                        got = native.recv_into(
+                            s.fileno(), row, want, timeout_ms=int(self.timeout * 1000),
+                            granule=0, crc_state=np.zeros(1, np.uint32),
+                            filled_state=np.zeros(1, np.uint64),
+                            out_crcs=np.zeros(1, np.uint32), out_counts=np.zeros(1, np.int32),
+                        )
+                        if got != want:
+                            raise NetPlaneError(f"{addr}: torn stream {total + got}/{n}")
+                        M.net_bytes_received_total.inc(want, plane="native", direction="read")
+                        fobj.write(row[:want])
+                        total += want
+                except (OSError, NetPlaneError) as e:
+                    self._drop(addr)
+                    if isinstance(e, NetPlaneError):
+                        raise
+                    raise NetPlaneError(f"{addr}: {e}") from e
+        finally:
+            pool.put(buf)
+        return total
 
     # ------------------------------------------------------- needle reads
 

@@ -1,13 +1,14 @@
 """EC shard placement: the destination scoring of the rack-aware planner.
 
 Port of the part of seaweedfs_tpu/ec/placement.py that the MQ stream
-parity's remote placement (mq/stream_parity.py `_place_gen_shards`)
-calls: `telemetry_stale_after`, `NodeView`, `plan_shard_placement`,
-`gravity_key` and `_pick_dest_node` (the scoring of
-pickEcNodeToBalanceShardsInto, weed/shell/command_ec_common.go). The
-balancer's `Move`/`Drop`, `node_view_for`, `plan_ec_balance` and the
-rack and gravity planners come with the volume-server fleet, which the
-port does not have yet.
+parity's remote placement (mq/stream_parity.py `_place_gen_shards`) and
+the volume server's hand-off of regenerated shards
+(server/volume_grpc.py `_distribute_lost_shards`) call:
+`telemetry_stale_after`, `NodeView`, `node_view_for`,
+`plan_shard_placement`, `gravity_key` and `_pick_dest_node` (the scoring
+of pickEcNodeToBalanceShardsInto, weed/shell/command_ec_common.go). The
+balancer's `Move`/`Drop`, `plan_ec_balance` and the rack and gravity
+planners come with the shell and the maintenance worker.
 
 Pure planning: callers snapshot the hosts into NodeViews and get back a
 shard -> host map.
@@ -16,6 +17,7 @@ shard -> host map.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 
 # Load normalizer for the scalar gravity score: one typical encode
@@ -81,6 +83,96 @@ class NodeView:
         if self.ec_stage_ewma_s > 0:
             score /= 1.0 + self.ec_stage_ewma_s
         return score
+
+
+def node_view_for(
+    node_id: str,
+    rack: str,
+    data_center: str,
+    max_volume_count: int,
+    num_volumes: int,
+    ec_entries,
+    collection: str = "",
+    used_bytes: int = -1,
+    capacity_bytes: int = -1,
+    ec_telemetry: dict | None = None,
+    now: float | None = None,
+    stale_after: float | None = None,
+) -> NodeView:
+    """The one topology -> NodeView mapping (shard-bit expansion and the
+    slots x 10 capacity formula).
+
+    `ec_entries`: EcShardInfoMsg-shaped objects (.id, .shard_bits,
+    .collection). Every collection counts against capacity; only the
+    selected one (if any) is planned. `used_bytes` and `capacity_bytes`
+    (both >= 0) give the node's disk headroom, else it stays unknown (-1,
+    slot-only planning).
+
+    `ec_telemetry` is the node's heartbeat-learned device telemetry (the
+    volume server's `_ec_telemetry_json`): per-chip queue loads sum into
+    `ec_load`, the chip map's size is `ec_chips`, open breakers are
+    `ec_breakers_open`, and the device-stage EWMAs sum into
+    `ec_stage_ewma_s`. None or {} keeps them unknown. A blob whose
+    `received_at` (the master's absorb time, else the sender's `ts`) is
+    older than `stale_after` seconds (default `telemetry_stale_after()`)
+    gives no signal, only its age in `telemetry_age_s`: a dead node's
+    last idle chips must not keep attracting bytes."""
+    shards: dict[int, set[int]] = {}
+    all_shards = 0
+    for e in ec_entries:
+        all_shards += bin(e.shard_bits).count("1")
+        if collection and e.collection != collection:
+            continue
+        shards[e.id] = {i for i in range(32) if e.shard_bits & (1 << i)}
+    ec_load = -1.0
+    breakers = 0
+    stage_ewma = -1.0
+    n_chips = 0
+    age_s = -1.0
+    if ec_telemetry:
+        try:
+            stamped = float(ec_telemetry.get("received_at") or ec_telemetry.get("ts") or 0.0)
+        except (TypeError, ValueError):
+            stamped = 0.0
+        if stamped > 0:
+            age_s = max((now if now is not None else time.time()) - stamped, 0.0)
+        if stale_after is None:
+            stale_after = telemetry_stale_after()
+        if age_s >= 0 and age_s > stale_after:
+            ec_telemetry = None  # aged out: only the age stays
+    if ec_telemetry:
+        chips = ec_telemetry.get("chips")
+        if isinstance(chips, dict):
+            n_chips = len(chips)
+            try:
+                ec_load = float(sum(c.get("load", 0) for c in chips.values()))
+            except (TypeError, AttributeError):
+                ec_load = -1.0
+        try:
+            breakers = int(ec_telemetry.get("breakers_open", 0))
+        except (TypeError, ValueError):
+            breakers = 0
+        ewmas = ec_telemetry.get("stage_ewma_s")
+        if isinstance(ewmas, dict):
+            try:
+                stage_ewma = float(sum(v for k2, v in ewmas.items()
+                                       if k2.endswith(("h2d_dispatch", "device_drain"))))
+            except (TypeError, ValueError):
+                stage_ewma = -1.0
+    return NodeView(
+        id=node_id,
+        rack=rack,
+        data_center=data_center,
+        free_slots=max((int(max_volume_count or 8) - num_volumes) * 10 - all_shards, 0),
+        free_bytes=(max(capacity_bytes - used_bytes, 0)
+                    if capacity_bytes >= 0 and used_bytes >= 0 else -1),
+        ec_load=ec_load,
+        ec_breakers_open=breakers,
+        ec_stage_ewma_s=stage_ewma,
+        ec_chips=n_chips,
+        telemetry_age_s=age_s,
+        shards=shards,
+    )
 
 
 def plan_shard_placement(

@@ -1,0 +1,97 @@
+"""Hand-rolled gRPC service wiring: a method table per service, from which
+both server handlers and client stubs are built.
+
+Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services and RPCs the
+port serves or calls. Server impls are plain classes with one method per
+RPC (same names); streaming RPCs take and return iterators, as generated
+servicers do. `add_service` registers exactly the rows of a table, so an
+RPC left out of `VOLUME_SERVICE` is answered UNIMPLEMENTED by grpc itself.
+"""
+
+from __future__ import annotations
+
+import grpc
+
+from . import cluster_pb2 as pb
+
+UNARY = "unary_unary"
+SERVER_STREAM = "unary_stream"
+BIDI = "stream_stream"
+
+MASTER_SERVICE = "sw.Seaweed"
+VOLUME_SERVICE = "sw.VolumeServer"
+RAFT_SERVICE = "sw.Raft"
+
+SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
+    # what the master client and the volume server's heartbeats call
+    MASTER_SERVICE: {
+        "SendHeartbeat": (BIDI, pb.Heartbeat, pb.HeartbeatResponse),
+        "LookupVolume": (UNARY, pb.LookupVolumeRequest, pb.LookupVolumeResponse),
+        "LookupEcVolume": (UNARY, pb.LookupEcVolumeRequest, pb.LookupEcVolumeResponse),
+        "Topology": (UNARY, pb.TopologyRequest, pb.TopologyResponse),
+        "KeepConnected": (SERVER_STREAM, pb.KeepConnectedRequest, pb.VolumeLocationUpdate),
+    },
+    # the RPCs server/volume_grpc.py serves
+    VOLUME_SERVICE: {
+        "AllocateVolume": (UNARY, pb.AllocateVolumeRequest, pb.AllocateVolumeResponse),
+        "VolumeDelete": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
+        "VolumeMount": (UNARY, pb.AllocateVolumeRequest, pb.VolumeCommandResponse),
+        "VolumeUnmount": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
+        "WriteNeedle": (UNARY, pb.WriteNeedleRequest, pb.WriteNeedleResponse),
+        "ReadNeedle": (UNARY, pb.ReadNeedleRequest, pb.ReadNeedleResponse),
+        "DeleteNeedle": (UNARY, pb.DeleteNeedleRequest, pb.DeleteNeedleResponse),
+        "VolumeEcShardsGenerate": (UNARY, pb.EcShardsGenerateRequest, pb.EcShardsGenerateResponse),
+        "VolumeEcShardsRebuild": (UNARY, pb.EcShardsRebuildRequest, pb.EcShardsRebuildResponse),
+        "VolumeEcShardsCopy": (UNARY, pb.EcShardsCopyRequest, pb.EcShardsCopyResponse),
+        "VolumeEcShardsDelete": (UNARY, pb.EcShardsDeleteRequest, pb.EcShardsDeleteResponse),
+        "VolumeEcShardsMount": (UNARY, pb.EcShardsMountRequest, pb.EcShardsMountResponse),
+        "VolumeEcShardsUnmount": (UNARY, pb.EcShardsUnmountRequest, pb.EcShardsUnmountResponse),
+        "VolumeEcShardRead": (SERVER_STREAM, pb.EcShardReadRequest, pb.EcShardReadChunk),
+        "VolumeEcBlobDelete": (UNARY, pb.EcBlobDeleteRequest, pb.EcBlobDeleteResponse),
+        "VolumeEcShardsToVolume": (UNARY, pb.EcShardsToVolumeRequest, pb.EcShardsToVolumeResponse),
+        "CopyFile": (SERVER_STREAM, pb.CopyFileRequest, pb.CopyFileChunk),
+        "VolumeServerStatus": (UNARY, pb.VolumeServerStatusRequest, pb.VolumeServerStatusResponse),
+        "ScrubEcVolume": (UNARY, pb.ScrubRequest, pb.ScrubResponse),
+    },
+    # leader resolution of the master client
+    RAFT_SERVICE: {
+        "RaftStatus": (UNARY, pb.RaftStatusRequest, pb.RaftStatusResponse),
+    },
+}
+
+
+def add_service(server: grpc.Server, service_name: str, impl: object) -> None:
+    methods = {}
+    for name, (kind, req_t, resp_t) in SERVICES[service_name].items():
+        handler_factory = getattr(grpc, f"{kind}_rpc_method_handler")
+        methods[name] = handler_factory(
+            getattr(impl, name),
+            request_deserializer=req_t.FromString,
+            response_serializer=resp_t.SerializeToString,
+        )
+    server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(service_name, methods),))
+
+
+class Stub:
+    """Client stub: one callable attribute per RPC."""
+
+    def __init__(self, channel: grpc.Channel, service_name: str):
+        for name, (kind, req_t, resp_t) in SERVICES[service_name].items():
+            factory = getattr(channel, kind)
+            setattr(
+                self,
+                name,
+                factory(
+                    f"/{service_name}/{name}",
+                    request_serializer=req_t.SerializeToString,
+                    response_deserializer=resp_t.FromString,
+                ),
+            )
+
+
+def master_stub(channel: grpc.Channel) -> Stub:
+    return Stub(channel, MASTER_SERVICE)
+
+
+def volume_stub(channel: grpc.Channel) -> Stub:
+    return Stub(channel, VOLUME_SERVICE)

@@ -1,8 +1,10 @@
-"""Volume server: the HTTP data plane and the shard net plane over one Store.
+"""Volume server: the HTTP data plane and the shard net plane over one
+Store, with the gRPC service and the cluster half beside them.
 
-Port of seaweedfs_tpu/server/volume_server.py, trimmed to the data plane
-(reference weed/server/volume_server.go; volume_server_handlers_read.go:142
-GetOrHeadHandler, _write.go:20 PostHandler):
+Port of seaweedfs_tpu/server/volume_server.py. This module holds the data
+plane (reference weed/server/volume_server.go;
+volume_server_handlers_read.go:142 GetOrHeadHandler, _write.go:20
+PostHandler):
 
 - the HTTP needle front end on the pooled worker server
   (utils/http_pool.py): GET and HEAD with ranges and ETags (a needle of
@@ -14,21 +16,27 @@ GetOrHeadHandler, _write.go:20 PostHandler):
   resolvers: shard ranges, needle payloads, needle writes and
   stream-shard blobs.
 
-Protobuf stays at the edge: the HTTP handler and the plane's write
+The gRPC service with its EC RPCs, the master client, heartbeats, the
+replica fan-out, the remote shard reader and peer-fetch rebuild live in
+server/volume_grpc.py, which the constructor imports: this module itself
+imports neither grpc nor protobuf. The HTTP handler and the plane's write
 resolver call the plain methods `write_needle` and `delete_needle`, which
-return what the JAX servicer's WriteNeedle and DeleteNeedle return.
+return what the JAX servicer's WriteNeedle and DeleteNeedle return; the
+servicer's adapters call them too. The cluster half is reached under the
+JAX server's names (`service`, `peer_fetch_rebuild`, `replicate_write`,
+`replicate_delete`, `replicate_ec_delete`, the four `notify_*`).
 
-Fan-out to other holders goes through the master client, which the port
-does not have yet. A write or delete that the JAX server would fan out (a
-volume whose replica placement asks for more than one copy, any delete on
-an EC volume) is done here and then answered with an error that names
-the missing fan-out, where the JAX server answers a failed fan-out: it is
-never acknowledged with fewer copies than its placement asks for.
+A write or delete that the JAX server would fan out (a volume whose
+replica placement asks for more than one copy, any delete on an EC
+volume) goes to the holders the master names, as many as it names:
+where it names fewer than the placement asks for, the write is
+acknowledged with the copies reached, as in the JAX server. Where the
+master lookup fails, a replicated write or delete is done here and
+answered with an error that names the missing fan-out
+(`FAN_OUT_REFUSED`), where the JAX server acknowledges it with one copy.
 
-Left out: the gRPC service and its RPCs, heartbeats and the master
-client, ``?locate=true`` and the fastread sidecar, thumbnails,
-/debug/pprof, TLS, and remote shard reads of EC volumes (the Store is
-built with no ``ec_remote_reader_factory``).
+Left out: ``?locate=true`` and the fastread sidecar, thumbnails,
+/debug/pprof, TLS, and the admin RPCs of plain volumes.
 """
 
 from __future__ import annotations
@@ -66,11 +74,14 @@ class VolumeServer:
     def __init__(
         self,
         directories: list[str],
+        master: str = "",
         ip: str = "localhost",
         port: int = 8080,
         grpc_port: int = 0,
         max_volume_count: int = 8,
         ec_backend: str = "cuda",
+        data_center: str = "",
+        rack: str = "",
         jwt_key: str = "",
         needle_map_kind: str = "memory",
         ec_scrub_interval: float = 0.0,
@@ -88,9 +99,15 @@ class VolumeServer:
         http_workers: int = 32,
         http_queue: int = 128,
     ):
-        """`grpc_port` (default `port` + 10000) only places the net plane,
-        at `derive_port(grpc_port)` as peers derive it: the port serves no
-        gRPC. `ec_backend` names the backend of the mounted EC volumes:
+        """`master` is the master's HTTP address ("host:port", or a
+        comma-separated HA group): heartbeats go to its gRPC port (+10000)
+        and the fan-out, the remote shard reader and peer-fetch rebuild
+        look holders up there. "" (the default; the JAX server's is
+        "localhost:9333") runs the server without one: no heartbeat, and
+        every lookup fails at once. The gRPC service listens on
+        `grpc_port` (default `port` + 10000) and the net plane on
+        `derive_port(grpc_port)`, as peers derive them. `ec_backend` names
+        the backend of the mounted EC volumes and of RPCs that name none:
         cuda (the default), cpu or auto. The scheduler, placement and
         trace arguments are the JAX server's: a per-store QueueScope, and
         the process-wide flight recorder armed only when asked."""
@@ -112,11 +129,18 @@ class VolumeServer:
         self.port = port
         self.grpc_port = grpc_port or (port + 10000)
         self.max_volume_count = max_volume_count
+        from .volume_grpc import ClusterHalf
+
+        # the gRPC server (bound on grpc_port here), the master client and
+        # the heartbeats
+        self.cluster = ClusterHalf(self, master, data_center, rack)
+        self.service = self.cluster.service
         self.store = Store(
             directories,
             ip=ip,
             port=port,
             ec_backend=ec_backend,
+            ec_remote_reader_factory=self.cluster._remote_reader_factory,
             needle_map_kind=needle_map_kind,
             # one reconstructed-interval cache for every EC volume of the
             # server; None keeps the store default, 0 disables it
@@ -181,8 +205,8 @@ class VolumeServer:
         """Append one needle to volume `vid`: the body of the JAX
         servicer's WriteNeedle, the same record. Returns (size, error),
         error "" on success, else the servicer's error string. A write
-        that is not itself a replica (`is_replicate`) goes to `replicate`
-        after the local append. `fsync` None is the
+        that is not itself a replica (`is_replicate`) goes to
+        `replicate_write` after the local append. `fsync` None is the
         store's default (SEAWEED_VOLUME_FSYNC)."""
         with M.request_seconds.time(server="volume", op="write"):
             size, err = self._write_needle(vid, nid, cookie, data, name, mime, flags,
@@ -202,7 +226,12 @@ class VolumeServer:
         except (NotFoundError, ReadOnlyError, VolumeError, ValueError, OSError) as e:
             return 0, str(e)
         if not is_replicate:
-            err = self.replicate(vid, "write")
+            err = self.replicate_write(
+                vid, nid, cookie, data,
+                name=name.decode(errors="replace") if isinstance(name, bytes) else name,
+                mime=mime.decode(errors="replace") if isinstance(mime, bytes) else mime,
+                flags=flags,
+            )
             if err:
                 return 0, err
         return size, ""
@@ -211,7 +240,9 @@ class VolumeServer:
         """Tombstone one needle: the body of the JAX servicer's
         DeleteNeedle. Returns (freed bytes, error), error "" on success;
         (freed, error) where the local delete was done and the fan-out
-        was not."""
+        was not. Failed legs of a replica delete are ignored, as in the
+        JAX server; a failed EC tombstone leg is not (a missed holder
+        would bring the needle back)."""
         try:
             freed = self.store.delete_needle(vid, nid)
         except NotFoundError as e:
@@ -225,37 +256,44 @@ class VolumeServer:
             if ev is not None:
                 err = self.replicate_ec_delete(vid, ev.collection, nid)
             else:
-                err = self.replicate(vid, "delete")
+                err = self.replicate_delete(vid, nid)
             if err:
                 return freed, err
         return freed, ""
 
-    def replicate(self, vid: int, op: str) -> str:
-        """The replica fan-out of a write or delete (JAX `replicate_write`,
-        `replicate_delete`): "" where the volume's placement asks for one
-        copy, else the refusal, since the other holders are found through
-        the master client."""
-        v = self.store.find_volume(vid)
-        copies = v.super_block.replica_placement.copy_count if v is not None else 1
-        if copies <= 1:
-            return ""
-        return (f"replica {op} {FAN_OUT_REFUSED}: volume {vid} asks for {copies} copies "
-                f"and this server has no master client to find the other holders")
+    # --------------------------------------------- the cluster half's names
+
+    def replicate_write(self, vid: int, nid: int, cookie: int, data: bytes, name: str = "",
+                        mime: str = "", flags: int = 0) -> str:
+        return self.cluster.replicate_write(vid, nid, cookie, data, name, mime, flags)
+
+    def replicate_delete(self, vid: int, nid: int) -> str:
+        return self.cluster.replicate_delete(vid, nid)
 
     def replicate_ec_delete(self, vid: int, collection: str, needle_id: int) -> str:
-        """The EC tombstone fan-out (JAX `replicate_ec_delete`): every
-        other shard holder must journal it, or a decode from another
-        holder brings the needle back. Always refused here: the holders
-        are found through the master client."""
-        return (f"ec tombstone {FAN_OUT_REFUSED}: needle {needle_id:x} of ec volume {vid} "
-                f"is deleted here only; this server has no master client to find the "
-                f"other shard holders")
+        return self.cluster.replicate_ec_delete(vid, collection, needle_id)
 
-    def _refresh_volume_gauges(self) -> None:
-        """`sw_volumes` and `sw_volume_bytes` as the JAX server sets them at
-        each heartbeat; the port has no heartbeats, so /metrics and
-        /status set them."""
-        st = self.store.status()
+    def peer_fetch_rebuild(self, vid: int, collection: str = "", backend_name: str = "") -> dict:
+        return self.cluster.peer_fetch_rebuild(vid, collection, backend_name)
+
+    def notify_new_volume(self, vid: int) -> None:
+        self.cluster.notify_new_volume(vid)
+
+    def notify_deleted_volume(self, vid: int) -> None:
+        self.cluster.notify_deleted_volume(vid)
+
+    def notify_new_ec_shards(self, vid: int, collection: str) -> None:
+        self.cluster.notify_new_ec_shards(vid, collection)
+
+    def notify_deleted_ec_shards(self, vid: int, collection: str, sids) -> None:
+        self.cluster.notify_deleted_ec_shards(vid, collection, sids)
+
+    def _refresh_volume_gauges(self, st: dict | None = None) -> None:
+        """`sw_volumes` and `sw_volume_bytes`, set at each heartbeat as the
+        JAX server sets them, and by /metrics and /status (a server without
+        a master sends none). `st`: a `store.status()` already taken."""
+        if st is None:
+            st = self.store.status()
         addr = self.store.public_url
         M.volume_count.set(len(st["volumes"]), kind="normal", addr=addr)
         M.volume_count.set(len(st["ec_volumes"]), kind="ec", addr=addr)
@@ -281,17 +319,16 @@ class VolumeServer:
     def _net_plane_resolve_needle(self, vid: int, nid: int, cookie: int):
         """A needle payload's location for the needle-read opcode. EC,
         TTL'd and cold-tiered volumes refuse as a whole (status 2): their
-        reads take the locked, checked HTTP path. The fd is opened per
-        request against the current .dat, so a vacuum mid-flight shows
-        as the client's CRC mismatch."""
+        reads take the locked, checked HTTP path. A missing needle and a
+        wrong cookie answer status 2 too, as the JAX resolver answers
+        them: NotFoundError and CookieMismatch are VolumeErrors. The fd is
+        opened per request against the current .dat, so a vacuum
+        mid-flight shows as the client's CRC mismatch."""
         vol = self.store.find_volume(vid)
         if vol is None:
             raise _netp.NetPlaneVolumeRefusal("volume not here (or EC)")
         try:
             path, off, size, crc = vol.locate_payload(nid, cookie)
-        except (NotFoundError, CookieMismatch) as e:
-            # this needle only: other needles of the volume may serve
-            raise _netp.NetPlaneError(str(e)) from None
         except VolumeError as e:
             raise _netp.NetPlaneVolumeRefusal(str(e)) from None
         except Exception as e:  # noqa: BLE001 — any other fault is this needle's
@@ -599,6 +636,7 @@ class VolumeServer:
     # -------------------------------------------------------- lifecycle
 
     def start(self) -> None:
+        self.cluster.start()
         self._http_thread.start()
         if self.net_plane is not None:
             self.net_plane.start()
@@ -606,6 +644,7 @@ class VolumeServer:
             self.scrub_daemon.start()
 
     def stop(self) -> None:
+        self.cluster.stop()
         if self.net_plane is not None:
             self.net_plane.stop()
         if self.scrub_daemon is not None:

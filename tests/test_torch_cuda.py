@@ -43,6 +43,7 @@ from seaweedfs_tpu_torch.ec import (
 from seaweedfs_tpu_torch.ec.backend import _decode_coeffs
 from seaweedfs_tpu_torch.ec.bitrot import BitrotProtection, ShardChecksumBuilder
 from seaweedfs_tpu_torch.ec.encoder import write_ec_files
+from seaweedfs_tpu_torch.ec.net_plane import free_grpc_port
 from seaweedfs_tpu_torch.ops import gf256, rs_kernels, rs_torch
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.super_block import SuperBlock
@@ -1242,16 +1243,17 @@ def test_recv_file_over_loopback_at_4mib(cuda, tmp_path):
     assert path.read_bytes() == bytes(4096) + payload
 
 
-def _server(directory, backend):
+def _free() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _server(directory, backend, master=""):
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
-    def free():
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
-    vs = VolumeServer([str(directory)], ip="127.0.0.1", port=free(), grpc_port=free() - 10000,
-                      ec_backend=backend)
+    vs = VolumeServer([str(directory)], master=master, ip="127.0.0.1", port=_free(),
+                      grpc_port=free_grpc_port(), ec_backend=backend)
     vs.start()
     return vs
 
@@ -1345,3 +1347,117 @@ def test_server_plane_needles_at_4mib_byte_exact(cuda, tmp_path):
     finally:
         client.close()
         vs.stop()
+
+
+# ------------------------------------------------- the gRPC service and cluster half
+
+
+def _stub(vs):
+    import grpc
+
+    from seaweedfs_tpu_torch.pb import rpc
+
+    ch = grpc.insecure_channel(f"127.0.0.1:{vs.grpc_port}")
+    return ch, rpc.volume_stub(ch)
+
+
+def test_grpc_generate_and_rebuild_on_card_match_cpu(cuda, tmp_path):
+    """VolumeEcShardsGenerate and VolumeEcShardsRebuild over gRPC on a card
+    server (no backend named: the server's cuda) give the shards CpuBackend
+    gives for the same .dat; one gf2_apply launch per batch."""
+    import shutil
+
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+
+    ctx = ECContext(10, 4)
+    vs = _server(tmp_path / "card", "cuda")
+    ch, st = _stub(vs)
+    try:
+        vol = vs.store.allocate_volume(5)
+        rng = np.random.default_rng(43)
+        for nid in range(1, 40):
+            assert not vs.write_needle(5, nid, nid, rng.bytes(int(rng.integers(1000, 500_000))))[1]
+        base = vol.dat_path[:-4]
+        os.makedirs(tmp_path / "cpu")
+        for ext in (".dat", ".idx"):
+            shutil.copy(base + ext, tmp_path / "cpu" / f"5{ext}")
+        ec_encode_volume(str(tmp_path / "cpu" / "5"), ctx, backend=CpuBackend(ctx))
+        rs_kernels.reset_launches()
+        st.VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=5), timeout=300)
+        assert rs_kernels.LAUNCHES["gf2_apply"] == _batches(base)
+        assert not rs_kernels.LAUNCHES["gf2_apply_planes"]
+        want = [(tmp_path / "cpu" / f"5.ec{i:02d}").read_bytes() for i in range(14)]
+        assert _shards(base) == want
+        for sid in (2, 12):
+            os.unlink(base + f".ec{sid:02d}")
+        rs_kernels.reset_launches()
+        r = st.VolumeEcShardsRebuild(pb.EcShardsRebuildRequest(volume_id=5), timeout=300)
+        assert list(r.rebuilt_shard_ids) == [2, 12] and rs_kernels.LAUNCHES["gf2_apply"] >= 1
+        assert _shards(base) == want
+    finally:
+        ch.close()
+        vs.stop()
+
+
+def test_peer_fetch_rebuild_over_grpc_on_card(cuda, tmp_path):
+    """Two card servers under chip_smoke's stand-in master: a subset holder
+    (4 of 14 shards) with shard 0 quarantined rebuilds it from its peer
+    (VolumeEcShardsRebuild from_peers), sha256-identical, and serves a
+    degraded GET of shard 0's needles through gf2_apply_planes before."""
+    import chip_smoke
+
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    mport = free_grpc_port()
+    master = chip_smoke.StandInMaster("127.0.0.1", mport)
+    master.start()
+    holder = _server(tmp_path / "holder", "cuda", master=f"127.0.0.1:{mport}")
+    other = _server(tmp_path / "other", "cuda", master=f"127.0.0.1:{mport}")
+    chans = []
+    try:
+        vol = holder.store.allocate_volume(6)
+        rng = np.random.default_rng(44)
+        bodies = {nid: rng.bytes(int(rng.integers(1000, 300_000))) for nid in range(1, 30)}
+        for nid, body in bodies.items():
+            assert not holder.write_needle(6, nid, nid, body)[1]
+        (ch_h, st_h), (ch_o, st_o) = _stub(holder), _stub(other)
+        chans += [ch_h, ch_o]
+        st_h.VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=6), timeout=300)
+        st_h.VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=6), timeout=60)
+        st_h.VolumeDelete(pb.VolumeCommandRequest(volume_id=6), timeout=60)
+        base = vol.dat_path[:-4]
+        ground = _shards(base)
+        moved = list(range(4, 14))
+        st_o.VolumeEcShardsCopy(pb.EcShardsCopyRequest(
+            volume_id=6, shard_ids=moved, source_url=f"127.0.0.1:{holder.grpc_port}",
+            copy_ecx=True, copy_ecj=True, copy_vif=True, copy_ecsum=True), timeout=300)
+        st_o.VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=6), timeout=60)
+        st_h.VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=6, shard_ids=moved), timeout=60)
+        st_h.VolumeEcShardsDelete(pb.EcShardsDeleteRequest(volume_id=6, shard_ids=moved), timeout=60)
+        os.replace(base + ".ec00", base + ".ec00.bad")
+        holder.store.unmount_ec_shards(6, [0])
+        holder.notify_deleted_ec_shards(6, "", [0])
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            held = {sid for n in master.nodes.values() for e in n["ec_shards"].values()
+                    for sid in range(14) if e.shard_bits >> sid & 1}
+            if held == set(range(1, 14)):
+                break
+            time.sleep(0.05)
+        assert held == set(range(1, 14))
+        rs_kernels.reset_launches()
+        nid = 1  # the first needle lies on shard 0
+        assert _get(holder, f"/{FileId(6, nid, nid)}")[2] == bodies[nid]
+        assert rs_kernels.LAUNCHES["gf2_apply_planes"] >= 1
+        r = st_h.VolumeEcShardsRebuild(pb.EcShardsRebuildRequest(volume_id=6, from_peers=True),
+                                       timeout=300)
+        assert list(r.rebuilt_shard_ids) == [0] and len(r.fetched_shard_ids) == 7
+        assert open(base + ".ec00", "rb").read() == ground[0]
+        assert 0 in holder.store.find_ec_volume(6).shard_fds
+    finally:
+        for ch in chans:
+            ch.close()
+        holder.stop()
+        other.stop()
+        master.stop()

@@ -333,8 +333,10 @@ def _python_files():
 )
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     banned = {"jax", "jaxlib", "seaweedfs_tpu"}
-    if PORT / "server" in path.parents:
-        banned |= {"grpc", "google"}  # the data plane keeps gRPC and protobuf at the edge
+    if path == PORT / "server" / "volume_server.py":
+        # the data plane: gRPC and protobuf stay in server/volume_grpc.py,
+        # client/ and pb/
+        banned |= {"grpc", "google"}
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -352,8 +354,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
-    assert {"ec", "faults", "mq", "ops", "server", "storage", "utils"} <= scanned
+    assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "storage", "utils"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
+    assert PORT / "server" / "volume_grpc.py" in _python_files()
 
 
 _SUBPROCESS_ENCODE = r"""
@@ -496,6 +499,27 @@ PartitionParity(d, "ns", "remote", 0, backend=rp.backend).delete()
 assert not os.listdir(os.path.join(blobs, "ns", "remote", "0000"))
 del os.environ["SEAWEED_EC_STREAM_REMOTE_ROOTS"]
 bplane.stop()
+# a port server's gRPC EC RPCs, with no master reachable
+import grpc
+from seaweedfs_tpu_torch.ec.net_plane import free_grpc_port
+from seaweedfs_tpu_torch.pb import cluster_pb2 as pb, rpc
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+dead = free_grpc_port()
+vs = VolumeServer([os.path.join(d, "vs")], master=f"127.0.0.1:{dead}", ip="127.0.0.1",
+                  port=free_grpc_port(), grpc_port=free_grpc_port(), ec_backend="cpu")
+vs.start()
+vol = vs.store.allocate_volume(13)
+for nid, body in bodies.items():
+    vs.store.write_needle(13, Needle(cookie=nid, needle_id=nid, data=body))
+with grpc.insecure_channel(f"127.0.0.1:{vs.grpc_port}") as ch:
+    st = rpc.volume_stub(ch)
+    gen = st.VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=13), timeout=60).generation
+    st.VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=13), timeout=30)
+    got = b"".join(c.data for c in st.VolumeEcShardRead(pb.EcShardReadRequest(
+        volume_id=13, shard_id=12, offset=0, size=70_000, generation=gen), timeout=30))
+assert got == open(os.path.join(d, "vs", "13.ec12"), "rb").read()[:70_000] and len(got) == 70_000
+vs.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
