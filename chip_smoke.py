@@ -6,7 +6,8 @@
 Drives the port's main paths at the size the project names, a seeded
 1 GiB RS 10+4 volume of real needles, through the entry points a user
 calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
-`ec_decode_volume`, `TorchBackend`, `CpuBackend`, `rebuild_from_peers`).
+`ec_decode_volume`, `TorchBackend`, `CpuBackend`, `rebuild_from_peers`,
+`VolumeServer`, `python -m seaweedfs_tpu_torch.server volume`).
 Phases:
 
 1. print the card (`nvidia-smi` name and power limit), and build from
@@ -234,6 +235,24 @@ Phases:
    holder, every holder scrubbed, and the data shards gathered on B and
    decoded there to the original .dat. One JSON line gives each step's
    wall, GB/s and launches.
+16. the admin RPCs of plain volumes and the launcher, on the same 1 GiB
+   volume (hard links) under a stand-in master: server A built in this
+   process by the launcher's `build` (`-ec.backend cuda`), B and C child
+   processes started by name (`python3 -m seaweedfs_tpu_torch.server
+   volume`). 16a VolumeMount and ReadVolumeFileStatus on A; 16b
+   VolumeMarkReadonly, VolumeCopy into B (files sha256-equal),
+   VolumeMarkWritable; 16c 64 MiB of new needles POSTed to A and 5
+   deleted, B's VolumeTailReceiver from A (.dat and .idx identical),
+   VolumeIncrementalCopy (A's .dat suffix); 16d a tenth of the needles
+   deleted and VacuumVolume (the bytes reclaimed and the revision
+   expected, every live needle read back); 16e ScrubVolume clean on A and
+   naming the one needle flipped on B; 16f VolumeCopy into C,
+   VolumeTierUpload to a small object endpoint, 20 GETs from the tier,
+   VolumeTierDownload (the .dat sha256-equal); 16g the shell's ec.encode
+   flow (readonly on every holder, VolumeEcShardsGenerate on A: launches
+   == batches; mount; VolumeDelete on every holder) and every needle over
+   shard 3 read degraded with GET at A (launches == reconstructions). One
+   JSON line per step; each child's start-to-first-heartbeat seconds.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -247,6 +266,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import struct
 import socket
 import subprocess
@@ -255,6 +275,7 @@ import tempfile
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -3584,6 +3605,7 @@ class StandInMaster:
         self.addr = f"{ip}:{port}"
         self._lock = threading.Lock()
         self.nodes: dict[str, dict] = {}  # node id -> location, volumes, ec_shards, ...
+        self.first_seen: dict[str, float] = {}  # node id -> perf_counter of its first heartbeat
         self.max_volume_id = 0
         self._subscribers: list = []
         self._grpc = grpc.server(futures.ThreadPoolExecutor(max_workers=16))
@@ -3626,6 +3648,7 @@ class StandInMaster:
                                     "rack": hb.rack, "max_volume_count": int(hb.max_volume_count) or 8,
                                     "volumes": {}, "ec_shards": {}}
                             self.nodes[nid] = node
+                            self.first_seen.setdefault(nid, time.perf_counter())
                         if hb.max_volume_count:
                             node["max_volume_count"] = int(hb.max_volume_count)
                         node["owner"] = token
@@ -3724,12 +3747,12 @@ CLUSTER_REP_BYTES = 256 << 20  # 15f: phase 3's first needles, POSTed to the `00
 CLUSTER_DELETES = 5  # 15g: EC deletes fanned out to every holder
 
 
-def wait_until(cond, what: str, timeout: float = 30.0) -> float:
+def wait_until(cond, what: str, timeout: float = 30.0, phase: str = "15") -> float:
     """Poll `cond` until true; returns the seconds waited."""
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"15: {what} within {timeout} s")
+            raise AssertionError(f"{phase}: {what} within {timeout} s")
         time.sleep(0.02)
     return time.perf_counter() - t0
 
@@ -4091,6 +4114,517 @@ def cluster_phase(work: str, ctx, digests: dict, records, n_batches: int, reb_ba
     return result, launches
 
 
+ADMIN_VID = 1  # phase 16's volume: the 1 GiB volume (hard links into A)
+ADMIN_NEW_BYTES = 64 << 20  # 16c: new needles POSTed to A at phase 3's sizes
+ADMIN_NEW_DELETES = 5  # 16c: of those, deleted before the catch-up
+ADMIN_VACUUM_EVERY = 10  # 16d: every 10th original needle deleted before the vacuum
+ADMIN_TIER_GETS = 20  # 16f: GETs served from the cold tier
+CHILD_STOP_S = 10.0  # a child server that outlives SIGTERM by this much is killed
+
+
+class ObjectEndpoint:
+    """Phase 16's cold tier: a small object endpoint that answers PUT, GET
+    (with `Range`), HEAD and DELETE from a directory, as the S3-style URL
+    the port's `storage/backend.py` reads and writes (the port has no S3
+    gateway of its own). It counts the ranged GETs it serves."""
+
+    def __init__(self, root: str):
+        import http.server
+        import threading
+
+        os.makedirs(root, exist_ok=True)
+        endpoint = self
+        self.root = root
+        self.ranged_gets = 0
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _path(self) -> str:
+                return os.path.join(root, self.path.strip("/").replace("/", "_"))
+
+            def _reply(self, code: int, length: int = 0, headers=()) -> None:
+                self.send_response(code)
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(length))
+                self.end_headers()
+
+            def do_PUT(self):
+                left = int(self.headers["Content-Length"])
+                tmp = self._path() + ".part"
+                with open(tmp, "wb") as f:
+                    while left > 0:
+                        chunk = self.rfile.read(min(8 << 20, left))
+                        if not chunk:
+                            break
+                        f.write(chunk)
+                        left -= len(chunk)
+                if left:
+                    os.unlink(tmp)
+                    return self._reply(400)
+                os.replace(tmp, self._path())
+                self._reply(200)
+
+            def do_HEAD(self):
+                p = self._path()
+                if not os.path.exists(p):
+                    return self._reply(404)
+                self._reply(200, os.path.getsize(p))
+
+            def do_GET(self):
+                p = self._path()
+                if not os.path.exists(p):
+                    return self._reply(404)
+                size = os.path.getsize(p)
+                lo, hi, code, headers = 0, size - 1, 200, []
+                rng = re.fullmatch(r"bytes=(\d+)-(\d+)", self.headers.get("Range", ""))
+                if rng:
+                    lo, hi = int(rng[1]), min(int(rng[2]), size - 1)
+                    code, headers = 206, [("Content-Range", f"bytes {lo}-{hi}/{size}")]
+                    endpoint.ranged_gets += 1
+                self._reply(code, hi - lo + 1, headers)
+                with open(p, "rb") as f:
+                    self.connection.sendfile(f, lo, hi - lo + 1)
+
+            def do_DELETE(self):
+                p = self._path()
+                if not os.path.exists(p):
+                    return self._reply(404)
+                os.unlink(p)
+                self._reply(204)
+
+        self._httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+def server_port() -> int:
+    """An HTTP port whose gRPC port (+10000) and net-plane port are free:
+    a launched server derives both from its `-port`."""
+    from seaweedfs_tpu_torch.ec import net_plane
+
+    while True:
+        p = net_plane.free_grpc_port()
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", net_plane.derive_port(p + 10000)))
+        except OSError:
+            continue
+        return p
+
+
+def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dict]:
+    """Phase 16: the admin RPCs of plain volumes and the launcher, on the
+    1 GiB volume (hard links made right after phase 4) under a
+    `StandInMaster`. Server A is built in this process by the launcher's
+    `build` (-ec.backend cuda), so its launches count here; B and C are
+    children started by name (`python3 -m seaweedfs_tpu_torch.server
+    volume ... -ec.backend cuda`). 16a VolumeMount and ReadVolumeFileStatus
+    on A; 16b VolumeMarkReadonly on A, VolumeCopy into B (sha256-equal
+    files), VolumeMarkWritable; 16c 64 MiB of new needles POSTed to A and 5
+    deleted, B's VolumeTailReceiver from A (B's .dat and .idx identical to
+    A's), VolumeIncrementalCopy from A (A's .dat suffix); 16d a tenth of
+    the needles deleted, VacuumVolume (the reclaimed bytes and revision
+    expected, every live needle read back); 16e ScrubVolume on A (clean)
+    and on B with one needle's body flipped (that needle named); 16f
+    VolumeCopy into C, VolumeTierUpload to an `ObjectEndpoint`, 20 GETs
+    from the tier, VolumeTierDownload (the .dat sha256-equal); 16g the
+    shell's `ec.encode` flow (readonly on every holder, generate on A:
+    `gf2_apply` launches == batches; mount; VolumeDelete on every holder),
+    shard 3 unmounted and every needle over it read with GET at A
+    (`gf2_apply_planes` launches == reconstructions). Every body read is
+    sha256-equal to phase 3's (or the new needle's). Prints one JSON line
+    per step; returns (result, launches)."""
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.server.__main__ import build
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.types import actual_offset, padded_record_size
+
+    root = os.path.join(work, "admin")
+    dirs = {n: os.path.join(root, n) for n in "abc"}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    vid = ADMIN_VID
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    result: dict = {}
+
+    def digest(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def check(resp, what: str):
+        if resp.error:
+            raise AssertionError(f"{what}: {resp.error}")
+        return resp
+
+    def line(label: str, out: dict) -> None:
+        result[label] = out
+        print(f"{label}: {json.dumps(out)}")
+
+    mport = server_port()
+    master = StandInMaster("127.0.0.1", mport)
+    master.start()
+    endpoint = ObjectEndpoint(os.path.join(root, "tier"))
+    endpoint.start()
+    children: dict = {}
+    servers: list = []
+    channels: list = []
+    ports = {n: server_port() for n in "abc"}
+    url = {n: f"127.0.0.1:{p}" for n, p in ports.items()}
+    gaddr = {n: f"127.0.0.1:{p + 10000}" for n, p in ports.items()}
+    failed = True
+    try:
+        # -- servers: B and C started by name, A built here by the launcher ----
+        env = dict(os.environ, PYTHONPATH=repo)
+        spawned = {}
+        for n in "bc":
+            log = open(os.path.join(root, f"{n}.log"), "wb")
+            spawned[n] = time.perf_counter()
+            children[n] = (subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch.server", "volume", "-dir", dirs[n],
+                 "-master", f"127.0.0.1:{mport}", "-ip", "127.0.0.1", "-port", str(ports[n]),
+                 "-ec.backend", "cuda"],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT), log)
+        t0 = time.perf_counter()
+        (server_a,) = build(["volume", "-dir", dirs["a"], "-master", f"127.0.0.1:{mport}", "-ip",
+                             "127.0.0.1", "-port", str(ports["a"]), "-ec.backend", "cuda"],
+                            config_dirs=())
+        servers.append(server_a)
+        build_s = time.perf_counter() - t0
+        if server_a.store.ec_backend != "cuda" or server_a.net_plane is None:
+            raise AssertionError("16: the launcher built A without cuda or its net plane")
+
+        # phase 3's bodies, as digests, and 64 MiB of new needles at its sizes,
+        # while the children start
+        rng = np.random.default_rng()
+        rng.bit_generator.state = vol_rng_state
+        stream = needle_stream(rng)
+        want = {}
+        for rec in records:
+            nid, cookie, body = next(stream)
+            if (nid, cookie, len(body)) != (rec[0], rec[1], rec[3]):
+                raise AssertionError("16: phase 3's needle stream does not replay")
+            want[nid] = (cookie, digest(body))
+        new, total = [], 0
+        for nid, cookie, body in needle_stream(np.random.default_rng(SEED + 16)):
+            if total + len(body) > ADMIN_NEW_BYTES:
+                break
+            if nid not in want:
+                new.append((nid, cookie, body))
+                total += len(body)
+
+        def registered() -> bool:
+            for n, (proc, _) in children.items():
+                if proc.poll() is not None:
+                    raise AssertionError(f"16: child {n} exited with {proc.returncode}: "
+                                         + open(os.path.join(root, f"{n}.log"), "rb").read()[-2000:]
+                                         .decode(errors="replace"))
+            return all(u in master.nodes for u in url.values())
+
+        wait_until(registered, "three servers registered", timeout=120, phase="16")
+        first_heartbeat_s = {n: master.first_seen[url[n]] - spawned[n] for n in "bc"}
+        for n in "abc":
+            channels.append(grpc.insecure_channel(gaddr[n]))
+        stub = {n: rpc.volume_stub(ch) for n, ch in zip("abc", channels)}
+        mchan = grpc.insecure_channel(f"127.0.0.1:{mport + 10000}")
+        channels.append(mchan)
+        mstub = rpc.master_stub(mchan)
+
+        def holders() -> list:
+            locs = mstub.LookupVolume(pb.LookupVolumeRequest(volume_ids=[vid]), timeout=10)
+            names = {u: n for n, u in url.items()}
+            return sorted(names[loc.url] for loc in locs.volume_locations[0].locations)
+
+        def status(n: str):
+            return check(stub[n].ReadVolumeFileStatus(pb.VolumeFileStatusRequest(volume_id=vid),
+                                                      timeout=60), f"ReadVolumeFileStatus on {n}")
+
+        def files(*names: str) -> list:
+            """Each server's volume files, ext -> sha256, hashed on threads."""
+            paths = [(n, ext, os.path.join(dirs[n], str(vid)) + ext) for n in names
+                     for ext in (".dat", ".idx", ".vif")]
+            paths = [p for p in paths if os.path.exists(p[2])]
+            with ThreadPoolExecutor(len(paths)) as ex:
+                digests = list(ex.map(sha256, [p[2] for p in paths]))
+            return [{ext: d for (m, ext, _), d in zip(paths, digests) if m == n} for n in names]
+
+        def get(n: str, nid: int, cookie: int, digest_want: str, what: str) -> float:
+            t0 = time.perf_counter()
+            code, _, body = http(f"http://{url[n]}/{FileId(vid, nid, cookie)}")
+            dt = time.perf_counter() - t0
+            if code != 200 or digest(body) != digest_want:
+                raise AssertionError(f"{what}: GET of needle {nid:x} at {n} answered {code}, "
+                                     f"{len(body)} bytes not equal to the written ones")
+            return dt
+
+        line("16 servers", {"build_a_seconds": build_s,
+                            "child_start_to_first_heartbeat_s": first_heartbeat_s})
+
+        # -- 16a. mount on A by hard link, and the file status ------------------
+        abase = os.path.join(dirs["a"], str(vid))
+        t0 = time.perf_counter()
+        check(stub["a"].VolumeMount(pb.AllocateVolumeRequest(volume_id=vid), timeout=120), "16a mount")
+        mount_s = time.perf_counter() - t0
+        st = status("a")
+        last = records[-1]
+        with open(abase + ".dat", "rb") as f:
+            f.seek(last[2])
+            raw = f.read(16 + 4 + last[3] + 1 + 4 + 8)
+        last_ns = struct.unpack(">Q", raw[-8:])[0]
+        if (st.dat_size, st.idx_size, st.version, st.compaction_revision, st.last_append_at_ns) != (
+                os.path.getsize(abase + ".dat"), os.path.getsize(abase + ".idx"), 3, 0, last_ns):
+            raise AssertionError(f"16a: ReadVolumeFileStatus answered {st}")
+        dat_size = st.dat_size
+        line("16a mount and status", {"mount_seconds": mount_s, "dat_size": st.dat_size,
+                                      "idx_size": st.idx_size, "needles": len(records)})
+
+        # -- 16b. volume.move's copy: readonly at A, VolumeCopy into B ----------
+        check(stub["a"].VolumeMarkReadonly(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+              "16b readonly")
+        t0 = time.perf_counter()
+        check(stub["b"].VolumeCopy(pb.EcShardsCopyRequest(volume_id=vid, source_url=gaddr["a"]),
+                                   timeout=600), "16b VolumeCopy into B")
+        copy_s = time.perf_counter() - t0
+        fa, fb = files("a", "b")
+        if fa != fb or ".dat" not in fa:
+            raise AssertionError(f"16b: B's files {fb} differ from A's {fa}")
+        wait_until(lambda: holders() == ["a", "b"], "the stand-in lists the volume at A and B", phase="16b")
+        check(stub["a"].VolumeMarkWritable(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+              "16b writable")
+        line("16b copy", {"seconds": copy_s, "bytes": dat_size, "gb_per_s": dat_size / copy_s / 1e9,
+                          "files": sorted(fa)})
+
+        # -- 16c. catch-up: B down (unmounted) while A takes 64 MiB of POSTs and 5
+        # deletes, then B back, tailing A ---------------------------------------
+        def a_sees(names: list) -> bool:
+            seen = sorted(loc.url for loc in server_a.cluster._master_client().lookup(vid))
+            return holders() == names and seen == sorted(url[n] for n in names)
+
+        check(stub["b"].VolumeUnmount(pb.VolumeCommandRequest(volume_id=vid), timeout=60), "16c B down")
+        wait_until(lambda: a_sees(["a"]), "B's unmount reached the stand-in and A", phase="16c")
+        before_ns = status("a").last_append_at_ns
+        before_size = os.path.getsize(abase + ".dat")
+        t0 = time.perf_counter()
+        for nid, cookie, body in new:
+            code, _, answer = http(f"http://{url['a']}/{FileId(vid, nid, cookie)}", "POST", body,
+                                   {"Content-Type": "application/octet-stream"})
+            if code != 201:
+                raise AssertionError(f"16c: POST answered {code} {answer[:200]!r}")
+        post_s = time.perf_counter() - t0
+        gone_new = new[:ADMIN_NEW_DELETES]
+        for nid, cookie, _ in gone_new:
+            code, _, answer = http(f"http://{url['a']}/{FileId(vid, nid, cookie)}", "DELETE")
+            if code != 202:
+                raise AssertionError(f"16c: DELETE answered {code} {answer[:200]!r}")
+        for nid, cookie, body in new[ADMIN_NEW_DELETES:]:
+            want[nid] = (cookie, digest(body))
+        check(stub["b"].VolumeMount(pb.AllocateVolumeRequest(volume_id=vid), timeout=120), "16c B back")
+        t0 = time.perf_counter()
+        r = check(stub["b"].VolumeTailReceiver(pb.VolumeTailReceiverRequest(
+            volume_id=vid, since_ns=0, source_volume_server=gaddr["a"], idle_timeout_seconds=1),
+            timeout=600), "16c VolumeTailReceiver")
+        tail_s = time.perf_counter() - t0
+        if r.received != len(new) + ADMIN_NEW_DELETES:
+            raise AssertionError(f"16c: B received {r.received} records for "
+                                 f"{len(new)} puts and {ADMIN_NEW_DELETES} deletes")
+        status("a")  # flushes A's files
+        status("b")
+        fa, fb = files("a", "b")
+        if fa != fb:
+            raise AssertionError("16c: B's .dat and .idx differ from A's after the catch-up")
+        t0 = time.perf_counter()
+        start, parts = None, []
+        for chunk in stub["a"].VolumeIncrementalCopy(pb.VolumeIncrementalCopyRequest(
+                volume_id=vid, since_ns=before_ns), timeout=600):
+            if start is None:
+                if not chunk.has_start:
+                    raise AssertionError("16c: the incremental copy's first chunk has no start")
+                start = chunk.start_offset
+            parts.append(chunk.file_content)
+        inc_s = time.perf_counter() - t0
+        suffix = b"".join(parts)
+        with open(abase + ".dat", "rb") as f:
+            f.seek(before_size)
+            if start != before_size or suffix != f.read():
+                raise AssertionError(f"16c: the incremental copy from {start} is not A's .dat suffix "
+                                     f"from {before_size}")
+        tail_bytes = sum(len(b) for _, _, b in new)
+        line("16c catch-up", {
+            "posts": len(new), "post_bytes": tail_bytes, "post_mb_per_s": tail_bytes / post_s / 1e6,
+            "deletes": len(gone_new), "tail_records": r.received, "tail_seconds": tail_s,
+            "tail_records_per_s": r.received / tail_s, "tail_mb_per_s": tail_bytes / tail_s / 1e6,
+            "incremental_bytes": len(suffix), "incremental_seconds": inc_s,
+            "incremental_mb_per_s": len(suffix) / inc_s / 1e6})
+        del parts, suffix
+
+        # -- 16d. a tenth of the needles deleted at A (and at B, its replica), vacuum
+        wait_until(lambda: a_sees(["a", "b"]), "B's mount reached the stand-in and A", phase="16d")
+        gone = records[::ADMIN_VACUUM_EVERY]
+        for nid, cookie, _, _ in gone:
+            code, _, answer = http(f"http://{url['a']}/{FileId(vid, nid, cookie)}", "DELETE")
+            if code != 202:
+                raise AssertionError(f"16d: DELETE answered {code} {answer[:200]!r}")
+            del want[nid]
+        va = server_a.store.find_volume(vid)
+        live_sizes = [nv.size for nv in va.needle_map.ascending_visit()]
+        if len(live_sizes) != len(want):
+            raise AssertionError(f"16d: A's map holds {len(live_sizes)} live needles, {len(want)} written")
+        old = status("a")
+        expect = old.dat_size - 8 - sum(padded_record_size(16 + s + 12) for s in live_sizes)
+        t0 = time.perf_counter()
+        vr = stub["a"].VacuumVolume(pb.VacuumRequest(volume_id=vid, garbage_threshold=0.05), timeout=600)
+        vac_s = time.perf_counter() - t0
+        now = status("a")
+        if vr.reclaimed_bytes != expect or now.compaction_revision != old.compaction_revision + 1 \
+                or now.dat_size != old.dat_size - expect or vr.garbage_ratio < 0.05:
+            raise AssertionError(f"16d: vacuum answered {vr} (expected {expect} bytes), revision "
+                                 f"{old.compaction_revision} -> {now.compaction_revision}")
+        t0 = time.perf_counter()
+        lat = [get("a", nid, cookie, d, "16d") for nid, (cookie, d) in want.items()]
+        line("16d vacuum", {"deleted": len(gone), "seconds": vac_s, "reclaimed_bytes": vr.reclaimed_bytes,
+                            "garbage_ratio": vr.garbage_ratio, "revision": now.compaction_revision,
+                            "reads": len(lat), "read_seconds": time.perf_counter() - t0})
+
+        # -- 16e. scrub: A clean, B with one flipped body byte ------------------
+        t0 = time.perf_counter()
+        sa = check(stub["a"].ScrubVolume(pb.ScrubRequest(volume_id=vid), timeout=600), "16e scrub A")
+        scrub_s = time.perf_counter() - t0
+        if sa.checked != len(want) or list(sa.bad_needles):
+            raise AssertionError(f"16e: scrub of A answered {sa}, {len(want)} live needles")
+        rot = next(rec for rec in records[len(records) // 2:] if rec[0] in want)
+        check(stub["b"].VolumeUnmount(pb.VolumeCommandRequest(volume_id=vid), timeout=60), "16e unmount B")
+        with open(os.path.join(dirs["b"], f"{vid}.dat"), "r+b") as f:
+            f.seek(rot[2] + 16 + 4 + rot[3] // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        check(stub["b"].VolumeMount(pb.AllocateVolumeRequest(volume_id=vid), timeout=120), "16e mount B")
+        t0 = time.perf_counter()
+        sb = check(stub["b"].ScrubVolume(pb.ScrubRequest(volume_id=vid), timeout=600), "16e scrub B")
+        scrub_b_s = time.perf_counter() - t0
+        if list(sb.bad_needles) != [rot[0]] or sb.checked != len(want):
+            raise AssertionError(f"16e: scrub of B answered {sb.checked} checked, bad "
+                                 f"{list(sb.bad_needles)}; expected {len(want)} and [{rot[0]}]")
+        line("16e scrub", {"a_checked": sa.checked, "a_seconds": scrub_s,
+                           "a_needles_per_s": sa.checked / scrub_s, "b_checked": sb.checked,
+                           "b_seconds": scrub_b_s, "b_bad": list(sb.bad_needles)})
+
+        # -- 16f. the cold tier on C --------------------------------------------
+        check(stub["c"].VolumeCopy(pb.EcShardsCopyRequest(volume_id=vid, source_url=gaddr["a"]),
+                                   timeout=600), "16f VolumeCopy into C")
+        cdat = os.path.join(dirs["c"], f"{vid}.dat")
+        fa, fc = files("a", "c")
+        if fa != fc:
+            raise AssertionError("16f: C's copy differs from A's files")
+        c_sha = fc[".dat"]
+        c_size = os.path.getsize(cdat)
+        check(stub["c"].VolumeMarkReadonly(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+              "16f readonly")
+        dest = f"http://127.0.0.1:{endpoint.port}/tier/{vid}.dat"
+        t0 = time.perf_counter()
+        up = check(stub["c"].VolumeTierUpload(pb.TierRequest(volume_id=vid, dest_url=dest), timeout=600),
+                   "16f VolumeTierUpload")
+        up_s = time.perf_counter() - t0
+        if up.moved_bytes != c_size or os.path.exists(cdat):
+            raise AssertionError(f"16f: tier upload moved {up.moved_bytes} of {c_size} bytes")
+        ranged0 = endpoint.ranged_gets
+        picks = list(want.items())[:: max(1, len(want) // ADMIN_TIER_GETS)][:ADMIN_TIER_GETS]
+        tier_lat = [get("c", nid, cookie, d, "16f") for nid, (cookie, d) in picks]
+        if endpoint.ranged_gets - ranged0 < len(picks):
+            raise AssertionError("16f: the tiered GETs did not read from the endpoint")
+        t0 = time.perf_counter()
+        down = check(stub["c"].VolumeTierDownload(pb.TierRequest(volume_id=vid, delete_remote=True),
+                                                  timeout=600), "16f VolumeTierDownload")
+        down_s = time.perf_counter() - t0
+        if down.moved_bytes != c_size or sha256(cdat) != c_sha or os.listdir(endpoint.root):
+            raise AssertionError("16f: the downloaded .dat differs, or the object was kept")
+        line("16f tier", {"bytes": c_size, "up_seconds": up_s, "up_gb_per_s": c_size / up_s / 1e9,
+                          "tier_gets": len(tier_lat), "tier_get_p50_ms": percentile_ms(tier_lat, 50),
+                          "down_seconds": down_s, "down_gb_per_s": c_size / down_s / 1e9})
+
+        # -- 16g. the shell's ec.encode flow, then degraded GETs at A -----------
+        wait_until(lambda: holders() == ["a", "b", "c"], "the stand-in lists A, B and C", phase="16g")
+        final = {nid: (actual_offset(nv.offset), nv.size)
+                 for nid, nv in ((nid, va.needle_map.get(nid)) for nid in want)}
+        enc_size = status("a").dat_size
+        n_batches = len(list(batch_plan(enc_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
+                                        SMALL_BLOCK_SIZE)))
+        for n in holders():
+            check(stub[n].VolumeMarkReadonly(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+                  f"16g readonly at {n}")
+        rs_kernels.reset_launches()
+        t0 = time.perf_counter()
+        stub["a"].VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=vid, backend="cuda"),
+                                         timeout=600)
+        gen_s = time.perf_counter() - t0
+        gen_launches = dict(rs_kernels.LAUNCHES)
+        if gen_launches["gf2_apply"] != n_batches or gen_launches["gf2_apply_planes"]:
+            raise AssertionError(f"16g: generate launched {gen_launches} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        stub["a"].VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=vid), timeout=60)
+        for n in "abc":
+            check(stub[n].VolumeDelete(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+                  f"16g VolumeDelete at {n}")
+        stub["a"].VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[DEGRADED]),
+                                        timeout=60)
+        degraded = [nid for nid, (off, size) in final.items()
+                    if any(sid == DEGRADED for sid, _, _ in record_intervals(off, size, enc_size))]
+        cache = server_a.store.ec_interval_cache
+        loads0 = cache.loads
+        rs_kernels.reset_launches()
+        lat = [get("a", nid, want[nid][0], want[nid][1], "16g") for nid in degraded]
+        recon = cache.loads - loads0
+        planes = rs_kernels.LAUNCHES["gf2_apply_planes"]
+        if planes != recon or planes < 1 or rs_kernels.LAUNCHES["gf2_apply"]:
+            raise AssertionError(f"16g: {rs_kernels.LAUNCHES} launches for {recon} reconstructions")
+        launches["gf2_apply_planes"] += planes
+        line("16g ec.encode", {"dat_size": enc_size, "generate_seconds": gen_s,
+                               "generate_gb_per_s": enc_size / gen_s / 1e9, "launches": n_batches,
+                               "degraded_gets": len(lat), "p50_ms": percentile_ms(lat, 50),
+                               "p99_ms": percentile_ms(lat, 99), "reconstructions": recon,
+                               "planes_launches": planes})
+        failed = False
+    finally:
+        for ch in channels:
+            ch.close()
+        for vs in servers:
+            vs.stop()
+        stuck = []
+        for n, (proc, log) in children.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=CHILD_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=CHILD_STOP_S)
+                rc = None
+            log.close()
+            if rc != 0:
+                stuck.append(f"{n} ({'killed' if rc is None else f'exit {rc}'})")
+        endpoint.stop()
+        master.stop()
+    if stuck and not failed:
+        raise AssertionError(f"16: child servers did not stop cleanly on SIGTERM: {stuck}")
+    shutil.rmtree(root)
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4180,8 +4714,8 @@ def main() -> int:
               f"stage seconds {json.dumps(enc_stages)}; native plane {json.dumps(enc_plane)}")
 
         digests = {i: sha256(base + ctx.to_ext(i)) for i in range(ctx.total)}
-        # phases 9, 10 and 15's inputs: the same .dat and .idx
-        for d in ("trace", "sched", os.path.join("cluster", "a")):
+        # phases 9, 10, 15 and 16's inputs: the same .dat and .idx
+        for d in ("trace", "sched", os.path.join("cluster", "a"), os.path.join("admin", "a")):
             os.makedirs(os.path.join(work, d))
             for ext in (".dat", ".idx"):
                 os.link(base + ext, os.path.join(work, d, "1" + ext))
@@ -4342,6 +4876,11 @@ def main() -> int:
               "holder; 15h scrub and status; 15i decode to the original .dat): "
               f"{json.dumps(cluster)}")
         print(f"phase 15: {time.perf_counter() - t0:.3f} s")
+
+        # -- 16. the admin RPCs of plain volumes and the launcher ------------------
+        t0 = time.perf_counter()
+        _, admin_launches = admin_phase(work, ctx, records, vol_rng_state)
+        print(f"phase 16: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4355,7 +4894,7 @@ def main() -> int:
           "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"],
           "11 peer rebuild": peer_launches, "12 remote stream": remote_launches,
           "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"],
-          "15 cluster": cluster_launches["gf2_apply"]},
+          "15 cluster": cluster_launches["gf2_apply"], "16 admin": admin_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -4363,7 +4902,8 @@ def main() -> int:
           "10 scheduler": sched_launches["gf2_apply_planes"],
           "13 store": store_launches["gf2_apply_planes"],
           "14 server": server_launches["gf2_apply_planes"],
-          "15 cluster": cluster_launches["gf2_apply_planes"]},
+          "15 cluster": cluster_launches["gf2_apply_planes"],
+          "16 admin": admin_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

@@ -11,9 +11,9 @@
 // encode, rebuild, decode, degraded reads, the CPU backend and the shard
 // net plane's read opcode (sn_send_file, sn_sendv, sn_recv_into,
 // sn_recv_overlap_active; socket helpers in sn_net.h) call; same
-// functions, same output bit for bit. The .dat scanner, the one-shot
-// shard append and the blob-write landing (sn_recv_file) are not here:
-// no path of the port calls them.
+// functions, same output bit for bit, with the .dat scanner (sn_scan_dat)
+// of the volume server's ScrubVolume. The one-shot shard append is not
+// here: no path of the port calls it.
 //
 // Departures from that core:
 // - the reader's and the sink's per-row work, and the column windows of
@@ -43,6 +43,8 @@
 
 #include <fcntl.h>
 #include <pthread.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
 #include <sys/uio.h>
 #include <unistd.h>
 
@@ -1024,6 +1026,71 @@ int sn_rs_apply_body(int body, const uint8_t* coeffs, int out_rows, int in_rows,
     gf_init();
     rs_apply_window(mul, coeffs, out_rows, in_rows, data, out, n, 0, n);
     return 0;
+}
+
+// ---------------------------------------------------------------------------
+// sn_scan_dat: one pass over a volume's .dat (mmap), every record in append
+// order: needle id, stored offset (8-byte units), body size and whether
+// the data's CRC32C equals the stored one. The scan stops at a truncated
+// tail. Returns the record count, -1 where the file does not open or is
+// not a v2 / v3 volume, -2 where max_entries is too small.
+
+static inline uint32_t be32(const uint8_t* p) {
+    return ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) | ((uint32_t)p[2] << 8) |
+           (uint32_t)p[3];
+}
+
+static inline uint64_t be64(const uint8_t* p) { return ((uint64_t)be32(p) << 32) | be32(p + 4); }
+
+int64_t sn_scan_dat(const char* path, uint64_t* ids, uint32_t* offsets, int32_t* sizes,
+                    uint8_t* crc_ok, int64_t max_entries) {
+    int fd = open(path, O_RDONLY);
+    if (fd < 0) return -1;
+    struct stat st;
+    if (fstat(fd, &st) != 0 || st.st_size < 8) {
+        close(fd);
+        return -1;
+    }
+    size_t size = (size_t)st.st_size;
+    const uint8_t* buf = (const uint8_t*)mmap(nullptr, size, PROT_READ, MAP_PRIVATE, fd, 0);
+    close(fd);
+    if (buf == MAP_FAILED) return -1;
+    uint8_t version = buf[0];
+    if (version != 2 && version != 3) {
+        munmap((void*)buf, size);
+        return -1;
+    }
+    size_t footer = 4 + (version == 3 ? 8 : 0);  // CRC, then v3's appendAtNs
+    int64_t count = 0;
+    size_t off = 8;  // the superblock
+    while (off + 16 <= size) {
+        uint64_t nid = be64(buf + off + 4);
+        uint32_t body = be32(buf + off + 12);
+        size_t rec = (16 + (size_t)body + footer + 7) & ~(size_t)7;
+        if (off + rec > size) break;  // a truncated tail
+        if (count >= max_entries) {
+            munmap((void*)buf, size);
+            return -2;
+        }
+        uint8_t ok = 1;
+        if (body > 0) {
+            // body = dataSize(4) | data | flags(1) | ...; the CRC covers data
+            ok = 0;
+            if (body >= 5) {
+                uint32_t data_size = be32(buf + off + 16);
+                if ((size_t)data_size + 5 <= body)
+                    ok = sn_crc32c(0, buf + off + 20, data_size) == be32(buf + off + 16 + body);
+            }
+        }
+        ids[count] = nid;
+        offsets[count] = (uint32_t)(off / 8);
+        sizes[count] = (int32_t)body;
+        crc_ok[count] = ok;
+        count++;
+        off += rec;
+    }
+    munmap((void*)buf, size);
+    return count;
 }
 
 int sn_has_avx2() {

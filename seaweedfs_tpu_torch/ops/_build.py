@@ -170,6 +170,8 @@ _SIGNATURES = {
         "sn_recv_file": (_c.c_int64, [_c.c_int, _c.c_int, _c.c_uint64, _c.c_uint64, _c.c_int, _P]),
         "sn_recv_overlap_active": (_c.c_int, [_c.c_uint64]),
         "sn_pool_threads": (_c.c_int, []),
+        # path, ids, offsets, sizes, crc_ok, max_entries
+        "sn_scan_dat": (_c.c_int64, [_c.c_char_p, _P, _P, _P, _P, _c.c_int64]),
     },
 }
 

@@ -1,11 +1,12 @@
 """Hand-rolled gRPC service wiring: a method table per service, from which
 both server handlers and client stubs are built.
 
-Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services and RPCs the
-port serves or calls. Server impls are plain classes with one method per
-RPC (same names); streaming RPCs take and return iterators, as generated
-servicers do. `add_service` registers exactly the rows of a table, so an
-RPC left out of `VOLUME_SERVICE` is answered UNIMPLEMENTED by grpc itself.
+Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services the port serves
+or calls: the master's RPCs that the master client and the heartbeats
+call, every RPC of the volume server, and the raft status. Server impls
+are plain classes with one method per RPC (same names); streaming RPCs
+take and return iterators, as generated servicers do. `add_service`
+registers exactly the rows of a table.
 """
 
 from __future__ import annotations
@@ -31,12 +32,15 @@ SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
         "Topology": (UNARY, pb.TopologyRequest, pb.TopologyResponse),
         "KeepConnected": (SERVER_STREAM, pb.KeepConnectedRequest, pb.VolumeLocationUpdate),
     },
-    # the RPCs server/volume_grpc.py serves
+    # the RPCs server/volume_grpc.py serves: every row of the JAX table
     VOLUME_SERVICE: {
         "AllocateVolume": (UNARY, pb.AllocateVolumeRequest, pb.AllocateVolumeResponse),
         "VolumeDelete": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
         "VolumeMount": (UNARY, pb.AllocateVolumeRequest, pb.VolumeCommandResponse),
-        "VolumeUnmount": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
+        "VolumeCopy": (UNARY, pb.EcShardsCopyRequest, pb.VolumeCommandResponse),
+        "VolumeMarkReadonly": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
+        "VolumeMarkWritable": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
+        "VacuumVolume": (UNARY, pb.VacuumRequest, pb.VacuumResponse),
         "WriteNeedle": (UNARY, pb.WriteNeedleRequest, pb.WriteNeedleResponse),
         "ReadNeedle": (UNARY, pb.ReadNeedleRequest, pb.ReadNeedleResponse),
         "DeleteNeedle": (UNARY, pb.DeleteNeedleRequest, pb.DeleteNeedleResponse),
@@ -51,7 +55,16 @@ SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
         "VolumeEcShardsToVolume": (UNARY, pb.EcShardsToVolumeRequest, pb.EcShardsToVolumeResponse),
         "CopyFile": (SERVER_STREAM, pb.CopyFileRequest, pb.CopyFileChunk),
         "VolumeServerStatus": (UNARY, pb.VolumeServerStatusRequest, pb.VolumeServerStatusResponse),
+        "ScrubVolume": (UNARY, pb.ScrubRequest, pb.ScrubResponse),
         "ScrubEcVolume": (UNARY, pb.ScrubRequest, pb.ScrubResponse),
+        "VolumeTierUpload": (UNARY, pb.TierRequest, pb.TierResponse),
+        "VolumeTierDownload": (UNARY, pb.TierRequest, pb.TierResponse),
+        "VolumeUnmount": (UNARY, pb.VolumeCommandRequest, pb.VolumeCommandResponse),
+        "VolumeConfigure": (UNARY, pb.VolumeConfigureRequest, pb.VolumeCommandResponse),
+        "VolumeTailSender": (SERVER_STREAM, pb.VolumeTailRequest, pb.VolumeTailChunk),
+        "VolumeTailReceiver": (UNARY, pb.VolumeTailReceiverRequest, pb.VolumeTailReceiverResponse),
+        "VolumeIncrementalCopy": (SERVER_STREAM, pb.VolumeIncrementalCopyRequest, pb.VolumeIncrementalCopyChunk),
+        "ReadVolumeFileStatus": (UNARY, pb.VolumeFileStatusRequest, pb.VolumeFileStatusResponse),
     },
     # leader resolution of the master client
     RAFT_SERVICE: {

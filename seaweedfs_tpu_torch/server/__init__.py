@@ -1,5 +1,8 @@
-"""Servers of the port: the volume server's data plane (volume_server.py).
+"""Servers of the port: the volume server's data plane (volume_server.py),
+its gRPC service and cluster half (volume_grpc.py), and the launcher
+(`python -m seaweedfs_tpu_torch.server volume`, __main__.py).
 
-Nothing here imports grpc or protobuf: the HTTP handlers and the net
-plane's resolvers call plain methods of the server.
+volume_server.py imports neither grpc nor protobuf: the HTTP handlers and
+the net plane's resolvers call plain methods of the server, and the gRPC
+edge stays in volume_grpc.py, client/ and pb/.
 """

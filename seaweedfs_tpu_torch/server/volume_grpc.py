@@ -5,18 +5,22 @@ Port of seaweedfs_tpu/server/volume_server.py, the parts the data plane
 (reference volume_grpc_erasure_coding.go, store_replicate.go:32,
 volume_grpc_client_to_master.go):
 
-- `VolumeService`, the `sw.VolumeServer` servicer over one Store:
-  AllocateVolume, VolumeMount, VolumeUnmount, VolumeDelete; WriteNeedle,
-  ReadNeedle and DeleteNeedle as adapters over the server's plain
-  `write_needle` and `delete_needle` and the Store's read; the EC RPCs
+- `VolumeService`, the `sw.VolumeServer` servicer over one Store, with
+  every RPC of the JAX servicer: AllocateVolume, VolumeMount,
+  VolumeUnmount, VolumeDelete; the admin RPCs of plain volumes
+  (VolumeCopy, VolumeConfigure, VolumeMarkReadonly, VolumeMarkWritable,
+  VacuumVolume, ScrubVolume, VolumeTierUpload, VolumeTierDownload,
+  VolumeTailSender, VolumeTailReceiver, VolumeIncrementalCopy,
+  ReadVolumeFileStatus; reference volume_grpc_admin.go, _copy.go,
+  _vacuum.go, _scrub.go, _tier_*.go, _tail.go); WriteNeedle, ReadNeedle
+  and DeleteNeedle as adapters over the server's plain `write_needle` and
+  `delete_needle` and the Store's read; the EC RPCs
   VolumeEcShardsGenerate, VolumeEcShardsRebuild (with `from_peers`),
   VolumeEcShardsCopy (the shard net plane first, `CopyFile` second, each
   landed shard checked against the `.ecsum`), VolumeEcShardsDelete,
   VolumeEcShardsMount, VolumeEcShardsUnmount, VolumeEcShardRead,
   VolumeEcBlobDelete, VolumeEcShardsToVolume, ScrubEcVolume; CopyFile and
-  VolumeServerStatus. An RPC of the JAX servicer that is not here
-  (VolumeCopy, VolumeConfigure, VacuumVolume, the tier, tail and scrub
-  RPCs of plain volumes, ...) is answered UNIMPLEMENTED by grpc.
+  VolumeServerStatus.
 - `ClusterHalf`: the master client and its lookups, the heartbeat
   stream, the replica fan-out, the remote shard reader of the Store's EC
   volumes, peer-fetch rebuild and the hand-off of regenerated shards that
@@ -43,6 +47,12 @@ Where the port and the JAX server differ, on purpose:
 - `_cluster_ec_telemetry` reads the master's /cluster/status over
   `urllib`; the JAX server uses `requests`, and without it (as on the
   card's host) it would return {}.
+- ScrubVolume scans the .dat with the host library's `scan_dat` only.
+  Where the library does not build or load, the RPC fails; the JAX
+  server falls back to the Python walk on any error of the native scan.
+- A stopped server ends its open VolumeTailSender streams at their next
+  poll, where the JAX server's follow loop runs on until its idle
+  timeout (forever at 0).
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import grpc
 from .. import faults
 from ..client.master_client import MasterClient
 from ..client.master_client import grpc_addr as master_grpc_addr
+from ..client.volume_sync import tail_volume
 from ..ec import context as ec_context
 from ..ec import fleet, native_io
 from ..ec import net_plane as _netp
@@ -81,6 +92,7 @@ from ..storage.needle import CrcError
 from ..storage.store import EC_BACKENDS
 from ..storage.volume import CookieMismatch, NotFoundError, Volume, VolumeError
 from ..utils import metrics as M
+from ..utils import native
 from ..utils import request_id as _rid
 from ..utils import trace
 from ..utils.glog import logger
@@ -126,8 +138,13 @@ def _ec_shard_msgs(st: dict) -> list:
 class VolumeService:
     """gRPC servicer over one Store."""
 
+    _TAIL_POLL_S = 0.25  # VolumeTailSender's follow-loop poll (the reference polls every 2 s)
+
     def __init__(self, server):
         self.server = server
+        # set by ClusterHalf.stop(): open VolumeTailSender streams end at
+        # their next poll
+        self.stopping = threading.Event()
 
     @property
     def store(self):
@@ -183,6 +200,89 @@ class VolumeService:
             return pb.VolumeCommandResponse(error=str(e))
         self.server.notify_deleted_volume(request.volume_id)
         return pb.VolumeCommandResponse()
+
+    def VolumeCopy(self, request, context):
+        """Pull a whole volume (.dat, .idx and the optional .vif) from a
+        peer of either package over its CopyFile, then mount it (reference
+        volume_grpc_copy.go). Every file lands as a fsynced temp and they
+        are published together, so a half-copied volume never mounts."""
+        if self.store.find_volume(request.volume_id) is not None:
+            return pb.VolumeCommandResponse(error="volume already here")
+        loc = self.store._pick_location()
+        base = Volume.base_file_name(loc.directory, request.collection, request.volume_id)
+        tmps: dict[str, str] = {}
+        try:
+            with grpc.insecure_channel(request.source_url) as ch:
+                stub = rpc.volume_stub(ch)
+                for ext in (".dat", ".idx", ".vif"):
+                    tmp = base + ext + ".copying"
+                    try:
+                        with open(tmp, "wb") as f:
+                            for chunk in stub.CopyFile(pb.CopyFileRequest(
+                                    volume_id=request.volume_id, collection=request.collection,
+                                    ext=ext)):
+                                f.write(chunk.data)
+                            f.flush()
+                            os.fsync(f.fileno())
+                        tmps[ext] = tmp
+                    except grpc.RpcError as e:
+                        if os.path.exists(tmp):
+                            os.unlink(tmp)
+                        if ext == ".vif":  # an optional sidecar
+                            continue
+                        raise RuntimeError(f"copy {ext}: {e.details()}") from None
+            for ext, tmp in tmps.items():
+                os.replace(tmp, base + ext)
+            tmps.clear()
+        except RuntimeError as e:
+            return pb.VolumeCommandResponse(error=str(e))
+        finally:
+            for tmp in tmps.values():
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        self.store.mount_volume(request.volume_id, request.collection)
+        self.server.notify_new_volume(request.volume_id)
+        return pb.VolumeCommandResponse()
+
+    def VolumeConfigure(self, request, context):
+        """Rewrite the replica placement in place (reference
+        VolumeConfigure); the heartbeat reports the new value."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.VolumeCommandResponse(error="volume not found")
+        try:
+            v.set_replica_placement(request.replication)
+        except (ValueError, VolumeError) as e:
+            return pb.VolumeCommandResponse(error=str(e))
+        self.server.notify_new_volume(request.volume_id)
+        return pb.VolumeCommandResponse()
+
+    def VolumeMarkReadonly(self, request, context):
+        # no heartbeat here: the next periodic one reports the flag
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.VolumeCommandResponse(error="not found")
+        v.set_read_only(True)
+        return pb.VolumeCommandResponse()
+
+    def VolumeMarkWritable(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.VolumeCommandResponse(error="not found")
+        v.set_read_only(False)
+        return pb.VolumeCommandResponse()
+
+    def VacuumVolume(self, request, context):
+        """Compact the volume when its garbage ratio reaches the
+        threshold (reference volume_grpc_vacuum.go)."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND, "volume not found")
+        ratio = v.garbage_ratio()
+        if request.garbage_threshold and ratio < request.garbage_threshold:
+            return pb.VacuumResponse(reclaimed_bytes=0, garbage_ratio=ratio)
+        reclaimed = v.vacuum()
+        return pb.VacuumResponse(reclaimed_bytes=reclaimed, garbage_ratio=ratio)
 
     # --------------------------------------------------------------- io
 
@@ -579,6 +679,177 @@ class VolumeService:
                 yield pb.CopyFileChunk(data=chunk)
                 sent += len(chunk)
 
+    def VolumeTierUpload(self, request, context):
+        """Move a sealed volume's .dat to the cold tier (reference
+        volume_grpc_tier_upload.go); the .idx stays local, so lookups never
+        reach the tier."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.TierResponse(error="volume not found")
+        try:
+            moved = v.tier_upload(request.dest_url, keep_local=request.keep_local)
+        except Exception as e:  # noqa: BLE001 — the caller gets the reason
+            return pb.TierResponse(error=str(e))
+        return pb.TierResponse(moved_bytes=moved)
+
+    def VolumeTierDownload(self, request, context):
+        """Bring a cold-tiered .dat back to local disk (reference
+        volume_grpc_tier_download.go)."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.TierResponse(error="volume not found")
+        try:
+            moved = v.tier_download(delete_remote=request.delete_remote)
+        except Exception as e:  # noqa: BLE001 — the caller gets the reason
+            return pb.TierResponse(error=str(e))
+        return pb.TierResponse(moved_bytes=moved)
+
+    # ---------------------------------------- tail and incremental sync
+    # Reference weed/server/volume_grpc_tail.go and
+    # weed/storage/volume_backup.go: a replica that was down pulls only the
+    # records appended after its own last appendAtNs.
+
+    def VolumeTailSender(self, request, context):
+        """Stream the needle records appended after since_ns, following
+        new appends until none came for idle_timeout_seconds (0: until the
+        caller or the server stops)."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND, f"volume {request.volume_id} not found")
+        try:
+            v._require_v3()  # v2 has no appendAtNs to follow
+            # position once (a binary search of the .idx); each poll then
+            # compares the position with the append end
+            pos = v._walk_start_for(request.since_ns)
+        except VolumeError as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        draining = float(request.idle_timeout_seconds)
+        while True:
+            end = v._append_end()
+            progressed = False
+            if pos < end:
+                for _n, raw, ts in v.scan_records_between(pos, end):
+                    if ts <= request.since_ns:
+                        continue  # the first segment may start at an older put
+                    header, rest = raw[:16], raw[16:]
+                    for i in range(0, max(len(rest), 1), _EC_STREAM_CHUNK):
+                        yield pb.VolumeTailChunk(needle_header=header if i == 0 else b"",
+                                                 needle_body=rest[i : i + _EC_STREAM_CHUNK],
+                                                 version=v.version)
+                    progressed = True
+                pos = end
+            # the heartbeat completes the client's pending needle and shows
+            # the stream alive while idle
+            yield pb.VolumeTailChunk(is_last_chunk=True, version=v.version)
+            if request.idle_timeout_seconds:
+                if progressed:
+                    draining = float(request.idle_timeout_seconds)
+                else:
+                    draining -= self._TAIL_POLL_S
+                    if draining <= 0:
+                        return
+            if self.stopping.wait(self._TAIL_POLL_S) or not context.is_active():
+                return
+
+    def VolumeTailReceiver(self, request, context):
+        """Pull the tail from a source server into the local replica (the
+        server side of `volume.sync`). since_ns 0 resumes from the local
+        volume's own last appendAtNs."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.VolumeTailReceiverResponse(error=f"volume {request.volume_id} not found")
+        since = request.since_ns or v.last_append_at_ns()
+        count = 0
+        try:
+            for n in tail_volume(request.source_volume_server, request.volume_id, since,
+                                 request.idle_timeout_seconds or 3):
+                if n.is_tombstone or (not n.data and not n.flags and n.cookie == 0):
+                    # the source's tombstone bytes, verbatim: the 0x40 flag,
+                    # or the legacy marker Needle(cookie=0, data=b""); an
+                    # empty body with a nonzero cookie is a put
+                    v.delete_needle(n.needle_id, tombstone=n)
+                else:
+                    v.write_needle(n)  # appendAtNs kept: the same bytes
+                count += 1
+        except Exception as e:  # noqa: BLE001 — the caller gets the reason
+            return pb.VolumeTailReceiverResponse(received=count, error=str(e))
+        return pb.VolumeTailReceiverResponse(received=count)
+
+    def VolumeIncrementalCopy(self, request, context):
+        """The raw .dat bytes from the first record newer than since_ns to
+        the append end. The first chunk carries start_offset, so a
+        byte-prefix follower (the weed backup analog) checks its alignment
+        before it appends."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND, f"volume {request.volume_id} not found")
+        try:
+            off = v.offset_after_ns(request.since_ns)
+        except VolumeError as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        end = v._append_end()
+        if off >= end:
+            yield pb.VolumeIncrementalCopyChunk(has_start=True, start_offset=end)
+            return
+        with open(v.dat_path, "rb") as f:
+            f.seek(off)
+            sent = off
+            while sent < end:
+                data = f.read(min(_EC_STREAM_CHUNK, end - sent))
+                if not data:
+                    break
+                first = sent == off
+                yield pb.VolumeIncrementalCopyChunk(file_content=data,
+                                                    start_offset=off if first else 0,
+                                                    has_start=first)
+                sent += len(data)
+
+    def ReadVolumeFileStatus(self, request, context):
+        """Sizes, compaction revision, version and last appendAtNs of a
+        volume's files (reference volume_grpc_admin.go): the handshake of
+        an incremental backup."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.VolumeFileStatusResponse(error="volume not found")
+        v.flush()
+        try:
+            last_ns = v.last_append_at_ns()
+        except VolumeError:
+            last_ns = 0  # a v2 volume has no appendAtNs footer
+        return pb.VolumeFileStatusResponse(
+            dat_size=os.path.getsize(v.dat_path), idx_size=os.path.getsize(v.idx_path),
+            compaction_revision=v.super_block.compaction_revision, version=v.version,
+            last_append_at_ns=last_ns, collection=v.collection,
+        )
+
+    def ScrubVolume(self, request, context):
+        """CRC-check every live needle (reference volume_grpc_scrub.go)
+        with one native scan of the .dat; dead and superseded records are
+        skipped. The volume stays online."""
+        # a task RPC: adopt the dispatcher's request id, so this holder's
+        # log lines carry the fleet task's
+        _rid.ensure(trace.metadata_dict(context).get(trace.REQUEST_ID_KEY))
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return pb.ScrubResponse(error="volume not found")
+        v.flush()
+        ids, offs, sizes, ok = native.scan_dat(v.dat_path)
+        checked = 0
+        bad: list[int] = []
+        for nid, stored_off, body_size, crc_ok in zip(ids.tolist(), offs.tolist(),
+                                                      sizes.tolist(), ok.tolist()):
+            if body_size <= 0:
+                continue
+            nv = v.needle_map.get(nid)
+            if nv is None or nv.is_deleted:
+                continue  # a dead record: vacuum's work
+            if nv.offset != stored_off:
+                continue  # a superseded copy; the live one is elsewhere
+            checked += 1
+            if not crc_ok:
+                bad.append(nid)
+        return pb.ScrubResponse(checked=checked, bad_needles=bad)
+
     def ScrubEcVolume(self, request, context):
         """Verify the local shards against the .ecsum sidecar (reference
         ec_volume_scrub.go / store_ec_scrub.go)."""
@@ -696,9 +967,10 @@ class ClusterHalf:
             self._hb_thread.start()
 
     def stop(self) -> None:
-        """End the heartbeat stream (the master sees the node leave), stop
-        the gRPC server, and close the master client and every peer
-        channel."""
+        """End the open tail streams and the heartbeat stream (the master
+        sees the node leave), stop the gRPC server, and close the master
+        client and every peer channel."""
+        self.service.stopping.set()  # ends open VolumeTailSender streams
         self._hb_stop.set()
         self._hb_queue.put(None)  # wakes the heartbeat iterator
         with self._mc_lock:

@@ -4,9 +4,10 @@ Port of seaweedfs_tpu/utils/native.py, trimmed to what encode, rebuild,
 decode, degraded reads, the native CPU backend and the shard net plane
 call: CRC32C and its combine, the batched positioned read with an inline
 rolling CRC, the readahead hint, the stateful shard sink, the GF(2^8)
-matrix apply (`rs_apply`, `rs_apply_mt`, `gf_mul`, `has_avx2`), and the
+matrix apply (`rs_apply`, `rs_apply_mt`, `gf_mul`, `has_avx2`), the
 socket egress and ingress of the network byte plane (`send_file`,
-`sendv`, `recv_into`, `recv_overlap_active`, `recv_file`). ops/_build.py builds
+`sendv`, `recv_into`, `recv_overlap_active`, `recv_file`), and the .dat
+scanner of ScrubVolume (`scan_dat`). ops/_build.py builds
 the library with g++ at first use into seaweedfs_tpu_torch/build/ and
 loads it. A failed build or load raises at the first call that needs the
 library; nothing here turns it into a quiet fallback (SEAWEED_EC_NATIVE=0,
@@ -191,6 +192,24 @@ def pool_threads() -> int:
     """Threads that run the library's pooled work: its workers and the
     calling thread (one per CPU)."""
     return int(_lib().sn_pool_threads())
+
+
+def scan_dat(path: str):
+    """One pass over a volume's .dat: (ids u64, offsets u32 in 8-byte
+    units, body sizes i32, crc_ok bool) arrays in append order, a
+    truncated tail left out. OSError where the file does not open or is
+    not a v2 / v3 volume."""
+    size = os.path.getsize(path)
+    max_entries = max(size // 24 + 2, 16)  # the least padded record is 24 bytes
+    ids = np.empty(max_entries, dtype=np.uint64)
+    offsets = np.empty(max_entries, dtype=np.uint32)
+    sizes = np.empty(max_entries, dtype=np.int32)
+    crc_ok = np.empty(max_entries, dtype=np.uint8)
+    n = _lib().sn_scan_dat(path.encode(), _ptr(ids), _ptr(offsets), _ptr(sizes), _ptr(crc_ok),
+                           max_entries)
+    if n < 0:
+        raise OSError(f"sn_scan_dat({path}) failed: {n}")
+    return ids[:n], offsets[:n], sizes[:n], crc_ok[:n].astype(bool)
 
 
 def fadvise_willneed(fd: int, offset: int, length: int) -> None:

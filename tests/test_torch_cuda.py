@@ -5,7 +5,8 @@ repair (reconstruction on the card, a repair killed in a child process
 and healed at mount), the native byte plane's page-locked landing
 matrices (copied to the card as they lie, recycled as soon as a batch's
 result is back), and the volume server on the card (degraded GETs equal
-to a CPU server's, 4 MiB needles over the net plane).
+to a CPU server's, 4 MiB needles over the net plane; a server built
+by the launcher generating and reading degraded on its default cuda).
 
 Every test here needs an NVIDIA card and skips without one. This file
 imports no JAX, so it runs where JAX is not installed; on the card run it
@@ -1461,3 +1462,42 @@ def test_peer_fetch_rebuild_over_grpc_on_card(cuda, tmp_path):
         holder.stop()
         other.stop()
         master.stop()
+
+
+def test_launcher_built_server_generates_and_reads_degraded_on_card(cuda, tmp_path):
+    """A server built by the launcher (`python -m seaweedfs_tpu_torch.server
+    volume` without `-ec.backend`: cuda) generates over gRPC, one gf2_apply
+    launch per batch, and serves degraded GETs with shard 3 unmounted,
+    bit-exact, one gf2_apply_planes launch per reconstruction."""
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.server.__main__ import build
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    (vs,) = build(["volume", "-dir", str(tmp_path / "v"), "-master", "", "-ip", "127.0.0.1",
+                   "-port", str(free_grpc_port())], config_dirs=())
+    ch, st = _stub(vs)
+    try:
+        assert vs.store.ec_backend == "cuda"
+        vol = vs.store.allocate_volume(6)
+        rng = np.random.default_rng(47)
+        bodies = {nid: rng.bytes(int(rng.integers(1000, 600_000))) for nid in range(1, 60)}
+        for nid, body in bodies.items():
+            assert not vs.write_needle(6, nid, nid, body)[1]
+        base = vol.dat_path[:-4]
+        rs_kernels.reset_launches()
+        st.VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=6), timeout=300)
+        assert rs_kernels.LAUNCHES["gf2_apply"] == _batches(base)
+        st.VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=6), timeout=60)
+        assert not st.VolumeDelete(pb.VolumeCommandRequest(volume_id=6), timeout=60).error
+        st.VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=6, shard_ids=[3]), timeout=60)
+        ev = vs.store.find_ec_volume(6)
+        assert ev.backend.device.type == "cuda" and ev.backend.impl == "cuda_planes"
+        rs_kernels.reset_launches()
+        loads = ev.interval_cache.loads
+        for nid, body in bodies.items():
+            status, _, got = _get(vs, f"/{FileId(6, nid, nid)}")
+            assert status == 200 and got == body
+        assert rs_kernels.LAUNCHES["gf2_apply_planes"] == ev.interval_cache.loads - loads > 0
+    finally:
+        ch.close()
+        vs.stop()

@@ -520,6 +520,29 @@ with grpc.insecure_channel(f"127.0.0.1:{vs.grpc_port}") as ch:
         volume_id=13, shard_id=12, offset=0, size=70_000, generation=gen), timeout=30))
 assert got == open(os.path.join(d, "vs", "13.ec12"), "rb").read()[:70_000] and len(got) == 70_000
 vs.stop()
+# servers built by the launcher: VolumeCopy from one into the other, then
+# VacuumVolume of the copy
+from seaweedfs_tpu_torch.server.__main__ import build
+
+def launched(name):
+    return build(["volume", "-dir", os.path.join(d, name), "-master", f"127.0.0.1:{dead}",
+                  "-ip", "127.0.0.1", "-port", str(free_grpc_port()), "-ec.backend", "cpu"],
+                 config_dirs=())[0]
+
+src, dst = launched("la"), launched("lb")
+src.store.allocate_volume(21)
+for nid, body in bodies.items():
+    src.store.write_needle(21, Needle(cookie=nid, needle_id=nid, data=body))
+src.store.delete_needle(21, min(bodies))
+with grpc.insecure_channel(f"127.0.0.1:{dst.grpc_port}") as ch:
+    st = rpc.volume_stub(ch)
+    assert not st.VolumeCopy(pb.EcShardsCopyRequest(
+        volume_id=21, source_url=f"127.0.0.1:{src.grpc_port}"), timeout=60).error
+    assert st.VacuumVolume(pb.VacuumRequest(volume_id=21), timeout=60).reclaimed_bytes > 50_000
+nid = max(bodies)
+assert dst.store.read_needle(21, nid, nid).data == bodies[nid]
+src.stop()
+dst.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))

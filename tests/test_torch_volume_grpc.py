@@ -25,7 +25,9 @@ beside JAX servers):
   and names no other holder, both acknowledge it with one copy;
 - the smoke's stand-in master answering lookups and topology as the JAX
   `MasterServer` does for the same heartbeats;
-- an RPC the port does not serve answers UNIMPLEMENTED.
+- the port's volume service has every RPC of the JAX one
+  (tests/test_torch_volume_admin.py holds the admin RPCs of plain volumes
+  against the JAX server).
 """
 
 import hashlib
@@ -341,17 +343,34 @@ def test_rotten_source_copy_refused_with_data_loss(mixed):
 
 
 def test_unported_rpc_answers_unimplemented(mixed):
+    """No RPC of the JAX servicer is left unported: the port's
+    VOLUME_SERVICE has every row of the JAX one, with the same request
+    type, response type and streaming kind, and a port server answers each
+    (none UNIMPLEMENTED). Only a method neither package has is answered
+    UNIMPLEMENTED."""
+    port_rows = rpc.SERVICES[rpc.VOLUME_SERVICE]
+    jax_rows = jrpc.SERVICES[jrpc.VOLUME_SERVICE]
+    assert set(port_rows) == set(jax_rows) and len(port_rows) == 31
+    for name, (kind, req_t, resp_t) in jax_rows.items():
+        assert port_rows[name][0] == kind, name
+        # one cluster.proto per process: both packages hold the same classes
+        assert port_rows[name][1] is req_t and port_rows[name][2] is resp_t, name
     c, _items, _gens = mixed
     st = c.stub(c.vols[0])
     for call, req in ((st.VolumeCopy, jpb.EcShardsCopyRequest(volume_id=GEN_VID)),
-                      (st.VacuumVolume, jpb.VacuumRequest(volume_id=GEN_VID)),
-                      (st.VolumeMarkReadonly, jpb.VolumeCommandRequest(volume_id=GEN_VID))):
+                      (st.VolumeMarkReadonly, jpb.VolumeCommandRequest(volume_id=GEN_VID + 1000)),
+                      (st.ReadVolumeFileStatus, jpb.VolumeFileStatusRequest(volume_id=GEN_VID + 1000))):
+        assert call(req, timeout=30).error  # answered: a plain volume is not here
+    ch = grpc.insecure_channel(f"127.0.0.1:{c.vols[0].grpc_port}")
+    try:
+        missing = ch.unary_unary(f"/{rpc.VOLUME_SERVICE}/NoSuchRpc",
+                                 request_serializer=jpb.VolumeCommandRequest.SerializeToString,
+                                 response_deserializer=jpb.VolumeCommandResponse.FromString)
         with pytest.raises(grpc.RpcError) as e:
-            call(req, timeout=30)
+            missing(jpb.VolumeCommandRequest(volume_id=GEN_VID), timeout=30)
         assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    # the JAX server serves them
-    assert not c.stub(c.vols[1]).VolumeMarkWritable(
-        jpb.VolumeCommandRequest(volume_id=GEN_VID), timeout=30).error
+    finally:
+        ch.close()
 
 
 def test_needle_rpcs_match_jax(mixed):
