@@ -7,7 +7,8 @@ Drives the port's main paths at the size the project names, a seeded
 1 GiB RS 10+4 volume of real needles, through the entry points a user
 calls (`ec_encode_volume`, `rebuild_ec_files`, `EcVolume`,
 `ec_decode_volume`, `TorchBackend`, `CpuBackend`, `rebuild_from_peers`,
-`VolumeServer`, `python -m seaweedfs_tpu_torch.server volume`).
+`VolumeServer`, `MasterServer`, `python -m seaweedfs_tpu_torch.server
+master|volume`).
 Phases:
 
 1. print the card (`nvidia-smi` name and power limit), and build from
@@ -219,10 +220,9 @@ Phases:
    as a JAX client sends it.
 15. the cluster half (`VolumeServer(master=...)`: the gRPC service,
    heartbeats, the replica fan-out, the remote shard reader, peer-fetch
-   rebuild with its hand-off) at full width: a stand-in master
-   (`StandInMaster`, answering only from the heartbeats it gets) and four
-   port servers on the card in this process, every EC step an RPC over
-   gRPC. The 1 GiB volume (hard links) is mounted and encoded on A (103
+   rebuild with its hand-off) at full width: a port `MasterServer` and
+   four port servers on the card in this process, every EC step an RPC
+   over gRPC. The 1 GiB volume (hard links) is mounted and encoded on A (103
    `gf2_apply` launches, shards sha256-identical to phase 4's), its shards
    4-13 copied to B, C and D over the net plane (one again over CopyFile),
    shard 3 unmounted and every needle over it read cold at A with its
@@ -236,10 +236,11 @@ Phases:
    decoded there to the original .dat. One JSON line gives each step's
    wall, GB/s and launches.
 16. the admin RPCs of plain volumes and the launcher, on the same 1 GiB
-   volume (hard links) under a stand-in master: server A built in this
-   process by the launcher's `build` (`-ec.backend cuda`), B and C child
-   processes started by name (`python3 -m seaweedfs_tpu_torch.server
-   volume`). 16a VolumeMount and ReadVolumeFileStatus on A; 16b
+   volume (hard links) under a port master child started by name
+   (`python3 -m seaweedfs_tpu_torch.server master -mdir ...`): server A
+   built in this process by the launcher's `build` (`-ec.backend cuda`),
+   B and C child processes started by name (`python3 -m
+   seaweedfs_tpu_torch.server volume`). 16a VolumeMount and ReadVolumeFileStatus on A; 16b
    VolumeMarkReadonly, VolumeCopy into B (files sha256-equal),
    VolumeMarkWritable; 16c 64 MiB of new needles POSTed to A and 5
    deleted, B's VolumeTailReceiver from A (.dat and .idx identical),
@@ -253,6 +254,23 @@ Phases:
    == batches; mount; VolumeDelete on every holder) and every needle over
    shard 3 read degraded with GET at A (launches == reconstructions). One
    JSON line per step; each child's start-to-first-heartbeat seconds.
+17. a cluster of the port alone, every process a child started by name:
+   three masters as one raft group (`master -peers ... -mdir ...`) and
+   four volume servers on two racks (`volume -master <the group>`, the
+   default `-ec.backend`, cuda). Phase 3's needles are written through
+   the leader's /dir/assign and POST until the one volume the first
+   Assign grew holds about 1 GiB, and read back from its holder; a `001`
+   set is read back from both holders /dir/lookup names; the shell's
+   ec.encode flow runs with its lookups at the leader (generate on the
+   holder: `gf2_apply` launches == batches; the shards spread over the
+   other three; the .dat deleted); the leader is killed with SIGKILL, a
+   new one must be elected, list all 14 shards and grow a volume whose id
+   was never handed out; the holder of data shards 8 and 9 is stopped and
+   a seeded sample of the needles over them is read degraded at the
+   holder (`gf2_apply_planes` launches == its interval-cache loads),
+   byte-equal to what was written. The children's launches come from
+   their /debug/kernels. One JSON line with each step's walls and rates,
+   the failover seconds, the launches and the card.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -3580,166 +3598,6 @@ def server_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
 # -- 15. the cluster half: four port servers under a stand-in master -------------
 
 
-class StandInMaster:
-    """The smoke's master (the smoke may not import the JAX package's):
-    answers SendHeartbeat, LookupVolume, LookupEcVolume, Topology,
-    KeepConnected and RaftStatus, and only from the heartbeats it receives,
-    as the JAX MasterServer (seaweedfs_tpu/server/master.py, topology.py)
-    answers them for a single master. Volume servers send full heartbeats
-    only, so it has no incremental path. Its gRPC port is `port` + 10000,
-    as a master's; it serves no HTTP."""
-
-    VOLUME_SIZE_LIMIT = 30 * 1024**3  # the JAX master's default
-
-    def __init__(self, ip: str, port: int):
-        import queue
-        import threading
-        from concurrent import futures
-
-        import grpc
-
-        from seaweedfs_tpu_torch.pb import cluster_pb2, rpc
-
-        self._pb, self._queue = cluster_pb2, queue
-        self.port = port
-        self.addr = f"{ip}:{port}"
-        self._lock = threading.Lock()
-        self.nodes: dict[str, dict] = {}  # node id -> location, volumes, ec_shards, ...
-        self.first_seen: dict[str, float] = {}  # node id -> perf_counter of its first heartbeat
-        self.max_volume_id = 0
-        self._subscribers: list = []
-        self._grpc = grpc.server(futures.ThreadPoolExecutor(max_workers=16))
-        rpc.add_service(self._grpc, rpc.MASTER_SERVICE, self)
-        rpc.add_service(self._grpc, rpc.RAFT_SERVICE, self)
-        self._grpc.add_insecure_port(f"{ip}:{port + 10000}")
-
-    def start(self) -> None:
-        self._grpc.start()
-
-    def stop(self) -> None:
-        self._grpc.stop(grace=0.5).wait(5)
-
-    def _location(self, n: dict):
-        return self._pb.Location(url=n["id"], public_url=n["public_url"], grpc_port=n["grpc_port"],
-                                 data_center=n["data_center"])
-
-    def _publish(self, n: dict, new_vids=(), deleted_vids=(), new_ec=(), deleted_ec=(),
-                 gone: bool = False) -> None:
-        if not (new_vids or deleted_vids or new_ec or deleted_ec or gone):
-            return
-        u = self._pb.VolumeLocationUpdate(
-            url=n["id"], public_url=n["public_url"], grpc_port=n["grpc_port"],
-            new_vids=sorted(new_vids), deleted_vids=sorted(deleted_vids),
-            new_ec_vids=sorted(new_ec), deleted_ec_vids=sorted(deleted_ec), server_gone=gone)
-        for q in self._subscribers:
-            q.put(u)
-
-    def SendHeartbeat(self, request_iterator, context):
-        node, token = None, object()
-        try:
-            for hb in request_iterator:
-                with self._lock:
-                    if node is None:
-                        nid = f"{hb.ip}:{hb.port}"
-                        node = self.nodes.get(nid)
-                        if node is None:
-                            node = {"id": nid, "public_url": hb.public_url or nid,
-                                    "grpc_port": hb.grpc_port, "data_center": hb.data_center,
-                                    "rack": hb.rack, "max_volume_count": int(hb.max_volume_count) or 8,
-                                    "volumes": {}, "ec_shards": {}}
-                            self.nodes[nid] = node
-                            self.first_seen.setdefault(nid, time.perf_counter())
-                        if hb.max_volume_count:
-                            node["max_volume_count"] = int(hb.max_volume_count)
-                        node["owner"] = token
-                    self.nodes.setdefault(node["id"], node)
-                    old_v, old_e = set(node["volumes"]), set(node["ec_shards"])
-                    if hb.volumes or hb.has_no_volumes:
-                        node["volumes"] = {v.id: v for v in hb.volumes}
-                    if hb.ec_shards or hb.has_no_ec_shards:
-                        node["ec_shards"] = {e.id: e for e in hb.ec_shards}
-                    for v in node["volumes"].values():
-                        self.max_volume_id = max(self.max_volume_id, v.id)
-                    self._publish(node, set(node["volumes"]) - old_v, old_v - set(node["volumes"]),
-                                  set(node["ec_shards"]) - old_e, old_e - set(node["ec_shards"]))
-                yield self._pb.HeartbeatResponse(volume_size_limit=self.VOLUME_SIZE_LIMIT)
-        finally:
-            # the stream closed: the node is gone, unless a newer stream owns it
-            if node is not None:
-                with self._lock:
-                    if self.nodes.get(node["id"]) is node and node.get("owner") is token:
-                        del self.nodes[node["id"]]
-                        self._publish(node, gone=True)
-
-    def KeepConnected(self, request, context):
-        q = self._queue.Queue()
-        with self._lock:
-            self._subscribers.append(q)
-            snapshot = [self._pb.VolumeLocationUpdate(
-                url=n["id"], public_url=n["public_url"], grpc_port=n["grpc_port"],
-                new_vids=sorted(n["volumes"]), new_ec_vids=sorted(n["ec_shards"]))
-                for n in self.nodes.values()]
-        try:
-            yield from snapshot
-            yield self._pb.VolumeLocationUpdate(leader=self.addr)  # snapshot complete
-            while context is None or context.is_active():
-                try:
-                    yield q.get(timeout=1.0)
-                except self._queue.Empty:
-                    continue
-        finally:
-            with self._lock:
-                self._subscribers.remove(q)
-
-    def _lookup_ec(self, vid: int) -> dict:
-        out: dict[int, list] = {}
-        for n in self.nodes.values():
-            e = n["ec_shards"].get(vid)
-            if e is not None:
-                for sid in range(32):
-                    if e.shard_bits & (1 << sid):
-                        out.setdefault(sid, []).append(self._location(n))
-        return out
-
-    def LookupVolume(self, request, context):
-        out = []
-        with self._lock:
-            for vid in request.volume_ids:
-                locs = [self._location(n) for n in self.nodes.values() if vid in n["volumes"]]
-                if not locs:
-                    # EC volumes answer plain lookups too: any shard holder
-                    seen = {}
-                    for ls in self._lookup_ec(vid).values():
-                        for loc in ls:
-                            seen[loc.url] = loc
-                    locs = list(seen.values())
-                out.append(self._pb.VolumeLocations(volume_id=vid, locations=locs,
-                                                    error="" if locs else f"volume {vid} not found"))
-        return self._pb.LookupVolumeResponse(volume_locations=out)
-
-    def LookupEcVolume(self, request, context):
-        with self._lock:
-            shard_locs = self._lookup_ec(request.volume_id)
-        return self._pb.LookupEcVolumeResponse(
-            volume_id=request.volume_id,
-            shard_locations=[self._pb.EcShardLocation(shard_id=sid, locations=locs)
-                             for sid, locs in sorted(shard_locs.items())],
-            error="" if shard_locs else f"ec volume {request.volume_id} not found")
-
-    def Topology(self, request, context):
-        with self._lock:
-            return self._pb.TopologyResponse(
-                max_volume_id=self.max_volume_id,
-                nodes=[self._pb.DataNodeInfo(
-                    id=n["id"], location=self._location(n), volumes=list(n["volumes"].values()),
-                    ec_shards=list(n["ec_shards"].values()), max_volume_count=n["max_volume_count"],
-                    rack=n["rack"], data_center=n["data_center"])
-                    for n in sorted(self.nodes.values(), key=lambda n: n["id"])])
-
-    def RaftStatus(self, request, context):
-        return self._pb.RaftStatusResponse(node_id=self.addr, leader=self.addr, role="leader")
-
-
 CLUSTER_VID, CLUSTER_REP_VID = 1, 2  # the 1 GiB volume (hard links), a `001` volume
 CLUSTER_SPLIT = {"b": (4, 5, 6, 7), "c": (8, 9, 10, 11), "d": (12, 13)}  # A keeps 0-3
 CLUSTER_LOST = {3: "a", 11: "c"}  # lost at these holders, rebuilt from peers at A
@@ -3757,10 +3615,23 @@ def wait_until(cond, what: str, timeout: float = 30.0, phase: str = "15") -> flo
     return time.perf_counter() - t0
 
 
+def wait_value(fn, what: str, timeout: float = 30.0, phase: str = "17"):
+    """Poll `fn` until it returns something other than None; returns that."""
+    t0 = time.perf_counter()
+    while True:
+        v = fn()
+        if v is not None:
+            return v
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{phase}: {what} within {timeout} s")
+        time.sleep(0.02)
+
+
 def cluster_phase(work: str, ctx, digests: dict, records, n_batches: int, reb_batches: int,
                   vol_rng_state: dict) -> tuple[dict, dict]:
-    """Phase 15: the cluster half on the card. A `StandInMaster` and four
-    port `VolumeServer`s (ec_backend="cuda") in this process on loopback,
+    """Phase 15: the cluster half on the card. A port `MasterServer` and
+    four port `VolumeServer`s (ec_backend="cuda") in this process on
+    loopback,
     every EC step an RPC over gRPC: 15a VolumeMount of the 1 GiB volume
     (hard links into A); 15b VolumeEcShardsGenerate on A (launches ==
     batches, shards sha256-identical to phase 4's), VolumeEcShardsMount,
@@ -3786,6 +3657,7 @@ def cluster_phase(work: str, ctx, digests: dict, records, n_batches: int, reb_ba
     from seaweedfs_tpu_torch.ops import rs_kernels
     from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
     from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     from seaweedfs_tpu_torch.storage.file_id import FileId
     from seaweedfs_tpu_torch.storage.types import actual_offset
@@ -3804,8 +3676,8 @@ def cluster_phase(work: str, ctx, digests: dict, records, n_batches: int, reb_ba
     launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
     result: dict = {}
     steps: dict = {}
-    mport = net_plane.free_grpc_port()  # the stand-in's HTTP port; its gRPC port is +10000
-    master = StandInMaster("127.0.0.1", mport)
+    mport = net_plane.free_grpc_port()  # the master's HTTP port; its gRPC port is +10000
+    master = MasterServer(ip="127.0.0.1", port=mport)
     master.start()
     servers: dict = {}
     channels = []
@@ -3843,7 +3715,7 @@ def cluster_phase(work: str, ctx, digests: dict, records, n_batches: int, reb_ba
                                                 if nbytes else {})}
             return out
 
-        step("register", lambda: wait_until(lambda: len(master.nodes) == 4, "servers registered"))
+        step("register", lambda: wait_until(lambda: len(master.topo.nodes) == 4, "servers registered"))
 
         # -- 15a, 15b. mount the volume, encode it on the card over gRPC -----------
         step("15a VolumeMount", lambda: stub["a"].VolumeMount(
@@ -4224,8 +4096,9 @@ def server_port() -> int:
 
 def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dict]:
     """Phase 16: the admin RPCs of plain volumes and the launcher, on the
-    1 GiB volume (hard links made right after phase 4) under a
-    `StandInMaster`. Server A is built in this process by the launcher's
+    1 GiB volume (hard links made right after phase 4) under a port master
+    started by name (`python3 -m seaweedfs_tpu_torch.server master`, a
+    child process). Server A is built in this process by the launcher's
     `build` (-ec.backend cuda), so its launches count here; B and C are
     children started by name (`python3 -m seaweedfs_tpu_torch.server
     volume ... -ec.backend cuda`). 16a VolumeMount and ReadVolumeFileStatus
@@ -4277,8 +4150,6 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
         print(f"{label}: {json.dumps(out)}")
 
     mport = server_port()
-    master = StandInMaster("127.0.0.1", mport)
-    master.start()
     endpoint = ObjectEndpoint(os.path.join(root, "tier"))
     endpoint.start()
     children: dict = {}
@@ -4289,8 +4160,18 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
     gaddr = {n: f"127.0.0.1:{p + 10000}" for n, p in ports.items()}
     failed = True
     try:
-        # -- servers: B and C started by name, A built here by the launcher ----
+        # -- the master and servers B and C started by name, A built here by
+        # the launcher ------------------------------------------------------------
         env = dict(os.environ, PYTHONPATH=repo)
+        os.makedirs(os.path.join(root, "mdir"))
+        log = open(os.path.join(root, "master.log"), "wb")
+        children["master"] = (subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.server", "master", "-ip", "127.0.0.1",
+             "-port", str(mport), "-mdir", os.path.join(root, "mdir")],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT), log)
+        mchan = grpc.insecure_channel(f"127.0.0.1:{mport + 10000}")
+        channels.append(mchan)
+        mstub = rpc.master_stub(mchan)
         spawned = {}
         for n in "bc":
             log = open(os.path.join(root, f"{n}.log"), "wb")
@@ -4328,22 +4209,28 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
                 new.append((nid, cookie, body))
                 total += len(body)
 
+        first_seen: dict = {}
+
         def registered() -> bool:
             for n, (proc, _) in children.items():
                 if proc.poll() is not None:
                     raise AssertionError(f"16: child {n} exited with {proc.returncode}: "
                                          + open(os.path.join(root, f"{n}.log"), "rb").read()[-2000:]
                                          .decode(errors="replace"))
-            return all(u in master.nodes for u in url.values())
+            try:
+                nodes = {nd.id for nd in mstub.Topology(pb.TopologyRequest(), timeout=10).nodes}
+            except grpc.RpcError:
+                return False  # the master is not up, or not yet its own leader
+            for u in nodes:
+                first_seen.setdefault(u, time.perf_counter())
+            return all(u in nodes for u in url.values())
 
         wait_until(registered, "three servers registered", timeout=120, phase="16")
-        first_heartbeat_s = {n: master.first_seen[url[n]] - spawned[n] for n in "bc"}
+        first_heartbeat_s = {n: first_seen[url[n]] - spawned[n] for n in "bc"}
+        stub = {}
         for n in "abc":
             channels.append(grpc.insecure_channel(gaddr[n]))
-        stub = {n: rpc.volume_stub(ch) for n, ch in zip("abc", channels)}
-        mchan = grpc.insecure_channel(f"127.0.0.1:{mport + 10000}")
-        channels.append(mchan)
-        mstub = rpc.master_stub(mchan)
+            stub[n] = rpc.volume_stub(channels[-1])
 
         def holders() -> list:
             locs = mstub.LookupVolume(pb.LookupVolumeRequest(volume_ids=[vid]), timeout=10)
@@ -4403,7 +4290,7 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
         fa, fb = files("a", "b")
         if fa != fb or ".dat" not in fa:
             raise AssertionError(f"16b: B's files {fb} differ from A's {fa}")
-        wait_until(lambda: holders() == ["a", "b"], "the stand-in lists the volume at A and B", phase="16b")
+        wait_until(lambda: holders() == ["a", "b"], "the master lists the volume at A and B", phase="16b")
         check(stub["a"].VolumeMarkWritable(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
               "16b writable")
         line("16b copy", {"seconds": copy_s, "bytes": dat_size, "gb_per_s": dat_size / copy_s / 1e9,
@@ -4416,7 +4303,7 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
             return holders() == names and seen == sorted(url[n] for n in names)
 
         check(stub["b"].VolumeUnmount(pb.VolumeCommandRequest(volume_id=vid), timeout=60), "16c B down")
-        wait_until(lambda: a_sees(["a"]), "B's unmount reached the stand-in and A", phase="16c")
+        wait_until(lambda: a_sees(["a"]), "B's unmount reached the master and A", phase="16c")
         before_ns = status("a").last_append_at_ns
         before_size = os.path.getsize(abase + ".dat")
         t0 = time.perf_counter()
@@ -4473,7 +4360,7 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
         del parts, suffix
 
         # -- 16d. a tenth of the needles deleted at A (and at B, its replica), vacuum
-        wait_until(lambda: a_sees(["a", "b"]), "B's mount reached the stand-in and A", phase="16d")
+        wait_until(lambda: a_sees(["a", "b"]), "B's mount reached the master and A", phase="16d")
         gone = records[::ADMIN_VACUUM_EVERY]
         for nid, cookie, _, _ in gone:
             code, _, answer = http(f"http://{url['a']}/{FileId(vid, nid, cookie)}", "DELETE")
@@ -4558,7 +4445,7 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
                           "down_seconds": down_s, "down_gb_per_s": c_size / down_s / 1e9})
 
         # -- 16g. the shell's ec.encode flow, then degraded GETs at A -----------
-        wait_until(lambda: holders() == ["a", "b", "c"], "the stand-in lists A, B and C", phase="16g")
+        wait_until(lambda: holders() == ["a", "b", "c"], "the master lists A, B and C", phase="16g")
         final = {nid: (actual_offset(nv.offset), nv.size)
                  for nid, nv in ((nid, va.needle_map.get(nid)) for nid in want)}
         enc_size = status("a").dat_size
@@ -4604,24 +4491,373 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
             ch.close()
         for vs in servers:
             vs.stop()
-        stuck = []
-        for n, (proc, log) in children.items():
-            if proc.poll() is None:
-                proc.send_signal(signal.SIGTERM)
-            try:
-                rc = proc.wait(timeout=CHILD_STOP_S)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=CHILD_STOP_S)
-                rc = None
-            log.close()
-            if rc != 0:
-                stuck.append(f"{n} ({'killed' if rc is None else f'exit {rc}'})")
+        stuck = stop_children(children)
         endpoint.stop()
-        master.stop()
     if stuck and not failed:
         raise AssertionError(f"16: child servers did not stop cleanly on SIGTERM: {stuck}")
     shutil.rmtree(root)
+    return result, launches
+
+
+HA_MASTERS = 3  # phase 17's master group
+HA_RACKS = {"a": "r1", "b": "r1", "c": "r2", "d": "r2"}  # four volume servers on two racks
+HA_COLLECTION = "ha"  # the 1 GiB volume's collection
+HA_REP_COLLECTION = "harep"  # 17c's `001` set
+HA_REP_NEEDLES = 32  # 17c: needles written at replication 001 (bodies of SEED + 17)
+HA_SPLIT = ((4, 5, 6, 7), (8, 9, 12), (10, 11, 13))  # 17d: shards the three other servers take
+HA_STOPPED = 1  # 17f: the index in HA_SPLIT of the server stopped: it holds data shards 8 and 9
+HA_GETS = 40  # 17f: degraded GETs, a seeded sample of the needles over shards 8 and 9
+
+
+def stop_children(children: dict, dead=()) -> list:
+    """SIGTERM every child still running, the last started first; a child
+    alive CHILD_STOP_S later is killed. Returns the children, other than
+    those named in `dead` (killed on purpose), that did not exit with 0."""
+    stuck = []
+    for n, (proc, log) in reversed(list(children.items())):
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=CHILD_STOP_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=CHILD_STOP_S)
+            rc = None
+        log.close()
+        if rc != 0 and n not in dead:
+            stuck.append(f"{n} ({'killed' if rc is None else f'exit {rc}'})")
+    return stuck
+
+
+def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
+    """Phase 17: a cluster of the port alone, every process started by name
+    (`python3 -m seaweedfs_tpu_torch.server master|volume`): three masters
+    as one raft group (`-peers`, `-mdir`) and four volume servers on two
+    racks (`-master <the group>`, the default `-ec.backend`, cuda). 17a the
+    group elects a leader and the servers register with it; 17b phase 3's
+    needles written through the leader's /dir/assign and POST into a
+    collection of their own until its one volume holds about 1 GiB (the
+    first Assign grows it through AllocateVolume, the rest pick it) and
+    read back from its holder; 17c a `001` set, every write read back from
+    both holders /dir/lookup names; 17d the shell's ec.encode flow with
+    the lookups at the leader: VolumeMarkReadonly, VolumeEcShardsGenerate
+    on the holder (`gf2_apply` launches == batches), its shards spread
+    over the three others, VolumeDelete; 17e the leader killed with
+    SIGKILL, a new leader elected, the servers re-homed, LookupEcVolume
+    there lists all 14 shards and an Assign grows a volume whose id was
+    never handed out; 17f the server holding data shards 8 and 9 stopped,
+    and degraded GETs of a seeded sample of the needles over them at the
+    holder (`gf2_apply_planes` launches == its interval-cache loads),
+    byte-equal to what was written. The children's launches are read from
+    their /debug/kernels. Prints one JSON line; returns (result,
+    launches)."""
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.types import NeedleValue, actual_offset
+
+    root = os.path.join(work, "ha")
+    os.makedirs(root)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    mports = [server_port() for _ in range(HA_MASTERS)]
+    maddr = [f"127.0.0.1:{p}" for p in mports]
+    vports = {n: server_port() for n in HA_RACKS}
+    url = {n: f"127.0.0.1:{p}" for n, p in vports.items()}
+    name_of = {u: n for n, u in url.items()}
+    gaddr = {n: f"127.0.0.1:{p + 10000}" for n, p in vports.items()}
+    children: dict = {}
+    channels: list = []
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    steps: dict = {}
+    killed = None
+    failed = True
+
+    def spawn(name: str, args: list) -> None:
+        log = open(os.path.join(root, f"{name}.log"), "wb")
+        children[name] = (subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.server", *args], cwd=root, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log)
+
+    def alive() -> None:
+        for n, (proc, _) in children.items():
+            if n != killed and n != stopped and proc.poll() is not None:
+                raise AssertionError(f"17: child {n} exited with {proc.returncode}: "
+                                     + open(os.path.join(root, f"{n}.log"), "rb").read()[-2000:]
+                                     .decode(errors="replace"))
+
+    def check(resp, what: str):
+        if resp.error:
+            raise AssertionError(f"17 {what}: {resp.error}")
+        return resp
+
+    def kernels(n: str) -> dict:
+        code, _, body = http(f"http://{url[n]}/debug/kernels")
+        if code != 200:
+            raise AssertionError(f"17: /debug/kernels at {n} answered {code}")
+        return json.loads(body)
+
+    def launched(before: dict) -> dict:
+        """Each kernel's launches in every live server since `before`."""
+        now = {n: kernels(n)["launches"] for n in HA_RACKS if n != stopped}
+        return {k: sum(now[n][k] - before[n][k] for n in now) for k in launches}
+
+    stopped = None
+    try:
+        # -- 17a. the group and the servers, started by name ---------------------
+        t_spawn = time.perf_counter()
+        for i, p in enumerate(mports):
+            os.makedirs(os.path.join(root, f"m{i}"))
+            spawn(f"m{i}", ["master", "-ip", "127.0.0.1", "-port", str(p), "-peers", ",".join(maddr),
+                            "-mdir", os.path.join(root, f"m{i}")])
+        for n, rack in HA_RACKS.items():
+            os.makedirs(os.path.join(root, n))
+            spawn(n, ["volume", "-dir", os.path.join(root, n), "-master", ",".join(maddr), "-ip",
+                      "127.0.0.1", "-port", str(vports[n]), "-rack", rack])
+        for p in mports:
+            channels.append(grpc.insecure_channel(f"127.0.0.1:{p + 10000}"))
+        raft = {a: rpc.Stub(ch, rpc.RAFT_SERVICE) for a, ch in zip(maddr, channels)}
+        mstub = {a: rpc.master_stub(ch) for a, ch in zip(maddr, channels)}
+
+        def leader(live: list) -> str | None:
+            """The master every live member names as leader, if one leads."""
+            alive()
+            try:
+                sts = [raft[a].RaftStatus(pb.RaftStatusRequest(), timeout=5) for a in live]
+            except grpc.RpcError:
+                return None
+            leads = [st.node_id for st in sts if st.role == "leader"]
+            if len(leads) == 1 and all(st.leader == leads[0] for st in sts):
+                return leads[0]
+            return None
+
+        def nodes_at(a: str) -> dict:
+            try:
+                return {nd.id: nd for nd in mstub[a].Topology(pb.TopologyRequest(), timeout=10).nodes}
+            except grpc.RpcError:
+                return {}
+
+        lead = wait_value(lambda: leader(maddr), "a leader of the group", timeout=60, phase="17a")
+        elected_s = time.perf_counter() - t_spawn
+        wait_until(lambda: alive() or len(nodes_at(lead)) == len(HA_RACKS),
+                   "four servers registered at the leader", timeout=120, phase="17a")
+        steps["17a start"] = {"elected_s": elected_s, "registered_s": time.perf_counter() - t_spawn,
+                              "leader": maddr.index(lead)}
+        before = {n: kernels(n)["launches"] for n in HA_RACKS}
+        if any(any(v.values()) for v in before.values()):
+            raise AssertionError(f"17a: servers launched kernels before any EC step: {before}")
+
+        def assign(query: str) -> dict:
+            code, _, body = http(f"http://{lead}/dir/assign?{query}")
+            if code != 200:
+                raise AssertionError(f"17: /dir/assign?{query} answered {code} {body[:200]!r}")
+            return json.loads(body)
+
+        def lookup(vid: int) -> list:
+            code, _, body = http(f"http://{lead}/dir/lookup?volumeId={vid}")
+            if code != 200:
+                raise AssertionError(f"17: /dir/lookup of {vid} answered {code} {body[:200]!r}")
+            return sorted(name_of[loc["url"]] for loc in json.loads(body)["locations"])
+
+        # -- 17b. phase 3's needles through /dir/assign and POST -----------------
+        rng = np.random.default_rng()
+        rng.bit_generator.state = vol_rng_state
+        written: dict = {}  # fid -> (needle id, sha256 of the body, body length)
+        vids, total, post_s, assign_lat = set(), 8, 0.0, []
+        t0 = time.perf_counter()
+        for _, _, body in needle_stream(rng):
+            if total + len(body) + 64 > VOLUME_BYTES:
+                break
+            ta = time.perf_counter()
+            a = assign(f"collection={HA_COLLECTION}")
+            tp = time.perf_counter()
+            code, _, answer = http(f"http://{a['url']}/{a['fid']}", "POST", body,
+                                   {"Content-Type": UPLOAD_MIME})
+            post_s += time.perf_counter() - tp
+            assign_lat.append(tp - ta)
+            if code != 201:
+                raise AssertionError(f"17b: POST answered {code} {answer[:200]!r}")
+            fid = FileId.parse(a["fid"])
+            vids.add(fid.volume_id)
+            written[a["fid"]] = (fid.needle_id, hashlib.sha256(body).hexdigest(), len(body))
+            total += len(body) + 64
+        write_s = time.perf_counter() - t0
+        if len(vids) != 1:
+            raise AssertionError(f"17b: the assigns spread over volumes {sorted(vids)}")
+        (vid,) = vids
+        (h,) = lookup(vid)
+        nbytes = sum(w[2] for w in written.values())
+        t0 = time.perf_counter()
+        for fid, (_, want, _) in written.items():
+            code, _, got = http(f"http://{url[h]}/{fid}")
+            if code != 200 or hashlib.sha256(got).hexdigest() != want:
+                raise AssertionError(f"17b: GET of {fid} at {h} answered {code}, not the written bytes")
+        read_s = time.perf_counter() - t0
+        steps["17b writes"] = {
+            "needles": len(written), "bytes": nbytes, "volume": vid, "holder": h,
+            "write_seconds": write_s, "write_mb_per_s": nbytes / write_s / 1e6,
+            "post_mb_per_s": nbytes / post_s / 1e6, "assign_p50_ms": percentile_ms(assign_lat, 50),
+            "assign_p99_ms": percentile_ms(assign_lat, 99), "read_seconds": read_s,
+            "get_gb_per_s": nbytes / read_s / 1e9}
+
+        # -- 17c. a `001` set: every write read back from both holders ---------
+        rep_vids = set()
+        t0 = time.perf_counter()
+        for k, (_, _, body) in enumerate(needle_stream(np.random.default_rng(SEED + 17))):
+            if k == HA_REP_NEEDLES:
+                break
+            a = assign(f"collection={HA_REP_COLLECTION}&replication=001")
+            code, _, answer = http(f"http://{a['url']}/{a['fid']}", "POST", body,
+                                   {"Content-Type": UPLOAD_MIME})
+            if code != 201:
+                raise AssertionError(f"17c: replicated POST answered {code} {answer[:200]!r}")
+            rvid = FileId.parse(a["fid"]).volume_id
+            rep_vids.add(rvid)
+            holders = lookup(rvid)
+            if len(holders) != 2 or HA_RACKS[holders[0]] != HA_RACKS[holders[1]]:
+                raise AssertionError(f"17c: /dir/lookup names {holders} for a `001` volume")
+            for n in holders:
+                code, _, got = http(f"http://{url[n]}/{a['fid']}")
+                if code != 200 or got != body:
+                    raise AssertionError(f"17c: the write of {a['fid']} does not read back at {n}")
+        steps["17c replicated writes"] = {"needles": HA_REP_NEEDLES, "volumes": sorted(rep_vids),
+                                          "holders": lookup(min(rep_vids)),
+                                          "seconds": time.perf_counter() - t0}
+
+        # -- 17d. the shell's ec.encode flow, lookups at the leader --------------
+        stubs = {}
+        for n in HA_RACKS:
+            channels.append(grpc.insecure_channel(gaddr[n]))
+            stubs[n] = rpc.volume_stub(channels[-1])
+        hstub = stubs[h]
+        others = [n for n in HA_RACKS if n != h]
+        base = os.path.join(root, h, f"{HA_COLLECTION}_{vid}")
+        for n in lookup(vid):
+            check(stubs[n].VolumeMarkReadonly(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+                  f"readonly at {n}")
+        dat_size = os.path.getsize(base + ".dat")
+        n_batches = len(list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
+                                        SMALL_BLOCK_SIZE)))
+        before = {n: kernels(n)["launches"] for n in HA_RACKS}
+        t0 = time.perf_counter()
+        hstub.VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=vid, collection=HA_COLLECTION),
+                                     timeout=600)
+        gen_s = time.perf_counter() - t0
+        got = launched(before)
+        if got["gf2_apply"] != n_batches or got["gf2_apply_planes"]:
+            raise AssertionError(f"17d: generate launched {got} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        with open(base + ".ecx", "rb") as f:
+            ecx = f.read()
+        offsets = {}
+        for i in range(0, len(ecx), 16):
+            nv = NeedleValue.from_bytes(ecx[i : i + 16])
+            offsets[nv.needle_id] = (actual_offset(nv.offset), nv.size)
+        t0 = time.perf_counter()
+        hstub.VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=vid, collection=HA_COLLECTION),
+                                  timeout=60)
+        check(hstub.VolumeDelete(pb.VolumeCommandRequest(volume_id=vid), timeout=60), "VolumeDelete")
+        for n, sids in zip(others, HA_SPLIT):
+            stubs[n].VolumeEcShardsCopy(pb.EcShardsCopyRequest(
+                volume_id=vid, collection=HA_COLLECTION, shard_ids=list(sids), source_url=gaddr[h],
+                copy_ecx=True, copy_ecj=True, copy_vif=True, copy_ecsum=True), timeout=600)
+            stubs[n].VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=vid,
+                                                                 collection=HA_COLLECTION), timeout=60)
+        moved = [i for sids in HA_SPLIT for i in sids]
+        hstub.VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=moved),
+                                    timeout=60)
+        hstub.VolumeEcShardsDelete(pb.EcShardsDeleteRequest(volume_id=vid, collection=HA_COLLECTION,
+                                                            shard_ids=moved), timeout=60)
+        placed = {i: [h] for i in range(4)} | {i: [n] for n, sids in zip(others, HA_SPLIT)
+                                                for i in sids}
+
+        def ec_holders(a: str) -> dict:
+            try:
+                resp = mstub[a].LookupEcVolume(pb.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+            except grpc.RpcError:
+                return {}
+            return {sl.shard_id: sorted(name_of[loc.url] for loc in sl.locations)
+                    for sl in resp.shard_locations}
+
+        wait_until(lambda: ec_holders(lead) == placed, "the spread shards at the leader", phase="17d")
+        steps["17d ec.encode"] = {"dat_size": dat_size, "generate_seconds": gen_s,
+                                  "generate_gb_per_s": dat_size / gen_s / 1e9, "launches": n_batches,
+                                  "spread_seconds": time.perf_counter() - t0,
+                                  "split": {n: list(s) for n, s in zip(others, HA_SPLIT)}}
+
+        # -- 17e. the leader killed; the new one rebuilt from heartbeats ------------
+        handed = max(vids | rep_vids)
+        killed = f"m{maddr.index(lead)}"
+        t0 = time.perf_counter()
+        children[killed][0].send_signal(signal.SIGKILL)
+        children[killed][0].wait(timeout=CHILD_STOP_S)
+        live = [a for a in maddr if a != lead]
+        lead = wait_value(lambda: leader(live), "a new leader", timeout=60, phase="17e")
+        failover_s = time.perf_counter() - t0
+        wait_until(lambda: ec_holders(lead) == placed, "14 shards listed at the new leader",
+                   timeout=60, phase="17e")
+        rehomed_s = time.perf_counter() - t0
+        a = assign(f"collection={HA_COLLECTION}new")
+        new_vid = FileId.parse(a["fid"]).volume_id
+        if new_vid <= handed:
+            raise AssertionError(f"17e: the new leader handed out volume {new_vid}, "
+                                 f"not past {handed}")
+        code, _, answer = http(f"http://{a['url']}/{a['fid']}", "POST", b"after the failover",
+                               {"Content-Type": UPLOAD_MIME})
+        if code != 201 or http(f"http://{a['url']}/{a['fid']}")[2] != b"after the failover":
+            raise AssertionError(f"17e: a write after the failover answered {code} {answer[:200]!r}")
+        steps["17e failover"] = {"killed": killed, "new_leader": maddr.index(lead),
+                                 "elected_s": failover_s, "fourteen_shards_s": rehomed_s,
+                                 "new_volume": new_vid, "handed_before": handed}
+
+        # -- 17f. a holder of 2 data shards stopped; degraded GETs at the holder -----
+        stopped = others[HA_STOPPED]
+        proc, _ = children[stopped]
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=CHILD_STOP_S) != 0:
+            raise AssertionError(f"17f: {stopped} exited with {proc.returncode} on SIGTERM")
+        lost = set(HA_SPLIT[HA_STOPPED])
+        wait_until(lambda: not lost & set(ec_holders(lead)), "the stopped holder leaving the leader",
+                   phase="17f")
+        lost_data = {sid for sid in lost if sid < ctx.data_shards}
+        over = [fid for fid, (nid, _, _) in written.items()
+                if any(sid in lost_data for sid, _, _ in record_intervals(*offsets[nid], dat_size))]
+        sample = [over[i] for i in sorted(np.random.default_rng(SEED + 170).choice(
+            len(over), size=min(HA_GETS, len(over)), replace=False))]
+        before = {n: kernels(n)["launches"] for n in HA_RACKS if n != stopped}
+        loads0 = kernels(h)["interval_cache"]["loads"]
+        lat = []
+        for fid in sample:
+            t0 = time.perf_counter()
+            code, _, got = http(f"http://{url[h]}/{fid}")
+            lat.append(time.perf_counter() - t0)
+            if code != 200 or hashlib.sha256(got).hexdigest() != written[fid][1]:
+                raise AssertionError(f"17f: degraded GET of {fid} at {h} answered {code}, "
+                                     "not the written bytes")
+        got = launched(before)
+        recon = kernels(h)["interval_cache"]["loads"] - loads0
+        if got["gf2_apply_planes"] != recon or recon < 1 or got["gf2_apply"]:
+            raise AssertionError(f"17f: {got} launches for {recon} reconstructions")
+        launches["gf2_apply_planes"] += recon
+        got_bytes = sum(written[fid][2] for fid in sample)
+        steps["17f degraded GETs"] = {
+            "stopped": stopped, "needles": len(sample), "over_lost_shards": len(over),
+            "bytes": got_bytes, "seconds": sum(lat), "mb_per_s": got_bytes / sum(lat) / 1e6,
+            "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+            "reconstructions": recon, "planes_launches": recon}
+        failed = False
+    finally:
+        for ch in channels:
+            ch.close()
+        stuck = stop_children(children, dead=(killed, stopped))
+    if stuck and not failed:
+        raise AssertionError(f"17: children did not stop cleanly on SIGTERM: {stuck}")
+    shutil.rmtree(root)
+    result = {"steps": steps, "launches": launches, "card": card_line()}
     return result, launches
 
 
@@ -4863,11 +5099,11 @@ def main() -> int:
               f"status surfaces, a hand-built needle-read frame): {json.dumps(served)}")
         print(f"phase 14: {time.perf_counter() - t0:.3f} s")
 
-        # -- 15. the cluster half: four port servers under a stand-in master -----------
+        # -- 15. the cluster half: four port servers under a port master ---------------
         t0 = time.perf_counter()
         cluster, cluster_launches = cluster_phase(work, ctx, digests, records, n_batches, reb_batches,
                                                   vol_rng_state)
-        print("cluster half (four port servers under a stand-in master, every EC step over gRPC: "
+        print("cluster half (four port servers under a port master, every EC step over gRPC: "
               "15b generate, launches == batches, shards sha256-identical to phase 4's; 15c shards "
               "spread over the net plane and CopyFile, identical; 15d degraded GETs with siblings "
               "remote bit-exact, launches == reconstructions; 15e peer-fetch rebuild of shards 3 "
@@ -4881,6 +5117,18 @@ def main() -> int:
         t0 = time.perf_counter()
         _, admin_launches = admin_phase(work, ctx, records, vol_rng_state)
         print(f"phase 16: {time.perf_counter() - t0:.3f} s")
+
+        # -- 17. a cluster of the port alone, every process started by name ------------
+        t0 = time.perf_counter()
+        ha, ha_launches = ha_phase(work, ctx, vol_rng_state)
+        print("cluster of the port by name (three masters as one raft group, four volume servers "
+              "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
+              "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
+              "17d ec.encode flow, generate launches == batches, shards spread; 17e the leader "
+              "killed, a new one elected, 14 shards listed there, a never-used volume id "
+              "assigned; 17f a holder of data shards 8 and 9 stopped, degraded GETs byte-equal, "
+              f"launches == reconstructions): {json.dumps(ha)}")
+        print(f"phase 17: {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4894,7 +5142,8 @@ def main() -> int:
           "9 flight recorder": trace_launches["gf2_apply"], "10 scheduler": sched_launches["gf2_apply"],
           "11 peer rebuild": peer_launches, "12 remote stream": remote_launches,
           "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"],
-          "15 cluster": cluster_launches["gf2_apply"], "16 admin": admin_launches["gf2_apply"]},
+          "15 cluster": cluster_launches["gf2_apply"], "16 admin": admin_launches["gf2_apply"],
+          "17 cluster by name": ha_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -4903,7 +5152,8 @@ def main() -> int:
           "13 store": store_launches["gf2_apply_planes"],
           "14 server": server_launches["gf2_apply_planes"],
           "15 cluster": cluster_launches["gf2_apply_planes"],
-          "16 admin": admin_launches["gf2_apply_planes"]},
+          "16 admin": admin_launches["gf2_apply_planes"],
+          "17 cluster by name": ha_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

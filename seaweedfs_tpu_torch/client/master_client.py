@@ -1,8 +1,7 @@
 """Client-side master session: volume and EC shard lookups with a
 streaming vid map.
 
-Port of seaweedfs_tpu/client/master_client.py, trimmed to what the volume
-server's cluster half uses (reference weed/wdclient: MasterClient
+Port of seaweedfs_tpu/client/master_client.py (reference weed/wdclient: MasterClient
 .KeepConnectedToMaster, masterclient.go:483, feeds a vidMap, vid_map.go:35,
 with location deltas so lookups are local; leader redirect,
 masterclient.go:223, re-homes the session when masters fail over):
@@ -10,14 +9,15 @@ masterclient.go:223, re-homes the session when masters fail over):
 - the channels and leader resolution over `RaftStatus`, and the retried
   leader call (`utils/retry.py`);
 - the `KeepConnected` session and `_apply_update`;
-- `lookup`, `lookup_ec`, `topology` and `close`;
+- `assign`, `grow`, `lookup`, `lookup_ec`, `topology`, `statistics`,
+  `raft_status`, `collections`, `collection_delete`, the cluster locks
+  (`lock`, `unlock`, `lock_status`; a held lock raises `LockHeldError`
+  naming its holder) and `close`;
 - `grpc_addr`, the master's gRPC address, which the heartbeat stream
   dials too.
 
 Unary lookups stay the fallback while the stream (re)connects, and serve
 EC shard-level locations (the stream carries vid-level EC presence only).
-`assign`, `grow`, the cluster locks, `statistics` and `collections` come
-with the slices whose callers need them.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 import threading
 import time
 import uuid
+from dataclasses import dataclass
 
 import grpc
 
@@ -40,6 +41,16 @@ _LEADER_POLICY = RetryPolicy(max_attempts=4, base_delay=0.05, max_delay=0.5, mul
                              jitter=0.2)
 
 
+@dataclass
+class AssignResult:
+    fid: str
+    url: str
+    public_url: str
+    grpc_port: int
+    replicas: list
+    jwt: str = ""
+
+
 def grpc_addr(master: str) -> str:
     """A master's gRPC address: its HTTP port + 10000."""
     host, _, port = master.partition(":")
@@ -48,6 +59,13 @@ def grpc_addr(master: str) -> str:
 
 class NotLeaderError(Exception):
     pass
+
+
+class LockHeldError(Exception):
+    def __init__(self, name: str, holder: str):
+        super().__init__(f"cluster lock {name!r} is held by {holder}")
+        self.name = name
+        self.holder = holder
 
 
 class MasterClient:
@@ -110,14 +128,16 @@ class MasterClient:
                 return hint
         return self._leader
 
-    def _note_leader_hint(self, error: str) -> None:
-        """Follow a 'not leader; leader=X' answer, else re-resolve."""
+    def _note_leader_hint(self, error: str) -> bool:
+        """Follow a 'not leader; leader=X' answer, else re-resolve; True
+        (the next attempt goes to the new choice), as the JAX client."""
         if "leader=" in error:
             hint = error.split("leader=", 1)[1].strip()
             if hint:
                 self._leader = hint
-                return
+                return True
         self._resolve_leader(skip=self._leader)
+        return True
 
     def _leader_stub(self):
         return rpc.master_stub(self._channel(self._leader))
@@ -236,6 +256,28 @@ class MasterClient:
                     if not ec:
                         del self._ec_present[vid]
 
+    # ------------------------------------------------------------ assign
+
+    def assign(self, count: int = 1, collection: str = "", replication: str = "", ttl: str = "",
+               disk_type: str = "") -> AssignResult:
+        self._ensure_session()
+
+        def call(stub):
+            resp = stub.Assign(pb.AssignRequest(count=count, collection=collection,
+                                                replication=replication, ttl=ttl,
+                                                disk_type=disk_type), timeout=30)
+            if resp.error:
+                if resp.error.startswith("not leader"):
+                    raise NotLeaderError(resp.error)
+                raise RuntimeError(f"assign: {resp.error}")
+            return resp
+
+        resp = self._with_leader(call)
+        return AssignResult(fid=resp.fid, url=resp.location.url,
+                            public_url=resp.location.public_url,
+                            grpc_port=resp.location.grpc_port, replicas=list(resp.replicas),
+                            jwt=resp.jwt)
+
     # ------------------------------------------------------------ lookup
 
     def lookup(self, vid: int, refresh: bool = False) -> list[pb.Location]:
@@ -287,8 +329,89 @@ class MasterClient:
             self._ec_cache[vid] = (now, out)
         return out
 
+    # ------------------------------------------------------------- misc
+
     def topology(self) -> pb.TopologyResponse:
         return self._with_leader(lambda s: s.Topology(pb.TopologyRequest(), timeout=30))
+
+    def statistics(self) -> pb.StatisticsResponse:
+        return self._with_leader(lambda s: s.Statistics(pb.StatisticsRequest(), timeout=30))
+
+    def raft_status(self) -> pb.RaftStatusResponse:
+        """Status of the master this client takes for the leader."""
+        return rpc.Stub(self._channel(self._leader), rpc.RAFT_SERVICE).RaftStatus(
+            pb.RaftStatusRequest(), timeout=5)
+
+    def grow(self, count: int = 1, collection: str = "", replication: str = "") -> list[int]:
+        resp = self._with_leader(lambda s: s.VolumeGrow(pb.VolumeGrowRequest(
+            count=count, collection=collection, replication=replication), timeout=60))
+        return list(resp.volume_ids)
+
+    def collections(self) -> list[str]:
+        return list(self._with_leader(
+            lambda s: s.CollectionList(pb.CollectionListRequest(), timeout=30)).collections)
+
+    def collection_delete(self, name: str) -> list[int]:
+        """Drop every volume of a collection (the fast bucket delete)."""
+
+        def call(stub):
+            resp = stub.CollectionDelete(pb.CollectionDeleteRequest(name=name), timeout=120)
+            if resp.error.startswith("not leader"):
+                raise NotLeaderError(resp.error)
+            return resp
+
+        resp = self._with_leader(call)
+        if resp.error:
+            raise RuntimeError(resp.error)
+        return list(resp.deleted_volume_ids)
+
+    # ------------------------------------------------------------- locks
+
+    def lock(self, name: str, owner: str, ttl: float = 60.0, token: str = "",
+             wait: float = 0.0) -> str:
+        """Acquire (or renew with `token`) the named cluster lease; returns
+        the token. Waits up to `wait` seconds for a busy lock, then raises
+        LockHeldError."""
+
+        def call(stub):
+            resp = stub.AdminLock(pb.LockRequest(name=name, owner=owner, ttl_seconds=ttl,
+                                                 token=token), timeout=10)
+            if resp.error.startswith("not leader"):
+                raise NotLeaderError(resp.error)
+            return resp
+
+        def attempt() -> str:
+            resp = self._with_leader(call)
+            if not resp.ok:
+                raise LockHeldError(name, resp.holder)
+            return resp.token
+
+        if wait <= 0:
+            return attempt()
+        # short, nearly flat delays (a lease can free at any moment) within
+        # a total budget of `wait`
+        policy = RetryPolicy(max_attempts=max(2, int(wait / 0.05) + 1), base_delay=0.05,
+                             max_delay=0.2, multiplier=1.5, jitter=0.2, deadline=wait)
+        try:
+            return retry_call(attempt, policy, retry_on=(LockHeldError,), describe=f"lock {name!r}")
+        except RetryError as e:
+            raise e.__cause__ from None
+
+    def unlock(self, name: str, token: str) -> bool:
+        def call(stub):
+            resp = stub.AdminUnlock(pb.UnlockRequest(name=name, token=token), timeout=10)
+            if resp.error.startswith("not leader"):
+                raise NotLeaderError(resp.error)
+            return resp
+
+        try:
+            return self._with_leader(call).ok
+        except grpc.RpcError:
+            return False  # the lease's expiry cleans up regardless
+
+    def lock_status(self) -> list[tuple[str, str, float]]:
+        resp = self._with_leader(lambda s: s.AdminLockStatus(pb.LockStatusRequest(), timeout=10))
+        return [(r.name, r.owner, r.expires_ns / 1e9) for r in resp.locks]
 
     def close(self) -> None:
         self._stop.set()

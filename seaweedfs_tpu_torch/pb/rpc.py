@@ -2,8 +2,8 @@
 both server handlers and client stubs are built.
 
 Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services the port serves
-or calls: the master's RPCs that the master client and the heartbeats
-call, every RPC of the volume server, and the raft status. Server impls
+or calls: every RPC of the master, of the volume server and of raft. The
+worker, filer and MQ services are not here yet. Server impls
 are plain classes with one method per RPC (same names); streaming RPCs
 take and return iterators, as generated servicers do. `add_service`
 registers exactly the rows of a table.
@@ -24,13 +24,22 @@ VOLUME_SERVICE = "sw.VolumeServer"
 RAFT_SERVICE = "sw.Raft"
 
 SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
-    # what the master client and the volume server's heartbeats call
+    # the RPCs server/master.py serves: every row of the JAX table
     MASTER_SERVICE: {
         "SendHeartbeat": (BIDI, pb.Heartbeat, pb.HeartbeatResponse),
+        "Assign": (UNARY, pb.AssignRequest, pb.AssignResponse),
         "LookupVolume": (UNARY, pb.LookupVolumeRequest, pb.LookupVolumeResponse),
         "LookupEcVolume": (UNARY, pb.LookupEcVolumeRequest, pb.LookupEcVolumeResponse),
+        "Statistics": (UNARY, pb.StatisticsRequest, pb.StatisticsResponse),
         "Topology": (UNARY, pb.TopologyRequest, pb.TopologyResponse),
+        "VolumeGrow": (UNARY, pb.VolumeGrowRequest, pb.VolumeGrowResponse),
+        "CollectionList": (UNARY, pb.CollectionListRequest, pb.CollectionListResponse),
+        "CollectionDelete": (UNARY, pb.CollectionDeleteRequest, pb.CollectionDeleteResponse),
         "KeepConnected": (SERVER_STREAM, pb.KeepConnectedRequest, pb.VolumeLocationUpdate),
+        "AdminLock": (UNARY, pb.LockRequest, pb.LockResponse),
+        "AdminUnlock": (UNARY, pb.UnlockRequest, pb.UnlockResponse),
+        "AdminLockStatus": (UNARY, pb.LockStatusRequest, pb.LockStatusResponse),
+        "VacuumControl": (UNARY, pb.VacuumControlRequest, pb.VolumeCommandResponse),
     },
     # the RPCs server/volume_grpc.py serves: every row of the JAX table
     VOLUME_SERVICE: {
@@ -66,9 +75,13 @@ SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
         "VolumeIncrementalCopy": (SERVER_STREAM, pb.VolumeIncrementalCopyRequest, pb.VolumeIncrementalCopyChunk),
         "ReadVolumeFileStatus": (UNARY, pb.VolumeFileStatusRequest, pb.VolumeFileStatusResponse),
     },
-    # leader resolution of the master client
+    # server/raft.py's peer RPCs, and the master client's leader resolution
     RAFT_SERVICE: {
+        "RaftRequestVote": (UNARY, pb.RaftVoteRequest, pb.RaftVoteResponse),
+        "RaftAppendEntries": (UNARY, pb.RaftAppendRequest, pb.RaftAppendResponse),
         "RaftStatus": (UNARY, pb.RaftStatusRequest, pb.RaftStatusResponse),
+        "RaftInstallSnapshot": (UNARY, pb.RaftInstallSnapshotRequest, pb.RaftInstallSnapshotResponse),
+        "RaftChangeMembership": (UNARY, pb.RaftChangeRequest, pb.RaftChangeResponse),
     },
 }
 

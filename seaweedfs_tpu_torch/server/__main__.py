@@ -1,11 +1,14 @@
-"""`python -m seaweedfs_tpu_torch.server volume`: a port volume server by name.
+"""`python -m seaweedfs_tpu_torch.server master|volume|server`: port servers
+by name.
 
-Port of seaweedfs_tpu/server/__main__.py, its `volume` mode only; argparse
-refuses the other modes (master, filer, server, ...). The flags are the
-JAX launcher's, less its TLS flags. A flag left unset is filled from
-`volume.toml` (utils/config.py), then from the default; `-jwt.key` falls
-back to `security.toml`'s `jwt.signing.key`. Where the two launchers
-differ, on purpose:
+Port of seaweedfs_tpu/server/__main__.py, its `master`, `volume` and
+`server` modes (`server`: a master and a volume server in one process,
+reference `weed server`); argparse refuses the other modes (filer,
+mq.broker, ...). The flags are the JAX launcher's, less its TLS flags. A
+flag left unset is filled from `volume.toml` or `master.toml`
+(utils/config.py), then from the default; `-jwt.key` falls back to
+`security.toml`'s `jwt.signing.key`. Where the two launchers differ, on
+purpose:
 
 - `-ec.backend` takes cuda, cpu or auto and defaults to cuda, where the
   JAX default is auto; tpu is refused.
@@ -13,6 +16,12 @@ differ, on purpose:
   stops the launcher with a message, where the JAX launcher would serve
   HTTPS. Serving plain HTTP where the operator asked for TLS is not an
   option.
+- What needs a module the port does not have yet stops it with a
+  message, where the JAX launcher would start it: the maintenance
+  scanners of `-ec.autoFullness`, `-ec.scrubInterval` and
+  `-ec.rebalanceInterval` (or `master.maintenance.ec_auto_fullness`) above
+  0, which need the worker fleet; `server`'s `-filer`, `-s3`, `-webdav`,
+  `-sftp`, `-admin`, `-notify.webhook` and `-notify.mq`.
 
 `build(argv)` parses, builds and starts the servers and returns them;
 `main(argv)` also waits for SIGINT or SIGTERM, stops them and returns 0.
@@ -33,13 +42,46 @@ log = logger("launcher")
 EC_BACKENDS = ("cuda", "cpu", "auto")
 
 
-def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
-    """The parsed flags with the unset ones filled from `security.toml`
-    and `volume.toml` (searched in `config_dirs`), then the defaults.
-    SystemExit for a backend the port does not run and for a TLS
-    config."""
+def _add_ec_trace_flags(sp) -> None:
+    sp.add_argument("-ec.trace", dest="ec_trace", action="store_true",
+                    help="arm the EC flight recorder (per-stage spans, "
+                    "/debug/traces ring, sw_ec_stage_seconds histograms)")
+    sp.add_argument("-ec.traceRing", dest="ec_trace_ring", type=int, default=0,
+                    help="completed traces kept in the /debug/traces ring (0 = default 256)")
+    sp.add_argument("-ec.slowOpSeconds", dest="ec_slow_op_s", type=float, default=0.0,
+                    help="log the full span tree of any EC op slower than this "
+                    "(arms the flight recorder; 0 = off)")
+
+
+def _add_scanner_flags(sp, rebalance: bool) -> None:
+    sp.add_argument("-ec.autoFullness", dest="ec_auto", type=float, default=None,
+                    help="auto-submit ec_encode for volumes at this fraction of the size limit "
+                    "(0=off; above 0 needs the worker fleet, not ported)")
+    sp.add_argument("-ec.scrubInterval", dest="ec_scrub_interval", type=float, default=0.0,
+                    help="fleet scrub period in seconds (0=off; above 0 needs the worker fleet)")
+    if rebalance:
+        sp.add_argument("-ec.rebalanceInterval", dest="ec_rebalance_interval", type=float,
+                        default=0.0, help="data-gravity period in seconds (0=off; above 0 needs "
+                        "the worker fleet)")
+
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch.server")
     sub = p.add_subparsers(dest="mode", required=True)
+
+    m = sub.add_parser("master")
+    m.add_argument("-ip", default="localhost")
+    m.add_argument("-port", type=int, default=9333)
+    m.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
+    m.add_argument("-jwt.key", dest="jwt_key", default="")
+    _add_scanner_flags(m, rebalance=True)
+    m.add_argument("-peers", default="",
+                   help="comma-separated HA master group incl. this node (host:port,...)")
+    m.add_argument("-mdir", default="",
+                   help="meta dir for the durable raft log (required for HA restarts)")
+    m.add_argument("-telemetry.url", dest="telemetry_url", default="",
+                   help="opt-in phone-home endpoint (leader posts count aggregates)")
+
     v = sub.add_parser("volume")
     v.add_argument("-ip", default="localhost")
     v.add_argument("-port", type=int, default=8080)
@@ -53,14 +95,34 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     v.add_argument("-dataCenter", default="")
     v.add_argument("-rack", default="")
     v.add_argument("-jwt.key", dest="jwt_key", default="")
-    v.add_argument("-ec.trace", dest="ec_trace", action="store_true",
-                   help="arm the EC flight recorder (per-stage spans, "
-                   "/debug/traces ring, sw_ec_stage_seconds histograms)")
-    v.add_argument("-ec.traceRing", dest="ec_trace_ring", type=int, default=0,
-                   help="completed traces kept in the /debug/traces ring (0 = default 256)")
-    v.add_argument("-ec.slowOpSeconds", dest="ec_slow_op_s", type=float, default=0.0,
-                   help="log the full span tree of any EC op slower than this "
-                   "(arms the flight recorder; 0 = off)")
+    _add_ec_trace_flags(v)
+
+    s = sub.add_parser("server")
+    s.add_argument("-ip", default="localhost")
+    s.add_argument("-masterPort", type=int, default=9333)
+    s.add_argument("-port", type=int, default=8080)
+    s.add_argument("-dir", action="append", required=True)
+    s.add_argument("-max", type=int, default=None)
+    s.add_argument("-ec.backend", dest="ec_backend", default=None,
+                   help="cuda (the default), cpu or auto")
+    s.add_argument("-jwt.key", dest="jwt_key", default="")
+    _add_scanner_flags(s, rebalance=False)
+    _add_ec_trace_flags(s)
+    # the JAX launcher's gateways and notifications, refused until their
+    # modules are ported
+    for flag in ("-filer", "-s3", "-webdav", "-sftp", "-admin"):
+        s.add_argument(flag, action="store_true", help="not served by the port yet")
+    s.add_argument("-notify.webhook", dest="notify_webhook", default="")
+    s.add_argument("-notify.mq", dest="notify_mq", default="")
+    return p
+
+
+def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
+    """The parsed flags with the unset ones filled from `security.toml`,
+    `volume.toml` and `master.toml` (searched in `config_dirs`), then the
+    defaults. SystemExit for a backend the port does not run, a TLS
+    config, and what needs a module the port does not have yet."""
+    p = _parser()
     a = p.parse_args(argv)
     sec = load_config("security", config_dirs)
     if sec:
@@ -70,44 +132,81 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
             raise SystemExit(
                 f"{sec.path} sets https.default.cert, but the port serves no TLS: "
                 "refusing to serve plain HTTP where TLS was asked for")
-    vcfg = load_config("volume", config_dirs)
-    if a.index is None:
-        a.index = vcfg.get_str("volume.index", "memory") or "memory"
-    if a.ec_backend is None:
-        a.ec_backend = vcfg.get_str("volume.ec_backend", "cuda") or "cuda"
-    if a.max is None:
-        a.max = int(vcfg.get("volume.store.max_volumes", 8))
-    if a.ec_backend == "tpu":
-        p.error("-ec.backend tpu: the port runs its EC on cuda, cpu or auto")
-    if a.ec_backend not in EC_BACKENDS:
-        p.error(f"-ec.backend {a.ec_backend}: choose from {', '.join(EC_BACKENDS)}")
+    if a.mode in ("volume", "server"):
+        vcfg = load_config("volume", config_dirs)
+        if getattr(a, "index", None) is None:
+            a.index = vcfg.get_str("volume.index", "memory") or "memory"
+        if a.ec_backend is None:
+            a.ec_backend = vcfg.get_str("volume.ec_backend", "cuda") or "cuda"
+        if a.max is None:
+            a.max = int(vcfg.get("volume.store.max_volumes", 8))
+        if a.ec_backend == "tpu":
+            p.error("-ec.backend tpu: the port runs its EC on cuda, cpu or auto")
+        if a.ec_backend not in EC_BACKENDS:
+            p.error(f"-ec.backend {a.ec_backend}: choose from {', '.join(EC_BACKENDS)}")
+    if a.mode in ("master", "server"):
+        mcfg = load_config("master", config_dirs)
+        if a.ec_auto is None:
+            a.ec_auto = float(mcfg.get("master.maintenance.ec_auto_fullness", 0.0))
+        a.garbage_threshold = float(mcfg.get("master.vacuum.garbage_threshold", 0.3))
+        a.vacuum_interval = float(mcfg.get("master.vacuum.interval_seconds", 60))
+        for flag, value in (("-ec.autoFullness", a.ec_auto),
+                            ("-ec.scrubInterval", a.ec_scrub_interval),
+                            ("-ec.rebalanceInterval", getattr(a, "ec_rebalance_interval", 0.0))):
+            if value > 0:
+                p.error(f"{flag} {value}: the maintenance scanners need the worker fleet, "
+                        "which the port does not have yet")
+    if a.mode == "server":
+        for flag in ("filer", "s3", "webdav", "sftp", "admin"):
+            if getattr(a, flag):
+                p.error(f"-{flag}: the port has no {flag} module yet")
+        for flag, value in (("-notify.webhook", a.notify_webhook), ("-notify.mq", a.notify_mq)):
+            if value:
+                p.error(f"{flag} {value}: the port has no filer to notify from yet")
     return a
 
 
 def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
-    """Build and start the servers the flags name (one volume server)."""
-    from .volume_server import VolumeServer
-
+    """Build and start the servers the flags name: a master, a volume
+    server, or both (`server`)."""
     a = resolve(argv, config_dirs)
-    vs = VolumeServer(
-        directories=a.dir,
-        master=a.master,
-        ip=a.ip,
-        port=a.port,
-        max_volume_count=a.max,
-        ec_backend=a.ec_backend,
-        data_center=a.dataCenter,
-        rack=a.rack,
-        jwt_key=a.jwt_key,
-        needle_map_kind=a.index,
-        ec_trace=a.ec_trace,
-        ec_trace_ring=a.ec_trace_ring,
-        ec_slow_op_s=a.ec_slow_op_s,
-    )
-    vs.start()
-    log.info("volume server on %s:%s (grpc %s, ec backend %s)", a.ip, a.port, vs.grpc_port,
-             a.ec_backend)
-    return [vs]
+    servers = []
+    if a.mode in ("master", "server"):
+        from .master import MasterServer
+
+        port = a.port if a.mode == "master" else a.masterPort
+        limit = a.volumeSizeLimitMB * 1024 * 1024 if a.mode == "master" else 30 * 1024**3
+        ms = MasterServer(
+            ip=a.ip, port=port, volume_size_limit=limit, jwt_key=a.jwt_key,
+            peers=getattr(a, "peers", "") or None, meta_dir=getattr(a, "mdir", "") or None,
+            telemetry_url=getattr(a, "telemetry_url", ""), garbage_threshold=a.garbage_threshold,
+            vacuum_interval=a.vacuum_interval)
+        ms.start()
+        servers.append(ms)
+        log.info("master listening on %s:%s (grpc %s)", a.ip, port, ms.grpc_port)
+    if a.mode in ("volume", "server"):
+        from .volume_server import VolumeServer
+
+        vs = VolumeServer(
+            directories=a.dir,
+            master=a.master if a.mode == "volume" else f"{a.ip}:{a.masterPort}",
+            ip=a.ip,
+            port=a.port,
+            max_volume_count=a.max,
+            ec_backend=a.ec_backend,
+            data_center=getattr(a, "dataCenter", ""),
+            rack=getattr(a, "rack", ""),
+            jwt_key=a.jwt_key,
+            needle_map_kind=a.index,
+            ec_trace=a.ec_trace,
+            ec_trace_ring=a.ec_trace_ring,
+            ec_slow_op_s=a.ec_slow_op_s,
+        )
+        vs.start()
+        servers.append(vs)
+        log.info("volume server on %s:%s (grpc %s, ec backend %s)", a.ip, a.port, vs.grpc_port,
+                 a.ec_backend)
+    return servers
 
 
 def main(argv=None) -> int:
@@ -117,7 +216,8 @@ def main(argv=None) -> int:
     servers = build(argv)
     while not stop.wait(1.0):
         pass
-    for srv in servers:
+    # the volume server first: it leaves the master it heartbeats to
+    for srv in reversed(servers):
         srv.stop()
     return 0
 

@@ -11,7 +11,10 @@ PostHandler):
   an EC volume whose shard is gone is reconstructed on the card through
   the Store), POST (a raw body or a multipart upload), DELETE, and the
   /status, /metrics, /debug/traces, /debug/slo and /debug/gateway
-  surfaces;
+  surfaces; and, the port's own, /debug/kernels: this process's launches
+  of each hand-written kernel (`ops/rs_kernels.LAUNCHES`, `MASKED`) and
+  the interval-cache loads that degraded reads made, so a process that
+  runs the server alone shows which kernels its EC paths launched;
 - the shard net plane (ec/net_plane.py) with the server's four
   resolvers: shard ranges, needle payloads, needle writes and
   stream-shard blobs.
@@ -478,6 +481,17 @@ class VolumeServer:
                 self._json(200, docs if q.get("format", [""])[0] == "spans"
                            else trace.chrome_trace(docs=docs))
 
+            def _kernels(self) -> None:
+                from ..ops import rs_kernels
+
+                cache = server.store.ec_interval_cache
+                self._json(200, {
+                    "launches": dict(rs_kernels.LAUNCHES),
+                    "masked": dict(rs_kernels.MASKED),
+                    "interval_cache": {"loads": cache.loads, "hits": cache.hits}
+                    if cache is not None else {},
+                })
+
             def _status(self) -> None:
                 server._refresh_volume_gauges()
                 st = server.store.status()
@@ -514,6 +528,8 @@ class VolumeServer:
                     return
                 if u.path == "/status":
                     return self._status()
+                if u.path == "/debug/kernels":
+                    return self._kernels()
                 # Per-tenant shedding: reads of a tenant over its fair share
                 # of the chip back off before any parse or lookup, while the
                 # residency ledger is at full shed.

@@ -1401,17 +1401,17 @@ def test_grpc_generate_and_rebuild_on_card_match_cpu(cuda, tmp_path):
 
 
 def test_peer_fetch_rebuild_over_grpc_on_card(cuda, tmp_path):
-    """Two card servers under chip_smoke's stand-in master: a subset holder
-    (4 of 14 shards) with shard 0 quarantined rebuilds it from its peer
-    (VolumeEcShardsRebuild from_peers), sha256-identical, and serves a
-    degraded GET of shard 0's needles through gf2_apply_planes before."""
-    import chip_smoke
-
+    """Two card servers under a port master (the smoke's stand-in master
+    until the port had its own): a subset holder (4 of 14 shards) with
+    shard 0 quarantined rebuilds it from its peer (VolumeEcShardsRebuild
+    from_peers), sha256-identical, and serves a degraded GET of shard 0's
+    needles through gf2_apply_planes before."""
     from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.storage.file_id import FileId
 
     mport = free_grpc_port()
-    master = chip_smoke.StandInMaster("127.0.0.1", mport)
+    master = MasterServer(ip="127.0.0.1", port=mport)
     master.start()
     holder = _server(tmp_path / "holder", "cuda", master=f"127.0.0.1:{mport}")
     other = _server(tmp_path / "other", "cuda", master=f"127.0.0.1:{mport}")
@@ -1441,7 +1441,7 @@ def test_peer_fetch_rebuild_over_grpc_on_card(cuda, tmp_path):
         holder.notify_deleted_ec_shards(6, "", [0])
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline:
-            held = {sid for n in master.nodes.values() for e in n["ec_shards"].values()
+            held = {sid for n in list(master.topo.nodes.values()) for e in n.ec_shards.values()
                     for sid in range(14) if e.shard_bits >> sid & 1}
             if held == set(range(1, 14)):
                 break

@@ -357,10 +357,13 @@ def test_import_guard_scans_every_package_of_the_port():
     assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "storage", "utils"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
+    for mod in ("server/master.py", "server/topology.py", "server/raft.py", "server/cluster_lock.py",
+                "utils/telemetry.py", "utils/sequence.py"):
+        assert PORT / mod in _python_files(), mod
 
 
 _SUBPROCESS_ENCODE = r"""
-import os, shutil, sys, tempfile
+import os, shutil, sys, tempfile, time
 import numpy as np
 import seaweedfs_tpu_torch
 from seaweedfs_tpu_torch.ec import (
@@ -543,6 +546,37 @@ nid = max(bodies)
 assert dst.store.read_needle(21, nid, nid).data == bodies[nid]
 src.stop()
 dst.stop()
+# a port master with one port server: Assign, POST, lookup
+import http.client, json
+from seaweedfs_tpu_torch.server.master import MasterServer
+
+mport = free_grpc_port()
+ms = MasterServer(ip="127.0.0.1", port=mport, vacuum_interval=3600)
+ms.start()
+vs = VolumeServer([os.path.join(d, "mv")], master=f"127.0.0.1:{mport}", ip="127.0.0.1",
+                  port=free_grpc_port(), grpc_port=free_grpc_port(), ec_backend="cpu")
+vs.start()
+
+def http_req(port, method, path, body=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request(method, path, body=body)
+    r = c.getresponse()
+    out = r.status, r.read()
+    c.close()
+    return out
+
+deadline = time.time() + 60
+while not ms.topo.nodes and time.time() < deadline:
+    time.sleep(0.05)
+code, body = http_req(mport, "GET", "/dir/assign")
+a = json.loads(body)
+assert code == 200, a
+assert http_req(vs.port, "POST", "/" + a["fid"], b"assigned" * 99)[0] == 201
+code, body = http_req(mport, "GET", "/dir/lookup?volumeId=" + a["fid"].split(",")[0])
+assert code == 200 and json.loads(body)["locations"][0]["url"] == a["url"] == f"127.0.0.1:{vs.port}"
+assert http_req(vs.port, "GET", "/" + a["fid"]) == (200, b"assigned" * 99)
+vs.stop()
+ms.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))

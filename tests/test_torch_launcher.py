@@ -1,16 +1,25 @@
-"""PyTorch port: the launcher's volume mode
-(`python -m seaweedfs_tpu_torch.server volume`, server/__main__.py) and
-its trimmed config loader (utils/config.py), on the CPU:
+"""PyTorch port: the launcher (`python -m seaweedfs_tpu_torch.server
+master|volume|server`, server/__main__.py) and its trimmed config loader
+(utils/config.py), on the CPU:
 
 - a launched port server on the JAX master heartbeats, serves POST and
   GET, and exits with 0 on SIGTERM, leaving the master;
+- a launched port master elects itself, writes its raft log to `-mdir`,
+  answers Assign (growing a volume on a port server) and exits with 0 on
+  SIGTERM; `server` mode runs a master and a volume server in one process
+  that assign, take a POST, look it up and serve it;
 - `-ec.backend tpu` and a `security.toml` asking for TLS each stop the
-  launcher with a message and a nonzero exit;
-- `volume.toml` fills the flags left unset, explicit flags win, and the
-  backend defaults to cuda;
+  launcher with a message and a nonzero exit; so do the modes the port
+  does not have (filer, ...), and the flags of `master` and `server` whose
+  modules are not ported (the maintenance scanners, `server`'s gateways
+  and notifications);
+- `volume.toml` and `master.toml` fill the flags left unset, explicit
+  flags win, and the backend defaults to cuda;
 - the config loader reads the same keys as the JAX one.
 """
 
+import http.client
+import json
 import os
 import signal
 import subprocess
@@ -25,7 +34,10 @@ from seaweedfs_tpu.pb import cluster_pb2 as jpb
 from seaweedfs_tpu.pb import rpc as jrpc
 from seaweedfs_tpu.server.master import MasterServer
 from seaweedfs_tpu.utils import config as jax_config
+from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+from seaweedfs_tpu_torch.pb import rpc
 from seaweedfs_tpu_torch.server import __main__ as launcher
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.storage.file_id import FileId
 from seaweedfs_tpu_torch.utils import config
 
@@ -101,10 +113,153 @@ def test_launcher_refuses_tpu_and_tls(tmp_path, case):
 
 
 def test_other_modes_are_refused():
-    for mode in ("master", "filer", "server"):
+    for mode in ("filer", "mq.broker", "scaffold", "telemetry"):
         with pytest.raises(SystemExit) as e:
             launcher.resolve([mode, "-dir", "/nonexistent"], config_dirs=())
         assert e.value.code == 2
+
+
+@pytest.mark.parametrize("args, want", [
+    (["server", "-filer"], "-filer: the port has no filer module yet"),
+    (["server", "-s3"], "-s3: the port has no s3 module yet"),
+    (["server", "-webdav"], "-webdav: the port has no webdav module yet"),
+    (["server", "-sftp"], "-sftp: the port has no sftp module yet"),
+    (["server", "-admin"], "-admin: the port has no admin module yet"),
+    (["server", "-notify.webhook", "http://h/x"], "-notify.webhook http://h/x: the port has no filer"),
+    (["server", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no filer"),
+    (["server", "-ec.autoFullness", "0.8"], "-ec.autoFullness 0.8: the maintenance scanners need"),
+    (["server", "-ec.scrubInterval", "60"], "-ec.scrubInterval 60.0: the maintenance scanners"),
+    (["master", "-ec.autoFullness", "0.8"], "-ec.autoFullness 0.8: the maintenance scanners need"),
+    (["master", "-ec.scrubInterval", "60"], "-ec.scrubInterval 60.0: the maintenance scanners"),
+    (["master", "-ec.rebalanceInterval", "5"], "-ec.rebalanceInterval 5.0: the maintenance"),
+    (["master", "-tls.cert", "c.pem"], "unrecognized arguments: -tls.cert c.pem"),
+    (["server", "-ec.backend", "tpu"], "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_unserved_flags_of_master_and_server_are_refused(capsys, args, want):
+    argv = args[:1] + (["-dir", "/nonexistent"] if args[0] == "server" else []) + args[1:]
+    with pytest.raises(SystemExit) as e:
+        launcher.resolve(argv, config_dirs=())
+    assert e.value.code == 2 and want in capsys.readouterr().err
+
+
+def test_master_toml_fills_unset_flags_and_flags_win(tmp_path, capsys):
+    d = tmp_path / "conf"
+    d.mkdir()
+    a = launcher.resolve(["master"], config_dirs=[str(d)])
+    assert (a.port, a.ec_auto, a.garbage_threshold, a.vacuum_interval, a.peers, a.mdir) == (
+        9333, 0.0, 0.3, 60.0, "", "")
+    (d / "master.toml").write_text("[master.vacuum]\ngarbage_threshold = 0.5\n"
+                                   "interval_seconds = 15\n[master.maintenance]\n"
+                                   "ec_auto_fullness = 0.9\n")
+    for mode in (["master"], ["server", "-dir", "/data"]):
+        with pytest.raises(SystemExit):  # the scanner the file asks for is not ported
+            launcher.resolve(mode, config_dirs=[str(d)])
+        assert "-ec.autoFullness 0.9" in capsys.readouterr().err
+        a = launcher.resolve(mode + ["-ec.autoFullness", "0"], config_dirs=[str(d)])
+        assert (a.ec_auto, a.garbage_threshold, a.vacuum_interval) == (0.0, 0.5, 15.0)
+    (d / "security.toml").write_text('[https.default]\ncert = "/c.pem"\n')
+    with pytest.raises(SystemExit) as e:
+        launcher.resolve(["master", "-ec.autoFullness", "0"], config_dirs=[str(d)])
+    assert "the port serves no TLS" in str(e.value.code)
+
+
+def grpc_call(port: int, service: str, method: str, req, timeout=10):
+    with grpc.insecure_channel(f"127.0.0.1:{port + 10000}") as ch:
+        return getattr(rpc.Stub(ch, service), method)(req, timeout=timeout)
+
+
+def stop_child(proc) -> str:
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(timeout=30) == 0
+    return proc.stderr.read()
+
+
+def test_launched_master_elects_answers_assign_and_stops_on_sigterm(tmp_path):
+    mport = allocate_port()
+    mdir = tmp_path / "mdir"
+    mdir.mkdir()
+    proc = launch(tmp_path, "master", "-ip", "127.0.0.1", "-port", str(mport), "-mdir", str(mdir),
+                  "-volumeSizeLimitMB", "64")
+    vs = None
+    try:
+        def leads():
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                return grpc_call(mport, rpc.RAFT_SERVICE, "RaftStatus",
+                                 pb.RaftStatusRequest()).role == "leader"
+            except grpc.RpcError:
+                return False
+
+        wait_for(leads, timeout=90, msg="the launched master did not elect itself")
+        r = grpc_call(mport, rpc.MASTER_SERVICE, "Assign", pb.AssignRequest())
+        assert r.error == "no writable volumes and growth failed"
+        vs = VolumeServer([str(tmp_path / "v")], master=f"127.0.0.1:{mport}", ip="127.0.0.1",
+                          port=_ports(), ec_backend="cpu")
+        vs.start()
+        wait_for(lambda: grpc_call(mport, rpc.MASTER_SERVICE, "Statistics",
+                                   pb.StatisticsRequest()).node_count == 1,
+                 timeout=60, msg="the volume server did not register")
+        r = grpc_call(mport, rpc.MASTER_SERVICE, "Assign", pb.AssignRequest(collection="c"))
+        assert not r.error and r.fid.startswith("1,") and r.location.url == f"127.0.0.1:{vs.port}"
+        assert vs.store.find_volume(1) is not None  # grown through AllocateVolume
+        vs.stop()
+        vs = None
+        err = stop_child(proc)
+        assert "master listening on 127.0.0.1" in err
+        recs = [json.loads(line) for line in (mdir / "raft.jsonl").read_text().splitlines()]
+        assert {"entry"} <= {r["t"] for r in recs}
+        assert any(r.get("kind") == "alloc_volume_id" for r in recs)
+    finally:
+        if vs is not None:
+            vs.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def test_launched_server_mode_assigns_writes_and_reads(tmp_path):
+    mport, port = allocate_port(), _ports()
+    proc = launch(tmp_path, "server", "-ip", "127.0.0.1", "-masterPort", str(mport), "-port",
+                  str(port), "-dir", str(tmp_path / "d"), "-ec.backend", "cpu")
+
+    def req(p, method, path, body=None):
+        c = http.client.HTTPConnection("127.0.0.1", p, timeout=30)
+        try:
+            c.request(method, path, body=body)
+            r = c.getresponse()
+            return r.status, r.read()
+        finally:
+            c.close()
+
+    try:
+        def assigned():
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                code, body = req(mport, "GET", "/dir/assign?collection=s")
+            except OSError:
+                return None
+            return json.loads(body) if code == 200 else None
+
+        holder = {}
+        wait_for(lambda: holder.setdefault("a", assigned()) is not None or holder.pop("a"),
+                 timeout=90, msg="the launched server did not assign")
+        a = holder["a"]
+        assert a["url"] == f"127.0.0.1:{port}"
+        assert req(port, "POST", f"/{a['fid']}", b"one process" * 100)[0] == 201
+        vid = a["fid"].split(",")[0]
+        code, body = req(mport, "GET", f"/dir/lookup?volumeId={vid}")
+        assert code == 200 and json.loads(body)["locations"][0]["url"] == a["url"]
+        assert req(port, "GET", f"/{a['fid']}") == (200, b"one process" * 100)
+        err = stop_child(proc)
+        assert "master listening on" in err and "volume server on" in err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_volume_toml_fills_unset_flags_and_flags_win(tmp_path):

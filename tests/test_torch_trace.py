@@ -24,6 +24,7 @@ call sites, held against the JAX package on the CPU.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 import os
 import pkgutil
@@ -423,6 +424,12 @@ def test_metrics_lint_package_wide():
 
     for mod in pkgutil.walk_packages(seaweedfs_tpu_torch.__path__, "seaweedfs_tpu_torch."):
         importlib.import_module(mod.name)
+        # and its counterpart, whose import registers the JAX families the
+        # port's module registers (the master's fleet gauges live in its
+        # topology module, in both packages)
+        twin = "seaweedfs_tpu." + mod.name.split(".", 1)[1]
+        if importlib.util.find_spec(twin) is not None:
+            importlib.import_module(twin)
 
     metrics = list(M.REGISTRY._metrics)
     assert len(metrics) >= 15

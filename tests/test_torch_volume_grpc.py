@@ -23,8 +23,10 @@ beside JAX servers):
 - where the master lookup fails, the JAX server acknowledges a replicated
   write with one copy and the port refuses it; where the master answers
   and names no other holder, both acknowledge it with one copy;
-- the smoke's stand-in master answering lookups and topology as the JAX
-  `MasterServer` does for the same heartbeats;
+- the port's `MasterServer` (which replaced the smoke's stand-in master)
+  answering lookups, topology and the KeepConnected snapshot as the JAX
+  `MasterServer` does for the same heartbeats (tests/test_torch_master.py
+  holds the rest of the master);
 - the port's volume service has every RPC of the JAX one
   (tests/test_torch_volume_admin.py holds the admin RPCs of plain volumes
   against the JAX server).
@@ -34,7 +36,6 @@ import hashlib
 import http.client
 import os
 import shutil
-import sys
 import threading
 import types
 import uuid
@@ -60,7 +61,6 @@ from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.types import actual_offset
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOTAL = 14
 MOVED = list(range(4, TOTAL))  # the subset holder keeps shards 0-3, fewer than k
 PKGS = ("port", "jax")
@@ -600,15 +600,16 @@ def test_master_naming_one_holder_acknowledges_one_copy(tmp_path):
 
 
 def test_stand_in_master_answers_as_jax_master(mixed):
-    """chip_smoke.py's StandInMaster and a JAX MasterServer fed the same
-    heartbeats give the same lookups, topology and KeepConnected snapshot."""
-    sys.path.insert(0, REPO)
-    import chip_smoke
+    """The master chip_smoke.py's cluster phases run, the port's
+    MasterServer (it replaced the smoke's stand-in), and a JAX
+    MasterServer fed the same heartbeats of a port and a JAX server give
+    the same lookups, topology and KeepConnected snapshot."""
+    from seaweedfs_tpu_torch.server.master import MasterServer as PortMasterServer
 
     c, _items, _gens = mixed
     hbs = [c.vols[0].cluster._full_heartbeat(), c.vols[1]._full_heartbeat()]
     jm = MasterServer(ip="127.0.0.1", port=allocate_port())
-    sm = chip_smoke.StandInMaster("127.0.0.1", allocate_port())
+    sm = PortMasterServer(ip="127.0.0.1", port=allocate_port())
     jm.start()
     sm.start()
     chans, held_calls = [], []

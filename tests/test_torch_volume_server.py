@@ -45,6 +45,7 @@ from seaweedfs_tpu.ec.backend import CpuBackend as JaxCpuBackend
 from seaweedfs_tpu.ec.context import ECContext as JaxECContext
 from seaweedfs_tpu.ec.encoder import ec_encode_volume as jax_ec_encode_volume
 from seaweedfs_tpu.ec import device_queue as jax_device_queue
+import seaweedfs_tpu.server.topology  # noqa: F401 (see test_status_metrics_and_debug_surfaces_match_jax)
 from seaweedfs_tpu.server.volume_server import VolumeServer as JaxVolumeServer
 from seaweedfs_tpu.server.volume_server import _parse_upload as jax_parse_upload
 from seaweedfs_tpu.utils import metrics as JM
@@ -360,6 +361,10 @@ def test_status_metrics_and_debug_surfaces_match_jax(pair):
     assert set(sts[0]["volumes"][0]) == set(sts[1]["volumes"][0])
     assert [v["id"] for v in sts[0]["volumes"]] == [v["id"] for v in sts[1]["volumes"]]
 
+    # the registries are process-wide: a family a module registers at import
+    # shows on every server of its package in the process. The port's master
+    # topology registers the JAX topology's two fleet gauges, so the JAX one
+    # is imported at the top of this file to hold the same families.
     texts = [request(vs, "GET", "/metrics")[2].decode() for vs in servers]
     theirs, ours = _families(texts[0]), _families(texts[1])
     assert ours <= theirs
