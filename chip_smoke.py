@@ -249,26 +249,36 @@ Phases:
    expected, every live needle read back); 16e ScrubVolume clean on A and
    naming the one needle flipped on B; 16f VolumeCopy into C,
    VolumeTierUpload to a small object endpoint, 20 GETs from the tier,
-   VolumeTierDownload (the .dat sha256-equal); 16g the shell's ec.encode
-   flow (readonly on every holder, VolumeEcShardsGenerate on A: launches
-   == batches; mount; VolumeDelete on every holder) and every needle over
-   shard 3 read degraded with GET at A (launches == reconstructions). One
-   JSON line per step; each child's start-to-first-heartbeat seconds.
+   VolumeTierDownload (the .dat sha256-equal); 16g the port shell's
+   `ec.encode -backend cuda` in this process (`run_command`; readonly on
+   every holder, generate on the holder the master lists first: launches
+   there == batches, read from a child's /debug/kernels where the holder
+   is B or C; mount; the source deleted at every holder) and every needle
+   over shard 3 read degraded with GET at that holder (launches ==
+   reconstructions). One JSON line per step; each child's
+   start-to-first-heartbeat seconds.
 17. a cluster of the port alone, every process a child started by name:
    three masters as one raft group (`master -peers ... -mdir ...`) and
    four volume servers on two racks (`volume -master <the group>`, the
    default `-ec.backend`, cuda). Phase 3's needles are written through
    the leader's /dir/assign and POST until the one volume the first
    Assign grew holds about 1 GiB, and read back from its holder; a `001`
-   set is read back from both holders /dir/lookup names; the shell's
-   ec.encode flow runs with its lookups at the leader (generate on the
-   holder: `gf2_apply` launches == batches; the shards spread over the
-   other three; the .dat deleted); the leader is killed with SIGKILL, a
-   new one must be elected, list all 14 shards and grow a volume whose id
-   was never handed out; the holder of data shards 8 and 9 is stopped and
-   a seeded sample of the needles over them is read degraded at the
-   holder (`gf2_apply_planes` launches == its interval-cache loads),
-   byte-equal to what was written. The children's launches come from
+   set is read back from both holders /dir/lookup names; one port shell
+   child (`python3 -m seaweedfs_tpu_torch.shell -master <the group>`, fed
+   on its standard input) runs `ec.encode` (`gf2_apply` launches at the
+   holder it names == batches; the .dat deleted) and `ec.balance` (every
+   shard once at the leader, on both racks, sha256-equal); the leader is
+   killed with SIGKILL, a new one must be elected, list all 14 shards and
+   grow a volume whose id was never handed out; a server other than the
+   holder, with one to four shards and a data shard among them, is
+   stopped and a seeded sample of the needles over its data shards is
+   read degraded at the holder (`gf2_apply_planes` launches == its
+   interval-cache loads), byte-equal to what was written; then the same
+   shell runs `ec.check.replication` (the stopped server's shards
+   missing), `ec.rebuild -fromPeers` (`gf2_apply` launches at the
+   rebuilding holder == its batches, sha256-equal), `ec.scrub` (clean),
+   `ec.decode` (the encoded .dat and .idx back, no launch) and `upload`
+   / `download` of a seeded file. The children's launches come from
    their /debug/kernels. One JSON line with each step's walls and rates,
    the failover seconds, the launches and the card.
 
@@ -290,10 +300,13 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from http.client import HTTPConnection
 
 import numpy as np
 import torch
@@ -3277,15 +3290,60 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+CONNECT_S = 5.0  # one loopback connect attempt; they take under 20 ms on the card's host
+CONNECT_TRIES = 4
+CONNECT_RETRIES = [0]  # connects that got no answer and were dialled again
+
+
+class RedialConnection(HTTPConnection):
+    """An HTTP connection that dials again when a connect gets no answer
+    within CONNECT_S. On the card's host (gVisor's network stack) about
+    one loopback connect in 2,000 carrying MiB bodies never completes,
+    while a new one goes through (`chip_loopback.py`). Nothing is sent on
+    a connection that never opened, so each request is sent once."""
+
+    def connect(self):
+        timeout, self.timeout = self.timeout, CONNECT_S
+        try:
+            for attempt in range(CONNECT_TRIES):
+                try:
+                    super().connect()
+                    break
+                except TimeoutError:
+                    if attempt == CONNECT_TRIES - 1:
+                        raise
+                    CONNECT_RETRIES[0] += 1
+        finally:
+            self.timeout = timeout
+        self.sock.settimeout(timeout)
+
+
+class RedialHandler(urllib.request.HTTPHandler):
+    def http_open(self, req):
+        return self.do_open(RedialConnection, req)
+
+
+OPENER = urllib.request.build_opener(RedialHandler)
+
+
 def http(url: str, method: str = "GET", body: bytes | None = None, headers=None):
     """(status, headers, body) of one urllib request; an HTTP error status
-    is an answer, not a raise."""
+    is an answer, not a raise. A request with no answer raises with where
+    each thread of this process is."""
     req = urllib.request.Request(url, data=body, method=method, headers=headers or {})
+    t0 = time.perf_counter()
     try:
-        with urllib.request.urlopen(req, timeout=60) as r:
+        with OPENER.open(req, timeout=60) as r:
             return r.status, r.headers, r.read()
     except urllib.error.HTTPError as e:
         return e.code, e.headers, e.read()
+    except OSError as e:  # URLError, a timeout, a reset
+        frames = sys._current_frames()
+        where = [f"{t.name}@{os.path.basename(s.filename)}:{s.lineno}:{s.name}"
+                 for t in threading.enumerate() if t.ident in frames
+                 for s in traceback.extract_stack(frames[t.ident], limit=1)]
+        raise AssertionError(f"{method} {url} after {time.perf_counter() - t0:.1f} s: {e!r}; "
+                             f"threads {where}") from e
 
 
 def multipart_upload(payload: bytes, name: str) -> tuple[bytes, dict]:
@@ -4125,8 +4183,9 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
     from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
     from seaweedfs_tpu_torch.pb import rpc
     from seaweedfs_tpu_torch.server.__main__ import build
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
     from seaweedfs_tpu_torch.storage.file_id import FileId
-    from seaweedfs_tpu_torch.storage.types import actual_offset, padded_record_size
+    from seaweedfs_tpu_torch.storage.types import NeedleValue, actual_offset, padded_record_size
 
     root = os.path.join(work, "admin")
     dirs = {n: os.path.join(root, n) for n in "abc"}
@@ -4258,6 +4317,17 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
                 raise AssertionError(f"{what}: GET of needle {nid:x} at {n} answered {code}, "
                                      f"{len(body)} bytes not equal to the written ones")
             return dt
+
+        def counters(n: str) -> tuple[dict, int]:
+            """(kernel launches, interval-cache loads) of server n: A's in this
+            process, a child's from its /debug/kernels."""
+            if n == "a":
+                return dict(rs_kernels.LAUNCHES), server_a.store.ec_interval_cache.loads
+            code, _, body = http(f"http://{url[n]}/debug/kernels")
+            if code != 200:
+                raise AssertionError(f"16: /debug/kernels at {n} answered {code}")
+            doc = json.loads(body)
+            return doc["launches"], doc["interval_cache"]["loads"]
 
         line("16 servers", {"build_a_seconds": build_s,
                             "child_start_to_first_heartbeat_s": first_heartbeat_s})
@@ -4407,6 +4477,15 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
         if list(sb.bad_needles) != [rot[0]] or sb.checked != len(want):
             raise AssertionError(f"16e: scrub of B answered {sb.checked} checked, bad "
                                  f"{list(sb.bad_needles)}; expected {len(want)} and [{rot[0]}]")
+        # B's byte flipped back: the shell's ec.encode may generate on any holder
+        check(stub["b"].VolumeUnmount(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
+              "16e unmount B")
+        with open(os.path.join(dirs["b"], f"{vid}.dat"), "r+b") as f:
+            f.seek(rot[2] + 16 + 4 + rot[3] // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        check(stub["b"].VolumeMount(pb.AllocateVolumeRequest(volume_id=vid), timeout=120), "16e mount B")
         line("16e scrub", {"a_checked": sa.checked, "a_seconds": scrub_s,
                            "a_needles_per_s": sa.checked / scrub_s, "b_checked": sb.checked,
                            "b_seconds": scrub_b_s, "b_bad": list(sb.bad_needles)})
@@ -4444,47 +4523,63 @@ def admin_phase(work: str, ctx, records, vol_rng_state: dict) -> tuple[dict, dic
                           "tier_gets": len(tier_lat), "tier_get_p50_ms": percentile_ms(tier_lat, 50),
                           "down_seconds": down_s, "down_gb_per_s": c_size / down_s / 1e9})
 
-        # -- 16g. the shell's ec.encode flow, then degraded GETs at A -----------
+        # -- 16g. the port shell's ec.encode, in this process, then degraded GETs
+        # at the holder it names -----------------------------------------------
         wait_until(lambda: holders() == ["a", "b", "c"], "the master lists A, B and C", phase="16g")
-        final = {nid: (actual_offset(nv.offset), nv.size)
-                 for nid, nv in ((nid, va.needle_map.get(nid)) for nid in want)}
-        enc_size = status("a").dat_size
+        sizes = {n: status(n).dat_size for n in "abc"}  # flushes every holder
+        senv = ShellEnv(f"127.0.0.1:{mport}")
+        try:
+            rs_kernels.reset_launches()
+            before = {n: counters(n)[0] for n in "abc"}
+            t0 = time.perf_counter()
+            out = run_command(senv, f"ec.encode -volumeId {vid} -backend cuda")
+            enc_s = time.perf_counter() - t0
+        finally:
+            senv.close()
+        m = re.fullmatch(rf"ec\.encode volume {vid}: generation (\d+) on (\S+)", out)
+        if m is None or m[2] not in url.values():
+            raise AssertionError(f"16g: ec.encode answered {out!r}")
+        h = {u: n for n, u in url.items()}[m[2]]
+        enc_size = sizes[h]
         n_batches = len(list(batch_plan(enc_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
                                         SMALL_BLOCK_SIZE)))
-        for n in holders():
-            check(stub[n].VolumeMarkReadonly(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
-                  f"16g readonly at {n}")
-        rs_kernels.reset_launches()
-        t0 = time.perf_counter()
-        stub["a"].VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=vid, backend="cuda"),
-                                         timeout=600)
-        gen_s = time.perf_counter() - t0
-        gen_launches = dict(rs_kernels.LAUNCHES)
-        if gen_launches["gf2_apply"] != n_batches or gen_launches["gf2_apply_planes"]:
-            raise AssertionError(f"16g: generate launched {gen_launches} for {n_batches} batches")
+        got = {n: {k: counters(n)[0][k] - before[n][k] for k in launches} for n in "abc"}
+        if got[h]["gf2_apply"] != n_batches or any(
+                got[n][k] for n in got for k in launches if (n, k) != (h, "gf2_apply")):
+            raise AssertionError(f"16g: ec.encode launched {got} for {n_batches} batches at {h}")
         launches["gf2_apply"] += n_batches
-        stub["a"].VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=vid), timeout=60)
-        for n in "abc":
-            check(stub[n].VolumeDelete(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
-                  f"16g VolumeDelete at {n}")
-        stub["a"].VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[DEGRADED]),
-                                        timeout=60)
+        left = [n for n in "abc" if os.path.exists(os.path.join(dirs[n], f"{vid}.dat"))]
+        if left:
+            raise AssertionError(f"16g: the source volume is left at {left}")
+        hbase = os.path.join(dirs[h], str(vid))
+        with open(hbase + ".ecx", "rb") as f:
+            ecx = f.read()
+        final = {}
+        for i in range(0, len(ecx), 16):
+            nv = NeedleValue.from_bytes(ecx[i : i + 16])
+            if nv.needle_id in want:
+                final[nv.needle_id] = (actual_offset(nv.offset), nv.size)
+        if set(final) != set(want):
+            raise AssertionError(f"16g: {h}'s .ecx holds {len(final)} of the {len(want)} live needles")
+        stub[h].VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[DEGRADED]),
+                                      timeout=60)
         degraded = [nid for nid, (off, size) in final.items()
                     if any(sid == DEGRADED for sid, _, _ in record_intervals(off, size, enc_size))]
-        cache = server_a.store.ec_interval_cache
-        loads0 = cache.loads
         rs_kernels.reset_launches()
-        lat = [get("a", nid, want[nid][0], want[nid][1], "16g") for nid in degraded]
-        recon = cache.loads - loads0
-        planes = rs_kernels.LAUNCHES["gf2_apply_planes"]
-        if planes != recon or planes < 1 or rs_kernels.LAUNCHES["gf2_apply"]:
-            raise AssertionError(f"16g: {rs_kernels.LAUNCHES} launches for {recon} reconstructions")
+        before, loads0 = counters(h)
+        lat = [get(h, nid, want[nid][0], want[nid][1], "16g") for nid in degraded]
+        now, loads = counters(h)
+        recon = loads - loads0
+        planes = now["gf2_apply_planes"] - before["gf2_apply_planes"]
+        if planes != recon or planes < 1 or now["gf2_apply"] != before["gf2_apply"]:
+            raise AssertionError(f"16g: {now} launches (from {before}) for {recon} reconstructions")
         launches["gf2_apply_planes"] += planes
-        line("16g ec.encode", {"dat_size": enc_size, "generate_seconds": gen_s,
-                               "generate_gb_per_s": enc_size / gen_s / 1e9, "launches": n_batches,
+        line("16g ec.encode", {"shell": out, "holder": h,
+                               "dat_size": enc_size, "command_seconds": enc_s,
+                               "encode_gb_per_s": enc_size / enc_s / 1e9, "launches": n_batches,
                                "degraded_gets": len(lat), "p50_ms": percentile_ms(lat, 50),
                                "p99_ms": percentile_ms(lat, 99), "reconstructions": recon,
-                               "planes_launches": planes})
+                               "planes_launches": planes, "card": card_line()})
         failed = False
     finally:
         for ch in channels:
@@ -4504,9 +4599,71 @@ HA_RACKS = {"a": "r1", "b": "r1", "c": "r2", "d": "r2"}  # four volume servers o
 HA_COLLECTION = "ha"  # the 1 GiB volume's collection
 HA_REP_COLLECTION = "harep"  # 17c's `001` set
 HA_REP_NEEDLES = 32  # 17c: needles written at replication 001 (bodies of SEED + 17)
-HA_SPLIT = ((4, 5, 6, 7), (8, 9, 12), (10, 11, 13))  # 17d: shards the three other servers take
-HA_STOPPED = 1  # 17f: the index in HA_SPLIT of the server stopped: it holds data shards 8 and 9
-HA_GETS = 40  # 17f: degraded GETs, a seeded sample of the needles over shards 8 and 9
+HA_GETS = 40  # 17f and 17g: GETs of a seeded sample of the needles
+HA_UPLOAD_BYTES = (4 << 20) + 12345  # 17g: the file the shell uploads and downloads
+SHELL_TIMEOUT_S = 600.0  # one shell command's answer
+
+
+class ShellChild:
+    """The port shell as one REPL child (`python3 -m seaweedfs_tpu_torch.shell
+    -master <group>`) fed commands on its standard input. Each command is
+    followed by an unknown command whose error line marks the end of the
+    answer, so an answer may hold any text."""
+
+    MARK = "end.of.answer"
+
+    def __init__(self, master: str, cwd: str, env: dict, log_path: str):
+        import queue
+        import threading
+
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.shell", "-master", master], cwd=cwd, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.log, text=True, bufsize=1)
+        self._lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self) -> None:
+        for ln in self.proc.stdout:
+            self._lines.put(ln)
+        self._lines.put(None)
+
+    def run(self, command: str, timeout: float = SHELL_TIMEOUT_S) -> str:
+        """The command's answer, its lines without the REPL's prompts."""
+        import queue
+
+        self.proc.stdin.write(f"{command}\n{self.MARK}\n")
+        self.proc.stdin.flush()
+        out, deadline = [], time.perf_counter() + timeout
+        while True:
+            try:
+                ln = self._lines.get(timeout=max(deadline - time.perf_counter(), 0.01))
+            except queue.Empty:
+                raise AssertionError(f"17: the shell gave no answer to {command!r} in {timeout} s")
+            if ln is None:
+                raise AssertionError(f"17: the shell exited ({self.proc.wait()}) during {command!r}")
+            while ln.startswith("> "):
+                ln = ln[2:]
+            if f"unknown command '{self.MARK}'" in ln:
+                return "".join(out).rstrip("\n")
+            out.append(ln)
+
+    def close(self) -> int | None:
+        """`exit`, then a kill if the child is alive CHILD_STOP_S later;
+        returns the exit code (None where killed)."""
+        try:
+            self.proc.stdin.write("exit\n")
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            rc = self.proc.wait(timeout=CHILD_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=CHILD_STOP_S)
+            rc = None
+        self.log.close()
+        return rc
 
 
 def stop_children(children: dict, dead=()) -> list:
@@ -4529,28 +4686,38 @@ def stop_children(children: dict, dead=()) -> list:
     return stuck
 
 
-def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
+def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     """Phase 17: a cluster of the port alone, every process started by name
-    (`python3 -m seaweedfs_tpu_torch.server master|volume`): three masters
-    as one raft group (`-peers`, `-mdir`) and four volume servers on two
-    racks (`-master <the group>`, the default `-ec.backend`, cuda). 17a the
-    group elects a leader and the servers register with it; 17b phase 3's
+    (`python3 -m seaweedfs_tpu_torch.server master|volume`, and the shell
+    `python3 -m seaweedfs_tpu_torch.shell`): three masters as one raft
+    group (`-peers`, `-mdir`) and four volume servers on two racks
+    (`-master <the group>`, the default `-ec.backend`, cuda). 17a the group
+    elects a leader and the servers register with it; 17b phase 3's
     needles written through the leader's /dir/assign and POST into a
     collection of their own until its one volume holds about 1 GiB (the
     first Assign grows it through AllocateVolume, the rest pick it) and
     read back from its holder; 17c a `001` set, every write read back from
-    both holders /dir/lookup names; 17d the shell's ec.encode flow with
-    the lookups at the leader: VolumeMarkReadonly, VolumeEcShardsGenerate
-    on the holder (`gf2_apply` launches == batches), its shards spread
-    over the three others, VolumeDelete; 17e the leader killed with
+    both holders /dir/lookup names; 17d one port shell child at the group
+    (`-master a,b,c`, commands on its standard input): `ec.encode` (the
+    holder it names launches `gf2_apply` once per batch) and `ec.balance`
+    (every shard listed once at the leader, on both racks, each moved file
+    sha256-equal to what generate wrote); 17e the leader killed with
     SIGKILL, a new leader elected, the servers re-homed, LookupEcVolume
     there lists all 14 shards and an Assign grows a volume whose id was
-    never handed out; 17f the server holding data shards 8 and 9 stopped,
-    and degraded GETs of a seeded sample of the needles over them at the
-    holder (`gf2_apply_planes` launches == its interval-cache loads),
-    byte-equal to what was written. The children's launches are read from
-    their /debug/kernels. Prints one JSON line; returns (result,
-    launches)."""
+    never handed out; 17f a server other than the holder, with one to four
+    shards and a data shard among them, stopped, and degraded GETs of a
+    seeded sample of the needles over its data shards at the holder
+    (`gf2_apply_planes` launches == its interval-cache loads), byte-equal
+    to what was written; 17g the same shell child: `ec.check.replication`
+    names the stopped server's shards, `ec.rebuild -fromPeers` rebuilds
+    them (`gf2_apply` launches at the rebuilding holder == its batches,
+    the files sha256-equal to generate's), `ec.check.replication` finds
+    all 14, `ec.scrub` no bitrot and nothing missing, `ec.decode` gives
+    the encoded .dat and .idx back (no launch: every data shard is
+    there) and GETs through /dir/lookup read the written bytes, and
+    `upload` then `download` of a seeded file give it back. The
+    children's launches are read from their /debug/kernels. Prints one
+    JSON line; returns (result, launches of 17a-17f, launches of 17g)."""
     import grpc
 
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
@@ -4607,6 +4774,7 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
         return {k: sum(now[n][k] - before[n][k] for n in now) for k in launches}
 
     stopped = None
+    shell = None
     try:
         # -- 17a. the group and the servers, started by name ---------------------
         t_spawn = time.perf_counter()
@@ -4728,53 +4896,7 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
                                           "holders": lookup(min(rep_vids)),
                                           "seconds": time.perf_counter() - t0}
 
-        # -- 17d. the shell's ec.encode flow, lookups at the leader --------------
-        stubs = {}
-        for n in HA_RACKS:
-            channels.append(grpc.insecure_channel(gaddr[n]))
-            stubs[n] = rpc.volume_stub(channels[-1])
-        hstub = stubs[h]
-        others = [n for n in HA_RACKS if n != h]
-        base = os.path.join(root, h, f"{HA_COLLECTION}_{vid}")
-        for n in lookup(vid):
-            check(stubs[n].VolumeMarkReadonly(pb.VolumeCommandRequest(volume_id=vid), timeout=60),
-                  f"readonly at {n}")
-        dat_size = os.path.getsize(base + ".dat")
-        n_batches = len(list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
-                                        SMALL_BLOCK_SIZE)))
-        before = {n: kernels(n)["launches"] for n in HA_RACKS}
-        t0 = time.perf_counter()
-        hstub.VolumeEcShardsGenerate(pb.EcShardsGenerateRequest(volume_id=vid, collection=HA_COLLECTION),
-                                     timeout=600)
-        gen_s = time.perf_counter() - t0
-        got = launched(before)
-        if got["gf2_apply"] != n_batches or got["gf2_apply_planes"]:
-            raise AssertionError(f"17d: generate launched {got} for {n_batches} batches")
-        launches["gf2_apply"] += n_batches
-        with open(base + ".ecx", "rb") as f:
-            ecx = f.read()
-        offsets = {}
-        for i in range(0, len(ecx), 16):
-            nv = NeedleValue.from_bytes(ecx[i : i + 16])
-            offsets[nv.needle_id] = (actual_offset(nv.offset), nv.size)
-        t0 = time.perf_counter()
-        hstub.VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=vid, collection=HA_COLLECTION),
-                                  timeout=60)
-        check(hstub.VolumeDelete(pb.VolumeCommandRequest(volume_id=vid), timeout=60), "VolumeDelete")
-        for n, sids in zip(others, HA_SPLIT):
-            stubs[n].VolumeEcShardsCopy(pb.EcShardsCopyRequest(
-                volume_id=vid, collection=HA_COLLECTION, shard_ids=list(sids), source_url=gaddr[h],
-                copy_ecx=True, copy_ecj=True, copy_vif=True, copy_ecsum=True), timeout=600)
-            stubs[n].VolumeEcShardsMount(pb.EcShardsMountRequest(volume_id=vid,
-                                                                 collection=HA_COLLECTION), timeout=60)
-        moved = [i for sids in HA_SPLIT for i in sids]
-        hstub.VolumeEcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=moved),
-                                    timeout=60)
-        hstub.VolumeEcShardsDelete(pb.EcShardsDeleteRequest(volume_id=vid, collection=HA_COLLECTION,
-                                                            shard_ids=moved), timeout=60)
-        placed = {i: [h] for i in range(4)} | {i: [n] for n, sids in zip(others, HA_SPLIT)
-                                                for i in sids}
-
+        # -- 17d. the port shell, one REPL child at the group: ec.encode, ec.balance
         def ec_holders(a: str) -> dict:
             try:
                 resp = mstub[a].LookupEcVolume(pb.LookupEcVolumeRequest(volume_id=vid), timeout=10)
@@ -4783,11 +4905,77 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
             return {sl.shard_id: sorted(name_of[loc.url] for loc in sl.locations)
                     for sl in resp.shard_locations}
 
-        wait_until(lambda: ec_holders(lead) == placed, "the spread shards at the leader", phase="17d")
-        steps["17d ec.encode"] = {"dat_size": dat_size, "generate_seconds": gen_s,
-                                  "generate_gb_per_s": dat_size / gen_s / 1e9, "launches": n_batches,
-                                  "spread_seconds": time.perf_counter() - t0,
-                                  "split": {n: list(s) for n, s in zip(others, HA_SPLIT)}}
+        def spread() -> dict | None:
+            """{shard: holder} where the leader lists every shard once."""
+            alive()
+            got = ec_holders(lead)
+            if sorted(got) != list(range(ctx.total)) or any(len(v) != 1 for v in got.values()):
+                return None
+            return {sid: v[0] for sid, v in got.items()}
+
+        def hashed(paths: dict) -> dict:
+            with ThreadPoolExecutor(8) as ex:
+                return dict(zip(paths, ex.map(sha256, paths.values())))
+
+        base = {n: os.path.join(root, n, f"{HA_COLLECTION}_{vid}") for n in HA_RACKS}
+        t0 = time.perf_counter()
+        shell = ShellChild(",".join(maddr), root, env, os.path.join(root, "shell.log"))
+        if HA_COLLECTION not in shell.run("collection.list").split():
+            raise AssertionError("17d: the shell's collection.list misses the written collection")
+        shell_start_s = time.perf_counter() - t0
+        dat_size = os.path.getsize(base[h] + ".dat")
+        source = hashed({ext: base[h] + ext for ext in (".dat", ".idx")})
+        n_batches = len(list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
+                                        SMALL_BLOCK_SIZE)))
+        before = {n: kernels(n)["launches"] for n in HA_RACKS}
+        t0 = time.perf_counter()
+        out = shell.run(f"ec.encode -volumeId {vid} -collection {HA_COLLECTION}")
+        enc_s = time.perf_counter() - t0
+        m = re.fullmatch(rf"ec\.encode volume {vid}: generation (\d+) on (\S+)", out)
+        if m is None or name_of.get(m[2]) != h:
+            raise AssertionError(f"17d: ec.encode answered {out!r}; the volume's one holder is {h}")
+        now = {n: kernels(n)["launches"] for n in HA_RACKS}
+        got = {n: {k: now[n][k] - before[n][k] for k in launches} for n in HA_RACKS}
+        if got[h]["gf2_apply"] != n_batches or any(
+                got[n][k] for n in got for k in launches if (n, k) != (h, "gf2_apply")):
+            raise AssertionError(f"17d: ec.encode launched {got} for {n_batches} batches at {h}")
+        launches["gf2_apply"] += n_batches
+        if os.path.exists(base[h] + ".dat"):
+            raise AssertionError("17d: ec.encode left the source volume")
+        shard_size = os.path.getsize(base[h] + ctx.to_ext(0))
+        generated = hashed({sid: base[h] + ctx.to_ext(sid) for sid in range(ctx.total)})
+        with open(base[h] + ".ecx", "rb") as f:
+            ecx = f.read()
+        offsets = {}
+        for i in range(0, len(ecx), 16):
+            nv = NeedleValue.from_bytes(ecx[i : i + 16])
+            offsets[nv.needle_id] = (actual_offset(nv.offset), nv.size)
+        wait_until(lambda: spread() == dict.fromkeys(range(ctx.total), h),
+                   "the 14 shards listed at the holder", phase="17d")
+        t0 = time.perf_counter()
+        out = shell.run(f"ec.balance -collection {HA_COLLECTION}")
+        bal_s = time.perf_counter() - t0
+        moves = [re.fullmatch(rf"ec {vid}\.(\d\d): (\S+) -> (\S+) \((\S+)\)", ln)
+                 for ln in out.splitlines()]
+        if not moves or None in moves:
+            raise AssertionError(f"17d: ec.balance answered {out!r}")
+        planned = {int(mv[1]): name_of[mv[3]] for mv in moves}
+        placed = wait_value(lambda: (lambda got: got if got and all(
+            got[sid] == n for sid, n in planned.items()) else None)(spread()),
+            "every shard listed once, where ec.balance moved it", phase="17d")
+        if {HA_RACKS[n] for n in placed.values()} != set(HA_RACKS.values()):
+            raise AssertionError(f"17d: ec.balance left every shard on one rack: {placed}")
+        landed = hashed({sid: base[n] + ctx.to_ext(sid) for sid, n in placed.items()})
+        if landed != generated:
+            raise AssertionError(f"17d: shards {[s for s in landed if landed[s] != generated[s]]} "
+                                 "differ from what generate wrote")
+        steps["17d ec.encode and ec.balance"] = {
+            "shell_start_s": shell_start_s, "dat_size": dat_size, "encode_seconds": enc_s,
+            "encode_gb_per_s": dat_size / enc_s / 1e9, "launches": n_batches,
+            "balance_seconds": bal_s, "moves": len(moves),
+            "moved_bytes": len(moves) * shard_size,
+            "placement": {n: sorted(sid for sid, m in placed.items() if m == n) for n in HA_RACKS}}
+        placed = {sid: [n] for sid, n in placed.items()}
 
         # -- 17e. the leader killed; the new one rebuilt from heartbeats ------------
         handed = max(vids | rep_vids)
@@ -4814,13 +5002,22 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
                                  "elected_s": failover_s, "fourteen_shards_s": rehomed_s,
                                  "new_volume": new_vid, "handed_before": handed}
 
-        # -- 17f. a holder of 2 data shards stopped; degraded GETs at the holder -----
-        stopped = others[HA_STOPPED]
+        # -- 17f. a server other than the GET holder, with 1-4 shards of which one
+        # or more are data shards, stopped; degraded GETs at the holder ----------
+        held: dict = {}
+        for sid, (n,) in placed.items():
+            held.setdefault(n, set()).add(sid)
+        fit = [n for n in sorted(held) if n != h and len(held[n]) <= ctx.parity_shards
+               and any(sid < ctx.data_shards for sid in held[n])]
+        if not fit:
+            raise AssertionError(f"17f: no server but {h} holds 1-{ctx.parity_shards} shards with a "
+                                 f"data shard among them: {held}")
+        stopped = fit[0]
         proc, _ = children[stopped]
         proc.send_signal(signal.SIGTERM)
         if proc.wait(timeout=CHILD_STOP_S) != 0:
             raise AssertionError(f"17f: {stopped} exited with {proc.returncode} on SIGTERM")
-        lost = set(HA_SPLIT[HA_STOPPED])
+        lost = held[stopped]
         wait_until(lambda: not lost & set(ec_holders(lead)), "the stopped holder leaving the leader",
                    phase="17f")
         lost_data = {sid for sid in lost if sid < ctx.data_shards}
@@ -4845,20 +5042,108 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict]:
         launches["gf2_apply_planes"] += recon
         got_bytes = sum(written[fid][2] for fid in sample)
         steps["17f degraded GETs"] = {
-            "stopped": stopped, "needles": len(sample), "over_lost_shards": len(over),
-            "bytes": got_bytes, "seconds": sum(lat), "mb_per_s": got_bytes / sum(lat) / 1e6,
-            "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
-            "reconstructions": recon, "planes_launches": recon}
+            "stopped": stopped, "lost": sorted(lost), "needles": len(sample),
+            "over_lost_shards": len(over), "bytes": got_bytes, "seconds": sum(lat),
+            "mb_per_s": got_bytes / sum(lat) / 1e6, "p50_ms": percentile_ms(lat, 50),
+            "p99_ms": percentile_ms(lat, 99), "reconstructions": recon, "planes_launches": recon}
+
+        # -- 17g. the shell after the loss: check, rebuild from peers, check, scrub,
+        # decode, then upload and download -----------------------------------------
+        t17g = time.perf_counter()
+        up = [n for n in HA_RACKS if n != stopped]
+        out = shell.run("ec.check.replication")
+        if out != f"ec volume {vid}: MISSING shards {sorted(lost)} (run ec.rebuild)":
+            raise AssertionError(f"17g: ec.check.replication answered {out!r}; {sorted(lost)} lost")
+        before = {n: kernels(n)["launches"] for n in up}
+        t0 = time.perf_counter()
+        out = shell.run(f"ec.rebuild -volumeId {vid} -collection {HA_COLLECTION} -fromPeers")
+        reb_s = time.perf_counter() - t0
+        m = re.fullmatch(r"rebuilt shards \[([\d, ]*)\] on (\S+) \(fetched \[[\d, ]*\] from peers, "
+                         r"distributed \[([\d, ]*)\]\)", out)
+        if m is None or sorted(int(x) for x in m[1].split(", ")) != sorted(lost):
+            raise AssertionError(f"17g: ec.rebuild answered {out!r}; {sorted(lost)} lost")
+        r = name_of[m[2]]
+        reb_batches = -(-shard_size // DEFAULT_BATCH)
+        now = {n: kernels(n)["launches"] for n in up}
+        got = {n: {k: now[n][k] - before[n][k] for k in launches} for n in up}
+        if got[r]["gf2_apply"] != reb_batches or any(
+                got[n][k] for n in got for k in launches if (n, k) != (r, "gf2_apply")):
+            raise AssertionError(f"17g: ec.rebuild launched {got} for {reb_batches} batches at {r}")
+        launches_g = {"gf2_apply": reb_batches, "gf2_apply_planes": 0}
+        healed = wait_value(spread, "all 14 shards listed once after the rebuild", phase="17g")
+        rebuilt = hashed({sid: base[healed[sid]] + ctx.to_ext(sid) for sid in sorted(lost)})
+        if any(rebuilt[sid] != generated[sid] for sid in lost):
+            raise AssertionError("17g: rebuilt shards differ from what generate wrote")
+        out = shell.run("ec.check.replication")
+        if out != f"ec volume {vid}: all {ctx.total} shards present":
+            raise AssertionError(f"17g: ec.check.replication after the rebuild answered {out!r}")
+        t0 = time.perf_counter()
+        # the holders find a collection's EC volume by its collection: ec.scrub
+        # without it answers "ec volume not found", in both packages
+        out = shell.run(f"ec.scrub -volumeId {vid} -collection {HA_COLLECTION}")
+        scrub_s = time.perf_counter() - t0
+        holders_now = len(set(healed.values()))
+        fleet = (f"fleet: {holders_now} holders, {ctx.total} shards checked, 0 bitrot, 0 missing, "
+                 "0 quarantined")
+        if out.splitlines()[-1] != fleet:
+            raise AssertionError(f"17g: ec.scrub answered {out!r}")
+        before = {n: kernels(n)["launches"] for n in up}
+        t0 = time.perf_counter()
+        out = shell.run(f"ec.decode -volumeId {vid} -collection {HA_COLLECTION}")
+        dec_s = time.perf_counter() - t0
+        m = re.fullmatch(rf"decoded ec volume {vid} back to a normal volume on (\S+)", out)
+        if m is None:
+            raise AssertionError(f"17g: ec.decode answered {out!r}")
+        d = name_of[m[1]]
+        now = {n: kernels(n)["launches"] for n in up}
+        if any(now[n][k] != before[n][k] for n in up for k in launches):
+            raise AssertionError(f"17g: ec.decode of a whole shard set launched: {before} -> {now}")
+        if hashed({ext: base[d] + ext for ext in (".dat", ".idx")}) != source:
+            raise AssertionError(f"17g: the decoded .dat or .idx at {d} differs from the encoded volume's")
+        wait_until(lambda: lookup(vid) == [d], f"the decoded volume listed at {d}", phase="17g")
+        picks = [list(written)[i] for i in sorted(np.random.default_rng(SEED + 171).choice(
+            len(written), size=HA_GETS, replace=False))]
+        for fid in picks:
+            code, _, body = http(f"http://{lead}/dir/lookup?volumeId={vid}")
+            where = json.loads(body)["locations"][0]["url"]
+            code, _, got = http(f"http://{where}/{fid}")
+            if code != 200 or hashlib.sha256(got).hexdigest() != written[fid][1]:
+                raise AssertionError(f"17g: GET of {fid} at {where} after the decode answered {code}")
+        src = os.path.join(root, "upload.bin")
+        with open(src, "wb") as f:
+            f.write(np.random.default_rng(SEED + 172).bytes(HA_UPLOAD_BYTES))
+        t0 = time.perf_counter()
+        fid = shell.run(f"upload {src} -collection {HA_COLLECTION}shell")
+        up_s = time.perf_counter() - t0
+        dst = os.path.join(root, "download.bin")
+        t0 = time.perf_counter()
+        out = shell.run(f"download -fid {fid} -o {dst}")
+        down_s = time.perf_counter() - t0
+        if out != f"{HA_UPLOAD_BYTES} bytes -> {dst}" or sha256(dst) != sha256(src):
+            raise AssertionError(f"17g: upload answered {fid!r}, download {out!r}")
+        steps["17g shell"] = {
+            "check_replication_missing": sorted(lost), "rebuild_holder": r,
+            "rebuild_seconds": reb_s, "rebuild_batches": reb_batches,
+            "rebuild_gb_per_s": len(lost) * shard_size / reb_s / 1e9, "scrub_seconds": scrub_s,
+            "scrub_gb_per_s": ctx.total * shard_size / scrub_s / 1e9, "decode_holder": d,
+            "decode_seconds": dec_s, "decode_gb_per_s": dat_size / dec_s / 1e9,
+            "gets_after_decode": len(picks), "upload_bytes": HA_UPLOAD_BYTES,
+            "upload_seconds": up_s, "download_seconds": down_s,
+            "seconds": time.perf_counter() - t17g}
         failed = False
     finally:
         for ch in channels:
             ch.close()
-        stuck = stop_children(children, dead=(killed, stopped))
+        if shell is not None and shell.close() != 0:
+            stuck = ["shell"]
+        else:
+            stuck = []
+        stuck += stop_children(children, dead=(killed, stopped))
     if stuck and not failed:
-        raise AssertionError(f"17: children did not stop cleanly on SIGTERM: {stuck}")
+        raise AssertionError(f"17: children did not stop cleanly: {stuck}")
     shutil.rmtree(root)
-    result = {"steps": steps, "launches": launches, "card": card_line()}
-    return result, launches
+    result = {"steps": steps, "launches": launches, "launches_17g": launches_g, "card": card_line()}
+    return result, launches, launches_g
 
 
 def main() -> int:
@@ -5097,7 +5382,8 @@ def main() -> int:
               f"every shard verified; 14c degraded GETs with shard {DEGRADED} unmounted bit-exact, "
               "launches == reconstructions, no 503 under 8 clients; 14d deletes, fan-out refusals, "
               f"status surfaces, a hand-built needle-read frame): {json.dumps(served)}")
-        print(f"phase 14: {time.perf_counter() - t0:.3f} s")
+        print(f"phase 14: {time.perf_counter() - t0:.3f} s; loopback connects "
+              f"dialled again: {CONNECT_RETRIES[0]}")
 
         # -- 15. the cluster half: four port servers under a port master ---------------
         t0 = time.perf_counter()
@@ -5111,24 +5397,30 @@ def main() -> int:
               "replicated POSTs, records equal, plane and gRPC legs; 15g EC deletes on every "
               "holder; 15h scrub and status; 15i decode to the original .dat): "
               f"{json.dumps(cluster)}")
-        print(f"phase 15: {time.perf_counter() - t0:.3f} s")
+        print(f"phase 15: {time.perf_counter() - t0:.3f} s; loopback connects "
+              f"dialled again: {CONNECT_RETRIES[0]}")
 
         # -- 16. the admin RPCs of plain volumes and the launcher ------------------
         t0 = time.perf_counter()
         _, admin_launches = admin_phase(work, ctx, records, vol_rng_state)
-        print(f"phase 16: {time.perf_counter() - t0:.3f} s")
+        print(f"phase 16: {time.perf_counter() - t0:.3f} s; loopback connects "
+              f"dialled again: {CONNECT_RETRIES[0]}")
 
         # -- 17. a cluster of the port alone, every process started by name ------------
         t0 = time.perf_counter()
-        ha, ha_launches = ha_phase(work, ctx, vol_rng_state)
+        ha, ha_launches, shell_launches = ha_phase(work, ctx, vol_rng_state)
         print("cluster of the port by name (three masters as one raft group, four volume servers "
               "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
               "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
-              "17d ec.encode flow, generate launches == batches, shards spread; 17e the leader "
-              "killed, a new one elected, 14 shards listed there, a never-used volume id "
-              "assigned; 17f a holder of data shards 8 and 9 stopped, degraded GETs byte-equal, "
-              f"launches == reconstructions): {json.dumps(ha)}")
-        print(f"phase 17: {time.perf_counter() - t0:.3f} s")
+              "17d the port shell's ec.encode, generate launches == batches, and ec.balance, "
+              "every shard once on both racks, sha256-equal; 17e the leader killed, a new one "
+              "elected, 14 shards listed there, a never-used volume id assigned; 17f a holder of "
+              "a data shard stopped, degraded GETs byte-equal, launches == reconstructions; 17g "
+              "the shell's ec.check.replication, ec.rebuild -fromPeers (launches == batches, "
+              "sha256-equal), ec.scrub, ec.decode (the .dat and .idx back) and upload/download): "
+              f"{json.dumps(ha)}")
+        print(f"phase 17: {time.perf_counter() - t0:.3f} s; loopback connects "
+              f"dialled again: {CONNECT_RETRIES[0]}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5143,7 +5435,8 @@ def main() -> int:
           "11 peer rebuild": peer_launches, "12 remote stream": remote_launches,
           "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"],
           "15 cluster": cluster_launches["gf2_apply"], "16 admin": admin_launches["gf2_apply"],
-          "17 cluster by name": ha_launches["gf2_apply"]},
+          "17 cluster by name": ha_launches["gf2_apply"],
+          "17g shell": shell_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -5153,7 +5446,8 @@ def main() -> int:
           "14 server": server_launches["gf2_apply_planes"],
           "15 cluster": cluster_launches["gf2_apply_planes"],
           "16 admin": admin_launches["gf2_apply_planes"],
-          "17 cluster by name": ha_launches["gf2_apply_planes"]},
+          "17 cluster by name": ha_launches["gf2_apply_planes"],
+          "17g shell": shell_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

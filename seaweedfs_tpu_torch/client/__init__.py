@@ -1,3 +1,5 @@
 """Clients of the port: the master client (master_client.py), which the
-volume server's cluster half uses for its lookups, and the volume tail
-and incremental-sync helpers (volume_sync.py) of VolumeTailReceiver."""
+volume server's cluster half and the shell use for their lookups, the
+volume tail and incremental-sync helpers (volume_sync.py) of
+VolumeTailReceiver, and the blob operations (operations.py: upload,
+read, delete) of the shell's `upload` and `download`."""

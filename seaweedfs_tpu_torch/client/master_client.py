@@ -14,7 +14,8 @@ masterclient.go:223, re-homes the session when masters fail over):
   (`lock`, `unlock`, `lock_status`; a held lock raises `LockHeldError`
   naming its holder) and `close`;
 - `grpc_addr`, the master's gRPC address, which the heartbeat stream
-  dials too.
+  dials too, and `volume_channel`, a channel to a volume server's gRPC
+  port from its master-listed location.
 
 Unary lookups stay the fallback while the stream (re)connects, and serve
 EC shard-level locations (the stream carries vid-level EC presence only).
@@ -428,3 +429,7 @@ class MasterClient:
                 ch.close()
             self._channels.clear()
 
+
+def volume_channel(loc: pb.Location) -> grpc.Channel:
+    host = loc.url.split(":")[0]
+    return grpc.insecure_channel(f"{host}:{loc.grpc_port}")

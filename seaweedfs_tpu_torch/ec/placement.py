@@ -1,23 +1,29 @@
-"""EC shard placement: the destination scoring of the rack-aware planner.
+"""Rack-aware EC shard placement planning.
 
-Port of the part of seaweedfs_tpu/ec/placement.py that the MQ stream
-parity's remote placement (mq/stream_parity.py `_place_gen_shards`) and
-the volume server's hand-off of regenerated shards
-(server/volume_grpc.py `_distribute_lost_shards`) call:
-`telemetry_stale_after`, `NodeView`, `node_view_for`,
-`plan_shard_placement`, `gravity_key` and `_pick_dest_node` (the scoring
-of pickEcNodeToBalanceShardsInto, weed/shell/command_ec_common.go). The
-balancer's `Move`/`Drop`, `plan_ec_balance` and the rack and gravity
-planners come with the shell and the maintenance worker.
+Port of seaweedfs_tpu/ec/placement.py (reference
+weed/shell/command_ec_common.go:60-120, the EcBalance algorithm, and
+weed/storage/erasure_coding/ecbalancer/): per collection, deduplicate
+shard copies, spread each volume's shards across racks (bounded by the
+per-rack average), then even them across servers within each rack, and
+finally flatten total per-server counts inside every rack; with
+`data_gravity`, drift shards toward chip-rich, lightly loaded hosts.
 
-Pure planning: callers snapshot the hosts into NodeViews and get back a
-shard -> host map.
+The same scoring (`_pick_dest_node`) places the MQ stream parity's
+remote shards (mq/stream_parity.py `_place_gen_shards`) and the volume
+server's regenerated shards (server/volume_grpc.py
+`_distribute_lost_shards`, through `plan_shard_placement`).
+
+Pure planning: callers snapshot the cluster into NodeViews, get back an
+ordered list of Move/Drop operations (or a shard -> host map), and
+execute them with their own RPCs (the shell's `ec.balance` does copy +
+mount / unmount + delete per move).
 """
 
 from __future__ import annotations
 
 import os
 import time
+from collections import defaultdict
 from dataclasses import dataclass, field
 
 # Load normalizer for the scalar gravity score: one typical encode
@@ -83,6 +89,24 @@ class NodeView:
         if self.ec_stage_ewma_s > 0:
             score /= 1.0 + self.ec_stage_ewma_s
         return score
+
+
+@dataclass(frozen=True)
+class Move:
+    vid: int
+    shard_id: int
+    src: str
+    dst: str
+    reason: str
+
+
+@dataclass(frozen=True)
+class Drop:
+    """Delete a duplicate shard copy (dedupe)."""
+
+    vid: int
+    shard_id: int
+    node: str
 
 
 def node_view_for(
@@ -175,6 +199,33 @@ def node_view_for(
     )
 
 
+def plan_ec_balance(
+    nodes: list[NodeView], max_moves: int = 10_000,
+    data_gravity: bool = False, max_gravity_moves: int = 4,
+) -> tuple[list[Drop], list[Move]]:
+    """Full balance pass: dedupe -> across racks -> within racks ->
+    per-rack total flattening. Mutates the NodeViews to reflect planned
+    operations so later stages see earlier decisions.
+
+    `data_gravity=True` (the `ec.balance -dataGravity` flag) appends a
+    final stage that drifts shards from chip-poor or loaded nodes toward
+    chip-rich low-load ones, bounded by `max_gravity_moves` and behind
+    the spread invariants: a gravity move never makes per-volume spread
+    worse on any node or rack, never exceeds the slot gate, and shuns
+    destinations known to have no byte headroom (per-shard byte sizes
+    are not in the topology snapshot; the byte-exact fit gate lives in
+    `plan_shard_placement(shard_bytes=)` and the rebalance planner)."""
+    by_id = {n.id: n for n in nodes}
+    drops = _plan_dedupe(nodes)
+    moves: list[Move] = []
+    moves += _plan_across_racks(nodes, by_id)
+    moves += _plan_within_racks(nodes, by_id)
+    moves += _plan_rack_totals(nodes, by_id)
+    if data_gravity:
+        moves += _plan_gravity(nodes, by_id, max_gravity_moves)
+    return drops, moves[:max_moves]
+
+
 def plan_shard_placement(
     nodes: list[NodeView], vid: int, shard_ids: list[int], shard_bytes: int = 0,
 ) -> dict[int, str]:
@@ -197,6 +248,35 @@ def plan_shard_placement(
             dest.free_bytes = max(dest.free_bytes - shard_bytes, 0)
         plan[sid] = dest.id
     return plan
+
+
+# ------------------------------------------------------------------ stages
+
+
+def _plan_dedupe(nodes: list[NodeView]) -> list[Drop]:
+    """A shard held by several servers keeps the copy on the
+    least-loaded holder; the rest are dropped (doDeduplicateEcShards)."""
+    holders: dict[tuple[int, int], list[NodeView]] = defaultdict(list)
+    for n in nodes:
+        for vid, sids in n.shards.items():
+            for sid in sids:
+                holders[(vid, sid)].append(n)
+    drops: list[Drop] = []
+    for (vid, sid), hs in sorted(holders.items()):
+        if len(hs) <= 1:
+            continue
+        hs.sort(key=lambda n: (n.shard_count(), n.id))
+        for extra in hs[1:]:
+            drops.append(Drop(vid, sid, extra.id))
+            extra.shards[vid].discard(sid)
+    return drops
+
+
+def _racks(nodes: list[NodeView]) -> dict[tuple[str, str], list[NodeView]]:
+    racks: dict[tuple[str, str], list[NodeView]] = defaultdict(list)
+    for n in nodes:
+        racks[n.rack_key()].append(n)
+    return racks
 
 
 def gravity_key(n: NodeView) -> tuple:
@@ -234,3 +314,163 @@ def _pick_dest_node(
         if best is None or key < best[0]:
             best = (key, n)
     return best[1] if best else None
+
+
+def _apply_move(m: Move, by_id: dict[str, NodeView]) -> None:
+    src, dst = by_id[m.src], by_id[m.dst]
+    src.shards[m.vid].discard(m.shard_id)
+    if not src.shards[m.vid]:
+        del src.shards[m.vid]
+    dst.shards.setdefault(m.vid, set()).add(m.shard_id)
+    src.free_slots += 1
+    dst.free_slots -= 1
+
+
+def _plan_across_racks(nodes: list[NodeView], by_id: dict[str, NodeView]) -> list[Move]:
+    """Per volume: no rack may hold more than ceil(total_shards /
+    rack_count) shards (doBalanceEcShardsAcrossRacks)."""
+    moves: list[Move] = []
+    racks = _racks(nodes)
+    if len(racks) < 2:
+        return moves
+    vids = sorted({vid for n in nodes for vid in n.shards})
+    for vid in vids:
+        rack_shards: dict[tuple[str, str], list[tuple[str, int]]] = defaultdict(list)
+        for n in nodes:
+            for sid in sorted(n.shards.get(vid, ())):
+                rack_shards[n.rack_key()].append((n.id, sid))
+        total = sum(len(v) for v in rack_shards.values())
+        if total == 0:
+            continue
+        avg = -(-total // len(racks))  # ceil
+        for rk in sorted(rack_shards, key=lambda k: -len(rack_shards[k])):
+            overflow = rack_shards[rk][avg:]
+            for node_id, sid in overflow:
+                # destination racks scored by fewest shards of this volume,
+                # then aggregate free slots (pickRackToBalanceShardsInto);
+                # the next-best rack when the favourite has no capacity
+                ranked = sorted(
+                    (k for k in racks if k != rk),
+                    key=lambda k: (
+                        sum(len(by_id[n.id].shards.get(vid, ())) for n in racks[k]),
+                        -sum(n.free_slots for n in racks[k]),
+                        k,
+                    ),
+                )
+                dest = None
+                for dest_rk in ranked:
+                    dest = _pick_dest_node(racks[dest_rk], vid)
+                    if dest is not None:
+                        break
+                if dest is None:
+                    continue
+                m = Move(vid, sid, node_id, dest.id, "across-racks")
+                _apply_move(m, by_id)
+                moves.append(m)
+    return moves
+
+
+def _plan_within_racks(nodes: list[NodeView], by_id: dict[str, NodeView]) -> list[Move]:
+    """Per volume, per rack: spread that volume's shards evenly across
+    the rack's servers (doBalanceEcShardsWithinOneRack)."""
+    moves: list[Move] = []
+    for rk, members in sorted(_racks(nodes).items()):
+        if len(members) < 2:
+            continue
+        vids = sorted({vid for n in members for vid in n.shards})
+        for vid in vids:
+            held = [(n, sorted(n.shards.get(vid, ()))) for n in members]
+            total = sum(len(s) for _, s in held)
+            if total == 0:
+                continue
+            avg = -(-total // len(members))  # ceil
+            for n, sids in held:
+                for sid in sids[avg:]:
+                    candidates = [c for c in members
+                                  if c is not n and len(c.shards.get(vid, ())) < avg]
+                    dest = _pick_dest_node(candidates, vid)
+                    if dest is None:
+                        continue
+                    m = Move(vid, sid, n.id, dest.id, "within-rack")
+                    _apply_move(m, by_id)
+                    moves.append(m)
+    return moves
+
+
+def _plan_gravity(nodes: list[NodeView], by_id: dict[str, NodeView], max_moves: int) -> list[Move]:
+    """Data-gravity drift (ec.balance -dataGravity): move shards off the
+    worst-gravity holders onto strictly better-gravity nodes, without
+    disturbing what the spread stages established. A move is legal only
+    when the destination's `gravity_key` is strictly better, per-volume
+    per-node spread does not get worse (dst_count + 1 <= src_count),
+    with >= 2 racks the destination rack stays within the ceil(total /
+    racks) ceiling for that volume, and the destination has a free slot
+    and is not known to be out of byte headroom (free_bytes == 0).
+    Bounded by `max_moves` per pass."""
+    moves: list[Move] = []
+    racks = _racks(nodes)
+    multi_rack = len(racks) >= 2
+
+    def rack_count(rk: tuple[str, str], vid: int) -> int:
+        return sum(len(n.shards.get(vid, ())) for n in racks[rk])
+
+    # worst gravity first: their shards want to leave
+    for src in sorted(nodes, key=lambda n: gravity_key(n), reverse=True):
+        for vid in sorted(src.shards):
+            total = sum(len(n.shards.get(vid, ())) for n in nodes)
+            ceiling = -(-total // len(racks)) if multi_rack else total
+            for sid in sorted(src.shards.get(vid, set())):
+                if len(moves) >= max_moves:
+                    return moves
+                candidates = [
+                    d
+                    for d in nodes
+                    if d is not src
+                    and d.free_slots > 0
+                    and d.free_bytes != 0
+                    and gravity_key(d) < gravity_key(src)
+                    and len(d.shards.get(vid, ())) + 1 <= len(src.shards.get(vid, ()))
+                    and (
+                        not multi_rack
+                        or d.rack_key() == src.rack_key()
+                        or rack_count(d.rack_key(), vid) + 1 <= ceiling
+                    )
+                ]
+                if not candidates:
+                    break  # no better-gravity home for this volume here
+                dest = min(candidates, key=lambda d: (
+                    *gravity_key(d), -d.free_slots, -max(d.free_bytes, 0), d.id))
+                m = Move(vid, sid, src.id, dest.id, "gravity")
+                _apply_move(m, by_id)
+                moves.append(m)
+    return moves
+
+
+def _plan_rack_totals(nodes: list[NodeView], by_id: dict[str, NodeView]) -> list[Move]:
+    """Flatten total per-server shard counts inside each rack without
+    disturbing per-volume spread: only move a volume the destination
+    does not already hold (balanceEcRack)."""
+    moves: list[Move] = []
+    for rk, members in sorted(_racks(nodes).items()):
+        if len(members) < 2:
+            continue
+        total = sum(n.shard_count() for n in members)
+        avg = total / len(members)
+        for _ in range(256):
+            members_sorted = sorted(members, key=lambda n: (n.shard_count(), n.id))
+            low, high = members_sorted[0], members_sorted[-1]
+            if not (high.shard_count() > avg and low.shard_count() + 1 <= avg):
+                break
+            movable = [
+                (vid, sid)
+                for vid, sids in sorted(high.shards.items())
+                for sid in sorted(sids)
+                if vid not in low.shards
+            ]
+            if not movable or low.free_slots <= 0:
+                break
+            vid, sid = movable[0]
+            m = Move(vid, sid, high.id, low.id, "rack-total")
+            _apply_move(m, by_id)
+            moves.append(m)
+    return moves

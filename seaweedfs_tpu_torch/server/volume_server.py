@@ -39,7 +39,7 @@ answered with an error that names the missing fan-out
 (`FAN_OUT_REFUSED`), where the JAX server acknowledges it with one copy.
 
 Left out: ``?locate=true`` and the fastread sidecar, thumbnails,
-/debug/pprof, TLS, and the admin RPCs of plain volumes.
+/debug/pprof and TLS.
 """
 
 from __future__ import annotations

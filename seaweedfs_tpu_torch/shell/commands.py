@@ -1,0 +1,1794 @@
+"""Shell commands: the ops surface (`weed shell` analog).
+
+Port of seaweedfs_tpu/shell/commands.py (reference weed/shell/commands.go,
+command_ec_encode.go:102 doEcEncode: mark readonly -> generate -> mount ->
+delete source; command_ec_rebuild.go, command_ec_decode.go,
+command_ec_common.go, the volume.* family).
+
+Each command is a function(env, args) -> str; the registry drives both
+the REPL and one-shot `python -m seaweedfs_tpu_torch.shell -c "..."`.
+
+The port has the registry, the shared helpers and 39 commands: the
+cluster (`cluster.status`, `cluster.check`, `cluster.raft.*`), volume,
+EC, collection and lock commands, `upload` and `download`. The JAX
+shell's other commands need modules the port has not taken yet (the
+filer, S3, MQ, remote storage, mount and the worker fleet); each answers
+one error line naming the ROADMAP.md item it comes with (`DEFERRED`).
+
+Where the port differs from the JAX shell:
+- the master's HTTP reads (`cluster.status`, `ec.balance -dataGravity`)
+  go over `urllib`, as best-effort as the JAX `requests` reads;
+- `ec.encode -backend` takes `cuda|cpu|auto` and defaults to `cuda`, as
+  every port entry point does; a mutating command given another backend
+  (the JAX `tpu`) answers an error line before any RPC. `ec.rebuild`'s
+  default stays "", the server's `ec_backend`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import shlex
+import urllib.error
+import urllib.request
+import uuid as _uuid
+
+import grpc
+
+from ..client.master_client import (
+    LockHeldError,
+    MasterClient,
+    volume_channel,
+)
+from ..ec import fleet
+from ..pb import cluster_pb2 as pb
+from ..pb import rpc
+from ..utils import trace
+from ..utils.urls import service_url
+
+# the backends a port server's EC runs on (ec/backend.py get_backend)
+BACKENDS = ("cuda", "cpu", "auto")
+
+# The JAX shell's commands that wait for modules the port has not taken
+# yet, each with the ROADMAP.md item that brings it. They are not in
+# COMMANDS: run_command answers them with one error line.
+DEFERRED: dict[str, str] = {
+    **{c: "12b" for c in (
+        "fs.cat", "fs.configure", "fs.cp", "fs.du", "fs.ls", "fs.meta.cat", "fs.meta.load",
+        "fs.meta.save", "fs.mkdir", "fs.mv", "fs.rm", "fs.stat", "fs.tree", "fs.verify",
+        "volume.fsck", "cluster.lock.ring")},
+    **{c: "13b" for c in (
+        "s3.accesskey.create", "s3.accesskey.delete", "s3.bucket.create", "s3.bucket.delete",
+        "s3.bucket.list", "s3.bucket.quota.enforce", "s3.bucket.quota.get",
+        "s3.bucket.quota.set", "s3.clean.uploads", "s3.configure", "s3.policy.delete",
+        "s3.policy.get", "s3.policy.put", "s3.user.delete", "s3.user.list")},
+    **{c: "14a" for c in (
+        "mq.schema.get", "mq.schema.set", "mq.topic.compact", "mq.topic.configure",
+        "mq.topic.delete", "mq.topic.describe", "mq.topic.list", "mq.topic.truncate")},
+    **{c: "15b" for c in (
+        "task.list", "task.submit", "worker.list", "cluster.ps", "maintenance.config")},
+    "mount.configure": "16",
+    **{c: "18" for c in (
+        "remote.cache", "remote.configure", "remote.meta.sync", "remote.mount",
+        "remote.mount.buckets", "remote.uncache", "remote.unmount")},
+}
+
+
+class ShellEnv:
+    def __init__(self, master: str = "localhost:9333", filer: str = "localhost:8888"):
+        self.master_addr = master
+        self.filer_addr = filer
+        self.master = MasterClient(master)
+        self.owner = f"shell-{_uuid.uuid4().hex[:8]}"
+        # how long mutating commands wait for a busy cluster lock
+        self.lock_wait = 10.0
+        # set by the explicit `lock` command: held across the session
+        self.admin_token = ""
+        # set while a mutating command auto-holds the admin lease
+        # (makes nested cluster_guard calls re-entrant)
+        self._auto_admin_token = ""
+
+    def close(self):
+        if self.admin_token:
+            self.master.unlock("admin", self.admin_token)
+            self.admin_token = ""
+        self.master.close()
+
+
+@contextlib.contextmanager
+def cluster_guard(env: ShellEnv, vids=(), ttl: float = 600.0, wait: float | None = None):
+    """Exclusive cluster lock for a mutating command (reference
+    confirmIsLocked): the global admin lease plus a per-volume lease for
+    every touched volume, so two shells — or a shell and the worker
+    fleet — cannot race destructive steps on the same volume. The admin
+    lease is auto-acquired per command unless the session holds it via
+    the `lock` command."""
+    import threading as _threading
+
+    if wait is None:
+        wait = env.lock_wait
+    held = env.admin_token or env._auto_admin_token
+    admin_tok = env.master.lock(
+        "admin", env.owner, ttl=ttl, token=held, wait=wait
+    )
+    outer = not held
+    if outer:
+        env._auto_admin_token = admin_tok
+    vol_toks: list[tuple[str, str]] = []
+    stop_renew = _threading.Event()
+
+    def _renew_loop():
+        # a command outliving its ttl must not silently lose mutual
+        # exclusion: renew all held leases at ttl/3 cadence (renewal
+        # never shortens a lease server-side)
+        while not stop_renew.wait(max(ttl / 3.0, 1.0)):
+            try:
+                env.master.lock(
+                    "admin", env.owner, ttl=ttl, token=admin_tok, wait=0
+                )
+                for name, tok in vol_toks:
+                    env.master.lock(name, env.owner, ttl=ttl, token=tok, wait=0)
+            except Exception:  # noqa: BLE001 — lease lost (e.g. failover)
+                return
+
+    try:
+        for vid in vids:
+            name = f"volume/{int(vid)}"
+            vol_toks.append(
+                (name, env.master.lock(name, env.owner, ttl=ttl, wait=wait))
+            )
+        _threading.Thread(target=_renew_loop, daemon=True).start()
+        yield
+    finally:
+        stop_renew.set()
+        for name, tok in vol_toks:
+            env.master.unlock(name, tok)
+        if outer:
+            env._auto_admin_token = ""
+            if not env.admin_token:
+                env.master.unlock("admin", admin_tok)
+
+
+@contextlib.contextmanager
+def volume_lease(env: ShellEnv, vid: int, ttl: float = 600.0):
+    """Per-volume cluster lease for commands that discover their target
+    volumes at runtime (ec.balance, fix.replication, collection.delete):
+    the admin lease alone does not exclude the worker fleet, which holds
+    only volume/<vid> leases."""
+    name = f"volume/{int(vid)}"
+    tok = env.master.lock(name, env.owner, ttl=ttl, wait=env.lock_wait)
+    try:
+        yield
+    finally:
+        env.master.unlock(name, tok)
+
+
+COMMANDS: dict[str, tuple] = {}
+
+
+def command(name: str, help_text: str, mutating: bool = False):
+    """`mutating=True` gates the command on the exclusive cluster admin
+    lease (reference confirmIsLocked) — two shells cannot interleave
+    destructive cluster operations."""
+
+    def deco(fn):
+        if mutating:
+            import functools
+
+            @functools.wraps(fn)
+            def wrapped(env, args):
+                refused = _unserved_backend(args)
+                if refused:
+                    return refused
+                # the command's -volumeId targets get per-volume leases
+                # too, so worker tasks on those volumes cannot interleave
+                vids: list[int] = []
+                for i, tok in enumerate(args):
+                    if tok == "-volumeId" and i + 1 < len(args):
+                        vids = [
+                            int(v)
+                            for v in str(args[i + 1]).split(",")
+                            if v.strip().isdigit()
+                        ]
+                with cluster_guard(env, vids=vids):
+                    return fn(env, args)
+
+            COMMANDS[name] = (wrapped, help_text)
+            return fn
+        COMMANDS[name] = (fn, help_text)
+        return fn
+
+    return deco
+
+
+def _unserved_backend(args) -> str:
+    """The error line for a `-backend` the port's servers do not run
+    (the JAX `tpu`), else "": answered before the lease and any RPC."""
+    for i, tok in enumerate(args):
+        name = None
+        if tok == "-backend" and i + 1 < len(args):
+            name = args[i + 1]
+        elif tok.startswith("-backend="):
+            name = tok.split("=", 1)[1]
+        if name is not None and name and name not in BACKENDS:
+            return f"error: -backend {name}: the port runs its EC on cuda, cpu or auto"
+    return ""
+
+
+def _get_json(url: str, timeout: float = 5.0):
+    """The JSON body of one GET over urllib (an error status's body is
+    parsed too, as `requests.get(url).json()` does)."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            body = r.read()
+    except urllib.error.HTTPError as e:
+        body = e.read()
+    return json.loads(body)
+
+
+def run_command(env: ShellEnv, line: str) -> str:
+    parts = shlex.split(line)
+    if not parts:
+        return ""
+    name, args = parts[0], parts[1:]
+    if name in ("help", "?"):
+        return "\n".join(
+            f"{n:28s} {h}" for n, (_, h) in sorted(COMMANDS.items())
+        )
+    entry = COMMANDS.get(name)
+    if entry is None and name in DEFERRED:
+        return (f"error: {name} is not ported yet: it comes with ROADMAP.md item "
+                f"{DEFERRED[name]}")
+    if entry is None:
+        return f"unknown command {name!r} (try `help`)"
+    # one request id per shell command: every server an `ec.rebuild`
+    # or `ec.scrub` touches logs the same id (utils/request_id.py)
+    from ..utils.request_id import ensure as _rid_ensure
+
+    _rid_ensure()
+    try:
+        return entry[0](env, args)
+    except grpc.RpcError as e:
+        return f"error: {e.code().name}: {e.details()}"
+    except (LookupError, LockHeldError, RuntimeError, OSError) as e:
+        return f"error: {e}"
+
+
+def _locate_volume(env: ShellEnv, vid: int) -> pb.Location:
+    locs = env.master.lookup(vid, refresh=True)
+    if not locs:
+        raise LookupError(f"volume {vid} has no locations")
+    return locs[0]
+
+
+def _volume_stub(loc: pb.Location):
+    ch = volume_channel(loc)
+    return ch, rpc.volume_stub(ch)
+
+
+def _volume_holders(topo):
+    """{vid: [DataNodeInfo...]}, {vid: (collection, replica_placement)} —
+    the shared input for replication checks/repair."""
+    holders: dict[int, list] = {}
+    meta: dict[int, tuple] = {}
+    for n in topo.nodes:
+        for v in n.volumes:
+            holders.setdefault(v.id, []).append(n)
+            meta[v.id] = (v.collection, v.replica_placement)
+    return holders, meta
+
+
+
+
+@command("cluster.status", "show nodes, volume/EC counts, chip telemetry, SLOs")
+def cluster_status(env: ShellEnv, args) -> str:
+    topo = env.master.topology()
+    lines = [f"max volume id: {topo.max_volume_id}"]
+    for n in topo.nodes:
+        lines.append(
+            f"  node {n.id} rack={n.rack or '-'} "
+            f"volumes={len(n.volumes)} ec={len(n.ec_shards)}"
+        )
+    # heartbeat-learned chip telemetry + master-side SLO surface ride
+    # the master's HTTP status endpoints (best-effort: a master without
+    # them, or an unreachable HTTP port, degrades to the gRPC-only
+    # listing above)
+    try:
+        st = _get_json(service_url(env.master_addr, "/cluster/status"))
+        from ..ec.placement import node_view_for
+        from ..ec.rebalance import volume_heat
+
+        for node_id, tele in sorted(st.get("EcTelemetry", {}).items()):
+            chips = tele.get("chips", {}) or {}
+            flag = " DEGRADED" if tele.get("degraded") else ""
+            if tele.get("stale"):
+                flag += " STALE"
+            # gravity column: the same score placement/rebalance rank
+            # with (ec/placement.NodeView.gravity_score), so the
+            # operator sees where bytes want to drift
+            gv = node_view_for(
+                node_id, "", "", 8, 0, [], ec_telemetry=tele
+            )
+            heat = volume_heat(tele)
+            lines.append(
+                f"  chips {node_id}: {len(chips)} chip(s), "
+                f"breakers_open={tele.get('breakers_open', 0)} "
+                f"gravity={gv.gravity_score():.2f} "
+                f"age={tele.get('age_s', '-')}s "
+                f"heat={sum(heat.values())}B{flag}"
+            )
+            for chip, c in sorted(chips.items()):
+                lines.append(
+                    f"    {chip} load={c.get('load', 0)} "
+                    f"breaker={c.get('breaker') or '-'}"
+                )
+            for vid, hb in sorted(
+                heat.items(), key=lambda kv: -kv[1]
+            )[:5]:
+                lines.append(f"    ec {vid} heat={hb}B")
+        for mig in st.get("EcMigrations", [])[:5]:
+            lines.append(
+                f"  migration: ec {mig.get('volume_id')} "
+                f"{mig.get('src')} -> {mig.get('dst')} "
+                f"shards={mig.get('shards')} heat={mig.get('heat')}B "
+                f"gravity {mig.get('src_gravity')} -> "
+                f"{mig.get('dst_gravity')}"
+            )
+        slo = _get_json(service_url(env.master_addr, "/debug/slo"))
+        if slo:
+            lines.append("  slo (master, ms):")
+            for op, s in sorted(slo.items()):
+                lines.append(
+                    f"    {op}: n={s['count']} p50={s['p50_ms']} "
+                    f"p99={s['p99_ms']}"
+                )
+    except Exception as e:  # noqa: BLE001 — status must stay best-effort
+        lines.append(f"  (telemetry unavailable: {e})")
+    return "\n".join(lines)
+
+
+@command("volume.list", "list volumes and EC shard sets per node")
+def volume_list(env: ShellEnv, args) -> str:
+    topo = env.master.topology()
+    lines = []
+    for n in topo.nodes:
+        lines.append(f"node {n.id}:")
+        for v in sorted(n.volumes, key=lambda v: v.id):
+            lines.append(
+                f"  volume {v.id} col={v.collection or '-'} size={v.size} "
+                f"files={v.file_count} del={v.deleted_count} "
+                f"{'RO' if v.read_only else 'RW'} rp={v.replica_placement}"
+            )
+        for e in sorted(n.ec_shards, key=lambda e: e.id):
+            shards = [i for i in range(32) if e.shard_bits & (1 << i)]
+            lines.append(
+                f"  ec {e.id} col={e.collection or '-'} shards={shards} "
+                f"{e.data_shards}+{e.parity_shards} gen={e.generation}"
+            )
+    return "\n".join(lines) or "no nodes"
+
+
+@command("volume.grow", "-count N [-collection c] [-replication xyz]")
+def volume_grow(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.grow")
+    p.add_argument("-count", type=int, default=1)
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    a = p.parse_args(args)
+    vids = env.master.grow(a.count, a.collection, a.replication)
+    return f"grew volumes: {vids}"
+
+
+@command("volume.vacuum", "-volumeId N [-garbageThreshold 0.3]", mutating=True)
+def volume_vacuum(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.vacuum")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-garbageThreshold", type=float, default=0.0)
+    a = p.parse_args(args)
+    out = []
+    for loc in env.master.lookup(a.volumeId, refresh=True):
+        ch, stub = _volume_stub(loc)
+        with ch:
+            r = stub.VacuumVolume(
+                pb.VacuumRequest(
+                    volume_id=a.volumeId, garbage_threshold=a.garbageThreshold
+                ),
+                timeout=600,
+            )
+        out.append(f"{loc.url}: reclaimed {r.reclaimed_bytes} (ratio {r.garbage_ratio:.2f})")
+    return "\n".join(out)
+
+
+@command("volume.delete", "-volumeId N", mutating=True)
+def volume_delete(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.delete")
+    p.add_argument("-volumeId", type=int, required=True)
+    a = p.parse_args(args)
+    out = []
+    for loc in env.master.lookup(a.volumeId, refresh=True):
+        ch, stub = _volume_stub(loc)
+        with ch:
+            r = stub.VolumeDelete(
+                pb.VolumeCommandRequest(volume_id=a.volumeId), timeout=60
+            )
+        out.append(f"{loc.url}: {r.error or 'deleted'}")
+    return "\n".join(out)
+
+
+@command("volume.mark", "-volumeId N -readonly|-writable", mutating=True)
+def volume_mark(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.mark")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-readonly", action="store_true")
+    p.add_argument("-writable", action="store_true")
+    a = p.parse_args(args)
+    out = []
+    for loc in env.master.lookup(a.volumeId, refresh=True):
+        ch, stub = _volume_stub(loc)
+        with ch:
+            req = pb.VolumeCommandRequest(volume_id=a.volumeId)
+            r = (
+                stub.VolumeMarkWritable(req, timeout=30)
+                if a.writable
+                else stub.VolumeMarkReadonly(req, timeout=30)
+            )
+        out.append(f"{loc.url}: {r.error or 'ok'}")
+    return "\n".join(out)
+
+
+# ---------------------------------------------------------------------- ec
+
+
+@command(
+    "ec.encode",
+    "-volumeId N[,N2,...] [-collection c] [-backend cpu|cuda|auto] "
+    "[-keepSource] [-maxParallelization P]",
+    mutating=True,
+)
+def ec_encode(env: ShellEnv, args) -> str:
+    """Reference doEcEncode (command_ec_encode.go:346): mark replicas
+    readonly -> generate shards on one holder -> mount -> delete the
+    source volume replicas (unless -keepSource). Multiple volumes encode
+    concurrently (the reference's -maxParallelization batches)."""
+    p = argparse.ArgumentParser(prog="ec.encode")
+    p.add_argument("-volumeId", required=True, help="id or comma-separated ids")
+    p.add_argument("-collection", default="")
+    p.add_argument("-backend", default="cuda")
+    p.add_argument("-keepSource", action="store_true")
+    p.add_argument("-maxParallelization", type=int, default=4)
+    a = p.parse_args(args)
+    try:
+        vids = [int(v) for v in a.volumeId.split(",") if v.strip()]
+    except ValueError:
+        return f"error: -volumeId wants an id or comma-separated ids, got {a.volumeId!r}"
+    # resolve each volume's collection from the topology: EC artifact
+    # paths are collection-prefixed on disk
+    topo = env.master.topology()
+    vol_collection = {
+        v.id: v.collection for n in topo.nodes for v in n.volumes
+    }
+
+    def encode_one(vid: int) -> str:
+        # one failing volume must not discard the batch's other results:
+        # destructive steps (readonly-mark, source delete) already ran
+        # for volumes that succeeded
+        try:
+            return _encode_one(vid)
+        except grpc.RpcError as e:
+            return f"volume {vid}: error: {e.code().name}: {e.details()}"
+        except (LookupError, RuntimeError, OSError) as e:
+            return f"volume {vid}: error: {e}"
+
+    def _encode_one(vid: int) -> str:
+        collection = a.collection or vol_collection.get(vid, "")
+        locs = env.master.lookup(vid, refresh=True)
+        if not locs:
+            return f"volume {vid}: not found"
+        for loc in locs:  # 1. freeze every replica
+            ch, stub = _volume_stub(loc)
+            with ch:
+                stub.VolumeMarkReadonly(
+                    pb.VolumeCommandRequest(volume_id=vid), timeout=30
+                )
+        gen_loc = locs[0]
+        ch, stub = _volume_stub(gen_loc)
+        with ch:  # 2. generate + 3. mount on the first holder
+            r = stub.VolumeEcShardsGenerate(
+                pb.EcShardsGenerateRequest(
+                    volume_id=vid, collection=collection, backend=a.backend
+                ),
+                timeout=3600,
+            )
+            generation = r.generation
+            stub.VolumeEcShardsMount(
+                pb.EcShardsMountRequest(volume_id=vid, collection=collection),
+                timeout=60,
+            )
+        if not a.keepSource:  # 4. drop source replicas
+            for loc in locs:
+                ch, stub = _volume_stub(loc)
+                with ch:
+                    stub.VolumeDelete(
+                        pb.VolumeCommandRequest(volume_id=vid), timeout=60
+                    )
+        return (
+            f"volume {vid}: generation {generation} on {gen_loc.url}"
+            f"{' (source kept)' if a.keepSource else ''}"
+        )
+
+    # admin + per-volume leases come from the mutating-command wrapper
+    if len(vids) == 1:
+        return "ec.encode " + encode_one(vids[0])
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(a.maxParallelization, 1)) as ex:
+        results = list(ex.map(encode_one, vids))
+    return "ec.encode\n" + "\n".join(results)
+
+
+@command("ec.check.replication", "verify every EC volume has a full shard set")
+def ec_check_replication(env: ShellEnv, args) -> str:
+    topo = env.master.topology()
+    by_vid: dict[int, tuple[set, int]] = {}
+    for n in topo.nodes:
+        for e in n.ec_shards:
+            sids, total = by_vid.get(e.id, (set(), 0))
+            sids = sids | {i for i in range(32) if e.shard_bits & (1 << i)}
+            by_vid[e.id] = (sids, e.data_shards + e.parity_shards or 14)
+    lines = []
+    for vid, (sids, total) in sorted(by_vid.items()):
+        missing = sorted(set(range(total)) - sids)
+        if missing:
+            lines.append(f"ec volume {vid}: MISSING shards {missing} (run ec.rebuild)")
+        else:
+            lines.append(f"ec volume {vid}: all {total} shards present")
+    return "\n".join(lines) or "no EC volumes"
+
+
+@command("cluster.check", "cluster health summary")
+def cluster_check(env: ShellEnv, args) -> str:
+    topo = env.master.topology()
+    stats = env.master.statistics()
+    lines = [
+        f"nodes: {stats.node_count}",
+        f"volumes: {stats.volume_count} ({stats.file_count} files, "
+        f"{stats.used_size:,} bytes)",
+        f"ec volumes: {stats.ec_volume_count}",
+    ]
+    problems = []
+    if stats.node_count == 0:
+        problems.append("no volume servers registered")
+    from ..server.topology import _replica_copies
+
+    holders, meta = _volume_holders(topo)
+    for vid, hs in sorted(holders.items()):
+        want = _replica_copies(meta[vid][1])
+        if len(hs) < want:
+            problems.append(
+                f"volume {vid} under-replicated: {len(hs)}/{want} copies"
+            )
+    lines += [f"PROBLEM: {x}" for x in problems] or ["all checks passed"]
+    return "\n".join(lines)
+
+
+@command(
+    "ec.rebuild",
+    "-volumeId N [-collection c] [-backend cpu|cuda|auto] "
+    "[-fromPeers] [-holder host:grpcPort]",
+    mutating=True,
+)
+def ec_rebuild(env: ShellEnv, args) -> str:
+    """Local rebuild picks the BIGGEST holder (most local sources).
+    -fromPeers drives the cluster self-healing path instead: the
+    SMALLEST holder (the subset holder a local rebuild refuses on)
+    streams sibling shards from peers, rebuilds on its device, and
+    distributes regenerated cluster-lost shards to planned holders.
+    -holder pins a specific server either way."""
+    p = argparse.ArgumentParser(prog="ec.rebuild")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-backend", default="")
+    p.add_argument("-fromPeers", action="store_true")
+    p.add_argument("-holder", default="", help="grpc host:port to rebuild on")
+    a = p.parse_args(args)
+    shard_locs = env.master.lookup_ec(a.volumeId, refresh=True)
+    if not shard_locs:
+        return f"ec volume {a.volumeId} not found"
+    by_url, loc_by_url = fleet.holder_maps(shard_locs)
+    if a.holder:
+        url = next(
+            (
+                u
+                for u, loc in loc_by_url.items()
+                if a.holder in (u, fleet.grpc_addr(loc))
+            ),
+            "",
+        )
+        if not url:
+            return f"no holder {a.holder!r} for ec volume {a.volumeId}"
+    else:
+        url = fleet.pick_rebuild_holder(by_url, smallest=a.fromPeers)
+    ch, stub = _volume_stub(loc_by_url[url])
+    with ch:
+        r = stub.VolumeEcShardsRebuild(
+            pb.EcShardsRebuildRequest(
+                volume_id=a.volumeId,
+                collection=a.collection,
+                backend=a.backend,
+                from_peers=a.fromPeers,
+            ),
+            timeout=3600,
+            metadata=trace.grpc_metadata(),
+        )
+        if not a.fromPeers:
+            # the peer-fetch path mounts exactly what it owns/adopts;
+            # a blanket mount would also advertise unmounted handoff
+            # copies kept after a failed distribute
+            stub.VolumeEcShardsMount(
+                pb.EcShardsMountRequest(
+                    volume_id=a.volumeId, collection=a.collection
+                ),
+                timeout=60,
+                metadata=trace.grpc_metadata(),
+            )
+    extra = ""
+    if a.fromPeers:
+        extra = (
+            f" (fetched {list(r.fetched_shard_ids)} from peers, "
+            f"distributed {list(r.distributed_shard_ids)})"
+        )
+    if r.repaired_shard_ids:
+        # rot was leaf-localized: patched in place under the repair
+        # journal instead of a whole-shard rebuild
+        extra += f", leaf-repaired {list(r.repaired_shard_ids)} in place"
+    return f"rebuilt shards {list(r.rebuilt_shard_ids)} on {url}{extra}"
+
+
+@command("ec.decode", "-volumeId N [-collection c]", mutating=True)
+def ec_decode(env: ShellEnv, args) -> str:
+    """Collect all shards onto the node already holding the most, decode
+    there, then clean the EC artifacts off every node (reference
+    command_ec_decode.go: collectEcShards -> VolumeEcShardsToVolume ->
+    delete shards)."""
+    p = argparse.ArgumentParser(prog="ec.decode")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    a = p.parse_args(args)
+    shard_locs = env.master.lookup_ec(a.volumeId, refresh=True)
+    if not shard_locs:
+        return f"ec volume {a.volumeId} not found"
+    by_url: dict[str, set[int]] = {}
+    loc_by_url = {}
+    for sid, locs in shard_locs.items():
+        for loc in locs:
+            by_url.setdefault(loc.url, set()).add(sid)
+            loc_by_url[loc.url] = loc
+    target_url = max(by_url, key=lambda u: len(by_url[u]))
+    target = loc_by_url[target_url]
+    have = by_url[target_url]
+
+    ch, stub = _volume_stub(target)
+    with ch:
+        copied_index = False
+        for sid in sorted(shard_locs):
+            if sid in have:
+                continue
+            src = next(
+                l for l in shard_locs[sid] if l.url != target_url
+            )
+            stub.VolumeEcShardsCopy(
+                pb.EcShardsCopyRequest(
+                    volume_id=a.volumeId,
+                    collection=a.collection,
+                    shard_ids=[sid],
+                    source_url=f"{src.url.split(':')[0]}:{src.grpc_port}",
+                    copy_ecx=not copied_index and not have,
+                    copy_ecj=not copied_index and not have,
+                    copy_vif=not copied_index and not have,
+                    copy_ecsum=not copied_index and not have,
+                ),
+                timeout=3600,
+            )
+            copied_index = True
+        stub.VolumeEcShardsToVolume(
+            pb.EcShardsToVolumeRequest(
+                volume_id=a.volumeId, collection=a.collection
+            ),
+            timeout=3600,
+        )
+    # clean EC artifacts off the other nodes
+    all_sids = sorted(shard_locs)
+    for url, sids in by_url.items():
+        if url == target_url:
+            continue
+        ch, stub = _volume_stub(loc_by_url[url])
+        with ch:
+            stub.VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=a.volumeId, shard_ids=all_sids),
+                timeout=60,
+            )
+            stub.VolumeEcShardsDelete(
+                pb.EcShardsDeleteRequest(
+                    volume_id=a.volumeId,
+                    collection=a.collection,
+                    shard_ids=all_sids,
+                ),
+                timeout=60,
+            )
+    return f"decoded ec volume {a.volumeId} back to a normal volume on {target_url}"
+
+
+@command(
+    "volume.sync",
+    "-volumeId N -target host:grpcPort [-source host:grpcPort] "
+    "(incremental replica catch-up via VolumeTailReceiver)",
+    mutating=True,
+)
+def volume_sync(env: ShellEnv, args) -> str:
+    """Needle-granular catch-up: the TARGET replica pulls every record
+    appended at the source since the target's own last appendAtNs
+    (reference volume_grpc_tail.go VolumeTailReceiver + weed backup's
+    incremental model). A replica that missed writes while down
+    converges without a full re-copy."""
+    p = argparse.ArgumentParser(prog="volume.sync")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-target", required=True, help="replica to heal (grpc)")
+    p.add_argument("-source", default="", help="replica to pull from (grpc)")
+    p.add_argument("-sinceNs", type=int, default=0)
+    p.add_argument("-idleTimeout", type=int, default=3)
+    a = p.parse_args(args)
+    locs = env.master.lookup(a.volumeId, refresh=True)
+    if not locs:
+        return f"volume {a.volumeId} not found"
+    import socket as _socket
+
+    def _resolved(addr: str) -> tuple[str, str]:
+        host, _, port = addr.partition(":")
+        try:
+            return _socket.gethostbyname(host), port
+        except OSError:
+            return host, port
+
+    src_grpc = a.source
+    if not src_grpc:
+        # resolve hostnames before comparing: 'localhost' vs
+        # '127.0.0.1' must not make the target pull from itself
+        for loc in locs:
+            cand = f"{loc.url.split(':')[0]}:{loc.grpc_port}"
+            if _resolved(cand) != _resolved(a.target):
+                src_grpc = cand
+                break
+        if not src_grpc:
+            return f"volume {a.volumeId} has no replica besides the target"
+    from ..client.volume_sync import sync_replica
+
+    try:
+        n = sync_replica(
+            a.target, src_grpc, a.volumeId,
+            since_ns=a.sinceNs, idle_timeout_s=a.idleTimeout,
+        )
+    except (RuntimeError, grpc.RpcError) as e:
+        detail = e.details() if isinstance(e, grpc.RpcError) else str(e)
+        return f"error: {detail}"
+    return (
+        f"synced volume {a.volumeId}: {n} records applied "
+        f"{src_grpc} -> {a.target}"
+    )
+
+
+@command("volume.move", "-volumeId N -target host:grpcPort (move one volume)", mutating=True)
+def volume_move(env: ShellEnv, args) -> str:
+    """Copy to target, load there, delete at source (reference
+    volume.move: mark-readonly -> copy -> mount -> delete)."""
+    p = argparse.ArgumentParser(prog="volume.move")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-target", required=True, help="grpc address host:port")
+    p.add_argument(
+        "-source",
+        default="",
+        help="grpc address of the REPLICA to move (default: first found)",
+    )
+    p.add_argument("-collection", default="")
+    a = p.parse_args(args)
+    locs = env.master.lookup(a.volumeId, refresh=True)
+    if not locs:
+        return f"volume {a.volumeId} not found"
+    src = locs[0]
+    if a.source:
+        # replicated volumes: the caller (e.g. volume.balance) names
+        # WHICH replica moves; defaulting to locs[0] would drain the
+        # wrong node and never converge
+        for loc in locs:
+            if f"{loc.url.split(':')[0]}:{loc.grpc_port}" == a.source:
+                src = loc
+                break
+        else:
+            return f"volume {a.volumeId} has no replica at {a.source}"
+    src_grpc = f"{src.url.split(':')[0]}:{src.grpc_port}"
+    if src_grpc == a.target:
+        return "volume already on target"
+    ch, stub = _volume_stub(src)
+    with ch:
+        stub.VolumeMarkReadonly(
+            pb.VolumeCommandRequest(volume_id=a.volumeId), timeout=30
+        )
+    try:
+        with grpc.insecure_channel(a.target) as ch2:
+            r = rpc.Stub(ch2, rpc.VOLUME_SERVICE).VolumeCopy(
+                pb.EcShardsCopyRequest(
+                    volume_id=a.volumeId,
+                    collection=a.collection,
+                    source_url=src_grpc,
+                ),
+                timeout=3600,
+            )
+        if r.error:
+            raise RuntimeError(f"copy failed: {r.error}")
+    except (grpc.RpcError, RuntimeError) as e:
+        # failed move must not strand the source readonly
+        ch, stub = _volume_stub(src)
+        with ch:
+            stub.VolumeMarkWritable(
+                pb.VolumeCommandRequest(volume_id=a.volumeId), timeout=30
+            )
+        detail = e.details() if isinstance(e, grpc.RpcError) else str(e)
+        return f"error: {detail} (source volume restored writable)"
+    ch, stub = _volume_stub(src)
+    with ch:
+        stub.VolumeDelete(pb.VolumeCommandRequest(volume_id=a.volumeId), timeout=60)
+    return f"moved volume {a.volumeId} {src.url} -> {a.target}"
+
+
+@command(
+    "volume.tier.upload",
+    "-volumeId N -dest http://host/bucket/key (move sealed .dat to cold tier)",
+    mutating=True,
+)
+def volume_tier_upload(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.tier.upload")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-dest", required=True, help="S3-style object URL")
+    p.add_argument("-keepLocal", action="store_true")
+    a = p.parse_args(args)
+    loc = _locate_volume(env, a.volumeId)
+    ch, stub = _volume_stub(loc)
+    with ch:
+        stub.VolumeMarkReadonly(
+            pb.VolumeCommandRequest(volume_id=a.volumeId), timeout=30
+        )
+        r = stub.VolumeTierUpload(
+            pb.TierRequest(
+                volume_id=a.volumeId,
+                dest_url=a.dest,
+                keep_local=a.keepLocal,
+            ),
+            timeout=3600,
+        )
+    if r.error:
+        return f"error: {r.error}"
+    return (
+        f"volume {a.volumeId}: {r.moved_bytes:,} bytes -> {a.dest}"
+        f"{' (local copy kept)' if a.keepLocal else ''}"
+    )
+
+
+@command(
+    "volume.tier.download",
+    "-volumeId N [-deleteRemote] (bring cold .dat back to local disk)",
+    mutating=True,
+)
+def volume_tier_download(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.tier.download")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-deleteRemote", action="store_true")
+    a = p.parse_args(args)
+    loc = _locate_volume(env, a.volumeId)
+    ch, stub = _volume_stub(loc)
+    with ch:
+        r = stub.VolumeTierDownload(
+            pb.TierRequest(
+                volume_id=a.volumeId, delete_remote=a.deleteRemote
+            ),
+            timeout=3600,
+        )
+    if r.error:
+        return f"error: {r.error}"
+    return f"volume {a.volumeId}: {r.moved_bytes:,} bytes fetched from cold tier"
+
+
+@command("volume.fix.replication", "re-replicate under-replicated volumes", mutating=True)
+def volume_fix_replication(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.fix.replication")
+    p.add_argument("-collection", default="")
+    a = p.parse_args(args)
+    topo = env.master.topology()
+    holders, meta = _volume_holders(topo)
+    from ..server.topology import _replica_copies
+
+    fixed = []
+    for vid, hs in sorted(holders.items()):
+        col, rp = meta[vid]
+        want = _replica_copies(rp)
+        if len(hs) >= want:
+            continue
+        candidates = [
+            n for n in topo.nodes if all(h.id != n.id for h in hs)
+        ]
+        src = hs[0]
+        src_grpc = f"{src.location.url.split(':')[0]}:{src.location.grpc_port}"
+        # freeze writes while the copy streams, restore after — a live
+        # append between the .dat and .idx copies would tear the replica
+        with volume_lease(env, vid):
+            src_ch, src_stub = _volume_stub(src.location)
+            with src_ch:
+                src_stub.VolumeMarkReadonly(
+                    pb.VolumeCommandRequest(volume_id=vid), timeout=30
+                )
+                try:
+                    for n in candidates[: want - len(hs)]:
+                        with grpc.insecure_channel(
+                            f"{n.location.url.split(':')[0]}:{n.location.grpc_port}"
+                        ) as ch:
+                            r = rpc.Stub(ch, rpc.VOLUME_SERVICE).VolumeCopy(
+                                pb.EcShardsCopyRequest(
+                                    volume_id=vid, collection=col, source_url=src_grpc
+                                ),
+                                timeout=3600,
+                            )
+                        if not r.error:
+                            fixed.append(f"volume {vid} -> {n.id}")
+                finally:
+                    src_stub.VolumeMarkWritable(
+                        pb.VolumeCommandRequest(volume_id=vid), timeout=30
+                    )
+    return "\n".join(fixed) or "all volumes sufficiently replicated"
+
+
+@command(
+    "ec.balance",
+    "spread EC shards evenly across racks and nodes "
+    "[-dataGravity drifts shards toward chip-rich low-load hosts]",
+    mutating=True,
+)
+def ec_balance(env: ShellEnv, args) -> str:
+    """Rack-aware balance (reference command_ec_common.go:60 EcBalance):
+    dedupe shard copies, spread each volume across racks, even within
+    racks, then flatten per-rack totals — planned by ec/placement.py,
+    executed here as copy+mount / unmount+delete pairs. `-dataGravity`
+    appends the gravity stage: bounded moves from chip-poor/loaded
+    nodes toward chip-rich low-load ones (heartbeat telemetry), never
+    violating the spread/slot invariants."""
+    from ..ec.placement import node_view_for, plan_ec_balance
+
+    p = argparse.ArgumentParser(prog="ec.balance")
+    p.add_argument("-collection", default="")
+    p.add_argument("-dryRun", action="store_true")
+    p.add_argument("-dataGravity", action="store_true")
+    p.add_argument("-maxGravityMoves", type=int, default=4)
+    a = p.parse_args(args)
+    topo = env.master.topology()
+    nodes = {n.id: n for n in topo.nodes}
+    if len(nodes) < 2:
+        return "nothing to balance (fewer than 2 nodes)"
+    # gravity needs the heartbeat telemetry, which rides the master's
+    # HTTP status plane (best-effort: absent telemetry = static plan)
+    tele: dict = {}
+    if a.dataGravity:
+        try:
+            tele = _get_json(
+                service_url(env.master_addr, "/cluster/status")
+            ).get("EcTelemetry", {}) or {}
+        except Exception:  # noqa: BLE001 — gravity degrades to static
+            tele = {}
+    vol_collection: dict[int, str] = {}
+    views = []
+    for n in topo.nodes:
+        for e in n.ec_shards:
+            if not a.collection or e.collection == a.collection:
+                vol_collection[e.id] = e.collection
+        views.append(
+            node_view_for(
+                n.id,
+                n.rack,
+                n.data_center,
+                n.max_volume_count,
+                len(n.volumes),
+                n.ec_shards,
+                a.collection,
+                ec_telemetry=tele.get(n.id),
+            )
+        )
+    drops, moves = plan_ec_balance(
+        views, data_gravity=a.dataGravity,
+        max_gravity_moves=a.maxGravityMoves,
+    )
+    if a.dryRun:
+        return "\n".join(
+            [f"drop ec {d.vid}.{d.shard_id:02d} on {d.node}" for d in drops]
+            + [
+                f"move ec {m.vid}.{m.shard_id:02d}: {m.src} -> {m.dst} ({m.reason})"
+                for m in moves
+            ]
+        ) or "already balanced"
+
+    def _grpc_addr(nid: str) -> str:
+        n = nodes[nid]
+        return f"{n.location.url.split(':')[0]}:{n.location.grpc_port}"
+
+    out = []
+    for d in drops:
+        with volume_lease(env, d.vid):
+            with grpc.insecure_channel(_grpc_addr(d.node)) as ch:
+                stub = rpc.Stub(ch, rpc.VOLUME_SERVICE)
+                stub.VolumeEcShardsUnmount(
+                    pb.EcShardsUnmountRequest(
+                        volume_id=d.vid, shard_ids=[d.shard_id]
+                    ),
+                    timeout=60,
+                )
+                stub.VolumeEcShardsDelete(
+                    pb.EcShardsDeleteRequest(
+                        volume_id=d.vid,
+                        collection=vol_collection.get(d.vid, ""),
+                        shard_ids=[d.shard_id],
+                    ),
+                    timeout=60,
+                )
+        out.append(f"dedupe ec {d.vid}.{d.shard_id:02d} on {d.node}")
+    # live per-(node, vid) shard counts: drops and move-sources remove
+    # entries (a node whose last shard left also lost its .ecx — the
+    # next copy TO it must bring the index files again)
+    shard_count: dict[tuple[str, int], int] = {}
+    for n in topo.nodes:
+        for e in n.ec_shards:
+            shard_count[(n.id, e.id)] = bin(e.shard_bits).count("1")
+    for d in drops:
+        k = (d.node, d.vid)
+        shard_count[k] = max(shard_count.get(k, 1) - 1, 0)
+    for m in moves:
+        col = vol_collection.get(m.vid, "")
+        first_on_dst = shard_count.get((m.dst, m.vid), 0) == 0
+        with volume_lease(env, m.vid):
+            with grpc.insecure_channel(_grpc_addr(m.dst)) as ch:
+                stub = rpc.Stub(ch, rpc.VOLUME_SERVICE)
+                stub.VolumeEcShardsCopy(
+                    pb.EcShardsCopyRequest(
+                        volume_id=m.vid,
+                        collection=col,
+                        shard_ids=[m.shard_id],
+                        source_url=_grpc_addr(m.src),
+                        copy_ecx=first_on_dst,
+                        copy_ecj=first_on_dst,
+                        copy_vif=first_on_dst,
+                        copy_ecsum=first_on_dst,
+                    ),
+                    timeout=3600,
+                )
+                stub.VolumeEcShardsMount(
+                    pb.EcShardsMountRequest(volume_id=m.vid, collection=col),
+                    timeout=60,
+                )
+            with grpc.insecure_channel(_grpc_addr(m.src)) as ch:
+                stub = rpc.Stub(ch, rpc.VOLUME_SERVICE)
+                stub.VolumeEcShardsUnmount(
+                    pb.EcShardsUnmountRequest(
+                        volume_id=m.vid, shard_ids=[m.shard_id]
+                    ),
+                    timeout=60,
+                )
+                stub.VolumeEcShardsDelete(
+                    pb.EcShardsDeleteRequest(
+                        volume_id=m.vid, collection=col, shard_ids=[m.shard_id]
+                    ),
+                    timeout=60,
+                )
+        shard_count[(m.dst, m.vid)] = shard_count.get((m.dst, m.vid), 0) + 1
+        ks = (m.src, m.vid)
+        shard_count[ks] = max(shard_count.get(ks, 1) - 1, 0)
+        out.append(
+            f"ec {m.vid}.{m.shard_id:02d}: {m.src} -> {m.dst} ({m.reason})"
+        )
+    return "\n".join(out) or "already balanced"
+
+
+@command("volume.scrub", "-volumeId N (CRC-verify all live needles)")
+def volume_scrub(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.scrub")
+    p.add_argument("-volumeId", type=int, required=True)
+    a = p.parse_args(args)
+    locs = env.master.lookup(a.volumeId, refresh=True)
+    if not locs:
+        return f"volume {a.volumeId} not found"
+    out = []
+    for loc in locs:
+        ch, stub = _volume_stub(loc)
+        with ch:
+            r = stub.ScrubVolume(
+                pb.ScrubRequest(volume_id=a.volumeId), timeout=3600,
+                metadata=trace.grpc_metadata(),
+            )
+        if r.error:
+            out.append(f"{loc.url}: error: {r.error}")
+        else:
+            bad = list(r.bad_needles)
+            out.append(
+                f"{loc.url}: checked {r.checked} needles"
+                + (f", CORRUPT: {[hex(b) for b in bad]}" if bad else ", all clean")
+            )
+    return "\n".join(out)
+
+
+@command(
+    "ec.scrub",
+    "-volumeId N [-collection c] [-repair] (verify shards vs .ecsum; "
+    "-repair rebuilds corrupt/missing shards on the holder)",
+)
+def ec_scrub(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="ec.scrub")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-repair", action="store_true")
+    a = p.parse_args(args)
+    shard_locs = env.master.lookup_ec(a.volumeId, refresh=True)
+    if not shard_locs:
+        return f"ec volume {a.volumeId} not found"
+    # k from the topology: a holder with fewer than k verified-good
+    # local shards cannot rebuild locally; skip the doomed RPC and point
+    # at ec.rebuild (which picks the biggest holder) instead
+    data_shards = 0
+    for n in env.master.topology().nodes:
+        for e in n.ec_shards:
+            if e.id == a.volumeId:
+                data_shards = e.data_shards
+    if not data_shards:
+        # topology gap (heartbeat lag): fall back to the default ratio
+        # so the guard stays conservative rather than vanishing
+        from ..ec.context import DATA_SHARDS
+
+        data_shards = DATA_SHARDS
+    holder_sids, loc_by_url = fleet.holder_maps(shard_locs)
+    out = []
+    fleet_checked = fleet_bad = fleet_missing = fleet_quar = 0
+    unrebuildable: list[str] = []
+    for url, loc in sorted(loc_by_url.items()):
+        ch, stub = _volume_stub(loc)
+        with ch:
+            r = stub.ScrubEcVolume(
+                pb.ScrubRequest(volume_id=a.volumeId, collection=a.collection),
+                timeout=3600,
+                metadata=trace.grpc_metadata(),
+            )
+            if r.error:
+                out.append(f"{url}: error: {r.error}")
+                continue
+            # the same per-holder verdict kernel the fleet worker uses
+            # (ec/fleet.py): real per-sid missing set difference, with
+            # the count-comparison degrade for pre-checked_shards
+            # servers, and the < k verified-good unrebuildable call
+            facts = fleet.holder_scrub_facts(
+                r, holder_sids.get(url, set()), data_shards
+            )
+            bad = facts["bad"]
+            gone = bool(facts["missing"] or facts["legacy_gone"])
+            if facts["legacy_gone"]:
+                gone_note = (
+                    f" ({facts['legacy_gone']} advertised "
+                    f"shard files MISSING)"
+                )
+            else:
+                gone_note = (
+                    f" (advertised shards {facts['missing']} "
+                    f"MISSING locally)"
+                )
+            quarantined = facts["quarantined"]
+            out.append(
+                f"{url}: checked {r.checked} shards"
+                + (f", BITROT in shards {bad}" if bad else ", all clean")
+                + (gone_note if gone else "")
+                + (
+                    f" (quarantined: {quarantined})" if quarantined else ""
+                )
+                + (
+                    f" ({r.repair_journal_recovered} repair journal(s) "
+                    f"recovered)"
+                    if r.repair_journal_recovered
+                    else ""
+                )
+            )
+            fleet_checked += r.checked
+            fleet_bad += len(bad)
+            fleet_quar += len(quarantined)
+            # legacy holders report losses only as a count — still real
+            # shard loss, still in the roll-up the operator alerts on
+            fleet_missing += len(facts["missing"]) + facts["legacy_gone"]
+            if facts["unrebuildable"]:
+                unrebuildable.append(url)
+            # gate on the kernel's `hurt` verdict, exactly like the
+            # fleet worker: a quarantine-only holder (rot pulled from
+            # service, canonical file gone) is repairable too
+            if not facts["hurt"] or not a.repair:
+                continue
+            if facts["good"] < data_shards:
+                out.append(
+                    f"{url}: repair skipped: {facts['good']} "
+                    f"verified-good local shards < {data_shards} needed; "
+                    f"use `ec.rebuild -fromPeers` to stream sibling "
+                    f"shards from peer holders"
+                )
+                continue
+            # rebuild_ec_files' verify-and-exclude reclassifies the
+            # corrupt shards as missing and regenerates them (and any
+            # locally-lost mounted shards) from the verified-good
+            # remainder (fail-closed on its own)
+            try:
+                rr = stub.VolumeEcShardsRebuild(
+                    pb.EcShardsRebuildRequest(
+                        volume_id=a.volumeId, collection=a.collection
+                    ),
+                    timeout=3600,
+                    metadata=trace.grpc_metadata(),
+                )
+                out.append(
+                    f"{url}: rebuilt shards {sorted(rr.rebuilt_shard_ids)}"
+                )
+            except grpc.RpcError as e:
+                out.append(f"{url}: rebuild REFUSED: {e.details()}")
+    # fleet roll-up: the one line an operator (or the master's fleet
+    # scrub aggregation) alerts on
+    out.append(
+        f"fleet: {len(loc_by_url)} holders, {fleet_checked} shards checked, "
+        f"{fleet_bad} bitrot, {fleet_missing} missing, "
+        f"{fleet_quar} quarantined"
+        + (
+            f"; unrebuildable holders {unrebuildable} -> "
+            f"ec.rebuild -fromPeers"
+            if unrebuildable
+            else ""
+        )
+    )
+    return "\n".join(out)
+
+
+@command("collection.list", "list collections")
+def collection_list(env: ShellEnv, args) -> str:
+    return "\n".join(env.master.collections()) or "(none)"
+
+
+@command("collection.delete", "-collection name (drop all its volumes)", mutating=True)
+def collection_delete(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="collection.delete")
+    p.add_argument("-collection", required=True)
+    a = p.parse_args(args)
+    # lease every volume of the collection first so a worker task
+    # (ec_encode/vacuum) can't be mid-flight on one while it vanishes
+    topo = env.master.topology()
+    vids = sorted(
+        {
+            v.id
+            for n in topo.nodes
+            for v in n.volumes
+            if v.collection == a.collection
+        }
+        | {
+            e.id
+            for n in topo.nodes
+            for e in n.ec_shards
+            if e.collection == a.collection
+        }
+    )
+    with contextlib.ExitStack() as stack:
+        for vid in vids:
+            stack.enter_context(volume_lease(env, vid))
+        deleted = env.master.collection_delete(a.collection)
+    return f"deleted collection {a.collection!r}: volumes {deleted}"
+
+
+@command("volume.check.disk", "compare replicas of each volume and report divergence")
+def volume_check_disk(env: ShellEnv, args) -> str:
+    """Cross-replica consistency check (reference volume.check.disk):
+    flags replicas whose file counts / sizes disagree."""
+    topo = env.master.topology()
+    holders: dict[int, list] = {}
+    for n in topo.nodes:
+        for v in n.volumes:
+            holders.setdefault(v.id, []).append((n.id, v))
+    lines = []
+    for vid, hs in sorted(holders.items()):
+        if len(hs) < 2:
+            continue
+        sizes = {h[1].size for h in hs}
+        counts = {h[1].file_count for h in hs}
+        dels = {h[1].deleted_count for h in hs}
+        if len(sizes) > 1 or len(counts) > 1 or len(dels) > 1:
+            detail = "; ".join(
+                f"{nid}: size={v.size} files={v.file_count} del={v.deleted_count}"
+                for nid, v in hs
+            )
+            lines.append(f"volume {vid} DIVERGED: {detail}")
+        else:
+            lines.append(f"volume {vid}: {len(hs)} replicas consistent")
+    return "\n".join(lines) or "no replicated volumes"
+
+
+# ------------------------------------------------------------------- blobs
+
+
+@command("upload", "upload a local file; prints fid")
+def upload(env: ShellEnv, args) -> str:
+    from ..client.operations import Operations
+
+    p = argparse.ArgumentParser(prog="upload")
+    p.add_argument("path")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    a = p.parse_args(args)
+    ops = Operations(env.master_addr)
+    try:
+        with open(a.path, "rb") as f:
+            fid = ops.upload(
+                f.read(), name=a.path, collection=a.collection,
+                replication=a.replication,
+            )
+        return fid
+    finally:
+        ops.close()
+
+
+@command("download", "download -fid <fid> -o <path>")
+def download(env: ShellEnv, args) -> str:
+    from ..client.operations import Operations
+
+    p = argparse.ArgumentParser(prog="download")
+    p.add_argument("-fid", required=True)
+    p.add_argument("-o", required=True)
+    a = p.parse_args(args)
+    ops = Operations(env.master_addr)
+    try:
+        data = ops.read(a.fid)
+        with open(a.o, "wb") as f:
+            f.write(data)
+        return f"{len(data)} bytes -> {a.o}"
+    finally:
+        ops.close()
+
+
+# -------------------------------------------------------------------- lock
+
+
+@command("lock", "hold the exclusive cluster admin lease for this session")
+def lock_cmd(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="lock")
+    p.add_argument("-ttl", type=float, default=600.0)
+    a = p.parse_args(args)
+    env.admin_token = env.master.lock(
+        "admin", env.owner, ttl=a.ttl, token=env.admin_token, wait=5.0
+    )
+    return f"locked as {env.owner} (ttl {a.ttl:.0f}s; renew with `lock`)"
+
+
+@command("unlock", "release this session's cluster admin lease")
+def unlock_cmd(env: ShellEnv, args) -> str:
+    if not env.admin_token:
+        return "not holding the admin lease"
+    ok = env.master.unlock("admin", env.admin_token)
+    env.admin_token = ""
+    return "unlocked" if ok else "lease already expired"
+
+
+@command("lock.status", "show live cluster leases")
+def lock_status_cmd(env: ShellEnv, args) -> str:
+    rows = env.master.lock_status()
+    if not rows:
+        return "no live leases"
+    return "\n".join(
+        f"{name:24s} {owner:24s} {remaining:6.1f}s left"
+        for name, owner, remaining in rows
+    )
+
+
+# ------------------------------------------------------------ volume.balance
+
+
+def _balance_plan(topo, collection: str):
+    """Greedy per-disk-type move plan toward equal fullness ratios
+    (reference command_volume_balance.go balanceVolumeServers: ratio =
+    volumes / max_volume_count per disk type; move from the fullest
+    node to the emptiest while the spread shrinks)."""
+    nodes = list(topo.nodes)
+    disk_types = sorted(
+        {(v.disk_type or "hdd") for n in nodes for v in n.volumes} or {"hdd"}
+    )
+    plan: list[tuple[int, str, object, object]] = []  # vid, col, src, dst
+    for dt in disk_types:
+        entries = []
+        for n in nodes:
+            vols = {
+                v.id: v
+                for v in n.volumes
+                if (v.disk_type or "hdd") == dt
+                and (not collection or v.collection == collection)
+            }
+            entries.append(
+                {
+                    "node": n,
+                    "vols": vols,
+                    # replica safety: a volume must never move to a node
+                    # already holding ANY copy of it (regardless of
+                    # collection filter / disk type)
+                    "all_vids": {v.id for v in n.volumes},
+                    "cap": max(int(n.max_volume_count) or 8, 1),
+                }
+            )
+        if len(entries) < 2:
+            continue
+        while True:
+            entries.sort(key=lambda e: len(e["vols"]) / e["cap"])
+            lo, hi = entries[0], entries[-1]
+            # does moving one volume from hi to lo reduce the spread?
+            if (len(hi["vols"]) - 1) / hi["cap"] < (len(lo["vols"]) + 1) / lo[
+                "cap"
+            ] - 1e-9:
+                break
+            cand = next(
+                (
+                    v
+                    for v in hi["vols"].values()
+                    if v.id not in lo["all_vids"] and not v.read_only
+                ),
+                None,
+            )
+            if cand is None:
+                break
+            plan.append((cand.id, cand.collection, hi["node"], lo["node"]))
+            del hi["vols"][cand.id]
+            hi["all_vids"].discard(cand.id)
+            lo["vols"][cand.id] = cand
+            lo["all_vids"].add(cand.id)
+    return plan
+
+
+@command(
+    "volume.balance",
+    "[-collection c] [-apply] (plan/execute moves toward equal fullness per disk type)",
+    mutating=True,
+)
+def volume_balance(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.balance")
+    p.add_argument("-collection", default="")
+    p.add_argument("-apply", action="store_true")
+    a = p.parse_args(args)
+    topo = env.master.topology()
+    plan = _balance_plan(topo, a.collection)
+    if not plan:
+        return "already balanced"
+    lines = [
+        f"move volume {vid} ({col or 'default'}): {src.id} -> {dst.id}"
+        for vid, col, src, dst in plan
+    ]
+    if not a.apply:
+        return "\n".join(lines) + f"\n{len(plan)} move(s) planned (use -apply)"
+    done = []
+    for (vid, col, src, dst), line in zip(plan, lines):
+        dst_grpc = f"{dst.location.url.split(':')[0]}:{dst.location.grpc_port}"
+        src_grpc = f"{src.location.url.split(':')[0]}:{src.location.grpc_port}"
+        cmd = (
+            f"volume.move -volumeId {vid} -target {dst_grpc}"
+            f" -source {src_grpc}"
+        )
+        if col:
+            cmd += f" -collection {col}"
+        out = run_command(env, cmd)
+        done.append(f"{line}: {out}")
+        # success is ONLY the "moved ..." confirmation; other statuses
+        # ("volume N not found", "has no replica at") mean the plan is
+        # stale — stop rather than keep applying against it
+        if not out.startswith("moved"):
+            done.append("error: stopping after failed move")
+            break
+    return "\n".join(done)
+
+
+# ------------------------------------------------------------ raft cluster
+
+
+def _raft_stub(env: ShellEnv, master: str | None = None):
+    addr = master or env.master_addr
+    host, _, port = addr.partition(":")
+    ch = grpc.insecure_channel(f"{host}:{int(port or 9333) + 10000}")
+    return ch, rpc.Stub(ch, rpc.RAFT_SERVICE)
+
+
+@command("cluster.raft.ps", "raft membership + roles of every master")
+def cluster_raft_ps(env: ShellEnv, args) -> str:
+    ch, stub = _raft_stub(env)
+    with ch:
+        st = stub.RaftStatus(pb.RaftStatusRequest(), timeout=10)
+    rows = [
+        f"node {st.node_id}: {st.role} term={st.term} "
+        f"commit={st.commit_index} applied={st.applied_index}"
+    ]
+    rows.append(f"leader: {st.leader or '?'}")
+    rows.append(
+        "members: " + ", ".join(sorted({st.node_id, *st.peers}))
+    )
+    return "\n".join(rows)
+
+
+def _raft_change(env: ShellEnv, op: str, server: str) -> str:
+    """Route the change to the LEADER (retrying once on redirect)."""
+    target = None
+    for _ in range(3):
+        ch, stub = _raft_stub(env, target)
+        with ch:
+            r = stub.RaftChangeMembership(
+                pb.RaftChangeRequest(op=op, server=server), timeout=15
+            )
+        if r.error == "not the leader" and r.leader:
+            target = r.leader
+            continue
+        if r.error:
+            return f"error: {r.error}"
+        return f"members now: {', '.join(r.members)}"
+    return "error: could not find the raft leader"
+
+
+@command(
+    "cluster.raft.add",
+    "-server host:port (grow the master raft group by one)",
+    mutating=True,
+)
+def cluster_raft_add(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="cluster.raft.add")
+    p.add_argument("-server", required=True)
+    a = p.parse_args(args)
+    return _raft_change(env, "add", a.server)
+
+
+@command(
+    "cluster.raft.remove",
+    "-server host:port (shrink the master raft group by one)",
+    mutating=True,
+)
+def cluster_raft_remove(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="cluster.raft.remove")
+    p.add_argument("-server", required=True)
+    a = p.parse_args(args)
+    return _raft_change(env, "remove", a.server)
+
+
+@command(
+    "volume.deleteEmpty",
+    "[-collection c] [-force] (drop volumes holding zero live files)",
+    mutating=True,
+)
+def volume_delete_empty(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.deleteEmpty")
+    p.add_argument("-collection", default="")
+    p.add_argument("-force", action="store_true")
+    a = p.parse_args(args)
+    topo = env.master.topology()
+    plan: list[tuple[int, object]] = []
+    for n in topo.nodes:
+        for v in n.volumes:
+            if v.file_count == 0 and (
+                not a.collection or v.collection == a.collection
+            ):
+                plan.append((v.id, n))
+    if not plan:
+        return "no empty volumes"
+    if not a.force:
+        return "\n".join(
+            f"would delete empty volume {vid} on {n.id}" for vid, n in plan
+        ) + f"\n{len(plan)} deletion(s) planned (use -force)"
+    done = []
+    for vid, n in plan:
+        with volume_lease(env, vid):
+            ch, stub = _volume_stub(n.location)
+            with ch:
+                # freeze writes, then RE-CHECK emptiness on the live
+                # volume server (the planning snapshot is heartbeat-
+                # stale; a write landing in between must not be
+                # destroyed — reference guards this the same way)
+                stub.VolumeMarkReadonly(
+                    pb.VolumeCommandRequest(volume_id=vid), timeout=30
+                )
+                st = stub.VolumeServerStatus(
+                    pb.VolumeServerStatusRequest(), timeout=30
+                )
+                live = next(
+                    (v for v in st.volumes if v.id == vid), None
+                )
+                if live is None or live.file_count > 0:
+                    stub.VolumeMarkWritable(
+                        pb.VolumeCommandRequest(volume_id=vid), timeout=30
+                    )
+                    done.append(
+                        f"skipped volume {vid} on {n.id}: no longer empty"
+                    )
+                    continue
+                stub.VolumeDelete(
+                    pb.VolumeCommandRequest(volume_id=vid), timeout=60
+                )
+        done.append(f"deleted empty volume {vid} on {n.id}")
+    return "\n".join(done)
+
+
+@command(
+    "volume.copy",
+    "-volumeId N -target host:grpcPort [-source host:grpcPort] "
+    "(copy a volume; source keeps its replica)",
+    mutating=True,
+)
+def volume_copy(env: ShellEnv, args) -> str:
+    """Reference volume.copy: pull .dat/.idx/.vif onto the target and
+    mount there; unlike volume.move the source keeps serving."""
+    p = argparse.ArgumentParser(prog="volume.copy")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-target", required=True)
+    p.add_argument("-source", default="")
+    p.add_argument("-collection", default="")
+    a = p.parse_args(args)
+    src_grpc = a.source
+    if not src_grpc:
+        loc = _locate_volume(env, a.volumeId)
+        src_grpc = f"{loc.url.split(':')[0]}:{loc.grpc_port}"
+    with grpc.insecure_channel(a.target) as ch:
+        r = rpc.Stub(ch, rpc.VOLUME_SERVICE).VolumeCopy(
+            pb.EcShardsCopyRequest(
+                volume_id=a.volumeId,
+                collection=a.collection,
+                source_url=src_grpc,
+            ),
+            timeout=3600,
+        )
+    if r.error:
+        return f"error: {r.error}"
+    return f"copied volume {a.volumeId} {src_grpc} -> {a.target}"
+
+
+@command(
+    "volume.mount",
+    "-volumeId N -node host:grpcPort [-collection c] (load volume files)",
+    mutating=True,
+)
+def volume_mount(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.mount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", required=True)
+    p.add_argument("-collection", default="")
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.node) as ch:
+        r = rpc.Stub(ch, rpc.VOLUME_SERVICE).VolumeMount(
+            pb.AllocateVolumeRequest(
+                volume_id=a.volumeId, collection=a.collection
+            ),
+            timeout=60,
+        )
+    return f"error: {r.error}" if r.error else f"mounted volume {a.volumeId} on {a.node}"
+
+
+@command(
+    "volume.unmount",
+    "-volumeId N -node host:grpcPort (release a volume, keep its files)",
+    mutating=True,
+)
+def volume_unmount(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.unmount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", required=True)
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.node) as ch:
+        r = rpc.Stub(ch, rpc.VOLUME_SERVICE).VolumeUnmount(
+            pb.VolumeCommandRequest(volume_id=a.volumeId), timeout=60
+        )
+    return f"error: {r.error}" if r.error else f"unmounted volume {a.volumeId} on {a.node}"
+
+
+@command(
+    "volume.configure.replication",
+    "-volumeId N -replication xyz (rewrite replica placement in place)",
+    mutating=True,
+)
+def volume_configure_replication(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="volume.configure.replication")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-replication", required=True)
+    a = p.parse_args(args)
+    locs = env.master.lookup(a.volumeId, refresh=True)
+    if not locs:
+        return f"volume {a.volumeId} not found"
+    changed = []
+    for loc in locs:
+        ch, stub = _volume_stub(loc)
+        with ch:
+            r = stub.VolumeConfigure(
+                pb.VolumeConfigureRequest(
+                    volume_id=a.volumeId, replication=a.replication
+                ),
+                timeout=30,
+            )
+        if r.error:
+            return f"error on {loc.url}: {r.error}"
+        changed.append(loc.url)
+    return (
+        f"volume {a.volumeId} replication -> {a.replication} on "
+        + ", ".join(changed)
+    )
+
+
+# not `mutating`: it only reads topology itself and DELEGATES to
+# volume.move, which takes the admin + per-volume leases — taking them
+# here too would deadlock against our own nested invocation
+@command(
+    "volume.tier.move",
+    "-volumeId N -targetDiskType t (move to a node of that disk type)",
+)
+def volume_tier_move(env: ShellEnv, args) -> str:
+    """Reference volume.tier.move: relocate a volume onto a node whose
+    disks match the requested type (readonly -> copy -> delete)."""
+    p = argparse.ArgumentParser(prog="volume.tier.move")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-targetDiskType", required=True)
+    p.add_argument("-collection", default="")
+    a = p.parse_args(args)
+    ch0, mstub = _master_channel(env)
+    with ch0:
+        topo = mstub.Topology(pb.TopologyRequest(), timeout=30)
+    src = _locate_volume(env, a.volumeId)
+    target = None
+    for n in topo.nodes:
+        has_vid = any(v.id == a.volumeId for v in n.volumes)
+        disk_types = {v.disk_type or "hdd" for v in n.volumes}
+        node_addr = f"{n.location.url.split(':')[0]}:{n.location.grpc_port}"
+        src_addr = f"{src.url.split(':')[0]}:{src.grpc_port}"
+        # an EMPTY node's disk type is unknowable from topology: only
+        # the default tier may claim it; never silently call an
+        # unknown disk an ssd
+        matches = a.targetDiskType in disk_types or (
+            not disk_types and a.targetDiskType == "hdd"
+        )
+        if not has_vid and node_addr != src_addr and matches:
+            target = node_addr
+            break
+    if target is None:
+        return f"no {a.targetDiskType} node available for volume {a.volumeId}"
+    return run_command(
+        env,
+        f"volume.move -volumeId {a.volumeId} -target {target}"
+        + (f" -collection {a.collection}" if a.collection else ""),
+    )
+
+
+@command("volume.vacuum.disable", "-volumeId N (skip in auto vacuum)", mutating=True)
+def volume_vacuum_disable(env: ShellEnv, args) -> str:
+    return _vacuum_toggle(env, args, disable=True)
+
+
+@command("volume.vacuum.enable", "-volumeId N (re-enable auto vacuum)", mutating=True)
+def volume_vacuum_enable(env: ShellEnv, args) -> str:
+    return _vacuum_toggle(env, args, disable=False)
+
+
+def _vacuum_toggle(env: ShellEnv, args, disable: bool) -> str:
+    p = argparse.ArgumentParser(
+        prog=f"volume.vacuum.{'disable' if disable else 'enable'}"
+    )
+    p.add_argument("-volumeId", type=int, required=True)
+    a = p.parse_args(args)
+    ch, stub = _master_channel(env)
+    with ch:
+        r = stub.VacuumControl(
+            pb.VacuumControlRequest(volume_id=a.volumeId, disable=disable),
+            timeout=30,
+        )
+    if r.error:
+        return f"error: {r.error}"
+    state = "disabled" if disable else "enabled"
+    return f"auto vacuum {state} for volume {a.volumeId}"
+
+
+def _master_channel(env: ShellEnv, service: str = ""):
+    host, _, port = env.master_addr.partition(":")
+    ch = grpc.insecure_channel(f"{host}:{int(port or 9333) + 10000}")
+    return ch, rpc.Stub(ch, service or rpc.MASTER_SERVICE)

@@ -325,14 +325,16 @@ def _python_files():
     return sorted(
         p for p in PORT.rglob("*.py") if built not in p.parents
     ) + [REPO / "chip_smoke.py", REPO / "chip_kernels.py", REPO / "chip_host_io.py",
-         REPO / "chip_sched_ab.py"]
+         REPO / "chip_sched_ab.py", REPO / "chip_loopback.py"]
 
 
 @pytest.mark.parametrize(
     "path", _python_files(), ids=lambda p: str(p.relative_to(REPO))
 )
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
-    banned = {"jax", "jaxlib", "seaweedfs_tpu"}
+    # the card's host has no `requests`: every HTTP call goes over urllib
+    # or http.client
+    banned = {"jax", "jaxlib", "seaweedfs_tpu", "requests"}
     if path == PORT / "server" / "volume_server.py":
         # the data plane: gRPC and protobuf stay in server/volume_grpc.py,
         # client/ and pb/
@@ -354,11 +356,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
-    assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "storage", "utils"} <= scanned
+    assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "shell", "storage",
+            "utils"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
     for mod in ("server/master.py", "server/topology.py", "server/raft.py", "server/cluster_lock.py",
-                "utils/telemetry.py", "utils/sequence.py"):
+                "utils/telemetry.py", "utils/sequence.py", "shell/commands.py", "shell/__main__.py",
+                "client/operations.py", "utils/urls.py", "ec/rebalance.py", "ec/placement.py"):
         assert PORT / mod in _python_files(), mod
 
 
@@ -575,11 +579,27 @@ assert http_req(vs.port, "POST", "/" + a["fid"], b"assigned" * 99)[0] == 201
 code, body = http_req(mport, "GET", "/dir/lookup?volumeId=" + a["fid"].split(",")[0])
 assert code == 200 and json.loads(body)["locations"][0]["url"] == a["url"] == f"127.0.0.1:{vs.port}"
 assert http_req(vs.port, "GET", "/" + a["fid"]) == (200, b"assigned" * 99)
+# the port shell at the port master: ec.encode of the assigned volume, then
+# volume.list once the heartbeat lists its shards
+from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+
+env = ShellEnv(f"127.0.0.1:{mport}")
+vid = int(a["fid"].split(",")[0])
+out = run_command(env, f"ec.encode -volumeId {vid} -backend cpu")
+assert out.startswith(f"ec.encode volume {vid}: generation ") and out.endswith(a["url"]), out
+want = f"  ec {vid} col=- shards={list(range(14))} 10+4 gen="
+deadline = time.time() + 30
+while want not in run_command(env, "volume.list") and time.time() < deadline:
+    time.sleep(0.05)
+listing = run_command(env, "volume.list")
+assert want in listing and f"volume {vid} " not in listing, listing
+env.close()
+assert http_req(vs.port, "GET", "/" + a["fid"]) == (200, b"assigned" * 99)
 vs.stop()
 ms.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu", "requests"))
 print("LEAKED", bad)
 sys.exit(1 if bad else 0)
 """
