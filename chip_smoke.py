@@ -4602,6 +4602,19 @@ HA_REP_NEEDLES = 32  # 17c: needles written at replication 001 (bodies of SEED +
 HA_GETS = 40  # 17f and 17g: GETs of a seeded sample of the needles
 HA_UPLOAD_BYTES = (4 << 20) + 12345  # 17g: the file the shell uploads and downloads
 SHELL_TIMEOUT_S = 600.0  # one shell command's answer
+HA_VACUUM_S = 2  # the masters' maintenance tick (master.toml): the scanners' clock in 17h-17i
+HA_SIZE_LIMIT = 30 << 30  # the masters' volume size limit, the launcher's default
+HA_AUTO_COLLECTION = "haauto"  # 17h's volume, encoded by the auto-EC scanner's task
+HA_QUIET_S = 1  # 17h: ec_quiet_seconds
+TASK_TIMEOUT_S = 180.0  # a worker task's wait, from the config change that submits it
+
+
+def metric_value(text: str, name: str) -> float:
+    """An unlabelled sample of a /metrics page (0 where it has none)."""
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[1])
+    return 0.0
 
 
 class ShellChild:
@@ -4715,9 +4728,29 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     all 14, `ec.scrub` no bitrot and nothing missing, `ec.decode` gives
     the encoded .dat and .idx back (no launch: every data shard is
     there) and GETs through /dir/lookup read the written bytes, and
-    `upload` then `download` of a seeded file give it back. The
-    children's launches are read from their /debug/kernels. Prints one
-    JSON line; returns (result, launches of 17a-17f, launches of 17g)."""
+    `upload` then `download` of a seeded file give it back. 17h auto-EC:
+    the decoded collection deleted, a worker child (`python3 -m
+    seaweedfs_tpu_torch.worker -master <the group> -backend cuda`) named
+    by `worker.list` and `cluster.ps`, a fresh volume of seeded needles
+    written through assign and POST, `maintenance.config -set
+    ec_auto_fullness -set ec_quiet_seconds` at the leader (the fleet
+    commands run through `run_command` in this process, at the leader
+    alone: they parse `-master` as one address): the scanner submits one
+    `ec_encode` task, done, the holder launches `gf2_apply` once per batch,
+    the plain volume is gone, the 14 shards verify against `.ecsum` and
+    every needle reads back. 17i fleet scrub: the shell's `ec.balance`
+    spreads the shards, one data shard of a holder of fewer than k is
+    quarantined (unmounted, renamed `.bad`), degraded GETs over it at that
+    holder (`gf2_apply_planes` launches == its interval-cache loads), then
+    `ec_scrub_interval_seconds` at the leader: the `ec_scrub` task reports
+    the holder unrebuildable, `sw_ec_fleet_peer_rebuild_dispatch_total`
+    rises by 1, the `ec_rebuild -fromPeers` task is done, the holder
+    launched `gf2_apply` once per rebuild batch, the shard is back there
+    sha256-equal to generate's, `/cluster/status`'s `EcFleetScrub` names
+    it, and the next scrub reports the fleet clean. The children's
+    launches are read from their /debug/kernels. Prints one JSON line;
+    returns (result, launches of 17a-17f, launches of 17g, launches of
+    17h-17i)."""
     import grpc
 
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
@@ -4727,8 +4760,14 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     from seaweedfs_tpu_torch.storage.file_id import FileId
     from seaweedfs_tpu_torch.storage.types import NeedleValue, actual_offset
 
+    from seaweedfs_tpu_torch.ec.bitrot import BitrotProtection
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+
     root = os.path.join(work, "ha")
     os.makedirs(root)
+    # the masters' maintenance tick: the scanners of 17h-17i run on it
+    with open(os.path.join(root, "master.toml"), "w") as f:
+        f.write(f"[master.vacuum]\ninterval_seconds = {HA_VACUUM_S}\n")
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
     mports = [server_port() for _ in range(HA_MASTERS)]
@@ -4775,6 +4814,8 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
 
     stopped = None
     shell = None
+    fenv = None
+    launches_hi = {"gf2_apply": 0, "gf2_apply_planes": 0}
     try:
         # -- 17a. the group and the servers, started by name ---------------------
         t_spawn = time.perf_counter()
@@ -4897,18 +4938,19 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
                                           "seconds": time.perf_counter() - t0}
 
         # -- 17d. the port shell, one REPL child at the group: ec.encode, ec.balance
-        def ec_holders(a: str) -> dict:
+        def ec_holders(a: str, v: int | None = None) -> dict:
             try:
-                resp = mstub[a].LookupEcVolume(pb.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+                resp = mstub[a].LookupEcVolume(pb.LookupEcVolumeRequest(volume_id=v or vid),
+                                               timeout=10)
             except grpc.RpcError:
                 return {}
             return {sl.shard_id: sorted(name_of[loc.url] for loc in sl.locations)
                     for sl in resp.shard_locations}
 
-        def spread() -> dict | None:
+        def spread(v: int | None = None) -> dict | None:
             """{shard: holder} where the leader lists every shard once."""
             alive()
-            got = ec_holders(lead)
+            got = ec_holders(lead, v)
             if sorted(got) != list(range(ctx.total)) or any(len(v) != 1 for v in got.values()):
                 return None
             return {sid: v[0] for sid, v in got.items()}
@@ -5130,8 +5172,269 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
             "gets_after_decode": len(picks), "upload_bytes": HA_UPLOAD_BYTES,
             "upload_seconds": up_s, "download_seconds": down_s,
             "seconds": time.perf_counter() - t17g}
+
+        # -- 17h. auto-EC: the leader's scanner submits ec_encode, a worker child
+        # runs it -------------------------------------------------------------------
+        t17h = time.perf_counter()
+        # every collection of 17b-17g dropped: the fresh volume is the one
+        # plain volume left, the scanner's one candidate
+        for col in (HA_COLLECTION, HA_REP_COLLECTION, f"{HA_COLLECTION}new",
+                    f"{HA_COLLECTION}shell"):
+            out = shell.run(f"collection.delete -collection {col}")
+            if not re.fullmatch(rf"deleted collection '{col}': volumes \[[\d, ]+\]", out):
+                raise AssertionError(f"17h: collection.delete answered {out!r}")
+        wait_until(lambda: alive() or not any(nd.volumes for nd in nodes_at(lead).values()),
+                   "no plain volume left at the leader", phase="17h")
+        t0 = time.perf_counter()
+        wlog = open(os.path.join(root, "worker.log"), "wb")
+        children["worker"] = (subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.worker", "-master", ",".join(maddr),
+             "-backend", "cuda", "-capabilities", "ec_encode,ec_scrub,ec_rebuild,vacuum"],
+            cwd=root, env=env, stdout=wlog, stderr=subprocess.STDOUT), wlog)
+        # the worker child imports torch while the volume fills
+        auto: dict = {}  # fid -> (needle id, sha256 of the body, body length)
+        vids2, total = set(), 8
+        for _, _, body in needle_stream(np.random.default_rng(SEED + 18)):
+            if total + len(body) + 64 > VOLUME_BYTES // 4:
+                break
+            a = assign(f"collection={HA_AUTO_COLLECTION}")
+            code, _, answer = http(f"http://{a['url']}/{a['fid']}", "POST", body,
+                                   {"Content-Type": UPLOAD_MIME})
+            if code != 201:
+                raise AssertionError(f"17h: POST answered {code} {answer[:200]!r}")
+            vids2.add(FileId.parse(a["fid"]).volume_id)
+            auto[a["fid"]] = (FileId.parse(a["fid"]).needle_id, hashlib.sha256(body).hexdigest(),
+                              len(body))
+            total += len(body) + 64
+        fill_s = time.perf_counter() - t0
+        if len(vids2) != 1:
+            raise AssertionError(f"17h: the assigns spread over volumes {sorted(vids2)}")
+        (vid2,) = vids2
+        (h2,) = lookup(vid2)
+        up = [n for n in HA_RACKS if n != stopped]
+        base2 = {n: os.path.join(root, n, f"{HA_AUTO_COLLECTION}_{vid2}") for n in HA_RACKS}
+        dat2 = os.path.getsize(base2[h2] + ".dat")
+        fenv = ShellEnv(lead)  # the leader alone: the fleet commands parse one address
+
+        def worker_line() -> str | None:
+            alive()
+            lines = run_command(fenv, "worker.list").splitlines()
+            return lines[0] if len(lines) == 1 and lines[0].startswith("worker-") else None
+
+        def fleet_tasks() -> list[tuple[str, str, int, str]]:
+            """`task.list` at the leader as (task id, kind, volume, state) rows."""
+            out = run_command(fenv, "task.list")
+            if out == "(no tasks)":
+                return []
+            rows = [re.match(r"(\w+) (\w+) vol=(\d+) (\w+)", ln) for ln in out.splitlines()]
+            if None in rows:
+                raise AssertionError(f"17: task.list answered {out!r}")
+            return [(m[1], m[2], int(m[3]), m[4]) for m in rows]
+
+        wline = wait_value(worker_line, "the worker child listed at the leader", timeout=120,
+                           phase="17h")
+        worker_s = time.perf_counter() - t0
+        wid = wline.split()[0]
+        if wline != f"{wid} caps=ec_encode,ec_rebuild,ec_scrub,vacuum active=0/2 backend=cuda":
+            raise AssertionError(f"17h: worker.list answered {wline!r}")
+        ps = run_command(fenv, "cluster.ps").splitlines()
+        if f"worker {wid} caps=ec_encode,ec_rebuild,ec_scrub,vacuum active=0" not in ps or not any(
+                ln.startswith(f"master {lead} role=leader") for ln in ps):
+            raise AssertionError(f"17h: cluster.ps answered {ps}")
+        if fleet_tasks():
+            raise AssertionError("17h: tasks before the scanner was turned on")
+        wait_until(lambda: alive() or any(
+            v.id == vid2 and v.size == dat2 for nd in nodes_at(lead).values() for v in nd.volumes),
+            f"the leader listing volume {vid2} at its .dat size", phase="17h")
+        n_batches2 = len(list(batch_plan(dat2, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
+                                         SMALL_BLOCK_SIZE)))
+        fullness = 0.5 * dat2 / HA_SIZE_LIMIT  # half this volume: the others stay below
+        before = {n: kernels(n)["launches"] for n in up}
+        t0 = time.perf_counter()
+        cfg = json.loads(run_command(fenv, f"maintenance.config -set ec_auto_fullness={fullness!r} "
+                                           f"-set ec_quiet_seconds={HA_QUIET_S}"))
+        if (cfg["ec_auto_fullness"], cfg["ec_quiet_seconds"]) != (fullness, HA_QUIET_S):
+            raise AssertionError(f"17h: maintenance.config answered {cfg}")
+
+        def task_done(kind: str, v: int, count: int = 1) -> list | None:
+            alive()
+            rows = fleet_tasks()
+            if any(r[3] == "failed" for r in rows):
+                raise AssertionError(f"17: a task failed: {run_command(fenv, 'task.list')}")
+            done = [r for r in rows if r[1:] == (kind, v, "done")]
+            return rows if len(done) >= count else None
+
+        rows = wait_value(lambda: task_done("ec_encode", vid2), f"the ec_encode task of {vid2} done",
+                          timeout=TASK_TIMEOUT_S, phase="17h")
+        auto_s = time.perf_counter() - t0
+        run_command(fenv, "maintenance.config -set ec_auto_fullness=0")
+        if [r[1:] for r in rows] != [("ec_encode", vid2, "done")]:
+            raise AssertionError(f"17h: the scanner submitted {rows}")
+        now = {n: kernels(n)["launches"] for n in up}
+        per = {n: {k: now[n][k] - before[n][k] for k in launches} for n in up}
+        if per[h2]["gf2_apply"] != n_batches2 or any(
+                per[n][k] for n in up for k in launches if (n, k) != (h2, "gf2_apply")):
+            raise AssertionError(f"17h: the ec_encode task launched {per} for {n_batches2} "
+                                 f"batches at {h2}")
+        launches_hi["gf2_apply"] += n_batches2
+        if os.path.exists(base2[h2] + ".dat") or any(
+                v.id == vid2 for nd in nodes_at(lead).values() for v in nd.volumes):
+            raise AssertionError(f"17h: the plain volume {vid2} outlived its encode")
+        wait_until(lambda: spread(vid2) == dict.fromkeys(range(ctx.total), h2),
+                   "the 14 shards listed at the holder", phase="17h")
+        prot = BitrotProtection.load(base2[h2] + ".ecsum")
+        rotten = [sid for sid in range(ctx.total)
+                  if prot.verify_shard_file(base2[h2] + ctx.to_ext(sid), sid)]
+        if rotten:
+            raise AssertionError(f"17h: shards {rotten} do not verify against .ecsum")
+        shard2 = os.path.getsize(base2[h2] + ctx.to_ext(0))
+        generated2 = hashed({sid: base2[h2] + ctx.to_ext(sid) for sid in range(ctx.total)})
+        with open(base2[h2] + ".ecx", "rb") as f:
+            ecx = f.read()
+        offsets2 = {}
+        for i in range(0, len(ecx), 16):
+            nv = NeedleValue.from_bytes(ecx[i : i + 16])
+            offsets2[nv.needle_id] = (actual_offset(nv.offset), nv.size)
+        before = {n: kernels(n)["launches"] for n in up}
+        t0 = time.perf_counter()
+        for fid, (_, want, _) in auto.items():
+            code, _, got_body = http(f"http://{url[h2]}/{fid}")
+            if code != 200 or hashlib.sha256(got_body).hexdigest() != want:
+                raise AssertionError(f"17h: GET of {fid} at {h2} answered {code}, not the written bytes")
+        reads_s = time.perf_counter() - t0
+        if any(launched(before).values()):
+            raise AssertionError(f"17h: healthy EC reads launched {launched(before)}")
+        nbytes2 = sum(w[2] for w in auto.values())
+        steps["17h auto-EC"] = {
+            "worker": wid, "volume": vid2, "holder": h2, "needles": len(auto), "bytes": nbytes2,
+            "dat_size": dat2, "fill_seconds": fill_s, "worker_listed_s": worker_s,
+            "fullness": fullness, "config_to_done_s": auto_s, "launches": n_batches2,
+            "reads_seconds": reads_s, "seconds": time.perf_counter() - t17h}
+
+        # -- 17i. the fleet scrub finds a quarantined shard and dispatches a
+        # peer-fetch rebuild -------------------------------------------------------
+        t17i = time.perf_counter()
+        t0 = time.perf_counter()
+        out = shell.run(f"ec.balance -collection {HA_AUTO_COLLECTION}")
+        bal2_s = time.perf_counter() - t0
+        moves = [re.fullmatch(rf"ec {vid2}\.(\d\d): (\S+) -> (\S+) \((\S+)\)", ln)
+                 for ln in out.splitlines()]
+        if not moves or None in moves:
+            raise AssertionError(f"17i: ec.balance answered {out!r}")
+        planned = {int(mv[1]): name_of[mv[3]] for mv in moves}
+        placed2 = wait_value(lambda: (lambda got: got if got and all(
+            got[sid] == n for sid, n in planned.items()) else None)(spread(vid2)),
+            "every shard listed once, where ec.balance moved it", phase="17i")
+        held2: dict = {}
+        for sid, n in placed2.items():
+            held2.setdefault(n, set()).add(sid)
+        fit = [n for n in sorted(held2) if len(held2[n]) < ctx.data_shards
+               and any(sid < ctx.data_shards for sid in held2[n])]
+        if not fit:
+            raise AssertionError(f"17i: no holder of fewer than {ctx.data_shards} shards with a "
+                                 f"data shard: {held2}")
+        q = fit[0]
+        qsid = min(sid for sid in held2[q] if sid < ctx.data_shards)
+        qpath = base2[q] + ctx.to_ext(qsid)
+        with grpc.insecure_channel(gaddr[q]) as ch:
+            rpc.volume_stub(ch).VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=vid2, shard_ids=[qsid]), timeout=30)
+        os.replace(qpath, qpath + ".bad")  # the scrub's quarantine
+        wait_until(lambda: alive() or qsid not in ec_holders(lead, vid2),
+                   f"shard {qsid} leaving the leader's listing", phase="17i")
+        over2 = [fid for fid, (nid, _, _) in auto.items()
+                 if any(sid == qsid for sid, _, _ in record_intervals(*offsets2[nid], dat2))]
+        sample2 = [over2[i] for i in sorted(np.random.default_rng(SEED + 180).choice(
+            len(over2), size=min(HA_GETS, len(over2)), replace=False))]
+        before = {n: kernels(n)["launches"] for n in up}
+        loads0 = kernels(q)["interval_cache"]["loads"]
+        lat = []
+        for fid in sample2:
+            t0 = time.perf_counter()
+            code, _, got_body = http(f"http://{url[q]}/{fid}")
+            lat.append(time.perf_counter() - t0)
+            if code != 200 or hashlib.sha256(got_body).hexdigest() != auto[fid][1]:
+                raise AssertionError(f"17i: degraded GET of {fid} at {q} answered {code}, "
+                                     "not the written bytes")
+        got = launched(before)
+        recon2 = kernels(q)["interval_cache"]["loads"] - loads0
+        if got["gf2_apply_planes"] != recon2 or recon2 < 1 or got["gf2_apply"]:
+            raise AssertionError(f"17i: {got} launches for {recon2} reconstructions")
+        launches_hi["gf2_apply_planes"] += recon2
+        _, _, body = http(f"http://{lead}/metrics")
+        dispatched0 = metric_value(body.decode(), "sw_ec_fleet_peer_rebuild_dispatch_total")
+        before = {n: kernels(n)["launches"] for n in up}
+        t0 = time.perf_counter()
+        run_command(fenv, "maintenance.config -set ec_scrub_interval_seconds=3600")
+
+        def fleet_scrub() -> dict:
+            code, _, body = http(f"http://{lead}/cluster/status")
+            if code != 200:
+                raise AssertionError(f"17i: /cluster/status answered {code}")
+            return json.loads(body)["EcFleetScrub"]
+
+        rows = wait_value(lambda: task_done("ec_rebuild", vid2), "the dispatched ec_rebuild done",
+                          timeout=TASK_TIMEOUT_S, phase="17i")
+        heal_s = time.perf_counter() - t0
+        first = fleet_scrub()
+        hq = first["reports"].get(str(vid2), {}).get("holders", {}).get(url[q], {})
+        if (first["unrebuildable_volumes"] != [vid2] or hq.get("quarantined") != [qsid]
+                or not hq.get("unrebuildable")):
+            raise AssertionError(f"17i: EcFleetScrub after the first scrub: {first}")
+        _, _, body = http(f"http://{lead}/metrics")
+        dispatched = metric_value(body.decode(), "sw_ec_fleet_peer_rebuild_dispatch_total") \
+            - dispatched0
+        if dispatched != 1:
+            raise AssertionError(f"17i: sw_ec_fleet_peer_rebuild_dispatch_total rose by {dispatched}")
+        reb2_batches = -(-shard2 // DEFAULT_BATCH)
+        now = {n: kernels(n)["launches"] for n in up}
+        per = {n: {k: now[n][k] - before[n][k] for k in launches} for n in up}
+        if per[q]["gf2_apply"] != reb2_batches or any(
+                per[n][k] for n in up for k in launches if (n, k) != (q, "gf2_apply")):
+            raise AssertionError(f"17i: the scrub and the peer-fetch rebuild launched {per} for "
+                                 f"{reb2_batches} batches at {q}")
+        launches_hi["gf2_apply"] += reb2_batches
+        healed2 = wait_value(lambda: spread(vid2), "all 14 shards listed once after the heal",
+                             phase="17i")
+        if healed2[qsid] != q or sha256(qpath) != generated2[qsid]:
+            raise AssertionError(f"17i: shard {qsid} came back at {healed2[qsid]}, or differs "
+                                 "from what generate wrote")
+        # the next period: the fleet clean, the healed holder not dispatched at
+        t0 = time.perf_counter()
+        run_command(fenv, "maintenance.config -set ec_scrub_interval_seconds=1")
+
+        def clean() -> dict | None:
+            alive()
+            fs = fleet_scrub()
+            holders = fs["reports"].get(str(vid2), {}).get("holders", {})
+            return fs if (fs["corrupt_shards"] == fs["missing_shards"] == 0
+                          and fs["unrebuildable_volumes"] == [] and url[q] in holders
+                          and not holders[url[q]]["quarantined"]) else None
+
+        second = wait_value(clean, "a clean fleet scrub report", timeout=TASK_TIMEOUT_S,
+                            phase="17i")
+        run_command(fenv, "maintenance.config -set ec_scrub_interval_seconds=0")
+        rescrub_s = time.perf_counter() - t0
+        rows = fleet_tasks()
+        kinds = [r[1] for r in rows]
+        if kinds.count("ec_rebuild") != 1 or kinds.count("ec_scrub") < 2 or any(
+                r[3] == "failed" for r in rows):
+            raise AssertionError(f"17i: the fleet ran {rows}")
+        if any(now[n][k] != kernels(n)["launches"][k] for n in up for k in launches):
+            raise AssertionError("17i: the clean scrub launched")
+        steps["17i fleet scrub"] = {
+            "balance_seconds": bal2_s, "moves": len(moves), "quarantined": {q: qsid},
+            "holder_shards": sorted(held2[q]), "degraded_gets": len(sample2),
+            "over_quarantined_shard": len(over2), "get_p50_ms": percentile_ms(lat, 50),
+            "get_p99_ms": percentile_ms(lat, 99), "reconstructions": recon2,
+            "scrub_to_healed_s": heal_s, "rebuild_batches": reb2_batches,
+            "dispatched": dispatched, "first_report": first["reports"][str(vid2)]["holders"],
+            "clean_report_s": rescrub_s, "corrupt_after": second["corrupt_shards"],
+            "tasks": [r[1:] for r in rows], "seconds": time.perf_counter() - t17i}
         failed = False
     finally:
+        if fenv is not None:
+            fenv.close()
         for ch in channels:
             ch.close()
         if shell is not None and shell.close() != 0:
@@ -5142,8 +5445,9 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     if stuck and not failed:
         raise AssertionError(f"17: children did not stop cleanly: {stuck}")
     shutil.rmtree(root)
-    result = {"steps": steps, "launches": launches, "launches_17g": launches_g, "card": card_line()}
-    return result, launches, launches_g
+    result = {"steps": steps, "launches": launches, "launches_17g": launches_g,
+              "launches_17h_17i": launches_hi, "card": card_line()}
+    return result, launches, launches_g, launches_hi
 
 
 def main() -> int:
@@ -5408,7 +5712,7 @@ def main() -> int:
 
         # -- 17. a cluster of the port alone, every process started by name ------------
         t0 = time.perf_counter()
-        ha, ha_launches, shell_launches = ha_phase(work, ctx, vol_rng_state)
+        ha, ha_launches, shell_launches, fleet_launches = ha_phase(work, ctx, vol_rng_state)
         print("cluster of the port by name (three masters as one raft group, four volume servers "
               "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
               "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
@@ -5417,7 +5721,11 @@ def main() -> int:
               "elected, 14 shards listed there, a never-used volume id assigned; 17f a holder of "
               "a data shard stopped, degraded GETs byte-equal, launches == reconstructions; 17g "
               "the shell's ec.check.replication, ec.rebuild -fromPeers (launches == batches, "
-              "sha256-equal), ec.scrub, ec.decode (the .dat and .idx back) and upload/download): "
+              "sha256-equal), ec.scrub, ec.decode (the .dat and .idx back) and upload/download; "
+              "17h a worker child, the leader's auto-EC scanner's ec_encode task, launches == "
+              "batches, shards verified, needles read back; 17i a quarantined shard, degraded "
+              "GETs, launches == reconstructions, the fleet scrub's peer-fetch ec_rebuild task, "
+              "launches == batches, sha256-equal, the next scrub clean): "
               f"{json.dumps(ha)}")
         print(f"phase 17: {time.perf_counter() - t0:.3f} s; loopback connects "
               f"dialled again: {CONNECT_RETRIES[0]}")
@@ -5436,7 +5744,8 @@ def main() -> int:
           "13 store": store_launches["gf2_apply"], "14 server": server_launches["gf2_apply"],
           "15 cluster": cluster_launches["gf2_apply"], "16 admin": admin_launches["gf2_apply"],
           "17 cluster by name": ha_launches["gf2_apply"],
-          "17g shell": shell_launches["gf2_apply"]},
+          "17g shell": shell_launches["gf2_apply"],
+          "17h-17i worker fleet": fleet_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -5447,7 +5756,8 @@ def main() -> int:
           "15 cluster": cluster_launches["gf2_apply_planes"],
           "16 admin": admin_launches["gf2_apply_planes"],
           "17 cluster by name": ha_launches["gf2_apply_planes"],
-          "17g shell": shell_launches["gf2_apply_planes"]},
+          "17g shell": shell_launches["gf2_apply_planes"],
+          "17h-17i worker fleet": fleet_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

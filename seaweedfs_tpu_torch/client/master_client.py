@@ -14,7 +14,8 @@ masterclient.go:223, re-homes the session when masters fail over):
   (`lock`, `unlock`, `lock_status`; a held lock raises `LockHeldError`
   naming its holder) and `close`;
 - `grpc_addr`, the master's gRPC address, which the heartbeat stream
-  dials too, and `volume_channel`, a channel to a volume server's gRPC
+  dials too, and the client's `grpc_addr`, the leader's as far as the
+  client knows, and `volume_channel`, a channel to a volume server's gRPC
   port from its master-listed location.
 
 Unary lookups stay the fallback while the stream (re)connects, and serve
@@ -88,6 +89,12 @@ class MasterClient:
         self._session_thread: threading.Thread | None = None
         self._synced = threading.Event()
         self._stop = threading.Event()
+
+    @property
+    def grpc_addr(self) -> str:
+        """The gRPC address of the master this client takes for the leader
+        (the shell's `task.*` and the worker's stream dial it)."""
+        return grpc_addr(self._leader)
 
     # ------------------------------------------------------ connections
 

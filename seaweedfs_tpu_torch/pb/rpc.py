@@ -2,8 +2,9 @@
 both server handlers and client stubs are built.
 
 Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services the port serves
-or calls: every RPC of the master, of the volume server and of raft. The
-worker, filer and MQ services are not here yet. Server impls
+or calls: every RPC of the master, of the volume server, of raft and of
+the worker fleet's control plane. The filer and MQ services are not here
+yet. Server impls
 are plain classes with one method per RPC (same names); streaming RPCs
 take and return iterators, as generated servicers do. `add_service`
 registers exactly the rows of a table.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import grpc
 
 from . import cluster_pb2 as pb
+from . import worker_pb2 as wk
 
 UNARY = "unary_unary"
 SERVER_STREAM = "unary_stream"
@@ -21,6 +23,7 @@ BIDI = "stream_stream"
 
 MASTER_SERVICE = "sw.Seaweed"
 VOLUME_SERVICE = "sw.VolumeServer"
+WORKER_SERVICE = "swworker.WorkerControl"
 RAFT_SERVICE = "sw.Raft"
 
 SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
@@ -75,6 +78,15 @@ SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
         "VolumeIncrementalCopy": (SERVER_STREAM, pb.VolumeIncrementalCopyRequest, pb.VolumeIncrementalCopyChunk),
         "ReadVolumeFileStatus": (UNARY, pb.VolumeFileStatusRequest, pb.VolumeFileStatusResponse),
     },
+    # worker/control.py's WorkerControl, hosted by the master
+    WORKER_SERVICE: {
+        "WorkerStream": (BIDI, wk.WorkerMessage, wk.ServerMessage),
+        "ListTasks": (UNARY, wk.ListTasksRequest, wk.ListTasksResponse),
+        "SubmitTask": (UNARY, wk.SubmitTaskRequest, wk.SubmitTaskResponse),
+        "ListWorkers": (UNARY, wk.ListWorkersRequest, wk.ListWorkersResponse),
+        "GetMaintenanceConfig": (UNARY, wk.GetMaintenanceConfigRequest, wk.MaintenanceConfig),
+        "SetMaintenanceConfig": (UNARY, wk.MaintenanceConfig, wk.SetMaintenanceConfigResponse),
+    },
     # server/raft.py's peer RPCs, and the master client's leader resolution
     RAFT_SERVICE: {
         "RaftRequestVote": (UNARY, pb.RaftVoteRequest, pb.RaftVoteResponse),
@@ -121,3 +133,7 @@ def master_stub(channel: grpc.Channel) -> Stub:
 
 def volume_stub(channel: grpc.Channel) -> Stub:
     return Stub(channel, VOLUME_SERVICE)
+
+
+def worker_stub(channel: grpc.Channel) -> Stub:
+    return Stub(channel, WORKER_SERVICE)

@@ -17,11 +17,14 @@ purpose:
   HTTPS. Serving plain HTTP where the operator asked for TLS is not an
   option.
 - What needs a module the port does not have yet stops it with a
-  message, where the JAX launcher would start it: the maintenance
-  scanners of `-ec.autoFullness`, `-ec.scrubInterval` and
-  `-ec.rebalanceInterval` (or `master.maintenance.ec_auto_fullness`) above
-  0, which need the worker fleet; `server`'s `-filer`, `-s3`, `-webdav`,
-  `-sftp`, `-admin`, `-notify.webhook` and `-notify.mq`.
+  message, where the JAX launcher would start it: `server`'s `-filer`,
+  `-s3`, `-webdav`, `-sftp`, `-admin`, `-notify.webhook` and
+  `-notify.mq`.
+
+The master's maintenance scanners (`-ec.autoFullness`, or
+`master.maintenance.ec_auto_fullness`; `-ec.scrubInterval`;
+`-ec.rebalanceInterval`) submit tasks for the worker fleet (`python -m
+seaweedfs_tpu_torch.worker`).
 
 `build(argv)` parses, builds and starts the servers and returns them;
 `main(argv)` also waits for SIGINT or SIGTERM, stops them and returns 0.
@@ -56,13 +59,20 @@ def _add_ec_trace_flags(sp) -> None:
 def _add_scanner_flags(sp, rebalance: bool) -> None:
     sp.add_argument("-ec.autoFullness", dest="ec_auto", type=float, default=None,
                     help="auto-submit ec_encode for volumes at this fraction of the size limit "
-                    "(0=off; above 0 needs the worker fleet, not ported)")
-    sp.add_argument("-ec.scrubInterval", dest="ec_scrub_interval", type=float, default=0.0,
-                    help="fleet scrub period in seconds (0=off; above 0 needs the worker fleet)")
+                    "(0=off)")
     if rebalance:
+        sp.add_argument("-ec.scrubInterval", dest="ec_scrub_interval", type=float, default=0.0,
+                        help="fleet scrub period in seconds: every EC volume verified "
+                        "once per period via ec_scrub worker tasks (0=off)")
         sp.add_argument("-ec.rebalanceInterval", dest="ec_rebalance_interval", type=float,
-                        default=0.0, help="data-gravity period in seconds (0=off; above 0 needs "
-                        "the worker fleet)")
+                        default=0.0,
+                        help="data-gravity period in seconds: rank hot EC volumes vs "
+                        "holder chip-deficit and dispatch bounded ec_migrate worker "
+                        "tasks toward chip-rich low-load nodes (0=off; "
+                        "SEAWEED_EC_REBALANCE_* knobs bound each sweep)")
+    else:
+        sp.add_argument("-ec.scrubInterval", dest="ec_scrub_interval", type=float, default=0.0,
+                        help="fleet scrub period in seconds (0=off)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -150,12 +160,6 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
             a.ec_auto = float(mcfg.get("master.maintenance.ec_auto_fullness", 0.0))
         a.garbage_threshold = float(mcfg.get("master.vacuum.garbage_threshold", 0.3))
         a.vacuum_interval = float(mcfg.get("master.vacuum.interval_seconds", 60))
-        for flag, value in (("-ec.autoFullness", a.ec_auto),
-                            ("-ec.scrubInterval", a.ec_scrub_interval),
-                            ("-ec.rebalanceInterval", getattr(a, "ec_rebalance_interval", 0.0))):
-            if value > 0:
-                p.error(f"{flag} {value}: the maintenance scanners need the worker fleet, "
-                        "which the port does not have yet")
     if a.mode == "server":
         for flag in ("filer", "s3", "webdav", "sftp", "admin"):
             if getattr(a, flag):
@@ -180,7 +184,9 @@ def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
             ip=a.ip, port=port, volume_size_limit=limit, jwt_key=a.jwt_key,
             peers=getattr(a, "peers", "") or None, meta_dir=getattr(a, "mdir", "") or None,
             telemetry_url=getattr(a, "telemetry_url", ""), garbage_threshold=a.garbage_threshold,
-            vacuum_interval=a.vacuum_interval)
+            vacuum_interval=a.vacuum_interval, ec_auto_fullness=a.ec_auto,
+            ec_scrub_interval=a.ec_scrub_interval,
+            ec_rebalance_interval=getattr(a, "ec_rebalance_interval", 0.0))
         ms.start()
         servers.append(ms)
         log.info("master listening on %s:%s (grpc %s)", a.ip, port, ms.grpc_port)

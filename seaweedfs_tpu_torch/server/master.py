@@ -13,15 +13,22 @@ and /dir/lookup handlers):
   (`_raft_apply`, `_raft_restore`, `_alloc_volume_id`,
   `_on_leader_change`), the gRPC server with the master and raft
   services, the HTTP plane (`/dir/assign`, `/dir/lookup`, `/metrics`,
-  `/`, `/ui`, `/cluster/status`, `/dir/status`, `/debug/slo`), the vacuum
-  loop (`prune_dead`, `vacuum_once`), the opt-in telemetry, `start`,
-  `stop` and `wait`.
+  `/`, `/ui` with the maintenance fleet's tables, `/cluster/status` with
+  the fleet scrub's `EcFleetScrub` and the gravity scanner's
+  `EcMigrations`, `/dir/status`, `/debug/slo`), the worker fleet's
+  control plane (`worker/control.py` `WorkerControl` on the
+  `swworker.WorkerControl` service) with the live maintenance config
+  (`_maintenance_config`, `_apply_maintenance_config`), the maintenance
+  loop (`prune_dead`, `vacuum_once` and the scanners: auto-EC, balance,
+  lifecycle, EC balance, fleet scrub, data gravity), the opt-in
+  telemetry, `start`, `stop` and `wait`.
 
-Left out: the worker fleet (`WorkerControl`, the worker service, the
-maintenance scanners of the vacuum loop and the live maintenance config),
-the filer lock ring (`dlm_filers`), `/debug/pprof` and TLS. So
-`/cluster/status` has no `EcFleetScrub` and no `EcMigrations`, and `/ui`
-has no worker table. `EcStreams` and `EcResidency.local` read this
+Every master scans and submits, the leader or not, as in the JAX package:
+a worker streams to the leader, so a follower's tasks wait. The maintenance
+config is this master's own, not replicated.
+
+Left out: the filer lock ring (`dlm_filers`), `/debug/pprof` and TLS.
+`EcStreams` and `EcResidency.local` read this
 process's stream and residency registries only where the port's EC
 package is already loaded (a combined deployment): a master alone does
 not import torch to answer a status read.
@@ -404,7 +411,19 @@ class MasterServer:
         meta_dir: str | None = None,
         election_timeout: tuple[float, float] = (0.4, 0.8),
         telemetry_url: str = "",
+        ec_auto_fullness: float = 0.0,
+        ec_quiet_seconds: float = 60.0,
+        ec_scrub_interval: float = 0.0,
+        ec_rebalance_interval: float = 0.0,
     ):
+        """ec_auto_fullness > 0 turns on the auto-EC scanner: a volume at
+        that fraction of the size limit, its size unchanged for
+        ec_quiet_seconds, gets an ec_encode task for the worker fleet.
+        ec_scrub_interval > 0: every EC volume scrubbed fleet-wide once per
+        that many seconds (ec_scrub tasks, one volume per tick), with a
+        peer-fetch rebuild dispatched for any holder that cannot heal
+        itself. ec_rebalance_interval > 0: the data-gravity scanner's
+        period (ec_migrate tasks)."""
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port or (port + 10000)
@@ -426,11 +445,32 @@ class MasterServer:
         self.service.alloc_volume_id = self._alloc_volume_id
         self.garbage_threshold = garbage_threshold
         self.vacuum_interval = vacuum_interval
+        self.ec_auto_fullness = ec_auto_fullness
+        self.ec_quiet_seconds = ec_quiet_seconds
+        # the scanners' periods and switches, re-read every maintenance
+        # tick (0 = off), so a live SetMaintenanceConfig needs no restart
+        self.ec_scrub_interval = ec_scrub_interval
+        self.ec_rebalance_interval = ec_rebalance_interval
+        self._ec_rebalance_last = 0.0
+        self.balance_spread = 0.0
+        self.lifecycle_interval = 0.0
+        self.lifecycle_filer = ""
+        self._lifecycle_last = 0.0
+        self.ec_balance_interval = 0.0
+        self._ec_balance_last = 0.0
         self._vacuum_stop = threading.Event()
         self._vacuum_thread = threading.Thread(target=self._vacuum_loop, daemon=True)
 
+        from ..worker.control import WorkerControl
+
+        self.worker_control = WorkerControl(
+            topo=self.topo,
+            config_get=self._maintenance_config,
+            config_set=self._apply_maintenance_config,
+        )
         self._grpc = grpc.server(futures.ThreadPoolExecutor(max_workers=32))
         rpc.add_service(self._grpc, rpc.MASTER_SERVICE, self.service)
+        rpc.add_service(self._grpc, rpc.WORKER_SERVICE, self.worker_control)
         rpc.add_service(self._grpc, rpc.RAFT_SERVICE, self.raft)
         self._grpc.add_insecure_port(f"{ip}:{self.grpc_port}")
 
@@ -503,6 +543,11 @@ class MasterServer:
             "DataNodes": [{"id": n.id, "volumes": len(n.volumes), "ecShards": len(n.ec_shards)}
                           for n in topo.nodes],
             "EcTelemetry": tele,
+            # fleet scrub health: per-holder bitrot and quarantine from the
+            # ec_scrub task reports (worker/control.py)
+            "EcFleetScrub": self.worker_control.scrub_summary(),
+            # the gravity scanner's latest ec_migrate dispatches
+            "EcMigrations": self.worker_control.last_migrations,
             "EcStreams": _ec_stream_summary(),
             "EcResidency": {
                 "local": _ec_residency_summary(),
@@ -605,6 +650,33 @@ class MasterServer:
                         f"<tr><th>vol</th><th>coll</th><th>size</th><th>files</th>"
                         f"<th>del</th><th>mode</th><th>rp</th><th>ttl</th></tr>"
                         f"{vols}{ecs}</table>")
+                # the maintenance fleet's tables, from the public snapshot
+                worker_rows, task_rows = master.worker_control.snapshot()
+                workers = [
+                    f"<tr><td>{esc(w['worker_id'])}</td>"
+                    f"<td>{esc(','.join(w['capabilities']))}</td>"
+                    f"<td>{esc(w['backend'])}</td>"
+                    f"<td>{w['active']}/{w['max_concurrent']}</td></tr>"
+                    for w in worker_rows]
+                tasks = [
+                    f"<tr><td>{esc(t['task_id'])}</td><td>{esc(t['kind'])}</td>"
+                    f"<td>{t['volume_id']}</td><td>{esc(t['state'])}</td>"
+                    f"<td>{t['progress']:.0%}</td>"
+                    f"<td>{esc(t['worker_id']) or '-'}</td>"
+                    f"<td>{esc(t['error']) or '-'}</td></tr>"
+                    for t in sorted(task_rows, key=lambda t: -t["created"])[:50]]
+                fleet = (
+                    "<h2>maintenance fleet</h2>"
+                    "<table border=1 cellpadding=4 cellspacing=0>"
+                    "<tr><th>worker</th><th>capabilities</th><th>backend</th>"
+                    "<th>active</th></tr>"
+                    + ("".join(workers) or "<tr><td colspan=4>no workers</td></tr>")
+                    + "</table><br>"
+                    "<table border=1 cellpadding=4 cellspacing=0>"
+                    "<tr><th>task</th><th>kind</th><th>vol</th><th>state</th>"
+                    "<th>progress</th><th>worker</th><th>error</th></tr>"
+                    + ("".join(tasks) or "<tr><td colspan=7>no tasks</td></tr>")
+                    + "</table>")
                 body = (
                     "<html><head><title>seaweed-tpu master</title></head><body>"
                     f"<h1>seaweed-tpu cluster</h1>"
@@ -614,6 +686,7 @@ class MasterServer:
                     f"{stats.used_size:,} bytes &middot; max volume id: "
                     f"{topo.max_volume_id}</p>"
                     + "".join(rows)
+                    + fleet
                     + "</body></html>").encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "text/html; charset=utf-8")
@@ -625,18 +698,112 @@ class MasterServer:
 
         return Handler
 
+    # ------------------------------------------------- maintenance config
+
+    def _maintenance_config(self) -> dict:
+        return {
+            "ec_auto_fullness": self.ec_auto_fullness,
+            "ec_quiet_seconds": self.ec_quiet_seconds,
+            "garbage_threshold": self.garbage_threshold,
+            "vacuum_interval_seconds": self.vacuum_interval,
+            "balance_spread": self.balance_spread,
+            "lifecycle_interval_seconds": self.lifecycle_interval,
+            "lifecycle_filer": self.lifecycle_filer,
+            "ec_balance_interval_seconds": self.ec_balance_interval,
+            "ec_scrub_interval_seconds": self.ec_scrub_interval,
+            "ec_rebalance_interval_seconds": self.ec_rebalance_interval,
+        }
+
+    def _apply_maintenance_config(self, cfg: dict) -> None:
+        """Apply a tuned policy live: the loop re-reads every knob each
+        tick. A value out of range fails the whole update: a half-applied
+        policy is worse than none."""
+        import math
+
+        # isfinite first: NaN passes every comparison-based range check
+        # ('quiet < 0' is False for NaN), and a NaN vacuum interval turns
+        # _vacuum_loop into a busy spin
+        for key in ("ec_auto_fullness", "ec_quiet_seconds", "garbage_threshold",
+                    "vacuum_interval_seconds", "balance_spread", "lifecycle_interval_seconds",
+                    "ec_balance_interval_seconds", "ec_scrub_interval_seconds",
+                    "ec_rebalance_interval_seconds"):
+            if not math.isfinite(cfg.get(key, 0.0)):
+                raise ValueError(f"{key} must be finite, got {cfg.get(key)}")
+        full = cfg.get("ec_auto_fullness", 0.0)
+        if not (0.0 <= full <= 1.0):
+            raise ValueError(f"ec_auto_fullness must be in [0,1], got {full}")
+        thresh = cfg.get("garbage_threshold", 0.0)
+        if not (0.0 < thresh <= 1.0):
+            raise ValueError(f"garbage_threshold must be in (0,1], got {thresh}")
+        quiet = cfg.get("ec_quiet_seconds", 0.0)
+        interval = cfg.get("vacuum_interval_seconds", 0.0)
+        if quiet < 0 or interval <= 0:
+            raise ValueError("ec_quiet_seconds must be >=0 and "
+                             f"vacuum_interval_seconds >0 (got {quiet}, {interval})")
+        spread = cfg.get("balance_spread", 0.0)
+        lc_interval = cfg.get("lifecycle_interval_seconds", 0.0)
+        ecb_interval = cfg.get("ec_balance_interval_seconds", 0.0)
+        scrub_interval = cfg.get("ec_scrub_interval_seconds", 0.0)
+        rebal_interval = cfg.get("ec_rebalance_interval_seconds", 0.0)
+        if (spread < 0 or lc_interval < 0 or ecb_interval < 0 or scrub_interval < 0
+                or rebal_interval < 0):
+            raise ValueError(
+                "balance_spread, lifecycle_interval_seconds, "
+                "ec_balance_interval_seconds, ec_scrub_interval_seconds "
+                "and ec_rebalance_interval_seconds "
+                f"must be >=0 (got {spread}, {lc_interval}, "
+                f"{ecb_interval}, {scrub_interval}, {rebal_interval})")
+        self.ec_auto_fullness = full
+        self.ec_quiet_seconds = quiet
+        self.garbage_threshold = thresh
+        self.vacuum_interval = interval
+        self.balance_spread = spread
+        self.lifecycle_interval = lc_interval
+        self.lifecycle_filer = str(cfg.get("lifecycle_filer", "") or "")
+        self.ec_balance_interval = ecb_interval
+        self.ec_scrub_interval = scrub_interval
+        self.ec_rebalance_interval = rebal_interval
+
     # ----------------------------------------------------------- vacuum
 
     def _vacuum_loop(self) -> None:
         """Periodic garbage sweep (reference topology_vacuum.go): every
         holder of a garbage-heavy volume compacts it. Also the dead-node
-        sweeper for heartbeat streams that hang without breaking."""
+        sweeper for heartbeat streams that hang without breaking, and the
+        tick of every maintenance scanner (worker/control.py): a live
+        config change takes effect after the wait under way."""
+        wc = self.worker_control
         while not self._vacuum_stop.wait(self.vacuum_interval):
-            # one bad tick must not kill the thread that is both the
-            # garbage sweep and the dead-node pruner
+            # one bad tick must not kill the thread that is the garbage
+            # sweep, the dead-node pruner and every scanner's clock
             try:
                 self.topo.prune_dead()
                 self.vacuum_once()
+                if self.ec_auto_fullness > 0:
+                    wc.scan_for_ec_candidates(self.topo, self.ec_auto_fullness,
+                                              self.topo.volume_size_limit,
+                                              quiet_seconds=self.ec_quiet_seconds)
+                if self.balance_spread > 0:
+                    wc.scan_for_balance_candidates(self.topo, int(self.balance_spread))
+                if self.lifecycle_interval > 0 and self.lifecycle_filer:
+                    now = time.time()
+                    if now - self._lifecycle_last >= self.lifecycle_interval:
+                        self._lifecycle_last = now
+                        wc.scan_for_lifecycle(self.lifecycle_filer)
+                if self.ec_balance_interval > 0:
+                    now = time.time()
+                    if now - self._ec_balance_last >= self.ec_balance_interval:
+                        self._ec_balance_last = now
+                        wc.scan_for_ec_balance(self.topo)
+                if self.ec_scrub_interval > 0:
+                    # per-volume due-ness lives in the scanner: a call per
+                    # tick staggers volumes across the period
+                    wc.scan_for_ec_scrub(self.topo, self.ec_scrub_interval)
+                if self.ec_rebalance_interval > 0:
+                    now = time.time()
+                    if now - self._ec_rebalance_last >= self.ec_rebalance_interval:
+                        self._ec_rebalance_last = now
+                        wc.scan_for_ec_rebalance(self.topo)
             except Exception as e:  # noqa: BLE001
                 log.error("maintenance tick failed (%s: %s); loop continues", type(e).__name__, e)
 
@@ -663,6 +830,7 @@ class MasterServer:
 
     def stop(self) -> None:
         self.telemetry.stop()
+        self.worker_control.stop()
         self.raft.stop()
         self._vacuum_stop.set()
         self._grpc.stop(grace=0.5)

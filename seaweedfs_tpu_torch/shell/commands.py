@@ -8,20 +8,23 @@ command_ec_common.go, the volume.* family).
 Each command is a function(env, args) -> str; the registry drives both
 the REPL and one-shot `python -m seaweedfs_tpu_torch.shell -c "..."`.
 
-The port has the registry, the shared helpers and 39 commands: the
-cluster (`cluster.status`, `cluster.check`, `cluster.raft.*`), volume,
-EC, collection and lock commands, `upload` and `download`. The JAX
-shell's other commands need modules the port has not taken yet (the
-filer, S3, MQ, remote storage, mount and the worker fleet); each answers
-one error line naming the ROADMAP.md item it comes with (`DEFERRED`).
+The port has the registry, the shared helpers and 44 commands: the
+cluster (`cluster.status`, `cluster.check`, `cluster.ps`, `cluster.raft.*`),
+volume, EC, collection and lock commands, `upload` and `download`, and
+the worker fleet's (`task.submit`, `task.list`, `worker.list`,
+`maintenance.config`). The JAX shell's other commands need modules the
+port has not taken yet (the filer, S3, MQ, remote storage and mount);
+each answers one error line naming the ROADMAP.md item it comes with
+(`DEFERRED`).
 
 Where the port differs from the JAX shell:
 - the master's HTTP reads (`cluster.status`, `ec.balance -dataGravity`)
   go over `urllib`, as best-effort as the JAX `requests` reads;
 - `ec.encode -backend` takes `cuda|cpu|auto` and defaults to `cuda`, as
   every port entry point does; a mutating command given another backend
-  (the JAX `tpu`) answers an error line before any RPC. `ec.rebuild`'s
-  default stays "", the server's `ec_backend`.
+  (the JAX `tpu`) answers an error line before any RPC, and so does
+  `task.submit -backend tpu`. `ec.rebuild`'s and `task.submit`'s default
+  stays "", the server's `ec_backend` or the worker's backend.
 """
 
 from __future__ import annotations
@@ -66,8 +69,6 @@ DEFERRED: dict[str, str] = {
     **{c: "14a" for c in (
         "mq.schema.get", "mq.schema.set", "mq.topic.compact", "mq.topic.configure",
         "mq.topic.delete", "mq.topic.describe", "mq.topic.list", "mq.topic.truncate")},
-    **{c: "15b" for c in (
-        "task.list", "task.submit", "worker.list", "cluster.ps", "maintenance.config")},
     "mount.configure": "16",
     **{c: "18" for c in (
         "remote.cache", "remote.configure", "remote.meta.sync", "remote.mount",
@@ -1786,6 +1787,154 @@ def _vacuum_toggle(env: ShellEnv, args, disable: bool) -> str:
         return f"error: {r.error}"
     state = "disabled" if disable else "enabled"
     return f"auto vacuum {state} for volume {a.volumeId}"
+
+
+# -------------------------------------------------------------- the fleet
+
+
+@command(
+    "task.submit",
+    "-kind ec_encode|vacuum|balance|ec_balance|s3_lifecycle|iceberg "
+    "[-volumeId N] [-backend b] [-param k=v ...]",
+)
+def task_submit(env: ShellEnv, args) -> str:
+    from ..pb import worker_pb2 as wk
+    from ..worker.control import VOLUME_INDEPENDENT_KINDS
+
+    refused = _unserved_backend(args)
+    if refused:
+        return refused
+    p = argparse.ArgumentParser(prog="task.submit")
+    p.add_argument("-kind", required=True)
+    # volume-independent kinds (ec_balance, s3_lifecycle) run with 0; every
+    # other kind acts on ONE volume, and a forgotten -volumeId would submit
+    # a doomed volume-0 task that only fails in task.list
+    p.add_argument("-volumeId", type=int, default=None)
+    p.add_argument("-collection", default="")
+    p.add_argument("-backend", default="")
+    p.add_argument("-param", action="append", default=[],
+                   help="k=v, validated against the kind's descriptor")
+    a = p.parse_args(args)
+    if a.volumeId is None and a.kind not in VOLUME_INDEPENDENT_KINDS:
+        return f"error: -volumeId is required for kind {a.kind}"
+    params = {}
+    for kv in a.param:
+        k, sep, v = kv.partition("=")
+        if not sep or not k:
+            return f"error: -param wants k=v, got {kv!r}"
+        params[k] = v
+    req = wk.SubmitTaskRequest(kind=a.kind, volume_id=a.volumeId or 0,
+                               collection=a.collection, backend=a.backend)
+    for k, v in params.items():
+        req.params[k] = v
+    with grpc.insecure_channel(env.master.grpc_addr) as ch:
+        r = rpc.worker_stub(ch).SubmitTask(req, timeout=30)
+    if r.error:
+        return f"error: {r.error}"
+    return f"task {r.task_id} submitted"
+
+
+@command("task.list", "show the maintenance task queue")
+def task_list(env: ShellEnv, args) -> str:
+    from ..pb import worker_pb2 as wk
+
+    with grpc.insecure_channel(env.master.grpc_addr) as ch:
+        r = rpc.worker_stub(ch).ListTasks(wk.ListTasksRequest(), timeout=30)
+    return "\n".join(
+        f"{t.task_id} {t.kind} vol={t.volume_id} {t.state}"
+        + (f" ({t.progress:.0%})" if t.state == "running" else "")
+        + (f" worker={t.worker_id}" if t.worker_id else "")
+        + (f" error={t.error}" if t.error else "")
+        for t in r.tasks
+    ) or "(no tasks)"
+
+
+@command("cluster.ps", "list cluster processes (masters, volume servers, workers)")
+def cluster_ps(env: ShellEnv, args) -> str:
+    from ..pb import worker_pb2 as wk
+
+    lines = []
+    ch, _stub = _master_channel(env)
+    with ch:
+        try:
+            rs = rpc.Stub(ch, rpc.RAFT_SERVICE).RaftStatus(pb.RaftStatusRequest(), timeout=10)
+            lines.append(f"master {rs.node_id} role={rs.role} term={rs.term}")
+            for peer in rs.peers:
+                lines.append(f"master {peer} (peer)")
+        except grpc.RpcError:
+            lines.append(f"master {env.master_addr}")
+        topo = rpc.master_stub(ch).Topology(pb.TopologyRequest(), timeout=30)
+        for n in topo.nodes:
+            lines.append(
+                f"volumeServer {n.location.url} grpc={n.location.grpc_port} "
+                f"volumes={len(n.volumes)} ec={len(n.ec_shards)} "
+                f"dc={n.data_center or 'default'} rack={n.rack or 'default'}")
+        try:
+            ws = rpc.worker_stub(ch).ListWorkers(wk.ListWorkersRequest(), timeout=10)
+            for w in ws.workers:
+                lines.append(f"worker {w.worker_id} caps={','.join(w.capabilities)} "
+                             f"active={w.active}")
+        except grpc.RpcError:
+            pass
+    return "\n".join(lines)
+
+
+@command("worker.list", "list registered maintenance workers")
+def worker_list(env: ShellEnv, args) -> str:
+    from ..pb import worker_pb2 as wk
+
+    ch, _ = _master_channel(env)
+    with ch:
+        r = rpc.worker_stub(ch).ListWorkers(wk.ListWorkersRequest(), timeout=10)
+    if not r.workers:
+        return "no workers connected"
+    return "\n".join(
+        f"{w.worker_id} caps={','.join(w.capabilities)} "
+        f"active={w.active}/{w.max_concurrent} backend={w.backend}"
+        for w in r.workers)
+
+
+@command(
+    "maintenance.config",
+    "[-set key=value ...] show or tune the maintenance policy live",
+    mutating=True,
+)
+def maintenance_config(env: ShellEnv, args) -> str:
+    from ..pb import worker_pb2 as wk
+
+    p = argparse.ArgumentParser(prog="maintenance.config")
+    p.add_argument("-set", action="append", default=[])
+    a = p.parse_args(args)
+    ch, _ = _master_channel(env)
+    with ch:
+        stub = rpc.worker_stub(ch)
+        if a.set:
+            req = wk.MaintenanceConfig()
+            for kv in a.set:
+                key, _, val = kv.partition("=")
+                if key == "lifecycle_filer":
+                    req.lifecycle_filer = val
+                else:
+                    try:
+                        setattr(req, key, float(val))
+                    except (AttributeError, ValueError):
+                        return f"unknown or invalid knob {kv!r}"
+            r = stub.SetMaintenanceConfig(req, timeout=10)
+            if r.error:
+                return f"error: {r.error}"
+        cfg = stub.GetMaintenanceConfig(wk.GetMaintenanceConfigRequest(), timeout=10)
+    return json.dumps({
+        "ec_auto_fullness": cfg.ec_auto_fullness,
+        "ec_quiet_seconds": cfg.ec_quiet_seconds,
+        "garbage_threshold": cfg.garbage_threshold,
+        "vacuum_interval_seconds": cfg.vacuum_interval_seconds,
+        "balance_spread": cfg.balance_spread,
+        "lifecycle_interval_seconds": cfg.lifecycle_interval_seconds,
+        "lifecycle_filer": cfg.lifecycle_filer,
+        "ec_balance_interval_seconds": cfg.ec_balance_interval_seconds,
+        "ec_scrub_interval_seconds": cfg.ec_scrub_interval_seconds,
+        "ec_rebalance_interval_seconds": cfg.ec_rebalance_interval_seconds,
+    })
 
 
 def _master_channel(env: ShellEnv, service: str = ""):

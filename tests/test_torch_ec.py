@@ -357,12 +357,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
     assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "shell", "storage",
-            "utils"} <= scanned
+            "utils", "worker"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
     for mod in ("server/master.py", "server/topology.py", "server/raft.py", "server/cluster_lock.py",
                 "utils/telemetry.py", "utils/sequence.py", "shell/commands.py", "shell/__main__.py",
-                "client/operations.py", "utils/urls.py", "ec/rebalance.py", "ec/placement.py"):
+                "client/operations.py", "utils/urls.py", "ec/rebalance.py", "ec/placement.py",
+                "worker/__init__.py", "worker/__main__.py", "worker/worker.py",
+                "worker/control.py", "pb/worker_pb2.py"):
         assert PORT / mod in _python_files(), mod
 
 
@@ -593,6 +595,24 @@ while want not in run_command(env, "volume.list") and time.time() < deadline:
     time.sleep(0.05)
 listing = run_command(env, "volume.list")
 assert want in listing and f"volume {vid} " not in listing, listing
+# a port worker registered at the port master: the fleet scrub of the EC
+# volume, submitted through the shell, runs ScrubEcVolume at the server
+import threading
+from seaweedfs_tpu_torch.worker.worker import Worker
+
+w = Worker(master=f"127.0.0.1:{mport}", backend="cpu", worker_id="w-guard")
+threading.Thread(target=w.run, daemon=True).start()
+deadline = time.time() + 30
+while "w-guard" not in run_command(env, "worker.list") and time.time() < deadline:
+    time.sleep(0.05)
+assert run_command(env, f"task.submit -kind ec_scrub -volumeId {vid}").endswith(" submitted")
+deadline = time.time() + 30
+while " done worker=w-guard" not in run_command(env, "task.list") and time.time() < deadline:
+    time.sleep(0.05)
+assert run_command(env, "task.list").endswith(f"ec_scrub vol={vid} done worker=w-guard")
+report = ms.worker_control.scrub_summary()
+assert report["volumes"] == 1 and report["corrupt_shards"] == 0, report
+w.stop()
 env.close()
 assert http_req(vs.port, "GET", "/" + a["fid"]) == (200, b"assigned" * 99)
 vs.stop()

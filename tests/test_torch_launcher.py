@@ -10,9 +10,11 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
   that assign, take a POST, look it up and serve it;
 - `-ec.backend tpu` and a `security.toml` asking for TLS each stop the
   launcher with a message and a nonzero exit; so do the modes the port
-  does not have (filer, ...), and the flags of `master` and `server` whose
-  modules are not ported (the maintenance scanners, `server`'s gateways
-  and notifications);
+  does not have (filer, ...), and the flags of `server` whose modules are
+  not ported (its gateways and notifications);
+- the maintenance scanners' flags (`-ec.autoFullness`,
+  `-ec.scrubInterval`, `-ec.rebalanceInterval`) reach the master's live
+  maintenance config;
 - `volume.toml` and `master.toml` fill the flags left unset, explicit
   flags win, and the backend defaults to cuda;
 - the config loader reads the same keys as the JAX one.
@@ -36,6 +38,7 @@ from seaweedfs_tpu.server.master import MasterServer
 from seaweedfs_tpu.utils import config as jax_config
 from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
 from seaweedfs_tpu_torch.pb import rpc
+from seaweedfs_tpu_torch.pb import worker_pb2 as wk
 from seaweedfs_tpu_torch.server import __main__ as launcher
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.storage.file_id import FileId
@@ -127,11 +130,6 @@ def test_other_modes_are_refused():
     (["server", "-admin"], "-admin: the port has no admin module yet"),
     (["server", "-notify.webhook", "http://h/x"], "-notify.webhook http://h/x: the port has no filer"),
     (["server", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no filer"),
-    (["server", "-ec.autoFullness", "0.8"], "-ec.autoFullness 0.8: the maintenance scanners need"),
-    (["server", "-ec.scrubInterval", "60"], "-ec.scrubInterval 60.0: the maintenance scanners"),
-    (["master", "-ec.autoFullness", "0.8"], "-ec.autoFullness 0.8: the maintenance scanners need"),
-    (["master", "-ec.scrubInterval", "60"], "-ec.scrubInterval 60.0: the maintenance scanners"),
-    (["master", "-ec.rebalanceInterval", "5"], "-ec.rebalanceInterval 5.0: the maintenance"),
     (["master", "-tls.cert", "c.pem"], "unrecognized arguments: -tls.cert c.pem"),
     (["server", "-ec.backend", "tpu"], "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
@@ -140,6 +138,36 @@ def test_unserved_flags_of_master_and_server_are_refused(capsys, args, want):
     with pytest.raises(SystemExit) as e:
         launcher.resolve(argv, config_dirs=())
     assert e.value.code == 2 and want in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args, field, want", [
+    (["server", "-ec.autoFullness", "0.8"], "ec_auto_fullness", 0.8),
+    (["server", "-ec.scrubInterval", "60"], "ec_scrub_interval_seconds", 60.0),
+    (["master", "-ec.autoFullness", "0.8"], "ec_auto_fullness", 0.8),
+    (["master", "-ec.scrubInterval", "60"], "ec_scrub_interval_seconds", 60.0),
+    (["master", "-ec.rebalanceInterval", "5"], "ec_rebalance_interval_seconds", 5.0),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_scanner_flags_reach_the_masters_maintenance_config(tmp_path, args, field, want):
+    """The master `build` starts serves the flag's value over
+    GetMaintenanceConfig, as the JAX launcher's master would; the other
+    scanners stay off."""
+    mport = _ports()
+    if args[0] == "master":
+        argv = ["master", "-ip", "127.0.0.1", "-port", str(mport)]
+    else:
+        argv = ["server", "-ip", "127.0.0.1", "-masterPort", str(mport), "-port", str(_ports()),
+                "-dir", str(tmp_path / "v"), "-ec.backend", "cpu"]
+    servers = launcher.build(argv + args[1:], config_dirs=())
+    try:
+        cfg = grpc_call(mport, rpc.WORKER_SERVICE, "GetMaintenanceConfig",
+                        wk.GetMaintenanceConfigRequest())
+    finally:
+        for srv in reversed(servers):
+            srv.stop()
+    knobs = ("ec_auto_fullness", "ec_scrub_interval_seconds", "ec_rebalance_interval_seconds")
+    assert {k: getattr(cfg, k) for k in knobs} == {k: want if k == field else 0.0 for k in knobs}
+    assert (cfg.ec_quiet_seconds, cfg.vacuum_interval_seconds, cfg.garbage_threshold) == (
+        60.0, 60.0, pytest.approx(0.3))
 
 
 def test_master_toml_fills_unset_flags_and_flags_win(tmp_path, capsys):
@@ -152,9 +180,8 @@ def test_master_toml_fills_unset_flags_and_flags_win(tmp_path, capsys):
                                    "interval_seconds = 15\n[master.maintenance]\n"
                                    "ec_auto_fullness = 0.9\n")
     for mode in (["master"], ["server", "-dir", "/data"]):
-        with pytest.raises(SystemExit):  # the scanner the file asks for is not ported
-            launcher.resolve(mode, config_dirs=[str(d)])
-        assert "-ec.autoFullness 0.9" in capsys.readouterr().err
+        a = launcher.resolve(mode, config_dirs=[str(d)])  # the file's auto-EC scanner
+        assert (a.ec_auto, a.garbage_threshold, a.vacuum_interval) == (0.9, 0.5, 15.0)
         a = launcher.resolve(mode + ["-ec.autoFullness", "0"], config_dirs=[str(d)])
         assert (a.ec_auto, a.garbage_threshold, a.vacuum_interval) == (0.0, 0.5, 15.0)
     (d / "security.toml").write_text('[https.default]\ncert = "/c.pem"\n')

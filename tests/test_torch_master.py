@@ -1,6 +1,6 @@
 """PyTorch port: the master (server/master.py, server/topology.py,
-server/cluster_lock.py, client/master_client.py, the master and raft rows
-of pb/rpc.py), held against the JAX package's master on the CPU:
+server/cluster_lock.py, client/master_client.py, the master, raft and
+worker rows of pb/rpc.py), held against the JAX package's master on the CPU:
 
 - the topology: the same heartbeat sequence (full and incremental
   heartbeats, telemetry, unregistration, dead nodes) into a port and a
@@ -14,14 +14,15 @@ of pb/rpc.py), held against the JAX package's master on the CPU:
   CollectionList, CollectionDelete, Statistics, lock and VacuumControl
   answers, and a follower of an HA group answers every RPC as a JAX
   follower does;
-- the HTTP plane: /dir/assign, /dir/lookup and /cluster/status equal,
-  less the keys the port leaves out (EcFleetScrub, EcMigrations) and the
-  process-local EcStreams and EcResidency.local;
+- the HTTP plane: /dir/assign, /dir/lookup and /cluster/status equal
+  (the fleet's EcFleetScrub and EcMigrations too), less the process-local
+  EcStreams and EcResidency.local; /ui has the maintenance fleet's tables;
 - mixed clusters: a JAX volume server under the port's master, and a port
   volume server under the JAX master, each assigned, written (a `001`
   write on two holders too), looked up and read back through the port's
   master client;
-- the port's master and raft tables have every row of the JAX ones.
+- the port's master, raft and worker tables have every row of the JAX
+  ones.
 """
 
 import http.client
@@ -591,8 +592,7 @@ def get(port: int, path: str):
 
 def status_doc(body: bytes) -> dict:
     doc = json.loads(body)
-    for key in ("EcFleetScrub", "EcMigrations", "EcStreams"):  # left out, or process-local
-        doc.pop(key, None)
+    doc.pop("EcStreams")  # process-local
     doc["EcResidency"].pop("local")
     for blob in doc["EcTelemetry"].values():
         blob.pop("received_at")
@@ -637,7 +637,7 @@ def test_http_plane_matches_jax(fed_pair, monkeypatch):
     p = fed[0].master.port
     code, ctype, body = get(p, "/ui")
     assert code == 200 and ctype.startswith("text/html") and b"127.0.0.1:9100" in body
-    assert b"maintenance fleet" not in body
+    assert b"<h2>maintenance fleet</h2>" in body and b"no workers" in body and b"no tasks" in body
     code, _, body = get(p, "/metrics")
     assert code == 200 and b"sw_ec_queue_load" in body
     code, _, body = get(p, "/debug/slo")
@@ -645,14 +645,14 @@ def test_http_plane_matches_jax(fed_pair, monkeypatch):
 
 
 def test_master_and_raft_tables_have_every_jax_row():
-    for service in (rpc.MASTER_SERVICE, rpc.RAFT_SERVICE):
+    for service in (rpc.MASTER_SERVICE, rpc.RAFT_SERVICE, rpc.WORKER_SERVICE):
         got = {n: (k, a.DESCRIPTOR.full_name, b.DESCRIPTOR.full_name)
                for n, (k, a, b) in rpc.SERVICES[service].items()}
         want = {n: (k, a.DESCRIPTOR.full_name, b.DESCRIPTOR.full_name)
                 for n, (k, a, b) in jrpc.SERVICES[service].items()}
         assert got == want, service
     assert len(rpc.SERVICES[rpc.MASTER_SERVICE]) == 14 and len(rpc.SERVICES[rpc.RAFT_SERVICE]) == 5
-    assert not hasattr(rpc, "WORKER_SERVICE")
+    assert len(rpc.SERVICES[rpc.WORKER_SERVICE]) == 6
 
 
 # --------------------------------------------------------- mixed clusters

@@ -2,7 +2,7 @@
 utils/urls, the rest of ec/placement (`plan_ec_balance` and its stages)
 and ec/rebalance, held against the JAX package on the CPU:
 
-- every one of the 39 ported commands, run through the JAX shell and
+- every one of the 44 ported commands, run through the JAX shell and
   through the port's on twin clusters built from the same bytes: the
   output equal line for line once addresses, the shell's owner id, fid
   cookies, paths and timings are masked, the master's topology equal,
@@ -11,7 +11,10 @@ and ec/rebalance, held against the JAX package on the CPU:
   `append_at_ns` and `last_modified` normalised). Twin clusters of two kinds: a port master
   with four port volume servers, and a JAX master with JAX and port
   volume servers side by side (the port shell against JAX servers);
-- the registry: the port's commands are the 39 of the JAX `COMMANDS`,
+- the worker fleet's commands (`task.submit`, `task.list`, `worker.list`,
+  `cluster.ps`, `maintenance.config`) with a worker of the shell's
+  package registered at each twin's master;
+- the registry: the port's commands are 44 of the JAX `COMMANDS`,
   with the JAX help texts apart from `-backend`; each command left for a
   later item answers one error line naming its ROADMAP.md item; a
   `-backend` the port does not run (`tpu`) is refused before any RPC;
@@ -85,6 +88,7 @@ PORTED = {
     "volume.configure.replication", "volume.vacuum.disable", "volume.vacuum.enable",
     "ec.encode", "ec.check.replication", "ec.rebuild", "ec.decode", "ec.balance", "ec.scrub",
     "collection.list", "collection.delete", "upload", "download", "lock", "unlock", "lock.status",
+    "task.submit", "task.list", "worker.list", "cluster.ps", "maintenance.config",
 }
 
 # the initial volumes: (server, vid, collection, replica placement, needles, deleted)
@@ -487,6 +491,49 @@ def test_shell_step_against_jax(twins, pinned, step):
     assert jax_side.files() == port_side.files()
 
 
+def test_fleet_commands_against_jax(twins):
+    """The five fleet commands on each twin, a worker of the shell's package
+    registered for part of it (the mixed twin's master is the JAX one)."""
+    from seaweedfs_tpu.worker.worker import Worker as JaxWorker
+    from seaweedfs_tpu_torch.worker.worker import Worker
+
+    outs = []
+    for side in twins:
+        out = [side.run(c) for c in (
+            "worker.list", "cluster.ps", "maintenance.config",
+            "maintenance.config -set ec_quiet_seconds=30 -set ec_scrub_interval_seconds=0",
+            "maintenance.config -set nope=1", "maintenance.config -set ec_auto_fullness=2",
+            "task.list")]
+        cls = JaxWorker if side.shell == "jax" else Worker
+        w = cls(master=f"127.0.0.1:{side.mport}", backend="cpu", worker_id="w-shell",
+                capabilities=("vacuum", "ec_scrub"))
+        threading.Thread(target=w.run, daemon=True).start()
+        try:
+            wait_for(lambda: "w-shell" in side.run("worker.list"), timeout=30,
+                     msg="the worker did not register")
+            out += [side.run("worker.list"), side.run("cluster.ps"),
+                    side.run("task.submit -kind vacuum"),
+                    side.run("task.submit -kind vacuum -volumeId 4 -param garbage_threshold=0.9"),
+                    side.run("task.submit -kind ec_scrub -volumeId 4")]
+            wait_for(lambda: all(f" {st}" not in side.run("task.list")
+                                 for st in ("pending", "assigned", "running")),
+                     timeout=30, msg="the tasks did not finish")
+            out.append(side.run("task.list"))
+        finally:
+            w.stop()
+        wait_for(lambda: side.run("worker.list") == "no workers connected", timeout=30,
+                 msg="the worker did not leave")
+        side.settle()
+        out.append(side.run("maintenance.config -set ec_quiet_seconds=60"))
+        grpc_port = lambda m: f"grpc={side.names[int(m[1])]}"  # noqa: E731
+        outs.append([re.sub(r"\b[0-9a-f]{12}\b", "<task>",
+                            re.sub(r"grpc=(\d+)", grpc_port, side.mask(o))) for o in out])
+    assert outs[0] == outs[1]
+    assert "vacuum vol=4 done worker=w-shell" in outs[1][-2]
+    assert twins[0].topology() == twins[1].topology()
+    assert twins[0].files() == twins[1].files()
+
+
 def test_every_ported_command_ran_against_jax(twins):
     jax_side, port_side = twins
     assert port_side.ran == jax_side.ran == PORTED
@@ -496,7 +543,7 @@ def test_every_ported_command_ran_against_jax(twins):
 
 
 def test_registry_is_the_39_commands_of_the_jax_shell():
-    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 39
+    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 44
     assert set(port_shell.COMMANDS) <= set(jax_shell.COMMANDS)
     assert set(port_shell.COMMANDS) | set(port_shell.DEFERRED) == set(jax_shell.COMMANDS)
     assert not set(port_shell.COMMANDS) & set(port_shell.DEFERRED)
@@ -528,7 +575,8 @@ def test_help_and_unknown_commands_answer_as_jax():
 
 
 @pytest.mark.parametrize("line", ["ec.encode -volumeId 1 -backend tpu",
-                                  "ec.rebuild -volumeId 1 -backend=tpu -fromPeers"])
+                                  "ec.rebuild -volumeId 1 -backend=tpu -fromPeers",
+                                  "task.submit -kind ec_encode -volumeId 1 -backend tpu"])
 def test_backend_the_port_does_not_run_is_refused_before_any_rpc(line):
     class NoMaster:
         def __getattr__(self, name):
@@ -569,7 +617,9 @@ def test_ec_encode_defaults_to_cuda(monkeypatch):
 def test_master_group_fails_alike_in_both_shells(twins):
     """`-master a,b,c`: the master client finds the leader in the group,
     but `_master_channel`, `_raft_stub` and the HTTP reads take the raw
-    string, in both shells (ROADMAP.md Queue 3)."""
+    string, in both shells (ROADMAP.md Queue 3). So do `cluster.ps`,
+    `worker.list` and `maintenance.config`; `task.*` dial the master
+    client's leader, the group's first master until a call re-homes it."""
     side = twins[1]
     group = f"127.0.0.1:{side.mport},127.0.0.1:1,127.0.0.1:2"
     envs = [jax_shell.ShellEnv(group), port_shell.ShellEnv(group)]
@@ -579,15 +629,23 @@ def test_master_group_fails_alike_in_both_shells(twins):
             with pytest.raises(ValueError) as e:
                 mod.run_command(env, "volume.vacuum.disable -volumeId 2")
             errs.append(str(e.value))
-            with pytest.raises(ValueError) as e:
-                mod.run_command(env, "cluster.raft.ps")
-            errs.append(str(e.value))
-        assert errs[:2] == errs[2:] and "invalid literal for int()" in errs[0]
+            for c in ("cluster.raft.ps", "cluster.ps", "worker.list", "maintenance.config"):
+                with pytest.raises(ValueError) as e:
+                    mod.run_command(env, c)
+                errs.append(str(e.value))
+        assert errs[:5] == errs[5:] and "invalid literal for int()" in errs[0]
+        assert len(set(errs)) == 1
+        # the second submit dedupes onto the first: one pending task
+        submitted = [mod.run_command(env, "task.submit -kind vacuum -volumeId 424242")
+                     for mod, env in zip((jax_shell, port_shell), envs)]
+        assert submitted[0] == submitted[1] and re.fullmatch(r"task \w+ submitted", submitted[0])
         outs = [side.mask(mod.run_command(env, c)).replace(group, "<group>")
                 for mod, env in zip((jax_shell, port_shell), envs)
-                for c in ("volume.list", "cluster.check", "lock.status", "cluster.status")]
-        assert outs[:3] == outs[4:7]
-        status = [outs[3].splitlines(), outs[7].splitlines()]
+                for c in ("volume.list", "cluster.check", "lock.status", "task.list",
+                          "cluster.status")]
+        assert outs[:4] == outs[5:9]
+        assert f"{submitted[0].split()[1]} vacuum vol=424242 pending" in outs[3]
+        status = [outs[4].splitlines(), outs[9].splitlines()]
         assert status[0][:-1] == status[1][:-1]
         assert all(s[-1].startswith("  (telemetry unavailable: ") for s in status)
     finally:
