@@ -306,7 +306,7 @@ import traceback
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from http.client import HTTPConnection
+from http.client import HTTPConnection, HTTPSConnection
 
 import numpy as np
 import torch
@@ -535,6 +535,19 @@ def build() -> None:
     print("host: " + json.dumps(host_info()))
     for line in ptxas_lines(logs["gf2_apply"]):
         print(f"  ptxas: {line}")
+
+
+def host_packages() -> dict:
+    """Whether the host has what TLS and thumbnails use: `cryptography`
+    (certificates), PIL (thumbnails) and the `openssl` command."""
+    import importlib.util
+
+    out = {}
+    for mod in ("cryptography", "PIL"):
+        spec = importlib.util.find_spec(mod)
+        out[mod] = __import__(mod).__version__ if spec else None
+    out["openssl"] = shutil.which("openssl")
+    return out
 
 
 def rebuild_coeffs(lost: tuple[int, ...]) -> np.ndarray:
@@ -3295,12 +3308,13 @@ CONNECT_TRIES = 4
 CONNECT_RETRIES = [0]  # connects that got no answer and were dialled again
 
 
-class RedialConnection(HTTPConnection):
-    """An HTTP connection that dials again when a connect gets no answer
-    within CONNECT_S. On the card's host (gVisor's network stack) about
-    one loopback connect in 2,000 carrying MiB bodies never completes,
-    while a new one goes through (`chip_loopback.py`). Nothing is sent on
-    a connection that never opened, so each request is sent once."""
+class _Redial:
+    """Dials again when a connect (and, for https, its handshake) gets no
+    answer within CONNECT_S. On the card's host (gVisor's network stack)
+    about one loopback connect in 2,000 carrying MiB bodies never
+    completes, while a new one goes through (`chip_loopback.py`). Nothing
+    is sent on a connection that never opened, so each request is sent
+    once."""
 
     def connect(self):
         timeout, self.timeout = self.timeout, CONNECT_S
@@ -3318,9 +3332,22 @@ class RedialConnection(HTTPConnection):
         self.sock.settimeout(timeout)
 
 
+class RedialConnection(_Redial, HTTPConnection):
+    pass
+
+
+class RedialHTTPSConnection(_Redial, HTTPSConnection):
+    pass
+
+
 class RedialHandler(urllib.request.HTTPHandler):
     def http_open(self, req):
         return self.do_open(RedialConnection, req)
+
+
+class RedialHTTPSHandler(urllib.request.HTTPSHandler):
+    def https_open(self, req):
+        return self.do_open(RedialHTTPSConnection, req, context=self._context)
 
 
 OPENER = urllib.request.build_opener(RedialHandler)
@@ -3328,12 +3355,18 @@ OPENER = urllib.request.build_opener(RedialHandler)
 
 def http(url: str, method: str = "GET", body: bytes | None = None, headers=None):
     """(status, headers, body) of one urllib request; an HTTP error status
-    is an answer, not a raise. A request with no answer raises with where
-    each thread of this process is."""
+    is an answer, not a raise. An https URL takes the port's process-wide
+    client context (`utils/urls.py`, set by `enable_https`). A request
+    with no answer raises with where each thread of this process is."""
     req = urllib.request.Request(url, data=body, method=method, headers=headers or {})
+    opener = OPENER
+    if url.startswith("https://"):
+        from seaweedfs_tpu_torch.utils import urls
+
+        opener = urllib.request.build_opener(RedialHTTPSHandler(context=urls.client_context()))
     t0 = time.perf_counter()
     try:
-        with OPENER.open(req, timeout=60) as r:
+        with opener.open(req, timeout=60) as r:
             return r.status, r.headers, r.read()
     except urllib.error.HTTPError as e:
         return e.code, e.headers, e.read()
@@ -4607,6 +4640,11 @@ HA_SIZE_LIMIT = 30 << 30  # the masters' volume size limit, the launcher's defau
 HA_AUTO_COLLECTION = "haauto"  # 17h's volume, encoded by the auto-EC scanner's task
 HA_QUIET_S = 1  # 17h: ec_quiet_seconds
 TASK_TIMEOUT_S = 180.0  # a worker task's wait, from the config change that submits it
+HA_FAST_COLLECTION = "hafast"  # 17j's plain volume: ?locate, the sidecar, then the offline tools
+HA_FAST_BYTES = 48 << 20  # 17j: needles written to it (bodies of SEED + 19)
+HA_IMG_COLLECTION = "haimg"  # 17j's thumbnails: a seeded PNG and JPEG, encoded, a shard gone
+THUMBS = ((64, 0, ""), (64, 64, "fill"))  # 17j: ?width=64, ?width=64&height=64&mode=fill
+TELEMETRY_FIRST_S = 60.0  # utils/telemetry.py: a master's first report, after its start
 
 
 def metric_value(text: str, name: str) -> float:
@@ -4816,13 +4854,20 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     shell = None
     fenv = None
     launches_hi = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    launches_j = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    tools_src = None
+    tport = free_port()
     try:
-        # -- 17a. the group and the servers, started by name ---------------------
+        # -- 17a. the group and the servers, started by name, and the telemetry
+        # collector the masters report to ------------------------------------------
+        spawn("telemetry", ["telemetry", "-ip", "127.0.0.1", "-port", str(tport), "-file",
+                            os.path.join(root, "telemetry.jsonl")])
         t_spawn = time.perf_counter()
         for i, p in enumerate(mports):
             os.makedirs(os.path.join(root, f"m{i}"))
             spawn(f"m{i}", ["master", "-ip", "127.0.0.1", "-port", str(p), "-peers", ",".join(maddr),
-                            "-mdir", os.path.join(root, f"m{i}")])
+                            "-mdir", os.path.join(root, f"m{i}"), "-telemetry.url",
+                            f"http://127.0.0.1:{tport}/api/collect"])
         for n, rack in HA_RACKS.items():
             os.makedirs(os.path.join(root, n))
             spawn(n, ["volume", "-dir", os.path.join(root, n), "-master", ",".join(maddr), "-ip",
@@ -5023,6 +5068,7 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
         handed = max(vids | rep_vids)
         killed = f"m{maddr.index(lead)}"
         t0 = time.perf_counter()
+        killed_at = t0 - t_spawn
         children[killed][0].send_signal(signal.SIGKILL)
         children[killed][0].wait(timeout=CHILD_STOP_S)
         live = [a for a in maddr if a != lead]
@@ -5431,6 +5477,194 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
             "dispatched": dispatched, "first_report": first["reports"][str(vid2)]["holders"],
             "clean_report_s": rescrub_s, "corrupt_after": second["corrupt_shards"],
             "tasks": [r[1:] for r in rows], "seconds": time.perf_counter() - t17i}
+
+        # -- 17j. the servers' last parts: ?locate and the fastread sidecar,
+        # /debug/pprof, thumbnails over a degraded read, the telemetry collector
+        t17j = time.perf_counter()
+        from seaweedfs_tpu_torch.client import operations
+        from seaweedfs_tpu_torch.utils import images
+        from seaweedfs_tpu_torch.utils.crc import crc32c
+        from seaweedfs_tpu_torch.utils.fastread import FastReadClient, FastReadError, read_fid_fast
+
+        fast: dict = {}  # fid -> body
+        vids3, total = set(), 0
+        for _, _, body in needle_stream(np.random.default_rng(SEED + 19)):
+            if total >= HA_FAST_BYTES:
+                break
+            a = assign(f"collection={HA_FAST_COLLECTION}")
+            code, _, answer = http(f"http://{a['url']}/{a['fid']}", "POST", body,
+                                   {"Content-Type": UPLOAD_MIME})
+            if code != 201:
+                raise AssertionError(f"17j: POST answered {code} {answer[:200]!r}")
+            vids3.add(FileId.parse(a["fid"]).volume_id)
+            fast[a["fid"]] = body
+            total += len(body)
+        if len(vids3) != 1:
+            raise AssertionError(f"17j: the assigns spread over volumes {sorted(vids3)}")
+        (vid3,) = vids3
+        (h3,) = lookup(vid3)
+        locs, etags = {}, {}
+        for fid, body in fast.items():
+            code, _, answer = http(f"http://{url[h3]}/{fid}?locate=true")
+            if code != 200:
+                raise AssertionError(f"17j: ?locate=true of {fid} at {h3} answered {code}")
+            locs[fid] = json.loads(answer)
+            code, hdrs, got = http(f"http://{url[h3]}/{fid}")
+            if code != 200 or got != body:
+                raise AssertionError(f"17j: GET of {fid} at {h3} answered {code}")
+            etags[fid] = int(hdrs["ETag"].strip('"'), 16)
+        sock = os.path.join(root, h3, ".fastread.sock")
+        if {loc["socket"] for loc in locs.values()} != {sock} or not os.path.exists(sock):
+            raise AssertionError(f"17j: ?locate named sockets {set(l['socket'] for l in locs.values())}, "
+                                 f"not the live {sock}")
+        t0 = time.perf_counter()
+        for fid, body in fast.items():
+            if read_fid_fast(locs[fid]) != body or not (
+                    locs[fid]["crc32c"] == etags[fid] == crc32c(body)):
+                raise AssertionError(f"17j: the sidecar's bytes or CRC of {fid} differ from the GET's")
+        side_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for fid, body in fast.items():
+            if http(f"http://{url[h3]}/{fid}")[2] != body:
+                raise AssertionError(f"17j: GET of {fid} at {h3} changed")
+        http_s = time.perf_counter() - t0
+        # the client's read order: the net plane first, so it is switched off
+        # for these reads; then the sidecar, then HTTP
+        ops = operations.Operations(master=lead)
+        os.environ["SEAWEED_CHUNK_NET_PLANE"] = "0"
+        try:
+            served0 = operations.FAST_READS["sidecar"]
+            picks3 = list(fast)[:8]
+            for fid in picks3:
+                if ops.read(fid) != fast[fid]:
+                    raise AssertionError(f"17j: Operations.read of {fid} gave other bytes")
+            served = operations.FAST_READS["sidecar"] - served0
+        finally:
+            del os.environ["SEAWEED_CHUNK_NET_PLANE"]
+            ops.close()
+        if served != len(picks3):
+            raise AssertionError(f"17j: the sidecar served {served} of {len(picks3)} same-host reads")
+        c = FastReadClient(sock)
+        try:
+            c.read(os.path.abspath(__file__), 0, 16)
+            raise AssertionError("17j: the sidecar served a path outside its root")
+        except FastReadError as e:
+            if "outside" not in str(e):
+                raise
+        finally:
+            c.close()
+        # the offline tools' scratch copy: the volume unmounted (its files
+        # closed) and copied
+        with grpc.insecure_channel(gaddr[h3]) as ch:
+            rpc.volume_stub(ch).VolumeUnmount(pb.VolumeCommandRequest(volume_id=vid3), timeout=30)
+        tools_dir = os.path.join(work, "tools")
+        os.makedirs(tools_dir)
+        for ext in (".dat", ".idx"):
+            shutil.copy(os.path.join(root, h3, f"{HA_FAST_COLLECTION}_{vid3}{ext}"), tools_dir)
+        fast_bytes = sum(len(b) for b in fast.values())
+        steps["17j sidecar"] = {
+            "volume": vid3, "holder": h3, "needles": len(fast), "bytes": fast_bytes,
+            "sidecar_seconds": side_s, "sidecar_mb_per_s": fast_bytes / side_s / 1e6,
+            "http_seconds": http_s, "http_mb_per_s": fast_bytes / http_s / 1e6,
+            "operations_reads_by_sidecar": served, "refused_outside_root": True}
+        tools_src = (tools_dir, vid3, {FileId.parse(f).needle_id: b for f, b in fast.items()})
+        del fast
+
+        t0 = time.perf_counter()
+        prof = {}
+        places = {"leader": lead, h3: url[h3]}
+        with ThreadPoolExecutor(4) as ex:  # the two 1 s profiles at once
+            answers = {(who, path): ex.submit(http, f"http://{where}/debug/pprof{path}")
+                       for who, where in places.items() for path in ("", "/profile?seconds=1")}
+            for who in places:
+                code, _, stacks = answers[who, ""].result()
+                code2, _, sampled = answers[who, "/profile?seconds=1"].result()
+                if code != 200 or b"thread MainThread" not in stacks or code2 != 200:
+                    raise AssertionError(f"17j: /debug/pprof at {who} answered {code} / {code2}")
+                prof[who] = {"stack_bytes": len(stacks),
+                             "profile_stacks": len(sampled.splitlines())}
+        steps["17j pprof"] = {**prof, "seconds": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        pics = seeded_images(np.random.default_rng(SEED + 190))
+        img_fids = {}
+        for fmt, (body, mime) in pics.items():
+            a = assign(f"collection={HA_IMG_COLLECTION}")
+            code, _, answer = http(f"http://{a['url']}/{a['fid']}", "POST", body, {"Content-Type": mime})
+            if code != 201:
+                raise AssertionError(f"17j: POST of the {fmt} answered {code} {answer[:200]!r}")
+            img_fids[fmt] = a["fid"]
+        (vid4,) = {FileId.parse(f).volume_id for f in img_fids.values()}
+        (h4,) = lookup(vid4)
+        dat4 = os.path.getsize(os.path.join(root, h4, f"{HA_IMG_COLLECTION}_{vid4}.dat"))
+        n_batches4 = len(list(batch_plan(dat4, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+        if dat4 > SMALL_BLOCK_SIZE:
+            raise AssertionError(f"17j: the images' .dat is {dat4} bytes, past data shard 0")
+        before = {n: kernels(n)["launches"] for n in up}
+        out = shell.run(f"ec.encode -volumeId {vid4} -collection {HA_IMG_COLLECTION}")
+        if not re.fullmatch(rf"ec\.encode volume {vid4}: generation \d+ on {re.escape(url[h4])}", out):
+            raise AssertionError(f"17j: ec.encode answered {out!r}")
+        wait_until(lambda: spread(vid4) == dict.fromkeys(range(ctx.total), h4),
+                   "the thumbnails' 14 shards listed at the holder", phase="17j")
+        enc4 = launched(before)
+        if enc4 != {"gf2_apply": n_batches4, "gf2_apply_planes": 0}:
+            raise AssertionError(f"17j: ec.encode of the images launched {enc4} for {n_batches4} batches")
+        # every image lies in the .dat's first MiB: data shard 0 holds it
+        with grpc.insecure_channel(gaddr[h4]) as ch:
+            rpc.volume_stub(ch).VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=vid4, shard_ids=[0]), timeout=30)
+        wait_until(lambda: alive() or 0 not in ec_holders(lead, vid4),
+                   "shard 0 of the thumbnails leaving the leader's listing", phase="17j")
+        before = {n: kernels(n)["launches"] for n in up}
+        loads0 = kernels(h4)["interval_cache"]["loads"]
+        thumbs = {}
+        for fmt, fid in img_fids.items():
+            body, mime = pics[fmt]
+            crc = crc32c(body)
+            for w, hgt, mode in THUMBS:
+                q = f"?width={w}" + (f"&height={hgt}&mode={mode}" if mode else "")
+                code, hdrs, got = http(f"http://{url[h4]}/{fid}{q}")
+                want, _, _ = images.resized(body, w, hgt, mode)
+                resized = want is not body
+                fmt_out = images.detect_format(want) if resized else None
+                etag = f'"{crc:08x}-{w}x{hgt}{mode}"' if resized else f'"{crc:08x}"'
+                ctype = f"image/{fmt_out.lower()}" if fmt_out else mime
+                if code != 200 or got != want or hdrs["ETag"] != etag or hdrs["Content-Type"] != ctype:
+                    raise AssertionError(f"17j: {fid}{q} at {h4} answered {code} {hdrs['ETag']} "
+                                         f"{hdrs['Content-Type']}, not images.resized's {etag} {ctype}")
+                thumbs[f"{fmt} {q}"] = {"bytes": len(got), "resized": resized}
+        got4 = launched(before)
+        recon4 = kernels(h4)["interval_cache"]["loads"] - loads0
+        if got4["gf2_apply_planes"] != recon4 or recon4 < 1 or got4["gf2_apply"]:
+            raise AssertionError(f"17j: the thumbnails launched {got4} for {recon4} reconstructions")
+        launches_j = {"gf2_apply": enc4["gf2_apply"], "gf2_apply_planes": recon4}
+        steps["17j thumbnails"] = {"volume": vid4, "holder": h4, "pil": images_have_pil(),
+                                   "encode_launches": enc4, "reconstructions": recon4,
+                                   "thumbnails": thumbs, "seconds": time.perf_counter() - t0}
+
+        # the collector: each master sends its first report TELEMETRY_FIRST_S
+        # after it starts, and only where it leads then (the interval after is
+        # a day), so one report, the leader's, unless 17e's failover straddled
+        # the masters' first reports
+        t0 = time.perf_counter()
+        settle = TELEMETRY_FIRST_S + 10.0 - (time.perf_counter() - t_spawn)
+        if settle > 0:
+            time.sleep(settle)
+        stats = json.loads(http(f"http://127.0.0.1:{tport}/api/stats")[2])
+        _, _, prom = http(f"http://127.0.0.1:{tport}/metrics")
+        reporters = {ln.split('"')[1] for ln in prom.decode().splitlines()
+                     if ln.startswith("seaweed_telemetry_server_count{")}
+        straddled = abs(killed_at - TELEMETRY_FIRST_S) < 8.0
+        if (stats["clusters"] != 1 and not straddled) or stats["clusters"] > 2 or \
+                len(reporters) != stats["clusters"]:
+            raise AssertionError(f"17j: the collector holds {stats['clusters']} reports from "
+                                 f"{sorted(reporters)}; the leader was killed {killed_at:.1f} s "
+                                 "after the masters started")
+        steps["17j telemetry"] = {"clusters": stats["clusters"], "leader_killed_at_s": killed_at,
+                                  "total_server_count": stats["total_server_count"],
+                                  "failover_straddled_first_report": straddled,
+                                  "wait_seconds": time.perf_counter() - t0}
+        steps["17j"] = {"seconds": time.perf_counter() - t17j}
         failed = False
     finally:
         if fenv is not None:
@@ -5446,8 +5680,346 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
         raise AssertionError(f"17: children did not stop cleanly: {stuck}")
     shutil.rmtree(root)
     result = {"steps": steps, "launches": launches, "launches_17g": launches_g,
-              "launches_17h_17i": launches_hi, "card": card_line()}
-    return result, launches, launches_g, launches_hi
+              "launches_17h_17i": launches_hi, "launches_17j": launches_j, "card": card_line()}
+    return result, launches, launches_g, launches_hi, launches_j, tools_src
+
+
+def images_have_pil() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("PIL") is not None
+
+
+def seeded_images(rng) -> dict:
+    """17j's seeded PNG and JPEG, {format: (bytes, mime)}, each of 200x160
+    random pixels (PIL). Where the host has no PIL, seeded bodies behind
+    each format's magic bytes: no decoder opens them, so the server serves
+    them whole, as the reference does."""
+    pixels = rng.integers(0, 256, (160, 200, 3), dtype=np.uint8)
+    out = {}
+    for fmt in ("PNG", "JPEG"):
+        if images_have_pil():
+            import io
+
+            from PIL import Image
+
+            buf = io.BytesIO()
+            Image.fromarray(pixels, "RGB").save(buf, fmt)
+            body = buf.getvalue()
+        else:
+            body = {"PNG": b"\x89PNG", "JPEG": b"\xff\xd8\xff"}[fmt] + pixels.tobytes()
+        out[fmt] = (body, f"image/{fmt.lower()}")
+    return out
+
+
+TOOLS_DELETES = 5  # needles deleted in the scratch copy before `tools compact`
+
+
+def tools_phase(src) -> dict:
+    """The offline tools, each a child started by name (`python3 -m
+    seaweedfs_tpu_torch.tools`), on 17j's scratch copy of its plain volume
+    (`src`: the directory, the volume id and {needle id: body}): `fix`
+    rebuilds an .idx byte-identical to the server's (the volume has no
+    deletes, its ids ascend), `scan` lists every record with a good CRC,
+    `export` writes a tar whose members are the needles, `python3 -m
+    seaweedfs_tpu_torch.server scaffold -config security -output D` writes
+    a TOML that the port's config loader reads (these four at once), and
+    after TOOLS_DELETES deletes `compact` reclaims them and leaves a volume
+    the port's `Volume` reads needle for needle."""
+    import tarfile
+
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    from seaweedfs_tpu_torch.utils import config
+
+    d, vid, bodies = src
+    base = os.path.join(d, f"{HA_FAST_COLLECTION}_{vid}")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    secs = {}
+
+    def by_name(module: str, *args) -> str:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", module, *args], env=env, capture_output=True,
+                           text=True, timeout=120)
+        secs[args[0]] = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"tools: {module} {args[0]} exited {p.returncode}: "
+                                 f"{p.stderr[-2000:]}")
+        return p.stdout
+
+    def tool(cmd: str, *args) -> str:
+        return by_name("seaweedfs_tpu_torch.tools", cmd, "-dir", d, "-volumeId", str(vid),
+                       "-collection", HA_FAST_COLLECTION, *args)
+
+    with open(base + ".idx", "rb") as f:
+        original = f.read()
+    os.unlink(base + ".idx")
+    tar = os.path.join(d, "export.tar")
+    cfg_dir = os.path.join(d, "scaffold")
+    os.makedirs(cfg_dir)
+    # fix writes the .idx, scan and export read the .dat only: all at once
+    with ThreadPoolExecutor(4) as ex:
+        runs = [ex.submit(tool, "fix"), ex.submit(tool, "scan"), ex.submit(tool, "export", "-o", tar),
+                ex.submit(by_name, "seaweedfs_tpu_torch.server", "scaffold", "-config", "security",
+                          "-output", cfg_dir)]
+        out, scanned, exported, scaffolded = (r.result() for r in runs)
+    with open(base + ".idx", "rb") as f:
+        rebuilt = f.read()
+    if rebuilt != original or out != (f"rebuilt {base}.idx from {len(bodies)} records "
+                                      f"({len(bodies)} live entries)\n"):
+        raise AssertionError(f"tools: fix answered {out!r}; the .idx is "
+                             f"{'the same' if rebuilt == original else 'different'}")
+    lines = scanned.splitlines()
+    puts = [ln for ln in lines[1:] if ln.startswith("PUT ") and not ln.endswith("CRC-BAD")]
+    if not lines[0].startswith("superblock: version=3") or len(puts) != len(lines) - 1 != len(bodies):
+        raise AssertionError(f"tools: scan listed {len(lines) - 1} records, {len(puts)} good "
+                             f"puts, for {len(bodies)} needles")
+    out = exported
+    with tarfile.open(tar) as t:
+        members = {m.name: t.extractfile(m).read() for m in t.getmembers()}
+    os.unlink(tar)
+    if out != f"exported {len(bodies)} files -> {tar}\n" or members != {
+            f"{nid:x}": body for nid, body in bodies.items()}:
+        raise AssertionError(f"tools: export answered {out!r}; its members are not the needles")
+    gone = sorted(bodies)[:: max(len(bodies) // TOOLS_DELETES, 1)][:TOOLS_DELETES]
+    v = Volume(d, vid, collection=HA_FAST_COLLECTION, create=False)
+    for nid in gone:
+        v.delete_needle(nid)
+    v.close()
+    size = os.path.getsize(base + ".dat")
+    out = tool("compact")
+    m = re.fullmatch(rf"compacted volume {vid}: reclaimed (\d+) bytes\n", out)
+    v = Volume(d, vid, collection=HA_FAST_COLLECTION, create=False)
+    try:
+        kept = [nid for nid in bodies if nid not in gone]
+        if m is None or int(m[1]) < sum(len(bodies[n]) for n in gone) or any(
+                v.has_needle(nid) for nid in gone) or any(
+                v.read_needle(nid).data != bodies[nid] for nid in kept):
+            raise AssertionError(f"tools: compact answered {out!r}; the volume does not read back")
+    finally:
+        v.close()
+    out = scaffolded
+    cfg = config.load_config("security", [cfg_dir])
+    if out != os.path.join(cfg_dir, "security.toml") + "\n" or cfg.get(
+            "jwt.signing.expires_after_seconds") != 10 or cfg.get_str("https.default.cert") != "":
+        raise AssertionError(f"tools: scaffold answered {out!r}; the loader read {cfg.data}")
+    return {"needles": len(bodies), "dat_bytes": size, "deleted": len(gone),
+            "compacted_bytes": os.path.getsize(base + ".dat"), "seconds": secs,
+            "idx_byte_identical": True}
+
+
+TLS_BYTES = 16 << 20  # phase 18: needles written over https (bodies of SEED + 23)
+TLS_LOST = 0  # phase 18: the data shard unmounted before the degraded GETs
+
+
+def tls_certs(d: str) -> tuple[str, str, str, str]:
+    """(cert, key, ca, minted by) under `d`: the port's generate_self_signed
+    where `cryptography` imports, else `openssl req` and `openssl x509`."""
+    try:
+        from seaweedfs_tpu_torch.utils.tls import generate_self_signed
+
+        c = generate_self_signed(d)
+        return c.cert_file, c.key_file, c.ca_file, "generate_self_signed"
+    except ImportError:
+        pass
+    os.makedirs(d, exist_ok=True)
+    p = {n: os.path.join(d, n) for n in ("ca.crt", "ca.key", "server.crt", "server.key",
+                                          "server.csr", "san.cnf")}
+    with open(p["san.cnf"], "w") as f:
+        f.write("subjectAltName=DNS:localhost,IP:127.0.0.1\n")
+    ec = ["-newkey", "ec", "-pkeyopt", "ec_paramgen_curve:prime256v1", "-nodes"]
+    for cmd in (
+        ["req", "-x509", *ec, "-keyout", p["ca.key"], "-out", p["ca.crt"], "-days", "1",
+         "-subj", "/CN=seaweedfs-tpu smoke CA"],
+        ["req", *ec, "-keyout", p["server.key"], "-out", p["server.csr"], "-subj", "/CN=localhost"],
+        ["x509", "-req", "-in", p["server.csr"], "-CA", p["ca.crt"], "-CAkey", p["ca.key"],
+         "-CAcreateserial", "-out", p["server.crt"], "-days", "1", "-extfile", p["san.cnf"]],
+    ):
+        subprocess.run(["openssl", *cmd], check=True, capture_output=True, timeout=60)
+    return p["server.crt"], p["server.key"], p["ca.crt"], "openssl"
+
+
+class TlsChild:
+    """Phase 18's `python3 -m seaweedfs_tpu_torch.server server -tls.cert
+    -tls.key -tls.ca` child (mutual TLS), started ahead of the phase so
+    that its imports overlap the tools check; `stop` sends SIGTERM and
+    returns its exit code (None where it was killed)."""
+
+    def __init__(self, work: str):
+        self.t0 = time.perf_counter()
+        self.root = os.path.join(work, "tls")
+        os.makedirs(os.path.join(self.root, "d"))
+        self.cert, self.key, self.ca, self.minted = tls_certs(os.path.join(self.root, "certs"))
+        self.mport, self.vport = server_port(), server_port()
+        self.log = open(os.path.join(self.root, "server.log"), "wb")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.server", "server", "-ip", "127.0.0.1",
+             "-masterPort", str(self.mport), "-port", str(self.vport), "-dir",
+             os.path.join(self.root, "d"), "-tls.cert", self.cert, "-tls.key", self.key,
+             "-tls.ca", self.ca],
+            cwd=self.root, env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def stop(self) -> int | None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=CHILD_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=CHILD_STOP_S)
+            rc = None
+        self.log.close()
+        return rc
+
+
+def tls_phase(child: TlsChild, ctx) -> tuple[dict, dict]:
+    """Phase 18: a TLS cluster. The `TlsChild` (mutual TLS) and this
+    process switched to https with `enable_https(ca, cert, key)`: TLS_BYTES of
+    seeded needles assigned and POSTed over https, the port shell's
+    `ec.encode` (`gf2_apply` launches at the child == batches), data shard
+    TLS_LOST unmounted and degraded GETs of every needle over it, over
+    https, byte-exact (`gf2_apply_planes` launches == its interval-cache
+    loads); a client without a certificate and a plaintext client are both
+    refused. The scheme goes back to http in `finally`; the caller stops
+    the child. Returns (result, launches)."""
+    import ssl
+
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.types import NeedleValue, actual_offset
+    from seaweedfs_tpu_torch.utils import urls
+
+    t_phase = time.perf_counter()
+    root, proc, mport, vport, ca = child.root, child.proc, child.mport, child.vport, child.ca
+    murl, vurl = f"https://127.0.0.1:{mport}", f"https://127.0.0.1:{vport}"
+    urls.enable_https(ca, cert_file=child.cert, key_file=child.key)
+    senv = None
+    steps: dict = {"minted_by": child.minted}
+
+    def kernels() -> dict:
+        code, _, body = http(f"{vurl}/debug/kernels")
+        if code != 200:
+            raise AssertionError(f"18: /debug/kernels answered {code}")
+        return json.loads(body)
+
+    def up(u: str) -> bool:
+        if proc.poll() is not None:
+            raise AssertionError(f"18: the TLS server exited with {proc.returncode}: " + open(
+                os.path.join(root, "server.log"), "rb").read()[-2000:].decode(errors="replace"))
+        try:
+            with urls.urlopen(u, timeout=5) as r:
+                return r.status == 200 and bool(json.loads(r.read()).get("DataNodes", [1]))
+        except OSError:
+            return False
+
+    try:
+        t0 = time.perf_counter()
+        wait_until(lambda: up(f"{murl}/dir/status") and up(f"{vurl}/status"),
+                   "the TLS server answering over https with its volume server registered",
+                   timeout=120, phase="18")
+        steps["start_s"] = time.perf_counter() - child.t0
+        steps["start_wait_s"] = time.perf_counter() - t0
+        # 1. needles over https
+        written, vids, total = {}, set(), 0
+        t0 = time.perf_counter()
+        for _, _, body in needle_stream(np.random.default_rng(SEED + 23)):
+            if total >= TLS_BYTES:
+                break
+            code, _, answer = http(f"{murl}/dir/assign?collection=tls")
+            if code != 200:
+                raise AssertionError(f"18: /dir/assign answered {code} {answer[:200]!r}")
+            a = json.loads(answer)
+            if a["url"] != f"127.0.0.1:{vport}":
+                raise AssertionError(f"18: /dir/assign named {a['url']}")
+            code, _, answer = http(f"{vurl}/{a['fid']}", "POST", body, {"Content-Type": UPLOAD_MIME})
+            if code != 201:
+                raise AssertionError(f"18: POST over https answered {code} {answer[:200]!r}")
+            vids.add(FileId.parse(a["fid"]).volume_id)
+            written[a["fid"]] = body
+            total += len(body)
+        write_s = time.perf_counter() - t0
+        (vid,) = vids
+        base = os.path.join(root, "d", f"tls_{vid}")
+        dat_size = os.path.getsize(base + ".dat")
+        n_batches = len(list(batch_plan(dat_size, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE,
+                                        SMALL_BLOCK_SIZE)))
+        # 2. the port shell's ec.encode
+        before = kernels()["launches"]
+        senv = ShellEnv(f"127.0.0.1:{mport}")
+        t0 = time.perf_counter()
+        out = run_command(senv, f"ec.encode -volumeId {vid} -collection tls")
+        enc_s = time.perf_counter() - t0
+        if not re.fullmatch(rf"ec\.encode volume {vid}: generation \d+ on 127\.0\.0\.1:{vport}", out):
+            raise AssertionError(f"18: ec.encode answered {out!r}")
+        now = kernels()["launches"]
+        enc = {k: now[k] - before[k] for k in now}
+        if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
+            raise AssertionError(f"18: ec.encode launched {enc} for {n_batches} batches")
+        # 3. degraded GETs over https with data shard TLS_LOST unmounted
+        with grpc.insecure_channel(f"127.0.0.1:{vport + 10000}") as ch:
+            rpc.volume_stub(ch).VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[TLS_LOST]), timeout=30)
+
+        def listed() -> set:
+            with grpc.insecure_channel(f"127.0.0.1:{mport + 10000}") as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    pb.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+            return {sl.shard_id for sl in resp.shard_locations}
+
+        wait_until(lambda: TLS_LOST not in listed(), f"shard {TLS_LOST} leaving the master's listing",
+                   phase="18")
+        with open(base + ".ecx", "rb") as f:
+            ecx = f.read()
+        offsets = {}
+        for i in range(0, len(ecx), 16):
+            nv = NeedleValue.from_bytes(ecx[i : i + 16])
+            offsets[nv.needle_id] = (actual_offset(nv.offset), nv.size)
+        over = [fid for fid in written if any(
+            sid == TLS_LOST for sid, _, _ in record_intervals(*offsets[FileId.parse(fid).needle_id],
+                                                              dat_size))]
+        before = kernels()
+        t0 = time.perf_counter()
+        for fid in over:
+            code, _, got = http(f"{vurl}/{fid}")
+            if code != 200 or got != written[fid]:
+                raise AssertionError(f"18: degraded GET of {fid} over https answered {code}, "
+                                     "not the written bytes")
+        get_s = time.perf_counter() - t0
+        after = kernels()
+        reads = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+        recon = after["interval_cache"]["loads"] - before["interval_cache"]["loads"]
+        if reads["gf2_apply_planes"] != recon or recon < 1 or reads["gf2_apply"]:
+            raise AssertionError(f"18: the degraded GETs launched {reads} for {recon} reconstructions")
+        # 4. no certificate, no plaintext
+        bare = ssl.create_default_context(cafile=ca)
+        refused = {}
+        for what, u, kw in (("no client certificate", f"{vurl}/status", {"context": bare}),
+                            ("plaintext", f"http://127.0.0.1:{vport}/status", {})):
+            try:
+                with urllib.request.urlopen(u, timeout=10, **kw) as r:
+                    raise AssertionError(f"18: a client with {what} got {r.status}")
+            except OSError as e:
+                refused[what] = type(e).__name__
+        nbytes = sum(len(b) for b in written.values())
+        steps.update({
+            "needles": len(written), "bytes": nbytes, "volume": vid, "write_seconds": write_s,
+            "write_mb_per_s": nbytes / write_s / 1e6, "encode_seconds": enc_s,
+            "encode_launches": n_batches, "degraded_gets": len(over), "get_seconds": get_s,
+            "get_mb_per_s": sum(len(written[f]) for f in over) / get_s / 1e6,
+            "reconstructions": recon, "refused": refused})
+    finally:
+        urls.disable_https()
+        if senv is not None:
+            senv.close()
+    steps["seconds"] = time.perf_counter() - t_phase
+    return {"steps": steps, "card": card_line()}, {"gf2_apply": n_batches,
+                                                    "gf2_apply_planes": recon}
 
 
 def main() -> int:
@@ -5468,6 +6040,7 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     build()
+    print("host packages: " + json.dumps(host_packages()))
 
     # -- 2, 2b. both entry points vs plain version vs oracle, and timings ------
     rng = np.random.default_rng(SEED)
@@ -5712,7 +6285,8 @@ def main() -> int:
 
         # -- 17. a cluster of the port alone, every process started by name ------------
         t0 = time.perf_counter()
-        ha, ha_launches, shell_launches, fleet_launches = ha_phase(work, ctx, vol_rng_state)
+        ha, ha_launches, shell_launches, fleet_launches, last_launches, tools_src = ha_phase(
+            work, ctx, vol_rng_state)
         print("cluster of the port by name (three masters as one raft group, four volume servers "
               "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
               "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
@@ -5729,6 +6303,38 @@ def main() -> int:
               f"{json.dumps(ha)}")
         print(f"phase 17: {time.perf_counter() - t0:.3f} s; loopback connects "
               f"dialled again: {CONNECT_RETRIES[0]}")
+        print("17j the servers' last parts (?locate names the holder's live sidecar socket, "
+              "read_fid_fast gives the GET's bytes and CRC, Operations.read served by the "
+              "sidecar, a path outside its root refused; /debug/pprof stacks and a 1 s profile "
+              "at the leader and a holder; thumbnails of a seeded PNG and JPEG over a degraded "
+              "read equal images.resized with its ETag and type, planes launches == "
+              "reconstructions; the telemetry collector holds the leader's report): " + json.dumps(
+                  {k: v for k, v in ha["steps"].items() if k.startswith("17j")}) + f"; card: "
+              f"{card_line()}")
+
+        # -- the offline tools on 17j's scratch copy, while phase 18's TLS server
+        # child starts --------------------------------------------------------------
+        t0 = time.perf_counter()
+        tls_child = TlsChild(work)
+        try:
+            tools = tools_phase(tools_src)
+            print("offline tools by name (fix: .idx byte-identical; scan: every record; export: "
+                  "the needles; scaffold: a TOML the loader reads; compact: the deletes "
+                  f"reclaimed, every needle read back): {json.dumps(tools)}")
+            print(f"tools: {time.perf_counter() - t0:.3f} s; card: {card_line()}")
+
+            # -- 18. a TLS cluster --------------------------------------------------
+            t0 = time.perf_counter()
+            tls, tls_launches = tls_phase(tls_child, ctx)
+        finally:
+            rc = tls_child.stop()
+        if rc != 0:
+            raise AssertionError(f"18: the TLS server did not stop cleanly ({rc})")
+        print("TLS cluster (a server child with -tls.cert/-tls.key/-tls.ca, this process on "
+              "https with a client certificate: needles POSTed over https, the shell's ec.encode "
+              "launches == batches, degraded GETs over https byte-exact with planes launches == "
+              "reconstructions, a certless and a plaintext client refused): " + json.dumps(tls))
+        print(f"phase 18: {time.perf_counter() - t0:.3f} s; card: {card_line()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5745,7 +6351,8 @@ def main() -> int:
           "15 cluster": cluster_launches["gf2_apply"], "16 admin": admin_launches["gf2_apply"],
           "17 cluster by name": ha_launches["gf2_apply"],
           "17g shell": shell_launches["gf2_apply"],
-          "17h-17i worker fleet": fleet_launches["gf2_apply"]},
+          "17h-17i worker fleet": fleet_launches["gf2_apply"],
+          "17j thumbnails": last_launches["gf2_apply"], "18 tls": tls_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -5757,7 +6364,9 @@ def main() -> int:
           "16 admin": admin_launches["gf2_apply_planes"],
           "17 cluster by name": ha_launches["gf2_apply_planes"],
           "17g shell": shell_launches["gf2_apply_planes"],
-          "17h-17i worker fleet": fleet_launches["gf2_apply_planes"]},
+          "17h-17i worker fleet": fleet_launches["gf2_apply_planes"],
+          "17j thumbnails": last_launches["gf2_apply_planes"],
+          "18 tls": tls_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

@@ -13,29 +13,39 @@ lands the same needle record. The upload's retry policy retries what
 `requests.RequestException` stands for here: transport failures
 (`OSError`, `http.client.HTTPException`) and 5xx answers
 (`HTTPStatusError`, an OSError, as `requests.HTTPError` is). A 4xx
-answer stays permanent.
+answer stays permanent. An https URL takes the process's client
+context (`utils/urls.py`).
 
-Left out until the fastread sidecar (`utils/fastread.py`) is ported:
-`_try_fast_read` answers None at once, so a read goes to the net plane
-and then to HTTP, as the JAX one does where the server names no socket.
-The bytes are the same.
+A read tries the shard net plane, then the same-host fastread sidecar
+(`?locate=true`, then `utils/fastread.read_fid_fast`), then HTTP, in the
+JAX order. `FAST_READS` counts the reads the sidecar served.
 """
 
 from __future__ import annotations
 
 import http.client
+import json
 import os
+import socket
 import time
 import uuid
+from collections import Counter
 from urllib.parse import urlsplit
 
 from .. import faults
 from ..ec import native_io
 from ..ec import net_plane as _netp
 from ..storage.file_id import FileId
+from ..utils import urls
+from ..utils.fastread import FastReadError, read_fid_fast
 from ..utils.retry import RetryError, RetryPolicy, retry_call
 from ..utils.urls import service_url
 from .master_client import MasterClient
+
+
+# Reads served by the same-host fastread sidecar ("sidecar"), counted
+# where `_try_fast_read` returns its bytes.
+FAST_READS: Counter = Counter()
 
 
 class HTTPStatusError(OSError):
@@ -68,7 +78,7 @@ def _http(method: str, url: str, body: bytes | None = None, headers: dict | None
     request_id.inject(h)
     trace.http_headers(headers=h)
     parts = urlsplit(url)
-    conn = http.client.HTTPConnection(parts.hostname, parts.port or 80, timeout=timeout)
+    conn = urls.connection(url, timeout)
     try:
         path = parts.path or "/"
         if parts.query:
@@ -274,12 +284,51 @@ class Operations:
                 self._plane_refused[f.volume_id] = time.monotonic()
             return False
 
+    _LOCAL_HOSTS = None  # lazily-computed set of this machine's names
+
+    @classmethod
+    def _is_local(cls, url: str) -> bool:
+        """Cheap locality check BEFORE paying a ?locate round trip:
+        remote reads must not eat an extra RTT per chunk."""
+        host = url.split("//")[-1].split(":")[0]
+        if cls._LOCAL_HOSTS is None:
+            names = {"localhost", "127.0.0.1", "::1"}
+            try:
+                hn = socket.gethostname()
+                names.add(hn)
+                names.update(socket.gethostbyname_ex(hn)[2])
+            except OSError:
+                pass
+            cls._LOCAL_HOSTS = names
+        return host in cls._LOCAL_HOSTS
+
     def _try_fast_read(self, url: str, fid: str) -> bytes | None:
-        """The same-host bulk-read bypass (the fastread sidecar) comes
-        with `utils/fastread.py`; until then no server is asked for a
-        `?locate` (port servers answer it with 404), and the read goes
-        to HTTP."""
-        return None
+        """Same-host bulk-read bypass (the RDMA sidecar analog): resolve
+        the payload location over HTTP, then pull the bytes through the
+        native Unix-socket sendfile server, CRC-verified. None = fall
+        back to HTTP (remote host, no sidecar, EC volume, ...)."""
+        if not self._is_local(url):
+            return None
+        if url in getattr(self, "_no_sidecar", set()):
+            return None
+        try:
+            status, body = _http("GET", service_url(url, f"/{fid}?locate=true"), timeout=10)
+            if status != 200:
+                return None
+            loc = json.loads(body)
+            sock = loc.get("socket", "")
+            if not sock or not os.path.exists(sock):
+                # negative-cache: this server has no reachable sidecar,
+                # stop probing on every read
+                self.__dict__.setdefault("_no_sidecar", set()).add(url)
+                return None
+            data = read_fid_fast(loc)
+        except (OSError, ValueError, KeyError, http.client.HTTPException, FastReadError):
+            # a transport failure, a stale locate (CRC mismatch): HTTP;
+            # a host library that fails to build or load raises
+            return None
+        FAST_READS["sidecar"] += 1
+        return data
 
     def delete(self, fid: str) -> None:
         f = FileId.parse(fid)

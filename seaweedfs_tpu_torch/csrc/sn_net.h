@@ -5,8 +5,8 @@
 // releases the GIL for the whole call: Python-side socket handling holds
 // the GIL per chunk, this does not.
 //
-// The port's copy of the JAX package's helpers of the same name, trimmed
-// to what the shard-read opcode calls (read_full is left out).
+// The port's copy of the JAX package's helpers of the same name: what the
+// shard-read opcode and the fastread sidecar (fastread.cpp) call.
 //
 // Timeout convention: `timeout_ms` < 0 blocks forever; >= 0 bounds each
 // individual poll() wait on a non-blocking fd (Python's settimeout puts
@@ -61,6 +61,27 @@ inline int write_full(int fd, const uint8_t* p, size_t len, int timeout_ms) {
         len -= (size_t)w;
     }
     return 0;
+}
+
+// read(2) exactly `len` bytes unless EOF first. Returns bytes read (short
+// only at EOF) or negative errno.
+inline int64_t read_full(int fd, uint8_t* p, size_t len, int timeout_ms) {
+    size_t got = 0;
+    while (got < len) {
+        ssize_t r = read(fd, p + got, len - got);
+        if (r < 0) {
+            if (errno == EINTR) continue;
+            if (errno == EAGAIN || errno == EWOULDBLOCK) {
+                int rc = wait_fd(fd, POLLIN, timeout_ms);
+                if (rc != 0) return rc;
+                continue;
+            }
+            return -(int64_t)errno;
+        }
+        if (r == 0) break;
+        got += (size_t)r;
+    }
+    return (int64_t)got;
 }
 
 // sendfile(2) `len` bytes of in_fd@offset to out_fd; transparently

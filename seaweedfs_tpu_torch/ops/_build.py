@@ -1,6 +1,6 @@
 """Build the port's native sources at first use and load them with ctypes.
 
-Two sources live in seaweedfs_tpu_torch/csrc/:
+Three sources live in seaweedfs_tpu_torch/csrc/:
 
 - gf2_apply.cu: the CUDA kernels behind its two entry points (nvcc,
   `-gencode arch=compute_90a,code=sm_90a`), a plain C interface with no
@@ -9,7 +9,10 @@ Two sources live in seaweedfs_tpu_torch/csrc/:
   plane (CRC32C, batched positioned reads with an inline CRC, the
   stateful shard sink), the network byte plane's socket calls (with
   the helpers of csrc/sn_net.h) and the GF(2^8) apply of the native CPU
-  backend (utils/native.py binds it).
+  backend (utils/native.py binds it);
+- fastread.cpp: the volume server's bulk-read sidecar (g++, `-pthread`),
+  a Unix-socket sendfile server over csrc/sn_net.h (utils/fastread.py
+  binds it).
 
 Each library is built into seaweedfs_tpu_torch/build/ (listed in
 .gitignore) under a name that carries a hash of its source, the headers
@@ -42,7 +45,8 @@ NVCC_FLAGS = [
 ]
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread"]
 
-_SOURCES = {"gf2_apply": "gf2_apply.cu", "seaweed_native": "seaweed_native.cpp"}
+_SOURCES = {"gf2_apply": "gf2_apply.cu", "seaweed_native": "seaweed_native.cpp",
+            "fastread": "fastread.cpp"}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -173,6 +177,10 @@ _SIGNATURES = {
         # path, ids, offsets, sizes, crc_ok, max_entries
         "sn_scan_dat": (_c.c_int64, [_c.c_char_p, _P, _P, _P, _P, _c.c_int64]),
     },
+    "fastread": {
+        # socket_path, root_dir
+        "sn_fastread_serve": (_c.c_int, [_c.c_char_p, _c.c_char_p]),
+    },
 }
 
 
@@ -184,7 +192,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library `name` ("gf2_apply" or "seaweed_native"),
+    """The built library `name` ("gf2_apply", "seaweed_native" or "fastread"),
     building it on first use. A failed build or load raises."""
     lib = _loaded.get(name)
     if lib is not None:

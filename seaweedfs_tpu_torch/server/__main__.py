@@ -1,21 +1,27 @@
-"""`python -m seaweedfs_tpu_torch.server master|volume|server`: port servers
-by name.
+"""`python -m seaweedfs_tpu_torch.server master|volume|server|telemetry|scaffold`:
+port servers by name.
 
 Port of seaweedfs_tpu/server/__main__.py, its `master`, `volume` and
 `server` modes (`server`: a master and a volume server in one process,
-reference `weed server`); argparse refuses the other modes (filer,
-mq.broker, ...). The flags are the JAX launcher's, less its TLS flags. A
-flag left unset is filled from `volume.toml` or `master.toml`
-(utils/config.py), then from the default; `-jwt.key` falls back to
-`security.toml`'s `jwt.signing.key`. Where the two launchers differ, on
-purpose:
+reference `weed server`), `telemetry` (the phone-home collector,
+utils/telemetry_server.py) and `scaffold` (a config template,
+utils/scaffold.py, printed or written to `-output`/<name>.toml);
+argparse refuses the other modes (filer, mq.broker, ...). The flags are
+the JAX launcher's. A flag left unset is filled from `volume.toml` or
+`master.toml` (utils/config.py), then from the default; `-jwt.key` falls
+back to `security.toml`'s `jwt.signing.key`, and `-tls.cert`, `-tls.key`
+and `-tls.ca` each fall back to its `https.default.*` key, field by
+field. A certificate turns the node's HTTP listener into a TLS listener
+with hot reload (utils/tls.py), `-tls.ca` requires client certificates,
+and every internal hop of the process speaks https (`utils/urls.py`
+`enable_https`); gRPC stays plaintext, as in the JAX package. Where the
+two launchers differ, on purpose:
 
 - `-ec.backend` takes cuda, cpu or auto and defaults to cuda, where the
   JAX default is auto; tpu is refused.
-- The port serves no TLS: a `security.toml` that sets `https.default.cert`
-  stops the launcher with a message, where the JAX launcher would serve
-  HTTPS. Serving plain HTTP where the operator asked for TLS is not an
-  option.
+- Under `-tls.ca` the process presents its own certificate on its https
+  hops, since its servers require one; the JAX launcher points `requests`
+  at the CA alone.
 - What needs a module the port does not have yet stops it with a
   message, where the JAX launcher would start it: `server`'s `-filer`,
   `-s3`, `-webdav`, `-sftp`, `-admin`, `-notify.webhook` and
@@ -33,6 +39,7 @@ seaweedfs_tpu_torch.worker`).
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
@@ -43,6 +50,25 @@ from ..utils.glog import logger
 log = logger("launcher")
 
 EC_BACKENDS = ("cuda", "cpu", "auto")
+
+
+def _add_tls_flags(sp) -> None:
+    """Reference security.toml https.* keys as flags: a cert/key pair
+    turns the node's HTTP listener(s) into TLS listeners with hot
+    cert-reload (utils/tls.py)."""
+    sp.add_argument("-tls.cert", dest="tls_cert", default="")
+    sp.add_argument("-tls.key", dest="tls_key", default="")
+    sp.add_argument("-tls.ca", dest="tls_ca", default="",
+                    help="when set, require and verify client certificates (mTLS)")
+
+
+def _tls_from(a):
+    if not getattr(a, "tls_cert", ""):
+        return None
+    from ..utils.tls import TlsConfig
+
+    return TlsConfig(cert_file=a.tls_cert, key_file=a.tls_key, ca_file=a.tls_ca or None,
+                     client_auth=bool(a.tls_ca))
 
 
 def _add_ec_trace_flags(sp) -> None:
@@ -91,6 +117,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="meta dir for the durable raft log (required for HA restarts)")
     m.add_argument("-telemetry.url", dest="telemetry_url", default="",
                    help="opt-in phone-home endpoint (leader posts count aggregates)")
+    _add_tls_flags(m)
 
     v = sub.add_parser("volume")
     v.add_argument("-ip", default="localhost")
@@ -106,6 +133,7 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("-rack", default="")
     v.add_argument("-jwt.key", dest="jwt_key", default="")
     _add_ec_trace_flags(v)
+    _add_tls_flags(v)
 
     s = sub.add_parser("server")
     s.add_argument("-ip", default="localhost")
@@ -124,24 +152,39 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument(flag, action="store_true", help="not served by the port yet")
     s.add_argument("-notify.webhook", dest="notify_webhook", default="")
     s.add_argument("-notify.mq", dest="notify_mq", default="")
+    _add_tls_flags(s)
+
+    ts = sub.add_parser("telemetry", help="telemetry collector server (reference telemetry/server)")
+    ts.add_argument("-ip", default="localhost")
+    ts.add_argument("-port", type=int, default=9999)
+    ts.add_argument("-file", default="", help="JSONL persistence path")
+
+    sc = sub.add_parser("scaffold", help="emit a commented config template (weed scaffold)")
+    sc.add_argument("-config", dest="config", default="security")
+    sc.add_argument("-output", default="",
+                    help="directory to write <name>.toml into (default: stdout)")
     return p
 
 
 def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     """The parsed flags with the unset ones filled from `security.toml`,
     `volume.toml` and `master.toml` (searched in `config_dirs`), then the
-    defaults. SystemExit for a backend the port does not run, a TLS
-    config, and what needs a module the port does not have yet."""
+    defaults. SystemExit for a backend the port does not run and what
+    needs a module the port does not have yet."""
     p = _parser()
     a = p.parse_args(argv)
+    if a.mode == "scaffold":
+        return a
     sec = load_config("security", config_dirs)
     if sec:
-        if not a.jwt_key:
+        if hasattr(a, "jwt_key") and not a.jwt_key:
             a.jwt_key = sec.get_str("jwt.signing.key")
-        if sec.get_str("https.default.cert"):
-            raise SystemExit(
-                f"{sec.path} sets https.default.cert, but the port serves no TLS: "
-                "refusing to serve plain HTTP where TLS was asked for")
+        # per-field merge: an explicit -tls.ca survives a security.toml
+        # that sets only cert and key (flags win field by field)
+        for attr, key in (("tls_cert", "https.default.cert"), ("tls_key", "https.default.key"),
+                          ("tls_ca", "https.default.ca")):
+            if hasattr(a, attr) and not getattr(a, attr):
+                setattr(a, attr, sec.get_str(key))
     if a.mode in ("volume", "server"):
         vcfg = load_config("volume", config_dirs)
         if getattr(a, "index", None) is None:
@@ -170,11 +213,49 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     return a
 
 
+def scaffold(a: argparse.Namespace) -> int:
+    """`scaffold`: the template on stdout, or written to
+    `-output`/<name>.toml (its path printed)."""
+    from ..utils.scaffold import scaffold as template
+
+    text = template(a.config)
+    if a.output:
+        path = os.path.join(a.output, f"{a.config}.toml")
+        with open(path, "w") as fh:
+            fh.write(text)
+        print(path)
+    else:
+        print(text, end="")
+    return 0
+
+
 def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
     """Build and start the servers the flags name: a master, a volume
-    server, or both (`server`)."""
-    a = resolve(argv, config_dirs)
+    server, both (`server`), or the telemetry collector."""
+    return start(resolve(argv, config_dirs))
+
+
+def start(a: argparse.Namespace) -> list:
+    """Start the servers of resolved flags `a`; returns them."""
+    tls = _tls_from(a)
+    if tls is not None:
+        # internal hops (client to volume, replication, the shell's reads)
+        # speak https too, trusting the cluster CA (or the certificate
+        # itself for a single self-signed one); under mTLS they present
+        # this node's certificate
+        from ..utils.urls import enable_https
+
+        mtls = tls.client_auth
+        enable_https(tls.ca_file or tls.cert_file, cert_file=tls.cert_file if mtls else "",
+                     key_file=tls.key_file if mtls else "")
     servers = []
+    if a.mode == "telemetry":
+        from ..utils.telemetry_server import TelemetryServer
+
+        tsrv = TelemetryServer(ip=a.ip, port=a.port, persist_path=a.file or None)
+        tsrv.start()
+        log.info("telemetry collector on %s:%s", a.ip, tsrv.port)
+        return [tsrv]
     if a.mode in ("master", "server"):
         from .master import MasterServer
 
@@ -183,7 +264,8 @@ def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
         ms = MasterServer(
             ip=a.ip, port=port, volume_size_limit=limit, jwt_key=a.jwt_key,
             peers=getattr(a, "peers", "") or None, meta_dir=getattr(a, "mdir", "") or None,
-            telemetry_url=getattr(a, "telemetry_url", ""), garbage_threshold=a.garbage_threshold,
+            telemetry_url=getattr(a, "telemetry_url", ""), tls=tls,
+            garbage_threshold=a.garbage_threshold,
             vacuum_interval=a.vacuum_interval, ec_auto_fullness=a.ec_auto,
             ec_scrub_interval=a.ec_scrub_interval,
             ec_rebalance_interval=getattr(a, "ec_rebalance_interval", 0.0))
@@ -207,6 +289,7 @@ def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
             ec_trace=a.ec_trace,
             ec_trace_ring=a.ec_trace_ring,
             ec_slow_op_s=a.ec_slow_op_s,
+            tls=tls,
         )
         vs.start()
         servers.append(vs)
@@ -216,10 +299,13 @@ def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
 
 
 def main(argv=None) -> int:
+    a = resolve(argv)
+    if a.mode == "scaffold":
+        return scaffold(a)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
-    servers = build(argv)
+    servers = start(a)
     while not stop.wait(1.0):
         pass
     # the volume server first: it leaves the master it heartbeats to

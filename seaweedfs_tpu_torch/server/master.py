@@ -15,7 +15,8 @@ and /dir/lookup handlers):
   services, the HTTP plane (`/dir/assign`, `/dir/lookup`, `/metrics`,
   `/`, `/ui` with the maintenance fleet's tables, `/cluster/status` with
   the fleet scrub's `EcFleetScrub` and the gravity scanner's
-  `EcMigrations`, `/dir/status`, `/debug/slo`), the worker fleet's
+  `EcMigrations`, `/dir/status`, `/debug/slo`, `/debug/pprof`), over
+  HTTPS where the master is given `tls` (utils/tls.py), the worker fleet's
   control plane (`worker/control.py` `WorkerControl` on the
   `swworker.WorkerControl` service) with the live maintenance config
   (`_maintenance_config`, `_apply_maintenance_config`), the maintenance
@@ -27,7 +28,7 @@ Every master scans and submits, the leader or not, as in the JAX package:
 a worker streams to the leader, so a follower's tasks wait. The maintenance
 config is this master's own, not replicated.
 
-Left out: the filer lock ring (`dlm_filers`), `/debug/pprof` and TLS.
+Left out: the filer lock ring (`dlm_filers`).
 `EcStreams` and `EcResidency.local` read this
 process's stream and residency registries only where the port's EC
 package is already loaded (a combined deployment): a master alone does
@@ -53,6 +54,7 @@ from ..pb import rpc
 from ..storage.file_id import FileId, new_cookie
 from ..storage.ttl import TTL
 from ..utils.glog import logger
+from ..utils.pprof import handle_debug_endpoint
 from .cluster_lock import LockManager
 from .raft import RaftNode
 from .topology import DataNode, Topology
@@ -410,6 +412,7 @@ class MasterServer:
         peers: list[str] | str | None = None,
         meta_dir: str | None = None,
         election_timeout: tuple[float, float] = (0.4, 0.8),
+        tls=None,
         telemetry_url: str = "",
         ec_auto_fullness: float = 0.0,
         ec_quiet_seconds: float = 60.0,
@@ -423,7 +426,8 @@ class MasterServer:
         that many seconds (ec_scrub tasks, one volume per tick), with a
         peer-fetch rebuild dispatched for any holder that cannot heal
         itself. ec_rebalance_interval > 0: the data-gravity scanner's
-        period (ec_migrate tasks)."""
+        period (ec_migrate tasks). `tls` (a utils/tls.TlsConfig) serves
+        HTTPS on `port`."""
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port or (port + 10000)
@@ -475,6 +479,9 @@ class MasterServer:
         self._grpc.add_insecure_port(f"{ip}:{self.grpc_port}")
 
         self._http = ThreadingHTTPServer((ip, port), self._handler_class())
+        self.tls = tls
+        if tls is not None:
+            tls.wrap_server(self._http)
         self._http_thread = threading.Thread(target=self._http.serve_forever, daemon=True)
 
         # opt-in phone-home (reference weed/telemetry/collector.go:14):
@@ -578,6 +585,8 @@ class MasterServer:
             def do_GET(self):
                 u = urlparse(self.path)
                 q = parse_qs(u.query)
+                if handle_debug_endpoint(self, u):
+                    return
                 if self.serve_slo_endpoint(u.path):
                     return
                 if u.path == "/dir/assign":

@@ -62,7 +62,6 @@ import os
 import queue
 import threading
 import time
-import urllib.request
 from concurrent import futures
 
 import grpc
@@ -94,9 +93,10 @@ from ..storage.volume import CookieMismatch, NotFoundError, Volume, VolumeError
 from ..utils import metrics as M
 from ..utils import native
 from ..utils import request_id as _rid
-from ..utils import trace
+from ..utils import trace, urls
 from ..utils.glog import logger
 from ..utils.security import JwtError, sign_jwt, verify_jwt
+from ..utils.urls import service_url
 from .volume_server import FAN_OUT_REFUSED
 
 log = logger("volume")
@@ -1019,7 +1019,7 @@ class ClusterHalf:
             addr = getattr(mc, "_leader", "") or getattr(mc, "http_addr", "")
             if not addr:
                 return {}
-            with urllib.request.urlopen(f"http://{addr}/cluster/status", timeout=2) as r:
+            with urls.urlopen(service_url(addr, "/cluster/status"), timeout=2) as r:
                 tele = json.loads(r.read()).get("EcTelemetry")
             return tele if isinstance(tele, dict) else {}
         except Exception:  # noqa: BLE001 — telemetry is advisory

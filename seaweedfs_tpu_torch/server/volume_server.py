@@ -7,17 +7,24 @@ volume_server_handlers_read.go:142 GetOrHeadHandler, _write.go:20
 PostHandler):
 
 - the HTTP needle front end on the pooled worker server
-  (utils/http_pool.py): GET and HEAD with ranges and ETags (a needle of
-  an EC volume whose shard is gone is reconstructed on the card through
-  the Store), POST (a raw body or a multipart upload), DELETE, and the
-  /status, /metrics, /debug/traces, /debug/slo and /debug/gateway
-  surfaces; and, the port's own, /debug/kernels: this process's launches
+  (utils/http_pool.py; the threaded one under TLS, `tls=`): GET and HEAD
+  with ranges and ETags (a needle of an EC volume whose shard is gone is
+  reconstructed on the card through the Store), thumbnails on
+  ?width/?height/?mode (utils/images.py), ?locate=true (where a needle's
+  payload lies and which fastread sidecar serves it), POST (a raw body or
+  a multipart upload), DELETE, and the /status, /metrics, /debug/pprof,
+  /debug/traces, /debug/slo and /debug/gateway surfaces; and, the port's
+  own, /debug/kernels: this process's launches
   of each hand-written kernel (`ops/rs_kernels.LAUNCHES`, `MASKED`) and
   the interval-cache loads that degraded reads made, so a process that
   runs the server alone shows which kernels its EC paths launched;
 - the shard net plane (ec/net_plane.py) with the server's four
   resolvers: shard ranges, needle payloads, needle writes and
-  stream-shard blobs.
+  stream-shard blobs;
+- one fastread sidecar (utils/fastread.py) per disk location, on
+  `<dir>/.fastread.sock`. Its library failing to build or load stops the
+  constructor; a socket that cannot be bound is logged and leaves that
+  location on HTTP only, as in the JAX server.
 
 The gRPC service with its EC RPCs, the master client, heartbeats, the
 replica fan-out, the remote shard reader and peer-fetch rebuild live in
@@ -37,9 +44,6 @@ acknowledged with the copies reached, as in the JAX server. Where the
 master lookup fails, a replicated write or delete is done here and
 answered with an error that names the missing fan-out
 (`FAN_OUT_REFUSED`), where the JAX server acknowledges it with one copy.
-
-Left out: ``?locate=true`` and the fastread sidecar, thumbnails,
-/debug/pprof and TLS.
 """
 
 from __future__ import annotations
@@ -59,11 +63,14 @@ from ..storage.file_id import FileId, FileIdError
 from ..storage.needle import CrcError, Needle
 from ..storage.store import Store
 from ..storage.volume import CookieMismatch, NotFoundError, ReadOnlyError, VolumeError
+from ..utils import fastread
 from ..utils import metrics as M
 from ..utils import trace
 from ..utils.crc import crc32c
 from ..utils.glog import logger
 from ..utils.http_pool import build_http_server, send_body
+from ..utils.images import detect_format, resized
+from ..utils.pprof import handle_debug_endpoint, require_loopback
 from ..utils.request_id import RequestTracingMixin
 from ..utils.security import JwtError, verify_jwt
 
@@ -87,6 +94,7 @@ class VolumeServer:
         rack: str = "",
         jwt_key: str = "",
         needle_map_kind: str = "memory",
+        tls=None,
         ec_scrub_interval: float = 0.0,
         ec_scrub_bytes_per_sec: float = 64 << 20,
         ec_scrub_bad_retention: float = 0.0,
@@ -113,7 +121,8 @@ class VolumeServer:
         the backend of the mounted EC volumes and of RPCs that name none:
         cuda (the default), cpu or auto. The scheduler, placement and
         trace arguments are the JAX server's: a per-store QueueScope, and
-        the process-wide flight recorder armed only when asked."""
+        the process-wide flight recorder armed only when asked. `tls` (a
+        utils/tls.TlsConfig) serves HTTPS on `port`."""
         shares = {}
         if ec_queue_recovery_share is not None:
             shares["recovery"] = ec_queue_recovery_share
@@ -155,6 +164,18 @@ class VolumeServer:
             ec_queue_shares=shares,
             ec_placement=ec_placement,
         )
+        # bulk-read fast path: a native Unix-socket sendfile server per
+        # disk location (the RDMA sidecar analog); same-host clients
+        # resolve ?locate=true, then pull bytes kernel to kernel
+        self.fastread_sockets: dict[str, str] = {}
+        for loc in self.store.locations:
+            sock = os.path.join(loc.directory, ".fastread.sock")
+            try:
+                fastread.start_server(sock, loc.directory)
+            except OSError as e:
+                log.warning("fastread sidecar of %s disabled: %s", loc.directory, e)
+                continue
+            self.fastread_sockets[os.path.abspath(loc.directory)] = sock
         # The shard net plane on grpc_port + 10000: shard ranges, needle
         # payloads and needle and blob writes. A port that cannot be bound
         # leaves the server without it, as the JAX server does.
@@ -172,20 +193,24 @@ class VolumeServer:
             log.warning("shard net plane disabled: %s", e)
         # Bounded worker-pool HTTP data plane: `http_workers` request
         # workers and an `http_queue`-deep connection budget; saturation
-        # answers 503 and Retry-After. `http_workers=0` takes the stdlib
-        # ThreadingHTTPServer instead.
+        # answers 503 and Retry-After. `http_workers=0`, or TLS, takes the
+        # stdlib ThreadingHTTPServer instead.
         self._http = build_http_server(
             (ip, port),
             self._handler_class(),
             server_kind="volume",
             workers=http_workers,
             accept_queue=http_queue,
+            tls=tls,
             reject_body=lambda: (
                 "application/json",
                 b'{"error": "volume server saturated: worker pool and '
                 b'accept queue are full"}',
             ),
         )
+        self.tls = tls
+        if tls is not None:
+            tls.wrap_server(self._http)
         self._http_thread = threading.Thread(target=self._http.serve_forever, daemon=True)
         # Background EC scrub (ec/scrub.py): off by default (interval 0)
         self.scrub_daemon = None
@@ -452,24 +477,11 @@ class VolumeServer:
                     self._error(401, f"unauthorized: {e}")
                     return True
 
-            def _loopback(self, what: str) -> bool:
-                """True where the caller is local; else 403 sent (the
-                operator gate of the /debug surfaces)."""
-                if self.client_address[0] in ("127.0.0.1", "::1", "localhost"):
-                    return True
-                body = f"{what} endpoints are loopback-only\n".encode()
-                self.send_response(403)
-                self.send_header("Content-Type", "text/plain")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-                return False
-
             def _traces(self, query: str) -> None:
                 """The flight recorder's ring as Chrome trace_event JSON;
                 ?trace_id= narrows to one trace, ?op= to one root op class,
                 ?min_ms= to slow ops; ?format=spans gives the span trees."""
-                if not self._loopback("trace"):
+                if not require_loopback(self, "trace"):
                     return
                 q = parse_qs(query)
                 try:
@@ -511,8 +523,31 @@ class VolumeServer:
                 st["ec_residency"] = device_queue.residency_snapshot()
                 self._json(200, st)
 
+            def _locate(self, fid) -> None:
+                """The control plane of the bulk-read fast path: where the
+                payload bytes lie and which sidecar socket serves them."""
+                vol = server.store.find_volume(fid.volume_id)
+                if vol is None:
+                    return self._error(404, "volume not here (or EC)")
+                try:
+                    path, off, size, crc = vol.locate_payload(fid.needle_id, fid.cookie)
+                except (NotFoundError, CookieMismatch) as e:
+                    return self._error(404, str(e))
+                except VolumeError as e:
+                    return self._error(409, str(e))
+                sock = ""
+                apath = os.path.abspath(path)
+                for d, s in server.fastread_sockets.items():
+                    if apath.startswith(d + os.sep):
+                        sock = s
+                        break
+                self._json(200, {"path": apath, "offset": off, "size": size, "crc32c": crc,
+                                 "socket": sock})
+
             def do_GET(self):
                 u = urlparse(self.path)
+                if handle_debug_endpoint(self, u):
+                    return
                 if self.serve_slo_endpoint(u.path):
                     return
                 if u.path == "/debug/traces":
@@ -547,10 +582,9 @@ class VolumeServer:
                     fid = self._fid()
                 except FileIdError as e:
                     return self._error(400, str(e))
-                if parse_qs(u.query).get("locate", [""])[0] == "true":
-                    # no fastread sidecar here: the client reads over HTTP,
-                    # as it does where a volume cannot be located
-                    return self._error(404, "locate not served here")
+                rq = parse_qs(u.query)
+                if rq.get("locate", [""])[0] == "true":
+                    return self._locate(fid)
                 self._sw_op = "read"
                 try:
                     # an EC degraded read below opens its own span under
@@ -567,6 +601,30 @@ class VolumeServer:
                     return self._error(503, str(e))
                 ctype = n.mime.decode() if n.mime else "application/octet-stream"
                 data = n.data
+                # on-the-fly thumbnails (reference weed/images,
+                # volume_server_handlers_read.go:362-421)
+                etag = f"{n.checksum:08x}"
+                if "width" in rq or "height" in rq:
+                    try:
+                        rw = int(rq.get("width", ["0"])[0] or 0)
+                        rh = int(rq.get("height", ["0"])[0] or 0)
+                    except ValueError:
+                        rw = rh = 0  # malformed dims: serve the original
+                    rmode = rq.get("mode", [""])[0]
+                    if rmode not in ("", "fit", "fill"):
+                        # whitelist: the value is echoed into the ETag
+                        # header, so arbitrary bytes would be header
+                        # injection (response splitting)
+                        rmode = ""
+                    out, _, _ = resized(data, rw, rh, rmode)
+                    if out is not data:
+                        data = out
+                        # a re-encode may change the container (GIF to
+                        # PNG), and each variant needs its own cache key
+                        fmt = detect_format(data)
+                        if fmt:
+                            ctype = f"image/{fmt.lower()}"
+                        etag = f"{n.checksum:08x}-{rw}x{rh}{rmode}"
                 total = len(data)
                 status = 200
                 content_range = None
@@ -594,7 +652,7 @@ class VolumeServer:
                 self.send_header("Accept-Ranges", "bytes")
                 if content_range:
                     self.send_header("Content-Range", content_range)
-                self.send_header("ETag", f'"{n.checksum:08x}"')
+                self.send_header("ETag", f'"{etag}"')
                 self.end_headers()
                 # needle payloads leave through the native scatter-gather
                 # sender on the pooled front end
@@ -665,6 +723,8 @@ class VolumeServer:
             self.net_plane.stop()
         if self.scrub_daemon is not None:
             self.scrub_daemon.stop()
+        for sock in self.fastread_sockets.values():
+            fastread.stop_server(sock)
         self._http.shutdown()
         self._http.server_close()
         self.store.close()

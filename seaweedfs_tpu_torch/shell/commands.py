@@ -48,6 +48,7 @@ from ..ec import fleet
 from ..pb import cluster_pb2 as pb
 from ..pb import rpc
 from ..utils import trace
+from ..utils import urls
 from ..utils.urls import service_url
 
 # the backends a port server's EC runs on (ec/backend.py get_backend)
@@ -221,7 +222,7 @@ def _get_json(url: str, timeout: float = 5.0):
     """The JSON body of one GET over urllib (an error status's body is
     parsed too, as `requests.get(url).json()` does)."""
     try:
-        with urllib.request.urlopen(url, timeout=timeout) as r:
+        with urls.urlopen(url, timeout=timeout) as r:
             body = r.read()
     except urllib.error.HTTPError as e:
         body = e.read()

@@ -24,6 +24,7 @@ import urllib.request
 from typing import BinaryIO
 
 from .. import faults
+from ..utils import urls
 
 
 class BackendError(Exception):
@@ -38,7 +39,7 @@ def _open(url: str, method: str = "GET", headers: dict | None = None, data=None,
     OSError (`urllib.error.URLError`)."""
     req = urllib.request.Request(url, data=data, method=method, headers=headers or {})
     try:
-        resp = urllib.request.urlopen(req, timeout=timeout)
+        resp = urls.urlopen(req, timeout=timeout)
     except urllib.error.HTTPError as e:
         return e.code, e
     return resp.status, resp

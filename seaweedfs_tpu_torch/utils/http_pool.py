@@ -25,7 +25,13 @@ at a time by whichever worker the dispatcher picks.
 `send_body` sends a response body through the host library's
 scatter-gather writer (`sn_sendv`, the GIL released for the whole send),
 or through ``wfile`` where SEAWEED_EC_NATIVE=0: the same bytes on the
-wire. TLS is not ported; a library that fails to build or load raises.
+wire; a library that fails to build or load raises.
+
+TLS: servers wrap their listener AFTER construction (``utils/tls.py``).
+The pooled front end serves plain-HTTP data planes only: a server given
+``tls`` gets ``ThreadingHTTPServer`` (the pool's non-blocking readiness
+probe is not SSLSocket-safe), and `send_body` never hands an
+``ssl.SSLSocket`` to the native sender.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import os
 import queue
 import selectors
 import socket
+import ssl
 import threading
 import time
 from http.server import HTTPServer
@@ -425,16 +432,18 @@ def build_http_server(
     server_kind: str = "http",
     workers: int = 32,
     accept_queue: int = 128,
+    tls=None,
     reject_body=None,
     idle_timeout: float = 30.0,
     request_timeout: float = 120.0,
 ):
     """The data-plane server factory: a :class:`PooledHTTPServer`
-    (bounded workers and backpressure) unless `workers` is 0, the
+    (bounded workers and backpressure) unless `workers` is 0 (the
     explicit opt-out to the unbounded one-thread-per-connection stdlib
-    server. Both share the ``serve_forever`` / ``shutdown`` /
-    ``server_close`` lifecycle."""
-    if workers:
+    server) or `tls` is set (the TLS wrapper targets the threaded server;
+    see the module docstring). Both share the ``serve_forever`` /
+    ``shutdown`` / ``server_close`` lifecycle."""
+    if workers and tls is None:
         return PooledHTTPServer(
             server_address,
             RequestHandlerClass,
@@ -465,8 +474,8 @@ def status_of(http_server) -> dict:
 # pool's non-blocking sockets), so N workers push N responses at once.
 # It engages when the handler runs under a PooledHTTPServer, the body
 # clears _NATIVE_BODY_MIN (header-sized bodies are cheaper under the GIL
-# than a flush and a ctypes call) and SEAWEED_EC_NATIVE is not 0; else
-# wfile.write sends the same bytes.
+# than a flush and a ctypes call), SEAWEED_EC_NATIVE is not 0 and the
+# connection is not TLS; else wfile.write sends the same bytes.
 # --------------------------------------------------------------------------
 
 _NATIVE_BODY_MIN = 8 << 10
@@ -487,7 +496,8 @@ def send_body(handler, *parts) -> int:
     from . import metrics
 
     srv = getattr(handler, "server", None)
-    if total >= _NATIVE_BODY_MIN and isinstance(srv, PooledHTTPServer) and _native_enabled():
+    if (total >= _NATIVE_BODY_MIN and isinstance(srv, PooledHTTPServer) and _native_enabled()
+            and not isinstance(handler.connection, ssl.SSLSocket)):
         from . import native
 
         handler.wfile.flush()

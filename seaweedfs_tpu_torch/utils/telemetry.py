@@ -17,6 +17,7 @@ import threading
 import urllib.request
 import uuid
 
+from . import urls
 from .glog import logger
 
 log = logger("telemetry")
@@ -73,7 +74,7 @@ class TelemetryCollector:
             method="POST",
         )
         try:
-            with urllib.request.urlopen(req, timeout=10) as r:
+            with urls.urlopen(req, timeout=10) as r:
                 return 200 <= r.status < 300
         except Exception as e:
             log.v(1, "telemetry post failed: %s", e)

@@ -357,14 +357,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
     assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "shell", "storage",
-            "utils", "worker"} <= scanned
+            "tools", "utils", "worker"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
     for mod in ("server/master.py", "server/topology.py", "server/raft.py", "server/cluster_lock.py",
                 "utils/telemetry.py", "utils/sequence.py", "shell/commands.py", "shell/__main__.py",
                 "client/operations.py", "utils/urls.py", "ec/rebalance.py", "ec/placement.py",
                 "worker/__init__.py", "worker/__main__.py", "worker/worker.py",
-                "worker/control.py", "pb/worker_pb2.py"):
+                "worker/control.py", "pb/worker_pb2.py", "utils/tls.py", "utils/pprof.py",
+                "utils/fastread.py", "utils/images.py", "utils/scaffold.py",
+                "utils/telemetry_server.py", "tools/__init__.py", "tools/__main__.py"):
         assert PORT / mod in _python_files(), mod
 
 
@@ -617,6 +619,34 @@ env.close()
 assert http_req(vs.port, "GET", "/" + a["fid"]) == (200, b"assigned" * 99)
 vs.stop()
 ms.stop()
+# a port master and volume server over https, then ?locate and the
+# fastread sidecar (its library built from csrc/)
+from seaweedfs_tpu_torch.client.operations import Operations
+from seaweedfs_tpu_torch.utils import urls
+from seaweedfs_tpu_torch.utils.fastread import read_fid_fast
+from seaweedfs_tpu_torch.utils.tls import generate_self_signed
+
+certs = generate_self_signed(os.path.join(d, "tls"))
+urls.enable_https(certs.ca_file)
+tport = free_grpc_port()
+tms = MasterServer(ip="127.0.0.1", port=tport, vacuum_interval=3600, tls=certs)
+tms.start()
+tvs = VolumeServer([os.path.join(d, "tv")], master=f"127.0.0.1:{tport}", ip="127.0.0.1",
+                   port=free_grpc_port(), grpc_port=free_grpc_port(), ec_backend="cpu", tls=certs)
+tvs.start()
+deadline = time.time() + 60
+while not tms.topo.nodes and time.time() < deadline:
+    time.sleep(0.05)
+ops = Operations(f"127.0.0.1:{tport}")
+fid = ops.upload(b"over https" * 99)
+assert ops.read(fid, fast=False) == b"over https" * 99
+with urls.urlopen(f"https://127.0.0.1:{tvs.port}/{fid}?locate=true", timeout=10) as r:
+    loc = json.loads(r.read())
+assert loc["socket"] and read_fid_fast(loc) == b"over https" * 99
+ops.close()
+tvs.stop()
+tms.stop()
+urls.disable_https()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu", "requests"))

@@ -8,10 +8,15 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
   answers Assign (growing a volume on a port server) and exits with 0 on
   SIGTERM; `server` mode runs a master and a volume server in one process
   that assign, take a POST, look it up and serve it;
-- `-ec.backend tpu` and a `security.toml` asking for TLS each stop the
-  launcher with a message and a nonzero exit; so do the modes the port
-  does not have (filer, ...), and the flags of `server` whose modules are
-  not ported (its gateways and notifications);
+- `-ec.backend tpu` stops the launcher with a message and a nonzero
+  exit; so do the modes the port does not have (filer, mq.broker), and
+  the flags of `server` whose modules are not ported (its gateways and
+  notifications);
+- a `security.toml` asking for TLS, and the `-tls.*` flags of master,
+  volume and server, serve HTTPS (mutual TLS under `-tls.ca`), the file
+  merged field by field under the flags;
+- the `telemetry` mode runs the collector by name, and `scaffold` prints
+  a template;
 - the maintenance scanners' flags (`-ec.autoFullness`,
   `-ec.scrubInterval`, `-ec.rebalanceInterval`) reach the master's live
   maintenance config;
@@ -24,8 +29,10 @@ import http.client
 import json
 import os
 import signal
+import ssl
 import subprocess
 import sys
+import urllib.request
 
 import grpc
 import pytest
@@ -42,7 +49,8 @@ from seaweedfs_tpu_torch.pb import worker_pb2 as wk
 from seaweedfs_tpu_torch.server import __main__ as launcher
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.storage.file_id import FileId
-from seaweedfs_tpu_torch.utils import config
+from seaweedfs_tpu_torch.utils import config, urls
+from seaweedfs_tpu_torch.utils.tls import generate_self_signed
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,25 +109,89 @@ def test_launched_server_heartbeats_serves_and_stops_on_sigterm(tmp_path):
 
 @pytest.mark.parametrize("case", ["tpu", "tls"])
 def test_launcher_refuses_tpu_and_tls(tmp_path, case):
-    args = ["volume", "-dir", str(tmp_path / "v"), "-master", "127.0.0.1:1", "-port", str(_ports())]
+    """`-ec.backend tpu` is refused; a security.toml that asks for TLS is
+    now served: the launched volume server answers over https and a
+    plaintext client fails."""
+    port = _ports()
+    args = ["volume", "-dir", str(tmp_path / "v"), "-master", "127.0.0.1:1", "-ip", "127.0.0.1",
+            "-port", str(port)]
     if case == "tpu":
-        args += ["-ec.backend", "tpu"]
+        proc = launch(tmp_path, *args, "-ec.backend", "tpu")
+        out, err = proc.communicate(timeout=120)
         want = "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"
-    else:
-        (tmp_path / "security.toml").write_text(
-            '[https.default]\ncert = "/etc/ssl/node.crt"\nkey = "/etc/ssl/node.key"\n')
-        want = "sets https.default.cert, but the port serves no TLS"
-    proc = launch(tmp_path, *args)
-    out, err = proc.communicate(timeout=120)
-    assert proc.returncode != 0 and want in err, err
-    assert not (tmp_path / "v").exists()  # nothing was built
+        assert proc.returncode != 0 and want in err, err
+        assert not (tmp_path / "v").exists()  # nothing was built
+        return
+    certs = generate_self_signed(str(tmp_path / "tls"))
+    (tmp_path / "security.toml").write_text(
+        f'[https.default]\ncert = "{certs.cert_file}"\nkey = "{certs.key_file}"\n')
+    proc = launch(tmp_path, *args, "-ec.backend", "cpu")
+    try:
+        def status():
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                with urllib.request.urlopen(f"https://127.0.0.1:{port}/status", timeout=5,
+                                            context=certs.client_context()) as r:
+                    return json.loads(r.read())
+            except OSError:
+                return None
+
+        wait_for(status, timeout=90, msg="the launched server did not answer over https")
+        with pytest.raises(OSError):
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/status", timeout=5)
+        stop_child(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_other_modes_are_refused():
-    for mode in ("filer", "mq.broker", "scaffold", "telemetry"):
+    for mode in ("filer", "mq.broker"):
         with pytest.raises(SystemExit) as e:
             launcher.resolve([mode, "-dir", "/nonexistent"], config_dirs=())
         assert e.value.code == 2
+
+
+def test_telemetry_mode_collects_by_name(tmp_path):
+    port = allocate_port()
+    store = tmp_path / "reports.jsonl"
+    proc = launch(tmp_path, "telemetry", "-ip", "127.0.0.1", "-port", str(port), "-file",
+                  str(store))
+    try:
+        def post():
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/api/collect", method="POST",
+                                         data=json.dumps({"cluster_id": "c1",
+                                                          "server_count": 3}).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=5) as r:
+                    return r.status == 200
+            except OSError:
+                return False
+
+        wait_for(post, timeout=90, msg="the telemetry child did not answer")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/stats", timeout=5) as r:
+            stats = json.loads(r.read())
+        assert stats["clusters"] == 1 and stats["total_server_count"] == 3
+        assert "telemetry collector on 127.0.0.1" in stop_child(proc)
+        assert json.loads(store.read_text())["cluster_id"] == "c1"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def test_scaffold_mode_prints_a_template_by_name(tmp_path):
+    from seaweedfs_tpu.utils.scaffold import scaffold as jax_template
+
+    proc = launch(tmp_path, "scaffold", "-config", "volume")
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0 and out == jax_template("volume"), err
 
 
 @pytest.mark.parametrize("args, want", [
@@ -130,7 +202,6 @@ def test_other_modes_are_refused():
     (["server", "-admin"], "-admin: the port has no admin module yet"),
     (["server", "-notify.webhook", "http://h/x"], "-notify.webhook http://h/x: the port has no filer"),
     (["server", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no filer"),
-    (["master", "-tls.cert", "c.pem"], "unrecognized arguments: -tls.cert c.pem"),
     (["server", "-ec.backend", "tpu"], "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_unserved_flags_of_master_and_server_are_refused(capsys, args, want):
@@ -184,10 +255,50 @@ def test_master_toml_fills_unset_flags_and_flags_win(tmp_path, capsys):
         assert (a.ec_auto, a.garbage_threshold, a.vacuum_interval) == (0.9, 0.5, 15.0)
         a = launcher.resolve(mode + ["-ec.autoFullness", "0"], config_dirs=[str(d)])
         assert (a.ec_auto, a.garbage_threshold, a.vacuum_interval) == (0.0, 0.5, 15.0)
-    (d / "security.toml").write_text('[https.default]\ncert = "/c.pem"\n')
-    with pytest.raises(SystemExit) as e:
-        launcher.resolve(["master", "-ec.autoFullness", "0"], config_dirs=[str(d)])
-    assert "the port serves no TLS" in str(e.value.code)
+    # security.toml's https.default.* fill the -tls.* flags left unset,
+    # field by field
+    (d / "security.toml").write_text('[https.default]\ncert = "/c.pem"\nkey = "/k.pem"\n')
+    a = launcher.resolve(["master", "-ec.autoFullness", "0"], config_dirs=[str(d)])
+    assert (a.tls_cert, a.tls_key, a.tls_ca) == ("/c.pem", "/k.pem", "")
+    a = launcher.resolve(["master", "-tls.ca", "/ca.pem", "-tls.cert", "/x.pem"],
+                         config_dirs=[str(d)])
+    assert (a.tls_cert, a.tls_key, a.tls_ca) == ("/x.pem", "/k.pem", "/ca.pem")
+    assert launcher._tls_from(a).client_auth
+
+
+@pytest.mark.parametrize("mode", ["master", "volume", "server"])
+def test_tls_flags_of_master_volume_and_server_are_served(tmp_path, mode):
+    """-tls.cert/-tls.key/-tls.ca: the servers `build` starts answer over
+    https only to a client with a certificate the CA signed, and the
+    process's own hops present the node's certificate."""
+    certs = generate_self_signed(str(tmp_path / "tls"))
+    flags = ["-tls.cert", certs.cert_file, "-tls.key", certs.key_file, "-tls.ca", certs.ca_file]
+    mport, port = _ports(), _ports()
+    if mode == "master":
+        argv, ports = ["master", "-ip", "127.0.0.1", "-port", str(mport)], [mport]
+    elif mode == "volume":
+        argv, ports = ["volume", "-ip", "127.0.0.1", "-port", str(port), "-master",
+                       "127.0.0.1:1", "-dir", str(tmp_path / "v"), "-ec.backend", "cpu"], [port]
+    else:
+        argv = ["server", "-ip", "127.0.0.1", "-masterPort", str(mport), "-port", str(port),
+                "-dir", str(tmp_path / "v"), "-ec.backend", "cpu"]
+        ports = [mport, port]
+    servers = launcher.build(argv + flags, config_dirs=())
+    try:
+        for p in ports:
+            path = "/dir/status" if p == mport else "/status"
+            with urllib.request.urlopen(f"https://127.0.0.1:{p}{path}", timeout=10,
+                                        context=certs.client_context()) as r:
+                assert r.status == 200
+            with urls.urlopen(f"https://127.0.0.1:{p}{path}", timeout=10) as r:
+                assert r.status == 200
+            bare = ssl.create_default_context(cafile=certs.ca_file)
+            with pytest.raises(OSError):
+                urllib.request.urlopen(f"https://127.0.0.1:{p}{path}", timeout=10, context=bare)
+    finally:
+        for srv in reversed(servers):
+            srv.stop()
+        urls.disable_https()
 
 
 def grpc_call(port: int, service: str, method: str, req, timeout=10):
