@@ -280,7 +280,17 @@ Phases:
    `ec.decode` (the encoded .dat and .idx back, no launch) and `upload`
    / `download` of a seeded file. The children's launches come from
    their /debug/kernels. One JSON line with each step's walls and rates,
-   the failover seconds, the launches and the card.
+   the failover seconds, the launches and the card. 17k, last, drives
+   the filer on the same cluster in this process: two port `Filer`s (an
+   SSTableStore and a SqliteStore, each with a `MetaLog` and a
+   `FilerGrpcService` on a `grpc.server`), B following A through a
+   `MetaAggregator`; small, chunked and manifest files written through
+   A; gRPC lookup, list, rename, hard link, KV, `LockRange` and a
+   `DeleteEntry` whose needles answer 404; B converges on A; the shell's
+   `ec.encode` seals the filer's volume (launches == batches), data
+   shard 0 is unmounted and every file reads back through B sha256-equal
+   (planes launches == the holder's reconstructions); SubscribeMetadata
+   from 0 gives every event A logged. Its own JSON line.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -4855,6 +4865,7 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     fenv = None
     launches_hi = {"gf2_apply": 0, "gf2_apply_planes": 0}
     launches_j = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    launches_k = {"gf2_apply": 0, "gf2_apply_planes": 0}
     tools_src = None
     tport = free_port()
     try:
@@ -5086,9 +5097,11 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
                                {"Content-Type": UPLOAD_MIME})
         if code != 201 or http(f"http://{a['url']}/{a['fid']}")[2] != b"after the failover":
             raise AssertionError(f"17e: a write after the failover answered {code} {answer[:200]!r}")
+        new_holders = lookup(new_vid)
         steps["17e failover"] = {"killed": killed, "new_leader": maddr.index(lead),
                                  "elected_s": failover_s, "fourteen_shards_s": rehomed_s,
-                                 "new_volume": new_vid, "handed_before": handed}
+                                 "new_volume": new_vid, "new_volume_holders": new_holders,
+                                 "handed_before": handed}
 
         # -- 17f. a server other than the GET holder, with 1-4 shards of which one
         # or more are data shards, stopped; degraded GETs at the holder ----------
@@ -5227,8 +5240,13 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
         for col in (HA_COLLECTION, HA_REP_COLLECTION, f"{HA_COLLECTION}new",
                     f"{HA_COLLECTION}shell"):
             out = shell.run(f"collection.delete -collection {col}")
-            if not re.fullmatch(rf"deleted collection '{col}': volumes \[[\d, ]+\]", out):
-                raise AssertionError(f"17h: collection.delete answered {out!r}")
+            # 17e's volume left the topology with 17f's stopped server where
+            # that server was its one holder: the leader lists none of it
+            vols = r"\[\]" if col == f"{HA_COLLECTION}new" and new_holders == [stopped] \
+                else r"\[[\d, ]+\]"
+            if not re.fullmatch(rf"deleted collection '{col}': volumes {vols}", out):
+                raise AssertionError(f"17h: collection.delete answered {out!r}; 17e's volume "
+                                     f"{new_vid} was at {new_holders}, {stopped} stopped")
         wait_until(lambda: alive() or not any(nd.volumes for nd in nodes_at(lead).values()),
                    "no plain volume left at the leader", phase="17h")
         t0 = time.perf_counter()
@@ -5665,6 +5683,14 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
                                   "failover_straddled_first_report": straddled,
                                   "wait_seconds": time.perf_counter() - t0}
         steps["17j"] = {"seconds": time.perf_counter() - t17j}
+
+        # -- 17k. the filer's core and its gRPC service on this cluster ----------------
+        import types
+
+        hx = types.SimpleNamespace(lead=lead, url=url, gaddr=gaddr, up=up, kernels=kernels,
+                                   launched=launched, spread=spread, lookup=lookup,
+                                   ec_holders=ec_holders, fenv=fenv, alive=alive)
+        steps["17k filer"], launches_k = filer_check(root, ctx, hx)
         failed = False
     finally:
         if fenv is not None:
@@ -5680,8 +5706,274 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
         raise AssertionError(f"17: children did not stop cleanly: {stuck}")
     shutil.rmtree(root)
     result = {"steps": steps, "launches": launches, "launches_17g": launches_g,
-              "launches_17h_17i": launches_hi, "launches_17j": launches_j, "card": card_line()}
-    return result, launches, launches_g, launches_hi, launches_j, tools_src
+              "launches_17h_17i": launches_hi, "launches_17j": launches_j,
+              "launches_17k": launches_k, "card": card_line()}
+    return result, launches, launches_g, launches_hi, launches_j, launches_k, tools_src
+
+
+FILER_COLLECTION = "hafiler"  # 17k: the filer's chunks (bodies of SEED + 20)
+FILER_SMALL = 16  # 17k: files under the inline limit, in their entries
+FILER_BIG = (48 << 20, 64 << 20)  # 17k: files of 1-12 MiB in 4 MiB chunks, this much in all
+FILER_MANY_CHUNK = 1024  # 17k: the one file past 1000 chunks, cut this fine
+FILER_MANY_CHUNKS = 1002
+
+
+def redial_connection(url: str, timeout: float):
+    """utils/urls.connection with the smoke's redial for http URLs: 17k's
+    filers open a loopback connection per chunk request."""
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    return RedialConnection(parts.hostname, parts.port or 80, timeout=timeout)
+
+
+def filer_check(root: str, ctx, hx) -> tuple[dict, dict]:
+    """17k: two port Filers on phase 17's cluster, in this process. A on an
+    SSTableStore and B on a SqliteStore, each with a MetaLog and a
+    FilerGrpcService on a grpc.server started here, B following A with a
+    MetaAggregator. Through A, in a collection of its own: small files
+    (inlined), files of 1-12 MiB in 4 MiB chunks and one file of
+    FILER_MANY_CHUNKS chunks (a manifest entry). gRPC round trips on A:
+    lookup, list, rename, hard link, KV, LockRange, and DeleteEntry with
+    is_delete_data, whose needles answer 404 after flush_gc. B must list
+    A's namespace entry for entry. The shell's ec.encode seals the
+    collection's volume (the holder launches gf2_apply once per batch),
+    data shard 0 is unmounted at the holder, and every file reads back
+    through B sha256-equal with B's chunk cache cold: gf2_apply_planes
+    launches == the holder's interval-cache loads, and nothing else
+    launches. SubscribeMetadata from 0 on A yields every event A logged.
+    `hx` holds ha_phase's helpers. Returns (the step's numbers, launches)."""
+    from concurrent import futures as cf
+
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.filer import Filer, SqliteStore, SSTableStore
+    from seaweedfs_tpu_torch.filer.grpc_service import FilerGrpcService
+    from seaweedfs_tpu_torch.filer.meta_aggregator import MetaAggregator
+    from seaweedfs_tpu_torch.filer.meta_log import MetaLog
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.shell.commands import run_command
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils import urls
+
+    t_all = time.perf_counter()
+    d = os.path.join(root, "filer")
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    plain_connection = urls.connection
+    urls.connection = redial_connection
+    servers, channels, filers, logs, agg = [], [], [], [], None
+    redials0 = CONNECT_RETRIES[0]
+    try:
+        def hosted(name: str, store):
+            f = Filer(store, master=hx.lead, collection=FILER_COLLECTION)
+            ml = MetaLog(os.path.join(d, name, "meta"))
+            f.subscribe(ml)
+            srv = grpc.server(cf.ThreadPoolExecutor(max_workers=8))
+            rpc.add_service(srv, rpc.FILER_SERVICE, FilerGrpcService(f, ml))
+            port = srv.add_insecure_port("127.0.0.1:0")
+            srv.start()
+            servers.append(srv)
+            filers.append(f)
+            logs.append(ml)
+            return f, ml, f"127.0.0.1:{port}"
+
+        a, a_log, a_addr = hosted("a", SSTableStore(os.path.join(d, "a", "store")))
+        b, b_log, _ = hosted("b", SqliteStore(os.path.join(d, "b", "filer.db")))
+        caused = []
+        a.subscribe(caused.append)
+        agg = MetaAggregator(b, [a_addr], client_name="17k")
+        agg.start()
+        ch = grpc.insecure_channel(a_addr)
+        channels.append(ch)
+        st = rpc.filer_stub(ch)
+
+        def ok(resp, what: str):
+            if resp.error:
+                raise AssertionError(f"17k: {what} answered {resp.error!r}")
+            return resp
+
+        # -- writes through A ------------------------------------------------------
+        rng = np.random.default_rng(SEED + 20)
+        want: dict = {}  # path -> sha256 of its body
+        t0 = time.perf_counter()
+        small_bytes = 0
+        for i in range(FILER_SMALL):
+            body = rng.bytes(int(rng.integers(1, 512)))
+            small_bytes += len(body)
+            e = a.write_file(f"/17k/small/s{i:02d}.txt", body, mime="text/plain")
+            if e.chunks or e.content != body:
+                raise AssertionError(f"17k: a {len(body)}-byte file was not inlined")
+            want[e.full_path] = hashlib.sha256(body).hexdigest()
+        big_bytes, i = 0, 0
+        while big_bytes < FILER_BIG[0]:
+            n = max(min(int(rng.integers(1 << 20, (12 << 20) + 1)), FILER_BIG[1] - big_bytes), 1 << 20)
+            body = rng.bytes(n)
+            e = a.write_file(f"/17k/big/b{i:02d}.bin", body)
+            if [c.size for c in e.chunks] != [min(4 << 20, n - off) for off in range(0, n, 4 << 20)]:
+                raise AssertionError(f"17k: a {n}-byte file landed in chunks {[c.size for c in e.chunks]}")
+            want[e.full_path] = hashlib.sha256(body).hexdigest()
+            big_bytes += n
+            i += 1
+        big_s = time.perf_counter() - t0
+        a.chunk_size = FILER_MANY_CHUNK
+        many = rng.bytes(FILER_MANY_CHUNK * (FILER_MANY_CHUNKS - 1) + 17)
+        t1 = time.perf_counter()
+        e = a.write_file("/17k/many.bin", many)
+        many_s = time.perf_counter() - t1
+        a.chunk_size = 4 << 20
+        if [c.is_chunk_manifest for c in e.chunks] != [True, True]:
+            raise AssertionError(f"17k: {FILER_MANY_CHUNKS} chunks made {len(e.chunks)} entry chunks")
+        want[e.full_path] = hashlib.sha256(many).hexdigest()
+        doomed = rng.bytes(3 << 19)
+        e = a.write_file("/17k/doomed.bin", doomed)
+        doomed_fids = [c.fid for c in e.chunks]
+        write_s = time.perf_counter() - t0
+        written = small_bytes + big_bytes + len(many) + len(doomed)
+        vids = {FileId.parse(c.fid).volume_id for c in e.chunks} | {
+            FileId.parse(c.fid).volume_id for p in want for c in a.find_entry(p).chunks} | {
+            FileId.parse(c.fid).volume_id for c in a.resolve_chunks(a.find_entry("/17k/many.bin"))}
+        if len(vids) != 1:
+            raise AssertionError(f"17k: the filer's chunks spread over volumes {sorted(vids)}")
+        (vid,) = vids
+        (h,) = hx.lookup(vid)
+
+        # -- gRPC round trips on A -------------------------------------------------
+        t1 = time.perf_counter()
+        r = ok(st.LookupDirectoryEntry(fpb.LookupEntryRequest(directory="/17k", name="many.bin"),
+                                       timeout=30), "LookupDirectoryEntry")
+        if [c.is_chunk_manifest for c in r.entry.chunks] != [True, True] or \
+                r.entry.attributes.file_size != len(many):
+            raise AssertionError("17k: LookupDirectoryEntry of the manifest file differs")
+        listed = [x.entry.name for x in st.ListEntries(fpb.ListEntriesRequest(
+            directory="/17k/big", limit=1000), timeout=30)]
+        if listed != sorted(p.rsplit("/", 1)[1] for p in want if p.startswith("/17k/big/")):
+            raise AssertionError(f"17k: ListEntries answered {listed}")
+        ok(st.AtomicRenameEntry(fpb.AtomicRenameEntryRequest(
+            old_directory="/17k/big", old_name="b00.bin", new_directory="/17k/renamed",
+            new_name="b00.bin"), timeout=30), "AtomicRenameEntry")
+        want["/17k/renamed/b00.bin"] = want.pop("/17k/big/b00.bin")
+        src = max(p for p in want if p.startswith("/17k/big/"))
+        ok(st.HardLink(fpb.HardLinkRequest(src_path=src, dst_path="/17k/links/linked.bin"),
+                       timeout=30), "HardLink")
+        want["/17k/links/linked.bin"] = want[src]
+        ok(st.KvPut(fpb.FilerKvPutRequest(key=b"17k", value=b"kv"), timeout=30), "KvPut")
+        if st.KvGet(fpb.FilerKvGetRequest(key=b"17k"), timeout=30).value != b"kv":
+            raise AssertionError("17k: KvGet does not give KvPut's value back")
+        lk = [st.LockRange(fpb.LockRangeRequest(path="/17k/many.bin", owner=o, start=0, end=100,
+                                                exclusive=True, op=op), timeout=30)
+              for o, op in (("x", 0), ("y", 0), ("y", 2), ("x", 1), ("y", 0))]
+        if [(x.granted, x.conflict_owner) for x in lk] != [
+                (True, ""), (False, "x"), (False, "x"), (True, ""), (True, "")]:
+            raise AssertionError(f"17k: LockRange answered {lk}")
+        ok(st.DeleteEntry(fpb.DeleteEntryRequest(directory="/17k", name="doomed.bin",
+                                                 is_delete_data=True), timeout=30), "DeleteEntry")
+        rpc_s = time.perf_counter() - t1
+
+        # -- B converges on A, from A's last event ---------------------------------
+        def namespace(f, top="/") -> list:
+            out = []
+            for x in f.store.list(top, limit=100_000):
+                out.append((x.full_path, x.to_proto().SerializeToString(deterministic=True)))
+                if x.is_directory:
+                    out += namespace(f, x.full_path)
+            return out
+
+        ns = namespace(a)
+        wait_until(lambda: namespace(b) == ns, "B listing A's namespace", phase="17k")
+        converge_s = time.perf_counter() - t1 - rpc_s
+        t1 = time.perf_counter()
+        a.flush_gc()
+        wait_until(lambda: all(http(f"http://{hx.url[h]}/{fid}")[0] == 404 for fid in doomed_fids),
+                   "the deleted file's needles answering 404", phase="17k")
+        gc_s = time.perf_counter() - t1
+
+        # -- seal the collection, one data shard gone, read through B --------------
+        dat = os.path.getsize(os.path.join(root, h, f"{FILER_COLLECTION}_{vid}.dat"))
+        n_batches = len(list(batch_plan(dat, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+        before = {n: hx.kernels(n)["launches"] for n in hx.up}
+        t1 = time.perf_counter()
+        out = run_command(hx.fenv, f"ec.encode -volumeId {vid} -collection {FILER_COLLECTION}")
+        enc_s = time.perf_counter() - t1
+        if not re.fullmatch(rf"ec\.encode volume {vid}: generation \d+ on {re.escape(hx.url[h])}", out):
+            raise AssertionError(f"17k: ec.encode answered {out!r}")
+        wait_until(lambda: hx.spread(vid) == dict.fromkeys(range(ctx.total), h),
+                      "the filer volume's 14 shards listed at the holder", phase="17k")
+        enc = hx.launched(before)
+        if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
+            raise AssertionError(f"17k: ec.encode launched {enc} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        with grpc.insecure_channel(hx.gaddr[h]) as vch:
+            rpc.volume_stub(vch).VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
+        wait_until(lambda: hx.alive() or 0 not in hx.ec_holders(hx.lead, vid),
+                      "shard 0 of the filer volume leaving the leader's listing", phase="17k")
+        before = {n: hx.kernels(n)["launches"] for n in hx.up}
+        loads0 = hx.kernels(h)["interval_cache"]["loads"]
+        lat, big_read_s = [], 0.0
+        t1 = time.perf_counter()
+        for path, digest in want.items():
+            t2 = time.perf_counter()
+            got = b.read_file(path)
+            dt = time.perf_counter() - t2
+            if b.find_entry(path).chunks:
+                lat.append(dt)
+            if "/17k/big/" in path or "/17k/renamed/" in path:
+                big_read_s += dt
+            if hashlib.sha256(got).hexdigest() != digest:
+                raise AssertionError(f"17k: {path} read through B differs from what A wrote")
+        read_s = time.perf_counter() - t1
+        got = hx.launched(before)
+        recon = hx.kernels(h)["interval_cache"]["loads"] - loads0
+        if got["gf2_apply_planes"] != recon or recon < 1 or got["gf2_apply"]:
+            raise AssertionError(f"17k: the reads through B launched {got} for {recon} reconstructions")
+        launches["gf2_apply_planes"] += recon
+
+        # -- A's whole event stream ------------------------------------------------
+        logged = a_log.read_since(0, limit=1_000_000)
+        evs = []
+        call = st.SubscribeMetadata(fpb.SubscribeMetadataRequest(client_name="17k", since_ns=0),
+                                    timeout=60)
+        for ev in call:
+            evs.append(ev.ts_ns)
+            if len(evs) == len(logged):
+                break
+        call.cancel()
+        if evs != [rec["tsNs"] for rec in logged] or len(evs) != len(caused) or \
+                evs != [ev.ts_ns for ev in caused]:
+            raise AssertionError(f"17k: SubscribeMetadata from 0 gave {len(evs)} events; A logged "
+                                 f"{len(logged)} and caused {len(caused)}")
+        step = {
+            "files": len(want), "small_files": FILER_SMALL, "bytes": written,
+            "big_bytes": big_bytes, "write_seconds": write_s,
+            "write_mb_per_s": written / write_s / 1e6,
+            "big_write_mb_per_s": big_bytes / big_s / 1e6,
+            "many_chunks": FILER_MANY_CHUNKS, "many_write_seconds": many_s,
+            "rpc_seconds": rpc_s, "converged_s": converge_s, "gc_to_404_s": gc_s,
+            "entries": len(ns),
+            "applied_by_b": agg.applied, "volume": vid, "holder": h, "dat_size": dat,
+            "encode_seconds": enc_s, "encode_launches": n_batches,
+            "read_seconds": read_s, "big_read_mb_per_s": big_bytes / big_read_s / 1e6,
+            "degraded_read_p50_ms": percentile_ms(lat, 50),
+            "degraded_read_p99_ms": percentile_ms(lat, 99), "reconstructions": recon,
+            "planes_launches": recon, "events": len(evs),
+            "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_all}
+    finally:
+        urls.connection = plain_connection
+        if agg is not None:
+            agg.stop()
+        for ch in channels:
+            ch.close()
+        for srv in servers:
+            srv.stop(grace=None)
+        for f in filers:
+            f.close()
+        for ml in logs:
+            ml.close()
+    return step, launches
 
 
 def images_have_pil() -> bool:
@@ -6285,8 +6577,8 @@ def main() -> int:
 
         # -- 17. a cluster of the port alone, every process started by name ------------
         t0 = time.perf_counter()
-        ha, ha_launches, shell_launches, fleet_launches, last_launches, tools_src = ha_phase(
-            work, ctx, vol_rng_state)
+        ha, ha_launches, shell_launches, fleet_launches, last_launches, filer_launches, tools_src = \
+            ha_phase(work, ctx, vol_rng_state)
         print("cluster of the port by name (three masters as one raft group, four volume servers "
               "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
               "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
@@ -6311,6 +6603,15 @@ def main() -> int:
               "reconstructions; the telemetry collector holds the leader's report): " + json.dumps(
                   {k: v for k, v in ha["steps"].items() if k.startswith("17j")}) + f"; card: "
               f"{card_line()}")
+        print("17k the filer (two port Filers in this process, A on an SSTableStore and B on a "
+              "SqliteStore, each with a MetaLog and a FilerGrpcService, B's MetaAggregator "
+              "following A; small files inlined, 1-12 MiB files in 4 MiB chunks and one manifest "
+              "file written through A; gRPC lookup, list, rename, hard link, KV, LockRange and "
+              "DeleteEntry on A, the deleted needles 404; B lists A's namespace; the shell's "
+              "ec.encode seals the collection, launches == batches; data shard 0 unmounted, "
+              "every file read through B with its chunk cache cold sha256-equal, planes launches "
+              "== reconstructions; SubscribeMetadata from 0 gives every event A logged): "
+              + json.dumps(ha["steps"]["17k filer"]) + f"; card: {card_line()}")
 
         # -- the offline tools on 17j's scratch copy, while phase 18's TLS server
         # child starts --------------------------------------------------------------
@@ -6352,7 +6653,8 @@ def main() -> int:
           "17 cluster by name": ha_launches["gf2_apply"],
           "17g shell": shell_launches["gf2_apply"],
           "17h-17i worker fleet": fleet_launches["gf2_apply"],
-          "17j thumbnails": last_launches["gf2_apply"], "18 tls": tls_launches["gf2_apply"]},
+          "17j thumbnails": last_launches["gf2_apply"], "17k filer": filer_launches["gf2_apply"],
+          "18 tls": tls_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -6366,6 +6668,7 @@ def main() -> int:
           "17g shell": shell_launches["gf2_apply_planes"],
           "17h-17i worker fleet": fleet_launches["gf2_apply_planes"],
           "17j thumbnails": last_launches["gf2_apply_planes"],
+          "17k filer": filer_launches["gf2_apply_planes"],
           "18 tls": tls_launches["gf2_apply_planes"]},
          read_row, prows),
     ):

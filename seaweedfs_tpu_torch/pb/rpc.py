@@ -2,9 +2,9 @@
 both server handlers and client stubs are built.
 
 Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services the port serves
-or calls: every RPC of the master, of the volume server, of raft and of
-the worker fleet's control plane. The filer and MQ services are not here
-yet. Server impls
+or calls: every RPC of the master, of the volume server, of raft, of the
+worker fleet's control plane and of the filer. The MQ services are not
+here yet. Server impls
 are plain classes with one method per RPC (same names); streaming RPCs
 take and return iterators, as generated servicers do. `add_service`
 registers exactly the rows of a table.
@@ -15,6 +15,7 @@ from __future__ import annotations
 import grpc
 
 from . import cluster_pb2 as pb
+from . import filer_pb2 as fpb
 from . import worker_pb2 as wk
 
 UNARY = "unary_unary"
@@ -23,6 +24,7 @@ BIDI = "stream_stream"
 
 MASTER_SERVICE = "sw.Seaweed"
 VOLUME_SERVICE = "sw.VolumeServer"
+FILER_SERVICE = "swfiler.SeaweedFiler"
 WORKER_SERVICE = "swworker.WorkerControl"
 RAFT_SERVICE = "sw.Raft"
 
@@ -77,6 +79,26 @@ SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
         "VolumeTailReceiver": (UNARY, pb.VolumeTailReceiverRequest, pb.VolumeTailReceiverResponse),
         "VolumeIncrementalCopy": (SERVER_STREAM, pb.VolumeIncrementalCopyRequest, pb.VolumeIncrementalCopyChunk),
         "ReadVolumeFileStatus": (UNARY, pb.VolumeFileStatusRequest, pb.VolumeFileStatusResponse),
+    },
+    # the RPCs filer/grpc_service.py serves: every row of the JAX table
+    FILER_SERVICE: {
+        "LookupDirectoryEntry": (UNARY, fpb.LookupEntryRequest, fpb.LookupEntryResponse),
+        "ListEntries": (SERVER_STREAM, fpb.ListEntriesRequest, fpb.ListEntriesResponse),
+        "CreateEntry": (UNARY, fpb.CreateEntryRequest, fpb.FilerOpResponse),
+        "UpdateEntry": (UNARY, fpb.UpdateEntryRequest, fpb.FilerOpResponse),
+        "DeleteEntry": (UNARY, fpb.DeleteEntryRequest, fpb.FilerOpResponse),
+        "AtomicRenameEntry": (UNARY, fpb.AtomicRenameEntryRequest, fpb.FilerOpResponse),
+        "SubscribeMetadata": (SERVER_STREAM, fpb.SubscribeMetadataRequest, fpb.FullEventNotification),
+        "AssignVolume": (UNARY, fpb.AssignVolumeRequest, fpb.AssignVolumeResponse),
+        "KvGet": (UNARY, fpb.FilerKvGetRequest, fpb.FilerKvGetResponse),
+        "KvPut": (UNARY, fpb.FilerKvPutRequest, fpb.FilerOpResponse),
+        "LockRange": (UNARY, fpb.LockRangeRequest, fpb.LockRangeResponse),
+        "HardLink": (UNARY, fpb.HardLinkRequest, fpb.FilerOpResponse),
+        "DistributedLock": (UNARY, fpb.DlmRequest, fpb.DlmResponse),
+        "RunLifecycle": (UNARY, fpb.LifecycleRunRequest, fpb.LifecycleRunResponse),
+        # volume location passthrough: mounts resolve chunk fids to
+        # volume-server URLs through the filer
+        "LookupVolume": (UNARY, pb.LookupVolumeRequest, pb.LookupVolumeResponse),
     },
     # worker/control.py's WorkerControl, hosted by the master
     WORKER_SERVICE: {
@@ -137,3 +159,7 @@ def volume_stub(channel: grpc.Channel) -> Stub:
 
 def worker_stub(channel: grpc.Channel) -> Stub:
     return Stub(channel, WORKER_SERVICE)
+
+
+def filer_stub(channel: grpc.Channel) -> Stub:
+    return Stub(channel, FILER_SERVICE)

@@ -7,10 +7,12 @@ concurrent degraded reads an extent is reconstructed exactly once and
 everyone else waits for the leader's bytes. The EC reconstructed-interval
 cache keys entries ``<vol>:<shard>:<gen>:<lo>:<hi>``: remount and
 unmount invalidate by bumping the generation (a stale in-flight load
-parks its result under the old key where no new reader looks).
+parks its result under the old key where no new reader looks). The filer
+keeps two more: its fid-keyed chunk cache (immutable bytes, so eviction
+only) and its path-keyed entry cache (`drop` on every mutation).
 
 A cache built with a `tier` ("ec_interval" for the EC volume's own
-cache) counts its hits, misses and singleflight waits in
+cache, "filer_chunk" and "filer_entry" for the filer's) counts its hits, misses and singleflight waits in
 ``sw_gateway_hot_cache_{hits,misses,singleflight_waits}_total{tier}``
 (utils/metrics.py).
 """
@@ -140,11 +142,13 @@ class ChunkCache:
             }[kind]
             counter.inc(tier=self.tier)
 
-    def get_or_load(self, key: str, loader):
+    def get_or_load(self, key: str, loader, admit=None):
         """Read-through with singleflight collapse: a hit returns the
         cached bytes; concurrent misses on `key` run `loader()` exactly
         ONCE (everyone receives the leader's bytes — or its exception).
-        The leader's result is admitted into the cache.
+        The leader's result is admitted into the cache unless `admit`
+        (bytes -> bool) rejects it (the filer's "one streaming chunk must
+        not flush the hot set" rule).
 
         Returns ``(data, source)`` with source one of ``"hit"`` (cache),
         ``"load"`` (this caller ran the loader), ``"wait"`` (joined
@@ -166,6 +170,7 @@ class ChunkCache:
 
         def lead(fl):
             data = loader()
+            admit_ok = admit is None or admit(data)
             # doomed-check + admission are ONE critical section: an
             # invalidation (which removes entries, detaches this
             # flight, and sets fl.doomed — all under this same lock,
@@ -174,7 +179,7 @@ class ChunkCache:
             # inserted; there is no window to admit stale bytes.
             with self._lock:
                 self.loads += 1
-                if not fl.doomed:
+                if not fl.doomed and admit_ok:
                     self._put_locked(key, data)
             return data
 
@@ -197,6 +202,18 @@ class ChunkCache:
         while self._bytes > self.capacity and self._data:
             _, evicted = self._data.popitem(last=False)
             self._bytes -= len(evicted)
+
+    def drop(self, key: str) -> None:
+        """Drop one key. A load already in flight for it is fenced as in
+        drop_prefix: its result goes to the callers that joined, but it
+        is never admitted, so an invalidation racing a read-through (the
+        filer entry cache's write-vs-lookup race) cannot be repopulated
+        by the pre-invalidation load."""
+        with self._lock:
+            old = self._data.pop(key, None)
+            if old is not None:
+                self._bytes -= len(old)
+            self._sf.doom(key)
 
     def _doom_inflight_locked(self, match) -> None:
         """Fence in-flight loads whose key satisfies `match`: each

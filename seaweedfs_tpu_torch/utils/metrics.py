@@ -380,7 +380,8 @@ net_bytes_copied_total = REGISTRY.counter(
 )
 
 # The serving path: the hot-object/chunk read-through cache tiers (tier =
-# filer_chunk | ec_interval; the port has the EC interval cache) and the
+# filer_chunk | filer_entry | ec_interval: the filer's chunk and entry
+# caches and the EC interval cache) and the
 # bounded worker-pool HTTP front ends (server = volume in the port).
 gateway_hot_cache_hits_total = REGISTRY.counter(
     "sw_gateway_hot_cache_hits_total",

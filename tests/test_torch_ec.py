@@ -356,7 +356,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
-    assert {"client", "ec", "faults", "mq", "ops", "pb", "server", "shell", "storage",
+    assert {"client", "ec", "faults", "filer", "mq", "ops", "pb", "server", "shell", "storage",
             "tools", "utils", "worker"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
@@ -366,7 +366,12 @@ def test_import_guard_scans_every_package_of_the_port():
                 "worker/__init__.py", "worker/__main__.py", "worker/worker.py",
                 "worker/control.py", "pb/worker_pb2.py", "utils/tls.py", "utils/pprof.py",
                 "utils/fastread.py", "utils/images.py", "utils/scaffold.py",
-                "utils/telemetry_server.py", "tools/__init__.py", "tools/__main__.py"):
+                "utils/telemetry_server.py", "tools/__init__.py", "tools/__main__.py",
+                "pb/filer_pb2.py", "filer/__init__.py", "filer/entry.py", "filer/chunks.py",
+                "filer/manifest.py", "filer/filer_store.py", "filer/abstract_sql_store.py",
+                "filer/sstable_store.py", "filer/locks.py", "filer/notification.py",
+                "filer/meta_log.py", "filer/filer.py", "filer/grpc_service.py",
+                "filer/meta_aggregator.py"):
         assert PORT / mod in _python_files(), mod
 
 
@@ -617,6 +622,15 @@ assert report["volumes"] == 1 and report["corrupt_shards"] == 0, report
 w.stop()
 env.close()
 assert http_req(vs.port, "GET", "/" + a["fid"]) == (200, b"assigned" * 99)
+# one file written and read back through the port's Filer, chunked
+from seaweedfs_tpu_torch.filer import Filer, SSTableStore
+
+filer = Filer(SSTableStore(os.path.join(d, "filer")), master=f"127.0.0.1:{mport}",
+              chunk_size=4096)
+body = rng.integers(0, 256, 10_000, dtype=np.uint8).tobytes()
+assert len(filer.write_file("/guard/f.bin", body).chunks) == 3
+assert filer.read_file("/guard/f.bin") == body
+filer.close()
 vs.stop()
 ms.stop()
 # a port master and volume server over https, then ?locate and the
