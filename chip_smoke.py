@@ -290,7 +290,18 @@ Phases:
    `ec.encode` seals the filer's volume (launches == batches), data
    shard 0 is unmounted and every file reads back through B sha256-equal
    (planes launches == the holder's reconstructions); SubscribeMetadata
-   from 0 gives every event A logged. Its own JSON line.
+   from 0 gives every event A logged. Its own JSON line. 17l drives the
+   filer server, a `filer` child by name started at 17k's beginning (its
+   start overlaps 17k) with `-notify.webhook` at a sink in this process:
+   through its HTTP plane a multipart PUT, a chunked-TE PUT, a TUS upload
+   in three PATCHes, raw PUTs, inlined files, `mv.from` and a recursive
+   DELETE; the shell's `ec.encode` seals its volume (launches ==
+   batches), data shard 0 is unmounted and every file reads back through
+   the child, whole and in ranges, sha256-equal (planes launches == the
+   holder's reconstructions); the sink's events equal `/~meta/tail`'s;
+   the shell's fs.ls, fs.du, fs.verify, volume.fsck and
+   cluster.lock.ring in this process answer what was written, with a
+   lease through `DlmClient` at the child. Its own JSON line.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -4866,6 +4877,8 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     launches_hi = {"gf2_apply": 0, "gf2_apply_planes": 0}
     launches_j = {"gf2_apply": 0, "gf2_apply_planes": 0}
     launches_k = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    launches_l = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    sink = None
     tools_src = None
     tport = free_port()
     try:
@@ -5684,17 +5697,32 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
                                   "wait_seconds": time.perf_counter() - t0}
         steps["17j"] = {"seconds": time.perf_counter() - t17j}
 
-        # -- 17k. the filer's core and its gRPC service on this cluster ----------------
+        # -- 17k. the filer's core and its gRPC service on this cluster, while 17l's
+        # filer child starts (its torch import overlaps 17k) ---------------------------
         import types
 
+        sink = WebhookSink()
+        fport = server_port()
+        os.makedirs(os.path.join(root, "filer17l"))
+        spawn("filer", ["filer", "-ip", "127.0.0.1", "-port", str(fport), "-master", ",".join(maddr),
+                        "-store", "sstable", "-dir", os.path.join(root, "filer17l"), "-collection",
+                        FILER_HTTP_COLLECTION, "-notify.webhook", sink.url])
+        serving: dict = {}
+        watcher = watch_serving(fport, time.perf_counter(), serving)
         hx = types.SimpleNamespace(lead=lead, url=url, gaddr=gaddr, up=up, kernels=kernels,
                                    launched=launched, spread=spread, lookup=lookup,
                                    ec_holders=ec_holders, fenv=fenv, alive=alive)
         steps["17k filer"], launches_k = filer_check(root, ctx, hx)
+
+        # -- 17l. the filer server, a child by name, through its HTTP plane ------------
+        steps["17l filer server"], launches_l = filer_http_check(root, ctx, hx, fport, serving,
+                                                                 watcher, sink)
         failed = False
     finally:
         if fenv is not None:
             fenv.close()
+        if sink is not None:
+            sink.stop()
         for ch in channels:
             ch.close()
         if shell is not None and shell.close() != 0:
@@ -5707,8 +5735,8 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     shutil.rmtree(root)
     result = {"steps": steps, "launches": launches, "launches_17g": launches_g,
               "launches_17h_17i": launches_hi, "launches_17j": launches_j,
-              "launches_17k": launches_k, "card": card_line()}
-    return result, launches, launches_g, launches_hi, launches_j, launches_k, tools_src
+              "launches_17k": launches_k, "launches_17l": launches_l, "card": card_line()}
+    return result, launches, launches_g, launches_hi, launches_j, launches_k, launches_l, tools_src
 
 
 FILER_COLLECTION = "hafiler"  # 17k: the filer's chunks (bodies of SEED + 20)
@@ -5973,6 +6001,300 @@ def filer_check(root: str, ctx, hx) -> tuple[dict, dict]:
             f.close()
         for ml in logs:
             ml.close()
+    return step, launches
+
+
+FILER_HTTP_COLLECTION = "hafilerhttp"  # 17l: the filer child's chunks (bodies of SEED + 21)
+FILER_HTTP_SMALL = 8  # 17l: files under the inline limit, in their entries
+FILER_HTTP_SIZES = {  # 17l: the chunked files and how each is written (about 21 MiB)
+    "/17l/multipart.bin": (6 << 20, "multipart"), "/17l/chunked.bin": ((5 << 20) + 4321, "chunked"),
+    "/17l/tus.bin": ((6 << 20) + 77, "tus"), "/17l/raw/r0.bin": (3 << 20, "raw"),
+    "/17l/raw/r1.bin": ((3 << 19) + 123, "raw")}
+FILER_HTTP_DOOMED = (200_000, 300_000)  # 17l: a directory's files, deleted recursively
+FILER_CHILD_START_S = 180.0  # 17l: the child's wait to serve (its torch import included)
+
+
+class WebhookSink:
+    """17l's webhook: a local HTTP server in this process keeping every
+    event the filer child POSTs, and when the last one came."""
+
+    def __init__(self):
+        import http.server
+
+        sink = self
+        self.events: list = []
+        self.last_at = 0.0
+        self.lock = threading.Lock()
+
+        class Hook(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                doc = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                with sink.lock:
+                    sink.events.append(doc)
+                    sink.last_at = time.perf_counter()
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/events"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def watch_serving(port: int, t_spawn: float, out: dict) -> threading.Thread:
+    """A thread that polls the filer child's /debug/slo until it answers:
+    `out["serving_s"]` is then the seconds from its spawn."""
+    def poll():
+        deadline = t_spawn + FILER_CHILD_START_S
+        while time.perf_counter() < deadline:
+            try:
+                c = HTTPConnection("127.0.0.1", port, timeout=2)
+                c.request("GET", "/debug/slo")
+                ok = c.getresponse().status == 200
+                c.close()
+                if ok:
+                    out["serving_s"] = time.perf_counter() - t_spawn
+                    return
+            except OSError:
+                pass
+            time.sleep(0.1)
+
+    t = threading.Thread(target=poll, daemon=True)
+    t.start()
+    return t
+
+
+def filer_http_check(root: str, ctx, hx, fport: int, serving: dict, watcher, sink) -> tuple[dict, dict]:
+    """17l: the filer child (`python3 -m seaweedfs_tpu_torch.server filer`,
+    started at 17k's beginning with `-master <the group> -store sstable` and
+    `-notify.webhook` at `sink`) through its HTTP plane. Writes: a multipart
+    PUT, a chunked-TE PUT, a TUS upload in three PATCHes, raw PUTs, inlined
+    small files, a `mv.from`, and a directory deleted recursively (its
+    needles answer 404 at the holder). The shell's ec.encode seals the
+    collection's volume (gf2_apply launches at the holder == its batches),
+    data shard 0 is unmounted there, and every file reads back through the
+    child, whole and in ranges, sha256-equal (gf2_apply_planes launches ==
+    the holder's interval-cache loads). The sink's events equal
+    /~meta/tail's. In this process the shell's fs.ls, fs.du, fs.verify,
+    volume.fsck and cluster.lock.ring answer what was written, the lease
+    taken and given back through `DlmClient` at the child's gRPC port.
+    Returns (the step's numbers, launches)."""
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.filer.lock_ring import DlmClient
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    import grpc
+
+    t_all = time.perf_counter()
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    base = f"http://127.0.0.1:{fport}"
+    watcher.join(timeout=max(FILER_CHILD_START_S - (time.perf_counter() - t_all), 1.0))
+    hx.alive()
+    if "serving_s" not in serving:
+        raise AssertionError(f"17l: the filer child did not serve in {FILER_CHILD_START_S} s")
+
+    def call(path: str, method: str = "GET", body=None, headers=None, want: int = 200):
+        code, hdrs, got = http(base + path, method, body, headers)
+        if code != want:
+            raise AssertionError(f"17l: {method} {path} answered {code} {got[:300]!r}, not {want}")
+        return hdrs, got
+
+    # -- writes through the child's HTTP plane ---------------------------------------
+    rng = np.random.default_rng(SEED + 21)
+    want: dict = {}  # path -> body
+    t0 = time.perf_counter()
+    for i in range(FILER_HTTP_SMALL):
+        body = rng.bytes(int(rng.integers(1, 512)))
+        call(f"/17l/small/s{i}.txt", "POST", body, {"Content-Type": "text/plain"}, want=201)
+        want[f"/17l/small/s{i}.txt"] = body
+    tus_parts = 0
+    for path, (n, how) in FILER_HTTP_SIZES.items():
+        body = rng.bytes(n)
+        if how == "multipart":
+            payload, hdrs = multipart_upload(body, os.path.basename(path))
+            call(path, "PUT", payload, hdrs, want=201)
+        elif how == "chunked":
+            # an iterable body with no length goes out with chunked transfer coding
+            call(path, "PUT", iter([body[i:i + (1 << 20)] for i in range(0, n, 1 << 20)]),
+                 {"Content-Type": "application/octet-stream"}, want=201)
+        elif how == "tus":
+            hdrs, _ = call(path, "POST", b"", {"Tus-Resumable": "1.0.0", "Upload-Length": str(n)},
+                           want=201)
+            loc = hdrs["Location"]
+            cuts = [0, n // 3, 2 * n // 3, n]
+            for lo, hi in zip(cuts, cuts[1:]):
+                hdrs, _ = call(loc, "PATCH", body[lo:hi], {"Tus-Resumable": "1.0.0",
+                                                          "Upload-Offset": str(lo)}, want=204)
+                if int(hdrs["Upload-Offset"]) != hi:
+                    raise AssertionError(f"17l: a PATCH ended at {hdrs['Upload-Offset']}, not {hi}")
+                tus_parts += 1
+            call(loc, "HEAD", headers={"Tus-Resumable": "1.0.0"}, want=404)  # completed
+        else:
+            call(path, "PUT", body, want=201)
+        want[path] = body
+    call("/17l/doomed/", "POST", b"", want=201)
+    doomed = {}
+    for i, n in enumerate(FILER_HTTP_DOOMED):
+        doomed[f"/17l/doomed/d{i}.bin"] = rng.bytes(n)
+        call(f"/17l/doomed/d{i}.bin", "PUT", doomed[f"/17l/doomed/d{i}.bin"], want=201)
+    doomed_fids = [f for p in doomed for f in json.loads(call(p + "?chunks=true")[1])["chunks"]]
+    call("/17l/moved/r0.bin?mv.from=/17l/raw/r0.bin", "POST", b"", want=200)
+    want["/17l/moved/r0.bin"] = want.pop("/17l/raw/r0.bin")
+    call("/17l/doomed", "DELETE", want=409)  # not empty
+    call("/17l/doomed?recursive=true", "DELETE", want=204)
+    t_last_write = time.perf_counter()
+    write_s = t_last_write - t0
+    written = sum(len(b) for b in want.values()) + sum(len(b) for b in doomed.values())
+    fids = {p: json.loads(call(p + "?chunks=true")[1])["chunks"] for p in want}
+    chunked = [p for p in want if fids[p]]
+    vids = {FileId.parse(f).volume_id for fs in fids.values() for f in fs} | {
+        FileId.parse(f).volume_id for f in doomed_fids}
+    if len(vids) != 1:
+        raise AssertionError(f"17l: the child's chunks spread over volumes {sorted(vids)}")
+    (vid,) = vids
+    (h,) = hx.lookup(vid)
+    wait_until(lambda: all(http(f"http://{hx.url[h]}/{f}")[0] == 404 for f in doomed_fids),
+               "the deleted directory's needles answering 404", phase="17l")
+
+    # -- seal the collection, one data shard gone ------------------------------------
+    dat = os.path.getsize(os.path.join(root, h, f"{FILER_HTTP_COLLECTION}_{vid}.dat"))
+    n_batches = len(list(batch_plan(dat, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+    before = {n: hx.kernels(n)["launches"] for n in hx.up}
+    t1 = time.perf_counter()
+    out = run_command(hx.fenv, f"ec.encode -volumeId {vid} -collection {FILER_HTTP_COLLECTION}")
+    enc_s = time.perf_counter() - t1
+    if not re.fullmatch(rf"ec\.encode volume {vid}: generation \d+ on {re.escape(hx.url[h])}", out):
+        raise AssertionError(f"17l: ec.encode answered {out!r}")
+    wait_until(lambda: hx.spread(vid) == dict.fromkeys(range(ctx.total), h),
+               "the child's volume's 14 shards listed at the holder", phase="17l")
+    enc = hx.launched(before)
+    if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
+        raise AssertionError(f"17l: ec.encode launched {enc} for {n_batches} batches")
+    launches["gf2_apply"] += n_batches
+    with grpc.insecure_channel(hx.gaddr[h]) as vch:
+        rpc.volume_stub(vch).VolumeEcShardsUnmount(
+            pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
+    wait_until(lambda: hx.alive() or 0 not in hx.ec_holders(hx.lead, vid),
+               "shard 0 of the child's volume leaving the leader's listing", phase="17l")
+
+    # -- every file back through the child, whole and in ranges ----------------------
+    before = {n: hx.kernels(n)["launches"] for n in hx.up}
+    loads0 = hx.kernels(h)["interval_cache"]["loads"]
+    lat, ranges = [], 0
+    t1 = time.perf_counter()
+    for path, body in want.items():
+        t2 = time.perf_counter()
+        hdrs, got = call(path)
+        if fids[path]:
+            lat.append(time.perf_counter() - t2)
+        if hashlib.sha256(got).hexdigest() != hashlib.sha256(body).hexdigest():
+            raise AssertionError(f"17l: {path} read through the child differs from what was written")
+        n = len(body)
+        for rng_hdr, lo, hi in ((f"bytes={(4 << 20) - 100}-{(4 << 20) + 99}", (4 << 20) - 100,
+                                 (4 << 20) + 100), ("bytes=-1000", max(n - 1000, 0), n),
+                                (f"bytes={n // 2}-", n // 2, n)):
+            if lo >= n:
+                continue
+            hdrs, got = call(path, headers={"Range": rng_hdr}, want=206)
+            if got != body[lo:hi] or hdrs["Content-Range"] != f"bytes {lo}-{min(hi, n) - 1}/{n}":
+                raise AssertionError(f"17l: {path} {rng_hdr} answered {hdrs['Content-Range']}")
+            ranges += 1
+        call(path, headers={"Range": f"bytes={n}-"}, want=416)
+    read_s = time.perf_counter() - t1
+    got = hx.launched(before)
+    recon = hx.kernels(h)["interval_cache"]["loads"] - loads0
+    if got["gf2_apply_planes"] != recon or recon < 1 or got["gf2_apply"]:
+        raise AssertionError(f"17l: the reads through the child launched {got} for {recon} "
+                             "reconstructions")
+    launches["gf2_apply_planes"] += recon
+
+    # -- the webhook's events are the meta tail's ------------------------------------
+    tail = json.loads(call("/~meta/tail?sinceNs=0&limit=1000000")[1])
+    wait_until(lambda: hx.alive() or len(sink.events) >= len(tail["events"]),
+               "the webhook sink receiving every event", phase="17l")
+    with sink.lock:
+        events, last_at = list(sink.events), sink.last_at
+    if events != tail["events"] or tail["droppedBeforeTsNs"] != 0:
+        raise AssertionError(f"17l: the sink holds {len(events)} events, the tail "
+                             f"{len(tail['events'])}; they differ")
+
+    # -- the shell in this process, at the child -------------------------------------
+    env = ShellEnv(hx.lead, f"127.0.0.1:{fport}")
+    dlm = DlmClient([f"127.0.0.1:{fport + 10000}"])
+    before = {n: hx.kernels(n)["launches"] for n in hx.up}
+    loads0 = hx.kernels(h)["interval_cache"]["loads"]
+    t1 = time.perf_counter()
+    try:
+        listing = json.loads(call("/17l")[1])["Entries"]
+        files = {p: len(b) for p, b in want.items() if p.count("/") == 2}
+        if {e["FullPath"]: e["FileSize"] for e in listing if not e["IsDirectory"]} != files:
+            raise AssertionError(f"17l: the listing of /17l holds {listing}")
+        expect = {
+            "fs.ls /17l": "\n".join(f"{'d' if e['IsDirectory'] else '-'} {e['FileSize']:>12} "
+                                    f"{e['FullPath']}" for e in listing),
+            "fs.du /17l": f"{sum(len(b) for b in want.values()):,} bytes in {len(want)} files, "
+                          "3 directories under /17l",
+            "cluster.lock.ring": "no live leases",
+        }
+        # volume.fsck reads each chunk through ReadNeedle on a channel with
+        # gRPC's default 4 MiB receive limit, in both packages: a 4 MiB
+        # chunk answers RESOURCE_EXHAUSTED (ROADMAP Queue 3), so it checks
+        # the directories whose chunks are smaller
+        for d in ("/17l/raw", "/17l/moved", "/17l/small"):
+            under = [p for p in want if p.startswith(d + "/")]
+            expect[f"volume.fsck -path {d}"] = (
+                f"fsck: {len(under)} entries, {sum(len(fids[p]) for p in under)} chunk references "
+                "checked\nno broken chunk references")
+        for p in chunked:
+            expect[f"fs.verify {p}"] = (f"{p}: {len(want[p])} bytes readable, md5 "
+                                        f"{hashlib.md5(want[p]).hexdigest()}")
+        shell = {}
+        for cmd, line in expect.items():
+            shell[cmd] = run_command(env, cmd)
+            if shell[cmd] != line:
+                raise AssertionError(f"17l: {cmd} answered {shell[cmd]!r}, not {line!r}")
+        lease = dlm.lock("17l/lock", "smoke", ttl=30.0)
+        ring = run_command(env, "cluster.lock.ring")
+        if not lease.ok or not re.fullmatch(r"17l/lock +smoke +\d+\.\ds", ring):
+            raise AssertionError(f"17l: the lease {lease} and cluster.lock.ring {ring!r}")
+        if not dlm.unlock("17l/lock", lease.token).ok or \
+                run_command(env, "cluster.lock.ring") != "no live leases":
+            raise AssertionError("17l: the lease was not given back through the ring")
+    finally:
+        dlm.close()
+        env.close()
+    shell_s = time.perf_counter() - t1
+    got = hx.launched(before)
+    recon2 = hx.kernels(h)["interval_cache"]["loads"] - loads0
+    if got["gf2_apply_planes"] != recon2 or got["gf2_apply"]:
+        raise AssertionError(f"17l: the shell's reads launched {got} for {recon2} reconstructions")
+    launches["gf2_apply_planes"] += recon2
+    step = {
+        "child_start_to_serving_s": serving["serving_s"], "files": len(want),
+        "chunked_files": len(chunked), "small_files": FILER_HTTP_SMALL, "tus_patches": tus_parts,
+        "chunks": sum(len(f) for f in fids.values()), "bytes": written,
+        "write_seconds": write_s, "write_mb_per_s": written / write_s / 1e6,
+        "volume": vid, "holder": h, "dat_size": dat, "encode_seconds": enc_s,
+        "encode_launches": n_batches, "read_seconds": read_s, "ranges": ranges,
+        "read_mb_per_s": sum(len(want[p]) for p in chunked) / sum(lat) / 1e6,
+        "degraded_read_p50_ms": percentile_ms(lat, 50),
+        "degraded_read_p99_ms": percentile_ms(lat, 99), "reconstructions": recon,
+        "shell_reconstructions": recon2, "events": len(events),
+        "last_webhook_after_last_write_s": last_at - t_last_write, "shell_seconds": shell_s,
+        "seconds_after_serving": time.perf_counter() - t_all}
     return step, launches
 
 
@@ -6577,8 +6899,8 @@ def main() -> int:
 
         # -- 17. a cluster of the port alone, every process started by name ------------
         t0 = time.perf_counter()
-        ha, ha_launches, shell_launches, fleet_launches, last_launches, filer_launches, tools_src = \
-            ha_phase(work, ctx, vol_rng_state)
+        (ha, ha_launches, shell_launches, fleet_launches, last_launches, filer_launches,
+         server_filer_launches, tools_src) = ha_phase(work, ctx, vol_rng_state)
         print("cluster of the port by name (three masters as one raft group, four volume servers "
               "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
               "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
@@ -6612,6 +6934,15 @@ def main() -> int:
               "every file read through B with its chunk cache cold sha256-equal, planes launches "
               "== reconstructions; SubscribeMetadata from 0 gives every event A logged): "
               + json.dumps(ha["steps"]["17k filer"]) + f"; card: {card_line()}")
+        print("17l the filer server (a `filer` child by name, -store sstable, -notify.webhook at a "
+              "sink in this process; through its HTTP plane a multipart PUT, a chunked-TE PUT, a "
+              "TUS upload in three PATCHes, raw PUTs, inlined files, mv.from and a recursive "
+              "DELETE whose needles 404; the shell's ec.encode, launches == batches; data shard 0 "
+              "unmounted, every file read back through the child whole and in ranges sha256-"
+              "equal, planes launches == reconstructions; the webhook's events == /~meta/tail's; "
+              "fs.ls, fs.du, fs.verify, volume.fsck and cluster.lock.ring in this process answer "
+              "what was written, a lease through DlmClient at the child): "
+              + json.dumps(ha["steps"]["17l filer server"]) + f"; card: {card_line()}")
 
         # -- the offline tools on 17j's scratch copy, while phase 18's TLS server
         # child starts --------------------------------------------------------------
@@ -6654,6 +6985,7 @@ def main() -> int:
           "17g shell": shell_launches["gf2_apply"],
           "17h-17i worker fleet": fleet_launches["gf2_apply"],
           "17j thumbnails": last_launches["gf2_apply"], "17k filer": filer_launches["gf2_apply"],
+          "17l filer server": server_filer_launches["gf2_apply"],
           "18 tls": tls_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
@@ -6669,6 +7001,7 @@ def main() -> int:
           "17h-17i worker fleet": fleet_launches["gf2_apply_planes"],
           "17j thumbnails": last_launches["gf2_apply_planes"],
           "17k filer": filer_launches["gf2_apply_planes"],
+          "17l filer server": server_filer_launches["gf2_apply_planes"],
           "18 tls": tls_launches["gf2_apply_planes"]},
          read_row, prows),
     ):

@@ -1,9 +1,10 @@
 """Filer: POSIX-ish metadata namespace over the blob store (layer 5).
 
 Port of seaweedfs_tpu/filer: the core (entries, chunks, manifests, the
-three stores, POSIX locks, the meta log, `Filer`), its gRPC service and
-the MetaAggregator, with the JAX export list. The filer's HTTP server,
-its lock ring and its notifiers come with ROADMAP item 12b.
+three stores, POSIX locks, the meta log, `Filer`), its gRPC service, the
+MetaAggregator, TUS uploads (tus.py), the lock ring (lock_ring.py) and
+the webhook notifier (notification.py), with the JAX export list. The
+HTTP server over it is server/filer_server.py.
 """
 
 from .chunks import ChunkView, read_chunk_views, total_size, visible_intervals

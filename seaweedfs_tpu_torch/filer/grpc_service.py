@@ -4,8 +4,9 @@ Port of seaweedfs_tpu/filer/grpc_service.py: every RPC of the JAX
 service, answering as it does, with one exception. RunLifecycle applies
 S3 lifecycle rules, and the port has no S3 yet (ROADMAP item 13a): it
 answers LifecycleRunResponse(error=...) naming that item. DistributedLock
-without a lock ring (filer/lock_ring.py comes with the filer server, item
-12b) answers "lock ring not configured", as the JAX service does.
+goes to the lock ring (filer/lock_ring.py) the filer server sets on the
+service; without one it answers "lock ring not configured", as the JAX
+service does.
 
 Reference: weed/pb/filer.proto service SeaweedFiler (Lookup/List/
 Create/Update/Delete/AtomicRename, SubscribeMetadata at

@@ -1,21 +1,27 @@
-"""`python -m seaweedfs_tpu_torch.server master|volume|server|telemetry|scaffold`:
+"""`python -m seaweedfs_tpu_torch.server master|volume|filer|server|telemetry|scaffold`:
 port servers by name.
 
-Port of seaweedfs_tpu/server/__main__.py, its `master`, `volume` and
-`server` modes (`server`: a master and a volume server in one process,
-reference `weed server`), `telemetry` (the phone-home collector,
+Port of seaweedfs_tpu/server/__main__.py, its `master`, `volume`, `filer`
+and `server` modes (`server`: a master and a volume server in one
+process, reference `weed server`, with a filer too under `-filer`, its
+metadata in `<dir>/filerdb`), `telemetry` (the phone-home collector,
 utils/telemetry_server.py) and `scaffold` (a config template,
 utils/scaffold.py, printed or written to `-output`/<name>.toml);
-argparse refuses the other modes (filer, mq.broker, ...). The flags are
-the JAX launcher's. A flag left unset is filled from `volume.toml` or
-`master.toml` (utils/config.py), then from the default; `-jwt.key` falls
-back to `security.toml`'s `jwt.signing.key`, and `-tls.cert`, `-tls.key`
-and `-tls.ca` each fall back to its `https.default.*` key, field by
-field. A certificate turns the node's HTTP listener into a TLS listener
-with hot reload (utils/tls.py), `-tls.ca` requires client certificates,
-and every internal hop of the process speaks https (`utils/urls.py`
-`enable_https`); gRPC stays plaintext, as in the JAX package. Where the
-two launchers differ, on purpose:
+argparse refuses the other modes (mq.broker, mq.agent). The flags are
+the JAX launcher's. A flag left unset is filled from `volume.toml`,
+`master.toml`, `filer.toml` (`sqlite.dbFile`: the filer's directory) or
+`notification.toml` (`notification.webhook.endpoint`) (utils/config.py),
+then from the default; `-jwt.key` falls back to `security.toml`'s
+`jwt.signing.key`, and `-tls.cert`, `-tls.key` and `-tls.ca` each fall
+back to its `https.default.*` key, field by field. A certificate turns
+the node's HTTP listeners into TLS listeners with hot reload
+(utils/tls.py), `-tls.ca` requires client certificates, and every
+internal hop of the process speaks https (`utils/urls.py`
+`enable_https`); gRPC stays plaintext, as in the JAX package. A filer
+(`-store sqlite|sstable|memory`, its gRPC on `-grpcPort` or port+10000,
+`-peers` for the lock ring and the MetaAggregator, `-notify.webhook` for
+a webhook sink) serves server/filer_server.py. Where the two launchers
+differ, on purpose:
 
 - `-ec.backend` takes cuda, cpu or auto and defaults to cuda, where the
   JAX default is auto; tpu is refused.
@@ -23,9 +29,9 @@ two launchers differ, on purpose:
   hops, since its servers require one; the JAX launcher points `requests`
   at the CA alone.
 - What needs a module the port does not have yet stops it with a
-  message, where the JAX launcher would start it: `server`'s `-filer`,
-  `-s3`, `-webdav`, `-sftp`, `-admin`, `-notify.webhook` and
-  `-notify.mq`.
+  message, where the JAX launcher would start it: `server`'s `-s3`,
+  `-webdav`, `-sftp` and `-admin`, and `-notify.mq` (ROADMAP item 14a)
+  of `filer` and `server`, from the flag or from `notification.toml`.
 
 The master's maintenance scanners (`-ec.autoFullness`, or
 `master.maintenance.ec_auto_fullness`; `-ec.scrubInterval`;
@@ -135,23 +141,40 @@ def _parser() -> argparse.ArgumentParser:
     _add_ec_trace_flags(v)
     _add_tls_flags(v)
 
+    f = sub.add_parser("filer")
+    f.add_argument("-ip", default="localhost")
+    f.add_argument("-port", type=int, default=8888)
+    f.add_argument("-master", default="localhost:9333")
+    f.add_argument("-dir", default=None)
+    f.add_argument("-collection", default="")
+    f.add_argument("-replication", default="")
+    f.add_argument("-jwt.key", dest="jwt_key", default="")
+    f.add_argument("-notify.webhook", dest="notify_webhook", default="")
+    f.add_argument("-notify.mq", dest="notify_mq", default="")
+    f.add_argument("-store", default="sqlite", choices=["sqlite", "sstable", "memory"],
+                   help="metadata backend (sstable = embedded WAL+SSTable engine)")
+    f.add_argument("-grpcPort", type=int, default=0, help="gRPC metadata API port (0 = port+10000)")
+    f.add_argument("-peers", default="", help="comma-separated peer filer gRPC addrs for multi-filer")
+    _add_tls_flags(f)
+
     s = sub.add_parser("server")
     s.add_argument("-ip", default="localhost")
     s.add_argument("-masterPort", type=int, default=9333)
     s.add_argument("-port", type=int, default=8080)
+    s.add_argument("-filerPort", type=int, default=8888)
+    s.add_argument("-filer", action="store_true", help="also run a filer")
     s.add_argument("-dir", action="append", required=True)
     s.add_argument("-max", type=int, default=None)
     s.add_argument("-ec.backend", dest="ec_backend", default=None,
                    help="cuda (the default), cpu or auto")
     s.add_argument("-jwt.key", dest="jwt_key", default="")
-    _add_scanner_flags(s, rebalance=False)
-    _add_ec_trace_flags(s)
-    # the JAX launcher's gateways and notifications, refused until their
-    # modules are ported
-    for flag in ("-filer", "-s3", "-webdav", "-sftp", "-admin"):
-        s.add_argument(flag, action="store_true", help="not served by the port yet")
     s.add_argument("-notify.webhook", dest="notify_webhook", default="")
     s.add_argument("-notify.mq", dest="notify_mq", default="")
+    _add_scanner_flags(s, rebalance=False)
+    _add_ec_trace_flags(s)
+    # the JAX launcher's gateways, refused until their modules are ported
+    for flag in ("-s3", "-webdav", "-sftp", "-admin"):
+        s.add_argument(flag, action="store_true", help="not served by the port yet")
     _add_tls_flags(s)
 
     ts = sub.add_parser("telemetry", help="telemetry collector server (reference telemetry/server)")
@@ -168,7 +191,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     """The parsed flags with the unset ones filled from `security.toml`,
-    `volume.toml` and `master.toml` (searched in `config_dirs`), then the
+    `volume.toml`, `master.toml`, `filer.toml` and `notification.toml`
+    (searched in `config_dirs`), then the
     defaults. SystemExit for a backend the port does not run and what
     needs a module the port does not have yet."""
     p = _parser()
@@ -203,13 +227,24 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
             a.ec_auto = float(mcfg.get("master.maintenance.ec_auto_fullness", 0.0))
         a.garbage_threshold = float(mcfg.get("master.vacuum.garbage_threshold", 0.3))
         a.vacuum_interval = float(mcfg.get("master.vacuum.interval_seconds", 60))
+    if a.mode in ("filer", "server"):
+        fcfg = load_config("filer", config_dirs)
+        if a.mode == "filer" and a.dir is None:
+            db = fcfg.get_str("sqlite.dbFile") if fcfg.get("sqlite.enabled") else ""
+            a.dir = (os.path.dirname(db) or ".") if db else "./filerdb"
+        ncfg = load_config("notification", config_dirs)
+        if ncfg:
+            if not a.notify_webhook and ncfg.get("notification.webhook.enabled"):
+                a.notify_webhook = ncfg.get_str("notification.webhook.endpoint")
+            if not a.notify_mq and ncfg.get("notification.mq.enabled"):
+                a.notify_mq = ncfg.get_str("notification.mq.broker")
+        if a.notify_mq:
+            p.error(f"-notify.mq {a.notify_mq}: the port has no MQ broker yet: it comes with "
+                    "ROADMAP.md item 14a")
     if a.mode == "server":
-        for flag in ("filer", "s3", "webdav", "sftp", "admin"):
+        for flag in ("s3", "webdav", "sftp", "admin"):
             if getattr(a, flag):
                 p.error(f"-{flag}: the port has no {flag} module yet")
-        for flag, value in (("-notify.webhook", a.notify_webhook), ("-notify.mq", a.notify_mq)):
-            if value:
-                p.error(f"{flag} {value}: the port has no filer to notify from yet")
     return a
 
 
@@ -231,7 +266,8 @@ def scaffold(a: argparse.Namespace) -> int:
 
 def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
     """Build and start the servers the flags name: a master, a volume
-    server, both (`server`), or the telemetry collector."""
+    server, a filer, both of the first (`server`, with a filer under
+    `-filer`), or the telemetry collector."""
     return start(resolve(argv, config_dirs))
 
 
@@ -295,7 +331,51 @@ def start(a: argparse.Namespace) -> list:
         servers.append(vs)
         log.info("volume server on %s:%s (grpc %s, ec backend %s)", a.ip, a.port, vs.grpc_port,
                  a.ec_backend)
+    if a.mode == "filer" or (a.mode == "server" and a.filer):
+        servers.append(start_filer(a, tls))
     return servers
+
+
+def start_filer(a: argparse.Namespace, tls):
+    """The filer of `filer` mode or of `server -filer`: its store in
+    `-dir` (`<dir>/filerdb` under `server`), its meta log beside it."""
+    from ..filer.filer import Filer
+    from ..filer.meta_log import MetaLog
+    from .filer_server import FilerServer
+
+    if a.mode == "filer":
+        master, fport, dbdir = a.master, a.port, a.dir
+        store_kind, fgrpc = a.store, a.grpcPort or a.port + 10000
+        peers = [p.strip() for p in a.peers.split(",") if p.strip()]
+    else:
+        master, fport = f"{a.ip}:{a.masterPort}", a.filerPort
+        dbdir = os.path.join(a.dir[0], "filerdb")
+        store_kind, fgrpc, peers = "sqlite", fport + 10000, []
+    if store_kind == "sstable":
+        from ..filer.sstable_store import SSTableStore
+
+        store = SSTableStore(os.path.join(dbdir, "filer.sst"))
+    elif store_kind == "memory":
+        from ..filer.filer_store import MemoryStore
+
+        store = MemoryStore()
+    else:
+        from ..filer.filer_store import SqliteStore
+
+        store = SqliteStore(os.path.join(dbdir, "filer.db"))
+    filer = Filer(store, master=master, collection=getattr(a, "collection", ""),
+                  replication=getattr(a, "replication", ""), jwt_key=a.jwt_key)
+    if a.notify_webhook:
+        from ..filer.notification import WebhookNotifier
+
+        filer.subscribe(WebhookNotifier(a.notify_webhook))
+        log.info("filer events -> webhook %s", a.notify_webhook)
+    fs = FilerServer(filer, ip=a.ip, port=fport, meta_log=MetaLog(os.path.join(dbdir, "metalog")),
+                     grpc_port=fgrpc, peers=peers, tls=tls)
+    fs.start()
+    log.info("filer on %s:%s (grpc %s%s)", a.ip, fport, fs.grpc_port,
+             f", peers={peers}" if peers else "")
+    return fs
 
 
 def main(argv=None) -> int:

@@ -28,8 +28,10 @@ Every master scans and submits, the leader or not, as in the JAX package:
 a worker streams to the leader, so a follower's tasks wait. The maintenance
 config is this master's own, not replicated.
 
-Left out: the filer lock ring (`dlm_filers`).
-`EcStreams` and `EcResidency.local` read this
+Given `dlm_filers` (filer gRPC addresses), the lease API (AdminLock,
+AdminUnlock, AdminLockStatus) is a client of the filer lock ring
+(filer/lock_ring.py `DlmClient`) instead of this master's own table, as
+in the JAX package. `EcStreams` and `EcResidency.local` read this
 process's stream and residency registries only where the port's EC
 package is already loaded (a combined deployment): a master alone does
 not import torch to answer a status read.
@@ -108,6 +110,8 @@ class MasterService:
         self.raft = raft  # None = a single master without raft (tests construct this)
         self._grow_lock = threading.Lock()
         self.locks = LockManager()
+        # the filer lock ring's client where the master is given filers
+        self.dlm = None
         # volume-id allocation goes through raft when HA is on
         self.alloc_volume_id = topo.next_volume_id
 
@@ -188,6 +192,18 @@ class MasterService:
         leader = self._not_leader()
         if leader is not None:
             return pb.LockResponse(error=f"not leader; leader={leader}")
+        if self.dlm is not None:
+            # filer lock ring configured: the master's lease API is a
+            # CLIENT of it (reference: shell/admin locks ride the cluster
+            # lock_manager ring): locks survive master AND single-filer
+            # failures
+            try:
+                r = self.dlm.lock(request.name, request.owner, request.ttl_seconds or 60.0,
+                                  request.token)
+            except ConnectionError as e:
+                return pb.LockResponse(error=str(e))
+            return pb.LockResponse(ok=r.ok, token=r.token, holder=r.holder,
+                                   expires_ns=int(r.remaining * 1e9), error=r.error)
         ok, token, holder, remaining = self.locks.acquire(
             request.name, request.owner, request.ttl_seconds or 60.0, request.token)
         return pb.LockResponse(ok=ok, token=token, holder=holder, expires_ns=int(remaining * 1e9),
@@ -197,6 +213,12 @@ class MasterService:
         leader = self._not_leader()
         if leader is not None:
             return pb.UnlockResponse(error=f"not leader; leader={leader}")
+        if self.dlm is not None:
+            try:
+                r = self.dlm.unlock(request.name, request.token)
+            except ConnectionError as e:
+                return pb.UnlockResponse(error=str(e))
+            return pb.UnlockResponse(ok=r.ok, error=r.error)
         ok = self.locks.release(request.name, request.token)
         return pb.UnlockResponse(ok=ok, error="" if ok else "not held by this token")
 
@@ -214,8 +236,9 @@ class MasterService:
         # leases live on the leader only: a deposed master's table must not
         # pass for cluster state
         self._abort_if_follower(context)
+        rows = self.dlm.status() if self.dlm is not None else self.locks.status()
         return pb.LockStatusResponse(locks=[
-            pb.LockRow(name=n, owner=o, expires_ns=int(r * 1e9)) for n, o, r in self.locks.status()])
+            pb.LockRow(name=n, owner=o, expires_ns=int(r * 1e9)) for n, o, r in rows])
 
     # ----------------------------------------------------------- assign
 
@@ -418,6 +441,7 @@ class MasterServer:
         ec_quiet_seconds: float = 60.0,
         ec_scrub_interval: float = 0.0,
         ec_rebalance_interval: float = 0.0,
+        dlm_filers: list[str] | None = None,
     ):
         """ec_auto_fullness > 0 turns on the auto-EC scanner: a volume at
         that fraction of the size limit, its size unchanged for
@@ -427,7 +451,8 @@ class MasterServer:
         peer-fetch rebuild dispatched for any holder that cannot heal
         itself. ec_rebalance_interval > 0: the data-gravity scanner's
         period (ec_migrate tasks). `tls` (a utils/tls.TlsConfig) serves
-        HTTPS on `port`."""
+        HTTPS on `port`. `dlm_filers` (filer gRPC addresses): the lease
+        API rides the filer lock ring instead of this master's table."""
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port or (port + 10000)
@@ -446,6 +471,10 @@ class MasterServer:
         )
         self.raft.on_leader_change = self._on_leader_change
         self.service = MasterService(self.topo, jwt_key=jwt_key, raft=self.raft)
+        if dlm_filers:
+            from ..filer.lock_ring import DlmClient
+
+            self.service.dlm = DlmClient(list(dlm_filers))
         self.service.alloc_volume_id = self._alloc_volume_id
         self.garbage_threshold = garbage_threshold
         self.vacuum_interval = vacuum_interval
@@ -840,6 +869,8 @@ class MasterServer:
     def stop(self) -> None:
         self.telemetry.stop()
         self.worker_control.stop()
+        if self.service.dlm is not None:
+            self.service.dlm.close()
         self.raft.stop()
         self._vacuum_stop.set()
         self._grpc.stop(grace=0.5)

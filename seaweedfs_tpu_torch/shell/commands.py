@@ -8,18 +8,21 @@ command_ec_common.go, the volume.* family).
 Each command is a function(env, args) -> str; the registry drives both
 the REPL and one-shot `python -m seaweedfs_tpu_torch.shell -c "..."`.
 
-The port has the registry, the shared helpers and 44 commands: the
+The port has the registry, the shared helpers and 60 commands: the
 cluster (`cluster.status`, `cluster.check`, `cluster.ps`, `cluster.raft.*`),
-volume, EC, collection and lock commands, `upload` and `download`, and
-the worker fleet's (`task.submit`, `task.list`, `worker.list`,
-`maintenance.config`). The JAX shell's other commands need modules the
-port has not taken yet (the filer, S3, MQ, remote storage and mount);
+volume, EC, collection and lock commands, `upload` and `download`, the
+worker fleet's (`task.submit`, `task.list`, `worker.list`,
+`maintenance.config`), and the filer's (`fs.*`, `volume.fsck`,
+`cluster.lock.ring`). The JAX shell's other commands need modules the
+port has not taken yet (S3, MQ, remote storage and mount);
 each answers one error line naming the ROADMAP.md item it comes with
 (`DEFERRED`).
 
 Where the port differs from the JAX shell:
 - the master's HTTP reads (`cluster.status`, `ec.balance -dataGravity`)
-  go over `urllib`, as best-effort as the JAX `requests` reads;
+  go over `urllib`, as best-effort as the JAX `requests` reads, and the
+  filer's (`fs.*`, `volume.fsck`) over `http.client`, `fs.cp` streaming
+  its copy out chunked as the JAX `requests` POST of a generator does;
 - `ec.encode -backend` takes `cuda|cpu|auto` and defaults to `cuda`, as
   every port entry point does; a mutating command given another backend
   (the JAX `tpu`) answers an error line before any RPC, and so does
@@ -36,6 +39,7 @@ import shlex
 import urllib.error
 import urllib.request
 import uuid as _uuid
+from urllib.parse import urlsplit
 
 import grpc
 
@@ -58,10 +62,6 @@ BACKENDS = ("cuda", "cpu", "auto")
 # yet, each with the ROADMAP.md item that brings it. They are not in
 # COMMANDS: run_command answers them with one error line.
 DEFERRED: dict[str, str] = {
-    **{c: "12b" for c in (
-        "fs.cat", "fs.configure", "fs.cp", "fs.du", "fs.ls", "fs.meta.cat", "fs.meta.load",
-        "fs.meta.save", "fs.mkdir", "fs.mv", "fs.rm", "fs.stat", "fs.tree", "fs.verify",
-        "volume.fsck", "cluster.lock.ring")},
     **{c: "13b" for c in (
         "s3.accesskey.create", "s3.accesskey.delete", "s3.bucket.create", "s3.bucket.delete",
         "s3.bucket.list", "s3.bucket.quota.enforce", "s3.bucket.quota.get",
@@ -1942,3 +1942,433 @@ def _master_channel(env: ShellEnv, service: str = ""):
     host, _, port = env.master_addr.partition(":")
     ch = grpc.insecure_channel(f"{host}:{int(port or 9333) + 10000}")
     return ch, rpc.Stub(ch, service or rpc.MASTER_SERVICE)
+
+
+# ------------------------------------------------------------ the filer
+#
+# fs.*, volume.fsck and cluster.lock.ring: the filer's HTTP face through
+# `_filer_http` (http.client, where the JAX shell uses `requests`: the
+# card's host has none), its gRPC face through `_filer_grpc` (the filer's
+# port + 10000), and the lock ring through filer/lock_ring.py `DlmClient`.
+
+
+def _filer_url(env: ShellEnv, path: str) -> str:
+    from urllib.parse import quote
+
+    if not path.startswith("/"):
+        path = "/" + path
+    return service_url(env.filer_addr, quote(path))
+
+
+@contextlib.contextmanager
+def _filer_http(env: ShellEnv, method: str, path: str, query: str = "", timeout: float = 30,
+                body=None, headers=None):
+    """One request to the filer at `path` (quoted here) and `query`;
+    yields the response, its body unread."""
+    url = _filer_url(env, path)
+    conn = urls.connection(url, timeout)
+    try:
+        target = urlsplit(url).path + (f"?{query}" if query else "")
+        conn.request(method, target, body=body, headers=headers or {})
+        yield conn.getresponse()
+    finally:
+        conn.close()
+
+
+def _filer_grpc(env: ShellEnv):
+    host, _, port = env.filer_addr.partition(":")
+    ch = grpc.insecure_channel(f"{host}:{int(port or 8888) + 10000}")
+    return ch, rpc.filer_stub(ch)
+
+
+def _text(body: bytes) -> str:
+    return body.decode("utf-8", errors="replace")
+
+
+@command("fs.ls", "fs.ls /path (filer listing)")
+def fs_ls(env: ShellEnv, args) -> str:
+    path = args[0] if args else "/"
+    with _filer_http(env, "GET", path) as r:
+        body = r.read()
+    if r.status != 200:
+        return f"error: {_text(body)}"
+    # the filer marks real directory listings; a stored .json file must
+    # not be mistaken for one
+    if r.getheader("X-Filer-Listing") != "true":
+        return f"{path}: file ({len(body)} bytes)"
+    return "\n".join(
+        f"{'d' if e['IsDirectory'] else '-'} {e['FileSize']:>12} {e['FullPath']}"
+        for e in json.loads(body).get("Entries", [])
+    ) or "(empty)"
+
+
+@command("fs.cat", "fs.cat /path")
+def fs_cat(env: ShellEnv, args) -> str:
+    with _filer_http(env, "GET", args[0], timeout=60) as r:
+        body = r.read()
+    if r.status != 200:
+        return f"error: {_text(body)}"
+    return _text(body)
+
+
+@command("fs.rm", "fs.rm [-r] /path")
+def fs_rm(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="fs.rm")
+    p.add_argument("-r", action="store_true")
+    p.add_argument("path")
+    a = p.parse_args(args)
+    with _filer_http(env, "DELETE", a.path, "recursive=true" if a.r else "", timeout=60) as r:
+        body = r.read()
+    return "ok" if r.status in (200, 204) else f"error: {_text(body)}"
+
+
+@command("fs.tree", "fs.tree /path (recursive listing)")
+def fs_tree(env: ShellEnv, args) -> str:
+    from ..client.filer_client import FilerListingError, list_dir
+
+    root = args[0] if args else "/"
+    lines = [root]
+    # explicit pre-order work list: correct nesting without Python
+    # recursion limits on deep namespaces
+    work: list = [("dir", root, 1, True)]
+    try:
+        while work:
+            item = work.pop()
+            if item[0] == "line":
+                lines.append(item[1])
+                continue
+            _, path, depth, strict = item
+            sub: list = []
+            for e in list_dir(env.filer_addr, path, strict=strict):
+                name = e["FullPath"].rsplit("/", 1)[-1]
+                sub.append(("line", "  " * depth + name + ("/" if e["IsDirectory"] else "")))
+                if e["IsDirectory"]:
+                    sub.append(("dir", e["FullPath"], depth + 1, False))
+            work.extend(reversed(sub))
+    except FilerListingError as e:
+        return f"error: {e}"
+    return "\n".join(lines)
+
+
+@command("fs.du", "fs.du /path (recursive size)")
+def fs_du(env: ShellEnv, args) -> str:
+    from ..client.filer_client import FilerListingError, walk
+
+    root = args[0] if args else "/"
+    total = files = dirs = 0
+    try:
+        for e in walk(env.filer_addr, root, strict=True):
+            if e["IsDirectory"]:
+                dirs += 1
+            else:
+                files += 1
+                total += e["FileSize"]
+    except FilerListingError as e:
+        return f"error: {e}"
+    return f"{total:,} bytes in {files} files, {dirs} directories under {root}"
+
+
+@command("volume.fsck", "cross-check filer chunk references against volumes")
+def volume_fsck(env: ShellEnv, args) -> str:
+    """Referential check (reference volume.fsck direction filer->volume):
+    every chunk a filer entry references must be readable on a volume.
+    (The reverse direction, unreferenced volume needles, is not scanned:
+    raw blob-API uploads are legitimately filer-less.)"""
+    from ..client.filer_client import FilerListingError, walk
+    from ..storage.file_id import FileId, FileIdError
+
+    p = argparse.ArgumentParser(prog="volume.fsck")
+    p.add_argument("-path", default="/")
+    a = p.parse_args(args)
+    referenced: dict[int, set] = {}
+    entries = 0
+    skipped = 0
+    try:
+        for e in walk(env.filer_addr, a.path, strict=True):
+            if e["IsDirectory"]:
+                continue
+            entries += 1
+            with _filer_http(env, "GET", e["FullPath"], "chunks=true") as r:
+                body = r.read()
+            if r.getheader("X-Filer-Chunks") != "true":
+                skipped += 1  # filer without the chunk-manifest endpoint
+                continue
+            for fid in json.loads(body).get("chunks", []):
+                try:
+                    f = FileId.parse(fid)
+                except FileIdError:
+                    continue
+                referenced.setdefault(f.volume_id, set()).add(f.needle_id)
+    except FilerListingError as e:
+        return f"error: {e}"
+    broken = []
+    checked = 0
+    for vid, nids in sorted(referenced.items()):
+        try:
+            loc = _locate_volume(env, vid)
+        except LookupError:
+            broken.extend((vid, n, "volume has no locations") for n in nids)
+            continue
+        try:
+            ch, stub = _volume_stub(loc)
+            with ch:
+                for nid in nids:
+                    checked += 1
+                    r2 = stub.ReadNeedle(pb.ReadNeedleRequest(volume_id=vid, needle_id=nid),
+                                         timeout=30)
+                    if r2.error:
+                        broken.append((vid, nid, r2.error))
+        except grpc.RpcError as e:
+            # one dead server must not discard the rest of the scan
+            broken.extend((vid, n, f"holder unreachable: {e.code().name}") for n in nids)
+    out = [f"fsck: {entries} entries, {checked} chunk references checked"]
+    if skipped:
+        out.append(f"WARNING: {skipped} entries skipped (no chunk manifest endpoint)")
+    if broken:
+        out += [f"BROKEN: volume {v} needle {n:x} ({why})" for v, n, why in broken]
+    else:
+        out.append("no broken chunk references")
+    return "\n".join(out)
+
+
+@command("fs.mkdir", "fs.mkdir /path")
+def fs_mkdir(env: ShellEnv, args) -> str:
+    with _filer_http(env, "POST", args[0], "mkdir=true") as r:
+        body = r.read()
+    return "ok" if r.status == 201 else f"error: {_text(body)}"
+
+
+@command("fs.meta.save", "fs.meta.save /path -o meta.jsonl (export filer metadata)")
+def fs_meta_save(env: ShellEnv, args) -> str:
+    """Walk the filer tree and export entry metadata as NDJSON
+    (reference fs.meta.save)."""
+    from ..client.filer_client import FilerListingError, walk
+
+    p = argparse.ArgumentParser(prog="fs.meta.save")
+    p.add_argument("path", nargs="?", default="/")
+    p.add_argument("-o", required=True)
+    a = p.parse_args(args)
+    count = 0
+    try:
+        with open(a.o, "w") as out:
+            for e in walk(env.filer_addr, a.path, strict=True):
+                out.write(json.dumps(e, separators=(",", ":")) + "\n")
+                count += 1
+    except FilerListingError as e:
+        return f"error: {e}"
+    return f"saved {count} entries -> {a.o}"
+
+
+@command("fs.meta.load", "fs.meta.load meta.jsonl (recreate dirs; files need data)")
+def fs_meta_load(env: ShellEnv, args) -> str:
+    """Recreate the directory skeleton from a fs.meta.save export. (File
+    content lives in volumes; restoring bytes is filer.sync / volume
+    restore territory.)"""
+    p = argparse.ArgumentParser(prog="fs.meta.load")
+    p.add_argument("file")
+    a = p.parse_args(args)
+    dirs = files = failed = 0
+    with open(a.file) as f:
+        for line in f:
+            e = json.loads(line)
+            if e["IsDirectory"]:
+                with _filer_http(env, "POST", e["FullPath"], "mkdir=true") as r:
+                    r.read()
+                if r.status == 201:
+                    dirs += 1
+                else:
+                    failed += 1
+            else:
+                files += 1
+    out = f"recreated {dirs} directories ({files} file entries listed)"
+    if failed:
+        out += f"; {failed} FAILED"
+    return out
+
+
+@command("fs.mv", "fs.mv /src /dst")
+def fs_mv(env: ShellEnv, args) -> str:
+    from urllib.parse import quote
+
+    src, dst = args
+    with _filer_http(env, "POST", dst, f"mv.from={quote(src, safe='')}", timeout=60) as r:
+        body = r.read()
+    return "ok" if r.status == 200 else f"error: {_text(body)}"
+
+
+@command("fs.cp", "fs.cp /src /dst (server-side file copy via the filer)")
+def fs_cp(env: ShellEnv, args) -> str:
+    if len(args) != 2:
+        return "usage: fs.cp /src /dst"
+    src, dst = args
+    total = 0
+    with _filer_http(env, "GET", src, timeout=300) as r:
+        if r.status != 200 or r.getheader("X-Filer-Listing") == "true":
+            return f"error: {src}: not a readable file"
+
+        def chunks():
+            nonlocal total
+            while True:  # constant memory on huge files
+                c = r.read(1 << 20)
+                if not c:
+                    return
+                total += len(c)
+                yield c
+
+        # a body of unknown length goes out chunked, as the JAX shell's
+        # streamed POST does
+        with _filer_http(env, "POST", dst, timeout=300, body=chunks(),
+                         headers={"Content-Type": r.getheader("Content-Type", "")}) as w:
+            w.read()
+    if w.status != 201:
+        return f"error: write {dst}: {w.status}"
+    return f"copied {src} -> {dst} ({total} bytes)"
+
+
+def _lookup_entry(env: ShellEnv, path: str):
+    """-> (entry, None) or (None, error string); one shared parse and
+    lookup for the fs.* metadata commands."""
+    from ..pb import filer_pb2 as fpb
+
+    directory, _, name = path.rstrip("/").rpartition("/")
+    ch, stub = _filer_grpc(env)
+    with ch:
+        r = stub.LookupDirectoryEntry(fpb.LookupEntryRequest(directory=directory or "/", name=name),
+                                      timeout=10)
+    if r.error:
+        return None, f"error: {r.error}"
+    return r.entry, None
+
+
+@command("fs.stat", "fs.stat /path (full entry metadata)")
+def fs_stat(env: ShellEnv, args) -> str:
+    if not args:
+        return "usage: fs.stat /path"
+    path = args[0]
+    e, err = _lookup_entry(env, path)
+    if err:
+        return err
+    a = e.attributes
+    lines = [
+        f"path:      {path}",
+        f"type:      {'directory' if e.is_directory else 'file'}",
+        f"size:      {a.file_size}",
+        f"mode:      {oct(a.file_mode)}",
+        f"uid:gid:   {a.uid}:{a.gid}",
+        f"mtime:     {a.mtime}",
+        f"mime:      {a.mime or '-'}",
+        f"chunks:    {len(e.chunks)}",
+        f"inline:    {len(e.content)} bytes",
+        f"hardlinks: {max(e.hard_link_counter, 1)}",
+    ]
+    if a.symlink_target:
+        lines.append(f"symlink -> {a.symlink_target}")
+    if e.extended:
+        lines.append("extended:  " + ", ".join(sorted(e.extended)))
+    return "\n".join(lines)
+
+
+@command("fs.verify", "fs.verify /path (read every byte; report size+md5)")
+def fs_verify(env: ShellEnv, args) -> str:
+    import hashlib
+
+    if not args:
+        return "usage: fs.verify /path"
+    h = hashlib.md5()
+    total = 0
+    with _filer_http(env, "GET", args[0], timeout=600) as r:
+        if r.status != 200:
+            return f"error: {r.status}"
+        while True:
+            chunk = r.read(1 << 20)
+            if not chunk:
+                break
+            h.update(chunk)
+            total += len(chunk)
+    return f"{args[0]}: {total} bytes readable, md5 {h.hexdigest()}"
+
+
+@command("cluster.lock.ring", "[-filers a,b,...] live leases across the filer lock ring")
+def cluster_lock_ring(env: ShellEnv, args) -> str:
+    from ..filer.lock_ring import DlmClient
+
+    p = argparse.ArgumentParser(prog="cluster.lock.ring")
+    p.add_argument("-filers", default="")
+    a = p.parse_args(args)
+    if a.filers:
+        members = [m.strip() for m in a.filers.split(",") if m.strip()]
+    else:
+        host, _, port = env.filer_addr.partition(":")
+        members = [f"{host}:{int(port or 8888) + 10000}"]
+    c = DlmClient(members)
+    try:
+        rows = c.status()
+    finally:
+        c.close()
+    return "\n".join(f"{n:40s} {o:20s} {r:6.1f}s" for n, o, r in rows) or "no live leases"
+
+
+@command("fs.meta.cat", "fs.meta.cat /path (raw entry metadata as JSON)")
+def fs_meta_cat(env: ShellEnv, args) -> str:
+    if not args:
+        return "usage: fs.meta.cat /path"
+    e, err = _lookup_entry(env, args[0])
+    if err:
+        return err
+    a = e.attributes
+    doc = {
+        "name": e.name,
+        "isDirectory": e.is_directory,
+        "attributes": {
+            "mtime": a.mtime, "crtime": a.crtime, "fileMode": a.file_mode, "uid": a.uid,
+            "gid": a.gid, "mime": a.mime, "ttlSec": a.ttl_sec, "userName": a.user_name,
+            "groupNames": list(a.group_names), "symlinkTarget": a.symlink_target,
+            "md5": a.md5.hex(), "fileSize": a.file_size, "rdev": a.rdev, "inode": a.inode,
+        },
+        "chunks": [
+            {"fid": c.fid, "offset": c.offset, "size": c.size, "modifiedTsNs": c.modified_ts_ns,
+             "etag": c.etag, "cipherKey": c.cipher_key.hex(), "isCompressed": c.is_compressed,
+             "isChunkManifest": c.is_chunk_manifest}
+            for c in e.chunks
+        ],
+        "extended": {k: v.hex() for k, v in e.extended.items()},
+        "hardLinkId": e.hard_link_id.hex(),
+        "hardLinkCounter": e.hard_link_counter,
+        "wormEnforcedAtTsNs": e.worm_enforced_at_ts_ns,
+        "inlineContentBytes": len(e.content),
+    }
+    return json.dumps(doc, indent=2)
+
+
+@command(
+    "fs.configure",
+    "[-locationPrefix /p -collection c -replication xyz -ttlSec n] "
+    "[-delete] [-show] (per-path storage rules)",
+    mutating=True,
+)
+def fs_configure(env: ShellEnv, args) -> str:
+    from ..pb import filer_pb2 as fpb
+
+    p = argparse.ArgumentParser(prog="fs.configure")
+    p.add_argument("-locationPrefix", default="")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-ttlSec", type=int, default=0)
+    p.add_argument("-delete", action="store_true")
+    p.add_argument("-show", action="store_true")
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        cur = stub.KvGet(fpb.FilerKvGetRequest(key=b"fs.configure"), timeout=10)
+        conf = json.loads(cur.value) if cur.found else {"locations": []}
+        if a.show or not a.locationPrefix:
+            return json.dumps(conf, indent=2)
+        locs = [r for r in conf.get("locations", []) if r.get("location_prefix") != a.locationPrefix]
+        if not a.delete:
+            locs.append({"location_prefix": a.locationPrefix, "collection": a.collection,
+                         "replication": a.replication, "ttl_sec": a.ttlSec})
+        conf["locations"] = locs
+        stub.KvPut(fpb.FilerKvPutRequest(key=b"fs.configure", value=json.dumps(conf).encode()),
+                   timeout=10)
+    verb = "deleted rule for" if a.delete else "configured"
+    return f"{verb} {a.locationPrefix} ({len(locs)} rule(s) total)"

@@ -371,7 +371,8 @@ def test_import_guard_scans_every_package_of_the_port():
                 "filer/manifest.py", "filer/filer_store.py", "filer/abstract_sql_store.py",
                 "filer/sstable_store.py", "filer/locks.py", "filer/notification.py",
                 "filer/meta_log.py", "filer/filer.py", "filer/grpc_service.py",
-                "filer/meta_aggregator.py"):
+                "filer/meta_aggregator.py", "filer/tus.py", "filer/lock_ring.py",
+                "server/filer_server.py", "client/filer_client.py"):
         assert PORT / mod in _python_files(), mod
 
 
@@ -631,6 +632,33 @@ body = rng.integers(0, 256, 10_000, dtype=np.uint8).tobytes()
 assert len(filer.write_file("/guard/f.bin", body).chunks) == 3
 assert filer.read_file("/guard/f.bin") == body
 filer.close()
+# two port FilerServers in one lock ring: a PUT and a GET over HTTP, a
+# lease through the ring, the shell's fs.ls and cluster.lock.ring
+from seaweedfs_tpu_torch.filer import MemoryStore
+from seaweedfs_tpu_torch.filer.lock_ring import DlmClient
+from seaweedfs_tpu_torch.server.filer_server import FilerServer
+
+gports = [free_grpc_port(), free_grpc_port()]
+ring = [f"127.0.0.1:{g}" for g in gports]
+fss = []
+for g in gports:
+    fs = FilerServer(Filer(MemoryStore(), master=f"127.0.0.1:{mport}"), ip="127.0.0.1",
+                     port=free_grpc_port(), grpc_port=g, peers=[a for a in ring if not a.endswith(f":{g}")])
+    fs.start()
+    fss.append(fs)
+assert http_req(fss[0].port, "PUT", "/guard/ring.bin", body)[0] == 201
+assert http_req(fss[0].port, "GET", "/guard/ring.bin") == (200, body)
+dlm = DlmClient(ring)
+lease = dlm.lock("guard", "guard-owner", ttl=30.0)
+assert lease.ok and dlm.status()[0][:2] == ("guard", "guard-owner")
+renv = ShellEnv(f"127.0.0.1:{mport}", f"127.0.0.1:{fss[0].port}")
+assert run_command(renv, "fs.ls /guard").endswith("/guard/ring.bin")
+assert run_command(renv, f"cluster.lock.ring -filers {','.join(ring)}").startswith("guard ")
+assert dlm.unlock("guard", lease.token).ok
+dlm.close()
+renv.close()
+for fs in fss:
+    fs.stop()
 vs.stop()
 ms.stop()
 # a port master and volume server over https, then ?locate and the

@@ -9,11 +9,16 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
   SIGTERM; `server` mode runs a master and a volume server in one process
   that assign, take a POST, look it up and serve it;
 - `-ec.backend tpu` stops the launcher with a message and a nonzero
-  exit; so do the modes the port does not have (filer, mq.broker), and
-  the flags of `server` whose modules are not ported (its gateways and
-  notifications);
+  exit; so do the modes the port does not have (mq.broker), the flags of
+  `server` whose modules are not ported (its gateways), and `-notify.mq`
+  of `filer` and `server` (ROADMAP item 14a), from the flag or from
+  `notification.toml`;
+- `filer` and `server -filer` children serve a file over HTTP and
+  LookupDirectoryEntry over gRPC, post their events to a
+  `-notify.webhook` sink and exit 0 on SIGTERM; `filer.toml`'s
+  `sqlite.dbFile` and `notification.toml` fill the flags left unset;
 - a `security.toml` asking for TLS, and the `-tls.*` flags of master,
-  volume and server, serve HTTPS (mutual TLS under `-tls.ca`), the file
+  volume, server and filer, serve HTTPS (mutual TLS under `-tls.ca`), the file
   merged field by field under the flags;
 - the `telemetry` mode runs the collector by name, and `scaffold` prints
   a template;
@@ -26,12 +31,14 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
 """
 
 import http.client
+import http.server
 import json
 import os
 import signal
 import ssl
 import subprocess
 import sys
+import threading
 import urllib.request
 
 import grpc
@@ -149,7 +156,7 @@ def test_launcher_refuses_tpu_and_tls(tmp_path, case):
 
 
 def test_other_modes_are_refused():
-    for mode in ("filer", "mq.broker"):
+    for mode in ("mq.broker",):
         with pytest.raises(SystemExit) as e:
             launcher.resolve([mode, "-dir", "/nonexistent"], config_dirs=())
         assert e.value.code == 2
@@ -195,13 +202,14 @@ def test_scaffold_mode_prints_a_template_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("args, want", [
-    (["server", "-filer"], "-filer: the port has no filer module yet"),
     (["server", "-s3"], "-s3: the port has no s3 module yet"),
     (["server", "-webdav"], "-webdav: the port has no webdav module yet"),
     (["server", "-sftp"], "-sftp: the port has no sftp module yet"),
     (["server", "-admin"], "-admin: the port has no admin module yet"),
-    (["server", "-notify.webhook", "http://h/x"], "-notify.webhook http://h/x: the port has no filer"),
-    (["server", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no filer"),
+    (["server", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no MQ broker yet: it comes "
+     "with ROADMAP.md item 14a"),
+    (["filer", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no MQ broker yet: it comes "
+     "with ROADMAP.md item 14a"),
     (["server", "-ec.backend", "tpu"], "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_unserved_flags_of_master_and_server_are_refused(capsys, args, want):
@@ -266,7 +274,7 @@ def test_master_toml_fills_unset_flags_and_flags_win(tmp_path, capsys):
     assert launcher._tls_from(a).client_auth
 
 
-@pytest.mark.parametrize("mode", ["master", "volume", "server"])
+@pytest.mark.parametrize("mode", ["master", "volume", "server", "filer"])
 def test_tls_flags_of_master_volume_and_server_are_served(tmp_path, mode):
     """-tls.cert/-tls.key/-tls.ca: the servers `build` starts answer over
     https only to a client with a certificate the CA signed, and the
@@ -279,6 +287,9 @@ def test_tls_flags_of_master_volume_and_server_are_served(tmp_path, mode):
     elif mode == "volume":
         argv, ports = ["volume", "-ip", "127.0.0.1", "-port", str(port), "-master",
                        "127.0.0.1:1", "-dir", str(tmp_path / "v"), "-ec.backend", "cpu"], [port]
+    elif mode == "filer":
+        argv, ports = ["filer", "-ip", "127.0.0.1", "-port", str(port), "-master", "127.0.0.1:1",
+                       "-dir", str(tmp_path / "f"), "-store", "memory"], [port]
     else:
         argv = ["server", "-ip", "127.0.0.1", "-masterPort", str(mport), "-port", str(port),
                 "-dir", str(tmp_path / "v"), "-ec.backend", "cpu"]
@@ -286,7 +297,7 @@ def test_tls_flags_of_master_volume_and_server_are_served(tmp_path, mode):
     servers = launcher.build(argv + flags, config_dirs=())
     try:
         for p in ports:
-            path = "/dir/status" if p == mport else "/status"
+            path = "/dir/status" if p == mport else "/debug/slo" if mode == "filer" else "/status"
             with urllib.request.urlopen(f"https://127.0.0.1:{p}{path}", timeout=10,
                                         context=certs.client_context()) as r:
                 assert r.status == 200
@@ -436,3 +447,130 @@ def test_config_loader_reads_as_jax(tmp_path):
                     "volume.store.list", "volume.missing", "volume.index.deeper"):
             assert got.get(key) == want.get(key) and got.get_str(key, "d") == want.get_str(key, "d")
     assert config.CONFIG_DIRS == jax_config.CONFIG_DIRS
+
+
+# ------------------------------------------------------------- the filer
+
+
+class _Hook(http.server.BaseHTTPRequestHandler):
+    """A webhook sink: keeps each POSTed JSON event."""
+
+    events: list = []
+
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):
+        _Hook.events.append(json.loads(self.rfile.read(int(self.headers["Content-Length"]))))
+        self.send_response(200)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+
+@pytest.mark.parametrize("mode", ["filer", "server -filer"])
+def test_launched_filer_serves_files_grpc_and_webhook_by_name(tmp_path, mode):
+    """`filer` (over a port master and volume server in this process) and
+    `server -filer` children: a file PUT and read back over HTTP, gRPC
+    LookupDirectoryEntry on port + 10000, the events POSTed to the
+    `-notify.webhook` sink, exit 0 on SIGTERM."""
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.server.master import MasterServer as PortMaster
+
+    hook = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _Hook)
+    threading.Thread(target=hook.serve_forever, daemon=True).start()
+    _Hook.events = []
+    sink = f"http://127.0.0.1:{hook.server_address[1]}/events"
+    fport, mport = _ports(), _ports()
+    inproc = []
+    if mode == "filer":
+        ms = PortMaster(ip="127.0.0.1", port=mport, vacuum_interval=3600)
+        ms.start()
+        vs = VolumeServer([str(tmp_path / "v")], master=f"127.0.0.1:{mport}", ip="127.0.0.1",
+                          port=_ports(), ec_backend="cpu")
+        vs.start()
+        inproc = [vs, ms]
+        wait_for(lambda: ms.topo.nodes, timeout=30, msg="the volume server registered")
+        args = ["filer", "-ip", "127.0.0.1", "-port", str(fport), "-master", f"127.0.0.1:{mport}",
+                "-dir", str(tmp_path / "fdb"), "-store", "sstable", "-collection", "lf",
+                "-notify.webhook", sink]
+    else:
+        args = ["server", "-ip", "127.0.0.1", "-masterPort", str(mport), "-port", str(_ports()),
+                "-filerPort", str(fport), "-dir", str(tmp_path / "d"), "-ec.backend", "cpu",
+                "-filer", "-notify.webhook", sink]
+    proc = launch(tmp_path, *args)
+    body = os.urandom(300_000)
+
+    def req(method, path, data=None):
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=30)
+        try:
+            c.request(method, path, body=data)
+            r = c.getresponse()
+            return r.status, r.read()
+        finally:
+            c.close()
+
+    try:
+        def put():
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                return req("PUT", "/launched/a.bin", body)[0] == 201
+            except OSError:
+                return False
+
+        wait_for(put, timeout=90, msg="the launched filer did not take a PUT")
+        assert req("GET", "/launched/a.bin") == (200, body)
+        code, listing = req("GET", "/launched")
+        assert code == 200 and [e["FullPath"] for e in json.loads(listing)["Entries"]] == [
+            "/launched/a.bin"]
+        with grpc.insecure_channel(f"127.0.0.1:{fport + 10000}") as ch:
+            r = rpc.filer_stub(ch).LookupDirectoryEntry(
+                fpb.LookupEntryRequest(directory="/launched", name="a.bin"), timeout=30)
+        assert not r.error and r.entry.attributes.file_size == len(body)
+        wait_for(lambda: len(_Hook.events) >= 2, timeout=30, msg="the webhook got the events")
+        assert [(e["directory"], (e["newEntry"] or {}).get("name")) for e in _Hook.events[:2]] == [
+            ("/", "launched"), ("/launched", "a.bin")]
+        err = stop_child(proc)
+        assert "filer on 127.0.0.1" in err and "filer events -> webhook" in err
+        if mode == "filer":
+            assert (tmp_path / "fdb" / "filer.sst").is_dir()
+        else:
+            assert (tmp_path / "d" / "filerdb" / "filer.db").is_file()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
+        for srv in inproc:
+            srv.stop()
+        hook.shutdown()
+        hook.server_close()
+
+
+def test_launched_filer_refuses_notify_mq_naming_its_item(tmp_path):
+    (tmp_path / "notification.toml").write_text(
+        '[notification.mq]\nenabled = true\nbroker = "127.0.0.1:17777"\n')
+    for extra in ([], ["-notify.mq", "b:1"]):
+        proc = launch(tmp_path, "filer", "-master", "127.0.0.1:1", "-dir", str(tmp_path / "f"),
+                      *extra)
+        _, err = proc.communicate(timeout=120)
+        assert proc.returncode == 2 and "ROADMAP.md item 14a" in err, err
+    assert not (tmp_path / "f").exists()  # nothing was built
+
+
+def test_filer_and_notification_toml_fill_unset_flags(tmp_path):
+    d = tmp_path / "conf"
+    d.mkdir()
+    a = launcher.resolve(["filer"], config_dirs=[str(d)])
+    assert (a.dir, a.notify_webhook, a.store, a.grpcPort, a.peers) == (
+        "./filerdb", "", "sqlite", 0, "")
+    (d / "filer.toml").write_text('[sqlite]\nenabled = true\ndbFile = "/data/meta/filer.db"\n')
+    (d / "notification.toml").write_text(
+        '[notification.webhook]\nenabled = true\nendpoint = "http://hook/x"\n')
+    a = launcher.resolve(["filer"], config_dirs=[str(d)])
+    assert (a.dir, a.notify_webhook) == ("/data/meta", "http://hook/x")
+    a = launcher.resolve(["filer", "-dir", "/mine", "-notify.webhook", "http://mine/y"],
+                         config_dirs=[str(d)])
+    assert (a.dir, a.notify_webhook) == ("/mine", "http://mine/y")
+    a = launcher.resolve(["server", "-dir", "/data", "-filer"], config_dirs=[str(d)])
+    assert (a.filer, a.filerPort, a.notify_webhook) == (True, 8888, "http://hook/x")

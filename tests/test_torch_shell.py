@@ -32,7 +32,9 @@ and ec/rebalance, held against the JAX package on the CPU:
 
 import contextlib
 import hashlib
+import http.client
 import http.server
+import json
 import os
 import random
 import re
@@ -41,6 +43,7 @@ import subprocess
 import sys
 import threading
 import types
+import urllib.request
 import uuid
 
 import grpc
@@ -57,6 +60,10 @@ import seaweedfs_tpu.ec.placement as jax_placement
 import seaweedfs_tpu.ec.rebalance as jax_rebalance
 import seaweedfs_tpu.server.topology as jax_topology
 from seaweedfs_tpu.client.operations import Operations as JaxOperations
+from seaweedfs_tpu.filer import Filer as JaxFiler
+from seaweedfs_tpu.filer import MemoryStore as JaxMemoryStore
+from seaweedfs_tpu.filer.lock_ring import DlmClient as JaxDlmClient
+from seaweedfs_tpu.server.filer_server import FilerServer as JaxFilerServer
 from seaweedfs_tpu.pb import rpc as jrpc
 from seaweedfs_tpu.server.master import MasterServer as JaxMasterServer
 from seaweedfs_tpu.server.volume_server import VolumeServer as JaxVolumeServer
@@ -65,8 +72,11 @@ import seaweedfs_tpu_torch.ec.encoder as port_encoder
 from seaweedfs_tpu_torch.client import operations as port_ops
 from seaweedfs_tpu_torch.client.master_client import AssignResult
 from seaweedfs_tpu_torch.ec import placement, rebalance
+from seaweedfs_tpu_torch.filer import Filer, MemoryStore
+from seaweedfs_tpu_torch.filer.lock_ring import DlmClient
 from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
 from seaweedfs_tpu_torch.pb import rpc
+from seaweedfs_tpu_torch.server.filer_server import FilerServer
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.shell import commands as port_shell
@@ -89,7 +99,12 @@ PORTED = {
     "ec.encode", "ec.check.replication", "ec.rebuild", "ec.decode", "ec.balance", "ec.scrub",
     "collection.list", "collection.delete", "upload", "download", "lock", "unlock", "lock.status",
     "task.submit", "task.list", "worker.list", "cluster.ps", "maintenance.config",
+    "fs.cat", "fs.configure", "fs.cp", "fs.du", "fs.ls", "fs.meta.cat", "fs.meta.load",
+    "fs.meta.save", "fs.mkdir", "fs.mv", "fs.rm", "fs.stat", "fs.tree", "fs.verify",
+    "volume.fsck", "cluster.lock.ring",
 }
+FS_COLLECTION = "fs"  # the twins' filers write their chunks here
+FS_CHUNK = 64 * 1024
 
 # the initial volumes: (server, vid, collection, replica placement, needles, deleted)
 RACKS = ("r1", "r1", "r2", "r2")
@@ -163,6 +178,7 @@ class Side:
         self.names = {self.mport: "m", self.mport + 10000: "m.grpc"}
         self.vols = []
         self.dirs = []
+        self.clock_stamped: set[str] = set()  # collections written over HTTP
         # masters list nodes by id ("127.0.0.1:<port>") or in registration
         # order: ascending ports of one length make both orders s0..s3
         ports = sorted(_ports() for _ in KINDS[kind])
@@ -183,10 +199,22 @@ class Side:
             self.names[vs.grpc_port] = f"s{i}.grpc"
         self._mch = grpc.insecure_channel(f"127.0.0.1:{self.mport + 10000}")
         self.mstub = rpc.master_stub(self._mch)
+        # a filer of the shell's package, its gRPC on port + 10000 (where
+        # the shells dial it), chunks in a collection of its own
+        fcls, fscls, store = ((JaxFiler, JaxFilerServer, JaxMemoryStore) if shell == "jax"
+                              else (Filer, FilerServer, MemoryStore))
+        self.filer = fcls(store(), master=f"127.0.0.1:{self.mport}", collection=FS_COLLECTION,
+                          chunk_size=FS_CHUNK)
+        self.fport = _ports()
+        self.filer_server = fscls(self.filer, ip="127.0.0.1", port=self.fport,
+                                  grpc_port=self.fport + 10000)
+        self.filer_server.start()
+        self.names[self.fport] = "f"
+        self.names[self.fport + 10000] = "f.grpc"
+        self.clock_stamped.add(FS_COLLECTION)
         mod = jax_shell if shell == "jax" else port_shell
-        self.env = mod.ShellEnv(f"127.0.0.1:{self.mport}")
+        self.env = mod.ShellEnv(f"127.0.0.1:{self.mport}", f"127.0.0.1:{self.fport}")
         self.ran: set[str] = set()
-        self.clock_stamped: set[str] = set()  # collections written over HTTP
 
     def g(self, i: int) -> str:
         return f"127.0.0.1:{self.vols[i].grpc_port}"
@@ -210,6 +238,12 @@ class Side:
         text = re.sub(r"\b(\d+),[0-9a-f]{9,}\b", r"\1,<fid>", text)
         text = re.sub(r"\d+\.\ds left", "<t>s left", text)
         text = re.sub(r"age=\S+s", "age=<t>s", text)
+        # the filer's clocks: entry and chunk times, lease seconds
+        text = re.sub(r"(mtime:\s+)\d+", r"\1<t>", text)
+        text = re.sub(r'"(mtime|crtime|modifiedTsNs|Mtime)": ?\d+', r'"\1": <t>', text)
+        text = re.sub(r'"sw-mts": "[0-9a-f]+"', '"sw-mts": "<t>"', text)
+        text = re.sub(r"needle [0-9a-f]{12,}\b", "needle <id>", text)  # the sequencer's clock
+        text = re.sub(r" +\d+\.\ds$", " <t>s", text, flags=re.MULTILINE)
         return re.sub(r"n=\d+ p50=\S+ p99=\S+", "n=<n> p50=<t> p99=<t>", text)
 
     def topology(self) -> list:
@@ -263,9 +297,26 @@ class Side:
                     out[key] = sha(d / name)
         return out
 
+    def fput(self, path: str, body: bytes) -> int:
+        """A file written through the filer's HTTP plane: the status."""
+        c = http.client.HTTPConnection("127.0.0.1", self.fport, timeout=60)
+        try:
+            c.request("PUT", path, body=body)
+            r = c.getresponse()
+            r.read()
+            return r.status
+        finally:
+            c.close()
+
+    def fs_settle(self) -> None:
+        """The filer's chunk deletes done, the master's topology settled."""
+        self.filer.flush_gc()
+        self.settle()
+
     def stop(self) -> None:
         self.env.close()
         self._mch.close()
+        self.filer_server.stop()
         for vs in self.vols:
             vs.stop()
         self.master.stop()
@@ -473,9 +524,131 @@ def step_collections(side):
     return out + [side.run("collection.list"), side.run("cluster.status"), side.run("cluster.check")]
 
 
+# the filer's commands: one step each, on files written through each
+# twin's filer (its package the shell's), in this order
+
+
+def step_fs_mkdir(side):
+    rng = np.random.default_rng(241)
+    side.seed_picks(13)
+    out = [side.run("fs.mkdir /fs/a"), side.run("fs.mkdir /fs/b/c"), side.run("fs.mkdir /fs/a")]
+    # files: inlined, one chunk, several chunks, in three directories
+    for path, n in (("/fs/a/small.txt", 300), ("/fs/a/one.bin", 40_000),
+                    ("/fs/big.bin", 5 * FS_CHUNK + 321), ("/fs/b/c/deep.bin", 70_000),
+                    ("/fs/b/mid.bin", 2 * FS_CHUNK)):
+        out.append(side.fput(path, rng.bytes(n)))
+    out.append(side.fput("/fs/a/text.txt", b"hello from the filer\n" * 3))
+    side.fs_settle()
+    return out
+
+
+def step_fs_ls(side):
+    return [side.run(c) for c in ("fs.ls /fs", "fs.ls /fs/a", "fs.ls /fs/a/small.txt",
+                                  "fs.ls /nowhere", "fs.ls")]
+
+
+def step_fs_cat(side):
+    return [side.run("fs.cat /fs/a/text.txt"), side.run("fs.cat /fs/nowhere")]
+
+
+def step_fs_stat(side):
+    return [side.run(f"fs.stat {p}") for p in ("/fs/big.bin", "/fs/a", "/fs/a/small.txt",
+                                               "/fs/nowhere")] + [side.run("fs.stat")]
+
+
+def step_fs_meta_cat(side):
+    return [side.run(f"fs.meta.cat {p}") for p in ("/fs/big.bin", "/fs/a/text.txt", "/fs/b",
+                                                   "/fs/nowhere")]
+
+
+def step_fs_tree(side):
+    return [side.run("fs.tree /fs"), side.run("fs.tree /fs/b"), side.run("fs.tree /nowhere")]
+
+
+def step_fs_du(side):
+    return [side.run("fs.du /fs"), side.run("fs.du /fs/a"), side.run("fs.du /nowhere"),
+            side.run("fs.du /fs/big.bin")]
+
+
+def step_fs_mv(side):
+    out = [side.run("fs.mv /fs/a/one.bin /fs/b/one.bin"), side.run("fs.mv /fs/nowhere /fs/x"),
+           side.run("fs.mv /fs/b/c /fs/moved")]
+    return out + [side.run("fs.tree /fs")]
+
+
+def step_fs_cp(side):
+    out = [side.run("fs.cp /fs/big.bin /fs/b/big.copy"), side.run("fs.cp /fs/a /fs/x"),
+           side.run("fs.cp /fs/nowhere /fs/x"), side.run("fs.cp /fs/a/text.txt")]
+    side.fs_settle()
+    return out + [side.run("fs.ls /fs/b")]
+
+
+def step_fs_verify(side):
+    return [side.run(f"fs.verify {p}") for p in ("/fs/big.bin", "/fs/b/big.copy", "/fs/nowhere",
+                                                 "/fs/a/small.txt")] + [side.run("fs.verify")]
+
+
+def step_fs_meta_save(side):
+    dump = side.root / "meta.jsonl"
+    out = [side.run(f"fs.meta.save /fs -o {dump}"), side.run("fs.meta.save /nowhere -o /dev/null")]
+    return out + [side.mask(dump.read_text())]
+
+
+def step_fs_rm(side):
+    out = [side.run("fs.rm /fs/b"), side.run("fs.rm -r /fs/moved"), side.run("fs.rm /fs/a/text.txt"),
+           side.run("fs.rm /fs/nowhere")]
+    side.fs_settle()
+    return out + [side.run("fs.tree /fs")]
+
+
+def step_fs_meta_load(side):
+    out = [side.run(f"fs.meta.load {side.root / 'meta.jsonl'}")]
+    side.fs_settle()
+    return out + [side.run("fs.tree /fs")]
+
+
+def step_fs_configure(side):
+    out = [side.run("fs.configure"),
+           side.run("fs.configure -locationPrefix /fs/rules -collection fsr -ttlSec 60"),
+           side.run("fs.configure -locationPrefix /fs/other -replication 000"),
+           side.run("fs.configure -show"),
+           side.run("fs.configure -locationPrefix /fs/rules -delete")]
+    return out + [side.run("fs.configure -show"), side.run("lock.status")]
+
+
+def step_volume_fsck(side):
+    out = [side.run("volume.fsck -path /fs"), side.run("volume.fsck -path /nowhere")]
+    # one chunk's needle deleted behind the filer's back: fsck finds it
+    chunks = json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{side.fport}/fs/big.bin?chunks=true", timeout=30).read())["chunks"]
+    fid = chunks[2]
+    (loc,) = side.env.master.lookup(FileId.parse(fid).volume_id, refresh=True)
+    req = urllib.request.Request(f"http://{loc.url}/{fid}", method="DELETE")
+    out.append(urllib.request.urlopen(req, timeout=30).status)
+    side.fs_settle()
+    return out + [side.run("volume.fsck"), side.run("volume.fsck -path /fs/a")]
+
+
+def step_cluster_lock_ring(side):
+    cls = JaxDlmClient if side.shell == "jax" else DlmClient
+    c = cls([f"127.0.0.1:{side.fport + 10000}"])
+    try:
+        out = [side.run("cluster.lock.ring")]
+        r = c.lock("jobs/fs", "ring-owner", ttl=30.0)
+        out += [r.ok, side.run("cluster.lock.ring"),
+                side.run(f"cluster.lock.ring -filers 127.0.0.1:{side.fport + 10000},127.0.0.1:1")]
+        out.append(c.unlock("jobs/fs", r.token).ok)
+    finally:
+        c.close()
+    return out + [side.run("cluster.lock.ring")]
+
+
 STEPS = [step_listing, step_lock, step_raft, step_sync, step_fix_replication, step_plain_volume,
          step_copy_mount, step_move_tier, step_grow_delete_empty, step_volume_balance, step_ec_encode,
-         step_ec_balance, step_ec_rebuild, step_ec_decode, step_upload_download, step_collections]
+         step_ec_balance, step_ec_rebuild, step_ec_decode, step_upload_download, step_collections,
+         step_fs_mkdir, step_fs_ls, step_fs_cat, step_fs_stat, step_fs_meta_cat, step_fs_tree,
+         step_fs_du, step_fs_mv, step_fs_cp, step_fs_verify, step_fs_meta_save, step_fs_rm,
+         step_fs_meta_load, step_fs_configure, step_volume_fsck, step_cluster_lock_ring]
 
 
 def _masked(side, out):
@@ -543,7 +716,8 @@ def test_every_ported_command_ran_against_jax(twins):
 
 
 def test_registry_is_the_39_commands_of_the_jax_shell():
-    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 44
+    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 60
+    assert len(port_shell.DEFERRED) == 31 and "12b" not in port_shell.DEFERRED.values()
     assert set(port_shell.COMMANDS) <= set(jax_shell.COMMANDS)
     assert set(port_shell.COMMANDS) | set(port_shell.DEFERRED) == set(jax_shell.COMMANDS)
     assert not set(port_shell.COMMANDS) & set(port_shell.DEFERRED)
@@ -664,10 +838,10 @@ def test_module_entry_point_runs_help_as_a_subprocess():
     assert proc.returncode == 0, proc.stderr
     assert [ln.split()[0] for ln in proc.stdout.splitlines()] == sorted(PORTED)
     proc = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.shell", "-master",
-                           "127.0.0.1:1"], cwd=REPO, env=env, input="help\nfs.ls /\nexit\n",
+                           "127.0.0.1:1"], cwd=REPO, env=env, input="help\ns3.bucket.list\nexit\n",
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "error: fs.ls is not ported yet: it comes with ROADMAP.md item 12b" in proc.stdout
+    assert "error: s3.bucket.list is not ported yet: it comes with ROADMAP.md item 13b" in proc.stdout
 
 
 # ------------------------------------------------------- client/operations

@@ -30,6 +30,7 @@ import os
 import pkgutil
 import re
 import shutil
+import sys
 import time
 
 import numpy as np
@@ -430,6 +431,9 @@ def test_metrics_lint_package_wide():
         twin = "seaweedfs_tpu." + mod.name.split(".", 1)[1]
         if importlib.util.find_spec(twin) is not None:
             importlib.import_module(twin)
+    # the filer server's modules and their counterparts among them
+    for name in ("server.filer_server", "filer.lock_ring", "filer.tus", "client.filer_client"):
+        assert f"seaweedfs_tpu_torch.{name}" in sys.modules and f"seaweedfs_tpu.{name}" in sys.modules
 
     metrics = list(M.REGISTRY._metrics)
     assert len(metrics) >= 15
