@@ -301,7 +301,18 @@ Phases:
    holder's reconstructions); the sink's events equal `/~meta/tail`'s;
    the shell's fs.ls, fs.du, fs.verify, volume.fsck and
    cluster.lock.ring in this process answer what was written, with a
-   lease through `DlmClient` at the child. Its own JSON line.
+   lease through `DlmClient` at the child. Its own JSON line. 17m drives
+   S3's libraries and the shell's `s3.*` over a filer pair in this
+   process (A served over gRPC where the shell dials a filer, B following
+   A): identities, keys and a policy made by the shell and read back
+   through `FilerIdentityStore` (SigV4, a presigned URL, tampered and
+   stale requests refused with the JAX codes, policy verdicts, an STS
+   credential until its expiry); about 16 MiB of objects in the bucket's
+   collection under SSE-S3, SSE-C, aws-chunked and versioning; quotas;
+   the shell's `ec.encode` (launches == batches), data shard 0 unmounted
+   and every object read back through B decrypted, sha256-equal (planes
+   launches == the holder's reconstructions); `s3.clean.uploads` and
+   `s3.bucket.delete -force`. Its own JSON line.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -4878,6 +4889,7 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     launches_j = {"gf2_apply": 0, "gf2_apply_planes": 0}
     launches_k = {"gf2_apply": 0, "gf2_apply_planes": 0}
     launches_l = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    launches_m = {"gf2_apply": 0, "gf2_apply_planes": 0}
     sink = None
     tools_src = None
     tport = free_port()
@@ -5717,6 +5729,9 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
         # -- 17l. the filer server, a child by name, through its HTTP plane ------------
         steps["17l filer server"], launches_l = filer_http_check(root, ctx, hx, fport, serving,
                                                                  watcher, sink)
+
+        # -- 17m. S3's libraries and the shell's s3.* over a filer pair in this process
+        steps["17m s3"], launches_m = s3_check(root, ctx, hx)
         failed = False
     finally:
         if fenv is not None:
@@ -5735,8 +5750,10 @@ def ha_phase(work: str, ctx, vol_rng_state: dict) -> tuple[dict, dict, dict]:
     shutil.rmtree(root)
     result = {"steps": steps, "launches": launches, "launches_17g": launches_g,
               "launches_17h_17i": launches_hi, "launches_17j": launches_j,
-              "launches_17k": launches_k, "launches_17l": launches_l, "card": card_line()}
-    return result, launches, launches_g, launches_hi, launches_j, launches_k, launches_l, tools_src
+              "launches_17k": launches_k, "launches_17l": launches_l, "launches_17m": launches_m,
+              "card": card_line()}
+    return (result, launches, launches_g, launches_hi, launches_j, launches_k, launches_l, launches_m,
+            tools_src)
 
 
 FILER_COLLECTION = "hafiler"  # 17k: the filer's chunks (bodies of SEED + 20)
@@ -6296,6 +6313,411 @@ def filer_http_check(root: str, ctx, hx, fport: int, serving: dict, watcher, sin
         "last_webhook_after_last_write_s": last_at - t_last_write, "shell_seconds": shell_s,
         "seconds_after_serving": time.perf_counter() - t_all}
     return step, launches
+
+
+S3_BUCKET = "has3"  # 17m: the bucket, and the collection its objects go to (bodies of SEED + 22)
+S3_OBJECTS = {  # 17m: the chunked objects (4 MiB chunks) and how each is sealed (about 16 MiB)
+    "obj/plain.bin": ((3 << 20) + 4321, "chunked"), "obj/sse-s3-a.bin": ((9 << 19) + 77, "sse-s3"),
+    "obj/sse-s3-b.bin": ((5 << 20) - 555, "sse-s3"), "obj/sse-c.bin": ((7 << 19) + 9, "sse-c")}
+S3_SMALL = 6  # 17m: objects under the inline limit, in their entries
+S3_VERSIONS = (256 << 10, 192 << 10, 320 << 10)  # 17m: one key written three times
+
+
+def s3_check(root: str, ctx, hx) -> tuple[dict, dict]:
+    """17m: S3's libraries and the shell's s3.* commands over a pair of port
+    Filers on phase 17's cluster, in this process (A on an SSTableStore,
+    served over gRPC at a port the shell dials; B on a SqliteStore,
+    following A through a MetaAggregator). The shell's s3.configure,
+    s3.accesskey.create, s3.policy.put/.get, s3.user.list and
+    s3.bucket.create against A; the minted keys read back through
+    `FilerIdentityStore(A)`: a request signed by `sign_v4` passes
+    `verify_v4`, a tampered byte and a stale X-Amz-Date fail with the JAX
+    codes, a presigned URL verifies, the attached policy allows and denies
+    through iam/policy, and an `assume_role` credential works until its
+    expiry. About 16 MiB of objects written through A into /buckets/<b>
+    with collection <b>, as the gateway stores them: two sealed under
+    SSE-S3 (a `LocalKeyring` in A's KV), one under SSE-C, one sent through
+    aws-chunked with its chunk signatures verified, small ones inlined,
+    and one key written three times under versioning with a delete marker
+    and `promote_latest`. s3.bucket.quota.set/.get/.enforce: the usage is
+    the bytes stored, the exceeded flag set once the quota is below it.
+    The shell's ec.encode seals the bucket's volume (the holder launches
+    gf2_apply once per batch), data shard 0 is unmounted, and every object
+    reads back through B, whole and in one range, decrypted by
+    `read_decrypted`, sha256-equal: gf2_apply_planes launches == the
+    holder's interval-cache loads. s3.clean.uploads removes a stale upload,
+    s3.bucket.delete -force drops the bucket and its collection, and
+    s3.bucket.list and the master no longer name it. Returns (the step's
+    numbers, launches)."""
+    import types
+    from concurrent import futures as cf
+
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.filer import Filer, SqliteStore, SSTableStore
+    from seaweedfs_tpu_torch.filer.entry import new_entry
+    from seaweedfs_tpu_torch.filer.grpc_service import FilerGrpcService
+    from seaweedfs_tpu_torch.filer.meta_aggregator import MetaAggregator
+    from seaweedfs_tpu_torch.filer.meta_log import MetaLog
+    from seaweedfs_tpu_torch.iam import policy, sts
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.s3 import auth, chunked, config, sse, versioning
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils import urls
+
+    t_all = time.perf_counter()
+    d = os.path.join(root, "s3")
+    b = S3_BUCKET
+    launches = {"gf2_apply": 0, "gf2_apply_planes": 0}
+    walls: dict = {}
+    plain_connection = urls.connection
+    urls.connection = redial_connection
+    servers, filers, logs, agg, env = [], [], [], None, None
+    redials0 = CONNECT_RETRIES[0]
+
+    def shell(line: str, want: str | None = None, pattern: str | None = None) -> str:
+        out = run_command(env, line)
+        if (want is not None and out != want) or (pattern is not None and not re.fullmatch(
+                pattern, out, re.DOTALL)):
+            raise AssertionError(f"17m: {line.split(' -policy')[0]} answered {out!r}")
+        return out
+
+    def refused(code: str, fn, *args):
+        try:
+            fn(*args)
+        except auth.S3AuthError as e:
+            if e.code != code:
+                raise AssertionError(f"17m: refused with {e.code}, not {code}: {e}") from None
+            return
+        raise AssertionError(f"17m: a request that must fail with {code} passed")
+
+    try:
+        t0 = time.perf_counter()
+        fport = server_port()
+
+        def hosted(name: str, store, grpc_addr: str):
+            f = Filer(store, master=hx.lead)
+            ml = MetaLog(os.path.join(d, name, "meta"))
+            f.subscribe(ml)
+            srv = grpc.server(cf.ThreadPoolExecutor(max_workers=8))
+            rpc.add_service(srv, rpc.FILER_SERVICE, FilerGrpcService(f, ml))
+            port = srv.add_insecure_port(grpc_addr)
+            srv.start()
+            servers.append(srv)
+            filers.append(f)
+            logs.append(ml)
+            return f, f"127.0.0.1:{port}"
+
+        # A's gRPC at the filer port + 10000, where the shell dials a filer
+        a, a_addr = hosted("a", SSTableStore(os.path.join(d, "a", "store")),
+                           f"127.0.0.1:{fport + 10000}")
+        fb, _ = hosted("b", SqliteStore(os.path.join(d, "b", "filer.db")), "127.0.0.1:0")
+        agg = MetaAggregator(fb, [a_addr], client_name="17m")
+        agg.start()
+        env = ShellEnv(hx.lead, f"127.0.0.1:{fport}")
+        walls["filers"] = time.perf_counter() - t0
+
+        # -- identities through the shell ------------------------------------------
+        t0 = time.perf_counter()
+        doc = {"Version": "2012-10-17", "Statement": [
+            {"Effect": "Allow", "Action": ["s3:GetObject", "s3:PutObject", "s3:ListBucket"],
+             "Resource": [f"arn:aws:s3:::{b}", f"arn:aws:s3:::{b}/*"]},
+            {"Effect": "Allow", "Action": "sts:AssumeRole", "Resource": "arn:aws:iam:::role/*"},
+            {"Effect": "Deny", "Action": "s3:DeleteObject", "Resource": "*"}]}
+        shell("s3.user.list", "no identities configured (gateway is in open mode)")
+        shell("s3.configure -user admin -access_key SWADMIN17M -secret_key admin17m-secret "
+              "-actions Admin", "configured admin")
+        minted = shell("s3.accesskey.create -user alice -actions Read",
+                       pattern=r"user=alice\naccess_key=SW[0-9A-F]{18}\nsecret_key=\S{40}")
+        ak = minted.split("access_key=")[1].split("\n")[0]
+        sk = minted.split("secret_key=")[1]
+        shell(f"s3.policy.put -user alice -policy '{json.dumps(doc)}'",
+              "policy attached to alice (1 credential(s))")
+        if json.loads(shell("s3.policy.get -user alice")) != [doc]:
+            raise AssertionError("17m: s3.policy.get gives another document back")
+        shell("s3.user.list", f"{'admin':20s} {'SWADMIN17M':24s} Admin\n"
+              f"{'alice':20s} {ak:24s} policies:1")
+        shell(f"s3.bucket.create -name {b}", f"created bucket {b}")
+        shell(f"s3.bucket.create -name {b}", f"bucket {b} exists")
+        walls["identities"] = time.perf_counter() - t0
+
+        # -- the keys read back, SigV4, presigned URLs, policies and STS -----------
+        t0 = time.perf_counter()
+        roles = sts.StsService()
+        ids = config.FilerIdentityStore(a, base=auth.IdentityStore(sts=roles), ttl=0.0)
+        alice = ids.lookup(ak)
+        if alice is None or alice.secret_key != sk or list(alice.policies) != [doc] or \
+                ids.lookup("SWADMIN17M").actions != ("Admin",):
+            raise AssertionError(f"17m: FilerIdentityStore reads {alice}")
+        host = {"host": f"127.0.0.1:{fport}"}
+        path, query = f"/{b}/obj/plain.bin", "partNumber=1&uploadId=17m"
+        h = auth.sign_v4("PUT", path, query, access_key=ak, secret_key=sk, headers=host,
+                         payload_hash="UNSIGNED-PAYLOAD")
+        if auth.verify_v4(ids, "PUT", path, query, h, "UNSIGNED-PAYLOAD").name != "alice":
+            raise AssertionError("17m: verify_v4 names another identity")
+        refused("SignatureDoesNotMatch", auth.verify_v4, ids, "PUT", path.replace("plain", "plaim"),
+                query, h, "UNSIGNED-PAYLOAD")
+        stale = auth.sign_v4("GET", path, access_key=ak, secret_key=sk, headers=host,
+                             payload_hash="UNSIGNED-PAYLOAD",
+                             amz_date=time.strftime("%Y%m%dT%H%M%SZ", time.gmtime(time.time() - 1200)))
+        refused("RequestTimeTooSkewed", auth.verify_v4, ids, "GET", path, "", stale,
+                "UNSIGNED-PAYLOAD")
+        presigned = presign_v4("GET", path, ak, sk, host["host"], 300)
+        if auth.verify_v4(ids, "GET", path, presigned, host, "").name != "alice":
+            raise AssertionError("17m: the presigned URL does not verify")
+        refused("SignatureDoesNotMatch", auth.verify_v4, ids, "GET", path + "x", presigned, host, "")
+        verdicts = {}
+        for method, key, q in (("GET", "obj/plain.bin", {}), ("PUT", "obj/x", {}),
+                               ("DELETE", "obj/plain.bin", {}), ("GET", "", {}),
+                               ("PUT", "", {"policy": ""})):
+            action, resource = policy.s3_action_and_resource(method, b, key, q)
+            verdicts[action] = policy.evaluate_policies_verdict(alice.policies, action, resource)
+        other = policy.evaluate_policies(alice.policies, *policy.s3_action_and_resource(
+            "GET", "otherbucket", "k", {}))
+        if verdicts != {"s3:GetObject": "allow", "s3:PutObject": "allow",
+                        "s3:DeleteObject": "deny", "s3:ListBucket": "allow",
+                        "s3:PutBucketPolicy": None} or other:
+            raise AssertionError(f"17m: the policy's verdicts are {verdicts}, other bucket {other}")
+        roles.put_role(sts.Role("uploader", policies=[doc], trusted=[ak]))
+        cred = roles.assume_role(ak, list(alice.policies), "uploader", duration=900)
+        th = auth.sign_v4("GET", path, access_key=cred.access_key, secret_key=cred.secret_key,
+                          headers={**host, "x-amz-security-token": cred.session_token},
+                          payload_hash="UNSIGNED-PAYLOAD")
+        if auth.verify_v4(ids, "GET", path, "", th, "UNSIGNED-PAYLOAD").name != "sts:uploader":
+            raise AssertionError("17m: the assumed role's credential does not verify")
+        tokenless = auth.sign_v4("GET", path, access_key=cred.access_key,
+                                 secret_key=cred.secret_key, headers=host,
+                                 payload_hash="UNSIGNED-PAYLOAD")
+        refused("InvalidToken", auth.verify_v4, ids, "GET", path, "", tokenless, "UNSIGNED-PAYLOAD")
+        real_time = sts.time
+        try:  # the STS clock past the credential's expiry
+            for ahead, ok in ((cred.expires_at - time.time() - 5, True),
+                              (cred.expires_at - time.time() + 1, False)):
+                sts.time = types.SimpleNamespace(time=lambda a=ahead: real_time.time() + a,
+                                                 time_ns=real_time.time_ns)
+                if ok:
+                    auth.verify_v4(ids, "GET", path, "", th, "UNSIGNED-PAYLOAD")
+                else:
+                    refused("InvalidAccessKeyId", auth.verify_v4, ids, "GET", path, "", th,
+                            "UNSIGNED-PAYLOAD")
+        finally:
+            sts.time = real_time
+        walls["auth"] = time.perf_counter() - t0
+
+        # -- the bucket's objects, as the gateway stores them ----------------------
+        rng = np.random.default_rng(SEED + 22)
+        keyring = sse.load_or_create_keyring(a.store.kv_get, a.store.kv_put, a.store.kv_put_if_absent)
+        ssec_key = rng.bytes(32)
+        plain: dict = {}  # object path -> its plaintext
+        stored_bytes = 0
+        t0 = time.perf_counter()
+        for i in range(S3_SMALL):
+            body = rng.bytes(int(rng.integers(1, 400)))
+            e = a.write_file(f"/buckets/{b}/small/s{i}.txt", body, collection=b)
+            if e.chunks:
+                raise AssertionError(f"17m: a {len(body)}-byte object was not inlined")
+            plain[e.full_path] = body
+            stored_bytes += len(body)
+        for key, (n, how) in S3_OBJECTS.items():
+            body = rng.bytes(n)
+            data = body
+            ssec, algo = (ssec_key, "") if how == "sse-c" else (None, "AES256" if how == "sse-s3"
+                                                                else "")
+            if how == "chunked":  # aws-chunked, each chunk's signature checked
+                sh = auth.sign_v4("PUT", f"/{b}/{key}", access_key=ak, secret_key=sk,
+                                  headers={**host, "x-amz-decoded-content-length": str(n)},
+                                  payload_hash="STREAMING-AWS4-HMAC-SHA256-PAYLOAD")
+                _, sctx = auth.verify_v4_ex(ids, "PUT", f"/{b}/{key}", "", sh,
+                                            "STREAMING-AWS4-HMAC-SHA256-PAYLOAD")
+                wire = chunked.encode_aws_chunked(body, sctx, chunk_size=64 << 10)
+                data = chunked.decode_aws_chunked(wire, sctx, signed=True)
+                bad = bytearray(wire)
+                bad[len(wire) // 2] ^= 1
+                refused("SignatureDoesNotMatch", chunked.decode_aws_chunked, bytes(bad), sctx, True)
+            ct, ext, _ = sse.encrypt_for_put(data, ssec, algo, keyring)
+            e = a.write_file(f"/buckets/{b}/{key}", ct, collection=b, extended=ext)
+            if [c.size for c in e.chunks] != [min(4 << 20, n - off) for off in range(0, n, 4 << 20)]:
+                raise AssertionError(f"17m: {key} landed in chunks {[c.size for c in e.chunks]}")
+            if (how != "chunked") != (ct != body):
+                raise AssertionError(f"17m: {key} was stored {'in clear' if ct == body else 'sealed'}")
+            plain[e.full_path] = body
+            stored_bytes += len(ct)
+        vkey = "ver/k.bin"
+        vids_written = []
+        for n in S3_VERSIONS:
+            body = rng.bytes(n)
+            vid = versioning.new_version_id()
+            versioning.archive_current(a, "/buckets", b, vkey)
+            e = a.write_file(f"/buckets/{b}/{vkey}", body, collection=b, inline=False,
+                             extended={versioning.VID_KEY: vid.encode()})
+            vids_written.append(vid)
+            plain[f"/buckets/{b}/{versioning.VERSIONS_DIR}/{vkey}/{vid}"] = body
+            stored_bytes += n
+        marker = versioning.write_delete_marker(a, "/buckets", b, vkey, "Enabled")
+        if not versioning.is_delete_marker(a.find_entry(f"/buckets/{b}/{vkey}")):
+            raise AssertionError("17m: the delete marker is not the current version")
+        a.delete_entry(f"/buckets/{b}/{vkey}")
+        if not versioning.promote_latest(a, "/buckets", b, vkey):
+            raise AssertionError("17m: promote_latest found no version")
+        latest = vids_written[-1]
+        plain[f"/buckets/{b}/{vkey}"] = plain.pop(f"/buckets/{b}/{versioning.VERSIONS_DIR}/"
+                                                 f"{vkey}/{latest}")
+        left = [versioning.entry_vid(x) for x in versioning.iter_versions(a, "/buckets", b, vkey)]
+        if left != vids_written[-2::-1] or \
+                versioning.entry_vid(a.find_entry(f"/buckets/{b}/{vkey}")) != latest:
+            raise AssertionError(f"17m: the versions left are {left}, the current "
+                                 f"{versioning.entry_vid(a.find_entry(f'/buckets/{b}/{vkey}'))}")
+        write_s = time.perf_counter() - t0
+        walls["write"] = write_s
+        vols = set()
+        for p in plain:
+            vols |= {FileId.parse(c.fid).volume_id for c in a.find_entry(p).chunks}
+        if len(vols) != 1:
+            raise AssertionError(f"17m: the bucket's chunks spread over volumes {sorted(vols)}")
+        (vid,) = vols
+        (holder,) = hx.lookup(vid)
+
+        # -- quotas ----------------------------------------------------------------
+        t0 = time.perf_counter()
+        quota_get = f"{b}: quota {stored_bytes * 2:,} bytes, usage {stored_bytes:,} (50.0%)"
+        shell(f"s3.bucket.quota.set -name {b} -bytes {stored_bytes * 2}",
+              f"quota for {b}: {stored_bytes * 2:,} bytes")
+        shell(f"s3.bucket.quota.get -name {b}", quota_get)
+        shell("s3.bucket.quota.enforce", f"{b}: ok ({stored_bytes:,} / {stored_bytes * 2:,})")
+        if a.store.kv_get(f"quota-exceeded/{b}".encode()) not in (b"", None):
+            raise AssertionError("17m: the exceeded flag is set under the quota")
+        shell(f"s3.bucket.quota.set -name {b} -bytes {stored_bytes - 1}",
+              f"quota for {b}: {stored_bytes - 1:,} bytes")
+        shell("s3.bucket.quota.enforce",
+              f"{b}: OVER quota ({stored_bytes:,} > {stored_bytes - 1:,}) — writes blocked")
+        if a.store.kv_get(f"quota-exceeded/{b}".encode()) != b"1":
+            raise AssertionError("17m: the exceeded flag is not set over the quota")
+        walls["quota"] = time.perf_counter() - t0
+
+        # -- seal the bucket's volume, data shard 0 gone, read through B -----------
+        def namespace(f, top: str) -> list:
+            out = []
+            for x in f.store.list(top, limit=100_000):
+                out.append((x.full_path, x.to_proto().SerializeToString(deterministic=True)))
+                if x.is_directory:
+                    out += namespace(f, x.full_path)
+            return out
+
+        t0 = time.perf_counter()
+        ns = namespace(a, "/buckets")
+        wait_until(lambda: namespace(fb, "/buckets") == ns, "B listing A's buckets", phase="17m")
+        walls["converge"] = time.perf_counter() - t0
+        dat = os.path.getsize(os.path.join(root, holder, f"{b}_{vid}.dat"))
+        n_batches = len(list(batch_plan(dat, K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+        before = {n: hx.kernels(n)["launches"] for n in hx.up}
+        t0 = time.perf_counter()
+        out = run_command(hx.fenv, f"ec.encode -volumeId {vid} -collection {b}")
+        if not re.fullmatch(rf"ec\.encode volume {vid}: generation \d+ on {re.escape(hx.url[holder])}",
+                            out):
+            raise AssertionError(f"17m: ec.encode answered {out!r}")
+        wait_until(lambda: hx.spread(vid) == dict.fromkeys(range(ctx.total), holder),
+                   "the bucket volume's 14 shards listed at the holder", phase="17m")
+        walls["encode"] = time.perf_counter() - t0
+        enc = hx.launched(before)
+        if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
+            raise AssertionError(f"17m: ec.encode launched {enc} for {n_batches} batches")
+        launches["gf2_apply"] += n_batches
+        with grpc.insecure_channel(hx.gaddr[holder]) as vch:
+            rpc.volume_stub(vch).VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
+        wait_until(lambda: hx.alive() or 0 not in hx.ec_holders(hx.lead, vid),
+                   "shard 0 of the bucket volume leaving the leader's listing", phase="17m")
+        before = {n: hx.kernels(n)["launches"] for n in hx.up}
+        loads0 = hx.kernels(holder)["interval_cache"]["loads"]
+        lat, read_bytes = [], 0
+        t0 = time.perf_counter()
+        for p, body in plain.items():
+            e = fb.find_entry(p)
+            key = sse.decrypt_key_for_entry(e, ssec_key if sse.entry_sse_algo(e) == "SSE-C" else None,
+                                            keyring)
+            t1 = time.perf_counter()
+            if key is None:
+                got = fb.read_entry(e)
+            else:
+                got = sse.read_decrypted(lambda o, n, e=e: fb.read_entry(e, o, n), e, key, 0, -1)
+            lat.append(time.perf_counter() - t1)
+            read_bytes += len(got)
+            off = int(rng.integers(0, len(body)))
+            size = int(rng.integers(1, len(body) - off + 1))
+            part = (fb.read_entry(e, off, size) if key is None else
+                    sse.read_decrypted(lambda o, n, e=e: fb.read_entry(e, o, n), e, key, off, size))
+            if hashlib.sha256(got).digest() != hashlib.sha256(body).digest() or \
+                    part != body[off:off + size]:
+                raise AssertionError(f"17m: {p} read through B differs from what was written")
+        walls["read"] = time.perf_counter() - t0
+        got = hx.launched(before)
+        recon = hx.kernels(holder)["interval_cache"]["loads"] - loads0
+        if got["gf2_apply_planes"] != recon or recon < 1 or got["gf2_apply"]:
+            raise AssertionError(f"17m: the reads through B launched {got} for {recon} "
+                                 "reconstructions")
+        launches["gf2_apply_planes"] += recon
+
+        # -- clean-up --------------------------------------------------------------
+        t0 = time.perf_counter()
+        up = new_entry(f"/buckets/{b}/.uploads/17m-stale", is_directory=True)
+        up.attr.mtime = int(time.time()) - 2 * 86400
+        a.create_entry(up)
+        shell("s3.clean.uploads", f"{b}/17m-stale")
+        if a.exists(up.full_path):
+            raise AssertionError("17m: s3.clean.uploads left the stale upload")
+        shell(f"s3.bucket.delete -name {b}", f"error: bucket {b} not empty (use -force)")
+        shell(f"s3.bucket.delete -name {b} -force", f"deleted bucket {b}")
+        shell("s3.bucket.list", "no buckets")
+        wait_until(lambda: not hx.ec_holders(hx.lead, vid) and
+                   b not in run_command(hx.fenv, "collection.list").split(),
+                   "the master listing nothing of the bucket's collection", phase="17m")
+        walls["clean_up"] = time.perf_counter() - t0
+        step = {
+            "objects": len(plain), "chunked_objects": len(S3_OBJECTS), "small_objects": S3_SMALL,
+            "versions": len(S3_VERSIONS), "delete_marker": marker, "bytes": stored_bytes,
+            "write_mb_per_s": stored_bytes / write_s / 1e6,
+            "read_mb_per_s": read_bytes / sum(lat) / 1e6,
+            "read_p50_ms": percentile_ms(lat, 50), "read_p99_ms": percentile_ms(lat, 99),
+            "volume": vid, "holder": holder, "dat_size": dat, "encode_launches": n_batches,
+            "reconstructions": recon, "walls": walls, "applied_by_b": agg.applied,
+            "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_all}
+    finally:
+        urls.connection = plain_connection
+        if env is not None:
+            env.close()
+        if agg is not None:
+            agg.stop()
+        for srv in servers:
+            srv.stop(grace=None)
+        for f in filers:
+            f.close()
+        for ml in logs:
+            ml.close()
+    return step, launches
+
+
+def presign_v4(method: str, path: str, ak: str, sk: str, host: str, expires: int) -> str:
+    """17m: a presigned URL's query, signed as an SDK signs it (this
+    smoke's own signer, not the port's)."""
+    import hmac
+    from urllib.parse import quote, urlencode
+
+    amz = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    scope = f"{amz[:8]}/us-east-1/s3/aws4_request"
+    q = {"X-Amz-Algorithm": "AWS4-HMAC-SHA256", "X-Amz-Credential": f"{ak}/{scope}",
+         "X-Amz-Date": amz, "X-Amz-Expires": str(expires), "X-Amz-SignedHeaders": "host"}
+    qs = urlencode(sorted(q.items()), quote_via=lambda s, *a: quote(s, safe="-_.~"))
+    creq = "\n".join([method, quote(path, safe="/-_.~"), qs, f"host:{host}\n", "host",
+                      "UNSIGNED-PAYLOAD"])
+    sts = "\n".join(["AWS4-HMAC-SHA256", amz, scope, hashlib.sha256(creq.encode()).hexdigest()])
+    k = ("AWS4" + sk).encode()
+    for part in (amz[:8], "us-east-1", "s3", "aws4_request"):
+        k = hmac.new(k, part.encode(), hashlib.sha256).digest()
+    return qs + "&X-Amz-Signature=" + hmac.new(k, sts.encode(), hashlib.sha256).hexdigest()
 
 
 def images_have_pil() -> bool:
@@ -6900,7 +7322,7 @@ def main() -> int:
         # -- 17. a cluster of the port alone, every process started by name ------------
         t0 = time.perf_counter()
         (ha, ha_launches, shell_launches, fleet_launches, last_launches, filer_launches,
-         server_filer_launches, tools_src) = ha_phase(work, ctx, vol_rng_state)
+         server_filer_launches, s3_launches, tools_src) = ha_phase(work, ctx, vol_rng_state)
         print("cluster of the port by name (three masters as one raft group, four volume servers "
               "on two racks; 17b phase 3's needles through /dir/assign and POST into one grown "
               "volume of about 1 GiB, read back; 17c `001` writes read back from both holders; "
@@ -6943,6 +7365,17 @@ def main() -> int:
               "fs.ls, fs.du, fs.verify, volume.fsck and cluster.lock.ring in this process answer "
               "what was written, a lease through DlmClient at the child): "
               + json.dumps(ha["steps"]["17l filer server"]) + f"; card: {card_line()}")
+        print("17m S3's libraries (the shell's s3.configure, s3.accesskey.create, s3.policy.put/"
+              ".get, s3.user.list and s3.bucket.create against a port filer pair in this process; "
+              "the minted keys read back through FilerIdentityStore: sign_v4 passes verify_v4, a "
+              "tampered byte and a stale X-Amz-Date fail with the JAX codes, a presigned URL "
+              "verifies, the attached policy allows and denies, an assume_role credential works "
+              "until its expiry; objects written into the bucket's collection under SSE-S3, SSE-C, "
+              "aws-chunked and versioning; s3.bucket.quota.set/.get/.enforce; the shell's "
+              "ec.encode, launches == batches; data shard 0 unmounted, every object read back "
+              "through B whole and in a range, decrypted, sha256-equal, planes launches == "
+              "reconstructions; s3.clean.uploads and s3.bucket.delete -force, the collection "
+              "gone): " + json.dumps(ha["steps"]["17m s3"]) + f"; card: {card_line()}")
 
         # -- the offline tools on 17j's scratch copy, while phase 18's TLS server
         # child starts --------------------------------------------------------------
@@ -6986,6 +7419,7 @@ def main() -> int:
           "17h-17i worker fleet": fleet_launches["gf2_apply"],
           "17j thumbnails": last_launches["gf2_apply"], "17k filer": filer_launches["gf2_apply"],
           "17l filer server": server_filer_launches["gf2_apply"],
+          "17m s3": s3_launches["gf2_apply"],
           "18 tls": tls_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
@@ -7002,6 +7436,7 @@ def main() -> int:
           "17j thumbnails": last_launches["gf2_apply_planes"],
           "17k filer": filer_launches["gf2_apply_planes"],
           "17l filer server": server_filer_launches["gf2_apply_planes"],
+          "17m s3": s3_launches["gf2_apply_planes"],
           "18 tls": tls_launches["gf2_apply_planes"]},
          read_row, prows),
     ):

@@ -19,110 +19,54 @@ Port of the encode, rebuild, read, decode, scrub, streaming and
 peer-fetch slices of seaweedfs_tpu/ec; the files it reads and writes
 (.ec00.., .ecx, .ecj, .ecsum, .vif, .repair, .scrubpos, .stream, and the
 decoded .dat and .idx) are the JAX package's formats, byte for byte.
+
+The package loads its modules on first use (PEP 562 `__getattr__`):
+`from ..ec import native_io` or `net_plane`, as the filer's client does,
+imports no backend and so no torch.
 """
 
-from . import native_io
-from .backend import CpuBackend, FallbackBackend, TorchBackend, get_backend
-from .bitrot import BitrotError, BitrotProtection
-from .chip_pool import ChipBackend, ChipPool, Placement, place_stream, pool_for
-from .context import DEFAULT_EC_CONTEXT, ECContext, ECError
-from .decoder import ec_decode_volume
-from .device_queue import (
-    DeviceQueue,
-    DeviceStream,
-    QueueScope,
-    batch_cost,
-)
-from .device_queue import configure as configure_device_queue
-from .device_queue import default_scope as default_device_queue_scope
-from .device_queue import for_backend as device_queue_for_backend
-from .ec_volume import EcCookieMismatch, EcNotFoundError, EcVolume
-from .encoder import ec_encode_volume, write_ec_files, write_sorted_file_from_idx
-from .peer_rebuild import (
-    PeerCorruptError,
-    PeerFetchTransient,
-    PeerRebuildReport,
-    rebuild_from_peers,
-)
-from .pipeline import FusedShardSink, PyShardSink, make_shard_sink
-from .rebuild import rebuild_ec_files
-from .repair_journal import (
-    JournalError,
-    LeafPatch,
-    RepairJournal,
-    apply_leaf_repair,
-    reconstruct_leaves,
-    recover_volume_journals,
-    sweep_stale_journals,
-)
-from .scrub import RateLimiter, ScrubCursor, ScrubDaemon, ScrubReport, scrub_ec_volume
-from .stream_encode import (
-    EcStreamEncoder,
-    StreamJournal,
-    StreamRecovery,
-    load_stream_journal,
-    read_stream_data,
-    recover_stream,
-    stream_summary,
-)
-from .volume_info import VolumeInfo
+import importlib
 
-__all__ = [
-    "BitrotError",
-    "BitrotProtection",
-    "ChipBackend",
-    "ChipPool",
-    "CpuBackend",
-    "DEFAULT_EC_CONTEXT",
-    "DeviceQueue",
-    "DeviceStream",
-    "ECContext",
-    "ECError",
-    "EcCookieMismatch",
-    "EcNotFoundError",
-    "EcStreamEncoder",
-    "EcVolume",
-    "FallbackBackend",
-    "FusedShardSink",
-    "JournalError",
-    "LeafPatch",
-    "PeerCorruptError",
-    "PeerFetchTransient",
-    "PeerRebuildReport",
-    "Placement",
-    "PyShardSink",
-    "QueueScope",
-    "RateLimiter",
-    "RepairJournal",
-    "ScrubCursor",
-    "ScrubDaemon",
-    "ScrubReport",
-    "StreamJournal",
-    "StreamRecovery",
-    "TorchBackend",
-    "VolumeInfo",
-    "apply_leaf_repair",
-    "batch_cost",
-    "configure_device_queue",
-    "default_device_queue_scope",
-    "device_queue_for_backend",
-    "ec_decode_volume",
-    "ec_encode_volume",
-    "get_backend",
-    "load_stream_journal",
-    "make_shard_sink",
-    "native_io",
-    "place_stream",
-    "pool_for",
-    "rebuild_ec_files",
-    "read_stream_data",
-    "rebuild_from_peers",
-    "reconstruct_leaves",
-    "recover_stream",
-    "recover_volume_journals",
-    "scrub_ec_volume",
-    "stream_summary",
-    "sweep_stale_journals",
-    "write_ec_files",
-    "write_sorted_file_from_idx",
-]
+# each exported name by the module that defines it
+_MODULES = {
+    "backend": ("CpuBackend", "FallbackBackend", "TorchBackend", "get_backend"),
+    "bitrot": ("BitrotError", "BitrotProtection"),
+    "chip_pool": ("ChipBackend", "ChipPool", "Placement", "place_stream", "pool_for"),
+    "context": ("DEFAULT_EC_CONTEXT", "ECContext", "ECError"),
+    "decoder": ("ec_decode_volume",),
+    "device_queue": ("DeviceQueue", "DeviceStream", "QueueScope", "batch_cost"),
+    "ec_volume": ("EcCookieMismatch", "EcNotFoundError", "EcVolume"),
+    "encoder": ("ec_encode_volume", "write_ec_files", "write_sorted_file_from_idx"),
+    "peer_rebuild": ("PeerCorruptError", "PeerFetchTransient", "PeerRebuildReport",
+                     "rebuild_from_peers"),
+    "pipeline": ("FusedShardSink", "PyShardSink", "make_shard_sink"),
+    "rebuild": ("rebuild_ec_files",),
+    "repair_journal": ("JournalError", "LeafPatch", "RepairJournal", "apply_leaf_repair",
+                       "reconstruct_leaves", "recover_volume_journals", "sweep_stale_journals"),
+    "scrub": ("RateLimiter", "ScrubCursor", "ScrubDaemon", "ScrubReport", "scrub_ec_volume"),
+    "stream_encode": ("EcStreamEncoder", "StreamJournal", "StreamRecovery",
+                      "load_stream_journal", "read_stream_data", "recover_stream",
+                      "stream_summary"),
+    "volume_info": ("VolumeInfo",),
+}
+_WHERE = {name: (mod, name) for mod, names in _MODULES.items() for name in names}
+_WHERE.update({
+    "configure_device_queue": ("device_queue", "configure"),
+    "default_device_queue_scope": ("device_queue", "default_scope"),
+    "device_queue_for_backend": ("device_queue", "for_backend"),
+    "native_io": ("native_io", None),
+})
+
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name: str):
+    try:
+        mod, attr = _WHERE[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    module = importlib.import_module(f".{mod}", __name__)
+    value = module if attr is None else getattr(module, attr)
+    globals()[name] = value
+    return value
+

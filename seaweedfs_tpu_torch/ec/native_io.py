@@ -14,6 +14,8 @@ out matrices in page-locked memory (numpy views of pinned torch
 tensors), so a batch the reader lands there is copied straight to the
 card: `TorchBackend.to_device` sees that it is pinned and skips its own
 copy into a pinned buffer. On the CPU the pool is plain aligned numpy.
+torch is imported where a matrix is pinned: the filer's client, which
+reads chunks through this plane, imports no torch.
 
 Buffer ownership:
 
@@ -45,7 +47,6 @@ import threading
 from typing import Sequence
 
 import numpy as np
-import torch
 
 from ..utils import native
 
@@ -88,6 +89,8 @@ def pinned_matrix(rows: int, width: int, align: int = _ALIGN) -> np.ndarray:
     """(rows, width) uint8 matrix in page-locked host memory, `align`-
     aligned: a numpy view of a pinned torch tensor, which the view keeps
     alive. Over-allocates when the allocator's block is not aligned."""
+    import torch
+
     n = rows * width
     host = torch.empty(n, dtype=torch.uint8, pin_memory=True).numpy()
     if host.ctypes.data % align:
@@ -110,7 +113,11 @@ class BufferPool:
 
     def __init__(self, rows: int, device=None):
         self.rows = rows
-        self.pinned = device is not None and torch.device(device).type == "cuda"
+        self.pinned = False
+        if device is not None:
+            import torch
+
+            self.pinned = torch.device(device).type == "cuda"
         self._free: dict[int, list[np.ndarray]] = {}
         self._lock = threading.Lock()
 

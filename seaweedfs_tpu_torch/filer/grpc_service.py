@@ -2,8 +2,8 @@
 
 Port of seaweedfs_tpu/filer/grpc_service.py: every RPC of the JAX
 service, answering as it does, with one exception. RunLifecycle applies
-S3 lifecycle rules, and the port has no S3 yet (ROADMAP item 13a): it
-answers LifecycleRunResponse(error=...) naming that item. DistributedLock
+S3 lifecycle rules, which come with the port's S3 gateway (ROADMAP item
+13b): it answers LifecycleRunResponse(error=...) naming that item. DistributedLock
 goes to the lock ring (filer/lock_ring.py) the filer server sets on the
 service; without one it answers "lock ring not configured", as the JAX
 service does.
@@ -166,7 +166,7 @@ class FilerGrpcService:
         """The execution half of the worker fleet's s3_lifecycle task
         kind. The lifecycle scanner comes with the port's S3 gateway."""
         return fpb.LifecycleRunResponse(
-            error="s3 lifecycle is not ported yet (ROADMAP item 13a)"
+            error="s3 lifecycle is not ported yet (ROADMAP item 13b)"
         )
 
     def HardLink(self, request, context):

@@ -34,6 +34,7 @@ from ..filer.tus import TusError, TusManager
 from ..pb import rpc
 from ..utils.http_pool import build_http_server, send_body
 from ..utils.request_id import RequestTracingMixin
+from .multipart import _parse_upload
 
 REMOTE_ERROR = "remote storage is not ported yet: it comes with ROADMAP.md item 18"
 
@@ -379,8 +380,6 @@ class FilerServer:
                     body = b"".join(parts)
                 else:
                     body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
-                from .volume_server import _parse_upload
-
                 name, mime, data = _parse_upload(self.headers, body)
                 ttl_sec = 0
                 if q.get("ttl", [""])[0]:

@@ -8,13 +8,14 @@ command_ec_common.go, the volume.* family).
 Each command is a function(env, args) -> str; the registry drives both
 the REPL and one-shot `python -m seaweedfs_tpu_torch.shell -c "..."`.
 
-The port has the registry, the shared helpers and 60 commands: the
+The port has the registry, the shared helpers and 75 commands: the
 cluster (`cluster.status`, `cluster.check`, `cluster.ps`, `cluster.raft.*`),
 volume, EC, collection and lock commands, `upload` and `download`, the
 worker fleet's (`task.submit`, `task.list`, `worker.list`,
-`maintenance.config`), and the filer's (`fs.*`, `volume.fsck`,
-`cluster.lock.ring`). The JAX shell's other commands need modules the
-port has not taken yet (S3, MQ, remote storage and mount);
+`maintenance.config`), the filer's (`fs.*`, `volume.fsck`,
+`cluster.lock.ring`) and S3's (`s3.*`: identities, policies, buckets and
+their quotas, in the filer). The JAX shell's other commands need modules
+the port has not taken yet (MQ, remote storage and mount);
 each answers one error line naming the ROADMAP.md item it comes with
 (`DEFERRED`).
 
@@ -62,11 +63,6 @@ BACKENDS = ("cuda", "cpu", "auto")
 # yet, each with the ROADMAP.md item that brings it. They are not in
 # COMMANDS: run_command answers them with one error line.
 DEFERRED: dict[str, str] = {
-    **{c: "13b" for c in (
-        "s3.accesskey.create", "s3.accesskey.delete", "s3.bucket.create", "s3.bucket.delete",
-        "s3.bucket.list", "s3.bucket.quota.enforce", "s3.bucket.quota.get",
-        "s3.bucket.quota.set", "s3.clean.uploads", "s3.configure", "s3.policy.delete",
-        "s3.policy.get", "s3.policy.put", "s3.user.delete", "s3.user.list")},
     **{c: "14a" for c in (
         "mq.schema.get", "mq.schema.set", "mq.topic.compact", "mq.topic.configure",
         "mq.topic.delete", "mq.topic.describe", "mq.topic.list", "mq.topic.truncate")},
@@ -2372,3 +2368,396 @@ def fs_configure(env: ShellEnv, args) -> str:
                    timeout=10)
     verb = "deleted rule for" if a.delete else "configured"
     return f"{verb} {a.locationPrefix} ({len(locs)} rule(s) total)"
+
+
+# ------------------------------------------------------------ the s3 family
+#
+# s3.*: the gateway's identities (`s3/identity.json` in the filer's KV,
+# which s3/config.py `FilerIdentityStore` reads), its buckets (the
+# directories of /buckets; a bucket's objects go to the collection of its
+# name) and their quotas (`quota/<b>` and `quota-exceeded/<b>` in the
+# KV), all over the filer's gRPC face.
+
+
+def _s3_conf_load(stub) -> dict:
+    from ..pb import filer_pb2 as fpb
+    from ..s3.config import S3_IDENTITY_KV
+
+    r = stub.KvGet(fpb.FilerKvGetRequest(key=S3_IDENTITY_KV), timeout=10)
+    if not r.found or not r.value:
+        return {"identities": []}
+    try:
+        return json.loads(r.value)
+    except json.JSONDecodeError:
+        return {"identities": []}
+
+
+def _s3_conf_save(stub, conf: dict) -> None:
+    from ..pb import filer_pb2 as fpb
+    from ..s3.config import S3_IDENTITY_KV
+
+    stub.KvPut(
+        fpb.FilerKvPutRequest(key=S3_IDENTITY_KV, value=json.dumps(conf, indent=2).encode()),
+        timeout=10,
+    )
+
+
+@command(
+    "s3.configure",
+    "-user name [-actions A,B] [-access_key K -secret_key S] [-delete] (identity CRUD)",
+)
+def s3_configure(env: ShellEnv, args) -> str:
+    """Reference command_s3_configure.go: maintain the gateway identity
+    config (persisted in the filer; every gateway reloads it live)."""
+    p = argparse.ArgumentParser(prog="s3.configure")
+    p.add_argument("-user", required=True)
+    p.add_argument("-actions", default="")
+    p.add_argument("-access_key", default="")
+    p.add_argument("-secret_key", default="")
+    p.add_argument("-delete", action="store_true")
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        conf = _s3_conf_load(stub)
+        idents = conf.setdefault("identities", [])
+        if a.delete:
+            before = len(idents)
+            conf["identities"] = [i for i in idents if i.get("name") != a.user]
+            _s3_conf_save(stub, conf)
+            return f"deleted {before - len(conf['identities'])} credential(s) of {a.user}"
+        if bool(a.access_key) != bool(a.secret_key):
+            return "error: -access_key and -secret_key go together"
+        actions = [s for s in a.actions.split(",") if s]
+        existing = [i for i in idents if i.get("name") == a.user]
+        if a.access_key:
+            entry = {
+                "name": a.user,
+                "accessKey": a.access_key,
+                "secretKey": a.secret_key,
+                "actions": actions
+                or (existing[0].get("actions", ["Admin"]) if existing else ["Admin"]),
+            }
+            idents[:] = [i for i in idents if i.get("accessKey") != a.access_key] + [entry]
+        elif actions:
+            if not existing:
+                return f"error: user {a.user} has no credentials yet (use s3.accesskey.create)"
+            for i in existing:
+                i["actions"] = actions
+        else:
+            return "error: nothing to do (-actions or key pair or -delete)"
+        _s3_conf_save(stub, conf)
+    return f"configured {a.user}"
+
+
+@command("s3.user.list", "list configured S3 identities")
+def s3_user_list(env: ShellEnv, args) -> str:
+    ch, stub = _filer_grpc(env)
+    with ch:
+        conf = _s3_conf_load(stub)
+    rows = [
+        f"{i.get('name', '?'):20s} {i.get('accessKey', ''):24s} "
+        f"{','.join(i.get('actions', [])) or 'policies:' + str(len(i.get('policies', [])))}"
+        for i in conf.get("identities", [])
+    ]
+    return "\n".join(rows) or "no identities configured (gateway is in open mode)"
+
+
+@command("s3.user.delete", "-user name (drop all the user's credentials)")
+def s3_user_delete(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="s3.user.delete")
+    p.add_argument("-user", required=True)
+    a = p.parse_args(args)
+    return s3_configure(env, ["-user", a.user, "-delete"])
+
+
+@command("s3.accesskey.create", "-user name [-actions A,B] (generate a key pair)")
+def s3_accesskey_create(env: ShellEnv, args) -> str:
+    from ..s3.config import mint_key_pair
+
+    p = argparse.ArgumentParser(prog="s3.accesskey.create")
+    p.add_argument("-user", required=True)
+    p.add_argument("-actions", default="")
+    a = p.parse_args(args)
+    access_key, secret_key = mint_key_pair()
+    out = s3_configure(
+        env,
+        ["-user", a.user, "-access_key", access_key, "-secret_key", secret_key]
+        + (["-actions", a.actions] if a.actions else []),
+    )
+    if out.startswith("error"):
+        return out
+    return f"user={a.user}\naccess_key={access_key}\nsecret_key={secret_key}"
+
+
+@command("s3.accesskey.delete", "-access_key K")
+def s3_accesskey_delete(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="s3.accesskey.delete")
+    p.add_argument("-access_key", required=True)
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        conf = _s3_conf_load(stub)
+        before = len(conf.get("identities", []))
+        conf["identities"] = [
+            i for i in conf.get("identities", []) if i.get("accessKey") != a.access_key
+        ]
+        _s3_conf_save(stub, conf)
+    return f"deleted {before - len(conf['identities'])} credential(s)"
+
+
+@command(
+    "s3.policy.put",
+    "-user name -policy '<json document>' (attach an IAM policy, replacing actions)",
+)
+def s3_policy_put(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="s3.policy.put")
+    p.add_argument("-user", required=True)
+    p.add_argument("-policy", required=True)
+    a = p.parse_args(args)
+    try:
+        doc = json.loads(a.policy)
+    except json.JSONDecodeError as e:
+        return f"error: policy is not JSON: {e}"
+    if "Statement" not in doc:
+        return "error: policy has no Statement"
+    ch, stub = _filer_grpc(env)
+    with ch:
+        conf = _s3_conf_load(stub)
+        hit = [i for i in conf.get("identities", []) if i.get("name") == a.user]
+        if not hit:
+            return f"error: user {a.user} has no credentials yet"
+        for i in hit:
+            i["policies"] = [doc]
+            i["actions"] = []
+        _s3_conf_save(stub, conf)
+    return f"policy attached to {a.user} ({len(hit)} credential(s))"
+
+
+@command("s3.policy.get", "-user name")
+def s3_policy_get(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="s3.policy.get")
+    p.add_argument("-user", required=True)
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        conf = _s3_conf_load(stub)
+    for i in conf.get("identities", []):
+        if i.get("name") == a.user and i.get("policies"):
+            return json.dumps(i["policies"], indent=2)
+    return f"user {a.user} has no attached policies"
+
+
+@command("s3.policy.delete", "-user name (detach policies, restoring action-based auth)")
+def s3_policy_delete(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="s3.policy.delete")
+    p.add_argument("-user", required=True)
+    p.add_argument("-actions", default="Admin")
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        conf = _s3_conf_load(stub)
+        hit = [i for i in conf.get("identities", []) if i.get("name") == a.user]
+        for i in hit:
+            i.pop("policies", None)
+            i["actions"] = [s for s in a.actions.split(",") if s]
+        _s3_conf_save(stub, conf)
+    return f"policies detached from {len(hit)} credential(s)"
+
+
+@command("s3.bucket.list", "list buckets (via the filer)")
+def s3_bucket_list(env: ShellEnv, args) -> str:
+    from ..pb import filer_pb2 as fpb
+
+    ch, stub = _filer_grpc(env)
+    rows = []
+    with ch:
+        for r in stub.ListEntries(fpb.ListEntriesRequest(directory="/buckets", limit=10000),
+                                  timeout=30):
+            if r.entry.is_directory and not r.entry.name.startswith("."):
+                rows.append(r.entry.name)
+    return "\n".join(sorted(rows)) or "no buckets"
+
+
+@command("s3.bucket.create", "-name bucket")
+def s3_bucket_create(env: ShellEnv, args) -> str:
+    from ..pb import filer_pb2 as fpb
+
+    p = argparse.ArgumentParser(prog="s3.bucket.create")
+    p.add_argument("-name", required=True)
+    a = p.parse_args(args)
+    entry = fpb.Entry(name=a.name, is_directory=True)
+    entry.attributes.file_mode = 0o40755
+    ch, stub = _filer_grpc(env)
+    with ch:
+        r = stub.LookupDirectoryEntry(fpb.LookupEntryRequest(directory="/buckets", name=a.name),
+                                      timeout=10)
+        if not r.error:
+            return f"bucket {a.name} exists"
+        r = stub.CreateEntry(fpb.CreateEntryRequest(directory="/buckets", entry=entry),
+                             timeout=10)
+    return r.error or f"created bucket {a.name}"
+
+
+@command("s3.bucket.delete", "-name bucket [-force] (force = delete objects too)", mutating=True)
+def s3_bucket_delete(env: ShellEnv, args) -> str:
+    from ..pb import filer_pb2 as fpb
+
+    p = argparse.ArgumentParser(prog="s3.bucket.delete")
+    p.add_argument("-name", required=True)
+    p.add_argument("-force", action="store_true")
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        if not a.force:
+            for _ in stub.ListEntries(
+                fpb.ListEntriesRequest(directory=f"/buckets/{a.name}", limit=2), timeout=10
+            ):
+                return f"error: bucket {a.name} not empty (use -force)"
+        r = stub.DeleteEntry(
+            fpb.DeleteEntryRequest(directory="/buckets", name=a.name, is_recursive=True,
+                                   is_delete_data=True),
+            timeout=60,
+        )
+    if r.error:
+        return f"error: {r.error}"
+    with contextlib.suppress(Exception):
+        env.master.collection_delete(a.name)
+    return f"deleted bucket {a.name}"
+
+
+@command("s3.clean.uploads", "[-timeAgo hours] purge stale multipart uploads")
+def s3_clean_uploads(env: ShellEnv, args) -> str:
+    import time as _time
+
+    from ..pb import filer_pb2 as fpb
+
+    p = argparse.ArgumentParser(prog="s3.clean.uploads")
+    p.add_argument("-timeAgo", type=float, default=24.0)
+    a = p.parse_args(args)
+    cutoff = _time.time() - a.timeAgo * 3600
+    ch, stub = _filer_grpc(env)
+    removed = []
+    with ch:
+        buckets = [
+            r.entry.name
+            for r in stub.ListEntries(fpb.ListEntriesRequest(directory="/buckets", limit=10000),
+                                      timeout=30)
+            if r.entry.is_directory and not r.entry.name.startswith(".")
+        ]
+        for b in buckets:
+            updir = f"/buckets/{b}/.uploads"
+            for r in stub.ListEntries(fpb.ListEntriesRequest(directory=updir, limit=10000),
+                                      timeout=30):
+                if r.entry.attributes.mtime < cutoff:
+                    rr = stub.DeleteEntry(
+                        fpb.DeleteEntryRequest(directory=updir, name=r.entry.name,
+                                               is_recursive=True, is_delete_data=True),
+                        timeout=60,
+                    )
+                    if not rr.error:
+                        removed.append(f"{b}/{r.entry.name}")
+    return "\n".join(removed) or "no stale uploads"
+
+
+def _list_all_entries(stub, directory: str):
+    """Full listing with PAGINATION — a flat limit would silently
+    undercount directories beyond it."""
+    from ..pb import filer_pb2 as fpb
+
+    start = ""
+    while True:
+        page = list(stub.ListEntries(
+            fpb.ListEntriesRequest(directory=directory, limit=10000, start_from=start),
+            timeout=60,
+        ))
+        for r in page:
+            yield r.entry
+        if len(page) < 10000:
+            return
+        start = page[-1].entry.name
+
+
+def _bucket_usage_bytes(stub, bucket: str) -> int:
+    """Recursive size walk of /buckets/<b> over the filer gRPC."""
+    total = 0
+    stack = [f"/buckets/{bucket}"]
+    while stack:
+        d = stack.pop()
+        for e in _list_all_entries(stub, d):
+            if e.is_directory:
+                stack.append(f"{d}/{e.name}")
+            else:
+                total += e.attributes.file_size or (len(e.content) + sum(c.size for c in e.chunks))
+    return total
+
+
+@command("s3.bucket.quota.set", "-name bucket -bytes N (0 = remove the quota)")
+def s3_bucket_quota_set(env: ShellEnv, args) -> str:
+    from ..pb import filer_pb2 as fpb
+
+    p = argparse.ArgumentParser(prog="s3.bucket.quota.set")
+    p.add_argument("-name", required=True)
+    p.add_argument("-bytes", type=int, required=True)
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        key = f"quota/{a.name}".encode()
+        if a.bytes > 0:
+            stub.KvPut(fpb.FilerKvPutRequest(key=key, value=str(a.bytes).encode()), timeout=10)
+            return f"quota for {a.name}: {a.bytes:,} bytes"
+        stub.KvPut(fpb.FilerKvPutRequest(key=key, value=b""), timeout=10)
+        stub.KvPut(fpb.FilerKvPutRequest(key=f"quota-exceeded/{a.name}".encode(), value=b""),
+                   timeout=10)
+        return f"quota removed for {a.name}"
+
+
+@command("s3.bucket.quota.get", "-name bucket")
+def s3_bucket_quota_get(env: ShellEnv, args) -> str:
+    from ..pb import filer_pb2 as fpb
+
+    p = argparse.ArgumentParser(prog="s3.bucket.quota.get")
+    p.add_argument("-name", required=True)
+    a = p.parse_args(args)
+    ch, stub = _filer_grpc(env)
+    with ch:
+        r = stub.KvGet(fpb.FilerKvGetRequest(key=f"quota/{a.name}".encode()), timeout=10)
+        usage = _bucket_usage_bytes(stub, a.name)
+    if not r.found or not r.value:
+        return f"{a.name}: no quota (usage {usage:,} bytes)"
+    quota = int(r.value)
+    return f"{a.name}: quota {quota:,} bytes, usage {usage:,} ({100.0 * usage / quota:.1f}%)"
+
+
+@command(
+    "s3.bucket.quota.enforce",
+    "check every quota'd bucket; flag over-quota ones read-only for the gateway",
+    mutating=True,
+)
+def s3_bucket_quota_enforce(env: ShellEnv, args) -> str:
+    """Reference command_s3_bucketquota.go: enforcement is a periodic
+    sweep (cron/worker), not per-request accounting — the gateway just
+    honors the exceeded flag on writes."""
+    from ..pb import filer_pb2 as fpb
+
+    ch, stub = _filer_grpc(env)
+    out = []
+    with ch:
+        buckets = [
+            e.name
+            for e in _list_all_entries(stub, "/buckets")
+            if e.is_directory and not e.name.startswith(".")
+        ]
+        for b in buckets:
+            q = stub.KvGet(fpb.FilerKvGetRequest(key=f"quota/{b}".encode()), timeout=10)
+            if not q.found or not q.value:
+                continue
+            quota = int(q.value)
+            usage = _bucket_usage_bytes(stub, b)
+            flag_key = f"quota-exceeded/{b}".encode()
+            if usage > quota:
+                stub.KvPut(fpb.FilerKvPutRequest(key=flag_key, value=b"1"), timeout=10)
+                out.append(f"{b}: OVER quota ({usage:,} > {quota:,}) — writes blocked")
+            else:
+                stub.KvPut(fpb.FilerKvPutRequest(key=flag_key, value=b""), timeout=10)
+                out.append(f"{b}: ok ({usage:,} / {quota:,})")
+    return "\n".join(out) or "no buckets carry quotas"

@@ -10,9 +10,10 @@ The registry holds the families the port's modules increment: requests
 `sw_volume_bytes`), EC operations and bytes, leaf repairs,
 repair-journal actions, the network byte plane (`sw_net_*`), the
 hot-cache tiers and the HTTP front end's inflight and rejected counts
-(`sw_gateway_*`); the flight recorder (utils/trace.py), the stream
-encoder and the device queue register their own. Families of modules
-the port does not have yet are left out: the MQ gateway and S3.
+(`sw_gateway_*`) and the S3 auth path's verdict memo; the flight recorder
+(utils/trace.py), the stream encoder and the device queue register their
+own. Families of modules the port does not have yet are left out: the MQ
+gateway's.
 """
 
 from __future__ import annotations
@@ -407,4 +408,14 @@ gateway_rejected_total = REGISTRY.counter(
     "connections refused with 503 because the worker pool + accept "
     "queue were saturated",
     ("server",),
+)
+
+# The S3 auth path: SigV4 verdict-memo outcomes on header-auth requests
+# (s3/auth.py). hit = the canonical request and its HMAC chain were
+# skipped (freshness, identity and session token still re-checked);
+# bypass = presigned or streaming auth, or the memo is off.
+s3_auth_memo_total = REGISTRY.counter(
+    "sw_s3_auth_memo_total",
+    "SigV4 verdict-memo outcomes (hit/miss/bypass) on the S3 auth path",
+    ("result",),
 )

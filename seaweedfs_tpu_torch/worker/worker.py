@@ -54,8 +54,8 @@ from ..utils import request_id as _rid
 from ..utils import trace
 from .control import VOLUME_INDEPENDENT_KINDS
 
-# the JAX worker's task kinds that need the filer and S3 (ROADMAP.md items
-# 12b and 13b), which the port has not taken yet
+# the JAX worker's task kinds that need the S3 gateway and S3 tables
+# (ROADMAP.md items 13b and 13c), which the port has not taken yet
 DEFERRED_KINDS = ("s3_lifecycle", "iceberg")
 
 
@@ -80,7 +80,7 @@ class Worker:
             raise ValueError(
                 f"-capabilities {','.join(deferred)}: the port's worker does not "
                 "take s3_lifecycle or iceberg tasks yet: they come with "
-                "ROADMAP.md items 12b and 13b"
+                "ROADMAP.md items 13b and 13c"
             )
         self.master_addr = master
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"

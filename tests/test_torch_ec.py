@@ -356,8 +356,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
-    assert {"client", "ec", "faults", "filer", "mq", "ops", "pb", "server", "shell", "storage",
-            "tools", "utils", "worker"} <= scanned
+    assert {"client", "ec", "faults", "filer", "iam", "mq", "ops", "pb", "s3", "server", "shell",
+            "storage", "tools", "utils", "worker"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
     for mod in ("server/master.py", "server/topology.py", "server/raft.py", "server/cluster_lock.py",
@@ -372,8 +372,99 @@ def test_import_guard_scans_every_package_of_the_port():
                 "filer/sstable_store.py", "filer/locks.py", "filer/notification.py",
                 "filer/meta_log.py", "filer/filer.py", "filer/grpc_service.py",
                 "filer/meta_aggregator.py", "filer/tus.py", "filer/lock_ring.py",
-                "server/filer_server.py", "client/filer_client.py"):
+                "server/filer_server.py", "server/multipart.py", "client/filer_client.py",
+                *S3_MODULES):
         assert PORT / mod in _python_files(), mod
+
+
+# S3's libraries and the IAM they check requests against
+S3_MODULES = ("iam/__init__.py", "iam/policy.py", "iam/sts.py", "s3/__init__.py", "s3/auth.py",
+              "s3/chunked.py", "s3/post_policy.py", "s3/config.py", "s3/versioning.py",
+              "s3/sse.py")
+
+_FILER_ALONE = r"""
+import importlib, os, sys, tempfile
+port = int(sys.argv[1])
+for name in sys.argv[2:]:
+    importlib.import_module(name)
+from seaweedfs_tpu_torch.client.operations import Operations
+from seaweedfs_tpu_torch.filer import Filer, MemoryStore
+from seaweedfs_tpu_torch.s3 import auth, config, sse, versioning
+from seaweedfs_tpu_torch.server.__main__ import build
+
+# the launcher's filer mode, a filer in process and the S3 libraries over it
+d = tempfile.mkdtemp()
+servers = build(["filer", "-master", "127.0.0.1:1", "-ip", "127.0.0.1", "-port", str(port),
+                 "-dir", d, "-store", "memory"], config_dirs=())
+f = Filer(MemoryStore(), master="127.0.0.1:1")
+f.store.kv_put(config.S3_IDENTITY_KV, b'{"identities": [{"accessKey": "A", "secretKey": "S"}]}')
+ids = config.FilerIdentityStore(f, ttl=0)
+h = auth.sign_v4("GET", "/b/k", access_key="A", secret_key="S", payload_hash="UNSIGNED-PAYLOAD")
+assert auth.verify_v4(ids, "GET", "/b/k", "", h, "UNSIGNED-PAYLOAD").access_key == "A"
+ring = sse.load_or_create_keyring(f.store.kv_get, f.store.kv_put, f.store.kv_put_if_absent)
+ct, ext, _ = sse.encrypt_for_put(b"body" * 100, None, "AES256", ring)
+f.write_file("/buckets/b/k", ct, extended={**ext, versioning.VID_KEY: versioning.new_version_id().encode()})
+versioning.archive_current(f, "/buckets", "b", "k")
+(e,) = versioning.iter_versions(f, "/buckets", "b", "k")
+key = sse.decrypt_key_for_entry(e, None, ring)
+assert sse.read_decrypted(lambda o, n: f.read_entry(e, o, n), e, key, 3, 50) == (b"body" * 100)[3:53]
+Operations("127.0.0.1:1").close()
+# the launched filer's routes: a multipart POST and a raw PUT (both through
+# the upload parse), GET, a rename by mv.from, a listing and DELETE
+import http.client, json
+def call(method, path, body=None, headers=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request(method, path, body=body, headers=headers or {})
+    r = c.getresponse()
+    out = r.status, r.read()
+    c.close()
+    return out
+form = (b'--bnd\r\nContent-Disposition: form-data; name="file"; filename="a.txt"\r\n'
+        b'Content-Type: text/plain\r\n\r\nsmall body\r\n--bnd--\r\n')
+assert call("POST", "/d/a.txt", form, {"Content-Type": "multipart/form-data; boundary=bnd"})[0] == 201
+assert call("PUT", "/d/b.bin", b"raw body")[0] == 201
+assert call("GET", "/d/a.txt") == (200, b"small body")
+assert call("POST", "/d/c.bin?mv.from=/d/b.bin", b"")[0] == 200
+assert [x["FullPath"] for x in json.loads(call("GET", "/d/")[1])["Entries"]] == ["/d/a.txt", "/d/c.bin"]
+assert call("DELETE", "/d?recursive=true")[0] == 204
+for srv in servers:
+    srv.stop()
+print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
+                      & {"torch", "jax", "jaxlib", "seaweedfs_tpu"}))
+"""
+
+
+def test_the_filer_its_server_and_s3_libraries_import_no_torch():
+    """The filer, its server (by the launcher's `filer` mode, its writes,
+    reads, renames and deletes included), the client's Operations and
+    every S3 / IAM module load neither torch nor the JAX package: a
+    gateway or a filer child starts and serves without the torch import."""
+    from test_torch_volume_server import _ports
+
+    mods = ["seaweedfs_tpu_torch.filer.filer", "seaweedfs_tpu_torch.server.filer_server",
+            "seaweedfs_tpu_torch.server.multipart", "seaweedfs_tpu_torch.client.operations"] + [
+        "seaweedfs_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
+        for m in S3_MODULES]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _FILER_ALONE, str(_ports()), *mods],
+                          cwd=str(REPO), env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_the_ec_package_loads_its_modules_on_first_use():
+    """`seaweedfs_tpu_torch.ec` exports every name it did, each loaded from
+    its module on first use."""
+    import seaweedfs_tpu_torch.ec as ec
+    from seaweedfs_tpu_torch.ec import backend, device_queue
+
+    assert ec.TorchBackend is backend.TorchBackend and ec.get_backend is backend.get_backend
+    assert ec.configure_device_queue is device_queue.configure
+    assert ec.native_io is sys.modules["seaweedfs_tpu_torch.ec.native_io"]
+    for name in ec.__all__:
+        assert getattr(ec, name) is not None, name
+    with pytest.raises(AttributeError):
+        ec.no_such_name
 
 
 _SUBPROCESS_ENCODE = r"""

@@ -16,7 +16,7 @@ on the twin clusters of tests/test_torch_filer.py:
   JAX `MetaAggregator` following the port's service, each reach the
   origin's namespace entry for entry, so the wire format is one;
 - the port's one divergence: `RunLifecycle` answers an error naming
-  ROADMAP item 13a.
+  ROADMAP item 13b.
 """
 
 import hashlib
@@ -310,7 +310,7 @@ def test_run_lifecycle_names_its_roadmap_item(twins, tmp_path):
     h = Hosted("port", twins["port"], tmp_path)
     try:
         r = h.stub.RunLifecycle(fpb.LifecycleRunRequest(bucket="b"), timeout=30)
-        assert "ROADMAP item 13a" in r.error and r.expired == 0
+        assert "ROADMAP item 13b" in r.error and r.expired == 0
     finally:
         h.close()
 

@@ -2,7 +2,7 @@
 utils/urls, the rest of ec/placement (`plan_ec_balance` and its stages)
 and ec/rebalance, held against the JAX package on the CPU:
 
-- every one of the 44 ported commands, run through the JAX shell and
+- every one of the 75 ported commands, run through the JAX shell and
   through the port's on twin clusters built from the same bytes: the
   output equal line for line once addresses, the shell's owner id, fid
   cookies, paths and timings are masked, the master's topology equal,
@@ -14,7 +14,9 @@ and ec/rebalance, held against the JAX package on the CPU:
 - the worker fleet's commands (`task.submit`, `task.list`, `worker.list`,
   `cluster.ps`, `maintenance.config`) with a worker of the shell's
   package registered at each twin's master;
-- the registry: the port's commands are 44 of the JAX `COMMANDS`,
+- S3's 15 commands (`s3.*`) against each twin's filer, its KV and its
+  /buckets tree equal after every step;
+- the registry: the port's commands are 75 of the JAX `COMMANDS`,
   with the JAX help texts apart from `-backend`; each command left for a
   later item answers one error line naming its ROADMAP.md item; a
   `-backend` the port does not run (`tpu`) is refused before any RPC;
@@ -62,6 +64,7 @@ import seaweedfs_tpu.server.topology as jax_topology
 from seaweedfs_tpu.client.operations import Operations as JaxOperations
 from seaweedfs_tpu.filer import Filer as JaxFiler
 from seaweedfs_tpu.filer import MemoryStore as JaxMemoryStore
+from seaweedfs_tpu.filer.entry import new_entry as jax_new_entry
 from seaweedfs_tpu.filer.lock_ring import DlmClient as JaxDlmClient
 from seaweedfs_tpu.server.filer_server import FilerServer as JaxFilerServer
 from seaweedfs_tpu.pb import rpc as jrpc
@@ -73,6 +76,7 @@ from seaweedfs_tpu_torch.client import operations as port_ops
 from seaweedfs_tpu_torch.client.master_client import AssignResult
 from seaweedfs_tpu_torch.ec import placement, rebalance
 from seaweedfs_tpu_torch.filer import Filer, MemoryStore
+from seaweedfs_tpu_torch.filer.entry import new_entry
 from seaweedfs_tpu_torch.filer.lock_ring import DlmClient
 from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
 from seaweedfs_tpu_torch.pb import rpc
@@ -102,8 +106,13 @@ PORTED = {
     "fs.cat", "fs.configure", "fs.cp", "fs.du", "fs.ls", "fs.meta.cat", "fs.meta.load",
     "fs.meta.save", "fs.mkdir", "fs.mv", "fs.rm", "fs.stat", "fs.tree", "fs.verify",
     "volume.fsck", "cluster.lock.ring",
+    "s3.configure", "s3.user.list", "s3.user.delete", "s3.accesskey.create",
+    "s3.accesskey.delete", "s3.policy.put", "s3.policy.get", "s3.policy.delete",
+    "s3.bucket.list", "s3.bucket.create", "s3.bucket.delete", "s3.clean.uploads",
+    "s3.bucket.quota.set", "s3.bucket.quota.get", "s3.bucket.quota.enforce",
 }
 FS_COLLECTION = "fs"  # the twins' filers write their chunks here
+S3_BUCKETS = ("b1", "b2", "b3")  # the s3.* steps' buckets, b1's objects in collection b1
 FS_CHUNK = 64 * 1024
 
 # the initial volumes: (server, vid, collection, replica placement, needles, deleted)
@@ -307,6 +316,30 @@ class Side:
             return r.status
         finally:
             c.close()
+
+    def filer_entry(self, path: str, directory: bool = False):
+        """A new entry of the filer's package."""
+        return (jax_new_entry if self.shell == "jax" else new_entry)(path, is_directory=directory)
+
+    def s3_state(self) -> list:
+        """What the s3.* commands keep in the filer: the identity config
+        and the buckets' quota keys in its KV, and the /buckets tree
+        (path, directory or not, size, extended attributes but the
+        filer's clock, `sw-mts`)."""
+        kv = self.filer.store.kv_get
+        keys = [b"s3/identity.json"] + [f"{k}/{b}".encode() for k in ("quota", "quota-exceeded")
+                                        for b in S3_BUCKETS]
+        tree, stack = [], ["/buckets"]
+        while stack:
+            d = stack.pop()
+            if not self.filer.exists(d):
+                continue
+            for e in self.filer.list_entries(d, limit=100_000):
+                ext = sorted((k, v) for k, v in e.extended.items() if k != "sw-mts")
+                tree.append((e.full_path, e.is_directory, e.file_size, ext))
+                if e.is_directory:
+                    stack.append(e.full_path)
+        return [(k, kv(k)) for k in keys] + sorted(tree)
 
     def fs_settle(self) -> None:
         """The filer's chunk deletes done, the master's topology settled."""
@@ -643,12 +676,147 @@ def step_cluster_lock_ring(side):
     return out + [side.run("cluster.lock.ring")]
 
 
+# S3's commands: one step each, against each twin's filer (its package the
+# shell's): identities and policies in its KV, buckets under /buckets, the
+# objects of b1 in the collection b1, as the gateway stores them
+
+
+@contextlib.contextmanager
+def minted(seed: int):
+    """s3.accesskey.create's key pairs from a seeded rng (both packages
+    mint them through the `secrets` module)."""
+    import base64
+    import secrets
+    from unittest import mock
+
+    rng = random.Random(seed)
+    with mock.patch.object(secrets, "token_hex", lambda n: rng.randbytes(n).hex()), \
+            mock.patch.object(secrets, "token_urlsafe", lambda n: base64.urlsafe_b64encode(
+                rng.randbytes(n)).rstrip(b"=").decode()):
+        yield
+
+
+S3_POLICY = json.dumps({"Version": "2012-10-17", "Statement": [
+    {"Effect": "Allow", "Action": ["s3:GetObject", "s3:ListBucket"],
+     "Resource": ["arn:aws:s3:::b1", "arn:aws:s3:::b1/*"]},
+    {"Effect": "Deny", "Action": "s3:DeleteObject", "Resource": "*"}]})
+
+
+def step_s3_user_list(side):
+    out = [side.run("s3.user.list")]
+    side.run("s3.configure -user ann -access_key AKANN -secret_key SKANN -actions Read,List")
+    return out + [side.run("s3.user.list")]
+
+
+def step_s3_configure(side):
+    return [side.run(c) for c in (
+        "s3.configure -user ann -actions Read",
+        "s3.configure -user bob -actions Read",
+        "s3.configure -user bob",
+        "s3.configure -user bob -access_key AKBOB",
+        "s3.configure -user dan -access_key AKDAN -secret_key SKDAN",
+        "s3.configure -user ann -access_key AKANN2 -secret_key SKANN2",
+        "s3.configure -user dan -access_key AKDAN -secret_key SKDAN2 -actions Write",
+        "s3.user.list")]
+
+
+def step_s3_accesskey_create(side):
+    with minted(31):
+        return [side.run("s3.accesskey.create -user eve -actions Read,Write"),
+                side.run("s3.accesskey.create -user fay"), side.run("s3.user.list")]
+
+
+def step_s3_policy_put(side):
+    return [side.run(f"s3.policy.put -user fay -policy '{S3_POLICY}'"),
+            side.run("s3.policy.put -user fay -policy '{not json'"),
+            side.run("""s3.policy.put -user fay -policy '{"Version": "2012-10-17"}'"""),
+            side.run(f"s3.policy.put -user nobody -policy '{S3_POLICY}'"),
+            side.run("s3.user.list")]
+
+
+def step_s3_policy_get(side):
+    return [side.run("s3.policy.get -user fay"), side.run("s3.policy.get -user ann"),
+            side.run("s3.policy.get -user nobody")]
+
+
+def step_s3_policy_delete(side):
+    out = [side.run("s3.policy.delete -user fay -actions Read,List"),
+           side.run("s3.policy.get -user fay")]
+    side.run(f"s3.policy.put -user fay -policy '{S3_POLICY}'")
+    return out + [side.run("s3.policy.delete -user nobody"), side.run("s3.user.list")]
+
+
+def step_s3_accesskey_delete(side):
+    return [side.run("s3.accesskey.delete -access_key AKANN"),
+            side.run("s3.accesskey.delete -access_key AKNONE"), side.run("s3.user.list")]
+
+
+def step_s3_user_delete(side):
+    return [side.run("s3.user.delete -user dan"), side.run("s3.user.delete -user dan"),
+            side.run("s3.user.list")]
+
+
+def step_s3_bucket_create(side):
+    out = [side.run("s3.bucket.create -name b1"), side.run("s3.bucket.create -name b2"),
+           side.run("s3.bucket.create -name b1")]
+    # b1's objects: inlined and chunked, the chunks in the collection b1
+    rng = np.random.default_rng(251)
+    side.seed_picks(17)
+    side.clock_stamped.add("b1")
+    for key, n in (("small.txt", 200), ("dir/one.bin", 3 * FS_CHUNK + 77), ("dir/two.bin", 9000)):
+        side.filer.write_file(f"/buckets/b1/{key}", rng.bytes(n), collection="b1", inline=n < 1024)
+    side.filer.create_entry(side.filer_entry("/buckets/.hidden", directory=True))
+    side.fs_settle()
+    return out + [side.run("collection.list")]
+
+
+def step_s3_bucket_list(side):
+    return [side.run("s3.bucket.list")]
+
+
+def step_s3_bucket_quota_set(side):
+    return [side.run("s3.bucket.quota.set -name b1 -bytes 4096"),
+            side.run("s3.bucket.quota.set -name b2 -bytes 1048576"),
+            side.run("s3.bucket.quota.set -name b3 -bytes 5"),
+            side.run("s3.bucket.quota.set -name b3 -bytes 0")]
+
+
+def step_s3_bucket_quota_get(side):
+    return [side.run(f"s3.bucket.quota.get -name {b}") for b in S3_BUCKETS]
+
+
+def step_s3_bucket_quota_enforce(side):
+    out = [side.run("s3.bucket.quota.enforce")]
+    out.append(side.run("s3.bucket.quota.set -name b1 -bytes 1000000"))
+    return out + [side.run("s3.bucket.quota.enforce"), side.run("s3.bucket.quota.get -name b1")]
+
+
+def step_s3_clean_uploads(side):
+    for name in ("up1", "up2"):
+        side.filer.create_entry(side.filer_entry(f"/buckets/b1/.uploads/{name}", directory=True))
+        side.filer.write_file(f"/buckets/b1/.uploads/{name}/00001.part", b"part" * 50)
+    return [side.run("s3.clean.uploads"), side.run("s3.clean.uploads -timeAgo 0"),
+            side.run("s3.clean.uploads -timeAgo 0")]
+
+
+def step_s3_bucket_delete(side):
+    out = [side.run("s3.bucket.delete -name b1"), side.run("s3.bucket.delete -name b2")]
+    out.append(side.run("s3.bucket.delete -name b1 -force"))
+    side.fs_settle()
+    return out + [side.run("s3.bucket.list"), side.run("collection.list")]
+
+
 STEPS = [step_listing, step_lock, step_raft, step_sync, step_fix_replication, step_plain_volume,
          step_copy_mount, step_move_tier, step_grow_delete_empty, step_volume_balance, step_ec_encode,
          step_ec_balance, step_ec_rebuild, step_ec_decode, step_upload_download, step_collections,
          step_fs_mkdir, step_fs_ls, step_fs_cat, step_fs_stat, step_fs_meta_cat, step_fs_tree,
          step_fs_du, step_fs_mv, step_fs_cp, step_fs_verify, step_fs_meta_save, step_fs_rm,
-         step_fs_meta_load, step_fs_configure, step_volume_fsck, step_cluster_lock_ring]
+         step_fs_meta_load, step_fs_configure, step_volume_fsck, step_cluster_lock_ring,
+         step_s3_user_list, step_s3_configure, step_s3_accesskey_create, step_s3_policy_put,
+         step_s3_policy_get, step_s3_policy_delete, step_s3_accesskey_delete, step_s3_user_delete,
+         step_s3_bucket_create, step_s3_bucket_list, step_s3_bucket_quota_set,
+         step_s3_bucket_quota_get, step_s3_bucket_quota_enforce, step_s3_clean_uploads,
+         step_s3_bucket_delete]
 
 
 def _masked(side, out):
@@ -662,6 +830,7 @@ def test_shell_step_against_jax(twins, pinned, step):
     assert outs[0] == outs[1]
     assert jax_side.topology() == port_side.topology()
     assert jax_side.files() == port_side.files()
+    assert jax_side.s3_state() == port_side.s3_state()
 
 
 def test_fleet_commands_against_jax(twins):
@@ -716,8 +885,9 @@ def test_every_ported_command_ran_against_jax(twins):
 
 
 def test_registry_is_the_39_commands_of_the_jax_shell():
-    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 60
-    assert len(port_shell.DEFERRED) == 31 and "12b" not in port_shell.DEFERRED.values()
+    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 75
+    assert len(port_shell.DEFERRED) == 16 and "12b" not in port_shell.DEFERRED.values()
+    assert "13b" not in port_shell.DEFERRED.values()
     assert set(port_shell.COMMANDS) <= set(jax_shell.COMMANDS)
     assert set(port_shell.COMMANDS) | set(port_shell.DEFERRED) == set(jax_shell.COMMANDS)
     assert not set(port_shell.COMMANDS) & set(port_shell.DEFERRED)
@@ -838,10 +1008,10 @@ def test_module_entry_point_runs_help_as_a_subprocess():
     assert proc.returncode == 0, proc.stderr
     assert [ln.split()[0] for ln in proc.stdout.splitlines()] == sorted(PORTED)
     proc = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.shell", "-master",
-                           "127.0.0.1:1"], cwd=REPO, env=env, input="help\ns3.bucket.list\nexit\n",
+                           "127.0.0.1:1"], cwd=REPO, env=env, input="help\nmq.topic.list\nexit\n",
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "error: s3.bucket.list is not ported yet: it comes with ROADMAP.md item 13b" in proc.stdout
+    assert "error: mq.topic.list is not ported yet: it comes with ROADMAP.md item 14a" in proc.stdout
 
 
 # ------------------------------------------------------- client/operations

@@ -698,7 +698,7 @@ def test_set_maintenance_config_answers_as_jax(masters, knob, value):
     (["-backend", "tpu"], "-backend tpu: the port runs its EC on cuda, cpu or auto"),
     (["-capabilities", "ec_encode,s3_lifecycle"],
      "-capabilities s3_lifecycle: the port's worker does not take s3_lifecycle or iceberg "
-     "tasks yet: they come with ROADMAP.md items 12b and 13b"),
+     "tasks yet: they come with ROADMAP.md items 13b and 13c"),
     (["-capabilities", "iceberg,vacuum"], "-capabilities iceberg: the port's worker"),
 ])
 def test_worker_refuses_tpu_and_the_filer_and_s3_kinds(capsys, argv, want):
