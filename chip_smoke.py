@@ -312,7 +312,39 @@ Phases:
    the shell's `ec.encode` (launches == batches), data shard 0 unmounted
    and every object read back through B decrypted, sha256-equal (planes
    launches == the holder's reconstructions); `s3.clean.uploads` and
-   `s3.bucket.delete -force`. Its own JSON line.
+   `s3.bucket.delete -force`. Its own JSON line. After 17, the offline
+   tools (`tools fix|scan|export|compact`, `scaffold`) run as children
+   on a copy of 17j's volume.
+18. a TLS cluster: a `server -tls.cert -tls.key -tls.ca` child (mutual
+   TLS) started before the tools; needles POSTed over https, the port
+   shell's `ec.encode` (launches at the child == batches), a data shard
+   unmounted and degraded GETs over https byte-exact (planes launches ==
+   the child's reconstructions); clients without a certificate or on
+   plaintext refused.
+19. the S3 gateway by name: a `server -filer -s3 -s3Config` child (a
+   master, a volume server on the card, a filer and the gateway in one
+   process) started beside phase 18's; identities an admin, a user who
+   may read and list, and an STS role. Every request is signed with the
+   port's `s3/auth` over one keep-alive `RedialConnection`. 19a the
+   bucket, anonymous and read-only PUTs refused (AccessDenied), a
+   tampered signature (SignatureDoesNotMatch), an AssumeRole credential
+   writing under its prefix; 19b about 32 MiB of objects: signed PUTs,
+   an aws-chunked PUT, a 5 + 5 + 1 MiB multipart upload completed by
+   splicing, a CopyObject, SSE-S3 and SSE-C PUTs, a POST-policy upload,
+   inlined objects and, under versioning, one key written three times and
+   given a delete marker; 19c ListObjectsV2 paged by continuation
+   tokens, HEADs, whole and ranged GETs, a 304, a presigned GET and a
+   `?versionId` read; 19d the port shell's `ec.encode` of the bucket's
+   volumes (launches at the child == batches), data shard 0 unmounted,
+   every object read through the gateway whole and in a range,
+   sha256-equal (planes launches == the child's interval-cache loads);
+   19e a lifecycle rule expiring lc/ through the filer's RunLifecycle;
+   19f DeleteObjects of every version and marker, the directories left
+   removed through the filer's HTTP API, the bucket deleted and its
+   collection gone from the master. The child must exit 0 on SIGTERM.
+   Its own JSON line: the child's seconds from spawn to serving S3, each
+   step's wall, PUT MB/s, GET p50 / p99 per object before and after the
+   seal, the launches and the redials.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -7058,6 +7090,556 @@ def tls_phase(child: TlsChild, ctx) -> tuple[dict, dict]:
                                                     "gf2_apply_planes": recon}
 
 
+S3GW_BUCKET = "smoke19"  # phase 19's bucket, and so its collection
+S3GW_SEED = SEED + 24  # phase 19's bodies
+S3GW_PUTS = ((3 << 20) + 4321, (3 << 20) + 65_537, (3 << 20) + 999_999)  # signed PUTs
+S3GW_STREAM = (4 << 20) - 12_345  # the aws-chunked PUT, in 64 KiB chunks
+S3GW_PARTS = (5 << 20, 5 << 20, 1 << 20)  # the multipart upload's parts
+S3GW_SSE = (2 << 20) + 17  # the SSE-S3 and the SSE-C PUT, each
+S3GW_FORM = (256 << 10) + 3  # the POST-policy upload
+S3GW_SMALL = 8  # objects the filer inlines (under 512 bytes)
+S3GW_VERSIONS = (200_000, 210_000, 220_000)  # one key written three times, then a marker
+S3GW_LC = 3  # small objects under lc/, expired by the lifecycle rule
+S3GW_START_S = 180.0  # the child's wait to serve S3 (its torch import included)
+S3GW_KEYS = {"admin": ("AKSMOKE19ADMIN", "smoke19/admin-secret"),
+             "reader": ("AKSMOKE19READ", "smoke19/reader-secret")}
+
+
+class S3GatewayChild:
+    """Phase 19's `python3 -m seaweedfs_tpu_torch.server server -filer -s3`
+    child: a master, a volume server (the default EC backend, cuda), a
+    filer and the S3 gateway over it in one process, its identities from
+    `-s3Config` (an admin, a user who may read and list, an STS role
+    that may write under sts/). Started ahead of the tools check and
+    phase 18, so that its imports overlap them; a thread notes the
+    seconds from its spawn to its first S3 answer."""
+
+    def __init__(self, work: str):
+        self.t0 = time.perf_counter()
+        self.root = os.path.join(work, "s3gw")
+        os.makedirs(os.path.join(self.root, "d"))
+        self.conf = os.path.join(self.root, "identities.json")
+        b = S3GW_BUCKET
+        role = {"Version": "2012-10-17", "Statement": [
+            {"Effect": "Allow", "Action": ["s3:PutObject", "s3:GetObject"],
+             "Resource": [f"arn:aws:s3:::{b}/sts/*"]}]}
+        with open(self.conf, "w") as f:
+            json.dump({"identities": [
+                {"name": "admin", "accessKey": S3GW_KEYS["admin"][0],
+                 "secretKey": S3GW_KEYS["admin"][1], "actions": ["Admin"]},
+                {"name": "reader", "accessKey": S3GW_KEYS["reader"][0],
+                 "secretKey": S3GW_KEYS["reader"][1], "actions": ["Read", "List"]}],
+                "roles": [{"name": "uploader", "policies": [role], "trusted": ["*"]}]}, f)
+        self.mport, self.vport, self.fport, self.s3port = (server_port(), server_port(),
+                                                           server_port(), server_port())
+        self.log = open(os.path.join(self.root, "server.log"), "wb")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.server", "server", "-ip", "127.0.0.1",
+             "-masterPort", str(self.mport), "-port", str(self.vport), "-dir",
+             os.path.join(self.root, "d"), "-filer", "-filerPort", str(self.fport), "-s3",
+             "-s3Port", str(self.s3port), "-s3Config", self.conf],
+            cwd=self.root, env=env, stdout=self.log, stderr=subprocess.STDOUT)
+        self.serving: dict = {}
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self) -> None:
+        deadline = self.t0 + S3GW_START_S
+        while time.perf_counter() < deadline and self.proc.poll() is None:
+            try:
+                c = HTTPConnection("127.0.0.1", self.s3port, timeout=2)
+                c.request("GET", "/")
+                c.getresponse().read()
+                c.close()
+                self.serving["serving_s"] = time.perf_counter() - self.t0
+                return
+            except OSError:
+                time.sleep(0.05)
+
+    def log_tail(self) -> str:
+        self.log.flush()
+        with open(os.path.join(self.root, "server.log"), "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    stop = TlsChild.stop  # SIGTERM; the exit code, None where it was killed
+
+
+class S3Client:
+    """Phase 19's client: each request signed with the port's `s3/auth`
+    (`sign_v4`) and sent over one keep-alive `RedialConnection` to the
+    gateway. Answers are (status, lower-cased headers, body)."""
+
+    def __init__(self, port: int):
+        self.port, self.host = port, f"127.0.0.1:{port}"
+        self.keys = {who: (ak, sk, "") for who, (ak, sk) in S3GW_KEYS.items()}
+        self.conn = None
+        self.requests = 0
+
+    def call(self, method: str, path: str, query: str = "", body: bytes = b"",
+             headers: dict | None = None, who: str | None = "admin", phash: str | None = None,
+             mutate=None):
+        from urllib.parse import quote
+
+        from seaweedfs_tpu_torch.s3 import auth
+
+        wire = quote(path, safe="/-_.~")
+        hs = {"host": self.host, **(headers or {})}
+        if who is not None:
+            ak, sk, token = self.keys[who]
+            if token:
+                hs["x-amz-security-token"] = token
+            hs = auth.sign_v4(method, wire, query, access_key=ak, secret_key=sk, headers=hs,
+                              payload_hash=phash or hashlib.sha256(body).hexdigest())
+        if mutate is not None:
+            hs = mutate(hs)
+        return self.send(method, wire + (f"?{query}" if query else ""), body, hs)
+
+    def send(self, method: str, target: str, body: bytes, headers: dict):
+        import http.client
+
+        self.requests += 1
+        for attempt in range(2):
+            if self.conn is None:
+                self.conn = RedialConnection("127.0.0.1", self.port, timeout=120)
+            try:
+                self.conn.request(method, target, body=body, headers=headers)
+                r = self.conn.getresponse()
+                data = r.read()
+            except (http.client.RemoteDisconnected, BrokenPipeError, ConnectionResetError):
+                # a keep-alive connection the server closed while idle:
+                # nothing of this request was served
+                self.conn.close()
+                self.conn = None
+                if attempt:
+                    raise
+                continue
+            if r.will_close:
+                self.conn.close()
+                self.conn = None
+            return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+        raise AssertionError("unreachable")
+
+    def close(self) -> None:
+        if self.conn is not None:
+            self.conn.close()
+            self.conn = None
+
+
+def s3_error_code(body: bytes) -> str:
+    import xml.etree.ElementTree as ET
+
+    return ET.fromstring(body).findtext("Code") or ""
+
+
+def xml_texts(body: bytes, tag: str) -> list:
+    import xml.etree.ElementTree as ET
+
+    return [el.text or "" for el in ET.fromstring(body).iter() if el.tag.split("}")[-1] == tag]
+
+
+def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
+    """Phase 19: the S3 gateway by name, on `S3GatewayChild`'s cluster.
+    19a auth: the bucket created, an anonymous and a read-only PUT refused
+    (AccessDenied), a tampered signature refused (SignatureDoesNotMatch),
+    an STS AssumeRole credential writing under sts/; 19b about 32 MiB of
+    objects into the bucket (so its collection): three signed PUTs, an
+    aws-chunked PUT, a 5 + 5 + 1 MiB multipart upload completed by
+    splicing, a CopyObject, an SSE-S3 and an SSE-C PUT, a POST-policy
+    upload, small inlined objects and, with versioning Enabled, one key
+    written three times and then given a delete marker; 19c before the
+    seal, ListObjectsV2 paged by continuation tokens, HEADs, whole and
+    ranged GETs, a 304, a presigned GET and a `?versionId` read; 19d the
+    port shell's `ec.encode` of the bucket's volumes at the child's master
+    (`gf2_apply` launches at the child == batches), data shard 0
+    unmounted, every object read through the gateway whole and in a
+    range, sha256-equal (SSE-C with its key), `gf2_apply_planes`
+    launches == the holder's interval-cache loads; 19e a lifecycle rule
+    expiring lc/ through the filer's RunLifecycle; 19f DeleteObjects of
+    every version and marker, the directories the gateway leaves removed
+    through the filer's HTTP API, the bucket deleted (204) and its
+    collection gone from the master. Returns (result, launches)."""
+    import base64
+    import hmac
+    from urllib.parse import quote
+
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.s3 import auth, chunked
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+
+    t_phase = time.perf_counter()
+    b, proc = S3GW_BUCKET, child.proc
+    vurl, furl = f"http://127.0.0.1:{child.vport}", f"http://127.0.0.1:{child.fport}"
+    cli = S3Client(child.s3port)
+    c = cli.call
+    rng = np.random.default_rng(S3GW_SEED)
+    walls: dict = {}
+    redials0 = CONNECT_RETRIES[0]
+    senv = None
+
+    def check(what: str, got, want_status: int, want_code: str | None = None):
+        status, _, body = got
+        code = s3_error_code(body) if want_code is not None and body.startswith(b"<") else None
+        if status != want_status or (want_code is not None and code != want_code):
+            raise AssertionError(f"19: {what} answered {status} {body[:300]!r}, not "
+                                 f"{want_status} {want_code or ''}")
+        return got
+
+    def kernels() -> dict:
+        code, _, body = http(f"{vurl}/debug/kernels")
+        if code != 200:
+            raise AssertionError(f"19: /debug/kernels answered {code}")
+        return json.loads(body)
+
+    def alive():
+        if proc.poll() is not None:
+            raise AssertionError(f"19: the gateway's server exited with {proc.returncode}: "
+                                 + child.log_tail())
+
+    try:
+        # -- 19a. the child serving, auth -----------------------------------------
+        t0 = time.perf_counter()
+        child.watcher.join(timeout=max(0.0, S3GW_START_S - (time.perf_counter() - child.t0)))
+        alive()
+        if "serving_s" not in child.serving:
+            raise AssertionError(f"19: the gateway did not answer within {S3GW_START_S} s: "
+                                 + child.log_tail())
+        walls["start_wait"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check("the bucket's creation", c("PUT", f"/{b}"), 200)
+        check("an anonymous PUT", c("PUT", f"/{b}/anon.bin", body=b"x", who=None), 403,
+              "AccessDenied")
+        check("a read-only user's PUT", c("PUT", f"/{b}/ro.bin", body=b"x", who="reader"), 403,
+              "AccessDenied")
+
+        def flip(hs: dict) -> dict:
+            a = hs["Authorization"]
+            hs["Authorization"] = a[:-1] + ("0" if a[-1] != "0" else "1")
+            return hs
+
+        check("a tampered signature", c("PUT", f"/{b}/t.bin", body=b"x", mutate=flip), 403,
+              "SignatureDoesNotMatch")
+        form = {"Content-Type": "application/x-www-form-urlencoded"}
+        _, _, body = check("AssumeRole", c("POST", "/", body=(
+            b"Action=AssumeRole&RoleArn=arn%3Aaws%3Aiam%3A%3A%3Arole%2Fuploader&"
+            b"DurationSeconds=900"), headers=form), 200)
+        cli.keys["sts"] = (xml_texts(body, "AccessKeyId")[0], xml_texts(body, "SecretAccessKey")[0],
+                           xml_texts(body, "SessionToken")[0])
+        walls["auth"] = time.perf_counter() - t0
+
+        # -- 19b. the objects ------------------------------------------------------
+        plain: dict = {}  # key -> plaintext
+        headers_of: dict = {}  # key -> the headers a GET needs (SSE-C)
+        stored = 0
+        t0 = time.perf_counter()
+        sts_body = rng.bytes(100_000)
+        check("the STS credential's PUT", c("PUT", f"/{b}/sts/by-role.bin", body=sts_body,
+                                             who="sts"), 200)
+        check("the STS credential's PUT outside its policy",
+              c("PUT", f"/{b}/obj/x.bin", body=b"x", who="sts"), 403, "AccessDenied")
+        plain["sts/by-role.bin"] = sts_body
+        for i, n in enumerate(S3GW_PUTS):
+            data = rng.bytes(n)
+            _, hs, _ = check(f"PUT obj/put-{i}.bin", c("PUT", f"/{b}/obj/put-{i}.bin", body=data,
+                                                       headers={"Content-Type": "x/smoke"}), 200)
+            if hs.get("etag") != f'"{hashlib.md5(data).hexdigest()}"':
+                raise AssertionError(f"19: PUT's ETag {hs.get('etag')}")
+            plain[f"obj/put-{i}.bin"] = data
+        # aws-chunked: the seed signature from the header, the chunk chain
+        # signed by the port's encoder, verified by the gateway
+        data = rng.bytes(S3GW_STREAM)
+        ak, sk, _ = cli.keys["admin"]
+        hs = auth.sign_v4("PUT", f"/{b}/obj/stream.bin", "", access_key=ak, secret_key=sk,
+                          headers={"host": cli.host, "content-encoding": "aws-chunked",
+                                   "x-amz-decoded-content-length": str(len(data))},
+                          payload_hash="STREAMING-AWS4-HMAC-SHA256-PAYLOAD")
+        amz = hs["x-amz-date"]
+        sctx = auth.SigningContext(signing_key=auth.signing_key(sk, amz[:8], "us-east-1"),
+                                   amz_date=amz, scope=f"{amz[:8]}/us-east-1/s3/aws4_request",
+                                   seed_signature=hs["Authorization"].rsplit("Signature=", 1)[1])
+        check("the aws-chunked PUT", cli.send("PUT", f"/{b}/obj/stream.bin",
+                                              chunked.encode_aws_chunked(data, sctx, 64 << 10),
+                                              hs), 200)
+        plain["obj/stream.bin"] = data
+        # multipart, completed by splicing the parts' chunk lists
+        _, _, body = check("the multipart initiate", c("POST", f"/{b}/obj/multipart.bin",
+                                                       "uploads"), 200)
+        uid = xml_texts(body, "UploadId")[0]
+        parts = [rng.bytes(n) for n in S3GW_PARTS]
+        for i, part in enumerate(parts, 1):
+            check(f"part {i}", c("PUT", f"/{b}/obj/multipart.bin", f"partNumber={i}&uploadId={uid}",
+                                 body=part), 200)
+        done = "<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{i}</PartNumber></Part>" for i in range(1, len(parts) + 1)) + \
+            "</CompleteMultipartUpload>"
+        _, _, body = check("the multipart completion", c("POST", f"/{b}/obj/multipart.bin",
+                                                         f"uploadId={uid}", body=done.encode()), 200)
+        want_etag = hashlib.md5(b"".join(hashlib.md5(p).digest() for p in parts)).hexdigest()
+        if xml_texts(body, "ETag") != [f'"{want_etag}-{len(parts)}"']:
+            raise AssertionError(f"19: the completed upload's ETag {xml_texts(body, 'ETag')}")
+        plain["obj/multipart.bin"] = b"".join(parts)
+        check("CopyObject", c("PUT", f"/{b}/obj/copy.bin",
+                              headers={"x-amz-copy-source": f"/{b}/obj/put-0.bin"}), 200)
+        plain["obj/copy.bin"] = plain["obj/put-0.bin"]
+        data = rng.bytes(S3GW_SSE)
+        _, hs, _ = check("the SSE-S3 PUT", c("PUT", f"/{b}/sse/s3.bin", body=data, headers={
+            "x-amz-server-side-encryption": "AES256"}), 200)
+        if hs.get("x-amz-server-side-encryption") != "AES256":
+            raise AssertionError(f"19: the SSE-S3 PUT answered headers {hs}")
+        plain["sse/s3.bin"] = data
+        key = rng.bytes(32)
+        ssec = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+                "x-amz-server-side-encryption-customer-key": base64.b64encode(key).decode(),
+                "x-amz-server-side-encryption-customer-key-MD5":
+                    base64.b64encode(hashlib.md5(key).digest()).decode()}
+        data = rng.bytes(S3GW_SSE)
+        check("the SSE-C PUT", c("PUT", f"/{b}/sse/c.bin", body=data, headers=ssec), 200)
+        plain["sse/c.bin"] = data
+        headers_of["sse/c.bin"] = ssec
+        # the POST-policy upload: a form signed by the admin
+        data = rng.bytes(S3GW_FORM)
+        amz = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+        fields = {"key": "form/${filename}", "x-amz-algorithm": "AWS4-HMAC-SHA256",
+                  "x-amz-credential": f"{ak}/{amz[:8]}/us-east-1/s3/aws4_request",
+                  "x-amz-date": amz}
+        policy = base64.b64encode(json.dumps({"expiration": "2099-01-01T00:00:00Z", "conditions": [
+            {"bucket": b}, ["starts-with", "$key", "form/"],
+            ["content-length-range", 1, S3GW_FORM],
+            *[["eq", f"${k}", v] for k, v in fields.items() if k != "key"]]}).encode()).decode()
+        fields["policy"] = policy
+        fields["x-amz-signature"] = hmac.new(auth.signing_key(sk, amz[:8], "us-east-1"),
+                                             policy.encode(), hashlib.sha256).hexdigest()
+        bnd = "smoke19-form"
+        form_body = b"".join(
+            f'--{bnd}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+            for k, v in fields.items()) + (
+            f'--{bnd}\r\nContent-Disposition: form-data; name="file"; filename="upload.bin"\r\n'
+            "Content-Type: application/octet-stream\r\n\r\n").encode() + data + \
+            f"\r\n--{bnd}--\r\n".encode()
+        check("the POST-policy upload", cli.send("POST", f"/{b}", form_body, {
+            "host": cli.host, "Content-Type": f"multipart/form-data; boundary={bnd}"}), 204)
+        plain["form/upload.bin"] = data
+        for i in range(S3GW_SMALL):
+            data = rng.bytes(int(rng.integers(1, 500)))
+            check(f"small/s{i}.txt", c("PUT", f"/{b}/small/s{i}.txt", body=data), 200)
+            plain[f"small/s{i}.txt"] = data
+        for i in range(S3GW_LC):
+            data = rng.bytes(int(rng.integers(1, 500)))
+            check(f"lc/{i}", c("PUT", f"/{b}/lc/{i}", body=data), 200)
+            plain[f"lc/{i}"] = data
+        check("versioning Enabled", c("PUT", f"/{b}", "versioning", body=(
+            b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>")), 200)
+        versions = []  # (version id, body), oldest first
+        for n in S3GW_VERSIONS:
+            data = rng.bytes(n)
+            _, hs, _ = check("a versioned PUT", c("PUT", f"/{b}/ver/k.bin", body=data), 200)
+            versions.append((hs["x-amz-version-id"], data))
+        _, hs, _ = check("the delete marker", c("DELETE", f"/{b}/ver/k.bin"), 204)
+        if hs.get("x-amz-delete-marker") != "true":
+            raise AssertionError(f"19: the versioned DELETE answered {hs}")
+        marker = hs["x-amz-version-id"]
+        check("a GET behind the delete marker", c("GET", f"/{b}/ver/k.bin"), 404, "NoSuchKey")
+        write_s = time.perf_counter() - t0
+        written = sum(len(v) for v in plain.values()) + sum(len(v) for _, v in versions)
+        walls["write"] = write_s
+        reads: dict = {k: v for k, v in plain.items() if not k.startswith("lc/")}
+        reads.update({f"ver/k.bin?versionId={vid}": v for vid, v in versions})
+
+        def get(k: str, rng_hdr: str | None = None):
+            path, _, query = k.partition("?")
+            hdr = dict(headers_of.get(path, {}))
+            if rng_hdr:
+                hdr["Range"] = rng_hdr
+            return c("GET", f"/{b}/{path}", query, headers=hdr)
+
+        # -- 19c. listing and reads before the seal ------------------------------
+        t0 = time.perf_counter()
+        listed, pages, q = [], 0, "list-type=2&prefix=obj/&delimiter=/&max-keys=2"
+        while True:
+            _, _, body = check("ListObjectsV2", c("GET", f"/{b}", q), 200)
+            pages += 1
+            listed += xml_texts(body, "Key")
+            tok = xml_texts(body, "NextContinuationToken")
+            if not tok:
+                break
+            q = ("list-type=2&prefix=obj/&delimiter=/&max-keys=2&continuation-token="
+                 + quote(tok[0], safe=""))
+        if listed != sorted(k for k in plain if k.startswith("obj/")) or pages < 3:
+            raise AssertionError(f"19: ListObjectsV2 paged {pages} times to {listed}")
+        _, _, body = check("a delimited listing", c("GET", f"/{b}", "list-type=2&delimiter=/"), 200)
+        prefixes = xml_texts(body, "Prefix")[1:]
+        if prefixes != ["form/", "lc/", "obj/", "small/", "sse/", "sts/", "ver/"]:
+            raise AssertionError(f"19: the delimited listing's prefixes are {prefixes}")
+        for k, v in plain.items():
+            _, hs, _ = check(f"HEAD {k}", c("HEAD", f"/{b}/{k}", headers=headers_of.get(k)), 200)
+            if int(hs["content-length"]) != len(v):
+                raise AssertionError(f"19: HEAD {k} says {hs['content-length']} bytes")
+        pre = ["obj/put-0.bin", f"ver/k.bin?versionId={versions[0][0]}"] + [
+            k for k in reads if k.startswith("small/")]
+        lat_before = []
+        for k in pre:
+            t1 = time.perf_counter()
+            _, _, got = check(f"GET {k}", get(k), 200)
+            lat_before.append(time.perf_counter() - t1)
+            if hashlib.sha256(got).digest() != hashlib.sha256(reads[k]).digest():
+                raise AssertionError(f"19: GET {k} differs from what was written")
+        v = plain["obj/put-1.bin"]
+        _, hs, got = check("a ranged GET", get("obj/put-1.bin", "bytes=1000-300999"), 206)
+        if got != v[1000:301000] or hs.get("content-range") != f"bytes 1000-300999/{len(v)}":
+            raise AssertionError(f"19: the ranged GET gave {len(got)} bytes, {hs}")
+        _, hs, _ = check("HEAD for the ETag", c("HEAD", f"/{b}/obj/put-0.bin"), 200)
+        check("If-None-Match", c("GET", f"/{b}/obj/put-0.bin",
+                                 headers={"If-None-Match": hs["etag"]}), 304)
+        presigned = presign_v4("GET", f"/{b}/obj/put-0.bin", ak, sk, cli.host, 300)
+        _, _, got = check("the presigned GET", cli.send("GET", f"/{b}/obj/put-0.bin?{presigned}",
+                                                         b"", {"host": cli.host}), 200)
+        if got != plain["obj/put-0.bin"]:
+            raise AssertionError("19: the presigned GET gave other bytes")
+        walls["reads_before_seal"] = time.perf_counter() - t0
+
+        # -- 19d. seal the bucket's volumes, data shard 0 gone --------------------
+        t0 = time.perf_counter()
+        senv = ShellEnv(f"127.0.0.1:{child.mport}")
+        topo = senv.master.topology()
+        vids = sorted({v.id for n in topo.nodes for v in n.volumes if v.collection == b})
+        d = os.path.join(child.root, "d")
+        vids = [vid for vid in vids if os.path.getsize(os.path.join(d, f"{b}_{vid}.dat")) > 8]
+        n_batches = sum(len(list(batch_plan(os.path.getsize(os.path.join(d, f"{b}_{vid}.dat")), K,
+                                            DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+                        for vid in vids)
+        before = kernels()["launches"]
+        out = run_command(senv, f"ec.encode -volumeId {','.join(map(str, vids))} -collection {b}")
+        for vid in vids:
+            if not re.search(rf"ec\.encode volume {vid}: generation \d+ on 127\.0\.0\.1:{child.vport}",
+                             out):
+                raise AssertionError(f"19: ec.encode answered {out!r}")
+        now = kernels()["launches"]
+        enc = {k: now[k] - before[k] for k in now}
+        if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
+            raise AssertionError(f"19: ec.encode launched {enc} for {n_batches} batches")
+        walls["encode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with grpc.insecure_channel(f"127.0.0.1:{child.vport + 10000}") as ch:
+            for vid in vids:
+                rpc.volume_stub(ch).VolumeEcShardsUnmount(
+                    pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
+
+        def shard0_listed() -> bool:
+            with grpc.insecure_channel(f"127.0.0.1:{child.mport + 10000}") as ch:
+                stub = rpc.master_stub(ch)
+                return any(any(sl.shard_id == 0 for sl in stub.LookupEcVolume(
+                    pb.LookupEcVolumeRequest(volume_id=vid), timeout=10).shard_locations)
+                           for vid in vids)
+
+        wait_until(lambda: not shard0_listed(), "shard 0 leaving the master's listing", phase="19")
+        walls["unmount"] = time.perf_counter() - t0
+        before = kernels()
+        t0 = time.perf_counter()
+        lat_after = []
+        for k, v in reads.items():
+            t1 = time.perf_counter()
+            _, _, got = check(f"degraded GET {k}", get(k), 200)
+            lat_after.append(time.perf_counter() - t1)
+            lo = int(rng.integers(0, len(v)))
+            hi = int(rng.integers(lo, len(v)))
+            _, _, part = check(f"degraded ranged GET {k}", get(k, f"bytes={lo}-{hi}"), 206)
+            if hashlib.sha256(got).digest() != hashlib.sha256(v).digest() or part != v[lo:hi + 1]:
+                raise AssertionError(f"19: {k} read with shard 0 gone differs from what was written")
+        walls["degraded_reads"] = time.perf_counter() - t0
+        after = kernels()
+        got = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+        recon = after["interval_cache"]["loads"] - before["interval_cache"]["loads"]
+        if got["gf2_apply_planes"] != recon or recon < 1 or got["gf2_apply"]:
+            raise AssertionError(f"19: the degraded GETs launched {got} for {recon} "
+                                 "reconstructions")
+
+        # -- 19e. lifecycle ---------------------------------------------------------
+        t0 = time.perf_counter()
+        rule = (b"<LifecycleConfiguration><Rule><ID>lc</ID><Filter><Prefix>lc/</Prefix></Filter>"
+                b"<Status>Enabled</Status><Expiration><Date>2020-01-01T00:00:00Z</Date>"
+                b"</Expiration></Rule></LifecycleConfiguration>")
+        check("PUT ?lifecycle", c("PUT", f"/{b}", "lifecycle", body=rule), 200)
+        with grpc.insecure_channel(f"127.0.0.1:{child.fport + 10000}") as ch:
+            lc = rpc.filer_stub(ch).RunLifecycle(fpb.LifecycleRunRequest(bucket=b), timeout=120)
+        if (lc.expired, lc.noncurrent_expired, lc.aborted_uploads, lc.error) != (S3GW_LC, 0, 0, ""):
+            raise AssertionError(f"19: RunLifecycle answered {lc}")
+        for i in range(S3GW_LC):
+            check(f"GET lc/{i} after its expiry", c("GET", f"/{b}/lc/{i}"), 404, "NoSuchKey")
+        check("GET small/s0.txt after the lifecycle run", c("GET", f"/{b}/small/s0.txt"), 200)
+        walls["lifecycle"] = time.perf_counter() - t0
+
+        # -- 19f. clean-up -----------------------------------------------------------
+        t0 = time.perf_counter()
+        _, _, body = check("ListObjectVersions", c("GET", f"/{b}", "versions"), 200)
+        pairs = list(zip(xml_texts(body, "Key"), xml_texts(body, "VersionId")))
+        if (f"ver/k.bin", marker) not in pairs or len(pairs) != len(plain) + len(versions) + 1 \
+                + S3GW_LC:
+            raise AssertionError(f"19: the bucket lists {len(pairs)} versions")
+        doc = "<Delete>" + "".join(f"<Object><Key>{k}</Key><VersionId>{v}</VersionId></Object>"
+                                   for k, v in pairs) + "</Delete>"
+        _, _, body = check("DeleteObjects", c("POST", f"/{b}", "delete", body=doc.encode()), 200)
+        if xml_texts(body, "Code") or len(xml_texts(body, "Key")) != len(pairs):
+            raise AssertionError(f"19: DeleteObjects answered {body[:500]!r}")
+        _, _, body = check("ListObjectVersions after DeleteObjects", c("GET", f"/{b}", "versions"),
+                           200)
+        if xml_texts(body, "Key"):
+            raise AssertionError(f"19: versions left: {xml_texts(body, 'Key')}")
+        check("DELETE of a bucket holding directories", c("DELETE", f"/{b}"), 409,
+              "BucketNotEmpty")
+
+        # the gateway removes objects, not the directories they lived in (as
+        # the JAX gateway does): each left is checked empty of files, then
+        # removed through the filer's HTTP API
+        def files_under(path: str) -> list:
+            code, _, body = http(f"{furl}{quote(path)}/?limit=1000")
+            if code != 200:
+                raise AssertionError(f"19: the filer listed {path} with {code}")
+            out = []
+            for e in json.loads(body)["Entries"] or []:
+                out += files_under(e["FullPath"]) if e["IsDirectory"] else [e["FullPath"]]
+            return out
+
+        left = files_under(f"/buckets/{b}")
+        if left:
+            raise AssertionError(f"19: files left in the bucket: {left}")
+        code, _, body = http(f"{furl}/buckets/{b}/?limit=1000")
+        dirs = [e["FullPath"] for e in json.loads(body)["Entries"] or []]
+        for p in dirs:
+            code, _, _ = http(f"{furl}{quote(p)}?recursive=true", "DELETE")
+            if code not in (200, 202, 204):
+                raise AssertionError(f"19: the filer's recursive DELETE of {p} answered {code}")
+        check("the bucket's DELETE", c("DELETE", f"/{b}"), 204)
+        check("HEAD of the deleted bucket", c("HEAD", f"/{b}"), 404)
+        wait_until(lambda: b not in senv.master.collections(),
+                   "the master listing nothing of the bucket's collection", phase="19")
+        walls["clean_up"] = time.perf_counter() - t0
+        step = {
+            "child_serving_s": child.serving["serving_s"], "bucket": b, "objects": len(plain),
+            "versions": len(versions), "bytes": written, "write_seconds": write_s,
+            "put_mb_per_s": written / write_s / 1e6, "get_before_seal": len(lat_before),
+            "get_p50_ms_before_seal": percentile_ms(lat_before, 50),
+            "get_p99_ms_before_seal": percentile_ms(lat_before, 99),
+            "get_after_seal": len(lat_after),
+            "get_p50_ms_after_seal": percentile_ms(lat_after, 50),
+            "get_p99_ms_after_seal": percentile_ms(lat_after, 99),
+            "listing_pages": pages, "volumes": vids, "encode_launches": n_batches,
+            "reconstructions": recon, "lifecycle_expired": lc.expired,
+            "directories_removed": dirs, "requests": cli.requests, "walls": walls,
+            "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_phase}
+    finally:
+        cli.close()
+        if senv is not None:
+            senv.close()
+    return {"steps": step, "card": card_line()}, {"gf2_apply": n_batches,
+                                                  "gf2_apply_planes": recon}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7379,9 +7961,11 @@ def main() -> int:
 
         # -- the offline tools on 17j's scratch copy, while phase 18's TLS server
         # child starts --------------------------------------------------------------
+        # (and phase 19's S3 gateway child, whose imports overlap both) ------------
         t0 = time.perf_counter()
-        tls_child = TlsChild(work)
+        tls_child, s3_child, s3_rc = TlsChild(work), None, None
         try:
+            s3_child = S3GatewayChild(work)
             tools = tools_phase(tools_src)
             print("offline tools by name (fix: .idx byte-identical; scan: every record; export: "
                   "the needles; scaffold: a TOML the loader reads; compact: the deletes "
@@ -7391,15 +7975,36 @@ def main() -> int:
             # -- 18. a TLS cluster --------------------------------------------------
             t0 = time.perf_counter()
             tls, tls_launches = tls_phase(tls_child, ctx)
+            rc, tls_child = tls_child.stop(), None
+            if rc != 0:
+                raise AssertionError(f"18: the TLS server did not stop cleanly ({rc})")
+            print("TLS cluster (a server child with -tls.cert/-tls.key/-tls.ca, this process on "
+                  "https with a client certificate: needles POSTed over https, the shell's "
+                  "ec.encode launches == batches, degraded GETs over https byte-exact with planes "
+                  "launches == reconstructions, a certless and a plaintext client refused): "
+                  + json.dumps(tls))
+            print(f"phase 18: {time.perf_counter() - t0:.3f} s; card: {card_line()}")
+
+            # -- 19. the S3 gateway by name ----------------------------------------
+            t0 = time.perf_counter()
+            s3gw, s3gw_launches = s3_gateway_phase(s3_child, ctx)
         finally:
-            rc = tls_child.stop()
-        if rc != 0:
-            raise AssertionError(f"18: the TLS server did not stop cleanly ({rc})")
-        print("TLS cluster (a server child with -tls.cert/-tls.key/-tls.ca, this process on "
-              "https with a client certificate: needles POSTed over https, the shell's ec.encode "
-              "launches == batches, degraded GETs over https byte-exact with planes launches == "
-              "reconstructions, a certless and a plaintext client refused): " + json.dumps(tls))
-        print(f"phase 18: {time.perf_counter() - t0:.3f} s; card: {card_line()}")
+            if tls_child is not None:
+                tls_child.stop()
+            if s3_child is not None:
+                s3_rc = s3_child.stop()
+        if s3_rc != 0:
+            raise AssertionError(f"19: the gateway's server did not stop cleanly ({s3_rc})")
+        print("S3 gateway by name (a `server -filer -s3 -s3Config` child: SigV4 refusals with the "
+              "JAX codes and an STS credential; signed, aws-chunked, multipart, copied, SSE-S3, "
+              "SSE-C, POST-policy, inlined and versioned objects; listings paged by continuation "
+              "token, HEADs, ranges, a 304, a presigned GET, a versionId read; the shell's "
+              "ec.encode of the bucket's collection, launches == batches; data shard 0 unmounted, "
+              "every object read through the gateway whole and in a range sha256-equal, planes "
+              "launches == reconstructions; a lifecycle rule expiring its prefix through "
+              "RunLifecycle; DeleteObjects of every version, the bucket deleted and its "
+              "collection gone): " + json.dumps(s3gw))
+        print(f"phase 19: {time.perf_counter() - t0:.3f} s; card: {card_line()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -7420,7 +8025,8 @@ def main() -> int:
           "17j thumbnails": last_launches["gf2_apply"], "17k filer": filer_launches["gf2_apply"],
           "17l filer server": server_filer_launches["gf2_apply"],
           "17m s3": s3_launches["gf2_apply"],
-          "18 tls": tls_launches["gf2_apply"]},
+          "18 tls": tls_launches["gf2_apply"],
+          "19 s3 gateway": s3gw_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -7437,7 +8043,8 @@ def main() -> int:
           "17k filer": filer_launches["gf2_apply_planes"],
           "17l filer server": server_filer_launches["gf2_apply_planes"],
           "17m s3": s3_launches["gf2_apply_planes"],
-          "18 tls": tls_launches["gf2_apply_planes"]},
+          "18 tls": tls_launches["gf2_apply_planes"],
+          "19 s3 gateway": s3gw_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

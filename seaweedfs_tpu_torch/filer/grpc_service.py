@@ -1,9 +1,8 @@
 """gRPC filer metadata service + streaming metadata subscription.
 
 Port of seaweedfs_tpu/filer/grpc_service.py: every RPC of the JAX
-service, answering as it does, with one exception. RunLifecycle applies
-S3 lifecycle rules, which come with the port's S3 gateway (ROADMAP item
-13b): it answers LifecycleRunResponse(error=...) naming that item. DistributedLock
+service, answering as it does. RunLifecycle applies the S3 lifecycle
+rules with the port's scanner (s3/lifecycle.py). DistributedLock
 goes to the lock ring (filer/lock_ring.py) the filer server sets on the
 service; without one it answers "lock ring not configured", as the JAX
 service does.
@@ -163,10 +162,21 @@ class FilerGrpcService:
         return resp
 
     def RunLifecycle(self, request, context):
-        """The execution half of the worker fleet's s3_lifecycle task
-        kind. The lifecycle scanner comes with the port's S3 gateway."""
+        """Apply stored S3 lifecycle rules here, where the metadata
+        lives — the execution half of the worker fleet's s3_lifecycle
+        task kind (reference weed/worker/tasks registry)."""
+        from ..s3.lifecycle import LifecycleScanner
+
+        try:
+            stats = LifecycleScanner(self.filer).run_once(
+                bucket=request.bucket
+            )
+        except Exception as e:  # noqa: BLE001 — surfaced to the worker
+            return fpb.LifecycleRunResponse(error=str(e))
         return fpb.LifecycleRunResponse(
-            error="s3 lifecycle is not ported yet (ROADMAP item 13b)"
+            expired=stats.get("expired", 0),
+            noncurrent_expired=stats.get("noncurrent_expired", 0),
+            aborted_uploads=stats.get("aborted_uploads", 0),
         )
 
     def HardLink(self, request, context):

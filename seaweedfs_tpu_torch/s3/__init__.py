@@ -1,10 +1,12 @@
-"""S3 over the filer: the gateway's libraries.
+"""S3 REST gateway (layer 6) over the filer.
 
-Port of seaweedfs_tpu/s3's libraries: SigV4 (`auth`), aws-chunked bodies
+Port of seaweedfs_tpu/s3: the gateway (`server`), its lifecycle scanner
+(`lifecycle`) and its libraries: SigV4 (`auth`), aws-chunked bodies
 (`chunked`), POST-policy forms (`post_policy`), identities (`config`),
 versioning and object lock (`versioning`) and server-side encryption
-(`sse`). The gateway itself (`S3Server`) comes with ROADMAP.md item 13b,
-so the package exports `auth`'s names only.
+(`sse`). S3 Tables and the IAM API come with ROADMAP.md item 13c, S3
+Select with item 19.
 """
 
 from .auth import Identity, IdentityStore, S3AuthError  # noqa: F401
+from .server import S3Server  # noqa: F401

@@ -4,7 +4,10 @@ port servers by name.
 Port of seaweedfs_tpu/server/__main__.py, its `master`, `volume`, `filer`
 and `server` modes (`server`: a master and a volume server in one
 process, reference `weed server`, with a filer too under `-filer`, its
-metadata in `<dir>/filerdb`), `telemetry` (the phone-home collector,
+metadata in `<dir>/filerdb`, and the S3 gateway over that filer under
+`-s3`, which implies `-filer`: `-s3Port`, identities from `-s3Config` or
+`s3.toml`'s `s3.config`, an admin key pair from `-s3AccessKey` and
+`-s3SecretKey`), `telemetry` (the phone-home collector,
 utils/telemetry_server.py) and `scaffold` (a config template,
 utils/scaffold.py, printed or written to `-output`/<name>.toml);
 argparse refuses the other modes (mq.broker, mq.agent). The flags are
@@ -29,8 +32,8 @@ differ, on purpose:
   hops, since its servers require one; the JAX launcher points `requests`
   at the CA alone.
 - What needs a module the port does not have yet stops it with a
-  message, where the JAX launcher would start it: `server`'s `-s3`,
-  `-webdav`, `-sftp` and `-admin`, and `-notify.mq` (ROADMAP item 14a)
+  message, where the JAX launcher would start it: `server`'s `-webdav`,
+  `-sftp` and `-admin`, and `-notify.mq` (ROADMAP item 14a)
   of `filer` and `server`, from the flag or from `notification.toml`.
 
 The master's maintenance scanners (`-ec.autoFullness`, or
@@ -163,6 +166,15 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("-port", type=int, default=8080)
     s.add_argument("-filerPort", type=int, default=8888)
     s.add_argument("-filer", action="store_true", help="also run a filer")
+    s.add_argument("-s3", action="store_true", help="also run the S3 gateway")
+    s.add_argument("-s3Port", type=int, default=8333)
+    s.add_argument("-s3AccessKey", default="")
+    s.add_argument(
+        "-s3Config",
+        default="",
+        help="identities/roles JSON (reference -s3.config identities.json)",
+    )
+    s.add_argument("-s3SecretKey", default="")
     s.add_argument("-dir", action="append", required=True)
     s.add_argument("-max", type=int, default=None)
     s.add_argument("-ec.backend", dest="ec_backend", default=None,
@@ -173,7 +185,7 @@ def _parser() -> argparse.ArgumentParser:
     _add_scanner_flags(s, rebalance=False)
     _add_ec_trace_flags(s)
     # the JAX launcher's gateways, refused until their modules are ported
-    for flag in ("-s3", "-webdav", "-sftp", "-admin"):
+    for flag in ("-webdav", "-sftp", "-admin"):
         s.add_argument(flag, action="store_true", help="not served by the port yet")
     _add_tls_flags(s)
 
@@ -191,8 +203,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     """The parsed flags with the unset ones filled from `security.toml`,
-    `volume.toml`, `master.toml`, `filer.toml` and `notification.toml`
-    (searched in `config_dirs`), then the
+    `volume.toml`, `master.toml`, `filer.toml`, `notification.toml` and
+    `s3.toml` (searched in `config_dirs`), then the
     defaults. SystemExit for a backend the port does not run and what
     needs a module the port does not have yet."""
     p = _parser()
@@ -242,9 +254,13 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
             p.error(f"-notify.mq {a.notify_mq}: the port has no MQ broker yet: it comes with "
                     "ROADMAP.md item 14a")
     if a.mode == "server":
-        for flag in ("s3", "webdav", "sftp", "admin"):
+        for flag in ("webdav", "sftp", "admin"):
             if getattr(a, flag):
                 p.error(f"-{flag}: the port has no {flag} module yet")
+        if a.s3 and not a.s3Config:
+            scfg = load_config("s3", config_dirs)
+            if scfg:
+                a.s3Config = scfg.get_str("s3.config")
     return a
 
 
@@ -267,7 +283,8 @@ def scaffold(a: argparse.Namespace) -> int:
 def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
     """Build and start the servers the flags name: a master, a volume
     server, a filer, both of the first (`server`, with a filer under
-    `-filer`), or the telemetry collector."""
+    `-filer` and the S3 gateway over it under `-s3`), or the telemetry
+    collector."""
     return start(resolve(argv, config_dirs))
 
 
@@ -331,8 +348,11 @@ def start(a: argparse.Namespace) -> list:
         servers.append(vs)
         log.info("volume server on %s:%s (grpc %s, ec backend %s)", a.ip, a.port, vs.grpc_port,
                  a.ec_backend)
-    if a.mode == "filer" or (a.mode == "server" and a.filer):
-        servers.append(start_filer(a, tls))
+    if a.mode == "filer" or (a.mode == "server" and (a.filer or a.s3)):
+        fs = start_filer(a, tls)
+        servers.append(fs)
+        if a.mode == "server" and a.s3:
+            servers.append(start_s3(a, fs.filer, tls))
     return servers
 
 
@@ -376,6 +396,25 @@ def start_filer(a: argparse.Namespace, tls):
     log.info("filer on %s:%s (grpc %s%s)", a.ip, fport, fs.grpc_port,
              f", peers={peers}" if peers else "")
     return fs
+
+
+def start_s3(a: argparse.Namespace, filer, tls):
+    """The S3 gateway of `server -s3` over the process's filer."""
+    from ..s3 import Identity, IdentityStore, S3Server
+
+    sts = None
+    if a.s3Config:
+        from ..s3.config import load_s3_config
+
+        idents, sts, _oidc, _ldap = load_s3_config(a.s3Config)
+    else:
+        idents = IdentityStore()
+    if a.s3AccessKey:
+        idents.add(Identity("admin", a.s3AccessKey, a.s3SecretKey))
+    s3srv = S3Server(filer, ip=a.ip, port=a.s3Port, identities=idents, sts=sts, tls=tls)
+    s3srv.start()
+    log.info("s3 gateway on %s:%s", a.ip, a.s3Port)
+    return s3srv
 
 
 def main(argv=None) -> int:

@@ -28,7 +28,10 @@ Where the port differs from the JAX shell:
   every port entry point does; a mutating command given another backend
   (the JAX `tpu`) answers an error line before any RPC, and so does
   `task.submit -backend tpu`. `ec.rebuild`'s and `task.submit`'s default
-  stays "", the server's `ec_backend` or the worker's backend.
+  stays "", the server's `ec_backend` or the worker's backend;
+- `s3.accesskey.create` hands its minted secret to `s3.configure` as
+  `-secret_key=<secret>`: a secret that starts with "-" (1 in 64) makes
+  the JAX shell's parser exit it.
 """
 
 from __future__ import annotations
@@ -2479,9 +2482,11 @@ def s3_accesskey_create(env: ShellEnv, args) -> str:
     p.add_argument("-actions", default="")
     a = p.parse_args(args)
     access_key, secret_key = mint_key_pair()
+    # "=": a minted secret may start with "-" (token_urlsafe), which
+    # argparse would take for an option and exit the shell on
     out = s3_configure(
         env,
-        ["-user", a.user, "-access_key", access_key, "-secret_key", secret_key]
+        ["-user", a.user, "-access_key", access_key, f"-secret_key={secret_key}"]
         + (["-actions", a.actions] if a.actions else []),
     )
     if out.startswith("error"):

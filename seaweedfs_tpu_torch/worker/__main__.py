@@ -5,7 +5,7 @@ tasks (reference `weed worker`) until SIGTERM or SIGINT.
 
 Port of seaweedfs_tpu/worker/__main__.py. `-backend` defaults to cuda
 (the JAX default is auto) and refuses tpu; a `-capabilities` that names
-`s3_lifecycle` or `iceberg` is refused: both come with later items.
+`iceberg` is refused: it comes with later items.
 Either refusal is one error line and exit code 2, before any connect.
 """
 

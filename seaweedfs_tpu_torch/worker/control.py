@@ -18,8 +18,8 @@ registration, heartbeats, task assignment and progress.
   spread (`ec_balance`), the fleet scrub (`ec_scrub`, one volume per
   sweep) with its peer-fetch rebuild dispatch (`ec_rebuild -fromPeers`)
   from the aggregated reports, data gravity (`ec_migrate`) and the
-  lifecycle sweep (`s3_lifecycle`: submitted as in the JAX package; no
-  worker of the port takes it until the filer and S3 are ported).
+  lifecycle sweep (`s3_lifecycle`, which a worker hands to the filer's
+  RunLifecycle).
 
 It imports nothing of the EC package at module level: a master alone
 imports no torch until a balance or gravity scanner runs.

@@ -12,7 +12,8 @@ plugin worker's JobHandler model, plugin/worker/worker.go):
   per-kind) cluster lease;
 - the tasks `ec_encode` (readonly -> generate -> mount -> delete the
   source, the shell's `ec.encode` pipeline over RPCs), `vacuum`,
-  `balance`, `ec_balance` (the port shell's `ec.balance`), `ec_scrub`
+  `balance`, `ec_balance` (the port shell's `ec.balance`), `s3_lifecycle`
+  (the filer's `RunLifecycle`, where the metadata lives), `ec_scrub`
   (every holder's `ScrubEcVolume`, local repair where k good shards
   remain, the JSON report the master aggregates), `ec_rebuild`
   (`-fromPeers` for the holders the fleet scrub found unrebuildable) and
@@ -24,10 +25,10 @@ default). Where the port differs from the JAX worker:
 
 - `backend` takes cuda, cpu or auto and defaults to cuda (the JAX
   default is auto); another name raises ValueError;
-- the `s3_lifecycle` and `iceberg` kinds need the filer and S3, which the
-  port does not have yet (`DEFERRED_KINDS`): the default capabilities
-  leave them out, their descriptors are not advertised, and a worker
-  asked for either raises ValueError naming the items that bring them;
+- the `iceberg` kind needs S3 tables and remote storage, which the port
+  does not have yet (`DEFERRED_KINDS`): the default capabilities leave it
+  out, its descriptor is not advertised, and a worker asked for it raises
+  ValueError naming the items that bring it;
 - `run` asks the master group for its leader (`RaftStatus`) before each
   connect, so the stream reaches the master whose scanners submit; the
   JAX worker dials the first master of its group until a lease call
@@ -54,9 +55,9 @@ from ..utils import request_id as _rid
 from ..utils import trace
 from .control import VOLUME_INDEPENDENT_KINDS
 
-# the JAX worker's task kinds that need the S3 gateway and S3 tables
-# (ROADMAP.md items 13b and 13c), which the port has not taken yet
-DEFERRED_KINDS = ("s3_lifecycle", "iceberg")
+# the JAX worker's task kind that needs S3 tables and remote storage
+# (ROADMAP.md items 13c and 18), which the port has not taken yet
+DEFERRED_KINDS = ("iceberg",)
 
 
 class Worker:
@@ -64,8 +65,8 @@ class Worker:
         self,
         master: str = "localhost:9333",
         capabilities: tuple = (
-            "ec_encode", "vacuum", "balance", "ec_balance", "ec_scrub",
-            "ec_rebuild", "ec_migrate",
+            "ec_encode", "vacuum", "balance", "s3_lifecycle", "ec_balance",
+            "ec_scrub", "ec_rebuild", "ec_migrate",
         ),
         backend: str = "cuda",
         max_concurrent: int = 2,
@@ -79,8 +80,8 @@ class Worker:
         if deferred:
             raise ValueError(
                 f"-capabilities {','.join(deferred)}: the port's worker does not "
-                "take s3_lifecycle or iceberg tasks yet: they come with "
-                "ROADMAP.md items 13b and 13c"
+                "take iceberg tasks yet: they come with ROADMAP.md items 13c "
+                "and 18"
             )
         self.master_addr = master
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"
@@ -224,6 +225,26 @@ class Worker:
                     ),
                 ],
             ),
+            wk.TaskDescriptor(
+                kind="s3_lifecycle",
+                display_name="S3 lifecycle sweep",
+                description="apply bucket lifecycle rules (expiration, "
+                "noncurrent cleanup, upload aborts) on a filer",
+                fields=[
+                    wk.ConfigField(
+                        name="filer",
+                        type="string",
+                        default="",
+                        help="grpc host:port of the filer to sweep",
+                    ),
+                    wk.ConfigField(
+                        name="bucket",
+                        type="string",
+                        default="",
+                        help="single bucket to sweep (empty = all)",
+                    ),
+                ],
+            ),
         ]
         self._outbox: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
@@ -333,6 +354,8 @@ class Worker:
                 self._task_vacuum(assign)
             elif assign.kind == "balance":
                 self._task_balance(assign)
+            elif assign.kind == "s3_lifecycle":
+                self._task_s3_lifecycle(assign)
             elif assign.kind == "ec_balance":
                 self._task_ec_balance(assign)
             elif assign.kind == "ec_scrub":
@@ -452,6 +475,23 @@ class Worker:
                 f"delete on {source} failed after retries ({last_err}); "
                 "volume is duplicated and readonly at the source"
             )
+
+    def _task_s3_lifecycle(self, assign: wk.TaskAssign) -> None:
+        """Delegate the sweep to the filer that owns the metadata."""
+        from ..pb import filer_pb2 as fpb
+
+        filer = assign.params.get("filer", "")
+        if not filer:
+            raise RuntimeError("s3_lifecycle needs a filer param")
+        with grpc.insecure_channel(filer) as ch:
+            r = rpc.filer_stub(ch).RunLifecycle(
+                fpb.LifecycleRunRequest(
+                    bucket=assign.params.get("bucket", "")
+                ),
+                timeout=3600,
+            )
+        if r.error:
+            raise RuntimeError(r.error)
 
     def _task_ec_balance(self, assign: wk.TaskAssign) -> None:
         """Rack-aware EC shard rebalancing: reuses the SHELL's planner

@@ -377,15 +377,15 @@ def test_import_guard_scans_every_package_of_the_port():
         assert PORT / mod in _python_files(), mod
 
 
-# S3's libraries and the IAM they check requests against
+# S3's gateway, its libraries and the IAM they check requests against
 S3_MODULES = ("iam/__init__.py", "iam/policy.py", "iam/sts.py", "s3/__init__.py", "s3/auth.py",
               "s3/chunked.py", "s3/post_policy.py", "s3/config.py", "s3/versioning.py",
-              "s3/sse.py")
+              "s3/sse.py", "s3/server.py", "s3/lifecycle.py")
 
 _FILER_ALONE = r"""
-import importlib, os, sys, tempfile
-port = int(sys.argv[1])
-for name in sys.argv[2:]:
+import hashlib, importlib, os, sys, tempfile
+port, s3port, master = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+for name in sys.argv[4:]:
     importlib.import_module(name)
 from seaweedfs_tpu_torch.client.operations import Operations
 from seaweedfs_tpu_torch.filer import Filer, MemoryStore
@@ -429,25 +429,71 @@ assert [x["FullPath"] for x in json.loads(call("GET", "/d/")[1])["Entries"]] == 
 assert call("DELETE", "/d?recursive=true")[0] == 204
 for srv in servers:
     srv.stop()
+# the S3 gateway over a filer whose cluster runs in the parent process: a
+# signed bucket, a chunked PUT and a GET, and the lifecycle scanner
+from seaweedfs_tpu_torch.s3 import Identity, IdentityStore, S3Server
+gf = Filer(MemoryStore(), master=master, chunk_size=4096)
+ids = IdentityStore()
+ids.add(Identity("admin", "AKG", "guard/secret"))
+s3 = S3Server(gf, ip="127.0.0.1", port=s3port, identities=ids, lifecycle_interval=0)
+s3.start()
+def s3_call(method, path, body=b"", query=""):
+    h = auth.sign_v4(method, path, query, access_key="AKG", secret_key="guard/secret",
+                     headers={"host": f"127.0.0.1:{s3.port}"},
+                     payload_hash=hashlib.sha256(body).hexdigest())
+    c = http.client.HTTPConnection("127.0.0.1", s3.port, timeout=30)
+    c.request(method, path + (f"?{query}" if query else ""), body=body, headers=h)
+    r = c.getresponse()
+    out = r.status, r.read()
+    c.close()
+    return out
+obj = os.urandom(10_000)
+assert s3_call("PUT", "/guard")[0] == 200
+assert s3_call("PUT", "/guard/lc/obj.bin", obj)[0] == 200
+assert len(gf.find_entry("/buckets/guard/lc/obj.bin").chunks) == 3
+assert s3_call("GET", "/guard/lc/obj.bin") == (200, obj)
+rules = b"<LifecycleConfiguration><Rule><Prefix>lc/</Prefix><Status>Enabled</Status><Expiration><Date>2020-01-01</Date></Expiration></Rule></LifecycleConfiguration>"
+assert s3_call("PUT", "/guard", rules, "lifecycle")[0] == 200
+assert s3.lifecycle.run_once(bucket="guard")["expired"] == 1
+assert s3_call("GET", "/guard/lc/obj.bin")[0] == 404
+s3.stop()
+gf.close()
 print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
                       & {"torch", "jax", "jaxlib", "seaweedfs_tpu"}))
 """
 
 
-def test_the_filer_its_server_and_s3_libraries_import_no_torch():
+def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     """The filer, its server (by the launcher's `filer` mode, its writes,
-    reads, renames and deletes included), the client's Operations and
-    every S3 / IAM module load neither torch nor the JAX package: a
-    gateway or a filer child starts and serves without the torch import."""
+    reads, renames and deletes included), the client's Operations, every
+    S3 / IAM module and the S3 gateway serving a PUT and a GET over a
+    filer whose cluster (a port master and volume server) runs in this
+    process load neither torch nor the JAX package: a gateway or a filer
+    child starts and serves without the torch import."""
     from test_torch_volume_server import _ports
+    from conftest import wait_for
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
     mods = ["seaweedfs_tpu_torch.filer.filer", "seaweedfs_tpu_torch.server.filer_server",
             "seaweedfs_tpu_torch.server.multipart", "seaweedfs_tpu_torch.client.operations"] + [
         "seaweedfs_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
         for m in S3_MODULES]
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", _FILER_ALONE, str(_ports()), *mods],
-                          cwd=str(REPO), env=env, capture_output=True, text=True, timeout=120)
+    mport = _ports()
+    ms = MasterServer(ip="127.0.0.1", port=mport, vacuum_interval=3600)
+    ms.start()
+    vs = VolumeServer([str(tmp_path / "v")], master=f"127.0.0.1:{mport}", ip="127.0.0.1",
+                      port=_ports(), ec_backend="cpu")
+    vs.start()
+    try:
+        wait_for(lambda: ms.topo.nodes, timeout=30, msg="the volume server registered")
+        proc = subprocess.run([sys.executable, "-c", _FILER_ALONE, str(_ports()), str(_ports()),
+                               f"127.0.0.1:{mport}", *mods], cwd=str(REPO), env=env,
+                              capture_output=True, text=True, timeout=120)
+    finally:
+        vs.stop()
+        ms.stop()
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
 
@@ -748,6 +794,18 @@ assert run_command(renv, f"cluster.lock.ring -filers {','.join(ring)}").startswi
 assert dlm.unlock("guard", lease.token).ok
 dlm.close()
 renv.close()
+# the S3 gateway over the ring's first filer, open mode: a bucket, a
+# chunked PUT and a GET, and its lifecycle scanner over the bucket
+from seaweedfs_tpu_torch.s3 import S3Server
+
+s3 = S3Server(fss[0].filer, ip="127.0.0.1", port=free_grpc_port(), lifecycle_interval=0)
+s3.start()
+assert http_req(s3.port, "PUT", "/guard")[0] == 200
+assert http_req(s3.port, "PUT", "/guard/obj.bin", body)[0] == 200
+assert http_req(s3.port, "GET", "/guard/obj.bin") == (200, body)
+assert s3.lifecycle.run_once(bucket="guard") == {"expired": 0, "noncurrent_expired": 0,
+                                                 "aborted_uploads": 0}
+s3.stop()
 for fs in fss:
     fs.stop()
 vs.stop()

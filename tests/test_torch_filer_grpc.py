@@ -15,11 +15,12 @@ on the twin clusters of tests/test_torch_filer.py:
 - mixed convergence: a port `MetaAggregator` following a JAX filer, and a
   JAX `MetaAggregator` following the port's service, each reach the
   origin's namespace entry for entry, so the wire format is one;
-- the port's one divergence: `RunLifecycle` answers an error naming
-  ROADMAP item 13b.
+- `RunLifecycle` applies the S3 lifecycle rules alike: the same counters
+  and survivors.
 """
 
 import hashlib
+import json
 import threading
 import time
 import types
@@ -306,13 +307,44 @@ def test_subscribe_live_local_only_and_out_of_range(twins, tmp_path, side, monke
         bare.close()
 
 
-def test_run_lifecycle_names_its_roadmap_item(twins, tmp_path):
-    h = Hosted("port", twins["port"], tmp_path)
-    try:
-        r = h.stub.RunLifecycle(fpb.LifecycleRunRequest(bucket="b"), timeout=30)
-        assert "ROADMAP item 13b" in r.error and r.expired == 0
-    finally:
-        h.close()
+def test_run_lifecycle_matches_jax(twins, tmp_path):
+    """RunLifecycle applies the stored S3 lifecycle rules where the
+    metadata lives: the same counters and the same survivors in both."""
+    rules = {
+        "lc": [{"ID": "d", "Status": "Enabled", "Prefix": "old/", "ExpirationDate": "2020-01-01"},
+               {"ID": "off", "Status": "Disabled", "Prefix": "", "ExpirationDays": 0}],
+        "lcv": [{"ID": "e", "Status": "Enabled", "Prefix": "", "ExpirationDays": 0},
+                {"ID": "a", "Status": "Enabled", "Prefix": "", "AbortMultipartDays": 0}],
+    }
+    got = {}
+    for side in ("jax", "port"):
+        h = Hosted(side, twins[side], tmp_path / side)
+        try:
+            f = h.filer
+            for k in ("old/1", "old/deep/2", "new/1", "old1"):
+                f.write_file(f"/buckets/lc/{k}", k.encode())
+            f.write_file("/buckets/lcv/k", b"current")
+            f.create_entry(SIDES[side].pkg.entry.new_entry("/buckets/.uploads/lcv/u1",
+                                                            is_directory=True))
+            f.store.kv_put(b"upload/u1", b"{}")
+            f.store.kv_put(b"versioning/lcv", b"Enabled")
+            for b, r in rules.items():
+                f.store.kv_put(f"lifecycle-rules/{b}".encode(), json.dumps(r).encode())
+            answers = [h.stub.RunLifecycle(fpb.LifecycleRunRequest(bucket=b), timeout=30)
+                       .SerializeToString(deterministic=True) for b in ("nope", "lc", "", "lc")]
+            survivors = sorted(e.full_path for d in ("/buckets/lc", "/buckets/lc/old",
+                                                      "/buckets/lcv", "/buckets/.uploads/lcv")
+                               for e in f.list_entries(d, limit=100))
+            got[side] = (answers, survivors, f.store.kv_get(b"upload/u1"))
+        finally:
+            h.close()
+    assert got["port"] == got["jax"]
+    answers, survivors, upload = got["port"]
+    assert fpb.LifecycleRunResponse.FromString(answers[1]).expired == 2
+    r = fpb.LifecycleRunResponse.FromString(answers[2])
+    assert (r.expired, r.aborted_uploads, r.error) == (1, 1, "")
+    assert "/buckets/lc/old1" in survivors and "/buckets/lc/old/deep" in survivors
+    assert upload is None
 
 
 def mutate(f, seed: int) -> None:

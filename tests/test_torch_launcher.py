@@ -10,13 +10,18 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
   that assign, take a POST, look it up and serve it;
 - `-ec.backend tpu` stops the launcher with a message and a nonzero
   exit; so do the modes the port does not have (mq.broker), the flags of
-  `server` whose modules are not ported (its gateways), and `-notify.mq`
+  `server` whose modules are not ported (`-webdav`, `-sftp`, `-admin`),
+  and `-notify.mq`
   of `filer` and `server` (ROADMAP item 14a), from the flag or from
   `notification.toml`;
 - `filer` and `server -filer` children serve a file over HTTP and
   LookupDirectoryEntry over gRPC, post their events to a
   `-notify.webhook` sink and exit 0 on SIGTERM; `filer.toml`'s
   `sqlite.dbFile` and `notification.toml` fill the flags left unset;
+- `server -filer -s3` and `server -s3` children (identities from
+  `-s3Config` or from `s3.toml`) answer signed S3 PUTs and GETs, refuse an
+  unsigned one, and exit 0 on SIGTERM; `s3.toml` fills `-s3Config` only
+  where the flag is unset;
 - a `security.toml` asking for TLS, and the `-tls.*` flags of master,
   volume, server and filer, serve HTTPS (mutual TLS under `-tls.ca`), the file
   merged field by field under the flags;
@@ -30,6 +35,7 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
 - the config loader reads the same keys as the JAX one.
 """
 
+import hashlib
 import http.client
 import http.server
 import json
@@ -202,7 +208,6 @@ def test_scaffold_mode_prints_a_template_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("args, want", [
-    (["server", "-s3"], "-s3: the port has no s3 module yet"),
     (["server", "-webdav"], "-webdav: the port has no webdav module yet"),
     (["server", "-sftp"], "-sftp: the port has no sftp module yet"),
     (["server", "-admin"], "-admin: the port has no admin module yet"),
@@ -574,3 +579,79 @@ def test_filer_and_notification_toml_fill_unset_flags(tmp_path):
     assert (a.dir, a.notify_webhook) == ("/mine", "http://mine/y")
     a = launcher.resolve(["server", "-dir", "/data", "-filer"], config_dirs=[str(d)])
     assert (a.filer, a.filerPort, a.notify_webhook) == (True, 8888, "http://hook/x")
+
+
+S3_IDENTITIES = {"identities": [{"name": "admin", "accessKey": "AKLAUNCH",
+                                 "secretKey": "launched/secret", "actions": ["Admin"]}]}
+
+
+@pytest.mark.parametrize("how", ["-filer -s3 -s3Config", "-s3 with s3.toml"])
+def test_launched_server_serves_s3_by_name(tmp_path, how):
+    """`server -s3` children: the gateway over the process's filer (`-s3`
+    alone implies `-filer`) takes a signed bucket and object PUT, serves
+    the object back, refuses an anonymous PUT and exits 0 on SIGTERM."""
+    from seaweedfs_tpu_torch.s3.auth import sign_v4
+
+    conf = tmp_path / "identities.json"
+    conf.write_text(json.dumps(S3_IDENTITIES))
+    s3port = _ports()
+    args = ["server", "-ip", "127.0.0.1", "-masterPort", str(_ports()), "-port", str(_ports()),
+            "-filerPort", str(_ports()), "-dir", str(tmp_path / "d"), "-ec.backend", "cpu",
+            "-s3", "-s3Port", str(s3port)]
+    if how.startswith("-filer"):
+        args += ["-filer", "-s3Config", str(conf)]
+    else:
+        (tmp_path / "s3.toml").write_text(f'[s3]\nconfig = "{conf}"\n')
+    proc = launch(tmp_path, *args)
+    body = os.urandom(300_000)
+
+    def req(method, path, data=b"", signed=True):
+        headers = {"host": f"127.0.0.1:{s3port}"}
+        if signed:
+            headers = sign_v4(method, path, "", access_key="AKLAUNCH",
+                              secret_key="launched/secret", headers=headers,
+                              payload_hash=hashlib.sha256(data).hexdigest())
+        c = http.client.HTTPConnection("127.0.0.1", s3port, timeout=30)
+        try:
+            c.request(method, path, body=data, headers=headers)
+            r = c.getresponse()
+            return r.status, r.read()
+        finally:
+            c.close()
+
+    try:
+        def bucket():
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                return req("PUT", "/launched")[0] == 200
+            except OSError:
+                return False
+
+        wait_for(bucket, timeout=90, msg="the launched gateway did not take a bucket")
+        assert req("PUT", "/launched/a.bin", body)[0] == 200
+        assert req("GET", "/launched/a.bin") == (200, body)
+        status, doc = req("PUT", "/launched/b.bin", b"x", signed=False)
+        assert status == 403 and b"<Code>AccessDenied</Code>" in doc
+        err = stop_child(proc)
+        assert f"s3 gateway on 127.0.0.1:{s3port}" in err and "filer on 127.0.0.1" in err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def test_s3_toml_fills_s3_config_where_the_flag_is_unset(tmp_path):
+    d = tmp_path / "conf"
+    d.mkdir()
+    a = launcher.resolve(["server", "-dir", "/data", "-s3"], config_dirs=[str(d)])
+    assert (a.s3, a.s3Port, a.s3Config, a.s3AccessKey, a.filer) == (True, 8333, "", "", False)
+    (d / "s3.toml").write_text('[s3]\nconfig = "/etc/seaweed/identities.json"\n')
+    a = launcher.resolve(["server", "-dir", "/data", "-s3"], config_dirs=[str(d)])
+    assert a.s3Config == "/etc/seaweed/identities.json"
+    a = launcher.resolve(["server", "-dir", "/data", "-s3", "-s3Config", "/mine.json"],
+                         config_dirs=[str(d)])
+    assert a.s3Config == "/mine.json"
+    # without -s3 the file is not read
+    assert launcher.resolve(["server", "-dir", "/data"], config_dirs=[str(d)]).s3Config == ""

@@ -1254,3 +1254,24 @@ def test_drive_migration_moves_a_shard_set_between_port_servers(tmp_path):
             ch.close()
         for vs in servers:
             vs.stop()
+
+
+def test_a_minted_secret_that_starts_with_a_dash(twins):
+    """s3.accesskey.create hands its minted pair to s3.configure's parser.
+    A secret that starts with "-" (`token_urlsafe`, 1 in 64) exits the
+    JAX shell (argparse's SystemExit); the port's passes it as
+    `-secret_key=<secret>`, stores it and answers it."""
+    import secrets
+    from unittest import mock
+
+    jax_side, port_side = twins
+    dash = "-" + "Ab_-" * 10
+    with mock.patch.object(secrets, "token_urlsafe", lambda n: dash):
+        with pytest.raises(SystemExit):
+            jax_side.run("s3.accesskey.create -user dash")
+        out = port_side.run("s3.accesskey.create -user dash")
+    assert out.startswith("user=dash\naccess_key=SW") and out.endswith(f"\nsecret_key={dash}")
+    assert "dash " in port_side.run("s3.user.list")
+    assert port_side.run("s3.user.delete -user dash") == "deleted 1 credential(s) of dash"
+    assert "dash " not in port_side.run("s3.user.list")
+

@@ -434,10 +434,10 @@ def test_metrics_lint_package_wide():
     # the filer server's modules and their counterparts among them
     for name in ("server.filer_server", "filer.lock_ring", "filer.tus", "client.filer_client"):
         assert f"seaweedfs_tpu_torch.{name}" in sys.modules and f"seaweedfs_tpu.{name}" in sys.modules
-    # S3's libraries and IAM, with their counterparts (s3/auth registers
-    # sw_s3_auth_memo_total in both packages)
+    # S3's gateway, its libraries and IAM, with their counterparts
+    # (s3/auth registers sw_s3_auth_memo_total in both packages)
     for name in ("iam.policy", "iam.sts", "s3.auth", "s3.chunked", "s3.post_policy", "s3.config",
-                 "s3.versioning", "s3.sse"):
+                 "s3.versioning", "s3.sse", "s3.server", "s3.lifecycle"):
         assert f"seaweedfs_tpu_torch.{name}" in sys.modules and f"seaweedfs_tpu.{name}" in sys.modules
     assert "sw_s3_auth_memo_total" in {m.name for m in M.REGISTRY._metrics}
 

@@ -20,9 +20,10 @@ scenario:
 
 each with equal task lists, equal JSON reports (timestamps and ids
 apart), sha256-equal volume and shard files and the same
-`/cluster/status` keys. Also `SetMaintenanceConfig`'s refusals, the
-worker's refusal of `-backend tpu` and of the `s3_lifecycle` and
-`iceberg` capabilities, and `worker_pb2`'s bytes.
+`/cluster/status` keys. Also an `s3_lifecycle` task handed to a filer's
+`RunLifecycle` (the same reports and survivors), `SetMaintenanceConfig`'s
+refusals, the worker's refusal of `-backend tpu` and of the `iceberg`
+capability, and `worker_pb2`'s bytes.
 
 Every wait is on a condition with a deadline.
 """
@@ -80,8 +81,9 @@ PKGS = {
                                   shell=port_shell, control=port_control,
                                   topology=Topology, node=DataNode),
 }
-# the kinds both workers take (the JAX worker's default adds s3_lifecycle
-# and iceberg, which the port's leaves for later items)
+# the volume kinds both workers take (the JAX worker's default adds
+# s3_lifecycle, run on its own below, and iceberg, which the port's leaves
+# for later items)
 CAPS = ("ec_encode", "vacuum", "balance", "ec_balance", "ec_scrub", "ec_rebuild", "ec_migrate")
 RACKS = ("r1", "r2")
 GEN_NS = 1_760_000_000_777_000_001
@@ -691,14 +693,62 @@ def test_set_maintenance_config_answers_as_jax(masters, knob, value):
     assert (before == after) == bool(error)
 
 
+def test_s3_lifecycle_task_against_jax(make_twins):
+    """The worker hands an `s3_lifecycle` task to the filer that owns the
+    metadata (RunLifecycle): the same task rows, reports and survivors;
+    a task without a filer fails alike."""
+    from concurrent import futures
+
+    import seaweedfs_tpu.filer as j_filer
+    import seaweedfs_tpu.filer.grpc_service as j_grpc
+    import seaweedfs_tpu.pb.rpc as j_rpc
+    import seaweedfs_tpu_torch.filer as p_filer
+    import seaweedfs_tpu_torch.filer.grpc_service as p_grpc
+
+    mods = {"jax": (j_filer, j_grpc, j_rpc), "port": (p_filer, p_grpc, rpc)}
+    twins = make_twins({}, 1, 3600.0)
+
+    def scenario(s):
+        fmod, gmod, rmod = mods[s.pkg]
+        f = fmod.Filer(fmod.MemoryStore(), master=f"127.0.0.1:{s.mport}")
+        for k in ("old/1", "old/2", "new/1"):
+            f.write_file(f"/buckets/lc/{k}", k.encode())
+        f.store.kv_put(b"lifecycle-rules/lc", json.dumps(
+            [{"ID": "d", "Status": "Enabled", "Prefix": "old/",
+              "ExpirationDate": "2020-01-01"}]).encode())
+        server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+        rmod.add_service(server, rmod.FILER_SERVICE, gmod.FilerGrpcService(f))
+        port = server.add_insecure_port("127.0.0.1:0")
+        server.start()
+        s.names[port] = "filer.grpc"
+        try:
+            s.start_worker(capabilities=("s3_lifecycle",))
+            s.ctrl.submit("s3_lifecycle", 0, params={"filer": f"127.0.0.1:{port}",
+                                                     "bucket": "lc"})
+            out = [s.settled_tasks(1)]
+            s.ctrl.submit("s3_lifecycle", 0, params={"bucket": "lc"})
+            out += [s.settled_tasks(2), sorted(s.reports)]
+            out.append(sorted(e.full_path for d in ("/buckets/lc", "/buckets/lc/old")
+                              for e in f.list_entries(d, limit=100)))
+            return out
+        finally:
+            server.stop(grace=None)
+            f.close()
+
+    out = both(twins, scenario)
+    assert out[1] == [("s3_lifecycle", 0, "done", ""),
+                      ("s3_lifecycle", 0, "failed", "s3_lifecycle needs a filer param")]
+    assert out[3] == ["/buckets/lc/new", "/buckets/lc/old"]
+
+
 # --------------------------------------------------- the entry point
 
 
 @pytest.mark.parametrize("argv, want", [
     (["-backend", "tpu"], "-backend tpu: the port runs its EC on cuda, cpu or auto"),
-    (["-capabilities", "ec_encode,s3_lifecycle"],
-     "-capabilities s3_lifecycle: the port's worker does not take s3_lifecycle or iceberg "
-     "tasks yet: they come with ROADMAP.md items 13b and 13c"),
+    (["-capabilities", "ec_encode,iceberg"],
+     "-capabilities iceberg: the port's worker does not take iceberg tasks yet: they come "
+     "with ROADMAP.md items 13c and 18"),
     (["-capabilities", "iceberg,vacuum"], "-capabilities iceberg: the port's worker"),
 ])
 def test_worker_refuses_tpu_and_the_filer_and_s3_kinds(capsys, argv, want):
@@ -726,11 +776,11 @@ def test_worker_defaults_to_cuda_and_leaves_out_the_filer_and_s3_kinds(monkeypat
     w = Worker()
     assert w.backend == "cuda"
     jax_kinds = [d.kind for d in JaxWorker().descriptors]
-    assert [d.kind for d in w.descriptors] == [k for k in jax_kinds
-                                               if k not in ("s3_lifecycle", "iceberg")]
-    assert set(w.capabilities) == set(JaxWorker().capabilities) - {"s3_lifecycle", "iceberg"}
-    for ours, theirs in zip(w.descriptors, JaxWorker().descriptors):
-        assert ours.SerializeToString() == theirs.SerializeToString()
+    assert [d.kind for d in w.descriptors] == [k for k in jax_kinds if k != "iceberg"]
+    assert w.capabilities == tuple(k for k in JaxWorker().capabilities if k != "iceberg")
+    theirs = {d.kind: d.SerializeToString() for d in JaxWorker().descriptors}
+    for ours in w.descriptors:
+        assert ours.SerializeToString() == theirs[ours.kind]
     assert port_control.KNOWN_KINDS == jax_control.KNOWN_KINDS
     assert port_control.VOLUME_INDEPENDENT_KINDS == jax_control.VOLUME_INDEPENDENT_KINDS
 
