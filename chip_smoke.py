@@ -325,26 +325,42 @@ Phases:
    master, a volume server on the card, a filer and the gateway in one
    process) started beside phase 18's; identities an admin, a user who
    may read and list, and an STS role. Every request is signed with the
-   port's `s3/auth` over one keep-alive `RedialConnection`. 19a the
+   port's `s3/auth` over one keep-alive `RedialConnection`. 19.1 the
    bucket, anonymous and read-only PUTs refused (AccessDenied), a
    tampered signature (SignatureDoesNotMatch), an AssumeRole credential
-   writing under its prefix; 19b about 32 MiB of objects: signed PUTs,
+   writing under its prefix; 19.2 about 32 MiB of objects: signed PUTs,
    an aws-chunked PUT, a 5 + 5 + 1 MiB multipart upload completed by
    splicing, a CopyObject, SSE-S3 and SSE-C PUTs, a POST-policy upload,
    inlined objects and, under versioning, one key written three times and
-   given a delete marker; 19c ListObjectsV2 paged by continuation
+   given a delete marker; 19.3 ListObjectsV2 paged by continuation
    tokens, HEADs, whole and ranged GETs, a 304, a presigned GET and a
-   `?versionId` read; 19d the port shell's `ec.encode` of the bucket's
+   `?versionId` read; 19.4 the port shell's `ec.encode` of the bucket's
    volumes (launches at the child == batches), data shard 0 unmounted,
    every object read through the gateway whole and in a range,
    sha256-equal (planes launches == the child's interval-cache loads);
-   19e a lifecycle rule expiring lc/ through the filer's RunLifecycle;
-   19f DeleteObjects of every version and marker, the directories left
+   19.5 a lifecycle rule expiring lc/ through the filer's RunLifecycle;
+   19.6 DeleteObjects of every version and marker, the directories left
    removed through the filer's HTTP API, the bucket deleted and its
    collection gone from the master. The child must exit 0 on SIGTERM.
    Its own JSON line: the child's seconds from spawn to serving S3, each
    step's wall, PUT MB/s, GET p50 / p99 per object before and after the
    seal, the launches and the redials.
+19b. S3 Tables and the Iceberg REST catalog, the IAM API, OIDC and LDAP
+   on phase 19's child, whose `-s3Config` also names an OIDC provider
+   (RS256, the key made here) and an LDAP provider (the port's
+   `MiniLdapServer`, run in this process): a user, its key and its
+   policy through the IAM API; a table bucket, a namespace and a table;
+   8 data files of 4 MiB and a tail PUT with the minted key, one snapshot
+   commit each, a multi-table transaction and a view; an
+   `AssumeRoleWithLdapIdentity` credential writing under ldap/ and a
+   wrong password refused; the shell's `ec.encode` of the table bucket's
+   collection (launches == batches); data shard 0 unmounted, loadTable
+   answering the last commit, every metadata and data file read with an
+   OIDC bearer whole and in a range, sha256-equal, a forged and an
+   expired bearer refused (planes launches == reconstructions); the
+   maintenance route expiring old snapshots; the key deleted and
+   refused, the catalog torn down and the collection gone. Its JSON line:
+   each step's wall, PUT MB/s, GET p50 / p99, the launches.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -7103,6 +7119,13 @@ S3GW_LC = 3  # small objects under lc/, expired by the lifecycle rule
 S3GW_START_S = 180.0  # the child's wait to serve S3 (its torch import included)
 S3GW_KEYS = {"admin": ("AKSMOKE19ADMIN", "smoke19/admin-secret"),
              "reader": ("AKSMOKE19READ", "smoke19/reader-secret")}
+TABLES_BUCKET = "smoke19t"  # phase 19b's table bucket, and so its collection
+TABLES_SEED = SEED + 25  # phase 19b's data files
+TABLES_FILES = 8  # data files, one snapshot each
+TABLES_FILE = (4 << 20) + 54_321  # each spans two 4 MiB filer chunks
+TABLES_ISSUER = "https://idp.smoke19b"  # the OIDC issuer the child trusts
+TABLES_LDAP_USERS = {"uid=analyst,ou=people,dc=smoke": "analyst-pw"}
+TABLES_LDAP_DN = "uid={username},ou=people,dc=smoke"
 
 
 class S3GatewayChild:
@@ -7110,11 +7133,15 @@ class S3GatewayChild:
     child: a master, a volume server (the default EC backend, cuda), a
     filer and the S3 gateway over it in one process, its identities from
     `-s3Config` (an admin, a user who may read and list, an STS role
-    that may write under sts/). Started ahead of the tools check and
-    phase 18, so that its imports overlap them; a thread notes the
-    seconds from its spawn to its first S3 answer."""
+    that may write under sts/), and for phase 19b an OIDC provider that
+    trusts `oidc_pem` (RS256) with a `reader` role that may read and
+    list, an LDAP provider binding at `ldap_port`, and an STS role an
+    LDAP user may take to write under the table bucket's ldap/. Started
+    ahead of the tools check and phase 18, so that its imports overlap
+    them; a thread notes the seconds from its spawn to its first S3
+    answer."""
 
-    def __init__(self, work: str):
+    def __init__(self, work: str, ldap_port: int, oidc_pem: str):
         self.t0 = time.perf_counter()
         self.root = os.path.join(work, "s3gw")
         os.makedirs(os.path.join(self.root, "d"))
@@ -7129,7 +7156,17 @@ class S3GatewayChild:
                  "secretKey": S3GW_KEYS["admin"][1], "actions": ["Admin"]},
                 {"name": "reader", "accessKey": S3GW_KEYS["reader"][0],
                  "secretKey": S3GW_KEYS["reader"][1], "actions": ["Read", "List"]}],
-                "roles": [{"name": "uploader", "policies": [role], "trusted": ["*"]}]}, f)
+                "roles": [{"name": "uploader", "policies": [role], "trusted": ["*"]},
+                          {"name": "tablewriter", "trusted": ["ldap:analyst"], "policies": [
+                              {"Version": "2012-10-17", "Statement": [
+                                  {"Effect": "Allow",
+                                   "Action": ["s3:PutObject", "s3:GetObject"],
+                                   "Resource": [f"arn:aws:s3:::{TABLES_BUCKET}/ldap/*"]}]}]}],
+                "oidc": {"issuer": TABLES_ISSUER, "audience": "seaweedfs",
+                         "rs256_public_key_pem": oidc_pem,
+                         "roles": {"reader": {"actions": ["Read", "List"]}}},
+                "ldap": {"server": f"ldap://127.0.0.1:{ldap_port}",
+                         "bind_dn_template": TABLES_LDAP_DN}}, f)
         self.mport, self.vport, self.fport, self.s3port = (server_port(), server_port(),
                                                            server_port(), server_port())
         self.log = open(os.path.join(self.root, "server.log"), "wb")
@@ -7238,24 +7275,94 @@ def xml_texts(body: bytes, tag: str) -> list:
     return [el.text or "" for el in ET.fromstring(body).iter() if el.tag.split("}")[-1] == tag]
 
 
+def s3_expect(phase: str, what: str, got, want_status: int, want_code: str | None = None):
+    """`got`, an `S3Client` answer, if its status (and its S3 error code,
+    where one is wanted) is the one wanted; else raises naming `phase`."""
+    status, _, body = got
+    code = s3_error_code(body) if want_code is not None and body.startswith(b"<") else None
+    if status != want_status or (want_code is not None and code != want_code):
+        raise AssertionError(f"{phase}: {what} answered {status} {body[:300]!r}, not "
+                             f"{want_status} {want_code or ''}")
+    return got
+
+
+def child_kernels(child: S3GatewayChild, phase: str) -> dict:
+    """The child's `/debug/kernels`: its launches and interval-cache loads."""
+    code, _, body = http(f"http://127.0.0.1:{child.vport}/debug/kernels")
+    if code != 200:
+        raise AssertionError(f"{phase}: /debug/kernels answered {code}")
+    return json.loads(body)
+
+
+def seal_bucket(child: S3GatewayChild, senv, bucket: str, phase: str, walls: dict):
+    """The port shell's `ec.encode` of `bucket`'s volumes at the child's
+    master (`gf2_apply` launches at the child == the batches), then data
+    shard 0 unmounted until the master lists it no more; `walls` gets
+    "encode" and "unmount". Returns (volumes, batches, the child's
+    `/debug/kernels` before the encode)."""
+    import grpc
+
+    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
+    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
+    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.shell.commands import run_command
+
+    t0 = time.perf_counter()
+    topo = senv.master.topology()
+    vids = sorted({v.id for n in topo.nodes for v in n.volumes if v.collection == bucket})
+    d = os.path.join(child.root, "d")
+    vids = [vid for vid in vids if os.path.getsize(os.path.join(d, f"{bucket}_{vid}.dat")) > 8]
+    n_batches = sum(len(list(batch_plan(os.path.getsize(os.path.join(d, f"{bucket}_{vid}.dat")),
+                                        K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
+                    for vid in vids)
+    before = child_kernels(child, phase)
+    out = run_command(senv, f"ec.encode -volumeId {','.join(map(str, vids))} -collection {bucket}")
+    for vid in vids:
+        if not re.search(rf"ec\.encode volume {vid}: generation \d+ on 127\.0\.0\.1:{child.vport}",
+                         out):
+            raise AssertionError(f"{phase}: ec.encode answered {out!r}")
+    now = child_kernels(child, phase)["launches"]
+    enc = {k: now[k] - before["launches"][k] for k in now}
+    if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
+        raise AssertionError(f"{phase}: ec.encode launched {enc} for {n_batches} batches")
+    walls["encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with grpc.insecure_channel(f"127.0.0.1:{child.vport + 10000}") as ch:
+        for vid in vids:
+            rpc.volume_stub(ch).VolumeEcShardsUnmount(
+                pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
+
+    def shard0_listed() -> bool:
+        with grpc.insecure_channel(f"127.0.0.1:{child.mport + 10000}") as ch:
+            stub = rpc.master_stub(ch)
+            return any(any(sl.shard_id == 0 for sl in stub.LookupEcVolume(
+                pb.LookupEcVolumeRequest(volume_id=vid), timeout=10).shard_locations)
+                       for vid in vids)
+
+    wait_until(lambda: not shard0_listed(), "shard 0 leaving the master's listing", phase=phase)
+    walls["unmount"] = time.perf_counter() - t0
+    return vids, n_batches, before
+
+
 def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
     """Phase 19: the S3 gateway by name, on `S3GatewayChild`'s cluster.
-    19a auth: the bucket created, an anonymous and a read-only PUT refused
+    19.1 auth: the bucket created, an anonymous and a read-only PUT refused
     (AccessDenied), a tampered signature refused (SignatureDoesNotMatch),
-    an STS AssumeRole credential writing under sts/; 19b about 32 MiB of
+    an STS AssumeRole credential writing under sts/; 19.2 about 32 MiB of
     objects into the bucket (so its collection): three signed PUTs, an
     aws-chunked PUT, a 5 + 5 + 1 MiB multipart upload completed by
     splicing, a CopyObject, an SSE-S3 and an SSE-C PUT, a POST-policy
     upload, small inlined objects and, with versioning Enabled, one key
-    written three times and then given a delete marker; 19c before the
+    written three times and then given a delete marker; 19.3 before the
     seal, ListObjectsV2 paged by continuation tokens, HEADs, whole and
-    ranged GETs, a 304, a presigned GET and a `?versionId` read; 19d the
+    ranged GETs, a 304, a presigned GET and a `?versionId` read; 19.4 the
     port shell's `ec.encode` of the bucket's volumes at the child's master
     (`gf2_apply` launches at the child == batches), data shard 0
     unmounted, every object read through the gateway whole and in a
     range, sha256-equal (SSE-C with its key), `gf2_apply_planes`
-    launches == the holder's interval-cache loads; 19e a lifecycle rule
-    expiring lc/ through the filer's RunLifecycle; 19f DeleteObjects of
+    launches == the holder's interval-cache loads; 19.5 a lifecycle rule
+    expiring lc/ through the filer's RunLifecycle; 19.6 DeleteObjects of
     every version and marker, the directories the gateway leaves removed
     through the filer's HTTP API, the bucket deleted (204) and its
     collection gone from the master. Returns (result, launches)."""
@@ -7265,17 +7372,14 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
 
     import grpc
 
-    from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
-    from seaweedfs_tpu_torch.ec.encoder import DEFAULT_BATCH, batch_plan
-    from seaweedfs_tpu_torch.pb import cluster_pb2 as pb
     from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
     from seaweedfs_tpu_torch.pb import rpc
     from seaweedfs_tpu_torch.s3 import auth, chunked
-    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv
 
     t_phase = time.perf_counter()
     b, proc = S3GW_BUCKET, child.proc
-    vurl, furl = f"http://127.0.0.1:{child.vport}", f"http://127.0.0.1:{child.fport}"
+    furl = f"http://127.0.0.1:{child.fport}"
     cli = S3Client(child.s3port)
     c = cli.call
     rng = np.random.default_rng(S3GW_SEED)
@@ -7283,19 +7387,8 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
     redials0 = CONNECT_RETRIES[0]
     senv = None
 
-    def check(what: str, got, want_status: int, want_code: str | None = None):
-        status, _, body = got
-        code = s3_error_code(body) if want_code is not None and body.startswith(b"<") else None
-        if status != want_status or (want_code is not None and code != want_code):
-            raise AssertionError(f"19: {what} answered {status} {body[:300]!r}, not "
-                                 f"{want_status} {want_code or ''}")
-        return got
-
-    def kernels() -> dict:
-        code, _, body = http(f"{vurl}/debug/kernels")
-        if code != 200:
-            raise AssertionError(f"19: /debug/kernels answered {code}")
-        return json.loads(body)
+    def check(*a):
+        return s3_expect("19", *a)
 
     def alive():
         if proc.poll() is not None:
@@ -7303,7 +7396,7 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
                                  + child.log_tail())
 
     try:
-        # -- 19a. the child serving, auth -----------------------------------------
+        # -- 19.1. the child serving, auth -----------------------------------------
         t0 = time.perf_counter()
         child.watcher.join(timeout=max(0.0, S3GW_START_S - (time.perf_counter() - child.t0)))
         alive()
@@ -7333,7 +7426,7 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
                            xml_texts(body, "SessionToken")[0])
         walls["auth"] = time.perf_counter() - t0
 
-        # -- 19b. the objects ------------------------------------------------------
+        # -- 19.2. the objects ------------------------------------------------------
         plain: dict = {}  # key -> plaintext
         headers_of: dict = {}  # key -> the headers a GET needs (SSE-C)
         stored = 0
@@ -7458,7 +7551,7 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
                 hdr["Range"] = rng_hdr
             return c("GET", f"/{b}/{path}", query, headers=hdr)
 
-        # -- 19c. listing and reads before the seal ------------------------------
+        # -- 19.3. listing and reads before the seal ------------------------------
         t0 = time.perf_counter()
         listed, pages, q = [], 0, "list-type=2&prefix=obj/&delimiter=/&max-keys=2"
         while True:
@@ -7503,43 +7596,10 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
             raise AssertionError("19: the presigned GET gave other bytes")
         walls["reads_before_seal"] = time.perf_counter() - t0
 
-        # -- 19d. seal the bucket's volumes, data shard 0 gone --------------------
-        t0 = time.perf_counter()
+        # -- 19.4. seal the bucket's volumes, data shard 0 gone --------------------
         senv = ShellEnv(f"127.0.0.1:{child.mport}")
-        topo = senv.master.topology()
-        vids = sorted({v.id for n in topo.nodes for v in n.volumes if v.collection == b})
-        d = os.path.join(child.root, "d")
-        vids = [vid for vid in vids if os.path.getsize(os.path.join(d, f"{b}_{vid}.dat")) > 8]
-        n_batches = sum(len(list(batch_plan(os.path.getsize(os.path.join(d, f"{b}_{vid}.dat")), K,
-                                            DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
-                        for vid in vids)
-        before = kernels()["launches"]
-        out = run_command(senv, f"ec.encode -volumeId {','.join(map(str, vids))} -collection {b}")
-        for vid in vids:
-            if not re.search(rf"ec\.encode volume {vid}: generation \d+ on 127\.0\.0\.1:{child.vport}",
-                             out):
-                raise AssertionError(f"19: ec.encode answered {out!r}")
-        now = kernels()["launches"]
-        enc = {k: now[k] - before[k] for k in now}
-        if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
-            raise AssertionError(f"19: ec.encode launched {enc} for {n_batches} batches")
-        walls["encode"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        with grpc.insecure_channel(f"127.0.0.1:{child.vport + 10000}") as ch:
-            for vid in vids:
-                rpc.volume_stub(ch).VolumeEcShardsUnmount(
-                    pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
-
-        def shard0_listed() -> bool:
-            with grpc.insecure_channel(f"127.0.0.1:{child.mport + 10000}") as ch:
-                stub = rpc.master_stub(ch)
-                return any(any(sl.shard_id == 0 for sl in stub.LookupEcVolume(
-                    pb.LookupEcVolumeRequest(volume_id=vid), timeout=10).shard_locations)
-                           for vid in vids)
-
-        wait_until(lambda: not shard0_listed(), "shard 0 leaving the master's listing", phase="19")
-        walls["unmount"] = time.perf_counter() - t0
-        before = kernels()
+        vids, n_batches, _ = seal_bucket(child, senv, b, "19", walls)
+        before = child_kernels(child, "19")
         t0 = time.perf_counter()
         lat_after = []
         for k, v in reads.items():
@@ -7552,14 +7612,14 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
             if hashlib.sha256(got).digest() != hashlib.sha256(v).digest() or part != v[lo:hi + 1]:
                 raise AssertionError(f"19: {k} read with shard 0 gone differs from what was written")
         walls["degraded_reads"] = time.perf_counter() - t0
-        after = kernels()
+        after = child_kernels(child, "19")
         got = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
         recon = after["interval_cache"]["loads"] - before["interval_cache"]["loads"]
         if got["gf2_apply_planes"] != recon or recon < 1 or got["gf2_apply"]:
             raise AssertionError(f"19: the degraded GETs launched {got} for {recon} "
                                  "reconstructions")
 
-        # -- 19e. lifecycle ---------------------------------------------------------
+        # -- 19.5. lifecycle ---------------------------------------------------------
         t0 = time.perf_counter()
         rule = (b"<LifecycleConfiguration><Rule><ID>lc</ID><Filter><Prefix>lc/</Prefix></Filter>"
                 b"<Status>Enabled</Status><Expiration><Date>2020-01-01T00:00:00Z</Date>"
@@ -7574,7 +7634,7 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
         check("GET small/s0.txt after the lifecycle run", c("GET", f"/{b}/small/s0.txt"), 200)
         walls["lifecycle"] = time.perf_counter() - t0
 
-        # -- 19f. clean-up -----------------------------------------------------------
+        # -- 19.6. clean-up -----------------------------------------------------------
         t0 = time.perf_counter()
         _, _, body = check("ListObjectVersions", c("GET", f"/{b}", "versions"), 200)
         pairs = list(zip(xml_texts(body, "Key"), xml_texts(body, "VersionId")))
@@ -7631,6 +7691,320 @@ def s3_gateway_phase(child: S3GatewayChild, ctx) -> tuple[dict, dict]:
             "listing_pages": pages, "volumes": vids, "encode_launches": n_batches,
             "reconstructions": recon, "lifecycle_expired": lc.expired,
             "directories_removed": dirs, "requests": cli.requests, "walls": walls,
+            "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_phase}
+    finally:
+        cli.close()
+        if senv is not None:
+            senv.close()
+    return {"steps": step, "card": card_line()}, {"gf2_apply": n_batches,
+                                                  "gf2_apply_planes": recon}
+
+
+def oidc_bearer(key, claims: dict) -> dict:
+    """An `Authorization: Bearer` header: `claims` as an RS256 JWT signed
+    with `key`, as an IdP signs it."""
+    import base64
+
+    from cryptography.hazmat.primitives.asymmetric import padding
+    from cryptography.hazmat.primitives.hashes import SHA256
+
+    def b64(raw: bytes) -> str:
+        return base64.urlsafe_b64encode(raw).rstrip(b"=").decode()
+
+    header = json.dumps({"alg": "RS256", "typ": "JWT"}).encode()
+    signing = f"{b64(header)}.{b64(json.dumps(claims).encode())}"
+    sig = key.sign(signing.encode(), padding.PKCS1v15(), SHA256())
+    return {"Authorization": f"Bearer {signing}.{b64(sig)}"}
+
+
+def s3_tables_phase(child: S3GatewayChild, oidc_key) -> tuple[dict, dict]:
+    """Phase 19b: S3 Tables, the Iceberg REST catalog, the IAM API, OIDC
+    and LDAP on phase 19's gateway child, after phase 19. 1. the IAM API
+    as the admin: CreateUser, CreateAccessKey, PutUserPolicy (Put/Get/List
+    on the table bucket); 2. CreateTableBucket by the S3 Tables target, a
+    namespace and a table with a real schema by Iceberg REST; 3. with the
+    minted key, `TABLES_FILES` seeded data files SigV4-PUT under the
+    table's data/, one add-snapshot + set-snapshot-ref commit each (each
+    writes a new metadata file), a multi-table transaction over two more
+    tables and a view; 4. AssumeRoleWithLdapIdentity as an LDAP user,
+    whose temporary key PUTs under ldap/, and a wrong password refused;
+    5. the port shell's `ec.encode` of the table bucket's collection
+    (`gf2_apply` launches == batches); 6. data shard 0 unmounted: loadTable
+    answers the last commit, every metadata file of the log and every
+    data file GET with an OIDC bearer of role `reader` whole and in a
+    range, sha256-equal to what was written; a forged and an expired
+    bearer refused; 7. the maintenance route expiring old snapshots while
+    the refs stay; 8. DeleteAccessKey (the key refused after), the
+    tables, the view, the namespace and the table bucket deleted, the
+    bucket's objects and the bucket removed and its collection gone.
+    `gf2_apply_planes` launches == the holder's interval-cache loads from
+    the seal to the end. Returns (result, launches)."""
+    from urllib.parse import quote
+
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv
+
+    t_phase = time.perf_counter()
+    b, proc = TABLES_BUCKET, child.proc
+    furl = f"http://127.0.0.1:{child.fport}"
+    cli = S3Client(child.s3port)
+    c = cli.call
+    rng = np.random.default_rng(TABLES_SEED)
+    walls: dict = {}
+    redials0 = CONNECT_RETRIES[0]
+    senv = None
+    form = {"Content-Type": "application/x-www-form-urlencoded"}
+    ib = f"/iceberg/v1/{b}"
+    tbl = f"{ib}/namespaces/sales/tables"
+
+    def check(*a):
+        if proc.poll() is not None:
+            raise AssertionError(f"19b: the gateway's server exited with {proc.returncode}: "
+                                 + child.log_tail())
+        return s3_expect("19b", *a)
+
+    def cat(what: str, method: str, path: str, doc=None, want: int = 200, headers=None) -> dict:
+        """One catalog request as the admin; its JSON answer."""
+        body = b"" if doc is None else json.dumps(doc).encode()
+        _, _, out = check(what, c(method, path, body=body, headers={
+            "Content-Type": "application/json", **(headers or {})}), want)
+        return json.loads(out) if out else {}
+
+    def target(op: str, doc: dict, want: int = 200) -> dict:
+        return cat(op, "POST", "/", doc, want, {"X-Amz-Target": f"S3Tables.{op}"})
+
+    def iam(what: str, want: int = 200, **kv) -> bytes:
+        from urllib.parse import urlencode
+
+        return check(what, c("POST", "/", body=urlencode(kv).encode(), headers=form), want)[2]
+
+    def key_refused(who: str, code: str) -> bool:
+        # the gateway's identity store reloads the filer's KV every 2 s
+        st, _, body = c("GET", "/", who=who)
+        return st == 403 and s3_error_code(body) == code
+
+    try:
+        # -- 1. the IAM API -----------------------------------------------------------
+        t0 = time.perf_counter()
+        iam("CreateUser", Action="CreateUser", UserName="tables19")
+        body = iam("CreateAccessKey", Action="CreateAccessKey", UserName="tables19")
+        cli.keys["tables19"] = (xml_texts(body, "AccessKeyId")[0],
+                                xml_texts(body, "SecretAccessKey")[0], "")
+        policy = {"Version": "2012-10-17", "Statement": [
+            {"Effect": "Allow", "Action": ["s3:PutObject", "s3:GetObject", "s3:ListBucket"],
+             "Resource": [f"arn:aws:s3:::{b}", f"arn:aws:s3:::{b}/*"]}]}
+        iam("PutUserPolicy", Action="PutUserPolicy", UserName="tables19", PolicyName="tables",
+            PolicyDocument=json.dumps(policy))
+        # the minted key known and its policy in force: a bucket listing is
+        # denied to it, where the Admin a bare key starts with would pass
+        wait_until(lambda: key_refused("tables19", "AccessDenied"),
+                   "the minted key under its policy", timeout=10.0, phase="19b")
+        walls["iam"] = time.perf_counter() - t0
+
+        # -- 2. the catalog -------------------------------------------------------------
+        t0 = time.perf_counter()
+        arn = target("CreateTableBucket", {"name": b})["arn"]
+        cat("the namespace", "POST", f"{ib}/namespaces",
+            {"namespace": ["sales"], "properties": {"owner": "smoke"}})
+        schema = {"type": "struct", "schema-id": 0, "fields": [
+            {"id": 1, "name": "order_id", "required": True, "type": "long"},
+            {"id": 2, "name": "customer", "required": True, "type": "string"},
+            {"id": 3, "name": "amount", "required": False, "type": "decimal(12, 2)"},
+            {"id": 4, "name": "placed_at", "required": True, "type": "timestamptz"},
+            {"id": 5, "name": "lines", "required": False, "type": {
+                "type": "list", "element-id": 6, "element-required": False, "element": {
+                    "type": "struct", "fields": [
+                        {"id": 7, "name": "sku", "required": True, "type": "string"},
+                        {"id": 8, "name": "qty", "required": True, "type": "int"}]}}}]}
+        made = cat("the table", "POST", tbl, {"name": "orders", "schema": schema,
+                                              "properties": {"write.format.default": "parquet"}})
+        metadata = {made["metadata-location"]: made["metadata"]}  # location -> document
+        walls["catalog"] = time.perf_counter() - t0
+
+        # -- 3. data files and a snapshot each -------------------------------------
+        t0 = time.perf_counter()
+        files: dict = {}  # key -> body
+        last = made
+        t_put = 0.0
+        for i in range(TABLES_FILES):
+            data = rng.bytes(TABLES_FILE)
+            key = f"sales/orders/data/00000-{i}-smoke.parquet"
+            t1 = time.perf_counter()
+            check(f"PUT {key}", c("PUT", f"/{b}/{key}", body=data, who="tables19"), 200)
+            t_put += time.perf_counter() - t1
+            files[key] = data
+            sid = 1000 + i
+            last = cat(f"commit {i}", "POST", f"{tbl}/orders", {
+                "requirements": [{"type": "assert-table-uuid",
+                                  "uuid": made["metadata"]["table-uuid"]}],
+                "updates": [
+                    {"action": "add-snapshot", "snapshot": {
+                        "snapshot-id": sid, "sequence-number": i + 1,
+                        "timestamp-ms": int(time.time() * 1000) - (TABLES_FILES - i) * 86400_000,
+                        "manifest-list": f"s3://{b}/sales/orders/metadata/snap-{sid}.avro",
+                        "summary": {"operation": "append", "added-data-files": "1",
+                                    "added-files-size": str(len(data))}}},
+                    {"action": "set-snapshot-ref", "ref-name": "main", "snapshot-id": sid,
+                     "type": "branch"}]})
+            metadata[last["metadata-location"]] = last["metadata"]
+        check("a PUT outside the key's policy", c("PUT", "/smoke19-other", who="tables19"), 403,
+              "AccessDenied")
+        if len(last["metadata"]["metadata-log"]) != TABLES_FILES:
+            raise AssertionError(f"19b: the metadata log holds "
+                                 f"{len(last['metadata']['metadata-log'])} files")
+        for name in ("returns", "customers"):
+            cat(f"the table {name}", "POST", tbl, {"name": name, "schema": schema})
+        cat("the transaction", "POST", f"{ib}/transactions/commit", {"table-changes": [
+            {"identifier": {"namespace": ["sales"], "name": n},
+             "updates": [{"action": "set-properties", "updates": {"smoke": "19b"}}]}
+            for n in ("returns", "customers")]}, want=204)
+        view = cat("the view", "POST", f"{ib}/namespaces/sales/views", {
+            "name": "daily", "schema": schema, "view-version": {
+                "version-id": 1, "representations": [
+                    {"type": "sql", "dialect": "spark",
+                     "sql": "SELECT date(placed_at), sum(amount) FROM sales.orders GROUP BY 1"}]}})
+        metadata[view["metadata-location"]] = view["metadata"]
+        walls["data_and_commits"] = time.perf_counter() - t0
+        written = sum(len(v) for v in files.values())
+
+        # -- 4. LDAP STS ---------------------------------------------------------------------
+        t0 = time.perf_counter()
+        body = iam("AssumeRoleWithLdapIdentity", Action="AssumeRoleWithLdapIdentity",
+                   LdapUsername="analyst", LdapPassword="analyst-pw",
+                   RoleArn="arn:aws:iam:::role/tablewriter", DurationSeconds="900")
+        cli.keys["ldap"] = (xml_texts(body, "AccessKeyId")[0],
+                            xml_texts(body, "SecretAccessKey")[0], xml_texts(body, "SessionToken")[0])
+        report = rng.bytes(70_001)
+        check("the LDAP credential's PUT", c("PUT", f"/{b}/ldap/report.csv", body=report,
+                                              who="ldap"), 200)
+        files["ldap/report.csv"] = report
+        check("the LDAP credential's PUT outside its role",
+              c("PUT", f"/{b}/sales/orders/data/x", body=b"x", who="ldap"), 403, "AccessDenied")
+        _, _, body = check("a wrong LDAP password", c("POST", "/", body=(
+            b"Action=AssumeRoleWithLdapIdentity&LdapUsername=analyst&LdapPassword=wrong&"
+            b"RoleName=tablewriter"), headers=form, who=None), 403, "AccessDenied")
+        if b"resultCode 49" not in body:
+            raise AssertionError(f"19b: the wrong password answered {body!r}")
+        walls["ldap_sts"] = time.perf_counter() - t0
+
+        # -- 5. seal the table bucket's collection -------------------------------------
+        senv = ShellEnv(f"127.0.0.1:{child.mport}")
+        vids, n_batches, before = seal_bucket(child, senv, b, "19b", walls)
+
+        # -- 6. degraded reads -----------------------------------------------------------------
+        t0 = time.perf_counter()
+        loaded = cat("loadTable", "GET", f"{tbl}/orders")
+        if (loaded["metadata-location"], loaded["metadata"]) != (last["metadata-location"],
+                                                                 last["metadata"]):
+            raise AssertionError(f"19b: loadTable answered {loaded['metadata-location']}, not "
+                                 f"the last commit's {last['metadata-location']}")
+        log = [e["metadata-file"] for e in loaded["metadata"]["metadata-log"]]
+        log += [loaded["metadata-location"], view["metadata-location"]]
+        wants = {loc.split(f"s3://{b}/", 1)[1]: json.dumps(metadata[loc], indent=2).encode()
+                 for loc in log}
+        wants.update(files)
+        now_s = time.time()
+        reader = oidc_bearer(oidc_key, {"iss": TABLES_ISSUER, "aud": "seaweedfs",
+                                        "sub": "smoke-reader", "roles": ["reader"],
+                                        "iat": now_s, "exp": now_s + 600})
+        lat = []
+        for key, want in wants.items():
+            t1 = time.perf_counter()
+            _, _, got = check(f"degraded GET {key}", c("GET", f"/{b}/{quote(key)}",
+                                                       headers=reader, who=None), 200)
+            lat.append(time.perf_counter() - t1)
+            lo = int(rng.integers(0, len(want)))
+            hi = int(rng.integers(lo, len(want)))
+            _, _, part = check(f"degraded ranged GET {key}", c(
+                "GET", f"/{b}/{quote(key)}", headers={**reader, "Range": f"bytes={lo}-{hi}"},
+                who=None), 206)
+            if hashlib.sha256(got).digest() != hashlib.sha256(want).digest() \
+                    or part != want[lo:hi + 1]:
+                raise AssertionError(f"19b: {key} read with shard 0 gone differs from what was "
+                                     "written")
+        check("a PUT with the reader's bearer", c("PUT", f"/{b}/x", body=b"x", headers=reader,
+                                                  who=None), 403, "AccessDenied")
+        forged = dict(reader)
+        forged["Authorization"] = forged["Authorization"][:-6] + (
+            "AAAAAA" if not forged["Authorization"].endswith("AAAAAA") else "BBBBBB")
+        expired = oidc_bearer(oidc_key, {"iss": TABLES_ISSUER, "aud": "seaweedfs",
+                                         "sub": "smoke-reader", "roles": ["reader"],
+                                         "exp": now_s - 3600})
+        refusals = {}
+        for what, hdr in (("forged", forged), ("expired", expired)):
+            _, _, body = check(f"the {what} bearer", c("GET", f"/{b}/{quote(next(iter(files)))}",
+                                                       headers=hdr, who=None), 403,
+                               "InvalidToken")
+            refusals[what] = xml_texts(body, "Message")[0]
+        walls["degraded_reads"] = time.perf_counter() - t0
+
+        # -- 7. maintenance ------------------------------------------------------------------------
+        t0 = time.perf_counter()
+        keep_from = last["metadata"]["snapshots"][TABLES_FILES // 2]["timestamp-ms"]
+        swept = cat("the maintenance route", "POST", f"{ib}/maintenance",
+                    {"older-than-ms": keep_from})
+        if swept["snapshots_expired"] != TABLES_FILES // 2 or swept["tables_updated"] != 1:
+            raise AssertionError(f"19b: the maintenance route answered {swept}")
+        md = cat("loadTable after maintenance", "GET", f"{tbl}/orders")["metadata"]
+        left = [sn["snapshot-id"] for sn in md["snapshots"]]
+        if left != list(range(1000 + TABLES_FILES // 2, 1000 + TABLES_FILES)) \
+                or md["refs"]["main"]["snapshot-id"] != 1000 + TABLES_FILES - 1 \
+                or md["current-snapshot-id"] != 1000 + TABLES_FILES - 1:
+            raise AssertionError(f"19b: after maintenance the snapshots are {left}, refs "
+                                 f"{md['refs']}")
+        walls["maintenance"] = time.perf_counter() - t0
+
+        # -- 8. teardown -----------------------------------------------------------------------------
+        t0 = time.perf_counter()
+        iam("DeleteAccessKey", Action="DeleteAccessKey", AccessKeyId=cli.keys["tables19"][0])
+        wait_until(lambda: key_refused("tables19", "InvalidAccessKeyId"),
+                   "the deleted key refused", timeout=10.0, phase="19b")
+        for name in ("orders", "returns", "customers"):
+            target("DeleteTable", {"tableBucketARN": arn, "namespace": "sales", "name": name},
+                   want=204)
+        cat("DROP VIEW", "DELETE", f"{ib}/namespaces/sales/views/daily", want=204)
+        target("DeleteNamespace", {"tableBucketARN": arn, "namespace": "sales"}, want=204)
+        target("DeleteTableBucket", {"tableBucketARN": arn}, want=204)
+        if b in [x["name"] for x in target("ListTableBuckets", {})["tableBuckets"]]:
+            raise AssertionError("19b: the table bucket is still listed")
+        keys, q = [], "list-type=2"
+        while True:
+            _, _, body = check("ListObjectsV2", c("GET", f"/{b}", q), 200)
+            keys += xml_texts(body, "Key")
+            tok = xml_texts(body, "NextContinuationToken")
+            if not tok:
+                break
+            q = "list-type=2&continuation-token=" + quote(tok[0], safe="")
+        if set(wants) - set(keys):
+            raise AssertionError(f"19b: the bucket lists {len(keys)} objects")
+        doc = "<Delete>" + "".join(f"<Object><Key>{k}</Key></Object>" for k in keys) + "</Delete>"
+        _, _, body = check("DeleteObjects", c("POST", f"/{b}", "delete", body=doc.encode()), 200)
+        if xml_texts(body, "Code") or len(xml_texts(body, "Key")) != len(keys):
+            raise AssertionError(f"19b: DeleteObjects answered {body[:500]!r}")
+        code, _, body = http(f"{furl}/buckets/{b}/?limit=1000")
+        for e in json.loads(body)["Entries"] or []:
+            code, _, _ = http(f"{furl}{quote(e['FullPath'])}?recursive=true", "DELETE")
+            if code not in (200, 202, 204):
+                raise AssertionError(f"19b: the filer's recursive DELETE of {e['FullPath']} "
+                                     f"answered {code}")
+        check("the bucket's DELETE", c("DELETE", f"/{b}"), 204)
+        wait_until(lambda: b not in senv.master.collections(),
+                   "the master listing nothing of the table bucket's collection", phase="19b")
+        walls["teardown"] = time.perf_counter() - t0
+        after = child_kernels(child, "19b")
+        got = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+        recon = after["interval_cache"]["loads"] - before["interval_cache"]["loads"]
+        if got != {"gf2_apply": n_batches, "gf2_apply_planes": recon} or recon < 1:
+            raise AssertionError(f"19b: from the seal on the child launched {got} for "
+                                 f"{n_batches} batches and {recon} reconstructions")
+        step = {
+            "bucket": b, "data_files": TABLES_FILES, "data_bytes": written,
+            "put_seconds": t_put, "put_mb_per_s": written / t_put / 1e6,
+            "metadata_files": len(log), "snapshots_committed": TABLES_FILES,
+            "degraded_gets": len(lat), "get_p50_ms": percentile_ms(lat, 50),
+            "get_p99_ms": percentile_ms(lat, 99), "volumes": vids,
+            "encode_launches": n_batches, "reconstructions": recon,
+            "snapshots_expired": swept["snapshots_expired"], "bearer_refusals": refusals,
+            "requests": cli.requests, "walls": walls,
             "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_phase}
     finally:
         cli.close()
@@ -7963,9 +8337,22 @@ def main() -> int:
         # child starts --------------------------------------------------------------
         # (and phase 19's S3 gateway child, whose imports overlap both) ------------
         t0 = time.perf_counter()
-        tls_child, s3_child, s3_rc = TlsChild(work), None, None
+        tls_child, s3_child, s3_rc, ldap_srv = TlsChild(work), None, None, None
         try:
-            s3_child = S3GatewayChild(work)
+            # phase 19b's identity providers: the LDAP stand-in in this
+            # process, and the key whose public half the child's OIDC
+            # provider trusts
+            from cryptography.hazmat.primitives import serialization
+            from cryptography.hazmat.primitives.asymmetric import rsa
+
+            from seaweedfs_tpu_torch.iam.ldap import MiniLdapServer
+
+            ldap_srv = MiniLdapServer(dict(TABLES_LDAP_USERS))
+            oidc_key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+            oidc_pem = oidc_key.public_key().public_bytes(
+                serialization.Encoding.PEM,
+                serialization.PublicFormat.SubjectPublicKeyInfo).decode()
+            s3_child = S3GatewayChild(work, ldap_srv.port, oidc_pem)
             tools = tools_phase(tools_src)
             print("offline tools by name (fix: .idx byte-identical; scan: every record; export: "
                   "the needles; scaffold: a TOML the loader reads; compact: the deletes "
@@ -7988,11 +8375,19 @@ def main() -> int:
             # -- 19. the S3 gateway by name ----------------------------------------
             t0 = time.perf_counter()
             s3gw, s3gw_launches = s3_gateway_phase(s3_child, ctx)
+            t19 = time.perf_counter() - t0
+
+            # -- 19b. S3 Tables, the IAM API, OIDC and LDAP on the same child -----
+            t0 = time.perf_counter()
+            tables, tables_launches = s3_tables_phase(s3_child, oidc_key)
+            t19b = time.perf_counter() - t0
         finally:
             if tls_child is not None:
                 tls_child.stop()
             if s3_child is not None:
                 s3_rc = s3_child.stop()
+            if ldap_srv is not None:
+                ldap_srv.close()
         if s3_rc != 0:
             raise AssertionError(f"19: the gateway's server did not stop cleanly ({s3_rc})")
         print("S3 gateway by name (a `server -filer -s3 -s3Config` child: SigV4 refusals with the "
@@ -8004,7 +8399,19 @@ def main() -> int:
               "launches == reconstructions; a lifecycle rule expiring its prefix through "
               "RunLifecycle; DeleteObjects of every version, the bucket deleted and its "
               "collection gone): " + json.dumps(s3gw))
-        print(f"phase 19: {time.perf_counter() - t0:.3f} s; card: {card_line()}")
+        print(f"phase 19: {t19:.3f} s; card: {card_line()}")
+        print("19b S3 Tables and the Iceberg REST catalog, the IAM API, OIDC and LDAP (on phase "
+              "19's child: CreateUser, CreateAccessKey and PutUserPolicy through the IAM API; "
+              "CreateTableBucket, a namespace and a table; data files SigV4-PUT with the minted "
+              "key, one snapshot commit each, a multi-table transaction and a view; an "
+              "AssumeRoleWithLdapIdentity credential writing under ldap/, a wrong password "
+              "refused; the shell's ec.encode of the table bucket's collection, launches == "
+              "batches; data shard 0 unmounted, loadTable the last commit, every metadata and "
+              "data file read with an OIDC bearer whole and in a range sha256-equal, a forged "
+              "and an expired bearer refused, planes launches == reconstructions; snapshots "
+              "expired by the maintenance route while the refs stay; DeleteAccessKey, the "
+              "catalog torn down and the collection gone): " + json.dumps(tables))
+        print(f"phase 19b: {t19b:.3f} s; card: {card_line()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -8026,7 +8433,8 @@ def main() -> int:
           "17l filer server": server_filer_launches["gf2_apply"],
           "17m s3": s3_launches["gf2_apply"],
           "18 tls": tls_launches["gf2_apply"],
-          "19 s3 gateway": s3gw_launches["gf2_apply"]},
+          "19 s3 gateway": s3gw_launches["gf2_apply"],
+          "19b s3 tables": tables_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -8044,7 +8452,8 @@ def main() -> int:
           "17l filer server": server_filer_launches["gf2_apply_planes"],
           "17m s3": s3_launches["gf2_apply_planes"],
           "18 tls": tls_launches["gf2_apply_planes"],
-          "19 s3 gateway": s3gw_launches["gf2_apply_planes"]},
+          "19 s3 gateway": s3gw_launches["gf2_apply_planes"],
+          "19b s3 tables": tables_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

@@ -1,7 +1,6 @@
 """IAM: policy engine + STS temporary credentials.
 
-Port of seaweedfs_tpu/iam: `policy` and `sts`. OIDC and LDAP come with
-ROADMAP.md item 13c.
+Port of seaweedfs_tpu/iam: `policy`, `sts`, `oidc` and `ldap`.
 
 Reference: weed/iam/policy (policy_engine.go), weed/iam/sts.
 """

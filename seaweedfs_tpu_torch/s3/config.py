@@ -1,9 +1,7 @@
 """S3 gateway identity/role configuration.
 
-Port of seaweedfs_tpu/s3/config.py. Where the JAX `load_s3_config`
-builds an OIDC or LDAP provider, the port raises one error naming
-ROADMAP.md item 13c, which brings them; its result keeps the JAX
-module's four places, the last two None.
+Port of seaweedfs_tpu/s3/config.py, whole: `load_s3_config` builds the
+port's OIDC and LDAP providers where the JAX one builds its own.
 
 Reference: weed/s3api auth_credentials.go loading identities.json (the
 `-s3.config` flag) — names, key pairs, coarse actions, and IAM policy
@@ -132,21 +130,26 @@ class FilerIdentityStore:
 
 
 def load_s3_config(path: str):
-    """-> (IdentityStore, StsService | None, None, None)."""
+    """-> (IdentityStore, StsService | None, OidcProvider | None,
+    LdapProvider | None)."""
     with open(path) as f:
         conf = json.load(f)
     store = IdentityStore()
     for ident in conf.get("identities", []):
         store.add(identity_from_conf(ident))
-    for provider in ("oidc", "ldap"):
-        if conf.get(provider):
-            raise ValueError(
-                f"{path}: {provider!r} is not ported yet: it comes with "
-                "ROADMAP.md item 13c"
-            )
+    oidc = None
+    if conf.get("oidc"):
+        from ..iam.oidc import OidcProvider
+
+        oidc = OidcProvider(**conf["oidc"])
+    ldap = None
+    if conf.get("ldap"):
+        from ..iam.ldap import LdapProvider
+
+        ldap = LdapProvider(**conf["ldap"])
     sts = None
     roles = conf.get("roles", [])
-    if roles and store.empty:
+    if roles and store.empty and oidc is None:
         # roles without identities would leave the gateway in open mode
         # (anonymous = admin) with STS credentials never verified —
         # refuse the misconfiguration instead of silently ignoring it
@@ -165,4 +168,9 @@ def load_s3_config(path: str):
                 )
             )
         store.sts = sts
-    return store, sts, None, None
+    if ldap is not None and sts is None:
+        raise ValueError(
+            f"{path}: 'ldap' requires 'roles' (LDAP identities assume a "
+            "role for their credentials)"
+        )
+    return store, sts, oidc, ldap

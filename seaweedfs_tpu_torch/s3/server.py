@@ -2,22 +2,14 @@
 
 Port of seaweedfs_tpu/s3/server.py: every route of the JAX gateway
 answers as it does, with the same status codes, headers, XML bodies and
-filer state, over the port's filer, `iam/policy`, `s3/auth`,
-`s3/chunked`, `s3/post_policy`, `s3/versioning` and `s3/sse`. The routes
-whose modules the port does not have yet keep the JAX matchers that
-decide them, so ordinary requests route exactly as in the JAX gateway,
-and answer one S3 error document, 501 NotImplemented, naming the
-ROADMAP.md item that brings them:
-
-- Iceberg REST and S3 Tables (`/iceberg/v1/...`, `X-Amz-Target:
-  S3Tables.*`, the ARN-rooted paths), the embedded IAM API's actions and
-  `AssumeRoleWithLdapIdentity`: item 13c;
-- S3 Select (`POST ?select`): item 19.
-
-The OIDC and LDAP providers come with item 13c too: `oidc` and `ldap`
-stay in the constructor's signature and must be None. The gateway is
-host code and imports no torch; its objects reach the card where their
-collection (the bucket) is EC-encoded and read degraded.
+filer state, over the port's filer, `iam/policy`, `iam/oidc`,
+`iam/ldap`, `s3/auth`, `s3/chunked`, `s3/post_policy`, `s3/versioning`,
+`s3/sse`, `s3/tables` (Iceberg REST and S3 Tables) and `s3/iamapi` (the
+embedded IAM API). S3 Select (`POST ?select`) answers one S3 error
+document, 501 NotImplemented, naming ROADMAP.md item 19, which brings
+it. The gateway is host code and imports no torch; its objects reach
+the card where their collection (the bucket) is EC-encoded and read
+degraded.
 
 Reference: weed/s3api (s3api_server.go routes, filer_multipart.go,
 s3api_object_handlers*.go). Buckets live at /buckets/<name> in the filer
@@ -70,33 +62,6 @@ import re as _re
 # starting and ending alphanumeric — also satisfies the master's
 # collection-name rules
 _BUCKET_RE = _re.compile(r"^[a-z0-9][a-z0-9.\-]{0,61}[a-z0-9]$")
-
-# The matchers of the routes left for later items, copied from the JAX
-# s3/tables.py (`_REST_RE`, `is_s3tables_path`) and s3/iamapi.py
-# (`ACTIONS`), so the same requests take those routes.
-_TABLES_REST_RE = _re.compile(
-    r"^/(buckets(/arn:aws:s3tables:|$|/$)"
-    r"|namespaces/arn:aws:s3tables:"
-    r"|tables/arn:aws:s3tables:)"
-)
-IAM_ACTIONS = {
-    "CreateUser",
-    "DeleteUser",
-    "ListUsers",
-    "CreateAccessKey",
-    "DeleteAccessKey",
-    "ListAccessKeys",
-    "PutUserPolicy",
-    "GetUserPolicy",
-    "DeleteUserPolicy",
-}
-
-
-def is_s3tables_path(path: str) -> bool:
-    """CLI-style S3Tables REST path (ARN-rooted, or the bare /buckets
-    collection) — matched on the path PREFIX so an ordinary object key
-    merely containing an ARN substring is never hijacked."""
-    return bool(_TABLES_REST_RE.match(path))
 
 
 def _xml(root: ET.Element) -> bytes:
@@ -181,15 +146,7 @@ class S3Server:
         oversubscription AND this tenant's device usage exceeds its
         fair share, object data-plane requests get an early 503
         SlowDown + Retry-After (per-tenant shedding — a well-behaved
-        tenant on the same pod keeps serving).
-
-        `oidc` and `ldap` must be None: their providers come with
-        ROADMAP.md item 13c."""
-        if oidc is not None or ldap is not None:
-            raise ValueError(
-                "S3Server: OIDC and LDAP are not ported yet: they come with "
-                "ROADMAP.md item 13c"
-            )
+        tenant on the same pod keeps serving)."""
         self.tenant = tenant
         self.filer = filer
         self.ip = ip
@@ -205,6 +162,12 @@ class S3Server:
         self.sts_service = sts
         if sts is not None and self.identities.sts is None:
             self.identities.sts = sts
+        # OIDC bearer tokens (iam/oidc.py OidcProvider): an alternative
+        # authentication path beside SigV4
+        self.oidc = oidc
+        # LDAP simple-bind provider (iam/ldap.py): backs the STS action
+        # AssumeRoleWithLdapIdentity
+        self.ldap = ldap
         # SSE-S3 keyring: master key shared via the filer KV store so
         # every gateway over the same filer can decrypt (KMS SPI:
         # replace with an external provider via `sse_keyring=`).
@@ -216,6 +179,9 @@ class S3Server:
             )
         except Exception:
             self.sse_keyring = None
+        from .tables import TablesCatalog
+
+        self.tables_catalog = TablesCatalog(self)
         # Striped per-key write locks: a conditional PUT's precondition
         # must be atomic against EVERY write to that key (a plain PUT,
         # multipart completion, POST-policy upload, or DELETE racing a
@@ -330,7 +296,26 @@ class S3Server:
                 )
 
             def _auth(self, payload: bytes | None = None) -> Identity | None:
+                auth_hdr = self.headers.get("Authorization", "")
+                if srv.oidc is not None and auth_hdr.startswith("Bearer "):
+                    # OIDC path: an unverifiable bearer is REJECTED,
+                    # never downgraded to anonymous
+                    from ..iam.oidc import OidcError
+
+                    try:
+                        claims = srv.oidc.verify(auth_hdr[len("Bearer ") :])
+                    except OidcError as e:
+                        raise S3AuthError(
+                            "InvalidToken", f"OIDC: {e}"
+                        ) from None
+                    return srv.oidc.identity_for(claims)
                 if srv.identities.empty:
+                    if srv.oidc is not None:
+                        # OIDC-only deployment: an empty SigV4 store
+                        # must NOT mean open mode — tokenless requests
+                        # are ANONYMOUS (bucket policy may still grant)
+                        self._anonymous = True
+                        return None
                     return None  # open mode
                 u = urllib.parse.urlparse(self.path)
                 if "Authorization" not in self.headers and "X-Amz-Signature" not in u.query:
@@ -535,6 +520,8 @@ class S3Server:
                         return self._error(403, e.code, str(e))
                     u = urllib.parse.urlparse(self.path)
                     raw_path = urllib.parse.unquote(u.path)
+                    from . import tables as _tables
+
                     # Precise matchers (no substring hijack of ordinary
                     # object keys): /iceberg/v1/..., the S3Tables
                     # X-Amz-Target protocol, or the CLI's ARN-rooted
@@ -543,7 +530,9 @@ class S3Server:
                     # reference's own route registration.
                     is_tables = self.headers.get(
                         "X-Amz-Target", ""
-                    ).startswith("S3Tables.") or is_s3tables_path(raw_path)
+                    ).startswith("S3Tables.") or _tables.is_s3tables_path(
+                        raw_path
+                    )
                     if raw_path.startswith("/iceberg/v1/") or is_tables:
                         # Catalog mutation = admin surface: anonymous
                         # callers are refused, and configured
@@ -559,11 +548,12 @@ class S3Server:
                                 "AccessDenied",
                                 "catalog requires the Admin action",
                             )
-                        return self._later(
-                            "13c",
-                            "Iceberg REST"
-                            if raw_path.startswith("/iceberg/v1/")
-                            else "S3 Tables",
+                        if raw_path.startswith("/iceberg/v1/"):
+                            return _tables.handle_iceberg(
+                                self, srv.tables_catalog, raw_path
+                            )
+                        return _tables.handle_s3tables(
+                            self, srv.tables_catalog
                         )
                     if bucket == "" and m == "POST":
                         # STS rides the service endpoint (form POST
@@ -575,7 +565,9 @@ class S3Server:
                         )
                         if form.get("Action") == "AssumeRole":
                             return self._sts_assume_role(ident, form)
-                        if form.get("Action") in IAM_ACTIONS:
+                        from . import iamapi as _iam
+
+                        if form.get("Action") in _iam.ACTIONS:
                             # embedded IAM API (reference weed/iamapi):
                             # credential management is an Admin surface
                             if self._anonymous or (
@@ -587,14 +579,18 @@ class S3Server:
                                     "AccessDenied",
                                     "IAM requires the Admin action",
                                 )
-                            return self._later("13c", "the IAM API")
+                            try:
+                                body = _iam.execute(srv.filer.store, form)
+                            except _iam.IamError as e:
+                                return self._respond(
+                                    e.code, _iam.error_xml(e)
+                                )
+                            return self._respond(200, body)
                         if (
                             form.get("Action")
                             == "AssumeRoleWithLdapIdentity"
                         ):
-                            return self._later(
-                                "13c", "AssumeRoleWithLdapIdentity"
-                            )
+                            return self._sts_assume_role_ldap(form)
                         return self._error(405, "MethodNotAllowed", m)
                     err = self._authorize(ident, m, bucket, key, q)
                     if err is not None:
@@ -653,6 +649,60 @@ class S3Server:
             do_GET = do_PUT = do_POST = do_DELETE = do_HEAD = do_OPTIONS = _handle
 
             # ---- sts ----
+
+            def _sts_assume_role_ldap(self, form: dict):
+                """AssumeRoleWithLdapIdentity (reference weed/iam/ldap
+                + sts AssumeRoleWithLdapIdentity): the LDAP bind IS the
+                authentication, so no SigV4 identity is required. The
+                role must trust "*" or "ldap:<username>"."""
+                if srv.sts_service is None or srv.ldap is None:
+                    return self._error(
+                        400, "InvalidAction", "LDAP STS not configured"
+                    )
+                from ..iam.ldap import LdapError
+
+                username = form.get("LdapUsername", "")
+                try:
+                    srv.ldap.authenticate(
+                        username, form.get("LdapPassword", "")
+                    )
+                except LdapError as e:
+                    return self._error(403, "AccessDenied", f"LDAP: {e}")
+                role_name = (
+                    form.get("RoleArn", "").rsplit("/", 1)[-1]
+                    or form.get("RoleName", "")
+                )
+                try:
+                    cred = srv.sts_service.assume_role(
+                        f"ldap:{username}",
+                        None,  # LDAP callers carry no IAM policies
+                        role_name,
+                        int(form.get("DurationSeconds", "3600") or "3600"),
+                    )
+                except PermissionError as e:
+                    return self._error(403, "AccessDenied", str(e))
+                except ValueError:
+                    return self._error(
+                        400, "InvalidParameterValue", "duration"
+                    )
+                root = ET.Element(
+                    "AssumeRoleWithLdapIdentityResponse",
+                    xmlns="https://sts.amazonaws.com/doc/2011-06-15/",
+                )
+                res = _el(root, "AssumeRoleWithLdapIdentityResult")
+                c = _el(res, "Credentials")
+                _el(c, "AccessKeyId", cred.access_key)
+                _el(c, "SecretAccessKey", cred.secret_key)
+                _el(c, "SessionToken", cred.session_token)
+                _el(
+                    c,
+                    "Expiration",
+                    time.strftime(
+                        "%Y-%m-%dT%H:%M:%SZ",
+                        time.gmtime(cred.expires_at),
+                    ),
+                )
+                return self._respond(200, _xml(root))
 
             def _sts_assume_role(self, ident, form: dict):
                 if srv.sts_service is None:
@@ -1349,6 +1399,12 @@ class S3Server:
                         ppol.check_policy_document(
                             fields, len(file_bytes), bucket, key
                         )
+                    elif srv.oidc is not None:
+                        # Mirror _auth: an OIDC-only deployment (empty
+                        # SigV4 store) must NOT mean open mode — an
+                        # unsigned POST-policy form is ANONYMOUS, so
+                        # only a bucket-policy/ACL grant can allow it.
+                        self._anonymous = True
                 except S3AuthError as e:
                     code = 403 if e.code in (
                         "AccessDenied",

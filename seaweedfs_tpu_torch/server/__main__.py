@@ -402,16 +402,19 @@ def start_s3(a: argparse.Namespace, filer, tls):
     """The S3 gateway of `server -s3` over the process's filer."""
     from ..s3 import Identity, IdentityStore, S3Server
 
-    sts = None
+    sts = oidc = ldap = None
     if a.s3Config:
         from ..s3.config import load_s3_config
 
-        idents, sts, _oidc, _ldap = load_s3_config(a.s3Config)
+        idents, sts, oidc, ldap = load_s3_config(a.s3Config)
     else:
         idents = IdentityStore()
     if a.s3AccessKey:
         idents.add(Identity("admin", a.s3AccessKey, a.s3SecretKey))
-    s3srv = S3Server(filer, ip=a.ip, port=a.s3Port, identities=idents, sts=sts, tls=tls)
+    s3srv = S3Server(
+        filer, ip=a.ip, port=a.s3Port, identities=idents, sts=sts, tls=tls,
+        oidc=oidc, ldap=ldap,
+    )
     s3srv.start()
     log.info("s3 gateway on %s:%s", a.ip, a.s3Port)
     return s3srv

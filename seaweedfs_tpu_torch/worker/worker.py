@@ -55,8 +55,8 @@ from ..utils import request_id as _rid
 from ..utils import trace
 from .control import VOLUME_INDEPENDENT_KINDS
 
-# the JAX worker's task kind that needs S3 tables and remote storage
-# (ROADMAP.md items 13c and 18), which the port has not taken yet
+# the JAX worker's task kind that needs remote storage's S3 client
+# (ROADMAP.md item 18), which the port has not taken yet
 DEFERRED_KINDS = ("iceberg",)
 
 
@@ -80,8 +80,7 @@ class Worker:
         if deferred:
             raise ValueError(
                 f"-capabilities {','.join(deferred)}: the port's worker does not "
-                "take iceberg tasks yet: they come with ROADMAP.md items 13c "
-                "and 18"
+                "take iceberg tasks yet: they come with ROADMAP.md item 18"
             )
         self.master_addr = master
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"

@@ -354,6 +354,26 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert "libseaweed" not in text and "native/" not in text
 
 
+@pytest.mark.parametrize("name", ["chip_smoke.py", "chip_kernels.py", "chip_host_io.py",
+                                  "chip_sched_ab.py", "chip_loopback.py"])
+def test_chip_scripts_define_each_top_level_name_once(name):
+    """A second top-level `def` or assignment of a name silently replaces
+    the first for every phase that calls it; only the card runs most
+    phases, so the clash shows there alone."""
+    tree = ast.parse((REPO / name).read_text())
+    seen = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        else:
+            continue
+        for n in names:
+            assert n not in seen, f"{name}: {n} defined at lines {seen[n]} and {node.lineno}"
+            seen[n] = node.lineno
+
+
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
     assert {"client", "ec", "faults", "filer", "iam", "mq", "ops", "pb", "s3", "server", "shell",
@@ -378,14 +398,33 @@ def test_import_guard_scans_every_package_of_the_port():
 
 
 # S3's gateway, its libraries and the IAM they check requests against
-S3_MODULES = ("iam/__init__.py", "iam/policy.py", "iam/sts.py", "s3/__init__.py", "s3/auth.py",
-              "s3/chunked.py", "s3/post_policy.py", "s3/config.py", "s3/versioning.py",
-              "s3/sse.py", "s3/server.py", "s3/lifecycle.py")
+S3_MODULES = ("iam/__init__.py", "iam/policy.py", "iam/sts.py", "iam/oidc.py", "iam/ldap.py",
+              "s3/__init__.py", "s3/auth.py", "s3/chunked.py", "s3/post_policy.py",
+              "s3/config.py", "s3/versioning.py", "s3/sse.py", "s3/server.py", "s3/lifecycle.py",
+              "s3/tables.py", "s3/iamapi.py")
+
+# an HS256 bearer for issuer https://g signed with "k", and an LDAP bind
+# through the stand-in server, in the guards' child interpreters
+_PROVIDERS = r"""
+import base64, hashlib, hmac, json, time
+from seaweedfs_tpu_torch.iam.ldap import LdapProvider, MiniLdapServer
+from seaweedfs_tpu_torch.iam.oidc import OidcProvider
+b64 = lambda b: base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+signing = b64(b'{"alg": "HS256"}') + "." + b64(json.dumps(
+    {"iss": "https://g", "exp": time.time() + 60, "sub": "g", "roles": "r"}).encode())
+tok = signing + "." + b64(hmac.new(b"k", signing.encode(), hashlib.sha256).digest())
+oidc = OidcProvider("https://g", hs256_secret="k", roles={"r": {"actions": ["Read"]}})
+assert oidc.identity_for(oidc.verify(tok)).actions == ("Read",)
+ldap_srv = MiniLdapServer({"uid=g,dc=x": "pw"})
+assert LdapProvider(f"127.0.0.1:{ldap_srv.port}", "uid={username},dc=x").authenticate(
+    "g", "pw") == "uid=g,dc=x"
+ldap_srv.close()
+"""
 
 _FILER_ALONE = r"""
 import hashlib, importlib, os, sys, tempfile
-port, s3port, master = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-for name in sys.argv[4:]:
+port, s3port, master, PROVIDERS = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+for name in sys.argv[5:]:
     importlib.import_module(name)
 from seaweedfs_tpu_torch.client.operations import Operations
 from seaweedfs_tpu_torch.filer import Filer, MemoryStore
@@ -456,10 +495,26 @@ rules = b"<LifecycleConfiguration><Rule><Prefix>lc/</Prefix><Status>Enabled</Sta
 assert s3_call("PUT", "/guard", rules, "lifecycle")[0] == 200
 assert s3.lifecycle.run_once(bucket="guard")["expired"] == 1
 assert s3_call("GET", "/guard/lc/obj.bin")[0] == 404
+# S3 Tables and the IAM API through the signed gateway
+def s3_post(body, headers):
+    h = auth.sign_v4("POST", "/", "", access_key="AKG", secret_key="guard/secret",
+                     headers={"host": f"127.0.0.1:{s3.port}", **headers},
+                     payload_hash=hashlib.sha256(body).hexdigest())
+    c = http.client.HTTPConnection("127.0.0.1", s3.port, timeout=30)
+    c.request("POST", "/", body=body, headers=h)
+    r = c.getresponse()
+    out = r.status, r.read()
+    c.close()
+    return out
+assert s3_post(b'{"name": "guardtb"}', {"X-Amz-Target": "S3Tables.CreateTableBucket"})[0] == 200
+assert gf.find_entry("/buckets/guardtb").is_directory
+assert s3_post(b"Action=CreateUser&UserName=g",
+               {"Content-Type": "application/x-www-form-urlencoded"})[0] == 200
 s3.stop()
 gf.close()
+exec(PROVIDERS)
 print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
-                      & {"torch", "jax", "jaxlib", "seaweedfs_tpu"}))
+                      & {"torch", "jax", "jaxlib", "seaweedfs_tpu", "requests"}))
 """
 
 
@@ -468,8 +523,8 @@ def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     reads, renames and deletes included), the client's Operations, every
     S3 / IAM module and the S3 gateway serving a PUT and a GET over a
     filer whose cluster (a port master and volume server) runs in this
-    process load neither torch nor the JAX package: a gateway or a filer
-    child starts and serves without the torch import."""
+    process load neither torch, nor the JAX package, nor `requests`: a
+    gateway or a filer child starts and serves without the torch import."""
     from test_torch_volume_server import _ports
     from conftest import wait_for
     from seaweedfs_tpu_torch.server.master import MasterServer
@@ -489,7 +544,7 @@ def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     try:
         wait_for(lambda: ms.topo.nodes, timeout=30, msg="the volume server registered")
         proc = subprocess.run([sys.executable, "-c", _FILER_ALONE, str(_ports()), str(_ports()),
-                               f"127.0.0.1:{mport}", *mods], cwd=str(REPO), env=env,
+                               f"127.0.0.1:{mport}", _PROVIDERS, *mods], cwd=str(REPO), env=env,
                               capture_output=True, text=True, timeout=120)
     finally:
         vs.stop()
@@ -515,6 +570,7 @@ def test_the_ec_package_loads_its_modules_on_first_use():
 
 _SUBPROCESS_ENCODE = r"""
 import os, shutil, sys, tempfile, time
+PROVIDERS = sys.argv[1]
 import numpy as np
 import seaweedfs_tpu_torch
 from seaweedfs_tpu_torch.ec import (
@@ -805,6 +861,13 @@ assert http_req(s3.port, "PUT", "/guard/obj.bin", body)[0] == 200
 assert http_req(s3.port, "GET", "/guard/obj.bin") == (200, body)
 assert s3.lifecycle.run_once(bucket="guard") == {"expired": 0, "noncurrent_expired": 0,
                                                  "aborted_uploads": 0}
+# the Iceberg catalog and the IAM API in open mode, an OIDC bearer and an LDAP bind
+assert http_req(s3.port, "POST", "/iceberg/v1/namespaces", b'{"namespace": ["g"]}')[0] == 200
+assert http_req(s3.port, "POST", "/iceberg/v1/namespaces/g/tables", b'{"name": "t"}')[0] == 200
+code, body = http_req(s3.port, "GET", "/iceberg/v1/namespaces/g/tables/t")
+assert code == 200 and json.loads(body)["metadata"]["location"] == "s3://default/g/t"
+assert http_req(s3.port, "POST", "/", b"Action=CreateUser&UserName=g")[0] == 200
+exec(PROVIDERS)
 s3.stop()
 for fs in fss:
     fs.stop()
@@ -850,7 +913,7 @@ def test_port_import_and_encode_leave_jax_out_of_sys_modules():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", _SUBPROCESS_ENCODE],
+        [sys.executable, "-c", _SUBPROCESS_ENCODE, _PROVIDERS],
         cwd=str(REPO), env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

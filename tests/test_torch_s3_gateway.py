@@ -13,14 +13,14 @@ body that is not the signed one, presigned URLs); STS `AssumeRole` and
 its credential; identity and bucket policies; canned ACLs of buckets and
 objects; CORS and preflight; default encryption's configuration; quotas;
 per-tenant shedding; the catalog and IAM routes refused alike to callers
-who are not admins; lifecycle rules through the gateway, then the
+who are not admins, and answered alike to an admin; lifecycle rules through the gateway, then the
 scanner at pinned clocks over versions, markers and stale uploads; the
 bucket's deletion, which drops its collection.
 
 Also: the saturated gateway's 503 (head and body equal);
 `parse_lifecycle_xml`'s verdicts and errors; and the port's one answer
-for the routes of later items, 501 NotImplemented naming ROADMAP.md item
-13c (Iceberg, S3 Tables, the IAM API, LDAP) or 19 (Select).
+for the route of a later item, 501 NotImplemented naming ROADMAP.md item
+19 (Select).
 """
 
 import http.client
@@ -263,7 +263,8 @@ def s_shedding(s):
 
 def s_later_routes(s):
     """The catalog and IAM routes refuse callers who are not admins in
-    both packages, before the route itself."""
+    both packages, before the route itself, and answer an admin alike
+    (tests/test_torch_s3_tables.py drives them whole)."""
     c = s.call
     tables = {"X-Amz-Target": "S3Tables.ListTableBuckets", "Content-Type": "application/json"}
     return [
@@ -276,6 +277,13 @@ def s_later_routes(s):
         c("POST", "/", body=form(Action="CreateUser", UserName="u"), headers=FORM, who="reader"),
         c("GET", "/gw/iceberg/v1/config"),
         c("GET", "/gw/buckets/arn:aws:s3tables:x"),
+        c("GET", "/iceberg/v1/config"),
+        c("POST", "/", body=b"{}", headers={**tables, "X-Amz-Target": "S3Tables.CreateTableBucket"}),
+        c("GET", "/buckets"),
+        c("PUT", "/namespaces/arn:aws:s3tables:us-east-1:1:bucket/t"),
+        c("POST", "/", body=form(Action="CreateAccessKey", UserName="u"), headers=FORM),
+        c("POST", "/", body=form(Action="AssumeRoleWithLdapIdentity", LdapUsername="u"),
+          headers=FORM),
     ]
 
 
@@ -482,6 +490,8 @@ def test_expiry_dates_and_ages_match_jax():
 
 
 def test_later_items_routes_answer_one_501_naming_their_item(tmp_path):
+    """`?select` answers one 501 naming item 19; the catalog, IAM and LDAP
+    routes that once answered so are compared whole in s_later_routes."""
     filer = Filer(MemoryStore(), master="localhost:1")
     srv = PKGS["port"].server.S3Server(filer, ip="127.0.0.1", port=_ports(),
                                        lifecycle_interval=0, http_workers=2)
@@ -500,16 +510,6 @@ def test_later_items_routes_answer_one_501_naming_their_item(tmp_path):
         assert call("PUT", "/bk")[0] == 200
         assert call("PUT", "/bk/k", b"x")[0] == 200
         cases = [
-            ("GET", "/iceberg/v1/config", b"", None, "Iceberg REST", "13c"),
-            ("POST", "/", b"{}", {"X-Amz-Target": "S3Tables.CreateTableBucket"}, "S3 Tables",
-             "13c"),
-            ("GET", "/buckets", b"", None, "S3 Tables", "13c"),
-            ("PUT", "/namespaces/arn:aws:s3tables:us-east-1:1:bucket/t", b"", None, "S3 Tables",
-             "13c"),
-            ("POST", "/", form(Action="CreateAccessKey", UserName="u"), FORM, "the IAM API",
-             "13c"),
-            ("POST", "/", form(Action="AssumeRoleWithLdapIdentity", LdapUsername="u"), FORM,
-             "AssumeRoleWithLdapIdentity", "13c"),
             ("POST", "/bk/k?select&select-type=2", b"<SelectObjectContentRequest/>", None,
              "S3 Select", "19"),
         ]
@@ -526,7 +526,3 @@ def test_later_items_routes_answer_one_501_naming_their_item(tmp_path):
     finally:
         srv.stop()
         filer.close()
-    with pytest.raises(ValueError, match="ROADMAP.md item 13c"):
-        PKGS["port"].server.S3Server(filer, port=_ports(), oidc=object())
-    with pytest.raises(ValueError, match="ROADMAP.md item 13c"):
-        PKGS["port"].server.S3Server(filer, port=_ports(), ldap=object())

@@ -14,8 +14,8 @@ port twin; every comparison is exact (tolerance 0):
 - POST forms: `parse_multipart_form` equal (payloads ending in CR/LF
   included), signature and policy-document verdicts equal;
 - config: `FilerIdentityStore` over a port and a JAX `Filer` holding the
-  same KV bytes, `load_s3_config` on seeded files, and the port's one
-  error for `oidc` / `ldap` naming ROADMAP.md item 13c;
+  same KV bytes, `load_s3_config` on seeded files and on files with
+  `oidc` / `ldap` blocks (the providers it builds, or its refusal);
 - versioning: twin filers run one versioning sequence (retention and
   legal hold included), the trees and `iter_versions` equal with the
   filer's clock masked;
@@ -598,7 +598,19 @@ def _loaded(res):
     idents = {k: dataclasses.astuple(v) for k, v in store._by_access_key.items()}
     roles = None if sts is None else {k: (r.name, r.policies, r.trusted, r.arn)
                                       for k, r in sts._roles.items()}
-    return idents, store.allow_anonymous, roles, store.sts is sts, oidc, ldap
+    return (idents, store.allow_anonymous, roles, store.sts is sts, _provider(oidc),
+            _provider(ldap))
+
+
+def _provider(p):
+    """An OIDC or LDAP provider by what it was built from."""
+    if p is None:
+        return None
+    if hasattr(p, "verify"):
+        rs = None if p._rs_key is None else p._rs_key.public_numbers()
+        return ("oidc", p.issuer, p.audience, p.role_claim, p.roles, p.clock_skew, p._hs_secret,
+                None if rs is None else (rs.n, rs.e))
+    return ("ldap", p.host, p.port, p.bind_dn_template, p.timeout)
 
 
 def test_load_s3_config_equal_on_seeded_files(tmp_path):
@@ -624,15 +636,55 @@ def test_load_s3_config_equal_on_seeded_files(tmp_path):
         assert got[0] == got[1], conf
 
 
+def _rsa_pem(seed: int) -> str:
+    from cryptography.hazmat.primitives import serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+
+    key = rsa.generate_private_key(public_exponent=65537, key_size=1024 + 64 * seed)
+    return key.public_key().public_bytes(serialization.Encoding.PEM,
+                                         serialization.PublicFormat.SubjectPublicKeyInfo).decode()
+
+
+OIDC_BLOCKS = [
+    {"issuer": "https://x", "hs256_secret": "s3cret"},
+    {"issuer": "https://x", "audience": "sw", "hs256_secret": "k", "role_claim": "groups",
+     "roles": {"reader": {"actions": ["Read", "List"]}}, "clock_skew": 5},
+    {"issuer": "https://x"},  # no key: refused alike
+    {"issuer": "https://x", "rs256_public_key_pem": "not a pem"},
+    {"issuer": "https://x", "hs256_secret": "k", "bogus": 1},
+]
+LDAP_BLOCKS = [
+    {"server": "ldap://127.0.0.1:3389", "bind_dn_template": "uid={username},dc=x"},
+    {"server": "localhost", "bind_dn_template": "cn={username}", "timeout": 2.5},
+    {"server": "ldaps://idp:636", "bind_dn_template": "cn={username}"},
+    {"server": "ldap://h:1"},  # no template: TypeError alike
+]
+
+
 @pytest.mark.parametrize("provider", ["oidc", "ldap"])
 def test_load_s3_config_names_item_13c_for_oidc_and_ldap(tmp_path, provider):
-    path = tmp_path / "s3.json"
-    path.write_text(json.dumps({"identities": [{"accessKey": "A", "secretKey": "S"}],
-                                "roles": [{"name": "r"}], provider: {"issuer": "https://x"}}))
-    with pytest.raises(ValueError) as e:
-        port_config.load_s3_config(str(path))
-    assert str(e.value) == (f"{path}: {provider!r} is not ported yet: it comes with "
-                            "ROADMAP.md item 13c")
+    """`load_s3_config` with an `oidc` or an `ldap` block (the providers
+    once refused with a message naming item 13c): the same store, roles
+    and provider, or the same refusal, from each package."""
+    blocks = list(OIDC_BLOCKS if provider == "oidc" else LDAP_BLOCKS)
+    if provider == "oidc":
+        blocks.append({"issuer": "https://x", "rs256_public_key_pem": _rsa_pem(1)})
+    ident = [{"accessKey": "A", "secretKey": "S"}]
+    roles = [{"name": "r"}]
+    confs = []
+    for block in blocks:
+        confs += [{"identities": ident, "roles": roles, provider: block},
+                  {"identities": ident, provider: block},
+                  {"roles": roles, provider: block}, {provider: block}]
+    kinds = set()
+    for i, conf in enumerate(confs):
+        path = tmp_path / f"s3-{i}.json"
+        path.write_text(json.dumps(conf))
+        got = [_outcome(m.load_s3_config, str(path)) for m in (jax_config, port_config)]
+        got = [("ok", _loaded(g[1])) if g[0] == "ok" else g for g in got]
+        assert got[0] == got[1], conf
+        kinds.add(got[1][0])
+    assert {"ok", "ValueError", "TypeError"} <= kinds, kinds
 
 
 # ------------------------------------------------------------- versioning

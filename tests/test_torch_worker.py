@@ -748,7 +748,7 @@ def test_s3_lifecycle_task_against_jax(make_twins):
     (["-backend", "tpu"], "-backend tpu: the port runs its EC on cuda, cpu or auto"),
     (["-capabilities", "ec_encode,iceberg"],
      "-capabilities iceberg: the port's worker does not take iceberg tasks yet: they come "
-     "with ROADMAP.md items 13c and 18"),
+     "with ROADMAP.md item 18"),
     (["-capabilities", "iceberg,vacuum"], "-capabilities iceberg: the port's worker"),
 ])
 def test_worker_refuses_tpu_and_the_filer_and_s3_kinds(capsys, argv, want):

@@ -1,13 +1,18 @@
-"""Twin S3 gateways for the port's gateway tests (tests/test_torch_s3_gateway.py
-and tests/test_torch_s3_objects.py).
+"""Twin S3 gateways for the port's gateway tests (tests/test_torch_s3_gateway.py,
+tests/test_torch_s3_objects.py, tests/test_torch_s3_tables.py and
+tests/test_torch_iam_providers.py).
 
 One JAX `S3Server` over a JAX filer, master and volume server, and one
 port `S3Server` over the port's (`ec_backend="cpu"`), both loading one
-identities file through their own `load_s3_config`; a client that signs
+identities file (OIDC and LDAP blocks included) through their own
+`load_s3_config`; a client that signs
 each request with its own package's `sign_v4`. What differs between two
 clusters and two clocks is pinned or masked:
 
 - version ids and multipart upload ids come from one counter per package;
+- the catalog's table and view uuids, the IAM API's request ids and
+  minted key pairs from counters per package, and the catalog's clock
+  from one that starts at `CATALOG_T0` and ticks a second per reading;
 - SSE's randomness (the keyring's master key, data keys, IVs) from one
   seeded stream per package, so ciphertexts are byte-identical;
 - the `Date` and `Last-Modified` headers, the XML timestamps and the STS
@@ -40,9 +45,11 @@ import seaweedfs_tpu.ec.device_queue as j_dq
 import seaweedfs_tpu.s3.auth as j_auth
 import seaweedfs_tpu.s3.chunked as j_chunked
 import seaweedfs_tpu.s3.config as j_config
+import seaweedfs_tpu.s3.iamapi as j_iamapi
 import seaweedfs_tpu.s3.lifecycle as j_lifecycle
 import seaweedfs_tpu.s3.server as j_server
 import seaweedfs_tpu.s3.sse as j_sse
+import seaweedfs_tpu.s3.tables as j_tables
 import seaweedfs_tpu.s3.versioning as j_versioning
 from seaweedfs_tpu.filer import Filer as JaxFiler
 from seaweedfs_tpu.filer import MemoryStore as JaxMemoryStore
@@ -52,9 +59,11 @@ import seaweedfs_tpu_torch.ec.device_queue as p_dq
 import seaweedfs_tpu_torch.s3.auth as p_auth
 import seaweedfs_tpu_torch.s3.chunked as p_chunked
 import seaweedfs_tpu_torch.s3.config as p_config
+import seaweedfs_tpu_torch.s3.iamapi as p_iamapi
 import seaweedfs_tpu_torch.s3.lifecycle as p_lifecycle
 import seaweedfs_tpu_torch.s3.server as p_server
 import seaweedfs_tpu_torch.s3.sse as p_sse
+import seaweedfs_tpu_torch.s3.tables as p_tables
 import seaweedfs_tpu_torch.s3.versioning as p_versioning
 from seaweedfs_tpu_torch.filer import Filer, MemoryStore
 from seaweedfs_tpu_torch.server.master import MasterServer
@@ -64,13 +73,14 @@ PKGS = {
     "jax": types.SimpleNamespace(
         master=JaxMasterServer, volume=JaxVolumeServer, filer=JaxFiler, memory=JaxMemoryStore,
         server=j_server, auth=j_auth, chunked=j_chunked, config=j_config, lifecycle=j_lifecycle,
-        sse=j_sse, versioning=j_versioning, dq=j_dq),
+        sse=j_sse, versioning=j_versioning, dq=j_dq, tables=j_tables, iamapi=j_iamapi),
     "port": types.SimpleNamespace(
         master=MasterServer, volume=VolumeServer, filer=Filer, memory=MemoryStore,
         server=p_server, auth=p_auth, chunked=p_chunked, config=p_config, lifecycle=p_lifecycle,
-        sse=p_sse, versioning=p_versioning, dq=p_dq),
+        sse=p_sse, versioning=p_versioning, dq=p_dq, tables=p_tables, iamapi=p_iamapi),
 }
 CHUNK = 64 * 1024
+CATALOG_T0 = 1_780_000_000.0
 REGION = "us-east-1"
 # who signs: access key, secret key (the STS side fills "sts" at run time)
 KEYS = {"admin": ("AKADMIN", "admin/secret+1"), "reader": ("AKREADER", "reader/secret+2"),
@@ -97,6 +107,17 @@ MASKED_HEADERS = {"date", "last-modified"}
 MASKED_XML = re.compile(
     rb"<(LastModified|CreationDate|Expiration|AccessKeyId|SecretAccessKey|SessionToken|"
     rb"AssumedRoleId)>[^<]*</")
+
+
+class _Uuid:
+    """A uuid4 stand-in from a counter: `hex` and `str` as uuid.UUID gives them."""
+
+    def __init__(self, n: int):
+        self.hex = f"{n:032x}"
+
+    def __str__(self):
+        h = self.hex
+        return f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
 
 
 def sha(b: bytes) -> str:
@@ -129,7 +150,8 @@ class Side:
     """One twin: a master, a volume server, a filer and an S3 gateway of
     one package, with its pins applied through `mp`."""
 
-    def __init__(self, name: str, root, mp, seed: int = 27, **s3_kw):
+    def __init__(self, name: str, root, mp, seed: int = 27, config: dict | None = None,
+                 **s3_kw):
         pkg = PKGS[name]
         self.name, self.pkg = name, pkg
         ids, vids = itertools.count(1), itertools.count(1)
@@ -142,6 +164,15 @@ class Side:
         mp.setattr(pkg.versioning, "new_version_id", version_id)
         mp.setattr(pkg.server, "new_version_id", version_id)
         mp.setattr(pkg.sse, "os", SeededOs(np.random.default_rng(seed)))
+        tuids, clock, rids, keys = (itertools.count(1), itertools.count(),
+                                    itertools.count(1), itertools.count(1))
+        mp.setattr(pkg.tables, "uuid", types.SimpleNamespace(uuid4=lambda: _Uuid(next(tuids))))
+        mp.setattr(pkg.tables, "time", types.SimpleNamespace(
+            time=lambda: CATALOG_T0 + next(clock)))
+        mp.setattr(pkg.iamapi, "uuid", types.SimpleNamespace(
+            uuid4=lambda: types.SimpleNamespace(hex=f"{next(rids):032x}")))
+        mp.setattr(pkg.iamapi, "mint_key_pair",
+                   lambda: (f"SWTWIN{next(keys):014d}", f"twin/secret/{next(keys)}"))
         self.mport = _ports()
         self.master = pkg.master(ip="127.0.0.1", port=self.mport, vacuum_interval=3600)
         self.master.start()
@@ -151,11 +182,11 @@ class Side:
         wait_for(lambda: self.master.topo.nodes, timeout=30, msg=f"the {name} server registered")
         self.filer = pkg.filer(pkg.memory(), master=f"127.0.0.1:{self.mport}", chunk_size=CHUNK)
         conf = root / "identities.json"
-        conf.write_text(json.dumps(IDENTITIES))
-        idents, sts, _, _ = pkg.config.load_s3_config(str(conf))
+        conf.write_text(json.dumps(IDENTITIES if config is None else config))
+        idents, sts, oidc, ldap = pkg.config.load_s3_config(str(conf))
         self.port = _ports()
-        kw = dict(ip="127.0.0.1", port=self.port, identities=idents, sts=sts,
-                  lifecycle_interval=0, http_workers=4)
+        kw = dict(ip="127.0.0.1", port=self.port, identities=idents, sts=sts, oidc=oidc,
+                  ldap=ldap, lifecycle_interval=0, http_workers=4)
         kw.update(s3_kw)
         self.s3 = pkg.server.S3Server(self.filer, **kw)
         self.s3.start()
