@@ -361,6 +361,29 @@ Phases:
    maintenance route expiring old snapshots; the key deleted and
    refused, the catalog torn down and the collection gone. Its JSON line:
    each step's wall, PUT MB/s, GET p50 / p99, the launches.
+19c. remote storage and replication between phase 19's child (cluster A,
+   its gateway the "cloud") and `ClusterB` (a port master, a volume
+   server on the card and a filer server in this process, started while
+   19 and 19b run): a bucket of 12 objects of 1-5 MiB and 1,050 small ones
+   PUT through A's gateway and sealed at A (launches == batches), data
+   shard 0 unmounted; the port shell at B mounts it (`remote.configure`,
+   `remote.mount`: every object mapped, the listing paged) and reads it
+   through B's filer whole and in ranges, sha256-equal, each read through
+   A's degraded gateway; keys added, overwritten and deleted through the
+   gateway and counted by `remote.meta.sync`; `remote.cache` of the large
+   files; three `python3 -m seaweedfs_tpu_torch.replication` children
+   from A's filer `/src` to B's filer, to `s3://<A's gateway>/mirror/pfx`
+   and to a local directory, each copy and a tail of writes, an
+   overwrite, a rename and deletes sha256-equal, each child exiting 0 on
+   SIGTERM with its state at A's last event; B sealed (launches ==
+   batches), data shard 0 unmounted at B, the cached files and B's copy
+   of /src read sha256-equal; `remote.uncache`, `remote.unmount` and
+   `remote.mount.buckets`; a worker child with `-capabilities iceberg`,
+   whose `task.submit -kind iceberg` leaves the table its current
+   snapshot alone. Planes launches == reconstructions at each cluster.
+   Its JSON line: each step's wall, the objects mounted, the meta.sync
+   counts, remote-read p50 / p99 beside cached reads, the replication
+   lags, the children's start times, the launches and the redials.
 
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
@@ -7286,12 +7309,18 @@ def s3_expect(phase: str, what: str, got, want_status: int, want_code: str | Non
     return got
 
 
-def child_kernels(child: S3GatewayChild, phase: str) -> dict:
-    """The child's `/debug/kernels`: its launches and interval-cache loads."""
-    code, _, body = http(f"http://127.0.0.1:{child.vport}/debug/kernels")
+def kernels_at(vport: int, phase: str) -> dict:
+    """A volume server's `/debug/kernels`: its process's launches and its
+    interval-cache loads."""
+    code, _, body = http(f"http://127.0.0.1:{vport}/debug/kernels")
     if code != 200:
         raise AssertionError(f"{phase}: /debug/kernels answered {code}")
     return json.loads(body)
+
+
+def child_kernels(child: S3GatewayChild, phase: str) -> dict:
+    """The child's `/debug/kernels`: its launches and interval-cache loads."""
+    return kernels_at(child.vport, phase)
 
 
 def seal_bucket(child: S3GatewayChild, senv, bucket: str, phase: str, walls: dict):
@@ -7300,6 +7329,15 @@ def seal_bucket(child: S3GatewayChild, senv, bucket: str, phase: str, walls: dic
     shard 0 unmounted until the master lists it no more; `walls` gets
     "encode" and "unmount". Returns (volumes, batches, the child's
     `/debug/kernels` before the encode)."""
+    return seal_collection(senv, child.mport, child.vport, os.path.join(child.root, "d"), bucket,
+                           phase, walls)
+
+
+def seal_collection(senv, mport: int, vport: int, d: str, collection: str, phase: str,
+                    walls: dict):
+    """`seal_bucket` for the volume server at `vport` (data directory `d`)
+    under the master at `mport`: its volumes of `collection` ("" the
+    default) that hold data."""
     import grpc
 
     from seaweedfs_tpu_torch.ec.context import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
@@ -7310,31 +7348,32 @@ def seal_bucket(child: S3GatewayChild, senv, bucket: str, phase: str, walls: dic
 
     t0 = time.perf_counter()
     topo = senv.master.topology()
-    vids = sorted({v.id for n in topo.nodes for v in n.volumes if v.collection == bucket})
-    d = os.path.join(child.root, "d")
-    vids = [vid for vid in vids if os.path.getsize(os.path.join(d, f"{bucket}_{vid}.dat")) > 8]
-    n_batches = sum(len(list(batch_plan(os.path.getsize(os.path.join(d, f"{bucket}_{vid}.dat")),
+    vids = sorted({v.id for n in topo.nodes for v in n.volumes if v.collection == collection})
+    prefix = f"{collection}_" if collection else ""
+    vids = [vid for vid in vids if os.path.getsize(os.path.join(d, f"{prefix}{vid}.dat")) > 8]
+    n_batches = sum(len(list(batch_plan(os.path.getsize(os.path.join(d, f"{prefix}{vid}.dat")),
                                         K, DEFAULT_BATCH, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)))
                     for vid in vids)
-    before = child_kernels(child, phase)
-    out = run_command(senv, f"ec.encode -volumeId {','.join(map(str, vids))} -collection {bucket}")
+    before = kernels_at(vport, phase)
+    line = f"ec.encode -volumeId {','.join(map(str, vids))}"
+    out = run_command(senv, line + (f" -collection {collection}" if collection else ""))
     for vid in vids:
-        if not re.search(rf"ec\.encode volume {vid}: generation \d+ on 127\.0\.0\.1:{child.vport}",
+        if not re.search(rf"ec\.encode volume {vid}: generation \d+ on 127\.0\.0\.1:{vport}",
                          out):
             raise AssertionError(f"{phase}: ec.encode answered {out!r}")
-    now = child_kernels(child, phase)["launches"]
+    now = kernels_at(vport, phase)["launches"]
     enc = {k: now[k] - before["launches"][k] for k in now}
     if enc != {"gf2_apply": n_batches, "gf2_apply_planes": 0}:
         raise AssertionError(f"{phase}: ec.encode launched {enc} for {n_batches} batches")
     walls["encode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with grpc.insecure_channel(f"127.0.0.1:{child.vport + 10000}") as ch:
+    with grpc.insecure_channel(f"127.0.0.1:{vport + 10000}") as ch:
         for vid in vids:
             rpc.volume_stub(ch).VolumeEcShardsUnmount(
                 pb.EcShardsUnmountRequest(volume_id=vid, shard_ids=[0]), timeout=30)
 
     def shard0_listed() -> bool:
-        with grpc.insecure_channel(f"127.0.0.1:{child.mport + 10000}") as ch:
+        with grpc.insecure_channel(f"127.0.0.1:{mport + 10000}") as ch:
             stub = rpc.master_stub(ch)
             return any(any(sl.shard_id == 0 for sl in stub.LookupEcVolume(
                 pb.LookupEcVolumeRequest(volume_id=vid), timeout=10).shard_locations)
@@ -8014,6 +8053,539 @@ def s3_tables_phase(child: S3GatewayChild, oidc_key) -> tuple[dict, dict]:
                                                   "gf2_apply_planes": recon}
 
 
+REMOTE_BUCKET = "remote-src"  # phase 19c's bucket at A, remote-mounted at B
+REMOTE_SEED = SEED + 26  # phase 19c's bodies
+REMOTE_LARGE = 12  # objects of 1-5 MiB, in the filer's 4 MiB chunks
+REMOTE_SMALL = 1050  # inlined objects: the mount's listing pages past 1,000 keys
+REMOTE_READ_SMALL = 50  # of them read through the mount
+REMOTE_MIRROR = "mirror"  # the S3 sink's bucket at A
+REMOTE_TREE = {  # /src at A's filer: what the replication children copy
+    "a/big0.bin": (4 << 20) + 1234, "a/b/big1.bin": (5 << 20) - 77,
+    "a/b/c/mid.bin": (1 << 20) + 5, "d/big2.bin": (4 << 20) + 99_999,
+    **{f"e/f{i:02d}.bin": 60_000 + 7_919 * i for i in range(24)},
+    **{f"e/g/s{i:02d}.txt": 50 + 13 * i for i in range(16)},
+}
+REMOTE_ICEBERG = "smoke19i"  # the iceberg task's table bucket
+REPL_STOP_S = 10.0  # a replication child alive this long after SIGTERM fails the phase
+
+
+class ClusterB:
+    """Phase 19c's second cluster, in this process: a port `MasterServer`,
+    one `VolumeServer` on the card (its gRPC on its port + 10000, as a
+    launched server's) and a `FilerServer` serving HTTP and gRPC (its port
+    + 10000, where the shell dials a filer). Started on a thread while
+    phases 19 and 19b run; `ready` waits for it."""
+
+    def __init__(self, work: str):
+        self.root = os.path.join(work, "clusterb")
+        self.d = os.path.join(self.root, "d")
+        os.makedirs(self.d)
+        self.master = self.vs = self.filer = self.fsrv = None
+        self.error: BaseException | None = None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._start, name="cluster-b", daemon=True)
+        self.thread.start()
+
+    def _start(self) -> None:
+        try:
+            from seaweedfs_tpu_torch.filer import Filer, MemoryStore
+            from seaweedfs_tpu_torch.server.filer_server import FilerServer
+            from seaweedfs_tpu_torch.server.master import MasterServer
+            from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+            self.mport = server_port()
+            self.master = MasterServer(ip="127.0.0.1", port=self.mport, vacuum_interval=3600)
+            self.master.start()
+            self.vport = server_port()
+            self.vs = VolumeServer([self.d], master=f"127.0.0.1:{self.mport}", ip="127.0.0.1",
+                                   port=self.vport, grpc_port=self.vport + 10000,
+                                   ec_backend="cuda")
+            self.vs.start()
+            deadline = time.perf_counter() + 60
+            while not self.master.topo.nodes and time.perf_counter() < deadline:
+                time.sleep(0.02)
+            self.filer = Filer(MemoryStore(), master=f"127.0.0.1:{self.mport}")
+            self.fport = server_port()
+            self.fsrv = FilerServer(self.filer, ip="127.0.0.1", port=self.fport,
+                                    grpc_port=self.fport + 10000)
+            self.fsrv.start()
+            self.start_s = time.perf_counter() - self.t0
+        except BaseException as e:  # noqa: BLE001 — raised again by ready()
+            self.error = e
+
+    def ready(self) -> None:
+        self.thread.join(timeout=120)
+        if self.error is not None:
+            raise AssertionError(f"19c: cluster B did not start: {self.error!r}") from self.error
+        if self.thread.is_alive() or not self.master.topo.nodes:
+            raise AssertionError("19c: cluster B did not start within 120 s")
+
+    def stop(self) -> None:
+        self.thread.join(timeout=120)
+        for part in (self.fsrv, self.vs, self.master):
+            if part is not None:
+                part.stop()
+        if self.filer is not None:
+            self.filer.close()
+
+
+class ReplicationChild:
+    """One `python3 -m seaweedfs_tpu_torch.replication` child of phase
+    19c.5; a thread reads its output and notes the seconds from its spawn
+    to its "initial" line."""
+
+    def __init__(self, name: str, argv: list, cwd: str):
+        self.name, self.t0, self.lines, self.initial_s = name, time.perf_counter(), [], None
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.replication", *argv], cwd=cwd, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if self.initial_s is None and "initial" in line:
+                self.initial_s = time.perf_counter() - self.t0
+
+    def stop(self) -> tuple[int | None, float]:
+        """SIGTERM: (the exit code, None where it was killed; the seconds
+        it took to exit)."""
+        t0 = time.perf_counter()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=REPL_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=REPL_STOP_S)
+            rc = None
+        self.reader.join(timeout=5)
+        return rc, time.perf_counter() - t0
+
+
+def last_event_ns(furl: str, since: int) -> int:
+    """The timestamp of the last event in a filer's meta log, from `since`."""
+    while True:
+        code, _, body = http(f"{furl}/~meta/tail?sinceNs={since}&limit=10000")
+        if code != 200:
+            raise AssertionError(f"19c: /~meta/tail answered {code}")
+        doc = json.loads(body)
+        if not doc["events"]:
+            return since
+        since = doc["lastTsNs"]
+
+
+def remote_phase(child: S3GatewayChild, clb: ClusterB, work: str) -> tuple[dict, dict]:
+    """Phase 19c: remote storage and replication, between phase 19's child
+    (cluster A: its gateway is the "cloud") and `ClusterB`. 19c.1 through
+    A's gateway, `REMOTE_BUCKET` of `REMOTE_LARGE` objects of 1-5 MiB and
+    `REMOTE_SMALL` inlined ones; the port shell's `ec.encode` of its
+    collection at A (launches == batches), data shard 0 unmounted; 19c.2
+    the port shell at B: `remote.configure` (the gateway, the admin key),
+    `remote.mount` (every object mapped, the listing paged), every large
+    file and `REMOTE_READ_SMALL` small ones read through B's filer HTTP
+    whole and in a range, sha256-equal, each through `read_remote` to A's
+    degraded read; 19c.3 keys added, overwritten at another size and
+    deleted through the gateway, `remote.meta.sync` counting them, the
+    reads following; 19c.4 `remote.cache` of every large file; 19c.5
+    three `python3 -m seaweedfs_tpu_torch.replication` children from A's
+    filer `/src` (`REMOTE_TREE`) to B's filer, to `s3://<the gateway>/
+    mirror/pfx` and to a local directory: each full copy sha256-equal, a
+    tail of writes, an overwrite, a rename and deletes of a file and of a
+    directory arriving at each sink (the lag from the last write), each
+    child stopped by SIGTERM with exit code 0 and its state at the last
+    event; then B's `ec.encode` (launches == batches) and data shard 0
+    unmounted at B, every cached file and B's copy of /src read through
+    B's filer sha256-equal; `remote.uncache` of one file (read through the
+    remote again), `remote.unmount` (the entries gone, the object still at
+    A) and `remote.mount.buckets`; 19c.6 a worker child with
+    `-capabilities iceberg` at A's master, the shell's `task.submit -kind
+    iceberg` done and the table left with its current snapshot alone.
+    `gf2_apply_planes` launches at each cluster == its interval-cache
+    loads from its seal on. Returns (result, launches of both clusters)."""
+    from urllib.parse import quote
+
+    from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+    from seaweedfs_tpu_torch.utils import urls
+
+    t_phase = time.perf_counter()
+    rb, proc = REMOTE_BUCKET, child.proc
+    ak, sk = S3GW_KEYS["admin"]
+    afurl = f"http://127.0.0.1:{child.fport}"
+    cli = S3Client(child.s3port)
+    c = cli.call
+    rng = np.random.default_rng(REMOTE_SEED)
+    walls: dict = {}
+    redials0 = CONNECT_RETRIES[0]
+    senv_a = senv_b = None
+    repl: dict = {}
+    root = os.path.join(work, "remote")
+    os.makedirs(root)
+    wlog = open(os.path.join(root, "worker.log"), "wb")
+    # the worker child imports torch while 19c.1-19c.5 run
+    worker = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch.worker", "-master",
+         f"127.0.0.1:{child.mport}", "-capabilities", "iceberg"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))),
+        stdout=wlog, stderr=subprocess.STDOUT)
+    t_worker = time.perf_counter()
+    plain_connection = urls.connection
+    urls.connection = redial_connection  # B's remote reads dial A's gateway with the redial
+
+    def check(*a):
+        if proc.poll() is not None:
+            raise AssertionError(f"19c: the gateway's server exited with {proc.returncode}: "
+                                 + child.log_tail())
+        return s3_expect("19c", *a)
+
+    def shell(env, line: str, want: str | None = None, pattern: str | None = None) -> str:
+        out = run_command(env, line)
+        if (want is not None and out != want) or (pattern is not None
+                                                  and not re.fullmatch(pattern, out)):
+            raise AssertionError(f"19c: `{line.split(' -accessKey')[0]}` answered {out!r}")
+        return out
+
+    bfurl = None
+
+    def read_b(path: str, rng_read=None, want: bytes | None = None) -> float:
+        """One whole GET of `path` through B's filer, sha256-equal to
+        `want`, and a ranged one; the whole GET's seconds."""
+        t1 = time.perf_counter()
+        code, _, got = http(f"{bfurl}{quote(path)}")
+        dt = time.perf_counter() - t1
+        if code != 200 or hashlib.sha256(got).digest() != hashlib.sha256(want).digest():
+            raise AssertionError(f"19c: GET {path} through B answered {code}, {len(got)} bytes "
+                                 f"not the {len(want)} written")
+        lo = int(rng_read.integers(0, len(want)))
+        hi = int(rng_read.integers(lo, len(want)))
+        code, _, part = http(f"{bfurl}{quote(path)}", headers={"Range": f"bytes={lo}-{hi}"})
+        if code != 206 or part != want[lo:hi + 1]:
+            raise AssertionError(f"19c: ranged GET {path} through B answered {code}")
+        return dt
+
+    try:
+        # -- 19c.1. the remote's bucket at A, sealed -----------------------------------
+        t0 = time.perf_counter()
+        check("the bucket", c("PUT", f"/{rb}"), 200)
+        objects: dict = {}  # key -> body
+        large = []
+        for i in range(REMOTE_LARGE):
+            key = f"large/{'xy'[i % 2]}/d{i % 3}/obj-{i:02d}.bin"
+            objects[key] = rng.bytes(int(rng.integers(1 << 20, 5 << 20)))
+            check(f"PUT {key}", c("PUT", f"/{rb}/{key}", body=objects[key]), 200)
+            large.append(key)
+        small = []
+        for i in range(REMOTE_SMALL):
+            key = f"small/{i % 10}/s{i:04d}.txt"
+            objects[key] = rng.bytes(int(rng.integers(1, 400)))
+            check(f"PUT {key}", c("PUT", f"/{rb}/{key}", body=objects[key]), 200)
+            small.append(key)
+        walls["puts"] = time.perf_counter() - t0
+        senv_a = ShellEnv(f"127.0.0.1:{child.mport}")
+        seal: dict = {}
+        vids_a, batches_a, _ = seal_bucket(child, senv_a, rb, "19c", seal)
+        walls["encode_a"], walls["unmount_a"] = seal["encode"], seal["unmount"]
+        at_seal_a = child_kernels(child, "19c")
+
+        # -- 19c.2. the remote mount at B -----------------------------------------------------
+        t0 = time.perf_counter()
+        clb.ready()
+        walls["cluster_b_wait"] = time.perf_counter() - t0
+        bfurl = f"http://127.0.0.1:{clb.fport}"
+        senv_b = ShellEnv(f"127.0.0.1:{clb.mport}", f"127.0.0.1:{clb.fport}")
+        t0 = time.perf_counter()
+        shell(senv_b, f"remote.configure -name g -endpoint http://127.0.0.1:{child.s3port} "
+                      f"-accessKey {ak} -secretKey {sk}", "configured=True")
+        shell(senv_b, f"remote.mount -dir /mnt/g -remote g -bucket {rb}",
+              f"mounted={len(objects)}")
+        walls["mount"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        uncached = [read_b(f"/mnt/g/{k}", rng, objects[k]) for k in large]
+        picked = [small[int(j)] for j in rng.choice(len(small), REMOTE_READ_SMALL, replace=False)]
+        uncached_small = [read_b(f"/mnt/g/{k}", rng, objects[k]) for k in picked]
+        walls["remote_reads"] = time.perf_counter() - t0
+
+        # -- 19c.3. metadata sync -----------------------------------------------------------
+        t0 = time.perf_counter()
+        for i in range(3):
+            key = f"new/n{i}.bin"
+            objects[key] = rng.bytes(int(rng.integers(1000, 300_000)))
+            check(f"PUT {key}", c("PUT", f"/{rb}/{key}", body=objects[key]), 200)
+        for key in large[:2]:
+            objects[key] = rng.bytes(len(objects[key]) + int(rng.integers(1, 1 << 20)))
+            check(f"overwrite {key}", c("PUT", f"/{rb}/{key}", body=objects[key]), 200)
+        gone = small[-2:]
+        for key in gone:
+            check(f"DELETE {key}", c("DELETE", f"/{rb}/{key}"), 204)
+            del objects[key]
+        shell(senv_b, "remote.meta.sync -dir /mnt/g", "added=3, updated=2, removed=2")
+        for key in ["new/n0.bin", "new/n1.bin", "new/n2.bin", *large[:2]]:
+            read_b(f"/mnt/g/{key}", rng, objects[key])
+        for key in gone:
+            code, _, _ = http(f"{bfurl}/mnt/g/{quote(key)}")
+            if code != 404:
+                raise AssertionError(f"19c: {key} deleted at A answered {code} through B")
+        walls["meta_sync"] = time.perf_counter() - t0
+
+        # -- 19c.4. remote.cache of every large file ----------------------------------------
+        t0 = time.perf_counter()
+        for key in large:
+            n = -(-len(objects[key]) // (4 << 20))
+            shell(senv_b, f"remote.cache -path /mnt/g/{key}", f"cached=True, chunks={n}")
+        walls["cache"] = time.perf_counter() - t0
+
+        # -- 19c.5. replication: three children from A's /src ---------------------------
+        t0 = time.perf_counter()
+        tree: dict = {}
+        for rel, n in REMOTE_TREE.items():
+            tree[rel] = rng.bytes(n)
+            code, _, got = http(f"{afurl}/src/{rel}", "POST", tree[rel])
+            if code != 201:
+                raise AssertionError(f"19c: POST /src/{rel} at A answered {code} {got[:200]!r}")
+        walls["src_writes"] = time.perf_counter() - t0
+        local = os.path.join(root, "local")
+        sinks = {"filer": f"127.0.0.1:{clb.fport}",
+                 "s3": f"s3://127.0.0.1:{child.s3port}/{REMOTE_MIRROR}/pfx", "local": local}
+        t0 = time.perf_counter()
+        for name, to in sinks.items():
+            repl[name] = ReplicationChild(name, [
+                "-from", f"127.0.0.1:{child.fport}", "-to", to, "-path", "/src",
+                "-state", os.path.join(root, f"{name}.state"), "-s3.accessKey", ak,
+                "-s3.secretKey", sk], root)
+
+        def at_sink(name: str, rel: str) -> bytes | None:
+            """What sink `name` holds at `rel`, None where it holds nothing."""
+            if name == "filer":
+                code, _, got = http(f"{bfurl}/src/{quote(rel)}")
+                return got if code == 200 else None
+            if name == "s3":
+                code, _, got = c("GET", f"/{REMOTE_MIRROR}/pfx/{rel}")
+                return got if code == 200 else None
+            try:
+                with open(os.path.join(local, rel), "rb") as f:
+                    return f.read()
+            except (FileNotFoundError, IsADirectoryError):  # the child removes it meanwhile
+                return None
+
+        def alive(name: str) -> None:
+            if repl[name].proc.poll() is not None:
+                raise AssertionError(f"19c: the {name} child exited with "
+                                     f"{repl[name].proc.returncode}: {repl[name].lines[-20:]}")
+
+        def holds(name: str, want: dict, removed=()) -> bool:
+            alive(name)
+            return all(at_sink(name, r) == b for r, b in want.items()) and all(
+                at_sink(name, r) is None for r in removed)
+
+        # each child's "initial" line follows its full copy: the copy is then whole
+        for name in sinks:
+            wait_until(lambda n=name: alive(n) or repl[n].initial_s is not None,
+                       f"the {name} child's initial copy", timeout=120, phase="19c")
+            if not holds(name, tree):
+                raise AssertionError(f"19c: the {name} child's full copy differs from /src")
+        walls["replication_full_copy"] = time.perf_counter() - t0
+        # the tail: a write, an overwrite, a rename, a file and a directory deleted
+        t0 = time.perf_counter()
+        since = last_event_ns(afurl, 0)
+        final = dict(tree)
+        final["h/new.bin"] = rng.bytes(300_000)
+        final["a/big0.bin"] = rng.bytes(REMOTE_TREE["a/big0.bin"] - 4321)
+        final["a/moved.bin"] = final.pop("a/b/c/mid.bin")
+        del final["d/big2.bin"]
+        removed = ["a/b/c/mid.bin", "d/big2.bin"] + [r for r in tree if r.startswith("e/g/")]
+        for r in removed[2:]:
+            del final[r]
+        changed = {r: final[r] for r in ("h/new.bin", "a/big0.bin", "a/moved.bin")}
+        for how, path, body in (("POST", "/src/h/new.bin", final["h/new.bin"]),
+                                ("POST", "/src/a/big0.bin", final["a/big0.bin"]),
+                                ("POST", "/src/a/moved.bin?mv.from=/src/a/b/c/mid.bin", b""),
+                                ("DELETE", "/src/d/big2.bin", None),
+                                ("DELETE", "/src/e/g?recursive=true", None)):
+            code, _, got = http(f"{afurl}{path}", how, body)
+            if code not in (200, 201, 204):
+                raise AssertionError(f"19c: {how} {path} at A answered {code} {got[:200]!r}")
+        t_last = time.perf_counter()
+        lags = {}
+        pending = set(sinks)
+        while pending:
+            for name in sorted(pending):
+                if holds(name, changed, removed):
+                    lags[name] = time.perf_counter() - t_last
+                    pending.discard(name)
+            if time.perf_counter() - t_last > 60:
+                raise AssertionError(f"19c: the tail never reached {sorted(pending)}")
+            time.sleep(0.02)
+        for name in sinks:
+            if not holds(name, final, removed):
+                raise AssertionError(f"19c: the {name} child's copy differs from /src after "
+                                     "the tail")
+        walls["replication_tail"] = time.perf_counter() - t0
+        # each child's state reaches A's last event, then SIGTERM
+        t0 = time.perf_counter()
+        last = last_event_ns(afurl, since)
+
+        def state_of(name: str) -> int:
+            try:
+                with open(os.path.join(root, f"{name}.state")) as f:
+                    doc = json.load(f)
+            except (OSError, ValueError):
+                return 0
+            return int(doc.get("sinceNs", doc.get("watermark", 0)))
+
+        for name in sinks:
+            wait_until(lambda n=name: state_of(n) >= last, f"the {name} child's state at A's "
+                       "last event", timeout=30, phase="19c")
+        stops = {}
+        for name in sinks:
+            rc, secs = repl[name].stop()
+            stops[name] = secs
+            if rc != 0 or state_of(name) < last:
+                raise AssertionError(f"19c: the {name} child exited with {rc} after {secs:.1f} s, "
+                                     f"its state {state_of(name)} against {last}: "
+                                     f"{repl[name].lines[-20:]}")
+        walls["replication_stop"] = time.perf_counter() - t0
+
+        # -- 19c.4 (cont.). B sealed: the cached files and B's /src read degraded ----------
+        seal = {}
+        vids_b, batches_b, _ = seal_collection(senv_b, clb.mport, clb.vport, clb.d, "", "19c", seal)
+        walls["encode_b"], walls["unmount_b"] = seal["encode"], seal["unmount"]
+        at_seal_b = kernels_at(clb.vport, "19c")
+        t0 = time.perf_counter()
+        cached = [read_b(f"/mnt/g/{k}", rng, objects[k]) for k in large]
+        for rel, body in final.items():
+            read_b(f"/src/{rel}", rng, body)
+        walls["degraded_reads_b"] = time.perf_counter() - t0
+        now_b = kernels_at(clb.vport, "19c")
+        recon_b = now_b["interval_cache"]["loads"] - at_seal_b["interval_cache"]["loads"]
+        got_b = {k: now_b["launches"][k] - at_seal_b["launches"][k] for k in now_b["launches"]}
+        if got_b != {"gf2_apply": 0, "gf2_apply_planes": recon_b} or recon_b < 1:
+            raise AssertionError(f"19c: B's degraded reads launched {got_b} for {recon_b} "
+                                 "reconstructions")
+        t0 = time.perf_counter()
+        shell(senv_b, f"remote.uncache -path /mnt/g/{large[0]}", "uncached=True")
+        read_b(f"/mnt/g/{large[0]}", rng, objects[large[0]])
+        shell(senv_b, "remote.unmount -dir /mnt/g", "unmounted=True")
+        code, _, _ = http(f"{bfurl}/mnt/g/{quote(large[0])}")
+        if code != 404:
+            raise AssertionError(f"19c: after remote.unmount a mounted file answered {code}")
+        check("a HEAD at A after the unmount", c("HEAD", f"/{rb}/{large[0]}"), 200)
+        shell(senv_b, "remote.mount.buckets -dir /gb -remote g -prefix remote-",
+              f"mounted={{'{rb}': {len(objects)}}}, buckets=1")
+        read_b(f"/gb/{rb}/{large[1]}", rng, objects[large[1]])
+        walls["uncache_unmount"] = time.perf_counter() - t0
+
+        # -- 19c.6. the worker's iceberg task ---------------------------------------------
+        t0 = time.perf_counter()
+        ib = f"/iceberg/v1/{REMOTE_ICEBERG}"
+
+        def cat(what: str, method: str, path: str, doc=None, headers=None) -> dict:
+            _, _, out = check(what, c(method, path, body=b"" if doc is None else
+                                      json.dumps(doc).encode(),
+                                      headers={"Content-Type": "application/json",
+                                               **(headers or {})}), 200)
+            return json.loads(out) if out else {}
+
+        cat("CreateTableBucket", "POST", "/", {"name": REMOTE_ICEBERG},
+            {"X-Amz-Target": "S3Tables.CreateTableBucket"})
+        cat("the namespace", "POST", f"{ib}/namespaces", {"namespace": ["ice"]})
+        cat("the table", "POST", f"{ib}/namespaces/ice/tables", {"name": "t", "schema": {
+            "type": "struct", "schema-id": 0, "fields": [
+                {"id": 1, "name": "id", "required": True, "type": "long"}]}})
+        for sid in (1, 2, 3):
+            cat(f"snapshot {sid}", "POST", f"{ib}/namespaces/ice/tables/t", {"updates": [
+                {"action": "add-snapshot", "snapshot": {
+                    "snapshot-id": sid, "sequence-number": sid,
+                    "timestamp-ms": int(time.time() * 1000) - (4 - sid) * 86400_000,
+                    "manifest-list": f"s3://{REMOTE_ICEBERG}/ice/t/metadata/snap-{sid}.avro",
+                    "summary": {"operation": "append"}}},
+                {"action": "set-snapshot-ref", "ref-name": "main", "snapshot-id": sid,
+                 "type": "branch"}]})
+
+        def worker_line() -> str | None:
+            if worker.poll() is not None:
+                raise AssertionError(f"19c: the worker child exited with {worker.returncode}")
+            lines = run_command(senv_a, "worker.list").splitlines()
+            return lines[0] if len(lines) == 1 and lines[0].startswith("worker-") else None
+
+        wline = wait_value(worker_line, "the worker child listed at A's master", timeout=120,
+                           phase="19c")
+        worker_s = time.perf_counter() - t_worker
+        if " caps=iceberg " not in wline:
+            raise AssertionError(f"19c: worker.list answered {wline!r}")
+        out = shell(senv_a, f"task.submit -kind iceberg -param s3=127.0.0.1:{child.s3port} "
+                            f"-param bucket={REMOTE_ICEBERG} -param older_than_days=0 "
+                            f"-param access_key={ak} -param secret_key={sk}",
+                    pattern=r"task \w+ submitted")
+        task_id = out.split()[1]
+
+        def task_state() -> str | None:
+            for ln in run_command(senv_a, "task.list").splitlines():
+                if ln.startswith(f"{task_id} iceberg "):
+                    st = ln.split()[3]
+                    if st == "failed":
+                        raise AssertionError(f"19c: the iceberg task failed: {ln}")
+                    return ln if st == "done" else None
+            return None
+
+        task_line = wait_value(task_state, "the iceberg task done", timeout=60, phase="19c")
+        md = cat("loadTable", "GET", f"{ib}/namespaces/ice/tables/t")["metadata"]
+        if [sn["snapshot-id"] for sn in md["snapshots"]] != [3] or md["current-snapshot-id"] != 3:
+            raise AssertionError(f"19c: after the iceberg task the snapshots are "
+                                 f"{[sn['snapshot-id'] for sn in md['snapshots']]}")
+        worker.send_signal(signal.SIGTERM)
+        try:
+            worker_rc = worker.wait(timeout=CHILD_STOP_S)
+        except subprocess.TimeoutExpired:
+            worker_rc = None
+        if worker_rc != 0:
+            raise AssertionError(f"19c: the worker child exited with {worker_rc} on SIGTERM")
+        walls["iceberg"] = time.perf_counter() - t0
+
+        now_a = child_kernels(child, "19c")
+        recon_a = now_a["interval_cache"]["loads"] - at_seal_a["interval_cache"]["loads"]
+        got_a = {k: now_a["launches"][k] - at_seal_a["launches"][k] for k in now_a["launches"]}
+        if got_a != {"gf2_apply": 0, "gf2_apply_planes": recon_a} or recon_a < 1:
+            raise AssertionError(f"19c: A's reads from the seal on launched {got_a} for {recon_a} "
+                                 "reconstructions")
+        step = {
+            "bucket": rb, "objects_mounted": REMOTE_LARGE + REMOTE_SMALL,
+            "object_bytes": sum(len(objects[k]) for k in large),
+            "meta_sync": {"added": 3, "updated": 2, "removed": 2},
+            "remote_read_large_p50_ms": percentile_ms(uncached, 50),
+            "remote_read_large_p99_ms": percentile_ms(uncached, 99),
+            "remote_read_small_p50_ms": percentile_ms(uncached_small, 50),
+            "remote_read_small_p99_ms": percentile_ms(uncached_small, 99),
+            "cached_read_p50_ms": percentile_ms(cached, 50),
+            "cached_read_p99_ms": percentile_ms(cached, 99),
+            "src_files": len(REMOTE_TREE), "src_bytes": sum(REMOTE_TREE.values()),
+            "replication_lag_s": lags,
+            "replication_initial_s": {n: r.initial_s for n, r in repl.items()},
+            "replication_stop_s": stops, "worker_listed_s": worker_s, "iceberg_task": task_line,
+            "cluster_b_start_s": clb.start_s, "volumes_a": vids_a, "volumes_b": vids_b,
+            "launches_a": {"gf2_apply": batches_a, "gf2_apply_planes": recon_a},
+            "launches_b": {"gf2_apply": batches_b, "gf2_apply_planes": recon_b},
+            "requests": cli.requests, "walls": walls,
+            "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_phase}
+    finally:
+        urls.connection = plain_connection
+        cli.close()
+        for r in repl.values():
+            if r.proc.poll() is None:
+                r.proc.kill()
+                r.proc.wait(timeout=REPL_STOP_S)
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait(timeout=CHILD_STOP_S)
+        wlog.close()
+        for env in (senv_a, senv_b):
+            if env is not None:
+                env.close()
+    return {"steps": step, "card": card_line()}, {
+        "gf2_apply": batches_a + batches_b, "gf2_apply_planes": recon_a + recon_b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8337,7 +8909,7 @@ def main() -> int:
         # child starts --------------------------------------------------------------
         # (and phase 19's S3 gateway child, whose imports overlap both) ------------
         t0 = time.perf_counter()
-        tls_child, s3_child, s3_rc, ldap_srv = TlsChild(work), None, None, None
+        tls_child, s3_child, s3_rc, ldap_srv, clb = TlsChild(work), None, None, None, None
         try:
             # phase 19b's identity providers: the LDAP stand-in in this
             # process, and the key whose public half the child's OIDC
@@ -8353,6 +8925,7 @@ def main() -> int:
                 serialization.Encoding.PEM,
                 serialization.PublicFormat.SubjectPublicKeyInfo).decode()
             s3_child = S3GatewayChild(work, ldap_srv.port, oidc_pem)
+            clb = ClusterB(work)  # phase 19c's second cluster, started behind the tools
             tools = tools_phase(tools_src)
             print("offline tools by name (fix: .idx byte-identical; scan: every record; export: "
                   "the needles; scaffold: a TOML the loader reads; compact: the deletes "
@@ -8381,6 +8954,11 @@ def main() -> int:
             t0 = time.perf_counter()
             tables, tables_launches = s3_tables_phase(s3_child, oidc_key)
             t19b = time.perf_counter() - t0
+
+            # -- 19c. remote storage and replication between the child and B ----
+            t0 = time.perf_counter()
+            remote, remote19c_launches = remote_phase(s3_child, clb, work)
+            t19c = time.perf_counter() - t0
         finally:
             if tls_child is not None:
                 tls_child.stop()
@@ -8388,6 +8966,8 @@ def main() -> int:
                 s3_rc = s3_child.stop()
             if ldap_srv is not None:
                 ldap_srv.close()
+            if clb is not None:
+                clb.stop()
         if s3_rc != 0:
             raise AssertionError(f"19: the gateway's server did not stop cleanly ({s3_rc})")
         print("S3 gateway by name (a `server -filer -s3 -s3Config` child: SigV4 refusals with the "
@@ -8412,6 +8992,20 @@ def main() -> int:
               "expired by the maintenance route while the refs stay; DeleteAccessKey, the "
               "catalog torn down and the collection gone): " + json.dumps(tables))
         print(f"phase 19b: {t19b:.3f} s; card: {card_line()}")
+        print("19c remote storage and replication (phase 19's child as cluster A, whose gateway "
+              "is the cloud, and cluster B in this process: a bucket of large and 1,050 small "
+              "objects sealed at A, launches == batches, data shard 0 unmounted; the port "
+              "shell's remote.configure and remote.mount at B, every object mapped, reads "
+              "through B's filer whole and in ranges sha256-equal through A's degraded "
+              "gateway; remote.meta.sync counting the keys added, overwritten and deleted; "
+              "remote.cache, remote.uncache, remote.unmount and remote.mount.buckets; three "
+              "replication children from A's /src to B's filer, an S3 bucket at A and a local "
+              "directory, each copy and tail sha256-equal, each child exiting 0 on SIGTERM "
+              "with its state at A's last event; B sealed, launches == batches, data shard 0 "
+              "unmounted, the cached files and B's /src read sha256-equal; planes launches == "
+              "reconstructions at each cluster; a worker child's iceberg task done, the table "
+              "left with its current snapshot): " + json.dumps(remote))
+        print(f"phase 19c: {t19c:.3f} s; card: {card_line()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -8434,7 +9028,8 @@ def main() -> int:
           "17m s3": s3_launches["gf2_apply"],
           "18 tls": tls_launches["gf2_apply"],
           "19 s3 gateway": s3gw_launches["gf2_apply"],
-          "19b s3 tables": tables_launches["gf2_apply"]},
+          "19b s3 tables": tables_launches["gf2_apply"],
+          "19c remote": remote19c_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -8453,7 +9048,8 @@ def main() -> int:
           "17m s3": s3_launches["gf2_apply_planes"],
           "18 tls": tls_launches["gf2_apply_planes"],
           "19 s3 gateway": s3gw_launches["gf2_apply_planes"],
-          "19b s3 tables": tables_launches["gf2_apply_planes"]},
+          "19b s3 tables": tables_launches["gf2_apply_planes"],
+          "19c remote": remote19c_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

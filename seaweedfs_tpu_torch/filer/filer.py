@@ -1,11 +1,15 @@
 """Filer core: a POSIX-ish namespace over a FilerStore, with file
 content chunked across the blob store.
 
-Port of seaweedfs_tpu/filer/filer.py, whole but for one branch: an entry
-of a remote mount with no local chunks (its `sw-remote` marker) reads
-through the cloud object in the JAX package; the port has no remote
-mounts yet (ROADMAP item 18) and raises FilerError there. Chunks go up
-and come back through the port's Operations, so a chunk in an EC volume
+Port of seaweedfs_tpu/filer/filer.py, whole: an entry of a remote mount
+with no local chunks (its `sw-remote` marker) reads through the cloud
+object (remote/mount.py `read_remote`, imported on the first such read,
+so the filer loads nothing of remote/ until then). One difference, on
+purpose: a recursive delete reads each directory's listing whole before
+it deletes, where the JAX Filer deletes under the store's open cursor;
+on a SQL store a write committed meanwhile by another connection then
+fails the JAX delete ("database is locked"). Chunks go up and come
+back through the port's Operations, so a chunk in an EC volume
 reads back through the holder's degraded GET, whatever it raises
 propagating as in the JAX Filer.
 
@@ -436,9 +440,13 @@ class Filer:
                 children = list(self.store.list(entry.full_path, limit=2))
                 if children and not recursive:
                     raise FilerError(f"{full_path} not empty")
-                for child in self.store.list(
+                # the listing is read whole before the first delete: a
+                # SQL store's open cursor would hold a read snapshot that
+                # another connection's commit makes stale, and the next
+                # delete would fail at once ("database is locked")
+                for child in list(self.store.list(
                     entry.full_path, limit=1_000_000
-                ):
+                )):
                     self.delete_entry(
                         child.full_path, recursive=True, gc_chunks=gc_chunks
                     )
@@ -762,12 +770,11 @@ class Filer:
             end = len(entry.content) if size < 0 else offset + size
             return entry.content[offset:end]
         if not entry.chunks and "sw-remote" in entry.extended:
-            # lazy remote mount: the JAX Filer streams through from the
-            # cloud object (reference read_remote.go)
-            raise FilerError(
-                f"{entry.full_path}: remote-mount reads are not ported yet "
-                "(ROADMAP item 18)"
-            )
+            # lazy remote mount: stream through from the cloud object
+            # (reference read_remote.go); `remote.cache` pins it local
+            from ..remote.mount import read_remote
+
+            return read_remote(self, entry, offset=offset, size=size)
         file_size = entry.file_size
         if size < 0:
             size = max(file_size - offset, 0)

@@ -9,9 +9,8 @@ body, /debug/slo and /debug/gateway, TLS through utils/tls.py, and the
 gRPC metadata service (filer/grpc_service.py) with the distributed lock
 ring (filer/lock_ring.py) set on it and, given peers, a MetaAggregator.
 Every route answers with the JAX server's statuses, headers and bodies,
-but one: the remote-mount control plane (POST /~remote/<op>) needs
-remote storage, which the port has not taken yet; it answers 501 with
-one JSON error naming ROADMAP item 18, and no remote module is imported.
+the remote-mount control plane (POST /~remote/<op>, remote/mount.py,
+imported on its first call) included.
 """
 
 from __future__ import annotations
@@ -35,8 +34,6 @@ from ..pb import rpc
 from ..utils.http_pool import build_http_server, send_body
 from ..utils.request_id import RequestTracingMixin
 from .multipart import _parse_upload
-
-REMOTE_ERROR = "remote storage is not ported yet: it comes with ROADMAP.md item 18"
 
 
 class FilerServer:
@@ -323,13 +320,75 @@ class FilerServer:
                     "nowNs": time.time_ns(),
                 })
 
+            def _remote_op(self, op: str):
+                """Remote-mount control plane (reference shell
+                remote.configure/mount/cache/uncache/unmount)."""
+                from ..remote import mount as rm
+
+                n = int(self.headers.get("Content-Length", "0") or "0")
+                try:
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                except ValueError:
+                    return self._json(400, {"error": "bad json"})
+                try:
+                    if op == "configure":
+                        rm.configure(filer, body.pop("name"), body)
+                        return self._json(200, {"configured": True})
+                    if op == "mount":
+                        n_objs = rm.mount(
+                            filer,
+                            body["dir"],
+                            body["remote"],
+                            body["bucket"],
+                            body.get("prefix", ""),
+                        )
+                        return self._json(200, {"mounted": n_objs})
+                    if op == "unmount":
+                        rm.unmount(filer, body["dir"])
+                        return self._json(200, {"unmounted": True})
+                    if op == "cache":
+                        e = rm.cache(filer, body["path"])
+                        return self._json(
+                            200, {"cached": True, "chunks": len(e.chunks)}
+                        )
+                    if op == "uncache":
+                        rm.uncache(filer, body["path"])
+                        return self._json(200, {"uncached": True})
+                    if op == "mount.buckets":
+                        out = rm.mount_buckets(
+                            filer,
+                            body["dir"],
+                            body["remote"],
+                            body.get("prefix", ""),
+                        )
+                        return self._json(
+                            200,
+                            {"mounted": out, "buckets": len(out)},
+                        )
+                    if op == "meta.sync":
+                        added, updated, removed = rm.meta_sync(
+                            filer, body["dir"]
+                        )
+                        return self._json(
+                            200,
+                            {
+                                "added": added,
+                                "updated": updated,
+                                "removed": removed,
+                            },
+                        )
+                except (FilerError, NotFound, KeyError) as e:
+                    return self._json(409, {"error": str(e)})
+                except Exception as e:  # remote endpoint failures
+                    return self._json(502, {"error": str(e)})
+                return self._json(404, {"error": f"unknown op {op}"})
+
             def _write(self):
                 u = urlparse(self.path)
                 q = parse_qs(u.query)
                 path = self._path()
                 if path.startswith("/~remote/") and self.command == "POST":
-                    self.rfile.read(int(self.headers.get("Content-Length", "0") or "0"))
-                    return self._json(501, {"error": REMOTE_ERROR})
+                    return self._remote_op(path[len("/~remote/") :])
                 if (self.command == "POST" and "Tus-Resumable" in self.headers
                         and "Upload-Length" in self.headers):
                     # TUS creation: the request path is the target. Drain

@@ -8,21 +8,22 @@ command_ec_common.go, the volume.* family).
 Each command is a function(env, args) -> str; the registry drives both
 the REPL and one-shot `python -m seaweedfs_tpu_torch.shell -c "..."`.
 
-The port has the registry, the shared helpers and 75 commands: the
+The port has the registry, the shared helpers and 82 commands: the
 cluster (`cluster.status`, `cluster.check`, `cluster.ps`, `cluster.raft.*`),
 volume, EC, collection and lock commands, `upload` and `download`, the
 worker fleet's (`task.submit`, `task.list`, `worker.list`,
 `maintenance.config`), the filer's (`fs.*`, `volume.fsck`,
-`cluster.lock.ring`) and S3's (`s3.*`: identities, policies, buckets and
-their quotas, in the filer). The JAX shell's other commands need modules
-the port has not taken yet (MQ, remote storage and mount);
+`cluster.lock.ring`), S3's (`s3.*`: identities, policies, buckets and
+their quotas, in the filer) and remote storage's (`remote.*`, the filer's
+`/~remote/<op>`). The JAX shell's other commands need modules
+the port has not taken yet (MQ and mount);
 each answers one error line naming the ROADMAP.md item it comes with
 (`DEFERRED`).
 
 Where the port differs from the JAX shell:
 - the master's HTTP reads (`cluster.status`, `ec.balance -dataGravity`)
   go over `urllib`, as best-effort as the JAX `requests` reads, and the
-  filer's (`fs.*`, `volume.fsck`) over `http.client`, `fs.cp` streaming
+  filer's (`fs.*`, `volume.fsck`, `remote.*`) over `http.client`, `fs.cp` streaming
   its copy out chunked as the JAX `requests` POST of a generator does;
 - `ec.encode -backend` takes `cuda|cpu|auto` and defaults to `cuda`, as
   every port entry point does; a mutating command given another backend
@@ -70,9 +71,6 @@ DEFERRED: dict[str, str] = {
         "mq.schema.get", "mq.schema.set", "mq.topic.compact", "mq.topic.configure",
         "mq.topic.delete", "mq.topic.describe", "mq.topic.list", "mq.topic.truncate")},
     "mount.configure": "16",
-    **{c: "18" for c in (
-        "remote.cache", "remote.configure", "remote.meta.sync", "remote.mount",
-        "remote.mount.buckets", "remote.uncache", "remote.unmount")},
 }
 
 
@@ -2766,3 +2764,129 @@ def s3_bucket_quota_enforce(env: ShellEnv, args) -> str:
                 stub.KvPut(fpb.FilerKvPutRequest(key=flag_key, value=b""), timeout=10)
                 out.append(f"{b}: ok ({usage:,} / {quota:,})")
     return "\n".join(out) or "no buckets carry quotas"
+
+
+# ------------------------------------------------------- remote storage
+#
+# The filer's remote-mount control plane (POST /~remote/<op>), over
+# `_filer_http` where the JAX shell uses `requests`.
+
+
+def _remote_post(env: ShellEnv, op: str, body: dict) -> str:
+    with _filer_http(env, "POST", f"/~remote/{op}", timeout=300,
+                     body=json.dumps(body).encode()) as r:
+        data = r.read()
+    try:
+        payload = json.loads(data)
+    except ValueError:
+        payload = {"error": _text(data)[:200]}
+    if r.status != 200:
+        return f"error: {payload.get('error', r.status)}"
+    return ", ".join(f"{k}={v}" for k, v in payload.items())
+
+
+@command(
+    "remote.configure",
+    "-name n -endpoint http://host:port [-accessKey k -secretKey s -region r]",
+)
+def remote_configure(env: ShellEnv, args) -> str:
+    """Store an S3-compatible remote's credentials in the filer
+    (reference remote.configure)."""
+    p = argparse.ArgumentParser(prog="remote.configure")
+    p.add_argument("-name", required=True)
+    p.add_argument("-endpoint", required=True)
+    p.add_argument("-accessKey", default="")
+    p.add_argument("-secretKey", default="")
+    p.add_argument("-region", default="us-east-1")
+    a = p.parse_args(args)
+    return _remote_post(
+        env,
+        "configure",
+        {
+            "name": a.name,
+            "endpoint": a.endpoint,
+            "access_key": a.accessKey,
+            "secret_key": a.secretKey,
+            "region": a.region,
+        },
+    )
+
+
+@command(
+    "remote.mount",
+    "-dir /path -remote name -bucket b [-prefix p] (lazy cloud mount)",
+)
+def remote_mount(env: ShellEnv, args) -> str:
+    """Materialize a bucket listing as a filer directory; file bytes
+    stream through on read until remote.cache pins them
+    (reference remote.mount + filer_lazy_remote)."""
+    p = argparse.ArgumentParser(prog="remote.mount")
+    p.add_argument("-dir", required=True)
+    p.add_argument("-remote", required=True)
+    p.add_argument("-bucket", required=True)
+    p.add_argument("-prefix", default="")
+    a = p.parse_args(args)
+    return _remote_post(
+        env,
+        "mount",
+        {
+            "dir": a.dir,
+            "remote": a.remote,
+            "bucket": a.bucket,
+            "prefix": a.prefix,
+        },
+    )
+
+
+@command("remote.unmount", "-dir /path (drop the mount view; remote untouched)")
+def remote_unmount(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="remote.unmount")
+    p.add_argument("-dir", required=True)
+    a = p.parse_args(args)
+    return _remote_post(env, "unmount", {"dir": a.dir})
+
+
+@command("remote.cache", "-path /file (pin remote bytes into local chunks)")
+def remote_cache(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="remote.cache")
+    p.add_argument("-path", required=True)
+    a = p.parse_args(args)
+    return _remote_post(env, "cache", {"path": a.path})
+
+
+@command("remote.uncache", "-path /file (drop local copy, keep mapping)")
+def remote_uncache(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="remote.uncache")
+    p.add_argument("-path", required=True)
+    a = p.parse_args(args)
+    return _remote_post(env, "uncache", {"path": a.path})
+
+
+@command(
+    "remote.mount.buckets",
+    "-dir /path -remote name [-prefix p] (mount every remote bucket)",
+    mutating=True,
+)
+def remote_mount_buckets(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="remote.mount.buckets")
+    p.add_argument("-dir", required=True)
+    p.add_argument("-remote", required=True)
+    p.add_argument("-prefix", default="")
+    a = p.parse_args(args)
+    return _remote_post(
+        env,
+        "mount.buckets",
+        {"dir": a.dir, "remote": a.remote, "prefix": a.prefix},
+    )
+
+
+@command(
+    "remote.meta.sync",
+    "-dir /path (refresh mounted remote metadata: add/update/remove)",
+    mutating=True,
+)
+def remote_meta_sync(env: ShellEnv, args) -> str:
+    p = argparse.ArgumentParser(prog="remote.meta.sync")
+    p.add_argument("-dir", required=True)
+    a = p.parse_args(args)
+    return _remote_post(env, "meta.sync", {"dir": a.dir})

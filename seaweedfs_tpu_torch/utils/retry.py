@@ -2,7 +2,9 @@
 circuit breaker.
 
 Port of seaweedfs_tpu/utils/retry.py (standard library only). The port's
-scrub runs its rebuild attempts under it (ec/scrub.py). The reference
+scrub runs its rebuild attempts under it (ec/scrub.py), the remote S3
+client its requests (remote/s3_client.py), and the replication loops
+their tails (`Backoff`). The reference
 scatters equivalent loops across weed/wdclient and weed/operation;
 keeping one here means backoff behavior, deadline math, and give-up
 semantics are tested once.
@@ -121,6 +123,33 @@ def retry_call(
         attempts=attempt,
         elapsed=elapsed,
     ) from last
+
+
+class Backoff:
+    """Consecutive-failure backoff for never-give-up daemon loops.
+
+    retry_call() is for bounded operations; a tail/sync daemon instead
+    loops forever and only needs the POLICY'S SCHEDULE: next_delay()
+    walks the policy's backoff curve one failure at a time (saturating
+    at the tail so delay stops growing), reset() snaps back to the
+    first-retry delay after any success. The replication loops
+    (replication/) run on it."""
+
+    def __init__(self, policy: RetryPolicy, rng: random.Random | None = None):
+        self.policy = policy
+        self._rng = rng if rng is not None else random.Random()
+        self._failures = 0
+
+    @property
+    def failures(self) -> int:
+        return self._failures
+
+    def reset(self) -> None:
+        self._failures = 0
+
+    def next_delay(self) -> float:
+        self._failures = min(self._failures + 1, self.policy.max_attempts)
+        return self.policy.delay(self._failures, self._rng)
 
 
 class CircuitBreaker:

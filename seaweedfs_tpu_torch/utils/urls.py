@@ -12,15 +12,21 @@ read no such variable, so `enable_https` builds one process-wide client
 the same trust. Where the cluster asks for client certificates (mutual
 TLS), the node's own certificate and key go into that context too.
 `client_context()`, `urlopen()` and `connection()` hand it to every
-https request of the port.
+https request of the port. `KeptConnections` keeps such connections
+alive between requests, where the JAX clients keep a `requests.Session`
+(remote storage's S3 client and the replication daemons).
 """
 
 from __future__ import annotations
 
 import http.client
+import json
+import select
 import ssl
+import threading
+import time
 import urllib.request
-from urllib.parse import urlsplit
+from urllib.parse import urlencode, urlsplit
 
 _scheme = "http"
 _client_ctx: ssl.SSLContext | None = None
@@ -83,3 +89,130 @@ def connection(url: str, timeout: float) -> http.client.HTTPConnection:
         return http.client.HTTPSConnection(parts.hostname, parts.port or 443, timeout=timeout,
                                            context=client_context())
     return http.client.HTTPConnection(parts.hostname, parts.port or 80, timeout=timeout)
+
+
+# what a kept connection raises when the server closed it while idle:
+# nothing of the request was served, so it is sent again on a new one
+_STALE = (http.client.RemoteDisconnected, BrokenPipeError, ConnectionResetError)
+
+# how often a request waiting for its answer looks whether it was aborted
+ABORT_POLL_S = 0.2
+
+
+class HttpStatusError(OSError):
+    """An error status where the caller asked for success
+    (`Answer.raise_for_status`)."""
+
+
+class Answer:
+    """One whole answer: what the JAX callers read of a `requests.Response`."""
+
+    def __init__(self, status: int, headers: http.client.HTTPMessage, content: bytes):
+        self.status_code = status
+        self.headers = headers  # case-insensitive .get()
+        self.content = content
+
+    @property
+    def ok(self) -> bool:
+        return self.status_code < 400
+
+    @property
+    def text(self) -> str:
+        return self.content.decode("utf-8", errors="replace")
+
+    def json(self):
+        return json.loads(self.content)
+
+    def raise_for_status(self) -> None:
+        if self.status_code >= 400:
+            raise HttpStatusError(f"HTTP {self.status_code}")
+
+
+class KeptConnections:
+    """Requests over `connection()`s kept alive between them: one per
+    request in flight, pooled per scheme and host, so threads may share
+    the pool. A kept connection the server closed while idle is dialled
+    again at once. `abort()`, from another thread or a signal handler,
+    fails the request waiting for its answer within `ABORT_POLL_S`, and
+    every request after it."""
+
+    def __init__(self):
+        self._idle: dict[str, list[http.client.HTTPConnection]] = {}
+        self._lock = threading.Lock()
+        self._aborted = False
+
+    def request(self, method: str, url: str, body: bytes | None = None,
+                headers: dict | None = None, params: dict | None = None,
+                timeout: float = 60) -> Answer:
+        parts = urlsplit(url)
+        query = parts.query
+        if params:
+            query = (query + "&" if query else "") + urlencode(params)
+        target = (parts.path or "/") + (f"?{query}" if query else "")
+        key = f"{parts.scheme}://{parts.netloc}"
+        while True:
+            if self._aborted:
+                raise OSError("aborted: the client is stopping")
+            with self._lock:
+                kept = self._idle.get(key)
+                conn = kept.pop() if kept else None
+            fresh = conn is None
+            if fresh:
+                conn = connection(url, timeout)
+            else:
+                conn.timeout = timeout
+                if conn.sock is not None:
+                    conn.sock.settimeout(timeout)
+            try:
+                conn.request(method, target, body=body, headers=headers or {})
+                self._await_answer(conn, timeout)
+                r = conn.getresponse()
+                data = r.read()
+            except _STALE:
+                conn.close()
+                if fresh:
+                    raise
+                continue
+            except BaseException:
+                conn.close()
+                raise
+            if r.will_close:
+                conn.close()
+            else:
+                with self._lock:
+                    self._idle.setdefault(key, []).append(conn)
+            return Answer(r.status, r.msg, data)
+
+    def _await_answer(self, conn: http.client.HTTPConnection, timeout: float) -> None:
+        """Wait until the answer's first bytes are readable, looking
+        every ABORT_POLL_S whether `abort()` was called."""
+        deadline = time.monotonic() + timeout
+        while True:
+            if self._aborted:
+                raise OSError("aborted: the client is stopping")
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError("timed out waiting for the answer")
+            ready, _, _ = select.select([conn.sock], [], [], min(left, ABORT_POLL_S))
+            if ready:
+                return
+
+    def get(self, url: str, **kw) -> Answer:
+        return self.request("GET", url, **kw)
+
+    def post(self, url: str, data: bytes = b"", **kw) -> Answer:
+        return self.request("POST", url, body=data, **kw)
+
+    def delete(self, url: str, **kw) -> Answer:
+        return self.request("DELETE", url, **kw)
+
+    def abort(self) -> None:
+        self._aborted = True
+
+    def close(self) -> None:
+        """Close the kept connections."""
+        with self._lock:
+            idle, self._idle = self._idle, {}
+        for conns in idle.values():
+            for conn in conns:
+                conn.close()

@@ -4,9 +4,8 @@ with the master group's fleet control plane and execute maintenance
 tasks (reference `weed worker`) until SIGTERM or SIGINT.
 
 Port of seaweedfs_tpu/worker/__main__.py. `-backend` defaults to cuda
-(the JAX default is auto) and refuses tpu; a `-capabilities` that names
-`iceberg` is refused: it comes with later items.
-Either refusal is one error line and exit code 2, before any connect.
+(the JAX default is auto) and refuses tpu: one error line and exit code
+2, before any connect.
 """
 
 from __future__ import annotations

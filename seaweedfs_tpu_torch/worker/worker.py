@@ -13,7 +13,9 @@ plugin worker's JobHandler model, plugin/worker/worker.go):
 - the tasks `ec_encode` (readonly -> generate -> mount -> delete the
   source, the shell's `ec.encode` pipeline over RPCs), `vacuum`,
   `balance`, `ec_balance` (the port shell's `ec.balance`), `s3_lifecycle`
-  (the filer's `RunLifecycle`, where the metadata lives), `ec_scrub`
+  (the filer's `RunLifecycle`, where the metadata lives), `iceberg` (the
+  gateway's catalog maintenance route, signed by remote storage's
+  `RemoteS3Client`), `ec_scrub`
   (every holder's `ScrubEcVolume`, local repair where k good shards
   remain, the JSON report the master aggregates), `ec_rebuild`
   (`-fromPeers` for the holders the fleet scrub found unrebuildable) and
@@ -25,10 +27,6 @@ default). Where the port differs from the JAX worker:
 
 - `backend` takes cuda, cpu or auto and defaults to cuda (the JAX
   default is auto); another name raises ValueError;
-- the `iceberg` kind needs S3 tables and remote storage, which the port
-  does not have yet (`DEFERRED_KINDS`): the default capabilities leave it
-  out, its descriptor is not advertised, and a worker asked for it raises
-  ValueError naming the items that bring it;
 - `run` asks the master group for its leader (`RaftStatus`) before each
   connect, so the stream reaches the master whose scanners submit; the
   JAX worker dials the first master of its group until a lease call
@@ -55,10 +53,6 @@ from ..utils import request_id as _rid
 from ..utils import trace
 from .control import VOLUME_INDEPENDENT_KINDS
 
-# the JAX worker's task kind that needs remote storage's S3 client
-# (ROADMAP.md item 18), which the port has not taken yet
-DEFERRED_KINDS = ("iceberg",)
-
 
 class Worker:
     def __init__(
@@ -66,7 +60,7 @@ class Worker:
         master: str = "localhost:9333",
         capabilities: tuple = (
             "ec_encode", "vacuum", "balance", "s3_lifecycle", "ec_balance",
-            "ec_scrub", "ec_rebuild", "ec_migrate",
+            "iceberg", "ec_scrub", "ec_rebuild", "ec_migrate",
         ),
         backend: str = "cuda",
         max_concurrent: int = 2,
@@ -75,12 +69,6 @@ class Worker:
         if backend not in BACKENDS:
             raise ValueError(
                 f"-backend {backend}: the port runs its EC on cuda, cpu or auto"
-            )
-        deferred = [k for k in capabilities if k in DEFERRED_KINDS]
-        if deferred:
-            raise ValueError(
-                f"-capabilities {','.join(deferred)}: the port's worker does not "
-                "take iceberg tasks yet: they come with ROADMAP.md item 18"
             )
         self.master_addr = master
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"
@@ -225,6 +213,46 @@ class Worker:
                 ],
             ),
             wk.TaskDescriptor(
+                kind="iceberg",
+                display_name="Iceberg snapshot expiry",
+                description="expire old unreferenced table snapshots "
+                "via the S3 gateway's catalog maintenance endpoint",
+                fields=[
+                    wk.ConfigField(
+                        name="s3",
+                        type="string",
+                        default="",
+                        help="host:port of the S3 gateway",
+                    ),
+                    wk.ConfigField(
+                        name="access_key",
+                        type="string",
+                        default="",
+                        help="Admin-capable access key",
+                    ),
+                    wk.ConfigField(
+                        name="secret_key",
+                        type="string",
+                        default="",
+                        help="secret for access_key",
+                    ),
+                    wk.ConfigField(
+                        name="older_than_days",
+                        type="float",
+                        default="30",
+                        help="expire snapshots older than this",
+                        min=0.0,
+                        max=36500.0,
+                    ),
+                    wk.ConfigField(
+                        name="bucket",
+                        type="string",
+                        default="",
+                        help="single table bucket (empty = whole catalog)",
+                    ),
+                ],
+            ),
+            wk.TaskDescriptor(
                 kind="s3_lifecycle",
                 display_name="S3 lifecycle sweep",
                 description="apply bucket lifecycle rules (expiration, "
@@ -357,6 +385,8 @@ class Worker:
                 self._task_s3_lifecycle(assign)
             elif assign.kind == "ec_balance":
                 self._task_ec_balance(assign)
+            elif assign.kind == "iceberg":
+                self._task_iceberg(assign)
             elif assign.kind == "ec_scrub":
                 detail = self._task_ec_scrub(assign)
             elif assign.kind == "ec_rebuild":
@@ -474,6 +504,47 @@ class Worker:
                 f"delete on {source} failed after retries ({last_err}); "
                 "volume is duplicated and readonly at the source"
             )
+
+    def _task_iceberg(self, assign: wk.TaskAssign) -> None:
+        """Iceberg snapshot expiry (reference worker tasks: the iceberg
+        maintenance kind). The catalog lives inside the S3 gateway, so
+        the task POSTs its Admin-gated /iceberg/v1/maintenance route
+        with the sigv4 client the remote-storage SPI already ships."""
+        import json as _json
+
+        from ..remote.s3_client import RemoteS3Client
+
+        s3 = assign.params.get("s3", "")
+        if not s3:
+            raise RuntimeError("iceberg needs an s3 (gateway host:port) param")
+        try:
+            days = float(assign.params.get("older_than_days", "") or 30)
+        except ValueError:
+            days = 30.0
+        older = int(time.time() * 1000) - int(days * 86400_000)
+        bucket = assign.params.get("bucket", "")
+        body = {"older-than-ms": older}
+        if not bucket:
+            body["all-buckets"] = True
+        client = RemoteS3Client(
+            f"http://{s3}",
+            assign.params.get("access_key", ""),
+            assign.params.get("secret_key", ""),
+        )
+        path = (
+            f"/iceberg/v1/{bucket}/maintenance"
+            if bucket
+            else "/iceberg/v1/maintenance"
+        )
+        r = client._request(
+            "POST",
+            path,
+            payload=_json.dumps(body).encode(),
+            extra_headers={"Content-Type": "application/json"},
+        )
+        out = r.json()
+        if not isinstance(out, dict) or "tables_scanned" not in out:
+            raise RuntimeError(f"unexpected maintenance response: {out!r}")
 
     def _task_s3_lifecycle(self, assign: wk.TaskAssign) -> None:
         """Delegate the sweep to the filer that owns the metadata."""

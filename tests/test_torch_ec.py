@@ -376,8 +376,8 @@ def test_chip_scripts_define_each_top_level_name_once(name):
 
 def test_import_guard_scans_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in _python_files() if PORT in p.parents}
-    assert {"client", "ec", "faults", "filer", "iam", "mq", "ops", "pb", "s3", "server", "shell",
-            "storage", "tools", "utils", "worker"} <= scanned
+    assert {"client", "ec", "faults", "filer", "iam", "mq", "ops", "pb", "remote", "replication",
+            "s3", "server", "shell", "storage", "tools", "utils", "worker"} <= scanned
     assert PORT / "server" / "volume_server.py" in _python_files()
     assert PORT / "server" / "volume_grpc.py" in _python_files()
     for mod in ("server/master.py", "server/topology.py", "server/raft.py", "server/cluster_lock.py",
@@ -393,7 +393,7 @@ def test_import_guard_scans_every_package_of_the_port():
                 "filer/meta_log.py", "filer/filer.py", "filer/grpc_service.py",
                 "filer/meta_aggregator.py", "filer/tus.py", "filer/lock_ring.py",
                 "server/filer_server.py", "server/multipart.py", "client/filer_client.py",
-                *S3_MODULES):
+                *S3_MODULES, *REMOTE_MODULES):
         assert PORT / mod in _python_files(), mod
 
 
@@ -402,6 +402,10 @@ S3_MODULES = ("iam/__init__.py", "iam/policy.py", "iam/sts.py", "iam/oidc.py", "
               "s3/__init__.py", "s3/auth.py", "s3/chunked.py", "s3/post_policy.py",
               "s3/config.py", "s3/versioning.py", "s3/sse.py", "s3/server.py", "s3/lifecycle.py",
               "s3/tables.py", "s3/iamapi.py")
+# remote storage and replication, the replication daemon's entry point among them
+REMOTE_MODULES = ("remote/__init__.py", "remote/s3_client.py", "remote/providers.py",
+                  "remote/mount.py", "replication/__init__.py", "replication/sync.py",
+                  "replication/backup.py", "replication/s3_sink.py", "replication/__main__.py")
 
 # an HS256 bearer for issuer https://g signed with "k", and an LDAP bind
 # through the stand-in server, in the guards' child interpreters
@@ -465,6 +469,21 @@ assert call("PUT", "/d/b.bin", b"raw body")[0] == 201
 assert call("GET", "/d/a.txt") == (200, b"small body")
 assert call("POST", "/d/c.bin?mv.from=/d/b.bin", b"")[0] == 200
 assert [x["FullPath"] for x in json.loads(call("GET", "/d/")[1])["Entries"]] == ["/d/a.txt", "/d/c.bin"]
+# the replication daemon by its entry point: a backup of /d into a local
+# directory, stopped by SIGTERM once its copy is made
+import signal, threading, time
+from seaweedfs_tpu_torch.replication.__main__ import main as replication_main
+dest = os.path.join(d, "backup")
+def _terminate():
+    deadline = time.time() + 60
+    while not os.path.exists(os.path.join(dest, "c.bin")) and time.time() < deadline:
+        time.sleep(0.05)
+    os.kill(os.getpid(), signal.SIGTERM)
+threading.Thread(target=_terminate, daemon=True).start()
+assert replication_main(["-from", f"127.0.0.1:{port}", "-to", dest, "-path", "/d",
+                         "-state", os.path.join(d, "bk.state")]) == 0
+assert open(os.path.join(dest, "a.txt"), "rb").read() == b"small body"
+assert open(os.path.join(dest, "c.bin"), "rb").read() == b"raw body"
 assert call("DELETE", "/d?recursive=true")[0] == 204
 for srv in servers:
     srv.stop()
@@ -510,6 +529,15 @@ assert s3_post(b'{"name": "guardtb"}', {"X-Amz-Target": "S3Tables.CreateTableBuc
 assert gf.find_entry("/buckets/guardtb").is_directory
 assert s3_post(b"Action=CreateUser&UserName=g",
                {"Content-Type": "application/x-www-form-urlencoded"})[0] == 200
+# a remote mount of the bucket, read through the gateway
+from seaweedfs_tpu_torch.remote import mount as rm
+assert s3_call("PUT", "/guard/r/x.bin", obj)[0] == 200
+rf = Filer(MemoryStore(), master=master)
+rm.configure(rf, "g", {"endpoint": f"http://127.0.0.1:{s3.port}", "access_key": "AKG",
+                       "secret_key": "guard/secret"})
+assert rm.mount(rf, "/m", "g", "guard", prefix="r/") == 1
+assert rf.read_file("/m/x.bin") == obj and rf.read_file("/m/x.bin", 10, 20) == obj[10:30]
+rf.close()
 s3.stop()
 gf.close()
 exec(PROVIDERS)
@@ -523,8 +551,11 @@ def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     reads, renames and deletes included), the client's Operations, every
     S3 / IAM module and the S3 gateway serving a PUT and a GET over a
     filer whose cluster (a port master and volume server) runs in this
-    process load neither torch, nor the JAX package, nor `requests`: a
-    gateway or a filer child starts and serves without the torch import."""
+    process, remote storage (a mount read through that gateway) and
+    replication (its daemon's entry point backing the launched filer up
+    until SIGTERM) load neither torch, nor the JAX package, nor
+    `requests`: a gateway, a filer or a replication child starts and
+    serves without the torch import."""
     from test_torch_volume_server import _ports
     from conftest import wait_for
     from seaweedfs_tpu_torch.server.master import MasterServer
@@ -533,7 +564,7 @@ def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     mods = ["seaweedfs_tpu_torch.filer.filer", "seaweedfs_tpu_torch.server.filer_server",
             "seaweedfs_tpu_torch.server.multipart", "seaweedfs_tpu_torch.client.operations"] + [
         "seaweedfs_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
-        for m in S3_MODULES]
+        for m in S3_MODULES + REMOTE_MODULES]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     mport = _ports()
     ms = MasterServer(ip="127.0.0.1", port=mport, vacuum_interval=3600)
@@ -573,6 +604,9 @@ import os, shutil, sys, tempfile, time
 PROVIDERS = sys.argv[1]
 import numpy as np
 import seaweedfs_tpu_torch
+import seaweedfs_tpu_torch.remote.mount, seaweedfs_tpu_torch.remote.providers
+import seaweedfs_tpu_torch.replication.__main__, seaweedfs_tpu_torch.replication.backup
+import seaweedfs_tpu_torch.replication.s3_sink
 from seaweedfs_tpu_torch.ec import (
     CpuBackend, ECContext, EcVolume, TorchBackend, ec_decode_volume, ec_encode_volume,
 )

@@ -18,8 +18,6 @@ the CPU:
 - `/~meta/tail`: the wait clamped where the long-poll slots are gone, and
   `droppedBeforeTsNs` after rotation, at the same event in both;
 - the saturated pooled front end answers 503 with the same head and body;
-- the one divergence: POST /~remote/<op> answers 501 naming ROADMAP
-  item 18;
 - a TLS filer serves https and refuses a plaintext client;
 - both packages' `WebhookNotifier`s against one local sink: equal JSON
   payloads in the same order, the same retries of a 5xx and the same drops
@@ -376,26 +374,6 @@ def test_debug_endpoints_answer_alike(twins):
                       gw[1]["Content-Type"], sorted(gw_doc), gw_doc["front_end"]["kind"])
     assert docs["port"] == docs["jax"]
     assert docs["port"][0] == docs["port"][3] == 200 and docs["port"][-1] == "pooled"
-
-
-def test_remote_control_plane_names_its_roadmap_item(twins):
-    side = twins["port"]
-    body = json.dumps({"dir": "/mnt/x", "remote": "r", "bucket": "b"}).encode()
-    status, headers, got = side.call("POST", "/~remote/mount", body,
-                                     {"Content-Type": "application/json"})
-    assert status == 501
-    assert json.loads(got) == {"error": p_filer_server.REMOTE_ERROR}
-    assert "ROADMAP.md item 18" in p_filer_server.REMOTE_ERROR
-    # the connection stays framed: the next request on it is served
-    c = http.client.HTTPConnection("127.0.0.1", side.port, timeout=30)
-    try:
-        c.request("POST", "/~remote/cache", body)
-        r = c.getresponse()
-        assert r.status == 501 and json.loads(r.read())["error"] == p_filer_server.REMOTE_ERROR
-        c.request("GET", "/docs/big.bin?chunks=true")
-        assert c.getresponse().status in (200, 404)
-    finally:
-        c.close()
 
 
 def test_tls_filer_serves_https_only(tmp_path, twins):

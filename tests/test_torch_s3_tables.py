@@ -8,8 +8,8 @@ scenario of the JAX tests/test_s3_tables.py step by step, signed as the
 admin: the catalog's lifecycle, a prefixed catalog, the S3 Tables target
 protocol and its REST aliases, the Admin gate, snapshot commits, a
 multi-table transaction, views and the maintenance route's snapshot
-expiry (posted directly: the worker's `iceberg` task waits for ROADMAP.md
-item 18); then the IAM API's actions and the keys they mint. Each step's
+expiry (posted directly; the worker's `iceberg` task posts it in
+tests/test_torch_remote.py); then the IAM API's actions and the keys they mint. Each step's
 statuses, headers and bodies (JSON parsed, XML whole), the `/buckets`
 tree and the filer's KV must be equal (tolerance 0).
 

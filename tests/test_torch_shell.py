@@ -2,7 +2,8 @@
 utils/urls, the rest of ec/placement (`plan_ec_balance` and its stages)
 and ec/rebalance, held against the JAX package on the CPU:
 
-- every one of the 75 ported commands, run through the JAX shell and
+- every ported command but remote storage's 7 (`remote.*`, held against
+  the JAX shell in tests/test_torch_remote.py), 75 in all, run through the JAX shell and
   through the port's on twin clusters built from the same bytes: the
   output equal line for line once addresses, the shell's owner id, fid
   cookies, paths and timings are masked, the master's topology equal,
@@ -16,7 +17,7 @@ and ec/rebalance, held against the JAX package on the CPU:
   package registered at each twin's master;
 - S3's 15 commands (`s3.*`) against each twin's filer, its KV and its
   /buckets tree equal after every step;
-- the registry: the port's commands are 75 of the JAX `COMMANDS`,
+- the registry: the port's commands are 82 of the JAX `COMMANDS`,
   with the JAX help texts apart from `-backend`; each command left for a
   later item answers one error line naming its ROADMAP.md item; a
   `-backend` the port does not run (`tpu`) is refused before any RPC;
@@ -110,6 +111,11 @@ PORTED = {
     "s3.accesskey.delete", "s3.policy.put", "s3.policy.get", "s3.policy.delete",
     "s3.bucket.list", "s3.bucket.create", "s3.bucket.delete", "s3.clean.uploads",
     "s3.bucket.quota.set", "s3.bucket.quota.get", "s3.bucket.quota.enforce",
+}
+# the remote.* commands, held against the JAX shell's in tests/test_torch_remote.py
+REMOTE_COMMANDS = {
+    "remote.configure", "remote.mount", "remote.unmount", "remote.cache", "remote.uncache",
+    "remote.mount.buckets", "remote.meta.sync",
 }
 FS_COLLECTION = "fs"  # the twins' filers write their chunks here
 S3_BUCKETS = ("b1", "b2", "b3")  # the s3.* steps' buckets, b1's objects in collection b1
@@ -885,8 +891,10 @@ def test_every_ported_command_ran_against_jax(twins):
 
 
 def test_registry_is_the_39_commands_of_the_jax_shell():
-    assert set(port_shell.COMMANDS) == PORTED and len(PORTED) == 75
-    assert len(port_shell.DEFERRED) == 16 and "12b" not in port_shell.DEFERRED.values()
+    assert set(port_shell.COMMANDS) == PORTED | REMOTE_COMMANDS and len(PORTED) == 75
+    assert len(port_shell.COMMANDS) == 82
+    assert len(port_shell.DEFERRED) == 9 and "12b" not in port_shell.DEFERRED.values()
+    assert "18" not in port_shell.DEFERRED.values()
     assert "13b" not in port_shell.DEFERRED.values()
     assert set(port_shell.COMMANDS) <= set(jax_shell.COMMANDS)
     assert set(port_shell.COMMANDS) | set(port_shell.DEFERRED) == set(jax_shell.COMMANDS)
@@ -911,7 +919,7 @@ def test_help_and_unknown_commands_answer_as_jax():
     env = types.SimpleNamespace()
     lines = port_shell.run_command(env, "help").splitlines()
     jax_lines = [ln for ln in jax_shell.run_command(env, "help").splitlines()
-                 if ln.split()[0] in PORTED]
+                 if ln.split()[0] in PORTED | REMOTE_COMMANDS]
     assert lines == [ln.replace("cpu|tpu|auto", "cpu|cuda|auto") for ln in jax_lines]
     assert port_shell.run_command(env, "?") == port_shell.run_command(env, "help")
     assert port_shell.run_command(env, "nope.cmd") == jax_shell.run_command(env, "nope.cmd")
@@ -1006,7 +1014,7 @@ def test_module_entry_point_runs_help_as_a_subprocess():
                            "127.0.0.1:1", "-c", "help"], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert [ln.split()[0] for ln in proc.stdout.splitlines()] == sorted(PORTED)
+    assert [ln.split()[0] for ln in proc.stdout.splitlines()] == sorted(PORTED | REMOTE_COMMANDS)
     proc = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.shell", "-master",
                            "127.0.0.1:1"], cwd=REPO, env=env, input="help\nmq.topic.list\nexit\n",
                           capture_output=True, text=True, timeout=120)

@@ -22,8 +22,10 @@ each with equal task lists, equal JSON reports (timestamps and ids
 apart), sha256-equal volume and shard files and the same
 `/cluster/status` keys. Also an `s3_lifecycle` task handed to a filer's
 `RunLifecycle` (the same reports and survivors), `SetMaintenanceConfig`'s
-refusals, the worker's refusal of `-backend tpu` and of the `iceberg`
-capability, and `worker_pb2`'s bytes.
+refusals, the worker's refusal of `-backend tpu`, its default
+capabilities and descriptors (the `iceberg` kind's included, as in the
+JAX worker; its task runs in tests/test_torch_remote.py), and
+`worker_pb2`'s bytes.
 
 Every wait is on a condition with a deadline.
 """
@@ -81,9 +83,8 @@ PKGS = {
                                   shell=port_shell, control=port_control,
                                   topology=Topology, node=DataNode),
 }
-# the volume kinds both workers take (the JAX worker's default adds
-# s3_lifecycle, run on its own below, and iceberg, which the port's leaves
-# for later items)
+# the volume kinds both workers take (their default adds s3_lifecycle,
+# run on its own below, and iceberg, run in tests/test_torch_remote.py)
 CAPS = ("ec_encode", "vacuum", "balance", "ec_balance", "ec_scrub", "ec_rebuild", "ec_migrate")
 RACKS = ("r1", "r2")
 GEN_NS = 1_760_000_000_777_000_001
@@ -746,10 +747,6 @@ def test_s3_lifecycle_task_against_jax(make_twins):
 
 @pytest.mark.parametrize("argv, want", [
     (["-backend", "tpu"], "-backend tpu: the port runs its EC on cuda, cpu or auto"),
-    (["-capabilities", "ec_encode,iceberg"],
-     "-capabilities iceberg: the port's worker does not take iceberg tasks yet: they come "
-     "with ROADMAP.md item 18"),
-    (["-capabilities", "iceberg,vacuum"], "-capabilities iceberg: the port's worker"),
 ])
 def test_worker_refuses_tpu_and_the_filer_and_s3_kinds(capsys, argv, want):
     with pytest.raises(SystemExit) as e:
@@ -776,8 +773,8 @@ def test_worker_defaults_to_cuda_and_leaves_out_the_filer_and_s3_kinds(monkeypat
     w = Worker()
     assert w.backend == "cuda"
     jax_kinds = [d.kind for d in JaxWorker().descriptors]
-    assert [d.kind for d in w.descriptors] == [k for k in jax_kinds if k != "iceberg"]
-    assert w.capabilities == tuple(k for k in JaxWorker().capabilities if k != "iceberg")
+    assert [d.kind for d in w.descriptors] == jax_kinds and "iceberg" in jax_kinds
+    assert w.capabilities == JaxWorker().capabilities
     theirs = {d.kind: d.SerializeToString() for d in JaxWorker().descriptors}
     for ours in w.descriptors:
         assert ours.SerializeToString() == theirs[ours.kind]
