@@ -385,6 +385,36 @@ Phases:
    counts, remote-read p50 / p99 beside cached reads, the replication
    lags, the children's start times, the launches and the redials.
 
+20. the MQ broker by name on phase 19's child. Behind 19b and 19c:
+   `fs.configure` sends the child's /topics/ to collection mqseg, an
+   `mq.broker -filer <the child's filer> -parityDir -statusPort` child
+   serves with no torch loaded (its `/debug/kernels`), and the first
+   durable-parity ConfigureTopic (bench/omb, 4 partitions) loads torch
+   inside the RPC. 20a: 24,576 of phase 7b's 1 KB records published by
+   4 threads, each with its own `MqClient`, while group g1 follows every
+   partition, checks every delivery and commits every 1,024; each
+   partition seals one 4,096-record segment into the filer and keeps
+   2,048 records that only its parity stream holds. 20b: the port
+   shell's 8 `mq.*` answering `mq20_shell_steps` line for line (the CPU
+   twin test holds both packages to the same lines). 20c: every stream
+   drained, `ec.encode` of mqseg at the child (launches == batches), data
+   shard 0 unmounted, the broker SIGKILLed and spawned again by name:
+   every record back through Subscribe, dense and byte-exact, the sealed
+   segments through the filer with shard 0 gone (planes launches at the
+   child == its reconstructions), the tail replayed from the parity
+   streams (launches in the broker == the durable stripes), g1's offsets
+   back. 20d, while the broker restarts: three port brokers in this
+   process (`mq20_trio`): 4,096 records through the first, forwarded
+   and replicated; partition 0's leader stopped, its follower promoted
+   and serving every record; launches == the streams' dispatches. 20e:
+   an `mq.agent` child by name (1,000 records in one session, a
+   subscription acked and committed at the broker) and a `filer
+   -notify.mq` child by name with no torch mapped, 200 files written
+   through it, every event on default/filer-events. Every child exits 0
+   on SIGTERM within 10 s. Its JSON line: each step's wall, the publish
+   rate, publish-to-delivery p50 / p99, the parity lag, the children's
+   start times, the launches per kernel per process and the redials.
+
 Any failure raises (exit code 1). It exits 2, printing no result, when
 no CUDA device is available; run from a directory without the package,
 the import fails. The last line is the device JSON.
@@ -397,6 +427,7 @@ import json
 import os
 import re
 import shutil
+import shlex
 import signal
 import struct
 import socket
@@ -641,12 +672,13 @@ def build() -> None:
 
 
 def host_packages() -> dict:
-    """Whether the host has what TLS and thumbnails use: `cryptography`
-    (certificates), PIL (thumbnails) and the `openssl` command."""
+    """Whether the host has what TLS, thumbnails and the MQ broker's
+    parquet archival use: `cryptography` (certificates), PIL (thumbnails),
+    pyarrow (`mq.topic.compact`) and the `openssl` command."""
     import importlib.util
 
     out = {}
-    for mod in ("cryptography", "PIL"):
+    for mod in ("cryptography", "PIL", "pyarrow"):
         spec = importlib.util.find_spec(mod)
         out[mod] = __import__(mod).__version__ if spec else None
     out["openssl"] = shutil.which("openssl")
@@ -7139,6 +7171,7 @@ S3GW_FORM = (256 << 10) + 3  # the POST-policy upload
 S3GW_SMALL = 8  # objects the filer inlines (under 512 bytes)
 S3GW_VERSIONS = (200_000, 210_000, 220_000)  # one key written three times, then a marker
 S3GW_LC = 3  # small objects under lc/, expired by the lifecycle rule
+S3GW_MAX_VOLUMES = 20  # room for phase 20's collections beside 19's (the default is 8)
 S3GW_START_S = 180.0  # the child's wait to serve S3 (its torch import included)
 S3GW_KEYS = {"admin": ("AKSMOKE19ADMIN", "smoke19/admin-secret"),
              "reader": ("AKSMOKE19READ", "smoke19/reader-secret")}
@@ -7197,7 +7230,8 @@ class S3GatewayChild:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "seaweedfs_tpu_torch.server", "server", "-ip", "127.0.0.1",
              "-masterPort", str(self.mport), "-port", str(self.vport), "-dir",
-             os.path.join(self.root, "d"), "-filer", "-filerPort", str(self.fport), "-s3",
+             os.path.join(self.root, "d"), "-max", str(S3GW_MAX_VOLUMES), "-filer", "-filerPort",
+             str(self.fport), "-s3",
              "-s3Port", str(self.s3port), "-s3Config", self.conf],
             cwd=self.root, env=env, stdout=self.log, stderr=subprocess.STDOUT)
         self.serving: dict = {}
@@ -8586,6 +8620,711 @@ def remote_phase(child: S3GatewayChild, clb: ClusterB, work: str) -> tuple[dict,
         "gf2_apply": batches_a + batches_b, "gf2_apply_planes": recon_a + recon_b}
 
 
+# -- phase 20: the MQ broker by name ----------------------------------------------
+
+MQ20_NS, MQ20_TOPIC = "bench", "omb"  # the durable-parity topic of 20a-20c
+MQ20_PARTITIONS = 4
+MQ20_RECORDS = 24_576  # 6,144 a partition: one sealed segment and 2,048 in parity alone
+MQ20_SEGMENT = 4096  # records a sealed segment holds: the launcher's -segmentRecords default
+MQ20_COMMIT_EVERY = 1024  # 20a's consumer group commits every this many records a partition
+MQ20_SEED = SEED + 30
+MQ20_TS0 = 1_700_000_000_000_000_000  # record i carries ts_ns MQ20_TS0 + i
+MQ20_COLLECTION = "mqseg"  # the broker's segments, by fs.configure at /topics/
+MQ20_HA_RECORDS = 4096  # 20d: published through the group's first broker
+MQ20_AGENT_RECORDS = 1000  # 20e: one agent session
+MQ20_FILES = 200  # 20e: written through the notifying filer child
+MQ20_START_S = 120.0  # a child's wait to serve (a restart's torch import and replay included)
+MQ20_SCHEMA = json.dumps({"enforce": True, "fields": [{"name": "id", "type": "int", "required": True}]})
+
+
+def mq20_shell_steps(broker: str, counts: list[int], archived: int) -> list:
+    """Phase 20b: the port shell's 8 `mq.*` against `broker`, in order,
+    each (command line, the answer it must give); a line of None marks
+    where smoke20b's 10 records go in (`mq20_publish_smoke20b`), its answer
+    the refusal of the one record its schema refuses. `counts`:
+    bench/omb's records by partition; `archived`: what `mq.topic.compact`
+    archives, 2 where pyarrow imports and 0 where it does not, as the JAX
+    broker answers (tests/test_torch_mq.py holds both packages to it)."""
+    b = f"-broker {broker}"
+    omb = "\n".join(f"partition {p}: offsets [0, {n}) ({n} records)" for p, n in enumerate(counts))
+    return [
+        (f"mq.topic.list {b}", f"{MQ20_NS}/{MQ20_TOPIC}  partitions={len(counts)}"),
+        (f"mq.topic.describe -topic {MQ20_TOPIC} -namespace {MQ20_NS} {b}", omb),
+        (f"mq.topic.configure -topic smoke20b -partitions 2 {b}",
+         "configured default/smoke20b with 2 partitions"),
+        (f"mq.schema.set -topic smoke20b -schema {shlex.quote(MQ20_SCHEMA)} {b}",
+         "schema registered for smoke20b"),
+        (f"mq.schema.get -topic smoke20b {b}", MQ20_SCHEMA),
+        (None, "schema violation: field 'id' is not a int"),
+        (f"mq.topic.describe -topic smoke20b {b}",
+         "partition 0: offsets [0, 5) (5 records)\npartition 1: offsets [0, 5) (5 records)"),
+        (f"mq.topic.compact -topic smoke20b {b}", f"archived {archived} segments of default/smoke20b"),
+        (f"mq.topic.truncate -topic smoke20b -partition 1 -beforeOffset 3 {b}",
+         "truncated 1 partition(s) of default/smoke20b"),
+        (f"mq.topic.describe -topic smoke20b {b}",
+         "partition 0: offsets [0, 5) (5 records)\npartition 1: offsets [3, 5) (2 records)"),
+        (f"mq.topic.delete -topic smoke20b {b}", "deleted topic default/smoke20b"),
+        (f"mq.topic.list {b}", f"{MQ20_NS}/{MQ20_TOPIC}  partitions={len(counts)}"),
+    ]
+
+
+def mq20_publish_smoke20b(client) -> str:
+    """20b's records: {"id": i} on partition i % 2, then one whose id is
+    not an int; returns the refusal."""
+    for i in range(10):
+        client.publish("smoke20b", json.dumps({"id": i}).encode(), partition=i % 2)
+    try:
+        client.publish("smoke20b", b'{"id": "x"}', partition=0)
+    except RuntimeError as e:
+        return str(e)
+    raise AssertionError("20b: a record against smoke20b's schema was taken")
+
+
+def mq20_run_shell(senv, broker: str, counts: list[int], archived: int, client) -> list:
+    """Run `mq20_shell_steps` through `run_command`; raise on the first
+    answer that differs. Returns the answers, the broker masked."""
+    from seaweedfs_tpu_torch.shell.commands import run_command
+
+    out = []
+    for line, want in mq20_shell_steps(broker, counts, archived):
+        got = mq20_publish_smoke20b(client) if line is None else run_command(senv, line)
+        if got != want:
+            raise AssertionError(f"20b: `{line}` answered {got!r}, not {want!r}")
+        out.append(got.replace(broker, "<broker>"))
+    return out
+
+
+def mq20_source(n: int) -> tuple[bytes, bytes]:
+    """Phase 20's keys and values, seeded: record i has key
+    keys[16i:16i+16] and value values[1024i:1024i+1024]."""
+    rng = np.random.default_rng(MQ20_SEED)
+    return rng.bytes(MQ_KEY * n), rng.bytes(MQ_VALUE * n)
+
+
+def torch_mapped(pid: int):
+    """Whether process `pid` has torch's library mapped (None where
+    /proc/<pid>/maps cannot be read)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libtorch" in f.read()
+    except OSError:
+        return None
+
+
+class MqChild:
+    """A port server by name (`python3 -m seaweedfs_tpu_torch.server
+    <args>`) under `root`, its output in `<root>/<name>.log`; a thread
+    polls `ready()` and notes the seconds from the spawn to the first
+    true answer, and whether torch was mapped then."""
+
+    def __init__(self, root: str, name: str, args: list, ready):
+        self.t0 = time.perf_counter()
+        self.root, self.name = root, name
+        self.log = open(os.path.join(root, f"{name}.log"), "ab")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch.server", *args],
+                                     cwd=root, env=env, stdout=self.log, stderr=subprocess.STDOUT)
+        self.serving: dict = {}
+        self.watcher = threading.Thread(target=self._watch, args=(ready,), daemon=True)
+        self.watcher.start()
+
+    def _watch(self, ready) -> None:
+        while time.perf_counter() < self.t0 + MQ20_START_S and self.proc.poll() is None:
+            try:
+                if ready():
+                    self.serving["serving_s"] = time.perf_counter() - self.t0
+                    self.serving["torch_mapped"] = torch_mapped(self.proc.pid)
+                    return
+            except (OSError, AssertionError):
+                pass
+            time.sleep(0.05)
+
+    def wait(self, phase: str) -> dict:
+        self.watcher.join(timeout=max(0.0, MQ20_START_S - (time.perf_counter() - self.t0)))
+        if "serving_s" not in self.serving:
+            raise AssertionError(f"{phase}: the {self.name} child did not serve within "
+                                 f"{MQ20_START_S} s (exit {self.proc.poll()}): {self.log_tail()}")
+        return self.serving
+
+    def log_tail(self) -> str:
+        self.log.flush()
+        with open(os.path.join(self.root, f"{self.name}.log"), "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    def kill(self) -> None:
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=CHILD_STOP_S)
+        self.log.close()
+
+    stop = TlsChild.stop  # SIGTERM; the exit code, None where it was killed
+
+
+def http_ready(port: int, path: str = "/"):
+    """A ready() for MqChild: any HTTP answer at `path`."""
+    def ready() -> bool:
+        c = HTTPConnection("127.0.0.1", port, timeout=2)
+        try:
+            c.request("GET", path)
+            c.getresponse().read()
+            return True
+        finally:
+            c.close()
+    return ready
+
+
+def grpc_ready(addr: str):
+    """A ready() for MqChild: a gRPC channel that connects."""
+    import grpc
+
+    def ready() -> bool:
+        with grpc.insecure_channel(addr) as ch:
+            try:
+                grpc.channel_ready_future(ch).result(timeout=1)
+                return True
+            except grpc.FutureTimeoutError:
+                return False
+    return ready
+
+
+class BrokerChild(MqChild):
+    """Phase 20's `mq.broker` child over the filer at `fport`, with a
+    parity directory and a status plane; `restart()` spawns it again by
+    name with the same flags."""
+
+    def __init__(self, work: str, fport: int, ports: tuple[int, int] | None = None):
+        self.work, self.fport = work, fport
+        self.dir = os.path.join(work, "mq20")
+        os.makedirs(self.dir, exist_ok=True)
+        self.port, self.sport = ports or (server_port(), server_port())
+        self.addr = f"127.0.0.1:{self.port}"
+        super().__init__(self.dir, "broker", [
+            "mq.broker", "-ip", "127.0.0.1", "-port", str(self.port), "-filer",
+            f"127.0.0.1:{fport}", "-parityDir", os.path.join(self.dir, "parity"),
+            "-statusPort", str(self.sport)], self._ready)
+
+    def _ready(self) -> bool:
+        http_ready(self.sport, "/status")()
+        # torch at the moment it serves, from its own sys.modules
+        self.serving["torch_at_serving"] = self.get("/debug/kernels", "20")["torch"]
+        return True
+
+    def get(self, path: str, phase: str):
+        code, _, body = http(f"http://127.0.0.1:{self.sport}{path}")
+        if code != 200:
+            raise AssertionError(f"{phase}: the broker's {path} answered {code}")
+        return json.loads(body)
+
+    def restart(self) -> "BrokerChild":
+        return BrokerChild(self.work, self.fport, (self.port, self.sport))
+
+
+def mq20_configure(broker: BrokerChild, out: dict) -> None:
+    """20.0, on a thread started as the broker child spawns: wait for it
+    to serve, then the first durable-parity ConfigureTopic, which loads
+    torch inside the RPC; `out` gets its seconds or the error."""
+    from seaweedfs_tpu_torch.mq import MqClient
+
+    try:
+        broker.wait("20.0")
+        c = MqClient(broker.addr)
+        t0 = time.perf_counter()
+        try:
+            c.configure_topic(MQ20_TOPIC, partitions=MQ20_PARTITIONS, namespace=MQ20_NS,
+                              durable_parity=True)
+        finally:
+            c.close()
+        out["configure_s"] = time.perf_counter() - t0
+    except BaseException as e:  # noqa: BLE001 - raised by the phase
+        out["error"] = e
+
+
+def mq20_trio(root: str, keys: bytes, values: bytes) -> dict:
+    """20d: three port `MqBrokerServer`s in this process, memory-only,
+    each with its own parity directory, `peers` all three, pinged every
+    0.2 s. Topic `ha` (4 partitions, durable parity on the card) takes
+    MQ20_HA_RECORDS through the first broker, forwarded to each leader
+    and replicated to each follower; with every stream drained, partition
+    0's leader (asked at that moment) is stopped, its old follower must
+    lead and serve every record of partition 0 byte-exact, and a publish
+    through a survivor takes the next offset. Launches == the streams'
+    parity dispatches (`stream_encode.dispatch_count`)."""
+    from seaweedfs_tpu_torch.ec import net_plane, stream_encode
+    from seaweedfs_tpu_torch.mq import MqBrokerServer, MqClient
+    from seaweedfs_tpu_torch.ops import rs_kernels
+    from seaweedfs_tpu_torch.pb import mq_pb2 as mq
+
+    t_phase = time.perf_counter()
+    launches0, dispatches0 = dict(rs_kernels.LAUNCHES), stream_encode.dispatch_count()
+    ports = [net_plane.free_grpc_port() for _ in range(3)]
+    peers = [f"127.0.0.1:{p}" for p in ports]
+    brokers, clients = [], []
+    try:
+        for i, p in enumerate(ports):
+            b = MqBrokerServer(ip="127.0.0.1", grpc_port=p, peers=peers,
+                               parity_dir=os.path.join(root, f"ha{i}"))
+            b.balancer.ping_interval = 0.2
+            b.start()
+            brokers.append(b)
+        clients = [MqClient(a) for a in peers]
+        clients[0].configure_topic("ha", partitions=MQ20_PARTITIONS)
+        for b in brokers:
+            st = b.broker.topic("default", "ha")
+            if not st.durable_parity or sorted(st.parity) != list(range(MQ20_PARTITIONS)):
+                raise AssertionError("20d: a broker of the group has no parity for topic ha")
+        errors: list = []
+
+        def publish(p: int) -> None:
+            try:
+                for i in range(p, MQ20_HA_RECORDS, MQ20_PARTITIONS):
+                    r = clients[0].stub.Publish(mq.PublishRequest(
+                        topic=mq.Topic(namespace="default", name="ha"), partition=p,
+                        message=mq.DataMessage(key=keys[i * MQ_KEY:(i + 1) * MQ_KEY],
+                                               value=values[i * MQ_VALUE:(i + 1) * MQ_VALUE],
+                                               ts_ns=MQ20_TS0 + i)), timeout=30)
+                    if r.error or r.offset != i // MQ20_PARTITIONS:
+                        raise AssertionError(f"20d: publish {i} answered {r.error!r} at {r.offset}")
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=publish, args=(p,)) for p in range(MQ20_PARTITIONS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        publish_s = time.perf_counter() - t0
+        wait_until(lambda: all(pp.pending_bytes() == 0 for b in brokers
+                               for pp in b.broker.topic("default", "ha").parity.values()),
+                   "every stream of the group drained", phase="20d")
+        look = clients[0].stub.LookupTopicBrokers(mq.LookupTopicBrokersRequest(
+            topic=mq.Topic(namespace="default", name="ha")), timeout=30)
+        a0 = next(a for a in look.assignments if a.partition == 0)
+        lead, fol = peers.index(a0.leader), peers.index(a0.follower)
+        per = MQ20_HA_RECORDS // MQ20_PARTITIONS
+        held = {i: len(brokers[i].broker.topic("default", "ha").logs[0].read_from(0, per + 1))
+                for i in (lead, fol)}
+        if held != {lead: per, fol: per}:
+            raise AssertionError(f"20d: partition 0 held {held} by leader {lead} and follower {fol}")
+        t0 = time.perf_counter()
+        brokers[lead].stop()
+        survivor = ({0, 1, 2} - {lead, fol}).pop()
+
+        def promoted() -> bool:
+            look = clients[survivor].stub.LookupTopicBrokers(mq.LookupTopicBrokersRequest(
+                topic=mq.Topic(namespace="default", name="ha")), timeout=30)
+            return next(a for a in look.assignments if a.partition == 0).leader == peers[fol]
+
+        promote_s = wait_until(promoted, "the old follower leading partition 0", timeout=15,
+                               phase="20d")
+        got = list(clients[fol].subscribe("ha", 0, start_offset=0))
+        for n, r in enumerate(got):
+            i = n * MQ20_PARTITIONS
+            if (r.offset, r.message.ts_ns, r.message.key, r.message.value) != (
+                    n, MQ20_TS0 + i, keys[i * MQ_KEY:(i + 1) * MQ_KEY],
+                    values[i * MQ_VALUE:(i + 1) * MQ_VALUE]):
+                raise AssertionError(f"20d: the promoted follower's record {n} differs")
+        if len(got) != per:
+            raise AssertionError(f"20d: the promoted follower served {len(got)} of {per} records")
+        after = clients[survivor].publish("ha", b"post-failover", partition=0)
+        if after != (0, per):
+            raise AssertionError(f"20d: a publish through a survivor answered {after}")
+        failover_s = time.perf_counter() - t0
+        for i, b in enumerate(brokers):
+            if i != lead:
+                b.stop()
+    finally:
+        for c in clients:
+            c.close()
+        for b in brokers:
+            try:
+                b.stop()
+            except Exception:  # noqa: BLE001 - stopped already
+                pass
+    launches = {k: rs_kernels.LAUNCHES[k] - launches0[k] for k in launches0}
+    dispatches = stream_encode.dispatch_count() - dispatches0
+    if launches != {"gf2_apply": dispatches, "gf2_apply_planes": 0} or dispatches < 1:
+        raise AssertionError(f"20d: the group launched {launches} for {dispatches} dispatches")
+    return {"records": MQ20_HA_RECORDS, "publish_s": publish_s,
+            "records_per_s": MQ20_HA_RECORDS / publish_s, "leader": lead, "follower": fol,
+            "promote_s": promote_s, "failover_s": failover_s, "launches": launches,
+            "dispatches": dispatches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict,
+                    configurer: threading.Thread, senv, work: str) -> tuple[dict, dict]:
+    """Phase 20: the MQ broker by name on phase 19's child. 20.0 (begun
+    behind phase 19): the `mq.broker` child over the child's filer, whose
+    /topics/ go to collection MQ20_COLLECTION, serving without torch, and
+    the first durable-parity ConfigureTopic. 20a: MQ20_RECORDS of phase
+    7b's 1 KB records published by 4 threads with their own clients into
+    bench/omb while group g1 follows every partition and commits; the
+    parity lag sampled from /status. 20b: the shell's 8 mq.* answering
+    `mq20_shell_steps`. 20c: every stream drained, the collection sealed
+    by ec.encode at the child (launches == batches) and data shard 0
+    unmounted, the broker SIGKILLed and spawned again by name: every
+    record back byte-exact through Subscribe (the sealed segments through
+    the filer with data shard 0 gone, planes launches at the child ==
+    reconstructions; the tail replayed from the parity streams, launches
+    in the broker == the durable stripes), g1's offsets back. 20d (while
+    the broker restarts): `mq20_trio`. 20e: an `mq.agent` child by name
+    (a session of MQ20_AGENT_RECORDS and an acked subscription) and a
+    `filer -notify.mq` child by name, MQ20_FILES written through it, every
+    event on default/filer-events. Every child SIGTERMed, exit 0 within
+    CHILD_STOP_S. Returns (result, launches)."""
+    import grpc
+
+    from seaweedfs_tpu_torch.ec import load_stream_journal
+    from seaweedfs_tpu_torch.mq import MqClient
+    from seaweedfs_tpu_torch.mq.stream_parity import parity_context
+    from seaweedfs_tpu_torch.pb import mq_pb2 as mq
+    from seaweedfs_tpu_torch.pb import rpc
+
+    t_phase = time.perf_counter()
+    redials0 = CONNECT_RETRIES[0]
+    walls, children, launches, dispatches = {}, {}, {}, {}
+    root = broker.dir
+    n = MQ20_RECORDS
+    per = n // MQ20_PARTITIONS
+    rec_bytes = mq_record_bytes()
+    keys, values = mq20_source(n)
+    agent = filer = None
+    clients: list = []
+
+    def record(i: int) -> tuple:
+        return (MQ20_TS0 + i, keys[i * MQ_KEY:(i + 1) * MQ_KEY],
+                values[i * MQ_VALUE:(i + 1) * MQ_VALUE])
+
+    try:
+        # -- 20.0. the child served without torch; the first parity topic --------------
+        t0 = time.perf_counter()
+        configurer.join(timeout=MQ20_START_S)
+        if "error" in configured:
+            raise AssertionError(f"20.0: {configured['error']!r}: {broker.log_tail()}")
+        if "configure_s" not in configured:
+            raise AssertionError(f"20.0: ConfigureTopic did not return: {broker.log_tail()}")
+        served = broker.wait("20.0")
+        if served["torch_at_serving"] or served["torch_mapped"]:
+            raise AssertionError(f"20.0: the broker child had torch loaded when it served: {served}")
+        if not broker.get("/debug/kernels", "20.0")["torch"]:
+            raise AssertionError("20.0: a durable-parity topic attached with no torch loaded")
+        children["broker_serving_s"] = served["serving_s"]
+        children["broker_torch_at_serving"] = served["torch_at_serving"]
+        children["configure_parity_topic_s"] = configured["configure_s"]
+        walls["20.0 wait"] = time.perf_counter() - t0
+
+        # -- 20a. publish and consume -------------------------------------------------
+        t0 = time.perf_counter()
+        t_send, t_recv = np.zeros(n), np.zeros(n)
+        errors: list = []
+        clients = [MqClient(broker.addr) for _ in range(2 * MQ20_PARTITIONS)]
+        delivered = [0] * MQ20_PARTITIONS
+        done_publishing = threading.Event()
+
+        def publish(p: int) -> None:
+            c = clients[p]
+            try:
+                for i in range(p, n, MQ20_PARTITIONS):
+                    ts, key, value = record(i)
+                    t_send[i] = time.perf_counter()
+                    r = c.stub.Publish(mq.PublishRequest(
+                        topic=mq.Topic(namespace=MQ20_NS, name=MQ20_TOPIC), partition=p,
+                        message=mq.DataMessage(key=key, value=value, ts_ns=ts)), timeout=30)
+                    if r.error or (r.partition, r.offset) != (p, i // MQ20_PARTITIONS):
+                        raise AssertionError(f"20a: publish {i} answered {r.error!r} "
+                                             f"at {r.partition}/{r.offset}")
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        def consume(p: int) -> None:
+            c = clients[MQ20_PARTITIONS + p]
+            try:
+                for r in c.subscribe(MQ20_TOPIC, p, start_offset=0, namespace=MQ20_NS,
+                                     consumer_group="g1", follow=True, timeout=300):
+                    i = r.offset * MQ20_PARTITIONS + p
+                    t_recv[i] = time.perf_counter()
+                    if (r.partition, r.message.ts_ns, r.message.key, r.message.value) != (
+                            p, *record(i)):
+                        raise AssertionError(f"20a: record {i} delivered differs")
+                    delivered[p] += 1
+                    if (r.offset + 1) % MQ20_COMMIT_EVERY == 0:
+                        c.commit(MQ20_TOPIC, p, "g1", r.offset + 1, namespace=MQ20_NS)
+                    if delivered[p] == per:
+                        return
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        lag_samples, pending_samples = [], []
+
+        def sample() -> None:
+            while not done_publishing.wait(0.1):
+                try:
+                    st = broker.get("/status", "20a")["parity"][f"{MQ20_NS}/{MQ20_TOPIC}"]
+                except (AssertionError, KeyError):
+                    continue
+                lag_samples.append(max(v["parity_lag_ms"] for v in st.values()))
+                pending_samples.append(sum(v["pending_bytes"] for v in st.values()))
+
+        consumers = [threading.Thread(target=consume, args=(p,)) for p in range(MQ20_PARTITIONS)]
+        publishers = [threading.Thread(target=publish, args=(p,)) for p in range(MQ20_PARTITIONS)]
+        sampler = threading.Thread(target=sample, daemon=True)
+        for t in consumers:
+            t.start()
+        sampler.start()
+        t_pub = time.perf_counter()
+        for t in publishers:
+            t.start()
+        for t in publishers:
+            t.join()
+        publish_s = time.perf_counter() - t_pub
+        for t in consumers:
+            t.join(timeout=120)
+        done_publishing.set()
+        sampler.join(timeout=10)
+        if errors:
+            raise errors[0]
+        if delivered != [per] * MQ20_PARTITIONS:
+            raise AssertionError(f"20a: group g1 got {delivered} of {per} a partition")
+        lat = t_recv - t_send
+        step_a = {
+            "records": n, "record_bytes": rec_bytes, "publish_s": publish_s,
+            "records_per_s": n / publish_s, "mb_per_s": n * rec_bytes / publish_s / 1e6,
+            "publish_to_delivery_p50_ms": percentile_ms(lat.tolist(), 50),
+            "publish_to_delivery_p99_ms": percentile_ms(lat.tolist(), 99),
+            "parity_lag_samples": len(lag_samples),
+            "parity_lag_p50_ms": float(np.percentile(lag_samples, 50)) if lag_samples else None,
+            "parity_lag_max_ms": max(lag_samples) if lag_samples else None,
+            "pending_bytes_max": max(pending_samples) if pending_samples else None}
+        walls["20a"] = time.perf_counter() - t0
+
+        # -- 20b. the shell's 8 mq.* ----------------------------------------------------
+        t0 = time.perf_counter()
+        import importlib.util
+
+        archived = 2 if importlib.util.find_spec("pyarrow") else 0
+        shell = mq20_run_shell(senv, broker.addr, [per] * MQ20_PARTITIONS, archived, clients[0])
+        walls["20b"] = time.perf_counter() - t0
+
+        # -- 20c. drained, sealed, killed, replayed -------------------------------------
+        t0 = time.perf_counter()
+        wait_until(lambda: all(v["pending_bytes"] == 0 for v in broker.get("/status", "20c")
+                               ["parity"][f"{MQ20_NS}/{MQ20_TOPIC}"].values()),
+                   "every partition's parity drained", phase="20c")
+        walls["drain"] = time.perf_counter() - t0
+        committed = [clients[0].committed(MQ20_TOPIC, p, "g1", namespace=MQ20_NS)
+                     for p in range(MQ20_PARTITIONS)]
+        if committed != [per] * MQ20_PARTITIONS:
+            raise AssertionError(f"20c: g1 committed {committed}")
+        seal: dict = {}
+        vids, batches, _ = seal_collection(senv, child.mport, child.vport,
+                                           os.path.join(child.root, "d"), MQ20_COLLECTION, "20c",
+                                           seal)
+        walls.update({f"20c {k}": v for k, v in seal.items()})
+        at_seal = child_kernels(child, "20c")
+        ctx = parity_context()
+        stripes = 0
+        for p in range(MQ20_PARTITIONS):
+            d = os.path.join(root, "parity", MQ20_NS, MQ20_TOPIC, f"{p:04d}")
+            for g in gens_of(d):
+                j = load_stream_journal(os.path.join(d, f"gen-{g:08d}"))
+                stripes += -(-j.durable // (ctx.data_shards * j.block_size))
+        # every launch of the broker's first run is one of its streams'
+        # parity dispatches (its flushes)
+        k1 = broker.get("/debug/kernels", "20c")
+        run1, dispatches["broker run 1"] = k1["launches"], k1["stream_dispatches"]
+        launches["broker run 1"] = run1
+        if run1 != {"gf2_apply": k1["stream_dispatches"], "gf2_apply_planes": 0} or (
+                k1["stream_dispatches"] < 1):
+            raise AssertionError(f"20c: the broker's first run launched {run1} for "
+                                 f"{k1['stream_dispatches']} stream dispatches")
+        t_kill = time.perf_counter()
+        broker.kill()
+        broker = broker.restart()
+        aport = server_port()
+        agent = MqChild(root, "agent", ["mq.agent", "-ip", "127.0.0.1", "-port", str(aport),
+                                        "-broker", broker.addr], grpc_ready(f"127.0.0.1:{aport}"))
+
+        # -- 20d. a group of three in this process, while the broker restarts -------------
+        ha = mq20_trio(root, keys, values)
+        launches["20d group (this process)"] = ha.pop("launches")
+        dispatches["20d group (this process)"] = ha.pop("dispatches")
+
+        # -- 20c (cont.). everything back -------------------------------------------------
+        t0 = time.perf_counter()
+        served = broker.wait("20c")
+        children["broker_restart_serving_s"] = served["serving_s"]
+        for c in clients:
+            c.close()
+        clients = [MqClient(broker.addr)]
+        t_read = time.perf_counter()
+        for p in range(MQ20_PARTITIONS):
+            got = list(clients[0].subscribe(MQ20_TOPIC, p, start_offset=0, namespace=MQ20_NS,
+                                            timeout=120))
+            if len(got) != per:
+                raise AssertionError(f"20c: partition {p} replayed {len(got)} of {per} records")
+            for o, r in enumerate(got):
+                i = o * MQ20_PARTITIONS + p
+                if (r.offset, r.partition, r.message.ts_ns, r.message.key, r.message.value) != (
+                        o, p, *record(i)):
+                    raise AssertionError(f"20c: record {i} differs after the restart")
+        read_s = time.perf_counter() - t_read
+        # each sealed segment again, cold, by its chunks' fids at the child:
+        # the filer's chunk cache may hold chunks that 20a's consumers
+        # loaded when they fell behind a seal
+        from seaweedfs_tpu_torch.mq.log_buffer import encode_record
+        from seaweedfs_tpu_torch.shell.commands import run_command
+
+        chunks = 0
+        for p in range(MQ20_PARTITIONS):
+            path = f"/topics/{MQ20_NS}/{MQ20_TOPIC}/{p:04d}/seg-00000000.log"
+            meta = json.loads(run_command(senv, f"fs.meta.cat {path}"))
+            raw = b""
+            for c in sorted(meta["chunks"], key=lambda c: int(c["offset"])):
+                code, _, body = http(f"http://127.0.0.1:{child.vport}/{c['fid']}")
+                if code != 200:
+                    raise AssertionError(f"20c: GET {c['fid']} of {path} answered {code}")
+                raw += body
+                chunks += 1
+            want = b"".join(encode_record(o, *record(o * MQ20_PARTITIONS + p))
+                            for o in range(MQ20_SEGMENT))
+            if raw != want:
+                raise AssertionError(f"20c: {path} read by its chunks differs from its records")
+        committed = [clients[0].committed(MQ20_TOPIC, p, "g1", namespace=MQ20_NS)
+                     for p in range(MQ20_PARTITIONS)]
+        if committed != [per] * MQ20_PARTITIONS:
+            raise AssertionError(f"20c: g1's offsets came back as {committed}")
+        k2 = broker.get("/debug/kernels", "20c")
+        run2 = k2["launches"]
+        if run2 != {"gf2_apply": stripes, "gf2_apply_planes": 0} or k2["stream_dispatches"]:
+            raise AssertionError(f"20c: the replay launched {run2} for {stripes} durable stripes "
+                                 f"and {k2['stream_dispatches']} stream dispatches")
+        launches["broker run 2 replay"] = run2
+        now = child_kernels(child, "20c")
+        recon = now["interval_cache"]["loads"] - at_seal["interval_cache"]["loads"]
+        got_c = {k: now["launches"][k] - at_seal["launches"][k] for k in now["launches"]}
+        if got_c != {"gf2_apply": 0, "gf2_apply_planes": recon} or recon < 1:
+            raise AssertionError(f"20c: the child's reads from the seal on launched {got_c} for "
+                                 f"{recon} reconstructions")
+        launches["19's child"] = {"gf2_apply": batches, "gf2_apply_planes": recon}
+        step_c = {"volumes": vids, "batches": batches, "durable_stripes": stripes,
+                  "segment_chunks_read_cold": chunks, "reconstructions": recon, "kill_to_read_s": time.perf_counter() - t_kill,
+                  "read_s": read_s, "read_records_per_s": n / read_s, "committed": committed}
+        walls["20c back"] = time.perf_counter() - t0
+
+        # -- 20e. the agent and the notifier --------------------------------------------
+        t0 = time.perf_counter()
+        fport = server_port()
+        filer = MqChild(root, "filer", ["filer", "-ip", "127.0.0.1", "-port", str(fport),
+                                        "-master", f"127.0.0.1:{child.mport}", "-dir",
+                                        os.path.join(root, "filerdb"), "-store", "memory",
+                                        "-notify.mq", broker.addr], http_ready(fport))
+        served = agent.wait("20e")
+        children["agent_serving_s"], children["agent_torch_mapped"] = (
+            served["serving_s"], served["torch_mapped"])
+        with grpc.insecure_channel(f"127.0.0.1:{aport}") as ch:
+            stub = rpc.Stub(ch, rpc.MQ_AGENT_SERVICE)
+            sid = stub.StartPublishSession(mq.AgentStartPublishRequest(
+                name="agent20", partition_count=1, publisher_name="smoke"), timeout=30).session_id
+            t1 = time.perf_counter()
+            acks = [(a.ack_sequence, a.error, a.offset) for a in stub.PublishRecord(
+                (mq.AgentPublishRequest(session_id=sid if i == 0 else 0, key=record(i)[1],
+                                        value=record(i)[2]) for i in range(MQ20_AGENT_RECORDS)),
+                timeout=120)]
+            agent_publish_s = time.perf_counter() - t1
+            if acks != [(i + 1, "", i) for i in range(MQ20_AGENT_RECORDS)]:
+                raise AssertionError(f"20e: the agent acked {acks[:3]}... ({len(acks)})")
+            import queue as _queue
+
+            reqs: _queue.Queue = _queue.Queue()
+            reqs.put(mq.AgentSubscribeRequest(init=mq.AgentSubscribeInit(
+                consumer_group="g20", name="agent20", partition=0, start_offset=0)))
+
+            def req_iter():
+                while (item := reqs.get()) is not None:
+                    yield item
+
+            got = []
+            for resp in stub.SubscribeRecord(req_iter(), timeout=120):
+                if resp.is_end_of_stream:
+                    continue
+                got.append((resp.offset, bytes(resp.key), bytes(resp.value)))
+                if resp.offset == MQ20_AGENT_RECORDS - 1:
+                    reqs.put(mq.AgentSubscribeRequest(ack_sequence=MQ20_AGENT_RECORDS))
+                    reqs.put(None)
+            if got != [(i, *record(i)[1:]) for i in range(MQ20_AGENT_RECORDS)]:
+                raise AssertionError(f"20e: the agent's subscription gave {len(got)} records")
+        wait_until(lambda: clients[0].committed("agent20", 0, "g20") == MQ20_AGENT_RECORDS,
+                   "the agent's ack committed at the broker", phase="20e")
+        walls["20e agent"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = filer.wait("20e")
+        children["filer_serving_s"], children["filer_torch_mapped"] = (
+            served["serving_s"], served["torch_mapped"])
+        if served["torch_mapped"]:
+            raise AssertionError("20e: the filer child with -notify.mq mapped torch")
+        rng = np.random.default_rng(MQ20_SEED + 1)
+        conn = RedialConnection("127.0.0.1", fport, timeout=60)
+        try:
+            for i in range(MQ20_FILES):
+                conn.request("PUT", f"/mq20/f{i:03d}.bin", body=rng.bytes(int(rng.integers(1, 4096))))
+                r = conn.getresponse()
+                r.read()
+                if r.status != 201:
+                    raise AssertionError(f"20e: PUT /mq20/f{i:03d}.bin answered {r.status}")
+        finally:
+            conn.close()
+        t_last = time.perf_counter()
+        names, next_off = set(), [0] * MQ20_PARTITIONS
+
+        def all_events() -> bool:
+            for p in range(MQ20_PARTITIONS):
+                for r in clients[0].subscribe("filer-events", p, start_offset=next_off[p]):
+                    next_off[p] = r.offset + 1
+                    ev = json.loads(r.message.value)
+                    if ev["directory"] == "/mq20" and ev.get("newEntry"):
+                        names.add(ev["newEntry"]["name"])
+            return len(names) == MQ20_FILES
+
+        lag = wait_until(all_events, "every file's event on default/filer-events", phase="20e")
+        walls["20e notifier"] = time.perf_counter() - t0
+        step_e = {"agent_records": MQ20_AGENT_RECORDS, "agent_publish_s": agent_publish_s,
+                  "agent_records_per_s": MQ20_AGENT_RECORDS / agent_publish_s,
+                  "files": MQ20_FILES, "events": sum(next_off),
+                  "last_write_to_last_event_s": lag, "write_s": t_last - t0}
+        # past the replay, every launch of the restarted broker is one of
+        # its streams' dispatches (20e's topics)
+        k3 = broker.get("/debug/kernels", "20e")
+        final, dispatches["broker run 2"] = k3["launches"], k3["stream_dispatches"]
+        if final != {"gf2_apply": stripes + k3["stream_dispatches"], "gf2_apply_planes": 0}:
+            raise AssertionError(f"20e: the restarted broker launched {final} for {stripes} "
+                                 f"replayed stripes and {k3['stream_dispatches']} stream dispatches")
+        launches["broker run 2"] = final
+        for c in clients:
+            c.close()
+        clients = []
+        rcs = {"filer": filer.stop(), "agent": agent.stop(), "broker": broker.stop()}
+        filer = agent = broker = None
+        if rcs != {"filer": 0, "agent": 0, "broker": 0}:
+            raise AssertionError(f"20: the children's exits on SIGTERM: {rcs}")
+    finally:
+        for c in clients:
+            c.close()
+        for ch in (filer, agent, broker):
+            if ch is not None and ch.proc.poll() is None:
+                ch.stop()
+    total = {k: sum(v[k] for name, v in launches.items() if name != "broker run 2 replay")
+             for k in ("gf2_apply", "gf2_apply_planes")}
+    result = {"steps": {"20a publish": step_a, "20b shell": shell, "20c replay": step_c,
+                        "20d group": ha, "20e agent and notifier": step_e},
+              "children": children, "launches": launches, "stream_dispatches": dispatches,
+              "walls": walls,
+              "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_phase,
+              "card": card_line()}
+    return result, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8910,6 +9649,7 @@ def main() -> int:
         # (and phase 19's S3 gateway child, whose imports overlap both) ------------
         t0 = time.perf_counter()
         tls_child, s3_child, s3_rc, ldap_srv, clb = TlsChild(work), None, None, None, None
+        mq_broker = mq_senv = None
         try:
             # phase 19b's identity providers: the LDAP stand-in in this
             # process, and the key whose public half the child's OIDC
@@ -8950,6 +9690,21 @@ def main() -> int:
             s3gw, s3gw_launches = s3_gateway_phase(s3_child, ctx)
             t19 = time.perf_counter() - t0
 
+            # -- 20.0, behind 19b and 19c: /topics/ to its own collection at
+            # the child's filer, the broker child by name, and on a thread
+            # the first durable-parity topic (torch loads in that RPC)
+            from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+
+            mq_senv = ShellEnv(f"127.0.0.1:{s3_child.mport}", f"127.0.0.1:{s3_child.fport}")
+            line = f"fs.configure -locationPrefix /topics/ -collection {MQ20_COLLECTION}"
+            if not run_command(mq_senv, line).startswith("configured /topics/"):
+                raise AssertionError(f"20.0: `{line}` failed")
+            mq_broker = BrokerChild(work, s3_child.fport)
+            mq_configured: dict = {}
+            mq_configurer = threading.Thread(target=mq20_configure, args=(mq_broker, mq_configured),
+                                             daemon=True)
+            mq_configurer.start()
+
             # -- 19b. S3 Tables, the IAM API, OIDC and LDAP on the same child -----
             t0 = time.perf_counter()
             tables, tables_launches = s3_tables_phase(s3_child, oidc_key)
@@ -8959,7 +9714,18 @@ def main() -> int:
             t0 = time.perf_counter()
             remote, remote19c_launches = remote_phase(s3_child, clb, work)
             t19c = time.perf_counter() - t0
+
+            # -- 20. the MQ broker by name on the same child ----------------------
+            t0 = time.perf_counter()
+            mq20, mq20_launches = mq_broker_phase(s3_child, mq_broker, mq_configured,
+                                                  mq_configurer, mq_senv, work)
+            mq_broker = None
+            t20 = time.perf_counter() - t0
         finally:
+            if mq_broker is not None and mq_broker.proc.poll() is None:
+                mq_broker.stop()
+            if mq_senv is not None:
+                mq_senv.close()
             if tls_child is not None:
                 tls_child.stop()
             if s3_child is not None:
@@ -9006,6 +9772,21 @@ def main() -> int:
               "reconstructions at each cluster; a worker child's iceberg task done, the table "
               "left with its current snapshot): " + json.dumps(remote))
         print(f"phase 19c: {t19c:.3f} s; card: {card_line()}")
+        print("20 the MQ broker by name (an `mq.broker` child over phase 19's filer, /topics/ in "
+              "collection mqseg, serving with no torch loaded; the first durable-parity topic, "
+              "bench/omb of 4 partitions, loading torch inside ConfigureTopic; 24,576 records of "
+              "1 KB published by 4 threads while group g1 follows and commits, every delivery "
+              "byte-exact; the shell's 8 mq.* line for line; every stream drained, the "
+              "collection sealed by ec.encode at the child, launches == batches, data shard 0 "
+              "unmounted, the broker SIGKILLed and spawned again by name: every record back "
+              "dense and byte-exact, the sealed segments through the filer with planes "
+              "launches == reconstructions at the child, the tail replayed from parity with "
+              "launches == durable stripes in the broker, g1's offsets back; a group of three "
+              "brokers in this process, partition 0's leader stopped and its follower serving "
+              "every record, launches == dispatches; an mq.agent child's session and acked "
+              "subscription; a `filer -notify.mq` child with no torch, every file's event on "
+              "default/filer-events; each child exiting 0 on SIGTERM): " + json.dumps(mq20))
+        print(f"phase 20: {t20:.3f} s; card: {card_line()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -9029,7 +9810,8 @@ def main() -> int:
           "18 tls": tls_launches["gf2_apply"],
           "19 s3 gateway": s3gw_launches["gf2_apply"],
           "19b s3 tables": tables_launches["gf2_apply"],
-          "19c remote": remote19c_launches["gf2_apply"]},
+          "19c remote": remote19c_launches["gf2_apply"],
+          "20 mq broker": mq20_launches["gf2_apply"]},
          main_row, rows),
         ("gf2_apply_planes", "seaweedfs_tpu/ops/rs_pallas.py:257",
          {"6 reads": read_launches, "7 decode": dec_launches,
@@ -9049,7 +9831,8 @@ def main() -> int:
           "18 tls": tls_launches["gf2_apply_planes"],
           "19 s3 gateway": s3gw_launches["gf2_apply_planes"],
           "19b s3 tables": tables_launches["gf2_apply_planes"],
-          "19c remote": remote19c_launches["gf2_apply_planes"]},
+          "19c remote": remote19c_launches["gf2_apply_planes"],
+          "20 mq broker": mq20_launches["gf2_apply_planes"]},
          read_row, prows),
     ):
         kernels.append({

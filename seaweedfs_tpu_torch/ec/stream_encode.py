@@ -47,7 +47,10 @@ of its `stage_seconds` dict (`write_sink`, `parity_update`,
 path, the queue's `admission_wait`; appends, sealed
 stripes, recovery outcomes, time-to-durable-parity and open streams are
 the registry's `sw_ec_stream_*` metrics (utils/metrics.py), read by
-:func:`stream_summary`.
+:func:`stream_summary`. The port also counts the parity batches that
+every encoder of the process dispatches (:func:`dispatch_count`), so a
+status plane can hold the kernels' launches to the work that caused
+them (the MQ broker's `/debug/kernels`).
 
 With no backend, the encoder and :func:`recover_stream` take the card
 (`get_backend("cuda", k, m)`) and raise where there is none.
@@ -144,6 +147,17 @@ _recovered = M.REGISTRY.counter(
     "EC stream recovery events by outcome",
     ("outcome",),
 )
+
+# Parity batches dispatched by every encoder of this process
+# (`_dispatch_apply`); recovery's per-stripe applies are not among them.
+_dispatches = 0
+_dispatch_lock = threading.Lock()
+
+
+def dispatch_count() -> int:
+    """Parity batches this process's encoders have dispatched."""
+    return _dispatches
+
 
 # Live encoders for the open-streams gauge and stream_summary(): weak, so
 # a dropped encoder is not kept alive by the roll-up.
@@ -412,6 +426,9 @@ class EcStreamEncoder:
         (DeviceQueue admission at `batch_cost(m, width)`, or a
         DirectStream when the scheduler is disabled); returns the
         m x width host delta."""
+        global _dispatches
+        with _dispatch_lock:
+            _dispatches += 1
         be = self._backend
         # the stream records "admission_wait" and "h2d_dispatch" on the
         # span itself; the stage table gets the dispatch's wall here

@@ -8,8 +8,11 @@ configuration.go, the webhook sink):
   JAX one field for field, so a meta log written by either package
   replays through the other's SubscribeMetadata;
 - `_AsyncNotifier`, the bounded queue with a delivery thread and retry
-  under utils/retry.py, and `WebhookNotifier`, which POSTs each event's
-  JSON record to a URL, asynchronously, never blocking the mutation path.
+  under utils/retry.py, `WebhookNotifier`, which POSTs each event's
+  JSON record to a URL, asynchronously, never blocking the mutation path,
+  and `MqNotifier`, which publishes it to a topic of the MQ broker
+  (`default/filer-events`, 4 partitions, keyed by the directory) through
+  the port's `MqClient`, which loads no torch.
 
 Where the port differs, on purpose: the JAX webhook posts through
 `requests`, which the card's host does not have; the port's posts the
@@ -17,10 +20,9 @@ same JSON bytes (`json.dumps(payload, allow_nan=False)`, the body
 `requests` builds from `json=`) over `http.client`, through
 `utils/urls.connection` so an https URL takes the process's client
 context. A 5xx answer or a connection error is retried, a 4xx is a
-permanent rejection, as in the JAX package. `MqNotifier` and
-`KafkaNotifier` publish through the MQ broker and the Kafka client,
-which the port has not taken yet: they raise, naming ROADMAP items 14a
-and 14b, and so does `make_notifier("mq" | "kafka")`.
+permanent rejection, as in the JAX package. `KafkaNotifier` publishes
+through the Kafka client, which the port has not taken yet: it raises,
+naming ROADMAP item 14b, and so does `make_notifier("kafka")`.
 """
 
 from __future__ import annotations
@@ -175,13 +177,32 @@ class WebhookNotifier(_AsyncNotifier):
 
 
 class MqNotifier(_AsyncNotifier):
-    """Publishes events to a topic on the framework's MQ broker: not
-    served by the port yet."""
+    """Publishes events to a topic on the framework's MQ broker."""
 
     def __init__(self, broker: str, topic: str = "filer-events", namespace: str = "default"):
-        raise RuntimeError(
-            f"MQ notification to {broker}: the port has no MQ broker yet: it comes with "
-            "ROADMAP.md item 14a")
+        from ..mq import MqClient
+
+        self.client = MqClient(broker)
+        self.topic = topic
+        self.namespace = namespace
+        try:
+            self.client.configure_topic(topic, partitions=4, namespace=namespace)
+        except Exception:
+            pass
+        super().__init__()
+
+    def _deliver(self, payload: dict) -> bool:
+        self.client.publish(
+            self.topic,
+            json.dumps(payload).encode(),
+            key=(payload.get("directory") or "").encode(),
+            namespace=self.namespace,
+        )
+        return True
+
+    def close(self) -> None:
+        super().close()
+        self.client.close()
 
 
 class KafkaNotifier(_AsyncNotifier):

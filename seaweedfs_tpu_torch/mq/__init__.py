@@ -1,21 +1,35 @@
-"""Message queue on the port: the durable-parity partition stream
-(`stream_parity.PartitionParity`), port of seaweedfs_tpu/mq/stream_parity.py.
-The broker, its logs and its flusher are not ported yet."""
+"""Message queue on the port (layer 7): the broker, its partition logs,
+the pub/sub client, and the durable-parity partition stream
+(`stream_parity.PartitionParity`). Port of seaweedfs_tpu/mq, less the
+Kafka gateway (`mq/kafka/`, ROADMAP item 14b).
 
-from .stream_parity import (
-    GEN_PREFIX,
-    PartitionParity,
-    decode_dense,
-    dense_frame_scan,
-    encode_record,
-    parity_context,
-)
+The package loads its modules on first use (PEP 562 `__getattr__`), as
+`ec` does: `from ..mq import MqClient`, as the filer's notifier and the
+shell do, imports no torch. Only `stream_parity` does, through the EC
+stream's backend, and the broker imports it where a topic with durable
+parity attaches its stream.
+"""
 
-__all__ = [
-    "GEN_PREFIX",
-    "PartitionParity",
-    "decode_dense",
-    "dense_frame_scan",
-    "encode_record",
-    "parity_context",
-]
+import importlib
+
+# each exported name by the module that defines it
+_MODULES = {
+    "broker": ("MqBroker", "MqBrokerServer", "MqService"),
+    "client": ("MqClient",),
+    "log_buffer": ("PartitionLog", "decode_records", "encode_record"),
+    "stream_parity": ("GEN_PREFIX", "ParityFlusher", "PartitionParity", "decode_dense",
+                      "dense_frame_scan", "parity_context"),
+}
+_WHERE = {name: (mod, name) for mod, names in _MODULES.items() for name in names}
+
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name: str):
+    try:
+        mod, attr = _WHERE[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(importlib.import_module(f".{mod}", __name__), attr)
+    globals()[name] = value
+    return value

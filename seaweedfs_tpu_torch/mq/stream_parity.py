@@ -22,7 +22,8 @@ symlink, or on a volume server's net plane, pushed at every flush over
 the blob-write opcode. That is what lets an unsealed tail outlive the
 broker's host.
 
-What the port leaves out: the broker and its `ParityFlusher`.
+`ParityFlusher` is the broker's one daemon that bounds every
+partition's lag (`MqBroker.parity_sweep`), as in the JAX package.
 ``SEAWEED_EC_STREAM_BACKEND`` names the backend, ``cuda`` (the default),
 ``cpu`` (the native `CpuBackend`) or ``auto`` (`get_backend("auto")`:
 the card behind a `FallbackBackend` when the probe finds one, else the
@@ -37,7 +38,6 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-import struct
 import threading
 
 from ..ec.backend import get_backend
@@ -53,19 +53,11 @@ from ..ec.stream_encode import (
 )
 
 from ..utils.security import sign_jwt
+from .log_buffer import _REC, encode_record
 
 log = logging.getLogger(__name__)
 
 GEN_PREFIX = "gen-"
-
-# Record wire format (seaweedfs_tpu/mq/log_buffer.py), LE:
-# [len u32 | offset i64 | ts_ns i64 | key_len u16 | key | value]
-_REC = struct.Struct("<IqqH")
-
-
-def encode_record(offset: int, ts_ns: int, key: bytes, value: bytes) -> bytes:
-    body_len = _REC.size - 4 + len(key) + len(value)
-    return _REC.pack(body_len, offset, ts_ns, len(key)) + key + value
 
 
 def _env_int(name: str, default: int) -> int:
@@ -609,3 +601,45 @@ def _unlink_quiet(path: str) -> None:
         os.unlink(path)
     except OSError:
         pass
+
+
+class ParityFlusher(threading.Thread):
+    """One broker-wide daemon bounding every partition's parity lag:
+    wakes at half the lag deadline, flushes partitions over their
+    bytes/age policy, rotates full generations, prunes generations
+    below the broker's durability floor."""
+
+    def __init__(self, broker, interval: float | None = None):
+        super().__init__(daemon=True, name="mq-parity-flusher")
+        self.broker = broker
+        self.interval = (
+            interval
+            if interval is not None
+            else max(max_lag_s_default() / 2.0, 0.01)
+        )
+        self._stop = threading.Event()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def run(self) -> None:
+        while not self._stop.wait(self._next_interval()):
+            try:
+                self.broker.parity_sweep()
+            except Exception as e:  # noqa: BLE001 — never kill the broker
+                log.warning("parity sweep failed: %r", e)
+
+    def _next_interval(self) -> float:
+        """Graceful-shed hook: under sustained device oversubscription
+        (residency shed level > 0) the flusher stretches its cadence —
+        stream-parity flush is background device work and must throttle
+        before any foreground admission is shed. Bounded stretch: the
+        lag deadline still holds eventually, it just stops compounding
+        an overload."""
+        try:
+            from ..ec.device_queue import shed_level
+
+            lvl = shed_level()
+        except Exception:  # the shed signal must never stall flushing
+            lvl = 0
+        return self.interval * (1 + lvl) if lvl > 0 else self.interval

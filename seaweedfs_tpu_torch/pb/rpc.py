@@ -3,8 +3,8 @@ both server handlers and client stubs are built.
 
 Port of seaweedfs_tpu/pb/rpc.py, trimmed to the services the port serves
 or calls: every RPC of the master, of the volume server, of raft, of the
-worker fleet's control plane and of the filer. The MQ services are not
-here yet. Server impls
+worker fleet's control plane, of the filer, of the MQ broker and of the
+MQ agent. Server impls
 are plain classes with one method per RPC (same names); streaming RPCs
 take and return iterators, as generated servicers do. `add_service`
 registers exactly the rows of a table.
@@ -16,6 +16,7 @@ import grpc
 
 from . import cluster_pb2 as pb
 from . import filer_pb2 as fpb
+from . import mq_pb2 as mq
 from . import worker_pb2 as wk
 
 UNARY = "unary_unary"
@@ -27,6 +28,8 @@ VOLUME_SERVICE = "sw.VolumeServer"
 FILER_SERVICE = "swfiler.SeaweedFiler"
 WORKER_SERVICE = "swworker.WorkerControl"
 RAFT_SERVICE = "sw.Raft"
+MQ_SERVICE = "swmq.Messaging"
+MQ_AGENT_SERVICE = "swmqagent.SeaweedMessagingAgent"
 
 SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
     # the RPCs server/master.py serves: every row of the JAX table
@@ -79,6 +82,31 @@ SERVICES: dict[str, dict[str, tuple[str, type, type]]] = {
         "VolumeTailReceiver": (UNARY, pb.VolumeTailReceiverRequest, pb.VolumeTailReceiverResponse),
         "VolumeIncrementalCopy": (SERVER_STREAM, pb.VolumeIncrementalCopyRequest, pb.VolumeIncrementalCopyChunk),
         "ReadVolumeFileStatus": (UNARY, pb.VolumeFileStatusRequest, pb.VolumeFileStatusResponse),
+    },
+    # the RPCs mq/broker.py's MqService serves: every row of the JAX table
+    MQ_SERVICE: {
+        "ConfigureTopic": (UNARY, mq.ConfigureTopicRequest, mq.ConfigureTopicResponse),
+        "ListTopics": (UNARY, mq.ListTopicsRequest, mq.ListTopicsResponse),
+        "Publish": (UNARY, mq.PublishRequest, mq.PublishResponse),
+        "Subscribe": (SERVER_STREAM, mq.SubscribeRequest, mq.SubscribeRecord),
+        "CommitOffset": (UNARY, mq.CommitOffsetRequest, mq.CommitOffsetResponse),
+        "FetchOffset": (UNARY, mq.FetchOffsetRequest, mq.FetchOffsetResponse),
+        "PartitionInfo": (UNARY, mq.PartitionInfoRequest, mq.PartitionInfoResponse),
+        "BrokerStatus": (UNARY, mq.BrokerStatusRequest, mq.BrokerStatusResponse),
+        "LookupTopicBrokers": (UNARY, mq.LookupTopicBrokersRequest, mq.LookupTopicBrokersResponse),
+        "FollowAppend": (UNARY, mq.FollowAppendRequest, mq.FollowAppendResponse),
+        "CompactTopic": (UNARY, mq.CompactTopicRequest, mq.CompactTopicResponse),
+        "DeleteTopic": (UNARY, mq.DeleteTopicRequest, mq.DeleteTopicResponse),
+        "TruncateTopic": (UNARY, mq.TruncateTopicRequest, mq.TruncateTopicResponse),
+        "RegisterSchema": (UNARY, mq.RegisterSchemaRequest, mq.RegisterSchemaResponse),
+        "GetSchema": (UNARY, mq.GetSchemaRequest, mq.GetSchemaResponse),
+    },
+    # mq/agent.py's MqAgentService
+    MQ_AGENT_SERVICE: {
+        "StartPublishSession": (UNARY, mq.AgentStartPublishRequest, mq.AgentStartPublishResponse),
+        "ClosePublishSession": (UNARY, mq.AgentClosePublishRequest, mq.AgentClosePublishResponse),
+        "PublishRecord": (BIDI, mq.AgentPublishRequest, mq.AgentPublishResponse),
+        "SubscribeRecord": (BIDI, mq.AgentSubscribeRequest, mq.AgentSubscribeResponse),
     },
     # the RPCs filer/grpc_service.py serves: every row of the JAX table
     FILER_SERVICE: {
@@ -155,6 +183,10 @@ def master_stub(channel: grpc.Channel) -> Stub:
 
 def volume_stub(channel: grpc.Channel) -> Stub:
     return Stub(channel, VOLUME_SERVICE)
+
+
+def mq_stub(channel: grpc.Channel) -> Stub:
+    return Stub(channel, MQ_SERVICE)
 
 
 def worker_stub(channel: grpc.Channel) -> Stub:

@@ -1,4 +1,4 @@
-"""`python -m seaweedfs_tpu_torch.server master|volume|filer|server|telemetry|scaffold`:
+"""`python -m seaweedfs_tpu_torch.server master|volume|filer|server|mq.broker|mq.agent|telemetry|scaffold`:
 port servers by name.
 
 Port of seaweedfs_tpu/server/__main__.py, its `master`, `volume`, `filer`
@@ -7,13 +7,16 @@ process, reference `weed server`, with a filer too under `-filer`, its
 metadata in `<dir>/filerdb`, and the S3 gateway over that filer under
 `-s3`, which implies `-filer`: `-s3Port`, identities from `-s3Config` or
 `s3.toml`'s `s3.config`, an admin key pair from `-s3AccessKey` and
-`-s3SecretKey`), `telemetry` (the phone-home collector,
+`-s3SecretKey`), `mq.broker` (mq/broker.py: segments in `-filer`,
+durable-parity streams in `-parityDir`, a group under `-peers`, `/status`,
+`/metrics` and `/debug/kernels` on `-statusPort`), `mq.agent` (mq/agent.py,
+in front of `-broker`), `telemetry` (the phone-home collector,
 utils/telemetry_server.py) and `scaffold` (a config template,
-utils/scaffold.py, printed or written to `-output`/<name>.toml);
-argparse refuses the other modes (mq.broker, mq.agent). The flags are
-the JAX launcher's. A flag left unset is filled from `volume.toml`,
+utils/scaffold.py, printed or written to `-output`/<name>.toml). The flags
+are the JAX launcher's. A flag left unset is filled from `volume.toml`,
 `master.toml`, `filer.toml` (`sqlite.dbFile`: the filer's directory) or
-`notification.toml` (`notification.webhook.endpoint`) (utils/config.py),
+`notification.toml` (`notification.webhook.endpoint`,
+`notification.mq.broker`) (utils/config.py),
 then from the default; `-jwt.key` falls back to `security.toml`'s
 `jwt.signing.key`, and `-tls.cert`, `-tls.key` and `-tls.ca` each fall
 back to its `https.default.*` key, field by field. A certificate turns
@@ -23,7 +26,8 @@ internal hop of the process speaks https (`utils/urls.py`
 `enable_https`); gRPC stays plaintext, as in the JAX package. A filer
 (`-store sqlite|sstable|memory`, its gRPC on `-grpcPort` or port+10000,
 `-peers` for the lock ring and the MetaAggregator, `-notify.webhook` for
-a webhook sink) serves server/filer_server.py. Where the two launchers
+a webhook sink, `-notify.mq` for a broker's `default/filer-events`) serves
+server/filer_server.py. Where the two launchers
 differ, on purpose:
 
 - `-ec.backend` takes cuda, cpu or auto and defaults to cuda, where the
@@ -33,8 +37,8 @@ differ, on purpose:
   at the CA alone.
 - What needs a module the port does not have yet stops it with a
   message, where the JAX launcher would start it: `server`'s `-webdav`,
-  `-sftp` and `-admin`, and `-notify.mq` (ROADMAP item 14a)
-  of `filer` and `server`, from the flag or from `notification.toml`.
+  `-sftp` and `-admin`, and `mq.broker`'s `-kafkaPort` (ROADMAP item
+  14b) and `-pgPort` (item 19).
 
 The master's maintenance scanners (`-ec.autoFullness`, or
 `master.maintenance.ec_auto_fullness`; `-ec.scrubInterval`;
@@ -189,6 +193,39 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument(flag, action="store_true", help="not served by the port yet")
     _add_tls_flags(s)
 
+    b = sub.add_parser("mq.broker")
+    b.add_argument("-ip", default="localhost")
+    b.add_argument("-port", type=int, default=17777)
+    b.add_argument("-filer", default="", help="filer host:port for durable segments")
+    b.add_argument("-segmentRecords", type=int, default=4096)
+    b.add_argument("-kafkaPort", type=int, default=-1,
+                   help="also speak the Kafka wire protocol on this port (-1 = off; not "
+                   "served by the port yet)")
+    b.add_argument("-pgPort", type=int, default=-1,
+                   help="serve PostgreSQL clients a SQL view over topics (-1 = off; not "
+                   "served by the port yet)")
+    b.add_argument("-pgUser", default="", help="user:password for PG auth (empty = trust)")
+    b.add_argument("-peers", default="",
+                   help="comma-separated broker group (grpc host:port,...) for "
+                   "partition balancing + follower replication")
+    b.add_argument("-statusPort", type=int, default=-1,
+                   help="HTTP operator plane: /status JSON (parity lag, broker loads), "
+                   "/metrics prometheus text and /debug/kernels (-1 = off)")
+    b.add_argument("-parityDir", default="",
+                   help="local dir for streaming-EC durable-parity log streams: "
+                   "topics get parity trailing the append head by a bounded lag "
+                   "(SEAWEED_EC_STREAM_* knobs) instead of waiting for segment "
+                   "seal, and the unsealed tail is crash-recoverable")
+    # the broker dials the filer: it needs the https switch from
+    # security.toml even though it has no HTTP listener of its own
+    _add_tls_flags(b)
+
+    ag = sub.add_parser("mq.agent", help="MQ agent: session facade for thin publish/subscribe "
+                        "clients (reference weed mq.agent)")
+    ag.add_argument("-ip", default="localhost")
+    ag.add_argument("-port", type=int, default=16777)
+    ag.add_argument("-broker", default="localhost:17777")
+
     ts = sub.add_parser("telemetry", help="telemetry collector server (reference telemetry/server)")
     ts.add_argument("-ip", default="localhost")
     ts.add_argument("-port", type=int, default=9999)
@@ -206,7 +243,8 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     `volume.toml`, `master.toml`, `filer.toml`, `notification.toml` and
     `s3.toml` (searched in `config_dirs`), then the
     defaults. SystemExit for a backend the port does not run and what
-    needs a module the port does not have yet."""
+    needs a module the port does not have yet (the broker's `-kafkaPort`
+    and `-pgPort` among them)."""
     p = _parser()
     a = p.parse_args(argv)
     if a.mode == "scaffold":
@@ -250,9 +288,13 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
                 a.notify_webhook = ncfg.get_str("notification.webhook.endpoint")
             if not a.notify_mq and ncfg.get("notification.mq.enabled"):
                 a.notify_mq = ncfg.get_str("notification.mq.broker")
-        if a.notify_mq:
-            p.error(f"-notify.mq {a.notify_mq}: the port has no MQ broker yet: it comes with "
-                    "ROADMAP.md item 14a")
+    if a.mode == "mq.broker":
+        from ..mq.broker import refuse_later_ports
+
+        try:
+            refuse_later_ports(a.kafkaPort, a.pgPort)
+        except ValueError as e:
+            p.error(str(e))
     if a.mode == "server":
         for flag in ("webdav", "sftp", "admin"):
             if getattr(a, flag):
@@ -283,8 +325,8 @@ def scaffold(a: argparse.Namespace) -> int:
 def build(argv=None, config_dirs=CONFIG_DIRS) -> list:
     """Build and start the servers the flags name: a master, a volume
     server, a filer, both of the first (`server`, with a filer under
-    `-filer` and the S3 gateway over it under `-s3`), or the telemetry
-    collector."""
+    `-filer` and the S3 gateway over it under `-s3`), an MQ broker, an
+    MQ agent, or the telemetry collector."""
     return start(resolve(argv, config_dirs))
 
 
@@ -309,6 +351,25 @@ def start(a: argparse.Namespace) -> list:
         tsrv.start()
         log.info("telemetry collector on %s:%s", a.ip, tsrv.port)
         return [tsrv]
+    if a.mode == "mq.agent":
+        from ..mq.agent import MqAgentServer
+
+        agent = MqAgentServer(a.broker, ip=a.ip, port=a.port)
+        agent.start()
+        log.info("mq agent on %s:%s -> broker %s", a.ip, agent.port, a.broker)
+        return [agent]
+    if a.mode == "mq.broker":
+        from ..mq.broker import MqBrokerServer
+
+        # -kafkaPort and -pgPort (and so -pgUser) were refused in resolve
+        bs = MqBrokerServer(
+            ip=a.ip, grpc_port=a.port, filer=a.filer, segment_records=a.segmentRecords,
+            peers=[p.strip() for p in a.peers.split(",") if p.strip()],
+            parity_dir=a.parityDir, status_port=a.statusPort)
+        bs.start()
+        log.info("mq broker on %s:%s (filer=%s%s)", a.ip, a.port, a.filer or "memory-only",
+                 f", status on :{bs.status_port}" if bs._status_httpd is not None else "")
+        return [bs]
     if a.mode in ("master", "server"):
         from .master import MasterServer
 
@@ -390,6 +451,11 @@ def start_filer(a: argparse.Namespace, tls):
 
         filer.subscribe(WebhookNotifier(a.notify_webhook))
         log.info("filer events -> webhook %s", a.notify_webhook)
+    if a.notify_mq:
+        from ..filer.notification import MqNotifier
+
+        filer.subscribe(MqNotifier(a.notify_mq))
+        log.info("filer events -> mq %s", a.notify_mq)
     fs = FilerServer(filer, ip=a.ip, port=fport, meta_log=MetaLog(os.path.join(dbdir, "metalog")),
                      grpc_port=fgrpc, peers=peers, tls=tls)
     fs.start()

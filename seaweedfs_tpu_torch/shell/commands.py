@@ -14,11 +14,12 @@ volume, EC, collection and lock commands, `upload` and `download`, the
 worker fleet's (`task.submit`, `task.list`, `worker.list`,
 `maintenance.config`), the filer's (`fs.*`, `volume.fsck`,
 `cluster.lock.ring`), S3's (`s3.*`: identities, policies, buckets and
-their quotas, in the filer) and remote storage's (`remote.*`, the filer's
-`/~remote/<op>`). The JAX shell's other commands need modules
-the port has not taken yet (MQ and mount);
-each answers one error line naming the ROADMAP.md item it comes with
-(`DEFERRED`).
+their quotas, in the filer), remote storage's (`remote.*`, the filer's
+`/~remote/<op>`) and the MQ broker's (`mq.*`: topics, schemas, compact,
+truncate and delete, over the broker's gRPC; they load no torch). The JAX
+shell's one other command, `mount.configure`, needs the mount, which the
+port has not taken yet: it answers one error line naming the ROADMAP.md
+item it comes with (`DEFERRED`).
 
 Where the port differs from the JAX shell:
 - the master's HTTP reads (`cluster.status`, `ec.balance -dataGravity`)
@@ -67,9 +68,6 @@ BACKENDS = ("cuda", "cpu", "auto")
 # yet, each with the ROADMAP.md item that brings it. They are not in
 # COMMANDS: run_command answers them with one error line.
 DEFERRED: dict[str, str] = {
-    **{c: "14a" for c in (
-        "mq.schema.get", "mq.schema.set", "mq.topic.compact", "mq.topic.configure",
-        "mq.topic.delete", "mq.topic.describe", "mq.topic.list", "mq.topic.truncate")},
     "mount.configure": "16",
 }
 
@@ -2890,3 +2888,182 @@ def remote_meta_sync(env: ShellEnv, args) -> str:
     p.add_argument("-dir", required=True)
     a = p.parse_args(args)
     return _remote_post(env, "meta.sync", {"dir": a.dir})
+
+
+# ---------------------------------------------------------------------- mq
+#
+# The broker's topics, schemas and maintenance, over its gRPC (the MQ
+# client and stubs load no torch).
+
+
+@command("mq.topic.list", "[-broker host:port] list topics")
+def mq_topic_list(env: ShellEnv, args) -> str:
+    from ..mq import MqClient
+
+    p = argparse.ArgumentParser(prog="mq.topic.list")
+    p.add_argument("-broker", default="localhost:17777")
+    a = p.parse_args(args)
+    c = MqClient(a.broker)
+    try:
+        topics = c.topics()
+        return (
+            "\n".join(f"{ns}/{name}  partitions={n}" for ns, name, n in topics)
+            or "(no topics)"
+        )
+    finally:
+        c.close()
+
+
+
+@command("mq.topic.configure", "-topic name [-partitions N] [-broker ...]")
+def mq_topic_configure(env: ShellEnv, args) -> str:
+    from ..mq import MqClient
+
+    p = argparse.ArgumentParser(prog="mq.topic.configure")
+    p.add_argument("-broker", default="localhost:17777")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-namespace", default="default")
+    p.add_argument("-partitions", type=int, default=4)
+    a = p.parse_args(args)
+    c = MqClient(a.broker)
+    try:
+        c.configure_topic(a.topic, a.partitions, a.namespace)
+        return f"configured {a.namespace}/{a.topic} with {a.partitions} partitions"
+    finally:
+        c.close()
+
+
+
+@command("mq.topic.describe", "-topic name [-broker ...] partition offsets")
+def mq_topic_describe(env: ShellEnv, args) -> str:
+    from ..mq import MqClient
+
+    p = argparse.ArgumentParser(prog="mq.topic.describe")
+    p.add_argument("-broker", default="localhost:17777")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-namespace", default="default")
+    a = p.parse_args(args)
+    c = MqClient(a.broker)
+    try:
+        infos = c.partition_info(a.topic, a.namespace)
+        return "\n".join(
+            f"partition {pi.partition}: offsets [{pi.earliest_offset}, "
+            f"{pi.next_offset}) ({pi.next_offset - pi.earliest_offset} records)"
+            for pi in infos
+        )
+    finally:
+        c.close()
+
+
+
+@command(
+    "mq.schema.set",
+    "-topic name -schema '<json>' [-namespace ns] [-broker host:port]",
+)
+def mq_schema_set(env: ShellEnv, args) -> str:
+    from ..pb import mq_pb2 as mqpb
+
+    p = argparse.ArgumentParser(prog="mq.schema.set")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-schema", required=True)
+    p.add_argument("-namespace", default="default")
+    p.add_argument("-broker", default="localhost:17777")
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.broker) as ch:
+        r = rpc.Stub(ch, rpc.MQ_SERVICE).RegisterSchema(
+            mqpb.RegisterSchemaRequest(
+                topic=mqpb.Topic(namespace=a.namespace, name=a.topic),
+                schema_json=a.schema,
+            ),
+            timeout=10,
+        )
+    return f"error: {r.error}" if r.error else f"schema registered for {a.topic}"
+
+
+
+@command("mq.schema.get", "-topic name [-namespace ns] [-broker host:port]")
+def mq_schema_get(env: ShellEnv, args) -> str:
+    from ..pb import mq_pb2 as mqpb
+
+    p = argparse.ArgumentParser(prog="mq.schema.get")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-namespace", default="default")
+    p.add_argument("-broker", default="localhost:17777")
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.broker) as ch:
+        r = rpc.Stub(ch, rpc.MQ_SERVICE).GetSchema(
+            mqpb.GetSchemaRequest(
+                topic=mqpb.Topic(namespace=a.namespace, name=a.topic)
+            ),
+            timeout=10,
+        )
+    return r.schema_json or f"no schema registered for {a.topic}"
+
+
+
+@command("mq.topic.compact", "-topic name [-broker ...] (archive sealed segments now)")
+def mq_topic_compact(env: ShellEnv, args) -> str:
+    from ..pb import mq_pb2 as mq
+
+    p = argparse.ArgumentParser(prog="mq.topic.compact")
+    p.add_argument("-broker", default="localhost:17777")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-ns", default="default")
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.broker) as ch:
+        r = rpc.mq_stub(ch).CompactTopic(
+            mq.CompactTopicRequest(ns=a.ns, name=a.topic), timeout=600
+        )
+    if r.error:
+        return f"error: {r.error}"
+    return f"archived {r.archived_segments} segments of {a.ns}/{a.topic}"
+
+
+
+@command(
+    "mq.topic.truncate",
+    "-topic name [-partition P] [-beforeOffset N] (drop old records)",
+)
+def mq_topic_truncate(env: ShellEnv, args) -> str:
+    from ..pb import mq_pb2 as mq
+
+    p = argparse.ArgumentParser(prog="mq.topic.truncate")
+    p.add_argument("-broker", default="localhost:17777")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-ns", default="default")
+    p.add_argument("-partition", type=int, default=-1)
+    p.add_argument("-beforeOffset", type=int, default=-1)
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.broker) as ch:
+        r = rpc.mq_stub(ch).TruncateTopic(
+            mq.TruncateTopicRequest(
+                ns=a.ns,
+                name=a.topic,
+                partition=a.partition,
+                before_offset=a.beforeOffset,
+            ),
+            timeout=600,
+        )
+    if r.error:
+        return f"error: {r.error}"
+    return (
+        f"truncated {r.truncated_partitions} partition(s) of "
+        f"{a.ns}/{a.topic}"
+    )
+
+
+
+@command("mq.topic.delete", "-topic name [-broker ...] (drop a topic and its data)")
+def mq_topic_delete(env: ShellEnv, args) -> str:
+    from ..pb import mq_pb2 as mq
+
+    p = argparse.ArgumentParser(prog="mq.topic.delete")
+    p.add_argument("-broker", default="localhost:17777")
+    p.add_argument("-topic", required=True)
+    p.add_argument("-ns", default="default")
+    a = p.parse_args(args)
+    with grpc.insecure_channel(a.broker) as ch:
+        r = rpc.mq_stub(ch).DeleteTopic(
+            mq.DeleteTopicRequest(ns=a.ns, name=a.topic), timeout=120
+        )
+    return f"error: {r.error}" if r.error else f"deleted topic {a.ns}/{a.topic}"

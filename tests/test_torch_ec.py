@@ -393,7 +393,8 @@ def test_import_guard_scans_every_package_of_the_port():
                 "filer/meta_log.py", "filer/filer.py", "filer/grpc_service.py",
                 "filer/meta_aggregator.py", "filer/tus.py", "filer/lock_ring.py",
                 "server/filer_server.py", "server/multipart.py", "client/filer_client.py",
-                *S3_MODULES, *REMOTE_MODULES):
+                "mq/stream_parity.py", "pb/mq_pb2.py", *S3_MODULES, *REMOTE_MODULES,
+                *MQ_MODULES):
         assert PORT / mod in _python_files(), mod
 
 
@@ -406,6 +407,11 @@ S3_MODULES = ("iam/__init__.py", "iam/policy.py", "iam/sts.py", "iam/oidc.py", "
 REMOTE_MODULES = ("remote/__init__.py", "remote/s3_client.py", "remote/providers.py",
                   "remote/mount.py", "replication/__init__.py", "replication/sync.py",
                   "replication/backup.py", "replication/s3_sink.py", "replication/__main__.py")
+
+# the MQ broker's modules but the durable-parity stream (which imports the
+# EC backend, and so torch)
+MQ_MODULES = ("mq/__init__.py", "mq/log_buffer.py", "mq/logstore.py", "mq/balancer.py",
+              "mq/broker.py", "mq/client.py", "mq/agent.py")
 
 # an HS256 bearer for issuer https://g signed with "k", and an LDAP bind
 # through the stand-in server, in the guards' child interpreters
@@ -485,6 +491,67 @@ assert replication_main(["-from", f"127.0.0.1:{port}", "-to", dest, "-path", "/d
 assert open(os.path.join(dest, "a.txt"), "rb").read() == b"small body"
 assert open(os.path.join(dest, "c.bin"), "rb").read() == b"raw body"
 assert call("DELETE", "/d?recursive=true")[0] == 204
+# the MQ broker with no durable-parity topic, its segments in a filer
+# launched on the parent's cluster; its status plane; the client, the
+# agent, the shell's mq.* and a filer launched with -notify.mq
+import socket, urllib.request
+import grpc
+import seaweedfs_tpu_torch.mq
+from seaweedfs_tpu_torch.mq import MqBrokerServer, MqClient
+from seaweedfs_tpu_torch.mq.agent import MqAgentServer
+from seaweedfs_tpu_torch.pb import mq_pb2, rpc
+from seaweedfs_tpu_torch.shell.commands import ShellEnv, run_command
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+bport = free_port()
+bservers = build(["filer", "-master", master, "-ip", "127.0.0.1", "-port", str(bport),
+                  "-dir", os.path.join(d, "b"), "-store", "memory"], config_dirs=())
+bk = MqBrokerServer(ip="127.0.0.1", grpc_port=free_port(), filer=f"127.0.0.1:{bport}",
+                    segment_records=4, status_port=0)
+bk.start()
+baddr = f"127.0.0.1:{bk.grpc_port}"
+mc = MqClient(baddr)
+mc.configure_topic("guard", partitions=1)
+for i in range(6):
+    mc.publish("guard", b"v%d" % i, partition=0)
+assert [r.message.value for r in mc.subscribe("guard", 0, start_offset=0)] == [b"v%d" % i for i in range(6)]
+with urllib.request.urlopen(f"http://127.0.0.1:{bk.status_port}/status", timeout=10) as r:
+    assert json.loads(r.read())["load_score"] == 0.0
+ag = MqAgentServer(baddr, ip="127.0.0.1")
+ag.start()
+ach = grpc.insecure_channel(f"127.0.0.1:{ag.port}")
+astub = rpc.Stub(ach, rpc.MQ_AGENT_SERVICE)
+sid = astub.StartPublishSession(mq_pb2.AgentStartPublishRequest(name="guard"), timeout=30).session_id
+acks = list(astub.PublishRecord(iter([mq_pb2.AgentPublishRequest(session_id=sid, value=b"a")]),
+                                timeout=30))
+assert [a.offset for a in acks] == [6]
+ach.close()
+senv = ShellEnv(master, f"127.0.0.1:{bport}")
+assert run_command(senv, f"mq.topic.describe -topic guard -broker {baddr}") == (
+    "partition 0: offsets [0, 7) (7 records)")
+assert run_command(senv, f"mq.topic.compact -topic guard -broker {baddr}").startswith("archived ")
+senv.close()
+nport = free_port()
+nservers = build(["filer", "-master", "127.0.0.1:1", "-ip", "127.0.0.1", "-port", str(nport),
+                  "-dir", os.path.join(d, "n"), "-store", "memory", "-notify.mq", baddr],
+                 config_dirs=())
+c = http.client.HTTPConnection("127.0.0.1", nport, timeout=30)
+c.request("PUT", "/n/e.txt", body=b"event")
+assert c.getresponse().status == 201
+c.close()
+deadline = time.time() + 30
+while not sum(p.next_offset for p in mc.partition_info("filer-events")):
+    assert time.time() < deadline, "no filer event reached the broker"
+    time.sleep(0.05)
+for srv in nservers:
+    srv.stop()
+mc.close()
+ag.stop()
+bk.stop()
+for srv in bservers:
+    srv.stop()
 for srv in servers:
     srv.stop()
 # the S3 gateway over a filer whose cluster runs in the parent process: a
@@ -548,7 +615,10 @@ print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
 
 def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     """The filer, its server (by the launcher's `filer` mode, its writes,
-    reads, renames and deletes included), the client's Operations, every
+    reads, renames and deletes included, and with `-notify.mq`), the MQ
+    package root, a filer-backed broker with no durable-parity topic, its
+    status plane, the MQ client and agent and the shell's `mq.*`, the
+    client's Operations, every
     S3 / IAM module and the S3 gateway serving a PUT and a GET over a
     filer whose cluster (a port master and volume server) runs in this
     process, remote storage (a mount read through that gateway) and
@@ -564,7 +634,7 @@ def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     mods = ["seaweedfs_tpu_torch.filer.filer", "seaweedfs_tpu_torch.server.filer_server",
             "seaweedfs_tpu_torch.server.multipart", "seaweedfs_tpu_torch.client.operations"] + [
         "seaweedfs_tpu_torch." + m[:-3].replace("/", ".").replace(".__init__", "")
-        for m in S3_MODULES + REMOTE_MODULES]
+        for m in S3_MODULES + REMOTE_MODULES + MQ_MODULES]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     mport = _ports()
     ms = MasterServer(ip="127.0.0.1", port=mport, vacuum_interval=3600)
@@ -935,6 +1005,19 @@ ops.close()
 tvs.stop()
 tms.stop()
 urls.disable_https()
+# a memory-only MQ broker with a durable-parity topic on the native CPU
+# backend, closed and replayed from its parity directory
+os.environ["SEAWEED_EC_STREAM_BACKEND"] = "cpu"
+from seaweedfs_tpu_torch.mq import MqBroker
+import seaweedfs_tpu_torch.mq.agent, seaweedfs_tpu_torch.mq.logstore
+br = MqBroker(parity_dir=os.path.join(d, "mqp"))
+br.configure_topic("default", "dp", 2)
+for i in range(50):
+    br.topic("default", "dp").logs[i % 2].append(i, b"k%d" % i, b"v" * 700)
+br.close()
+br = MqBroker(parity_dir=os.path.join(d, "mqp"))
+assert [len(br.topic("default", "dp").logs[p].read_from(0)) for p in (0, 1)] == [25, 25]
+br.close()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu", "requests"))
@@ -952,6 +1035,33 @@ def test_port_import_and_encode_leave_jax_out_of_sys_modules():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+_PARITY_BROKER = r"""
+import os, sys, tempfile
+os.environ["SEAWEED_EC_STREAM_BACKEND"] = "cpu"
+from seaweedfs_tpu_torch.mq import MqBroker
+d = tempfile.mkdtemp()
+br = MqBroker(parity_dir=d)
+br.configure_topic("default", "plain", 1, durable_parity=False)
+br.topic("default", "plain").logs[0].append(1, b"k", b"v")
+before = "torch" in sys.modules
+br.configure_topic("default", "dp", 1)
+br.topic("default", "dp").logs[0].append(1, b"k", b"v")
+br.close()
+print("TORCH", before, "torch" in sys.modules)
+"""
+
+
+def test_a_broker_loads_torch_where_a_durable_parity_topic_attaches():
+    """A broker takes a topic without parity with torch out of
+    `sys.modules`; the first durable-parity topic attaches its stream,
+    which loads the EC backend and torch."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _PARITY_BROKER], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TORCH False True" in proc.stdout, proc.stdout
 
 
 def test_default_backend_raises_without_a_card(monkeypatch):

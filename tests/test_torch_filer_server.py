@@ -21,7 +21,8 @@ the CPU:
 - a TLS filer serves https and refuses a plaintext client;
 - both packages' `WebhookNotifier`s against one local sink: equal JSON
   payloads in the same order, the same retries of a 5xx and the same drops
-  at queue overflow; `make_notifier("mq" | "kafka")` names items 14a/14b;
+  at queue overflow; `make_notifier("kafka")` names item 14b, and
+  `make_notifier("mq")` (item 14a, tests/test_torch_mq.py) is built;
 - `list_dir` and `walk` of both clients against one filer server, paged
   past 1024 entries, strict errors alike.
 """
@@ -534,11 +535,20 @@ def test_webhook_notifiers_deliver_alike(sink, case):
 
 @pytest.mark.parametrize("kind, item", [("mq", "14a"), ("kafka", "14b")])
 def test_mq_and_kafka_notifiers_name_their_items(kind, item):
-    with pytest.raises(RuntimeError, match=f"ROADMAP.md item {item}"):
-        p_notification.make_notifier(kind, "127.0.0.1:1")
-    cls = p_notification.MqNotifier if kind == "mq" else p_notification.KafkaNotifier
-    with pytest.raises(RuntimeError, match=f"ROADMAP.md item {item}"):
-        cls("127.0.0.1:1")
+    """Kafka's notifier still names its item; MQ's came with item 14a and
+    is built, as the JAX one is, where its broker is not up (the topic's
+    configure fails quietly; its events run in tests/test_torch_mq.py)."""
+    if kind == "mq":
+        for pkg in (p_notification, j_notification):
+            n = pkg.make_notifier(kind, "127.0.0.1:1")
+            assert type(n).__name__ == "MqNotifier" and (n.topic, n.namespace) == (
+                "filer-events", "default")
+            n.close()
+    else:
+        with pytest.raises(RuntimeError, match=f"ROADMAP.md item {item}"):
+            p_notification.make_notifier(kind, "127.0.0.1:1")
+        with pytest.raises(RuntimeError, match=f"ROADMAP.md item {item}"):
+            p_notification.KafkaNotifier("127.0.0.1:1")
     with pytest.raises(ValueError):
         p_notification.make_notifier("carrier-pigeon", "x")
     assert p_notification.DELIVERY_POLICY == p_notification.RetryPolicy(

@@ -9,11 +9,10 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
   SIGTERM; `server` mode runs a master and a volume server in one process
   that assign, take a POST, look it up and serve it;
 - `-ec.backend tpu` stops the launcher with a message and a nonzero
-  exit; so do the modes the port does not have (mq.broker), the flags of
-  `server` whose modules are not ported (`-webdav`, `-sftp`, `-admin`),
-  and `-notify.mq`
-  of `filer` and `server` (ROADMAP item 14a), from the flag or from
-  `notification.toml`;
+  exit; so do the flags of `server` whose modules are not ported
+  (`-webdav`, `-sftp`, `-admin`) and `mq.broker`'s `-kafkaPort` and
+  `-pgPort` (ROADMAP items 14b and 19); the `mq.*` modes themselves and
+  `-notify.mq` run in tests/test_torch_mq.py;
 - `filer` and `server -filer` children serve a file over HTTP and
   LookupDirectoryEntry over gRPC, post their events to a
   `-notify.webhook` sink and exit 0 on SIGTERM; `filer.toml`'s
@@ -162,10 +161,14 @@ def test_launcher_refuses_tpu_and_tls(tmp_path, case):
 
 
 def test_other_modes_are_refused():
-    for mode in ("mq.broker",):
+    """Every mode of the JAX launcher is served; what is left to refuse is
+    the broker's gateways of later items."""
+    for flag in ("-kafkaPort", "-pgPort"):
         with pytest.raises(SystemExit) as e:
-            launcher.resolve([mode, "-dir", "/nonexistent"], config_dirs=())
+            launcher.resolve(["mq.broker", flag, "0"], config_dirs=())
         assert e.value.code == 2
+    for mode in ("mq.broker", "mq.agent"):
+        assert launcher.resolve([mode], config_dirs=()).mode == mode
 
 
 def test_telemetry_mode_collects_by_name(tmp_path):
@@ -211,10 +214,10 @@ def test_scaffold_mode_prints_a_template_by_name(tmp_path):
     (["server", "-webdav"], "-webdav: the port has no webdav module yet"),
     (["server", "-sftp"], "-sftp: the port has no sftp module yet"),
     (["server", "-admin"], "-admin: the port has no admin module yet"),
-    (["server", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no MQ broker yet: it comes "
-     "with ROADMAP.md item 14a"),
-    (["filer", "-notify.mq", "b:1"], "-notify.mq b:1: the port has no MQ broker yet: it comes "
-     "with ROADMAP.md item 14a"),
+    (["mq.broker", "-kafkaPort", "9092"], "kafka port 9092: the port has no Kafka gateway yet: "
+     "it comes with ROADMAP.md item 14b"),
+    (["mq.broker", "-pgPort", "5432"], "pg port 5432: the port has no query engine yet: it "
+     "comes with ROADMAP.md item 19"),
     (["server", "-ec.backend", "tpu"], "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_unserved_flags_of_master_and_server_are_refused(capsys, args, want):
@@ -550,17 +553,6 @@ def test_launched_filer_serves_files_grpc_and_webhook_by_name(tmp_path, mode):
             srv.stop()
         hook.shutdown()
         hook.server_close()
-
-
-def test_launched_filer_refuses_notify_mq_naming_its_item(tmp_path):
-    (tmp_path / "notification.toml").write_text(
-        '[notification.mq]\nenabled = true\nbroker = "127.0.0.1:17777"\n')
-    for extra in ([], ["-notify.mq", "b:1"]):
-        proc = launch(tmp_path, "filer", "-master", "127.0.0.1:1", "-dir", str(tmp_path / "f"),
-                      *extra)
-        _, err = proc.communicate(timeout=120)
-        assert proc.returncode == 2 and "ROADMAP.md item 14a" in err, err
-    assert not (tmp_path / "f").exists()  # nothing was built
 
 
 def test_filer_and_notification_toml_fill_unset_flags(tmp_path):

@@ -117,6 +117,11 @@ REMOTE_COMMANDS = {
     "remote.configure", "remote.mount", "remote.unmount", "remote.cache", "remote.uncache",
     "remote.mount.buckets", "remote.meta.sync",
 }
+# the broker's commands, run against twin brokers in tests/test_torch_mq.py
+MQ_COMMANDS = {
+    "mq.topic.list", "mq.topic.configure", "mq.topic.describe", "mq.schema.set",
+    "mq.schema.get", "mq.topic.compact", "mq.topic.truncate", "mq.topic.delete",
+}
 FS_COLLECTION = "fs"  # the twins' filers write their chunks here
 S3_BUCKETS = ("b1", "b2", "b3")  # the s3.* steps' buckets, b1's objects in collection b1
 FS_CHUNK = 64 * 1024
@@ -891,9 +896,9 @@ def test_every_ported_command_ran_against_jax(twins):
 
 
 def test_registry_is_the_39_commands_of_the_jax_shell():
-    assert set(port_shell.COMMANDS) == PORTED | REMOTE_COMMANDS and len(PORTED) == 75
-    assert len(port_shell.COMMANDS) == 82
-    assert len(port_shell.DEFERRED) == 9 and "12b" not in port_shell.DEFERRED.values()
+    assert set(port_shell.COMMANDS) == PORTED | REMOTE_COMMANDS | MQ_COMMANDS
+    assert len(PORTED) == 75 and len(port_shell.COMMANDS) == 90
+    assert port_shell.DEFERRED == {"mount.configure": "16"}
     assert "18" not in port_shell.DEFERRED.values()
     assert "13b" not in port_shell.DEFERRED.values()
     assert set(port_shell.COMMANDS) <= set(jax_shell.COMMANDS)
@@ -919,7 +924,7 @@ def test_help_and_unknown_commands_answer_as_jax():
     env = types.SimpleNamespace()
     lines = port_shell.run_command(env, "help").splitlines()
     jax_lines = [ln for ln in jax_shell.run_command(env, "help").splitlines()
-                 if ln.split()[0] in PORTED | REMOTE_COMMANDS]
+                 if ln.split()[0] in PORTED | REMOTE_COMMANDS | MQ_COMMANDS]
     assert lines == [ln.replace("cpu|tpu|auto", "cpu|cuda|auto") for ln in jax_lines]
     assert port_shell.run_command(env, "?") == port_shell.run_command(env, "help")
     assert port_shell.run_command(env, "nope.cmd") == jax_shell.run_command(env, "nope.cmd")
@@ -1014,12 +1019,13 @@ def test_module_entry_point_runs_help_as_a_subprocess():
                            "127.0.0.1:1", "-c", "help"], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert [ln.split()[0] for ln in proc.stdout.splitlines()] == sorted(PORTED | REMOTE_COMMANDS)
+    assert [ln.split()[0] for ln in proc.stdout.splitlines()] == sorted(
+        PORTED | REMOTE_COMMANDS | MQ_COMMANDS)
     proc = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.shell", "-master",
-                           "127.0.0.1:1"], cwd=REPO, env=env, input="help\nmq.topic.list\nexit\n",
+                           "127.0.0.1:1"], cwd=REPO, env=env, input="help\nmount.configure\nexit\n",
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "error: mq.topic.list is not ported yet: it comes with ROADMAP.md item 14a" in proc.stdout
+    assert "error: mount.configure is not ported yet: it comes with ROADMAP.md item 16" in proc.stdout
 
 
 # ------------------------------------------------------- client/operations

@@ -440,6 +440,10 @@ def test_metrics_lint_package_wide():
                  "s3.versioning", "s3.sse", "s3.server", "s3.lifecycle"):
         assert f"seaweedfs_tpu_torch.{name}" in sys.modules and f"seaweedfs_tpu.{name}" in sys.modules
     assert "sw_s3_auth_memo_total" in {m.name for m in M.REGISTRY._metrics}
+    # the MQ broker's modules, with their counterparts
+    for name in ("mq.broker", "mq.balancer", "mq.client", "mq.agent",
+                 "mq.log_buffer", "mq.logstore", "mq.stream_parity"):
+        assert f"seaweedfs_tpu_torch.{name}" in sys.modules and f"seaweedfs_tpu.{name}" in sys.modules
 
     metrics = list(M.REGISTRY._metrics)
     assert len(metrics) >= 15
