@@ -387,8 +387,9 @@ Phases:
 
 20. the MQ broker by name on phase 19's child. Behind 19b and 19c:
    `fs.configure` sends the child's /topics/ to collection mqseg, an
-   `mq.broker -filer <the child's filer> -parityDir -statusPort` child
-   serves with no torch loaded (its `/debug/kernels`), and the first
+   `mq.broker -filer <the child's filer> -parityDir -statusPort
+   -kafkaPort` child (SEAWEED_MQ_GROUP_COMMIT_MS=10) serves with no
+   torch loaded (its `/debug/kernels`), and the first
    durable-parity ConfigureTopic (bench/omb, 4 partitions) loads torch
    inside the RPC. 20a: 24,576 of phase 7b's 1 KB records published by
    4 threads, each with its own `MqClient`, while group g1 follows every
@@ -396,14 +397,23 @@ Phases:
    partition seals one 4,096-record segment into the filer and keeps
    2,048 records that only its parity stream holds. 20b: the port
    shell's 8 `mq.*` answering `mq20_shell_steps` line for line (the CPU
-   twin test holds both packages to the same lines). 20c: every stream
-   drained, `ec.encode` of mqseg at the child (launches == batches), data
-   shard 0 unmounted, the broker SIGKILLed and spawned again by name:
-   every record back through Subscribe, dense and byte-exact, the sealed
+   twin test holds both packages to the same lines). 20f: the Kafka
+   topic kafka/k20 (durable parity, 2 partitions) created through the
+   gateway by the port's `KafkaClient`, 12,288 of phase 7b's records
+   produced in requests of 128 with acks=-1 from 2 connections, gzip,
+   snappy, lz4, none and zstd (where the host has `zstandard`) in turn,
+   each ack held by the broker's group commit; group kg joins, syncs,
+   fetches every record byte-exact and commits; group-commit windows
+   between 1 and the produce requests, `/status` with `kafka_pool`. 20c:
+   every stream drained, `ec.encode` of mqseg at the child (launches ==
+   batches), data shard 0 unmounted, 20f's final cohort of 256 acked
+   records and the broker SIGKILLed within 50 ms of its last ack, then
+   spawned again by name: every record back through Subscribe and every
+   acked Kafka record through Fetch (the spool), dense and byte-exact, the sealed
    segments through the filer with shard 0 gone (planes launches at the
    child == its reconstructions), the tail replayed from the parity
-   streams (launches in the broker == the durable stripes), g1's offsets
-   back. 20d, while the broker restarts: three port brokers in this
+   streams (launches in the broker == both topics' durable stripes), g1's
+   and kg's offsets back. 20d, while the broker restarts: three port brokers in this
    process (`mq20_trio`): 4,096 records through the first, forwarded
    and replicated; partition 0's leader stopped, its follower promoted
    and serving every record; launches == the streams' dispatches. 20e:
@@ -672,13 +682,14 @@ def build() -> None:
 
 
 def host_packages() -> dict:
-    """Whether the host has what TLS, thumbnails and the MQ broker's
-    parquet archival use: `cryptography` (certificates), PIL (thumbnails),
-    pyarrow (`mq.topic.compact`) and the `openssl` command."""
+    """Whether the host has what TLS, thumbnails, the MQ broker's parquet
+    archival and the Kafka gateway's zstd batches use: `cryptography`
+    (certificates), PIL (thumbnails), pyarrow (`mq.topic.compact`),
+    `zstandard` (codec 4) and the `openssl` command."""
     import importlib.util
 
     out = {}
-    for mod in ("cryptography", "PIL", "pyarrow"):
+    for mod in ("cryptography", "PIL", "pyarrow", "zstandard"):
         spec = importlib.util.find_spec(mod)
         out[mod] = __import__(mod).__version__ if spec else None
     out["openssl"] = shutil.which("openssl")
@@ -8701,6 +8712,153 @@ def mq20_source(n: int) -> tuple[bytes, bytes]:
     return rng.bytes(MQ_KEY * n), rng.bytes(MQ_VALUE * n)
 
 
+# -- 20f: the Kafka gateway on phase 20's broker child -----------------------------
+
+KAFKA20_TOPIC = "k20"  # the durable-parity Kafka topic (namespace kafka) of 20f
+KAFKA20_PARTITIONS = 2
+KAFKA20_RECORDS = 12_288  # 6,144 a partition: one sealed segment and 2,048 in parity alone
+KAFKA20_BATCH = 128  # the records of one produce request
+KAFKA20_COHORT = 256  # acknowledged right before the SIGKILL, 128 a partition
+KAFKA20_KILL_MS = 50.0  # the SIGKILL falls within this of the cohort's last ack
+KAFKA20_GROUP = "kg"
+KAFKA20_TS0_MS = 1_700_000_000_000  # record i carries timestamp_ms KAFKA20_TS0_MS + i
+KAFKA20_GROUP_COMMIT_MS = "10"  # the broker child's SEAWEED_MQ_GROUP_COMMIT_MS
+
+
+def kafka20_codecs() -> list[int]:
+    """The batch codecs 20f's produce requests take in turn: gzip, snappy,
+    lz4 and none, and zstd where the host has `zstandard`."""
+    import importlib.util
+
+    from seaweedfs_tpu_torch.mq.kafka import records as kr
+
+    out = [kr.COMPRESSION_GZIP, kr.COMPRESSION_SNAPPY, kr.COMPRESSION_LZ4, kr.COMPRESSION_NONE]
+    if importlib.util.find_spec("zstandard") is not None:
+        out.append(kr.COMPRESSION_ZSTD)
+    return out
+
+
+def kafka20_record(keys: bytes, values: bytes, i: int):
+    """Record i of 20f: phase 7b's key and value i (`mq_source`), its own
+    timestamp; it goes to partition i % KAFKA20_PARTITIONS at offset
+    i // KAFKA20_PARTITIONS."""
+    from seaweedfs_tpu_torch.mq.kafka.records import Record
+
+    return Record(key=keys[i * MQ_KEY:(i + 1) * MQ_KEY],
+                  value=values[i * MQ_VALUE:(i + 1) * MQ_VALUE], timestamp_ms=KAFKA20_TS0_MS + i)
+
+
+def kafka20_produce(kport: int, keys: bytes, values: bytes, first: int, count: int,
+                    codecs: list[int], phase: str) -> dict:
+    """Records first .. first+count-1 of 20f through the broker's Kafka
+    gateway, in produce requests of KAFKA20_BATCH records with acks=-1,
+    from one connection a partition, the codecs in turn. Every answer
+    must be NONE at the offset expected: a KAFKA_STORAGE_ERROR (a failed
+    group-commit window) fails the phase, with no retry. Returns the
+    requests, the wall, each ack's latency and the last ack's time."""
+    from seaweedfs_tpu_torch.mq.kafka.client import KafkaClient, KafkaError
+
+    lat, acked_at, errors = [], [], []
+    clients = [KafkaClient("127.0.0.1", kport, client_id=f"smoke20f-{p}")
+               for p in range(KAFKA20_PARTITIONS)]
+
+    def run(p: int) -> None:
+        idx = list(range(first + p, first + count, KAFKA20_PARTITIONS))
+        try:
+            for b in range(0, len(idx), KAFKA20_BATCH):
+                chunk = idx[b:b + KAFKA20_BATCH]
+                codec = codecs[(b // KAFKA20_BATCH) % len(codecs)]
+                t0 = time.perf_counter()
+                base = clients[p].produce(KAFKA20_TOPIC, p, [kafka20_record(keys, values, i)
+                                                             for i in chunk],
+                                          acks=-1, compression=codec)
+                t1 = time.perf_counter()
+                if base != chunk[0] // KAFKA20_PARTITIONS:
+                    raise AssertionError(f"{phase}: a produce of record {chunk[0]} answered "
+                                         f"offset {base}")
+                lat.append(t1 - t0)
+                acked_at.append(t1)
+        except KafkaError as e:
+            errors.append(AssertionError(f"{phase}: a produce to partition {p} answered {e}"))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(p,)) for p in range(KAFKA20_PARTITIONS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if errors:
+        raise errors[0]
+    return {"requests": len(lat), "seconds": wall, "lat": lat, "last_ack": max(acked_at)}
+
+
+def kafka20_fetch_all(client, keys: bytes, values: bytes, per: int, phase: str) -> dict:
+    """Every record of the topic's partitions fetched from offset 0
+    through `client`, each byte-exact (key, value, timestamp) at its
+    offset, up to `per` a partition and a high watermark of `per`."""
+    fetches, t0 = 0, time.perf_counter()
+    for p in range(KAFKA20_PARTITIONS):
+        off = hw = 0
+        while off < per:
+            hw, recs = client.fetch(KAFKA20_TOPIC, p, off, max_wait_ms=0, max_bytes=4 << 20)
+            fetches += 1
+            if not recs:
+                raise AssertionError(f"{phase}: partition {p} fetched nothing at {off} "
+                                     f"(high watermark {hw})")
+            for r in recs:
+                want = kafka20_record(keys, values, off * KAFKA20_PARTITIONS + p)
+                if (r.offset, r.key, r.value, r.timestamp_ms) != (
+                        off, want.key, want.value, want.timestamp_ms):
+                    raise AssertionError(f"{phase}: partition {p}'s record at {off} differs "
+                                         f"(offset {r.offset})")
+                off += 1
+        if (off, hw) != (per, per):
+            raise AssertionError(f"{phase}: partition {p} fetched {off} records, high watermark "
+                                 f"{hw}, of {per}")
+    seconds = time.perf_counter() - t0
+    n = per * KAFKA20_PARTITIONS
+    return {"records": n, "fetches": fetches, "seconds": seconds, "records_per_s": n / seconds}
+
+
+def kafka20_group(kport: int, keys: bytes, values: bytes, per: int) -> dict:
+    """20f's group: `kg` joins (its only member leads), assigns both
+    partitions by range, syncs, fetches every record through the
+    gateway, commits each partition's next offset, heartbeats and
+    leaves."""
+    from seaweedfs_tpu_torch.mq.kafka.client import KafkaClient, assign_range, parse_assignment
+
+    t0 = time.perf_counter()
+    c = KafkaClient("127.0.0.1", kport, client_id="smoke20f-kg")
+    try:
+        joined = c.join_group(KAFKA20_GROUP, topics=[KAFKA20_TOPIC])
+        if joined["leader"] != joined["member_id"]:
+            raise AssertionError(f"20f: group {KAFKA20_GROUP}'s only member does not lead")
+        blob = c.sync_group(KAFKA20_GROUP, joined["generation"], joined["member_id"],
+                            assign_range(joined["members"], {KAFKA20_TOPIC: KAFKA20_PARTITIONS}))
+        parts = parse_assignment(blob).get(KAFKA20_TOPIC)
+        if parts != list(range(KAFKA20_PARTITIONS)):
+            raise AssertionError(f"20f: group {KAFKA20_GROUP} was assigned {parts}")
+        fetched = kafka20_fetch_all(c, keys, values, per, "20f")
+        errs = [c.commit_offset(KAFKA20_GROUP, KAFKA20_TOPIC, p, per) for p in parts]
+        errs += [c.heartbeat(KAFKA20_GROUP, joined["generation"], joined["member_id"]),
+                 c.leave_group(KAFKA20_GROUP, joined["member_id"])]
+        if errs != [0] * (len(parts) + 2):
+            raise AssertionError(f"20f: group {KAFKA20_GROUP}'s commits, heartbeat and leave "
+                                 f"answered {errs}")
+        committed = [c.fetch_offset(KAFKA20_GROUP, KAFKA20_TOPIC, p) for p in parts]
+    finally:
+        c.close()
+    if committed != [per] * KAFKA20_PARTITIONS:
+        raise AssertionError(f"20f: group {KAFKA20_GROUP} committed {committed}")
+    return {"generation": joined["generation"], "fetched": fetched, "committed": committed,
+            "seconds": time.perf_counter() - t0}
+
+
 def torch_mapped(pid: int):
     """Whether process `pid` has torch's library mapped (None where
     /proc/<pid>/maps cannot be read)."""
@@ -8717,11 +8875,12 @@ class MqChild:
     polls `ready()` and notes the seconds from the spawn to the first
     true answer, and whether torch was mapped then."""
 
-    def __init__(self, root: str, name: str, args: list, ready):
+    def __init__(self, root: str, name: str, args: list, ready, env: dict | None = None):
         self.t0 = time.perf_counter()
         self.root, self.name = root, name
         self.log = open(os.path.join(root, f"{name}.log"), "ab")
-        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                   **(env or {}))
         self.proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch.server", *args],
                                      cwd=root, env=env, stdout=self.log, stderr=subprocess.STDOUT)
         self.serving: dict = {}
@@ -8788,19 +8947,24 @@ def grpc_ready(addr: str):
 
 class BrokerChild(MqChild):
     """Phase 20's `mq.broker` child over the filer at `fport`, with a
-    parity directory and a status plane; `restart()` spawns it again by
-    name with the same flags."""
+    parity directory, a status plane and the Kafka gateway, its durable
+    produces acknowledged by the group commit (SEAWEED_MQ_GROUP_COMMIT_MS
+    = KAFKA20_GROUP_COMMIT_MS; the native Publish path does not wait on
+    it); `restart()` spawns it again by name with the same flags. Its
+    temporary files (the fetch spool) go under its directory."""
 
-    def __init__(self, work: str, fport: int, ports: tuple[int, int] | None = None):
+    def __init__(self, work: str, fport: int, ports: tuple[int, int, int] | None = None):
         self.work, self.fport = work, fport
         self.dir = os.path.join(work, "mq20")
-        os.makedirs(self.dir, exist_ok=True)
-        self.port, self.sport = ports or (server_port(), server_port())
+        os.makedirs(os.path.join(self.dir, "tmp"), exist_ok=True)
+        self.port, self.sport, self.kport = ports or (server_port(), server_port(), server_port())
         self.addr = f"127.0.0.1:{self.port}"
         super().__init__(self.dir, "broker", [
             "mq.broker", "-ip", "127.0.0.1", "-port", str(self.port), "-filer",
             f"127.0.0.1:{fport}", "-parityDir", os.path.join(self.dir, "parity"),
-            "-statusPort", str(self.sport)], self._ready)
+            "-statusPort", str(self.sport), "-kafkaPort", str(self.kport)], self._ready,
+            env={"SEAWEED_MQ_GROUP_COMMIT_MS": KAFKA20_GROUP_COMMIT_MS,
+                 "TMPDIR": os.path.join(self.dir, "tmp")})
 
     def _ready(self) -> bool:
         http_ready(self.sport, "/status")()
@@ -8815,7 +8979,7 @@ class BrokerChild(MqChild):
         return json.loads(body)
 
     def restart(self) -> "BrokerChild":
-        return BrokerChild(self.work, self.fport, (self.port, self.sport))
+        return BrokerChild(self.work, self.fport, (self.port, self.sport, self.kport))
 
 
 def mq20_configure(broker: BrokerChild, out: dict) -> None:
@@ -8865,6 +9029,13 @@ def mq20_trio(root: str, keys: bytes, values: bytes) -> dict:
             b.balancer.ping_interval = 0.2
             b.start()
             brokers.append(b)
+        # every broker has had a ping round answered by both peers (its
+        # channels connected) before the first publish: a first ping that
+        # outlives its 0.75 s timeout drops a peer from the live set for a
+        # round, a partition's leader moves, and the new leader takes the
+        # next publish at its own log's end (in both packages)
+        wait_until(lambda: all(len(b.balancer.loads()) == 3 for b in brokers),
+                   "a ping round answered at every broker of the group", phase="20d")
         clients = [MqClient(a) for a in peers]
         clients[0].configure_topic("ha", partitions=MQ20_PARTITIONS)
         for b in brokers:
@@ -8969,7 +9140,11 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
     the filer with data shard 0 gone, planes launches at the child ==
     reconstructions; the tail replayed from the parity streams, launches
     in the broker == the durable stripes), g1's offsets back. 20d (while
-    the broker restarts): `mq20_trio`. 20e: an `mq.agent` child by name
+    the broker restarts): `mq20_trio`. 20f (after 20b, its cohort and
+    read-back inside 20c): the Kafka topic kafka/k20 through the broker's
+    gateway, produced with acks held by the group commit, consumed by
+    group kg, a final cohort acked right before the SIGKILL and every
+    acked record fetched back after the restart. 20e: an `mq.agent` child by name
     (a session of MQ20_AGENT_RECORDS and an acked subscription) and a
     `filer -notify.mq` child by name, MQ20_FILES written through it, every
     event on default/filer-events. Every child SIGTERMed, exit 0 within
@@ -8978,6 +9153,7 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
 
     from seaweedfs_tpu_torch.ec import load_stream_journal
     from seaweedfs_tpu_torch.mq import MqClient
+    from seaweedfs_tpu_torch.mq.kafka.client import KafkaClient
     from seaweedfs_tpu_torch.mq.stream_parity import parity_context
     from seaweedfs_tpu_torch.pb import mq_pb2 as mq
     from seaweedfs_tpu_torch.pb import rpc
@@ -8990,6 +9166,7 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
     per = n // MQ20_PARTITIONS
     rec_bytes = mq_record_bytes()
     keys, values = mq20_source(n)
+    keys20, values20 = mq_source(KAFKA20_RECORDS + KAFKA20_COHORT)
     agent = filer = None
     clients: list = []
 
@@ -9107,10 +9284,49 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
         shell = mq20_run_shell(senv, broker.addr, [per] * MQ20_PARTITIONS, archived, clients[0])
         walls["20b"] = time.perf_counter() - t0
 
+        # -- 20f. a durable-parity Kafka topic through the gateway, acks held -------------
+        t0 = time.perf_counter()
+        kc = KafkaClient("127.0.0.1", broker.kport, client_id="smoke20f")
+        try:
+            err = kc.create_topic(KAFKA20_TOPIC, partitions=KAFKA20_PARTITIONS)
+        finally:
+            kc.close()
+        if err:
+            raise AssertionError(f"20f: CreateTopics {KAFKA20_TOPIC} answered {err}")
+        codecs = kafka20_codecs()
+        if 4 not in codecs:
+            print("20f: the host has no zstandard: codec 4 (zstd) skipped")
+        windows0 = metric_value(http(f"http://127.0.0.1:{broker.sport}/metrics")[2].decode(),
+                                 "sw_mq_group_commit_windows_total")
+        bulk = kafka20_produce(broker.kport, keys20, values20, 0, KAFKA20_RECORDS, codecs, "20f")
+        per20 = KAFKA20_RECORDS // KAFKA20_PARTITIONS
+        group20 = kafka20_group(broker.kport, keys20, values20, per20)
+        status = broker.get("/status", "20f")
+        windows = metric_value(http(f"http://127.0.0.1:{broker.sport}/metrics")[2].decode(),
+                                "sw_mq_group_commit_windows_total") - windows0
+        if not 1 <= windows <= bulk["requests"]:
+            raise AssertionError(f"20f: {windows} group-commit windows for {bulk['requests']} "
+                                 "produce requests")
+        pool = status.get("kafka_pool")
+        if not pool or pool["kind"] != "pooled":
+            raise AssertionError(f"20f: the broker's /status has no pooled kafka_pool: {pool}")
+        rec20 = MQ_KEY + MQ_VALUE  # a record's key and value
+        step_f = {
+            "records": KAFKA20_RECORDS, "key_value_bytes": rec20, "codecs": codecs,
+            "produce_requests": bulk["requests"], "produce_s": bulk["seconds"],
+            "records_per_s": KAFKA20_RECORDS / bulk["seconds"],
+            "mb_per_s": KAFKA20_RECORDS * rec20 / bulk["seconds"] / 1e6,
+            "ack_p50_ms": percentile_ms(bulk["lat"], 50),
+            "ack_p99_ms": percentile_ms(bulk["lat"], 99),
+            "group_commit_windows": windows, "group": group20,
+            "kafka_pool": {k: pool[k] for k in ("workers", "max_connections", "frames_served",
+                                                "rejected_total")}}
+        walls["20f"] = time.perf_counter() - t0
+
         # -- 20c. drained, sealed, killed, replayed -------------------------------------
         t0 = time.perf_counter()
-        wait_until(lambda: all(v["pending_bytes"] == 0 for v in broker.get("/status", "20c")
-                               ["parity"][f"{MQ20_NS}/{MQ20_TOPIC}"].values()),
+        wait_until(lambda: all(v["pending_bytes"] == 0 for t in broker.get("/status", "20c")
+                               ["parity"].values() for v in t.values()),
                    "every partition's parity drained", phase="20c")
         walls["drain"] = time.perf_counter() - t0
         committed = [clients[0].committed(MQ20_TOPIC, p, "g1", namespace=MQ20_NS)
@@ -9123,24 +9339,44 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
                                            seal)
         walls.update({f"20c {k}": v for k, v in seal.items()})
         at_seal = child_kernels(child, "20c")
-        ctx = parity_context()
-        stripes = 0
-        for p in range(MQ20_PARTITIONS):
-            d = os.path.join(root, "parity", MQ20_NS, MQ20_TOPIC, f"{p:04d}")
-            for g in gens_of(d):
-                j = load_stream_journal(os.path.join(d, f"gen-{g:08d}"))
-                stripes += -(-j.durable // (ctx.data_shards * j.block_size))
-        # every launch of the broker's first run is one of its streams'
-        # parity dispatches (its flushes)
+        # 20f's final cohort, acknowledged through the group commit with no
+        # drain after it; the broker's launches read, then the SIGKILL
+        t0 = time.perf_counter()
+        cohort = kafka20_produce(broker.kport, keys20, values20, KAFKA20_RECORDS, KAFKA20_COHORT,
+                                 codecs, "20f")
         k1 = broker.get("/debug/kernels", "20c")
+        t_kill = time.perf_counter()
+        broker.kill()
+        ack_to_kill_ms = (t_kill - cohort["last_ack"]) * 1e3
+        if ack_to_kill_ms > KAFKA20_KILL_MS:
+            raise AssertionError(f"20f: the SIGKILL fell {ack_to_kill_ms:.1f} ms after the "
+                                 f"cohort's last ack (at most {KAFKA20_KILL_MS})")
+        step_f.update({"cohort": KAFKA20_COHORT, "cohort_s": cohort["seconds"],
+                       "cohort_ack_p50_ms": percentile_ms(cohort["lat"], 50),
+                       "ack_to_kill_ms": ack_to_kill_ms})
+        walls["20f cohort"] = time.perf_counter() - t0
+        # every launch of the broker's first run is one of its streams'
+        # parity dispatches (its flushes, the group commit's among them)
         run1, dispatches["broker run 1"] = k1["launches"], k1["stream_dispatches"]
         launches["broker run 1"] = run1
         if run1 != {"gf2_apply": k1["stream_dispatches"], "gf2_apply_planes": 0} or (
                 k1["stream_dispatches"] < 1):
             raise AssertionError(f"20c: the broker's first run launched {run1} for "
                                  f"{k1['stream_dispatches']} stream dispatches")
-        t_kill = time.perf_counter()
-        broker.kill()
+        # the durable stripes the restart replays, both topics' (k20's
+        # after the cohort's acks)
+        ctx = parity_context()
+        stripes, stripes20 = 0, 0
+        for ns, topic, parts in ((MQ20_NS, MQ20_TOPIC, MQ20_PARTITIONS),
+                                 ("kafka", KAFKA20_TOPIC, KAFKA20_PARTITIONS)):
+            for p in range(parts):
+                d = os.path.join(root, "parity", ns, topic, f"{p:04d}")
+                for g in gens_of(d):
+                    j = load_stream_journal(os.path.join(d, f"gen-{g:08d}"))
+                    n_stripes = -(-j.durable // (ctx.data_shards * j.block_size))
+                    stripes += n_stripes
+                    stripes20 += n_stripes if ns == "kafka" else 0
+        step_f["durable_stripes"] = stripes20
         broker = broker.restart()
         aport = server_port()
         agent = MqChild(root, "agent", ["mq.agent", "-ip", "127.0.0.1", "-port", str(aport),
@@ -9170,15 +9406,40 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
                         o, p, *record(i)):
                     raise AssertionError(f"20c: record {i} differs after the restart")
         read_s = time.perf_counter() - t_read
+        # 20f: every acknowledged record of k20 back over the Kafka wire (the
+        # sealed segments through the fetch spool, the tail replayed from
+        # parity), and kg's offsets
+        t1 = time.perf_counter()
+        kc = KafkaClient("127.0.0.1", broker.kport, client_id="smoke20f-back")
+        try:
+            back = kafka20_fetch_all(kc, keys20, values20,
+                                     per20 + KAFKA20_COHORT // KAFKA20_PARTITIONS, "20f")
+            offsets = [kc.fetch_offset(KAFKA20_GROUP, KAFKA20_TOPIC, p)
+                       for p in range(KAFKA20_PARTITIONS)]
+        finally:
+            kc.close()
+        if offsets != [per20] * KAFKA20_PARTITIONS:
+            raise AssertionError(f"20f: {KAFKA20_GROUP}'s offsets came back as {offsets}")
+        step_f.update({"read_back": back, "committed_back": offsets})
+        walls["20f back"] = time.perf_counter() - t1
         # each sealed segment again, cold, by its chunks' fids at the child:
-        # the filer's chunk cache may hold chunks that 20a's consumers
-        # loaded when they fell behind a seal
+        # the filer's chunk cache may hold chunks that 20a's consumers and
+        # 20f's group loaded (the gateway stores a Kafka key or value with
+        # a leading byte that tells null from empty)
         from seaweedfs_tpu_torch.mq.log_buffer import encode_record
         from seaweedfs_tpu_torch.shell.commands import run_command
 
+        sealed = [(f"/topics/{MQ20_NS}/{MQ20_TOPIC}/{p:04d}/seg-00000000.log",
+                   [encode_record(o, *record(o * MQ20_PARTITIONS + p))
+                    for o in range(MQ20_SEGMENT)]) for p in range(MQ20_PARTITIONS)]
+        for p in range(KAFKA20_PARTITIONS):
+            recs = [kafka20_record(keys20, values20, o * KAFKA20_PARTITIONS + p)
+                    for o in range(MQ20_SEGMENT)]
+            sealed.append((f"/topics/kafka/{KAFKA20_TOPIC}/{p:04d}/seg-00000000.log",
+                           [encode_record(o, r.timestamp_ms * 1_000_000, b"\x01" + r.key,
+                                          b"\x01" + r.value) for o, r in enumerate(recs)]))
         chunks = 0
-        for p in range(MQ20_PARTITIONS):
-            path = f"/topics/{MQ20_NS}/{MQ20_TOPIC}/{p:04d}/seg-00000000.log"
+        for path, want in sealed:
             meta = json.loads(run_command(senv, f"fs.meta.cat {path}"))
             raw = b""
             for c in sorted(meta["chunks"], key=lambda c: int(c["offset"])):
@@ -9187,9 +9448,7 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
                     raise AssertionError(f"20c: GET {c['fid']} of {path} answered {code}")
                 raw += body
                 chunks += 1
-            want = b"".join(encode_record(o, *record(o * MQ20_PARTITIONS + p))
-                            for o in range(MQ20_SEGMENT))
-            if raw != want:
+            if raw != b"".join(want):
                 raise AssertionError(f"20c: {path} read by its chunks differs from its records")
         committed = [clients[0].committed(MQ20_TOPIC, p, "g1", namespace=MQ20_NS)
                      for p in range(MQ20_PARTITIONS)]
@@ -9208,6 +9467,8 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
             raise AssertionError(f"20c: the child's reads from the seal on launched {got_c} for "
                                  f"{recon} reconstructions")
         launches["19's child"] = {"gf2_apply": batches, "gf2_apply_planes": recon}
+        step_f["launches_in_the_broker"] = {"run 1 dispatches": k1["stream_dispatches"],
+                                            "run 2 replay of k20": stripes20}
         step_c = {"volumes": vids, "batches": batches, "durable_stripes": stripes,
                   "segment_chunks_read_cold": chunks, "reconstructions": recon, "kill_to_read_s": time.perf_counter() - t_kill,
                   "read_s": read_s, "read_records_per_s": n / read_s, "committed": committed}
@@ -9317,7 +9578,8 @@ def mq_broker_phase(child: S3GatewayChild, broker: BrokerChild, configured: dict
     total = {k: sum(v[k] for name, v in launches.items() if name != "broker run 2 replay")
              for k in ("gf2_apply", "gf2_apply_planes")}
     result = {"steps": {"20a publish": step_a, "20b shell": shell, "20c replay": step_c,
-                        "20d group": ha, "20e agent and notifier": step_e},
+                        "20d group": ha, "20e agent and notifier": step_e,
+                        "20f kafka": step_f},
               "children": children, "launches": launches, "stream_dispatches": dispatches,
               "walls": walls,
               "redials": CONNECT_RETRIES[0] - redials0, "seconds": time.perf_counter() - t_phase,
@@ -9785,7 +10047,11 @@ def main() -> int:
               "brokers in this process, partition 0's leader stopped and its follower serving "
               "every record, launches == dispatches; an mq.agent child's session and acked "
               "subscription; a `filer -notify.mq` child with no torch, every file's event on "
-              "default/filer-events; each child exiting 0 on SIGTERM): " + json.dumps(mq20))
+              "default/filer-events; the Kafka topic kafka/k20 produced through the broker's "
+              "gateway with acks held by the group commit under 5 codecs, group kg's fetches "
+              "and commits, a final cohort acked and the broker SIGKILLed within 50 ms, every "
+              "acked record fetched back byte-exact after the restart; each child exiting 0 on "
+              "SIGTERM): " + json.dumps(mq20))
         print(f"phase 20: {t20:.3f} s; card: {card_line()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -20,9 +20,9 @@ same JSON bytes (`json.dumps(payload, allow_nan=False)`, the body
 `requests` builds from `json=`) over `http.client`, through
 `utils/urls.connection` so an https URL takes the process's client
 context. A 5xx answer or a connection error is retried, a 4xx is a
-permanent rejection, as in the JAX package. `KafkaNotifier` publishes
-through the Kafka client, which the port has not taken yet: it raises,
-naming ROADMAP item 14b, and so does `make_notifier("kafka")`.
+permanent rejection, as in the JAX package. `KafkaNotifier` is not
+ported yet: it raises, naming ROADMAP item 14b-2, and so does
+`make_notifier("kafka")`.
 """
 
 from __future__ import annotations
@@ -211,8 +211,8 @@ class KafkaNotifier(_AsyncNotifier):
 
     def __init__(self, broker: str, topic: str = "seaweedfs_filer", partitions: int = 1):
         raise RuntimeError(
-            f"Kafka notification to {broker}: the port has no Kafka client yet: it comes with "
-            "ROADMAP.md item 14b")
+            f"Kafka notification to {broker}: the port has no Kafka notifier yet: it comes with "
+            "ROADMAP.md item 14b-2")
 
 
 def make_notifier(kind: str, target: str, **kw):

@@ -1,7 +1,9 @@
 """Message queue on the port (layer 7): the broker, its partition logs,
-the pub/sub client, and the durable-parity partition stream
-(`stream_parity.PartitionParity`). Port of seaweedfs_tpu/mq, less the
-Kafka gateway (`mq/kafka/`, ROADMAP item 14b).
+the pub/sub client, the durable-parity partition stream
+(`stream_parity.PartitionParity`), the broker's group commit
+(`group_commit`) and the Kafka gateway and client (`mq/kafka/`). Port of
+seaweedfs_tpu/mq, whole; the filer's `KafkaNotifier` comes with ROADMAP
+item 14b-2.
 
 The package loads its modules on first use (PEP 562 `__getattr__`), as
 `ec` does: `from ..mq import MqClient`, as the filer's notifier and the

@@ -5,8 +5,10 @@ segment storage (weed/mq/logstore) and consumer-group offsets
 (weed/mq/offset). Partitioning: key-hash over a fixed partition count
 (ring-slicing arrives with multi-broker balancing).
 
-Port of seaweedfs_tpu/mq/broker.py: `MqBroker`, `MqService` (every RPC)
-and `MqBrokerServer`. Segments, `topic.conf`, `offsets.json` and
+Port of seaweedfs_tpu/mq/broker.py: `MqBroker` (with its
+`group_committer()`, mq/group_commit.py), `MqService` (every RPC) and
+`MqBrokerServer` (with the Kafka gateway, mq/kafka/, on `kafka_port`).
+Segments, `topic.conf`, `offsets.json` and
 `schema.json` are the JAX broker's bytes in the same filer paths, and a
 topic with durable parity writes the same stream generations. Where the
 two differ, on purpose:
@@ -16,11 +18,8 @@ two differ, on purpose:
   flight, so the gRPC workers may share it), where the JAX broker keeps
   a `requests.Session`; only a 404 is absence, any other failure raises,
   as there;
-- the Kafka gateway (`kafka_port`, ROADMAP item 14b) and the SQL view
-  (`pg_port`, item 19) are refused with a ValueError naming the item,
-  and `/status` and the load score leave out the gateway's pool; the
-  broker's `group_committer()` (with `mq/group_commit.py`) comes with
-  item 14b too, since that gateway is its only caller;
+- the SQL view (`pg_port`, ROADMAP item 19) is refused with a
+  ValueError naming the item;
 - the status plane also serves `/debug/kernels`: the launches of the
   port's two kernels in this process and its streams' parity
   dispatches, read without importing torch;
@@ -70,12 +69,9 @@ TOPICS_ROOT = "/topics"
 FILER_ERRORS = (OSError, http.client.HTTPException)
 
 
-def refuse_later_ports(kafka_port: int, pg_port: int) -> None:
-    """ValueError for a gateway the port does not serve yet: the Kafka
-    wire protocol (ROADMAP item 14b) and the PostgreSQL view (item 19)."""
-    if kafka_port >= 0:
-        raise ValueError(f"kafka port {kafka_port}: the port has no Kafka gateway yet: it comes "
-                         "with ROADMAP.md item 14b")
+def refuse_later_ports(pg_port: int) -> None:
+    """ValueError for a gateway the port does not serve yet: the
+    PostgreSQL view (ROADMAP item 19)."""
     if pg_port >= 0:
         raise ValueError(f"pg port {pg_port}: the port has no query engine yet: it comes with "
                          "ROADMAP.md item 19")
@@ -122,6 +118,7 @@ class MqBroker:
             else durable_parity_default
         )
         self._parity_flusher = None
+        self._mq_committer = None
         self._topics: dict[tuple[str, str], _TopicState] = {}
         self._offsets: dict[tuple, int] = {}  # (ns, topic, part, group)
         self._offset_meta: dict[tuple, str] = {}  # committed metadata
@@ -443,9 +440,37 @@ class MqBroker:
                     pass
         return pending / float(max(1, flush_bytes_default()))
 
+    def group_committer(self):
+        """The broker group committer covering durable-parity produce
+        acks, or None when SEAWEED_MQ_GROUP_COMMIT_MS is 0. The knob is
+        read live per call and the committer swapped when it changes
+        (mirrors the volume's group committer)."""
+        from .group_commit import MqGroupCommitter, group_commit_window_s
+
+        w = group_commit_window_s()
+        c = self._mq_committer
+        if c is not None and c.window_s == w:
+            return c
+        with self._lock:
+            c = self._mq_committer
+            if w <= 0:
+                if c is not None:
+                    self._mq_committer = None
+                    c.stop()
+                return None
+            if c is None or c.window_s != w:
+                if c is not None:
+                    c.stop()
+                c = MqGroupCommitter(w)
+                self._mq_committer = c
+            return c
+
     def close(self) -> None:
         """Stop the parity flusher and close every stream (flushes
         first: a clean shutdown leaves nothing to replay)."""
+        if self._mq_committer is not None:
+            self._mq_committer.stop()
+            self._mq_committer = None
         if self._parity_flusher is not None:
             self._parity_flusher.stop()
             self._parity_flusher = None
@@ -1286,16 +1311,17 @@ class MqBrokerServer:
         durable_parity_default: bool | None = None,
         status_port: int = -1,
     ):
-        """kafka_port and pg_port: -1, since the port does not serve the
-        Kafka wire protocol (ROADMAP item 14b) or the SQL view (item 19)
-        yet; a value >= 0 raises ValueError naming the item.
+        """kafka_port >= 0 also serves the Kafka wire protocol on that
+        port (0 = ephemeral; see .kafka.port). pg_port: -1, since the
+        port does not serve the SQL view (ROADMAP item 19) yet; a value
+        >= 0 raises ValueError naming the item.
         peers: every broker's grpc host:port for multi-broker partition
         balancing + follower replication. parity_dir: local dir for
         streaming-EC durable-parity log streams (see MqBroker).
         status_port >= 0 serves /status (JSON roll-up incl. the Kafka
         gateway pool) and /metrics (sw_mq_*) over HTTP (0 =
         ephemeral; see .status_port after start)."""
-        refuse_later_ports(kafka_port, pg_port)
+        refuse_later_ports(pg_port)
         self.ip = ip
         self.grpc_port = grpc_port
         self.broker = MqBroker(
@@ -1313,6 +1339,11 @@ class MqBrokerServer:
         self._grpc = grpc.server(futures.ThreadPoolExecutor(max_workers=32))
         rpc.add_service(self._grpc, rpc.MQ_SERVICE, self.service)
         self._grpc.add_insecure_port(f"{ip}:{grpc_port}")
+        self.kafka = None
+        if kafka_port >= 0:
+            from .kafka.gateway import KafkaGateway
+
+            self.kafka = KafkaGateway(self.broker, ip=ip, port=kafka_port)
         # parquet archival of sealed segments (reference weed/mq/logstore)
         self.archiver = None
         self._archive_stop = threading.Event()
@@ -1342,10 +1373,21 @@ class MqBrokerServer:
                 mlog.warning(f"segment archival cycle failed: {e!r}")
 
     def load_score(self) -> float:
-        """Gravity telemetry shipped on BrokerStatus pings: the parity
-        backlog in flush-threshold units (the JAX broker adds the Kafka
-        gateway's pool pressure, item 14b). 0 when idle."""
-        return self.broker.load_score()
+        """Gravity telemetry shipped on BrokerStatus pings: parity
+        backlog (flush-threshold units) + Kafka gateway pool pressure
+        (ready backlog per worker + connection-slot occupancy). 0 when
+        idle; ~1 per saturated dimension."""
+        score = self.broker.load_score()
+        if self.kafka is not None:
+            try:
+                ps = self.kafka.pool_status()
+                workers = max(1, int(ps.get("workers") or 1))
+                score += float(ps.get("ready_backlog", 0)) / workers
+                slots = max(1, int(ps.get("max_connections") or 1))
+                score += float(ps.get("open_connections", 0)) / slots
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        return score
 
     def status(self) -> dict:
         """Operator JSON roll-up served at /status."""
@@ -1364,6 +1406,11 @@ class MqBrokerServer:
             st["parity"] = self.broker.parity_status()
         except Exception:  # noqa: BLE001 — advisory
             pass
+        if self.kafka is not None:
+            try:
+                st["kafka_pool"] = self.kafka.pool_status()
+            except Exception:  # noqa: BLE001 — advisory
+                pass
         return st
 
     def kernels(self) -> dict:
@@ -1424,6 +1471,8 @@ class MqBrokerServer:
     def start(self) -> None:
         self._grpc.start()
         self.balancer.start()
+        if self.kafka is not None:
+            self.kafka.start()
         if self._archive_thread is not None:
             self._archive_thread.start()
         if self._status_httpd is not None:
@@ -1437,5 +1486,7 @@ class MqBrokerServer:
             self._status_httpd.shutdown()
             self._status_httpd.server_close()
         self.balancer.stop()
+        if self.kafka is not None:
+            self.kafka.stop()
         self.broker.close()  # parity flusher + streams, then flush
         self._grpc.stop(grace=0.5)

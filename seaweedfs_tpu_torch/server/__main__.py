@@ -8,8 +8,9 @@ metadata in `<dir>/filerdb`, and the S3 gateway over that filer under
 `-s3`, which implies `-filer`: `-s3Port`, identities from `-s3Config` or
 `s3.toml`'s `s3.config`, an admin key pair from `-s3AccessKey` and
 `-s3SecretKey`), `mq.broker` (mq/broker.py: segments in `-filer`,
-durable-parity streams in `-parityDir`, a group under `-peers`, `/status`,
-`/metrics` and `/debug/kernels` on `-statusPort`), `mq.agent` (mq/agent.py,
+durable-parity streams in `-parityDir`, a group under `-peers`, the Kafka
+wire protocol on `-kafkaPort` (mq/kafka/), `/status`, `/metrics` and
+`/debug/kernels` on `-statusPort`), `mq.agent` (mq/agent.py,
 in front of `-broker`), `telemetry` (the phone-home collector,
 utils/telemetry_server.py) and `scaffold` (a config template,
 utils/scaffold.py, printed or written to `-output`/<name>.toml). The flags
@@ -37,8 +38,7 @@ differ, on purpose:
   at the CA alone.
 - What needs a module the port does not have yet stops it with a
   message, where the JAX launcher would start it: `server`'s `-webdav`,
-  `-sftp` and `-admin`, and `mq.broker`'s `-kafkaPort` (ROADMAP item
-  14b) and `-pgPort` (item 19).
+  `-sftp` and `-admin`, and `mq.broker`'s `-pgPort` (ROADMAP item 19).
 
 The master's maintenance scanners (`-ec.autoFullness`, or
 `master.maintenance.ec_auto_fullness`; `-ec.scrubInterval`;
@@ -199,8 +199,7 @@ def _parser() -> argparse.ArgumentParser:
     b.add_argument("-filer", default="", help="filer host:port for durable segments")
     b.add_argument("-segmentRecords", type=int, default=4096)
     b.add_argument("-kafkaPort", type=int, default=-1,
-                   help="also speak the Kafka wire protocol on this port (-1 = off; not "
-                   "served by the port yet)")
+                   help="also speak the Kafka wire protocol on this port (-1 = off)")
     b.add_argument("-pgPort", type=int, default=-1,
                    help="serve PostgreSQL clients a SQL view over topics (-1 = off; not "
                    "served by the port yet)")
@@ -243,8 +242,8 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
     `volume.toml`, `master.toml`, `filer.toml`, `notification.toml` and
     `s3.toml` (searched in `config_dirs`), then the
     defaults. SystemExit for a backend the port does not run and what
-    needs a module the port does not have yet (the broker's `-kafkaPort`
-    and `-pgPort` among them)."""
+    needs a module the port does not have yet (the broker's `-pgPort`
+    among them)."""
     p = _parser()
     a = p.parse_args(argv)
     if a.mode == "scaffold":
@@ -292,7 +291,7 @@ def resolve(argv=None, config_dirs=CONFIG_DIRS) -> argparse.Namespace:
         from ..mq.broker import refuse_later_ports
 
         try:
-            refuse_later_ports(a.kafkaPort, a.pgPort)
+            refuse_later_ports(a.pgPort)
         except ValueError as e:
             p.error(str(e))
     if a.mode == "server":
@@ -361,13 +360,15 @@ def start(a: argparse.Namespace) -> list:
     if a.mode == "mq.broker":
         from ..mq.broker import MqBrokerServer
 
-        # -kafkaPort and -pgPort (and so -pgUser) were refused in resolve
+        # -pgPort (and so -pgUser) was refused in resolve
         bs = MqBrokerServer(
             ip=a.ip, grpc_port=a.port, filer=a.filer, segment_records=a.segmentRecords,
+            kafka_port=a.kafkaPort,
             peers=[p.strip() for p in a.peers.split(",") if p.strip()],
             parity_dir=a.parityDir, status_port=a.statusPort)
         bs.start()
-        log.info("mq broker on %s:%s (filer=%s%s)", a.ip, a.port, a.filer or "memory-only",
+        log.info("mq broker on %s:%s (filer=%s%s%s)", a.ip, a.port, a.filer or "memory-only",
+                 f", kafka on :{bs.kafka.port}" if bs.kafka else "",
                  f", status on :{bs.status_port}" if bs._status_httpd is not None else "")
         return [bs]
     if a.mode in ("master", "server"):

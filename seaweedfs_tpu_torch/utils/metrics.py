@@ -10,10 +10,10 @@ The registry holds the families the port's modules increment: requests
 `sw_volume_bytes`), EC operations and bytes, leaf repairs,
 repair-journal actions, the network byte plane (`sw_net_*`), the
 hot-cache tiers and the HTTP front end's inflight and rejected counts
-(`sw_gateway_*`) and the S3 auth path's verdict memo; the flight recorder
-(utils/trace.py), the stream encoder and the device queue register their
-own. Families of modules the port does not have yet are left out: the MQ
-gateway's.
+(`sw_gateway_*`), the S3 auth path's verdict memo and the Kafka gateway's
+produce and fetch bytes and the broker's group-commit windows
+(`sw_mq_*`); the flight recorder (utils/trace.py), the stream encoder and
+the device queue register their own.
 """
 
 from __future__ import annotations
@@ -378,6 +378,24 @@ net_bytes_copied_total = REGISTRY.counter(
     "payload bytes materialized into Python-level buffers on the "
     "network byte path (the bytes-copied-per-byte-served numerator)",
     ("plane", "direction"),
+)
+
+# The Kafka gateway (mq/kafka/) and the broker's group commit
+# (mq/group_commit.py).
+mq_produce_bytes_total = REGISTRY.counter(
+    "sw_mq_produce_bytes_total",
+    "record-batch bytes accepted by the Kafka gateway produce path",
+    ("plane",),
+)
+mq_fetch_bytes_total = REGISTRY.counter(
+    "sw_mq_fetch_bytes_total",
+    "fetch-response payload bytes served by the Kafka gateway, by "
+    "egress plane (native = sn_sendv/sn_send_file, python = fallback)",
+    ("plane",),
+)
+mq_group_commit_windows_total = REGISTRY.counter(
+    "sw_mq_group_commit_windows_total",
+    "broker group-commit flush windows completed",
 )
 
 # The serving path: the hot-object/chunk read-through cache tiers (tier =

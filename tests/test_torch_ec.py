@@ -409,9 +409,13 @@ REMOTE_MODULES = ("remote/__init__.py", "remote/s3_client.py", "remote/providers
                   "replication/backup.py", "replication/s3_sink.py", "replication/__main__.py")
 
 # the MQ broker's modules but the durable-parity stream (which imports the
-# EC backend, and so torch)
+# EC backend, and so torch): its group commit and the Kafka gateway and
+# client among them
 MQ_MODULES = ("mq/__init__.py", "mq/log_buffer.py", "mq/logstore.py", "mq/balancer.py",
-              "mq/broker.py", "mq/client.py", "mq/agent.py")
+              "mq/broker.py", "mq/client.py", "mq/agent.py", "mq/group_commit.py",
+              "mq/kafka/__init__.py", "mq/kafka/protocol.py", "mq/kafka/records.py",
+              "mq/kafka/codecs.py", "mq/kafka/groups.py", "mq/kafka/frame_pool.py",
+              "mq/kafka/fetch_spool.py", "mq/kafka/gateway.py", "mq/kafka/client.py")
 
 # an HS256 bearer for issuer https://g signed with "k", and an LDAP bind
 # through the stand-in server, in the guards' child interpreters
@@ -509,8 +513,20 @@ bport = free_port()
 bservers = build(["filer", "-master", master, "-ip", "127.0.0.1", "-port", str(bport),
                   "-dir", os.path.join(d, "b"), "-store", "memory"], config_dirs=())
 bk = MqBrokerServer(ip="127.0.0.1", grpc_port=free_port(), filer=f"127.0.0.1:{bport}",
-                    segment_records=4, status_port=0)
+                    segment_records=4, status_port=0, kafka_port=0)
 bk.start()
+# its Kafka gateway, produced to and fetched from by the port's client
+from seaweedfs_tpu_torch.mq.kafka.client import KafkaClient
+from seaweedfs_tpu_torch.mq.kafka.records import Record
+kc = KafkaClient("127.0.0.1", bk.kafka.port)
+assert kc.create_topic("kguard", partitions=1) == 0
+assert kc.produce("kguard", 0, [Record(key=b"k%d" % i, value=b"kv") for i in range(6)],
+                  compression=1) == 0
+got = []
+while len(got) < 6:  # a sealed segment of 4 records comes back as one batch
+    got += kc.fetch("kguard", 0, len(got))[1]
+assert [r.key for r in got] == [b"k%d" % i for i in range(6)]
+kc.close()
 baddr = f"127.0.0.1:{bk.grpc_port}"
 mc = MqClient(baddr)
 mc.configure_topic("guard", partitions=1)
@@ -518,7 +534,8 @@ for i in range(6):
     mc.publish("guard", b"v%d" % i, partition=0)
 assert [r.message.value for r in mc.subscribe("guard", 0, start_offset=0)] == [b"v%d" % i for i in range(6)]
 with urllib.request.urlopen(f"http://127.0.0.1:{bk.status_port}/status", timeout=10) as r:
-    assert json.loads(r.read())["load_score"] == 0.0
+    st = json.loads(r.read())
+    assert st["load_score"] == 0.0 and st["kafka_pool"]["kind"] == "pooled"
 ag = MqAgentServer(baddr, ip="127.0.0.1")
 ag.start()
 ach = grpc.insecure_channel(f"127.0.0.1:{ag.port}")
@@ -617,7 +634,9 @@ def test_the_filer_its_server_and_s3_libraries_import_no_torch(tmp_path):
     """The filer, its server (by the launcher's `filer` mode, its writes,
     reads, renames and deletes included, and with `-notify.mq`), the MQ
     package root, a filer-backed broker with no durable-parity topic, its
-    status plane, the MQ client and agent and the shell's `mq.*`, the
+    status plane and its Kafka gateway (produced to and fetched from by
+    the port's Kafka client), the MQ client and agent and the shell's
+    `mq.*`, the
     client's Operations, every
     S3 / IAM module and the S3 gateway serving a PUT and a GET over a
     filer whose cluster (a port master and volume server) runs in this
@@ -1018,6 +1037,24 @@ br.close()
 br = MqBroker(parity_dir=os.path.join(d, "mqp"))
 assert [len(br.topic("default", "dp").logs[p].read_from(0)) for p in (0, 1)] == [25, 25]
 br.close()
+# a broker's Kafka gateway with group commit, a durable-parity topic
+# produced to and fetched back through the port's client
+os.environ["SEAWEED_MQ_GROUP_COMMIT_MS"] = "5"
+from seaweedfs_tpu_torch.mq import MqBrokerServer
+from seaweedfs_tpu_torch.mq.kafka.client import KafkaClient, assign_range, parse_assignment
+from seaweedfs_tpu_torch.mq.kafka.records import Record
+kb = MqBrokerServer(ip="127.0.0.1", grpc_port=free_grpc_port(), kafka_port=0,
+                    parity_dir=os.path.join(d, "kp"))
+kb.start()
+kc = KafkaClient("127.0.0.1", kb.kafka.port)
+assert kc.create_topic("kdp", partitions=1) == 0
+for codec in range(5):
+    kc.produce("kdp", 0, [Record(key=b"k", value=b"v%d" % codec)], compression=codec)
+assert [r.value for r in kc.fetch("kdp", 0, 0)[1]] == [b"v%d" % c for c in range(5)]
+assert parse_assignment(assign_range([("m", b"")], {"kdp": 1})[0][1]) == {"kdp": [0]}
+assert kb.broker.group_committer().windows_committed >= 1
+kc.close()
+kb.stop()
 shutil.rmtree(d)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu", "requests"))

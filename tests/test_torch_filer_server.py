@@ -21,7 +21,7 @@ the CPU:
 - a TLS filer serves https and refuses a plaintext client;
 - both packages' `WebhookNotifier`s against one local sink: equal JSON
   payloads in the same order, the same retries of a 5xx and the same drops
-  at queue overflow; `make_notifier("kafka")` names item 14b, and
+  at queue overflow; `make_notifier("kafka")` names item 14b-2, and
   `make_notifier("mq")` (item 14a, tests/test_torch_mq.py) is built;
 - `list_dir` and `walk` of both clients against one filer server, paged
   past 1024 entries, strict errors alike.
@@ -533,7 +533,7 @@ def test_webhook_notifiers_deliver_alike(sink, case):
         assert got["port"] == (9, 3, 0)
 
 
-@pytest.mark.parametrize("kind, item", [("mq", "14a"), ("kafka", "14b")])
+@pytest.mark.parametrize("kind, item", [("mq", "14a"), ("kafka", "14b-2")])
 def test_mq_and_kafka_notifiers_name_their_items(kind, item):
     """Kafka's notifier still names its item; MQ's came with item 14a and
     is built, as the JAX one is, where its broker is not up (the topic's

@@ -10,9 +10,10 @@ master|volume|server`, server/__main__.py) and its trimmed config loader
   that assign, take a POST, look it up and serve it;
 - `-ec.backend tpu` stops the launcher with a message and a nonzero
   exit; so do the flags of `server` whose modules are not ported
-  (`-webdav`, `-sftp`, `-admin`) and `mq.broker`'s `-kafkaPort` and
-  `-pgPort` (ROADMAP items 14b and 19); the `mq.*` modes themselves and
-  `-notify.mq` run in tests/test_torch_mq.py;
+  (`-webdav`, `-sftp`, `-admin`) and `mq.broker`'s `-pgPort` (ROADMAP
+  item 19); the `mq.*` modes themselves and `-notify.mq` run in
+  tests/test_torch_mq.py, `mq.broker -kafkaPort` in
+  tests/test_torch_kafka.py;
 - `filer` and `server -filer` children serve a file over HTTP and
   LookupDirectoryEntry over gRPC, post their events to a
   `-notify.webhook` sink and exit 0 on SIGTERM; `filer.toml`'s
@@ -162,11 +163,11 @@ def test_launcher_refuses_tpu_and_tls(tmp_path, case):
 
 def test_other_modes_are_refused():
     """Every mode of the JAX launcher is served; what is left to refuse is
-    the broker's gateways of later items."""
-    for flag in ("-kafkaPort", "-pgPort"):
-        with pytest.raises(SystemExit) as e:
-            launcher.resolve(["mq.broker", flag, "0"], config_dirs=())
-        assert e.value.code == 2
+    the broker's gateway of a later item; its Kafka gateway is served."""
+    with pytest.raises(SystemExit) as e:
+        launcher.resolve(["mq.broker", "-pgPort", "0"], config_dirs=())
+    assert e.value.code == 2
+    assert launcher.resolve(["mq.broker", "-kafkaPort", "0"], config_dirs=()).kafkaPort == 0
     for mode in ("mq.broker", "mq.agent"):
         assert launcher.resolve([mode], config_dirs=()).mode == mode
 
@@ -214,8 +215,6 @@ def test_scaffold_mode_prints_a_template_by_name(tmp_path):
     (["server", "-webdav"], "-webdav: the port has no webdav module yet"),
     (["server", "-sftp"], "-sftp: the port has no sftp module yet"),
     (["server", "-admin"], "-admin: the port has no admin module yet"),
-    (["mq.broker", "-kafkaPort", "9092"], "kafka port 9092: the port has no Kafka gateway yet: "
-     "it comes with ROADMAP.md item 14b"),
     (["mq.broker", "-pgPort", "5432"], "pg port 5432: the port has no query engine yet: it "
      "comes with ROADMAP.md item 19"),
     (["server", "-ec.backend", "tpu"], "-ec.backend tpu: the port runs its EC on cuda, cpu or auto"),

@@ -11,8 +11,8 @@ compared: the segments, `topic.conf`, `offsets.json` and `schema.json`
 the two brokers write into their filers are byte for byte the same.
 Also: `pick_partition`, the record codec, the shared `mq.proto`, the
 shell's commands string for string, `MqNotifier`'s events, the
-launcher's two modes started by name (and `-kafkaPort` / `-pgPort`
-refused, naming their items), and the archive loop, which the port keeps
+launcher's two modes started by name (and `-pgPort` refused, naming
+its item), and the archive loop, which the port keeps
 alive after a failed cycle where the JAX loop's thread ends.
 """
 
@@ -698,7 +698,7 @@ def test_mq_notifier_publishes_the_events_jax_does(stacks):
 
 
 def test_kafka_notifier_still_names_its_item():
-    with pytest.raises(RuntimeError, match="item 14b"):
+    with pytest.raises(RuntimeError, match="item 14b-2"):
         PKGS["port"].notification.make_notifier("kafka", "127.0.0.1:1")
 
 
@@ -805,15 +805,14 @@ def test_launched_filer_notifies_a_broker(tmp_path, stacks):
         assert code == 0, err
 
 
-@pytest.mark.parametrize("flag,item", [("-kafkaPort", "14b"), ("-pgPort", "19")])
+@pytest.mark.parametrize("flag,item", [("-pgPort", "19")])
 def test_broker_refuses_the_gateways_of_later_items(tmp_path, flag, item):
     proc = launch(tmp_path, "mq.broker", "-ip", "127.0.0.1", "-port", str(allocate_port()), flag,
                   "0")
     _, err = proc.communicate(timeout=60)
     assert proc.returncode == 2 and f"ROADMAP.md item {item}" in err, err
-    kw = {"kafka_port" if flag == "-kafkaPort" else "pg_port": 0}
     with pytest.raises(ValueError, match=f"item {item}"):
-        PKGS["port"].broker.MqBrokerServer(ip="127.0.0.1", grpc_port=allocate_port(), **kw)
+        PKGS["port"].broker.MqBrokerServer(ip="127.0.0.1", grpc_port=allocate_port(), pg_port=0)
 
 
 def test_archive_loop_survives_a_failed_cycle():

@@ -442,8 +442,15 @@ def test_metrics_lint_package_wide():
     assert "sw_s3_auth_memo_total" in {m.name for m in M.REGISTRY._metrics}
     # the MQ broker's modules, with their counterparts
     for name in ("mq.broker", "mq.balancer", "mq.client", "mq.agent",
-                 "mq.log_buffer", "mq.logstore", "mq.stream_parity"):
+                 "mq.log_buffer", "mq.logstore", "mq.stream_parity", "mq.group_commit",
+                 "mq.kafka.gateway", "mq.kafka.frame_pool", "mq.kafka.client"):
         assert f"seaweedfs_tpu_torch.{name}" in sys.modules and f"seaweedfs_tpu.{name}" in sys.modules
+    # the Kafka gateway's and the group commit's families, the JAX ones
+    # imported first (the loop above imports each JAX twin after its port)
+    mine = {m.name for m in M.REGISTRY._metrics}
+    for fam in ("sw_mq_produce_bytes_total", "sw_mq_fetch_bytes_total",
+                "sw_mq_group_commit_windows_total"):
+        assert fam in mine and fam in {m.name for m in JM.REGISTRY._metrics}, fam
 
     metrics = list(M.REGISTRY._metrics)
     assert len(metrics) >= 15
